@@ -1,0 +1,114 @@
+"""PyTorch/CUDA port of the DFW-Trace package ``repro``.
+
+Module names mirror ``src/repro/`` one for one. The port imports torch and
+numpy only: no JAX, and nothing from ``repro`` (it keeps its own copies of
+what it needs).
+
+Two policies live here:
+
+- **Device.** Every entry point takes a ``device`` argument and runs on
+  ``cuda`` unless the caller passes ``device="cpu"``. Without CUDA, the
+  default raises instead of carrying on quietly on the CPU.
+- **Randomness.** The power method's start vector of epoch ``t`` comes from
+  a :class:`V0Stream`, the counterpart of the JAX package's
+  ``sphere_vector(fold_in(key, t), m)``. A free run draws it from a
+  ``torch.Generator`` seeded by (seed, t), so epoch t's vector does not depend
+  on how the run was cut into segments or resumed. A caller may instead hand
+  in every epoch's vector (``V0Stream.from_table``); the parity tests inject
+  the JAX run's stream that way.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def default_device() -> torch.device:
+    """``cuda``; raises when CUDA is not available."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: the port runs on an NVIDIA GPU by default. "
+            "Pass device='cpu' explicitly to run the plain PyTorch versions."
+        )
+    return torch.device("cuda")
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means :func:`default_device`.
+
+    On CUDA this also pins float32 matrix products to full precision (no
+    TF32), so the plain versions that run beside the kernels stay in f32.
+    """
+    dev = default_device() if device is None else torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {dev} requested but CUDA is not available")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        if dev.index is None:  # tensors report an index; compare like with like
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _mix(seed: int, t: int) -> int:
+    """A 63-bit generator seed for epoch ``t`` of run ``seed``."""
+    return (seed * 0x9E3779B97F4A7C15 + t * 0xBF58476D1CE4E5B9 + 1) % (1 << 63)
+
+
+class V0Stream:
+    """Per-epoch unit start vectors for the power method.
+
+    ``V0Stream(seed)`` draws epoch t's vector from a ``torch.Generator`` on
+    the target device, seeded from (seed, t); no host sync is involved.
+    ``V0Stream.from_table(rows)`` returns row t of a caller-given (T, m)
+    table instead (moved to the device once).
+    """
+
+    def __init__(self, seed: int = 0):
+        self.seed = int(seed)
+        self._table: Optional[torch.Tensor] = None
+        self._tables: Dict[torch.device, torch.Tensor] = {}
+        self._gens: Dict[torch.device, torch.Generator] = {}
+
+    @classmethod
+    def from_table(cls, table) -> "V0Stream":
+        stream = cls(0)
+        stream._table = torch.as_tensor(table, dtype=torch.float32)
+        if stream._table.dim() != 2:
+            raise ValueError("v0 table must be (epochs, m)")
+        return stream
+
+    def __call__(self, t: int, m: int, device: torch.device) -> torch.Tensor:
+        device = torch.device(device)
+        if self._table is not None:
+            if not 0 <= t < self._table.shape[0] or self._table.shape[1] != m:
+                raise IndexError(
+                    f"v0 table {tuple(self._table.shape)} has no row {t} of length {m}"
+                )
+            if device not in self._tables:
+                self._tables[device] = self._table.to(device)
+            return self._tables[device][t]
+        from .core.power_method import sphere_vector
+
+        gen = self._gens.get(device)
+        if gen is None:
+            gen = self._gens[device] = torch.Generator(device=device)
+        gen.manual_seed(_mix(self.seed, t))
+        return sphere_vector(gen, m, device)
+
+
+def as_v0_stream(key) -> V0Stream:
+    """An int seed or a :class:`V0Stream` as a :class:`V0Stream`."""
+    if isinstance(key, V0Stream):
+        return key
+    if isinstance(key, int):
+        return V0Stream(key)
+    raise TypeError(f"key must be an int seed or a V0Stream, got {type(key).__name__}")
+
+
+__all__ = [
+    "DeviceLike", "V0Stream", "as_v0_stream", "default_device", "resolve_device",
+]

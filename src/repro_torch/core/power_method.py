@@ -1,0 +1,66 @@
+"""Power method on the implicit gradient (paper Alg. 2, lines 5-10).
+
+The paper's workers send ``grad_j @ v`` to a master that sums and broadcasts;
+here every aggregate goes through the comm chokepoint (``comm.base``), which
+is the identity for one process. Only O(d+m) vectors would cross the wire.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from ..comm.base import DenseReducer
+
+_EPS = 1e-30
+
+
+class PowerResult(NamedTuple):
+    """Top singular triple estimate after K two-sided power iterations."""
+
+    u: torch.Tensor  # (d,) left singular vector estimate, unit norm
+    v: torch.Tensor  # (m,) right singular vector estimate, unit norm
+    sigma: torch.Tensor  # () top singular value estimate (= ||A^T u|| >= 0)
+
+
+def sphere_vector(gen: torch.Generator, m: int, device, dtype=torch.float32) -> torch.Tensor:
+    """Uniform random vector on the unit (m-1)-sphere, drawn from ``gen``."""
+    v = torch.randn(m, generator=gen, device=device, dtype=dtype)
+    return v / (torch.linalg.vector_norm(v) + _EPS)
+
+
+def power_iterations(
+    matvec: Callable[[torch.Tensor], torch.Tensor],
+    rmatvec: Callable[[torch.Tensor], torch.Tensor],
+    v0: torch.Tensor,
+    num_iters: int,
+    *,
+    reducer: Optional[DenseReducer] = None,
+    comm_state=(),
+):
+    """Run ``num_iters`` two-sided power iterations on the implicit operator.
+
+    ``matvec(v)``/``rmatvec(u)`` compute this worker's ``A_j v`` / ``A_j^T
+    u``; each is summed over workers by ``reducer.exchange`` and normalized.
+    ``sigma = ||A^T u||`` is the norm of the *last* aggregated ``rmatvec``,
+    carried out of the loop and never recomputed, so K iterations make
+    exactly 2K exchanges. The two-sided iteration gives ``u^T A v = sigma >=
+    0``, so the trace-norm LMO is ``-mu u v^T`` with no sign fix.
+
+    Returns ``(PowerResult, comm_state)``.
+    """
+    if num_iters < 1:
+        raise ValueError(
+            f"num_iters={num_iters}: power_iterations needs >= 1 iteration "
+            "(0 returns u=0, sigma=0 and silently corrupts the caller)"
+        )
+    if reducer is None:
+        reducer = DenseReducer()
+    v = v0
+    for _ in range(num_iters):
+        uu, comm_state = reducer.exchange(matvec(v), comm_state, slot="u")
+        u = uu / (torch.linalg.vector_norm(uu) + _EPS)
+        vv, comm_state = reducer.exchange(rmatvec(u), comm_state, slot="v")
+        sigma = torch.linalg.vector_norm(vv)
+        v = vv / (sigma + _EPS)
+    return PowerResult(u=u, v=v, sigma=sigma), comm_state

@@ -1,0 +1,172 @@
+"""Paper tasks (§2.3) with Appendix-B *sufficient information* updates.
+
+Each task exposes the implicit-gradient operator interface the FW driver and
+the power method consume (the same duck-typed interface as the JAX package):
+
+    init_state(X, Y)       -> state (this worker's rows)
+    matvec(state, v)       -> local grad_j @ v        (d,)
+    rmatvec(state, u)      -> local grad_j^T @ u      (m,)
+    update(state,u,v,g,mu) -> state after W <- (1-g)W - g*mu u v^T
+    local_loss(state)      -> local loss contribution ()
+    inner_w_grad(state)    -> local <W, grad_j>       ()  (duality gap)
+    linesearch_terms(...)  -> closed-form step terms  (MTLS only)
+
+``matvec``/``rmatvec`` here are the plain PyTorch operator chains, the oracle
+``launch.dfw.verify_kernelized`` holds the kernels to; the run itself routes
+them through the ``power_matvec`` kernels (``launch.dfw.KernelizedTask``).
+``update`` goes through the ``rank1_update`` kernels and **consumes its
+state**: the (n, m) residual or logits are updated in place, which saves one
+(n, m) buffer per epoch. Reductions over (n, m) run over row chunks, so the
+temporaries stay bounded at any n.
+
+Matrix completion and the dense MTLS state come with a later slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple
+
+import torch
+
+from ..kernels.power_matvec import ops as pm_ops
+from ..kernels.rank1_update import ops as r1_ops
+
+_CHUNK_ELEMS = 1 << 26  # elements per row chunk in the (n, m) reductions
+
+
+def _row_chunked_sum(fn: Callable[..., torch.Tensor], *mats: torch.Tensor) -> torch.Tensor:
+    """sum over row chunks c of fn(*[mat[c] for mat in mats]), on the device."""
+    n = mats[0].shape[0]
+    step = max(1, _CHUNK_ELEMS // max(1, mats[0][0].numel() if n else 1))
+    total = fn(*(mat[:step] for mat in mats))
+    for lo in range(step, n, step):
+        total = total + fn(*(mat[lo:lo + step] for mat in mats))
+    return total
+
+
+def _f32(t: torch.Tensor, name: str) -> torch.Tensor:
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    return t
+
+
+# ---------------------------------------------------------------------------
+# Multi-task least squares:  F(W) = 1/2 ||XW - Y||_F^2
+# ---------------------------------------------------------------------------
+
+
+class MTLSState(NamedTuple):
+    """Stores the residual R = X W - Y instead of the d x m gradient."""
+
+    x: torch.Tensor  # (n_j, d)
+    y: torch.Tensor  # (n_j, m)
+    r: torch.Tensor  # (n_j, m) residual X W - Y
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiTaskLeastSquares:
+    d: int
+    m: int
+
+    def init_state(self, x: torch.Tensor, y: torch.Tensor) -> MTLSState:
+        # W^0 = 0  =>  R = -Y
+        return MTLSState(x=_f32(x, "x"), y=_f32(y, "y"), r=-y)
+
+    # grad = X^T R ; never materialized.
+    def matvec(self, s: MTLSState, v: torch.Tensor) -> torch.Tensor:
+        return s.x.T @ (s.r @ v)
+
+    def rmatvec(self, s: MTLSState, u: torch.Tensor) -> torch.Tensor:
+        return s.r.T @ (s.x @ u)
+
+    def update(self, s: MTLSState, u, v, gamma, mu) -> MTLSState:
+        # R' = X[(1-g)W + g S] - Y = (1-g)R - g Y - g mu (X u) v^T, in place.
+        xu = pm_ops.matvec(s.x, u)
+        r = r1_ops.rank1_update_axpy(
+            s.r, s.y, xu, v, 1.0 - gamma, -(gamma * mu), -gamma, out=s.r
+        )
+        return MTLSState(x=s.x, y=s.y, r=r)
+
+    def local_loss(self, s: MTLSState) -> torch.Tensor:
+        return 0.5 * _row_chunked_sum(lambda r: torch.sum(r * r), s.r)
+
+    def inner_w_grad(self, s: MTLSState) -> torch.Tensor:
+        # <W, X^T R> = <X W, R> = <R + Y, R>
+        return _row_chunked_sum(lambda r, y: torch.sum((r + y) * r), s.r, s.y)
+
+    def linesearch_terms(self, s: MTLSState, u, v, mu):
+        """Local (numerator, denominator) of the closed-form step (App. B):
+        gamma* = <-grad, D> / <X^T X D, D> with D = S - W, via
+        X D = -mu (X u) v^T - (R + Y). The caller sums them, then divides."""
+        xu = pm_ops.matvec(s.x, u)
+
+        def terms(r, y, xu_c):
+            xd = -mu * torch.outer(xu_c, v) - (r + y)
+            return torch.stack([-torch.sum(r * xd), torch.sum(xd * xd)])
+
+        numer, denom = _row_chunked_sum(terms, s.r, s.y, xu)
+        return numer, denom
+
+
+# ---------------------------------------------------------------------------
+# Multinomial logistic regression:
+#   F(W) = sum_i [ logsumexp(x_i W) - (x_i W)_{y_i} ]
+# ---------------------------------------------------------------------------
+
+
+class LogisticState(NamedTuple):
+    x: torch.Tensor  # (n_j, d)
+    y: torch.Tensor  # (n_j,) int64 labels
+    z: torch.Tensor  # (n_j, m) logits X W
+
+
+@dataclasses.dataclass(frozen=True)
+class MultinomialLogistic:
+    d: int
+    m: int
+
+    def init_state(self, x: torch.Tensor, y: torch.Tensor) -> LogisticState:
+        if y.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"labels must be int32 or int64, got {y.dtype}")
+        if bool(((y < 0) | (y >= self.m)).any()):
+            raise ValueError(f"labels must lie in [0, {self.m})")
+        z = torch.zeros((x.shape[0], self.m), dtype=torch.float32, device=x.device)
+        return LogisticState(x=_f32(x, "x"), y=y.long(), z=z)
+
+    def _probs(self, s: LogisticState) -> torch.Tensor:
+        return torch.softmax(s.z, dim=-1)
+
+    def _label_sum(self, s: LogisticState, t: torch.Tensor) -> torch.Tensor:
+        """H^T t: t summed per label. ``index_add_`` uses atomics on CUDA, so
+        its summation order (and last bits) can differ from run to run."""
+        return torch.zeros(self.m, dtype=t.dtype, device=t.device).index_add_(0, s.y, t)
+
+    # grad = X^T (P - H); H is one-hot(y). Never materialized.
+    def matvec(self, s: LogisticState, v: torch.Tensor) -> torch.Tensor:
+        pv = self._probs(s) @ v - v[s.y]
+        return s.x.T @ pv
+
+    def rmatvec(self, s: LogisticState, u: torch.Tensor) -> torch.Tensor:
+        t = s.x @ u
+        return self._probs(s).T @ t - self._label_sum(s, t)
+
+    def update(self, s: LogisticState, u, v, gamma, mu) -> LogisticState:
+        # Z' = (1-g) Z - g mu (X u) v^T, in place.
+        xu = pm_ops.matvec(s.x, u)
+        z = r1_ops.rank1_update(s.z, xu, v, 1.0 - gamma, -(gamma * mu), out=s.z)
+        return LogisticState(x=s.x, y=s.y, z=z)
+
+    def local_loss(self, s: LogisticState) -> torch.Tensor:
+        def loss(z, y):
+            return torch.sum(torch.logsumexp(z, dim=-1) - z.gather(1, y[:, None])[:, 0])
+
+        return _row_chunked_sum(loss, s.z, s.y)
+
+    def inner_w_grad(self, s: LogisticState) -> torch.Tensor:
+        # <W, X^T(P-H)> = <Z, P - H>
+        def inner(z, y):
+            p = torch.softmax(z, dim=-1)
+            return torch.stack([torch.sum(z * p), torch.sum(z.gather(1, y[:, None]))])
+
+        zp, zy = _row_chunked_sum(inner, s.z, s.y)
+        return zp - zy

@@ -1,0 +1,14 @@
+"""Plain PyTorch versions of the power-method matvecs (f32 accumulation)."""
+from __future__ import annotations
+
+import torch
+
+
+def matvec(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """A @ v -> (n,) for A (n, m) and v (m,) or (m, 1)."""
+    return a @ v.reshape(a.shape[1])
+
+
+def rmatvec(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """A^T @ u -> (m,) for A (n, m) and u (n,) or (n, 1)."""
+    return a.T @ u.reshape(a.shape[0])

@@ -1,0 +1,4 @@
+from . import kernel, ops, ref
+from .ops import rank1_update, rank1_update_axpy
+
+__all__ = ["kernel", "ops", "ref", "rank1_update", "rank1_update_axpy"]
