@@ -15,7 +15,9 @@ Two policies live here:
   ``torch.Generator`` seeded by (seed, t), so epoch t's vector does not depend
   on how the run was cut into segments or resumed. A caller may instead hand
   in every epoch's vector (``V0Stream.from_table``); the parity tests inject
-  the JAX run's stream that way.
+  the JAX run's stream that way. The int8 reducer's stochastic-rounding
+  noise comes from a :class:`NoiseStream` in the same way: one uniform
+  [0, 1) vector per exchange (epoch t, power iteration i, slot u or v).
 """
 from __future__ import annotations
 
@@ -100,6 +102,60 @@ class V0Stream:
         return sphere_vector(gen, m, device)
 
 
+_SLOTS = {"u": 0, "v": 1}
+
+
+class NoiseStream:
+    """Uniform [0, 1) stochastic-rounding noise, one vector per exchange.
+
+    ``stream(t, i, slot, dim, device)`` is the noise of the exchange in
+    slot ``slot`` ("u" or "v") of power iteration ``i`` of epoch ``t``, the
+    counterpart of the JAX package's ``uniform(fold_in(fold_in(fold_in(
+    fold_in(key, t), 0xC033), i), slot), (dim,))``. ``NoiseStream(seed)``
+    draws it from a ``torch.Generator`` on ``device`` seeded from (seed, t,
+    i, slot), with no host sync, so it does not depend on how a run was cut
+    into segments. ``NoiseStream.from_tables(u, v)`` returns ``u[t, i]`` /
+    ``v[t, i]`` of caller-given (T, K, d) and (T, K, m) tables instead.
+    """
+
+    def __init__(self, seed: int = 0):
+        self.seed = int(seed)
+        self._tables: Optional[Dict[str, torch.Tensor]] = None
+        self._on: Dict[tuple, torch.Tensor] = {}
+        self._gens: Dict[torch.device, torch.Generator] = {}
+
+    @classmethod
+    def from_tables(cls, u, v) -> "NoiseStream":
+        stream = cls(0)
+        stream._tables = {
+            "u": torch.as_tensor(u, dtype=torch.float32),
+            "v": torch.as_tensor(v, dtype=torch.float32),
+        }
+        if any(t.dim() != 3 for t in stream._tables.values()):
+            raise ValueError("noise tables must be (epochs, iterations, dim)")
+        return stream
+
+    def __call__(self, t: int, i: int, slot: str, dim: int, device) -> torch.Tensor:
+        if slot not in _SLOTS:
+            raise ValueError(f"slot must be 'u' or 'v', got {slot!r}")
+        device = torch.device(device)
+        if self._tables is not None:
+            table = self._tables[slot]
+            if not (0 <= t < table.shape[0] and 0 <= i < table.shape[1]) or table.shape[2] != dim:
+                raise IndexError(
+                    f"noise table {slot} {tuple(table.shape)} has no entry ({t}, {i}) "
+                    f"of length {dim}"
+                )
+            if (slot, device) not in self._on:
+                self._on[slot, device] = table.to(device)
+            return self._on[slot, device][t, i]
+        gen = self._gens.get(device)
+        if gen is None:
+            gen = self._gens[device] = torch.Generator(device=device)
+        gen.manual_seed(_mix(_mix(self.seed, t), 2 * i + _SLOTS[slot] + 1))
+        return torch.rand(dim, generator=gen, device=device, dtype=torch.float32)
+
+
 def as_v0_stream(key) -> V0Stream:
     """An int seed or a :class:`V0Stream` as a :class:`V0Stream`."""
     if isinstance(key, V0Stream):
@@ -110,5 +166,6 @@ def as_v0_stream(key) -> V0Stream:
 
 
 __all__ = [
-    "DeviceLike", "V0Stream", "as_v0_stream", "default_device", "resolve_device",
+    "DeviceLike", "NoiseStream", "V0Stream", "as_v0_stream", "default_device",
+    "resolve_device",
 ]

@@ -17,6 +17,7 @@ import torch
 
 from . import DeviceLike, resolve_device
 from .core import low_rank, tasks
+from .kernels.mc_matvec import ops as mc_ops
 
 
 def _fields(obj: Any) -> dict:
@@ -31,17 +32,35 @@ def _f32(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True)).to(device)
 
 
-def task_state(state: Any, *, device: DeviceLike = None):
-    """``MTLSState`` (x, y, r) or ``LogisticState`` (x, y, z; int32 labels
-    become int64) from the JAX package's state of the same name."""
+def _i32(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.int32, copy=True)).to(device)
+
+
+def task_state(state: Any, *, device: DeviceLike = None, d: int = None, m: int = None):
+    """``MTLSState`` (x, y, r), ``LogisticState`` (x, y, z; int32 labels
+    become int64) or ``MCState`` (rows, cols, vals, resid, weight, in the
+    same entry order) from the JAX package's state of the same name. An
+    ``MCState`` needs the task's ``d`` and ``m``, to build the kernel's row
+    and column orders."""
     dev = resolve_device(device)
     f = _fields(state)
+    if set(f) == {"rows", "cols", "vals", "resid", "weight"}:
+        if d is None or m is None:
+            raise TypeError("an MCState needs the task's d and m")
+        rows, cols = _i32(f["rows"], dev), _i32(f["cols"], dev)
+        return tasks.MCState(
+            rows=rows, cols=cols, vals=_f32(f["vals"], dev), resid=_f32(f["resid"], dev),
+            weight=_f32(f["weight"], dev),
+            by_row=mc_ops.build_order(rows, cols, d, m),
+            by_col=mc_ops.build_order(cols, rows, m, d),
+        )
     if set(f) == {"x", "y", "r"}:
         return tasks.MTLSState(x=_f32(f["x"], dev), y=_f32(f["y"], dev), r=_f32(f["r"], dev))
     if set(f) == {"x", "y", "z"}:
         labels = torch.from_numpy(np.asarray(f["y"]).astype(np.int64)).to(dev)
         return tasks.LogisticState(x=_f32(f["x"], dev), y=labels, z=_f32(f["z"], dev))
-    raise TypeError(f"no port state with fields {sorted(f)} (MTLS: x/y/r, logistic: x/y/z)")
+    raise TypeError(f"no port state with fields {sorted(f)} (MTLS: x/y/r, logistic: x/y/z, "
+                    "MC: rows/cols/vals/resid/weight)")
 
 
 def iterate(it: Any, max_rank: int, *, device: DeviceLike = None) -> low_rank.FactoredIterate:

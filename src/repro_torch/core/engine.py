@@ -29,7 +29,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .. import as_v0_stream
+from .. import NoiseStream, as_v0_stream
 from ..comm.base import DenseReducer
 from ..specs import validate
 from . import low_rank
@@ -129,12 +129,15 @@ def run_epochs(
     start_t: int = 0,
     initial_history: Optional[Dict[str, list]] = None,
     solver="rank1",
+    noise: Optional[NoiseStream] = None,
 ) -> EngineResult:
     """Run up to ``num_epochs`` DFW-Trace epochs of one worker on ``device``.
 
     ``iterate`` defaults to a fresh store of ``max_rank`` capacity (validated
     >= num_epochs). ``start_t``/``initial_history``/``iterate``/``state``
     resume a run at epoch ``start_t``; the plan is recomputed from there.
+    ``noise`` feeds stochastic encodings; it defaults to a ``NoiseStream``
+    with the seed of ``key``.
     """
     if not 0 <= start_t < num_epochs:
         raise ValueError(
@@ -151,6 +154,9 @@ def run_epochs(
     validate(solver=solver)
     if reducer is None:
         reducer = DenseReducer()
+    key = as_v0_stream(key)
+    if noise is None:
+        noise = NoiseStream(key.seed)
     if iterate is None:
         iterate = low_rank.init(
             resolve_max_rank(max_rank, num_epochs), task.d, task.m, device=device
@@ -162,9 +168,7 @@ def run_epochs(
         "dispatches": 0,
         "host_syncs": 0,
     }
-    carry = init_carry(
-        state, iterate, as_v0_stream(key), reducer.init_state(task.d, task.m), t=start_t
-    )
+    carry = init_carry(state, iterate, key, reducer.init_state(task.d, task.m), t=start_t)
     tol = None
     if gap_tol is not None:
         tol = torch.full((), gap_tol, dtype=torch.float32, device=device)
@@ -176,7 +180,8 @@ def run_epochs(
     stopped = False
     for seg in segments:
         epoch = make_epoch_step(
-            task, mu, seg.k, step_size=step_size, reducer=reducer, solver=solver
+            task, mu, seg.k, step_size=step_size, reducer=reducer, solver=solver,
+            noise=noise,
         )
         rows: List[EpochAux] = []
         for _ in range(seg.length):

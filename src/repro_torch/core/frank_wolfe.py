@@ -19,7 +19,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from .. import DeviceLike, V0Stream, as_v0_stream, resolve_device
+from .. import DeviceLike, NoiseStream, V0Stream, as_v0_stream, resolve_device
 from ..comm.base import DenseReducer, psum
 from ..specs import validate
 from . import low_rank
@@ -119,11 +119,13 @@ def make_epoch_step(
     step_size: str = "default",
     reducer: Optional[DenseReducer] = None,
     solver="rank1",
+    noise: Optional[NoiseStream] = None,
 ) -> Callable:
     """Returns ``epoch(carry) -> (carry, aux)`` with K = ``num_power_iters``.
 
     The scalar aggregates (loss, <W, grad>, line-search terms) always stay
-    exact; ``reducer`` carries the power method's vector exchanges.
+    exact; ``reducer`` carries the power method's vector exchanges, with
+    ``noise`` (default ``NoiseStream(0)``) for stochastic encodings.
     """
     if step_size not in ("default", "linesearch"):
         raise ValueError(step_size)
@@ -137,6 +139,8 @@ def make_epoch_step(
     validate(solver=solver)
     if reducer is None:
         reducer = DenseReducer()
+    if noise is None:
+        noise = NoiseStream(0)
 
     def epoch(carry: EpochCarry):
         state, it = carry.state, carry.iterate
@@ -153,6 +157,8 @@ def make_epoch_step(
             num_power_iters,
             reducer=reducer,
             comm_state=carry.comm_state,
+            noise=noise,
+            t=carry.t,
         )
         gap = duality_gap(inner, res.sigma, mu)
 
@@ -215,25 +221,28 @@ def fit(
     start_t: int = 0,
     initial_history: Optional[Dict[str, list]] = None,
     solver: str = "rank1",
+    noise: Optional[NoiseStream] = None,
     device: DeviceLike = None,
 ) -> FitResult:
     """Run DFW-TRACE for up to ``num_epochs`` epochs on ``device``.
 
-    ``key`` is an int seed or a ``repro_torch.V0Stream``. ``history[name][t]``
-    is epoch t's measurement at W^t before its update; the loss of the
-    returned iterate is ``final_loss``. ``gap_tol`` stops the run once the
+    ``key`` is an int seed or a ``repro_torch.V0Stream``; ``noise`` is the
+    stochastic encodings' ``NoiseStream`` (default: seeded like ``key``).
+    ``history[name][t]`` is epoch t's measurement at W^t before its update;
+    the loss of the returned iterate is ``final_loss``. ``gap_tol`` stops the run once the
     duality-gap certificate satisfies ``gap <= gap_tol``. ``callback(start_t,
     aux_block)`` fires once per segment with host numpy rows (NaN after an
     early stop). To resume, pass the state, iterate, ``start_t`` and
     ``initial_history`` of epoch ``start_t`` (``repro_torch.convert`` builds
     them from the JAX package's arrays).
 
-    ``state`` is consumed: the update runs in place on its (n, m) tensors.
+    ``state`` is consumed: the dense tasks' update runs in place on its
+    (n, m) tensors.
     """
     from .engine import run_epochs  # engine builds on this module
 
     dev = resolve_device(device)
-    state = type(state)(*(t.to(dev) for t in state))
+    state = type(state)(*(t if t is None else t.to(dev) for t in state))
     if iterate is not None:
         iterate = low_rank.FactoredIterate(*(t.to(dev) for t in iterate))
     eres = run_epochs(
@@ -253,6 +262,7 @@ def fit(
         start_t=start_t,
         initial_history=initial_history,
         solver=solver,
+        noise=noise,
         device=dev,
     )
     final_loss = float(task.local_loss(eres.carry.state))

@@ -3,9 +3,12 @@
 The paper's workers send ``grad_j @ v`` to a master that sums and broadcasts;
 here every aggregate goes through the comm chokepoint (``comm.base``), which
 is the identity for one process. Only O(d+m) vectors would cross the wire.
+A reducer with a stochastic encoding (int8) draws each exchange's noise from
+a ``repro_torch.NoiseStream`` at (epoch t, iteration i, slot).
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -37,6 +40,8 @@ def power_iterations(
     *,
     reducer: Optional[DenseReducer] = None,
     comm_state=(),
+    noise=None,
+    t: int = 0,
 ):
     """Run ``num_iters`` two-sided power iterations on the implicit operator.
 
@@ -47,6 +52,10 @@ def power_iterations(
     exactly 2K exchanges. The two-sided iteration gives ``u^T A v = sigma >=
     0``, so the trace-norm LMO is ``-mu u v^T`` with no sign fix.
 
+    ``noise`` (a ``NoiseStream``, or None for encodings without randomness)
+    and the epoch ``t`` give exchange (i, slot) its noise ``noise(t, i,
+    slot, dim, device)``.
+
     Returns ``(PowerResult, comm_state)``.
     """
     if num_iters < 1:
@@ -56,11 +65,17 @@ def power_iterations(
         )
     if reducer is None:
         reducer = DenseReducer()
+
+    def draw(i, slot):
+        return None if noise is None else partial(noise, t, i, slot)
+
     v = v0
-    for _ in range(num_iters):
-        uu, comm_state = reducer.exchange(matvec(v), comm_state, slot="u")
+    for i in range(num_iters):
+        uu, comm_state = reducer.exchange(
+            matvec(v), comm_state, slot="u", noise=draw(i, "u"))
         u = uu / (torch.linalg.vector_norm(uu) + _EPS)
-        vv, comm_state = reducer.exchange(rmatvec(u), comm_state, slot="v")
+        vv, comm_state = reducer.exchange(
+            rmatvec(u), comm_state, slot="v", noise=draw(i, "v"))
         sigma = torch.linalg.vector_norm(vv)
         v = vv / (sigma + _EPS)
     return PowerResult(u=u, v=v, sigma=sigma), comm_state

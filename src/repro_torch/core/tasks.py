@@ -19,15 +19,21 @@ state**: the (n, m) residual or logits are updated in place, which saves one
 (n, m) buffer per epoch. Reductions over (n, m) run over row chunks, so the
 temporaries stay bounded at any n.
 
-Matrix completion and the dense MTLS state come with a later slice.
+Matrix completion keeps its observed entries in COO layout (``MCState``);
+its matvecs go through the ``mc_matvec`` kernel along row- and column-sorted
+entry orders built once per run, and its per-entry update, loss, <W, grad>
+and line search stay plain PyTorch, as they stay plain XLA in the JAX
+package. The dense MTLS state and block atoms come with later slices.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..kernels.mc_matvec import ops as mc_ops
+from ..kernels.mc_matvec import ref as mc_ref
 from ..kernels.power_matvec import ops as pm_ops
 from ..kernels.rank1_update import ops as r1_ops
 
@@ -170,3 +176,117 @@ class MultinomialLogistic:
 
         zp, zy = _row_chunked_sum(inner, s.z, s.y)
         return zp - zy
+
+
+# ---------------------------------------------------------------------------
+# Matrix completion:  F(W) = 1/2 sum_{(i,j) in Omega} (W_ij - M_ij)^2
+# ---------------------------------------------------------------------------
+
+
+class MCState(NamedTuple):
+    """Sparse sufficient information (paper App. B, completion column).
+
+    The observed entries in COO layout, in the caller's entry order (so a
+    state converts one to one with the JAX package's), plus the residual on
+    those entries, never the d x m matrix. ``weight`` is a {0, 1} padding
+    mask and ``resid`` is stored pre-masked (``weight * (W_ij - M_ij)``), so
+    zero-weight padding contributes exactly zero everywhere.
+
+    ``by_row``/``by_col`` are the once-per-run entry orders of the
+    ``mc_matvec`` kernel (G v reduces along rows, G^T u along columns); the
+    indices never change during a run, so neither do they.
+    """
+
+    rows: torch.Tensor  # (p,) int32 global row index of each observed entry
+    cols: torch.Tensor  # (p,) int32 global column index
+    vals: torch.Tensor  # (p,) observed values M_ij (arbitrary on padding)
+    resid: torch.Tensor  # (p,) weight * (W_ij - M_ij)
+    weight: torch.Tensor  # (p,) {0,1} mask; 0 marks padding entries
+    by_row: Optional[mc_ops.SegmentOrder] = None
+    by_col: Optional[mc_ops.SegmentOrder] = None
+
+
+def pack_observations(rows, cols, vals, weight=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pack COO observations into the generic ``(x, y)`` driver arrays:
+    ``idx`` (p, 2) int32 = [row, col] and ``yw`` (p, 2) f32 = [value,
+    weight], the shapes ``MatrixCompletion.init_state`` consumes."""
+    rows = torch.as_tensor(rows).to(torch.int32)
+    cols = torch.as_tensor(cols).to(torch.int32)
+    vals = torch.as_tensor(vals).to(torch.float32)
+    w = torch.ones_like(vals) if weight is None else torch.as_tensor(weight).to(torch.float32)
+    return torch.stack([rows, cols], dim=1), torch.stack([vals, w], dim=1)
+
+
+def _entrywise_uv(u, v, rows, cols) -> torch.Tensor:
+    """u[rows] * v[cols]: the rank-1 atom on the observed entries."""
+    return u[rows] * v[cols]
+
+
+@dataclasses.dataclass(frozen=True)
+class MatrixCompletion:
+    """Paper §2.3 task 3. The gradient ``P_Omega(W - M)`` is supported on the
+    observed entries, with the residuals as values."""
+
+    d: int
+    m: int
+
+    def init_state(self, idx: torch.Tensor, yw: torch.Tensor) -> MCState:
+        # W^0 = 0  =>  resid = weight * (0 - M)
+        if idx.dim() != 2 or idx.shape[1] != 2 or yw.shape != idx.shape:
+            raise ValueError(f"idx and yw must both be (p, 2), got {tuple(idx.shape)} "
+                             f"and {tuple(yw.shape)}")
+        rows = idx[:, 0].to(torch.int32).contiguous()
+        cols = idx[:, 1].to(torch.int32).contiguous()
+        vals = _f32(yw, "yw")[:, 0].contiguous()
+        weight = yw[:, 1].contiguous()
+        return MCState(
+            rows=rows, cols=cols, vals=vals, resid=-weight * vals, weight=weight,
+            by_row=mc_ops.build_order(rows, cols, self.d, self.m),
+            by_col=mc_ops.build_order(cols, rows, self.m, self.d),
+        )
+
+    # grad @ v: scatter resid_e * v[col_e] into rows. Never materialized.
+    def matvec(self, s: MCState, v: torch.Tensor) -> torch.Tensor:
+        return mc_ref.matvec(s.rows, s.cols, s.resid, v, self.d)
+
+    def rmatvec(self, s: MCState, u: torch.Tensor) -> torch.Tensor:
+        return mc_ref.rmatvec(s.rows, s.cols, s.resid, u, self.m)
+
+    def update(self, s: MCState, u, v, gamma, mu) -> MCState:
+        # W' = (1-g)W - g mu u v^T on the observed entries:
+        # resid' = (1-g) resid - g w M - g mu w u[rows] v[cols]
+        uv = s.weight * _entrywise_uv(u, v, s.rows, s.cols)
+        resid = (1.0 - gamma) * s.resid - gamma * s.weight * s.vals - (gamma * mu) * uv
+        return s._replace(resid=resid)
+
+    def local_loss(self, s: MCState) -> torch.Tensor:
+        # weight^2 == weight for a {0,1} mask, so resid^2 is already masked
+        return 0.5 * torch.sum(s.resid * s.resid)
+
+    def inner_w_grad(self, s: MCState) -> torch.Tensor:
+        # <W, grad> over observed entries; W_ij = resid + M_ij there, and
+        # padding terms vanish with resid == 0.
+        return torch.sum((s.resid + s.weight * s.vals) * s.resid)
+
+    def local_grad(self, s: MCState) -> torch.Tensor:
+        """Dense d x m gradient P_Omega(W - M); tests only."""
+        g = torch.zeros((self.d, self.m), dtype=s.resid.dtype, device=s.resid.device)
+        return g.index_put_((s.rows.long(), s.cols.long()), s.resid, accumulate=True)
+
+    def linesearch_terms(self, s: MCState, u, v, mu):
+        """Local (numerator, denominator) of the exact step for the quadratic
+        objective: gamma* = <-grad, D> / ||P_Omega(D)||^2 with D = S - W, on
+        the observed entries."""
+        # w * D_ij = -mu w u_i v_j - w W_ij, with w W_ij = resid + w M_ij
+        dw = -(mu) * s.weight * _entrywise_uv(u, v, s.rows, s.cols) - (
+            s.resid + s.weight * s.vals
+        )
+        numer = -torch.sum(s.resid * dw)
+        denom = torch.sum(dw * dw)
+        return numer, denom
+
+    def rmse(self, s: MCState) -> torch.Tensor:
+        """RMSE over the (non-padding) observed entries."""
+        return torch.sqrt(
+            torch.sum(s.resid * s.resid) / torch.clamp(torch.sum(s.weight), min=1.0)
+        )

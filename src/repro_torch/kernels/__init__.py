@@ -7,7 +7,7 @@
 ``_build.py`` compiles the sources on first use; importing this package
 compiles nothing.
 """
-from . import power_matvec, rank1_update
+from . import mc_matvec, power_matvec, quantize, rank1_update
 
 #: Every kernel wrapper with a ``launches`` counter, by name.
 WRAPPERS = {
@@ -15,6 +15,9 @@ WRAPPERS = {
     "rmatvec": power_matvec.ops.rmatvec,
     "rank1_update": rank1_update.ops.rank1_update,
     "rank1_update_axpy": rank1_update.ops.rank1_update_axpy,
+    "coo_matvec": mc_matvec.ops.coo_matvec,
+    "quantize": quantize.ops.quantize,
+    "dequantize": quantize.ops.dequantize,
 }
 
 
@@ -27,4 +30,5 @@ def launches() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
-__all__ = ["power_matvec", "rank1_update", "WRAPPERS", "reset_launches", "launches"]
+__all__ = ["mc_matvec", "power_matvec", "quantize", "rank1_update", "WRAPPERS",
+           "reset_launches", "launches"]

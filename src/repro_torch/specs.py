@@ -8,7 +8,7 @@ same error messages as the JAX package:
     topology  "flat" | "ring" | "gossip:k" | "hier:g"
 
 A malformed spec raises :class:`SpecError`. A well-formed spec that the port
-does not run yet (everything but ``rank1``/``dense``/``flat``) raises
+does not run yet (everything but ``rank1``, ``dense``/``int8`` and ``flat``) raises
 :class:`NotYetPorted` from :func:`validate`, before any device work, rather
 than running half-way.
 """
@@ -253,7 +253,7 @@ class NotYetPorted(NotImplementedError):
 
 
 #: What the port runs, per axis.
-PORTED = {"solver": ("rank1",), "comm": ("dense",), "topology": ("flat",)}
+PORTED = {"solver": ("rank1",), "comm": ("dense", "int8"), "topology": ("flat",)}
 
 
 def validate(

@@ -245,7 +245,7 @@ def test_malformed_specs_fail_like_jax(bad):
 
 
 @pytest.mark.parametrize("spec", [
-    dict(solver="block:4"), dict(solver="block:2:adapt"), dict(comm="int8"),
+    dict(solver="block:4"), dict(solver="block:2:adapt"), dict(solver="block:2", comm="int8"),
     dict(comm="topk:8"), dict(topology="ring"), dict(topology="hier:2"),
 ])
 def test_valid_but_unported_specs_raise(spec):
