@@ -35,9 +35,25 @@ Phases, each fatal on failure (exit code != 0, no result line):
    quantize and dequantize launched 2K times per epoch each.
 10. Small MC fits, dense and int8, on the card against the CPU with the same
    start vectors and noise.
+11. Hold the factor-form scoring kernel (``factor_matvec``) against its plain
+   version at the serving shapes (batch 1, 64 and 1024; rank capacity 32,
+   64 and 256; 2048 -> 1000 and 1000 -> 2048) and at tiny odd ones: 1e-4 of
+   max, identical bits on repeat, and a live rank of 20 padded to capacity
+   32 or 64 gives the same bits. Times of kernel, plain version and the
+   cuBLAS chain.
+12. Train, then serve: ``fit_serial`` of MTLS at d = 2048, m = 1000 with
+   n cut to --serve-rows, --serve-epochs epochs, writing a checkpoint at
+   every segment boundary; ``ServingEngine.from_checkpoint`` on the first
+   step scores --serve-batches full batches of 64 (p50/p99 per dispatch,
+   requests per second), hot-swaps to the latest step while a batch is in
+   flight, walks every step, serves 640 single requests through a
+   ``MicroBatcher`` and a transposed engine. Every score is checked against
+   x @ W on the card; launches, rank buckets and the device memory the
+   scoring adds are checked too.
 
-``--profile`` adds 3-epoch fits of the three tasks under ``torch.profiler``
-(device time by kernel, the device's idle share); ``--report PATH`` writes
+``--profile`` adds 3-epoch fits of the three tasks and 50 serving
+dispatches under ``torch.profiler`` (device time by kernel, the device's
+idle share); ``--report PATH`` writes
 every number to a JSON file. ``--rows`` and ``--mc-entries`` cut depth
 (samples, training ratings) for a quick check; the defaults are the full
 sizes.
@@ -73,6 +89,7 @@ TPU_KERNEL = {
     "coo_matvec": "src/repro/kernels/mc_matvec/kernel.py:58",
     "quantize": "src/repro/kernels/quantize/kernel.py:49",
     "dequantize": "src/repro/kernels/quantize/kernel.py:81",
+    "factor_matvec": "src/repro/kernels/factor_matvec/kernel.py:59",
 }
 SOURCE = {
     "matvec": "src/repro_torch/csrc/power_matvec.cu",
@@ -82,6 +99,7 @@ SOURCE = {
     "coo_matvec": "src/repro_torch/csrc/mc_matvec.cu",
     "quantize": "src/repro_torch/csrc/quantize.cu",
     "dequantize": "src/repro_torch/csrc/quantize.cu",
+    "factor_matvec": "src/repro_torch/csrc/factor_matvec.cu",
 }
 # Memory rate (bytes/s) and f32 non-tensor-core peak (flop/s) of each part
 # this script has run on, from NVIDIA's data sheet, keyed by
@@ -91,11 +109,13 @@ CARD_PEAKS = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12)}
 # Kernel-vs-plain tolerances (max |kernel - plain| / max |plain|): the
 # matvecs sum up to 1.28M f32 terms in another order than cuBLAS, and the COO
 # matvec segments of up to ~235 thousand terms in another order than the
-# atomics of index_add_; the rank-1 update is spelled in the plain version's
-# order and should match its bits. The quantize pair must match its plain
-# version bit for bit (checked with torch.equal, not by this table).
+# atomics of index_add_, factor_matvec its rank sums in its own order with
+# FMAs; the rank-1 update is spelled in the plain version's order and should
+# match its bits. The quantize pair must match its plain version bit for bit
+# (checked with torch.equal, not by this table). Served scores are held to
+# x @ W on the card at 1e-4 of max, the serving engine's start-up tolerance.
 TOL = {"matvec": 1e-4, "rmatvec": 1e-4, "rank1_update": 1e-6, "rank1_update_axpy": 1e-6,
-       "coo_matvec": 1e-4}
+       "coo_matvec": 1e-4, "factor_matvec": 1e-4, "serve": 1e-4}
 
 
 def fail(msg: str) -> int:
@@ -306,7 +326,7 @@ def run_path(torch, kernels, dfw, kind, task, X, target, cfg, seed, dev):
 
 PORT_KERNELS = ("matvec_kernel", "rmatvec_partial_kernel", "rmatvec_finish_kernel",
                 "rank1_kernel", "piece_sum_kernel", "segment_sum_kernel", "quantize_kernel",
-                "dequantize_kernel")
+                "dequantize_kernel", "factor_matvec_kernel")
 
 
 def profile_fit(torch, kind, run):
@@ -646,6 +666,286 @@ def first_flip(np, recs, res):
     return epoch, flip
 
 
+SERVE_D, SERVE_M, SERVE_BATCH, SERVE_BLOCK = PAPER_D, PAPER_M, 64, 32
+
+
+def factor_kernel_phase(torch, fm, dev, gen, reps, peaks):
+    """factor_matvec against its plain version at the serving shapes (both
+    directions) and tiny odd ones; bits on repeat; the zero tail of a rank
+    bucket; times of kernel, plain version, the one library call
+    einsum("bi,ki,k,kj->bj") and the cuBLAS chain (x @ a.T * s) @ b, TF32 off."""
+    bw, flops = peaks
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows_out = []
+    for n_in, n_out in ((SERVE_D, SERVE_M), (SERVE_M, SERVE_D)):
+        for bt in (1, SERVE_BATCH, 1024):
+            for cap in (32, 64, 256):
+                x, a, s, b = rn(bt, n_in) / math.sqrt(n_in), rn(cap, n_in), rn(cap), rn(cap, n_out)
+                got = fm.factor_matvec(x, a, s, b)
+                torch.cuda.synchronize()
+                err_abs, err_rel = rel_err(torch, got, fm.ref.factor_matvec(x, a, s, b))
+                check(math.isfinite(err_rel) and err_rel <= TOL["factor_matvec"],
+                      f"factor_matvec b={bt} r={cap} {n_in}->{n_out}: rel err {err_rel:.3e}")
+                check(torch.equal(fm.factor_matvec(x, a, s, b), got),
+                      f"factor_matvec b={bt} r={cap} {n_in}->{n_out} is not bit-stable")
+                lib = lambda x=x, a=a, s=s, b=b: torch.einsum(  # noqa: E731
+                    "bi,ki,k,kj->bj", x, a, s, b)
+                lib_err = rel_err(torch, lib(), got)[1]
+                nbytes = 4 * (bt * n_in + cap * (n_in + n_out + 1) + bt * n_out)
+                nflops = 2 * bt * cap * (n_in + n_out) + bt * cap
+                row = dict(
+                    name="factor_matvec", operand=f"b={bt} r={cap} {n_in}->{n_out}",
+                    shape=[bt, n_in, cap, n_out], max_abs_err=err_abs, max_rel_err=err_rel,
+                    ms=time_ms(torch, lambda: fm.factor_matvec(x, a, s, b), reps),
+                    plain_ms=time_ms(torch, lambda: fm.ref.factor_matvec(x, a, s, b), reps),
+                    library_ms=time_ms(torch, lib, reps), library_rel_err=lib_err,
+                    library_chain_ms=time_ms(torch, lambda: (x @ a.T * s) @ b, reps),
+                    bound_ms=1e3 * max(nbytes / bw, nflops / flops),
+                    bound_by="bytes" if nbytes / bw >= nflops / flops else "operations",
+                    bytes=nbytes, flops=nflops,
+                    main=(bt, cap, n_in) == (SERVE_BATCH, 64, SERVE_D))
+                rows_out.append(row)
+                print(f"kernel factor_matvec b={bt:4d} r={cap:3d} {n_in}->{n_out}: "
+                      f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, einsum "
+                      f"{row['library_ms']:.4f}, cuBLAS chain {row['library_chain_ms']:.4f}, "
+                      f"bound {row['bound_ms']:.5f} by {row['bound_by']}) rel err "
+                      f"{err_rel:.2e}, bit-stable; einsum rel err {lib_err:.2e}")
+    # the zero tail of a rank bucket: live rank 20 at capacity 32 and 64, at
+    # batches that take 1, 2, 4 and 8 rows per block
+    for bt in (1, SERVE_BATCH, 300, 600, 1024):
+        x, a, s, b = rn(bt, SERVE_D), rn(20, SERVE_D), rn(20), rn(20, SERVE_M)
+        live = fm.factor_matvec(x, a, s, b)
+        for cap in (32, 64):
+            pad = lambda t: torch.cat([t, t.new_zeros((cap - 20,) + t.shape[1:])])  # noqa: E731
+            check(torch.equal(fm.factor_matvec(x, pad(a), pad(s), pad(b)), live),
+                  f"factor_matvec b={bt}: capacity {cap} changed the live rank's bits")
+    # tiny odd shapes, 16-byte aligned and not
+    for (bt, n_in, r, n_out) in ((3, 129, 7, 65), (1, 7, 1, 3), (130, 300, 7, 65),
+                                 (33, 128, 12, 257), (300, 128, 12, 257), (600, 256, 7, 65)):
+        for aligned in (True, False):
+            def mk(*sh):
+                t = rn(math.prod(sh) + (0 if aligned else 1))
+                return (t if aligned else t[1:]).view(*sh)
+            x, a, s, b = mk(bt, n_in), mk(r, n_in), rn(r), mk(r, n_out)
+            err = rel_err(torch, fm.factor_matvec(x, a, s, b, alpha=0.7),
+                          fm.ref.factor_matvec(x, a, 0.7 * s, b))[1]
+            check(err <= TOL["factor_matvec"],
+                  f"factor_matvec at {(bt, n_in, r, n_out)} aligned={aligned}: {err:.3e}")
+    print("factor_matvec matches its plain version at the serving and odd shapes, bit-stable, "
+          "a padded rank bucket gives the live rank's bits")
+    return rows_out
+
+
+def train_then_serve(torch, np, dfw, tasks, ckpt, serve, low_rank, kernels, dev, gen, args):
+    """Phase 12: fit_serial writes checkpoints, the serving engine loads,
+    scores and hot-swaps them. Returns (report, fit launches, serving
+    launches)."""
+    import tempfile
+
+    rep = {}
+    n = args.serve_rows
+    X = torch.randn(n, SERVE_D, generator=gen, device=dev)
+    wu, wv = planted(torch, gen, dev, SERVE_D, SERVE_M)
+    Y = (X @ wu) @ wv.T
+    Y.add_(torch.randn(n, SERVE_M, generator=gen, device=dev), alpha=0.01)
+    del wu, wv
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build, prefix="serve_ckpt_") as ckdir:
+        cfg = dfw.DFWConfig(mu=1.0, num_epochs=args.serve_epochs, schedule="log",
+                            step_size="linesearch", block_epochs=16, checkpoint_dir=ckdir,
+                            checkpoint_every=1, checkpoint_keep=None)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = dfw.fit_serial(tasks.MultiTaskLeastSquares(SERVE_D, SERVE_M), X, Y, cfg=cfg,
+                             key=args.seed, device=dev)
+        torch.cuda.synchronize()
+        rep["fit_s"] = time.perf_counter() - t0
+        fit_launch = kernels.launches()
+        want = expected_launches("mtls", res.history["k"], cfg.verify_kernels)
+        check(fit_launch == want, f"serve fit: launches {fit_launch} != expected {want}")
+        steps = ckpt.store.list_steps(ckdir)
+        check(steps[-1] == args.serve_epochs and len(steps) == res.stats["segments_run"],
+              f"serve fit: checkpoint steps {steps} for {res.stats['segments_run']} segments")
+        step_bytes = sum(f.stat().st_size for f in Path(ckdir, f"step_{steps[-1]:08d}").iterdir())
+        rep.update(steps=steps, step_bytes=step_bytes, fit_stats=res.stats)
+        print(f"serve fit: MTLS n={n} d={SERVE_D} m={SERVE_M}, {res.epochs_run} epochs in "
+              f"{rep['fit_s']:.2f} s, checkpoint steps {steps} ({step_bytes / 1e9:.3f} GB each)")
+        del res, X, Y
+        torch.cuda.empty_cache()
+
+        def dense(step):
+            packed = ckpt.read_iterate_packed(ckdir, step)[1]
+            return low_rank.materialize(low_rank.unpack_live(packed, int(packed["count"]),
+                                                             device=dev))
+
+        def score_err(got, x, w):
+            want = torch.from_numpy(x).to(dev) @ w
+            return rel_err(torch, torch.from_numpy(got).to(dev), want)[1]
+
+        rng = np.random.default_rng(args.seed)
+        scfg = serve.ServeConfig(max_batch=SERVE_BATCH, rank_block=SERVE_BLOCK)
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = serve.ServingEngine.from_checkpoint(ckdir, scfg, step=steps[0], device=dev)
+        rep["first_load_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        served = []  # (step, x, scores) checked after the scoring window
+        lat = []
+        for _ in range(args.serve_batches):
+            x = rng.standard_normal((SERVE_BATCH, SERVE_D), dtype=np.float32)
+            t0 = time.perf_counter()
+            got = eng.score(x)
+            lat.append(time.perf_counter() - t0)
+            served.append((eng.model.step, x, got))
+        # hot-swap to the latest step while a batch is in flight
+        x = rng.standard_normal((SERVE_BATCH, SERVE_D), dtype=np.float32)
+        first = eng.score_async(x)
+        t0 = time.perf_counter()
+        eng.load(ckdir)
+        swap_s = [time.perf_counter() - t0]
+        second = eng.score_async(x)
+        check(first.version == 0 and second.version == 1 and second.step == steps[-1],
+              f"in-flight swap: versions {first.version}, {second.version}")
+        served += [(steps[0], x, first.block()), (steps[-1], x, second.block())]
+        # every step in turn, one batch each
+        for step in steps[1:]:
+            t0 = time.perf_counter()
+            eng.load(ckdir, step=step)
+            swap_s.append(time.perf_counter() - t0)
+            x = rng.standard_normal((SERVE_BATCH, SERVE_D), dtype=np.float32)
+            served.append((step, x, eng.score(x)))
+        buckets = {serve.rank_bucket(s, SERVE_BLOCK) for s in steps}
+        check(eng.stats["compilations"] == len(buckets),
+              f"rank buckets prepared {eng.stats['compilations']} != visited {len(buckets)}")
+        # 640 single requests through a MicroBatcher
+        batcher = serve.MicroBatcher(eng, flush_at=SERVE_BATCH)
+        singles = rng.standard_normal((10 * SERVE_BATCH, SERVE_D), dtype=np.float32)
+        tickets = [batcher.submit(q) for q in singles]
+        check(batcher.pending_count == 0 and all(tk.dispatched for tk in tickets),
+              "micro-batcher left requests queued")
+        served.append((eng.model.step, singles, np.stack([tk.result() for tk in tickets])))
+        rise = torch.cuda.max_memory_allocated() - base_mem
+        dispatches = eng.stats["dispatches"]
+        check(dispatches == args.serve_batches + 2 + len(steps) - 1 + 10,
+              f"serving dispatches {dispatches}")
+        # a transposed engine on the latest step (the first engine's start-up
+        # check covered both directions)
+        teng = serve.ServingEngine.from_checkpoint(
+            ckdir, serve.ServeConfig(max_batch=SERVE_BATCH, rank_block=SERVE_BLOCK,
+                                     transpose=True, verify_kernels=False), device=dev)
+        tserved = []
+        for _ in range(20):
+            x = rng.standard_normal((SERVE_BATCH, SERVE_M), dtype=np.float32)
+            tserved.append((teng.model.step, x, teng.score(x)))
+        serve_launch = kernels.launches()
+        dispatches += teng.stats["dispatches"]
+        check(serve_launch["factor_matvec"] == dispatches + 2,
+              f"factor_matvec launches {serve_launch['factor_matvec']} != dispatches "
+              f"{dispatches} + 2")
+        check(rise < 4 * SERVE_D * SERVE_M,
+              f"scoring raised device memory by {rise} bytes, a d x m f32 matrix is "
+              f"{4 * SERVE_D * SERVE_M}")
+        # every score against x @ W (or x @ W^T) on the card
+        ws = {s: dense(s) for s in steps}
+        worst = max(score_err(got, x, ws[s]) for s, x, got in served)
+        worst_t = max(score_err(got, x, ws[s].T) for s, x, got in tserved)
+        check(worst <= TOL["serve"] and worst_t <= TOL["serve"],
+              f"served scores differ from x @ W: rel err {worst:.3e} / transposed {worst_t:.3e}")
+        del ws
+    lat_ms = sorted(1e3 * v for v in lat)
+    rep.update(
+        dispatches=dispatches, compilations=eng.stats["compilations"], buckets=sorted(buckets),
+        launches=serve_launch["factor_matvec"], memory_rise_bytes=rise,
+        latency_p50_ms=statistics.median(lat_ms),
+        latency_p99_ms=lat_ms[min(len(lat_ms) - 1, math.ceil(0.99 * len(lat_ms)) - 1)],
+        requests_per_s=SERVE_BATCH * len(lat) / sum(lat), swap_ms=[1e3 * v for v in swap_s],
+        max_rel_err=worst, max_rel_err_transposed=worst_t)
+    print(f"serve: {len(lat)} batches of {SERVE_BATCH} at live rank {steps[0]} (bucket "
+          f"{serve.rank_bucket(steps[0], SERVE_BLOCK)}): per dispatch p50 "
+          f"{rep['latency_p50_ms']:.4f} ms, p99 {rep['latency_p99_ms']:.4f} ms, "
+          f"{rep['requests_per_s']:.0f} requests/s")
+    print(f"serve: hot-swaps {', '.join(f'{v:.2f}' for v in rep['swap_ms'])} ms; buckets "
+          f"{sorted(buckets)} prepared {eng.stats['compilations']}; {dispatches} dispatches, "
+          f"{serve_launch['factor_matvec']} factor_matvec launches; scoring added "
+          f"{rise} bytes of device memory; max rel err {worst:.2e} (transposed {worst_t:.2e})")
+    return rep, fit_launch, serve_launch, eng
+
+
+def profile_serving(torch, np, eng, n=50):
+    """Device time of n sequential dispatches against their wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    xs = np.random.default_rng(1).standard_normal((n, SERVE_BATCH, eng.n_in), dtype=np.float32)
+    eng.score(xs[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for x in xs:
+            eng.score(x)
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    dev_us, host_us = {}, {}
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            dev_us[ev.key] = dev_us.get(ev.key, 0.0) + ev.self_device_time_total
+        elif ev.self_cpu_time_total > 0:
+            host_us[ev.key] = host_us.get(ev.key, 0.0) + ev.self_cpu_time_total
+    busy = sum(dev_us.values())
+    kern = sum(t for k, t in dev_us.items() if "factor_matvec_kernel" in k)
+    out = dict(dispatches=n, wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+               kernel_us_per_dispatch=kern / n, idle_share=1.0 - busy / wall_us if busy else None,
+               top=sorted(((k[:90], t / 1e3) for k, t in dev_us.items()), key=lambda kv: -kv[1]),
+               # host time of the traced ops (the Python between them is not
+               # traced): where a dispatch's wall time goes
+               host_us_per_dispatch=sorted(((k[:60], t / n) for k, t in host_us.items()),
+                                           key=lambda kv: -kv[1])[:12])
+    if busy:
+        print(f"profile serving ({n} dispatches): wall {out['wall_ms']:.2f} ms, device busy "
+              f"{out['device_busy_ms']:.3f} ms, factor_matvec {out['kernel_us_per_dispatch']:.2f} "
+              f"us per dispatch, idle share {out['idle_share']:.3f}")
+        for k, t in out["top"][:6]:
+            print(f"  {t:9.3f} ms  {k}")
+        print("  host us per dispatch: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in out["host_us_per_dispatch"]))
+    else:
+        print("profile serving: the profiler recorded no device time (not measured)")
+    return out
+
+
+def profile_factor_sweep(torch, fm, dev, gen, n=20, batches=(1, 8, 32, 64, 132, 264, 1024)):
+    """Device time per factor_matvec launch at r = 64, 2048 -> 1000 across
+    batches, beside the grid it launches (blocks against the card's SMs) and
+    the factor bytes every block reads: how the time scales with the grid."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    r, n_in, n_out = 64, SERVE_D, SERVE_M
+    a, s, b = (torch.randn(r, n_in, generator=gen, device=dev), torch.randn(r, device=dev),
+               torch.randn(r, n_out, generator=gen, device=dev))
+    out = []
+    for bt in batches:
+        x = torch.randn(bt, n_in, generator=gen, device=dev)
+        fm.factor_matvec(x, a, s, b)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fm.factor_matvec(x, a, s, b)
+            torch.cuda.synchronize()
+        kern = sum(ev.self_device_time_total for ev in prof.key_averages()
+                   if "factor_matvec_kernel" in ev.key)
+        rows = fm.kernel.rows_per_block(bt)
+        out.append(dict(b=bt, rows_per_block=rows, blocks=-(-bt // rows), sms=sms,
+                        factor_bytes_per_block=4 * r * (n_in + n_out),
+                        device_us=kern / n if kern else None))
+        print(f"profile factor_matvec b={bt:4d}: {out[-1]['blocks']} blocks of {rows} rows on "
+              f"{sms} SMs, device {out[-1]['device_us']} us per launch")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -657,6 +957,10 @@ def main(argv=None) -> int:
                     "the held-out RMSE check needs the full count)")
     ap.add_argument("--mc-epochs", type=int, default=30)
     ap.add_argument("--mc-int8-epochs", type=int, default=10)
+    ap.add_argument("--serve-rows", type=int, default=16384,
+                    help="n of the fit that writes the served checkpoints (the width stays)")
+    ap.add_argument("--serve-epochs", type=int, default=64)
+    ap.add_argument("--serve-batches", type=int, default=200)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--report", default=None, help="also write the full report here")
     ap.add_argument("--profile", action="store_true",
@@ -673,9 +977,11 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(src))
     import numpy as np
 
-    from repro_torch import NoiseStream, V0Stream, comm, kernels, resolve_device
+    from repro_torch import NoiseStream, V0Stream, checkpoint, comm, kernels, resolve_device
+    from repro_torch import serve
     from repro_torch.core import frank_wolfe, low_rank, tasks
     from repro_torch.kernels import _build
+    from repro_torch.kernels import factor_matvec as fm
     from repro_torch.kernels import mc_matvec as mc
     from repro_torch.kernels import power_matvec as pm
     from repro_torch.kernels import quantize as qz
@@ -691,7 +997,8 @@ def main(argv=None) -> int:
         _build.build_all()
         report["build_s"] = time.perf_counter() - t0
         print(f"built kernels in {report['build_s']:.1f} s into {_build.BUILD_DIR}")
-        for src_name in ("power_matvec", "rank1_update", "mc_matvec", "quantize"):
+        for src_name in ("power_matvec", "rank1_update", "mc_matvec", "quantize",
+                         "factor_matvec"):
             for line in _build.build_log(src_name).splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {src_name}: {line.strip()}")
@@ -843,14 +1150,29 @@ def main(argv=None) -> int:
         # 10. small MC fits, dense and int8, card against CPU
         mc_small_parity(torch, np, V0Stream, NoiseStream, comm, qz.ref, dfw, frank_wolfe,
                         tasks, dev)
+
+        # 11. factor_matvec against its plain version at the serving shapes
+        krows += factor_kernel_phase(torch, fm, dev, gen, args.reps, peaks)
+        if args.profile:
+            report["factor_sweep_profile"] = profile_factor_sweep(torch, fm, dev, gen)
+        torch.cuda.empty_cache()
+
+        # 12. train, checkpoint, serve
+        report["serve"], fit12_launch, serve_launch, eng = train_then_serve(
+            torch, np, dfw, tasks, checkpoint, serve, low_rank, kernels, dev, gen, args)
+        if args.profile:
+            report["serve_profile"] = profile_serving(torch, np, eng)
+        del eng
+        torch.cuda.empty_cache()
     except Check as e:
         return fail(str(e))
 
     out = []
-    paths = (mtls_launch, log_launch, mc_launch, mc8_launch)
+    paths = (mtls_launch, log_launch, mc_launch, mc8_launch, fit12_launch, serve_launch)
     for kname in TPU_KERNEL:
         rows = [r for r in krows if r["name"] == kname]
-        main_row = max(rows, key=lambda r: r["bytes"])
+        main_row = next((r for r in rows if r.get("main")), None) or max(
+            rows, key=lambda r: r["bytes"])
         out.append(dict(
             name=kname, route="cuda", source=SOURCE[kname], replaces=TPU_KERNEL[kname],
             launches=sum(path[kname] for path in paths),
@@ -859,7 +1181,8 @@ def main(argv=None) -> int:
             bound_by=main_row["bound_by"], library_ms=main_row["library_ms"],
             shape=main_row["shape"],
             by_operand={r["operand"]: {k: r[k] for k in (
-                "shape", "ms", "plain_ms", "library_ms", "bound_ms", "max_rel_err")}
+                "shape", "ms", "plain_ms", "library_ms", "library_rel_err", "library_chain_ms",
+                "bound_ms", "max_rel_err") if k in r}
                 for r in rows},
         ))
     report["kernels"] = krows

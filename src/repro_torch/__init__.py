@@ -165,7 +165,9 @@ def as_v0_stream(key) -> V0Stream:
     raise TypeError(f"key must be an int seed or a V0Stream, got {type(key).__name__}")
 
 
+from . import checkpoint, serve  # noqa: E402  (they use the policies above)
+
 __all__ = [
-    "DeviceLike", "NoiseStream", "V0Stream", "as_v0_stream", "default_device",
-    "resolve_device",
+    "DeviceLike", "NoiseStream", "V0Stream", "as_v0_stream", "checkpoint", "default_device",
+    "resolve_device", "serve",
 ]

@@ -75,6 +75,19 @@ def iterate(it: Any, max_rank: int, *, device: DeviceLike = None) -> low_rank.Fa
     )
 
 
+def packed_iterate(packed: Any) -> dict:
+    """The serving model's weights from the JAX package: the dict of
+    ``repro.core.low_rank.pack_live`` (after ``jax.device_get``) as numpy
+    arrays with the port's dtypes (f32 factors and alpha, int32 count), ready
+    for ``ServingEngine.load``."""
+    f = _fields(packed)
+    if set(f) != set(low_rank.PACKED_KEYS):
+        raise TypeError(f"no packed iterate with fields {sorted(f)} (expected "
+                        f"{'/'.join(low_rank.PACKED_KEYS)})")
+    return {k: np.array(f[k], dtype=np.int32 if k == "count" else np.float32, copy=True)
+            for k in low_rank.PACKED_KEYS}
+
+
 def epoch_counter(t: Union[int, np.ndarray, Any]) -> int:
     """The epoch counter (the JAX carry's 0-d int32 ``t``) as a host int."""
     return int(np.asarray(t))

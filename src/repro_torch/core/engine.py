@@ -16,6 +16,13 @@ then fills the rest of the segment with NaN rows, as the JAX engine does.
 ``epochs_run`` counts the epochs that ran and the histories are truncated to
 it.
 
+``checkpointer`` (a ``repro_torch.checkpoint.RunCheckpointer``) makes the
+run durable: at each segment boundary it ``want``s, the engine fetches the
+aux blocks not yet on the host and hands the carry to ``save_segment``,
+which copies it to the host for an asynchronous write. That is one host
+sync per saved boundary, counted in ``stats["host_syncs"]``; boundaries the
+checkpointer does not want cost nothing.
+
 ``stats`` counts the engine's interactions with the device:
 ``segments_planned``/``segments_run``, ``dispatches`` (epoch steps
 enqueued, plus the final loss in ``fit``) and ``host_syncs`` (every point
@@ -26,7 +33,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, List, NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from .. import NoiseStream, as_v0_stream
@@ -110,6 +116,36 @@ def _stack_rows(rows: List[EpochAux]) -> EpochAux:
     return EpochAux(*(torch.stack(col) for col in zip(*rows)))
 
 
+def _fetch(blocks: List[list]) -> None:
+    """Copy every block not yet on the host in one transfer (in place)."""
+    pending = [b for b in blocks if b[2] is None]
+    if not pending:
+        return
+    flat = torch.stack([torch.cat(cols) for cols in zip(*(b[1] for b in pending))])
+    flat = flat.cpu().numpy()
+    lo = 0
+    for b in pending:
+        hi = lo + len(b[1].loss)
+        b[2] = EpochAux(*flat[:, lo:hi])
+        lo = hi
+
+
+def _history(initial: Optional[Dict[str, list]], blocks: List[list], upto: int
+             ) -> Dict[str, list]:
+    """The initial history plus every (fetched) block, cut to ``upto`` epochs."""
+    history: Dict[str, list] = {
+        k: list(initial[k]) if initial is not None else []
+        for k in (*_HISTORY_KEYS, "k")
+    }
+    for seg, _, host in blocks:
+        for name, col in zip(_HISTORY_KEYS, host):
+            history[name].extend(float(v) for v in col)
+        history["k"].extend([seg.k] * seg.length)
+    for name in history:
+        del history[name][upto:]
+    return history
+
+
 def run_epochs(
     task,
     state,
@@ -130,6 +166,7 @@ def run_epochs(
     initial_history: Optional[Dict[str, list]] = None,
     solver="rank1",
     noise: Optional[NoiseStream] = None,
+    checkpointer=None,
 ) -> EngineResult:
     """Run up to ``num_epochs`` DFW-Trace epochs of one worker on ``device``.
 
@@ -175,10 +212,10 @@ def run_epochs(
     nan = torch.full((), float("nan"), dtype=torch.float32, device=device)
     nan_row = EpochAux(nan, nan, nan, nan, nan)
 
-    blocks: List[tuple] = []  # (segment, device EpochAux block, host block or None)
+    blocks: List[list] = []  # [segment, device EpochAux block, host block or None]
     epochs_run = start_t
     stopped = False
-    for seg in segments:
+    for i, seg in enumerate(segments):
         epoch = make_epoch_step(
             task, mu, seg.k, step_size=step_size, reducer=reducer, solver=solver,
             noise=noise,
@@ -202,26 +239,21 @@ def run_epochs(
             host = EpochAux(*torch.stack(list(block)).cpu().numpy())
             stats["host_syncs"] += 1
             callback(seg.start, host)
-        blocks.append((seg, block, host))
+        blocks.append([seg, block, host])
+        if checkpointer is not None and checkpointer.want(i, stopped or i == len(segments) - 1):
+            # One sync: the history so far, then the carry's copy to the host
+            # inside save_segment (the device is idle by then).
+            _fetch(blocks)
+            stats["host_syncs"] += 1
+            checkpointer.save_segment(
+                t=epochs_run, carry=carry, history=_history(initial_history, blocks, epochs_run),
+                masks=None, done=stopped,
+            )
         if stopped:
             break
 
-    # One transfer for every block not yet on the host.
-    pending = [b for _, b, h in blocks if h is None]
-    if pending:
-        flat = torch.stack([torch.cat(cols) for cols in zip(*pending)]).cpu().numpy()
+    if any(b[2] is None for b in blocks):
+        _fetch(blocks)
         stats["host_syncs"] += 1
-        bounds = np.cumsum([0] + [len(b.loss) for b in pending])
-        fetched = iter(flat[:, lo:hi] for lo, hi in zip(bounds[:-1], bounds[1:]))
-    history: Dict[str, list] = {
-        k: list(initial_history[k]) if initial_history is not None else []
-        for k in (*_HISTORY_KEYS, "k")
-    }
-    for seg, _, host in blocks:
-        cols = host if host is not None else next(fetched)
-        for name, col in zip(_HISTORY_KEYS, cols):
-            history[name].extend(float(v) for v in col)
-        history["k"].extend([seg.k] * seg.length)
-    for name in history:
-        del history[name][epochs_run:]
+    history = _history(initial_history, blocks, epochs_run)
     return EngineResult(carry=carry, history=history, epochs_run=epochs_run, stats=stats)

@@ -222,6 +222,7 @@ def fit(
     initial_history: Optional[Dict[str, list]] = None,
     solver: str = "rank1",
     noise: Optional[NoiseStream] = None,
+    checkpointer=None,
     device: DeviceLike = None,
 ) -> FitResult:
     """Run DFW-TRACE for up to ``num_epochs`` epochs on ``device``.
@@ -234,7 +235,9 @@ def fit(
     aux_block)`` fires once per segment with host numpy rows (NaN after an
     early stop). To resume, pass the state, iterate, ``start_t`` and
     ``initial_history`` of epoch ``start_t`` (``repro_torch.convert`` builds
-    them from the JAX package's arrays).
+    them from the JAX package's arrays). ``checkpointer`` (a
+    ``repro_torch.checkpoint.RunCheckpointer``) saves segment boundaries;
+    the caller joins its writer with ``checkpointer.wait()``.
 
     ``state`` is consumed: the dense tasks' update runs in place on its
     (n, m) tensors.
@@ -263,6 +266,7 @@ def fit(
         initial_history=initial_history,
         solver=solver,
         noise=noise,
+        checkpointer=checkpointer,
         device=dev,
     )
     final_loss = float(task.local_loss(eres.carry.state))

@@ -85,6 +85,10 @@ def gather_entries(it: FactoredIterate, rows: torch.Tensor, cols: torch.Tensor) 
     return it.alpha * torch.einsum("k,kp,kp->p", it.s, it.u[:, rows], it.v[:, cols])
 
 
+#: Keys of ``pack_live``'s dict, in the order a checkpoint stores them.
+PACKED_KEYS = ("alpha", "count", "s", "u", "v")
+
+
 def pack_live(it: FactoredIterate) -> dict:
     """Host (numpy) dict of the iterate trimmed to its ``count`` live factors,
     in the JAX package's ``pack_live`` layout. Reads the device: not for the

@@ -7,7 +7,7 @@
 ``_build.py`` compiles the sources on first use; importing this package
 compiles nothing.
 """
-from . import mc_matvec, power_matvec, quantize, rank1_update
+from . import factor_matvec, mc_matvec, power_matvec, quantize, rank1_update
 
 #: Every kernel wrapper with a ``launches`` counter, by name.
 WRAPPERS = {
@@ -18,6 +18,7 @@ WRAPPERS = {
     "coo_matvec": mc_matvec.ops.coo_matvec,
     "quantize": quantize.ops.quantize,
     "dequantize": quantize.ops.dequantize,
+    "factor_matvec": factor_matvec.ops.factor_matvec,
 }
 
 
@@ -30,5 +31,5 @@ def launches() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
-__all__ = ["mc_matvec", "power_matvec", "quantize", "rank1_update", "WRAPPERS",
+__all__ = ["factor_matvec", "mc_matvec", "power_matvec", "quantize", "rank1_update", "WRAPPERS",
            "reset_launches", "launches"]

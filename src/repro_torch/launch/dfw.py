@@ -11,8 +11,11 @@ update goes through ``rank1_update``; ``verify_kernelized`` (and, for int8,
 versions before a run starts. ``shard_observations`` lays out matrix
 completion entries as the JAX package does.
 
-The sharded driver, the straggler schedule, checkpointing and telemetry come
-with later slices; a ``DFWConfig`` that asks for them is rejected.
+``DFWConfig(checkpoint_dir=...)`` makes ``fit_serial`` write run checkpoints
+in the JAX package's layout and payload format (``repro_torch.checkpoint``),
+which the serving engine and the JAX package's readers load. The sharded
+driver, the straggler schedule, resuming and telemetry come with later
+slices; a ``DFWConfig`` that asks for them is rejected.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import DeviceLike, NoiseStream, as_v0_stream, resolve_device
+from ..checkpoint import dfw as ckpt
 from ..comm import Int8Reducer, make_reducer, verify_quantize_kernels
 from ..core import engine, frank_wolfe, low_rank, tasks
 from ..core.frank_wolfe import EpochAux
@@ -45,7 +49,7 @@ class DFWConfig:
 
     The port runs the fields in the first group. Every field of the second
     group belongs to a path not yet ported (multi-worker sampling, other
-    solvers/encodings/graphs, Pallas, checkpointing, telemetry) and must keep
+    solvers/encodings/graphs, Pallas, resume, telemetry) and must keep
     its default; anything else raises ``NotYetPorted`` when the config is
     built. The port has no ``kernelize`` switch: the run always goes through
     ``KernelizedTask``, whose ops pick the kernel or the plain version by the
@@ -63,6 +67,9 @@ class DFWConfig:
     max_rank: Optional[int] = None
     gap_tol: Optional[float] = None
     block_epochs: Optional[int] = None
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 1
+    checkpoint_keep: Optional[int] = 2
     # --- not yet ported: must keep these defaults ---
     gossip_rounds: Optional[int] = None
     data_axis: str = "data"
@@ -71,9 +78,6 @@ class DFWConfig:
     use_pallas: Optional[bool] = None
     interpret: bool = False
     engine: str = "scan"
-    checkpoint_dir: Optional[str] = None
-    checkpoint_every: int = 1
-    checkpoint_keep: Optional[int] = 2
     resume_from: Optional[str] = None
     resume_step: Optional[int] = None
     telemetry: Optional[Any] = None
@@ -99,9 +103,6 @@ _UNPORTED = {
     "use_pallas": "Pallas dispatch (the port picks the kernel by tensor device)",
     "interpret": "Pallas interpret mode",
     "engine": "the legacy per-epoch engine",
-    "checkpoint_dir": "checkpointing",
-    "checkpoint_every": "checkpointing",
-    "checkpoint_keep": "checkpointing",
     "resume_from": "checkpoint resume",
     "resume_step": "checkpoint resume",
     "telemetry": "telemetry",
@@ -252,6 +253,24 @@ def shard_observations(rows, cols, vals, num_workers: int, d: int, *,
 # ---------------------------------------------------------------------------
 
 
+def _make_checkpointer(task, cfg: DFWConfig, comm_spec: str
+                       ) -> Optional[ckpt.RunCheckpointer]:
+    """The serial run's checkpointer (one worker), or None without a dir."""
+    if cfg.checkpoint_dir is None:
+        return None
+    return ckpt.RunCheckpointer(
+        cfg.checkpoint_dir,
+        save_every=cfg.checkpoint_every,
+        keep_last=cfg.checkpoint_keep,
+        extra=ckpt.run_extra(
+            task, num_workers=1, comm=comm_spec, num_epochs=cfg.num_epochs,
+            schedule=cfg.schedule, mu=cfg.mu, step_size=cfg.step_size,
+            sample_prob=cfg.sample_prob, reweight=cfg.reweight, solver=cfg.solver,
+            topology=cfg.topology,
+        ),
+    )
+
+
 def _as_tensor(a, device: torch.device) -> torch.Tensor:
     """``a`` on ``device`` with its dtype kept (int32 COO indices stay int32)."""
     if isinstance(a, np.ndarray):
@@ -287,6 +306,11 @@ def fit_serial(
     rows (for matrix completion: the first 64 entries, with the full d and
     m), and under int8 the quantize pair to its plain version. ``stats``
     count the run itself (see ``core/engine.py``), not these set-up checks.
+
+    With ``cfg.checkpoint_dir`` the run owns that directory: steps left there
+    by an earlier run are removed, every ``cfg.checkpoint_every``-th segment
+    boundary (and the last) is saved, the newest ``cfg.checkpoint_keep`` are
+    kept, and the writer is joined before this returns.
     """
     dev = resolve_device(device)
     ktask = kernelize(task)
@@ -298,6 +322,9 @@ def fit_serial(
         if isinstance(reducer, Int8Reducer):
             verify_quantize_kernels(num_workers=reducer.num_workers, device=dev)
     state = ktask.init_state(x, y)
+    checkpointer = _make_checkpointer(task, cfg, reducer.spec)
+    if checkpointer is not None:
+        checkpointer.store.discard_after(0)
     res = frank_wolfe.fit(
         ktask,
         state,
@@ -313,8 +340,11 @@ def fit_serial(
         block_epochs=cfg.block_epochs,
         solver=cfg.solver,
         noise=noise,
+        checkpointer=checkpointer,
         device=dev,
     )
+    if checkpointer is not None:
+        checkpointer.wait()
     return DFWFitResult(
         iterate=res.iterate, state=res.state, history=res.history, masks=None,
         final_loss=res.final_loss, epochs_run=res.epochs_run, stats=res.stats,

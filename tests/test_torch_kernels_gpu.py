@@ -6,8 +6,9 @@ no JAX, so it also runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_kernels_gpu.py
 
 (``--noconftest``: the suite's conftest imports JAX.) Tolerances: the
-matvecs sum in another order than cuBLAS (and the COO matvec than the
-atomics of ``index_add_``), so rtol 1e-4 with an atol of 1e-5 times
+matvecs sum in another order than cuBLAS (the COO matvec than the atomics of
+``index_add_``, factor_matvec than its rank-by-rank plain version, with
+FMAs), so rtol 1e-4 with an atol of 1e-5 times
 max|plain|; the rank-1 update and the quantize pair are spelled in their
 plain versions' order and must match them bit for bit.
 """
@@ -148,3 +149,81 @@ def test_cuda_quantize_pair_matches_plain_bit_for_bit(cuda, n, budget):
     after = kernels.launches()
     assert after["quantize"] == before["quantize"] + 3
     assert after["dequantize"] == before["dequantize"] + 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bt,n_in,r,n_out", [
+    (1, 2048, 32, 1000), (64, 2048, 64, 1000), (64, 1000, 64, 2048), (1024, 2048, 256, 1000),
+    (3, 129, 7, 65), (130, 300, 7, 65), (33, 129, 12, 257), (5, 64, 5000, 40),
+    (300, 2048, 64, 1000), (600, 1000, 64, 2048), (300, 129, 7, 65), (600, 300, 33, 257),
+])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_cuda_factor_matvec_matches_plain(cuda, bt, n_in, r, n_out, aligned):
+    """Kernel against its plain version (the same sums in another order:
+    rtol 1e-4, atol 1e-5 of max), identical bits on repeat, one launch a
+    call. r = 5000 takes the kernel's chunked rank path; b = 300 and 600
+    take 2 and 4 rows per block, b = 1024 takes 8, the rest 1."""
+    from repro_torch.kernels import factor_matvec as fm
+
+    make = (lambda s: torch.randn(*s, device=cuda)) if aligned else (
+        lambda s: _misaligned(s, cuda))
+    x, a, b = make((bt, n_in)) / n_in ** 0.5, make((r, n_in)), make((r, n_out))
+    s = torch.randn(r, device=cuda)
+    before = kernels.launches()["factor_matvec"]
+    got = fm.factor_matvec(x, a, s, b, alpha=0.7)
+    torch.cuda.synchronize()
+    assert kernels.launches()["factor_matvec"] == before + 1
+    assert got.shape == (bt, n_out)
+    _close(got.cpu(), fm.ref.factor_matvec(x, a, 0.7 * s, b).cpu())
+    assert torch.equal(fm.factor_matvec(x, a, s, b, alpha=0.7), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("live,cap", [(20, 32), (20, 64), (1, 32), (30, 5000)])
+@pytest.mark.parametrize("bt", [1, 64, 300, 600, 1024])
+def test_cuda_factor_matvec_zero_tail_gives_the_same_bits(cuda, live, cap, bt):
+    """Rows past the live rank (s = 0, zero factors) change no bit, whatever
+    the capacity and the rows per block."""
+    from repro_torch.kernels import factor_matvec as fm
+
+    x = torch.randn(bt, 2048, device=cuda)
+    a, s, b = (torch.randn(live, 2048, device=cuda), torch.randn(live, device=cuda),
+               torch.randn(live, 1000, device=cuda))
+
+    def pad(t):
+        return torch.cat([t, torch.zeros((cap - live,) + t.shape[1:], device=cuda)])
+
+    assert torch.equal(fm.factor_matvec(x, pad(a), pad(s), pad(b)),
+                       fm.factor_matvec(x, a, s, b))
+
+
+@pytest.mark.gpu
+def test_cuda_serving_engine_scores_and_swaps(cuda):
+    """The engine on the card: start-up check (2 launches), scores against
+    the dense product, an in-flight batch keeps the old model."""
+    from repro_torch import serve
+
+    rng = np.random.default_rng(0)
+
+    def packed(k):
+        return {"u": rng.standard_normal((k, 300)).astype(np.float32),
+                "s": rng.standard_normal(k).astype(np.float32),
+                "v": rng.standard_normal((k, 200)).astype(np.float32),
+                "alpha": np.float32(0.5), "count": np.int32(k)}
+
+    def dense(p):
+        return 0.5 * (p["u"].T * p["s"]) @ p["v"]
+
+    before = kernels.launches()["factor_matvec"]
+    eng = serve.ServingEngine(300, 200, serve.ServeConfig(max_batch=16, rank_block=8))
+    old, new = packed(5), packed(7)
+    eng.load(old)
+    x = rng.standard_normal((9, 300)).astype(np.float32)
+    first = eng.score_async(x)
+    eng.load(new)
+    second = eng.score_async(x)
+    np.testing.assert_allclose(first.block(), x @ dense(old), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(second.block(), x @ dense(new), rtol=1e-4, atol=1e-4)
+    assert (first.version, second.version) == (0, 1)
+    assert kernels.launches()["factor_matvec"] == before + 2 + 2
+    assert eng.stats == {"compilations": 1, "dispatches": 2, "loads": 2, "requests": 18}
