@@ -51,12 +51,32 @@ Phases, each fatal on failure (exit code != 0, no result line):
    x @ W on the card; launches, rank buckets and the device memory the
    scoring adds are checked too.
 
-``--profile`` adds 3-epoch fits of the three tasks and 50 serving
-dispatches under ``torch.profiler`` (device time by kernel, the device's
-idle share); ``--report PATH`` writes
-every number to a JSON file. ``--rows`` and ``--mc-entries`` cut depth
-(samples, training ratings) for a quick check; the defaults are the full
-sizes.
+13. Hold the flash attention kernel (``flash_attention``) against its plain
+   version at the main path's shape (B = 4, Hq 12 / Hkv 2, S = 8192, Dh 128,
+   causal, bf16), at prefill_32k's length (B = 1, S = 32,768), non-causal at
+   S = 4096 (bf16 and f32), and at tiny odd f32 shapes ((Sq, Skv) = (50, 70)
+   and (70, 50), Dh 12 and 16, group sizes 1, 2, 8): every row up to 4096,
+   the first and last 256 query rows beyond; identical bits on repeat.
+   Times of kernel, plain version and scaled_dot_product_attention.
+14. Full-width prefill of qwen2-1.5b (28 layers, d 1536, vocab 151,936,
+   bf16; weights drawn on the card from --seed) through
+   ``launch.steps.make_prefill_step`` on 4 random prompts of 8,192 tokens:
+   last logits finite, cache (28, 4, 2, 8192, 128), one flash_attention
+   launch per layer; ms per prefill (median of 3), tokens/s, peak memory.
+15. Full-width decode: ``launch.serve.generate`` at batch 4, a 64-token
+   prompt and 32 new tokens: tokens in range, no flash_attention launch
+   (decode attention is the dense path); ms per step.
+16. Cross-checks: full-width prefill against ``decode_step`` fed the prompt
+   token by token (4 x 64 tokens) in f32 (1e-3 of max|logits|) and in bf16
+   (5e-2); the smoke config's prefill on the card against the CPU (f32,
+   rtol 1e-4).
+
+``--profile`` adds 3-epoch fits of the three tasks, 50 serving dispatches,
+one prefill and a short decode under ``torch.profiler`` (device time by
+kernel, the device's idle share); ``--report PATH`` writes every number to
+a JSON file. ``--rows``, ``--mc-entries`` and ``--lm-batch/--lm-seq/
+--lm-layers`` cut depth (samples, training ratings, prompts, tokens,
+layers) for a quick check; the defaults are the full sizes.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``. Without CUDA, or run from a directory
@@ -90,6 +110,7 @@ TPU_KERNEL = {
     "quantize": "src/repro/kernels/quantize/kernel.py:49",
     "dequantize": "src/repro/kernels/quantize/kernel.py:81",
     "factor_matvec": "src/repro/kernels/factor_matvec/kernel.py:59",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:88",
 }
 SOURCE = {
     "matvec": "src/repro_torch/csrc/power_matvec.cu",
@@ -100,12 +121,14 @@ SOURCE = {
     "quantize": "src/repro_torch/csrc/quantize.cu",
     "dequantize": "src/repro_torch/csrc/quantize.cu",
     "factor_matvec": "src/repro_torch/csrc/factor_matvec.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 }
-# Memory rate (bytes/s) and f32 non-tensor-core peak (flop/s) of each part
-# this script has run on, from NVIDIA's data sheet, keyed by
-# torch.cuda.get_device_name. Another part fails the run until its entry is
-# added, so that no bound is computed from another card's peaks.
-CARD_PEAKS = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12)}
+# Memory rate (bytes/s), f32 non-tensor-core peak and bf16 dense tensor-core
+# peak (flop/s) of each part this script has run on, from NVIDIA's data
+# sheet, keyed by torch.cuda.get_device_name. Another part fails the run
+# until its entry is added, so that no bound is computed from another card's
+# peaks.
+CARD_PEAKS = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12, 989e12)}
 # Kernel-vs-plain tolerances (max |kernel - plain| / max |plain|): the
 # matvecs sum up to 1.28M f32 terms in another order than cuBLAS, and the COO
 # matvec segments of up to ~235 thousand terms in another order than the
@@ -114,8 +137,23 @@ CARD_PEAKS = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12)}
 # match its bits. The quantize pair must match its plain version bit for bit
 # (checked with torch.equal, not by this table). Served scores are held to
 # x @ W on the card at 1e-4 of max, the serving engine's start-up tolerance.
+# flash_attention is held row by row: each query row's max |kernel - plain|
+# against that row's own max|plain| (a late causal row averages thousands of
+# keys and is far smaller than the first rows, so one max over all rows would
+# hide an error there). f32 inputs to 1e-4 (the online softmax sums in
+# another order than one softmax over the row); bf16 inputs against the plain
+# version on their f32 upcast, to 1e-2, which covers the output's bf16
+# rounding only (at most 2^-8 of the row's max). Whole-model checks:
+# full-width prefill against token-by-token decode, f32, to 1e-3 of
+# max|logits| (28 layers of f32 sums in two orders, the kernel's against the
+# plain dense path's); the same in bf16 to 5e-2 (bf16 rounding of every
+# activation through 28 layers, taken in two different chains); the smoke
+# config's prefill on the card against the CPU, f32, rtol 1e-4 with an atol
+# of 1e-5 of max (f32 sums in another order on each side).
 TOL = {"matvec": 1e-4, "rmatvec": 1e-4, "rank1_update": 1e-6, "rank1_update_axpy": 1e-6,
-       "coo_matvec": 1e-4, "factor_matvec": 1e-4, "serve": 1e-4}
+       "coo_matvec": 1e-4, "factor_matvec": 1e-4, "serve": 1e-4,
+       "flash_attention": 1e-4, "flash_attention_bf16": 1e-2, "lm_f32": 1e-3, "lm_bf16": 5e-2,
+       "lm_card_cpu": 1e-4}
 
 
 def fail(msg: str) -> int:
@@ -133,8 +171,8 @@ def check(cond: bool, msg: str) -> None:
 
 
 def card_peaks(name: str):
-    check(name in CARD_PEAKS, f"no peak table entry for {name!r}: add its memory rate "
-          "and f32 peak to CARD_PEAKS")
+    check(name in CARD_PEAKS, f"no peak table entry for {name!r}: add its memory rate, "
+          "f32 and bf16 peaks to CARD_PEAKS")
     return CARD_PEAKS[name]
 
 
@@ -162,7 +200,7 @@ def rel_err(torch, got, want):
 
 def kernel_phase(torch, pm, r1, dev, X, R, Y, gen, reps, peaks):
     """Every kernel against its plain version at full and tiny odd shapes."""
-    bw, flops = peaks
+    bw, flops = peaks[:2]
     n = X.shape[0]
     rn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
     g = torch.full((), 0.3, device=dev)
@@ -460,7 +498,7 @@ def mc_kernel_phase(torch, mc, qz, dev, state, gen, reps, peaks):
     """coo_matvec (G.v along the row order, G^T.u along the column order) and
     the quantize pair against their plain versions at the MC shapes and at
     tiny odd shapes; times of kernel, plain version and library call."""
-    bw, flops = peaks
+    bw, flops = peaks[:2]
     d, m = state.by_row.out_dim, state.by_col.out_dim
     p = state.resid.numel()
     vals = state.resid
@@ -674,7 +712,7 @@ def factor_kernel_phase(torch, fm, dev, gen, reps, peaks):
     directions) and tiny odd ones; bits on repeat; the zero tail of a rank
     bucket; times of kernel, plain version, the one library call
     einsum("bi,ki,k,kj->bj") and the cuBLAS chain (x @ a.T * s) @ b, TF32 off."""
-    bw, flops = peaks
+    bw, flops = peaks[:2]
     rn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
     torch.backends.cuda.matmul.allow_tf32 = False
     rows_out = []
@@ -946,6 +984,298 @@ def profile_factor_sweep(torch, fm, dev, gen, n=20, batches=(1, 8, 32, 64, 132, 
     return out
 
 
+LM_ARCH = "qwen2_1_5b"  # full width and depth: 28 layers, d 1536, 12/2 heads, Dh 128
+DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 4, 64, 32
+PREFILL_32K = 32768  # models.config.LM_SHAPES["prefill_32k"].seq_len
+FA_HQ, FA_HKV, FA_DH = 12, 2, 128  # qwen2-1.5b's attention
+FA_MAIN = (4, 8192)  # (B, S) of the main path's prefill
+FA_ALL_ROWS = 4096  # up to this S every row is checked and the plain version runs whole
+
+
+def attention_pairs(sq: int, skv: int, causal: bool) -> int:
+    """(query, kv) pairs the function scores: all, or top-left causal."""
+    if not causal:
+        return sq * skv
+    n = min(sq, skv)
+    return n * (n + 1) // 2 + max(0, sq - skv) * skv
+
+
+def flash_kernel_phase(torch, fa, dev, gen, reps, peaks):
+    """flash_attention against its plain version: the main path's shape (B 4,
+    S 8192, causal, bf16), prefill_32k's length (B 1, S 32,768), non-causal
+    cases, tiny odd f32 ones; identical bits on repeat; times of kernel,
+    plain version and scaled_dot_product_attention."""
+    bw, f32_peak, bf16_peak = peaks
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def inputs(b, hq, hkv, sq, skv, dh, dtype):
+        return [torch.randn(b, h, s, dh, generator=gen, device=dev).to(dtype)
+                for h, s in ((hq, sq), (hkv, skv), (hkv, skv))]
+
+    def plain(q, k, v, scale, causal, chunk=1024):
+        """The plain version; past 4096 rows over 1024-row query chunks (the
+        whole score matrix would take 13 GB at the main shape, 52 GB at 32k)."""
+        if q.shape[2] <= FA_ALL_ROWS:
+            return fa.ref.attention(q, k, v, scale=scale, causal=causal)
+        return torch.cat([fa.ref.attention(q[:, :, i:i + chunk], k, v, scale=scale,
+                                           causal=causal, q_offset=i)
+                          for i in range(0, q.shape[2], chunk)], dim=2)
+
+    def error(got, q, k, v, scale, causal):
+        """Each query row against its own max|plain|, the plain version on the
+        f32 upcast: every row up to S = 4096, else the first and last 256
+        query rows. Returns max |kernel - plain|, the worst row's share of its
+        max|plain|, and that share over the last span alone (the rows that
+        average the most keys, whose values are the smallest)."""
+        sq = q.shape[2]
+        spans = [(0, sq)] if sq <= FA_ALL_ROWS else [(0, 256), (sq - 256, sq)]
+        diff = worst = 0.0
+        for lo, hi in spans:
+            want = fa.ref.attention(q[:, :, lo:hi].float(), k.float(), v.float(), scale=scale,
+                                    causal=causal, q_offset=lo)
+            row_diff = (got[:, :, lo:hi].float() - want).abs().amax(-1)
+            row_rel = float((row_diff / want.abs().amax(-1).clamp_min(1e-30)).max())
+            diff, worst = max(diff, float(row_diff.max())), max(worst, row_rel)
+            del want, row_diff
+        return diff, worst, row_rel
+
+    rows_out = []
+    big = [  # (label, b, sq, causal, dtype, reps)
+        ("main path", *FA_MAIN, True, torch.bfloat16, max(3, reps // 3)),
+        ("prefill_32k length", 1, PREFILL_32K, True, torch.bfloat16, 3),
+        ("non-causal", 1, FA_ALL_ROWS, False, torch.bfloat16, reps),
+        ("non-causal f32", 1, FA_ALL_ROWS, False, torch.float32, reps),
+    ]
+    for label, b, s, causal, dtype, nrep in big:
+        q, k, v = inputs(b, FA_HQ, FA_HKV, s, s, FA_DH, dtype)
+        scale = FA_DH ** -0.5
+        got = fa.flash_attention(q, k, v, scale=scale, causal=causal)
+        torch.cuda.synchronize()
+        err_abs, err_rel, err_last = error(got, q, k, v, scale, causal)
+        tol = TOL["flash_attention_bf16" if dtype == torch.bfloat16 else "flash_attention"]
+        check(math.isfinite(err_rel) and err_rel <= tol,
+              f"flash_attention {label}: row-relative err {err_rel:.3e} > {tol:.0e}")
+        check(torch.equal(fa.flash_attention(q, k, v, scale=scale, causal=causal), got),
+              f"flash_attention {label} is not bit-stable")
+        del got
+        esize = torch.tensor([], dtype=dtype).element_size()
+        nbytes = esize * (2 * b * FA_HQ * s * FA_DH + 2 * b * FA_HKV * s * FA_DH)
+        nflops = 4 * FA_DH * b * FA_HQ * attention_pairs(s, s, causal)
+        peak = bf16_peak if dtype == torch.bfloat16 else f32_peak
+        row = dict(
+            name="flash_attention", operand=f"{label}: B={b} Hq={FA_HQ} Hkv={FA_HKV} S={s} "
+            f"Dh={FA_DH} {'causal' if causal else 'full'} {str(dtype)[6:]}",
+            shape=[b, FA_HQ, FA_HKV, s, s, FA_DH], max_abs_err=err_abs, max_rel_err=err_rel,
+            last_rows_rel_err=err_last, tol=tol,
+            ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, scale=scale, causal=causal),
+                       nrep),
+            plain_ms=time_ms(torch, lambda: plain(q, k, v, scale, causal), nrep),
+            library_ms=time_ms(torch, lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True,
+                                                   scale=scale), nrep),
+            bound_ms=1e3 * max(nbytes / bw, nflops / peak),
+            bound_by="bytes" if nbytes / bw >= nflops / peak else "operations",
+            bytes=nbytes, flops=nflops, main=label == "main path")
+        row["tflops"] = nflops / row["ms"] / 1e9
+        rows_out.append(row)
+        print(f"kernel flash_attention {row['operand']}: {row['ms']:.3f} ms ({row['tflops']:.1f} "
+              f"TFLOP/s; plain {row['plain_ms']:.3f}, sdpa {row['library_ms']:.3f}, bound "
+              f"{row['bound_ms']:.4f} by {row['bound_by']}) row-relative err {err_rel:.2e}, "
+              f"last rows {err_last:.2e} (limit {tol:.0e}), bit-stable")
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    # tiny odd f32 shapes: ragged Sq / Skv, Dh 12 and 16, group sizes 1, 2, 8
+    for dh in (12, 16):
+        for hkv in (8, 4, 1):
+            for causal in (True, False):
+                for sq, skv in ((50, 70), (70, 50)):
+                    q, k, v = inputs(2, 8, hkv, sq, skv, dh, torch.float32)
+                    got = fa.flash_attention(q, k, v, scale=dh ** -0.5, causal=causal)
+                    err = error(got, q, k, v, dh ** -0.5, causal)[1]
+                    check(err <= TOL["flash_attention"],
+                          f"flash_attention Sq {sq} Skv {skv} Dh {dh} Hkv {hkv} causal {causal}: "
+                          f"row-relative err {err:.3e}")
+                    check(torch.equal(fa.flash_attention(q, k, v, scale=dh ** -0.5,
+                                                         causal=causal), got),
+                          f"flash_attention Sq {sq} Dh {dh} is not bit-stable")
+    print("flash_attention matches its plain version at the main path's shape, at 32k, "
+          "non-causal and at odd f32 shapes; bit-stable")
+    return rows_out
+
+
+def lm_prefill_phase(torch, kernels, lm, steps, cfg, dev, gen, args):
+    """Phase 14: ``make_prefill_step`` on --lm-batch random prompts of --lm-seq
+    tokens, weights drawn on the card. The run with the counters set to 0
+    is the main path; three more give the time."""
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    rep = dict(arch=cfg.name, layers=cfg.num_layers, batch=args.lm_batch, seq=args.lm_seq,
+               params=lm.param_count(params), init_s=time.perf_counter() - t0)
+    toks = torch.randint(0, cfg.vocab_size, (args.lm_batch, args.lm_seq), generator=gen,
+                         device=dev)
+    step = steps.make_prefill_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    last, cache = step(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    rep["first_ms"] = 1e3 * (time.perf_counter() - t0)
+    launches = kernels.launches()
+    want = dict.fromkeys(launches, 0)
+    want["flash_attention"] = cfg.num_layers
+    check(launches == want, f"prefill: launches {launches} != {want}")
+    rep["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    kv_shape = (cfg.num_layers, args.lm_batch, cfg.num_kv_heads, args.lm_seq, cfg.head_dim_)
+    check(tuple(last.shape) == (args.lm_batch, cfg.vocab_size), f"prefill logits {last.shape}")
+    check(bool(torch.isfinite(last).all()), "prefill: non-finite last-position logits")
+    check(tuple(cache["k"].shape) == kv_shape and tuple(cache["v"].shape) == kv_shape,
+          f"prefill cache {tuple(cache['k'].shape)} != {kv_shape}")
+    check(bool(torch.isfinite(cache["k"]).all() and torch.isfinite(cache["v"]).all()),
+          "prefill: non-finite cache")
+    del last, cache
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = step(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del out
+    med = statistics.median(times)
+    rep.update(ms=[1e3 * t for t in times], ms_median=1e3 * med,
+               tokens_per_s=args.lm_batch * args.lm_seq / med, launches=launches)
+    print(f"prefill {cfg.name} ({cfg.num_layers} layers, {rep['params']} parameters, "
+          f"{cfg.dtype}) on {args.lm_batch} x {args.lm_seq} tokens: median {rep['ms_median']:.1f} "
+          f"ms ({rep['tokens_per_s']:.0f} tokens/s; first {rep['first_ms']:.1f} ms), peak "
+          f"{rep['peak_gb']:.2f} GB, {cfg.num_layers} flash_attention launches; last logits "
+          f"{(args.lm_batch, cfg.vocab_size)} finite, cache {kv_shape}")
+    return rep, launches, params, toks
+
+
+def lm_decode_phase(torch, np, kernels, lm_serve, cfg, dev, seed):
+    """Phase 15: ``generate`` at full width: the prompt fed token by token,
+    then greedy decoding; no launch of the flash kernel (decode attention is
+    the dense path, as in the reference)."""
+    stats = {}
+    kernels.reset_launches()
+    new = lm_serve.generate(arch=LM_ARCH, smoke=False, batch=DECODE_BATCH,
+                            prompt_len=DECODE_PROMPT, max_new_tokens=DECODE_NEW, seed=seed,
+                            device=dev, stats=stats)
+    launches = kernels.launches()
+    check(all(v == 0 for v in launches.values()), f"decode: launches {launches}")
+    check(new.shape == (DECODE_BATCH, DECODE_NEW) and int(new.min()) >= 0
+          and int(new.max()) < cfg.vocab_size, f"decode: tokens {new.shape} out of range")
+    rep = dict(stats, batch=DECODE_BATCH, prompt_len=DECODE_PROMPT, new_tokens=DECODE_NEW,
+               ms_per_token=stats["ms_per_step"], distinct_tokens=int(np.unique(new).size))
+    print(f"decode {cfg.name} at batch {DECODE_BATCH}: {stats['steps']} steps in "
+          f"{stats['loop_s']:.2f} s, {rep['ms_per_token']:.2f} ms per step; tokens in range, "
+          f"0 flash_attention launches")
+    return rep, launches
+
+
+def prefill_vs_decode(torch, lm, steps, cfg, params, toks):
+    """Last-position logits of the prefill (flash kernel) and of decode_step
+    fed the prompt token by token (dense path): max diff / max |decode|."""
+    last, _ = steps.make_prefill_step(cfg)(params, {"tokens": toks})
+    cache = lm.init_cache(cfg, toks.shape[0], toks.shape[1], device=toks.device)
+    for t in range(toks.shape[1]):
+        logits, cache = lm.decode_step(params, cache, {"tokens": toks[:, t:t + 1],
+                                                       "cache_pos": t}, cfg)
+    return rel_err(torch, last.float(), logits[:, 0].float())[1]
+
+
+def lm_crosscheck_phase(torch, lm, steps, get_config, kernels, cfg, params16, dev, gen):
+    """Phase 16: (a) full width in f32 and (b) in bf16, prefill against
+    token-by-token decode on 4 prompts of 64 tokens; (c) the smoke config's
+    prefill on the card against the CPU with the same weights, f32."""
+    import dataclasses
+
+    rep = {}
+    toks = torch.randint(0, cfg.vocab_size, (4, DECODE_PROMPT), generator=gen, device=dev)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = lm.init_params(cfg32, gen)
+    kernels.reset_launches()
+    rep["f32_rel_err"] = prefill_vs_decode(torch, lm, steps, cfg32, params32, toks)
+    check(kernels.launches()["flash_attention"] == cfg.num_layers,
+          "f32 prefill did not launch the flash kernel once per layer")
+    check(rep["f32_rel_err"] <= TOL["lm_f32"],
+          f"full-width f32: prefill vs decode rel err {rep['f32_rel_err']:.3e}")
+    del params32
+    torch.cuda.empty_cache()
+    rep["bf16_rel_err"] = prefill_vs_decode(torch, lm, steps, cfg, params16, toks)
+    check(rep["bf16_rel_err"] <= TOL["lm_bf16"],
+          f"full-width bf16: prefill vs decode rel err {rep['bf16_rel_err']:.3e}")
+
+    small = get_config(LM_ARCH, smoke=True)
+    cpu_params = lm.init_params(small, 7, device="cpu")
+
+    def to(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.to(dev)
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        return [to(v) for v in tree]
+
+    stoks = torch.randint(0, small.vocab_size, (2, 100), generator=torch.Generator().manual_seed(7))
+    on_card = lm.forward(to(cpu_params), {"tokens": stoks.to(dev)}, small, mode="prefill")
+    on_cpu = lm.forward(cpu_params, {"tokens": stoks}, small, mode="prefill")
+    worst = 0.0
+    for got, want in ((on_card["logits"], on_cpu["logits"]),
+                      (on_card["cache"]["k"], on_cpu["cache"]["k"]),
+                      (on_card["cache"]["v"], on_cpu["cache"]["v"])):
+        got = got.cpu()
+        bound = TOL["lm_card_cpu"] * want.abs() + 1e-5 * float(want.abs().max())
+        check(bool(((got - want).abs() <= bound).all()),
+              "smoke prefill: card differs from the CPU beyond rtol 1e-4")
+        worst = max(worst, float(((got - want).abs() / (want.abs() + 1e-30)).max()))
+    rep["smoke_card_vs_cpu_max_rel"] = worst
+    print(f"prefill vs decode at full width: f32 rel err {rep['f32_rel_err']:.2e} (tolerance "
+          f"{TOL['lm_f32']:.0e}), bf16 {rep['bf16_rel_err']:.2e} ({TOL['lm_bf16']:.0e}); smoke "
+          f"prefill card vs CPU within rtol {TOL['lm_card_cpu']:.0e}")
+    return rep
+
+
+def profile_lm(torch, lm_serve, steps, cfg, params, toks, dev, seed):
+    """Device time by kernel and the idle share of one prefill and of a
+    short decode (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    step = steps.make_prefill_step(cfg)
+    runs = (("prefill", lambda: step(params, {"tokens": toks})),
+            ("decode", lambda: lm_serve.generate(
+                arch=LM_ARCH, smoke=False, batch=DECODE_BATCH, prompt_len=8,
+                max_new_tokens=8, seed=seed, device=dev, params=params)))
+    for label, run in runs:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        del res
+        dev_us = {}
+        for ev in prof.key_averages():
+            if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+                dev_us[ev.key] = dev_us.get(ev.key, 0.0) + ev.self_device_time_total
+        busy = sum(dev_us.values())
+        flash = sum(t for k, t in dev_us.items() if "flash_fwd_kernel" in k)
+        out[label] = dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+                          flash_ms=flash / 1e3, idle_share=1.0 - busy / wall_us if busy else None,
+                          top=sorted(((k[:90], t / 1e3) for k, t in dev_us.items()),
+                                     key=lambda kv: -kv[1])[:10])
+        if busy:
+            print(f"profile {label}: wall {out[label]['wall_ms']:.1f} ms, device busy "
+                  f"{out[label]['device_busy_ms']:.1f} ms (flash_attention "
+                  f"{out[label]['flash_ms']:.1f}), idle share {out[label]['idle_share']:.3f}")
+            for k, t in out[label]["top"][:8]:
+                print(f"  {t:9.2f} ms  {k}")
+        else:
+            print(f"profile {label}: the profiler recorded no device time (not measured)")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -961,6 +1291,13 @@ def main(argv=None) -> int:
                     help="n of the fit that writes the served checkpoints (the width stays)")
     ap.add_argument("--serve-epochs", type=int, default=64)
     ap.add_argument("--serve-batches", type=int, default=200)
+    ap.add_argument("--lm-batch", type=int, default=4,
+                    help="prompts of the full-width prefill (phase 14; depth cut only)")
+    ap.add_argument("--lm-seq", type=int, default=8192,
+                    help="tokens per prompt of the full-width prefill (phase 14)")
+    ap.add_argument("--lm-layers", type=int, default=28,
+                    help="layers of qwen2-1.5b in phases 14 and 16 (depth cut only; the "
+                    "width stays)")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--report", default=None, help="also write the full report here")
     ap.add_argument("--profile", action="store_true",
@@ -979,14 +1316,18 @@ def main(argv=None) -> int:
 
     from repro_torch import NoiseStream, V0Stream, checkpoint, comm, kernels, resolve_device
     from repro_torch import serve
+    from repro_torch.configs import get_config
     from repro_torch.core import frank_wolfe, low_rank, tasks
     from repro_torch.kernels import _build
     from repro_torch.kernels import factor_matvec as fm
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mc_matvec as mc
     from repro_torch.kernels import power_matvec as pm
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import rank1_update as r1
-    from repro_torch.launch import dfw
+    from repro_torch.launch import dfw, steps
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import lm
 
     dev = resolve_device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -998,7 +1339,7 @@ def main(argv=None) -> int:
         report["build_s"] = time.perf_counter() - t0
         print(f"built kernels in {report['build_s']:.1f} s into {_build.BUILD_DIR}")
         for src_name in ("power_matvec", "rank1_update", "mc_matvec", "quantize",
-                         "factor_matvec"):
+                         "factor_matvec", "flash_attention"):
             for line in _build.build_log(src_name).splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {src_name}: {line.strip()}")
@@ -1164,11 +1505,39 @@ def main(argv=None) -> int:
             report["serve_profile"] = profile_serving(torch, np, eng)
         del eng
         torch.cuda.empty_cache()
+
+        # 13. flash_attention against its plain version
+        krows += flash_kernel_phase(torch, fa, dev, gen, args.reps, peaks)
+        torch.cuda.empty_cache()
+
+        # 14. full-width prefill of qwen2-1.5b (depth --lm-layers)
+        import dataclasses
+
+        lm_cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=args.lm_layers)
+        report["lm_prefill"], prefill_launch, lm_params, lm_toks = lm_prefill_phase(
+            torch, kernels, lm, steps, lm_cfg, dev, gen, args)
+        if args.profile:
+            report["lm_profile"] = profile_lm(torch, lm_serve, steps, lm_cfg, lm_params, lm_toks,
+                                              dev, args.seed)
+        del lm_toks
+        torch.cuda.empty_cache()
+
+        # 15. full-width decode through generate
+        report["lm_decode"], decode_launch = lm_decode_phase(
+            torch, np, kernels, lm_serve, get_config(LM_ARCH), dev, args.seed)
+        torch.cuda.empty_cache()
+
+        # 16. cross-checks: prefill against decode (f32, bf16), card against CPU
+        report["lm_checks"] = lm_crosscheck_phase(torch, lm, steps, get_config, kernels, lm_cfg,
+                                                  lm_params, dev, gen)
+        del lm_params
+        torch.cuda.empty_cache()
     except Check as e:
         return fail(str(e))
 
     out = []
-    paths = (mtls_launch, log_launch, mc_launch, mc8_launch, fit12_launch, serve_launch)
+    paths = (mtls_launch, log_launch, mc_launch, mc8_launch, fit12_launch, serve_launch,
+             prefill_launch, decode_launch)
     for kname in TPU_KERNEL:
         rows = [r for r in krows if r["name"] == kname]
         main_row = next((r for r in rows if r.get("main")), None) or max(
@@ -1182,7 +1551,7 @@ def main(argv=None) -> int:
             shape=main_row["shape"],
             by_operand={r["operand"]: {k: r[k] for k in (
                 "shape", "ms", "plain_ms", "library_ms", "library_rel_err", "library_chain_ms",
-                "bound_ms", "max_rel_err") if k in r}
+                "bound_ms", "bound_by", "max_rel_err") if k in r}
                 for r in rows},
         ))
     report["kernels"] = krows

@@ -88,6 +88,45 @@ def packed_iterate(packed: Any) -> dict:
             for k in low_rank.PACKED_KEYS}
 
 
+def _float_tensor(a, device) -> torch.Tensor:
+    """A float32 or bfloat16 array as a tensor on ``device``, bit for bit.
+    bf16 arrives as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
+    refuses: it is viewed as uint16, then as bf16."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a.view(np.uint16), copy=True)).view(
+            torch.bfloat16).to(device)
+    if a.dtype != np.float32:
+        raise TypeError(f"expected a float32 or bfloat16 leaf, got {a.dtype}")
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def lm_params(params: Any, cfg, *, device: DeviceLike = None) -> dict:
+    """The port's parameter dict of an LM from the JAX package's (after
+    ``jax.device_get``): the same names and leaves, with the stacked
+    ``(L, ...)`` layer leaves unstacked into ``params["layers"][i]``. Only
+    the families the port runs (``models.lm.PORTED_FAMILIES``) are taken."""
+    from .models import lm
+
+    lm.check_family(cfg)
+    dev = resolve_device(device)
+    f = _fields(params)
+    out = {name: _float_tensor(f[name], dev)
+           for name in ("embed", "final_norm", "unembed") if name in f}
+    stacked = f["layers"]
+
+    def layer(tree, i):
+        if isinstance(tree, dict):
+            return {k: layer(v, i) for k, v in tree.items()}
+        a = np.asarray(tree)
+        if a.shape[0] != cfg.num_layers:
+            raise ValueError(f"stacked leaf of shape {a.shape}: expected {cfg.num_layers} layers")
+        return _float_tensor(a[i], dev)
+
+    out["layers"] = [layer(stacked, i) for i in range(cfg.num_layers)]
+    return out
+
+
 def epoch_counter(t: Union[int, np.ndarray, Any]) -> int:
     """The epoch counter (the JAX carry's 0-d int32 ``t``) as a host int."""
     return int(np.asarray(t))

@@ -7,7 +7,7 @@
 ``_build.py`` compiles the sources on first use; importing this package
 compiles nothing.
 """
-from . import factor_matvec, mc_matvec, power_matvec, quantize, rank1_update
+from . import factor_matvec, flash_attention, mc_matvec, power_matvec, quantize, rank1_update
 
 #: Every kernel wrapper with a ``launches`` counter, by name.
 WRAPPERS = {
@@ -19,6 +19,7 @@ WRAPPERS = {
     "quantize": quantize.ops.quantize,
     "dequantize": quantize.ops.dequantize,
     "factor_matvec": factor_matvec.ops.factor_matvec,
+    "flash_attention": flash_attention.ops.flash_attention,
 }
 
 
@@ -31,5 +32,5 @@ def launches() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
-__all__ = ["factor_matvec", "mc_matvec", "power_matvec", "quantize", "rank1_update", "WRAPPERS",
-           "reset_launches", "launches"]
+__all__ = ["factor_matvec", "flash_attention", "mc_matvec", "power_matvec", "quantize",
+           "rank1_update", "WRAPPERS", "reset_launches", "launches"]

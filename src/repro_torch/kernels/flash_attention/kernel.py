@@ -1,0 +1,68 @@
+"""ctypes binding of ``csrc/flash_attention.cu`` (see its header for the design).
+
+The launch goes on PyTorch's current stream and does not synchronise; the
+caller allocates the output. A launch that CUDA refuses raises here.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+
+_P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
+_lib = None
+
+# Head dims the kernel is compiled for; a smaller Dh runs in the next one up
+# with a zero tail.
+HEAD_DIMS = (64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = _build.library("flash_attention")
+        lib.fa_forward.argtypes = ([_P] * 4 + [_I64] * 9 + [_I] * 7 + [_F, _I, _I, _I, _I, _P])
+        lib.fa_forward.restype = ctypes.c_int
+        lib.fa_error_string.argtypes = [ctypes.c_int]
+        lib.fa_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def head_dim_bucket(dh: int) -> int:
+    """The compiled head dim the kernel runs ``dh`` in."""
+    return next(d for d in HEAD_DIMS if dh <= d)
+
+
+def vec_ok(dtype: torch.dtype, dh: int, *tensors: torch.Tensor) -> bool:
+    """16-byte loads are safe: every row of q, k and v starts on a 16-byte
+    boundary and Dh fills whole 16-byte chunks."""
+    per16 = 128 // torch.finfo(dtype).bits
+    if dh % per16:
+        return False
+    for t in tensors:
+        if t.data_ptr() % 16 or any(s % per16 for s in t.stride()[:3]):
+            return False
+    return True
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                    *, scale: float, causal: bool) -> None:
+    """out (B, Hq, Sq, Dh, contiguous) = attention of q (B, Hq, Sq, Dh) over
+    k, v (B, Hkv, Skv, Dh), read through their (B, H, S) strides; one dtype,
+    one CUDA device, last dimension contiguous."""
+    lib = _library()
+    b, hq, sq, dh = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    err = lib.fa_forward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        b, hq, hkv, sq, skv, dh, head_dim_bucket(dh), scale, int(causal),
+        _DTYPE_CODE[q.dtype], int(vec_ok(q.dtype, dh, q, k, v)), q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: {lib.fa_error_string(err).decode()}")

@@ -1,0 +1,67 @@
+"""Public wrapper of GQA flash attention (forward).
+
+``flash_attention(q, k, v, scale=..., causal=...)`` takes the reference's
+public layout, q (B, Hq, Sq, Dh) and k, v (B, Hkv, Skv, Dh), bf16 or f32,
+one dtype for all three, Hq % Hkv == 0, Dh <= 128, and returns (B, Hq, Sq,
+Dh) in q's dtype. The causal mask is top-left aligned (query i sees kv
+positions <= i, also when Sq != Skv), as in the TPU kernel.
+
+Tensors on the CPU take the plain version (``ref.attention``); CUDA tensors
+launch the hand-written kernel (``csrc/flash_attention.cu``) or raise. The
+kernel reads q, k and v through their batch, head and sequence strides, so
+the head-major view ``x.reshape(b, s, h, dh).transpose(1, 2)`` goes in
+without a copy; the last dimension must be contiguous (stride 1). Ragged
+Sq and Skv are masked in the kernel; nothing is padded.
+``flash_attention.launches`` counts the kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import _checks
+from . import kernel, ref
+
+DTYPES = (torch.bfloat16, torch.float32)
+MAX_HEAD_DIM = 128
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor) or t.dim() != 4:
+            raise ValueError(f"{name} must be a 4-D tensor (B, H, S, Dh)")
+        if t.dtype not in DTYPES:
+            raise TypeError(f"{name} must be bfloat16 or float32, got {t.dtype}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}: one dtype for all three")
+        if t.shape[-1] > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{name}'s last dimension must be contiguous (stride 1)")
+    b, hq, _, dh = q.shape
+    if tuple(k.shape) != tuple(v.shape):
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
+    bk, hkv, _, dk = k.shape
+    if bk != b or dk != dh:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ in batch or Dh")
+    if hkv < 1 or hq % hkv != 0:
+        raise ValueError(f"Hq = {hq} is not a multiple of Hkv = {hkv}")
+    if not 1 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {dh} is outside 1..{MAX_HEAD_DIM}")
+    _checks.same_device(q.device, k=k, v=v)
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float, causal: bool = True,
+) -> torch.Tensor:
+    """softmax(Q K^T * scale [causal mask]) V with GQA -> (B, Hq, Sq, Dh)."""
+    _check(q, k, v)
+    if not _checks.kernel_device(q.device, "flash_attention"):
+        return ref.attention(q, k, v, scale=scale, causal=causal)
+    b, hq, sq, dh = q.shape
+    out = torch.empty((b, hq, sq, dh), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    kernel.flash_attention(q, k, v, out, scale=float(scale), causal=bool(causal))
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,27 +1,37 @@
-"""Serving driver, the port's counterpart of ``repro.launch.serve``.
+"""Serving drivers, the port's counterpart of ``repro.launch.serve``.
 
-``serve_factored`` scores request vectors against a DFW-Trace run
+Two traffic shapes live here:
+
+* ``serve_factored`` scores request vectors against a DFW-Trace run
 checkpoint through ``repro_torch.serve.ServingEngine`` (the ``factor_matvec``
 kernel, padded static batches, rank buckets) and, with ``follow``, polls the
 directory and hot-swaps onto every newer step that training writes: one
 process fits, this one scores, and the model never exists as a dense d x m
 matrix in either.
+* ``generate`` decodes a batch of prompts over the LM zoo's dense family,
+  token by token through ``decode_step`` against a KV cache, greedily or
+  with temperature sampling.
 
-CLI: ``python -m repro_torch.launch.serve factor --checkpoint DIR`` (on the
-card; ``--device cpu`` runs the plain PyTorch version). The reference's
-``lm`` subcommand (LM decode over the model zoo) is not yet ported.
+CLI: ``python -m repro_torch.launch.serve factor --checkpoint DIR`` or
+``python -m repro_torch.launch.serve lm --arch NAME`` (on the card;
+``--device cpu`` runs the plain PyTorch versions).
 """
 from __future__ import annotations
 
 import argparse
 import time
 
-import numpy as np
+from typing import Optional
 
-from .. import DeviceLike
+import numpy as np
+import torch
+
+from .. import DeviceLike, resolve_device
 from ..checkpoint.store import list_steps
+from ..configs import get_config
+from ..models import lm
 from ..serve import ServeConfig, ServingEngine
-from ..specs import NotYetPorted
+from .steps import make_serve_step
 
 
 def serve_factored(
@@ -80,6 +90,83 @@ def serve_factored(
             "live_rank": eng.model.live_rank, "version": eng.model.version}
 
 
+# ---------------------------------------------------------------------------
+# LM decode
+# ---------------------------------------------------------------------------
+
+
+def generate(
+    *,
+    arch: str,
+    batch: int = 4,
+    prompt_len: int = 16,
+    max_new_tokens: int = 32,
+    smoke: bool = True,
+    temperature: float = 0.0,
+    seed: int = 0,
+    device: DeviceLike = None,
+    params: Optional[dict] = None,
+    prompt=None,
+    stats: Optional[dict] = None,
+):
+    """Greedy or temperature sampling over the synthetic-token distribution,
+    the reference's loop: the prompt is fed token by token through the serve
+    step, then each step feeds the last sampled token, for prompt_len +
+    max_new_tokens - 1 steps against a cache of prompt_len + max_new_tokens
+    slots. Returns the (batch, max_new_tokens) new tokens as numpy int64.
+
+    Free runs draw the parameters and then the prompt from one
+    ``torch.Generator`` seeded with ``seed`` on the device; temperature
+    sampling draws from it too (``torch.multinomial``), so it matches the
+    reference in distribution only. ``params`` (a port parameter dict, e.g.
+    from ``convert.lm_params``) and ``prompt`` ((batch, prompt_len) token
+    ids) replace the draws; the tests inject the JAX run's arrays there.
+    ``stats``, when given a dict, receives the decode loop's wall time."""
+    cfg = get_config(arch, smoke=smoke)
+    if cfg.encoder_only:
+        raise ValueError(f"{arch} is encoder-only; no decode path")
+    lm.check_family(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    if params is None:
+        params = lm.init_params(cfg, gen)
+    if prompt is None:
+        prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen, device=dev)
+    else:
+        prompt = torch.from_numpy(np.array(prompt, dtype=np.int64)).to(dev)
+        if tuple(prompt.shape) != (batch, prompt_len):
+            raise ValueError(f"prompt has shape {tuple(prompt.shape)}, expected "
+                             f"{(batch, prompt_len)}")
+    max_len = prompt_len + max_new_tokens
+    cache = lm.init_cache(cfg, batch, max_len, device=dev)
+    step = make_serve_step(cfg)
+
+    out_tokens = []
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for t in range(max_len - 1):
+        cur = prompt[:, t:t + 1] if t < prompt_len else out_tokens[-1]
+        logits, cache = step(params, cache, {"tokens": cur, "cache_pos": t})
+        if t >= prompt_len - 1:
+            last = logits[:, 0, :].float()
+            if temperature > 0:
+                probs = torch.softmax(last / temperature, dim=-1)
+                nxt = torch.multinomial(probs, 1, generator=gen)
+            else:
+                nxt = torch.argmax(last, dim=-1, keepdim=True)
+            out_tokens.append(nxt)
+    new = torch.cat(out_tokens, dim=1).cpu().numpy()
+    dt = time.perf_counter() - t0
+    if stats is not None:
+        stats.update(loop_s=dt, steps=max_len - 1, new_tokens=len(out_tokens),
+                     ms_per_step=1e3 * dt / max(max_len - 1, 1))
+    print(f"[serve] {arch}: generated {new.shape} in {dt:.2f}s "
+          f"({dt / max(len(out_tokens), 1) * 1e3:.1f} ms/token at batch {batch})")
+    return new
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = ap.add_subparsers(dest="mode", required=True)
@@ -95,13 +182,21 @@ def main(argv=None):
     fp.add_argument("--poll-s", type=float, default=0.2)
     fp.add_argument("--seed", type=int, default=0)
     fp.add_argument("--device", default=None, help="default: cuda")
-    sub.add_parser("lm", help="LM decode over the model zoo (not yet ported)")
-    args, rest = ap.parse_known_args(argv)
+    lp = sub.add_parser("lm", help="LM decode over the model zoo (dense family)")
+    lp.add_argument("--arch", required=True)
+    lp.add_argument("--batch", type=int, default=4)
+    lp.add_argument("--prompt-len", type=int, default=16)
+    lp.add_argument("--max-new-tokens", type=int, default=32)
+    lp.add_argument("--temperature", type=float, default=0.0)
+    lp.add_argument("--device", default=None, help="default: cuda")
+    args = ap.parse_args(argv)
     if args.mode == "lm":
-        raise NotYetPorted("the lm serving driver (the LM zoo) is not yet ported to PyTorch")
-    if rest:
-        ap.error(f"unrecognized arguments: {' '.join(rest)}")
-    serve_factored(
+        return generate(
+            arch=args.arch, batch=args.batch, prompt_len=args.prompt_len,
+            max_new_tokens=args.max_new_tokens, temperature=args.temperature,
+            device=args.device,
+        )
+    return serve_factored(
         checkpoint=args.checkpoint, max_batch=args.max_batch, rank_block=args.rank_block,
         transpose=args.transpose, batches=args.batches, follow=args.follow,
         poll_s=args.poll_s, seed=args.seed, device=args.device,

@@ -1,0 +1,221 @@
+"""Shared transformer layers of the dense LM family: norms, RoPE, GQA
+attention, MLPs. The port's counterpart of ``repro.models.layers``.
+
+Functions take parameter dicts of tensors, in the reference's layout
+(weights ``(in, out)``, used as ``x @ w``). The reference's sharding
+annotations are no-ops on one device and are dropped; M-RoPE (vlm) and the
+sequence-sharded decode (multi-device) are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.flash_attention import ops as attn_ops
+from ..kernels.flash_attention import ref as attn_ref
+
+Params = Dict[str, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float) -> torch.Tensor:
+    """(B, S, head_dim/2) rotation angles for integer positions (B, S)."""
+    half = head_dim // 2
+    exponent = -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    inv_freq = torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device),
+                         exponent)
+    return positions[..., None].float() * inv_freq
+
+
+def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x: (B, H, S, Dh); angles: (B, S, Dh/2). Split-half rotation; cos and
+    sin are cast to x's dtype before the products, as in the reference."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    cos = torch.cos(angles)[:, None].to(x.dtype)
+    sin = torch.sin(angles)[:, None].to(x.dtype)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA). Three execution paths:
+#   flash   — the CUDA kernel: every multi-token, offset-0 call on the card
+#   chunked — a loop over q chunks, O(chunk * S) live scores (long, off-card)
+#   dense   — everything else: short sequences, decode against a cache
+# ---------------------------------------------------------------------------
+
+
+def _expand_heads(kv: torch.Tensor, hq: int) -> torch.Tensor:
+    """Repeat each KV head hq / Hkv times along the head axis."""
+    hkv = kv.shape[1]
+    if hkv != hq:
+        kv = torch.repeat_interleave(kv, hq // hkv, dim=1)
+    return kv
+
+
+def _dense_attention(q, k, v, *, scale, causal, q_offset=0):
+    hq = q.shape[1]
+    return attn_ref.attention(
+        q, _expand_heads(k, hq), _expand_heads(v, hq),
+        scale=scale, causal=causal, q_offset=q_offset,
+    )
+
+
+def _chunked_attention(q, k, v, *, scale, causal, chunk: int):
+    """Query chunks in turn; each sees the full K/V with masking. Live
+    scores: O(B * H * chunk * S). (The reference scans with remat; with no
+    gradients here a loop is the same computation.)"""
+    s = q.shape[2]
+    k = _expand_heads(k, q.shape[1])
+    v = _expand_heads(v, q.shape[1])
+    outs = [
+        attn_ref.attention(q[:, :, i:i + chunk], k, v, scale=scale, causal=causal, q_offset=i)
+        for i in range(0, s, chunk)
+    ]
+    return torch.cat(outs, dim=2)
+
+
+def attention(
+    q: torch.Tensor,  # (B, Hq, Sq, Dh)
+    k: torch.Tensor,  # (B, Hkv, Skv, Dh)
+    v: torch.Tensor,
+    *,
+    scale: float,
+    causal: bool,
+    q_offset: int = 0,
+    chunk: int = 2048,
+) -> torch.Tensor:
+    """Dispatch, as the reference's: the flash kernel for a multi-token
+    offset-0 call on the accelerator (here: a CUDA tensor), else the
+    chunked path for long sequences that split evenly, else dense."""
+    sq = q.shape[2]
+    if q.device.type == "cuda" and sq > 1 and q_offset == 0:
+        return attn_ops.flash_attention(q, k, v, scale=scale, causal=causal)
+    if sq > chunk and sq % chunk == 0 and q_offset == 0:
+        return _chunked_attention(q, k, v, scale=scale, causal=causal, chunk=chunk)
+    return _dense_attention(q, k, v, scale=scale, causal=causal, q_offset=q_offset)
+
+
+# ---------------------------------------------------------------------------
+# Attention block (QKV proj + rope + attention + out proj)
+# ---------------------------------------------------------------------------
+
+
+def normal(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
+    """N(0, 1) draws from ``gen`` (parameter init)."""
+    return torch.randn(shape, generator=gen, dtype=dtype, device=device)
+
+
+def init_attention(gen: torch.Generator, cfg, dtype: torch.dtype, device) -> Params:
+    d, hq, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    std = d**-0.5
+    p = {
+        "wq": normal(gen, (d, hq * dh), dtype, device) * std,
+        "wk": normal(gen, (d, hkv * dh), dtype, device) * std,
+        "wv": normal(gen, (d, hkv * dh), dtype, device) * std,
+        "wo": normal(gen, (hq * dh, d), dtype, device) * std,
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((hq * dh,), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((hkv * dh,), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((hkv * dh,), dtype=dtype, device=device)
+    return p
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    y = x @ w
+    return y if bias is None else y + bias
+
+
+def attention_block(
+    p: Params,
+    x: torch.Tensor,  # (B, S, D)
+    cfg,
+    *,
+    angles: Optional[torch.Tensor],  # rope angles for the current positions
+    cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (k, v): (B, Hkv, Smax, Dh)
+    cache_pos: Optional[int] = None,  # write offset / number of valid entries
+    return_kv: bool = False,  # prefill: emit this layer's (k, v) as the cache
+) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+    """Without a cache: attention over x's own positions. With a cache and
+    one token: the token's k and v are written into the cache IN PLACE at
+    ``cache_pos`` (the reference returns an updated copy), and the token
+    attends to positions 0..cache_pos."""
+    b, s, _ = x.shape
+    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+
+    q = _proj(x, p["wq"], p.get("bq"))
+    kk = _proj(x, p["wk"], p.get("bk"))
+    vv = _proj(x, p["wv"], p.get("bv"))
+    # head-major views; the flash kernel reads them through their strides
+    q = q.reshape(b, s, hq, dh).transpose(1, 2)
+    kk = kk.reshape(b, s, hkv, dh).transpose(1, 2)
+    vv = vv.reshape(b, s, hkv, dh).transpose(1, 2)
+
+    if angles is not None:
+        q = apply_rope(q, angles)
+        kk = apply_rope(kk, angles)
+
+    scale = dh**-0.5
+    new_cache = None
+    if cache is None:
+        out = attention(q, kk, vv, scale=scale, causal=cfg.causal, chunk=cfg.seq_chunk)
+        if return_kv:
+            new_cache = (kk, vv)
+    elif s > 1:
+        raise NotImplementedError("chunked prefill-into-cache not needed here")
+    else:
+        ck, cv = cache
+        pos = int(cache_pos)
+        ck[:, :, pos:pos + 1] = kk.to(ck.dtype)
+        cv[:, :, pos:pos + 1] = vv.to(cv.dtype)
+        new_cache = (ck, cv)
+        out = _dense_attention(q, ck, cv, scale=scale, causal=True, q_offset=pos)
+
+    out = out.transpose(1, 2).reshape(b, s, hq * dh)
+    return out @ p["wo"], new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(gen: torch.Generator, d: int, f: int, kind: str, dtype: torch.dtype,
+             device) -> Params:
+    std = d**-0.5
+    if kind == "swiglu":
+        return {
+            "wg": normal(gen, (d, f), dtype, device) * std,
+            "wu": normal(gen, (d, f), dtype, device) * std,
+            "wd": normal(gen, (f, d), dtype, device) * (f**-0.5),
+        }
+    return {  # gelu
+        "w1": normal(gen, (d, f), dtype, device) * std,
+        "w2": normal(gen, (f, d), dtype, device) * (f**-0.5),
+    }
+
+
+def mlp_block(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """SwiGLU, or GELU with the tanh approximation (``jax.nn.gelu``'s
+    default)."""
+    if kind == "swiglu":
+        return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    return F.gelu(x @ p["w1"], approximate="tanh") @ p["w2"]

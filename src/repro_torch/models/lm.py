@@ -1,0 +1,179 @@
+"""The LM zoo's dense family: init / forward / decode. The port's
+counterpart of ``repro.models.lm``.
+
+Parameters are a dict of tensors with the reference's names and layouts,
+except that the reference's stacked ``(L, ...)`` layer leaves are a list of
+per-layer dicts here (``params["layers"][i]``), run by a Python loop in
+place of ``lax.scan``. ``convert.lm_params`` carries a JAX parameter dict
+across. The other families (moe, vlm, audio, hybrid, ssm) and the training
+objective (``loss_fn``) are not ported yet: ``init_params``, ``forward``,
+``cache_specs`` and ``decode_step`` raise ``NotYetPorted`` for them before
+any device work.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+
+from .. import DeviceLike, resolve_device
+from ..specs import NotYetPorted
+from . import layers as L
+from .config import ModelConfig
+
+Params = Dict[str, Any]
+
+PORTED_FAMILIES = ("dense",)
+
+
+def check_family(cfg: ModelConfig) -> None:
+    """Raise ``NotYetPorted`` unless the port runs ``cfg``'s family."""
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotYetPorted(
+            f"{cfg.name}: family {cfg.family!r} is not yet ported to PyTorch; the port runs "
+            f"{PORTED_FAMILIES}"
+        )
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: ModelConfig, key: Union[int, torch.Generator] = 0, *,
+                device: DeviceLike = None) -> Params:
+    """Random parameters with the reference's names, shapes and scales:
+    N(0, 1) weights times d^-0.5 (the down projections f^-0.5), zero QKV
+    biases, unit norms. ``key`` is a seed or a ``torch.Generator`` on the
+    target device (free runs draw different numbers from the reference's
+    ``jax.random`` stream; ``convert.lm_params`` carries those across)."""
+    cfg.validate()
+    check_family(cfg)
+    if isinstance(key, torch.Generator):
+        gen = key
+        dev = gen.device if device is None else resolve_device(device)
+    else:
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(key))
+    dt, d = cfg.torch_dtype, cfg.d_model
+    p: Params = {"embed": L.normal(gen, (cfg.vocab_size, d), dt, dev) * d**-0.5}
+    p["layers"] = [
+        {
+            "ln1": torch.ones((d,), dtype=dt, device=dev),
+            "attn": L.init_attention(gen, cfg, dt, dev),
+            "ln2": torch.ones((d,), dtype=dt, device=dev),
+            "mlp": L.init_mlp(gen, d, cfg.d_ff, cfg.mlp_type, dt, dev),
+        }
+        for _ in range(cfg.num_layers)
+    ]
+    p["final_norm"] = torch.ones((d,), dtype=dt, device=dev)
+    if not cfg.tie_embeddings:
+        p["unembed"] = L.normal(gen, (d, cfg.vocab_size), dt, dev) * d**-0.5
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+
+
+def _embed_inputs(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    """Returns (h (B, S, D), rope angles (B, S, Dh/2))."""
+    tokens = batch["tokens"]
+    h = params["embed"][tokens.long()]
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    return h, L.rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
+
+
+def _unembed(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return h @ w.to(h.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Forward (train / prefill / hidden)
+# ---------------------------------------------------------------------------
+
+
+def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
+            mode: str = "train") -> Dict[str, Any]:
+    """All positions at once. ``mode``: "train" (hidden + logits), "prefill"
+    (+ the KV cache, ``k``/``v`` of shape (L, B, Hkv, S, Dh)) or "hidden"
+    (no logits). ``aux_loss`` is 0, as for every non-MoE family."""
+    check_family(cfg)
+    h, angles = _embed_inputs(params, batch, cfg)
+    prefill = mode == "prefill"
+    ks, vs = [], []
+    for lp in params["layers"]:
+        a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
+        attn_out, kv = L.attention_block(lp["attn"], a_in, cfg, angles=angles,
+                                         return_kv=prefill)
+        h = h + attn_out
+        h = h + L.mlp_block(lp["mlp"], L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg.mlp_type)
+        if prefill:
+            ks.append(kv[0])
+            vs.append(kv[1])
+    h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    out = {"hidden": h, "aux_loss": torch.zeros((), dtype=torch.float32, device=h.device)}
+    if mode != "hidden":
+        out["logits"] = _unembed(params, h, cfg)
+    if prefill:
+        out["cache"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Decode (serve_step)
+# ---------------------------------------------------------------------------
+
+
+def cache_specs(cfg: ModelConfig, batch: int,
+                max_len: int) -> Dict[str, Tuple[tuple, torch.dtype]]:
+    """name -> (shape, dtype) of the decode cache."""
+    check_family(cfg)
+    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim_)
+    return {"k": (shape, cfg.torch_dtype), "v": (shape, cfg.torch_dtype)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """Zeroed decode cache, the allocation of ``cache_specs``."""
+    dev = resolve_device(device)
+    return {name: torch.zeros(shape, dtype=dt, device=dev)
+            for name, (shape, dt) in cache_specs(cfg, batch, max_len).items()}
+
+
+def decode_step(params: Params, cache: Dict[str, torch.Tensor], batch: Dict[str, Any],
+                cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One token for every sequence in the batch: tokens (B, 1) at position
+    ``cache_pos`` (an int). Returns logits (B, 1, V) and the cache, which is
+    updated IN PLACE: each layer writes the token's k and v at cache_pos
+    (the reference's ``dynamic_update_slice`` returns a new cache instead),
+    so the returned dict is the one passed in."""
+    check_family(cfg)
+    tokens, pos = batch["tokens"], int(batch["cache_pos"])
+    b = tokens.shape[0]
+    h = params["embed"][tokens.long()]
+    positions = torch.full((b, 1), pos, dtype=torch.int64, device=tokens.device)
+    angles = L.rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
+    for i, lp in enumerate(params["layers"]):
+        a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
+        attn_out, _ = L.attention_block(lp["attn"], a_in, cfg, angles=angles,
+                                        cache=(cache["k"][i], cache["v"][i]), cache_pos=pos)
+        h = h + attn_out
+        h = h + L.mlp_block(lp["mlp"], L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg.mlp_type)
+    h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return _unembed(params, h, cfg), cache
+
+
+def param_count(params: Params) -> int:
+    """Number of parameters (a tied embedding counts once)."""
+    def count(tree: Optional[Any]) -> int:
+        if isinstance(tree, torch.Tensor):
+            return tree.numel()
+        if isinstance(tree, dict):
+            return sum(count(v) for v in tree.values())
+        return sum(count(v) for v in tree)
+    return count(params)

@@ -1,5 +1,8 @@
 """Import hygiene of the port: ``src/repro_torch/`` and ``chip_smoke.py``
-import neither ``jax`` nor anything of the JAX package ``repro``."""
+import neither ``jax`` nor anything of the JAX package ``repro``, neither by
+an import statement nor by a string handed to ``importlib.import_module`` or
+``__import__`` (a plain string, or an f-string whose leading text names the
+module, as a config registry builds it)."""
 import ast
 from pathlib import Path
 
@@ -14,9 +17,21 @@ def _forbidden(name: str) -> bool:
     return top in ("jax", "jaxlib", "repro")
 
 
-@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
-def test_port_imports_no_jax_and_no_reference(path):
-    tree = ast.parse(path.read_text(), filename=str(path))
+def _leading_text(node: ast.AST):
+    """The module name a dynamic-import argument starts with: a string
+    constant, or the text before an f-string's first placeholder (None when
+    the f-string starts with one, or for any other expression)."""
+    if isinstance(node, ast.Constant) and isinstance(node.value, str):
+        return node.value
+    if isinstance(node, ast.JoinedStr) and node.values:
+        first = node.values[0]
+        if isinstance(first, ast.Constant) and isinstance(first.value, str):
+            return first.value
+    return None
+
+
+def _bad_imports(source: str, filename: str = "<src>") -> list:
+    tree = ast.parse(source, filename=filename)
     bad = []
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -26,12 +41,39 @@ def test_port_imports_no_jax_and_no_reference(path):
                 bad.append(node.module)
         elif isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(
                 node.func, "id", None)) in ("import_module", "__import__"):
-            bad += [a.value for a in node.args
-                    if isinstance(a, ast.Constant) and isinstance(a.value, str)
-                    and _forbidden(a.value)]
+            for arg in node.args[:1]:
+                text = _leading_text(arg)
+                if text is not None and _forbidden(text):
+                    bad.append(text)
+    return bad
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_no_reference(path):
+    bad = _bad_imports(path.read_text(), filename=str(path))
     assert not bad, f"{path.name} imports {bad}"
 
 
+@pytest.mark.parametrize("source,caught", [
+    ("import jax", True),
+    ("from repro.models import lm", True),
+    ("import importlib\nimportlib.import_module('repro.configs.qwen2_1_5b')", True),
+    ("import importlib\narch = 'x'\nimportlib.import_module(f'repro.configs.{arch}')", True),
+    ("from importlib import import_module\nimport_module(f'jax.{1}')", True),
+    ("__import__(f'jaxlib.{1}')", True),
+    ("import importlib\narch = 'x'\nimportlib.import_module(f'repro_torch.configs.{arch}')",
+     False),
+    ("import importlib\narch = 'x'\nimportlib.import_module(f'.{arch}', __name__)", False),
+    ("from ..models.config import ModelConfig", False),
+    ("import torch", False),
+])
+def test_scan_catches_dynamic_imports(source, caught):
+    assert bool(_bad_imports(source)) == caught
+
+
 def test_scan_sees_the_whole_package():
-    names = {p.name for p in FILES}
-    assert {"chip_smoke.py", "ops.py", "kernel.py", "ref.py", "dfw.py", "engine.py"} <= names
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in FILES[:-1]}
+    assert {"kernels/flash_attention/ops.py", "models/lm.py", "models/layers.py",
+            "configs/__init__.py", "configs/qwen2_1_5b.py", "launch/steps.py",
+            "launch/serve.py", "core/engine.py"} <= names
+    assert FILES[-1].name == "chip_smoke.py"

@@ -9,7 +9,9 @@ no JAX, so it also runs where only PyTorch is installed:
 matvecs sum in another order than cuBLAS (the COO matvec than the atomics of
 ``index_add_``, factor_matvec than its rank-by-rank plain version, with
 FMAs), so rtol 1e-4 with an atol of 1e-5 times
-max|plain|; the rank-1 update and the quantize pair are spelled in their
+max|plain|; flash attention's online softmax sums in another order than one
+softmax over the row, so each query row is held to its own max|plain| (f32:
+1e-4; bf16: 1e-2, the output's rounding); the rank-1 update and the quantize pair are spelled in their
 plain versions' order and must match them bit for bit.
 """
 import numpy as np
@@ -227,3 +229,89 @@ def test_cuda_serving_engine_scores_and_swaps(cuda):
     assert (first.version, second.version) == (0, 1)
     assert kernels.launches()["factor_matvec"] == before + 2 + 2
     assert eng.stats == {"compilations": 1, "dispatches": 2, "loads": 2, "requests": 18}
+
+
+def _attention_inputs(b, hq, hkv, sq, skv, dh, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(b, h, s, dh, generator=g, device=device).to(dtype)
+            for h, s in ((hq, sq), (hkv, skv), (hkv, skv))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,dh", [
+    (2, 4, 2, 96, 96, 32), (1, 2, 2, 50, 70, 16), (1, 2, 2, 70, 50, 16), (2, 8, 1, 50, 70, 12),
+    (1, 4, 4, 1, 70, 64), (2, 12, 2, 512, 512, 128), (1, 6, 3, 300, 300, 100),
+    (1, 2, 1, 1000, 1000, 128), (3, 2, 2, 129, 257, 65),
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_matches_plain(cuda, b, hq, hkv, sq, skv, dh, causal, dtype):
+    """Kernel against the plain version on the f32-upcast inputs, each query
+    row to its own max|plain| (late causal rows average many keys and are
+    smaller than the first): f32 to 1e-4 (softmax sums in another order),
+    bf16 to 1e-2 (the output's bf16 rounding); identical bits on repeat; one launch a
+    call. Dh 12, 16, 32 and 65/100 run in the 64 and 128 builds with a zero
+    tail; Dh 100 and 65 in bf16 take the element-load path."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _attention_inputs(b, hq, hkv, sq, skv, dh, dtype, cuda)
+    before = kernels.launches()["flash_attention"]
+    got = fa.flash_attention(q, k, v, scale=dh**-0.5, causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.launches()["flash_attention"] == before + 1
+    assert got.shape == (b, hq, sq, dh) and got.dtype == dtype
+    want = fa.ref.attention(q.float(), k.float(), v.float(), scale=dh**-0.5, causal=causal)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    err = float(((got.float() - want).abs().amax(-1) / want.abs().amax(-1)).max())
+    assert err <= tol, err
+    assert torch.equal(fa.flash_attention(q, k, v, scale=dh**-0.5, causal=causal), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_reads_head_major_views(cuda, dtype):
+    """The (B, S, H * Dh) projections' head-major views go in without a
+    copy and give the bits of their contiguous copies."""
+    from repro_torch.kernels import flash_attention as fa
+
+    x = torch.randn(2, 300, 14 * 128, device=cuda).to(dtype)
+    q = x[..., :12 * 128].reshape(2, 300, 12, 128).transpose(1, 2)
+    k = x[..., 12 * 128:13 * 128].reshape(2, 300, 1, 128).transpose(1, 2)
+    v = x[..., 13 * 128:].reshape(2, 300, 1, 128).transpose(1, 2)
+    assert not q.is_contiguous()
+    got = fa.flash_attention(q, k, v, scale=0.1, causal=True)
+    assert torch.equal(got, fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                               scale=0.1, causal=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2_1_5b", "starcoder2_7b"])
+def test_cuda_dense_lm_prefill_matches_cpu(cuda, arch):
+    """A dense smoke model's prefill on the card (the flash kernel, one launch
+    per layer) against the CPU (plain versions), same weights, f32: logits
+    and cache to rtol 1e-4 / atol 1e-4 of max; decode continues it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+
+    cfg = get_config(arch, smoke=True)
+    cpu_params = lm.init_params(cfg, 0, device="cpu")
+    dev_params = lm_to(cpu_params, cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 100), generator=torch.Generator().manual_seed(1))
+    before = kernels.launches()["flash_attention"]
+    last, cache = steps.make_prefill_step(cfg)(dev_params, {"tokens": toks.to(cuda)})
+    torch.cuda.synchronize()
+    assert kernels.launches()["flash_attention"] == before + cfg.num_layers
+    want_last, want_cache = steps.make_prefill_step(cfg)(cpu_params, {"tokens": toks})
+    _close(last.cpu(), want_last, atol_rel=1e-4)
+    _close(cache["k"].cpu(), want_cache["k"], atol_rel=1e-4)
+    _close(cache["v"].cpu(), want_cache["v"], atol_rel=1e-4)
+
+
+def lm_to(tree, device):
+    """A parameter tree moved to ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: lm_to(v, device) for k, v in tree.items()}
+    return [lm_to(v, device) for v in tree]
