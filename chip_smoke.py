@@ -70,13 +70,43 @@ Phases, each fatal on failure (exit code != 0, no result line):
    token by token (4 x 64 tokens) in f32 (1e-3 of max|logits|) and in bf16
    (5e-2); the smoke config's prefill on the card against the CPU (f32,
    rtol 1e-4).
+17. Hold the RWKV-6 chunk kernel (``wkv6_chunk``) against its plain chunk
+   form (taken in f64) at the main path's shape (B 4, H 64, q 256, head 64,
+   bf16 r/k/v, f32 logw drawn like the model's decays, so that about a
+   quarter of the pairs pass -80 and the clamps bind; u and S_in nonzero),
+   in f32, and at tiny odd shapes (q 50, 7, 1, 100, 320; B * H = 3; dk, dv
+   16/32/48; bf16 logw): each (head, row) of y to its own max, 2e-4;
+   against the exact recurrence at q = 32 (rtol = atol = 2e-4); identical
+   bits on repeat. Times of kernel, plain chunk form and exact recurrence.
+18. Full-width prefill of rwkv6-7b (32 layers, d 4096, 64 heads of 64,
+   d_ff 14,336, vocab 65,536, bf16; weights drawn on the card from --seed,
+   then every layer's u_bonus redrawn nonzero, since the reference's zero
+   init would hide the bonus term) through ``make_prefill_step`` on 4
+   random prompts of 4,096 tokens: last logits finite, caches s (32, 4, 64,
+   64, 64) and x_tm, x_cm (32, 4, 4096) f32, wkv6_chunk launched 32 x 16 =
+   512 times; ms per prefill (median of 3), tokens/s, peak memory.
+19. Full-width decode: ``generate`` at batch 4 with those weights, a 64-token
+   prompt and 32 new tokens: tokens in range, no wkv6_chunk launch (decode
+   is the exact recurrence in plain PyTorch); ms per step.
+20. Cross-checks: (a) full-width prefill against ``decode_step`` fed the
+   prompt token by token at 4 x 64 tokens (two chunks of 32, so no clamp
+   binds: the least in-chunk cw is printed and must stay above -80), logits
+   and every cache in f32 (1e-3); in bf16 each held to bf16 decode's own
+   distance from the f32 computation on the same weights, and bf16
+   prefill's distance from f32 to 1.25 times decode's; (b) bf16 at 4 x 256
+   tokens, where the clamps bind: layer 0's s and x_tm caches held (5e-2),
+   the logits' gap, the other caches' and the share of pairs past -80
+   reported (ROADMAP caveat (e)); (c) the smoke config's prefill on the
+   card against the CPU at chunk 32 and at chunk 256 over 512 tokens
+   (clamps binding), f32, rtol 1e-4.
 
 ``--profile`` adds 3-epoch fits of the three tasks, 50 serving dispatches,
-one prefill and a short decode under ``torch.profiler`` (device time by
-kernel, the device's idle share); ``--report PATH`` writes every number to
-a JSON file. ``--rows``, ``--mc-entries`` and ``--lm-batch/--lm-seq/
---lm-layers`` cut depth (samples, training ratings, prompts, tokens,
-layers) for a quick check; the defaults are the full sizes.
+one prefill and a short decode of each LM under ``torch.profiler`` (device
+time by kernel, the device's idle share); ``--report PATH`` writes every
+number to a JSON file. ``--rows``, ``--mc-entries``, ``--lm-batch/--lm-seq/
+--lm-layers`` and ``--ssm-batch/--ssm-seq/--ssm-layers`` cut depth
+(samples, training ratings, prompts, tokens, layers) for a quick check; the
+defaults are the full sizes.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``. Without CUDA, or run from a directory
@@ -111,6 +141,7 @@ TPU_KERNEL = {
     "dequantize": "src/repro/kernels/quantize/kernel.py:81",
     "factor_matvec": "src/repro/kernels/factor_matvec/kernel.py:59",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:88",
+    "wkv6_chunk": "src/repro/kernels/wkv6_chunk/kernel.py:61",
 }
 SOURCE = {
     "matvec": "src/repro_torch/csrc/power_matvec.cu",
@@ -122,6 +153,7 @@ SOURCE = {
     "dequantize": "src/repro_torch/csrc/quantize.cu",
     "factor_matvec": "src/repro_torch/csrc/factor_matvec.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "wkv6_chunk": "src/repro_torch/csrc/wkv6_chunk.cu",
 }
 # Memory rate (bytes/s), f32 non-tensor-core peak and bf16 dense tensor-core
 # peak (flop/s) of each part this script has run on, from NVIDIA's data
@@ -149,11 +181,24 @@ CARD_PEAKS = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12, 989e12)}
 # plain dense path's); the same in bf16 to 5e-2 (bf16 rounding of every
 # activation through 28 layers, taken in two different chains); the smoke
 # config's prefill on the card against the CPU, f32, rtol 1e-4 with an atol
-# of 1e-5 of max (f32 sums in another order on each side).
+# of 1e-5 of max (f32 sums in another order on each side). wkv6_chunk is held
+# to its plain chunk form taken in f64 on the same inputs, each (head, row)
+# of y to its own max and S_out to its max, 2e-4: the kernel's f32 products
+# and its prefix sums rounded to f32 (they run to about -110, where one ulp
+# is 7.6e-6, and the clamped exp factors carry that error relatively); at
+# q = 32 to the exact recurrence with the JAX package's own f32 test
+# tolerance (rtol = atol = 2e-4). The ssm family's whole-model checks use the
+# dense family's tolerances above, except prefill against decode in bf16: in
+# this random-init 32-layer model bf16 rounding alone moves the logits by
+# about 0.14 of their max (bf16 decode, which runs no kernel, against the
+# f32 computation on the same weights), so bf16 prefill and decode are held
+# to that distance of bf16 decode from f32, measured in the same run (logits
+# and every cache), and bf16 prefill's own distance from f32 to 1.25 times
+# decode's.
 TOL = {"matvec": 1e-4, "rmatvec": 1e-4, "rank1_update": 1e-6, "rank1_update_axpy": 1e-6,
        "coo_matvec": 1e-4, "factor_matvec": 1e-4, "serve": 1e-4,
        "flash_attention": 1e-4, "flash_attention_bf16": 1e-2, "lm_f32": 1e-3, "lm_bf16": 5e-2,
-       "lm_card_cpu": 1e-4}
+       "lm_card_cpu": 1e-4, "wkv6_chunk": 2e-4, "wkv6_exact": 2e-4, "ssm_bf16_excess": 1.25}
 
 
 def fail(msg: str) -> int:
@@ -190,6 +235,17 @@ def time_ms(torch, fn, reps: int) -> float:
         events.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def tree_to(torch, tree, *args):
+    """A parameter tree (dicts and lists of tensors) with ``.to(*args)``
+    applied to every tensor: another device, or f32 (a bf16 leaf upcast bit
+    for bit)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(*args)
+    if isinstance(tree, dict):
+        return {k: tree_to(torch, v, *args) for k, v in tree.items()}
+    return [tree_to(torch, v, *args) for v in tree]
 
 
 def rel_err(torch, got, want):
@@ -1210,15 +1266,9 @@ def lm_crosscheck_phase(torch, lm, steps, get_config, kernels, cfg, params16, de
     small = get_config(LM_ARCH, smoke=True)
     cpu_params = lm.init_params(small, 7, device="cpu")
 
-    def to(tree):
-        if isinstance(tree, torch.Tensor):
-            return tree.to(dev)
-        if isinstance(tree, dict):
-            return {k: to(v) for k, v in tree.items()}
-        return [to(v) for v in tree]
-
     stoks = torch.randint(0, small.vocab_size, (2, 100), generator=torch.Generator().manual_seed(7))
-    on_card = lm.forward(to(cpu_params), {"tokens": stoks.to(dev)}, small, mode="prefill")
+    on_card = lm.forward(tree_to(torch, cpu_params, dev), {"tokens": stoks.to(dev)}, small,
+                         mode="prefill")
     on_cpu = lm.forward(cpu_params, {"tokens": stoks}, small, mode="prefill")
     worst = 0.0
     for got, want in ((on_card["logits"], on_cpu["logits"]),
@@ -1276,6 +1326,419 @@ def profile_lm(torch, lm_serve, steps, cfg, params, toks, dev, seed):
     return out
 
 
+SSM_ARCH = "rwkv6_7b"  # full width: 32 layers, d 4096, 64 heads of 64, d_ff 14,336, vocab 65,536
+SSM_BATCH, SSM_SEQ = 4, 4096  # prompts x tokens of the main path's prefill (Finch's context)
+WKV_HEADS, WKV_Q, WKV_D = 64, 256, 64  # rwkv6-7b's heads, ssm_chunk and head size
+# Chunk of the prefill-vs-decode check at 64 tokens: at full width some
+# channel's cumulative log decay passes -80 within 64 tokens (-86.7 in the
+# f32 run), so one chunk of 64 lets the clamps bind; two chunks of 32 do not,
+# and carry the state across a chunk boundary.
+XCHECK_CHUNK = 32
+
+
+def wkv_inputs(torch, gen, dev, b, h, q, dk, dv, dtype, wdtype):
+    """The model's decay law: logw = -exp(w), w ~ N(-1, 0.6), so that about
+    a quarter of the (position, channel) pairs of a 256-token chunk pass -80
+    and the clamps bind; r, k ~ N(0, 0.25), v ~ N(0, 1), u and S_in nonzero."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    r, k = (randn(b, h, q, dk) * 0.5).to(dtype), (randn(b, h, q, dk) * 0.5).to(dtype)
+    v = randn(b, h, q, dv).to(dtype)
+    logw = (-torch.exp(randn(b, h, q, dk) * 0.6 - 1.0)).to(wdtype)
+    return r, k, v, logw, randn(h, dk) * 0.5, randn(b, h, dk, dv) * 0.3
+
+
+def wkv_errors(torch, wkv, got, args):
+    """Kernel against the plain chunk form taken in f64 on the same inputs:
+    (max |y diff|, the worst (head, row) of y against its own max, S_out's
+    max diff against its max)."""
+    y, s = got
+    y64, s64 = wkv.ref.wkv6_chunk_factored(*args, dtype=torch.float64)
+    row_diff = (y.double() - y64).abs().amax(-1)
+    row_rel = float((row_diff / y64.abs().amax(-1).clamp_min(1e-30)).max())
+    s_rel = float((s.double() - s64).abs().max() / s64.abs().max())
+    return float(row_diff.max()), row_rel, s_rel
+
+
+def wkv_work(b, h, q, dk, dv, esize, wsize):
+    """(bytes, flop) of one chunk: inputs read once, y and S_out written
+    once; the strictly lower triangle of R K^T and of A V, the inter-chunk
+    and state products, the bonus."""
+    pairs = q * (q - 1) // 2
+    nbytes = b * h * ((2 * q * dk + q * dv) * esize + q * dk * wsize)
+    nbytes += 4 * h * dk + 4 * b * h * (2 * dk * dv + q * dv)
+    flops = b * h * (2 * pairs * (dk + dv) + 4 * q * dk * dv + 3 * q * dk + 2 * q * dv)
+    return nbytes, flops
+
+
+def wkv6_kernel_phase(torch, wkv, dev, gen, reps, peaks):
+    """Phase 17: wkv6_chunk against its plain chunk form at the main path's
+    shape (B 4, H 64, q 256, 64, r/k/v bf16, logw f32, clamps binding) and in
+    f32, against the exact recurrence at q = 32, at tiny odd shapes;
+    identical bits on repeat; times of kernel, plain chain and exact
+    recurrence."""
+    bw, f32_peak, _ = peaks
+    tol = TOL["wkv6_chunk"]
+    rows_out = []
+    big = [("main path", torch.bfloat16, torch.float32, max(3, reps)),
+           ("f32", torch.float32, torch.float32, max(3, reps))]
+    for label, dtype, wdtype, nrep in big:
+        b, h, q, d = SSM_BATCH, WKV_HEADS, WKV_Q, WKV_D
+        args = wkv_inputs(torch, gen, dev, b, h, q, d, d, dtype, wdtype)
+        got = wkv.wkv6_chunk(*args)
+        torch.cuda.synchronize()
+        err_abs, err_rel, s_rel = wkv_errors(torch, wkv, got, args)
+        check(math.isfinite(err_rel) and err_rel <= tol and s_rel <= tol,
+              f"wkv6_chunk {label}: row-relative err {err_rel:.3e}, state {s_rel:.3e} > {tol:.0e}")
+        y32 = wkv.ref.wkv6_chunk_factored(*args)[0]
+        f32_rel = float(((got[0] - y32).abs().amax(-1) / y32.abs().amax(-1)).max())
+        again = wkv.wkv6_chunk(*args)
+        check(torch.equal(again[0], got[0]) and torch.equal(again[1], got[1]),
+              f"wkv6_chunk {label} is not bit-stable")
+        cw = torch.cumsum(args[3].double(), dim=2)
+        past = float((cw < -80).double().mean())
+        check(past > 0.1, f"wkv6_chunk {label}: only {past:.3f} of the pairs pass -80")
+        del again, y32, cw
+        esize = torch.tensor([], dtype=dtype).element_size()
+        nbytes, nflops = wkv_work(b, h, q, d, d, esize, 4)
+        row = dict(
+            name="wkv6_chunk", operand=f"{label}: B={b} H={h} q={q} dk=dv={d} "
+            f"{str(dtype)[6:]} r/k/v, f32 logw", shape=[b, h, q, d, d],
+            max_abs_err=err_abs, max_rel_err=err_rel, state_rel_err=s_rel,
+            rel_err_vs_f32_plain=f32_rel, past_80_share=past, tol=tol,
+            ms=time_ms(torch, lambda: wkv.wkv6_chunk(*args), nrep),
+            plain_ms=time_ms(torch, lambda: wkv.ref.wkv6_chunk_factored(*args), nrep),
+            exact_ms=time_ms(torch, lambda: wkv.ref.wkv6_chunk(*args), 3),
+            library_ms=None, bound_ms=1e3 * max(nbytes / bw, nflops / f32_peak),
+            bound_by="bytes" if nbytes / bw >= nflops / f32_peak else "operations",
+            bytes=nbytes, flops=nflops, main=label == "main path")
+        row["tflops"] = nflops / row["ms"] / 1e9
+        rows_out.append(row)
+        print(f"kernel wkv6_chunk {row['operand']}: {row['ms']:.4f} ms ({row['tflops']:.1f} "
+              f"TFLOP/s; plain chunk form {row['plain_ms']:.4f}, exact recurrence "
+              f"{row['exact_ms']:.3f}, bound {row['bound_ms']:.4f} by {row['bound_by']}) "
+              f"row-relative err {err_rel:.2e} (state {s_rel:.2e}; limit {tol:.0e}) against the "
+              f"f64 plain version, {f32_rel:.2e} against the f32 one; {past:.3f} of the pairs "
+              f"past -80; bit-stable")
+        del args, got
+        torch.cuda.empty_cache()
+
+    # q = 32: no clamp binds, the chunk form is the exact recurrence
+    for dtype in (torch.bfloat16, torch.float32):
+        args = wkv_inputs(torch, gen, dev, SSM_BATCH, WKV_HEADS, 32, WKV_D, WKV_D, dtype,
+                          torch.float32)
+        y, s = wkv.wkv6_chunk(*args)
+        ye, se = wkv.ref.wkv6_chunk(*args)
+        for got, want in ((y, ye), (s, se)):
+            excess = float(((got - want).abs() - TOL["wkv6_exact"] * (1 + want.abs())).max())
+            check(excess <= 0, f"wkv6_chunk q=32 {dtype}: not within rtol = atol = 2e-4 of "
+                  "the exact recurrence")
+    # tiny odd shapes: q 50, 7, 1; BH = 3 both ways; dk, dv 16 / 32; logw in bf16
+    for b, h, q, dk, dv in ((1, 3, 50, 64, 64), (3, 1, 7, 64, 64), (3, 1, 1, 64, 64),
+                            (1, 3, 100, 16, 32), (2, 2, 320, 48, 64)):
+        for dtype, wdtype in ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+                              (torch.bfloat16, torch.bfloat16)):
+            args = wkv_inputs(torch, gen, dev, b, h, q, dk, dv, dtype, wdtype)
+            got = wkv.wkv6_chunk(*args)
+            _, err, s_err = wkv_errors(torch, wkv, got, args)
+            check(err <= tol and s_err <= tol,
+                  f"wkv6_chunk B {b} H {h} q {q} dk {dk} dv {dv} {dtype}/{wdtype}: row-relative "
+                  f"err {err:.3e}, state {s_err:.3e}")
+            again = wkv.wkv6_chunk(*args)
+            check(torch.equal(again[0], got[0]) and torch.equal(again[1], got[1]),
+                  f"wkv6_chunk q {q} is not bit-stable")
+    print("wkv6_chunk matches its plain chunk form at the main path's shape (clamps binding), "
+          "in f32 and at odd shapes, and the exact recurrence at q = 32; bit-stable")
+    return rows_out
+
+
+def decay_recorder(torch, rwkv6):
+    """Wrap the model's chunk call to record the least in-chunk cumulative
+    log decay and the share of (position, channel) pairs past -80 (the
+    launches still go through ``ops.wkv6_chunk``). Returns (stats, undo)."""
+    import types
+
+    ops = rwkv6.wkv_ops
+    stats = {"min_cw": 0.0, "past": 0, "pairs": 0}
+
+    def recorded(r, k, v, logw, u, s0, *, out=None):
+        cw = torch.cumsum(logw.double(), dim=2)
+        stats["min_cw"] = min(stats["min_cw"], float(cw.min()))
+        stats["past"] += int((cw < -80).sum())
+        stats["pairs"] += cw.numel()
+        return ops.wkv6_chunk(r, k, v, logw, u, s0, out=out)
+
+    rwkv6.wkv_ops = types.SimpleNamespace(wkv6_chunk=recorded)
+
+    def undo():
+        rwkv6.wkv_ops = ops
+
+    return stats, undo
+
+
+def nonzero_bonus(torch, params, gen):
+    """Redraw every layer's u_bonus N(0, 0.5^2): the reference inits it to
+    zeros, which would hide the bonus term."""
+    for lp in params["layers"]:
+        u = lp["tm_cm"]["u_bonus"]
+        u.copy_(torch.randn(u.shape, generator=gen, device=u.device) * 0.5)
+
+
+def ssm_prefill_phase(torch, kernels, lm, steps, cfg, dev, gen, args):
+    """Phase 18: ``make_prefill_step`` on --ssm-batch random prompts of
+    --ssm-seq tokens, weights drawn on the card (u_bonus redrawn nonzero).
+    The run with the counters set to 0 is the main path; three more give the
+    time."""
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, gen)
+    nonzero_bonus(torch, params, gen)
+    torch.cuda.synchronize()
+    rep = dict(arch=cfg.name, layers=cfg.num_layers, batch=args.ssm_batch, seq=args.ssm_seq,
+               chunk=cfg.ssm_chunk, params=lm.param_count(params),
+               init_s=time.perf_counter() - t0)
+    toks = torch.randint(0, cfg.vocab_size, (args.ssm_batch, args.ssm_seq), generator=gen,
+                         device=dev)
+    step = steps.make_prefill_step(cfg)
+    q = min(cfg.ssm_chunk, args.ssm_seq)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    last, cache = step(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    rep["first_ms"] = 1e3 * (time.perf_counter() - t0)
+    launches = kernels.launches()
+    want = dict.fromkeys(launches, 0)
+    want["wkv6_chunk"] = cfg.num_layers * (args.ssm_seq // q)
+    check(launches == want, f"ssm prefill: launches {launches} != {want}")
+    rep["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    h = cfg.d_model // 64
+    shapes = {"s": (cfg.num_layers, args.ssm_batch, h, 64, 64),
+              "x_tm": (cfg.num_layers, args.ssm_batch, cfg.d_model),
+              "x_cm": (cfg.num_layers, args.ssm_batch, cfg.d_model)}
+    check(tuple(last.shape) == (args.ssm_batch, cfg.vocab_size), f"ssm logits {last.shape}")
+    check(bool(torch.isfinite(last).all()), "ssm prefill: non-finite last-position logits")
+    for name, shape in shapes.items():
+        check(tuple(cache[name].shape) == shape and cache[name].dtype == torch.float32,
+              f"ssm prefill cache {name} {tuple(cache[name].shape)} != {shape} f32")
+        check(bool(torch.isfinite(cache[name]).all()), f"ssm prefill: non-finite cache {name}")
+    del last, cache
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = step(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del out
+    med = statistics.median(times)
+    rep.update(ms=[1e3 * t for t in times], ms_median=1e3 * med,
+               tokens_per_s=args.ssm_batch * args.ssm_seq / med, launches=launches)
+    print(f"prefill {cfg.name} ({cfg.num_layers} layers, {rep['params']} parameters, "
+          f"{cfg.dtype}, chunk {q}) on {args.ssm_batch} x {args.ssm_seq} tokens: median "
+          f"{rep['ms_median']:.1f} ms ({rep['tokens_per_s']:.0f} tokens/s; first "
+          f"{rep['first_ms']:.1f} ms), peak {rep['peak_gb']:.2f} GB, {want['wkv6_chunk']} "
+          f"wkv6_chunk launches; last logits finite, caches {shapes}")
+    return rep, launches, params, toks
+
+
+def ssm_decode_phase(torch, np, kernels, lm_serve, cfg, params, dev, seed):
+    """Phase 19: ``generate`` at full width with the prefill's weights: the
+    prompt fed token by token, then greedy decoding; no wkv6_chunk launch
+    (decode is the exact recurrence in plain PyTorch, as in the reference)."""
+    stats = {}
+    kernels.reset_launches()
+    new = lm_serve.generate(arch=SSM_ARCH, smoke=False, batch=DECODE_BATCH,
+                            prompt_len=DECODE_PROMPT, max_new_tokens=DECODE_NEW, seed=seed,
+                            device=dev, params=params, stats=stats)
+    launches = kernels.launches()
+    check(all(v == 0 for v in launches.values()), f"ssm decode: launches {launches}")
+    check(new.shape == (DECODE_BATCH, DECODE_NEW) and int(new.min()) >= 0
+          and int(new.max()) < cfg.vocab_size, f"ssm decode: tokens {new.shape} out of range")
+    rep = dict(stats, batch=DECODE_BATCH, prompt_len=DECODE_PROMPT, new_tokens=DECODE_NEW,
+               layers=len(params["layers"]), ms_per_token=stats["ms_per_step"],
+               distinct_tokens=int(np.unique(new).size))
+    print(f"decode {cfg.name} at batch {DECODE_BATCH}: {stats['steps']} steps in "
+          f"{stats['loop_s']:.2f} s, {rep['ms_per_token']:.2f} ms per step; tokens in range, "
+          f"0 wkv6_chunk launches")
+    return rep, launches
+
+
+def ssm_prefill_vs_decode(torch, lm, steps, rwkv6, cfg, params, toks):
+    """Prefill (the kernel) and decode_step fed the prompt token by token
+    (the exact recurrence). Returns the report (the last logits' and each
+    layer's caches' max diff / max |decode|, the prefill's least in-chunk cw
+    and share of pairs past -80), both paths' last logits and decode's
+    cache."""
+    stats, undo = decay_recorder(torch, rwkv6)
+    try:
+        last, pcache = steps.make_prefill_step(cfg)(params, {"tokens": toks})
+    finally:
+        undo()
+    cache = lm.init_cache(cfg, toks.shape[0], toks.shape[1], device=toks.device)
+    for t in range(toks.shape[1]):
+        logits, cache = lm.decode_step(params, cache, {"tokens": toks[:, t:t + 1],
+                                                       "cache_pos": t}, cfg)
+    out = dict(logits=rel_err(torch, last.float(), logits[:, 0].float())[1],
+               min_cw=stats["min_cw"], past_80_share=stats["past"] / max(stats["pairs"], 1))
+    for name in ("s", "x_tm", "x_cm"):
+        out[name] = [rel_err(torch, pcache[name][i], cache[name][i])[1]
+                     for i in range(len(params["layers"]))]
+    return out, last.float(), logits[:, 0].float(), cache
+
+
+
+
+def ssm_crosscheck_phase(torch, lm, steps, rwkv6, get_config, kernels, cfg, params16, dev,
+                         gen):
+    """Phase 20: (a) full width, prefill against token-by-token decode on 4
+    prompts of 64 tokens (two chunks of 32: no clamp binds), in f32 (an f32
+    copy of the bf16 weights) and in bf16, each bf16 path also against the
+    f32 one; (b) bf16 at 256 tokens (one chunk of 256: the clamps bind),
+    layer 0's caches held, the rest reported (caveat (e)); (c) the smoke
+    config's prefill on the card against the CPU at chunk 32 and at chunk
+    256 over 512 tokens, f32. Every comparison is printed before any is
+    held."""
+    import dataclasses
+
+    rep, failures = {}, []
+    toks = torch.randint(0, cfg.vocab_size, (4, DECODE_PROMPT), generator=gen, device=dev)
+    n_chunks = DECODE_PROMPT // XCHECK_CHUNK
+    lasts = {}
+    for label in ("f32", "bf16"):
+        if label == "f32":  # an f32 copy of the weights (30 GB) beside the bf16 one
+            c = dataclasses.replace(cfg, dtype="float32", ssm_chunk=XCHECK_CHUNK)
+            p = tree_to(torch, params16, torch.float32)
+        else:
+            c = dataclasses.replace(cfg, ssm_chunk=XCHECK_CHUNK)
+            p = params16
+        kernels.reset_launches()
+        r, pre, dec, cache = ssm_prefill_vs_decode(torch, lm, steps, rwkv6, c, p, toks)
+        lasts[label] = (pre, dec, cache)
+        check(kernels.launches()["wkv6_chunk"] == c.num_layers * n_chunks,
+              f"{label} ssm prefill at 64 tokens: not {n_chunks} wkv6_chunk launches per layer")
+        check(r["min_cw"] > -80, f"{label}: an in-chunk cw reached {r['min_cw']:.1f} in chunks "
+              f"of {XCHECK_CHUNK}; the clamps bind")
+        r["worst"] = {n: max(r[n]) for n in ("s", "x_tm", "x_cm")}
+        rep[f"{label}_64"] = r
+        del p
+        torch.cuda.empty_cache()
+    # bf16's own noise: how far bf16 decode (plain PyTorch, no kernel) lands from
+    # the f32 computation on the same weights, for the logits and each cache
+    (p32, d32, c32), (p16, d16, c16) = lasts["f32"], lasts["bf16"]
+    r16 = rep["bf16_64"]
+    noise = {"logits": rel_err(torch, d16, d32)[1]}
+    for name in ("s", "x_tm", "x_cm"):
+        noise[name] = max(rel_err(torch, c16[name][i], c32[name][i])[1]
+                          for i in range(c16[name].shape[0]))
+    r16.update(prefill_vs_f32=rel_err(torch, p16, p32)[1], noise=noise)
+    r = rep["f32_64"]
+    w, tol = r["worst"], TOL["lm_f32"]
+    print(f"ssm prefill vs decode at full width, f32, 64 tokens in {n_chunks} chunks of "
+          f"{XCHECK_CHUNK}: logits rel err {r['logits']:.2e}, caches s {w['s']:.2e} x_tm "
+          f"{w['x_tm']:.2e} x_cm {w['x_cm']:.2e} (tolerance {tol:.0e}); least in-chunk cw "
+          f"{r['min_cw']:.2f}, no pair past -80")
+    if not (r["logits"] <= tol and all(v <= tol for v in w.values())):
+        failures.append(f"full-width f32 ssm: prefill vs decode logits {r['logits']:.3e}, caches "
+                        f"{w} (tolerance {tol:.0e})")
+    w = r16["worst"]
+    print(f"ssm prefill vs decode at full width, bf16, 64 tokens in {n_chunks} chunks of "
+          f"{XCHECK_CHUNK}: logits rel err {r16['logits']:.2e}, caches s {w['s']:.2e} x_tm "
+          f"{w['x_tm']:.2e} x_cm {w['x_cm']:.2e}, each held to bf16 decode's own distance from "
+          f"the f32 computation (logits {noise['logits']:.2e}, s {noise['s']:.2e}, x_tm "
+          f"{noise['x_tm']:.2e}, x_cm {noise['x_cm']:.2e}); bf16 prefill from f32 "
+          f"{r16['prefill_vs_f32']:.2e}, held to {TOL['ssm_bf16_excess']} x decode's; least "
+          f"in-chunk cw {r16['min_cw']:.2f}; the dense family's 5e-2 "
+          f"{'met' if max(r16['logits'], *w.values()) <= TOL['lm_bf16'] else 'not met'}")
+    if not (r16["logits"] <= noise["logits"] and all(w[n] <= noise[n] for n in w)
+            and r16["prefill_vs_f32"] <= TOL["ssm_bf16_excess"] * noise["logits"]):
+        failures.append(f"full-width bf16 ssm: prefill vs decode logits {r16['logits']:.3e}, "
+                        f"caches {w}, prefill from f32 {r16['prefill_vs_f32']:.3e}, beyond bf16 "
+                        f"decode's own distance from f32 {noise}")
+    del lasts, p32, d32, c32, p16, d16, c16
+
+    toks = torch.randint(0, cfg.vocab_size, (4, WKV_Q), generator=gen, device=dev)
+    # layer 0 sees the same inputs on both paths; its caches agree up to bf16 rounding
+    r = ssm_prefill_vs_decode(torch, lm, steps, rwkv6, cfg, params16, toks)[0]
+    if not (r["s"][0] <= TOL["lm_bf16"] and r["x_tm"][0] <= TOL["lm_bf16"]):
+        failures.append(f"bf16 ssm at {WKV_Q} tokens: layer 0's caches differ (s "
+                        f"{r['s'][0]:.3e}, x_tm {r['x_tm'][0]:.3e})")
+    rep[f"bf16_{WKV_Q}"] = r
+    print(f"ssm prefill vs decode at full width, bf16, {WKV_Q} tokens (clamps bind: "
+          f"{r['past_80_share']:.3f} of the pairs past -80, least cw {r['min_cw']:.1f}): layer 0 "
+          f"s {r['s'][0]:.2e}, x_tm {r['x_tm'][0]:.2e} (held to {TOL['lm_bf16']:.0e}); reported, "
+          f"not held (ROADMAP caveat (e)): logits {r['logits']:.2e}, x_cm of layer 0 "
+          f"{r['x_cm'][0]:.2e}, layers 1+ s up to {max(r['s'][1:], default=0):.2e}")
+
+    worst = 0.0
+    for chunk, seq in ((32, 96), (256, 512)):
+        small = dataclasses.replace(get_config(SSM_ARCH, smoke=True), ssm_chunk=chunk)
+        cpu_params = lm.init_params(small, 7, device="cpu")
+        nonzero_bonus(torch, cpu_params, torch.Generator().manual_seed(7))
+        stoks = torch.randint(0, small.vocab_size, (2, seq),
+                              generator=torch.Generator().manual_seed(7))
+        kernels.reset_launches()
+        on_card = lm.forward(tree_to(torch, cpu_params, dev), {"tokens": stoks.to(dev)}, small,
+                             mode="prefill")
+        check(kernels.launches()["wkv6_chunk"] == small.num_layers * seq // chunk,
+              f"smoke ssm prefill at chunk {chunk}: wkv6_chunk launches {kernels.launches()}")
+        on_cpu = lm.forward(cpu_params, {"tokens": stoks}, small, mode="prefill")
+        pairs = [(on_card["logits"], on_cpu["logits"])] + [
+            (on_card["cache"][n], on_cpu["cache"][n]) for n in ("s", "x_tm", "x_cm")]
+        for got, want in pairs:
+            got = got.cpu()
+            bound = TOL["lm_card_cpu"] * want.abs() + 1e-5 * float(want.abs().max())
+            if not bool(((got - want).abs() <= bound).all()):
+                failures.append(f"smoke ssm prefill at chunk {chunk}: card differs from the CPU "
+                                "beyond rtol 1e-4")
+            worst = max(worst, rel_err(torch, got, want)[1])
+    rep["smoke_card_vs_cpu_rel"] = worst
+    print(f"smoke ssm prefill card vs CPU at chunk 32 (96 tokens) and 256 (512 tokens, clamps "
+          f"binding): max diff {worst:.2e} of max, within rtol {TOL['lm_card_cpu']:.0e}")
+    check(not failures, "; ".join(failures))
+    return rep
+
+
+def profile_ssm(torch, lm_serve, steps, cfg, params, toks, dev, seed):
+    """Device time by kernel and the idle share of one ssm prefill and of a
+    short decode (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    step = steps.make_prefill_step(cfg)
+    runs = (("prefill", lambda: step(params, {"tokens": toks})),
+            ("decode", lambda: lm_serve.generate(
+                arch=SSM_ARCH, smoke=False, batch=DECODE_BATCH, prompt_len=8,
+                max_new_tokens=8, seed=seed, device=dev, params=params)))
+    for label, run in runs:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        del res
+        dev_us = {}
+        for ev in prof.key_averages():
+            if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+                dev_us[ev.key] = dev_us.get(ev.key, 0.0) + ev.self_device_time_total
+        busy = sum(dev_us.values())
+        wkv = sum(t for k, t in dev_us.items() if "wkv6_chunk_kernel" in k)
+        out[label] = dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3, wkv6_ms=wkv / 1e3,
+                          idle_share=1.0 - busy / wall_us if busy else None,
+                          top=sorted(((k[:90], t / 1e3) for k, t in dev_us.items()),
+                                     key=lambda kv: -kv[1])[:10])
+        if busy:
+            print(f"profile ssm {label}: wall {out[label]['wall_ms']:.1f} ms, device busy "
+                  f"{out[label]['device_busy_ms']:.1f} ms (wkv6_chunk "
+                  f"{out[label]['wkv6_ms']:.1f}), idle share {out[label]['idle_share']:.3f}")
+            for k, t in out[label]["top"][:8]:
+                print(f"  {t:9.2f} ms  {k}")
+        else:
+            print(f"profile ssm {label}: the profiler recorded no device time (not measured)")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1298,6 +1761,13 @@ def main(argv=None) -> int:
     ap.add_argument("--lm-layers", type=int, default=28,
                     help="layers of qwen2-1.5b in phases 14 and 16 (depth cut only; the "
                     "width stays)")
+    ap.add_argument("--ssm-batch", type=int, default=SSM_BATCH,
+                    help="prompts of the full-width rwkv6-7b prefill (phase 18; depth cut only)")
+    ap.add_argument("--ssm-seq", type=int, default=SSM_SEQ,
+                    help="tokens per prompt of the rwkv6-7b prefill (phase 18; a multiple of "
+                    "the 256-token chunk)")
+    ap.add_argument("--ssm-layers", type=int, default=32,
+                    help="layers of rwkv6-7b in phases 18-20 (depth cut only; the width stays)")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--report", default=None, help="also write the full report here")
     ap.add_argument("--profile", action="store_true",
@@ -1325,9 +1795,10 @@ def main(argv=None) -> int:
     from repro_torch.kernels import power_matvec as pm
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import rank1_update as r1
+    from repro_torch.kernels import wkv6_chunk as wkv
     from repro_torch.launch import dfw, steps
     from repro_torch.launch import serve as lm_serve
-    from repro_torch.models import lm
+    from repro_torch.models import lm, rwkv6
 
     dev = resolve_device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -1339,7 +1810,7 @@ def main(argv=None) -> int:
         report["build_s"] = time.perf_counter() - t0
         print(f"built kernels in {report['build_s']:.1f} s into {_build.BUILD_DIR}")
         for src_name in ("power_matvec", "rank1_update", "mc_matvec", "quantize",
-                         "factor_matvec", "flash_attention"):
+                         "factor_matvec", "flash_attention", "wkv6_chunk"):
             for line in _build.build_log(src_name).splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {src_name}: {line.strip()}")
@@ -1532,12 +2003,38 @@ def main(argv=None) -> int:
                                                   lm_params, dev, gen)
         del lm_params
         torch.cuda.empty_cache()
+
+        # 17. wkv6_chunk against its plain versions
+        krows += wkv6_kernel_phase(torch, wkv, dev, gen, args.reps, peaks)
+        torch.cuda.empty_cache()
+
+        # 18. full-width prefill of rwkv6-7b (depth --ssm-layers)
+        ssm_cfg = dataclasses.replace(get_config(SSM_ARCH), num_layers=args.ssm_layers)
+        report["ssm_prefill"], ssm_prefill_launch, ssm_params, ssm_toks = ssm_prefill_phase(
+            torch, kernels, lm, steps, ssm_cfg, dev, gen, args)
+        if args.profile:
+            report["ssm_profile"] = profile_ssm(torch, lm_serve, steps, ssm_cfg, ssm_params,
+                                                ssm_toks, dev, args.seed)
+        del ssm_toks
+        torch.cuda.empty_cache()
+
+        # 19. full-width decode through generate, with the prefill's weights
+        report["ssm_decode"], ssm_decode_launch = ssm_decode_phase(
+            torch, np, kernels, lm_serve, ssm_cfg, ssm_params, dev, args.seed)
+        torch.cuda.empty_cache()
+
+        # 20. cross-checks: prefill against decode (f32, bf16; 64 and 256 tokens), card
+        # against CPU
+        report["ssm_checks"] = ssm_crosscheck_phase(torch, lm, steps, rwkv6, get_config, kernels,
+                                                    ssm_cfg, ssm_params, dev, gen)
+        del ssm_params
+        torch.cuda.empty_cache()
     except Check as e:
         return fail(str(e))
 
     out = []
     paths = (mtls_launch, log_launch, mc_launch, mc8_launch, fit12_launch, serve_launch,
-             prefill_launch, decode_launch)
+             prefill_launch, decode_launch, ssm_prefill_launch, ssm_decode_launch)
     for kname in TPU_KERNEL:
         rows = [r for r in krows if r["name"] == kname]
         main_row = next((r for r in rows if r.get("main")), None) or max(
@@ -1551,7 +2048,7 @@ def main(argv=None) -> int:
             shape=main_row["shape"],
             by_operand={r["operand"]: {k: r[k] for k in (
                 "shape", "ms", "plain_ms", "library_ms", "library_rel_err", "library_chain_ms",
-                "bound_ms", "bound_by", "max_rel_err") if k in r}
+                "exact_ms", "bound_ms", "bound_by", "max_rel_err") if k in r}
                 for r in rows},
         ))
     report["kernels"] = krows

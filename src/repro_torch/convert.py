@@ -104,8 +104,11 @@ def _float_tensor(a, device) -> torch.Tensor:
 def lm_params(params: Any, cfg, *, device: DeviceLike = None) -> dict:
     """The port's parameter dict of an LM from the JAX package's (after
     ``jax.device_get``): the same names and leaves, with the stacked
-    ``(L, ...)`` layer leaves unstacked into ``params["layers"][i]``. Only
-    the families the port runs (``models.lm.PORTED_FAMILIES``) are taken."""
+    ``(L, ...)`` layer leaves unstacked into ``params["layers"][i]``, nested
+    dicts (the ssm family's ``tm_cm``) included; each leaf keeps its dtype,
+    so the f32 leaves of a bf16 model (``w_base``, ``u_bonus``) stay f32.
+    Only the families the port runs (``models.lm.PORTED_FAMILIES``) are
+    taken."""
     from .models import lm
 
     lm.check_family(cfg)

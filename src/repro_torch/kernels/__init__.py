@@ -7,7 +7,8 @@
 ``_build.py`` compiles the sources on first use; importing this package
 compiles nothing.
 """
-from . import factor_matvec, flash_attention, mc_matvec, power_matvec, quantize, rank1_update
+from . import (factor_matvec, flash_attention, mc_matvec, power_matvec, quantize, rank1_update,
+               wkv6_chunk)
 
 #: Every kernel wrapper with a ``launches`` counter, by name.
 WRAPPERS = {
@@ -20,6 +21,7 @@ WRAPPERS = {
     "dequantize": quantize.ops.dequantize,
     "factor_matvec": factor_matvec.ops.factor_matvec,
     "flash_attention": flash_attention.ops.flash_attention,
+    "wkv6_chunk": wkv6_chunk.ops.wkv6_chunk,
 }
 
 
@@ -33,4 +35,4 @@ def launches() -> dict:
 
 
 __all__ = ["factor_matvec", "flash_attention", "mc_matvec", "power_matvec", "quantize",
-           "rank1_update", "WRAPPERS", "reset_launches", "launches"]
+           "rank1_update", "wkv6_chunk", "WRAPPERS", "reset_launches", "launches"]

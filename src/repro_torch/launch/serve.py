@@ -8,9 +8,10 @@ kernel, padded static batches, rank buckets) and, with ``follow``, polls the
 directory and hot-swaps onto every newer step that training writes: one
 process fits, this one scores, and the model never exists as a dense d x m
 matrix in either.
-* ``generate`` decodes a batch of prompts over the LM zoo's dense family,
-  token by token through ``decode_step`` against a KV cache, greedily or
-  with temperature sampling.
+* ``generate`` decodes a batch of prompts over the LM zoo's dense and ssm
+  (RWKV-6) families, token by token through ``decode_step`` against a KV
+  cache (dense) or a recurrent state (ssm), greedily or with temperature
+  sampling.
 
 CLI: ``python -m repro_torch.launch.serve factor --checkpoint DIR`` or
 ``python -m repro_torch.launch.serve lm --arch NAME`` (on the card;
@@ -182,7 +183,7 @@ def main(argv=None):
     fp.add_argument("--poll-s", type=float, default=0.2)
     fp.add_argument("--seed", type=int, default=0)
     fp.add_argument("--device", default=None, help="default: cuda")
-    lp = sub.add_parser("lm", help="LM decode over the model zoo (dense family)")
+    lp = sub.add_parser("lm", help="LM decode over the model zoo (dense and ssm families)")
     lp.add_argument("--arch", required=True)
     lp.add_argument("--batch", type=int, default=4)
     lp.add_argument("--prompt-len", type=int, default=16)

@@ -1,6 +1,6 @@
-"""The LM zoo's dense family on PyTorch (``repro.models`` in the reference)."""
-from . import config, layers, lm
+"""The LM zoo's dense and ssm families on PyTorch (``repro.models`` in the reference)."""
+from . import config, layers, lm, rwkv6
 from .config import LM_SHAPES, ModelConfig, ShapeSpec, applicable_shapes
 
-__all__ = ["config", "layers", "lm", "LM_SHAPES", "ModelConfig", "ShapeSpec",
+__all__ = ["config", "layers", "lm", "rwkv6", "LM_SHAPES", "ModelConfig", "ShapeSpec",
            "applicable_shapes"]

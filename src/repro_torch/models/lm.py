@@ -1,11 +1,11 @@
-"""The LM zoo's dense family: init / forward / decode. The port's
-counterpart of ``repro.models.lm``.
+"""The LM zoo's dense and ssm (RWKV-6) families: init / forward / decode.
+The port's counterpart of ``repro.models.lm``.
 
 Parameters are a dict of tensors with the reference's names and layouts,
 except that the reference's stacked ``(L, ...)`` layer leaves are a list of
 per-layer dicts here (``params["layers"][i]``), run by a Python loop in
 place of ``lax.scan``. ``convert.lm_params`` carries a JAX parameter dict
-across. The other families (moe, vlm, audio, hybrid, ssm) and the training
+across. The other families (moe, vlm, audio, hybrid) and the training
 objective (``loss_fn``) are not ported yet: ``init_params``, ``forward``,
 ``cache_specs`` and ``decode_step`` raise ``NotYetPorted`` for them before
 any device work.
@@ -19,11 +19,12 @@ import torch
 from .. import DeviceLike, resolve_device
 from ..specs import NotYetPorted
 from . import layers as L
+from . import rwkv6
 from .config import ModelConfig
 
 Params = Dict[str, Any]
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "ssm")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -44,7 +45,8 @@ def init_params(cfg: ModelConfig, key: Union[int, torch.Generator] = 0, *,
                 device: DeviceLike = None) -> Params:
     """Random parameters with the reference's names, shapes and scales:
     N(0, 1) weights times d^-0.5 (the down projections f^-0.5), zero QKV
-    biases, unit norms. ``key`` is a seed or a ``torch.Generator`` on the
+    biases, unit norms; for the ssm family the RWKV-6 blocks of
+    ``rwkv6.init_rwkv``. ``key`` is a seed or a ``torch.Generator`` on the
     target device (free runs draw different numbers from the reference's
     ``jax.random`` stream; ``convert.lm_params`` carries those across)."""
     cfg.validate()
@@ -58,15 +60,16 @@ def init_params(cfg: ModelConfig, key: Union[int, torch.Generator] = 0, *,
         gen.manual_seed(int(key))
     dt, d = cfg.torch_dtype, cfg.d_model
     p: Params = {"embed": L.normal(gen, (cfg.vocab_size, d), dt, dev) * d**-0.5}
-    p["layers"] = [
-        {
-            "ln1": torch.ones((d,), dtype=dt, device=dev),
-            "attn": L.init_attention(gen, cfg, dt, dev),
-            "ln2": torch.ones((d,), dtype=dt, device=dev),
-            "mlp": L.init_mlp(gen, d, cfg.d_ff, cfg.mlp_type, dt, dev),
-        }
-        for _ in range(cfg.num_layers)
-    ]
+
+    def layer():
+        ones = {"ln1": torch.ones((d,), dtype=dt, device=dev),
+                "ln2": torch.ones((d,), dtype=dt, device=dev)}
+        if cfg.family == "ssm":
+            return dict(ones, tm_cm=rwkv6.init_rwkv(gen, cfg, dt, dev))
+        attn = L.init_attention(gen, cfg, dt, dev)  # drawn before the MLP
+        return dict(ones, attn=attn, mlp=L.init_mlp(gen, d, cfg.d_ff, cfg.mlp_type, dt, dev))
+
+    p["layers"] = [layer() for _ in range(cfg.num_layers)]
     p["final_norm"] = torch.ones((d,), dtype=dt, device=dev)
     if not cfg.tie_embeddings:
         p["unembed"] = L.normal(gen, (d, cfg.vocab_size), dt, dev) * d**-0.5
@@ -79,9 +82,12 @@ def init_params(cfg: ModelConfig, key: Union[int, torch.Generator] = 0, *,
 
 
 def _embed_inputs(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
-    """Returns (h (B, S, D), rope angles (B, S, Dh/2))."""
+    """Returns (h (B, S, D), rope angles (B, S, Dh/2); None for the
+    attention-free ssm family)."""
     tokens = batch["tokens"]
     h = params["embed"][tokens.long()]
+    if cfg.family == "ssm":
+        return h, None
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
     return h, L.rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
@@ -100,11 +106,26 @@ def _unembed(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
             mode: str = "train") -> Dict[str, Any]:
     """All positions at once. ``mode``: "train" (hidden + logits), "prefill"
-    (+ the KV cache, ``k``/``v`` of shape (L, B, Hkv, S, Dh)) or "hidden"
+    (+ the cache: dense ``k``/``v`` of shape (L, B, Hkv, S, Dh); ssm ``s``
+    (L, B, H, 64, 64), ``x_tm`` and ``x_cm`` (L, B, D), all f32) or "hidden"
     (no logits). ``aux_loss`` is 0, as for every non-MoE family."""
     check_family(cfg)
     h, angles = _embed_inputs(params, batch, cfg)
     prefill = mode == "prefill"
+    if cfg.family == "ssm":
+        h, cache = _ssm_layers(params, h, cfg, prefill)
+    else:
+        h, cache = _dense_layers(params, h, angles, cfg, prefill)
+    h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    out = {"hidden": h, "aux_loss": torch.zeros((), dtype=torch.float32, device=h.device)}
+    if mode != "hidden":
+        out["logits"] = _unembed(params, h, cfg)
+    if prefill:
+        out["cache"] = cache
+    return out
+
+
+def _dense_layers(params: Params, h, angles, cfg: ModelConfig, prefill: bool):
     ks, vs = [], []
     for lp in params["layers"]:
         a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
@@ -115,13 +136,30 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
         if prefill:
             ks.append(kv[0])
             vs.append(kv[1])
-    h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    out = {"hidden": h, "aux_loss": torch.zeros((), dtype=torch.float32, device=h.device)}
-    if mode != "hidden":
-        out["logits"] = _unembed(params, h, cfg)
-    if prefill:
-        out["cache"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
-    return out
+    return h, ({"k": torch.stack(ks), "v": torch.stack(vs)} if prefill else None)
+
+
+def _ssm_layers(params: Params, h, cfg: ModelConfig, prefill: bool):
+    """RWKV-6 blocks from a zero token shift and a zero state."""
+    b = h.shape[0]
+    zeros_x = torch.zeros((b, cfg.d_model), dtype=h.dtype, device=h.device)
+    s0 = torch.zeros((b, cfg.d_model // rwkv6.HEAD, rwkv6.HEAD, rwkv6.HEAD),
+                     dtype=torch.float32, device=h.device)
+    ss, xtm, xcm = [], [], []
+    for lp in params["layers"]:
+        y, s_n, x_tm = rwkv6.time_mix(lp["tm_cm"], L.rms_norm(h, lp["ln1"], cfg.norm_eps), cfg,
+                                      zeros_x, s0)
+        h = h + y
+        cm, x_cm = rwkv6.channel_mix(lp["tm_cm"], L.rms_norm(h, lp["ln2"], cfg.norm_eps),
+                                     zeros_x)
+        h = h + cm
+        if prefill:
+            ss.append(s_n)
+            xtm.append(x_tm.float())
+            xcm.append(x_cm.float())
+    if not prefill:
+        return h, None
+    return h, {"s": torch.stack(ss), "x_tm": torch.stack(xtm), "x_cm": torch.stack(xcm)}
 
 
 # ---------------------------------------------------------------------------
@@ -131,8 +169,14 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
 
 def cache_specs(cfg: ModelConfig, batch: int,
                 max_len: int) -> Dict[str, Tuple[tuple, torch.dtype]]:
-    """name -> (shape, dtype) of the decode cache."""
+    """name -> (shape, dtype) of the decode cache. The ssm family's does not
+    grow with ``max_len``: the wkv state and the two token-shift inputs."""
     check_family(cfg)
+    if cfg.family == "ssm":
+        nl, d, hd = cfg.num_layers, cfg.d_model, rwkv6.HEAD
+        return {"s": ((nl, batch, d // hd, hd, hd), torch.float32),
+                "x_tm": ((nl, batch, d), torch.float32),
+                "x_cm": ((nl, batch, d), torch.float32)}
     shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim_)
     return {"k": (shape, cfg.torch_dtype), "v": (shape, cfg.torch_dtype)}
 
@@ -148,14 +192,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 def decode_step(params: Params, cache: Dict[str, torch.Tensor], batch: Dict[str, Any],
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One token for every sequence in the batch: tokens (B, 1) at position
-    ``cache_pos`` (an int). Returns logits (B, 1, V) and the cache, which is
-    updated IN PLACE: each layer writes the token's k and v at cache_pos
-    (the reference's ``dynamic_update_slice`` returns a new cache instead),
-    so the returned dict is the one passed in."""
+    ``cache_pos`` (an int; the ssm family ignores it). Returns logits
+    (B, 1, V) and the cache, which is updated IN PLACE: each dense layer
+    writes the token's k and v at cache_pos, each ssm layer its new state
+    and token-shift inputs (the reference returns a new cache instead), so
+    the returned dict is the one passed in."""
     check_family(cfg)
     tokens, pos = batch["tokens"], int(batch["cache_pos"])
     b = tokens.shape[0]
     h = params["embed"][tokens.long()]
+    if cfg.family == "ssm":
+        h2 = h[:, 0, :]
+        for i, lp in enumerate(params["layers"]):
+            y, s_n, x_tm = rwkv6.time_mix_decode(
+                lp["tm_cm"], L.rms_norm(h2, lp["ln1"], cfg.norm_eps), cfg, cache["x_tm"][i],
+                cache["s"][i])
+            h2 = h2 + y
+            cm, x_cm = rwkv6.channel_mix_decode(
+                lp["tm_cm"], L.rms_norm(h2, lp["ln2"], cfg.norm_eps), cache["x_cm"][i])
+            h2 = h2 + cm
+            cache["s"][i].copy_(s_n)
+            cache["x_tm"][i].copy_(x_tm)
+            cache["x_cm"][i].copy_(x_cm)
+        h = L.rms_norm(h2[:, None, :], params["final_norm"], cfg.norm_eps)
+        return _unembed(params, h, cfg), cache
     positions = torch.full((b, 1), pos, dtype=torch.int64, device=tokens.device)
     angles = L.rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
     for i, lp in enumerate(params["layers"]):

@@ -12,7 +12,13 @@ FMAs), so rtol 1e-4 with an atol of 1e-5 times
 max|plain|; flash attention's online softmax sums in another order than one
 softmax over the row, so each query row is held to its own max|plain| (f32:
 1e-4; bf16: 1e-2, the output's rounding); the rank-1 update and the quantize pair are spelled in their
-plain versions' order and must match them bit for bit.
+plain versions' order and must match them bit for bit. The WKV6 chunk is
+held to its plain chunk form taken in f64 on the same inputs, each (head,
+row) of y to its own max and S_out to its max, 2e-4 (the kernel's f32
+products and its prefix sums rounded to f32, which the clamped exp factors
+carry relatively), and at q = 32 to the exact recurrence as the JAX
+package's test holds its kernel (rtol = atol = 2e-4, f32); the ssm smoke
+model's prefill on the card to the CPU's as the dense one's.
 """
 import numpy as np
 import pytest
@@ -315,3 +321,113 @@ def lm_to(tree, device):
     if isinstance(tree, dict):
         return {k: lm_to(v, device) for k, v in tree.items()}
     return [lm_to(v, device) for v in tree]
+
+
+def _wkv_inputs(b, h, q, dk, dv, dtype, wdtype, device, seed=0):
+    """The model's decay law (logw = -exp(w), w ~ N(-1, 0.6): the clamps bind
+    past about 180 tokens), nonzero u and S_in."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=device)
+
+    r, k = (randn(b, h, q, dk) * 0.5).to(dtype), (randn(b, h, q, dk) * 0.5).to(dtype)
+    v = randn(b, h, q, dv).to(dtype)
+    logw = (-torch.exp(randn(b, h, q, dk) * 0.6 - 1.0)).to(wdtype)
+    return r, k, v, logw, randn(h, dk) * 0.5, randn(b, h, dk, dv) * 0.3
+
+
+def _row_rel(got, want):
+    return float(((got.double() - want).abs().amax(-1) / want.abs().amax(-1).clamp_min(1e-30))
+                 .max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,q,dk,dv", [
+    (2, 4, 256, 64, 64), (1, 3, 50, 64, 64), (3, 1, 7, 64, 64), (3, 1, 1, 64, 64),
+    (1, 2, 100, 16, 32), (2, 2, 32, 64, 64), (1, 1, 320, 64, 64), (2, 2, 129, 48, 64),
+])
+@pytest.mark.parametrize("dtype,wdtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16),
+])
+def test_cuda_wkv6_chunk_matches_plain(cuda, b, h, q, dk, dv, dtype, wdtype):
+    """Kernel against the plain chunk form in f64 on the same inputs: each
+    (head, row) of y to its own max, S_out to its max, 2e-4; identical bits
+    on repeat; one launch a call."""
+    from repro_torch.kernels import wkv6_chunk as wkv
+
+    args = _wkv_inputs(b, h, q, dk, dv, dtype, wdtype, cuda)
+    before = kernels.launches()["wkv6_chunk"]
+    y, s = wkv.wkv6_chunk(*args)
+    torch.cuda.synchronize()
+    assert kernels.launches()["wkv6_chunk"] == before + 1
+    assert y.shape == (b, h, q, dv) and s.shape == (b, h, dk, dv)
+    y64, s64 = wkv.ref.wkv6_chunk_factored(*args, dtype=torch.float64)
+    assert _row_rel(y, y64) <= 2e-4
+    assert float((s.double() - s64).abs().max() / s64.abs().max()) <= 2e-4
+    y2, s2 = wkv.wkv6_chunk(*args)
+    assert torch.equal(y2, y) and torch.equal(s2, s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_wkv6_chunk_matches_the_exact_recurrence_at_32(cuda, dtype):
+    """At q = 32 the clamps cannot bind: the kernel is the exact recurrence
+    (the JAX package's test tolerance, rtol = atol = 2e-4)."""
+    from repro_torch.kernels import wkv6_chunk as wkv
+
+    args = _wkv_inputs(4, 8, 32, 64, 64, dtype, torch.float32, cuda, seed=1)
+    y, s = wkv.wkv6_chunk(*args)
+    ye, se = wkv.ref.wkv6_chunk(*args)
+    np.testing.assert_allclose(y.cpu().numpy(), ye.cpu().numpy(), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(s.cpu().numpy(), se.cpu().numpy(), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_wkv6_chunk_reads_the_models_layout(cuda):
+    """(B, S, H, 64) views at a chunk offset, y written into a (B, S, H, 64)
+    buffer: the bits of contiguous copies."""
+    from repro_torch.kernels import wkv6_chunk as wkv
+
+    b, s, h, q, c = 2, 768, 4, 256, 256
+    x = {n: torch.randn(b, s, h, 64, device=cuda).to(torch.bfloat16) for n in "rkv"}
+    logw = -torch.exp(torch.randn(b, s, h, 64, device=cuda) * 0.6 - 1.0)
+    u, s0 = torch.randn(h, 64, device=cuda), torch.randn(b, h, 64, 64, device=cuda)
+    views = [x["r"], x["k"], x["v"], logw]
+    views = [t[:, c:c + q].transpose(1, 2) for t in views]
+    out = torch.full((b, s, h, 64), float("nan"), device=cuda)
+    y, st = wkv.wkv6_chunk(*views, u, s0, out=out[:, c:c + q].transpose(1, 2))
+    y2, st2 = wkv.wkv6_chunk(*(t.contiguous() for t in views), u, s0)
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    assert torch.isnan(out[:, :c]).all() and torch.isnan(out[:, c + q:]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk,seq", [(32, 64), (256, 512)])
+def test_cuda_rwkv6_prefill_matches_cpu(cuda, chunk, seq):
+    """The ssm smoke model (u_bonus nonzero) prefilled on the card (one
+    wkv6_chunk launch per layer and chunk) against the CPU's plain chunk
+    form, same weights, f32: logits and caches to rtol 1e-4 / atol 1e-4 of
+    max; at chunk 256 over 512 tokens the clamps bind."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_config("rwkv6_7b", smoke=True), ssm_chunk=chunk)
+    cpu_params = lm.init_params(cfg, 0, device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    for lp in cpu_params["layers"]:
+        lp["tm_cm"]["u_bonus"].normal_(0.0, 0.5, generator=gen)
+    dev_params = lm_to(cpu_params, cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, seq), generator=torch.Generator().manual_seed(1))
+    before = kernels.launches()["wkv6_chunk"]
+    last, cache = steps.make_prefill_step(cfg)(dev_params, {"tokens": toks.to(cuda)})
+    torch.cuda.synchronize()
+    assert kernels.launches()["wkv6_chunk"] == before + cfg.num_layers * seq // chunk
+    want_last, want_cache = steps.make_prefill_step(cfg)(cpu_params, {"tokens": toks})
+    _close(last.cpu(), want_last, atol_rel=1e-4)
+    for name in ("s", "x_tm", "x_cm"):
+        _close(cache[name].cpu(), want_cache[name], atol_rel=1e-4)

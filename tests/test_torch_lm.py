@@ -39,7 +39,7 @@ torch.set_num_threads(2)
 
 DENSE = ["qwen2_1_5b", "qwen2_5_14b", "codeqwen1_5_7b", "starcoder2_7b"]
 OTHERS = ["arctic_480b", "llama4_scout_17b_a16e", "qwen2_vl_72b", "hubert_xlarge",
-          "zamba2_2_7b", "rwkv6_7b"]
+          "zamba2_2_7b"]
 
 
 def _close(got, want, rtol=1e-5, atol_rel=1e-5):
