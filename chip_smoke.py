@@ -26,11 +26,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
    1,408,395 held-out ratings; users and movies drawn from popularity laws
    whose busiest user and movie hold about as many ratings as in the
    published data; values from a planted rank-10 matrix plus noise 0.1).
-7. Hold the COO matvec (both directions) and the int8 quantize pair against
-   their plain versions at those shapes and at tiny odd ones, and time them.
+7. Hold the COO matvec (both directions, on the residual's copies in the
+   row and column orders) and the int8 quantize pair against their plain
+   versions at those shapes and at tiny odd ones, and time them; time the
+   refresh gather that makes those copies (bits identical to resid[perm]).
 8. Drive ``fit_serial`` for matrix completion (comm "dense", log schedule,
    line search, --mc-epochs): loss finite and non-increasing, held-out RMSE
-   below that of W = 0, launch counts as the path implies.
+   below that of W = 0, launch counts as the path implies (the refresh
+   gathers too: two per state built, two per epoch).
 9. The same with comm "int8" (--mc-int8-epochs): loss ends below its start,
    quantize and dequantize launched 2K times per epoch each.
 10. Small MC fits, dense and int8, on the card against the CPU with the same
@@ -54,15 +57,19 @@ Phases, each fatal on failure (exit code != 0, no result line):
 13. Hold the flash attention kernel (``flash_attention``) against its plain
    version at the main path's shape (B = 4, Hq 12 / Hkv 2, S = 8192, Dh 128,
    causal, bf16), at prefill_32k's length (B = 1, S = 32,768), non-causal at
-   S = 4096 (bf16 and f32), and at tiny odd f32 shapes ((Sq, Skv) = (50, 70)
-   and (70, 50), Dh 12 and 16, group sizes 1, 2, 8): every row up to 4096,
-   the first and last 256 query rows beyond; identical bits on repeat.
+   S = 4096 (bf16 and f32), at tiny odd f32 shapes ((Sq, Skv) = (50, 70)
+   and (70, 50), Dh 12 and 16, group sizes 1, 2, 8) and ragged bf16 ones
+   around the 128-row tiles (Dh 64 and 128): every row up to 4096, the first
+   and last 256 query rows beyond; identical bits on repeat; bf16 with Dh 64
+   or 128 on the wgmma route, the rest on the generic one, and the count of
+   HGMMA instructions in the built wgmma kernels' SASS (``cuobjdump``).
    Times of kernel, plain version and scaled_dot_product_attention.
 14. Full-width prefill of qwen2-1.5b (28 layers, d 1536, vocab 151,936,
    bf16; weights drawn on the card from --seed) through
    ``launch.steps.make_prefill_step`` on 4 random prompts of 8,192 tokens:
    last logits finite, cache (28, 4, 2, 8192, 128), one flash_attention
-   launch per layer; ms per prefill (median of 3), tokens/s, peak memory.
+   launch per layer, each on the wgmma route; ms per prefill (median of 3),
+   tokens/s, peak memory.
 15. Full-width decode: ``launch.serve.generate`` at batch 4, a 64-token
    prompt and 32 new tokens: tokens in range, no flash_attention launch
    (decode attention is the dense path); ms per step.
@@ -99,6 +106,13 @@ Phases, each fatal on failure (exit code != 0, no result line):
    reported (ROADMAP caveat (e)); (c) the smoke config's prefill on the
    card against the CPU at chunk 32 and at chunk 256 over 512 tokens
    (clamps binding), f32, rtol 1e-4.
+
+``--coo-bits PATH`` runs only phases 1 and 6 and then G.v and G^T.u of
+``coo_matvec`` at the full shape (x drawn from --seed), saving the results
+and their times to PATH; ``--coo-ref`` names such a file from another run
+and says whether the bits are the same; ``--src`` imports the port from
+another checkout's ``src``, so two versions of the kernel are compared in
+one call (old, new, new, old), each on the same data made from --seed.
 
 ``--profile`` adds 3-epoch fits of the three tasks, 50 serving dispatches,
 one prefill and a short decode of each LM under ``torch.profiler`` (device
@@ -143,6 +157,9 @@ TPU_KERNEL = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:88",
     "wkv6_chunk": "src/repro/kernels/wkv6_chunk/kernel.py:61",
 }
+# Kernels of the port that replace no TPU kernel (no row in the kernels
+# line), with their own launch counts: the MC residual's refresh gather.
+HELPER_KERNELS = ("gather_sorted",)
 SOURCE = {
     "matvec": "src/repro_torch/csrc/power_matvec.cu",
     "rmatvec": "src/repro_torch/csrc/power_matvec.cu",
@@ -372,14 +389,17 @@ def expected_launches(kind: str, ks, verify: bool, comm: str = "dense"):
     X.u and R^T s (2 matvec + 2 rmatvec), logistic X^T (Pv - v_y) and X.u
     (1 + 1), matrix completion G.v and G^T.u (2 coo_matvec); each dense-task
     epoch adds the update's X.u (and, for MTLS, the line search's) and one
-    rank-1 update. Under int8 every exchange (2 per iteration) is one
-    quantize and one dequantize. verify_kernelized runs one iteration's
+    rank-1 update; each MC state built (the fit's, and verify_kernelized's)
+    and each MC epoch's update refresh the residual's row- and column-order
+    copies (2 gather_sorted). Under int8 every exchange (2 per iteration) is
+    one quantize and one dequantize. verify_kernelized runs one iteration's
     worth of matvecs before the fit, and verify_quantize_kernels one pair."""
     iters = sum(ks) + (1 if verify else 0)
     e = len(ks)
-    want = dict.fromkeys(TPU_KERNEL, 0)
+    want = dict.fromkeys((*TPU_KERNEL, *HELPER_KERNELS), 0)
     if kind == "mc":
         want["coo_matvec"] = 2 * iters
+        want["gather_sorted"] = 2 * (e + 1 + (1 if verify else 0))
     else:
         per_iter = 2 if kind == "mtls" else 1
         want["matvec"] = per_iter * iters + (2 * e if kind == "mtls" else e)
@@ -419,8 +439,9 @@ def run_path(torch, kernels, dfw, kind, task, X, target, cfg, seed, dev):
 
 
 PORT_KERNELS = ("matvec_kernel", "rmatvec_partial_kernel", "rmatvec_finish_kernel",
-                "rank1_kernel", "piece_sum_kernel", "segment_sum_kernel", "quantize_kernel",
-                "dequantize_kernel", "factor_matvec_kernel")
+                "rank1_kernel", "piece_sum_kernel", "segment_sum_kernel", "gather_sorted_kernel",
+                "quantize_kernel", "dequantize_kernel", "factor_matvec_kernel")
+FLASH_KERNELS = ("flash_fwd_kernel", "flash_fwd_wgmma_kernel")  # the two routes
 
 
 def profile_fit(torch, kind, run):
@@ -550,36 +571,87 @@ def mc_stats(torch, idx, d, m):
                 duplicates=dups)
 
 
+def coo_bits_phase(torch, mc, tasks, dev, gen, args):
+    """--coo-bits: G.v and G^T.u of coo_matvec at the full MC shape, on
+    whichever version of the port was imported (values in caller order for
+    a version without gather_sorted, else the state's sorted copies), saved
+    with their times; compared bit for bit with --coo-ref if given."""
+    idx, yw, _, _ = make_mc_data(torch, gen, dev, args.mc_entries, NF_TEST, d=NF_D, m=NF_M)
+    state = tasks.MatrixCompletion(NF_D, NF_M).init_state(idx, yw)
+    del idx, yw
+    sorted_copies = hasattr(mc, "gather_sorted")
+    xs = {"G.v": torch.randn(NF_M, generator=gen, device=dev),
+          "G^T.u": torch.randn(NF_D, generator=gen, device=dev)}
+    saved, res = {}, dict(version="sorted copies" if sorted_copies else "read through perm")
+    for label, order, copy in (("G.v", state.by_row, "resid_by_row"),
+                               ("G^T.u", state.by_col, "resid_by_col")):
+        vals = getattr(state, copy) if sorted_copies else state.resid
+        x = xs[label]
+        saved[label] = mc.coo_matvec(order, vals, x).cpu()
+        res[f"{label} ms"] = time_ms(torch, lambda: mc.coo_matvec(order, vals, x), args.reps)
+    torch.save(saved, args.coo_bits)
+    if args.coo_ref:
+        ref = torch.load(args.coo_ref)
+        res["same_bits_as_ref"] = all(torch.equal(saved[k], ref[k]) for k in saved)
+    print(f"coo_matvec ({res['version']}): " + ", ".join(
+        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in res.items()
+        if k != "version"))
+    return res
+
+
 def mc_kernel_phase(torch, mc, qz, dev, state, gen, reps, peaks):
-    """coo_matvec (G.v along the row order, G^T.u along the column order) and
-    the quantize pair against their plain versions at the MC shapes and at
-    tiny odd shapes; times of kernel, plain version and library call."""
+    """coo_matvec (G.v along the row order, G^T.u along the column order, on
+    the residual's copies in those orders) and the quantize pair against
+    their plain versions at the MC shapes and at tiny odd shapes; times of
+    kernel, plain version and library call; the refresh gather's time
+    against its bound, and its bits against resid[perm]."""
     bw, flops = peaks[:2]
     d, m = state.by_row.out_dim, state.by_col.out_dim
     p = state.resid.numel()
     vals = state.resid
     rows_out = []
-    for label, order, seg, gat, in_dim in (("G.v", state.by_row, state.rows, state.cols, m),
-                                           ("G^T.u", state.by_col, state.cols, state.rows, d)):
+    for label, order, sorted_vals, seg, gat, in_dim in (
+            ("G.v", state.by_row, state.resid_by_row, state.rows, state.cols, m),
+            ("G^T.u", state.by_col, state.resid_by_col, state.cols, state.rows, d)):
         out_dim = order.out_dim
         x = torch.randn(in_dim, generator=gen, device=dev)
+        # the refresh gather: vals[perm], bit for bit; its bound reads perm
+        # and the values and writes the copy once (12 bytes an entry)
+        check(torch.equal(sorted_vals, vals[order.perm.long()]),
+              f"the residual's copy for {label} is not resid[perm]")
+        fresh = mc.gather_sorted(order, vals)
+        torch.cuda.synchronize()
+        check(torch.equal(fresh, sorted_vals), f"gather_sorted for {label} is not resid[perm]")
+        perm64 = order.perm.long()
+        gbytes = 12 * p
+        grow = dict(name="gather_sorted", operand=f"resid, {label} order", shape=[p],
+                    max_abs_err=0.0, max_rel_err=0.0, bits_identical=True,
+                    ms=time_ms(torch, lambda: mc.gather_sorted(order, vals), reps),
+                    plain_ms=time_ms(torch, lambda: mc.ref.gather_sorted(order.perm, vals), reps),
+                    library_ms=time_ms(torch, lambda: torch.index_select(vals, 0, perm64), reps),
+                    bound_ms=1e3 * gbytes / bw, bound_by="bytes", bytes=gbytes)
+        rows_out.append(grow)
+        print(f"kernel gather_sorted ({label} order, {p} entries): {grow['ms']:.3f} ms (plain "
+              f"{grow['plain_ms']:.3f}, index_select {grow['library_ms']:.3f}, bound "
+              f"{grow['bound_ms']:.3f}), bits identical to resid[perm]")
+        del fresh, perm64
         # cuSPARSE CSR SpMV on the same function; building the CSR tensor
         # (the values in sorted order) is set-up and not timed.
         csr = torch.sparse_csr_tensor(order.seg_ptr.to(torch.int32), order.gat_sorted,
-                                      vals[order.perm.long()], size=(out_dim, in_dim))
-        got = mc.coo_matvec(order, vals, x)
+                                      sorted_vals, size=(out_dim, in_dim))
+        got = mc.coo_matvec(order, sorted_vals, x)
         torch.cuda.synchronize()
         want = mc.ref.coo_matvec(seg, gat, vals, x, out_dim)
         err_abs, err_rel = rel_err(torch, got, want)
         check(math.isfinite(err_rel) and err_rel <= TOL["coo_matvec"],
               f"coo_matvec {label}: max rel err {err_rel:.3e} > {TOL['coo_matvec']:.0e}")
-        check(torch.equal(mc.coo_matvec(order, vals, x), got),
+        check(torch.equal(mc.coo_matvec(order, sorted_vals, x), got),
               f"coo_matvec {label} is not bit-stable")
         lib_err = rel_err(torch, torch.mv(csr, x), want)[1]
         nbytes = 8 * p + 4 * (in_dim + out_dim)
         row = dict(name="coo_matvec", operand=label, shape=[out_dim, in_dim, p],
                    max_abs_err=err_abs, max_rel_err=err_rel, library_rel_err=lib_err,
-                   ms=time_ms(torch, lambda: mc.coo_matvec(order, vals, x), reps),
+                   ms=time_ms(torch, lambda: mc.coo_matvec(order, sorted_vals, x), reps),
                    plain_ms=time_ms(torch, lambda: mc.ref.coo_matvec(
                        seg, gat, vals, x, out_dim), reps),
                    library_ms=time_ms(torch, lambda: torch.mv(csr, x), reps),
@@ -631,13 +703,17 @@ def mc_kernel_phase(torch, mc, qz, dev, state, gen, reps, peaks):
                                                                          device=dev)
         zero = torch.zeros(5, dtype=torch.int32, device=dev)
         for seg, gat, od, idim, x in ((r, c, dd, mm, xv), (c, r, mm, dd, xu)):
-            got = mc.coo_matvec(mc.build_order(seg, gat, od, idim), vv, x)
+            order = mc.build_order(seg, gat, od, idim)
+            copy = mc.gather_sorted(order, vv)
+            check(torch.equal(copy, vv[order.perm.long()]),
+                  f"gather_sorted at {od}x{idim}, {pp} entries is not vals[perm]")
+            got = mc.coo_matvec(order, copy, x)
             err = rel_err(torch, got, mc.ref.coo_matvec(seg, gat, vv, x, od))[1]
             check(err <= TOL["coo_matvec"], f"coo_matvec at {od}x{idim}, {pp} entries: {err:.3e}")
-            padded = mc.coo_matvec(mc.build_order(torch.cat([seg, zero]), torch.cat([gat, zero]),
-                                                  od, idim),
-                                   torch.cat([vv, torch.zeros(5, device=dev)]), x)
-            check(torch.equal(padded, got), f"coo_matvec at {od}x{idim}: padding changed bits")
+            padded = mc.build_order(torch.cat([seg, zero]), torch.cat([gat, zero]), od, idim)
+            padded_vals = torch.cat([vv, torch.zeros(5, device=dev)])
+            check(torch.equal(mc.coo_matvec(padded, mc.gather_sorted(padded, padded_vals), x),
+                              got), f"coo_matvec at {od}x{idim}: padding changed bits")
     for n in (1, 37, 1000):
         for b in (1, 15, 127):
             x = torch.randn(n, generator=gen, device=dev)
@@ -652,7 +728,8 @@ def mc_kernel_phase(torch, mc, qz, dev, state, gen, reps, peaks):
                                       qz.ref.dequantize(q, scale, b)),
                       f"quantize pair at n={n}, budget={b} differs from its plain version")
     print("coo_matvec matches its plain version at full and odd shapes, bit-stable, padding "
-          "changes no bit; quantize/dequantize bit-identical to their plain versions")
+          "changes no bit; gather_sorted is vals[perm] bit for bit; quantize/dequantize "
+          "bit-identical to their plain versions")
     return rows_out
 
 
@@ -1056,13 +1133,45 @@ def attention_pairs(sq: int, skv: int, causal: bool) -> int:
     return n * (n + 1) // 2 + max(0, sq - skv) * skv
 
 
-def flash_kernel_phase(torch, fa, dev, gen, reps, peaks):
+def hgmma_counts(_build):
+    """HGMMA instructions in each wgmma kernel of the built flash_attention
+    library's SASS (cuobjdump, beside nvcc)."""
+    so = _build.library_path("flash_attention")
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif "HGMMA" in line and fn is not None and "wgmma" in fn:
+            counts[fn] = counts.get(fn, 0) + 1
+    return counts
+
+
+def flash_kernel_phase(torch, fa, kernels, _build, dev, gen, reps, peaks):
     """flash_attention against its plain version: the main path's shape (B 4,
     S 8192, causal, bf16), prefill_32k's length (B 1, S 32,768), non-causal
-    cases, tiny odd f32 ones; identical bits on repeat; times of kernel,
-    plain version and scaled_dot_product_attention."""
+    cases, tiny odd f32 ones and ragged bf16 ones; identical bits on repeat;
+    the route each took; the HGMMA count of the wgmma kernels; times of
+    kernel, plain version and scaled_dot_product_attention."""
     bw, f32_peak, bf16_peak = peaks
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    counts = hgmma_counts(_build)
+    for fn, n in sorted(counts.items()):
+        print(f"  SASS of {fn}: {n} HGMMA instructions")
+    check(len(counts) == 2 and all(n > 0 for n in counts.values()),
+          f"no HGMMA in the wgmma kernels' SASS: {counts}")
+
+    def routed(call, want):
+        """Run ``call`` and check that it launched flash_attention once, on
+        route ``want``."""
+        before = kernels.route_launches()["flash_attention"]
+        out = call()
+        after = kernels.route_launches()["flash_attention"]
+        moved = {r: after[r] - before[r] for r in after if after[r] != before[r]}
+        check(moved == {want: 1}, f"flash_attention took {moved}, expected {{{want!r}: 1}}")
+        return out
 
     def inputs(b, hq, hkv, sq, skv, dh, dtype):
         return [torch.randn(b, h, s, dh, generator=gen, device=dev).to(dtype)
@@ -1105,7 +1214,8 @@ def flash_kernel_phase(torch, fa, dev, gen, reps, peaks):
     for label, b, s, causal, dtype, nrep in big:
         q, k, v = inputs(b, FA_HQ, FA_HKV, s, s, FA_DH, dtype)
         scale = FA_DH ** -0.5
-        got = fa.flash_attention(q, k, v, scale=scale, causal=causal)
+        route = "wgmma" if dtype == torch.bfloat16 else "generic"
+        got = routed(lambda: fa.flash_attention(q, k, v, scale=scale, causal=causal), route)
         torch.cuda.synchronize()
         err_abs, err_rel, err_last = error(got, q, k, v, scale, causal)
         tol = TOL["flash_attention_bf16" if dtype == torch.bfloat16 else "flash_attention"]
@@ -1130,13 +1240,18 @@ def flash_kernel_phase(torch, fa, dev, gen, reps, peaks):
                                                    scale=scale), nrep),
             bound_ms=1e3 * max(nbytes / bw, nflops / peak),
             bound_by="bytes" if nbytes / bw >= nflops / peak else "operations",
-            bytes=nbytes, flops=nflops, main=label == "main path")
+            bytes=nbytes, flops=nflops, main=label == "main path", route=route)
+        if route == "wgmma":
+            # the p_hi/p_lo split issues the P.V products twice: 1.5x the work
+            row["split_floor_ms"] = 1.5 * 1e3 * nflops / peak
         row["tflops"] = nflops / row["ms"] / 1e9
         rows_out.append(row)
-        print(f"kernel flash_attention {row['operand']}: {row['ms']:.3f} ms ({row['tflops']:.1f} "
-              f"TFLOP/s; plain {row['plain_ms']:.3f}, sdpa {row['library_ms']:.3f}, bound "
-              f"{row['bound_ms']:.4f} by {row['bound_by']}) row-relative err {err_rel:.2e}, "
-              f"last rows {err_last:.2e} (limit {tol:.0e}), bit-stable")
+        print(f"kernel flash_attention {row['operand']} ({route} route): {row['ms']:.3f} ms "
+              f"({row['tflops']:.1f} TFLOP/s; plain {row['plain_ms']:.3f}, sdpa "
+              f"{row['library_ms']:.3f}, bound {row['bound_ms']:.4f} by {row['bound_by']}"
+              + (f", split floor {row['split_floor_ms']:.4f}" if route == "wgmma" else "")
+              + f") row-relative err {err_rel:.2e}, last rows {err_last:.2e} (limit {tol:.0e}), "
+              "bit-stable")
         del q, k, v
         torch.cuda.empty_cache()
 
@@ -1146,7 +1261,8 @@ def flash_kernel_phase(torch, fa, dev, gen, reps, peaks):
             for causal in (True, False):
                 for sq, skv in ((50, 70), (70, 50)):
                     q, k, v = inputs(2, 8, hkv, sq, skv, dh, torch.float32)
-                    got = fa.flash_attention(q, k, v, scale=dh ** -0.5, causal=causal)
+                    got = routed(lambda: fa.flash_attention(q, k, v, scale=dh ** -0.5,
+                                                            causal=causal), "generic")
                     err = error(got, q, k, v, dh ** -0.5, causal)[1]
                     check(err <= TOL["flash_attention"],
                           f"flash_attention Sq {sq} Skv {skv} Dh {dh} Hkv {hkv} causal {causal}: "
@@ -1154,9 +1270,25 @@ def flash_kernel_phase(torch, fa, dev, gen, reps, peaks):
                     check(torch.equal(fa.flash_attention(q, k, v, scale=dh ** -0.5,
                                                          causal=causal), got),
                           f"flash_attention Sq {sq} Dh {dh} is not bit-stable")
+    # ragged bf16 shapes around the wgmma route's 128-row tiles: Sq != Skv
+    # both ways, group sizes 1, 2 and 6, Dh 64 and 128
+    for dh in (64, 128):
+        for hq, hkv, sq, skv in ((2, 2, 127, 129), (6, 1, 129, 300), (4, 2, 300, 127)):
+            for causal in (True, False):
+                q, k, v = inputs(1, hq, hkv, sq, skv, dh, torch.bfloat16)
+                got = routed(lambda: fa.flash_attention(q, k, v, scale=dh ** -0.5,
+                                                        causal=causal), "wgmma")
+                err = error(got, q, k, v, dh ** -0.5, causal)[1]
+                check(err <= TOL["flash_attention_bf16"],
+                      f"flash_attention bf16 Sq {sq} Skv {skv} Dh {dh} Hq/Hkv {hq}/{hkv} causal "
+                      f"{causal}: row-relative err {err:.3e}")
+                check(torch.equal(fa.flash_attention(q, k, v, scale=dh ** -0.5,
+                                                     causal=causal), got),
+                      f"flash_attention bf16 Sq {sq} Skv {skv} Dh {dh} is not bit-stable")
     print("flash_attention matches its plain version at the main path's shape, at 32k, "
-          "non-causal and at odd f32 shapes; bit-stable")
-    return rows_out
+          "non-causal, at odd f32 shapes (generic route) and ragged bf16 ones (wgmma route); "
+          "bit-stable")
+    return rows_out, counts
 
 
 def lm_prefill_phase(torch, kernels, lm, steps, cfg, dev, gen, args):
@@ -1182,6 +1314,10 @@ def lm_prefill_phase(torch, kernels, lm, steps, cfg, dev, gen, args):
     want = dict.fromkeys(launches, 0)
     want["flash_attention"] = cfg.num_layers
     check(launches == want, f"prefill: launches {launches} != {want}")
+    routes = kernels.route_launches()["flash_attention"]
+    check(routes == {"wgmma": cfg.num_layers, "generic": 0},
+          f"prefill: flash_attention routes {routes}, expected every layer on wgmma")
+    rep["routes"] = routes
     rep["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     kv_shape = (cfg.num_layers, args.lm_batch, cfg.num_kv_heads, args.lm_seq, cfg.head_dim_)
     check(tuple(last.shape) == (args.lm_batch, cfg.vocab_size), f"prefill logits {last.shape}")
@@ -1204,8 +1340,8 @@ def lm_prefill_phase(torch, kernels, lm, steps, cfg, dev, gen, args):
     print(f"prefill {cfg.name} ({cfg.num_layers} layers, {rep['params']} parameters, "
           f"{cfg.dtype}) on {args.lm_batch} x {args.lm_seq} tokens: median {rep['ms_median']:.1f} "
           f"ms ({rep['tokens_per_s']:.0f} tokens/s; first {rep['first_ms']:.1f} ms), peak "
-          f"{rep['peak_gb']:.2f} GB, {cfg.num_layers} flash_attention launches; last logits "
-          f"{(args.lm_batch, cfg.vocab_size)} finite, cache {kv_shape}")
+          f"{rep['peak_gb']:.2f} GB, {cfg.num_layers} flash_attention launches, all on wgmma; "
+          f"last logits {(args.lm_batch, cfg.vocab_size)} finite, cache {kv_shape}")
     return rep, launches, params, toks
 
 
@@ -1310,7 +1446,7 @@ def profile_lm(torch, lm_serve, steps, cfg, params, toks, dev, seed):
             if str(getattr(ev, "device_type", "")).endswith("CUDA"):
                 dev_us[ev.key] = dev_us.get(ev.key, 0.0) + ev.self_device_time_total
         busy = sum(dev_us.values())
-        flash = sum(t for k, t in dev_us.items() if "flash_fwd_kernel" in k)
+        flash = sum(t for k, t in dev_us.items() if any(f in k for f in FLASH_KERNELS))
         out[label] = dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
                           flash_ms=flash / 1e3, idle_share=1.0 - busy / wall_us if busy else None,
                           top=sorted(((k[:90], t / 1e3) for k, t in dev_us.items()),
@@ -1772,13 +1908,19 @@ def main(argv=None) -> int:
     ap.add_argument("--report", default=None, help="also write the full report here")
     ap.add_argument("--profile", action="store_true",
                     help="also profile 3-epoch fits (device time by kernel, idle share)")
+    ap.add_argument("--coo-bits", default=None, metavar="PATH",
+                    help="only time coo_matvec at the full MC shape and save its results here")
+    ap.add_argument("--coo-ref", default=None, metavar="PATH",
+                    help="with --coo-bits: compare the results bit for bit with this file's")
+    ap.add_argument("--src", default=None,
+                    help="import the port from this src directory (default: the checkout's)")
     args = ap.parse_args(argv)
 
     import torch
 
     if not torch.cuda.is_available():
         return fail("CUDA is not available; this script runs the port on a GPU")
-    src = Path(__file__).resolve().parent / "src"
+    src = Path(args.src).resolve() if args.src else Path(__file__).resolve().parent / "src"
     if not (src / "repro_torch" / "csrc").is_dir():
         return fail(f"{src / 'repro_torch'} not found: run from a checkout of the repo")
     sys.path.insert(0, str(src))
@@ -1812,7 +1954,7 @@ def main(argv=None) -> int:
         for src_name in ("power_matvec", "rank1_update", "mc_matvec", "quantize",
                          "factor_matvec", "flash_attention", "wkv6_chunk"):
             for line in _build.build_log(src_name).splitlines():
-                if "registers" in line or "spill" in line:
+                if "registers" in line or "spill" in line or "wgmma" in line:
                     print(f"  ptxas {src_name}: {line.strip()}")
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1826,6 +1968,9 @@ def main(argv=None) -> int:
         # data for the main path, made on the card from --seed
         gen = torch.Generator(device=dev)
         gen.manual_seed(args.seed)
+        if args.coo_bits:
+            print(json.dumps({"coo_bits": coo_bits_phase(torch, mc, tasks, dev, gen, args)}))
+            return 0
         n = args.rows
         t0 = time.perf_counter()
         X = torch.randn(n, PAPER_D, generator=gen, device=dev)
@@ -1978,7 +2123,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
         # 13. flash_attention against its plain version
-        krows += flash_kernel_phase(torch, fa, dev, gen, args.reps, peaks)
+        fa_rows, report["hgmma"] = flash_kernel_phase(torch, fa, kernels, _build, dev, gen,
+                                                      args.reps, peaks)
+        krows += fa_rows
         torch.cuda.empty_cache()
 
         # 14. full-width prefill of qwen2-1.5b (depth --lm-layers)

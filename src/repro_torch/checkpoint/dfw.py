@@ -18,10 +18,11 @@ leaves, in this order, with the JAX package's paths, shapes and dtypes::
 
 The JAX package's readers map leaves by this order (``restore_run``) or by
 path (``read_iterate_packed``), so a port checkpoint is read there and a
-JAX checkpoint is read here. The MC state's row and column entry orders are
-not tensors of the state's own and are not written: ``init_state`` rebuilds
-them. The manifest's ``extra`` is the run configuration; it carries
-``torch_version`` where the JAX package writes ``jax_version``.
+JAX checkpoint is read here. The MC state's row and column entry orders and
+the residual's copies in them are derived from its other fields and are not
+written: ``init_state`` and ``convert.task_state`` rebuild them. The
+manifest's ``extra`` is the run configuration; it carries ``torch_version``
+where the JAX package writes ``jax_version``.
 
 Serving reads only the iterate (``read_iterate_packed``). ``RunSnapshot``
 and ``restore_run`` (resume) come with the resume path.
@@ -57,11 +58,13 @@ def prng_key(seed: int) -> np.ndarray:
 
 
 def _state_leaves(state) -> Dict[str, torch.Tensor]:
-    """The state's tensor fields in declaration order; int64 labels are
-    written as the JAX package's int32."""
+    """The state's tensor fields in declaration order, less those derived
+    from the others (``DERIVED``: the MC state's entry orders and residual
+    copies); int64 labels are written as the JAX package's int32."""
     out = {}
+    derived = getattr(state, "DERIVED", ())
     for name, val in zip(state._fields, state):
-        if isinstance(val, torch.Tensor):
+        if isinstance(val, torch.Tensor) and name not in derived:
             out[name] = val.to(torch.int32) if val.dtype == torch.int64 else val
     return out
 

@@ -17,7 +17,6 @@ import torch
 
 from . import DeviceLike, resolve_device
 from .core import low_rank, tasks
-from .kernels.mc_matvec import ops as mc_ops
 
 
 def _fields(obj: Any) -> dict:
@@ -41,19 +40,14 @@ def task_state(state: Any, *, device: DeviceLike = None, d: int = None, m: int =
     become int64) or ``MCState`` (rows, cols, vals, resid, weight, in the
     same entry order) from the JAX package's state of the same name. An
     ``MCState`` needs the task's ``d`` and ``m``, to build the kernel's row
-    and column orders."""
+    and column orders and the residual's copies in them."""
     dev = resolve_device(device)
     f = _fields(state)
     if set(f) == {"rows", "cols", "vals", "resid", "weight"}:
         if d is None or m is None:
             raise TypeError("an MCState needs the task's d and m")
-        rows, cols = _i32(f["rows"], dev), _i32(f["cols"], dev)
-        return tasks.MCState(
-            rows=rows, cols=cols, vals=_f32(f["vals"], dev), resid=_f32(f["resid"], dev),
-            weight=_f32(f["weight"], dev),
-            by_row=mc_ops.build_order(rows, cols, d, m),
-            by_col=mc_ops.build_order(cols, rows, m, d),
-        )
+        return tasks.mc_state(_i32(f["rows"], dev), _i32(f["cols"], dev), _f32(f["vals"], dev),
+                              _f32(f["resid"], dev), _f32(f["weight"], dev), d, m)
     if set(f) == {"x", "y", "r"}:
         return tasks.MTLSState(x=_f32(f["x"], dev), y=_f32(f["y"], dev), r=_f32(f["r"], dev))
     if set(f) == {"x", "y", "z"}:

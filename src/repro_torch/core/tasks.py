@@ -21,9 +21,10 @@ temporaries stay bounded at any n.
 
 Matrix completion keeps its observed entries in COO layout (``MCState``);
 its matvecs go through the ``mc_matvec`` kernel along row- and column-sorted
-entry orders built once per run, and its per-entry update, loss, <W, grad>
-and line search stay plain PyTorch, as they stay plain XLA in the JAX
-package. The dense MTLS state and block atoms come with later slices.
+entry orders built once per run, reading copies of the residual kept in
+each order, and its per-entry update, loss, <W, grad> and line search stay
+plain PyTorch, as they stay plain XLA in the JAX package. The dense MTLS
+state and block atoms come with later slices.
 """
 from __future__ import annotations
 
@@ -195,6 +196,12 @@ class MCState(NamedTuple):
     ``by_row``/``by_col`` are the once-per-run entry orders of the
     ``mc_matvec`` kernel (G v reduces along rows, G^T u along columns); the
     indices never change during a run, so neither do they.
+    ``resid_by_row``/``resid_by_col`` are the residual in those orders
+    (``resid[by_row.perm]``, ``resid[by_col.perm]``), what the kernel reads:
+    :func:`mc_state` builds them with the orders and
+    ``MatrixCompletion.update`` refreshes them with every residual, so they
+    are never stale. The four are derived from the other fields (``DERIVED``)
+    and are not written to a checkpoint.
     """
 
     rows: torch.Tensor  # (p,) int32 global row index of each observed entry
@@ -204,6 +211,28 @@ class MCState(NamedTuple):
     weight: torch.Tensor  # (p,) {0,1} mask; 0 marks padding entries
     by_row: Optional[mc_ops.SegmentOrder] = None
     by_col: Optional[mc_ops.SegmentOrder] = None
+    resid_by_row: Optional[torch.Tensor] = None  # (p,) resid[by_row.perm]
+    resid_by_col: Optional[torch.Tensor] = None  # (p,) resid[by_col.perm]
+
+    DERIVED = ("by_row", "by_col", "resid_by_row", "resid_by_col")
+
+    def with_resid(self, resid: torch.Tensor) -> "MCState":
+        """This state with a new residual and its sorted copies refreshed
+        (one gather per order)."""
+        return self._replace(
+            resid=resid,
+            resid_by_row=None if self.by_row is None else mc_ops.gather_sorted(self.by_row, resid),
+            resid_by_col=None if self.by_col is None else mc_ops.gather_sorted(self.by_col, resid),
+        )
+
+
+def mc_state(rows, cols, vals, resid, weight, d: int, m: int) -> MCState:
+    """An ``MCState`` with its row and column orders (for a d x m matrix)
+    and the residual's sorted copies built from the caller-order fields."""
+    return MCState(
+        rows=rows, cols=cols, vals=vals, resid=resid, weight=weight,
+        by_row=mc_ops.build_order(rows, cols, d, m), by_col=mc_ops.build_order(cols, rows, m, d),
+    ).with_resid(resid)
 
 
 def pack_observations(rows, cols, vals, weight=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -239,11 +268,7 @@ class MatrixCompletion:
         cols = idx[:, 1].to(torch.int32).contiguous()
         vals = _f32(yw, "yw")[:, 0].contiguous()
         weight = yw[:, 1].contiguous()
-        return MCState(
-            rows=rows, cols=cols, vals=vals, resid=-weight * vals, weight=weight,
-            by_row=mc_ops.build_order(rows, cols, self.d, self.m),
-            by_col=mc_ops.build_order(cols, rows, self.m, self.d),
-        )
+        return mc_state(rows, cols, vals, -weight * vals, weight, self.d, self.m)
 
     # grad @ v: scatter resid_e * v[col_e] into rows. Never materialized.
     def matvec(self, s: MCState, v: torch.Tensor) -> torch.Tensor:
@@ -257,7 +282,7 @@ class MatrixCompletion:
         # resid' = (1-g) resid - g w M - g mu w u[rows] v[cols]
         uv = s.weight * _entrywise_uv(u, v, s.rows, s.cols)
         resid = (1.0 - gamma) * s.resid - gamma * s.weight * s.vals - (gamma * mu) * uv
-        return s._replace(resid=resid)
+        return s.with_resid(resid)
 
     def local_loss(self, s: MCState) -> torch.Tensor:
         # weight^2 == weight for a {0,1} mask, so resid^2 is already masked

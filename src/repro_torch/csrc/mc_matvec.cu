@@ -27,12 +27,18 @@
 // - Skew: the busiest movie of the Netflix data has ~233 thousand ratings
 //   against a mean of ~5,650; a warp per segment would leave that one warp
 //   setting the kernel's time. Pieces bound every warp's work.
-// - Values change every epoch, the order does not: `vals` (the residual)
-//   stays in the caller's entry order and is read through `perm`. Keeping a
-//   copy of it in each sorted order would need the same gather once per
-//   epoch, 0.8 GB more memory and a second copy of the state to keep in step
-//   with the first; this first kernel pays the gather on every call instead
-//   (a random 4-byte read per entry), which is what keeps it off the bound.
+// - Values are read in the order's own sorted order: the caller keeps a
+//   copy of the values per order (the matrix-completion state keeps one of
+//   its residual for the row order and one for the column order), so stage 1
+//   reads the value and the gather index of each entry sequentially, the 8
+//   bytes the bound counts, and gathers only x (G v: 71 KB of v; G^T u: 1.9
+//   MB of u, both from L2). The residual changes once per epoch and each
+//   call of an epoch's 2K reads it, so the copies are refreshed by one
+//   gather per order per epoch (gather_sorted_kernel: vals_sorted[k] =
+//   vals[perm[k]], a random 4-byte read per entry; its bound is perm read,
+//   values read and written once, 1.2 GB, 0.36 ms) instead of a random read
+//   through `perm` on every call, which kept the first version of this
+//   kernel at 7% of its bound.
 // - The product is rounded before the sum (no FMA contraction), as in the
 //   plain version, so a one-entry segment gives the plain version's bits.
 // - Zero-weight padding entries carry vals = 0 and contribute exactly 0.
@@ -52,9 +58,9 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-piece_sum_kernel(const int32_t* __restrict__ perm, const int32_t* __restrict__ gat,
-                 const float* __restrict__ vals, const float* __restrict__ x,
-                 const int64_t* __restrict__ piece_start, const int64_t* __restrict__ piece_end,
+piece_sum_kernel(const int32_t* __restrict__ gat, const float* __restrict__ vals,
+                 const float* __restrict__ x, const int64_t* __restrict__ piece_start,
+                 const int64_t* __restrict__ piece_end,
                  float* __restrict__ partial, int64_t num_pieces) {
   const int lane = threadIdx.x % kWarp;
   const int64_t piece =
@@ -64,7 +70,7 @@ piece_sum_kernel(const int32_t* __restrict__ perm, const int32_t* __restrict__ g
   float acc = 0.f;
 #pragma unroll 4
   for (int64_t k = piece_start[piece] + lane; k < end; k += kWarp) {
-    const float v = __ldg(vals + __ldcs(perm + k));
+    const float v = __ldcs(vals + k);
     const float g = __ldg(x + __ldcs(gat + k));
     acc = __fadd_rn(acc, __fmul_rn(v, g));
   }
@@ -83,6 +89,23 @@ segment_sum_kernel(const float* __restrict__ partial, const int64_t* __restrict_
   out[seg] = acc;
 }
 
+// dst[k] = src[perm[k]], four entries a thread (16-byte loads of perm and
+// stores of dst where `vec`).
+__global__ void __launch_bounds__(kThreads)
+gather_sorted_kernel(const int32_t* __restrict__ perm, const float* __restrict__ src,
+                     float* __restrict__ dst, int64_t n, int vec) {
+  const int64_t k = 4 * (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x);
+  if (k >= n) return;
+  if (vec && k + 4 <= n) {
+    const int4 idx = __ldcs(reinterpret_cast<const int4*>(perm + k));
+    const float4 val = make_float4(__ldg(src + idx.x), __ldg(src + idx.y), __ldg(src + idx.z),
+                                   __ldg(src + idx.w));
+    __stcs(reinterpret_cast<float4*>(dst + k), val);
+  } else {
+    for (int64_t j = k; j < n && j < k + 4; ++j) dst[j] = __ldg(src + __ldcs(perm + j));
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -91,10 +114,11 @@ const char* mc_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// out (out_dim,) = segmented sum over the sorted order; partial is
-// (num_pieces,) scratch. num_pieces may be 0 (every segment empty).
-int mc_coo_matvec_f32(const int32_t* perm, const int32_t* gat, const float* vals,
-                      const float* x, const int64_t* piece_start, const int64_t* piece_end,
+// out (out_dim,) = segmented sum over the sorted order, vals and gat in that
+// order; partial is (num_pieces,) scratch. num_pieces may be 0 (every segment
+// empty).
+int mc_coo_matvec_f32(const int32_t* gat, const float* vals, const float* x,
+                      const int64_t* piece_start, const int64_t* piece_end,
                       const int64_t* piece_ptr, float* partial, float* out,
                       int64_t num_pieces, int64_t out_dim, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -103,13 +127,26 @@ int mc_coo_matvec_f32(const int32_t* perm, const int32_t* gat, const float* vals
   if (num_pieces > 0) {
     const int64_t blocks = (num_pieces + kWarpsPerBlock - 1) / kWarpsPerBlock;
     piece_sum_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        perm, gat, vals, x, piece_start, piece_end, partial, num_pieces);
+        gat, vals, x, piece_start, piece_end, partial, num_pieces);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int64_t blocks = (out_dim + kThreads - 1) / kThreads;
   segment_sum_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
       partial, piece_ptr, out, out_dim);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dst (n,) = src[perm] (n >= 1).
+int mc_gather_sorted_f32(const int32_t* perm, const float* src, float* dst, int64_t n,
+                         int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec = reinterpret_cast<uintptr_t>(perm) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(dst) % 16 == 0;
+  const int64_t blocks = (n + 4 * kThreads - 1) / (4 * kThreads);
+  gather_sorted_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(perm, src, dst, n, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

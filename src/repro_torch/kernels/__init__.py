@@ -17,6 +17,7 @@ WRAPPERS = {
     "rank1_update": rank1_update.ops.rank1_update,
     "rank1_update_axpy": rank1_update.ops.rank1_update_axpy,
     "coo_matvec": mc_matvec.ops.coo_matvec,
+    "gather_sorted": mc_matvec.ops.gather_sorted,
     "quantize": quantize.ops.quantize,
     "dequantize": quantize.ops.dequantize,
     "factor_matvec": factor_matvec.ops.factor_matvec,
@@ -28,11 +29,20 @@ WRAPPERS = {
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+        for route in getattr(fn, "route_launches", {}):
+            fn.route_launches[route] = 0
 
 
 def launches() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+def route_launches() -> dict:
+    """Launches by route, for the wrappers with more than one kernel."""
+    return {name: dict(fn.route_launches) for name, fn in WRAPPERS.items()
+            if hasattr(fn, "route_launches")}
+
+
 __all__ = ["factor_matvec", "flash_attention", "mc_matvec", "power_matvec", "quantize",
-           "rank1_update", "wkv6_chunk", "WRAPPERS", "reset_launches", "launches"]
+           "rank1_update", "wkv6_chunk", "WRAPPERS", "reset_launches", "launches",
+           "route_launches"]

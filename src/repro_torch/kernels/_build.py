@@ -92,6 +92,11 @@ def build_all() -> Dict[str, Path]:
     return {name: so for name, (_, so) in targets.items()}
 
 
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu``'s library is built (by :func:`build_all`)."""
+    return _target(CSRC / f"{name}.cu")
+
+
 def build_log(name: str) -> str:
     """nvcc's output for ``csrc/<name>.cu`` from the build that made it."""
     path = BUILD_DIR / f"{name}.log"

@@ -7,12 +7,16 @@ Dh) in q's dtype. The causal mask is top-left aligned (query i sees kv
 positions <= i, also when Sq != Skv), as in the TPU kernel.
 
 Tensors on the CPU take the plain version (``ref.attention``); CUDA tensors
-launch the hand-written kernel (``csrc/flash_attention.cu``) or raise. The
-kernel reads q, k and v through their batch, head and sequence strides, so
-the head-major view ``x.reshape(b, s, h, dh).transpose(1, 2)`` goes in
-without a copy; the last dimension must be contiguous (stride 1). Ragged
-Sq and Skv are masked in the kernel; nothing is padded.
-``flash_attention.launches`` counts the kernel launches.
+launch one of the two hand-written kernels of ``csrc/flash_attention.cu``
+or raise: the wgmma kernel for bf16 with Dh 64 or 128 and strides TMA can
+describe (``kernel.wgmma_route``), the generic kernel for the rest (f32,
+other head dims). The kernels read q, k and v through their batch, head and
+sequence strides, so the head-major view ``x.reshape(b, s, h,
+dh).transpose(1, 2)`` goes in without a copy; the last dimension must be
+contiguous (stride 1). Ragged Sq and Skv are masked in the kernel; nothing
+is padded. ``flash_attention.launches`` counts the kernel launches, and
+``flash_attention.route_launches`` splits them by route ("wgmma",
+"generic").
 """
 from __future__ import annotations
 
@@ -59,9 +63,13 @@ def flash_attention(
     out = torch.empty((b, hq, sq, dh), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    kernel.flash_attention(q, k, v, out, scale=float(scale), causal=bool(causal))
+    route = "wgmma" if kernel.wgmma_route(q, k, v) else "generic"
+    launch = kernel.flash_attention_wgmma if route == "wgmma" else kernel.flash_attention
+    launch(q, k, v, out, scale=float(scale), causal=bool(causal))
     flash_attention.launches += 1
+    flash_attention.route_launches[route] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = {"wgmma": 0, "generic": 0}

@@ -1,7 +1,7 @@
 """ctypes binding of ``csrc/mc_matvec.cu`` (see its header for the design).
 
 Launches go on PyTorch's current stream and do not synchronise; the caller
-allocates the output and the per-piece scratch. A launch that CUDA refuses
+allocates the outputs and the per-piece scratch. A launch that CUDA refuses
 raises here.
 """
 from __future__ import annotations
@@ -20,23 +20,37 @@ def _library():
     global _lib
     if _lib is None:
         lib = _build.library("mc_matvec")
-        lib.mc_coo_matvec_f32.argtypes = [_P] * 9 + [_I64, _I64, _I, _P]
+        lib.mc_coo_matvec_f32.argtypes = [_P] * 8 + [_I64, _I64, _I, _P]
         lib.mc_coo_matvec_f32.restype = ctypes.c_int
+        lib.mc_gather_sorted_f32.argtypes = [_P] * 3 + [_I64, _I, _P]
+        lib.mc_gather_sorted_f32.restype = ctypes.c_int
         lib.mc_error_string.argtypes = [ctypes.c_int]
         lib.mc_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
-def coo_matvec(order, vals: torch.Tensor, x: torch.Tensor, partial: torch.Tensor,
+def _raise(lib, name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: {lib.mc_error_string(err).decode()}")
+
+
+def coo_matvec(order, vals_sorted: torch.Tensor, x: torch.Tensor, partial: torch.Tensor,
                out: torch.Tensor) -> None:
-    """out (out_dim,) = segment sums of vals[perm] * x[gat_sorted] over ``order``."""
+    """out (out_dim,) = segment sums of vals_sorted * x[gat_sorted] over ``order``."""
     lib = _library()
-    err = lib.mc_coo_matvec_f32(
-        order.perm.data_ptr(), order.gat_sorted.data_ptr(), vals.data_ptr(), x.data_ptr(),
+    _raise(lib, "coo_matvec", lib.mc_coo_matvec_f32(
+        order.gat_sorted.data_ptr(), vals_sorted.data_ptr(), x.data_ptr(),
         order.piece_start.data_ptr(), order.piece_end.data_ptr(), order.piece_ptr.data_ptr(),
         partial.data_ptr(), out.data_ptr(), order.piece_start.numel(), order.out_dim,
+        vals_sorted.device.index, torch.cuda.current_stream(vals_sorted.device).cuda_stream,
+    ))
+
+
+def gather_sorted(order, vals: torch.Tensor, out: torch.Tensor) -> None:
+    """out (p,) = vals[order.perm]."""
+    lib = _library()
+    _raise(lib, "gather_sorted", lib.mc_gather_sorted_f32(
+        order.perm.data_ptr(), vals.data_ptr(), out.data_ptr(), out.numel(),
         vals.device.index, torch.cuda.current_stream(vals.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"coo_matvec launch failed: {lib.mc_error_string(err).decode()}")
+    ))

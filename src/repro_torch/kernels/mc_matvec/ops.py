@@ -2,12 +2,17 @@
 
 ``build_order(seg, gat, out_dim, in_dim)`` builds, once per run and on the
 entries' device, the stable segment-sorted order the kernel reduces along
-(the entries' indices never change during a run). ``coo_matvec(order, vals,
-x)`` is ``out[seg_e] += vals_e * x[gat_e]`` for values in the caller's entry
-order: G v with the row order, G^T u with the column order. CPU tensors take
-the plain version (``ref.py``, on the caller-order indices); CUDA tensors
-launch the hand-written kernel (``csrc/mc_matvec.cu``) or raise. The wrapper
-counts its kernel launches in ``coo_matvec.launches``.
+(the entries' indices never change during a run). ``gather_sorted(order,
+vals)`` copies values from the caller's entry order into the order's sorted
+order (``vals[order.perm]``), and ``coo_matvec(order, vals_sorted, x)`` is
+``out[seg_e] += vals_e * x[gat_e]`` from values in that sorted order: G v
+with the row order, G^T u with the column order. The values change less
+often than they are read (the matrix-completion residual: once per epoch,
+read 2K times), so the caller keeps the sorted copy and refreshes it with
+one gather per change. CPU tensors take the plain versions (``ref.py``: the
+segment sum over the sorted order, and the gather); CUDA tensors launch the
+hand-written kernels (``csrc/mc_matvec.cu``) or raise. Each wrapper counts
+its kernel launches in ``.launches``.
 """
 from __future__ import annotations
 
@@ -109,22 +114,40 @@ def build_order(seg: torch.Tensor, gat: torch.Tensor, out_dim: int, in_dim: int)
     )
 
 
-def coo_matvec(order: SegmentOrder, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``out[seg_e] += vals_e * x[gat_e]`` -> (out_dim,) float32; on CUDA the
-    same bits on every call."""
+def gather_sorted(order: SegmentOrder, vals: torch.Tensor) -> torch.Tensor:
+    """``vals[order.perm]``: values in the caller's entry order, copied into
+    the order's sorted order (what :func:`coo_matvec` reads) -> (p,) float32."""
     p = order.perm.numel()
     vals = _checks.vector_f32(vals, "vals", p)
+    _checks.same_device(order.device, vals=vals)
+    if not _checks.kernel_device(vals.device, "gather_sorted"):
+        return ref.gather_sorted(order.perm, vals)
+    out = torch.empty(p, dtype=torch.float32, device=vals.device)
+    if p == 0:
+        return out
+    kernel.gather_sorted(order, vals, out)
+    gather_sorted.launches += 1
+    return out
+
+
+def coo_matvec(order: SegmentOrder, vals_sorted: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``out[seg_e] += vals_e * x[gat_e]`` -> (out_dim,) float32, with the
+    values in the order's sorted order (``gather_sorted(order, vals)``); on
+    CUDA the same bits on every call."""
+    p = order.perm.numel()
+    vals_sorted = _checks.vector_f32(vals_sorted, "vals_sorted", p)
     x = _checks.vector_f32(x, "x", order.in_dim)
-    _checks.same_device(order.device, vals=vals, x=x)
-    if not _checks.kernel_device(vals.device, "coo_matvec"):
-        return ref.coo_matvec(order.seg, order.gat, vals, x, order.out_dim)
-    out = torch.empty(order.out_dim, dtype=torch.float32, device=vals.device)
+    _checks.same_device(order.device, vals_sorted=vals_sorted, x=x)
+    if not _checks.kernel_device(vals_sorted.device, "coo_matvec"):
+        return ref.coo_matvec_sorted(order, vals_sorted, x)
+    out = torch.empty(order.out_dim, dtype=torch.float32, device=x.device)
     if order.out_dim == 0:
         return out
-    partial = torch.empty(order.piece_start.numel(), dtype=torch.float32, device=vals.device)
-    kernel.coo_matvec(order, vals, x, partial, out)
+    partial = torch.empty(order.piece_start.numel(), dtype=torch.float32, device=x.device)
+    kernel.coo_matvec(order, vals_sorted, x, partial, out)
     coo_matvec.launches += 1
     return out
 
 
+gather_sorted.launches = 0
 coo_matvec.launches = 0

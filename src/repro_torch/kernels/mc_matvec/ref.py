@@ -28,14 +28,29 @@ def rmatvec(rows, cols, vals, u, num_cols: int) -> torch.Tensor:
     return coo_matvec(cols, rows, vals, u, num_cols)
 
 
-def coo_matvec_pieces(order, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def gather_sorted(perm: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """vals[perm]: caller-order values in a sorted order."""
+    return vals[perm.long()]
+
+
+def coo_matvec_sorted(order, vals_sorted: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """out[seg_e] += vals_e * x[gat_e] over a ``SegmentOrder``, from values in
+    its sorted order: the segment of sorted position k is the s with
+    seg_ptr[s] <= k < seg_ptr[s + 1]."""
+    seg_sorted = torch.repeat_interleave(
+        torch.arange(order.out_dim, device=vals_sorted.device), torch.diff(order.seg_ptr),
+        output_size=vals_sorted.numel())
+    return coo_matvec(seg_sorted, order.gat_sorted, vals_sorted, x, order.out_dim)
+
+
+def coo_matvec_pieces(order, vals_sorted: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """The kernel's two stages on a ``SegmentOrder``, in plain PyTorch: the
-    products in sorted order summed per piece, then the pieces per segment.
-    Holds the order's structure (every entry in exactly one piece of its own
-    segment) to the plain version on the CPU."""
-    dev = vals.device
+    products in sorted order (values in that order) summed per piece, then
+    the pieces per segment. Holds the order's structure (every entry in
+    exactly one piece of its own segment) to the plain version on the CPU."""
+    dev = vals_sorted.device
     num_pieces = order.piece_start.numel()
-    contrib = vals[order.perm.long()] * x[order.gat_sorted.long()]
+    contrib = vals_sorted * x[order.gat_sorted.long()]
     lengths = order.piece_end - order.piece_start
     piece_of = torch.repeat_interleave(torch.arange(num_pieces, device=dev), lengths)
     first = torch.cumsum(lengths, 0) - lengths  # each piece's first slot in `entry`

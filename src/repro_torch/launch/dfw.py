@@ -147,7 +147,7 @@ class KernelizedTask:
             pv = self._base._probs(s) @ v - v[s.y]
             return pm_ops.rmatvec(s.x, pv)
         if isinstance(s, tasks.MCState):  # A = P_Omega(W - M), COO values resid
-            return mc_ops.coo_matvec(s.by_row, s.resid, v)
+            return mc_ops.coo_matvec(s.by_row, s.resid_by_row, v)
         return self._base.matvec(s, v)
 
     def rmatvec(self, s, u: torch.Tensor) -> torch.Tensor:
@@ -157,7 +157,7 @@ class KernelizedTask:
             t = pm_ops.matvec(s.x, u)
             return self._base._probs(s).T @ t - self._base._label_sum(s, t)
         if isinstance(s, tasks.MCState):
-            return mc_ops.coo_matvec(s.by_col, s.resid, u)
+            return mc_ops.coo_matvec(s.by_col, s.resid_by_col, u)
         return self._base.rmatvec(s, u)
 
 

@@ -288,8 +288,9 @@ def test_port_checkpoint_is_read_by_jax(kind, data, tmp_path):
     snap = jck.restore_run(pdir, state_like=jtask.init_state(*jin))
     assert snap.t == pr.epochs_run and not snap.done
     assert snap.history == pr.history
+    derived = getattr(pr.state, "DERIVED", ())  # the MC state's sorted copies: not written
     for name, val in zip(pr.state._fields, pr.state):
-        if isinstance(val, torch.Tensor):
+        if isinstance(val, torch.Tensor) and name not in derived:
             np.testing.assert_array_equal(getattr(snap.carry.state, name), val.numpy())
     np.testing.assert_array_equal(np.asarray(snap.carry.key), np.asarray(jax.random.PRNGKey(0)))
     assert int(snap.carry.t) == pr.epochs_run

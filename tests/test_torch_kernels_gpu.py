@@ -109,14 +109,16 @@ def _coo(n_rows, n_cols, p, device, seed=0, heavy=0):
 @pytest.mark.parametrize("d,m,p,heavy", [(40, 30, 600, 0), (1000, 300, 50000, 5000),
                                          (20000, 17, 300000, 0), (3, 5000, 7, 0)])
 def test_cuda_coo_matvec_matches_plain(cuda, d, m, p, heavy):
+    """The kernel on the values' sorted copies (``gather_sorted``)."""
     from repro_torch.kernels import mc_matvec as mc
 
     rows, cols, vals = _coo(d, m, p, cuda, heavy=heavy)
     v, u = torch.randn(m, device=cuda), torch.randn(d, device=cuda)
     by_row, by_col = mc.build_order(rows, cols, d, m), mc.build_order(cols, rows, m, d)
+    vr, vc = mc.gather_sorted(by_row, vals), mc.gather_sorted(by_col, vals)
     before = kernels.launches()["coo_matvec"]
-    gv = mc.coo_matvec(by_row, vals, v)
-    gu = mc.coo_matvec(by_col, vals, u)
+    gv = mc.coo_matvec(by_row, vr, v)
+    gu = mc.coo_matvec(by_col, vc, u)
     torch.cuda.synchronize()
     assert kernels.launches()["coo_matvec"] == before + 2
     _close(gv.cpu(), mc.ref.coo_matvec(rows, cols, vals, v, d).cpu())
@@ -124,14 +126,32 @@ def test_cuda_coo_matvec_matches_plain(cuda, d, m, p, heavy):
     if d > 3:
         assert float(gv[2]) == 0.0 and float(gu[0]) == 0.0  # empty row and column
     # no atomics: repeated calls give identical bits
-    assert torch.equal(mc.coo_matvec(by_row, vals, v), gv)
-    assert torch.equal(mc.coo_matvec(by_col, vals, u), gu)
+    assert torch.equal(mc.coo_matvec(by_row, vr, v), gv)
+    assert torch.equal(mc.coo_matvec(by_col, vc, u), gu)
     # zero-weight padding at (0, 0) changes no bit
     pad = torch.zeros(37, dtype=torch.int32, device=cuda)
     rows_p, cols_p = torch.cat([rows, pad]), torch.cat([cols, pad])
     vals_p = torch.cat([vals, torch.zeros(37, device=cuda)])
-    assert torch.equal(mc.coo_matvec(mc.build_order(rows_p, cols_p, d, m), vals_p, v), gv)
-    assert torch.equal(mc.coo_matvec(mc.build_order(cols_p, rows_p, m, d), vals_p, u), gu)
+    for seg, gat, od, idim, x, want in ((rows_p, cols_p, d, m, v, gv),
+                                        (cols_p, rows_p, m, d, u, gu)):
+        order = mc.build_order(seg, gat, od, idim)
+        assert torch.equal(mc.coo_matvec(order, mc.gather_sorted(order, vals_p), x), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [1, 3, 4, 5, 1023, 300001])
+def test_cuda_gather_sorted_is_vals_perm_bit_for_bit(cuda, p):
+    """The refresh gather equals vals[perm] bit for bit, at lengths that take
+    its four-a-thread and scalar tails; one launch a call."""
+    from repro_torch.kernels import mc_matvec as mc
+
+    rows, cols, vals = _coo(50, 40, p, cuda, seed=p)
+    for order in (mc.build_order(rows, cols, 50, 40), mc.build_order(cols, rows, 40, 50)):
+        before = kernels.launches()["gather_sorted"]
+        got = mc.gather_sorted(order, vals)
+        torch.cuda.synchronize()
+        assert kernels.launches()["gather_sorted"] == before + 1
+        assert torch.equal(got, vals[order.perm.long()])
 
 
 @pytest.mark.gpu
@@ -243,6 +263,24 @@ def _attention_inputs(b, hq, hkv, sq, skv, dh, dtype, device, seed=0):
             for h, s in ((hq, sq), (hkv, skv), (hkv, skv))]
 
 
+def _flash_check(fa, q, k, v, causal, tol):
+    """One call against the plain version on the f32 upcast, each query row
+    to its own max|plain|; identical bits on repeat; the route it took."""
+    dh = q.shape[-1]
+    before = kernels.route_launches()["flash_attention"]
+    got = fa.flash_attention(q, k, v, scale=dh**-0.5, causal=causal)
+    torch.cuda.synchronize()
+    after = kernels.route_launches()["flash_attention"]
+    routes = [r for r in after if after[r] != before[r]]
+    assert len(routes) == 1 and after[routes[0]] == before[routes[0]] + 1, (before, after)
+    assert got.shape == q.shape and got.dtype == q.dtype
+    want = fa.ref.attention(q.float(), k.float(), v.float(), scale=dh**-0.5, causal=causal)
+    err = float(((got.float() - want).abs().amax(-1) / want.abs().amax(-1)).max())
+    assert err <= tol, err
+    assert torch.equal(fa.flash_attention(q, k, v, scale=dh**-0.5, causal=causal), got)
+    return routes[0]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,hq,hkv,sq,skv,dh", [
     (2, 4, 2, 96, 96, 32), (1, 2, 2, 50, 70, 16), (1, 2, 2, 70, 50, 16), (2, 8, 1, 50, 70, 12),
@@ -256,28 +294,42 @@ def test_cuda_flash_attention_matches_plain(cuda, b, hq, hkv, sq, skv, dh, causa
     row to its own max|plain| (late causal rows average many keys and are
     smaller than the first): f32 to 1e-4 (softmax sums in another order),
     bf16 to 1e-2 (the output's bf16 rounding); identical bits on repeat; one launch a
-    call. Dh 12, 16, 32 and 65/100 run in the 64 and 128 builds with a zero
+    call. bf16 with Dh 64 or 128 takes the wgmma route, the rest the generic
+    one: Dh 12, 16, 32 and 65/100 run in its 64 and 128 builds with a zero
     tail; Dh 100 and 65 in bf16 take the element-load path."""
     from repro_torch.kernels import flash_attention as fa
 
     q, k, v = _attention_inputs(b, hq, hkv, sq, skv, dh, dtype, cuda)
     before = kernels.launches()["flash_attention"]
-    got = fa.flash_attention(q, k, v, scale=dh**-0.5, causal=causal)
-    torch.cuda.synchronize()
-    assert kernels.launches()["flash_attention"] == before + 1
-    assert got.shape == (b, hq, sq, dh) and got.dtype == dtype
-    want = fa.ref.attention(q.float(), k.float(), v.float(), scale=dh**-0.5, causal=causal)
-    tol = 1e-4 if dtype == torch.float32 else 1e-2
-    err = float(((got.float() - want).abs().amax(-1) / want.abs().amax(-1)).max())
-    assert err <= tol, err
-    assert torch.equal(fa.flash_attention(q, k, v, scale=dh**-0.5, causal=causal), got)
+    route = _flash_check(fa, q, k, v, causal, 1e-4 if dtype == torch.float32 else 1e-2)
+    assert kernels.launches()["flash_attention"] == before + 2
+    assert route == ("wgmma" if dtype == torch.bfloat16 and dh in (64, 128) else "generic")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,hq,hkv,sq,skv", [
+    (1, 2, 2, 127, 127), (2, 2, 1, 129, 129), (1, 6, 1, 129, 300), (2, 4, 2, 300, 129),
+    (1, 2, 1, 127, 1000), (1, 12, 2, 1000, 127), (1, 2, 2, 8191, 8191),
+])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_wgmma_ragged_shapes(cuda, b, hq, hkv, sq, skv, dh, causal):
+    """The wgmma route at ragged Sq and Skv around its 128-row tiles (127,
+    129, 8191; Sq != Skv both ways; top-left causal), group sizes 1, 2 and
+    6, Dh 64 and 128, bf16: each query row within 1e-2 of its own max, the
+    same bits on repeat."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _attention_inputs(b, hq, hkv, sq, skv, dh, torch.bfloat16, cuda, seed=sq + skv)
+    assert _flash_check(fa, q, k, v, causal, 1e-2) == "wgmma"
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_attention_reads_head_major_views(cuda, dtype):
     """The (B, S, H * Dh) projections' head-major views go in without a
-    copy and give the bits of their contiguous copies."""
+    copy and give the bits of their contiguous copies, on either route (bf16:
+    wgmma, whose tensor maps take the views' strides; f32: generic)."""
     from repro_torch.kernels import flash_attention as fa
 
     x = torch.randn(2, 300, 14 * 128, device=cuda).to(dtype)
@@ -285,9 +337,12 @@ def test_cuda_flash_attention_reads_head_major_views(cuda, dtype):
     k = x[..., 12 * 128:13 * 128].reshape(2, 300, 1, 128).transpose(1, 2)
     v = x[..., 13 * 128:].reshape(2, 300, 1, 128).transpose(1, 2)
     assert not q.is_contiguous()
+    route = "wgmma" if dtype == torch.bfloat16 else "generic"
+    before = kernels.route_launches()["flash_attention"][route]
     got = fa.flash_attention(q, k, v, scale=0.1, causal=True)
     assert torch.equal(got, fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                                scale=0.1, causal=True))
+    assert kernels.route_launches()["flash_attention"][route] == before + 2
 
 
 @pytest.mark.gpu

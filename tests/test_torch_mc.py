@@ -95,8 +95,8 @@ def test_coo_matvec_matches_jax(obs, case):
     t = [torch.from_numpy(a) for a in (rows, cols, vals)]
     by_row, by_col = mc.build_order(t[0], t[1], D, M), mc.build_order(t[1], t[0], M, D)
     v, u = obs["v"], obs["u"]
-    got_mv = mc.coo_matvec(by_row, t[2], torch.from_numpy(v))
-    got_rmv = mc.coo_matvec(by_col, t[2], torch.from_numpy(u))
+    got_mv = mc.coo_matvec(by_row, mc.gather_sorted(by_row, t[2]), torch.from_numpy(v))
+    got_rmv = mc.coo_matvec(by_col, mc.gather_sorted(by_col, t[2]), torch.from_numpy(u))
     j = [jnp.asarray(a) for a in (rows, cols, vals)]
     _close(got_mv, jmc.ref.matvec(*j, jnp.asarray(v), D))
     _close(got_mv, jmc.ops.matvec(*j, jnp.asarray(v), D, block_e=64, interpret=True))
@@ -113,8 +113,8 @@ def test_zero_weight_padding_gives_the_same_matvec_bits(obs):
     k = dfw.kernelize(task)
     v, u = torch.from_numpy(obs["v"]), torch.from_numpy(obs["u"])
     for a, b in ((k.matvec(s0, v), k.matvec(s1, v)), (k.rmatvec(s0, u), k.rmatvec(s1, u)),
-                 (mc.ref.coo_matvec_pieces(s0.by_row, s0.resid, v),
-                  mc.ref.coo_matvec_pieces(s1.by_row, s1.resid, v))):
+                 (mc.ref.coo_matvec_pieces(s0.by_row, s0.resid_by_row, v),
+                  mc.ref.coo_matvec_pieces(s1.by_row, s1.resid_by_row, v))):
         assert torch.equal(a, b)
     # Loss and <W, grad> sum over 17 more (zero) terms: same value up to the
     # order of an f32 sum of 600 terms, not necessarily the same bits.
@@ -138,7 +138,7 @@ def test_kernel_stages_on_the_order_match_plain(obs, piece, monkeypatch):
                                          (cols, rows, M, D, obs["u"])):
         order = mc.build_order(seg, gat, out_dim, in_dim)
         x = torch.from_numpy(x)
-        _close(mc.ref.coo_matvec_pieces(order, vals, x),
+        _close(mc.ref.coo_matvec_pieces(order, mc.gather_sorted(order, vals), x),
                mc.ref.coo_matvec(seg, gat, vals, x, out_dim))
         perm = order.perm.long()
         assert torch.equal(torch.sort(perm).values, torch.arange(P))
@@ -178,6 +178,39 @@ def test_coo_matvec_refuses_bad_operands(obs):
         mc.coo_matvec(order, torch.zeros(P), torch.zeros(D))
     with pytest.raises(TypeError):
         mc.coo_matvec(order, torch.zeros(P, dtype=torch.float64), torch.zeros(M))
+    with pytest.raises(ValueError):
+        mc.gather_sorted(order, torch.zeros(P + 1))
+    with pytest.raises(TypeError):
+        mc.gather_sorted(order, torch.zeros(P, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("case", ["plain", "padding", "one-entry-rows"])
+def test_coo_matvec_reads_the_sorted_copy(obs, case):
+    """On the CPU ``coo_matvec`` sums the values it is given in the order's
+    sorted order, so a copy in the wrong order (a missed refresh) shows:
+    ``gather_sorted`` is ``vals[perm]`` bit for bit, the matvec from it
+    matches the plain version on caller-order values to 1e-6 of max, and the
+    caller-order values read as if sorted do not."""
+    rows, cols, vals = obs["rows"], obs["cols"], obs["vals"]
+    if case == "padding":
+        rows, cols, vals, w = _padded(obs)
+        vals = vals * w
+    elif case == "one-entry-rows":
+        rows, vals = np.arange(D - 5, dtype=np.int32), vals[:D - 5]
+        cols = cols[:D - 5]
+    t = [torch.from_numpy(a) for a in (rows, cols, vals)]
+    for seg, gat, out_dim, in_dim, x in ((t[0], t[1], D, M, obs["v"]),
+                                         (t[1], t[0], M, D, obs["u"])):
+        order = mc.build_order(seg, gat, out_dim, in_dim)
+        x = torch.from_numpy(x)
+        copy = mc.gather_sorted(order, t[2])
+        assert torch.equal(copy, t[2][order.perm.long()])
+        want = mc.ref.coo_matvec(seg, gat, t[2], x, out_dim)
+        _close(mc.coo_matvec(order, copy, x), want, rtol=0)
+        if not torch.equal(copy, t[2]):
+            stale = mc.coo_matvec(order, t[2], x)
+            assert float(torch.max(torch.abs(stale - want))) > 1e-3 * float(
+                torch.max(torch.abs(want)))
 
 
 # ---------------------------------------------------------------------------
@@ -272,6 +305,52 @@ def test_convert_mc_state_builds_the_orders(obs):
     assert torch.equal(ts.by_row.seg, ts.rows) and torch.equal(ts.by_col.gat, ts.rows)
     with pytest.raises(TypeError, match="d and m"):
         convert.task_state(js, device="cpu")
+
+
+def _assert_copies_in_step(s):
+    """Each sorted copy of the residual is resid[order.perm], bit for bit."""
+    assert torch.equal(s.resid_by_row, s.resid[s.by_row.perm.long()])
+    assert torch.equal(s.resid_by_col, s.resid[s.by_col.perm.long()])
+
+
+@pytest.mark.parametrize("where", ["init_state-and-update", "convert", "checkpoint"])
+def test_sorted_residual_copies_stay_in_step(obs, where, tmp_path):
+    """The residual's copies in the row and column orders equal resid[perm]
+    after init_state and after every update, after convert.task_state
+    carries a JAX state across, and in a state rebuilt from a checkpoint's
+    leaves; the checkpoint holds exactly the five caller-order MC leaves."""
+    from repro_torch.checkpoint.store import read_leaves
+
+    task = tasks.MatrixCompletion(D, M)
+    idx, yw = tasks.pack_observations(*_padded(obs))
+    if where == "init_state-and-update":
+        s = task.init_state(idx, yw)
+        _assert_copies_in_step(s)
+        rng = np.random.default_rng(3)
+        for gamma in (0.5, 0.25, 0.1):
+            u, v = (torch.from_numpy(rng.standard_normal(n).astype(np.float32)) for n in (D, M))
+            s = task.update(s, u / u.norm(), v / v.norm(), torch.tensor(gamma), obs["mu"])
+            _assert_copies_in_step(s)
+        return
+    if where == "convert":
+        (jidx, jyw), _ = _pack_both(*_padded(obs))
+        jt = jtasks.MatrixCompletion(D, M)
+        head = jdfw.fit_serial(jt, jidx, jyw, key=KEY, cfg=jdfw.DFWConfig(
+            num_epochs=3, use_pallas=False, mu=obs["mu"], schedule="log"))
+        _assert_copies_in_step(convert.task_state(head.state, device="cpu", d=D, m=M))
+        return
+    res = dfw.fit_serial(task, idx, yw, cfg=dfw.DFWConfig(
+        mu=obs["mu"], num_epochs=3, schedule="log", checkpoint_dir=str(tmp_path)),
+        key=2, device="cpu")
+    _, leaves, _ = read_leaves(tmp_path, prefix="carry/state/")
+    names = ("rows", "cols", "vals", "resid", "weight")
+    assert list(leaves) == [f"carry/state/{n}" for n in names]
+    back = convert.task_state({n: leaves[f"carry/state/{n}"] for n in names}, device="cpu",
+                              d=D, m=M)
+    _assert_copies_in_step(back)
+    assert torch.equal(back.resid, res.state.resid)
+    assert torch.equal(back.resid_by_row, res.state.resid_by_row)
+    assert torch.equal(back.resid_by_col, res.state.resid_by_col)
 
 
 # ---------------------------------------------------------------------------
