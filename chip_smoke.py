@@ -29,11 +29,16 @@ Phases, each fatal on failure (exit code != 0, no result line):
 7. Hold the COO matvec (both directions, on the residual's copies in the
    row and column orders) and the int8 quantize pair against their plain
    versions at those shapes and at tiny odd ones, and time them; time the
-   refresh gather that makes those copies (bits identical to resid[perm]).
+   gather that makes those copies when a state is built (bits identical to
+   resid[perm]); hold ``update_resid`` (the residual after a step, in caller,
+   row and column order from one launch) to the update's plain chain
+   followed by ``gather_sorted``, bit for bit, with gamma from the line
+   search and from the 2/(t+2) schedule and mu = 0, and time it against
+   that chain and gathers.
 8. Drive ``fit_serial`` for matrix completion (comm "dense", log schedule,
    line search, --mc-epochs): loss finite and non-increasing, held-out RMSE
-   below that of W = 0, launch counts as the path implies (the refresh
-   gathers too: two per state built, two per epoch).
+   below that of W = 0, launch counts as the path implies (six gathers per
+   state built, one update_resid per epoch, no gather in an epoch).
 9. The same with comm "int8" (--mc-int8-epochs): loss ends below its start,
    quantize and dequantize launched 2K times per epoch each.
 10. Small MC fits, dense and int8, on the card against the CPU with the same
@@ -42,8 +47,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
    version at the serving shapes (batch 1, 64 and 1024; rank capacity 32,
    64 and 256; 2048 -> 1000 and 1000 -> 2048) and at tiny odd ones: 1e-4 of
    max, identical bits on repeat, and a live rank of 20 padded to capacity
-   32 or 64 gives the same bits. Times of kernel, plain version and the
-   cuBLAS chain.
+   32 or 64 gives the same bits. Times of kernel, plain version, einsum and
+   the cuBLAS chain; the kernel's device time at the serving shape; the
+   count of tensor-core instructions (HMMA) in the built kernel's SASS.
 12. Train, then serve: ``fit_serial`` of MTLS at d = 2048, m = 1000 with
    n cut to --serve-rows, --serve-epochs epochs, writing a checkpoint at
    every segment boundary; ``ServingEngine.from_checkpoint`` on the first
@@ -129,6 +135,7 @@ without ``src/repro_torch``, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import statistics
@@ -158,8 +165,9 @@ TPU_KERNEL = {
     "wkv6_chunk": "src/repro/kernels/wkv6_chunk/kernel.py:61",
 }
 # Kernels of the port that replace no TPU kernel (no row in the kernels
-# line), with their own launch counts: the MC residual's refresh gather.
-HELPER_KERNELS = ("gather_sorted",)
+# line), with their own launch counts: the gather of an MC state's sorted
+# copies and the residual's update in each order.
+HELPER_KERNELS = ("gather_sorted", "update_resid")
 SOURCE = {
     "matvec": "src/repro_torch/csrc/power_matvec.cu",
     "rmatvec": "src/repro_torch/csrc/power_matvec.cu",
@@ -181,8 +189,9 @@ CARD_PEAKS = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12, 989e12)}
 # Kernel-vs-plain tolerances (max |kernel - plain| / max |plain|): the
 # matvecs sum up to 1.28M f32 terms in another order than cuBLAS, and the COO
 # matvec segments of up to ~235 thousand terms in another order than the
-# atomics of index_add_, factor_matvec its rank sums in its own order with
-# FMAs; the rank-1 update is spelled in the plain version's order and should
+# atomics of index_add_, factor_matvec its sums in its own order on the tensor
+# cores in 3xTF32 (about 2^-20 of each product); the rank-1 update is spelled
+# in the plain version's order and should
 # match its bits. The quantize pair must match its plain version bit for bit
 # (checked with torch.equal, not by this table). Served scores are held to
 # x @ W on the card at 1e-4 of max, the serving engine's start-up tolerance.
@@ -390,8 +399,9 @@ def expected_launches(kind: str, ks, verify: bool, comm: str = "dense"):
     (1 + 1), matrix completion G.v and G^T.u (2 coo_matvec); each dense-task
     epoch adds the update's X.u (and, for MTLS, the line search's) and one
     rank-1 update; each MC state built (the fit's, and verify_kernelized's)
-    and each MC epoch's update refresh the residual's row- and column-order
-    copies (2 gather_sorted). Under int8 every exchange (2 per iteration) is
+    gathers the residual, values and weights into the row and column orders
+    (6 gather_sorted), and each MC epoch's update writes the residual in all
+    three orders (1 update_resid). Under int8 every exchange (2 per iteration) is
     one quantize and one dequantize. verify_kernelized runs one iteration's
     worth of matvecs before the fit, and verify_quantize_kernels one pair."""
     iters = sum(ks) + (1 if verify else 0)
@@ -399,7 +409,8 @@ def expected_launches(kind: str, ks, verify: bool, comm: str = "dense"):
     want = dict.fromkeys((*TPU_KERNEL, *HELPER_KERNELS), 0)
     if kind == "mc":
         want["coo_matvec"] = 2 * iters
-        want["gather_sorted"] = 2 * (e + 1 + (1 if verify else 0))
+        want["gather_sorted"] = 6 * (1 + (1 if verify else 0))
+        want["update_resid"] = e
     else:
         per_iter = 2 if kind == "mtls" else 1
         want["matvec"] = per_iter * iters + (2 * e if kind == "mtls" else e)
@@ -440,7 +451,8 @@ def run_path(torch, kernels, dfw, kind, task, X, target, cfg, seed, dev):
 
 PORT_KERNELS = ("matvec_kernel", "rmatvec_partial_kernel", "rmatvec_finish_kernel",
                 "rank1_kernel", "piece_sum_kernel", "segment_sum_kernel", "gather_sorted_kernel",
-                "quantize_kernel", "dequantize_kernel", "factor_matvec_kernel")
+                "update_resid_kernel", "quantize_kernel", "dequantize_kernel",
+                "factor_matvec_kernel")
 FLASH_KERNELS = ("flash_fwd_kernel", "flash_fwd_wgmma_kernel")  # the two routes
 
 
@@ -468,13 +480,17 @@ def profile_fit(torch, kind, run):
     per_launch_us = {p: (sum(t for k, t in kernels_us.items() if p in k)
                          / max(1, sum(c for k, c in calls.items() if p in k)))
                      for p in PORT_KERNELS if any(p in k for k in kernels_us)}
+    # device time of each port kernel (for MC: the update's, update_resid,
+    # apart from the plain passes of the loss and the line search in "other")
+    port_ms = {p: sum(t for k, t in kernels_us.items() if p in k) / 1e3 for p in per_launch_us}
     busy = sum(kernels_us.values())
     top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:10]
     out = dict(epochs=res.epochs_run, ks=res.history["k"], wall_ms=wall_us / 1e3,
                device_busy_ms=busy / 1e3, port_kernels_ms=port / 1e3,
                other_kernels_ms=(busy - port) / 1e3,
                idle_share=1.0 - busy / wall_us if busy else None,
-               top=[(k[:90], t / 1e3) for k, t in top], port_us_per_launch=per_launch_us)
+               top=[(k[:90], t / 1e3) for k, t in top], port_us_per_launch=per_launch_us,
+               port_ms=port_ms)
     if busy:
         print(f"profile {kind} ({res.epochs_run} epochs, K={res.history['k']}): wall "
               f"{out['wall_ms']:.1f} ms, device busy {out['device_busy_ms']:.1f} ms (port "
@@ -484,6 +500,9 @@ def profile_fit(torch, kind, run):
             print(f"  {t:9.2f} ms  {k}")
         print("  device us per launch: " + ", ".join(
             f"{k} {v:.2f}" for k, v in per_launch_us.items()))
+        print("  device ms by port kernel: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in port_ms.items())
+              + f"; other (plain PyTorch, cuBLAS) {out['other_kernels_ms']:.3f}")
     else:
         print(f"profile {kind}: the profiler recorded no device time (not measured)")
     return out
@@ -603,8 +622,9 @@ def mc_kernel_phase(torch, mc, qz, dev, state, gen, reps, peaks):
     """coo_matvec (G.v along the row order, G^T.u along the column order, on
     the residual's copies in those orders) and the quantize pair against
     their plain versions at the MC shapes and at tiny odd shapes; times of
-    kernel, plain version and library call; the refresh gather's time
-    against its bound, and its bits against resid[perm]."""
+    kernel, plain version and library call; the time of the gather that
+    builds the copies with a state, against its bound, and its bits against
+    resid[perm]."""
     bw, flops = peaks[:2]
     d, m = state.by_row.out_dim, state.by_col.out_dim
     p = state.resid.numel()
@@ -615,8 +635,8 @@ def mc_kernel_phase(torch, mc, qz, dev, state, gen, reps, peaks):
             ("G^T.u", state.by_col, state.resid_by_col, state.cols, state.rows, d)):
         out_dim = order.out_dim
         x = torch.randn(in_dim, generator=gen, device=dev)
-        # the refresh gather: vals[perm], bit for bit; its bound reads perm
-        # and the values and writes the copy once (12 bytes an entry)
+        # the gather that builds the copies: vals[perm], bit for bit; its bound
+        # reads perm and the values and writes the copy once (12 bytes an entry)
         check(torch.equal(sorted_vals, vals[order.perm.long()]),
               f"the residual's copy for {label} is not resid[perm]")
         fresh = mc.gather_sorted(order, vals)
@@ -733,6 +753,73 @@ def mc_kernel_phase(torch, mc, qz, dev, state, gen, reps, peaks):
     return rows_out
 
 
+def update_resid_phase(torch, mc, tasks, dev, state, mu, gen, reps, peaks):
+    """update_resid (through MatrixCompletion.update) against the update's
+    plain chain followed by gather_sorted, bit for bit, at the MC shape and
+    at tiny odd ones, with gamma from the line search's clamp and from the
+    2/(t+2) schedule, and mu as given and 0; its time against that chain
+    and the two gathers, and its bound: 64 bytes an entry (24 in caller
+    order, 20 in each sorted order)."""
+    d, m = state.by_row.out_dim, state.by_col.out_dim
+    p = state.resid.numel()
+
+    def unit(n):
+        x = torch.randn(n, generator=gen, device=dev)
+        return x / x.norm()
+
+    gammas = {
+        "line search": torch.clamp(torch.rand((), generator=gen, device=dev) / torch.clamp(
+            torch.rand((), generator=gen, device=dev) + 0.5, min=1e-30), 0.0, 1.0),
+        "2/(t+2)": 2.0 / (torch.full((), 7.0, device=dev) + 2.0),
+    }
+
+    def held(st, u, v, where):
+        for label, gamma in gammas.items():
+            for mu_ in (mu, 0.0):
+                got = tasks.MatrixCompletion(st.by_row.out_dim, st.by_col.out_dim).update(
+                    st, u, v, gamma, mu_)
+                want = mc.ref.resid_step(gamma, mu_, st.resid, st.vals, st.weight, u[st.rows],
+                                         v[st.cols])
+                torch.cuda.synchronize()
+                for name, a, b in (("caller", got.resid, want),
+                                   ("row", got.resid_by_row, mc.gather_sorted(st.by_row, want)),
+                                   ("column", got.resid_by_col, mc.gather_sorted(st.by_col, want))):
+                    check(torch.equal(a, b), f"update_resid {where}, {name} order, gamma from "
+                          f"{label}, mu {mu_:g}: not the chain's bits")
+                del got, want
+
+    u, v = unit(d), unit(m)
+    held(state, u, v, f"at {d} x {m}, {p} entries")
+    gamma = gammas["line search"]
+
+    def plain():
+        want = mc.ref.resid_step(gamma, mu, state.resid, state.vals, state.weight,
+                                 u[state.rows], v[state.cols])
+        return want, mc.gather_sorted(state.by_row, want), mc.gather_sorted(state.by_col, want)
+
+    nbytes = 64 * p
+    row = dict(name="update_resid", operand=f"resid in three orders, {p} entries",
+               shape=[d, m, p], max_abs_err=0.0, max_rel_err=0.0, bits_identical=True,
+               ms=time_ms(torch, lambda: tasks.MatrixCompletion(d, m).update(
+                   state, u, v, gamma, mu), reps),
+               plain_ms=time_ms(torch, plain, reps), library_ms=None,
+               bound_ms=1e3 * nbytes / peaks[0], bound_by="bytes", bytes=nbytes)
+    print(f"kernel update_resid ({p} entries, caller, row and column order): {row['ms']:.3f} ms "
+          f"(plain chain and two gathers {row['plain_ms']:.3f}, bound {row['bound_ms']:.3f}), "
+          f"bits identical to the chain followed by gather_sorted")
+    # tiny odd shapes: empty rows and columns, one entry, zero-weight entries
+    for (dd, mm, pp) in ((3, 5, 7), (1, 1, 1), (37, 2, 3000), (500, 41, 1), (64, 1000, 2049)):
+        r = torch.randint(0, dd, (pp,), generator=gen, device=dev, dtype=torch.int32)
+        c = torch.randint(0, mm, (pp,), generator=gen, device=dev, dtype=torch.int32)
+        w = (torch.rand(pp, generator=gen, device=dev) < 0.8).float()
+        st = tasks.mc_state(r, c, torch.randn(pp, generator=gen, device=dev),
+                            w * torch.randn(pp, generator=gen, device=dev), w, dd, mm)
+        held(st, unit(dd), unit(mm), f"at {dd} x {mm}, {pp} entries")
+    print("update_resid gives the chain's bits followed by gather_sorted in all three orders, "
+          "at the full and the odd shapes, gamma from both sources, mu and 0")
+    return [row]
+
+
 class RecordingInt8:
     """An int8 reducer that keeps, per exchange, the pre-floor values
     x * inv + noise and the integers (host copies; small fits only)."""
@@ -840,14 +927,36 @@ def first_flip(np, recs, res):
 SERVE_D, SERVE_M, SERVE_BATCH, SERVE_BLOCK = PAPER_D, PAPER_M, 64, 32
 
 
-def factor_kernel_phase(torch, fm, dev, gen, reps, peaks):
+def device_ms(torch, fn, name="", n=20):
+    """Device time per call of ``fn`` (torch.profiler): the kernels whose name
+    holds ``name`` (every kernel for ""), summed over n calls, over n."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ev.self_device_time_total for ev in prof.key_averages()
+                if str(getattr(ev, "device_type", "")).endswith("CUDA") and name in ev.key)
+    return total / n / 1e3 if total else None
+
+
+def factor_kernel_phase(torch, fm, _build, dev, gen, reps, peaks):
     """factor_matvec against its plain version at the serving shapes (both
     directions) and tiny odd ones; bits on repeat; the zero tail of a rank
     bucket; times of kernel, plain version, the one library call
-    einsum("bi,ki,k,kj->bj") and the cuBLAS chain (x @ a.T * s) @ b, TF32 off."""
+    einsum("bi,ki,k,kj->bj") and the cuBLAS chain (x @ a.T * s) @ b, TF32 off
+    (CUDA events per call; for b = 1, 64 and 1024 at ranks 32, 64 and 256
+    also device time from the profiler); the HMMA count of the kernel's SASS."""
     bw, flops = peaks[:2]
     rn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
     torch.backends.cuda.matmul.allow_tf32 = False
+    hmma = sass_counts(_build, "factor_matvec", "HMMA", "factor_matvec_kernel")
+    print(f"factor_matvec SASS: HMMA instructions per kernel {hmma}")
+    check(hmma and all(v > 0 for v in hmma.values()),
+          "factor_matvec: no tensor-core instruction (HMMA) in the built kernel")
     rows_out = []
     for n_in, n_out in ((SERVE_D, SERVE_M), (SERVE_M, SERVE_D)):
         for bt in (1, SERVE_BATCH, 1024):
@@ -874,8 +983,18 @@ def factor_kernel_phase(torch, fm, dev, gen, reps, peaks):
                     library_chain_ms=time_ms(torch, lambda: (x @ a.T * s) @ b, reps),
                     bound_ms=1e3 * max(nbytes / bw, nflops / flops),
                     bound_by="bytes" if nbytes / bw >= nflops / flops else "operations",
-                    bytes=nbytes, flops=nflops,
+                    bytes=nbytes, flops=nflops, plan=dataclasses.asdict(
+                        fm.kernel.launch_plan(bt, n_in, cap, n_out)), hmma=hmma,
                     main=(bt, cap, n_in) == (SERVE_BATCH, 64, SERVE_D))
+                if cap == {1: 32, SERVE_BATCH: 64, 1024: 256}[bt]:
+                    row.update(
+                        device_ms=device_ms(torch, lambda: fm.factor_matvec(x, a, s, b),
+                                            "factor_matvec_kernel"),
+                        library_device_ms=device_ms(torch, lib),
+                        library_chain_device_ms=device_ms(torch, lambda: (x @ a.T * s) @ b))
+                    print(f"  device time per call: kernel {row['device_ms']:.4f} ms, einsum "
+                          f"{row['library_device_ms']:.4f}, chain "
+                          f"{row['library_chain_device_ms']:.4f}; plan {row['plan']}")
                 rows_out.append(row)
                 print(f"kernel factor_matvec b={bt:4d} r={cap:3d} {n_in}->{n_out}: "
                       f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, einsum "
@@ -883,8 +1002,8 @@ def factor_kernel_phase(torch, fm, dev, gen, reps, peaks):
                       f"bound {row['bound_ms']:.5f} by {row['bound_by']}) rel err "
                       f"{err_rel:.2e}, bit-stable; einsum rel err {lib_err:.2e}")
     # the zero tail of a rank bucket: live rank 20 at capacity 32 and 64, at
-    # batches that take 1, 2, 4 and 8 rows per block
-    for bt in (1, SERVE_BATCH, 300, 600, 1024):
+    # batches of one and several clusters, batch tiles of 16, 32 and 64 rows
+    for bt in (1, 20, SERVE_BATCH, 300, 600, 1024):
         x, a, s, b = rn(bt, SERVE_D), rn(20, SERVE_D), rn(20), rn(20, SERVE_M)
         live = fm.factor_matvec(x, a, s, b)
         for cap in (32, 64):
@@ -1089,10 +1208,9 @@ def profile_serving(torch, np, eng, n=50):
 
 def profile_factor_sweep(torch, fm, dev, gen, n=20, batches=(1, 8, 32, 64, 132, 264, 1024)):
     """Device time per factor_matvec launch at r = 64, 2048 -> 1000 across
-    batches, beside the grid it launches (blocks against the card's SMs) and
-    the factor bytes every block reads: how the time scales with the grid."""
-    from torch.profiler import ProfilerActivity, profile
-
+    batches, beside the launch plan (clusters, blocks against the card's SMs)
+    and the factor bytes every block reads: how the time scales with the
+    grid."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     r, n_in, n_out = 64, SERVE_D, SERVE_M
     a, s, b = (torch.randn(r, n_in, generator=gen, device=dev), torch.randn(r, device=dev),
@@ -1100,20 +1218,16 @@ def profile_factor_sweep(torch, fm, dev, gen, n=20, batches=(1, 8, 32, 64, 132, 
     out = []
     for bt in batches:
         x = torch.randn(bt, n_in, generator=gen, device=dev)
-        fm.factor_matvec(x, a, s, b)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fm.factor_matvec(x, a, s, b)
-            torch.cuda.synchronize()
-        kern = sum(ev.self_device_time_total for ev in prof.key_averages()
-                   if "factor_matvec_kernel" in ev.key)
-        rows = fm.kernel.rows_per_block(bt)
-        out.append(dict(b=bt, rows_per_block=rows, blocks=-(-bt // rows), sms=sms,
-                        factor_bytes_per_block=4 * r * (n_in + n_out),
-                        device_us=kern / n if kern else None))
-        print(f"profile factor_matvec b={bt:4d}: {out[-1]['blocks']} blocks of {rows} rows on "
-              f"{sms} SMs, device {out[-1]['device_us']} us per launch")
+        kern_ms = device_ms(torch, lambda: fm.factor_matvec(x, a, s, b), "factor_matvec_kernel",
+                            n)
+        plan = fm.kernel.launch_plan(bt, n_in, r, n_out)
+        out.append(dict(b=bt, plan=dataclasses.asdict(plan), blocks=plan.blocks, sms=sms,
+                        factor_bytes_per_block=4 * r * (plan.chunk_width + plan.out_cols),
+                        device_us=1e3 * kern_ms if kern_ms else None))
+        print(f"profile factor_matvec b={bt:4d}: {plan.batch_tiles} clusters of "
+              f"{fm.kernel.CLUSTER} blocks ({plan.blocks} blocks on {sms} SMs; batch tiles of "
+              f"{plan.batch_tile} rows, n_in in {plan.chunks} chunks of {plan.chunk_width}, "
+              f"{plan.out_cols} out columns a block), device {out[-1]['device_us']} us per launch")
     return out
 
 
@@ -1133,10 +1247,10 @@ def attention_pairs(sq: int, skv: int, causal: bool) -> int:
     return n * (n + 1) // 2 + max(0, sq - skv) * skv
 
 
-def hgmma_counts(_build):
-    """HGMMA instructions in each wgmma kernel of the built flash_attention
-    library's SASS (cuobjdump, beside nvcc)."""
-    so = _build.library_path("flash_attention")
+def sass_counts(_build, lib: str, opcode: str, fn_part: str):
+    """Instructions of ``opcode`` in each kernel of the built library ``lib``
+    whose name holds ``fn_part`` (SASS from cuobjdump, beside nvcc)."""
+    so = _build.library_path(lib)
     cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True, text=True,
                           timeout=300, check=True).stdout
@@ -1144,9 +1258,15 @@ def hgmma_counts(_build):
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-        elif "HGMMA" in line and fn is not None and "wgmma" in fn:
+        elif opcode in line and fn is not None and fn_part in fn:
             counts[fn] = counts.get(fn, 0) + 1
     return counts
+
+
+def hgmma_counts(_build):
+    """HGMMA instructions in each wgmma kernel of the built flash_attention
+    library's SASS."""
+    return sass_counts(_build, "flash_attention", "HGMMA", "wgmma")
 
 
 def flash_kernel_phase(torch, fa, kernels, _build, dev, gen, reps, peaks):
@@ -1381,8 +1501,6 @@ def lm_crosscheck_phase(torch, lm, steps, get_config, kernels, cfg, params16, de
     """Phase 16: (a) full width in f32 and (b) in bf16, prefill against
     token-by-token decode on 4 prompts of 64 tokens; (c) the smoke config's
     prefill on the card against the CPU with the same weights, f32."""
-    import dataclasses
-
     rep = {}
     toks = torch.randint(0, cfg.vocab_size, (4, DECODE_PROMPT), generator=gen, device=dev)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -1735,8 +1853,6 @@ def ssm_crosscheck_phase(torch, lm, steps, rwkv6, get_config, kernels, cfg, para
     config's prefill on the card against the CPU at chunk 32 and at chunk
     256 over 512 tokens, f32. Every comparison is printed before any is
     held."""
-    import dataclasses
-
     rep, failures = {}, []
     toks = torch.randint(0, cfg.vocab_size, (4, DECODE_PROMPT), generator=gen, device=dev)
     n_chunks = DECODE_PROMPT // XCHECK_CHUNK
@@ -2055,6 +2171,7 @@ def main(argv=None) -> int:
         print(f"mc state with its row and column orders built in "
               f"{report['mc_init_state_s']:.2f} s")
         krows += mc_kernel_phase(torch, mc, qz, dev, state, gen, args.reps, peaks)
+        krows += update_resid_phase(torch, mc, tasks, dev, state, mu, gen, args.reps, peaks)
         del state
         torch.cuda.empty_cache()
 
@@ -2109,7 +2226,7 @@ def main(argv=None) -> int:
                         tasks, dev)
 
         # 11. factor_matvec against its plain version at the serving shapes
-        krows += factor_kernel_phase(torch, fm, dev, gen, args.reps, peaks)
+        krows += factor_kernel_phase(torch, fm, _build, dev, gen, args.reps, peaks)
         if args.profile:
             report["factor_sweep_profile"] = profile_factor_sweep(torch, fm, dev, gen)
         torch.cuda.empty_cache()
@@ -2129,8 +2246,6 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
         # 14. full-width prefill of qwen2-1.5b (depth --lm-layers)
-        import dataclasses
-
         lm_cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=args.lm_layers)
         report["lm_prefill"], prefill_launch, lm_params, lm_toks = lm_prefill_phase(
             torch, kernels, lm, steps, lm_cfg, dev, gen, args)

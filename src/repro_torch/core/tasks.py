@@ -29,7 +29,7 @@ state and block atoms come with later slices.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 
@@ -195,13 +195,14 @@ class MCState(NamedTuple):
 
     ``by_row``/``by_col`` are the once-per-run entry orders of the
     ``mc_matvec`` kernel (G v reduces along rows, G^T u along columns); the
-    indices never change during a run, so neither do they.
-    ``resid_by_row``/``resid_by_col`` are the residual in those orders
-    (``resid[by_row.perm]``, ``resid[by_col.perm]``), what the kernel reads:
-    :func:`mc_state` builds them with the orders and
-    ``MatrixCompletion.update`` refreshes them with every residual, so they
-    are never stale. The four are derived from the other fields (``DERIVED``)
-    and are not written to a checkpoint.
+    indices never change during a run, so neither do they. The residual,
+    the values and the weights are also kept in each order's sorted order
+    (``resid_by_row = resid[by_row.perm]`` and so on): the kernel reads the
+    residual's copies, and ``MatrixCompletion.update`` writes the new
+    residual in all three orders at once from the values and weights in
+    each (``mc_matvec.update_resid``), so nothing is gathered after
+    :func:`mc_state` has built them. The eight are derived from the other
+    fields (``DERIVED``) and are not written to a checkpoint.
     """
 
     rows: torch.Tensor  # (p,) int32 global row index of each observed entry
@@ -209,30 +210,33 @@ class MCState(NamedTuple):
     vals: torch.Tensor  # (p,) observed values M_ij (arbitrary on padding)
     resid: torch.Tensor  # (p,) weight * (W_ij - M_ij)
     weight: torch.Tensor  # (p,) {0,1} mask; 0 marks padding entries
-    by_row: Optional[mc_ops.SegmentOrder] = None
-    by_col: Optional[mc_ops.SegmentOrder] = None
-    resid_by_row: Optional[torch.Tensor] = None  # (p,) resid[by_row.perm]
-    resid_by_col: Optional[torch.Tensor] = None  # (p,) resid[by_col.perm]
+    by_row: mc_ops.SegmentOrder
+    by_col: mc_ops.SegmentOrder
+    resid_by_row: torch.Tensor  # (p,) resid[by_row.perm]
+    resid_by_col: torch.Tensor  # (p,) resid[by_col.perm]
+    vals_by_row: torch.Tensor  # (p,) vals[by_row.perm]
+    vals_by_col: torch.Tensor
+    weight_by_row: torch.Tensor  # (p,) weight[by_row.perm]
+    weight_by_col: torch.Tensor
 
-    DERIVED = ("by_row", "by_col", "resid_by_row", "resid_by_col")
+    DERIVED = ("by_row", "by_col", "resid_by_row", "resid_by_col", "vals_by_row",
+               "vals_by_col", "weight_by_row", "weight_by_col")
 
-    def with_resid(self, resid: torch.Tensor) -> "MCState":
-        """This state with a new residual and its sorted copies refreshed
-        (one gather per order)."""
-        return self._replace(
-            resid=resid,
-            resid_by_row=None if self.by_row is None else mc_ops.gather_sorted(self.by_row, resid),
-            resid_by_col=None if self.by_col is None else mc_ops.gather_sorted(self.by_col, resid),
-        )
+    def copies(self, order: str) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(resid, vals, weight) in the ``"row"`` or ``"col"`` order."""
+        return tuple(getattr(self, f"{name}_by_{order}") for name in ("resid", "vals", "weight"))
 
 
 def mc_state(rows, cols, vals, resid, weight, d: int, m: int) -> MCState:
     """An ``MCState`` with its row and column orders (for a d x m matrix)
-    and the residual's sorted copies built from the caller-order fields."""
-    return MCState(
-        rows=rows, cols=cols, vals=vals, resid=resid, weight=weight,
-        by_row=mc_ops.build_order(rows, cols, d, m), by_col=mc_ops.build_order(cols, rows, m, d),
-    ).with_resid(resid)
+    and the residual's, values' and weights' copies in each, built from the
+    caller-order fields (six ``gather_sorted`` launches)."""
+    by_row, by_col = mc_ops.build_order(rows, cols, d, m), mc_ops.build_order(cols, rows, m, d)
+    sorted_copies = {f"{name}_by_{tag}": mc_ops.gather_sorted(order, t)
+                     for tag, order in (("row", by_row), ("col", by_col))
+                     for name, t in (("resid", resid), ("vals", vals), ("weight", weight))}
+    return MCState(rows=rows, cols=cols, vals=vals, resid=resid, weight=weight, by_row=by_row,
+                   by_col=by_col, **sorted_copies)
 
 
 def pack_observations(rows, cols, vals, weight=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -279,10 +283,12 @@ class MatrixCompletion:
 
     def update(self, s: MCState, u, v, gamma, mu) -> MCState:
         # W' = (1-g)W - g mu u v^T on the observed entries:
-        # resid' = (1-g) resid - g w M - g mu w u[rows] v[cols]
-        uv = s.weight * _entrywise_uv(u, v, s.rows, s.cols)
-        resid = (1.0 - gamma) * s.resid - gamma * s.weight * s.vals - (gamma * mu) * uv
-        return s.with_resid(resid)
+        # resid' = (1-g) resid - g w M - g mu w u[rows] v[cols], written in
+        # caller order and in each sorted order by one update_resid launch
+        resid, by_row, by_col = mc_ops.update_resid(
+            gamma, mu, u, v, s.rows, s.cols, s.resid, s.vals, s.weight,
+            s.by_row, s.copies("row"), s.by_col, s.copies("col"))
+        return s._replace(resid=resid, resid_by_row=by_row, resid_by_col=by_col)
 
     def local_loss(self, s: MCState) -> torch.Tensor:
         # weight^2 == weight for a {0,1} mask, so resid^2 is already masked

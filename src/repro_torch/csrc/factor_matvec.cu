@@ -7,142 +7,612 @@
 //
 // Bound: at serving batches (b <= 64, r <= 64) the kernel reads A and B once
 // (about 0.8 MB at 2048 -> 1000, r = 64) and does 25 MFLOP, under a
-// microsecond of the card's time either way: it is bound by its launch and
-// by the host around it. At b = 1024, r = 256 it is bound by f32 operations
-// (1.6 GFLOP at the 67 TFLOP/s non-tensor-core peak, 24 us). This first
-// version stays on the CUDA cores in f32 (no TF32: it would fail the serving
-// engine's 1e-4 start-up check); tensor cores are later work.
+// microsecond of the card's time either way: what is left is latency, of the
+// loads, the products and the launch. At b = 1024, r = 256 the f32 function
+// is 1.6 GFLOP, 24 us at the 67 TFLOP/s of the CUDA cores; on the tensor
+// cores in 3xTF32 (three TF32 products per f32 product) it is 4.8 GFLOP of
+// TF32 work, under 10 us at 495 TFLOP/s (mma.sync reaches a part of that
+// rate). Plain TF32 keeps 11 bits of each operand and would fail the
+// serving engine's 1e-4 start-up check.
 //
 // Design:
-// - The TPU kernel carries T across its sequential out-axis grid in VMEM.
-//   Hopper blocks run in no order, so a block owns ROWS batch rows and does
-//   both stages itself: stage 1 writes their T rows into shared memory,
-//   stage 2 loops over all n_out columns (the TPU's out grid becomes that
-//   loop, spread over the block's threads). Nothing passes between blocks.
-// - Stage 1: a warp per rank index k (k = warp, warp + 8, ...). Each lane
-//   reads A[k, :] once for all ROWS rows, 4 consecutive elements of every
-//   128 (a float4 when the rows are 16-byte aligned, else 4 scalar loads: the
-//   same arithmetic either way), into 4 accumulators per row; the lanes'
-//   partial sums meet in a fixed shuffle tree; T[row][k] = dot * s[k].
-// - Stage 2: thread t owns columns j = t, t + 256, ...; for each column it
-//   sums T[row][k] * B[k, j] over k in ascending order for its ROWS rows
-//   (B read once per block, coalesced; T broadcast from shared memory).
-// - Long ranks go through shared memory in chunks of KC = 4096 / ROWS rank
-//   indices; the running sum of out[row, j] passes from one chunk to the next
-//   through out itself, written and read back by the same thread, so the sum
-//   is the same ascending sequence as in one chunk. Every rank launches with
-//   16 KB of static shared memory.
-// - The sums do not depend on r, ROWS or the chunking: stage 1 splits n_in
-//   the same way for every r, stage 2 adds k in ascending order. Rank
-//   padding with s = 0 rows adds exact zeros, so a padded rank bucket gives
-//   the live rank's bits. No atomics: repeated calls give identical bits.
-// - Ragged b, n_in and n_out are masked in the loops; nothing is padded.
+// - A thread-block cluster of 16 blocks (the non-portable size Hopper
+//   allows) owns a tile of up to 64 batch rows (grid: 16 x batch tiles); one
+//   batch tile at the serving batch spreads over 16 SMs where the first
+//   version of this kernel ran one block per row.
+// - Stage 1, T = (X A^T) * s, 64 rank columns at a time: block c of the
+//   cluster sums the products over its chunk c of n_in (at most 16 chunks,
+//   of a width that depends on n_in alone, a multiple of 8) on the tensor
+//   cores, mma.sync m16n8k8 TF32 in 3xTF32: each f32 operand is split into
+//   a TF32 hi part and a TF32 lo part, and lo*hi + hi*lo + hi*hi go into an
+//   f32 accumulator. Warp w owns rank columns 8w..8w+7 of the tile and every
+//   batch row; each of the three products is issued for all of a warp's
+//   tiles before the next, and the even and the odd 8-column steps go into
+//   two accumulators, so independent MMAs run back to back.
+// - X and A come in 64-column stages through a 3-slot ring in shared
+//   memory: where n_in % 4 == 0 and X and A start on 16-byte boundaries, by
+//   the copy engine (TMA: two 32-column boxes of each per stage from 2-D
+//   tensor maps, 128-byte swizzle, zeros past every edge, completion counted
+//   in bytes on an mbarrier per slot); otherwise by cp.async copies of 4 or
+//   16 bytes into the same swizzled layout, zero-filled past the edges. On
+//   one cluster a stream of cp.async copies was bound by the loads each SM
+//   keeps in flight; the copy engine moves whole boxes.
+// - The chunks' partial sums meet through distributed shared memory: each
+//   block stores every row of its partial into the block that owns the row
+//   (block c owns rows c*BT/16..), cluster.sync(); the owner sums the chunks
+//   in ascending order, scales by s and stores its rows of T into every
+//   block of the cluster, cluster.sync(). Only stores cross the cluster,
+//   so no block waits on a remote read. A and X are read once per batch
+//   tile, each block a chunk of them.
+// - Stage 2: block c owns out columns c*W..(c+1)*W - 1 (W = n_out / 16
+//   rounded up to 8), up to 128 at a time, and multiplies T's 64 rank
+//   columns by B's rows on the tensor cores, 3xTF32 again, 8 ranks per step
+//   in ascending order, the even and the odd steps into two accumulators
+//   (twice the independent MMAs in flight); B's tile is copied in by
+//   cp.async while the cluster reduces.
+// - Accuracy: the tensor cores' f32 accumulation truncates, which biases a
+//   long chain of MMAs into one accumulator. So each 64-column stage of
+//   stage 1 and each rank tile of stage 2 starts from zero, and their sums
+//   are added in f32 (round to nearest): stage 1 in registers, stage 2
+//   through `out`, written and read back by the thread that owns it.
+// - Bits: every output is summed in one fixed order that depends on n_in
+//   alone: in stage 1, the even and the odd 8-column steps of a stage, the
+//   stages in ascending order within a chunk, then the chunks in ascending
+//   order; in stage 2, the even and the odd 8-rank steps of a rank tile in
+//   ascending order, then the rank tiles in ascending order. Rank padding
+//   with s = 0 rows (zero factors) adds steps of exact zeros, whose products
+//   leave an accumulator as it was, and rank tiles of zeros, so a padded
+//   rank bucket gives the live rank's bits (the live rank's last step is
+//   zero-filled). Nothing depends on r, b or n_out; no atomics, so repeated
+//   calls give identical bits.
+// - Ragged b, n_in, r and n_out are masked by the copies and the stores;
+//   nothing is padded in memory.
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kWarp = 32;
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / kWarp;
-constexpr int kTile = 4 * kWarp;      // n_in elements per lane-sweep (4 per lane)
-constexpr int kSmemFloats = 4096;     // T chunk: ROWS * KC floats, 16 KB
+constexpr int kWarp = 32;
+constexpr int kCluster = 16;    // blocks of a cluster: stage-1 chunks, stage-2 column slices
+constexpr int kRankTile = 64;   // rank columns of T per pass
+constexpr int kKTile = 64;      // n_in columns per ring stage: two boxes of 32
+constexpr int kBox = 32;        // columns of one 128-byte swizzled box
+constexpr int kStages = 3;      // ring depth
+constexpr int kOutChunk = 128;  // out columns per stage-2 pass of a block
+constexpr int kOutTiles = kOutChunk / 8 / 8;  // n-tiles per warp in a pass
+// Padded row strides (floats): conflict-free fragment reads, 16-byte rows.
+constexpr int kLdT = kRankTile + 4;
+constexpr int kLdB = kOutChunk + 8;
 
-template <int ROWS, bool VEC4>
-__global__ void __launch_bounds__(kThreads)
-factor_matvec_kernel(const float* __restrict__ x, const float* __restrict__ a,
-                     const float* __restrict__ s, const float* __restrict__ b,
-                     float* __restrict__ out, int64_t bt, int64_t n_in, int64_t r,
-                     int64_t n_out) {
-  constexpr int KC = kSmemFloats / ROWS;
-  __shared__ float t_sh[ROWS][KC];
-  const int lane = threadIdx.x % kWarp;
-  const int warp = threadIdx.x / kWarp;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * ROWS;
-  const int nrows = static_cast<int>((bt - row0) < ROWS ? (bt - row0) : ROWS);
+// Ring stages hold X and A as boxes of 32 columns, 128 bytes a row, with the
+// 16-byte chunks of row i stored at chunk ^ (i % 8) (the copy engine's
+// 128-byte swizzle; the cp.async path writes the same layout), so that
+// fragment reads hit 32 different banks.
+template <int MT>
+struct Smem {
+  static constexpr int kRows = 16 * MT;                // batch rows of a tile
+  static constexpr int kSliceRows = kRows / kCluster;  // rows of T each block reduces
+  float xs[kStages][kKTile / kBox][kRows][kBox];
+  float as[kStages][kKTile / kBox][kRankTile][kBox];
+  float recv[kCluster][kSliceRows][kRankTile];  // every chunk's partial of this block's rows
+  float ts[kRows][kLdT];  // the whole tile of T, written by the cluster
+  float bs[kRankTile][kLdB];  // B's rows of the rank tile, this pass's columns
+  uint64_t full[kStages];     // a ring stage's copies have landed (copy-engine path)
+};
 
-  for (int64_t k0 = 0; k0 < r; k0 += KC) {
-    const int kc = static_cast<int>((r - k0) < KC ? (r - k0) : KC);
-    // Stage 1: T[row][k - k0] = (X[row, :] . A[k, :]) * s[k].
-    for (int kk = warp; kk < kc; kk += kWarps) {
-      const float* arow = a + (k0 + kk) * n_in;
-      float acc[ROWS][4];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
-      }
-      for (int64_t c = 4 * lane; c < n_in; c += kTile) {
-        float av[4];
-        if constexpr (VEC4) {
-          const float4 v = __ldg(reinterpret_cast<const float4*>(arow + c));
-          av[0] = v.x; av[1] = v.y; av[2] = v.z; av[3] = v.w;
-        } else {
-#pragma unroll
-          for (int q = 0; q < 4; ++q) av[q] = (c + q < n_in) ? __ldg(arow + c + q) : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < ROWS; ++i) {
-          if (i < nrows) {
-            const float* xrow = x + (row0 + i) * n_in;
-            float xv[4];
-            if constexpr (VEC4) {
-              const float4 v = __ldg(reinterpret_cast<const float4*>(xrow + c));
-              xv[0] = v.x; xv[1] = v.y; xv[2] = v.z; xv[3] = v.w;
-            } else {
-#pragma unroll
-              for (int q = 0; q < 4; ++q) xv[q] = (c + q < n_in) ? __ldg(xrow + c + q) : 0.f;
-            }
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(xv[q], av[q], acc[i][q]);
-          }
-        }
-      }
-      const float sk = __ldg(s + k0 + kk);
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        float d = (acc[i][0] + acc[i][1]) + (acc[i][2] + acc[i][3]);
-#pragma unroll
-        for (int o = kWarp / 2; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
-        if (lane == 0) t_sh[i][kk] = __fmul_rn(d, sk);
-      }
-    }
-    __syncthreads();
-    // Stage 2: out[row, j] (+)= sum over this chunk's k, ascending, of T * B.
-    for (int64_t j = threadIdx.x; j < n_out; j += kThreads) {
-      float acc[ROWS];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        acc[i] = (k0 == 0 || i >= nrows) ? 0.f : out[(row0 + i) * n_out + j];
-      }
-      const float* bcol = b + k0 * n_out + j;
-      for (int kk = 0; kk < kc; ++kk) {
-        const float bv = __ldg(bcol + static_cast<int64_t>(kk) * n_out);
-#pragma unroll
-        for (int i = 0; i < ROWS; ++i) acc[i] = fmaf(t_sh[i][kk], bv, acc[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        if (i < nrows) out[(row0 + i) * n_out + j] = acc[i];
-      }
-    }
-    __syncthreads();  // the next chunk overwrites t_sh
+// Where column c (< kBox) of row `row` of a swizzled box lives.
+__device__ __forceinline__ int swz(int row, int c) {
+  return (((c >> 2) ^ (row & 7)) << 2) | (c & 3);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes from global to shared memory, asynchronously; zeros where
+// !valid (then src is only a placeholder and is not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spin until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
   }
 }
 
-template <int ROWS>
-cudaError_t launch(const float* x, const float* a, const float* s, const float* b,
-                   float* out, int64_t bt, int64_t n_in, int64_t r, int64_t n_out,
-                   int vec4, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((bt + ROWS - 1) / ROWS));
-  if (vec4) {
-    factor_matvec_kernel<ROWS, true><<<grid, kThreads, 0, stream>>>(
-        x, a, s, b, out, bt, n_in, r, n_out);
-  } else {
-    factor_matvec_kernel<ROWS, false><<<grid, kThreads, 0, stream>>>(
-        x, a, s, b, out, bt, n_in, r, n_out);
+// One box (32 columns x `rows` rows) of a 2-D tensor map into shared
+// memory at `dst`; its bytes count toward `bar`'s expected transaction, and
+// elements past the tensor's edges arrive as zeros.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int64_t col, int64_t row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(static_cast<int>(col)),
+      "r"(static_cast<int>(row)), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// x = hi + lo + (under 2^-20 |x|): hi is x truncated to TF32 (its top 19
+// bits), lo the exact rest x - hi truncated to TF32 in turn.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi))) & 0xffffe000u;
+}
+
+// d += a b on the tensor cores (TF32 inputs, f32 accumulator).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One ring stage: X rows row0.. and A rows k0.. over columns col0..col0+63
+// into slot `slot`. With tensor maps (tma), thread 0 asks the copy engine
+// for the four boxes, zero past every edge of X and A, counted in bytes on
+// the slot's barrier; otherwise cp.async copies of 16 (vec) or 4 bytes into
+// the same swizzled layout, zero past the batch (nx rows), the rank tile (na
+// rows) and col_end, as one group.
+template <int MT>
+__device__ __forceinline__ void issue_stage(Smem<MT>& sm, int slot, const CUtensorMap* tx,
+                                            const CUtensorMap* ta, const float* __restrict__ x,
+                                            const float* __restrict__ a, int64_t row0, int nx,
+                                            int64_t k0, int na, int64_t n_in, int64_t col0,
+                                            int64_t col_end, bool tma, bool vec) {
+  constexpr int kRows = Smem<MT>::kRows;
+  if (tma) {
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(&sm.full[slot], sizeof(sm.xs[0]) + sizeof(sm.as[0]));
+#pragma unroll
+      for (int bx = 0; bx < kKTile / kBox; ++bx) {
+        tma_load(&sm.xs[slot][bx][0][0], tx, &sm.full[slot], col0 + bx * kBox, row0);
+        tma_load(&sm.as[slot][bx][0][0], ta, &sm.full[slot], col0 + bx * kBox, k0);
+      }
+    }
+    return;
   }
-  return cudaGetLastError();
+  const int step = vec ? 4 : 1;
+  const int per_row = kKTile / step;
+  for (int i = threadIdx.x; i < (kRows + kRankTile) * per_row; i += kThreads) {
+    const int row = i / per_row;
+    const int col = (i % per_row) * step;
+    const int bx = col / kBox;
+    const bool is_x = row < kRows;
+    const int rr = is_x ? row : row - kRows;
+    const bool ok = (is_x ? rr < nx : rr < na) && col0 + col < col_end;
+    const float* src = is_x ? x + (row0 + rr) * n_in + col0 + col : a + (k0 + rr) * n_in + col0 + col;
+    float* dst = is_x ? &sm.xs[slot][bx][rr][swz(rr, col % kBox)]
+                      : &sm.as[slot][bx][rr][swz(rr, col % kBox)];
+    if (vec) {
+      cp_async16(dst, ok ? src : x, ok);
+    } else {
+      cp_async4(dst, ok ? src : x, ok);
+    }
+  }
+  cp_async_commit();
+}
+
+// B rows k0..k0+nb-1, columns jbeg..jbeg+ncols-1 into bs by cp.async copies
+// of 16 (vec) or 4 bytes, zero past nb rows (up to rt8) and ncols columns,
+// as one group.
+template <int MT>
+__device__ __forceinline__ void issue_b(Smem<MT>& sm, const float* __restrict__ b, int64_t k0,
+                                        int nb, int rt8, int64_t n_out, int64_t jbeg, int ncols,
+                                        bool vec) {
+  const int ncols8 = (ncols + 7) & ~7;
+  const int step = vec ? 4 : 1;
+  const int per_row = ncols8 / step;
+  for (int i = threadIdx.x; i < rt8 * per_row; i += kThreads) {
+    const int k = i / per_row;
+    const int c = (i % per_row) * step;
+    const bool ok = k < nb && c < ncols;
+    const float* src = ok ? b + (k0 + k) * n_out + jbeg + c : b;
+    if (vec) {
+      cp_async16(&sm.bs[k][c], src, ok);
+    } else {
+      cp_async4(&sm.bs[k][c], src, ok);
+    }
+  }
+  cp_async_commit();
+}
+
+// Stage 2's sums of one rank tile (its even and its odd 8-rank steps, in
+// that order) into out, masked: stored for the first tile, added (one f32
+// rounding, by the thread that stored it) after that.
+template <int MT>
+__device__ __forceinline__ void write_out(const float (&acc)[2][MT][kOutTiles][4],
+                                          float* __restrict__ out, bool add, int64_t row0,
+                                          int64_t bt, int64_t n_out, int64_t jbeg, int64_t jend,
+                                          int ntiles) {
+  const int warp = threadIdx.x / kWarp, g = (threadIdx.x % kWarp) / 4, t = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < kOutTiles; ++j) {
+    const int nt = warp + 8 * j;
+    if (nt >= ntiles) continue;
+    const int64_t col = jbeg + nt * 8 + 2 * t;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int64_t row = row0 + mt * 16 + g + (q >= 2 ? 8 : 0);
+        const int64_t c = col + (q & 1);
+        if (row < bt && c < jend) {
+          const float v = __fadd_rn(acc[0][mt][j][q], acc[1][mt][j][q]);
+          float* o = out + row * n_out + c;
+          *o = add ? __fadd_rn(*o, v) : v;
+        }
+      }
+    }
+  }
+}
+
+// One 8-rank step of stage 2 at rank column kk of T: lo*hi, hi*lo, hi*hi,
+// each for every (m-tile, n-tile) of the warp before the next.
+template <int MT>
+__device__ __forceinline__ void stage2_step(const Smem<MT>& sm, float (&acc)[MT][kOutTiles][4],
+                                            int kk, int ntiles) {
+  const int warp = threadIdx.x / kWarp, g = (threadIdx.x % kWarp) / 4, t = threadIdx.x % 4;
+  uint32_t ah[MT][4], al[MT][4], bh[kOutTiles][2], bl[kOutTiles][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    split_tf32(sm.ts[mt * 16 + g][kk + t], ah[mt][0], al[mt][0]);
+    split_tf32(sm.ts[mt * 16 + g + 8][kk + t], ah[mt][1], al[mt][1]);
+    split_tf32(sm.ts[mt * 16 + g][kk + t + 4], ah[mt][2], al[mt][2]);
+    split_tf32(sm.ts[mt * 16 + g + 8][kk + t + 4], ah[mt][3], al[mt][3]);
+  }
+#pragma unroll
+  for (int j = 0; j < kOutTiles; ++j) {
+    if (warp + 8 * j < ntiles) {
+      split_tf32(sm.bs[kk + t][(warp + 8 * j) * 8 + g], bh[j][0], bl[j][0]);
+      split_tf32(sm.bs[kk + t + 4][(warp + 8 * j) * 8 + g], bh[j][1], bl[j][1]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kOutTiles; ++j)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      if (warp + 8 * j < ntiles) mma_tf32(acc[mt][j], al[mt], bh[j]);
+#pragma unroll
+  for (int j = 0; j < kOutTiles; ++j)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      if (warp + 8 * j < ntiles) mma_tf32(acc[mt][j], ah[mt], bl[j]);
+#pragma unroll
+  for (int j = 0; j < kOutTiles; ++j)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      if (warp + 8 * j < ntiles) mma_tf32(acc[mt][j], ah[mt], bh[j]);
+}
+
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+factor_matvec_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap ta,
+                     const float* __restrict__ x, const float* __restrict__ a,
+                     const float* __restrict__ s, const float* __restrict__ b,
+                     float* __restrict__ out, int64_t bt, int64_t n_in, int64_t r, int64_t n_out,
+                     int chunks, int64_t chunk_width, int64_t out_cols, int tma, int vec_in,
+                     int vec_out) {
+  constexpr int kRows = Smem<MT>::kRows;
+  constexpr int kSliceRows = Smem<MT>::kSliceRows;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the swizzled boxes need a 1024-byte-aligned base (the launch asks for
+  // 1 KB more than Smem takes)
+  Smem<MT>& sm = *reinterpret_cast<Smem<MT>*>(
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int warp = threadIdx.x / kWarp, g = (threadIdx.x % kWarp) / 4, t = threadIdx.x % 4;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * kRows;
+  const int nx = static_cast<int>(bt - row0 < kRows ? bt - row0 : kRows);
+  const bool by_tma = tma != 0;
+
+  // this block's stage-1 chunk of n_in and stage-2 slice of n_out
+  const int64_t kbeg = rank * chunk_width;
+  const int64_t kend = kbeg + chunk_width < n_in ? kbeg + chunk_width : n_in;
+  const int nst = rank < chunks ? static_cast<int>((kend - kbeg + kKTile - 1) / kKTile) : 0;
+  const int64_t slice0 = rank * out_cols;
+  const int64_t slice_end = slice0 + out_cols < n_out ? slice0 + out_cols : n_out;
+  const int npass = slice_end > slice0
+                        ? static_cast<int>((slice_end - slice0 + kOutChunk - 1) / kOutChunk)
+                        : 0;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) mbar_init(&sm.full[st]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  int64_t ring_used = 0;  // ring stages consumed so far: slot and barrier phase of the next
+
+  for (int64_t k0 = 0; k0 < r; k0 += kRankTile) {
+    const int rt = static_cast<int>(r - k0 < kRankTile ? r - k0 : kRankTile);
+    const int rt8 = (rt + 7) & ~7;
+
+    // Stage 1: this chunk's partial of X A^T for the rank tile.
+    if (rank < chunks) {
+      float acc1[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc1[mt][q] = 0.f;
+      const bool live = warp * 8 < rt;
+      auto issue = [&](int it) {
+        issue_stage(sm, static_cast<int>((ring_used + it) % kStages), &tx, &ta, x, a, row0, nx,
+                    k0, rt, n_in, kbeg + static_cast<int64_t>(it) * kKTile, kend, by_tma,
+                    vec_in != 0);
+      };
+#pragma unroll
+      for (int st = 0; st < kStages - 1; ++st) {
+        if (st < nst) {
+          issue(st);
+        } else if (!by_tma) {
+          cp_async_commit();
+        }
+      }
+      for (int it = 0; it < nst; ++it) {
+        const int64_t used = ring_used + it;
+        const int slot = static_cast<int>(used % kStages);
+        if (by_tma) {
+          mbar_wait(&sm.full[slot], static_cast<uint32_t>((used / kStages) & 1));
+        } else {
+          cp_async_wait<kStages - 2>();
+        }
+        __syncthreads();  // every warp is done with the slot the next stage refills
+        if (it + kStages - 1 < nst) {
+          issue(it + kStages - 1);
+        } else if (!by_tma) {
+          cp_async_commit();
+        }
+        const int64_t col0 = kbeg + static_cast<int64_t>(it) * kKTile;
+        const int ksteps = static_cast<int>(
+            (kend - col0 + 7) / 8 < kKTile / 8 ? (kend - col0 + 7) / 8 : kKTile / 8);
+        if (live) {
+          // 3xTF32 per m-tile: lo*hi, hi*lo, then hi*hi into one f32
+          // accumulator, each product issued for every m-tile before the
+          // next (independent MMAs back to back); even and odd 8-column
+          // steps into two accumulators, added once per stage.
+          float step[2][MT][4];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+              for (int q = 0; q < 4; ++q) step[e][mt][q] = 0.f;
+#pragma unroll
+          for (int ks = 0; ks < kKTile / 8; ++ks) {
+            if (ks < ksteps) {
+              // columns kk + t and kk + t + 4 of rows = g (mod 8), swizzled
+              const int bx = ks * 8 / kBox;
+              const int c0 = swz(g, ks * 8 % kBox + t), c1 = swz(g, ks * 8 % kBox + t + 4);
+              uint32_t bh[2], bl[2], ah[MT][4], al[MT][4];
+              split_tf32(sm.as[slot][bx][warp * 8 + g][c0], bh[0], bl[0]);
+              split_tf32(sm.as[slot][bx][warp * 8 + g][c1], bh[1], bl[1]);
+#pragma unroll
+              for (int mt = 0; mt < MT; ++mt) {
+                split_tf32(sm.xs[slot][bx][mt * 16 + g][c0], ah[mt][0], al[mt][0]);
+                split_tf32(sm.xs[slot][bx][mt * 16 + g + 8][c0], ah[mt][1], al[mt][1]);
+                split_tf32(sm.xs[slot][bx][mt * 16 + g][c1], ah[mt][2], al[mt][2]);
+                split_tf32(sm.xs[slot][bx][mt * 16 + g + 8][c1], ah[mt][3], al[mt][3]);
+              }
+#pragma unroll
+              for (int mt = 0; mt < MT; ++mt) mma_tf32(step[ks & 1][mt], al[mt], bh);
+#pragma unroll
+              for (int mt = 0; mt < MT; ++mt) mma_tf32(step[ks & 1][mt], ah[mt], bl);
+#pragma unroll
+              for (int mt = 0; mt < MT; ++mt) mma_tf32(step[ks & 1][mt], ah[mt], bh);
+            }
+          }
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              acc1[mt][q] = __fadd_rn(acc1[mt][q], __fadd_rn(step[0][mt][q], step[1][mt][q]));
+            }
+        }
+      }
+      ring_used += nst;
+      // each row's partial to the block of the cluster that reduces it
+      if (live) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = mt * 16 + g + 8 * h;
+            float2* dst = cluster.map_shared_rank(reinterpret_cast<float2*>(
+                &sm.recv[rank][row % kSliceRows][warp * 8 + 2 * t]), row / kSliceRows);
+            *dst = make_float2(acc1[mt][2 * h], acc1[mt][2 * h + 1]);
+          }
+        }
+      }
+    }
+
+    // B's tile for this block's first pass of stage 2, copied in while the
+    // cluster reduces (every warp is done with bs from the last rank tile).
+    __syncthreads();
+    const int64_t jend0 = slice0 + kOutChunk < slice_end ? slice0 + kOutChunk : slice_end;
+    if (npass > 0) {
+      issue_b(sm, b, k0, rt, rt8, n_out, slice0, static_cast<int>(jend0 - slice0), vec_out != 0);
+    }
+
+    // The chunks' partials meet: this block's rows of T, summed in chunk
+    // order and scaled by s, go to every block of the cluster.
+    cluster.sync();
+    for (int i = threadIdx.x; i < kSliceRows * (kRankTile / 4); i += kThreads) {
+      const int lr = i / (kRankTile / 4), c = (i % (kRankTile / 4)) * 4;
+      if (c >= rt8) continue;
+      float4 sum = *reinterpret_cast<const float4*>(&sm.recv[0][lr][c]);
+      for (int ch = 1; ch < chunks; ++ch) {
+        const float4 p = *reinterpret_cast<const float4*>(&sm.recv[ch][lr][c]);
+        sum = make_float4(__fadd_rn(sum.x, p.x), __fadd_rn(sum.y, p.y), __fadd_rn(sum.z, p.z),
+                          __fadd_rn(sum.w, p.w));
+      }
+      float sk[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) sk[q] = k0 + c + q < r ? __ldg(s + k0 + c + q) : 0.f;
+      const float4 tv = make_float4(__fmul_rn(sum.x, sk[0]), __fmul_rn(sum.y, sk[1]),
+                                    __fmul_rn(sum.z, sk[2]), __fmul_rn(sum.w, sk[3]));
+      float4* mine = reinterpret_cast<float4*>(&sm.ts[rank * kSliceRows + lr][c]);
+#pragma unroll
+      for (int dst = 0; dst < kCluster; ++dst) *cluster.map_shared_rank(mine, dst) = tv;
+    }
+    cluster.sync();
+
+    // Stage 2: out[:, this block's columns] += T B, 8 ranks a step.
+    for (int pass = 0; pass < npass; ++pass) {
+      const int64_t jbeg = slice0 + static_cast<int64_t>(pass) * kOutChunk;
+      const int64_t jend = jbeg + kOutChunk < slice_end ? jbeg + kOutChunk : slice_end;
+      const int ntiles = (static_cast<int>(jend - jbeg) + 7) / 8;
+      if (pass > 0) {
+        __syncthreads();  // every warp is done with bs
+        issue_b(sm, b, k0, rt, rt8, n_out, jbeg, static_cast<int>(jend - jbeg), vec_out != 0);
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+      // even and odd 8-rank steps into two accumulators
+      float acc2[2][MT][kOutTiles][4];
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int j = 0; j < kOutTiles; ++j)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc2[e][mt][j][q] = 0.f;
+      for (int ks = 0; ks < rt8 / 8; ks += 2) {
+        stage2_step(sm, acc2[0], ks * 8, ntiles);
+        if (ks + 1 < rt8 / 8) stage2_step(sm, acc2[1], ks * 8 + 8, ntiles);
+      }
+      write_out<MT>(acc2, out, k0 > 0, row0, bt, n_out, jbeg, jend, ntiles);
+    }
+  }
+}
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, found through the runtime's entry-point
+// query, so the library does not link libcuda.
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A row-major (rows, cols) f32 map read in boxes of 32 columns x box_rows
+// rows, 128-byte swizzle, zeros past every edge.
+CUresult tensor_map(EncodeTiledFn encode, CUtensorMap* map, const float* ptr, int64_t rows,
+                    int64_t cols, int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 4};
+  const cuuint32_t box[2] = {kBox, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+constexpr int kMapFailed = 100000;  // + CUresult: a tensor map was refused
+
+template <int MT>
+int launch(const float* x, const float* a, const float* s, const float* b, float* out,
+           int64_t bt, int64_t n_in, int64_t r, int64_t n_out, int chunks, int64_t chunk_width,
+           int64_t out_cols, int vec_in, int vec_out, int device, cudaStream_t stream) {
+  static uint64_t smem_set = 0;  // devices whose attribute is set
+  const size_t smem = sizeof(Smem<MT>) + 1024;
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (!(smem_set >> device & 1)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        factor_matvec_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    const cudaError_t err16 = cudaFuncSetAttribute(
+        factor_matvec_kernel<MT>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err16 != cudaSuccess) return err16;
+    smem_set |= uint64_t{1} << device;
+  }
+  // X and A through the copy engine where their rows are 16-byte aligned
+  CUtensorMap tx{}, ta{};
+  const int tma = vec_in && n_in > 0;
+  if (tma) {
+    const EncodeTiledFn encode = encode_tiled();
+    if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+    CUresult res = tensor_map(encode, &tx, x, bt, n_in, 16 * MT);
+    if (res == CUDA_SUCCESS) res = tensor_map(encode, &ta, a, r, n_in, kRankTile);
+    if (res != CUDA_SUCCESS) return kMapFailed + static_cast<int>(res);
+  }
+  const int64_t tiles = (bt + 16 * MT - 1) / (16 * MT);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster, static_cast<unsigned>(tiles), 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, factor_matvec_kernel<MT>, tx, ta, x, a, s, b,
+                                             out, bt, n_in, r, n_out, chunks, chunk_width,
+                                             out_cols, tma, vec_in, vec_out));
 }
 
 }  // namespace
@@ -150,26 +620,43 @@ cudaError_t launch(const float* x, const float* a, const float* s, const float* 
 extern "C" {
 
 const char* fm_error_string(int code) {
+  if (code >= kMapFailed) return "cuTensorMapEncodeTiled refused a tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// out (bt, n_out) = ((x (bt, n_in) @ a (r, n_in)^T) * s (r,)) @ b (r, n_out).
-// rows (1, 2, 4 or 8) is the batch rows per block; vec4 is 1 when n_in % 4
-// == 0 and x and a start on 16-byte boundaries. Needs bt >= 1 and r >= 1.
+// out (bt, n_out) = ((x (bt, n_in) @ a (r, n_in)^T) * s (r,)) @ b (r, n_out),
+// by the launch plan of kernels/factor_matvec/kernel.py: m_tiles (1, 2 or 4)
+// 16-row MMA tiles per batch tile; stage 1 in `chunks` (<= 16) chunks of
+// chunk_width columns of n_in (a multiple of 8); stage 2 in out_cols (a
+// multiple of 8) columns of n_out per block. vec_in is 1 when n_in % 4 == 0
+// and x and a start on 16-byte boundaries (X and A then go through the copy
+// engine), vec_out when n_out % 4 == 0 and b does. Needs bt, r >= 1 and
+// bt / (16 m_tiles) < 65536 batch tiles.
 int fm_factor_matvec_f32(const float* x, const float* a, const float* s, const float* b,
                          float* out, int64_t bt, int64_t n_in, int64_t r, int64_t n_out,
-                         int rows, int vec4, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+                         int m_tiles, int chunks, int64_t chunk_width, int64_t out_cols,
+                         int vec_in, int vec_out, int device, void* stream) {
+  if (chunks < 1 || chunks > kCluster || chunk_width < 8 || chunk_width % 8 != 0 ||
+      out_cols < 8 || out_cols % 8 != 0 || (chunks - 1) * chunk_width >= (n_in > 0 ? n_in : 1) ||
+      chunks * chunk_width < n_in || kCluster * out_cols < n_out || n_in >= (int64_t{1} << 31) ||
+      bt >= (int64_t{1} << 31) || r >= (int64_t{1} << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (rows) {
-    case 1: err = launch<1>(x, a, s, b, out, bt, n_in, r, n_out, vec4, st); break;
-    case 2: err = launch<2>(x, a, s, b, out, bt, n_in, r, n_out, vec4, st); break;
-    case 4: err = launch<4>(x, a, s, b, out, bt, n_in, r, n_out, vec4, st); break;
-    case 8: err = launch<8>(x, a, s, b, out, bt, n_in, r, n_out, vec4, st); break;
-    default: err = cudaErrorInvalidValue;
+  int res;
+  switch (m_tiles) {
+    case 1: res = launch<1>(x, a, s, b, out, bt, n_in, r, n_out, chunks, chunk_width, out_cols,
+                            vec_in, vec_out, device, st); break;
+    case 2: res = launch<2>(x, a, s, b, out, bt, n_in, r, n_out, chunks, chunk_width, out_cols,
+                            vec_in, vec_out, device, st); break;
+    case 4: res = launch<4>(x, a, s, b, out, bt, n_in, r, n_out, chunks, chunk_width, out_cols,
+                            vec_in, vec_out, device, st); break;
+    default: res = static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
+  if (res != 0) return res;
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -32,13 +32,18 @@
 //   its residual for the row order and one for the column order), so stage 1
 //   reads the value and the gather index of each entry sequentially, the 8
 //   bytes the bound counts, and gathers only x (G v: 71 KB of v; G^T u: 1.9
-//   MB of u, both from L2). The residual changes once per epoch and each
-//   call of an epoch's 2K reads it, so the copies are refreshed by one
-//   gather per order per epoch (gather_sorted_kernel: vals_sorted[k] =
-//   vals[perm[k]], a random 4-byte read per entry; its bound is perm read,
-//   values read and written once, 1.2 GB, 0.36 ms) instead of a random read
-//   through `perm` on every call, which kept the first version of this
-//   kernel at 7% of its bound.
+//   MB of u, both from L2). A random read through `perm` on every call kept
+//   the first version of this kernel at 7% of its bound.
+// - The copies are made once per state by gather_sorted_kernel
+//   (vals_sorted[k] = vals[perm[k]], a random 4-byte read per entry, each its
+//   own 32-byte sector) and never gathered again: the residual changes once
+//   per epoch by an elementwise step (update_resid_kernel, below), which
+//   writes it in caller order and in each sorted order from the state's
+//   values and weights kept in that order, with sequential reads. Its bound
+//   is bytes: 24 an entry in caller order (rows, cols, resid, vals, weight
+//   read, resid' written) and 20 in each sorted order (the gather index in
+//   place of rows and cols; the segment's factor is one read a piece), 64 in
+//   all, 6.4 GB at the Netflix shapes, 1.9 ms; u and v are gathered from L2.
 // - The product is rounded before the sum (no FMA contraction), as in the
 //   plain version, so a one-entry segment gives the plain version's bits.
 // - Zero-weight padding entries carry vals = 0 and contribute exactly 0.
@@ -106,6 +111,91 @@ gather_sorted_kernel(const int32_t* __restrict__ perm, const float* __restrict__
   }
 }
 
+
+// One order's sorted copies for update_resid_kernel. Piece j covers sorted
+// positions piece_start[j]:piece_end[j] of segment piece_seg[j]; the entry
+// at sorted position k has x_seg[piece_seg[j]] and x_gat[gat[k]] as its two
+// factors (the row order: u by row, v by column; the column order: v by
+// column, u by row).
+struct SortedResid {
+  const int32_t* gat;
+  const int64_t* piece_start;
+  const int64_t* piece_end;
+  const int64_t* piece_seg;
+  const float* resid;
+  const float* vals;
+  const float* weight;
+  const float* x_seg;
+  const float* x_gat;
+  float* out;
+  int64_t num_pieces;
+};
+
+// MatrixCompletion.update's chain, each operation rounded on its own, in
+// the chain's order (no FMA contraction): the plain version's bits.
+//   resid' = ((1 - g) resid - (g w) vals) - (g mu) (w (x_a x_b))
+__device__ __forceinline__ float resid_step(float omg, float g, float gmu, float resid, float val,
+                                            float w, float xa, float xb) {
+  const float uv = __fmul_rn(w, __fmul_rn(xa, xb));
+  const float keep = __fmul_rn(omg, resid);
+  const float pull = __fmul_rn(__fmul_rn(g, w), val);
+  return __fsub_rn(__fsub_rn(keep, pull), __fmul_rn(gmu, uv));
+}
+
+// The new residual in caller order (blocks [0, caller_blocks), four entries
+// a thread, 16-byte loads and stores where `vec`), then in the row order
+// (the next row.num_pieces / 8 blocks) and the column order (the rest), a
+// warp per piece. gamma is read on the device (no host sync); 1 - g and
+// g * mu are formed as the chain forms them in f32.
+__global__ void __launch_bounds__(kThreads)
+update_resid_kernel(const float* __restrict__ gamma, float mu, const int32_t* __restrict__ rows,
+                    const int32_t* __restrict__ cols, const float* __restrict__ resid,
+                    const float* __restrict__ vals, const float* __restrict__ weight,
+                    const float* __restrict__ u, const float* __restrict__ v,
+                    float* __restrict__ out, int64_t p, int vec, int64_t caller_blocks,
+                    SortedResid row, int64_t row_blocks, SortedResid col) {
+  const float g = __ldg(gamma);
+  const float omg = __fsub_rn(1.f, g);
+  const float gmu = __fmul_rn(g, mu);
+  int64_t blk = blockIdx.x;
+  if (blk < caller_blocks) {
+    const int64_t k = 4 * (blk * kThreads + threadIdx.x);
+    if (k >= p) return;
+    if (vec && k + 4 <= p) {
+      const int4 r = __ldcs(reinterpret_cast<const int4*>(rows + k));
+      const int4 c = __ldcs(reinterpret_cast<const int4*>(cols + k));
+      const float4 re = __ldcs(reinterpret_cast<const float4*>(resid + k));
+      const float4 va = __ldcs(reinterpret_cast<const float4*>(vals + k));
+      const float4 w = __ldcs(reinterpret_cast<const float4*>(weight + k));
+      float4 o;
+      o.x = resid_step(omg, g, gmu, re.x, va.x, w.x, __ldg(u + r.x), __ldg(v + c.x));
+      o.y = resid_step(omg, g, gmu, re.y, va.y, w.y, __ldg(u + r.y), __ldg(v + c.y));
+      o.z = resid_step(omg, g, gmu, re.z, va.z, w.z, __ldg(u + r.z), __ldg(v + c.z));
+      o.w = resid_step(omg, g, gmu, re.w, va.w, w.w, __ldg(u + r.w), __ldg(v + c.w));
+      __stcs(reinterpret_cast<float4*>(out + k), o);
+    } else {
+      for (int64_t j = k; j < p && j < k + 4; ++j) {
+        out[j] = resid_step(omg, g, gmu, __ldcs(resid + j), __ldcs(vals + j), __ldcs(weight + j),
+                            __ldg(u + __ldcs(rows + j)), __ldg(v + __ldcs(cols + j)));
+      }
+    }
+    return;
+  }
+  blk -= caller_blocks;
+  const bool by_row = blk < row_blocks;
+  const SortedResid o = by_row ? row : col;
+  const int64_t piece = (by_row ? blk : blk - row_blocks) * kWarpsPerBlock + threadIdx.x / kWarp;
+  if (piece >= o.num_pieces) return;
+  const float xs = __ldg(o.x_seg + o.piece_seg[piece]);
+  const int64_t end = o.piece_end[piece];
+#pragma unroll 4
+  for (int64_t k = o.piece_start[piece] + threadIdx.x % kWarp; k < end; k += kWarp) {
+    const float xg = __ldg(o.x_gat + __ldcs(o.gat + k));
+    __stcs(o.out + k, resid_step(omg, g, gmu, __ldcs(o.resid + k), __ldcs(o.vals + k),
+                                 __ldcs(o.weight + k), xs, xg));
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -147,6 +237,40 @@ int mc_gather_sorted_f32(const int32_t* perm, const float* src, float* dst, int6
   const int64_t blocks = (n + 4 * kThreads - 1) / (4 * kThreads);
   gather_sorted_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(perm, src, dst, n, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The matrix-completion residual after a step: out (p,) in caller order from
+// rows, cols, resid, vals, weight; and, for each order with pieces, its
+// out_sorted from the copies in that order (see SortedResid). gamma is a
+// device pointer to one f32; mu is already f32. p >= 1.
+int mc_update_resid_f32(const float* gamma, float mu, const int32_t* rows, const int32_t* cols,
+                        const float* resid, const float* vals, const float* weight,
+                        const float* u, const float* v, float* out, int64_t p,
+                        const int32_t* r_gat, const int64_t* r_start, const int64_t* r_end,
+                        const int64_t* r_seg, const float* r_resid, const float* r_vals,
+                        const float* r_weight, float* r_out, int64_t r_pieces,
+                        const int32_t* c_gat, const int64_t* c_start, const int64_t* c_end,
+                        const int64_t* c_seg, const float* c_resid, const float* c_vals,
+                        const float* c_weight, float* c_out, int64_t c_pieces, int device,
+                        void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec = (reinterpret_cast<uintptr_t>(rows) | reinterpret_cast<uintptr_t>(cols) |
+                   reinterpret_cast<uintptr_t>(resid) | reinterpret_cast<uintptr_t>(vals) |
+                   reinterpret_cast<uintptr_t>(weight) | reinterpret_cast<uintptr_t>(out)) %
+                      16 == 0;
+  const SortedResid row{r_gat, r_start, r_end, r_seg, r_resid, r_vals, r_weight, u, v, r_out,
+                        r_pieces};
+  const SortedResid col{c_gat, c_start, c_end, c_seg, c_resid, c_vals, c_weight, v, u, c_out,
+                        c_pieces};
+  const int64_t caller_blocks = (p + 4 * kThreads - 1) / (4 * kThreads);
+  const int64_t row_blocks = (r_pieces + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int64_t col_blocks = (c_pieces + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  update_resid_kernel<<<static_cast<unsigned>(caller_blocks + row_blocks + col_blocks), kThreads,
+                        0, static_cast<cudaStream_t>(stream)>>>(
+      gamma, mu, rows, cols, resid, vals, weight, u, v, out, p, vec, caller_blocks, row,
+      row_blocks, col);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,6 +18,7 @@ WRAPPERS = {
     "rank1_update_axpy": rank1_update.ops.rank1_update_axpy,
     "coo_matvec": mc_matvec.ops.coo_matvec,
     "gather_sorted": mc_matvec.ops.gather_sorted,
+    "update_resid": mc_matvec.ops.update_resid,
     "quantize": quantize.ops.quantize,
     "dequantize": quantize.ops.dequantize,
     "factor_matvec": factor_matvec.ops.factor_matvec,

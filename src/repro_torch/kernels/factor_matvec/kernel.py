@@ -6,6 +6,7 @@ caller allocates the output. A launch that CUDA refuses raises here.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -14,28 +15,64 @@ from .. import _build
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _lib = None
 
-# Batch rows per block, largest first; the kernel is compiled for these.
-ROWS_PER_BLOCK = (8, 4, 2, 1)
-# Blocks wanted before a block takes more rows (about one per SM).
-MIN_BLOCKS = 128
+CLUSTER = 16  # blocks of a thread-block cluster (Hopper's non-portable most)
+RANK_TILE = 64  # rank columns of T per pass
+MIN_CHUNK = 64  # n_in columns a stage-1 chunk takes before the split grows
+MAX_BATCH_TILES = 65535  # the grid's y extent
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How one call is spread over the card (``launch_plan``)."""
+
+    m_tiles: int  # 16-row MMA tiles per batch tile: 1, 2 or 4
+    batch_tile: int  # batch rows a cluster owns (16 * m_tiles)
+    batch_tiles: int  # clusters
+    chunks: int  # blocks of a cluster that sum a chunk of n_in in stage 1
+    chunk_width: int  # n_in columns per chunk (a multiple of 8)
+    rank_tiles: int  # passes of RANK_TILE rank columns
+    out_cols: int  # n_out columns each block of a cluster owns in stage 2
+
+    @property
+    def blocks(self) -> int:
+        return CLUSTER * self.batch_tiles
+
+
+def _round8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def launch_plan(bt: int, n_in: int, r: int, n_out: int) -> LaunchPlan:
+    """The launch plan of one call: a cluster of ``CLUSTER`` blocks per batch
+    tile of 16, 32 or 64 rows (the fewest that hold ``bt``, at most 64).
+    Stage 1's split of n_in (``chunks`` x ``chunk_width``), and so the order
+    of every sum, depends on n_in alone; the tiles of the batch, the ranks
+    and n_out move no bit of the result."""
+    if bt < 1 or r < 1 or n_in < 0 or n_out < 0:
+        raise ValueError(f"factor_matvec needs bt, r >= 1 (got bt={bt}, r={r})")
+    m_tiles = 1 if bt <= 16 else 2 if bt <= 32 else 4
+    batch_tiles = -(-bt // (16 * m_tiles))
+    if batch_tiles > MAX_BATCH_TILES:
+        raise ValueError(f"batch of {bt} rows: at most {64 * MAX_BATCH_TILES} per call")
+    chunks = min(CLUSTER, max(1, -(-n_in // MIN_CHUNK)))
+    width = max(8, _round8(-(-n_in // chunks)))
+    return LaunchPlan(m_tiles=m_tiles, batch_tile=16 * m_tiles, batch_tiles=batch_tiles,
+                      chunks=max(1, -(-n_in // width)), chunk_width=width,
+                      rank_tiles=-(-r // RANK_TILE),
+                      out_cols=max(8, _round8(-(-n_out // CLUSTER))))
 
 
 def _library():
     global _lib
     if _lib is None:
         lib = _build.library("factor_matvec")
-        lib.fm_factor_matvec_f32.argtypes = [_P] * 5 + [_I64] * 4 + [_I, _I, _I, _P]
+        lib.fm_factor_matvec_f32.argtypes = (
+            [_P] * 5 + [_I64] * 4 + [_I, _I, _I64, _I64, _I, _I, _I, _P])
         lib.fm_factor_matvec_f32.restype = ctypes.c_int
         lib.fm_error_string.argtypes = [ctypes.c_int]
         lib.fm_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
-
-
-def rows_per_block(bt: int) -> int:
-    """The most rows per block that still leaves ``MIN_BLOCKS`` blocks (the
-    result's bits do not depend on it)."""
-    return next((r for r in ROWS_PER_BLOCK if -(-bt // r) >= MIN_BLOCKS), 1)
 
 
 def factor_matvec(x: torch.Tensor, a: torch.Tensor, s: torch.Tensor, b: torch.Tensor,
@@ -45,11 +82,13 @@ def factor_matvec(x: torch.Tensor, a: torch.Tensor, s: torch.Tensor, b: torch.Te
     lib = _library()
     bt, n_in = x.shape
     r, n_out = b.shape
-    vec4 = int(n_in % 4 == 0 and x.data_ptr() % 16 == 0 and a.data_ptr() % 16 == 0)
+    plan = launch_plan(bt, n_in, r, n_out)
+    vec_in = int(n_in % 4 == 0 and x.data_ptr() % 16 == 0 and a.data_ptr() % 16 == 0)
+    vec_out = int(n_out % 4 == 0 and b.data_ptr() % 16 == 0)
     err = lib.fm_factor_matvec_f32(
         x.data_ptr(), a.data_ptr(), s.data_ptr(), b.data_ptr(), out.data_ptr(),
-        bt, n_in, r, n_out, rows_per_block(bt), vec4, x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        bt, n_in, r, n_out, plan.m_tiles, plan.chunks, plan.chunk_width, plan.out_cols,
+        vec_in, vec_out, x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"factor_matvec launch failed: {lib.fm_error_string(err).decode()}")

@@ -24,6 +24,9 @@ def _library():
         lib.mc_coo_matvec_f32.restype = ctypes.c_int
         lib.mc_gather_sorted_f32.argtypes = [_P] * 3 + [_I64, _I, _P]
         lib.mc_gather_sorted_f32.restype = ctypes.c_int
+        lib.mc_update_resid_f32.argtypes = (
+            [_P, ctypes.c_float] + [_P] * 8 + [_I64] + ([_P] * 8 + [_I64]) * 2 + [_I, _P])
+        lib.mc_update_resid_f32.restype = ctypes.c_int
         lib.mc_error_string.argtypes = [ctypes.c_int]
         lib.mc_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -53,4 +56,24 @@ def gather_sorted(order, vals: torch.Tensor, out: torch.Tensor) -> None:
     _raise(lib, "gather_sorted", lib.mc_gather_sorted_f32(
         order.perm.data_ptr(), vals.data_ptr(), out.data_ptr(), out.numel(),
         vals.device.index, torch.cuda.current_stream(vals.device).cuda_stream,
+    ))
+
+
+def update_resid(gamma: torch.Tensor, mu: float, u: torch.Tensor, v: torch.Tensor, entries,
+                 outs, orders) -> None:
+    """outs[0] (p,) = the residual after a step, from ``entries`` (rows, cols,
+    resid, vals, weight) in caller order; outs[1] and outs[2] likewise in
+    the row and the column order, from ``orders``: ``(order, (resid, vals,
+    weight) in its sorted order)`` for each."""
+    lib = _library()
+    sorted_args = []
+    for (order, copies), out_sorted in zip(orders, outs[1:]):
+        sorted_args += [order.gat_sorted.data_ptr(), order.piece_start.data_ptr(),
+                        order.piece_end.data_ptr(), order.piece_seg.data_ptr(),
+                        *(t.data_ptr() for t in copies), out_sorted.data_ptr(),
+                        order.piece_start.numel()]
+    _raise(lib, "update_resid", lib.mc_update_resid_f32(
+        gamma.data_ptr(), mu, *(t.data_ptr() for t in entries), u.data_ptr(), v.data_ptr(),
+        outs[0].data_ptr(), outs[0].numel(), *sorted_args,
+        u.device.index, torch.cuda.current_stream(u.device).cuda_stream,
     ))

@@ -8,15 +8,19 @@ order (``vals[order.perm]``), and ``coo_matvec(order, vals_sorted, x)`` is
 ``out[seg_e] += vals_e * x[gat_e]`` from values in that sorted order: G v
 with the row order, G^T u with the column order. The values change less
 often than they are read (the matrix-completion residual: once per epoch,
-read 2K times), so the caller keeps the sorted copy and refreshes it with
-one gather per change. CPU tensors take the plain versions (``ref.py``: the
-segment sum over the sorted order, and the gather); CUDA tensors launch the
+read 2K times), so the caller keeps the sorted copy. It gathers it once;
+``update_resid`` then writes the matrix-completion residual after each step
+in caller order and in each order's sorted order at once, from values and
+weights kept in those orders, so the copies are never gathered again. CPU
+tensors take the plain versions (``ref.py``: the segment sum over the
+sorted order, the gather, the update's chain); CUDA tensors launch the
 hand-written kernels (``csrc/mc_matvec.cu``) or raise. Each wrapper counts
 its kernel launches in ``.launches``.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence, Tuple
 
 import torch
 
@@ -36,7 +40,8 @@ class SegmentOrder:
     ``perm`` lists the entries sorted by segment, stably; ``gat_sorted`` is
     ``gat[perm]``; segment s owns sorted positions ``seg_ptr[s]:seg_ptr[s+1]``
     and pieces ``piece_ptr[s]:piece_ptr[s+1]``; piece j covers sorted
-    positions ``piece_start[j]:piece_end[j]`` (at most ``PIECE`` of them).
+    positions ``piece_start[j]:piece_end[j]`` (at most ``PIECE`` of them) of
+    segment ``piece_seg[j]``.
     """
 
     seg: torch.Tensor  # (p,) int32, caller order
@@ -47,6 +52,7 @@ class SegmentOrder:
     piece_start: torch.Tensor  # (pieces,) int64
     piece_end: torch.Tensor  # (pieces,) int64
     piece_ptr: torch.Tensor  # (out_dim + 1,) int64
+    piece_seg: torch.Tensor  # (pieces,) int64
     in_dim: int
 
     @property
@@ -110,7 +116,7 @@ def build_order(seg: torch.Tensor, gat: torch.Tensor, out_dim: int, in_dim: int)
     return SegmentOrder(
         seg=seg, gat=gat, perm=perm.to(torch.int32), gat_sorted=gat[perm],
         seg_ptr=seg_ptr, piece_start=piece_start, piece_end=piece_end,
-        piece_ptr=piece_ptr, in_dim=int(in_dim),
+        piece_ptr=piece_ptr, piece_seg=piece_seg, in_dim=int(in_dim),
     )
 
 
@@ -149,5 +155,63 @@ def coo_matvec(order: SegmentOrder, vals_sorted: torch.Tensor, x: torch.Tensor) 
     return out
 
 
+def update_resid(
+    gamma: torch.Tensor, mu: float, u: torch.Tensor, v: torch.Tensor,
+    rows: torch.Tensor, cols: torch.Tensor, resid: torch.Tensor, vals: torch.Tensor,
+    weight: torch.Tensor, by_row: SegmentOrder, row_copies: Sequence[torch.Tensor],
+    by_col: SegmentOrder, col_copies: Sequence[torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The matrix-completion residual after a step of size ``gamma`` towards
+    the atom ``-mu u v^T``, on the entries (rows, cols) with observed values
+    ``vals`` and {0, 1} weights:
+    ``resid' = (1 - g) resid - (g w) vals - (g mu) w u[row] v[col]``, each
+    operation rounded in the chain's order, so that the bits are those of
+    ``ref.resid_step``. Returns ``(resid', resid' in the row order, resid' in
+    the column order)``; ``row_copies`` and ``col_copies`` are (resid, vals,
+    weight) in each order's sorted order (``gather_sorted``), and each sorted
+    result has the bits of ``gather_sorted(order, resid')``. ``gamma`` is a
+    one-element float32 tensor on the entries' device (read there: no host
+    sync); ``mu`` a number."""
+    p = rows.numel()
+    rows, cols = _index(rows, "rows"), _index(cols, "cols")
+    if rows.shape != (p,) or cols.shape != (p,):
+        raise ValueError("rows and cols must both be (p,)")
+    resid, vals, weight = (_checks.vector_f32(t, n, p) for t, n in (
+        (resid, "resid"), (vals, "vals"), (weight, "weight")))
+    if not (isinstance(gamma, torch.Tensor) and gamma.numel() == 1
+            and gamma.dtype == torch.float32):
+        raise TypeError("gamma must be a one-element float32 tensor")
+    gamma = gamma.reshape(())
+    u = _checks.vector_f32(u, "u", by_row.out_dim)
+    v = _checks.vector_f32(v, "v", by_col.out_dim)
+    dev = rows.device
+    _checks.same_device(dev, cols=cols, resid=resid, vals=vals, weight=weight, gamma=gamma,
+                        u=u, v=v)
+    orders = []
+    for name, order, copies, in_dim in (("row", by_row, row_copies, v.numel()),
+                                        ("column", by_col, col_copies, u.numel())):
+        if order.perm.numel() != p or order.in_dim != in_dim:
+            raise ValueError(f"the {name} order is {order.out_dim} x {order.in_dim} over "
+                             f"{order.perm.numel()} entries, not these")
+        if len(copies) != 3:
+            raise ValueError(f"the {name} order needs its (resid, vals, weight) copies")
+        copies = tuple(_checks.vector_f32(t, f"{name}-order {n}", p)
+                       for t, n in zip(copies, ("resid", "vals", "weight")))
+        _checks.same_device(dev, order=order.perm, **{f"{name}_copy{i}": t
+                                                      for i, t in enumerate(copies)})
+        orders.append((order, copies))
+    mu = float(mu)
+    if not _checks.kernel_device(dev, "update_resid"):
+        return ref.update_resid(gamma, mu, u, v, rows, cols, resid, vals, weight,
+                                by_row, orders[0][1], by_col, orders[1][1])
+    outs = tuple(torch.empty(p, dtype=torch.float32, device=dev) for _ in range(3))
+    if p == 0:
+        return outs
+    kernel.update_resid(gamma, mu, u, v, (rows, cols, resid, vals, weight), outs, orders)
+    update_resid.launches += 1
+    return outs
+
+
 gather_sorted.launches = 0
 coo_matvec.launches = 0
+update_resid.launches = 0

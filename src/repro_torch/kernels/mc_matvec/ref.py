@@ -62,3 +62,34 @@ def coo_matvec_pieces(order, vals_sorted: torch.Tensor, x: torch.Tensor) -> torc
         torch.arange(order.out_dim, device=dev), torch.diff(order.piece_ptr))
     return torch.zeros(order.out_dim, dtype=torch.float32, device=dev).index_add_(
         0, seg_of, partial)
+
+
+def resid_step(gamma, mu, resid, vals, weight, u_e, v_e) -> torch.Tensor:
+    """``MatrixCompletion.update``'s chain on entries with factors u_e and
+    v_e: resid' = (1 - g) resid - g w M - (g mu) w u_e v_e, each operation a
+    pass of its own (gamma a 0-d float32 tensor, mu a number: ``g * mu`` is
+    f32, with mu rounded to f32 as PyTorch rounds a scalar operand)."""
+    uv = weight * (u_e * v_e)
+    return (1.0 - gamma) * resid - gamma * weight * vals - (gamma * mu) * uv
+
+
+def segment_of_sorted(order) -> torch.Tensor:
+    """The segment of every sorted position of a ``SegmentOrder``: the
+    segment of its piece (pieces are contiguous and in sorted order)."""
+    return torch.repeat_interleave(order.piece_seg, order.piece_end - order.piece_start,
+                                   output_size=order.perm.numel())
+
+
+def update_resid(gamma, mu, u, v, rows, cols, resid, vals, weight, by_row, row_copies, by_col,
+                 col_copies):
+    """``ops.update_resid`` in plain PyTorch: ``resid_step`` in caller order,
+    and in each order's sorted order from its (resid, vals, weight) copies,
+    the entry's segment factor read through its piece (the row order: u by
+    row, v by column; the column order the reverse, the same product).
+    Returns (caller order, row order, column order)."""
+    out = [resid_step(gamma, mu, resid, vals, weight, u[rows], v[cols])]
+    for order, (c_resid, c_vals, c_weight), x_seg, x_gat in (
+            (by_row, row_copies, u, v), (by_col, col_copies, v, u)):
+        out.append(resid_step(gamma, mu, c_resid, c_vals, c_weight,
+                              x_seg[segment_of_sorted(order)], x_gat[order.gat_sorted]))
+    return tuple(out)

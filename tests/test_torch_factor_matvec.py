@@ -138,12 +138,58 @@ def test_wrapper_refuses_bad_operands():
         fm.factor_matvec(*meta)
 
 
-@pytest.mark.parametrize("bt,rows", [(1, 1), (64, 1), (130, 1), (300, 2), (600, 4),
-                                     (1024, 8)])
-def test_rows_per_block_reaches_every_compiled_value(bt, rows):
-    """The batches of the card's tests (tests/test_torch_kernels_gpu.py)
-    between them take every rows-per-block value the kernel is compiled for."""
+@pytest.mark.parametrize("bt,r,batch_tile,batch_tiles,rank_tiles", [
+    (1, 32, 16, 1, 1), (20, 32, 32, 1, 1), (64, 64, 64, 1, 1), (130, 256, 64, 3, 4),
+    (300, 32, 64, 5, 1), (600, 64, 64, 10, 1), (1024, 256, 64, 16, 4),
+])
+def test_launch_plan_tiles_batch_and_ranks(bt, r, batch_tile, batch_tiles, rank_tiles):
+    """A cluster of 16 blocks per batch tile of 16, 32 or 64 rows; ranks in
+    tiles of 64. At the serving widths stage 1 splits 2048 inputs into 16
+    chunks of 128 (1000 into 16 of 64) and stage 2 gives each block 64 (128)
+    output columns, whatever the batch and the rank."""
     from repro_torch.kernels.factor_matvec import kernel
 
-    assert kernel.rows_per_block(bt) == rows
-    assert rows in kernel.ROWS_PER_BLOCK
+    plan = kernel.launch_plan(bt, 2048, r, 1000)
+    assert (plan.batch_tile, plan.batch_tiles, plan.rank_tiles) == (
+        batch_tile, batch_tiles, rank_tiles)
+    assert plan.m_tiles * 16 == plan.batch_tile and plan.blocks == 16 * batch_tiles
+    assert (plan.chunks, plan.chunk_width, plan.out_cols) == (16, 128, 64)
+    back = kernel.launch_plan(bt, 1000, r, 2048)
+    assert (back.chunks, back.chunk_width, back.out_cols) == (16, 64, 128)
+
+
+@pytest.mark.parametrize("n_in", [0, 1, 7, 64, 65, 129, 300, 449, 1000, 2048, 4096, 100003])
+def test_launch_plan_stage1_split_depends_on_n_in_alone(n_in):
+    """Stage 1's chunks (the order of every sum) are a function of n_in
+    only, at most one per block of the cluster, each a multiple of 8 wide,
+    covering n_in with none empty; the batch, the rank and n_out change the
+    tiles and never the split."""
+    from repro_torch.kernels.factor_matvec import kernel
+
+    plans = [kernel.launch_plan(bt, n_in, r, n_out)
+             for bt in (1, 33, 1024) for r in (1, 64, 5000) for n_out in (1, 1000, 4100)]
+    split = {(p.chunks, p.chunk_width) for p in plans}
+    assert len(split) == 1
+    chunks, width = split.pop()
+    assert 1 <= chunks <= kernel.CLUSTER and width % 8 == 0 and width >= 8
+    assert (chunks - 1) * width < max(n_in, 1) <= max(chunks * width, 1)
+    with pytest.raises(ValueError):
+        kernel.launch_plan(0, n_in, 1, 1)
+
+
+def test_phase_tool_instruments_the_kernel_source():
+    """tools/torch_factor_matvec_phases.py edits the kernel's text to add its
+    phase stamps and skip switches: every edit still finds its line in
+    csrc/factor_matvec.cu (the tool itself runs only on the card)."""
+    import importlib.util
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "torch_factor_matvec_phases", root / "tools" / "torch_factor_matvec_phases.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = (root / "src" / "repro_torch" / "csrc" / "factor_matvec.cu").read_text()
+    out = tool.instrumented(src)
+    assert out.count("clock64()") == 7 and out.count("long long* dbg, int skip") == 3
+    assert "(skip & 1)" in out and "(skip & 2)" in out and "(skip & 4)" in out

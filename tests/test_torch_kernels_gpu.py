@@ -7,8 +7,8 @@ no JAX, so it also runs where only PyTorch is installed:
 
 (``--noconftest``: the suite's conftest imports JAX.) Tolerances: the
 matvecs sum in another order than cuBLAS (the COO matvec than the atomics of
-``index_add_``, factor_matvec than its rank-by-rank plain version, with
-FMAs), so rtol 1e-4 with an atol of 1e-5 times
+``index_add_``, factor_matvec than its rank-by-rank plain version, on the
+tensor cores in 3xTF32), so rtol 1e-4 with an atol of 1e-5 times
 max|plain|; flash attention's online softmax sums in another order than one
 softmax over the row, so each query row is held to its own max|plain| (f32:
 1e-4; bf16: 1e-2, the output's rounding); the rank-1 update and the quantize pair are spelled in their
@@ -155,6 +155,40 @@ def test_cuda_gather_sorted_is_vals_perm_bit_for_bit(cuda, p):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d,m,p,heavy", [(40, 30, 600, 0), (1000, 300, 50000, 5000),
+                                         (20000, 17, 300001, 0), (3, 5000, 7, 0)])
+@pytest.mark.parametrize("gamma_from", ["linesearch", "schedule"])
+@pytest.mark.parametrize("mu", [0.0, 2.718281828459045])
+def test_cuda_update_resid_is_the_chain_bit_for_bit(cuda, d, m, p, heavy, gamma_from, mu):
+    """update_resid's three outputs equal MatrixCompletion's chain on the
+    card followed by gather_sorted, bit for bit, for gamma from the line
+    search's clamp and from the 2/(t+2) schedule, and mu = 0; one launch a
+    call. Zero-weight entries (a third of them) stay exactly 0."""
+    from repro_torch.core import tasks
+    from repro_torch.kernels import mc_matvec as mc
+
+    rows, cols, vals = _coo(d, m, p, cuda, heavy=heavy)
+    weight = (torch.arange(rows.numel(), device=cuda) % 3 != 0).float()
+    resid = weight * torch.randn(rows.numel(), device=cuda)
+    state = tasks.mc_state(rows, cols, vals, resid, weight, d, m)
+    u, v = torch.randn(d, device=cuda), torch.randn(m, device=cuda)
+    if gamma_from == "linesearch":
+        gamma = torch.clamp(torch.tensor(0.7, device=cuda) / torch.clamp(
+            torch.tensor(3.1, device=cuda), min=1e-30), 0.0, 1.0)
+    else:
+        gamma = 2.0 / (torch.full((), 5.0, device=cuda) + 2.0)
+    want = mc.ref.resid_step(gamma, mu, resid, vals, weight, u[rows], v[cols])
+    before = kernels.launches()["update_resid"]
+    got = tasks.MatrixCompletion(d, m).update(state, u, v, gamma, mu)
+    torch.cuda.synchronize()
+    assert kernels.launches()["update_resid"] == before + 1
+    assert torch.equal(got.resid, want)
+    assert torch.equal(got.resid_by_row, mc.gather_sorted(state.by_row, want))
+    assert torch.equal(got.resid_by_col, mc.gather_sorted(state.by_col, want))
+    assert not torch.any(got.resid[weight == 0])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n", [1, 37, 1000, 480_189])
 @pytest.mark.parametrize("budget", [127, 15, 1])
 def test_cuda_quantize_pair_matches_plain_bit_for_bit(cuda, n, budget):
@@ -184,13 +218,18 @@ def test_cuda_quantize_pair_matches_plain_bit_for_bit(cuda, n, budget):
     (1, 2048, 32, 1000), (64, 2048, 64, 1000), (64, 1000, 64, 2048), (1024, 2048, 256, 1000),
     (3, 129, 7, 65), (130, 300, 7, 65), (33, 129, 12, 257), (5, 64, 5000, 40),
     (300, 2048, 64, 1000), (600, 1000, 64, 2048), (300, 129, 7, 65), (600, 300, 33, 257),
+    (1024, 1000, 256, 2048), (17, 129, 65, 7), (16, 300, 64, 4100), (2, 0, 3, 5),
+    (3, 8, 5, 12), (20, 4, 70, 16),
 ])
 @pytest.mark.parametrize("aligned", [True, False])
 def test_cuda_factor_matvec_matches_plain(cuda, bt, n_in, r, n_out, aligned):
-    """Kernel against its plain version (the same sums in another order:
-    rtol 1e-4, atol 1e-5 of max), identical bits on repeat, one launch a
-    call. r = 5000 takes the kernel's chunked rank path; b = 300 and 600
-    take 2 and 4 rows per block, b = 1024 takes 8, the rest 1."""
+    """Kernel against its plain version (the same sums in another order, on
+    the tensor cores in 3xTF32: rtol 1e-4, atol 1e-5 of max), identical bits
+    on repeat, one launch a call. The shapes take each batch tile (16, 32
+    and 64 rows), several rank tiles (r = 65, 70, 256, 5000), stage-1 chunks
+    of every kind (n_in = 0, 4, 8, 64, 129, 300, 1000, 2048; copy-engine
+    boxes wider than n_in) and stage 2 in more than one pass of columns
+    (n_out = 4100)."""
     from repro_torch.kernels import factor_matvec as fm
 
     make = (lambda s: torch.randn(*s, device=cuda)) if aligned else (
@@ -207,16 +246,18 @@ def test_cuda_factor_matvec_matches_plain(cuda, bt, n_in, r, n_out, aligned):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("live,cap", [(20, 32), (20, 64), (1, 32), (30, 5000)])
-@pytest.mark.parametrize("bt", [1, 64, 300, 600, 1024])
-def test_cuda_factor_matvec_zero_tail_gives_the_same_bits(cuda, live, cap, bt):
+@pytest.mark.parametrize("live,cap", [(20, 32), (20, 64), (1, 32), (30, 5000), (70, 256)])
+@pytest.mark.parametrize("bt", [1, 20, 64, 300, 600, 1024])
+@pytest.mark.parametrize("n_in,n_out", [(2048, 1000), (1000, 2048), (129, 4100)])
+def test_cuda_factor_matvec_zero_tail_gives_the_same_bits(cuda, live, cap, bt, n_in, n_out):
     """Rows past the live rank (s = 0, zero factors) change no bit, whatever
-    the capacity and the rows per block."""
+    the capacity, the batch tile and the number of rank tiles and column
+    passes."""
     from repro_torch.kernels import factor_matvec as fm
 
-    x = torch.randn(bt, 2048, device=cuda)
-    a, s, b = (torch.randn(live, 2048, device=cuda), torch.randn(live, device=cuda),
-               torch.randn(live, 1000, device=cuda))
+    x = torch.randn(bt, n_in, device=cuda)
+    a, s, b = (torch.randn(live, n_in, device=cuda), torch.randn(live, device=cuda),
+               torch.randn(live, n_out, device=cuda))
 
     def pad(t):
         return torch.cat([t, torch.zeros((cap - live,) + t.shape[1:], device=cuda)])

@@ -308,17 +308,79 @@ def test_convert_mc_state_builds_the_orders(obs):
 
 
 def _assert_copies_in_step(s):
-    """Each sorted copy of the residual is resid[order.perm], bit for bit."""
-    assert torch.equal(s.resid_by_row, s.resid[s.by_row.perm.long()])
-    assert torch.equal(s.resid_by_col, s.resid[s.by_col.perm.long()])
+    """Each sorted copy of the residual, the values and the weights is
+    field[order.perm], bit for bit."""
+    for name in ("resid", "vals", "weight"):
+        for tag, order in (("row", s.by_row), ("col", s.by_col)):
+            assert torch.equal(getattr(s, f"{name}_by_{tag}"),
+                               getattr(s, name)[order.perm.long()]), f"{name}_by_{tag}"
+
+
+def _step_size(source):
+    """gamma as the fit makes it: the line search's clamp of numer / denom,
+    or the 2/(t+2) schedule (both 0-d float32 tensors)."""
+    if source == "linesearch":
+        return torch.clamp(torch.tensor(0.7) / torch.clamp(torch.tensor(3.1), min=1e-30), 0.0,
+                           1.0)
+    return frank_wolfe.default_step_size(torch.full((), 5.0))
+
+
+@pytest.mark.parametrize("gamma_from", ["linesearch", "schedule"])
+@pytest.mark.parametrize("mu_case", ["mu", "zero"])
+def test_update_resid_is_the_chain_then_gather_bit_for_bit(obs, gamma_from, mu_case):
+    """ref.update_resid (what MatrixCompletion.update runs on the CPU) gives
+    the caller-order chain of the update (as written before the residual was
+    kept in each order) and, in each order, that chain followed by
+    gather_sorted, bit for bit; with zero-weight padding exactly 0."""
+    task = tasks.MatrixCompletion(D, M)
+    s = task.init_state(*tasks.pack_observations(*_padded(obs)))
+    rng = np.random.default_rng(7)
+    u, v = (torch.from_numpy(rng.standard_normal(n).astype(np.float32)) for n in (D, M))
+    u, v = u / u.norm(), v / v.norm()
+    gamma, mu = _step_size(gamma_from), (obs["mu"] if mu_case == "mu" else 0.0)
+    uv = s.weight * (u[s.rows] * v[s.cols])
+    want = (1.0 - gamma) * s.resid - gamma * s.weight * s.vals - (gamma * mu) * uv
+    got = mc.ref.update_resid(gamma, mu, u, v, s.rows, s.cols, s.resid, s.vals, s.weight,
+                              s.by_row, s.copies("row"), s.by_col, s.copies("col"))
+    assert torch.equal(got[0], want)
+    assert torch.equal(got[1], mc.gather_sorted(s.by_row, want))
+    assert torch.equal(got[2], mc.gather_sorted(s.by_col, want))
+    new = task.update(s, u, v, gamma, mu)
+    assert all(torch.equal(a, b) for a, b in zip(
+        (new.resid, new.resid_by_row, new.resid_by_col), got))
+    assert float(torch.max(torch.abs(new.resid[P:]))) == 0.0
+    assert new.vals_by_row is s.vals_by_row and new.weight_by_col is s.weight_by_col
+
+
+@pytest.mark.parametrize("bad", ["gamma-float", "gamma-f64", "order-size", "copies", "rows-i64"])
+def test_update_resid_refuses_bad_operands(obs, bad):
+    s = tasks.MatrixCompletion(D, M).init_state(
+        *tasks.pack_observations(obs["rows"], obs["cols"], obs["vals"]))
+    u, v = torch.zeros(D), torch.zeros(M)
+    kw = dict(by_row=s.by_row, row_copies=s.copies("row"), by_col=s.by_col,
+              col_copies=s.copies("col"))
+    gamma, rows = torch.tensor(0.5), s.rows
+    if bad == "gamma-float":
+        gamma = 0.5
+    elif bad == "gamma-f64":
+        gamma = gamma.double()
+    elif bad == "order-size":
+        kw["by_row"] = s.by_col  # a (M x D) order where (D x M) is due
+    elif bad == "copies":
+        kw["row_copies"] = s.copies("row")[:2]
+    else:
+        rows = rows.long()
+    with pytest.raises((TypeError, ValueError)):
+        mc.update_resid(gamma, 1.0, u, v, rows, s.cols, s.resid, s.vals, s.weight, **kw)
 
 
 @pytest.mark.parametrize("where", ["init_state-and-update", "convert", "checkpoint"])
 def test_sorted_residual_copies_stay_in_step(obs, where, tmp_path):
-    """The residual's copies in the row and column orders equal resid[perm]
-    after init_state and after every update, after convert.task_state
-    carries a JAX state across, and in a state rebuilt from a checkpoint's
-    leaves; the checkpoint holds exactly the five caller-order MC leaves."""
+    """The residual's, values' and weights' copies in the row and column
+    orders equal field[perm] after init_state and after every update, after
+    convert.task_state carries a JAX state across, and in a state rebuilt
+    from a checkpoint's leaves; the checkpoint holds exactly the five
+    caller-order MC leaves."""
     from repro_torch.checkpoint.store import read_leaves
 
     task = tasks.MatrixCompletion(D, M)
@@ -432,19 +494,23 @@ def test_mc_resume_from_converted_jax_state(obs):
 @pytest.mark.parametrize("comm", ["dense", "int8"])
 def test_mc_fit_routes_through_coo_matvec(obs, comm, monkeypatch):
     """Every power iteration of the MC fit calls coo_matvec once per
-    direction, and verify_kernelized once more each: the launch counts the
-    card run expects."""
-    calls = {"n": 0}
-    fn = mc.ops.coo_matvec
+    direction, and verify_kernelized once more each; every epoch's update is
+    one update_resid, and gather_sorted runs only when a state is built (six
+    copies for the fit's state and six for verify_kernelized's): the launch
+    counts the card run expects."""
+    calls = dict.fromkeys(("coo_matvec", "update_resid", "gather_sorted"), 0)
+    for name in calls:
+        fn = getattr(mc.ops, name)
 
-    def counted(*a, **kw):
-        calls["n"] += 1
-        return fn(*a, **kw)
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
 
-    monkeypatch.setattr(mc.ops, "coo_matvec", counted)
+        monkeypatch.setattr(mc.ops, name, counted)
     cfg = dfw.DFWConfig(mu=obs["mu"], num_epochs=8, schedule="log", comm=comm)
     res = dfw.fit_serial(tasks.MatrixCompletion(D, M),
                          *tasks.pack_observations(obs["rows"], obs["cols"], obs["vals"]),
                          cfg=cfg, key=2, device="cpu")
-    assert calls["n"] == 2 * sum(res.history["k"]) + 2
+    assert calls == {"coo_matvec": 2 * sum(res.history["k"]) + 2, "update_resid": 8,
+                     "gather_sorted": 12}
     assert all(np.isfinite(res.history["loss"]))
