@@ -10,7 +10,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
 2. Hold every kernel against its plain PyTorch version on the card, at the
    main path's shapes (n = 1,281,167 rows; R is n x 1000, X is n x 2048) and
    at tiny odd shapes, and time kernel, plain version and the one PyTorch
-   call that computes the same function (CUDA events, median of --reps).
+   call that computes the same function (CUDA events, median of --reps);
+   print matvec's time over torch.mv's on R and on X (timed in turns,
+   kernel, call, call, kernel; not a gate); matvec and rmatvec repeat their
+   bits.
 3. Drive the main path, ``launch.dfw.fit_serial``, for multi-task least
    squares at the paper's ImageNet shapes (n = 1,281,167, d = 2048,
    m = 1000, f32): planted rank-10 trace-norm-1 W* plus small noise, log
@@ -87,10 +90,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
    form (taken in f64) at the main path's shape (B 4, H 64, q 256, head 64,
    bf16 r/k/v, f32 logw drawn like the model's decays, so that about a
    quarter of the pairs pass -80 and the clamps bind; u and S_in nonzero),
-   in f32, and at tiny odd shapes (q 50, 7, 1, 100, 320; B * H = 3; dk, dv
-   16/32/48; bf16 logw): each (head, row) of y to its own max, 2e-4;
-   against the exact recurrence at q = 32 (rtol = atol = 2e-4); identical
-   bits on repeat. Times of kernel, plain chunk form and exact recurrence.
+   in f32, at two decay extremes in both (logw near -1: almost every pair
+   saturates; near -1e-3: no clamp binds), and at tiny odd shapes (q 50, 7,
+   1, 100, 320, 192, 255; B * H = 3; dk, dv 16/32/48; bf16 logw): each
+   (head, row) of y to its own max, 2e-4; against the exact recurrence at
+   q = 32 (rtol = atol = 2e-4); identical bits on repeat; HMMA instructions
+   in its SASS. Times of kernel, plain chunk form and exact recurrence; the
+   bound on the TF32 tensor cores in 3xTF32 (495 / 3 TFLOP/s), and the f32
+   CUDA cores' beside it.
 18. Full-width prefill of rwkv6-7b (32 layers, d 4096, 64 heads of 64,
    d_ff 14,336, vocab 65,536, bf16; weights drawn on the card from --seed,
    then every layer's u_bonus redrawn nonzero, since the reference's zero
@@ -180,12 +187,12 @@ SOURCE = {
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "wkv6_chunk": "src/repro_torch/csrc/wkv6_chunk.cu",
 }
-# Memory rate (bytes/s), f32 non-tensor-core peak and bf16 dense tensor-core
-# peak (flop/s) of each part this script has run on, from NVIDIA's data
-# sheet, keyed by torch.cuda.get_device_name. Another part fails the run
-# until its entry is added, so that no bound is computed from another card's
-# peaks.
-CARD_PEAKS = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12, 989e12)}
+# Memory rate (bytes/s), f32 non-tensor-core peak, bf16 dense tensor-core
+# peak and TF32 dense tensor-core peak (flop/s) of each part this script has
+# run on, from NVIDIA's data sheet, keyed by torch.cuda.get_device_name.
+# Another part fails the run until its entry is added, so that no bound is
+# computed from another card's peaks.
+CARD_PEAKS = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12, 989e12, 495e12)}
 # Kernel-vs-plain tolerances (max |kernel - plain| / max |plain|): the
 # matvecs sum up to 1.28M f32 terms in another order than cuBLAS, and the COO
 # matvec segments of up to ~235 thousand terms in another order than the
@@ -209,9 +216,10 @@ CARD_PEAKS = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12, 989e12)}
 # config's prefill on the card against the CPU, f32, rtol 1e-4 with an atol
 # of 1e-5 of max (f32 sums in another order on each side). wkv6_chunk is held
 # to its plain chunk form taken in f64 on the same inputs, each (head, row)
-# of y to its own max and S_out to its max, 2e-4: the kernel's f32 products
-# and its prefix sums rounded to f32 (they run to about -110, where one ulp
-# is 7.6e-6, and the clamped exp factors carry that error relatively); at
+# of y to its own max and S_out to its max, 2e-4: the kernel's products in
+# 3xTF32 (about 2^-20 of each product) and its prefix sums rounded to f32
+# (they run to about -110, where one ulp is 7.6e-6, and the clamped exp
+# factors carry that error relatively); at
 # q = 32 to the exact recurrence with the JAX package's own f32 test
 # tolerance (rtol = atol = 2e-4). The ssm family's whole-model checks use the
 # dense family's tolerances above, except prefill against decode in bf16: in
@@ -243,7 +251,7 @@ def check(cond: bool, msg: str) -> None:
 
 def card_peaks(name: str):
     check(name in CARD_PEAKS, f"no peak table entry for {name!r}: add its memory rate, "
-          "f32 and bf16 peaks to CARD_PEAKS")
+          "f32, bf16 and TF32 peaks to CARD_PEAKS")
     return CARD_PEAKS[name]
 
 
@@ -332,6 +340,13 @@ def kernel_phase(torch, pm, r1, dev, X, R, Y, gen, reps, peaks):
             bound_by="bytes" if nbytes / bw >= nflops / flops else "operations",
             bytes=nbytes,
         )
+        if name == "matvec":
+            # Against torch.mv in turns (kernel, call, call, kernel): the two
+            # are a few percent apart, so neither gets the better place in
+            # the run; ms and library_ms are the means of the two rounds.
+            lib2, ms2 = time_ms(torch, lfn, reps), time_ms(torch, kfn, reps)
+            row.update(ms_rounds=[row["ms"], ms2], library_ms_rounds=[row["library_ms"], lib2],
+                       ms=(row["ms"] + ms2) / 2, library_ms=(row["library_ms"] + lib2) / 2)
         if name == "rank1_update_axpy":
             # No single PyTorch call computes it; the shortest chain is three.
             row["library_chain_ms"] = time_ms(
@@ -343,9 +358,16 @@ def kernel_phase(torch, pm, r1, dev, X, R, Y, gen, reps, peaks):
               f"(plain {row['plain_ms']:.3f}, library {row['library_ms']}, bound "
               f"{row['bound_ms']:.3f}, {row['GB_per_s']:.0f} GB/s) rel err {err_rel:.2e}")
     del out
+    ratio = {r["operand"]: r["ms"] / r["library_ms"] for r in rows_out if r["name"] == "matvec"}
+    for r in rows_out:
+        if r["name"] == "matvec":
+            r["library_ratio"] = ratio[r["operand"]]
+            print(f"matvec on {r['operand']}: {r['ms_rounds']} ms against torch.mv's "
+                  f"{r['library_ms_rounds']} in turns")
+    print("matvec / torch.mv: " + ", ".join(f"{k} {v:.4f}" for k, v in ratio.items()))
 
     # Tiny odd shapes, 16-byte aligned and not: the ragged and scalar paths.
-    for (rows, cols) in ((37, 5), (1, 7), (65, 33), (300, 1000)):
+    for (rows, cols) in ((37, 5), (1, 7), (65, 33), (300, 1000), (9, 1000), (9, 1001)):
         for aligned in (True, False):
             def mk(*s):
                 t = rn(math.prod(s) + (0 if aligned else 1))
@@ -365,10 +387,12 @@ def kernel_phase(torch, pm, r1, dev, X, R, Y, gen, reps, peaks):
                 err = rel_err(torch, got, want)[1]
                 check(err <= TOL[name],
                       f"{name} at {rows}x{cols} aligned={aligned}: rel err {err:.3e}")
-    # Determinism of the two-stage rmatvec: identical bits on repeat.
-    u = rn(n)
+    # Determinism: identical bits on repeat.
+    u, v = rn(n), rn(PAPER_D)
     check(torch.equal(pm.rmatvec(X, u), pm.rmatvec(X, u)), "rmatvec is not bit-stable")
-    print("kernels match their plain versions at full and odd shapes; rmatvec bit-stable")
+    check(torch.equal(pm.matvec(X, v), pm.matvec(X, v)), "matvec is not bit-stable")
+    print("kernels match their plain versions at full and odd shapes; matvec and rmatvec "
+          "bit-stable")
     return rows_out
 
 
@@ -1275,7 +1299,7 @@ def flash_kernel_phase(torch, fa, kernels, _build, dev, gen, reps, peaks):
     cases, tiny odd f32 ones and ragged bf16 ones; identical bits on repeat;
     the route each took; the HGMMA count of the wgmma kernels; times of
     kernel, plain version and scaled_dot_product_attention."""
-    bw, f32_peak, bf16_peak = peaks
+    bw, f32_peak, bf16_peak = peaks[:3]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     counts = hgmma_counts(_build)
     for fn, n in sorted(counts.items()):
@@ -1590,16 +1614,24 @@ WKV_HEADS, WKV_Q, WKV_D = 64, 256, 64  # rwkv6-7b's heads, ssm_chunk and head si
 XCHECK_CHUNK = 32
 
 
-def wkv_inputs(torch, gen, dev, b, h, q, dk, dv, dtype, wdtype):
-    """The model's decay law: logw = -exp(w), w ~ N(-1, 0.6), so that about
-    a quarter of the (position, channel) pairs of a 256-token chunk pass -80
-    and the clamps bind; r, k ~ N(0, 0.25), v ~ N(0, 1), u and S_in nonzero."""
+# Decay laws of phase 17: logw = -exp(w), w ~ N(mean, sd). "model" is the
+# model's law (about a quarter of the (position, channel) pairs of a 256-token
+# chunk pass -80, so the clamps bind); "saturating" puts logw near -1, so cw
+# reaches about -256 and almost every pair saturates; "slow" puts it near
+# -1e-3, so no clamp binds.
+DECAYS = {"model": (-1.0, 0.6), "saturating": (0.0, 0.05), "slow": (math.log(1e-3), 0.05)}
+
+
+def wkv_inputs(torch, gen, dev, b, h, q, dk, dv, dtype, wdtype, decay="model"):
+    """r, k ~ N(0, 0.25), v ~ N(0, 1), logw from the decay law ``decay``
+    (``DECAYS``), u and S_in nonzero."""
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
+    mean, sd = DECAYS[decay]
     r, k = (randn(b, h, q, dk) * 0.5).to(dtype), (randn(b, h, q, dk) * 0.5).to(dtype)
     v = randn(b, h, q, dv).to(dtype)
-    logw = (-torch.exp(randn(b, h, q, dk) * 0.6 - 1.0)).to(wdtype)
+    logw = (-torch.exp(randn(b, h, q, dk) * sd + mean)).to(wdtype)
     return r, k, v, logw, randn(h, dk) * 0.5, randn(b, h, dk, dv) * 0.3
 
 
@@ -1626,20 +1658,27 @@ def wkv_work(b, h, q, dk, dv, esize, wsize):
     return nbytes, flops
 
 
-def wkv6_kernel_phase(torch, wkv, dev, gen, reps, peaks):
+def wkv6_kernel_phase(torch, wkv, _build, dev, gen, reps, peaks):
     """Phase 17: wkv6_chunk against its plain chunk form at the main path's
     shape (B 4, H 64, q 256, 64, r/k/v bf16, logw f32, clamps binding) and in
-    f32, against the exact recurrence at q = 32, at tiny odd shapes;
-    identical bits on repeat; times of kernel, plain chain and exact
-    recurrence."""
-    bw, f32_peak, _ = peaks
+    f32, at the two decay extremes in both, against the exact recurrence at
+    q = 32, at tiny odd shapes; identical bits on repeat; the HMMA count of
+    its SASS; times of kernel, plain chain and exact recurrence."""
+    bw, f32_peak, _, tf32_peak = peaks
     tol = TOL["wkv6_chunk"]
+    hmma = sass_counts(_build, "wkv6_chunk", "HMMA", "wkv6")
+    check(hmma and all(n > 0 for n in hmma.values()),
+          f"wkv6_chunk: no HMMA instruction in its SASS ({hmma})")
+    print(f"wkv6_chunk SASS: HMMA per instantiation {sorted(hmma.values())}")
     rows_out = []
-    big = [("main path", torch.bfloat16, torch.float32, max(3, reps)),
-           ("f32", torch.float32, torch.float32, max(3, reps))]
-    for label, dtype, wdtype, nrep in big:
+    big = [("main path", torch.bfloat16, "model"), ("f32", torch.float32, "model"),
+           ("saturating", torch.bfloat16, "saturating"),
+           ("saturating f32", torch.float32, "saturating"),
+           ("slow", torch.bfloat16, "slow"), ("slow f32", torch.float32, "slow")]
+    for label, dtype, decay in big:
         b, h, q, d = SSM_BATCH, WKV_HEADS, WKV_Q, WKV_D
-        args = wkv_inputs(torch, gen, dev, b, h, q, d, d, dtype, wdtype)
+        timed = decay == "model"
+        args = wkv_inputs(torch, gen, dev, b, h, q, d, d, dtype, torch.float32, decay)
         got = wkv.wkv6_chunk(*args)
         torch.cuda.synchronize()
         err_abs, err_rel, s_rel = wkv_errors(torch, wkv, got, args)
@@ -1652,29 +1691,39 @@ def wkv6_kernel_phase(torch, wkv, dev, gen, reps, peaks):
               f"wkv6_chunk {label} is not bit-stable")
         cw = torch.cumsum(args[3].double(), dim=2)
         past = float((cw < -80).double().mean())
-        check(past > 0.1, f"wkv6_chunk {label}: only {past:.3f} of the pairs pass -80")
+        if decay == "model":
+            check(past > 0.1, f"wkv6_chunk {label}: only {past:.3f} of the pairs pass -80")
         del again, y32, cw
-        esize = torch.tensor([], dtype=dtype).element_size()
-        nbytes, nflops = wkv_work(b, h, q, d, d, esize, 4)
         row = dict(
             name="wkv6_chunk", operand=f"{label}: B={b} H={h} q={q} dk=dv={d} "
-            f"{str(dtype)[6:]} r/k/v, f32 logw", shape=[b, h, q, d, d],
+            f"{str(dtype)[6:]} r/k/v, f32 logw, {decay} decay", shape=[b, h, q, d, d],
             max_abs_err=err_abs, max_rel_err=err_rel, state_rel_err=s_rel,
             rel_err_vs_f32_plain=f32_rel, past_80_share=past, tol=tol,
-            ms=time_ms(torch, lambda: wkv.wkv6_chunk(*args), nrep),
-            plain_ms=time_ms(torch, lambda: wkv.ref.wkv6_chunk_factored(*args), nrep),
-            exact_ms=time_ms(torch, lambda: wkv.ref.wkv6_chunk(*args), 3),
-            library_ms=None, bound_ms=1e3 * max(nbytes / bw, nflops / f32_peak),
-            bound_by="bytes" if nbytes / bw >= nflops / f32_peak else "operations",
-            bytes=nbytes, flops=nflops, main=label == "main path")
-        row["tflops"] = nflops / row["ms"] / 1e9
+            main=label == "main path")
+        if timed:
+            esize = torch.tensor([], dtype=dtype).element_size()
+            nbytes, nflops = wkv_work(b, h, q, d, d, esize, 4)
+            # 3xTF32: three tensor-core products per f32 product
+            by_bytes, by_ops = nbytes / bw, 3 * nflops / tf32_peak
+            row.update(
+                ms=time_ms(torch, lambda: wkv.wkv6_chunk(*args), max(3, reps)),
+                plain_ms=time_ms(torch, lambda: wkv.ref.wkv6_chunk_factored(*args), max(3, reps)),
+                exact_ms=time_ms(torch, lambda: wkv.ref.wkv6_chunk(*args), 3),
+                library_ms=None, bound_ms=1e3 * max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bound_f32_cores_ms=1e3 * max(by_bytes, nflops / f32_peak),
+                bytes=nbytes, flops=nflops, hmma=hmma)
+            row["tflops"] = nflops / row["ms"] / 1e9
         rows_out.append(row)
-        print(f"kernel wkv6_chunk {row['operand']}: {row['ms']:.4f} ms ({row['tflops']:.1f} "
-              f"TFLOP/s; plain chunk form {row['plain_ms']:.4f}, exact recurrence "
-              f"{row['exact_ms']:.3f}, bound {row['bound_ms']:.4f} by {row['bound_by']}) "
-              f"row-relative err {err_rel:.2e} (state {s_rel:.2e}; limit {tol:.0e}) against the "
-              f"f64 plain version, {f32_rel:.2e} against the f32 one; {past:.3f} of the pairs "
-              f"past -80; bit-stable")
+        timing = (f"{row['ms']:.4f} ms ({row['tflops']:.1f} TFLOP/s; plain chunk form "
+                  f"{row['plain_ms']:.4f}, exact recurrence {row['exact_ms']:.3f}, bound "
+                  f"{row['bound_ms']:.4f} by {row['bound_by']} on the TF32 tensor cores in "
+                  f"3xTF32, {row['bound_f32_cores_ms']:.4f} on the f32 CUDA cores) "
+                  if timed else "")
+        print(f"kernel wkv6_chunk {row['operand']}: {timing}row-relative err {err_rel:.2e} "
+              f"(state {s_rel:.2e}; limit {tol:.0e}) against the f64 plain version, "
+              f"{f32_rel:.2e} against the f32 one; {past:.3f} of the pairs past -80; "
+              f"bit-stable")
         del args, got
         torch.cuda.empty_cache()
 
@@ -1690,7 +1739,8 @@ def wkv6_kernel_phase(torch, wkv, dev, gen, reps, peaks):
                   "the exact recurrence")
     # tiny odd shapes: q 50, 7, 1; BH = 3 both ways; dk, dv 16 / 32; logw in bf16
     for b, h, q, dk, dv in ((1, 3, 50, 64, 64), (3, 1, 7, 64, 64), (3, 1, 1, 64, 64),
-                            (1, 3, 100, 16, 32), (2, 2, 320, 48, 64)):
+                            (1, 3, 100, 16, 32), (2, 2, 320, 48, 64), (1, 2, 192, 64, 64),
+                            (2, 1, 255, 64, 64)):
         for dtype, wdtype in ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
                               (torch.bfloat16, torch.bfloat16)):
             args = wkv_inputs(torch, gen, dev, b, h, q, dk, dv, dtype, wdtype)
@@ -1703,7 +1753,8 @@ def wkv6_kernel_phase(torch, wkv, dev, gen, reps, peaks):
             check(torch.equal(again[0], got[0]) and torch.equal(again[1], got[1]),
                   f"wkv6_chunk q {q} is not bit-stable")
     print("wkv6_chunk matches its plain chunk form at the main path's shape (clamps binding), "
-          "in f32 and at odd shapes, and the exact recurrence at q = 32; bit-stable")
+          "in f32, at both decay extremes and at odd shapes, and the exact recurrence at "
+          "q = 32; bit-stable")
     return rows_out
 
 
@@ -2267,7 +2318,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
         # 17. wkv6_chunk against its plain versions
-        krows += wkv6_kernel_phase(torch, wkv, dev, gen, args.reps, peaks)
+        krows += wkv6_kernel_phase(torch, wkv, _build, dev, gen, args.reps, peaks)
         torch.cuda.empty_cache()
 
         # 18. full-width prefill of rwkv6-7b (depth --ssm-layers)
@@ -2310,7 +2361,8 @@ def main(argv=None) -> int:
             shape=main_row["shape"],
             by_operand={r["operand"]: {k: r[k] for k in (
                 "shape", "ms", "plain_ms", "library_ms", "library_rel_err", "library_chain_ms",
-                "exact_ms", "bound_ms", "bound_by", "max_rel_err") if k in r}
+                "library_ratio", "exact_ms", "bound_ms", "bound_f32_cores_ms", "bound_by",
+                "max_rel_err") if k in r}
                 for r in rows},
         ))
     report["kernels"] = krows

@@ -11,8 +11,15 @@
 // Design:
 // - matvec: one warp per row, 16-byte loads along the row (float4 when m % 4
 //   == 0 and the pointers are 16-byte aligned, else 4-byte loads), four
-//   independent f32 accumulators, a shuffle reduction. The ragged row tail is
-//   masked in the loop bound: nothing is padded or copied.
+//   independent f32 accumulators, a shuffle reduction. A lane issues its
+//   loads in batches of kBatch = 8 vectors, all eight in flight before the
+//   first multiply-add, those past the row's end predicated off: R's rows
+//   of 250 float4 take one batch, X's of 512 two. (A loop over a runtime
+//   trip count unrolled by four, the first design, leaves on R lanes 26-31
+//   one step short of lanes 0-25, and they run the loop's remainder one load
+//   at a time at the end of every row.) Nothing is padded or copied; each
+//   lane adds its vectors in column order, so each row's sum runs in one
+//   fixed order.
 // - rmatvec: the TPU kernel carries the column sum across a sequential grid.
 //   Hopper blocks run in no order, so the sum is split in two fixed-order
 //   stages instead of float atomics: blocks of (32 x 8) threads own a column
@@ -28,6 +35,7 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr int kRowsPerMatvecBlock = 8;  // warps (rows) per matvec block
+constexpr int kBatch = 8;               // vectors a lane loads before using them
 constexpr int kRowLanes = 8;            // row lanes (threadIdx.y) in rmatvec
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -36,37 +44,47 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int VEC>
+__device__ __forceinline__ float4 load_vec(const float4* p) { return __ldcs(p); }
+__device__ __forceinline__ float load_vec(const float* p) { return __ldcs(p); }
+__device__ __forceinline__ void fma_vec(const float4& x, const float4& w, float (&acc)[4]) {
+  acc[0] = fmaf(x.x, w.x, acc[0]);
+  acc[1] = fmaf(x.y, w.y, acc[1]);
+  acc[2] = fmaf(x.z, w.z, acc[2]);
+  acc[3] = fmaf(x.w, w.w, acc[3]);
+}
+__device__ __forceinline__ void fma_vec(float x, float w, float (&acc)[4]) {
+  acc[0] = fmaf(x, w, acc[0]);
+}
+
+// V is float4 (the aligned path) or float; a row holds m / (floats in V) of them.
+template <typename V>
 __global__ void __launch_bounds__(kWarp * kRowsPerMatvecBlock)
 matvec_kernel(const float* __restrict__ a, const float* __restrict__ v,
               float* __restrict__ out, int64_t n, int64_t m) {
+  constexpr int kVec = sizeof(V) / sizeof(float);
   const int lane = threadIdx.x % kWarp;
   const int64_t row =
       static_cast<int64_t>(blockIdx.x) * kRowsPerMatvecBlock + threadIdx.x / kWarp;
   if (row >= n) return;  // whole warp leaves together: row is per warp
-  const float* arow = a + row * m;
-  float acc0 = 0.f, acc1 = 0.f, acc2 = 0.f, acc3 = 0.f;
-  if constexpr (VEC == 4) {
-    const float4* a4 = reinterpret_cast<const float4*>(arow);
-    const float4* v4 = reinterpret_cast<const float4*>(v);
-    const int64_t m4 = m / 4;
-#pragma unroll 4
-    for (int64_t j = lane; j < m4; j += kWarp) {
-      const float4 x = __ldcs(a4 + j);
-      const float4 w = __ldg(v4 + j);
-      acc0 = fmaf(x.x, w.x, acc0);
-      acc1 = fmaf(x.y, w.y, acc1);
-      acc2 = fmaf(x.z, w.z, acc2);
-      acc3 = fmaf(x.w, w.w, acc3);
+  const V* arow = reinterpret_cast<const V*>(a + row * m);
+  const V* vv = reinterpret_cast<const V*>(v);
+  const int mv = static_cast<int>(m / kVec);
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int base = lane; base < mv; base += kWarp * kBatch) {
+    V x[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int j = base + kWarp * i;
+      x[i] = j < mv ? load_vec(arow + j) : V{};
     }
-  } else {
-#pragma unroll 4
-    for (int64_t j = lane; j < m; j += kWarp) {
-      acc0 = fmaf(__ldcs(arow + j), __ldg(v + j), acc0);
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int j = base + kWarp * i;
+      if (j < mv) fma_vec(x[i], __ldg(vv + j), acc);
     }
   }
-  const float acc = warp_sum((acc0 + acc1) + (acc2 + acc3));
-  if (lane == 0) out[row] = acc;
+  const float sum = warp_sum((acc[0] + acc[1]) + (acc[2] + acc[3]));
+  if (lane == 0) out[row] = sum;
 }
 
 // Stage 1: partial[slab, col] = sum over the slab's rows of u[r] * A[r, col].
@@ -147,13 +165,14 @@ int pm_matvec_f32(const float* a, const float* v, float* out, int64_t n, int64_t
                   int vec, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (m > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);  // int column index
   const dim3 block(kWarp * kRowsPerMatvecBlock);
   const dim3 grid(static_cast<unsigned>((n + kRowsPerMatvecBlock - 1) / kRowsPerMatvecBlock));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec == 4) {
-    matvec_kernel<4><<<grid, block, 0, s>>>(a, v, out, n, m);
+    matvec_kernel<float4><<<grid, block, 0, s>>>(a, v, out, n, m);
   } else {
-    matvec_kernel<1><<<grid, block, 0, s>>>(a, v, out, n, m);
+    matvec_kernel<float><<<grid, block, 0, s>>>(a, v, out, n, m);
   }
   return static_cast<int>(cudaGetLastError());
 }

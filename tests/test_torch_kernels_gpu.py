@@ -14,9 +14,9 @@ softmax over the row, so each query row is held to its own max|plain| (f32:
 1e-4; bf16: 1e-2, the output's rounding); the rank-1 update and the quantize pair are spelled in their
 plain versions' order and must match them bit for bit. The WKV6 chunk is
 held to its plain chunk form taken in f64 on the same inputs, each (head,
-row) of y to its own max and S_out to its max, 2e-4 (the kernel's f32
-products and its prefix sums rounded to f32, which the clamped exp factors
-carry relatively), and at q = 32 to the exact recurrence as the JAX
+row) of y to its own max and S_out to its max, 2e-4 (the kernel's 3xTF32
+products, about 2^-20 of each product, and its prefix sums rounded to f32,
+which the clamped exp factors carry relatively), and at q = 32 to the exact recurrence as the JAX
 package's test holds its kernel (rtol = atol = 2e-4, f32); the ssm smoke
 model's prefill on the card to the CPU's as the dense one's.
 """
@@ -54,13 +54,18 @@ def _misaligned(shape, device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,m", SHAPES + [(5000, 1000), (4099, 2048), (70001, 12)])
+@pytest.mark.parametrize("n,m", SHAPES + [(5000, 1000), (4099, 2048), (70001, 12),
+                                         (1, 1000), (2, 1000), (3, 1000), (9, 1000),
+                                         (9, 1001)])
 @pytest.mark.parametrize("aligned", [True, False])
 def test_cuda_power_matvec_matches_plain(cuda, n, m, aligned):
+    """Row counts 1-3 and 9 leave the last warp's group of four rows partly
+    past n; m = 1001 takes the 4-byte path even when aligned."""
     a = torch.randn(n, m, device=cuda) if aligned else _misaligned((n, m), cuda)
     v, u = torch.randn(m, device=cuda), torch.randn(n, device=cuda)
     before = kernels.launches()
-    _close(pm.matvec(a, v).cpu(), pm.ref.matvec(a, v).cpu())
+    got = pm.matvec(a, v)
+    _close(got.cpu(), pm.ref.matvec(a, v).cpu())
     out = pm.rmatvec(a, u)
     _close(out.cpu(), pm.ref.rmatvec(a, u).cpu())
     torch.cuda.synchronize()
@@ -68,6 +73,8 @@ def test_cuda_power_matvec_matches_plain(cuda, n, m, aligned):
     assert kernels.launches()["rmatvec"] == before["rmatvec"] + 1
     # two-stage fixed-order reduction: repeated calls give identical bits
     assert torch.equal(pm.rmatvec(a, u), out)
+    # each row's sum in one fixed order: identical bits on repeat
+    assert torch.equal(pm.matvec(a, v), got)
 
 
 @pytest.mark.gpu
@@ -419,17 +426,23 @@ def lm_to(tree, device):
     return [lm_to(v, device) for v in tree]
 
 
-def _wkv_inputs(b, h, q, dk, dv, dtype, wdtype, device, seed=0):
-    """The model's decay law (logw = -exp(w), w ~ N(-1, 0.6): the clamps bind
-    past about 180 tokens), nonzero u and S_in."""
+# logw = -exp(w), w ~ N(mean, sd): the model's law (the clamps bind past
+# about 180 tokens), logw near -1 (cw reaches about -256: almost every pair
+# saturates) and near -1e-3 (no clamp binds).
+DECAYS = {"model": (-1.0, 0.6), "saturating": (0.0, 0.05), "slow": (np.log(1e-3), 0.05)}
+
+
+def _wkv_inputs(b, h, q, dk, dv, dtype, wdtype, device, seed=0, decay="model"):
+    """logw from the decay law ``decay``, nonzero u and S_in."""
     g = torch.Generator(device=device).manual_seed(seed)
 
     def randn(*shape):
         return torch.randn(*shape, generator=g, device=device)
 
+    mean, sd = DECAYS[decay]
     r, k = (randn(b, h, q, dk) * 0.5).to(dtype), (randn(b, h, q, dk) * 0.5).to(dtype)
     v = randn(b, h, q, dv).to(dtype)
-    logw = (-torch.exp(randn(b, h, q, dk) * 0.6 - 1.0)).to(wdtype)
+    logw = (-torch.exp(randn(b, h, q, dk) * sd + mean)).to(wdtype)
     return r, k, v, logw, randn(h, dk) * 0.5, randn(b, h, dk, dv) * 0.3
 
 
@@ -439,21 +452,25 @@ def _row_rel(got, want):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,h,q,dk,dv", [
-    (2, 4, 256, 64, 64), (1, 3, 50, 64, 64), (3, 1, 7, 64, 64), (3, 1, 1, 64, 64),
-    (1, 2, 100, 16, 32), (2, 2, 32, 64, 64), (1, 1, 320, 64, 64), (2, 2, 129, 48, 64),
+@pytest.mark.parametrize("b,h,q,dk,dv,decay", [
+    (2, 4, 256, 64, 64, "model"), (1, 3, 50, 64, 64, "model"), (3, 1, 7, 64, 64, "model"),
+    (3, 1, 1, 64, 64, "model"), (1, 2, 100, 16, 32, "model"), (2, 2, 32, 64, 64, "model"),
+    (1, 1, 320, 64, 64, "model"), (2, 2, 129, 48, 64, "model"), (1, 2, 192, 64, 64, "model"),
+    (2, 1, 255, 64, 64, "model"), (2, 4, 256, 64, 64, "saturating"),
+    (2, 4, 256, 64, 64, "slow"),
 ])
 @pytest.mark.parametrize("dtype,wdtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
     (torch.bfloat16, torch.bfloat16),
 ])
-def test_cuda_wkv6_chunk_matches_plain(cuda, b, h, q, dk, dv, dtype, wdtype):
+def test_cuda_wkv6_chunk_matches_plain(cuda, b, h, q, dk, dv, decay, dtype, wdtype):
     """Kernel against the plain chunk form in f64 on the same inputs: each
     (head, row) of y to its own max, S_out to its max, 2e-4; identical bits
-    on repeat; one launch a call."""
+    on repeat; one launch a call. q = 192 and 255 end on a full and a ragged
+    tile; the two decay extremes saturate almost every pair, or none."""
     from repro_torch.kernels import wkv6_chunk as wkv
 
-    args = _wkv_inputs(b, h, q, dk, dv, dtype, wdtype, cuda)
+    args = _wkv_inputs(b, h, q, dk, dv, dtype, wdtype, cuda, decay=decay)
     before = kernels.launches()["wkv6_chunk"]
     y, s = wkv.wkv6_chunk(*args)
     torch.cuda.synchronize()

@@ -195,6 +195,78 @@ def test_caveat_e_is_the_same_in_both_packages():
 
 
 # ---------------------------------------------------------------------------
+# The CUDA kernel's 3xTF32 split, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+_TILE = 64
+
+
+def _tf32_parts(x):
+    """hi + lo of f32 ``x``, each truncated to TF32 (10 mantissa bits), as
+    the kernel's ``split_tf32``; a part below f32's normal range is flushed
+    to zero, the worst the tensor cores may do."""
+    keep = -8192  # 0xffffe000: sign, exponent and the top 10 mantissa bits
+    hi = (x.view(torch.int32) & keep).view(torch.float32)
+    lo = ((x - hi).view(torch.int32) & keep).view(torch.float32)
+    tiny = torch.finfo(torch.float32).tiny
+    return tuple(torch.where(p.abs() < tiny, torch.zeros_like(p), p) for p in (hi, lo))
+
+
+def _mm3(a, b):
+    """a @ b as three TF32 products (lo*hi + hi*lo + hi*hi); the products of
+    TF32 parts are exact in f64, summed there and rounded to f32 once."""
+    (ah, al), (bh, bl) = _tf32_parts(a), _tf32_parts(b)
+    d = torch.float64
+    return (al.to(d) @ bh.to(d) + ah.to(d) @ bl.to(d) + ah.to(d) @ bh.to(d)).float()
+
+
+def _kernel_form(r, k, v, logw, u, s0, scale):
+    """The CUDA kernel's decomposition in f32 with every product split as
+    above: 64-row tiles in order, y = R~ M_j + tril(R~ K~^T) V + bonus with
+    M_j = S_in + the earlier tiles' K~^T V, S_out = decayed S_in + the
+    tiles' K^^T V; R~ and K^ scaled by 2^58 and K~, M by 2^-58 when
+    ``scale``."""
+    up, down = (2.0 ** 58, 2.0 ** -58) if scale else (1.0, 1.0)
+    r, k, v, lw, s0 = (torch.from_numpy(np.asarray(a, np.float32)) for a in (r, k, v, logw, s0))
+    u = torch.from_numpy(u)
+    q = r.shape[-2]
+    cw = torch.cumsum(lw.double(), -2).float()
+    rt = r * (torch.exp(torch.clamp(cw - lw, -80, 0)) * up)
+    kt = k * (torch.exp(torch.clamp(-cw, -80, 80)) * down)
+    kh = k * (torch.exp(torch.clamp(cw[..., -1:, :] - cw, -80, 0)) * up)
+    m = s0 * down
+    acc = torch.zeros_like(s0)
+    ys = []
+    for t0 in range(0, q, _TILE):
+        tile = slice(t0, t0 + _TILE)
+        n = min(_TILE, q - t0)
+        below = torch.ones((n, n), dtype=torch.bool).tril(-1)
+        a = torch.where(below, _mm3(rt[..., tile, :], kt[..., tile, :].transpose(-1, -2)), 0.0)
+        ys.append(_mm3(rt[..., tile, :], m) + _mm3(a, v[..., tile, :]))
+        m = m + _mm3(kt[..., tile, :].transpose(-1, -2), v[..., tile, :])
+        acc = acc + _mm3(kh[..., tile, :].transpose(-1, -2), v[..., tile, :])
+    y = torch.cat(ys, -2) + torch.sum(r * u[:, None, :] * k, -1, keepdim=True) * v
+    s_out = s0 * torch.exp(torch.clamp(cw[..., -1, :], -80, 0))[..., None] + acc / up
+    return y.numpy(), s_out.numpy()
+
+
+def test_tf32_split_needs_the_rescale():
+    """B * H = 4, q = 256, the model's decay law, bf16 r/k/v as on the main
+    path: with the 2^+-58 rescale, the kernel's split products stay within
+    2e-4 row-relative of the chunk form in float64 (y and S_out); without
+    it, R~ near 2^-115 loses its lo part (or more) to the flush. The
+    unscaled error is printed, not held."""
+    args = _inputs(2, 2, 256, 64, 64, seed=21, dtype=jnp.bfloat16)
+    y64, s64 = _factored64(*args)
+    y, s = _kernel_form(*args, scale=True)
+    assert _row_rel(y, y64) <= 2e-4 and _state_rel(s, s64) <= 2e-4
+    y_raw, s_raw = _kernel_form(*args, scale=False)
+    print(f"3xTF32 with flushed subnormal parts, row-relative error of y against float64: "
+          f"{_row_rel(y, y64):.2e} rescaled, {_row_rel(y_raw, y64):.2e} unscaled "
+          f"(S_out {_state_rel(s, s64):.2e}, {_state_rel(s_raw, s64):.2e})")
+
+
+# ---------------------------------------------------------------------------
 # The wrapper: strided views, out, launches, refusals
 # ---------------------------------------------------------------------------
 
