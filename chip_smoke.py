@@ -29,19 +29,28 @@ Phases, each fatal on failure (exit code != 0, no result line):
    1,408,395 held-out ratings; users and movies drawn from popularity laws
    whose busiest user and movie hold about as many ratings as in the
    published data; values from a planted rank-10 matrix plus noise 0.1).
-7. Hold the COO matvec (both directions, on the residual's copies in the
+7. Build the MC state and print its wall time and its parts (device time
+   of the two stable sorts, of the rest of the orders' pieces, and of the
+   copies' record gather, from the profiler). Hold the state's eight sorted
+   copies and both orders' gather index to field[perm], bit for bit; time
+   the record gather that makes them (both orders) against its bound, the
+   random-access floor (one 32-byte sector per entry per order at the rate
+   of random sectors the one-field gather shows in the same run) and the
+   chain of four index_select calls per order; time the one-field gather.
+   Hold the COO matvec (both directions, on the residual's copies in the
    row and column orders) and the int8 quantize pair against their plain
-   versions at those shapes and at tiny odd ones, and time them; time the
-   gather that makes those copies when a state is built (bits identical to
-   resid[perm]); hold ``update_resid`` (the residual after a step, in caller,
-   row and column order from one launch) to the update's plain chain
-   followed by ``gather_sorted``, bit for bit, with gamma from the line
-   search and from the 2/(t+2) schedule and mu = 0, and time it against
-   that chain and gathers.
+   versions at those shapes and at odd ones (n = 15, 16, 17, 135,171; q one
+   byte off alignment), and time them (the quantize pair also by device
+   time); hold ``update_resid`` (the residual after a step, in caller, row
+   and column order from one launch) to the update's plain chain followed
+   by ``gather_sorted``, bit for bit, with gamma from the line search and
+   from the 2/(t+2) schedule and mu = 0, and time it against that chain and
+   gathers.
 8. Drive ``fit_serial`` for matrix completion (comm "dense", log schedule,
    line search, --mc-epochs): loss finite and non-increasing, held-out RMSE
-   below that of W = 0, launch counts as the path implies (six gathers per
-   state built, one update_resid per epoch, no gather in an epoch).
+   below that of W = 0, launch counts as the path implies (one record
+   gather per order and state built, one update_resid per epoch, no gather
+   in an epoch).
 9. The same with comm "int8" (--mc-int8-epochs): loss ends below its start,
    quantize and dequantize launched 2K times per epoch each.
 10. Small MC fits, dense and int8, on the card against the CPU with the same
@@ -145,6 +154,7 @@ import argparse
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -171,9 +181,11 @@ TPU_KERNEL = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:88",
     "wkv6_chunk": "src/repro/kernels/wkv6_chunk/kernel.py:61",
 }
-# Kernels of the port that replace no TPU kernel (no row in the kernels
-# line), with their own launch counts: the gather of an MC state's sorted
-# copies and the residual's update in each order.
+# Kernels of the port that replace no TPU kernel of their own, with their own
+# launch counts: the gather of an MC state's sorted copies and the residual's
+# update in each order. They serve the port's coo_matvec, which reads values
+# kept in each order's sorted order, so their rows in the kernels line name
+# its TPU kernel with "part_of".
 HELPER_KERNELS = ("gather_sorted", "update_resid")
 SOURCE = {
     "matvec": "src/repro_torch/csrc/power_matvec.cu",
@@ -186,6 +198,8 @@ SOURCE = {
     "factor_matvec": "src/repro_torch/csrc/factor_matvec.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "wkv6_chunk": "src/repro_torch/csrc/wkv6_chunk.cu",
+    "gather_sorted": "src/repro_torch/csrc/mc_matvec.cu",
+    "update_resid": "src/repro_torch/csrc/mc_matvec.cu",
 }
 # Memory rate (bytes/s), f32 non-tensor-core peak, bf16 dense tensor-core
 # peak and TF32 dense tensor-core peak (flop/s) of each part this script has
@@ -423,9 +437,10 @@ def expected_launches(kind: str, ks, verify: bool, comm: str = "dense"):
     (1 + 1), matrix completion G.v and G^T.u (2 coo_matvec); each dense-task
     epoch adds the update's X.u (and, for MTLS, the line search's) and one
     rank-1 update; each MC state built (the fit's, and verify_kernelized's)
-    gathers the residual, values and weights into the row and column orders
-    (6 gather_sorted), and each MC epoch's update writes the residual in all
-    three orders (1 update_resid). Under int8 every exchange (2 per iteration) is
+    gathers the residual, values, weights and gather index into the row and
+    the column order (2 gather_sorted, one record gather per order), and
+    each MC epoch's update writes the residual in all three orders (1
+    update_resid). Under int8 every exchange (2 per iteration) is
     one quantize and one dequantize. verify_kernelized runs one iteration's
     worth of matvecs before the fit, and verify_quantize_kernels one pair."""
     iters = sum(ks) + (1 if verify else 0)
@@ -433,7 +448,7 @@ def expected_launches(kind: str, ks, verify: bool, comm: str = "dense"):
     want = dict.fromkeys((*TPU_KERNEL, *HELPER_KERNELS), 0)
     if kind == "mc":
         want["coo_matvec"] = 2 * iters
-        want["gather_sorted"] = 6 * (1 + (1 if verify else 0))
+        want["gather_sorted"] = 2 * (1 + (1 if verify else 0))
         want["update_resid"] = e
     else:
         per_iter = 2 if kind == "mtls" else 1
@@ -474,9 +489,16 @@ def run_path(torch, kernels, dfw, kind, task, X, target, cfg, seed, dev):
 
 
 PORT_KERNELS = ("matvec_kernel", "rmatvec_partial_kernel", "rmatvec_finish_kernel",
-                "rank1_kernel", "piece_sum_kernel", "segment_sum_kernel", "gather_sorted_kernel",
-                "update_resid_kernel", "quantize_kernel", "dequantize_kernel",
-                "factor_matvec_kernel")
+                "rank1_kernel", "piece_sum_kernel", "segment_sum_kernel", "gather_word_kernel",
+                "pack_records_kernel", "gather_records_kernel", "update_resid_kernel",
+                "quantize_kernel", "dequantize_kernel", "factor_matvec_kernel")
+RECORD_KERNELS = ("pack_records_kernel", "gather_records_kernel")  # the state build's copies
+
+
+def is_kernel(part: str, key: str) -> bool:
+    """Whether the profiler's kernel name ``key`` is the kernel ``part`` (a
+    whole word: quantize_kernel is not dequantize_kernel)."""
+    return re.search(rf"\b{part}\b", key) is not None
 FLASH_KERNELS = ("flash_fwd_kernel", "flash_fwd_wgmma_kernel")  # the two routes
 
 
@@ -498,15 +520,16 @@ def profile_fit(torch, kind, run):
         if str(getattr(ev, "device_type", "")).endswith("CUDA"):
             kernels_us[ev.key] = kernels_us.get(ev.key, 0.0) + ev.self_device_time_total
             calls[ev.key] = calls.get(ev.key, 0) + ev.count
-    port = sum(t for k, t in kernels_us.items() if any(p in k for p in PORT_KERNELS))
+    port = sum(t for k, t in kernels_us.items() if any(is_kernel(p, k) for p in PORT_KERNELS))
     # device time per launch of each port kernel (the CUDA-event times of the
     # kernel phase include the host's launch overhead for short kernels)
-    per_launch_us = {p: (sum(t for k, t in kernels_us.items() if p in k)
-                         / max(1, sum(c for k, c in calls.items() if p in k)))
-                     for p in PORT_KERNELS if any(p in k for k in kernels_us)}
+    per_launch_us = {p: (sum(t for k, t in kernels_us.items() if is_kernel(p, k))
+                         / max(1, sum(c for k, c in calls.items() if is_kernel(p, k))))
+                     for p in PORT_KERNELS if any(is_kernel(p, k) for k in kernels_us)}
     # device time of each port kernel (for MC: the update's, update_resid,
     # apart from the plain passes of the loss and the line search in "other")
-    port_ms = {p: sum(t for k, t in kernels_us.items() if p in k) / 1e3 for p in per_launch_us}
+    port_ms = {p: sum(t for k, t in kernels_us.items() if is_kernel(p, k)) / 1e3
+               for p in per_launch_us}
     busy = sum(kernels_us.values())
     top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:10]
     out = dict(epochs=res.epochs_run, ks=res.history["k"], wall_ms=wall_us / 1e3,
@@ -642,18 +665,138 @@ def coo_bits_phase(torch, mc, tasks, dev, gen, args):
     return res
 
 
+def state_build_phase(torch, task, idx, yw):
+    """The MC state build: the wall time of ``init_state`` (host clock to a
+    sync), then a second build under torch.profiler for the device time of
+    its parts: the two stable sorts (the sort kernels), the copies' record
+    gathers (pack and gather, both orders) and the rest of the orders'
+    pieces (the range check, counts, prefix sums, piece tables, casts and
+    init_state's field copies). Returns the first state and the numbers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = task.init_state(idx, yw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = task.init_state(idx, yw)
+        torch.cuda.synchronize()
+    del again
+    ms = dict(sort_ms=0.0, pack_ms=0.0, gather_ms=0.0, other_ms=0.0)
+    for ev in prof.key_averages():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue
+        t = ev.self_device_time_total / 1e3
+        part = ("pack_ms" if is_kernel("pack_records_kernel", ev.key) else
+                "gather_ms" if is_kernel("gather_records_kernel", ev.key) else
+                "sort_ms" if "sort" in ev.key.lower() else "other_ms")
+        ms[part] += t
+    out = dict(wall_s=wall, copies_ms=ms["pack_ms"] + ms["gather_ms"], **ms)
+    out["device_ms"] = out["copies_ms"] + ms["sort_ms"] + ms["other_ms"]
+    print(f"mc state with its row and column orders built in {wall:.4f} s; device time of a "
+          f"second build {out['device_ms']:.3f} ms: the two sorts {ms['sort_ms']:.3f}, the "
+          f"copies' record gathers {out['copies_ms']:.3f} (pack {ms['pack_ms']:.3f}, gather "
+          f"{ms['gather_ms']:.3f}), the rest of the pieces {ms['other_ms']:.3f}")
+    return state, out
+
+
+def check_state_copies(torch, state, where):
+    """An MC state's six sorted copies (resid, vals, weight in the row and
+    the column order) and both orders' gat_sorted equal field[perm], bit for
+    bit (torch.equal)."""
+    fields = dict(resid=state.resid, vals=state.vals, weight=state.weight)
+    for tag, order, gat in (("row", state.by_row, state.cols), ("col", state.by_col, state.rows)):
+        perm64 = order.perm.long()
+        for name, t in fields.items():
+            check(torch.equal(getattr(state, f"{name}_by_{tag}"), t[perm64]),
+                  f"the state {where}: {name}_by_{tag} is not {name}[perm]")
+        check(torch.equal(order.gat_sorted, gat[perm64]),
+              f"the state {where}: the {tag} order's gat_sorted is not gat[perm]")
+        del perm64
+
+
+def record_gather_row(torch, mc, state, rows_out, reps, bw):
+    """The record gather of a state's copies, both orders (what
+    ``mc_state`` launches: resid, vals, weight and the order's gather index
+    per order), against field[perm] bit for bit, timed (CUDA events; the
+    pack's and the gather's device time from the profiler) beside its bound,
+    the random-access floor, the plain version and the chain of four
+    index_select calls per order (no one PyTorch call gathers four fields).
+    Bound: both orders read perm (8 bytes) and the five caller fields once
+    (20) and write 2 x 16 bytes: 60 bytes an entry. Random-access floor: one
+    32-byte sector per entry per order at the rate of random sectors of the
+    one-field gather rows in ``rows_out`` (p random 4-byte reads and 8
+    sequential bytes an entry), alone and with the record route's
+    sequential passes (per order: the pack reads 16 and writes 16 bytes an
+    entry, the gather reads perm and writes 16)."""
+    p = state.resid.numel()
+    orders = ((state.by_row, state.cols), (state.by_col, state.rows))
+
+    def fields(gat):
+        return (state.resid, state.vals, state.weight, gat)
+
+    def records():
+        return [mc.gather_sorted_fields(order, fields(gat)) for order, gat in orders]
+
+    got = records()
+    torch.cuda.synchronize()
+    for (order, gat), copies in zip(orders, got):
+        perm64 = order.perm.long()
+        for name, t, c in zip(("resid", "vals", "weight", "gat"), fields(gat), copies):
+            check(torch.equal(c, t[perm64]), f"the record gather's {name} is not {name}[perm]")
+    del got, perm64
+    perms = [order.perm.long() for order, _ in orders]
+
+    def chain():
+        return [[torch.index_select(t, 0, pm) for t in fields(gat)]
+                for pm, (_, gat) in zip(perms, orders)]
+
+    def plain():
+        return [[mc.ref.gather_sorted(order.perm, t) for t in fields(gat)] for order, gat in orders]
+
+    one_ms = statistics.mean(r["ms"] for r in rows_out if r["name"] == "gather_sorted")
+    sector_rate = p / ((one_ms - 1e3 * 8 * p / bw) / 1e3)
+    nbytes = 60 * p
+    row = dict(name="gather_sorted", main=True,
+               operand="resid, vals, weight, gat -> row and column order (a state's copies)",
+               shape=[p], max_abs_err=0.0, max_rel_err=0.0, bits_identical=True,
+               ms=time_ms(torch, records, reps),
+               device_pack_ms=device_ms(torch, records, "pack_records_kernel", n=5),
+               device_gather_ms=device_ms(torch, records, "gather_records_kernel", n=5),
+               plain_ms=time_ms(torch, plain, reps), library_ms=None,
+               library_chain_ms=time_ms(torch, chain, reps),
+               bound_ms=1e3 * nbytes / bw, bound_by="bytes", bytes=nbytes,
+               random_sectors_per_s=sector_rate, random_floor_ms=1e3 * 2 * p / sector_rate,
+               random_floor_with_passes_ms=1e3 * (2 * p / sector_rate + 2 * 52 * p / bw))
+    del perms
+    print(f"kernel gather_sorted, record gather of both orders ({p} entries, 4 fields): "
+          f"{row['ms']:.3f} ms (device: pack {fmt_ms(row['device_pack_ms'])}, gather "
+          f"{fmt_ms(row['device_gather_ms'])}; plain {row['plain_ms']:.3f}, index_select chain "
+          f"{row['library_chain_ms']:.3f}, bound {row['bound_ms']:.3f}, random-access floor "
+          f"{row['random_floor_ms']:.3f} at {sector_rate:.4g} random sectors/s, with the "
+          f"sequential passes {row['random_floor_with_passes_ms']:.3f}), bits identical to "
+          f"field[perm]")
+    return row
+
+
 def mc_kernel_phase(torch, mc, qz, dev, state, gen, reps, peaks):
     """coo_matvec (G.v along the row order, G^T.u along the column order, on
     the residual's copies in those orders) and the quantize pair against
     their plain versions at the MC shapes and at tiny odd shapes; times of
-    kernel, plain version and library call; the time of the gather that
-    builds the copies with a state, against its bound, and its bits against
-    resid[perm]."""
+    kernel, plain version and library call (the quantize pair also by
+    device time); the state's sorted copies and gather indices against
+    field[perm], bit for bit, and the time of the record gather that builds
+    them (both orders) against its bound, the random-access floor and the
+    index_select chain; the one-field gather's time and bits."""
     bw, flops = peaks[:2]
     d, m = state.by_row.out_dim, state.by_col.out_dim
     p = state.resid.numel()
     vals = state.resid
     rows_out = []
+    check_state_copies(torch, state, f"at {d} x {m}, {p} entries")
+    print("the state's eight sorted copies and both orders' gat_sorted are field[perm], bit "
+          "for bit")
     for label, order, sorted_vals, seg, gat, in_dim in (
             ("G.v", state.by_row, state.resid_by_row, state.rows, state.cols, m),
             ("G^T.u", state.by_col, state.resid_by_col, state.cols, state.rows, d)):
@@ -710,6 +853,8 @@ def mc_kernel_phase(torch, mc, qz, dev, state, gen, reps, peaks):
               f"{err_rel:.2e} (cuSPARSE {lib_err:.2e}), bit-stable")
         del csr, got, want
 
+    rows_out.append(record_gather_row(torch, mc, state, rows_out, reps, bw))
+
     for label, n in (("u", d), ("v", m)):
         x = torch.randn(n, generator=gen, device=dev)
         noise = torch.rand(n, generator=gen, device=dev)
@@ -729,13 +874,15 @@ def mc_kernel_phase(torch, mc, qz, dev, state, gen, reps, peaks):
         ):
             row = dict(name=name, operand=f"{label} ({n},)", shape=[n], max_abs_err=0.0,
                        max_rel_err=0.0, ms=time_ms(torch, kfn, reps),
+                       device_ms=device_ms(torch, kfn, f"{name}_kernel"),
                        plain_ms=time_ms(torch, pfn, reps), library_ms=None,
                        bound_ms=1e3 * max(nbytes / bw, 4 * n / flops),
                        bound_by="bytes" if nbytes / bw >= 4 * n / flops else "operations",
                        bytes=nbytes)
             rows_out.append(row)
-            print(f"kernel {name} {label} ({n},): {row['ms']:.4f} ms (plain "
-                  f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.5f}), bit-identical")
+            print(f"kernel {name} {label} ({n},): {row['ms']:.4f} ms, device "
+                  f"{fmt_ms(row['device_ms'], 5)} ms (plain {row['plain_ms']:.4f}, bound "
+                  f"{row['bound_ms']:.5f}), bit-identical")
 
     # tiny odd shapes: empty segments, one-entry and multi-piece segments,
     # zero-weight padding (exactly the same bits with and without it)
@@ -758,7 +905,7 @@ def mc_kernel_phase(torch, mc, qz, dev, state, gen, reps, peaks):
             padded_vals = torch.cat([vv, torch.zeros(5, device=dev)])
             check(torch.equal(mc.coo_matvec(padded, mc.gather_sorted(padded, padded_vals), x),
                               got), f"coo_matvec at {od}x{idim}: padding changed bits")
-    for n in (1, 37, 1000):
+    for n in (1, 15, 16, 17, 37, 1000, 135_171):
         for b in (1, 15, 127):
             x = torch.randn(n, generator=gen, device=dev)
             grid = (torch.arange(n, device=dev) % (2 * b + 1) - b).float() * (2.5 / b)
@@ -767,13 +914,17 @@ def mc_kernel_phase(torch, mc, qz, dev, state, gen, reps, peaks):
                            (grid, torch.zeros(n, device=dev)), (grid, torch.full((n,), 0.5,
                                                                                   device=dev))):
                 q = qz.quantize(xs, ns, scale, budget=b)
+                q_off = torch.empty(n + 1, dtype=torch.int8, device=dev)[1:]  # one byte off
+                q_off.copy_(q)
                 check(torch.equal(q, qz.ref.quantize(xs, ns, scale, b))
                       and torch.equal(qz.dequantize(q, scale, budget=b),
+                                      qz.ref.dequantize(q, scale, b))
+                      and torch.equal(qz.dequantize(q_off, scale, budget=b),
                                       qz.ref.dequantize(q, scale, b)),
                       f"quantize pair at n={n}, budget={b} differs from its plain version")
     print("coo_matvec matches its plain version at full and odd shapes, bit-stable, padding "
           "changes no bit; gather_sorted is vals[perm] bit for bit; quantize/dequantize "
-          "bit-identical to their plain versions")
+          "bit-identical to their plain versions (odd n, q aligned and one byte off)")
     return rows_out
 
 
@@ -838,9 +989,11 @@ def update_resid_phase(torch, mc, tasks, dev, state, mu, gen, reps, peaks):
         w = (torch.rand(pp, generator=gen, device=dev) < 0.8).float()
         st = tasks.mc_state(r, c, torch.randn(pp, generator=gen, device=dev),
                             w * torch.randn(pp, generator=gen, device=dev), w, dd, mm)
+        check_state_copies(torch, st, f"at {dd} x {mm}, {pp} entries")
         held(st, unit(dd), unit(mm), f"at {dd} x {mm}, {pp} entries")
     print("update_resid gives the chain's bits followed by gather_sorted in all three orders, "
-          "at the full and the odd shapes, gamma from both sources, mu and 0")
+          "at the full and the odd shapes, gamma from both sources, mu and 0; the odd shapes' "
+          "states hold their copies and gather indices as field[perm], bit for bit")
     return [row]
 
 
@@ -953,18 +1106,27 @@ SERVE_D, SERVE_M, SERVE_BATCH, SERVE_BLOCK = PAPER_D, PAPER_M, 64, 32
 
 def device_ms(torch, fn, name="", n=20):
     """Device time per call of ``fn`` (torch.profiler): the kernels whose name
-    holds ``name`` (every kernel for ""), summed over n calls, over n."""
+    holds ``name`` (every kernel for ""), summed over n calls, over n; None
+    if two profiles in a row recorded none of them."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(ev.self_device_time_total for ev in prof.key_averages()
-                if str(getattr(ev, "device_type", "")).endswith("CUDA") and name in ev.key)
-    return total / n / 1e3 if total else None
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(ev.self_device_time_total for ev in prof.key_averages()
+                    if str(getattr(ev, "device_type", "")).endswith("CUDA") and name in ev.key)
+        if total:
+            return total / n / 1e3
+    return None
+
+
+def fmt_ms(x, digits=4):
+    """A device time for a log line: "not measured" where the profiler gave none."""
+    return "not measured" if x is None else f"{x:.{digits}f}"
 
 
 def factor_kernel_phase(torch, fm, _build, dev, gen, reps, peaks):
@@ -2214,13 +2376,10 @@ def main(argv=None) -> int:
               f"ratings made in {report['mc_data']['made_s']:.1f} s; {report['mc_data']}")
         mc_task = tasks.MatrixCompletion(NF_D, NF_M)
 
-        # 7. COO matvec and the quantize pair against their plain versions
-        t0 = time.perf_counter()
-        state = mc_task.init_state(idx, yw)
-        torch.cuda.synchronize()
-        report["mc_init_state_s"] = time.perf_counter() - t0
-        print(f"mc state with its row and column orders built in "
-              f"{report['mc_init_state_s']:.2f} s")
+        # 7. the state build; COO matvec, the copies' gathers and the quantize
+        # pair against their plain versions
+        state, report["mc_state_build"] = state_build_phase(torch, mc_task, idx, yw)
+        report["mc_init_state_s"] = report["mc_state_build"]["wall_s"]
         krows += mc_kernel_phase(torch, mc, qz, dev, state, gen, args.reps, peaks)
         krows += update_resid_phase(torch, mc, tasks, dev, state, mu, gen, args.reps, peaks)
         del state
@@ -2348,12 +2507,14 @@ def main(argv=None) -> int:
     out = []
     paths = (mtls_launch, log_launch, mc_launch, mc8_launch, fit12_launch, serve_launch,
              prefill_launch, decode_launch, ssm_prefill_launch, ssm_decode_launch)
-    for kname in TPU_KERNEL:
+    for kname in (*TPU_KERNEL, *HELPER_KERNELS):
         rows = [r for r in krows if r["name"] == kname]
         main_row = next((r for r in rows if r.get("main")), None) or max(
             rows, key=lambda r: r["bytes"])
+        helper = {} if kname in TPU_KERNEL else {"part_of": "coo_matvec"}
         out.append(dict(
-            name=kname, route="cuda", source=SOURCE[kname], replaces=TPU_KERNEL[kname],
+            name=kname, route="cuda", source=SOURCE[kname],
+            replaces=TPU_KERNEL[kname if kname in TPU_KERNEL else "coo_matvec"], **helper,
             launches=sum(path[kname] for path in paths),
             max_abs_err=main_row["max_abs_err"], max_rel_err=main_row["max_rel_err"],
             ms=main_row["ms"], plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
@@ -2362,7 +2523,8 @@ def main(argv=None) -> int:
             by_operand={r["operand"]: {k: r[k] for k in (
                 "shape", "ms", "plain_ms", "library_ms", "library_rel_err", "library_chain_ms",
                 "library_ratio", "exact_ms", "bound_ms", "bound_f32_cores_ms", "bound_by",
-                "max_rel_err") if k in r}
+                "max_rel_err", "device_ms", "random_floor_ms", "random_floor_with_passes_ms")
+                if k in r}
                 for r in rows},
         ))
     report["kernels"] = krows

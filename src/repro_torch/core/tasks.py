@@ -230,11 +230,14 @@ class MCState(NamedTuple):
 def mc_state(rows, cols, vals, resid, weight, d: int, m: int) -> MCState:
     """An ``MCState`` with its row and column orders (for a d x m matrix)
     and the residual's, values' and weights' copies in each, built from the
-    caller-order fields (six ``gather_sorted`` launches)."""
-    by_row, by_col = mc_ops.build_order(rows, cols, d, m), mc_ops.build_order(cols, rows, m, d)
-    sorted_copies = {f"{name}_by_{tag}": mc_ops.gather_sorted(order, t)
-                     for tag, order in (("row", by_row), ("col", by_col))
-                     for name, t in (("resid", resid), ("vals", vals), ("weight", weight))}
+    caller-order fields: per order one sort and one record gather, which
+    gives the three copies and the order's ``gat_sorted`` together."""
+    fields = (resid, vals, weight)
+    by_row, row_copies = mc_ops.build_order_with_copies(rows, cols, d, m, fields)
+    by_col, col_copies = mc_ops.build_order_with_copies(cols, rows, m, d, fields)
+    sorted_copies = {f"{name}_by_{tag}": t
+                     for tag, copies in (("row", row_copies), ("col", col_copies))
+                     for name, t in zip(("resid", "vals", "weight"), copies)}
     return MCState(rows=rows, cols=cols, vals=vals, resid=resid, weight=weight, by_row=by_row,
                    by_col=by_col, **sorted_copies)
 

@@ -34,9 +34,8 @@
 //   bytes the bound counts, and gathers only x (G v: 71 KB of v; G^T u: 1.9
 //   MB of u, both from L2). A random read through `perm` on every call kept
 //   the first version of this kernel at 7% of its bound.
-// - The copies are made once per state by gather_sorted_kernel
-//   (vals_sorted[k] = vals[perm[k]], a random 4-byte read per entry, each its
-//   own 32-byte sector) and never gathered again: the residual changes once
+// - The copies are made once per state (see the record gather below) and
+//   never gathered again: the residual changes once
 //   per epoch by an elementwise step (update_resid_kernel, below), which
 //   writes it in caller order and in each sorted order from the state's
 //   values and weights kept in that order, with sequential reads. Its bound
@@ -94,23 +93,95 @@ segment_sum_kernel(const float* __restrict__ partial, const int64_t* __restrict_
   out[seg] = acc;
 }
 
-// dst[k] = src[perm[k]], four entries a thread (16-byte loads of perm and
-// stores of dst where `vec`).
+// The record gather: the sorted copies dst_f[k] = src_f[perm[k]] of F
+// caller-order 4-byte fields (f32 or int32 words; a state's residual,
+// values, weights and the order's gather index) for one order.
+//
+// Bound: bytes, but the reads through perm are random: each lands in its own
+// 32-byte sector of an array far larger than L2, so a random sector costs
+// what 32 bytes do whatever is used of it. Gathering the fields one at a time
+// paid that sector once per field (four per entry per order); here a first,
+// sequential pass packs each entry's fields into one 16-byte record in caller
+// order (records[i] = {src_0[i], ..., src_{F-1}[i]}), and the gather fetches
+// an entry's whole record with one 16-byte load: one random sector per entry,
+// plus the perm and the stores, both sequential. Each thread takes four sorted
+// entries: one 16-byte load of perm, four record loads in flight, and one
+// 16-byte store per field (the four entries' words of that field). The
+// records are scratch of 16 bytes an entry (the caller's), used for one order
+// and freed by the caller. A copy's bits; no atomics. With F = 1 there is
+// nothing to pack: the gather reads the field itself.
+struct Fields {
+  const uint32_t* src[4];
+  uint32_t* dst[4];
+};
+
+template <int F>
 __global__ void __launch_bounds__(kThreads)
-gather_sorted_kernel(const int32_t* __restrict__ perm, const float* __restrict__ src,
-                     float* __restrict__ dst, int64_t n, int vec) {
+pack_records_kernel(Fields f, uint4* __restrict__ records, int64_t n) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n) return;
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int j = 0; j < F; ++j) w[j] = __ldcs(f.src[j] + i);
+  records[i] = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Four sorted entries a thread (16-byte loads of perm and stores of each
+// field where `vec`; a scalar path for the tail and unaligned arrays).
+template <int F>
+__global__ void __launch_bounds__(kThreads)
+gather_records_kernel(const int32_t* __restrict__ perm, const uint4* __restrict__ records,
+                      Fields f, int64_t n, int vec) {
   const int64_t k = 4 * (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x);
   if (k >= n) return;
   if (vec && k + 4 <= n) {
     const int4 idx = __ldcs(reinterpret_cast<const int4*>(perm + k));
-    const float4 val = make_float4(__ldg(src + idx.x), __ldg(src + idx.y), __ldg(src + idx.z),
-                                   __ldg(src + idx.w));
-    __stcs(reinterpret_cast<float4*>(dst + k), val);
+    const uint4 a = __ldg(records + idx.x);
+    const uint4 b = __ldg(records + idx.y);
+    const uint4 c = __ldg(records + idx.z);
+    const uint4 d = __ldg(records + idx.w);
+    __stcs(reinterpret_cast<uint4*>(f.dst[0] + k), make_uint4(a.x, b.x, c.x, d.x));
+    if (F > 1) __stcs(reinterpret_cast<uint4*>(f.dst[1] + k), make_uint4(a.y, b.y, c.y, d.y));
+    if (F > 2) __stcs(reinterpret_cast<uint4*>(f.dst[2] + k), make_uint4(a.z, b.z, c.z, d.z));
+    if (F > 3) __stcs(reinterpret_cast<uint4*>(f.dst[3] + k), make_uint4(a.w, b.w, c.w, d.w));
+  } else {
+    for (int64_t j = k; j < n && j < k + 4; ++j) {
+      const uint4 r = __ldg(records + __ldcs(perm + j));
+      f.dst[0][j] = r.x;
+      if (F > 1) f.dst[1][j] = r.y;
+      if (F > 2) f.dst[2][j] = r.z;
+      if (F > 3) f.dst[3][j] = r.w;
+    }
+  }
+}
+
+// F = 1: dst[k] = src[perm[k]], four entries a thread, as above.
+__global__ void __launch_bounds__(kThreads)
+gather_word_kernel(const int32_t* __restrict__ perm, const uint32_t* __restrict__ src,
+                   uint32_t* __restrict__ dst, int64_t n, int vec) {
+  const int64_t k = 4 * (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x);
+  if (k >= n) return;
+  if (vec && k + 4 <= n) {
+    const int4 idx = __ldcs(reinterpret_cast<const int4*>(perm + k));
+    __stcs(reinterpret_cast<uint4*>(dst + k),
+           make_uint4(__ldg(src + idx.x), __ldg(src + idx.y), __ldg(src + idx.z),
+                      __ldg(src + idx.w)));
   } else {
     for (int64_t j = k; j < n && j < k + 4; ++j) dst[j] = __ldg(src + __ldcs(perm + j));
   }
 }
 
+template <int F>
+cudaError_t launch_record_gather(const int32_t* perm, const Fields& f, uint4* records, int64_t n,
+                                 int vec, cudaStream_t s) {
+  pack_records_kernel<F><<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0,
+                           s>>>(f, records, n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gather_records_kernel<F><<<static_cast<unsigned>((n + 4 * kThreads - 1) / (4 * kThreads)),
+                             kThreads, 0, s>>>(perm, records, f, n, vec);
+  return cudaGetLastError();
+}
 
 // One order's sorted copies for update_resid_kernel. Piece j covers sorted
 // positions piece_start[j]:piece_end[j] of segment piece_seg[j]; the entry
@@ -227,17 +298,35 @@ int mc_coo_matvec_f32(const int32_t* gat, const float* vals, const float* x,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dst (n,) = src[perm] (n >= 1).
-int mc_gather_sorted_f32(const int32_t* perm, const float* src, float* dst, int64_t n,
-                         int device, void* stream) {
+// dst_f (n,) = src_f[perm] for the first `fields` (1 to 4) of src and dst,
+// 4-byte words each; records is (n,) 16-byte scratch, unused for one field.
+// n >= 1.
+int mc_gather_sorted(const int32_t* perm, int fields, const void* s0, const void* s1,
+                     const void* s2, const void* s3, void* d0, void* d1, void* d2, void* d3,
+                     void* records, int64_t n, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int vec = reinterpret_cast<uintptr_t>(perm) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(dst) % 16 == 0;
-  const int64_t blocks = (n + 4 * kThreads - 1) / (4 * kThreads);
-  gather_sorted_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(perm, src, dst, n, vec);
-  return static_cast<int>(cudaGetLastError());
+  if (fields < 1 || fields > 4) return static_cast<int>(cudaErrorInvalidValue);
+  const Fields f{{static_cast<const uint32_t*>(s0), static_cast<const uint32_t*>(s1),
+                  static_cast<const uint32_t*>(s2), static_cast<const uint32_t*>(s3)},
+                 {static_cast<uint32_t*>(d0), static_cast<uint32_t*>(d1),
+                  static_cast<uint32_t*>(d2), static_cast<uint32_t*>(d3)}};
+  uintptr_t align = reinterpret_cast<uintptr_t>(perm);
+  for (int j = 0; j < fields; ++j) align |= reinterpret_cast<uintptr_t>(f.dst[j]);
+  const int vec = align % 16 == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint4* rec = static_cast<uint4*>(records);
+  switch (fields) {
+    case 1:
+      gather_word_kernel<<<static_cast<unsigned>((n + 4 * kThreads - 1) / (4 * kThreads)),
+                           kThreads, 0, s>>>(perm, f.src[0], f.dst[0], n, vec);
+      err = cudaGetLastError();
+      break;
+    case 2: err = launch_record_gather<2>(perm, f, rec, n, vec, s); break;
+    case 3: err = launch_record_gather<3>(perm, f, rec, n, vec, s); break;
+    default: err = launch_record_gather<4>(perm, f, rec, n, vec, s); break;
+  }
+  return static_cast<int>(err);
 }
 
 // The matrix-completion residual after a step: out (p,) in caller order from

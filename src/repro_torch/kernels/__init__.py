@@ -17,6 +17,7 @@ WRAPPERS = {
     "rank1_update": rank1_update.ops.rank1_update,
     "rank1_update_axpy": rank1_update.ops.rank1_update_axpy,
     "coo_matvec": mc_matvec.ops.coo_matvec,
+    # one a call: a one-field gather, or an order's copies when a state is built
     "gather_sorted": mc_matvec.ops.gather_sorted,
     "update_resid": mc_matvec.ops.update_resid,
     "quantize": quantize.ops.quantize,

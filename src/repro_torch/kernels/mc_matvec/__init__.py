@@ -1,5 +1,6 @@
 from . import kernel, ops, ref
-from .ops import SegmentOrder, build_order, coo_matvec, gather_sorted, update_resid
+from .ops import (SegmentOrder, build_order, build_order_with_copies, coo_matvec, gather_sorted,
+                  gather_sorted_fields, update_resid)
 
-__all__ = ["kernel", "ops", "ref", "SegmentOrder", "build_order", "coo_matvec", "gather_sorted",
-           "update_resid"]
+__all__ = ["kernel", "ops", "ref", "SegmentOrder", "build_order", "build_order_with_copies",
+           "coo_matvec", "gather_sorted", "gather_sorted_fields", "update_resid"]

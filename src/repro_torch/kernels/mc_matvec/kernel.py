@@ -22,8 +22,8 @@ def _library():
         lib = _build.library("mc_matvec")
         lib.mc_coo_matvec_f32.argtypes = [_P] * 8 + [_I64, _I64, _I, _P]
         lib.mc_coo_matvec_f32.restype = ctypes.c_int
-        lib.mc_gather_sorted_f32.argtypes = [_P] * 3 + [_I64, _I, _P]
-        lib.mc_gather_sorted_f32.restype = ctypes.c_int
+        lib.mc_gather_sorted.argtypes = [_P, _I] + [_P] * 9 + [_I64, _I, _P]
+        lib.mc_gather_sorted.restype = ctypes.c_int
         lib.mc_update_resid_f32.argtypes = (
             [_P, ctypes.c_float] + [_P] * 8 + [_I64] + ([_P] * 8 + [_I64]) * 2 + [_I, _P])
         lib.mc_update_resid_f32.restype = ctypes.c_int
@@ -50,12 +50,16 @@ def coo_matvec(order, vals_sorted: torch.Tensor, x: torch.Tensor, partial: torch
     ))
 
 
-def gather_sorted(order, vals: torch.Tensor, out: torch.Tensor) -> None:
-    """out (p,) = vals[order.perm]."""
+def gather_sorted(perm: torch.Tensor, fields, outs, records) -> None:
+    """outs[f] (p,) = fields[f][perm] for 1 to 4 fields of 4-byte words;
+    ``records`` is (p, 4) int32 scratch (None for one field)."""
     lib = _library()
-    _raise(lib, "gather_sorted", lib.mc_gather_sorted_f32(
-        order.perm.data_ptr(), vals.data_ptr(), out.data_ptr(), out.numel(),
-        vals.device.index, torch.cuda.current_stream(vals.device).cuda_stream,
+    n = len(fields)
+    src = [t.data_ptr() for t in fields] + [None] * (4 - n)
+    dst = [t.data_ptr() for t in outs] + [None] * (4 - n)
+    _raise(lib, "gather_sorted", lib.mc_gather_sorted(
+        perm.data_ptr(), n, *src, *dst, None if records is None else records.data_ptr(),
+        perm.numel(), perm.device.index, torch.cuda.current_stream(perm.device).cuda_stream,
     ))
 
 

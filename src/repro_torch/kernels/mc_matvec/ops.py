@@ -8,14 +8,19 @@ order (``vals[order.perm]``), and ``coo_matvec(order, vals_sorted, x)`` is
 ``out[seg_e] += vals_e * x[gat_e]`` from values in that sorted order: G v
 with the row order, G^T u with the column order. The values change less
 often than they are read (the matrix-completion residual: once per epoch,
-read 2K times), so the caller keeps the sorted copy. It gathers it once;
-``update_resid`` then writes the matrix-completion residual after each step
-in caller order and in each order's sorted order at once, from values and
-weights kept in those orders, so the copies are never gathered again. CPU
-tensors take the plain versions (``ref.py``: the segment sum over the
-sorted order, the gather, the update's chain); CUDA tensors launch the
-hand-written kernels (``csrc/mc_matvec.cu``) or raise. Each wrapper counts
-its kernel launches in ``.launches``.
+read 2K times), so the caller keeps the sorted copies. It gathers them once,
+with the order: ``build_order_with_copies(seg, gat, out_dim, in_dim,
+fields)`` sorts and gathers the fields and the order's ``gat_sorted`` in one
+record gather (each entry's fields packed into one 16-byte record, fetched
+by one random read). ``update_resid`` then writes the matrix-completion
+residual after each step in caller order and in each order's sorted order
+at once, from values and weights kept in those orders, so the copies are
+never gathered again. CPU tensors take the plain versions (``ref.py``: the
+segment sum over the sorted order, the gather, the update's chain); CUDA
+tensors launch the hand-written kernels (``csrc/mc_matvec.cu``) or raise.
+Each wrapper counts its kernel launches in ``.launches``; the gather's count
+is ``gather_sorted.launches``, one per call of either gather (an order's
+copies: its pack and its gather).
 """
 from __future__ import annotations
 
@@ -78,13 +83,9 @@ def _index(t: torch.Tensor, name: str) -> torch.Tensor:
     return t.contiguous()
 
 
-def build_order(seg: torch.Tensor, gat: torch.Tensor, out_dim: int, in_dim: int) -> SegmentOrder:
-    """The segment-sorted order of entries (seg_e, gat_e), on their device,
-    cut into pieces of at most ``PIECE`` entries.
-
-    Checks the indices against ``[0, out_dim)`` and ``[0, in_dim)`` (one
-    host read), since the kernel would read out of bounds otherwise.
-    """
+def _sorted_order(seg: torch.Tensor, gat: torch.Tensor, out_dim: int, in_dim: int) -> dict:
+    """The fields of a ``SegmentOrder`` but ``gat_sorted``: the checks, the
+    stable sort and the pieces."""
     seg, gat = _index(seg, "seg"), _index(gat, "gat")
     if seg.shape != gat.shape:
         raise ValueError(f"seg {tuple(seg.shape)} and gat {tuple(gat.shape)} differ in shape")
@@ -113,27 +114,89 @@ def build_order(seg: torch.Tensor, gat: torch.Tensor, out_dim: int, in_dim: int)
     local = torch.arange(num_pieces, device=dev) - piece_ptr[piece_seg]
     piece_start = seg_ptr[piece_seg] + local * piece
     piece_end = torch.minimum(piece_start + piece, seg_ptr[piece_seg + 1])
-    return SegmentOrder(
-        seg=seg, gat=gat, perm=perm.to(torch.int32), gat_sorted=gat[perm],
-        seg_ptr=seg_ptr, piece_start=piece_start, piece_end=piece_end,
-        piece_ptr=piece_ptr, piece_seg=piece_seg, in_dim=int(in_dim),
-    )
+    return dict(seg=seg, gat=gat, perm=perm.to(torch.int32), seg_ptr=seg_ptr,
+                piece_start=piece_start, piece_end=piece_end, piece_ptr=piece_ptr,
+                piece_seg=piece_seg, in_dim=int(in_dim))
+
+
+def build_order(seg: torch.Tensor, gat: torch.Tensor, out_dim: int, in_dim: int) -> SegmentOrder:
+    """The segment-sorted order of entries (seg_e, gat_e), on their device,
+    cut into pieces of at most ``PIECE`` entries.
+
+    Checks the indices against ``[0, out_dim)`` and ``[0, in_dim)`` (one
+    host read), since the kernel would read out of bounds otherwise.
+    """
+    f = _sorted_order(seg, gat, out_dim, in_dim)
+    return SegmentOrder(gat_sorted=f["gat"][f["perm"].long()], **f)
+
+
+def build_order_with_copies(
+    seg: torch.Tensor, gat: torch.Tensor, out_dim: int, in_dim: int,
+    fields: Sequence[torch.Tensor],
+) -> Tuple[SegmentOrder, Tuple[torch.Tensor, ...]]:
+    """``build_order`` and the sorted copies ``field[order.perm]`` of one to
+    three caller-order fields (float32 or int32, (p,) each) from one record
+    gather, which also gives the order's ``gat_sorted``: each entry costs one
+    random read, not one per field. On CUDA the gather uses 16 bytes an entry
+    of scratch, freed before return. -> ``(order, copies)``."""
+    if not 1 <= len(fields) <= 3:
+        raise ValueError(f"one to three fields, got {len(fields)}")
+    seg = _index(seg, "seg")
+    _check_fields(seg.numel(), seg.device, fields)
+    f = _sorted_order(seg, gat, out_dim, in_dim)
+    *copies, gat_sorted = _gather(f["perm"], (*fields, f["gat"]))
+    return SegmentOrder(gat_sorted=gat_sorted, **f), tuple(copies)
+
+
+def _check_fields(p: int, device: torch.device, fields) -> None:
+    for i, t in enumerate(fields):
+        name = f"fields[{i}]"
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+        if t.dtype not in (torch.float32, torch.int32):
+            raise TypeError(f"{name} must be float32 or int32, got {t.dtype}")
+        if t.shape != (p,):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected ({p},)")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        _checks.same_device(device, **{name: t})
+
+
+def _gather(perm: torch.Tensor, fields) -> list:
+    """``[t[perm] for t in fields]`` for one to four checked (p,) float32 or
+    int32 fields on perm's device: one call of the kernel (for more than one
+    field its pack and its gather), one count in ``gather_sorted.launches``."""
+    if not _checks.kernel_device(perm.device, "gather_sorted"):
+        return [ref.gather_sorted(perm, t) for t in fields]
+    p = perm.numel()
+    outs = [torch.empty(p, dtype=t.dtype, device=perm.device) for t in fields]
+    if p == 0:
+        return outs
+    records = (torch.empty((p, 4), dtype=torch.int32, device=perm.device)
+               if len(fields) > 1 else None)
+    kernel.gather_sorted(perm, fields, outs, records)
+    gather_sorted.launches += 1
+    return outs
 
 
 def gather_sorted(order: SegmentOrder, vals: torch.Tensor) -> torch.Tensor:
     """``vals[order.perm]``: values in the caller's entry order, copied into
-    the order's sorted order (what :func:`coo_matvec` reads) -> (p,) float32."""
-    p = order.perm.numel()
-    vals = _checks.vector_f32(vals, "vals", p)
+    the order's sorted order (what :func:`coo_matvec` reads) -> (p,) float32;
+    the one-field case of the record gather."""
+    vals = _checks.vector_f32(vals, "vals", order.perm.numel())
     _checks.same_device(order.device, vals=vals)
-    if not _checks.kernel_device(vals.device, "gather_sorted"):
-        return ref.gather_sorted(order.perm, vals)
-    out = torch.empty(p, dtype=torch.float32, device=vals.device)
-    if p == 0:
-        return out
-    kernel.gather_sorted(order, vals, out)
-    gather_sorted.launches += 1
-    return out
+    return _gather(order.perm, (vals,))[0]
+
+
+def gather_sorted_fields(order: SegmentOrder, fields: Sequence[torch.Tensor]
+                         ) -> Tuple[torch.Tensor, ...]:
+    """``field[order.perm]`` for one to four caller-order fields (float32 or
+    int32, (p,) each) by one record gather, as ``build_order_with_copies``
+    makes them."""
+    if not 1 <= len(fields) <= 4:
+        raise ValueError(f"one to four fields, got {len(fields)}")
+    _check_fields(order.perm.numel(), order.device, fields)
+    return tuple(_gather(order.perm, fields))
 
 
 def coo_matvec(order: SegmentOrder, vals_sorted: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -161,6 +161,52 @@ def test_cuda_gather_sorted_is_vals_perm_bit_for_bit(cuda, p):
         assert torch.equal(got, vals[order.perm.long()])
 
 
+def _offset(t, words):
+    """A copy of t (contiguous) whose data starts ``words`` 4-byte words past
+    a 16-byte boundary."""
+    buf = torch.empty(t.numel() + words, dtype=t.dtype, device=t.device)
+    out = buf[words:]
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [1, 3, 4, 5, 4097, 2**20 + 3])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_cuda_record_gather_is_field_perm_bit_for_bit(cuda, p, offset):
+    """The record gather (a state's copies: pack, then one 16-byte record
+    read per entry) gives field[perm] bit for bit for f32 and int32 fields
+    that start off a 16-byte boundary (``offset`` words), at lengths that
+    take its four-a-thread and scalar tails; with a perm off alignment too
+    (the gather's scalar path); one launch a call, and build_order_with_copies
+    gives build_order's order."""
+    import dataclasses
+
+    from repro_torch.kernels import mc_matvec as mc
+
+    rows, cols, vals = _coo(50, 40, p, cuda, seed=p)
+    w = (torch.arange(p, device=cuda) % 5 != 0).float()
+    ints = torch.randint(-2**31, 2**31 - 1, (p,), device=cuda, dtype=torch.int32)
+    fields = [_offset(t, offset) for t in (w * vals, ints, w)]
+    for seg, gat, od, idim in ((rows, cols, 50, 40), (cols, rows, 40, 50)):
+        before = kernels.launches()["gather_sorted"]
+        order, copies = mc.build_order_with_copies(seg, gat, od, idim, fields)
+        torch.cuda.synchronize()
+        assert kernels.launches()["gather_sorted"] == before + 1
+        perm = order.perm.long()
+        want = mc.build_order(seg, gat, od, idim)
+        assert torch.equal(order.perm, want.perm) and torch.equal(order.gat_sorted, gat[perm])
+        for t, c in zip(fields, copies):
+            assert c.dtype == t.dtype and torch.equal(c, t[perm])
+        odd = dataclasses.replace(order, perm=_offset(order.perm, 1))
+        for n in (1, 2, 4):
+            got = mc.gather_sorted_fields(odd, [*fields, gat][:n])
+            torch.cuda.synchronize()
+            for t, c in zip([*fields, gat], got):
+                assert torch.equal(c, t[perm])
+        assert kernels.launches()["gather_sorted"] == before + 4
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("d,m,p,heavy", [(40, 30, 600, 0), (1000, 300, 50000, 5000),
                                          (20000, 17, 300001, 0), (3, 5000, 7, 0)])
@@ -196,7 +242,7 @@ def test_cuda_update_resid_is_the_chain_bit_for_bit(cuda, d, m, p, heavy, gamma_
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 37, 1000, 480_189])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 37, 1000, 17_770, 135_168, 135_171, 480_189])
 @pytest.mark.parametrize("budget", [127, 15, 1])
 def test_cuda_quantize_pair_matches_plain_bit_for_bit(cuda, n, budget):
     from repro_torch.kernels import quantize as qz
@@ -214,10 +260,15 @@ def test_cuda_quantize_pair_matches_plain_bit_for_bit(cuda, n, budget):
         assert torch.equal(q, qz.ref.quantize(xs, ns, scale, budget))
         y = qz.dequantize(q, scale, budget=budget)
         assert torch.equal(y, qz.ref.dequantize(q, scale, budget))
+        # q one byte off alignment: dequantize's scalar path (from n = 135,168,
+        # four a thread where aligned)
+        q_off = torch.empty(n + 1, dtype=torch.int8, device=cuda)[1:]
+        q_off.copy_(q)
+        assert torch.equal(qz.dequantize(q_off, scale, budget=budget), y)
     torch.cuda.synchronize()
     after = kernels.launches()
     assert after["quantize"] == before["quantize"] + 3
-    assert after["dequantize"] == before["dequantize"] + 3
+    assert after["dequantize"] == before["dequantize"] + 6
 
 
 @pytest.mark.gpu

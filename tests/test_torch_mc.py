@@ -10,6 +10,8 @@ another order); whole fits rtol 1e-4 on the histories and 1e-4 of max|W| on
 the iterate, as in tests/test_torch_fit.py (the power method amplifies
 rounding over the epochs).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -213,6 +215,68 @@ def test_coo_matvec_reads_the_sorted_copy(obs, case):
                 torch.max(torch.abs(want)))
 
 
+def _fields(p, seed, padding):
+    """Caller-order fields of p entries: f32 residual, values and weights
+    (a fifth of them zero-weight padding with zero residual if
+    ``padding``), and an int32 field."""
+    rng = np.random.default_rng(seed)
+    w = (rng.random(p) >= 0.2 if padding else np.ones(p, bool)).astype(np.float32)
+    vals = rng.standard_normal(p).astype(np.float32)
+    resid = (w * rng.standard_normal(p)).astype(np.float32)
+    ints = rng.integers(-2**31, 2**31 - 1, p, dtype=np.int64).astype(np.int32)
+    return [torch.from_numpy(a) for a in (resid, vals, w, ints)]
+
+
+@pytest.mark.parametrize("p", [0, 1, 7, 3000])
+@pytest.mark.parametrize("padding", [False, True])
+def test_record_gather_plain_route_is_field_perm(p, padding):
+    """The record gather (``build_order_with_copies``, ``gather_sorted_fields``)
+    on the CPU: every copy, f32 and int32, is field[perm] bit for bit, the
+    order is ``build_order``'s, and its gat_sorted is gat[perm]."""
+    rng = np.random.default_rng(p)
+    rows = torch.from_numpy(rng.integers(0, 13, p).astype(np.int32))
+    cols = torch.from_numpy(rng.integers(0, 9, p).astype(np.int32))
+    resid, vals, w, ints = _fields(p, p + 1, padding)
+    for seg, gat, od, idim in ((rows, cols, 13, 9), (cols, rows, 9, 13)):
+        order, copies = mc.build_order_with_copies(seg, gat, od, idim, (resid, vals, ints))
+        perm = order.perm.long()
+        want = mc.build_order(seg, gat, od, idim)
+        for f in dataclasses.fields(want):
+            a, b = getattr(order, f.name), getattr(want, f.name)
+            assert (a == b) if f.name == "in_dim" else torch.equal(a, b), f.name
+        assert torch.equal(order.gat_sorted, gat[perm])
+        for t, c in zip((resid, vals, ints), copies):
+            assert c.dtype == t.dtype and torch.equal(c, t[perm])
+        again = mc.gather_sorted_fields(order, (w, ints, resid, gat))
+        for t, c in zip((w, ints, resid, gat), again):
+            assert c.dtype == t.dtype and torch.equal(c, t[perm])
+        if padding and p:
+            assert not torch.any(copies[0][w[perm] == 0])
+
+
+@pytest.mark.parametrize("bad", ["length", "float64", "int64", "device", "count", "not-tensor",
+                                 "strided"])
+@pytest.mark.parametrize("wrapper", ["build_order_with_copies", "gather_sorted_fields"])
+def test_record_gather_refuses_bad_fields(obs, bad, wrapper):
+    rows, cols = torch.from_numpy(obs["rows"]), torch.from_numpy(obs["cols"])
+    good = torch.zeros(P)
+    fields = {
+        "length": [good, torch.zeros(P + 1)],
+        "float64": [good, torch.zeros(P, dtype=torch.float64)],
+        "int64": [torch.zeros(P, dtype=torch.int64)],
+        "device": [good, torch.zeros(P, device="meta")],
+        "count": [good] * (4 if wrapper == "build_order_with_copies" else 5),
+        "not-tensor": [good, np.zeros(P, np.float32)],
+        "strided": [torch.zeros(2 * P)[::2]],
+    }[bad]
+    err = TypeError if bad in ("float64", "int64", "not-tensor") else ValueError
+    with pytest.raises(err):
+        if wrapper == "build_order_with_copies":
+            mc.build_order_with_copies(rows, cols, D, M, fields)
+        else:
+            mc.gather_sorted_fields(mc.build_order(rows, cols, D, M), fields)
+
+
 # ---------------------------------------------------------------------------
 # The task, the layout helpers and gather_entries
 # ---------------------------------------------------------------------------
@@ -305,6 +369,46 @@ def test_convert_mc_state_builds_the_orders(obs):
     assert torch.equal(ts.by_row.seg, ts.rows) and torch.equal(ts.by_col.gat, ts.rows)
     with pytest.raises(TypeError, match="d and m"):
         convert.task_state(js, device="cpu")
+
+
+def _per_field_state(s):
+    """The derived arrays of ``s`` rebuilt field by field, as ``mc_state``
+    built them before the record gather: ``build_order`` per order, then one
+    ``gather_sorted`` per field and order."""
+    d, m = s.by_row.out_dim, s.by_col.out_dim
+    by_row, by_col = mc.build_order(s.rows, s.cols, d, m), mc.build_order(s.cols, s.rows, m, d)
+    out = dict(by_row=by_row, by_col=by_col)
+    for tag, order in (("row", by_row), ("col", by_col)):
+        for name in ("resid", "vals", "weight"):
+            out[f"{name}_by_{tag}"] = mc.gather_sorted(order, getattr(s, name))
+    return out
+
+
+@pytest.mark.parametrize("where", ["init_state", "convert"])
+def test_mc_state_equals_the_per_field_construction(obs, where):
+    """``mc_state`` (one record gather per order) gives the eight derived
+    arrays and the two ``SegmentOrder``s that the per-field construction
+    gives, bit for bit, whether it is reached from ``init_state`` or from
+    ``convert.task_state`` (a JAX state carried across), with zero-weight
+    padding."""
+    if where == "init_state":
+        s = tasks.MatrixCompletion(D, M).init_state(*tasks.pack_observations(*_padded(obs)))
+    else:
+        (jidx, jyw), _ = _pack_both(*_padded(obs))
+        s = convert.task_state(jtasks.MatrixCompletion(D, M).init_state(jidx, jyw),
+                               device="cpu", d=D, m=M)
+    want = _per_field_state(s)
+    assert set(want) == set(tasks.MCState.DERIVED)
+    for name in ("resid", "vals", "weight"):
+        for tag in ("row", "col"):
+            got = getattr(s, f"{name}_by_{tag}")
+            assert got.dtype == torch.float32 and torch.equal(got, want[f"{name}_by_{tag}"])
+    for tag in ("row", "col"):
+        got, ref_order = getattr(s, f"by_{tag}"), want[f"by_{tag}"]
+        for f in dataclasses.fields(ref_order):
+            a, b = getattr(got, f.name), getattr(ref_order, f.name)
+            assert (a == b) if f.name == "in_dim" else (
+                a.dtype == b.dtype and torch.equal(a, b)), f"by_{tag}.{f.name}"
 
 
 def _assert_copies_in_step(s):
@@ -495,10 +599,11 @@ def test_mc_resume_from_converted_jax_state(obs):
 def test_mc_fit_routes_through_coo_matvec(obs, comm, monkeypatch):
     """Every power iteration of the MC fit calls coo_matvec once per
     direction, and verify_kernelized once more each; every epoch's update is
-    one update_resid, and gather_sorted runs only when a state is built (six
-    copies for the fit's state and six for verify_kernelized's): the launch
-    counts the card run expects."""
-    calls = dict.fromkeys(("coo_matvec", "update_resid", "gather_sorted"), 0)
+    one update_resid, and the copies are gathered only when a state is built
+    (one record gather per order, ``build_order_with_copies``: two for the
+    fit's state and two for verify_kernelized's): the launch counts the card
+    run expects."""
+    calls = dict.fromkeys(("coo_matvec", "update_resid", "build_order_with_copies"), 0)
     for name in calls:
         fn = getattr(mc.ops, name)
 
@@ -512,5 +617,5 @@ def test_mc_fit_routes_through_coo_matvec(obs, comm, monkeypatch):
                          *tasks.pack_observations(obs["rows"], obs["cols"], obs["vals"]),
                          cfg=cfg, key=2, device="cpu")
     assert calls == {"coo_matvec": 2 * sum(res.history["k"]) + 2, "update_resid": 8,
-                     "gather_sorted": 12}
+                     "build_order_with_copies": 4}
     assert all(np.isfinite(res.history["loss"]))
