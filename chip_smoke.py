@@ -39,13 +39,15 @@ Phases, each fatal on failure (exit code != 0, no result line):
    chain of four index_select calls per order; time the one-field gather.
    Hold the COO matvec (both directions, on the residual's copies in the
    row and column orders) and the int8 quantize pair against their plain
-   versions at those shapes and at odd ones (n = 15, 16, 17, 135,171; q one
-   byte off alignment), and time them (the quantize pair also by device
-   time); hold ``update_resid`` (the residual after a step, in caller, row
-   and column order from one launch) to the update's plain chain followed
-   by ``gather_sorted``, bit for bit, with gamma from the line search and
-   from the 2/(t+2) schedule and mu = 0, and time it against that chain and
-   gathers.
+   versions at those shapes and at odd ones (n = 15, 16, 17, 135,167,
+   135,168, 135,171 around quantize's four-a-thread threshold; budgets 1,
+   15, 31 and 127; q one byte off alignment), and time them (the quantize
+   pair also by device time, quantize's beside the one-element-a-thread
+   kernel's); hold ``update_resid`` (the residual after a step, in caller,
+   row and column order from one launch) to the update's plain chain
+   followed by ``gather_sorted``, bit for bit, with gamma from the line
+   search and from the 2/(t+2) schedule and mu = 0, and time it against
+   that chain and gathers.
 8. Drive ``fit_serial`` for matrix completion (comm "dense", log schedule,
    line search, --mc-epochs): loss finite and non-increasing, held-out RMSE
    below that of W = 0, launch counts as the path implies (one record
@@ -129,6 +131,29 @@ Phases, each fatal on failure (exit code != 0, no result line):
    card against the CPU at chunk 32 and at chunk 256 over 512 tokens
    (clamps binding), f32, rtol 1e-4.
 
+21. (a) ``launch.dfw.fit`` over a one-worker NCCL process group against
+   ``fit_serial`` on the same data (least squares and logistic regression
+   at the ImageNet shapes, matrix completion dense and int8 on new ratings
+   at the Netflix shapes, the configurations of phases 3, 4, 8 and 9), run
+   in turns (serial, fit, fit, serial): every run's history, final loss and
+   iterate the same bits (int8: ``fit_serial`` handed worker 0's noise
+   stream) and the same kernel launches; ms an epoch of each side.
+22. (b) ``fit`` on four gloo workers (``run_workers``) sharing the one card
+   with CUDA tensors, which gloo stages through the host: least squares
+   (--epochs) with n cut to 1,281,164 (the largest multiple of 4) against
+   ``fit_serial`` on the same rows; matrix completion (--mc-int8-epochs)
+   dense against its own ``fit_serial`` run of as many epochs, int8 at the
+   four workers' budget 31 and dense with sample_prob 0.8, the ratings laid
+   out by ``shard_observations`` and shared with the workers through CUDA
+   IPC. Dense histories within the reference's sharded-vs-serial tolerances
+   (loss rtol 1e-5, gap 1e-4, sigma 1e-4; W to 1e-5 of its max, MC's at the
+   held-out entries: see ``fits_agree``); int8
+   losses non-increasing; the int8 and sampled runs' held-out RMSE below W
+   = 0's; every mask row with a survivor and summing to 4; every worker's
+   launches as its path implies and its history and iterate the same bits
+   as worker 0's; each worker's peak device memory and ms an epoch (host
+   staging and four processes on one card: not a speedup).
+
 ``--coo-bits PATH`` runs only phases 1 and 6 and then G.v and G^T.u of
 ``coo_matvec`` at the full shape (x drawn from --seed), saving the results
 and their times to PATH; ``--coo-ref`` names such a file from another run
@@ -181,6 +206,10 @@ TPU_KERNEL = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:88",
     "wkv6_chunk": "src/repro/kernels/wkv6_chunk/kernel.py:61",
 }
+# Device µs of the quantize kernel before it took four elements a thread
+# (one a thread at every n), at u and v, measured by this script on an NVIDIA
+# H100 80GB HBM3 at 700 W; printed beside this run's.
+QUANTIZE_SCALAR_US = {"u": 3.09, "v": 1.41}
 # Kernels of the port that replace no TPU kernel of their own, with their own
 # launch counts: the gather of an MC state's sorted copies and the residual's
 # update in each order. They serve the port's coo_matvec, which reads values
@@ -416,6 +445,25 @@ def planted(torch, gen, dev, d, m, rank=10):
     v = torch.linalg.qr(torch.randn(m, rank, generator=gen, device=dev))[0]
     s = torch.linspace(1.0, 0.1, rank, device=dev)
     return u * (s / s.sum()), v
+
+
+def dense_data(torch, gen, dev, n):
+    """X (n, 2048) standard normal and Y = X W* + 0.01 noise, W* planted."""
+    X = torch.randn(n, PAPER_D, generator=gen, device=dev)
+    wu, wv = planted(torch, gen, dev, PAPER_D, PAPER_M)
+    Y = (X @ wu) @ wv.T
+    Y.add_(torch.randn(n, PAPER_M, generator=gen, device=dev), alpha=0.01)
+    return X, Y
+
+
+def planted_labels(torch, gen, dev, X):
+    """argmax of X times a planted rank-10 W, with 5% of the labels redrawn."""
+    n = X.shape[0]
+    W = torch.randn(PAPER_D, 10, generator=gen, device=dev) @ torch.randn(
+        10, PAPER_M, generator=gen, device=dev)
+    labels = torch.argmax(X @ W, dim=1)
+    flip = torch.rand(n, generator=gen, device=dev) < 0.05
+    return torch.where(flip, torch.randint(0, PAPER_M, (n,), generator=gen, device=dev), labels)
 
 
 def segment_timer(torch, log):
@@ -880,9 +928,15 @@ def mc_kernel_phase(torch, mc, qz, dev, state, gen, reps, peaks):
                        bound_by="bytes" if nbytes / bw >= 4 * n / flops else "operations",
                        bytes=nbytes)
             rows_out.append(row)
+            before = (f"; the one-element-a-thread kernel: {QUANTIZE_SCALAR_US[label]} µs"
+                      if name == "quantize" else "")
             print(f"kernel {name} {label} ({n},): {row['ms']:.4f} ms, device "
                   f"{fmt_ms(row['device_ms'], 5)} ms (plain {row['plain_ms']:.4f}, bound "
-                  f"{row['bound_ms']:.5f}), bit-identical")
+                  f"{row['bound_ms']:.5f}{before}), bit-identical")
+        for b in (31, 1):  # four workers' budget, and the coarsest
+            check(torch.equal(qz.quantize(x, noise, scale, budget=b),
+                              qz.ref.quantize(x, noise, scale, b)),
+                  f"quantize ({label}, {n}) at budget {b} differs from its plain version")
 
     # tiny odd shapes: empty segments, one-entry and multi-piece segments,
     # zero-weight padding (exactly the same bits with and without it)
@@ -905,8 +959,8 @@ def mc_kernel_phase(torch, mc, qz, dev, state, gen, reps, peaks):
             padded_vals = torch.cat([vv, torch.zeros(5, device=dev)])
             check(torch.equal(mc.coo_matvec(padded, mc.gather_sorted(padded, padded_vals), x),
                               got), f"coo_matvec at {od}x{idim}: padding changed bits")
-    for n in (1, 15, 16, 17, 37, 1000, 135_171):
-        for b in (1, 15, 127):
+    for n in (1, 15, 16, 17, 37, 1000, 135_167, 135_168, 135_171):
+        for b in (1, 15, 31, 127):
             x = torch.randn(n, generator=gen, device=dev)
             grid = (torch.arange(n, device=dev) % (2 * b + 1) - b).float() * (2.5 / b)
             scale = torch.full((), 2.5, device=dev)
@@ -1099,6 +1153,273 @@ def first_flip(np, recs, res):
           f"by one grid step (pre-floor values straddle an integer, |diff| <= {gap:.1e}); "
           f"final loss within {rel:.1e}")
     return epoch, flip
+
+
+# Phase 22 runs this many gloo workers on the one card; least squares there
+# cuts n to the largest multiple of it, 1,281,164 (1,281,167 is divisible by
+# no worker count from 2 to 8).
+MULTI_WORKERS = 4
+
+
+def fits_agree(np, got, want, label, w_got, w_want, logistic=False):
+    """The reference's sharded-vs-serial tolerances (tests/test_dfw_launch.py):
+    loss rtol 1e-5, gap rtol 1e-4 (atol 1e-5; logistic 1e-4), sigma rtol
+    1e-4; W to 1e-5 of its max. The reference holds W to 1e-6 absolute,
+    which is 1.8e-5 of max|W| in its matrix-completion test and 7.4e-5 in
+    its least-squares test; here W is O(1) (matrix completion). At 48,000 x
+    1,777 with 1M ratings in f32 on the CPU, after 10 epochs, the
+    reference's 4-worker fit leaves its one-process fit by 4.4e-6 of max|W|
+    (tools/jax_multi_drift.py) and the port's by 5.6e-6
+    (tools/torch_multi_drift.py); a one-process run on the ratings in
+    another order, by 7.2e-6 and 7.3e-6. After 30 epochs the same runs part
+    by 1e-3 to 1e-1 of max|W|, the reference's as far as the port's.
+    Returns each metric's relative deviation per epoch, and W's."""
+    dev_of = {}
+    for name, rtol, atol in (("loss", 1e-5, 0.0), ("gap", 1e-4, 1e-4 if logistic else 1e-5),
+                             ("sigma", 1e-4, 0.0)):
+        a, b = np.asarray(got[name], np.float64), np.asarray(want[name], np.float64)
+        check(a.shape == b.shape, f"{label}: {name} has {a.shape} epochs, want {b.shape}")
+        dev_of[name] = (np.abs(a - b) / np.abs(b)).tolist()
+        check(bool(np.all(np.abs(a - b) <= atol + rtol * np.abs(b))),
+              f"{label}: {name} deviates by up to {max(dev_of[name]):.2e} (rtol {rtol:.0e}; by "
+              f"epoch {[float(f'{v:.2e}') for v in dev_of[name]]})")
+    w_err = float(np.max(np.abs(w_got - w_want)) / np.max(np.abs(w_want)))
+    dev_of["W"] = w_err
+    check(w_err <= 1e-5, f"{label}: W deviates by {w_err:.2e} of its max (limit 1e-5)")
+    return dev_of
+
+
+def timed_fit(torch, kernels, run, dev):
+    """run() under fresh launch counts: (result, launches, wall s, segment log)."""
+    seg_log = []
+    kernels.reset_launches()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    res = run(segment_timer(torch, seg_log))
+    sync()
+    return res, kernels.launches(), time.perf_counter() - t0, seg_log
+
+
+def steady_ms(seg_log, ks):
+    """ms per epoch of each K(t) segment after the first (which holds the
+    set-up: verify, the state build), keyed by K."""
+    return {ks[s["start"]]: s["ms_per_epoch"] for s in seg_log[1:]}
+
+
+def fit_summary(low_rank, res):
+    """What the checks keep of a fit (its state is freed)."""
+    return dict(history=res.history, final_loss=res.final_loss, stats=res.stats,
+                packed=low_rank.pack_live(res.iterate))
+
+
+def world_one_phase(torch, np, kernels, dfw, comm, low_rank, NoiseStream, dev, jobs, seed):
+    """(a) ``fit`` over a one-worker NCCL group against ``fit_serial`` on the
+    same data: timed in turns (serial, fit, fit, serial), each run's
+    history, final loss and packed iterate the same bits, the same kernel
+    launches; ms per epoch of each side. Returns (report, summed launches
+    of the fit runs)."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    report, total = {}, dict.fromkeys(kernels.launches(), 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1, device_id=dev)
+        try:
+            group = comm.WorkerGroup()
+            for label, task, x, y, cfg in jobs:
+                noise = NoiseStream(seed, worker=0)  # the one-worker group's own stream
+                runs = []
+                for side in ("serial", "fit", "fit", "serial"):
+                    if side == "serial":
+                        def fn(cb):
+                            return dfw.fit_serial(task, x, y, cfg=cfg, key=seed, noise=noise,
+                                                  device=dev, callback=cb)
+                    else:
+                        def fn(cb):
+                            return dfw.fit(task, x, y, cfg=cfg, key=seed, group=group,
+                                           device=dev, callback=cb)
+                    res, launches, wall, seg_log = timed_fit(torch, kernels, fn, dev)
+                    summary = fit_summary(low_rank, res)
+                    del res
+                    torch.cuda.empty_cache()
+                    if side == "fit":
+                        for k, v in launches.items():
+                            total[k] += v
+                    runs.append(dict(summary, side=side, launches=launches, wall_s=wall,
+                                     segments=seg_log))
+                first = runs[0]
+                for run in runs[1:]:
+                    check(run["history"] == first["history"]
+                          and run["final_loss"] == first["final_loss"],
+                          f"(a) {label}: {run['side']}'s history is not fit_serial's, bit for bit")
+                    check(all(np.array_equal(run["packed"][k], first["packed"][k])
+                              for k in first["packed"]),
+                          f"(a) {label}: {run['side']}'s iterate is not fit_serial's, bit for bit")
+                    check(run["launches"] == first["launches"],
+                          f"(a) {label}: {run['side']} launched {run['launches']}, fit_serial "
+                          f"{first['launches']}")
+                ks = first["history"]["k"]
+                ms = {side: [steady_ms(r["segments"], ks) for r in runs if r["side"] == side]
+                      for side in ("serial", "fit")}
+                per_k = {k: dict(serial=statistics.mean(m[k] for m in ms["serial"]),
+                                 fit=statistics.mean(m[k] for m in ms["fit"]))
+                         for k in ms["serial"][0]}
+                report[label] = dict(walls_s=[r["wall_s"] for r in runs], ms_per_epoch=per_k,
+                                     all_reduces=runs[1]["stats"]["all_reduces"])
+                print(f"(a) {label}: fit over one NCCL worker = fit_serial bit for bit (history, "
+                      f"final loss, iterate) and launch for launch ({first['launches']}); "
+                      f"{runs[1]['stats']['all_reduces']} all-reduces; walls in turns "
+                      + ", ".join(f"{r['side']} {r['wall_s']:.3f}" for r in runs) + " s; ms an "
+                      "epoch " + "; ".join(
+                          f"K={k}: serial {v['serial']:.3f}, fit {v['fit']:.3f} "
+                          f"({100 * (v['fit'] / v['serial'] - 1):+.2f}%)"
+                          for k, v in per_k.items()))
+        finally:
+            dist.destroy_process_group()
+    return report, total
+
+
+def multi_worker_rank(group, device, jobs, seed):
+    """One worker of phase 22 (module level: run_workers starts it by name):
+    ``fit`` of each job on its row block; host summaries back."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import low_rank
+    from repro_torch.launch import dfw
+
+    cuda = device.type == "cuda"
+    out = []
+    for _, task, x, y, kw in jobs:
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        res, launches, wall, seg_log = timed_fit(torch, kernels, lambda cb: dfw.fit(
+            task, x, y, cfg=dfw.DFWConfig(**kw), key=seed, group=group, device=device,
+            callback=cb), device)
+        out.append(dict(
+            history=res.history, final_loss=res.final_loss, stats=res.stats,
+            masks=None if res.masks is None else res.masks.numpy(), launches=launches,
+            wall_s=wall, segments=seg_log,
+            peak_gb=torch.cuda.max_memory_allocated(device) / 1e9 if cuda else None,
+            packed=low_rank.pack_live(res.iterate)))
+        del res
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def multi_worker_phase(torch, np, kernels, dfw, tasks, low_rank, dev, X, Y, mc, seed, args):
+    """(b) MULTI_WORKERS gloo workers on the one card, with CUDA tensors
+    (gloo stages them through the host): least squares at n = 1,281,164 and
+    matrix completion dense, each against fit_serial on the same data; int8
+    (budget 127 // 4 = 31) and dense with sample_prob 0.8, the ratings laid
+    out by shard_observations. Matrix completion runs --mc-int8-epochs
+    epochs (10, the depth of the reference's own sharded-vs-serial test):
+    over 30, the reference's four-worker run leaves its one-process run as
+    far as a one-process run on the same ratings in another order does
+    (``fits_agree``). The data is made once here and shared with the workers
+    through CUDA IPC. Returns (report, summed launches)."""
+    idx, yw, (te_rows, te_cols, te_vals), mu = mc
+    nw = MULTI_WORKERS
+    mtls_kw = dict(mu=1.0, num_epochs=args.epochs, schedule="log", step_size="linesearch")
+    mc_kw = dict(mu=mu, num_epochs=args.mc_int8_epochs, schedule="log", step_size="linesearch")
+    t0 = time.perf_counter()
+    mtls = tasks.MultiTaskLeastSquares(PAPER_D, PAPER_M)
+    mc_task = tasks.MatrixCompletion(NF_D, NF_M)
+    n4 = X.shape[0] - X.shape[0] % nw
+    refs = {}
+    for label, task, x, y, kw in (("mtls dense", mtls, X[:n4], Y[:n4], mtls_kw),
+                                  ("mc dense", mc_task, idx, yw, mc_kw)):
+        res = dfw.fit_serial(task, x, y, cfg=dfw.DFWConfig(**kw), key=seed, device=dev)
+        refs[label] = fit_summary(low_rank, res)
+        del res
+        torch.cuda.empty_cache()
+    idx4, yw4 = dfw.shard_observations(idx[:, 0], idx[:, 1], yw[:, 0], nw, NF_D, m=NF_M)
+    idx4, yw4 = idx4.to(dev), yw4.to(dev)
+    print(f"(b) set-up: the serial references (least squares at n = {n4}, matrix "
+          f"completion) and the {nw}-worker shard layout ({idx4.shape[0] // nw} entries a "
+          f"worker with padding) in {time.perf_counter() - t0:.1f} s")
+    jobs = [("mtls", mtls, X[:n4], Y[:n4], mtls_kw), ("mc", mc_task, idx4, yw4, mc_kw),
+            ("mc", mc_task, idx4, yw4, dict(mc_kw, comm="int8")),
+            ("mc", mc_task, idx4, yw4, dict(mc_kw, sample_prob=0.8))]
+    labels = ["mtls dense", "mc dense", "mc int8", "mc dense sample_prob 0.8"]
+    t0 = time.perf_counter()
+    ranks = dfw.run_workers(nw, multi_worker_rank, jobs, seed, backend="gloo", device=dev)
+    wall = time.perf_counter() - t0
+    total = dict.fromkeys(kernels.launches(), 0)
+    report = dict(wall_s=wall, runs={})
+    for i, (label, (kind, _, _, _, kw)) in enumerate(zip(labels, jobs)):
+        got = [r[i] for r in ranks]
+        head = got[0]
+        for j, g in enumerate(got):
+            want = expected_launches(kind, g["history"]["k"], True, kw.get("comm", "dense"))
+            check(g["launches"] == want, f"(b) {label}: worker {j} launched {g['launches']}, "
+                  f"expected {want}")
+            for k, v in g["launches"].items():
+                total[k] += v
+            check(g["history"] == head["history"] and all(
+                np.array_equal(g["packed"][k], head["packed"][k]) for k in g["packed"]),
+                f"(b) {label}: worker {j}'s history or iterate differs from worker 0's")
+        loss = head["history"]["loss"]
+        check(all(math.isfinite(v) for v in loss + [head["final_loss"]]),
+              f"(b) {label}: non-finite loss")
+        it = low_rank.unpack_live(head["packed"], len(loss), device=dev)
+        row = dict(walls_s=[g["wall_s"] for g in got], peak_gb=[g["peak_gb"] for g in got],
+                   ms_per_epoch=steady_ms(head["segments"], head["history"]["k"]),
+                   all_reduces=head["stats"]["all_reduces"], loss=loss,
+                   final_loss=head["final_loss"])
+        if label in refs:
+            ref = refs[label]
+            ref_it = low_rank.unpack_live(ref["packed"], len(loss), device=dev)
+            if kind == "mtls":
+                w_got, w_want = low_rank.materialize(it), low_rank.materialize(ref_it)
+            else:  # W where it is evaluated: at the held-out entries
+                w_got = low_rank.gather_entries(it, te_rows, te_cols)
+                w_want = low_rank.gather_entries(ref_it, te_rows, te_cols)
+            row["deviation"] = fits_agree(np, head["history"], ref["history"], f"(b) {label}",
+                                          w_got.cpu().numpy(), w_want.cpu().numpy())
+            del w_got, w_want, ref_it
+        if kind == "mc":
+            pred = low_rank.gather_entries(it, te_rows, te_cols)
+            row["heldout_rmse"] = float(torch.sqrt(torch.mean((pred - te_vals) ** 2)))
+            row["heldout_rmse_w0"] = float(torch.sqrt(torch.mean(te_vals ** 2)))
+            check(row["heldout_rmse"] < row["heldout_rmse_w0"],
+                  f"(b) {label}: held-out RMSE {row['heldout_rmse']:.4f} not below W = 0's "
+                  f"{row['heldout_rmse_w0']:.4f}")
+            if kw.get("comm") == "int8":
+                check(all(b <= a * (1 + 1e-6) for a, b in zip(loss, loss[1:] + [
+                    head["final_loss"]])), f"(b) {label}: loss increased")
+            elif kw.get("sample_prob", 1.0) < 1.0:
+                # The history holds the reweighted estimates sum_j w_j F_j of
+                # the epochs' samples, which need not fall; final_loss is the
+                # full-data loss.
+                masks = head["masks"]
+                check(masks.shape == (kw["num_epochs"], nw) and bool(np.all(
+                    (masks > 0).sum(axis=1) >= 1)), f"(b) {label}: an epoch without a worker")
+                check(bool(np.allclose(masks.sum(axis=1), nw, rtol=1e-5)),
+                      f"(b) {label}: reweighted rows do not sum to {nw}")
+                check(head["final_loss"] < loss[0], f"(b) {label}: final loss not below the first")
+                row["alive_per_epoch"] = (masks > 0).sum(axis=1).tolist()
+        report["runs"][label] = row
+        largest = ({k: max(v) if isinstance(v, list) else v for k, v in row["deviation"].items()}
+                   if "deviation" in row else None)
+        print(f"(b) {label}, {nw} gloo workers on one card: walls "
+              + ", ".join(f"{w:.2f}" for w in row["walls_s"]) + " s; ms an epoch "
+              + ", ".join(f"K={k}: {v:.2f}" for k, v in row["ms_per_epoch"].items())
+              + " (host staging of every collective; not a speedup); peak device memory a "
+              "worker " + ", ".join(fmt_ms(g, 2) for g in row["peak_gb"]) + " GB; "
+              f"{row['all_reduces']} all-reduces; launches a worker {head['launches']}"
+              + (f"; largest deviation from the one-process run {largest}" if largest else "")
+              + (f"; held-out RMSE {row['heldout_rmse']:.4f} (W = 0: "
+                 f"{row['heldout_rmse_w0']:.4f})" if "heldout_rmse" in row else "")
+              + (f"; workers alive an epoch {row['alive_per_epoch']}"
+                 if "alive_per_epoch" in row else ""))
+    del idx4, yw4
+    return report, total
 
 
 SERVE_D, SERVE_M, SERVE_BATCH, SERVE_BLOCK = PAPER_D, PAPER_M, 64, 32
@@ -2302,10 +2623,7 @@ def main(argv=None) -> int:
             return 0
         n = args.rows
         t0 = time.perf_counter()
-        X = torch.randn(n, PAPER_D, generator=gen, device=dev)
-        wu, wv = planted(torch, gen, dev, PAPER_D, PAPER_M)
-        Y = (X @ wu) @ wv.T
-        Y.add_(torch.randn(n, PAPER_M, generator=gen, device=dev), alpha=0.01)
+        X, Y = dense_data(torch, gen, dev, n)
         torch.cuda.synchronize()
         print(f"data: X {tuple(X.shape)}, Y {tuple(Y.shape)} f32 made in "
               f"{time.perf_counter() - t0:.1f} s")
@@ -2337,13 +2655,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
         # 4. logistic main path: planted rank-10 labels with 5% label noise
-        W = torch.randn(PAPER_D, 10, generator=gen, device=dev) @ torch.randn(
-            10, PAPER_M, generator=gen, device=dev)
-        labels = torch.argmax(X @ W, dim=1)
-        flip = torch.rand(n, generator=gen, device=dev) < 0.05
-        labels = torch.where(
-            flip, torch.randint(0, PAPER_M, (n,), generator=gen, device=dev), labels)
-        del W, flip
+        labels = planted_labels(torch, gen, dev, X)
         cfg = dfw.DFWConfig(mu=10.0, num_epochs=args.logistic_epochs, schedule="log_half")
         res, log_launch, report["logistic"] = run_path(
             torch, kernels, dfw, "logistic", tasks.MultinomialLogistic(PAPER_D, PAPER_M), X,
@@ -2501,12 +2813,42 @@ def main(argv=None) -> int:
                                                     ssm_cfg, ssm_params, dev, gen)
         del ssm_params
         torch.cuda.empty_cache()
+
+        # 21. (a) fit over one NCCL worker against fit_serial at the main path's
+        # shapes: the same data as phases 3 and 4 (from --seed), new ratings
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed)
+        X, Y = dense_data(torch, gen, dev, n)
+        labels = planted_labels(torch, gen, dev, X)
+        mc_data = make_mc_data(torch, gen, dev, args.mc_entries, NF_TEST)
+        idx, yw, _, mu = mc_data
+        mc_dense = dfw.DFWConfig(mu=mu, num_epochs=args.mc_epochs, schedule="log",
+                                 step_size="linesearch")
+        report["world_one"], world_one_launch = world_one_phase(
+            torch, np, kernels, dfw, comm, low_rank, NoiseStream, dev, [
+                ("mtls", tasks.MultiTaskLeastSquares(PAPER_D, PAPER_M), X, Y, dfw.DFWConfig(
+                    mu=1.0, num_epochs=args.epochs, schedule="log", step_size="linesearch")),
+                ("logistic", tasks.MultinomialLogistic(PAPER_D, PAPER_M), X, labels, dfw.DFWConfig(
+                    mu=10.0, num_epochs=args.logistic_epochs, schedule="log_half")),
+                ("mc dense", mc_task, idx, yw, mc_dense),
+                ("mc int8", mc_task, idx, yw, dataclasses.replace(
+                    mc_dense, num_epochs=args.mc_int8_epochs, comm="int8")),
+            ], args.seed)
+        del labels
+        torch.cuda.empty_cache()
+
+        # 22. (b) four gloo workers on the one card
+        report["multi_worker"], multi_launch = multi_worker_phase(
+            torch, np, kernels, dfw, tasks, low_rank, dev, X, Y, mc_data, args.seed, args)
+        del X, Y, idx, yw, mc_data
+        torch.cuda.empty_cache()
     except Check as e:
         return fail(str(e))
 
     out = []
     paths = (mtls_launch, log_launch, mc_launch, mc8_launch, fit12_launch, serve_launch,
-             prefill_launch, decode_launch, ssm_prefill_launch, ssm_decode_launch)
+             prefill_launch, decode_launch, ssm_prefill_launch, ssm_decode_launch,
+             world_one_launch, multi_launch)
     for kname in (*TPU_KERNEL, *HELPER_KERNELS):
         rows = [r for r in krows if r["name"] == kname]
         main_row = next((r for r in rows if r.get("main")), None) or max(

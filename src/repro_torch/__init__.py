@@ -114,12 +114,18 @@ class NoiseStream:
     fold_in(key, t), 0xC033), i), slot), (dim,))``. ``NoiseStream(seed)``
     draws it from a ``torch.Generator`` on ``device`` seeded from (seed, t,
     i, slot), with no host sync, so it does not depend on how a run was cut
-    into segments. ``NoiseStream.from_tables(u, v)`` returns ``u[t, i]`` /
-    ``v[t, i]`` of caller-given (T, K, d) and (T, K, m) tables instead.
+    into segments. ``NoiseStream(seed, worker=j)`` is worker j's stream of a
+    multi-worker run, the counterpart of the reference's
+    ``fold_axis_index(key, axis)``: j is mixed into the seed, so every
+    worker rounds with its own draws (``worker=None``, the default, is the
+    one-process stream). ``NoiseStream.from_tables(u, v)`` returns ``u[t,
+    i]`` / ``v[t, i]`` of caller-given (T, K, d) and (T, K, m) tables
+    instead: one worker's tables.
     """
 
-    def __init__(self, seed: int = 0):
+    def __init__(self, seed: int = 0, *, worker: Optional[int] = None):
         self.seed = int(seed)
+        self._base = self.seed if worker is None else _mix(self.seed, (1 << 32) + int(worker))
         self._tables: Optional[Dict[str, torch.Tensor]] = None
         self._on: Dict[tuple, torch.Tensor] = {}
         self._gens: Dict[torch.device, torch.Generator] = {}
@@ -152,7 +158,7 @@ class NoiseStream:
         gen = self._gens.get(device)
         if gen is None:
             gen = self._gens[device] = torch.Generator(device=device)
-        gen.manual_seed(_mix(_mix(self.seed, t), 2 * i + _SLOTS[slot] + 1))
+        gen.manual_seed(_mix(_mix(self._base, t), 2 * i + _SLOTS[slot] + 1))
         return torch.rand(dim, generator=gen, device=device, dtype=torch.float32)
 
 

@@ -96,6 +96,11 @@ def payload(carry, history: Dict[str, list], masks=None) -> Dict[str, object]:
     return leaves
 
 
+def wants_save(boundary_index: int, last: bool, save_every: int) -> bool:
+    """The save policy: every ``save_every``-th segment boundary, and the last."""
+    return last or (boundary_index + 1) % save_every == 0
+
+
 class RunCheckpointer:
     """When to save and what: the engine asks ``want(boundary_index, last)``
     at every segment boundary and, on yes, hands the carry, the history so
@@ -123,7 +128,7 @@ class RunCheckpointer:
             )
 
     def want(self, boundary_index: int, last: bool) -> bool:
-        return last or (boundary_index + 1) % self.save_every == 0
+        return wants_save(boundary_index, last, self.save_every)
 
     def save_segment(self, *, t: int, carry, history: Dict[str, list], masks,
                      done: bool) -> None:

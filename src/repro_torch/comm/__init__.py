@@ -1,5 +1,5 @@
-from .base import DenseReducer, make_reducer, pmax, psum
+from .base import DenseReducer, WorkerGroup, make_reducer, pmax, psum
 from .int8 import Int8Reducer, verify_quantize_kernels
 
-__all__ = ["DenseReducer", "Int8Reducer", "make_reducer", "pmax", "psum",
+__all__ = ["DenseReducer", "Int8Reducer", "WorkerGroup", "make_reducer", "pmax", "psum",
            "verify_quantize_kernels"]

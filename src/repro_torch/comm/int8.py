@@ -3,13 +3,15 @@
 Per ``exchange`` of a (dim,) f32 vector, as in the JAX package's
 ``comm/int8.py``:
 
-1. the shared per-vector scale is ``pmax(max |x|)``, a 0-d device tensor
-   the host never reads;
+1. the shared per-vector scale is ``pmax(max |x|)`` over the workers (one
+   all-reduce MAX of a 0-d device tensor the host never reads);
 2. ``x`` is stochastically rounded onto the integer grid [-b, b],
    ``b = 127 // N`` for N workers, by the ``quantize`` kernel, with the
    exchange's uniform [0, 1) noise;
-3. the integers are summed (``psum``; the identity in one process) and stay
-   int8: the partial sums are bounded by N * b <= 127;
+3. the integers are summed over the workers (one int8 all-reduce SUM; the
+   identity in one process) and stay int8: every worker's integers lie in
+   [-b, b] because |x| <= s, so every partial sum is bounded by
+   N * b <= 127 and the int8 wire type cannot wrap;
 4. ``dequantize`` maps the sum back to f32 (* s / b).
 
 Stochastic rounding is unbiased (``E[q] = x * b / s``), so the power
@@ -17,26 +19,30 @@ method's direction is noisier but not biased. The reducer is stateless.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .. import resolve_device
 from ..kernels.quantize import ops as qops
 from ..kernels.quantize import ref as qref
-from .base import Noise, pmax, psum
+from .base import Noise, WorkerGroup, pmax, psum
 
 
 class Int8Reducer:
-    """Stateless int8 encoding of the power method's vector exchanges."""
+    """Stateless int8 encoding of the power method's vector exchanges,
+    summed over ``group`` (None: one process)."""
 
     spec = "int8"
 
-    def __init__(self, num_workers: int = 1):
+    def __init__(self, num_workers: int = 1, group: Optional[WorkerGroup] = None):
         if not 1 <= num_workers <= 127:
             raise ValueError(
                 f"int8 reducer supports 1..127 workers (got {num_workers}): "
                 "the per-worker budget 127 // N must stay >= 1"
             )
         self.num_workers = int(num_workers)
+        self.group = group
         self.exchanges = 0
 
     @property
@@ -47,13 +53,17 @@ class Int8Reducer:
         return ()
 
     def exchange(self, x: torch.Tensor, state, *, slot: str, noise: Noise = None):
-        """(dequantized int8 sum over workers of ``x``, state)."""
+        """(dequantized int8 sum over workers of ``x``, state). ``noise``
+        gives this worker's draws; a worker the straggler mask leaves out
+        has ``x`` = 0, which quantizes to 0, so no weight is needed here."""
         if noise is None:
             raise ValueError("the int8 reducer needs the exchange's noise (noise=...)")
         self.exchanges += 1
-        scale = pmax(torch.max(torch.abs(x)))
+        # max |x| in one reduction (exact in any order, so the bits of
+        # max(abs(x)) without its |x| temporary)
+        scale = pmax(torch.linalg.vector_norm(x, float("inf")), self.group)
         q = qops.quantize(x, noise(x.shape[0], x.device), scale, budget=self.budget)
-        total = psum(q)  # int8 on the wire
+        total = psum(q, self.group)  # int8 on the wire
         return qops.dequantize(total, scale, budget=self.budget), state
 
     def wire_bytes(self, dim: int, num_workers: int) -> int:

@@ -52,7 +52,8 @@ def task_state(state: Any, *, device: DeviceLike = None, d: int = None, m: int =
         return tasks.MTLSState(x=_f32(f["x"], dev), y=_f32(f["y"], dev), r=_f32(f["r"], dev))
     if set(f) == {"x", "y", "z"}:
         labels = torch.from_numpy(np.asarray(f["y"]).astype(np.int64)).to(dev)
-        return tasks.LogisticState(x=_f32(f["x"], dev), y=labels, z=_f32(f["z"], dev))
+        z = _f32(f["z"], dev)
+        return tasks.logistic_state(_f32(f["x"], dev), labels, z, z.shape[1])
     raise TypeError(f"no port state with fields {sorted(f)} (MTLS: x/y/r, logistic: x/y/z, "
                     "MC: rows/cols/vals/resid/weight)")
 

@@ -27,6 +27,12 @@ checkpointer does not want cost nothing.
 ``segments_planned``/``segments_run``, ``dispatches`` (epoch steps
 enqueued, plus the final loss in ``fit``) and ``host_syncs`` (every point
 where the host waits for the device).
+
+With ``group`` (a ``comm.WorkerGroup``) the engine runs one worker of a
+multi-worker run: every worker runs this same loop on its own rows, and
+every aggregate of an epoch is an all-reduce over the group. ``masks`` is
+the run's (num_epochs, N) straggler-weight table on the host; worker j
+takes column j of row t as its weight in epoch t.
 """
 from __future__ import annotations
 
@@ -36,7 +42,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 import torch
 
 from .. import NoiseStream, as_v0_stream
-from ..comm.base import DenseReducer
+from ..comm.base import DenseReducer, WorkerGroup
 from ..specs import validate
 from . import low_rank
 from .frank_wolfe import EpochAux, EpochCarry, init_carry, k_schedule, make_epoch_step
@@ -106,6 +112,7 @@ class EngineResult:
     history: Dict[str, list]
     epochs_run: int
     stats: Dict[str, int]
+    masks: Optional[torch.Tensor] = None  # (epochs_run, N) weights, if given
 
 
 _HISTORY_KEYS = ("loss", "gap", "sigma", "gamma")
@@ -167,8 +174,12 @@ def run_epochs(
     solver="rank1",
     noise: Optional[NoiseStream] = None,
     checkpointer=None,
+    group: Optional[WorkerGroup] = None,
+    masks=None,
 ) -> EngineResult:
-    """Run up to ``num_epochs`` DFW-Trace epochs of one worker on ``device``.
+    """Run up to ``num_epochs`` DFW-Trace epochs of one worker on ``device``
+    (``group``: one worker of that group; ``masks``: the (num_epochs, N)
+    straggler weights, see the module doc).
 
     ``iterate`` defaults to a fresh store of ``max_rank`` capacity (validated
     >= num_epochs). ``start_t``/``initial_history``/``iterate``/``state``
@@ -189,8 +200,16 @@ def run_epochs(
                     f"start_t={start_t}; pass the restored prefix unmodified"
                 )
     validate(solver=solver)
+    workers, rank = (1, 0) if group is None else (group.size, group.rank)
+    if masks is not None:
+        masks = torch.as_tensor(masks, dtype=torch.float32).cpu()
+        if tuple(masks.shape) != (num_epochs, workers):
+            raise ValueError(
+                f"masks has shape {tuple(masks.shape)}; want (num_epochs, workers) = "
+                f"({num_epochs}, {workers})"
+            )
     if reducer is None:
-        reducer = DenseReducer()
+        reducer = DenseReducer(group)
     key = as_v0_stream(key)
     if noise is None:
         noise = NoiseStream(key.seed)
@@ -218,18 +237,23 @@ def run_epochs(
     for i, seg in enumerate(segments):
         epoch = make_epoch_step(
             task, mu, seg.k, step_size=step_size, reducer=reducer, solver=solver,
-            noise=noise,
+            noise=noise, group=group,
         )
         rows: List[EpochAux] = []
         for _ in range(seg.length):
             if stopped:
                 rows.append(nan_row)
                 continue
-            carry, aux = epoch(carry)
+            weight = None if masks is None else float(masks[carry.t, rank])
+            carry, aux = epoch(carry, weight)
             stats["dispatches"] += 1
             epochs_run += 1
             rows.append(aux)
             if tol is not None:
+                # The gap comes from all-reduced values (<W, grad> and the
+                # exchanged vector's norm), the same bits on every worker, so
+                # every worker reads the same verdict and stops at the same
+                # epoch.
                 stats["host_syncs"] += 1
                 stopped = bool(aux.gap <= tol)
         stats["segments_run"] += 1
@@ -247,7 +271,7 @@ def run_epochs(
             stats["host_syncs"] += 1
             checkpointer.save_segment(
                 t=epochs_run, carry=carry, history=_history(initial_history, blocks, epochs_run),
-                masks=None, done=stopped,
+                masks=None if masks is None else masks.numpy(), done=stopped,
             )
         if stopped:
             break
@@ -256,4 +280,5 @@ def run_epochs(
         _fetch(blocks)
         stats["host_syncs"] += 1
     history = _history(initial_history, blocks, epochs_run)
-    return EngineResult(carry=carry, history=history, epochs_run=epochs_run, stats=stats)
+    return EngineResult(carry=carry, history=history, epochs_run=epochs_run, stats=stats,
+                        masks=None if masks is None else masks[:epochs_run])

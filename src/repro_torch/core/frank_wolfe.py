@@ -8,7 +8,7 @@ computes stays on the device: the step size, the gap and the aux row are
 
 Every epoch consumes and produces one ``EpochCarry``, in the JAX package's
 field layout. Execution lives in ``core/engine.py``; ``fit`` below is the
-serial driver on top of it.
+driver on top of it, for one process or for one worker of a group.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import torch
 
 from .. import DeviceLike, NoiseStream, V0Stream, as_v0_stream, resolve_device
-from ..comm.base import DenseReducer, psum
+from ..comm.base import DenseReducer, WorkerGroup, psum
 from ..specs import validate
 from . import low_rank
 from .power_method import power_iterations
@@ -120,12 +120,20 @@ def make_epoch_step(
     reducer: Optional[DenseReducer] = None,
     solver="rank1",
     noise: Optional[NoiseStream] = None,
+    group: Optional[WorkerGroup] = None,
 ) -> Callable:
-    """Returns ``epoch(carry) -> (carry, aux)`` with K = ``num_power_iters``.
+    """Returns ``epoch(carry, worker_weight=None) -> (carry, aux)`` with K =
+    ``num_power_iters``.
 
     The scalar aggregates (loss, <W, grad>, line-search terms) always stay
-    exact; ``reducer`` carries the power method's vector exchanges, with
-    ``noise`` (default ``NoiseStream(0)``) for stochastic encodings.
+    exact f32 sums over ``group`` (None: one process); ``reducer`` carries
+    the power method's vector exchanges, with ``noise`` (default
+    ``NoiseStream(0)``) for stochastic encodings. ``worker_weight`` is this
+    worker's straggler weight for the epoch: it scales the worker's loss,
+    <W, grad>, line-search terms and power-method contributions, as in the
+    reference (None: full participation, no multiply). The state, the
+    iterate and the aux are the same on every worker after the epoch: every
+    worker forms them from the same all-reduced values.
     """
     if step_size not in ("default", "linesearch"):
         raise ValueError(step_size)
@@ -142,12 +150,19 @@ def make_epoch_step(
     if noise is None:
         noise = NoiseStream(0)
 
-    def epoch(carry: EpochCarry):
+    def sums(w, *local):
+        """The workers' sums of the w-weighted local scalars, in one all-reduce."""
+        if w is not None:
+            local = tuple(w * x for x in local)
+        if group is None:
+            return local
+        return tuple(psum(torch.stack(local), group).unbind())
+
+    def epoch(carry: EpochCarry, worker_weight: Optional[float] = None):
         state, it = carry.state, carry.iterate
         device = it.alpha.device
         t = torch.full((), float(carry.t), dtype=torch.float32, device=device)
-        loss = psum(task.local_loss(state))
-        inner = psum(task.inner_w_grad(state))
+        loss, inner = sums(worker_weight, task.local_loss(state), task.inner_w_grad(state))
 
         v0 = carry.key(carry.t, task.m, device)
         res, comm_state = power_iterations(
@@ -159,12 +174,12 @@ def make_epoch_step(
             comm_state=carry.comm_state,
             noise=noise,
             t=carry.t,
+            worker_weight=worker_weight,
         )
         gap = duality_gap(inner, res.sigma, mu)
 
         if step_size == "linesearch":
-            numer, denom = task.linesearch_terms(state, res.u, res.v, mu)
-            numer, denom = psum(numer), psum(denom)
+            numer, denom = sums(worker_weight, *task.linesearch_terms(state, res.u, res.v, mu))
             gamma = torch.clamp(numer / torch.clamp(denom, min=1e-30), 0.0, 1.0)
         else:
             gamma = default_step_size(t)
@@ -184,7 +199,7 @@ def make_epoch_step(
 
 
 # ---------------------------------------------------------------------------
-# Serial driver
+# Driver
 # ---------------------------------------------------------------------------
 
 
@@ -193,7 +208,9 @@ class FitResult:
     """``history`` entries are *pre-update* measurements; ``final_loss`` is F
     at the returned iterate. ``epochs_run`` < the requested count when the
     gap certificate stopped the run; histories are truncated to it.
-    ``stats`` are the engine's counters (see ``core/engine.py``)."""
+    ``stats`` are the engine's counters (see ``core/engine.py``); ``masks``
+    the straggler weights of the epochs run, (epochs_run, N), when the run
+    was given them."""
 
     iterate: low_rank.FactoredIterate
     state: PyTree
@@ -201,6 +218,7 @@ class FitResult:
     final_loss: float = float("nan")
     epochs_run: int = 0
     stats: Dict[str, int] = dataclasses.field(default_factory=dict)
+    masks: Optional[torch.Tensor] = None
 
 
 def fit(
@@ -224,8 +242,16 @@ def fit(
     noise: Optional[NoiseStream] = None,
     checkpointer=None,
     device: DeviceLike = None,
+    group: Optional[WorkerGroup] = None,
+    masks=None,
 ) -> FitResult:
     """Run DFW-TRACE for up to ``num_epochs`` epochs on ``device``.
+
+    ``state`` is this worker's rows. ``group`` (a ``comm.WorkerGroup``)
+    makes this call one worker of a multi-worker run: every aggregate is
+    summed over the group, and every worker must make the same call on its
+    own rows. ``masks`` is the (num_epochs, N) straggler-weight table, of
+    which this worker reads its own column (see ``core/engine.py``).
 
     ``key`` is an int seed or a ``repro_torch.V0Stream``; ``noise`` is the
     stochastic encodings' ``NoiseStream`` (default: seeded like ``key``).
@@ -268,8 +294,12 @@ def fit(
         noise=noise,
         checkpointer=checkpointer,
         device=dev,
+        group=group,
+        masks=masks,
     )
-    final_loss = float(task.local_loss(eres.carry.state))
+    # F at the returned iterate over all the workers' rows: the plain sum,
+    # never weighted by the straggler masks.
+    final_loss = float(psum(task.local_loss(eres.carry.state), group))
     eres.stats["dispatches"] += 1
     eres.stats["host_syncs"] += 1
     return FitResult(
@@ -279,4 +309,5 @@ def fit(
         final_loss=final_loss,
         epochs_run=eres.epochs_run,
         stats=eres.stats,
+        masks=eres.masks,
     )

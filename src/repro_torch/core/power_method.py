@@ -1,8 +1,9 @@
 """Power method on the implicit gradient (paper Alg. 2, lines 5-10).
 
 The paper's workers send ``grad_j @ v`` to a master that sums and broadcasts;
-here every aggregate goes through the comm chokepoint (``comm.base``), which
-is the identity for one process. Only O(d+m) vectors would cross the wire.
+here every aggregate goes through the comm chokepoint (``comm.base``): an
+all-reduce over the workers' process group, the identity for one process.
+Only O(d+m) vectors cross the wire.
 A reducer with a stochastic encoding (int8) draws each exchange's noise from
 a ``repro_torch.NoiseStream`` at (epoch t, iteration i, slot).
 """
@@ -42,6 +43,7 @@ def power_iterations(
     comm_state=(),
     noise=None,
     t: int = 0,
+    worker_weight: Optional[float] = None,
 ):
     """Run ``num_iters`` two-sided power iterations on the implicit operator.
 
@@ -56,6 +58,11 @@ def power_iterations(
     and the epoch ``t`` give exchange (i, slot) its noise ``noise(t, i,
     slot, dim, device)``.
 
+    ``worker_weight`` is this worker's straggler weight for the epoch: its
+    contributions are ``w * matvec(v)`` and ``w * rmatvec(u)`` (0 for a
+    worker left out, N / alive for the others under reweighting), as in the
+    reference. ``None`` means full participation and multiplies by nothing.
+
     Returns ``(PowerResult, comm_state)``.
     """
     if num_iters < 1:
@@ -69,13 +76,16 @@ def power_iterations(
     def draw(i, slot):
         return None if noise is None else partial(noise, t, i, slot)
 
+    def weighted(x):
+        return x if worker_weight is None else worker_weight * x
+
     v = v0
     for i in range(num_iters):
         uu, comm_state = reducer.exchange(
-            matvec(v), comm_state, slot="u", noise=draw(i, "u"))
+            weighted(matvec(v)), comm_state, slot="u", noise=draw(i, "u"))
         u = uu / (torch.linalg.vector_norm(uu) + _EPS)
         vv, comm_state = reducer.exchange(
-            rmatvec(u), comm_state, slot="v", noise=draw(i, "v"))
+            weighted(rmatvec(u)), comm_state, slot="v", noise=draw(i, "v"))
         sigma = torch.linalg.vector_norm(vv)
         v = vv / (sigma + _EPS)
     return PowerResult(u=u, v=v, sigma=sigma), comm_state

@@ -122,9 +122,26 @@ class MultiTaskLeastSquares:
 
 
 class LogisticState(NamedTuple):
+    """The logits Z = X W instead of the gradient. ``label_perm`` (the rows
+    sorted by label, stably) and ``label_counts`` (rows per label) are
+    derived from ``y`` when the state is built (``DERIVED``: not written to
+    a checkpoint); they make the label sum H^T t a segment sum in a fixed
+    order, so a run gives the same bits every time."""
+
     x: torch.Tensor  # (n_j, d)
     y: torch.Tensor  # (n_j,) int64 labels
     z: torch.Tensor  # (n_j, m) logits X W
+    label_perm: torch.Tensor  # (n_j,) int64
+    label_counts: torch.Tensor  # (m,) int64
+
+    DERIVED = ("label_perm", "label_counts")
+
+
+def logistic_state(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor, m: int) -> LogisticState:
+    """A ``LogisticState`` from its samples, labels (int64) and logits, with
+    the label order built."""
+    return LogisticState(x=_f32(x, "x"), y=y, z=z, label_perm=torch.sort(y, stable=True).indices,
+                         label_counts=torch.bincount(y, minlength=m))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,15 +155,16 @@ class MultinomialLogistic:
         if bool(((y < 0) | (y >= self.m)).any()):
             raise ValueError(f"labels must lie in [0, {self.m})")
         z = torch.zeros((x.shape[0], self.m), dtype=torch.float32, device=x.device)
-        return LogisticState(x=_f32(x, "x"), y=y.long(), z=z)
+        return logistic_state(x, y.long(), z, self.m)
 
     def _probs(self, s: LogisticState) -> torch.Tensor:
         return torch.softmax(s.z, dim=-1)
 
     def _label_sum(self, s: LogisticState, t: torch.Tensor) -> torch.Tensor:
-        """H^T t: t summed per label. ``index_add_`` uses atomics on CUDA, so
-        its summation order (and last bits) can differ from run to run."""
-        return torch.zeros(self.m, dtype=t.dtype, device=t.device).index_add_(0, s.y, t)
+        """H^T t: t summed per label, each label's rows in row order (a
+        segment sum; ``index_add_`` would add with atomics on CUDA, in an
+        order that changes from run to run)."""
+        return torch.segment_reduce(t[s.label_perm], "sum", lengths=s.label_counts, unsafe=True)
 
     # grad = X^T (P - H); H is one-hot(y). Never materialized.
     def matvec(self, s: LogisticState, v: torch.Tensor) -> torch.Tensor:
@@ -161,7 +179,7 @@ class MultinomialLogistic:
         # Z' = (1-g) Z - g mu (X u) v^T, in place.
         xu = pm_ops.matvec(s.x, u)
         z = r1_ops.rank1_update(s.z, xu, v, 1.0 - gamma, -(gamma * mu), out=s.z)
-        return LogisticState(x=s.x, y=s.y, z=z)
+        return s._replace(z=z)
 
     def local_loss(self, s: LogisticState) -> torch.Tensor:
         def loss(z, y):

@@ -1,33 +1,48 @@
 """DFW-Trace execution layer, the port's counterpart of ``repro.launch.dfw``.
 
-This slice ports the serial driver: ``fit_serial`` runs one worker on one
-device for the three paper tasks, with solver ``rank1``, topology ``flat``
-and comm ``dense`` or ``int8`` (a one-worker int8 reducer, the serial
-baseline of the compressed runs). ``KernelizedTask`` routes the power
-method's matvecs through the hand-written ``power_matvec`` kernels (dense
-tasks) and ``mc_matvec`` kernel (matrix completion), and the dense tasks'
-update goes through ``rank1_update``; ``verify_kernelized`` (and, for int8,
+Two drivers, for the three paper tasks, with solver ``rank1``, topology
+``flat`` and comm ``dense`` or ``int8``:
+
+- ``fit`` is the multi-worker run (paper Alg. 2): one process per worker
+  over a ``torch.distributed`` process group (``comm.WorkerGroup``), each
+  holding its row block of the data on its own device, the iterate, the
+  scalars and the start vectors replicated, and every aggregate an
+  all-reduce through ``comm``. ``worker_schedule`` draws the sampled-worker
+  (straggler) weights. ``run_workers`` starts N such processes on one host.
+- ``fit_serial`` runs one worker on one device (int8 at the full 127-level
+  budget, the serial baseline of the compressed runs).
+
+``KernelizedTask`` routes the power method's matvecs through the
+hand-written ``power_matvec`` kernels (dense tasks) and ``mc_matvec`` kernel
+(matrix completion), and the dense tasks' update goes through
+``rank1_update``; ``verify_kernelized`` (and, for int8,
 ``comm.verify_quantize_kernels``) holds the kernel route to the plain
 versions before a run starts. ``shard_observations`` lays out matrix
 completion entries as the JAX package does.
 
-``DFWConfig(checkpoint_dir=...)`` makes ``fit_serial`` write run checkpoints
-in the JAX package's layout and payload format (``repro_torch.checkpoint``),
-which the serving engine and the JAX package's readers load. The sharded
-driver, the straggler schedule, resuming and telemetry come with later
-slices; a ``DFWConfig`` that asks for them is rejected.
+``DFWConfig(checkpoint_dir=...)`` makes a run write checkpoints in the JAX
+package's layout and payload format (``repro_torch.checkpoint``), which the
+serving engine and the JAX package's readers load; in a multi-worker run
+worker 0 writes the whole state. Resuming, the other solvers, encodings and
+topologies, and telemetry come with later slices; a ``DFWConfig`` that asks
+for them is rejected.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+import datetime
+import os
+import pickle
+import tempfile
+import traceback
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from .. import DeviceLike, NoiseStream, as_v0_stream, resolve_device
+from .. import DeviceLike, NoiseStream, _mix, as_v0_stream, resolve_device
 from ..checkpoint import dfw as ckpt
-from ..comm import Int8Reducer, make_reducer, verify_quantize_kernels
+from ..comm import Int8Reducer, WorkerGroup, make_reducer, verify_quantize_kernels
 from ..core import engine, frank_wolfe, low_rank, tasks
 from ..core.frank_wolfe import EpochAux
 from ..core.power_method import sphere_vector
@@ -47,13 +62,16 @@ PyTree = Any
 class DFWConfig:
     """Knobs of one DFW-Trace run, with the JAX package's field names.
 
-    The port runs the fields in the first group. Every field of the second
-    group belongs to a path not yet ported (multi-worker sampling, other
-    solvers/encodings/graphs, Pallas, resume, telemetry) and must keep
-    its default; anything else raises ``NotYetPorted`` when the config is
-    built. The port has no ``kernelize`` switch: the run always goes through
-    ``KernelizedTask``, whose ops pick the kernel or the plain version by the
-    tensors' device.
+    The port runs the fields in the first group. ``sample_prob`` < 1 turns
+    on the sampled-worker (straggler) mode of ``fit``, with survivors
+    reweighted to N / alive under ``reweight``; ``data_axis`` names the
+    worker axis in the reference and is accepted and unused here (the
+    workers are the process group's ranks). Every field of the second group
+    belongs to a path not yet ported (other solvers/encodings/graphs,
+    Pallas, resume, telemetry) and must keep its default; anything else
+    raises ``NotYetPorted`` when the config is built. The port has no
+    ``kernelize`` switch: the run always goes through ``KernelizedTask``,
+    whose ops pick the kernel or the plain version by the tensors' device.
     """
 
     mu: float
@@ -70,11 +88,11 @@ class DFWConfig:
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 1
     checkpoint_keep: Optional[int] = 2
-    # --- not yet ported: must keep these defaults ---
-    gossip_rounds: Optional[int] = None
     data_axis: str = "data"
     sample_prob: float = 1.0
     reweight: bool = True
+    # --- not yet ported: must keep these defaults ---
+    gossip_rounds: Optional[int] = None
     use_pallas: Optional[bool] = None
     interpret: bool = False
     engine: str = "scan"
@@ -87,6 +105,8 @@ class DFWConfig:
         frank_wolfe.k_schedule(self.schedule)
         if self.step_size not in ("default", "linesearch"):
             raise ValueError(f"step_size={self.step_size!r}")
+        if not 0.0 < self.sample_prob <= 1.0:
+            raise ValueError(f"sample_prob={self.sample_prob}: must lie in (0, 1]")
         for f in dataclasses.fields(self):
             if f.name in _UNPORTED and getattr(self, f.name) != f.default:
                 raise NotYetPorted(
@@ -97,9 +117,6 @@ class DFWConfig:
 
 _UNPORTED = {
     "gossip_rounds": "gossip topology",
-    "data_axis": "the multi-worker mesh",
-    "sample_prob": "the straggler (sampled-worker) mode",
-    "reweight": "the straggler (sampled-worker) mode",
     "use_pallas": "Pallas dispatch (the port picks the kernel by tensor device)",
     "interpret": "Pallas interpret mode",
     "engine": "the legacy per-epoch engine",
@@ -114,7 +131,7 @@ class DFWFitResult:
     iterate: low_rank.FactoredIterate
     state: PyTree
     history: Dict[str, list]  # loss/gap/sigma/gamma/k per epoch (pre-update)
-    masks: Optional[torch.Tensor]  # straggler masks; None (one worker)
+    masks: Optional[torch.Tensor]  # (epochs_run, N) worker weights; None unless sampling
     final_loss: float = float("nan")  # F at the returned iterate
     epochs_run: int = 0  # < num_epochs when gap_tol stopped the run
     stats: Dict[str, int] = dataclasses.field(default_factory=dict)
@@ -249,26 +266,99 @@ def shard_observations(rows, cols, vals, num_workers: int, d: int, *,
 
 
 # ---------------------------------------------------------------------------
+# Sampled-worker (straggler) schedule
+# ---------------------------------------------------------------------------
+
+
+def worker_schedule(key, num_epochs: int, num_workers: int, sample_prob: float, *,
+                    reweight: bool = True, table=None) -> torch.Tensor:
+    """(num_epochs, num_workers) float32 per-epoch worker weights, on the host.
+
+    Each worker takes part in an epoch independently with ``sample_prob``
+    (the paper's sampled-worker/straggler-timeout model); when a draw leaves
+    no worker, one drawn uniformly is kept, so the LMO stays defined. With
+    ``reweight`` the survivors weigh num_workers / alive, so the summed
+    loss, gap and line-search terms are unbiased estimates of their
+    full-data values under equal shard sizes. The draws come from a CPU
+    ``torch.Generator`` seeded from ``key`` (an int seed or a ``V0Stream``),
+    so every worker computes the same table. ``table`` injects a (T, N)
+    table instead (the parity tests hand in the JAX run's).
+    """
+    if table is not None:
+        table = torch.as_tensor(table, dtype=torch.float32).cpu()
+        if tuple(table.shape) != (num_epochs, num_workers):
+            raise ValueError(f"masks table has shape {tuple(table.shape)}; want "
+                             f"({num_epochs}, {num_workers})")
+        return table
+    gen = torch.Generator()
+    gen.manual_seed(_mix(as_v0_stream(key).seed, 0x1A5C))
+    alive = torch.rand((num_epochs, num_workers), generator=gen) < sample_prob
+    force = torch.randint(0, num_workers, (num_epochs,), generator=gen)
+    none = ~alive.any(dim=1)
+    alive[none, force[none]] = True
+    w = alive.to(torch.float32)
+    if reweight:
+        alive_count = w.sum(dim=1, keepdim=True)
+        w = w * (torch.full_like(alive_count, float(num_workers)) / alive_count)
+    return w
+
+
+# ---------------------------------------------------------------------------
 # Drivers
 # ---------------------------------------------------------------------------
 
 
-def _make_checkpointer(task, cfg: DFWConfig, comm_spec: str
+def _make_checkpointer(task, cfg: DFWConfig, comm_spec: str, num_workers: int = 1
                        ) -> Optional[ckpt.RunCheckpointer]:
-    """The serial run's checkpointer (one worker), or None without a dir."""
+    """The run's checkpointer, or None without a dir. The run owns the dir:
+    steps an earlier run left there are removed."""
     if cfg.checkpoint_dir is None:
         return None
-    return ckpt.RunCheckpointer(
+    checkpointer = ckpt.RunCheckpointer(
         cfg.checkpoint_dir,
         save_every=cfg.checkpoint_every,
         keep_last=cfg.checkpoint_keep,
         extra=ckpt.run_extra(
-            task, num_workers=1, comm=comm_spec, num_epochs=cfg.num_epochs,
+            task, num_workers=num_workers, comm=comm_spec, num_epochs=cfg.num_epochs,
             schedule=cfg.schedule, mu=cfg.mu, step_size=cfg.step_size,
             sample_prob=cfg.sample_prob, reweight=cfg.reweight, solver=cfg.solver,
             topology=cfg.topology,
         ),
     )
+    checkpointer.store.discard_after(0)
+    return checkpointer
+
+
+class _WorkerCheckpointer:
+    """A multi-worker run's checkpointer. Every worker asks ``want`` at the
+    same boundaries (``RunCheckpointer``'s policy); at a saved one every
+    worker hands in its rows of the state (one all-gather a saved field) and
+    worker 0, which holds ``inner``, writes the whole state, in rank order
+    (the reference's global row layout), with the engine's (num_epochs, N)
+    worker weights: ones without sampling, as the reference saves them."""
+
+    def __init__(self, inner: Optional[ckpt.RunCheckpointer], group: Optional[WorkerGroup],
+                 save_every: int, num_epochs: int, workers: int):
+        self.inner, self.group, self.save_every = inner, group, save_every
+        self.unsampled = np.ones((num_epochs, workers), np.float32)
+
+    def want(self, boundary_index: int, last: bool) -> bool:
+        return ckpt.wants_save(boundary_index, last, self.save_every)
+
+    def save_segment(self, *, t: int, carry, history, masks, done: bool) -> None:
+        state = carry.state
+        if self.group is not None:
+            derived = getattr(state, "DERIVED", ())
+            state = state._replace(**{
+                name: self.group.all_gather_rows(val) for name, val in zip(state._fields, state)
+                if isinstance(val, torch.Tensor) and name not in derived})
+        if self.inner is not None:
+            self.inner.save_segment(t=t, carry=carry._replace(state=state), history=history,
+                                    masks=self.unsampled if masks is None else masks, done=done)
+
+    def wait(self) -> None:
+        if self.inner is not None:
+            self.inner.wait()
 
 
 def _as_tensor(a, device: torch.device) -> torch.Tensor:
@@ -278,6 +368,118 @@ def _as_tensor(a, device: torch.device) -> torch.Tensor:
     if not isinstance(a, torch.Tensor):
         raise TypeError(f"expected a torch.Tensor or numpy array, got {type(a).__name__}")
     return a.to(device)
+
+
+def _run(task, x, y, *, cfg: DFWConfig, key, noise, callback, dev, group, masks, checkpointer,
+         num_workers: int) -> DFWFitResult:
+    """The run both drivers share, on this worker's rows ``x``, ``y``."""
+    ktask = kernelize(task)
+    reducer = make_reducer(cfg.comm, num_workers=num_workers, group=group)
+    if cfg.verify_kernels:
+        rows = min(x.shape[0], 64)
+        verify_kernelized(task, ktask, task.init_state(x[:rows], y[:rows]), seed=0x5EED)
+        if isinstance(reducer, Int8Reducer):
+            verify_quantize_kernels(num_workers=reducer.num_workers, device=dev)
+    state = ktask.init_state(x, y)
+    collectives = 0 if group is None else group.all_reduces
+    res = frank_wolfe.fit(
+        ktask,
+        state,
+        mu=cfg.mu,
+        num_epochs=cfg.num_epochs,
+        key=key,
+        schedule=cfg.schedule,
+        step_size=cfg.step_size,
+        callback=callback,
+        reducer=reducer,
+        max_rank=engine.resolve_max_rank(cfg.max_rank, cfg.num_epochs),
+        gap_tol=cfg.gap_tol,
+        block_epochs=cfg.block_epochs,
+        solver=cfg.solver,
+        noise=noise,
+        checkpointer=checkpointer,
+        device=dev,
+        group=group,
+        masks=masks,
+    )
+    if checkpointer is not None:
+        checkpointer.wait()
+    if group is not None:
+        res.stats["all_reduces"] = group.all_reduces - collectives
+    return DFWFitResult(
+        iterate=res.iterate, state=res.state, history=res.history, masks=res.masks,
+        final_loss=res.final_loss, epochs_run=res.epochs_run, stats=res.stats,
+    )
+
+
+def fit(
+    task,
+    x,
+    y,
+    *,
+    cfg: DFWConfig,
+    key=0,
+    noise: Optional[NoiseStream] = None,
+    group: Optional[WorkerGroup] = None,
+    device: DeviceLike = None,
+    masks=None,
+    callback: Optional[Callable[[int, EpochAux], None]] = None,
+) -> DFWFitResult:
+    """Multi-worker DFW-Trace: this process's part of a run over ``group``
+    (a ``comm.WorkerGroup``; None: one process), on ``device`` (CUDA unless
+    "cpu" is given). Every worker calls ``fit`` with the same arguments.
+
+    ``x``/``y`` are the whole data set (torch tensors or numpy arrays):
+    the samples and targets of the dense tasks, or matrix completion's
+    ``(idx, yw)`` from ``shard_observations(..., N, d)``. Their leading
+    dimension n must be divisible by the N workers (``ValueError``
+    otherwise, as in the reference); worker j takes rows ``[j n/N, (j+1)
+    n/N)`` (for ``shard_observations``' layout, its own shard) and moves
+    only those to ``device``. The iterate, the scalars and the start
+    vectors (``key``: an int seed or a ``V0Stream``) are replicated; every
+    aggregate is summed over the group (``comm``): per power iteration two
+    vector exchanges, per epoch one all-reduce of the loss and <W, grad>
+    and, with the line search, one of its two terms. ``noise`` is this
+    worker's int8 noise (default ``NoiseStream(seed, worker=j)``).
+
+    ``cfg.sample_prob`` < 1 samples the workers per epoch
+    (``worker_schedule``, or the injected (num_epochs, N) ``masks``
+    table): a worker left out contributes zero, the others N / alive under
+    ``cfg.reweight``; ``masks`` of the epochs run come back in the result.
+    With ``cfg.verify_kernels`` each worker first holds the kernel route to
+    the plain operator chain on its first 64 rows (and under int8 the
+    quantize pair at the budget 127 // N). ``final_loss`` is the full-data
+    loss at the returned iterate, never weighted. With
+    ``cfg.checkpoint_dir`` worker 0 writes the run's checkpoints with the
+    whole state (gathered from the workers at each saved boundary), in the
+    reference's layout.
+    """
+    dev = resolve_device(device)
+    workers, rank = (1, 0) if group is None else (group.size, group.rank)
+    n = x.shape[0]
+    if n % workers:
+        raise ValueError(
+            f"leading dim {n} not divisible by {workers} workers; pad or trim the sample "
+            "axis before sharding"
+        )
+    lo, hi = rank * (n // workers), (rank + 1) * (n // workers)
+    x, y = _as_tensor(x[lo:hi], dev), _as_tensor(y[lo:hi], dev)
+    key = as_v0_stream(key)
+    if noise is None:
+        noise = NoiseStream(key.seed, worker=None if group is None else rank)
+    sampling = cfg.sample_prob < 1.0
+    if masks is not None and not sampling:
+        raise ValueError("masks= injects the straggler schedule; it needs sample_prob < 1")
+    table = (worker_schedule(key, cfg.num_epochs, workers, cfg.sample_prob,
+                             reweight=cfg.reweight, table=masks) if sampling else None)
+    checkpointer = None
+    if cfg.checkpoint_dir is not None:
+        checkpointer = _WorkerCheckpointer(
+            _make_checkpointer(task, cfg, cfg.comm, workers) if rank == 0 else None, group,
+            cfg.checkpoint_every, cfg.num_epochs, workers,
+        )
+    return _run(task, x, y, cfg=cfg, key=key, noise=noise, callback=callback, dev=dev,
+                group=group, masks=table, checkpointer=checkpointer, num_workers=workers)
 
 
 def fit_serial(
@@ -300,6 +502,8 @@ def fit_serial(
     reducer's ``repro_torch.NoiseStream`` (default: seeded like ``key``).
     ``cfg.comm`` is honoured with a one-worker reducer: int8 runs at the
     full 127-level budget, the serial baseline of the compressed runs.
+    ``cfg.sample_prob`` < 1 is rejected, as in the reference: the straggler
+    model samples workers, and a serial run has one.
 
     The power method runs through the kernels, and with ``cfg.verify_kernels``
     that route is first held to the plain operator chain on the first 64
@@ -312,40 +516,105 @@ def fit_serial(
     boundary (and the last) is saved, the newest ``cfg.checkpoint_keep`` are
     kept, and the writer is joined before this returns.
     """
+    if cfg.sample_prob < 1.0:
+        raise ValueError(
+            f"sample_prob={cfg.sample_prob} needs multiple workers to sample "
+            "from; fit_serial runs exactly one. Use fit(..., group=WorkerGroup()) "
+            "in each of N worker processes (run_workers) for the straggler mode, "
+            "or set sample_prob=1.0"
+        )
     dev = resolve_device(device)
-    ktask = kernelize(task)
     x, y = _as_tensor(x, dev), _as_tensor(y, dev)
-    reducer = make_reducer(cfg.comm, num_workers=1)
-    if cfg.verify_kernels:
-        rows = min(x.shape[0], 64)
-        verify_kernelized(task, ktask, task.init_state(x[:rows], y[:rows]), seed=0x5EED)
-        if isinstance(reducer, Int8Reducer):
-            verify_quantize_kernels(num_workers=reducer.num_workers, device=dev)
-    state = ktask.init_state(x, y)
-    checkpointer = _make_checkpointer(task, cfg, reducer.spec)
-    if checkpointer is not None:
-        checkpointer.store.discard_after(0)
-    res = frank_wolfe.fit(
-        ktask,
-        state,
-        mu=cfg.mu,
-        num_epochs=cfg.num_epochs,
-        key=as_v0_stream(key),
-        schedule=cfg.schedule,
-        step_size=cfg.step_size,
-        callback=callback,
-        reducer=reducer,
-        max_rank=engine.resolve_max_rank(cfg.max_rank, cfg.num_epochs),
-        gap_tol=cfg.gap_tol,
-        block_epochs=cfg.block_epochs,
-        solver=cfg.solver,
-        noise=noise,
-        checkpointer=checkpointer,
-        device=dev,
-    )
-    if checkpointer is not None:
-        checkpointer.wait()
-    return DFWFitResult(
-        iterate=res.iterate, state=res.state, history=res.history, masks=None,
-        final_loss=res.final_loss, epochs_run=res.epochs_run, stats=res.stats,
-    )
+    return _run(task, x, y, cfg=cfg, key=as_v0_stream(key), noise=noise, callback=callback,
+                dev=dev, group=None, masks=None, checkpointer=_make_checkpointer(task, cfg, cfg.comm),
+                num_workers=1)
+
+
+# ---------------------------------------------------------------------------
+# Worker processes on one host
+# ---------------------------------------------------------------------------
+
+
+# How long a worker waits in one collective for the others before it fails.
+_COLLECTIVE_TIMEOUT = datetime.timedelta(seconds=600)
+
+
+def _worker_main(rank: int, num_workers: int, tmp: str, backend: str, device_type: str,
+                 fn, args) -> None:
+    import torch.distributed as dist
+
+    try:
+        if device_type == "cuda":
+            device = torch.device("cuda", rank % torch.cuda.device_count())
+            torch.cuda.set_device(device)
+        else:
+            device = torch.device("cpu")
+            # the workers share the host's cores
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // num_workers))
+        dist.init_process_group(
+            backend, store=dist.FileStore(os.path.join(tmp, "store"), num_workers), rank=rank,
+            world_size=num_workers, timeout=_COLLECTIVE_TIMEOUT)
+        try:
+            result = fn(WorkerGroup(), device, *args)
+        finally:
+            dist.destroy_process_group()
+        with open(os.path.join(tmp, f"result{rank}.pkl"), "wb") as f:
+            pickle.dump(result, f)
+    except BaseException as e:
+        try:
+            blob = pickle.dumps((e, traceback.format_exc()))
+        except Exception:
+            blob = pickle.dumps((RuntimeError(repr(e)), traceback.format_exc()))
+        with open(os.path.join(tmp, f"error{rank}.pkl"), "wb") as f:
+            f.write(blob)
+        raise
+
+
+def run_workers(num_workers: int, fn: Callable, *args, backend: str = "gloo",
+                device: DeviceLike = None) -> List[Any]:
+    """Run ``fn(group, device, *args)`` in ``num_workers`` processes, one
+    worker each, and return each worker's result in rank order.
+
+    The processes are started with ``torch.multiprocessing`` (spawn) and
+    joined through a ``torch.distributed.FileStore`` in a temporary
+    directory (no TCP port). ``group`` is the ``comm.WorkerGroup`` of all of
+    them over ``backend`` ("gloo", or "nccl" with one card a worker);
+    ``device`` is CUDA unless "cpu" is given, worker j on card ``j % cards``.
+    ``fn`` must be importable by name (a module-level function) and return
+    host data (it is pickled back). ``args`` are pickled to every worker;
+    torch tensors among them are shared, CUDA tensors through CUDA IPC, so
+    the workers can read one copy of a data set made by the caller. If a
+    worker raises, the others are stopped and its exception is raised here,
+    with its traceback as a note; a worker waits at most 600 s in a
+    collective.
+    """
+    import torch.multiprocessing as mp
+
+    device_type = resolve_device(device).type
+    if backend == "nccl" and (device_type != "cuda" or torch.cuda.device_count() < num_workers):
+        raise ValueError(
+            f"nccl needs one card a worker: {num_workers} workers, "
+            f"{torch.cuda.device_count() if device_type == 'cuda' else 0} cards"
+        )
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            mp.spawn(_worker_main, nprocs=num_workers, join=True,
+                     args=(num_workers, tmp, backend, device_type, fn, args))
+        except Exception as failure:
+            # The first worker to fail is the cause; the others then fail in
+            # their collectives (a peer closed the connection).
+            errors = sorted((os.stat(os.path.join(tmp, f"error{rank}.pkl")).st_mtime_ns, rank)
+                            for rank in range(num_workers)
+                            if os.path.exists(os.path.join(tmp, f"error{rank}.pkl")))
+            if not errors:
+                raise
+            rank = errors[0][1]
+            with open(os.path.join(tmp, f"error{rank}.pkl"), "rb") as f:
+                exc, tb = pickle.load(f)
+            exc.add_note(f"raised in worker {rank} of {num_workers}:\n{tb}")
+            raise exc from failure
+        results = []
+        for rank in range(num_workers):
+            with open(os.path.join(tmp, f"result{rank}.pkl"), "rb") as f:
+                results.append(pickle.load(f))
+        return results

@@ -257,7 +257,7 @@ def test_valid_but_unported_specs_raise(spec):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("sample_prob", 0.5), ("engine", "legacy"), ("resume_step", 3),
+    ("gossip_rounds", 4), ("engine", "legacy"), ("resume_step", 3),
     ("use_pallas", False), ("interpret", True), ("resume_from", "ckpt"),
     ("gossip_rounds", 2), ("telemetry", object()),
 ])

@@ -272,6 +272,73 @@ def test_cuda_quantize_pair_matches_plain_bit_for_bit(cuda, n, budget):
 
 
 @pytest.mark.gpu
+def test_cuda_logistic_fit_repeats_its_bits(cuda):
+    """Two logistic fits on the card give the same bits: the label sum is a
+    segment sum in a fixed order (index_add_'s atomics were not)."""
+    from repro_torch.core import low_rank, tasks
+    from repro_torch.launch import dfw
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    n, d, m = 20_000, 64, 40
+    x = torch.randn(n, d, generator=gen, device=cuda)
+    labels = torch.randint(0, m, (n,), generator=gen, device=cuda)
+    cfg = dfw.DFWConfig(mu=5.0, num_epochs=6, schedule="log_half", verify_kernels=False)
+    runs = [dfw.fit_serial(tasks.MultinomialLogistic(d, m), x, labels, cfg=cfg, key=1,
+                           device=cuda) for _ in range(2)]
+    assert runs[0].history == runs[1].history
+    assert torch.equal(low_rank.materialize(runs[0].iterate),
+                       low_rank.materialize(runs[1].iterate))
+
+
+def _offset(t: torch.Tensor, k: int) -> torch.Tensor:
+    """A contiguous copy of t whose data starts k elements past the
+    allocation's start (k = 0: aligned as allocated)."""
+    out = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)[k:]
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [17_770, 135_167, 135_168, 135_171, 480_189])
+@pytest.mark.parametrize("offsets", [(0, 0, 0), (1, 0, 0), (0, 2, 0), (0, 0, 3), (3, 1, 2)])
+@pytest.mark.parametrize("budget", [1, 31, 127])
+def test_cuda_quantize_vector_path_bit_for_bit(cuda, n, offsets, budget):
+    """quantize's four-a-thread path (n >= 135,168, x and noise 16-byte and q
+    4-byte aligned) and its one-a-thread path (below that n, past the last
+    four, any pointer off its alignment) give the plain version's bits: on
+    random x, at x = +-s (the clip), and where x * inv + noise lands exactly
+    on an integer (an FMA would floor differently there)."""
+    from repro_torch.kernels import quantize as qz
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n + budget)
+    x = torch.randn(n, generator=gen, device=cuda) * 3.0
+    scale = torch.max(torch.abs(x))
+    x[:: 97] = scale
+    x[1:: 89] = -scale
+    noise = torch.rand(n, generator=gen, device=cuda)
+    inv = torch.full_like(scale, float(budget)) / (scale + 1e-30)
+    k = torch.arange(n, device=cuda, dtype=torch.float32) % (2 * budget + 1) - budget
+    grid = k / inv  # x * inv lands on (or within an ulp of) the integer k
+    half = torch.where(torch.arange(n, device=cuda) % 2 == 0, 0.0, 0.5)
+    cases = ((x, noise), (grid, torch.zeros_like(grid)), (grid, half.float()),
+             (grid, torch.nextafter(torch.ones_like(grid), torch.zeros_like(grid))))
+    ox, on, oq = offsets
+    before = kernels.launches()["quantize"]
+    for xs, ns in cases:
+        want = qz.ref.quantize(xs, ns, scale, budget)
+        got = qz.quantize(_offset(xs, ox), _offset(ns, on), scale, budget=budget)
+        assert torch.equal(got, want)
+        if oq:  # the kernel writing into a q off its 4-byte alignment
+            out = torch.empty(n + oq, dtype=torch.int8, device=cuda)[oq:]
+            qz.kernel.quantize(_offset(xs, ox), _offset(ns, on), scale, out, budget)
+            assert torch.equal(out, want)
+    torch.cuda.synchronize()
+    assert kernels.launches()["quantize"] == before + len(cases)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("bt,n_in,r,n_out", [
     (1, 2048, 32, 1000), (64, 2048, 64, 1000), (64, 1000, 64, 2048), (1024, 2048, 256, 1000),
     (3, 129, 7, 65), (130, 300, 7, 65), (33, 129, 12, 257), (5, 64, 5000, 40),

@@ -1,20 +1,21 @@
 #!/usr/bin/env python3
 """Two probes of the port's small and random-access kernels on one GPU:
-``dequantize`` variants at the int8 reducer's shapes, and the MC state's
-gathers under each L2 fetch granularity.
+``quantize`` and ``dequantize`` variants at the int8 reducer's shapes, and
+the MC state's gathers under each L2 fetch granularity.
 
     python3 tools/torch_dequantize_gather_probe.py [--src OLD/src] [--entries P] [--no-gather]
-        [--out PATH]
+        [--budget B] [--out PATH]
 
-(1) ``dequantize`` (``csrc/quantize.cu``) at n = 480,189 (u) and 17,770 (v),
-budget 127: this checkout's kernel, copies of its source whose vector path
-takes 16, 8 or 4 int8 a thread at every n (the text of ``kDequantVec`` and
-``kVecMinElements``), and --src's kernel (an older tree), each built with the port's nvcc flags into
-``build/probe/`` and held to the plain version bit for bit. Device time per
-launch from torch.profiler over --launches back-to-back launches, each
-variant profiled twice (the variants in order, then in reverse order), the
-mean; ``quantize`` at v beside them as the floor of a launch that moves
-almost nothing.
+(1) ``quantize`` and ``dequantize`` (``csrc/quantize.cu``) at n = 480,189
+(u) and 17,770 (v), budget --budget (default 127): this checkout's kernels,
+copies of its source whose vector path takes a fixed width at every n
+(quantize: 1, 4 or 8 elements a thread, the text of ``kQuantVec`` and
+``kQuantVecMinElements``; dequantize: 16, 8 or 4 int8 a thread, the text of
+``kDequantVec`` and ``kVecMinElements``), and --src's kernels (an older
+tree), each built with the port's nvcc flags into ``build/probe/`` and held
+to the plain version bit for bit. Device time per launch from
+torch.profiler over --launches back-to-back launches, each variant profiled
+twice (the variants in order, then in reverse order), the mean.
 
 (2) The one-field gather (``gather_sorted``) and the record gather of four
 fields (``gather_sorted_fields``) over a row order of --entries entries at
@@ -44,21 +45,30 @@ PROBE_DIR = ROOT / "build" / "probe"
 L2_FETCH_LIMIT = 0x05  # cudaLimitMaxL2FetchGranularity
 
 
+def _edit(text: str, edits) -> str:
+    for pattern, value in edits:
+        text, count = re.subn(pattern, value, text)
+        if count != 1:
+            raise SystemExit(f"the source no longer has {pattern!r}")
+    return text
+
+
 def variants(src_text: str, old_src: Path | None) -> dict:
-    """name -> source text of each dequantize variant: this tree's, its
-    vector path at 16, 8 and 4 elements a thread at every n (the text of
-    ``kDequantVec`` and ``kVecMinElements``), and the older tree's."""
+    """name -> source text of each variant: this tree's, quantize's vector
+    path at 1 (the scalar path at every n), 4 and 8 elements a thread at
+    every n, dequantize's at 16, 8 and 4 at every n, and the older tree's."""
     out = {"this tree": src_text}
+    for vec in (1, 4, 8):
+        edits = ((r"constexpr int kQuantVec = \d+;", f"constexpr int kQuantVec = {max(vec, 4)};"),
+                 (r"constexpr int64_t kQuantVecMinElements = [^;]+;",
+                  "constexpr int64_t kQuantVecMinElements = "
+                  f"{'int64_t(1) << 62' if vec == 1 else '0'};"))
+        out[f"quantize: {vec} a thread at every n"] = _edit(src_text, edits)
     for vec in (16, 8, 4):
-        text = src_text
-        for pattern, value in ((r"constexpr int kDequantVec = \d+;",
-                                f"constexpr int kDequantVec = {vec};"),
-                               (r"constexpr int64_t kVecMinElements = [^;]+;",
-                                "constexpr int64_t kVecMinElements = 0;")):
-            text, count = re.subn(pattern, value, text)
-            if count != 1:
-                raise SystemExit(f"the source no longer has {pattern!r}")
-        out[f"{vec} a thread at every n"] = text
+        edits = ((r"constexpr int kDequantVec = \d+;", f"constexpr int kDequantVec = {vec};"),
+                 (r"constexpr int64_t kVecMinElements = [^;]+;",
+                  "constexpr int64_t kVecMinElements = 0;"))
+        out[f"dequantize: {vec} a thread at every n"] = _edit(src_text, edits)
     if old_src is not None:
         out["older tree"] = (old_src / "repro_torch" / "csrc" / "quantize.cu").read_text()
     return out
@@ -85,6 +95,9 @@ def build(sources: dict) -> dict:
         lib.qz_dequantize_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int,
                                                                    ctypes.c_int, ctypes.c_void_p]
         lib.qz_dequantize_f32.restype = ctypes.c_int
+        lib.qz_quantize_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int,
+                                                                 ctypes.c_int, ctypes.c_void_p]
+        lib.qz_quantize_f32.restype = ctypes.c_int
         libs[name] = lib
     return libs
 
@@ -105,21 +118,64 @@ def device_us(torch, fn, launches: int) -> float | None:
     return total / launches if total else None
 
 
-def dequantize_probe(torch, qz, libs, dev, launches):
+def _timed_in_turns(torch, calls, launches):
+    times = {name: [] for name in calls}
+    for name in [*calls, *reversed(calls)]:
+        times[name].append(device_us(torch, calls[name], launches))
+    return {name: dict(rounds=t, mean_us=statistics.mean(t) if None not in t else None)
+            for name, t in times.items()}
+
+
+def quantize_probe(torch, qz, libs, dev, launches, budget):
+    """Device µs a launch of each variant that changes quantize (and of
+    this tree's dequantize, as the pair's other half), at u and v."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     out = {}
+    names = [n for n in libs if not n.startswith("dequantize:")]
     for label, n in (("u", 480_189), ("v", 17_770)):
-        q = torch.randint(-127, 128, (n,), generator=gen, device=dev, dtype=torch.int8)
+        x = torch.randn(n, generator=gen, device=dev)
+        noise = torch.rand(n, generator=gen, device=dev)
+        scale = torch.max(torch.abs(x))
+        want = qz.ref.quantize(x, noise, scale, budget)
+        q = torch.empty(n, dtype=torch.int8, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        calls = {}
+        for name in names:
+            def call(lib=libs[name]):
+                err = lib.qz_quantize_f32(x.data_ptr(), noise.data_ptr(), scale.data_ptr(),
+                                          q.data_ptr(), n, budget, dev.index, stream)
+                if err:
+                    raise RuntimeError(f"quantize launch failed ({err})")
+            q.zero_()
+            call()
+            torch.cuda.synchronize()
+            if not torch.equal(q, want):
+                raise SystemExit(f"quantize {name} at n={n} differs from its plain version")
+            calls[name] = call
+        out[label] = _timed_in_turns(torch, calls, launches)
+        for name, row in out[label].items():
+            print(f"{label} (n = {n}): quantize {name:30s} device {row['mean_us']} µs a launch "
+                  f"(rounds {row['rounds']})", flush=True)
+    return out
+
+
+def dequantize_probe(torch, qz, libs, dev, launches, budget):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = {}
+    names = [n for n in libs if not n.startswith("quantize:")]
+    for label, n in (("u", 480_189), ("v", 17_770)):
+        q = torch.randint(-budget, budget + 1, (n,), generator=gen, device=dev, dtype=torch.int8)
         scale = torch.rand((), generator=gen, device=dev) + 0.5
-        want = qz.ref.dequantize(q, scale, 127)
+        want = qz.ref.dequantize(q, scale, budget)
         y = torch.empty(n, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         calls = {}
-        for name, lib in libs.items():
-            def call(lib=lib):
-                err = lib.qz_dequantize_f32(q.data_ptr(), scale.data_ptr(), y.data_ptr(), n, 127,
-                                            dev.index, stream)
+        for name in names:
+            def call(lib=libs[name]):
+                err = lib.qz_dequantize_f32(q.data_ptr(), scale.data_ptr(), y.data_ptr(), n,
+                                            budget, dev.index, stream)
                 if err:
                     raise RuntimeError(f"dequantize launch failed ({err})")
             call()
@@ -127,17 +183,10 @@ def dequantize_probe(torch, qz, libs, dev, launches):
             if not torch.equal(y, want):
                 raise SystemExit(f"dequantize {name} at n={n} differs from its plain version")
             calls[name] = call
-        x = torch.randn(n, generator=gen, device=dev)
-        noise = torch.rand(n, generator=gen, device=dev)
-        calls["quantize (this tree)"] = lambda: qz.quantize(x, noise, scale, budget=127)
-        times = {name: [] for name in calls}
-        for name in [*calls, *reversed(calls)]:
-            times[name].append(device_us(torch, calls[name], launches))
-        out[label] = {name: dict(rounds=t, mean_us=statistics.mean(t) if None not in t else None)
-                      for name, t in times.items()}
+        out[label] = _timed_in_turns(torch, calls, launches)
         for name, row in out[label].items():
-            print(f"{label} (n = {n}): {name:26s} device {row['mean_us']} µs a launch "
-                  f"(rounds {row['rounds']})", flush=True)
+            print(f"{label} (n = {n}): dequantize {name:30s} device {row['mean_us']} µs a "
+                  f"launch (rounds {row['rounds']})", flush=True)
     return out
 
 
@@ -222,6 +271,8 @@ def main(argv=None) -> int:
     ap.add_argument("--launches", type=int, default=200)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--no-gather", action="store_true", help="run probe (1) only")
+    ap.add_argument("--budget", type=int, default=127,
+                    help="the quantize budget (127 // N for N workers)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -236,7 +287,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
     src_text = (ROOT / "src" / "repro_torch" / "csrc" / "quantize.cu").read_text()
     libs = build(variants(src_text, Path(args.src).resolve() if args.src else None))
-    report = dict(dequantize=dequantize_probe(torch, qz, libs, dev, args.launches),
+    report = dict(quantize=quantize_probe(torch, qz, libs, dev, args.launches, args.budget),
+                  dequantize=dequantize_probe(torch, qz, libs, dev, args.launches, args.budget),
                   gather=None if args.no_gather else gather_probe(torch, mc, dev, args.entries,
                                                                   args.reps))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
