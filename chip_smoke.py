@@ -153,6 +153,31 @@ Phases, each fatal on failure (exit code != 0, no result line):
    launches as its path implies and its history and iterate the same bits
    as worker 0's; each worker's peak device memory and ms an epoch (host
    staging and four processes on one card: not a speedup).
+23. The paper's section 3.1 baselines (``core.baselines``) at the ImageNet
+   shapes on phase 21's data: NAIVE-DFW and SVA with the line search, 5
+   epochs each, then NAIVE on logistic regression (2/(t+2)), 3 epochs: ms an
+   epoch split into ``local_grad`` (X^T R, X^T (P - H): plain f32 products),
+   the SVD (cuSOLVER) and the update (``rank1_update(_axpy)``); NAIVE's loss
+   at each epoch at most 1.10 x DFW-Trace const:1's (the reference's check),
+   and logistic regression's final loss below n ln m (phase 4's check);
+   ``local_grad`` the same bits twice; matrix completion at 4,800 x 1,777
+   with 1M ratings made on the card (the Netflix shapes' dense gradient
+   would be 34 GB): ``local_grad`` the same bits twice and the CPU's
+   fixed-order sum's, 1e-6 of max from the accumulating scatter, then NAIVE
+   5 epochs; launch counts as the path implies.
+24. The exchange graphs (``comm.topology``). (a) ``topk:16`` through
+   ``fit`` over a one-worker NCCL group against ``fit_serial``, in turns,
+   least squares at the ImageNet shapes and matrix completion at the
+   Netflix shapes (--mc-int8-epochs): the same bits and launches; ms an
+   epoch against phase 21's dense runs; the top-k exchange of MC's 480,189-
+   long u. (b) Four gloo workers on the card, as in phase 22: ``ring`` (R = 5
+   at N = 4), ``hier:2`` dense, ``hier:2`` + int8 (budget 63) and
+   ``topk:16``, on least squares (n = 1,281,164) and matrix completion, each
+   against ``fit_serial`` dense on the same data at the reference's own
+   tolerances (``graph_agrees``); every worker's launches as its path
+   implies, every worker returning worker 0's iterate, and the bytes each
+   worker counted per collective equal to the analytic ones exactly (a
+   check, not a timing).
 
 ``--coo-bits PATH`` runs only phases 1 and 6 and then G.v and G^T.u of
 ``coo_matvec`` at the full shape (x drawn from --seed), saving the results
@@ -1059,10 +1084,13 @@ class RecordingInt8:
         self.inner, self.qref, self.torch, self.log = comm.Int8Reducer(1), qref, torch, []
         self.spec = "int8"
 
-    def init_state(self, d, m):
+    def init_state(self, d, m, device=None):
         return ()
 
-    def exchange(self, x, state, *, slot, noise=None):
+    def wire_bytes(self, dim, num_workers):
+        return self.inner.wire_bytes(dim, num_workers)
+
+    def exchange(self, x, state, *, slot, noise=None, weight=None):
         torch, b = self.torch, self.inner.budget
         nz = noise(x.shape[0], x.device)
         scale = torch.max(torch.abs(x))
@@ -1418,6 +1446,331 @@ def multi_worker_phase(torch, np, kernels, dfw, tasks, low_rank, dev, X, Y, mc, 
                  f"{row['heldout_rmse_w0']:.4f})" if "heldout_rmse" in row else "")
               + (f"; workers alive an epoch {row['alive_per_epoch']}"
                  if "alive_per_epoch" in row else ""))
+    del idx4, yw4
+    return report, total
+
+
+# Phase 23: NAIVE-DFW and SVA (the paper's section 3.1 baselines) at the ImageNet
+# least-squares shapes, and NAIVE on logistic regression and on a small MC.
+BASELINE_EPOCHS, BASELINE_LOGISTIC_EPOCHS = 5, 3
+SMALL_MC = (4_800, 1_777, 1_000_000)  # users, movies, ratings: the dense gradient is 34 MB
+NAIVE_ORACLE = 1.10  # tests/test_frank_wolfe.py: NAIVE's loss <= 1.10 x DFW-Trace's per epoch
+
+
+class PartTimer:
+    """CUDA events around the named parts of an epoch; ``ms()`` reads them
+    (one sync) as each part's ms per call."""
+
+    def __init__(self, torch):
+        self.torch, self.events = torch, {}
+
+    def wrap(self, name, fn):
+        def timed(*a, **kw):
+            start = self.torch.cuda.Event(enable_timing=True)
+            end = self.torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            self.events.setdefault(name, []).append((start, end))
+            return out
+        return timed
+
+    def ms(self):
+        self.torch.cuda.synchronize()
+        return {name: [s.elapsed_time(e) for s, e in ev] for name, ev in self.events.items()}
+
+
+class TimedTask:
+    """A task whose local_grad and update are timed (everything else is the
+    task's)."""
+
+    def __init__(self, task, timer):
+        self._task = task
+        self.local_grad = timer.wrap("local_grad", task.local_grad)
+        self.update = timer.wrap("update", task.update)
+
+    def __getattr__(self, name):
+        return getattr(self._task, name)
+
+
+def baseline_run(torch, kernels, baselines, low_rank, method, task, state, epochs, mu, step,
+                 dev):
+    """``epochs`` epochs of a baseline under fresh launch counts: (history,
+    final state, launches, ms per part and epoch)."""
+    timer = PartTimer(torch)
+    exact = baselines._exact_top_pair
+    baselines._exact_top_pair = timer.wrap("svd", exact)
+    try:
+        make = (baselines.make_naive_epoch_step if method == "naive"
+                else baselines.make_sva_epoch_step)
+        ep = timer.wrap("epoch", make(TimedTask(task, timer), mu, step_size=step))
+        it = low_rank.init(epochs, task.d, task.m, device=dev)
+        kernels.reset_launches()
+        rows = []
+        for t in range(epochs):
+            state, it, aux = ep(state, it, t, None)
+            rows.append(aux)
+        launches = kernels.launches()
+    finally:
+        baselines._exact_top_pair = exact
+    hist = {k: [float(getattr(a, k)) for a in rows] for k in ("loss", "gap", "sigma", "gamma")}
+    return hist, state, launches, timer.ms()
+
+
+def baselines_phase(torch, np, kernels, dfw, tasks, baselines, low_rank, dev, X, Y, labels, gen,
+                    seed):
+    """NAIVE-DFW and SVA with the line search at n = 1,281,167, d = 2048,
+    m = 1000 (BASELINE_EPOCHS each), NAIVE on logistic regression
+    (BASELINE_LOGISTIC_EPOCHS, 2/(t+2)), each epoch's ms split into
+    local_grad, the SVD and the update; NAIVE's loss at each epoch at most
+    NAIVE_ORACLE x DFW-Trace const:1's; local_grad twice the same bits (least
+    squares, logistic regression, and matrix completion at SMALL_MC, made on
+    the card, where it also equals the CPU's fixed-order sum bit for bit and
+    the accumulating scatter to 1e-6 of its max); NAIVE on that MC. Launch
+    counts as the path implies. Returns (report, summed launches)."""
+    report, total = {}, dict.fromkeys(kernels.launches(), 0)
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    mtls = dfw.kernelize(tasks.MultiTaskLeastSquares(PAPER_D, PAPER_M))
+    dfw_ref = dfw.fit_serial(mtls, X, Y, cfg=dfw.DFWConfig(
+        mu=1.0, num_epochs=BASELINE_EPOCHS, schedule="const:1", step_size="linesearch",
+        verify_kernels=False), key=seed, device=dev).history["loss"]
+    per_epoch = {"naive": dict(matvec=2, rank1_update_axpy=1),
+                 "sva": dict(matvec=3, rmatvec=1, rank1_update_axpy=1)}
+    for method in ("naive", "sva"):
+        hist, state, launches, ms = baseline_run(
+            torch, kernels, baselines, low_rank, method, mtls, mtls.init_state(X, Y),
+            BASELINE_EPOCHS, 1.0, "linesearch", dev)
+        del state
+        want = dict.fromkeys(launches, 0)
+        want.update({k: v * BASELINE_EPOCHS for k, v in per_epoch[method].items()})
+        check(launches == want, f"baselines mtls {method}: launches {launches} != {want}")
+        add(launches)
+        check(all(math.isfinite(v) for v in hist["loss"]), f"baselines mtls {method}: loss")
+        if method == "naive":
+            worst = max(a / b for a, b in zip(hist["loss"], dfw_ref))
+            check(worst <= NAIVE_ORACLE, f"baselines: NAIVE's loss reaches {worst:.4f} x "
+                  f"DFW-Trace const:1's (limit {NAIVE_ORACLE})")
+        report[f"mtls {method}"] = dict(loss=hist["loss"], gap=hist["gap"], ms=ms,
+                                        launches=launches)
+        steady = {k: statistics.median(v[1:]) for k, v in ms.items()}
+        print(f"baselines mtls {method}: {BASELINE_EPOCHS} epochs, ms an epoch (median of "
+              f"epochs 1-{BASELINE_EPOCHS - 1}) {steady['epoch']:.2f}: local_grad "
+              f"{steady['local_grad']:.2f}, SVD {steady['svd']:.2f}, update "
+              f"{steady['update']:.2f}; loss " + ", ".join(f"{v:.6g}" for v in hist["loss"])
+              + (f"; NAIVE / DFW-Trace const:1 at most {worst:.4f}" if method == "naive" else ""))
+    print("  DFW-Trace const:1 loss " + ", ".join(f"{v:.6g}" for v in dfw_ref))
+    state = mtls.init_state(X, Y)
+    check(torch.equal(mtls.local_grad(state), mtls.local_grad(state)),
+          "baselines: MTLS local_grad differs between two calls")
+    del state
+    torch.cuda.empty_cache()
+
+    logistic = dfw.kernelize(tasks.MultinomialLogistic(PAPER_D, PAPER_M))
+    hist, state, launches, ms = baseline_run(
+        torch, kernels, baselines, low_rank, "naive", logistic, logistic.init_state(X, labels),
+        BASELINE_LOGISTIC_EPOCHS, 10.0, "default", dev)
+    want = dict.fromkeys(launches, 0)
+    want.update(matvec=BASELINE_LOGISTIC_EPOCHS, rank1_update=BASELINE_LOGISTIC_EPOCHS)
+    check(launches == want, f"baselines logistic naive: launches {launches} != {want}")
+    add(launches)
+    final = float(logistic.local_loss(state))
+    bound = X.shape[0] * math.log(PAPER_M)  # the loss at W = 0; phase 4's check
+    check(final < bound, f"baselines logistic naive: final loss {final} >= n ln m {bound}")
+    check(torch.equal(logistic.local_grad(state), logistic.local_grad(state)),
+          "baselines: logistic local_grad differs between two calls")
+    del state
+    torch.cuda.empty_cache()
+    steady = {k: statistics.median(v[1:]) for k, v in ms.items()}
+    report["logistic naive"] = dict(loss=hist["loss"], final_loss=final, ms=ms,
+                                    launches=launches)
+    print(f"baselines logistic naive: {BASELINE_LOGISTIC_EPOCHS} epochs, ms an epoch "
+          f"{steady['epoch']:.2f}: local_grad {steady['local_grad']:.2f}, SVD "
+          f"{steady['svd']:.2f}, update {steady['update']:.2f}; loss "
+          + ", ".join(f"{v:.6g}" for v in hist["loss"]) + f"; final {final:.6g} < n ln m = "
+          f"{bound:.6g}")
+
+    d, m, p = SMALL_MC
+    idx, yw, _, mu = make_mc_data(torch, gen, dev, p, 1, d=d, m=m)
+    mc = dfw.kernelize(tasks.MatrixCompletion(d, m))
+    kernels.reset_launches()
+    state = mc.init_state(idx, yw)
+    g1, g2 = mc.local_grad(state), mc.local_grad(state)
+    check(torch.equal(g1, g2), "baselines: MC local_grad differs between two calls")
+    on_cpu = mc.local_grad(mc.init_state(idx.cpu(), yw.cpu()))
+    check(torch.equal(g1.cpu(), on_cpu), "baselines: MC local_grad on the card is not the "
+          "CPU's fixed-order sum")
+    plain = torch.zeros(d, m, device=dev).index_put_(
+        (state.rows.long(), state.cols.long()), state.resid, accumulate=True)
+    plain_err = float(torch.max(torch.abs(g1 - plain)) / torch.max(torch.abs(plain)))
+    check(plain_err <= 1e-6, f"baselines: MC local_grad {plain_err:.2e} from the plain chain")
+    dups = mc_stats(torch, idx, d, m)["duplicates"]
+    del g1, g2, on_cpu, plain
+    hist, state, launches, ms = baseline_run(
+        torch, kernels, baselines, low_rank, "naive", mc, state, BASELINE_EPOCHS, mu,
+        "linesearch", dev)
+    launches = kernels.launches()
+    want = dict.fromkeys(launches, 0)
+    want.update(update_resid=BASELINE_EPOCHS)
+    check(launches == want, f"baselines mc naive: launches {launches} != {want}")
+    add(launches)
+    loss = hist["loss"]
+    check(all(b <= a * (1 + 1e-6) for a, b in zip(loss, loss[1:])), "baselines mc naive: loss "
+          "increased")
+    steady = {k: statistics.median(v[1:]) for k, v in ms.items()}
+    report["mc naive"] = dict(loss=loss, ms=ms, duplicates=dups, plain_rel_err=plain_err)
+    print(f"baselines mc naive at {d} x {m}, {p} ratings ({dups} duplicate positions): "
+          f"local_grad the same bits twice and the CPU's, {plain_err:.1e} of max from the "
+          f"accumulating scatter; ms an epoch {steady['epoch']:.2f}: local_grad "
+          f"{steady['local_grad']:.2f}, SVD {steady['svd']:.2f}, update {steady['update']:.2f}; "
+          "loss " + ", ".join(f"{v:.6g}" for v in loss))
+    del state, idx, yw
+    torch.cuda.empty_cache()
+    return report, total
+
+
+# Phase 24: the exchange graphs, each against fit_serial dense on the same data
+# at the reference's own tolerance for it (its tests hold least squares):
+# hier:2 dense tests/test_topology.py:233 (loss rtol 2e-5, gap rtol 2e-4 with
+# atol 1e-4), ring :253 (final loss 1%, gap 5%), int8 tests/test_comm.py:261
+# (loss rtol 0.02). Where no reference tolerance applies the run is held to the
+# line search's descent (loss non-increasing, final below the first) and its
+# deviation printed: top-k (the reference's 0.35 at :261 is for d = 40, m = 30,
+# where topk:16 sends 40% and 53% of each vector; here it sends 0.8% and 1.6%,
+# and 3e-5 of MC's u) and int8 across matrix completion's hier groups.
+GRAPHS = (("ring", dict(topology="ring")), ("hier:2", dict(topology="hier:2")),
+          ("hier:2 int8", dict(topology="hier:2", comm="int8")),
+          ("topk:16", dict(comm="topk:16")))
+
+
+def graph_agrees(np, label, kind, got, want, final, final_want):
+    """Each graph's deviation from the serial run, held to its tolerance
+    (see GRAPHS)."""
+    hist = {k: (np.asarray(got[k], np.float64), np.asarray(want[k], np.float64))
+            for k in ("loss", "gap")}
+    rel_final = abs(final - final_want) / abs(final_want)
+    dev = {k: float(np.max(np.abs(a - b) / np.abs(b))) for k, (a, b) in hist.items()}
+    dev["final_loss"] = rel_final
+    if label.endswith("hier:2"):
+        a, b = hist["loss"]
+        check(bool(np.all(np.abs(a - b) <= 1e-6 + 2e-5 * np.abs(b))), f"{label}: loss {dev}")
+        a, b = hist["gap"]
+        check(bool(np.all(np.abs(a - b) <= 1e-4 + 2e-4 * np.abs(b))), f"{label}: gap {dev}")
+    elif label.endswith("ring"):
+        check(rel_final <= 0.01 and dev["gap"] <= 0.05, f"{label}: {dev} (final 1%, gap 5%)")
+    elif label.endswith("int8") and kind == "mtls":
+        a, b = hist["loss"]
+        check(bool(np.all(np.abs(a - b) <= 0.02 * np.abs(b))) and rel_final < 0.02,
+              f"{label}: {dev} (loss rtol 0.02)")
+    else:
+        loss = list(got["loss"]) + [final]
+        check(all(b <= a * (1 + 1e-6) for a, b in zip(loss, loss[1:])) and final < loss[0],
+              f"{label}: the loss did not fall under the line search: {loss}")
+    return dev
+
+
+def graphs_phase(torch, np, kernels, dfw, comm, tasks, low_rank, NoiseStream, dev, X, Y, mc,
+                 seed, args, dense_ms):
+    """(a) ``topk:16`` through ``fit`` over one NCCL worker against
+    ``fit_serial``, least squares (--epochs) and matrix completion at the
+    Netflix shapes (--mc-int8-epochs), in turns, the same bits and launches;
+    ms an epoch against dense (phase 21's); the top-k exchange's time on MC's
+    480,189-long u. (b) MULTI_WORKERS gloo workers on the card: ring (R = 5
+    at N = 4), hier:2 dense, hier:2 + int8 (budget 63) and topk:16 on least
+    squares (n = 1,281,164) and on matrix completion (--mc-int8-epochs), each
+    against ``fit_serial`` dense on the same data at the reference's
+    tolerances (``graph_agrees``); every worker's launches as its path
+    implies; every worker returns worker 0's iterate; the bytes each worker
+    counted equal the analytic ones exactly. Returns (report, summed
+    launches)."""
+    idx, yw, _, mu = mc
+    report = {}
+    mtls_kw = dict(mu=1.0, num_epochs=args.epochs, schedule="log", step_size="linesearch")
+    mc_kw = dict(mu=mu, num_epochs=args.mc_int8_epochs, schedule="log", step_size="linesearch")
+    mtls = tasks.MultiTaskLeastSquares(PAPER_D, PAPER_M)
+    mc_task = tasks.MatrixCompletion(NF_D, NF_M)
+    report["a"], total = world_one_phase(
+        torch, np, kernels, dfw, comm, low_rank, NoiseStream, dev, [
+            ("mtls topk:16", mtls, X, Y, dfw.DFWConfig(**mtls_kw, comm="topk:16")),
+            ("mc topk:16", mc_task, idx, yw, dfw.DFWConfig(**mc_kw, comm="topk:16")),
+        ], seed)
+    for label, dense_label in (("mtls topk:16", "mtls"), ("mc topk:16", "mc dense")):
+        got, ref = report["a"][label]["ms_per_epoch"], dense_ms[dense_label]["ms_per_epoch"]
+        print(f"(a) {label}: ms an epoch against dense (phase 21) " + "; ".join(
+            f"K={k}: {v['fit']:.3f} vs {ref[k]['fit']:.3f}" for k, v in got.items() if k in ref))
+    u = torch.randn(NF_D, generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+    r = comm.TopKReducer(k=16)
+    state = r.init_state(NF_D, NF_M, device=dev)
+    report["topk_u_ms"] = time_ms(torch, lambda: r.exchange(u, state, slot="u"), args.reps)
+    report["topk_u_sort_ms"] = time_ms(
+        torch, lambda: comm.topk.top_k_indices(u, 16), args.reps)
+    print(f"(a) topk:16 exchange of MC's u (480,189,), one process: {report['topk_u_ms']:.4f} ms "
+          f"(its stable sort {report['topk_u_sort_ms']:.4f} ms)")
+
+    nw = MULTI_WORKERS
+    n4 = X.shape[0] - X.shape[0] % nw
+    idx4, yw4 = dfw.shard_observations(idx[:, 0], idx[:, 1], yw[:, 0], nw, NF_D, m=NF_M)
+    idx4, yw4 = idx4.to(dev), yw4.to(dev)
+    t0 = time.perf_counter()
+    refs = {}
+    for kind, task, x, y, kw in (("mtls", mtls, X[:n4], Y[:n4], mtls_kw),
+                                 ("mc", mc_task, idx4, yw4, mc_kw)):
+        res = dfw.fit_serial(task, x, y, cfg=dfw.DFWConfig(**kw), key=seed, device=dev)
+        refs[kind] = dict(history=res.history, final_loss=res.final_loss)
+        del res
+        torch.cuda.empty_cache()
+    jobs, labels = [], []
+    for kind, task, x, y, kw in (("mtls", mtls, X[:n4], Y[:n4], mtls_kw),
+                                 ("mc", mc_task, idx4, yw4, mc_kw)):
+        for name, graph in GRAPHS:
+            jobs.append((kind, task, x, y, dict(kw, **graph)))
+            labels.append(f"{kind} {name}")
+    ranks = dfw.run_workers(nw, multi_worker_rank, jobs, seed, backend="gloo", device=dev)
+    report["b"] = dict(wall_s=time.perf_counter() - t0, runs={})
+    for i, (label, (kind, task, _, _, kw)) in enumerate(zip(labels, jobs)):
+        got = [r[i] for r in ranks]
+        head = got[0]
+        cm = kw.get("comm", "dense")
+        gossip = kw.get("topology", "flat") == "ring"
+        for j, g in enumerate(got):
+            want = expected_launches(kind, g["history"]["k"], True, cm)
+            check(g["launches"] == want, f"(b) {label}: worker {j} launched {g['launches']}, "
+                  f"expected {want}")
+            for k, v in g["launches"].items():
+                total[k] += v
+            check(all(np.array_equal(g["packed"][k], head["packed"][k]) for k in head["packed"]),
+                  f"(b) {label}: worker {j} did not return worker 0's iterate")
+            if cm != "int8" or j % 2 == 0:  # int8 across hier groups: each pair its own noise
+                check(g["history"] == head["history"], f"(b) {label}: worker {j}'s history")
+            st, epochs = g["stats"], len(g["history"]["k"])
+            counted = st["bytes_all_reduce"] + st["bytes_all_gather"] + st["bytes_send"]
+            scalars = epochs * (2 + 2 + (2 if gossip else 0)) * 2 * 4 + 2 * 4
+            check(counted == st["comm_wire_bytes"] + scalars,
+                  f"(b) {label}: worker {j} counted {counted} bytes, analytic "
+                  f"{st['comm_wire_bytes']} + {scalars} scalars")
+        dev_of = graph_agrees(np, f"(b) {label}", kind, head["history"], refs[kind]["history"],
+                              head["final_loss"], refs[kind]["final_loss"])
+        st, epochs = head["stats"], len(head["history"]["k"])
+        hops = {k[len("comm_hop_bytes_"):]: v / epochs for k, v in st.items()
+                if k.startswith("comm_hop_bytes_")} or {"global": st["comm_wire_bytes"] / epochs}
+        row = dict(deviation=dev_of, walls_s=[g["wall_s"] for g in got],
+                   ms_per_epoch=steady_ms(head["segments"], head["history"]["k"]),
+                   bytes_per_epoch=(st["bytes_all_reduce"] + st["bytes_all_gather"]
+                                    + st["bytes_send"]) / epochs,
+                   wire_bytes_per_epoch=st["comm_wire_bytes"] / epochs, hop_bytes_per_epoch=hops,
+                   all_reduces=st["all_reduces"])
+        report["b"]["runs"][label] = row
+        print(f"(b) {label}, {nw} gloo workers: deviation from fit_serial dense "
+              + ", ".join(f"{k} {v:.2e}" for k, v in dev_of.items())
+              + f"; counted bytes an epoch {row['bytes_per_epoch']:.1f} = exchanges "
+              f"{row['wire_bytes_per_epoch']:.1f} (by hop "
+              + ", ".join(f"{h} {b:.1f}" for h, b in hops.items())
+              + ") + scalar sums; ms an epoch "
+              + ", ".join(f"K={k}: {v:.2f}" for k, v in row["ms_per_epoch"].items())
+              + " (host staging; a check, not a timing)")
     del idx4, yw4
     return report, total
 
@@ -2579,7 +2932,7 @@ def main(argv=None) -> int:
     from repro_torch import NoiseStream, V0Stream, checkpoint, comm, kernels, resolve_device
     from repro_torch import serve
     from repro_torch.configs import get_config
-    from repro_torch.core import frank_wolfe, low_rank, tasks
+    from repro_torch.core import baselines, frank_wolfe, low_rank, tasks
     from repro_torch.kernels import _build
     from repro_torch.kernels import factor_matvec as fm
     from repro_torch.kernels import flash_attention as fa
@@ -2834,12 +3187,32 @@ def main(argv=None) -> int:
                 ("mc int8", mc_task, idx, yw, dataclasses.replace(
                     mc_dense, num_epochs=args.mc_int8_epochs, comm="int8")),
             ], args.seed)
-        del labels
         torch.cuda.empty_cache()
 
         # 22. (b) four gloo workers on the one card
         report["multi_worker"], multi_launch = multi_worker_phase(
             torch, np, kernels, dfw, tasks, low_rank, dev, X, Y, mc_data, args.seed, args)
+        torch.cuda.empty_cache()
+
+        # 23. NAIVE-DFW and SVA at the ImageNet shapes; NAIVE on logistic
+        # regression and on a small MC made on the card
+        t0 = time.perf_counter()
+        report["baselines"], baselines_launch = baselines_phase(
+            torch, np, kernels, dfw, tasks, baselines, low_rank, dev, X, Y, labels, gen,
+            args.seed)
+        report["baselines"]["wall_s"] = time.perf_counter() - t0
+        del labels
+        torch.cuda.empty_cache()
+
+        # 24. the exchange graphs: topk:16 over one NCCL worker; ring, hier:2
+        # (dense, int8) and topk:16 on four gloo workers
+        t0 = time.perf_counter()
+        report["graphs"], graphs_launch = graphs_phase(
+            torch, np, kernels, dfw, comm, tasks, low_rank, NoiseStream, dev, X, Y, mc_data,
+            args.seed, args, report["world_one"])
+        report["graphs"]["wall_s"] = time.perf_counter() - t0
+        print(f"phase 23 took {report['baselines']['wall_s']:.1f} s, phase 24 "
+              f"{report['graphs']['wall_s']:.1f} s ({smi})")
         del X, Y, idx, yw, mc_data
         torch.cuda.empty_cache()
     except Check as e:
@@ -2848,7 +3221,7 @@ def main(argv=None) -> int:
     out = []
     paths = (mtls_launch, log_launch, mc_launch, mc8_launch, fit12_launch, serve_launch,
              prefill_launch, decode_launch, ssm_prefill_launch, ssm_decode_launch,
-             world_one_launch, multi_launch)
+             world_one_launch, multi_launch, baselines_launch, graphs_launch)
     for kname in (*TPU_KERNEL, *HELPER_KERNELS):
         rows = [r for r in krows if r["name"] == kname]
         main_row = next((r for r in rows if r.get("main")), None) or max(

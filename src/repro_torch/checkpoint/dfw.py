@@ -8,8 +8,13 @@ leaves, in this order, with the JAX package's paths, shapes and dtypes::
                              order (MTLS x, y, r; logistic x, y as int32, z;
                              MC rows, cols, vals, resid, weight)
     carry/iterate/<key>      low_rank.pack_live: alpha, count, s, u, v
-                             (the live-rank prefix only)
-    carry/comm_state/...     none for the ported reducers (dense, int8)
+                             (the live-rank prefix only; node 0's iterate
+                             on a gossip graph, as in the reference)
+    carry/comm_state/<key>   the reducer's state in key order: none for
+                             dense and int8; top-k's residuals u, v, (d,)
+                             and (m,) from one process, (N, d) and (N, m)
+                             from a run of N workers (worker 0 writes what
+                             it all-gathers)
     carry/t                  int32 epoch counter
     carry/key                (2,) uint32: the run's seed in the layout of
                              jax.random.PRNGKey(seed)
@@ -78,14 +83,19 @@ def _history_arrays(history: Dict[str, list]) -> Dict[str, np.ndarray]:
 
 def payload(carry, history: Dict[str, list], masks=None) -> Dict[str, object]:
     """The ordered leaves of one checkpoint step (see the module doc)."""
-    if carry.comm_state != () or carry.probe != ():
-        raise NotYetPorted("checkpointing reducer state or a block-solver probe")
+    if carry.probe != ():
+        raise NotYetPorted("checkpointing a block-solver probe")
+    if carry.comm_state != () and not isinstance(carry.comm_state, dict):
+        raise TypeError(f"reducer state must be () or a dict of tensors, got "
+                        f"{type(carry.comm_state).__name__}")
     leaves: Dict[str, object] = {}
     for name, val in _state_leaves(carry.state).items():
         leaves[f"carry/state/{name}"] = val
     packed = low_rank.pack_live(carry.iterate)
     for key in low_rank.PACKED_KEYS:
         leaves[f"carry/iterate/{key}"] = packed[key]
+    for key in sorted(carry.comm_state or {}):
+        leaves[f"carry/comm_state/{key}"] = carry.comm_state[key]
     leaves["carry/t"] = np.asarray(carry.t, np.int32)
     leaves["carry/key"] = prng_key(carry.key.seed)
     hist = _history_arrays(history)

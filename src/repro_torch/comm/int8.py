@@ -16,6 +16,8 @@ Per ``exchange`` of a (dim,) f32 vector, as in the JAX package's
 
 Stochastic rounding is unbiased (``E[q] = x * b / s``), so the power
 method's direction is noisier but not biased. The reducer is stateless.
+On a ``hier:g`` graph it runs over the cross-group subgroup with the
+budget of g workers, 127 // g (``comm.topology``).
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ class Int8Reducer:
     summed over ``group`` (None: one process)."""
 
     spec = "int8"
+    stochastic = True  # each worker rounds with its own draws
 
     def __init__(self, num_workers: int = 1, group: Optional[WorkerGroup] = None):
         if not 1 <= num_workers <= 127:
@@ -49,10 +52,10 @@ class Int8Reducer:
     def budget(self) -> int:
         return max(1, 127 // self.num_workers)
 
-    def init_state(self, d: int, m: int):
+    def init_state(self, d: int, m: int, device=None):
         return ()
 
-    def exchange(self, x: torch.Tensor, state, *, slot: str, noise: Noise = None):
+    def exchange(self, x: torch.Tensor, state, *, slot: str, noise: Noise = None, weight=None):
         """(dequantized int8 sum over workers of ``x``, state). ``noise``
         gives this worker's draws; a worker the straggler mask leaves out
         has ``x`` = 0, which quantizes to 0, so no weight is needed here."""

@@ -5,12 +5,13 @@ These functions take the JAX package's arrays as numpy (``np.asarray`` of a
 build the port's objects on ``device``, so both packages can compute from
 the same point: a run of the JAX package stopped at epoch t continues in the
 port with ``core.frank_wolfe.fit(..., state=task_state(...),
-iterate=iterate(...), start_t=epoch_counter(...))``. Nothing here imports
+iterate=iterate(...), comm_state=comm_state(...),
+start_t=epoch_counter(...))``. Nothing here imports
 JAX or the JAX package.
 """
 from __future__ import annotations
 
-from typing import Any, Union
+from typing import Any, Optional, Union
 
 import numpy as np
 import torch
@@ -68,6 +69,21 @@ def iterate(it: Any, max_rank: int, *, device: DeviceLike = None) -> low_rank.Fa
     return low_rank.unpack_live(
         {k: np.asarray(v) for k, v in f.items()}, max_rank, device=resolve_device(device)
     )
+
+
+def comm_state(state: Any, *, worker: Optional[int] = None, device: DeviceLike = None):
+    """The reducer state of a JAX run as the port's: ``()`` stays ``()``;
+    top-k's ``{"u", "v"}`` residuals become f32 tensors on ``device``. A
+    multi-worker run's state carries a leading worker axis (as its
+    checkpoints do): ``worker=j`` takes worker j's residuals."""
+    if isinstance(state, tuple) and state == ():
+        return ()
+    f = _fields(state)
+    if set(f) != {"u", "v"}:
+        raise TypeError(f"no reducer state with fields {sorted(f)} (top-k: u/v)")
+    dev = resolve_device(device)
+    return {k: _f32(np.asarray(v) if worker is None else np.asarray(v)[worker], dev)
+            for k, v in sorted(f.items())}
 
 
 def packed_iterate(packed: Any) -> dict:

@@ -26,13 +26,23 @@ checkpointer does not want cost nothing.
 ``stats`` counts the engine's interactions with the device:
 ``segments_planned``/``segments_run``, ``dispatches`` (epoch steps
 enqueued, plus the final loss in ``fit``) and ``host_syncs`` (every point
-where the host waits for the device).
+where the host waits for the device). It also holds the analytic comm cost
+of the epochs run, as the reference derives it for its telemetry:
+``comm_rounds`` (2K exchanges an epoch, times a topology's rounds per
+exchange), ``comm_logical_bytes`` (the f32 vectors, 8 (d + m) K an epoch),
+``comm_wire_bytes`` (the reducer's or graph's ``wire_bytes``) and, for a
+graph, ``comm_hop_bytes_<hop>`` (``hop_wire_bytes``: global, neighbor,
+intra, inter).
 
 With ``group`` (a ``comm.WorkerGroup``) the engine runs one worker of a
 multi-worker run: every worker runs this same loop on its own rows, and
 every aggregate of an epoch is an all-reduce over the group. ``masks`` is
 the run's (num_epochs, N) straggler-weight table on the host; worker j
-takes column j of row t as its weight in epoch t.
+takes column j of row t as its weight in epoch t. Where the workers' gaps
+may part (an int8 exchange across ``hier`` groups rounds with each
+worker's own noise), the ``gap_tol`` verdict reads the largest gap over
+the workers, so every worker stops at the same epoch; a gossip graph's
+aux gap is that maximum already.
 """
 from __future__ import annotations
 
@@ -42,7 +52,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 import torch
 
 from .. import NoiseStream, as_v0_stream
-from ..comm.base import DenseReducer, WorkerGroup
+from ..comm.base import DenseReducer, WorkerGroup, pmax
 from ..specs import validate
 from . import low_rank
 from .frank_wolfe import EpochAux, EpochCarry, init_carry, k_schedule, make_epoch_step
@@ -118,6 +128,22 @@ class EngineResult:
 _HISTORY_KEYS = ("loss", "gap", "sigma", "gamma")
 
 
+def _comm_cost_per_k(reducer, d: int, m: int, workers: int) -> Dict[str, int]:
+    """The analytic comm cost of one epoch per power iteration (the
+    reference engine's ``_comm_cost``/``_hop_cost``): ``stats`` keys to
+    amounts, multiplied by K(t) for each epoch run."""
+    rpe = int(getattr(reducer, "rounds_per_exchange", 1))
+    cost = {"comm_rounds": 2 * rpe, "comm_logical_bytes": 8 * (d + m),
+            "comm_wire_bytes": reducer.wire_bytes(d, workers) + reducer.wire_bytes(m, workers)}
+    hop_fn = getattr(reducer, "hop_wire_bytes", None)
+    if hop_fn is not None:
+        for dim in (d, m):
+            for hop, nbytes in hop_fn(dim).items():
+                key = f"comm_hop_bytes_{hop}"
+                cost[key] = cost.get(key, 0) + nbytes
+    return cost
+
+
 def _stack_rows(rows: List[EpochAux]) -> EpochAux:
     """(length,) device columns from a segment's aux rows."""
     return EpochAux(*(torch.stack(col) for col in zip(*rows)))
@@ -165,6 +191,7 @@ def run_epochs(
     step_size: str = "default",
     reducer=None,
     iterate: Optional[low_rank.FactoredIterate] = None,
+    comm_state=None,
     max_rank: Optional[int] = None,
     gap_tol: Optional[float] = None,
     block_epochs: Optional[int] = None,
@@ -182,7 +209,7 @@ def run_epochs(
     straggler weights, see the module doc).
 
     ``iterate`` defaults to a fresh store of ``max_rank`` capacity (validated
-    >= num_epochs). ``start_t``/``initial_history``/``iterate``/``state``
+    >= num_epochs), ``comm_state`` to ``reducer.init_state`` on ``device``. ``start_t``/``initial_history``/``iterate``/``state``
     resume a run at epoch ``start_t``; the plan is recomputed from there.
     ``noise`` feeds stochastic encodings; it defaults to a ``NoiseStream``
     with the seed of ``key``.
@@ -223,8 +250,16 @@ def run_epochs(
         "segments_run": 0,
         "dispatches": 0,
         "host_syncs": 0,
+        "comm_rounds": 0,
+        "comm_logical_bytes": 0,
+        "comm_wire_bytes": 0,
     }
-    carry = init_carry(state, iterate, key, reducer.init_state(task.d, task.m), t=start_t)
+    epoch_cost = _comm_cost_per_k(reducer, task.d, task.m, workers)
+    if comm_state is None:
+        comm_state = reducer.init_state(task.d, task.m, device=device)
+    carry = init_carry(state, iterate, key, comm_state, t=start_t)
+    agree = (group is not None and not getattr(reducer, "per_node", False)
+             and not getattr(reducer, "replicated", True))
     tol = None
     if gap_tol is not None:
         tol = torch.full((), gap_tol, dtype=torch.float32, device=device)
@@ -247,15 +282,18 @@ def run_epochs(
             weight = None if masks is None else float(masks[carry.t, rank])
             carry, aux = epoch(carry, weight)
             stats["dispatches"] += 1
+            for name, per_k in epoch_cost.items():
+                stats[name] = stats.get(name, 0) + seg.k * per_k
             epochs_run += 1
             rows.append(aux)
             if tol is not None:
                 # The gap comes from all-reduced values (<W, grad> and the
-                # exchanged vector's norm), the same bits on every worker, so
-                # every worker reads the same verdict and stops at the same
-                # epoch.
+                # exchanged vector's norm), the same bits on every worker
+                # unless the graph parts them (then their max), so every
+                # worker reads the same verdict and stops at the same epoch.
                 stats["host_syncs"] += 1
-                stopped = bool(aux.gap <= tol)
+                gap = pmax(aux.gap.clone(), group) if agree else aux.gap
+                stopped = bool(gap <= tol)
         stats["segments_run"] += 1
         block = _stack_rows(rows)
         host = None

@@ -20,7 +20,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import torch
 
 from .. import DeviceLike, NoiseStream, V0Stream, as_v0_stream, resolve_device
-from ..comm.base import DenseReducer, WorkerGroup, psum
+from ..comm.base import DenseReducer, WorkerGroup, pmax, psum
 from ..specs import validate
 from . import low_rank
 from .power_method import power_iterations
@@ -126,14 +126,18 @@ def make_epoch_step(
     ``num_power_iters``.
 
     The scalar aggregates (loss, <W, grad>, line-search terms) always stay
-    exact f32 sums over ``group`` (None: one process); ``reducer`` carries
-    the power method's vector exchanges, with ``noise`` (default
-    ``NoiseStream(0)``) for stochastic encodings. ``worker_weight`` is this
+    exact f32 sums over ``group`` (None: one process); ``reducer`` (a
+    reducer or a ``comm.topology`` graph) carries the power method's vector
+    exchanges, with ``noise`` (default ``NoiseStream(0)``) for stochastic
+    encodings. Under a per-node graph (gossip) every worker has its own u,
+    v and sigma: the gap and sigma of the aux are then the largest over
+    the workers (one all-reduce MAX), so ``gap <= tol`` certifies every
+    worker's iterate, as in the reference. ``worker_weight`` is this
     worker's straggler weight for the epoch: it scales the worker's loss,
     <W, grad>, line-search terms and power-method contributions, as in the
     reference (None: full participation, no multiply). The state, the
-    iterate and the aux are the same on every worker after the epoch: every
-    worker forms them from the same all-reduced values.
+    iterate and the aux are the same on every worker after the epoch (on a
+    flat graph): every worker forms them from the same all-reduced values.
     """
     if step_size not in ("default", "linesearch"):
         raise ValueError(step_size)
@@ -149,6 +153,7 @@ def make_epoch_step(
         reducer = DenseReducer()
     if noise is None:
         noise = NoiseStream(0)
+    per_node = group is not None and getattr(reducer, "per_node", False)
 
     def sums(w, *local):
         """The workers' sums of the w-weighted local scalars, in one all-reduce."""
@@ -176,7 +181,9 @@ def make_epoch_step(
             t=carry.t,
             worker_weight=worker_weight,
         )
-        gap = duality_gap(inner, res.sigma, mu)
+        gap, sigma = duality_gap(inner, res.sigma, mu), res.sigma
+        if per_node:
+            gap, sigma = pmax(torch.stack([gap, sigma]), group).unbind()
 
         if step_size == "linesearch":
             numer, denom = sums(worker_weight, *task.linesearch_terms(state, res.u, res.v, mu))
@@ -187,7 +194,7 @@ def make_epoch_step(
         state = task.update(state, res.u, res.v, gamma, mu)
         it = low_rank.fw_update(it, res.u, res.v, gamma, mu)
         aux = EpochAux(
-            loss=loss, gap=gap, sigma=res.sigma, gamma=gamma,
+            loss=loss, gap=gap, sigma=sigma, gamma=gamma,
             piters=torch.full((), num_power_iters, dtype=torch.float32, device=device),
         )
         return EpochCarry(
@@ -210,7 +217,8 @@ class FitResult:
     gap certificate stopped the run; histories are truncated to it.
     ``stats`` are the engine's counters (see ``core/engine.py``); ``masks``
     the straggler weights of the epochs run, (epochs_run, N), when the run
-    was given them."""
+    was given them; ``comm_state`` the reducer's state at the end (top-k's
+    residuals, ``()`` for dense and int8)."""
 
     iterate: low_rank.FactoredIterate
     state: PyTree
@@ -219,6 +227,7 @@ class FitResult:
     epochs_run: int = 0
     stats: Dict[str, int] = dataclasses.field(default_factory=dict)
     masks: Optional[torch.Tensor] = None
+    comm_state: PyTree = ()
 
 
 def fit(
@@ -236,6 +245,7 @@ def fit(
     gap_tol: Optional[float] = None,
     block_epochs: Optional[int] = None,
     iterate: Optional[low_rank.FactoredIterate] = None,
+    comm_state=None,
     start_t: int = 0,
     initial_history: Optional[Dict[str, list]] = None,
     solver: str = "rank1",
@@ -259,7 +269,8 @@ def fit(
     the loss of the returned iterate is ``final_loss``. ``gap_tol`` stops the run once the
     duality-gap certificate satisfies ``gap <= gap_tol``. ``callback(start_t,
     aux_block)`` fires once per segment with host numpy rows (NaN after an
-    early stop). To resume, pass the state, iterate, ``start_t`` and
+    early stop). To resume, pass the state, iterate, ``comm_state`` (the
+    reducer's, default its ``init_state``), ``start_t`` and
     ``initial_history`` of epoch ``start_t`` (``repro_torch.convert`` builds
     them from the JAX package's arrays). ``checkpointer`` (a
     ``repro_torch.checkpoint.RunCheckpointer``) saves segment boundaries;
@@ -284,6 +295,7 @@ def fit(
         step_size=step_size,
         reducer=reducer,
         iterate=iterate,
+        comm_state=comm_state,
         max_rank=max_rank,
         gap_tol=gap_tol,
         block_epochs=block_epochs,
@@ -310,4 +322,5 @@ def fit(
         epochs_run=eres.epochs_run,
         stats=eres.stats,
         masks=eres.masks,
+        comm_state=eres.carry.comm_state,
     )

@@ -4,7 +4,9 @@ The paper's workers send ``grad_j @ v`` to a master that sums and broadcasts;
 here every aggregate goes through the comm chokepoint (``comm.base``): an
 all-reduce over the workers' process group, the identity for one process.
 Only O(d+m) vectors cross the wire.
-A reducer with a stochastic encoding (int8) draws each exchange's noise from
+The ``reducer`` slot takes a reducer or a topology (``comm.topology``):
+under a gossip graph every worker ends with its own estimate of u, v and
+sigma. A reducer with a stochastic encoding (int8) draws each exchange's noise from
 a ``repro_torch.NoiseStream`` at (epoch t, iteration i, slot).
 """
 from __future__ import annotations
@@ -62,6 +64,9 @@ def power_iterations(
     contributions are ``w * matvec(v)`` and ``w * rmatvec(u)`` (0 for a
     worker left out, N / alive for the others under reweighting), as in the
     reference. ``None`` means full participation and multiplies by nothing.
+    The weight also goes to ``exchange``: a stateful reducer (top-k) must
+    know a worker that was left out, whose contribution is zero but whose
+    residual is not.
 
     Returns ``(PowerResult, comm_state)``.
     """
@@ -82,10 +87,10 @@ def power_iterations(
     v = v0
     for i in range(num_iters):
         uu, comm_state = reducer.exchange(
-            weighted(matvec(v)), comm_state, slot="u", noise=draw(i, "u"))
+            weighted(matvec(v)), comm_state, slot="u", noise=draw(i, "u"), weight=worker_weight)
         u = uu / (torch.linalg.vector_norm(uu) + _EPS)
         vv, comm_state = reducer.exchange(
-            weighted(rmatvec(u)), comm_state, slot="v", noise=draw(i, "v"))
+            weighted(rmatvec(u)), comm_state, slot="v", noise=draw(i, "v"), weight=worker_weight)
         sigma = torch.linalg.vector_norm(vv)
         v = vv / (sigma + _EPS)
     return PowerResult(u=u, v=v, sigma=sigma), comm_state

@@ -9,7 +9,8 @@ the power method consume (the same duck-typed interface as the JAX package):
     update(state,u,v,g,mu) -> state after W <- (1-g)W - g*mu u v^T
     local_loss(state)      -> local loss contribution ()
     inner_w_grad(state)    -> local <W, grad_j>       ()  (duality gap)
-    linesearch_terms(...)  -> closed-form step terms  (MTLS only)
+    local_grad(state)      -> dense local gradient    (d, m)  (baselines only)
+    linesearch_terms(...)  -> closed-form step terms
 
 ``matvec``/``rmatvec`` here are the plain PyTorch operator chains, the oracle
 ``launch.dfw.verify_kernelized`` holds the kernels to; the run itself routes
@@ -23,8 +24,12 @@ Matrix completion keeps its observed entries in COO layout (``MCState``);
 its matvecs go through the ``mc_matvec`` kernel along row- and column-sorted
 entry orders built once per run, reading copies of the residual kept in
 each order, and its per-entry update, loss, <W, grad> and line search stay
-plain PyTorch, as they stay plain XLA in the JAX package. The dense MTLS
-state and block atoms come with later slices.
+plain PyTorch, as they stay plain XLA in the JAX package. ``local_grad``
+forms the d x m gradient that only the NAIVE-DFW and SVA baselines
+(``core.baselines``) read: plain f32 products (the reference computes them
+outside any kernel), and every sum in a fixed order, so a run repeats its
+bits on the card. The dense MTLS state and block atoms come with later
+slices.
 """
 from __future__ import annotations
 
@@ -100,6 +105,10 @@ class MultiTaskLeastSquares:
     def inner_w_grad(self, s: MTLSState) -> torch.Tensor:
         # <W, X^T R> = <X W, R> = <R + Y, R>
         return _row_chunked_sum(lambda r, y: torch.sum((r + y) * r), s.r, s.y)
+
+    def local_grad(self, s: MTLSState) -> torch.Tensor:
+        """X^T R, (d, m): one f32 product."""
+        return s.x.T @ s.r
 
     def linesearch_terms(self, s: MTLSState, u, v, mu):
         """Local (numerator, denominator) of the closed-form step (App. B):
@@ -195,6 +204,17 @@ class MultinomialLogistic:
 
         zp, zy = _row_chunked_sum(inner, s.z, s.y)
         return zp - zy
+
+    def local_grad(self, s: LogisticState) -> torch.Tensor:
+        """X^T (P - H), (d, m), over row chunks. H is subtracted in place
+        from each chunk's P at (i, y_i), one address a row: the
+        reference's P - one_hot(y) elementwise, without an (n, m) one-hot."""
+        def grad(x, z, y):
+            p = torch.softmax(z, dim=-1)
+            p[torch.arange(p.shape[0], device=p.device), y] -= 1.0
+            return x.T @ p
+
+        return _row_chunked_sum(grad, s.x, s.z, s.y)
 
 
 # ---------------------------------------------------------------------------
@@ -321,9 +341,24 @@ class MatrixCompletion:
         return torch.sum((s.resid + s.weight * s.vals) * s.resid)
 
     def local_grad(self, s: MCState) -> torch.Tensor:
-        """Dense d x m gradient P_Omega(W - M); tests only."""
-        g = torch.zeros((self.d, self.m), dtype=s.resid.dtype, device=s.resid.device)
-        return g.index_put_((s.rows.long(), s.cols.long()), s.resid, accumulate=True)
+        """Dense d x m gradient P_Omega(W - M), the reference's
+        ``zeros.at[rows, cols].add(resid)`` in its order: the entries sorted
+        (stably) by their linear index row * m + col, then pass j adds each
+        position's j-th entry (in entry order) to it, every pass writing
+        each of its positions once; as many passes as the most entries at
+        one position (one host read). An accumulating scatter would add
+        duplicates with CUDA atomics, in an order that changes from run to
+        run, and a segmented sum in its own association."""
+        lin, perm = torch.sort(s.rows.long() * self.m + s.cols.long(), stable=True)
+        pos, counts = torch.unique_consecutive(lin, return_counts=True)
+        starts = torch.cumsum(counts, 0) - counts
+        resid = s.resid[perm]
+        g = torch.zeros(self.d * self.m, dtype=s.resid.dtype, device=s.resid.device)
+        for j in range(int(counts.max()) if counts.numel() else 0):
+            at = counts > j
+            p = pos[at]
+            g.index_put_((p,), g[p] + resid[starts[at] + j])
+        return g.view(self.d, self.m)
 
     def linesearch_terms(self, s: MCState, u, v, mu):
         """Local (numerator, denominator) of the exact step for the quadratic

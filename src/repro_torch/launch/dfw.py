@@ -1,7 +1,9 @@
 """DFW-Trace execution layer, the port's counterpart of ``repro.launch.dfw``.
 
-Two drivers, for the three paper tasks, with solver ``rank1``, topology
-``flat`` and comm ``dense`` or ``int8``:
+Two drivers, for the three paper tasks, with solver ``rank1``, comm
+``dense``, ``int8`` or ``topk:r`` and topology ``flat``, ``ring``,
+``gossip:k`` or ``hier:g`` (``comm.make_topology``; a flat graph hands the
+bare reducer to the engine, the path without a topology):
 
 - ``fit`` is the multi-worker run (paper Alg. 2): one process per worker
   over a ``torch.distributed`` process group (``comm.WorkerGroup``), each
@@ -10,7 +12,8 @@ Two drivers, for the three paper tasks, with solver ``rank1``, topology
   all-reduce through ``comm``. ``worker_schedule`` draws the sampled-worker
   (straggler) weights. ``run_workers`` starts N such processes on one host.
 - ``fit_serial`` runs one worker on one device (int8 at the full 127-level
-  budget, the serial baseline of the compressed runs).
+  budget, or at a ``hier:g`` graph's 127 // g; gossip the identity), the
+  serial baseline of the compressed runs and graphs.
 
 ``KernelizedTask`` routes the power method's matvecs through the
 hand-written ``power_matvec`` kernels (dense tasks) and ``mc_matvec`` kernel
@@ -23,9 +26,9 @@ completion entries as the JAX package does.
 ``DFWConfig(checkpoint_dir=...)`` makes a run write checkpoints in the JAX
 package's layout and payload format (``repro_torch.checkpoint``), which the
 serving engine and the JAX package's readers load; in a multi-worker run
-worker 0 writes the whole state. Resuming, the other solvers, encodings and
-topologies, and telemetry come with later slices; a ``DFWConfig`` that asks
-for them is rejected.
+worker 0 writes the whole state and the top-k residuals of every worker.
+Resuming, the block solvers and telemetry come with later slices; a
+``DFWConfig`` that asks for them is rejected.
 """
 from __future__ import annotations
 
@@ -42,13 +45,13 @@ import torch
 
 from .. import DeviceLike, NoiseStream, _mix, as_v0_stream, resolve_device
 from ..checkpoint import dfw as ckpt
-from ..comm import Int8Reducer, WorkerGroup, make_reducer, verify_quantize_kernels
+from ..comm import Int8Reducer, WorkerGroup, make_topology, verify_quantize_kernels
 from ..core import engine, frank_wolfe, low_rank, tasks
 from ..core.frank_wolfe import EpochAux
 from ..core.power_method import sphere_vector
 from ..kernels.mc_matvec import ops as mc_ops
 from ..kernels.power_matvec import ops as pm_ops
-from ..specs import NotYetPorted, validate
+from ..specs import NotYetPorted, parse_comm, validate
 
 PyTree = Any
 
@@ -66,10 +69,12 @@ class DFWConfig:
     on the sampled-worker (straggler) mode of ``fit``, with survivors
     reweighted to N / alive under ``reweight``; ``data_axis`` names the
     worker axis in the reference and is accepted and unused here (the
-    workers are the process group's ranks). Every field of the second group
-    belongs to a path not yet ported (other solvers/encodings/graphs,
-    Pallas, resume, telemetry) and must keep its default; anything else
-    raises ``NotYetPorted`` when the config is built. The port has no
+    workers are the process group's ranks). ``gossip_rounds`` overrides a
+    gossip graph's mixing rounds per exchange (None: sized from its
+    spectral gap, ``comm.default_gossip_rounds``). Every field of the second
+    group belongs to a path not yet ported (block solvers, Pallas, resume,
+    telemetry) and must keep its default; anything else raises
+    ``NotYetPorted`` when the config is built. The port has no
     ``kernelize`` switch: the run always goes through ``KernelizedTask``,
     whose ops pick the kernel or the plain version by the tensors' device.
     """
@@ -91,8 +96,8 @@ class DFWConfig:
     data_axis: str = "data"
     sample_prob: float = 1.0
     reweight: bool = True
-    # --- not yet ported: must keep these defaults ---
     gossip_rounds: Optional[int] = None
+    # --- not yet ported: must keep these defaults ---
     use_pallas: Optional[bool] = None
     interpret: bool = False
     engine: str = "scan"
@@ -116,7 +121,6 @@ class DFWConfig:
 
 
 _UNPORTED = {
-    "gossip_rounds": "gossip topology",
     "use_pallas": "Pallas dispatch (the port picks the kernel by tensor device)",
     "interpret": "Pallas interpret mode",
     "engine": "the legacy per-epoch engine",
@@ -135,6 +139,7 @@ class DFWFitResult:
     final_loss: float = float("nan")  # F at the returned iterate
     epochs_run: int = 0  # < num_epochs when gap_tol stopped the run
     stats: Dict[str, int] = dataclasses.field(default_factory=dict)
+    comm_state: PyTree = ()  # this worker's reducer state at the end (top-k residuals)
 
 
 # ---------------------------------------------------------------------------
@@ -319,7 +324,8 @@ def _make_checkpointer(task, cfg: DFWConfig, comm_spec: str, num_workers: int = 
         save_every=cfg.checkpoint_every,
         keep_last=cfg.checkpoint_keep,
         extra=ckpt.run_extra(
-            task, num_workers=num_workers, comm=comm_spec, num_epochs=cfg.num_epochs,
+            task, num_workers=num_workers, comm=parse_comm(comm_spec).spec,
+            num_epochs=cfg.num_epochs,
             schedule=cfg.schedule, mu=cfg.mu, step_size=cfg.step_size,
             sample_prob=cfg.sample_prob, reweight=cfg.reweight, solver=cfg.solver,
             topology=cfg.topology,
@@ -332,10 +338,13 @@ def _make_checkpointer(task, cfg: DFWConfig, comm_spec: str, num_workers: int = 
 class _WorkerCheckpointer:
     """A multi-worker run's checkpointer. Every worker asks ``want`` at the
     same boundaries (``RunCheckpointer``'s policy); at a saved one every
-    worker hands in its rows of the state (one all-gather a saved field) and
-    worker 0, which holds ``inner``, writes the whole state, in rank order
-    (the reference's global row layout), with the engine's (num_epochs, N)
-    worker weights: ones without sampling, as the reference saves them."""
+    worker hands in its rows of the state and its reducer state (one
+    all-gather a saved field) and worker 0, which holds ``inner``, writes
+    the whole state, in rank order (the reference's global row layout), the
+    reducer state with a leading worker axis (the top-k residuals (N, d)
+    and (N, m)), its own iterate (node 0's, on a gossip graph) and the
+    engine's (num_epochs, N) worker weights: ones without sampling, as the
+    reference saves them."""
 
     def __init__(self, inner: Optional[ckpt.RunCheckpointer], group: Optional[WorkerGroup],
                  save_every: int, num_epochs: int, workers: int):
@@ -346,14 +355,18 @@ class _WorkerCheckpointer:
         return ckpt.wants_save(boundary_index, last, self.save_every)
 
     def save_segment(self, *, t: int, carry, history, masks, done: bool) -> None:
-        state = carry.state
+        state, comm_state = carry.state, carry.comm_state
         if self.group is not None:
             derived = getattr(state, "DERIVED", ())
             state = state._replace(**{
                 name: self.group.all_gather_rows(val) for name, val in zip(state._fields, state)
                 if isinstance(val, torch.Tensor) and name not in derived})
+            if comm_state != ():
+                comm_state = {k: self.group.all_gather_rows(v[None])
+                              for k, v in sorted(comm_state.items())}
         if self.inner is not None:
-            self.inner.save_segment(t=t, carry=carry._replace(state=state), history=history,
+            self.inner.save_segment(t=t, carry=carry._replace(state=state, comm_state=comm_state),
+                                    history=history,
                                     masks=self.unsampled if masks is None else masks, done=done)
 
     def wait(self) -> None:
@@ -372,16 +385,23 @@ def _as_tensor(a, device: torch.device) -> torch.Tensor:
 
 def _run(task, x, y, *, cfg: DFWConfig, key, noise, callback, dev, group, masks, checkpointer,
          num_workers: int) -> DFWFitResult:
-    """The run both drivers share, on this worker's rows ``x``, ``y``."""
+    """The run both drivers share, on this worker's rows ``x``, ``y``.
+
+    The graph comes from ``make_topology`` (with a group, every worker
+    builds hier's subgroups here in the same order); a flat graph's bare
+    reducer goes to the engine."""
     ktask = kernelize(task)
-    reducer = make_reducer(cfg.comm, num_workers=num_workers, group=group)
+    topo = make_topology(cfg.topology, num_workers=num_workers, comm=cfg.comm,
+                         rounds=cfg.gossip_rounds, group=group)
+    reducer = topo.reducer
+    comm_obj = reducer if cfg.topology == "flat" else topo
     if cfg.verify_kernels:
         rows = min(x.shape[0], 64)
         verify_kernelized(task, ktask, task.init_state(x[:rows], y[:rows]), seed=0x5EED)
-        if isinstance(reducer, Int8Reducer):
+        if isinstance(reducer, Int8Reducer):  # at the budget of the hop it encodes
             verify_quantize_kernels(num_workers=reducer.num_workers, device=dev)
     state = ktask.init_state(x, y)
-    collectives = 0 if group is None else group.all_reduces
+    before = None if group is None else group.tally.snapshot()
     res = frank_wolfe.fit(
         ktask,
         state,
@@ -391,7 +411,7 @@ def _run(task, x, y, *, cfg: DFWConfig, key, noise, callback, dev, group, masks,
         schedule=cfg.schedule,
         step_size=cfg.step_size,
         callback=callback,
-        reducer=reducer,
+        reducer=comm_obj,
         max_rank=engine.resolve_max_rank(cfg.max_rank, cfg.num_epochs),
         gap_tol=cfg.gap_tol,
         block_epochs=cfg.block_epochs,
@@ -405,10 +425,21 @@ def _run(task, x, y, *, cfg: DFWConfig, key, noise, callback, dev, group, masks,
     if checkpointer is not None:
         checkpointer.wait()
     if group is not None:
-        res.stats["all_reduces"] = group.all_reduces - collectives
+        after = group.tally.snapshot()
+        res.stats["all_reduces"] = after["calls"]["all_reduce"] - before["calls"]["all_reduce"]
+        for kind, nbytes in after["bytes"].items():
+            res.stats[f"bytes_{kind}"] = nbytes - before["bytes"][kind]
+        if not getattr(comm_obj, "replicated", True):
+            # the workers' iterates part (gossip's per-node estimates, or
+            # int8 across hier groups): every worker returns node 0's, the
+            # reference's convention (every worker ran as many epochs, so
+            # the count is the same)
+            for t in res.iterate:
+                group.broadcast(t)
     return DFWFitResult(
         iterate=res.iterate, state=res.state, history=res.history, masks=res.masks,
         final_loss=res.final_loss, epochs_run=res.epochs_run, stats=res.stats,
+        comm_state=res.comm_state,
     )
 
 
@@ -441,6 +472,14 @@ def fit(
     vector exchanges, per epoch one all-reduce of the loss and <W, grad>
     and, with the line search, one of its two terms. ``noise`` is this
     worker's int8 noise (default ``NoiseStream(seed, worker=j)``).
+    ``cfg.topology`` picks the graph of the vector exchanges
+    (``comm.make_topology``): on ``ring``/``gossip:k`` each worker keeps its
+    own iterate and the history's gap and sigma are the workers' largest;
+    on ``hier:g`` the exchange sums inside each group, then encodes across
+    groups. Where the workers' iterates part (gossip, or int8 across hier
+    groups) every worker returns worker 0's, the reference's convention.
+    ``stats`` add, over the group, ``all_reduces`` and ``bytes_<kind>``,
+    the bytes of this worker's collectives by kind (``comm.base.KINDS``).
 
     ``cfg.sample_prob`` < 1 samples the workers per epoch
     (``worker_schedule``, or the injected (num_epochs, N) ``masks``
@@ -501,7 +540,10 @@ def fit_serial(
     an int seed or a ``repro_torch.V0Stream``; ``noise`` is the int8
     reducer's ``repro_torch.NoiseStream`` (default: seeded like ``key``).
     ``cfg.comm`` is honoured with a one-worker reducer: int8 runs at the
-    full 127-level budget, the serial baseline of the compressed runs.
+    full 127-level budget, top-k with one worker's error feedback, the
+    serial baseline of the compressed runs. ``cfg.topology`` likewise: a
+    one-worker gossip exchange is the identity and a one-worker ``hier:g``
+    encodes at group width g (int8's budget 127 // g), as in the reference.
     ``cfg.sample_prob`` < 1 is rejected, as in the reference: the straggler
     model samples workers, and a serial run has one.
 

@@ -8,9 +8,8 @@ same error messages as the JAX package:
     topology  "flat" | "ring" | "gossip:k" | "hier:g"
 
 A malformed spec raises :class:`SpecError`. A well-formed spec that the port
-does not run yet (everything but ``rank1``, ``dense``/``int8`` and ``flat``) raises
-:class:`NotYetPorted` from :func:`validate`, before any device work, rather
-than running half-way.
+does not run yet (the ``block`` solvers) raises :class:`NotYetPorted` from
+:func:`validate`, before any device work, rather than running half-way.
 """
 from __future__ import annotations
 
@@ -253,7 +252,8 @@ class NotYetPorted(NotImplementedError):
 
 
 #: What the port runs, per axis.
-PORTED = {"solver": ("rank1",), "comm": ("dense", "int8"), "topology": ("flat",)}
+PORTED = {"solver": ("rank1",), "comm": ("dense", "int8", "topk"),
+          "topology": ("flat", "gossip", "hier")}
 
 
 def validate(

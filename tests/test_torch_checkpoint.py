@@ -322,11 +322,20 @@ def test_jax_checkpoint_is_served_by_the_port(kind, data, tmp_path):
 
 
 def test_payload_refuses_unported_carry_parts():
+    """A block-solver probe is still refused. Reducer state is written since
+    top-k was ported (it was refused before): its residuals u, v follow the
+    iterate, in the reference's leaf order."""
     it = low_rank.init(2, D, M, device="cpu")
     state = tasks.MTLSState(*[torch.zeros(1, 1)] * 3)
-    carry = frank_wolfe.init_carry(state, it, 0, comm_state=(torch.zeros(D),))
-    with pytest.raises(NotYetPorted, match="reducer state"):
-        checkpoint.dfw.payload(carry, {})
+    residuals = {"v": torch.arange(M, dtype=torch.float32), "u": torch.ones(D)}
+    carry = frank_wolfe.init_carry(state, it, 0, comm_state=residuals)
+    leaves = checkpoint.dfw.payload(carry, {})
+    paths = list(leaves)
+    assert paths[paths.index("carry/iterate/v") + 1:paths.index("carry/t")] == [
+        "carry/comm_state/u", "carry/comm_state/v"]
+    assert leaves["carry/comm_state/v"] is residuals["v"]
+    with pytest.raises(NotYetPorted, match="probe"):
+        checkpoint.dfw.payload(carry._replace(probe=torch.zeros(M, 2)), {})
 
 
 # ---------------------------------------------------------------------------

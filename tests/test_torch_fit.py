@@ -135,8 +135,13 @@ def test_stats_count_host_syncs(data):
     ttask = tasks.MultiTaskLeastSquares(D, M)
     cfg = dfw.DFWConfig(mu=1.0, num_epochs=12, schedule="log", verify_kernels=False)
     res = dfw.fit_serial(ttask, data["x"], data["y"], cfg=cfg, key=3, device="cpu")
+    # the analytic comm cost of the epochs run: K(t) sums to 27 over 12 epochs
+    ksum = sum(res.history["k"])
+    assert ksum == 27
     assert res.stats == {"segments_planned": 3, "segments_run": 3, "dispatches": 13,
-                         "host_syncs": 2}
+                         "host_syncs": 2, "comm_rounds": 2 * ksum,
+                         "comm_logical_bytes": 8 * (D + M) * ksum,
+                         "comm_wire_bytes": 8 * (D + M) * ksum}
     cfg = dfw.DFWConfig(mu=1.0, num_epochs=12, schedule="log", gap_tol=1e-9)
     res = dfw.fit_serial(ttask, data["x"], data["y"], cfg=cfg, key=3, device="cpu")
     assert res.epochs_run == 12 and res.stats["host_syncs"] == 12 + 2

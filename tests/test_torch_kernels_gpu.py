@@ -662,3 +662,99 @@ def test_cuda_rwkv6_prefill_matches_cpu(cuda, chunk, seq):
     _close(last.cpu(), want_last, atol_rel=1e-4)
     for name in ("s", "x_tm", "x_cm"):
         _close(cache[name].cpu(), want_cache[name], atol_rel=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Fixed-order sums on the fit paths: the same bits on every run
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dup", [False, True])
+def test_cuda_mc_local_grad_is_fixed_order(cuda, dup):
+    """MC's dense gradient (the baselines' input) sums each position's
+    entries in entry order: twice on the card, the same bits; without
+    duplicate positions, the accumulating scatter's bits (each address
+    written once), with them the CPU's (the same order)."""
+    from repro_torch.core import tasks
+
+    d, m, p = 4_800, 1_777, 200_000
+    gen = torch.Generator().manual_seed(3)
+    lin = torch.randperm(d * m, generator=gen)[:p]
+    if dup:  # every 7th entry repeats an earlier position
+        lin[7::7] = lin[: len(lin[7::7])]
+    rows, cols = (lin // m).to(torch.int32), (lin % m).to(torch.int32)
+    vals = torch.randn(p, generator=gen)
+    task = tasks.MatrixCompletion(d, m)
+    idx, yw = tasks.pack_observations(rows, cols, vals)
+    state = task.init_state(idx.to(cuda), yw.to(cuda))
+    g1, g2 = task.local_grad(state), task.local_grad(state)
+    torch.cuda.synchronize()
+    assert torch.equal(g1, g2)
+    if dup:
+        want = task.local_grad(task.init_state(idx, yw))
+    else:
+        want = torch.zeros(d, m, device=cuda).index_put_(
+            (state.rows.long(), state.cols.long()), state.resid, accumulate=True)
+    assert torch.equal(g1.cpu(), want.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim,k,workers", [(480_189, 16, 4), (17_770, 16, 8), (40, 16, 4)])
+def test_cuda_topk_reassembly_is_fixed_order(cuda, dim, k, workers):
+    """The gathered (N, k) top-k values added rank by rank: twice on the
+    card the same bits, and the CPU's (the ranks' order), with positions
+    shared across ranks."""
+    from repro_torch.comm import topk
+
+    gen = torch.Generator().manual_seed(dim + k)
+    pool = torch.randperm(dim, generator=gen)[: max(k + 1, 2 * k)]
+    gi = torch.stack([pool[torch.randperm(len(pool), generator=gen)[:k]]
+                      for _ in range(workers)]).to(torch.int32)
+    gv = torch.randn(workers, k, generator=gen) * 1e3
+    a = topk.reassemble(gi.to(cuda), gv.to(cuda), dim)
+    b = topk.reassemble(gi.to(cuda), gv.to(cuda), dim)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert torch.equal(a.cpu(), topk.reassemble(gi, gv, dim))
+
+
+@pytest.mark.gpu
+def test_cuda_topk_exchange_keeps_the_tie_rule(cuda):
+    """On the card, the top-k of tied magnitudes takes the lower index first
+    (the stable sort), as on the CPU, and the residuals match bit for bit."""
+    from repro_torch.comm import TopKReducer
+
+    x = torch.from_numpy(np.random.default_rng(0).integers(-3, 4, 480_189).astype(np.float32))
+    r = TopKReducer(k=16)
+    got, st = r.exchange(x.to(cuda), r.init_state(480_189, 3, device=cuda), slot="u")
+    want, st_cpu = r.exchange(x, r.init_state(480_189, 3), slot="u")
+    assert torch.equal(got.cpu(), want) and torch.equal(st["u"].cpu(), st_cpu["u"])
+
+
+class _Ring:
+    """A stand-in worker group: ``shift`` hands back fixed neighbour vectors."""
+
+    def __init__(self, received):
+        self.received, self.size, self.rank = received, 4, 0
+
+    def shift(self, x, offsets):
+        return [r.to(x.device) for r in self.received[: len(offsets)]]
+
+
+@pytest.mark.gpu
+def test_cuda_gossip_mixing_is_fixed_order(cuda):
+    """A gossip round's sum (x plus the neighbours in offset order, times
+    f32(1 / (k + 1)), then N times): twice on the card the same bits, and
+    the CPU's."""
+    from repro_torch.comm import GossipTopology
+
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(480_189, generator=gen)
+    received = [torch.randn(480_189, generator=gen) for _ in range(4)]
+    topo = GossipTopology(num_workers=8, degree=4, rounds=3, group=_Ring(received))
+    a, _ = topo.exchange(x.to(cuda), (), slot="u")
+    b, _ = topo.exchange(x.to(cuda), (), slot="u")
+    want, _ = topo.exchange(x, (), slot="u")
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a.cpu(), want)
