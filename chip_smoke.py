@@ -178,6 +178,31 @@ Phases, each fatal on failure (exit code != 0, no result line):
    implies, every worker returning worker 0's iterate, and the bytes each
    worker counted per collective equal to the analytic ones exactly (a
    check, not a timing).
+25. The block:k solver tier (BlockFW). (a) The block forms of the kernels
+   against their plain versions at k = 8 and 32: ``matmat``/``rmatmat`` on R
+   and X at n = 1,281,167, ``rankk_update`` and ``rankk_update_axpy`` on R
+   (and Y), ``coo_matmat`` (G V, G^T U) and the block ``update_resid`` at the
+   Netflix shapes, each against its bound, its plain version and one PyTorch
+   call (``A @ V``, ``addmm``, cuSPARSE's CSR SpMM), its bits repeated; the
+   block ``update_resid`` and its caller order alone (``update_resid_caller``,
+   the line search's) bit for bit; tiny odd shapes at k = 1, 3, 17, 33.
+   (b) Full-width fits: least squares ``block:32:adapt`` const:8 with the
+   line search (10 epochs), logistic regression ``block:8`` (3 epochs),
+   matrix completion ``block:8:adapt`` const:4, dense (10 epochs) and int8
+   (5): losses non-increasing (logistic: falling, below n ln m),
+   MC's held-out RMSE below W = 0's, executed iterations <= K, launches as
+   the path implies; ms an epoch against phases 3 and 8's rank1 epochs. (c)
+   ``block:32`` through ``fit`` over one NCCL worker = ``fit_serial``, bits
+   and launches. (d) Four gloo workers, ``hier:2`` with ``block:8`` on least
+   squares (n = 1,281,164) against ``fit_serial``: loss, final loss and W
+   within 1e-4, the counted bytes the analytic ones exactly. (e) The Table-1
+   cell of ``benchmarks/block_fw_convergence.py`` made on the card from
+   --seed (d = m = 1024, n = 2048, rank-32 truth, 5% of the entries for
+   matrix completion, k = 32, budget 160), five problems each: epochs to
+   10% of rank1's first gap, rank1 const:2 against ``block:32:adapt``
+   const:8 and its ``:cold`` ablation; every block run reaches the target,
+   the median speedup must reach 5x (``benchmarks/baselines.json``) and
+   each problem's 4.5x.
 
 ``--coo-bits PATH`` runs only phases 1 and 6 and then G.v and G^T.u of
 ``coo_matvec`` at the full shape (x drawn from --seed), saving the results
@@ -241,6 +266,15 @@ QUANTIZE_SCALAR_US = {"u": 3.09, "v": 1.41}
 # kept in each order's sorted order, so their rows in the kernels line name
 # its TPU kernel with "part_of".
 HELPER_KERNELS = ("gather_sorted", "update_resid")
+# The block:k solver's forms of the kernels above (phase 25), each under the
+# TPU kernel the reference vmaps over the k columns; update_resid's block form
+# is a route of the update_resid wrapper (its route_launches["block"]), and
+# update_resid_caller its caller order alone (the block line search's).
+BLOCK_KERNELS = ("matmat", "rmatmat", "rankk_update", "rankk_update_axpy", "coo_matmat",
+                 "update_resid_caller")
+BLOCK_OF = {"matmat": "matvec", "rmatmat": "rmatvec", "rankk_update": "rank1_update",
+            "rankk_update_axpy": "rank1_update_axpy", "coo_matmat": "coo_matvec",
+            "update_resid_block": "coo_matvec", "update_resid_caller": "coo_matvec"}
 SOURCE = {
     "matvec": "src/repro_torch/csrc/power_matvec.cu",
     "rmatvec": "src/repro_torch/csrc/power_matvec.cu",
@@ -254,6 +288,13 @@ SOURCE = {
     "wkv6_chunk": "src/repro_torch/csrc/wkv6_chunk.cu",
     "gather_sorted": "src/repro_torch/csrc/mc_matvec.cu",
     "update_resid": "src/repro_torch/csrc/mc_matvec.cu",
+    "matmat": "src/repro_torch/csrc/power_matvec.cu",
+    "rmatmat": "src/repro_torch/csrc/power_matvec.cu",
+    "rankk_update": "src/repro_torch/csrc/rank1_update.cu",
+    "rankk_update_axpy": "src/repro_torch/csrc/rank1_update.cu",
+    "coo_matmat": "src/repro_torch/csrc/mc_matvec.cu",
+    "update_resid_block": "src/repro_torch/csrc/mc_matvec.cu",
+    "update_resid_caller": "src/repro_torch/csrc/mc_matvec.cu",
 }
 # Memory rate (bytes/s), f32 non-tensor-core peak, bf16 dense tensor-core
 # peak and TF32 dense tensor-core peak (flop/s) of each part this script has
@@ -297,7 +338,14 @@ CARD_PEAKS = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12, 989e12, 495e12)}
 # to that distance of bf16 decode from f32, measured in the same run (logits
 # and every cache), and bf16 prefill's own distance from f32 to 1.25 times
 # decode's.
-TOL = {"matvec": 1e-4, "rmatvec": 1e-4, "rank1_update": 1e-6, "rank1_update_axpy": 1e-6,
+# The block forms (phase 25): matmat/rmatmat and coo_matmat sum in another
+# order than cuBLAS and index_add_ (1e-4, as their vector forms); the rank-k
+# update's k-term dot is one fmaf chain against the plain version's cuBLAS
+# product P Q^T (1e-5 of max); the block update_resid is spelled in its plain
+# version's order (bit for bit, torch.equal).
+TOL = {"matmat": 1e-4, "rmatmat": 1e-4, "rankk_update": 1e-5, "rankk_update_axpy": 1e-5,
+       "coo_matmat": 1e-4,
+       "matvec": 1e-4, "rmatvec": 1e-4, "rank1_update": 1e-6, "rank1_update_axpy": 1e-6,
        "coo_matvec": 1e-4, "factor_matvec": 1e-4, "serve": 1e-4,
        "flash_attention": 1e-4, "flash_attention_bf16": 1e-2, "lm_f32": 1e-3, "lm_bf16": 5e-2,
        "lm_card_cpu": 1e-4, "wkv6_chunk": 2e-4, "wkv6_exact": 2e-4, "ssm_bf16_excess": 1.25}
@@ -518,7 +566,7 @@ def expected_launches(kind: str, ks, verify: bool, comm: str = "dense"):
     worth of matvecs before the fit, and verify_quantize_kernels one pair."""
     iters = sum(ks) + (1 if verify else 0)
     e = len(ks)
-    want = dict.fromkeys((*TPU_KERNEL, *HELPER_KERNELS), 0)
+    want = dict.fromkeys((*TPU_KERNEL, *HELPER_KERNELS, *BLOCK_KERNELS), 0)
     if kind == "mc":
         want["coo_matvec"] = 2 * iters
         want["gather_sorted"] = 2 * (1 + (1 if verify else 0))
@@ -561,10 +609,45 @@ def run_path(torch, kernels, dfw, kind, task, X, target, cfg, seed, dev):
                                final_loss=res.final_loss, launches=launches, peak_gb=peak)
 
 
+def expected_block_launches(kind: str, piters, verify: bool, comm: str = "dense",
+                            linesearch: bool = True):
+    """Launches a block:k fit implies, from its executed power iterations
+    ``piters`` (one an epoch): per iteration MTLS runs R V, X U (2 matmat)
+    and X^T (R V), R^T (X U) (2 rmatmat), logistic X U and X^T (P V - V_y)
+    (1 + 1), matrix completion G V and G^T U (2 coo_matmat); each epoch adds
+    the update's X U (MTLS: and the line search's) and one rank-k update
+    (MC: one update_resid on its block route, and one update_resid_caller
+    for the line search's entry values); verify_kernelized runs one
+    iteration's worth of the vector forms and one of the block forms, and
+    each MC state built gathers its copies (2 gather_sorted). int8: a
+    quantize and a dequantize each exchange, one pair in the start-up
+    check."""
+    iters, e = int(sum(piters)), len(piters)
+    want = dict.fromkeys((*TPU_KERNEL, *HELPER_KERNELS, *BLOCK_KERNELS), 0)
+    v = 1 if verify else 0
+    if kind == "mc":
+        want.update(coo_matmat=2 * iters + 2 * v, coo_matvec=2 * v,
+                    gather_sorted=2 * (1 + v), update_resid=e,
+                    update_resid_caller=e if linesearch else 0)
+    else:
+        per_iter = 2 if kind == "mtls" else 1
+        want.update(matvec=per_iter * v, rmatvec=per_iter * v,
+                    matmat=per_iter * (iters + v) + e * (2 if linesearch else 1),
+                    rmatmat=per_iter * (iters + v))
+        want["rankk_update_axpy" if kind == "mtls" else "rankk_update"] = e
+    if comm == "int8":
+        want["quantize"] = want["dequantize"] = 2 * iters + v
+    return want
+
+
 PORT_KERNELS = ("matvec_kernel", "rmatvec_partial_kernel", "rmatvec_finish_kernel",
                 "rank1_kernel", "piece_sum_kernel", "segment_sum_kernel", "gather_word_kernel",
                 "pack_records_kernel", "gather_records_kernel", "update_resid_kernel",
-                "quantize_kernel", "dequantize_kernel", "factor_matvec_kernel")
+                "quantize_kernel", "dequantize_kernel", "factor_matvec_kernel",
+                # the block:k solver's forms
+                "matmat_kernel", "rmatmat_partial_kernel", "rmatmat_finish_kernel",
+                "rankk_kernel", "piece_sum_block_kernel", "segment_sum_block_kernel",
+                "update_resid_block_kernel")
 RECORD_KERNELS = ("pack_records_kernel", "gather_records_kernel")  # the state build's copies
 
 
@@ -2878,6 +2961,490 @@ def profile_ssm(torch, lm_serve, steps, cfg, params, toks, dev, seed):
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 25: the block:k solver tier
+# ---------------------------------------------------------------------------
+
+BLOCK_KS = (8, 32)  # block widths of the kernel forms' timings: MC's fits, MTLS's
+TABLE1 = dict(d=1024, m=1024, rank=32, n=2048, obs=0.05, budget=160, frac=0.1, k=32)
+TABLE1_FLOOR = 5.0  # benchmarks/baselines.json: epochs_to_gap.speedup >= 5x
+TABLE1_INSTANCES = 5  # problems the cell's median speedup is taken over (see table1_cell)
+# Every problem's own floor: 10% under TABLE1_FLOOR, and under the reference's
+# lowest speedup seen (4.77x, its own benchmark cell, JAX 0.9.0 on the CPU)
+TABLE1_EACH = 4.5
+
+
+def block_row(torch, name, label, shape, kfn, pfn, lfn, nbytes, nflops, peaks, reps,
+              plain_reps=None, exact=False, main=False):
+    """One block form against its plain version at one shape: the error (or
+    the bits), the bits on repeat, and the times of kernel, plain version and
+    library call beside the bound."""
+    bw, flops = peaks[:2]
+    got = kfn()
+    torch.cuda.synchronize()
+    want = pfn()
+    if exact:
+        pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+        check(all(torch.equal(a, b) for a, b in pairs),
+              f"{name} {label}: not the plain version's bits")
+        err_abs, err_rel = 0.0, 0.0
+    else:
+        err_abs, err_rel = rel_err(torch, got, want)
+        check(math.isfinite(err_rel) and err_rel <= TOL[name],
+              f"{name} {label}: max rel err {err_rel:.3e} > {TOL[name]:.0e}")
+    again = kfn()
+    same = (all(torch.equal(a, b) for a, b in zip(got, again)) if isinstance(got, tuple)
+            else torch.equal(got, again))
+    check(same, f"{name} {label}: repeated call gave other bits")
+    del got, want, again
+    row = dict(name=name, operand=label, shape=list(shape), max_abs_err=err_abs,
+               max_rel_err=err_rel, ms=time_ms(torch, kfn, reps),
+               plain_ms=time_ms(torch, pfn, plain_reps or reps),
+               library_ms=time_ms(torch, lfn, reps) if lfn is not None else None,
+               bound_ms=1e3 * max(nbytes / bw, nflops / flops),
+               bound_by="bytes" if nbytes / bw >= nflops / flops else "operations",
+               bytes=nbytes, main=main)
+    print(f"kernel {name:18s} {label}: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "
+          f"library {row['library_ms']}, bound {row['bound_ms']:.3f} by {row['bound_by']}) "
+          f"rel err {err_rel:.2e}, bits repeat")
+    return row
+
+
+def block_dense_kernels(torch, pm, r1, dev, X, Y, gen, reps, peaks):
+    """(a) matmat/rmatmat on R and X, the rank-k updates on R (and Y) at
+    n = 1,281,167, k = 8 and 32."""
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    R = torch.neg(Y)
+    g = torch.full((), 0.3, device=dev)
+    a, b, c = 1.0 - g, -g * 1.5, -g
+    scal2, scal3 = torch.stack([a, b]), torch.stack([a, b, c])
+    rows = []
+    out = torch.empty_like(R)
+    for k in BLOCK_KS:
+        for label, A in (("R", R), ("X", X)):
+            n, m = A.shape
+            v, u = rn(m, k), rn(n, k)
+            nbytes, nflops = 4 * (n * m + (n + m) * k), 2 * n * m * k
+            main = label == "X" and k == 32  # block:32's widest pass
+            rows.append(block_row(torch, "matmat", f"{label} k={k}", (n, m, k),
+                                  lambda: pm.matmat(A, v), lambda: pm.ref.matmat(A, v),
+                                  lambda: torch.matmul(A, v), nbytes, nflops, peaks, reps,
+                                  main=main))
+            rows.append(block_row(torch, "rmatmat", f"{label} k={k}", (n, m, k),
+                                  lambda: pm.rmatmat(A, u), lambda: pm.ref.rmatmat(A, u),
+                                  lambda: torch.matmul(A.T, u), nbytes, nflops, peaks, reps,
+                                  main=main))
+            del v, u
+        n, m = R.shape
+        p_, q_ = rn(n, k), rn(m, k)
+        nm = n * m
+        rows.append(block_row(
+            torch, "rankk_update", f"Z k={k}", (n, m, k),
+            lambda: r1.rankk_update(R, p_, q_, a, b, out=out),
+            lambda: r1.ref.rankk_update(R, p_, q_, scal2),
+            lambda: torch.addmm(R, p_, q_.T, beta=0.7, alpha=-0.45),
+            8 * nm + 4 * (n + m) * k, 2 * nm * k + 3 * nm, peaks, reps, main=k == 8))
+        rows.append(block_row(
+            torch, "rankk_update_axpy", f"R, Y k={k}", (n, m, k),
+            lambda: r1.rankk_update_axpy(R, Y, p_, q_, a, b, c, out=out),
+            lambda: r1.ref.rankk_update_axpy(R, Y, p_, q_, scal3),
+            lambda: torch.addmm(R, p_, q_.T, beta=0.7, alpha=-0.45).add_(Y, alpha=-0.3),
+            12 * nm + 4 * (n + m) * k, 2 * nm * k + 5 * nm, peaks, reps, main=k == 32))
+        del p_, q_
+        torch.cuda.empty_cache()
+    del out, R
+    return rows
+
+
+def block_mc_kernels(torch, mc, dev, state, mu, gen, reps, peaks):
+    """(a) coo_matmat (G V in the row order, G^T U in the column order) and
+    the block update_resid at the Netflix shapes, k = 8 and 32; cuSPARSE's
+    CSR SpMM as the library call (its CSR tensor is set-up, not timed)."""
+    rows = []
+    p = state.rows.numel()
+    for k in BLOCK_KS:
+        V = torch.randn(NF_M, k, generator=gen, device=dev)
+        U = torch.randn(NF_D, k, generator=gen, device=dev) / math.sqrt(NF_D)
+        for label, order, vals, x in (("G V", state.by_row, state.resid_by_row, V),
+                                      ("G^T U", state.by_col, state.resid_by_col, U)):
+            csr = torch.sparse_csr_tensor(order.seg_ptr.to(torch.int32), order.gat_sorted,
+                                          vals, size=(order.out_dim, order.in_dim))
+            nbytes = 8 * p + 4 * k * (order.in_dim + order.out_dim)
+            rows.append(block_row(
+                torch, "coo_matmat", f"{label} k={k}", (order.out_dim, order.in_dim, p, k),
+                lambda: mc.coo_matmat(order, vals, x),
+                lambda: mc.ref.coo_matvec_sorted(order, vals, x),
+                lambda: csr @ x, nbytes, 2 * p * k, peaks, reps, plain_reps=2, main=k == 8))
+            del csr
+        gamma = torch.full((), 0.05, device=dev)
+        args = (gamma, mu, U, V, state.rows, state.cols, state.resid, state.vals, state.weight,
+                state.by_row, state.copies("row"), state.by_col, state.copies("col"))
+        rows.append(block_row(
+            torch, "update_resid_block", f"p={p}, k={k}, three orders", (NF_D, NF_M, p, k),
+            lambda: mc.update_resid(*args), lambda: mc.ref.update_resid(*args), None,
+            64 * p + 4 * k * (NF_D + NF_M), 3 * p * (2 * k + 6), peaks, reps, plain_reps=1,
+            exact=True, main=k == 8))
+        ones = torch.ones((), device=dev)
+        args = (ones, mu, U, V, state.rows, state.cols, state.resid, state.vals, state.weight)
+        rows.append(block_row(
+            torch, "update_resid_caller", f"p={p}, k={k}, caller order, gamma = 1",
+            (NF_D, NF_M, p, k), lambda: mc.update_resid_caller(*args),
+            lambda: mc.ref.update_resid_caller(*args), None,
+            24 * p + 4 * k * (NF_D + NF_M), p * (2 * k + 6), peaks, reps, plain_reps=1,
+            exact=True, main=k == 8))
+        del U, V, args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def block_odd_shapes(torch, pm, r1, mc, dev, gen):
+    """(a) tiny odd shapes: k = 1, 3, 17, 33 (a second group of 32 columns),
+    n and m not multiples of 4, a misaligned A, a small skewed COO set."""
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    scal = torch.tensor([0.7, -0.45, -0.3], device=dev)
+    rows_, cols_ = torch.randint(0, 301, (5003,), generator=gen, device=dev), torch.randint(
+        0, 77, (5003,), generator=gen, device=dev)
+    rows_ = torch.where(rows_ % 7 == 0, torch.zeros_like(rows_), rows_).to(torch.int32)
+    cols_ = cols_.to(torch.int32)
+    vals = rn(5003)
+    by_row, by_col = mc.build_order(rows_, cols_, 301, 77), mc.build_order(cols_, rows_, 77, 301)
+    vr, vc = mc.gather_sorted(by_row, vals), mc.gather_sorted(by_col, vals)
+    for k in (1, 3, 17, 33):
+        for n, m in ((37, 5), (65, 33), (300, 1001), (1, 7), (129, 130)):
+            base = rn(n * m + 1)
+            for A in (base[:-1].view(n, m), base[1:].view(n, m)):  # aligned, off by 4 bytes
+                v, u, q = rn(m, k), rn(n, k), rn(m, k)
+                Y0 = rn(n, m)
+                for name, got, want in (
+                        ("matmat", pm.matmat(A, v), pm.ref.matmat(A, v)),
+                        ("rmatmat", pm.rmatmat(A, u), pm.ref.rmatmat(A, u)),
+                        ("rankk_update", r1.rankk_update(A, u, q, scal[0], scal[1]),
+                         r1.ref.rankk_update(A, u, q, scal[:2])),
+                        ("rankk_update_axpy",
+                         r1.rankk_update_axpy(A, Y0, u, q, scal[0], scal[1], scal[2]),
+                         r1.ref.rankk_update_axpy(A, Y0, u, q, scal))):
+                    err = rel_err(torch, got, want)[1]
+                    check(err <= TOL[name], f"{name} at {n}x{m}, k={k}: rel err {err:.3e}")
+        xv, xu = rn(77, k), rn(301, k)
+        for label, got, want in (
+                ("G V", mc.coo_matmat(by_row, vr, xv), mc.ref.coo_matvec(rows_, cols_, vals,
+                                                                         xv, 301)),
+                ("G^T U", mc.coo_matmat(by_col, vc, xu), mc.ref.coo_matvec(cols_, rows_, vals,
+                                                                           xu, 77))):
+            err = rel_err(torch, got, want)[1]
+            check(err <= TOL["coo_matmat"], f"coo_matmat {label} k={k}: rel err {err:.3e}")
+        if k > 1:
+            weight = (torch.arange(5003, device=dev) % 3 != 0).float()
+            resid = weight * rn(5003)
+            args = (torch.full((), 0.2, device=dev), 1.5, xu, xv, rows_, cols_, resid, vals,
+                    weight, by_row, (resid[by_row.perm.long()], vr, weight[by_row.perm.long()]),
+                    by_col, (resid[by_col.perm.long()], vc, weight[by_col.perm.long()]))
+            check(all(torch.equal(a_, b_) for a_, b_ in zip(mc.update_resid(*args),
+                                                            mc.ref.update_resid(*args))),
+                  f"update_resid block k={k}: not the plain chain's bits")
+            check(torch.equal(mc.update_resid_caller(*args[:9]), mc.update_resid(*args)[0]),
+                  f"update_resid_caller k={k}: not update_resid's caller-order bits")
+    torch.cuda.synchronize()
+    print("block forms match their plain versions at k = 1, 3, 17, 33 and odd shapes")
+
+
+def block_fit(torch, kernels, dfw, kind, task, x, y, cfg, seed, dev):
+    """fit_serial of a block solver: losses, executed iterations, launches
+    as the path implies, ms an epoch by segment."""
+    piters, seg_log = [], []
+    timer = segment_timer(torch, seg_log)
+
+    def cb(start, aux):
+        timer(start, aux)
+        piters.extend(int(p_) for p_ in aux.piters if p_ == p_)
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = dfw.fit_serial(task, x, y, cfg=cfg, key=seed, device=dev, callback=cb)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, routes = kernels.launches(), kernels.route_launches()
+    want = expected_block_launches(kind, piters, cfg.verify_kernels, cfg.comm,
+                                   cfg.step_size == "linesearch")
+    label = f"{kind} {cfg.solver}/{cfg.comm}"
+    check(launches == want, f"{label}: launches {launches} != expected {want}")
+    if kind == "mc":
+        check(routes["update_resid"]["block"] == want["update_resid"],
+              f"{label}: update_resid's block route")
+    check(len(piters) == res.epochs_run and all(1 <= p_ <= k for p_, k in zip(
+        piters, res.history["k"])), f"{label}: executed iterations {piters} past K")
+    loss = res.history["loss"] + [res.final_loss]
+    check(all(math.isfinite(v) for v in loss), f"{label}: non-finite loss")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{label}: {res.epochs_run} epochs in {wall:.2f} s, executed iterations {piters}, "
+          f"peak {peak:.2f} GB; loss " + ", ".join(f"{v:.6g}" for v in loss))
+    for s_ in seg_log:
+        print(f"  segment from epoch {s_['start']}: {s_['ms_per_epoch']:.2f} ms/epoch")
+    return res, launches, dict(wall_s=wall, segments=seg_log, loss=loss, piters=piters,
+                               launches=launches, peak_gb=peak,
+                               block_route=routes["update_resid"]["block"])
+
+
+def table1_data(torch, gen, dev, task):
+    """benchmarks/block_fw_convergence.py's Table-1 problem, made on the card:
+    W* = U diag(sv / sum sv) V^T (rank 32, trace norm 1); MTLS X (2048, 1024)
+    Gaussian, Y = X W*; MC 5% of W*'s entries observed."""
+    t = TABLE1
+    u = torch.linalg.qr(torch.randn(t["d"], t["rank"], generator=gen, device=dev))[0]
+    v = torch.linalg.qr(torch.randn(t["m"], t["rank"], generator=gen, device=dev))[0]
+    sv = torch.linspace(1.0, 0.1, t["rank"], device=dev)
+    w = (u * (sv / sv.sum())) @ v.T
+    if task == "mtls":
+        x = torch.randn(t["n"], t["d"], generator=gen, device=dev)
+        return x, x @ w
+    mask = torch.rand(t["d"], t["m"], generator=gen, device=dev) < t["obs"]
+    rows, cols = torch.nonzero(mask, as_tuple=True)
+    from repro_torch.core import tasks
+
+    idx, yw = tasks.pack_observations(rows, cols, w[rows, cols])
+    return idx.to(dev), yw.to(dev)
+
+
+def table1_cell(torch, kernels, dfw, tasks, dev, seed):
+    """(e) epochs to 10% of rank1's first gap: rank1 const:2 (line search)
+    within a budget of 160 epochs against block:32:adapt and its :cold
+    ablation at const:8, stopped by gap_tol, on MTLS and MC, over
+    TABLE1_INSTANCES problems, each drawn from a generator of its own seeded
+    from (--seed, instance), as the benchmark draws its one problem from its
+    own key. Every warm block run must reach the target, every problem's
+    speedup TABLE1_EACH, and the median speedup the floor of
+    benchmarks/baselines.json. One problem
+    cannot certify that floor for matrix completion: its count moves by two
+    epochs a step (the block gaps zig-zag), the reference's own speedup
+    spans 5.0-7.8x across problems (tools/torch_block_epochs_to_gap.py
+    --seed 0..5, CPU), and the reference's own benchmark cell gives 4.77x
+    (105 / 22 epochs) with JAX 0.9.0 on the CPU, its record's 6.73x coming
+    from JAX 0.4.37 (BENCH_smoke.json), another problem. Returns (report,
+    summed launches, update_resid's block-route launches)."""
+    t, out = TABLE1, {}
+    total = dict.fromkeys(kernels.launches(), 0)
+    route_block = 0
+
+    def epochs_to(hist, target):
+        return next((i + 1 for i, g in enumerate(hist["gap"]) if g <= target), None)
+
+    for kind in ("mtls", "mc"):
+        task = (tasks.MultiTaskLeastSquares if kind == "mtls" else tasks.MatrixCompletion)(
+            t["d"], t["m"])
+        t0 = time.perf_counter()
+        cells = []
+        for instance in range(TABLE1_INSTANCES):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(_table1_seed(seed, instance))
+            x, y = table1_data(torch, gen, dev, kind)
+
+            def run(solver, schedule, gap_tol=None):
+                nonlocal route_block
+                cfg = dfw.DFWConfig(mu=1.0, num_epochs=t["budget"], schedule=schedule,
+                                    step_size="linesearch", solver=solver, gap_tol=gap_tol,
+                                    block_epochs=5, verify_kernels=False)
+                kernels.reset_launches()
+                res = dfw.fit_serial(task, x, y, cfg=cfg, key=seed, device=dev)
+                for key_, val in kernels.launches().items():
+                    total[key_] += val
+                route_block += kernels.route_launches()["update_resid"]["block"]
+                return res
+
+            r1_run = run("rank1", "const:2")
+            target = t["frac"] * r1_run.history["gap"][0]
+            warm = run(f"block:{t['k']}:adapt", "const:8", target)
+            cold = run(f"block:{t['k']}:adapt:cold", "const:8", target)
+            e1, ew, ec = (epochs_to(r.history, target) for r in (r1_run, warm, cold))
+            check(ew is not None,
+                  f"table-1 {kind} #{instance}: block:{t['k']}:adapt never reached the target")
+            matched = min(len(warm.history["gap"]), len(cold.history["gap"]))
+            cells.append(dict(
+                rank1_epochs=e1, warm_epochs=ew, cold_epochs=ec,
+                speedup=(e1 if e1 is not None else t["budget"]) / ew,
+                cold_over_warm_epochs=(ec if ec is not None else t["budget"]) / ew,
+                cold_over_warm_gap=cold.history["gap"][matched - 1]
+                / max(warm.history["gap"][matched - 1], 1e-12)))
+            del x, y, r1_run, warm, cold
+        speedup = statistics.median(c["speedup"] for c in cells)
+        out[kind] = dict(instances=cells, speedup=speedup, wall_s=time.perf_counter() - t0,
+                         cold_over_warm_epochs=statistics.median(
+                             c["cold_over_warm_epochs"] for c in cells))
+        print(f"(e) table-1 {kind}, epochs to 10% of rank1's first gap on "
+              f"{TABLE1_INSTANCES} problems (rank1 / block:{t['k']}:adapt / :cold): "
+              + "; ".join(f"{c['rank1_epochs'] if c['rank1_epochs'] is not None else 'budget'}"
+                          f" / {c['warm_epochs']} / {c['cold_epochs']} ({c['speedup']:.2f}x)"
+                          for c in cells)
+              + f"; median speedup {speedup:.2f}x (floor {TABLE1_FLOOR}x, each "
+              f"{TABLE1_EACH}x), median cold/warm "
+              f"epochs {out[kind]['cold_over_warm_epochs']:.2f} (BENCH_smoke.json, JAX on its "
+              "one problem: mtls 79/5, mc 101/15)")
+        check(speedup >= TABLE1_FLOOR,
+              f"table-1 {kind}: median speedup {speedup:.2f} below the floor {TABLE1_FLOOR}")
+        low = min(c["speedup"] for c in cells)
+        check(low >= TABLE1_EACH,
+              f"table-1 {kind}: a problem's speedup {low:.2f} below {TABLE1_EACH}")
+    return out, total, route_block
+
+
+def _table1_seed(seed: int, instance: int) -> int:
+    return (seed * 1_000_003 + 0x7AB1E1 + instance) % (1 << 63)
+
+
+def block_phase(torch, np, kernels, dfw, comm, tasks, low_rank, NoiseStream, pm, r1, mc, dev,
+                args, peaks, rank1_ms_of):
+    """Phase 25 (see the module doc). Returns (kernel rows, report, summed
+    launches of its fits, their update_resid block-route launches)."""
+    report, total = {}, dict.fromkeys(kernels.launches(), 0)
+    route_block = 0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 25)
+    t_phase = time.perf_counter()
+    X, Y = dense_data(torch, gen, dev, args.rows)
+    krows = block_dense_kernels(torch, pm, r1, dev, X, Y, gen, args.reps, peaks)
+    block_odd_shapes(torch, pm, r1, mc, dev, gen)
+
+    def add(launches):
+        for key_, val in launches.items():
+            total[key_] += val
+
+    # (b) full-width fits: MTLS block:32:adapt, logistic block:8
+    mtls = tasks.MultiTaskLeastSquares(PAPER_D, PAPER_M)
+    res, launches, report["mtls"] = block_fit(
+        torch, kernels, dfw, "mtls", mtls, X, Y, dfw.DFWConfig(
+            mu=1.0, num_epochs=10, schedule="const:8", step_size="linesearch",
+            solver="block:32:adapt", block_epochs=5), args.seed, dev)
+    add(launches)
+    loss = report["mtls"]["loss"]
+    check(all(b_ <= a_ * (1 + 1e-6) for a_, b_ in zip(loss, loss[1:])),
+          "block mtls: loss increased")
+    del res
+    torch.cuda.empty_cache()
+    labels = planted_labels(torch, gen, dev, X)
+    res, launches, report["logistic"] = block_fit(
+        torch, kernels, dfw, "logistic", tasks.MultinomialLogistic(PAPER_D, PAPER_M), X, labels,
+        dfw.DFWConfig(mu=10.0, num_epochs=3, schedule="log_half", solver="block:8"),
+        args.seed, dev)
+    add(launches)
+    loss = report["logistic"]["loss"]
+    check(loss[-1] < loss[0] and loss[-1] < X.shape[0] * math.log(PAPER_M),
+          f"block logistic: final loss {loss[-1]} not below its first and n ln m")
+    del res, labels
+    torch.cuda.empty_cache()
+
+    # (c) block:32 through fit over one NCCL worker = fit_serial
+    report["world_one"], launches = world_one_phase(
+        torch, np, kernels, dfw, comm, low_rank, NoiseStream, dev, [
+            ("mtls block:32", mtls, X, Y, dfw.DFWConfig(
+                mu=1.0, num_epochs=3, schedule="const:2", step_size="linesearch",
+                solver="block:32"))], args.seed)
+    add(launches)
+
+    # (d) four gloo workers, hier:2 with block:8, against fit_serial
+    nw = MULTI_WORKERS
+    n4 = X.shape[0] - X.shape[0] % nw
+    kw = dict(mu=1.0, num_epochs=5, schedule="const:3", step_size="linesearch",
+              solver="block:8")
+    ref = dfw.fit_serial(mtls, X[:n4], Y[:n4], cfg=dfw.DFWConfig(**kw), key=args.seed,
+                         device=dev)
+    ref_w = low_rank.materialize(ref.iterate).cpu().numpy()
+    ref_hist, ref_final = ref.history, ref.final_loss
+    del ref
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = dfw.run_workers(nw, multi_worker_rank, [("mtls", mtls, X[:n4], Y[:n4], dict(
+        kw, topology="hier:2"))], args.seed, backend="gloo", device=dev)
+    got = [r[0] for r in ranks]
+    head = got[0]
+    for j, g in enumerate(got):
+        want = expected_block_launches("mtls", g["history"]["k"], True)
+        check(g["launches"] == want, f"(d) hier:2 block:8: worker {j} launched "
+              f"{g['launches']}, expected {want}")
+        add(g["launches"])
+        check(g["history"] == head["history"] and all(np.array_equal(
+            g["packed"][k_], head["packed"][k_]) for k_ in head["packed"]),
+            f"(d) worker {j}'s history or iterate is not worker 0's")
+        st, epochs = g["stats"], len(g["history"]["k"])
+        counted = st["bytes_all_reduce"] + st["bytes_all_gather"] + st["bytes_send"]
+        scalars = epochs * (2 + 2) * 2 * 4 + 2 * 4
+        check(counted == st["comm_wire_bytes"] + scalars,
+              f"(d) worker {j} counted {counted} bytes, analytic {st['comm_wire_bytes']} + "
+              f"{scalars} scalars")
+    a_, b_ = (np.asarray(h, np.float64) for h in (head["history"]["loss"], ref_hist["loss"]))
+    loss_dev = float(np.max(np.abs(a_ - b_) / np.abs(b_)))
+    w_head = low_rank.materialize(low_rank.unpack_live(
+        head["packed"], len(head["packed"]["s"]), device="cpu")).numpy()
+    w_dev = float(np.max(np.abs(w_head - ref_w)) / np.max(np.abs(ref_w)))
+    final_dev = abs(head["final_loss"] - ref_final) / abs(ref_final)
+    check(loss_dev <= 1e-4 and final_dev <= 1e-4 and w_dev <= 1e-4,
+          f"(d) hier:2 block:8 leaves fit_serial: loss {loss_dev:.2e}, final {final_dev:.2e}, "
+          f"W {w_dev:.2e} (limits 1e-4)")
+    st = head["stats"]
+    report["hier"] = dict(loss_dev=loss_dev, final_dev=final_dev, w_dev=w_dev,
+                          wall_s=time.perf_counter() - t0,
+                          bytes_per_epoch=(st["bytes_all_reduce"] + st["bytes_all_gather"]
+                                           + st["bytes_send"]) / len(head["history"]["k"]),
+                          wire_bytes_per_epoch=st["comm_wire_bytes"] / len(head["history"]["k"]))
+    print(f"(d) hier:2 block:8 on {nw} gloo workers: from fit_serial loss {loss_dev:.2e}, final "
+          f"{final_dev:.2e}, W {w_dev:.2e} of max (limits 1e-4); counted bytes an epoch "
+          f"{report['hier']['bytes_per_epoch']:.1f} = exchanges "
+          f"{report['hier']['wire_bytes_per_epoch']:.1f} + scalar sums, exactly")
+    del X, Y, ranks, got, head
+    torch.cuda.empty_cache()
+
+    # (a) the MC forms and (b) the MC fits at the Netflix shapes
+    idx, yw, (te_rows, te_cols, te_vals), mu = make_mc_data(
+        torch, gen, dev, args.mc_entries, NF_TEST, d=NF_D, m=NF_M)
+    mc_task = tasks.MatrixCompletion(NF_D, NF_M)
+    state = mc_task.init_state(idx, yw)
+    krows += block_mc_kernels(torch, mc, dev, state, mu, gen, args.reps, peaks)
+    del state
+    torch.cuda.empty_cache()
+    for comm_name, epochs in (("dense", 10), ("int8", 5)):
+        res, launches, report[f"mc_{comm_name}"] = block_fit(
+            torch, kernels, dfw, "mc", mc_task, idx, yw, dfw.DFWConfig(
+                mu=mu, num_epochs=epochs, schedule="const:4", step_size="linesearch",
+                solver="block:8:adapt", comm=comm_name, block_epochs=5), args.seed, dev)
+        add(launches)
+        route_block += report[f"mc_{comm_name}"]["block_route"]
+        loss = report[f"mc_{comm_name}"]["loss"]
+        if comm_name == "dense":
+            check(all(b_ <= a_ * (1 + 1e-6) for a_, b_ in zip(loss, loss[1:])),
+                  "block mc: loss increased")
+            pred = low_rank.gather_entries(res.iterate, te_rows, te_cols)
+            rmse = float(torch.sqrt(torch.mean((pred - te_vals) ** 2)))
+            rmse0 = float(torch.sqrt(torch.mean(te_vals ** 2)))
+            report["mc_dense"].update(heldout_rmse=rmse, heldout_rmse_w0=rmse0)
+            check(math.isfinite(rmse) and rmse < rmse0,
+                  f"block mc: held-out RMSE {rmse:.4f} not below W = 0's {rmse0:.4f}")
+            print(f"block mc: held-out RMSE {rmse:.4f} (W = 0: {rmse0:.4f})")
+            del pred
+        else:
+            check(loss[-1] < loss[0], "block mc int8: final loss not below the first")
+        del res
+        torch.cuda.empty_cache()
+    del idx, yw, te_rows, te_cols, te_vals
+    torch.cuda.empty_cache()
+
+    # (e) the Table-1 cell of benchmarks/block_fw_convergence.py
+    report["table1"], launches, routed = table1_cell(torch, kernels, dfw, tasks, dev, args.seed)
+    add(launches)
+    route_block += routed
+
+    for kind, rank1_ms in (("mtls", rank1_ms_of.get("mtls")), ("mc_dense", rank1_ms_of.get("mc"))):
+        seg = report[kind]["segments"]
+        report[kind]["ms_per_epoch"] = statistics.mean(s_["ms_per_epoch"] for s_ in seg[1:]) \
+            if len(seg) > 1 else seg[0]["ms_per_epoch"]
+        print(f"block {kind}: {report[kind]['ms_per_epoch']:.2f} ms an epoch (after the first "
+              f"segment, executed iterations {report[kind]['piters']}) against the rank1 main "
+              f"path's {rank1_ms} ms an epoch by K")
+    report["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 25 took {report['wall_s']:.1f} s")
+    return krows, report, total, route_block
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3215,22 +3782,44 @@ def main(argv=None) -> int:
               f"{report['graphs']['wall_s']:.1f} s ({smi})")
         del X, Y, idx, yw, mc_data
         torch.cuda.empty_cache()
+
+        # 25. the block:k solver tier: its kernel forms, full-width block fits,
+        # one NCCL worker, hier:2 on four gloo workers, the Table-1 cell
+        rank1_ms = {kind: steady_ms(report[kind]["segments"], report[kind]["ks"])
+                    for kind in ("mtls", "mc")}
+        block_rows, report["block"], block_launch, block_route = block_phase(
+            torch, np, kernels, dfw, comm, tasks, low_rank, NoiseStream, pm, r1, mc, dev, args,
+            peaks, rank1_ms)
+        krows += block_rows
+        print(f"phase 25 took {report['block']['wall_s']:.1f} s ({smi})")
+        torch.cuda.empty_cache()
     except Check as e:
         return fail(str(e))
 
     out = []
     paths = (mtls_launch, log_launch, mc_launch, mc8_launch, fit12_launch, serve_launch,
              prefill_launch, decode_launch, ssm_prefill_launch, ssm_decode_launch,
-             world_one_launch, multi_launch, baselines_launch, graphs_launch)
-    for kname in (*TPU_KERNEL, *HELPER_KERNELS):
+             world_one_launch, multi_launch, baselines_launch, graphs_launch, block_launch)
+    for kname in (*TPU_KERNEL, *HELPER_KERNELS, *BLOCK_KERNELS, "update_resid_block"):
         rows = [r for r in krows if r["name"] == kname]
         main_row = next((r for r in rows if r.get("main")), None) or max(
             rows, key=lambda r: r["bytes"])
-        helper = {} if kname in TPU_KERNEL else {"part_of": "coo_matvec"}
+        if kname in BLOCK_OF:  # a block form, under the TPU kernel the reference vmaps
+            helper = {"form_of": BLOCK_OF[kname]}
+            if kname in ("update_resid_block", "update_resid_caller"):
+                helper["part_of"] = "coo_matvec"
+            replaces = TPU_KERNEL[BLOCK_OF[kname]]
+        else:
+            helper = {} if kname in TPU_KERNEL else {"part_of": "coo_matvec"}
+            replaces = TPU_KERNEL[kname if kname in TPU_KERNEL else "coo_matvec"]
+        if kname == "update_resid_block":  # a route of the update_resid wrapper
+            launches = block_route
+        else:
+            launches = sum(path[kname] for path in paths) - (
+                block_route if kname == "update_resid" else 0)
         out.append(dict(
-            name=kname, route="cuda", source=SOURCE[kname],
-            replaces=TPU_KERNEL[kname if kname in TPU_KERNEL else "coo_matvec"], **helper,
-            launches=sum(path[kname] for path in paths),
+            name=kname, route="cuda", source=SOURCE[kname], replaces=replaces, **helper,
+            launches=launches,
             max_abs_err=main_row["max_abs_err"], max_rel_err=main_row["max_rel_err"],
             ms=main_row["ms"], plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
             bound_by=main_row["bound_by"], library_ms=main_row["library_ms"],

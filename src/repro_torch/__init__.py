@@ -67,6 +67,12 @@ class V0Stream:
     the target device, seeded from (seed, t); no host sync is involved.
     ``V0Stream.from_table(rows)`` returns row t of a caller-given (T, m)
     table instead (moved to the device once).
+
+    ``stream.block(t, m, k, device)`` is the block solver's (m, k) block of
+    fresh unit columns for epoch t, the counterpart of the reference's
+    ``sphere_vector(fold_in(fold_in(key, t), 101 + j), m)`` for j < k: drawn
+    from a generator seeded from (seed, t, 101), or slab t of a (T, m, k)
+    table given to ``from_table``.
     """
 
     def __init__(self, seed: int = 0):
@@ -79,25 +85,42 @@ class V0Stream:
     def from_table(cls, table) -> "V0Stream":
         stream = cls(0)
         stream._table = torch.as_tensor(table, dtype=torch.float32)
-        if stream._table.dim() != 2:
-            raise ValueError("v0 table must be (epochs, m)")
+        if stream._table.dim() not in (2, 3):
+            raise ValueError("v0 table must be (epochs, m), or (epochs, m, k) for block columns")
         return stream
+
+    def _row(self, t: int, shape: tuple, device: torch.device) -> torch.Tensor:
+        if tuple(self._table.shape[1:]) != shape or not 0 <= t < self._table.shape[0]:
+            raise IndexError(f"v0 table {tuple(self._table.shape)} has no entry {t} of shape "
+                             f"{shape}")
+        if device not in self._tables:
+            self._tables[device] = self._table.to(device)
+        return self._tables[device][t]
+
+    def _gen(self, device: torch.device) -> torch.Generator:
+        gen = self._gens.get(device)
+        if gen is None:
+            gen = self._gens[device] = torch.Generator(device=device)
+        return gen
+
+    def block(self, t: int, m: int, k: int, device) -> torch.Tensor:
+        """Epoch t's (m, k) block of unit columns."""
+        device = torch.device(device)
+        if self._table is not None:
+            return self._row(t, (m, k), device)
+        gen = self._gen(device)
+        gen.manual_seed(_mix(_mix(self.seed, t), 101))
+        cols = torch.randn((k, m), generator=gen, device=device, dtype=torch.float32)
+        cols = cols / (torch.linalg.vector_norm(cols, dim=1, keepdim=True) + 1e-30)
+        return cols.T.contiguous()
 
     def __call__(self, t: int, m: int, device: torch.device) -> torch.Tensor:
         device = torch.device(device)
         if self._table is not None:
-            if not 0 <= t < self._table.shape[0] or self._table.shape[1] != m:
-                raise IndexError(
-                    f"v0 table {tuple(self._table.shape)} has no row {t} of length {m}"
-                )
-            if device not in self._tables:
-                self._tables[device] = self._table.to(device)
-            return self._tables[device][t]
+            return self._row(t, (m,), device)
         from .core.power_method import sphere_vector
 
-        gen = self._gens.get(device)
-        if gen is None:
-            gen = self._gens[device] = torch.Generator(device=device)
+        gen = self._gen(device)
         gen.manual_seed(_mix(self.seed, t))
         return sphere_vector(gen, m, device)
 

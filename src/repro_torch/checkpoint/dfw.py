@@ -18,6 +18,8 @@ leaves, in this order, with the JAX package's paths, shapes and dtypes::
     carry/t                  int32 epoch counter
     carry/key                (2,) uint32: the run's seed in the layout of
                              jax.random.PRNGKey(seed)
+    carry/probe              the block solver's (m, k) f32 warm-start probe
+                             (replicated); no leaf for rank1
     history/<key>            gamma, gap (f64), k (int32), loss, sigma (f64)
     masks                    (0, 0) float32: one worker, no straggler masks
 
@@ -27,7 +29,9 @@ JAX checkpoint is read here. The MC state's row and column entry orders and
 the residual's copies in them are derived from its other fields and are not
 written: ``init_state`` and ``convert.task_state`` rebuild them. The
 manifest's ``extra`` is the run configuration; it carries ``torch_version``
-where the JAX package writes ``jax_version``.
+where the JAX package writes ``jax_version``, and ``solver``, from which the
+JAX package's ``restore_run`` sizes the reducer state (d k and m k for
+"block:k") and expects the probe leaf.
 
 Serving reads only the iterate (``read_iterate_packed``). ``RunSnapshot``
 and ``restore_run`` (resume) come with the resume path.
@@ -41,7 +45,6 @@ import numpy as np
 import torch
 
 from ..core import low_rank
-from ..specs import NotYetPorted
 from .store import CheckpointStore, read_leaves, read_manifest
 
 PAYLOAD_FORMAT = 3
@@ -83,8 +86,6 @@ def _history_arrays(history: Dict[str, list]) -> Dict[str, np.ndarray]:
 
 def payload(carry, history: Dict[str, list], masks=None) -> Dict[str, object]:
     """The ordered leaves of one checkpoint step (see the module doc)."""
-    if carry.probe != ():
-        raise NotYetPorted("checkpointing a block-solver probe")
     if carry.comm_state != () and not isinstance(carry.comm_state, dict):
         raise TypeError(f"reducer state must be () or a dict of tensors, got "
                         f"{type(carry.comm_state).__name__}")
@@ -98,6 +99,8 @@ def payload(carry, history: Dict[str, list], masks=None) -> Dict[str, object]:
         leaves[f"carry/comm_state/{key}"] = carry.comm_state[key]
     leaves["carry/t"] = np.asarray(carry.t, np.int32)
     leaves["carry/key"] = prng_key(carry.key.seed)
+    if isinstance(carry.probe, torch.Tensor):
+        leaves["carry/probe"] = carry.probe
     hist = _history_arrays(history)
     for key in sorted(HISTORY_KEYS):
         leaves[f"history/{key}"] = hist[key]

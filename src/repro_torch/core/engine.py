@@ -32,7 +32,14 @@ of the epochs run, as the reference derives it for its telemetry:
 exchange), ``comm_logical_bytes`` (the f32 vectors, 8 (d + m) K an epoch),
 ``comm_wire_bytes`` (the reducer's or graph's ``wire_bytes``) and, for a
 graph, ``comm_hop_bytes_<hop>`` (``hop_wire_bytes``: global, neighbor,
-intra, inter).
+intra, inter). The block solver "block:k" exchanges flattened (d k,) and
+(m k,) blocks, so its costs are those of vectors k times as wide (and its
+reducer state, top-k's residuals, is sized for them); K counts the
+iterations that ran, fewer than K(t) when ``:adapt`` stopped an epoch early
+(the reference counts the static K there), so the count stays the one the
+workers' collectives show. ``:adapt``'s host reads of its verdict, one an
+iteration, are host syncs too. The block solver's warm-start probe rides in
+the carry, replicated, from ``probe`` (default: ``init_probe``).
 
 With ``group`` (a ``comm.WorkerGroup``) the engine runs one worker of a
 multi-worker run: every worker runs this same loop on its own rows, and
@@ -55,7 +62,8 @@ from .. import NoiseStream, as_v0_stream
 from ..comm.base import DenseReducer, WorkerGroup, pmax
 from ..specs import validate
 from . import low_rank
-from .frank_wolfe import EpochAux, EpochCarry, init_carry, k_schedule, make_epoch_step
+from .frank_wolfe import (EpochAux, EpochCarry, init_carry, init_probe, k_schedule,
+                          make_epoch_step)
 
 
 class Segment(NamedTuple):
@@ -130,8 +138,9 @@ _HISTORY_KEYS = ("loss", "gap", "sigma", "gamma")
 
 def _comm_cost_per_k(reducer, d: int, m: int, workers: int) -> Dict[str, int]:
     """The analytic comm cost of one epoch per power iteration (the
-    reference engine's ``_comm_cost``/``_hop_cost``): ``stats`` keys to
-    amounts, multiplied by K(t) for each epoch run."""
+    reference engine's ``_comm_cost``/``_hop_cost``) for exchanged vectors
+    of d and m floats (d k and m k for the block solver): ``stats`` keys to
+    amounts, multiplied by the iterations of each epoch run."""
     rpe = int(getattr(reducer, "rounds_per_exchange", 1))
     cost = {"comm_rounds": 2 * rpe, "comm_logical_bytes": 8 * (d + m),
             "comm_wire_bytes": reducer.wire_bytes(d, workers) + reducer.wire_bytes(m, workers)}
@@ -203,13 +212,16 @@ def run_epochs(
     checkpointer=None,
     group: Optional[WorkerGroup] = None,
     masks=None,
+    probe=None,
 ) -> EngineResult:
     """Run up to ``num_epochs`` DFW-Trace epochs of one worker on ``device``
     (``group``: one worker of that group; ``masks``: the (num_epochs, N)
     straggler weights, see the module doc).
 
     ``iterate`` defaults to a fresh store of ``max_rank`` capacity (validated
-    >= num_epochs), ``comm_state`` to ``reducer.init_state`` on ``device``. ``start_t``/``initial_history``/``iterate``/``state``
+    >= num_epochs times the atoms an epoch appends), ``comm_state`` to
+    ``reducer.init_state`` on ``device`` (at d k and m k for "block:k"),
+    ``probe`` (block solver) to ``init_probe``. ``start_t``/``initial_history``/``iterate``/``state``
     resume a run at epoch ``start_t``; the plan is recomputed from there.
     ``noise`` feeds stochastic encodings; it defaults to a ``NoiseStream``
     with the seed of ``key``.
@@ -226,7 +238,13 @@ def run_epochs(
                     f"initial_history[{name!r}] has {len(vals)} entries for "
                     f"start_t={start_t}; pass the restored prefix unmodified"
                 )
-    validate(solver=solver)
+    sspec, _, _ = validate(solver=solver)
+    if sspec.kind == "block" and sspec.k > min(task.d, task.m):
+        raise ValueError(
+            f"solver block:{sspec.k}: block width exceeds min(d={task.d}, m={task.m})"
+        )
+    k_block = sspec.k if sspec.kind == "block" else 1
+    adapt = sspec.kind == "block" and sspec.adaptive
     workers, rank = (1, 0) if group is None else (group.size, group.rank)
     if masks is not None:
         masks = torch.as_tensor(masks, dtype=torch.float32).cpu()
@@ -242,8 +260,20 @@ def run_epochs(
         noise = NoiseStream(key.seed)
     if iterate is None:
         iterate = low_rank.init(
-            resolve_max_rank(max_rank, num_epochs), task.d, task.m, device=device
+            resolve_max_rank(max_rank, num_epochs, k_block), task.d, task.m, device=device
         )
+    if sspec.kind == "block":
+        if probe is None:
+            probe = init_probe(sspec, task.m, device)
+        elif isinstance(probe, torch.Tensor):
+            probe = probe.to(device=device, dtype=torch.float32)
+        else:  # a host array (the reference's init_probe, a checkpoint's leaf)
+            probe = torch.tensor(probe, dtype=torch.float32, device=device)
+        if tuple(probe.shape) != (task.m, sspec.k):
+            raise ValueError(f"probe has shape {tuple(probe.shape)}; the solver carries "
+                             f"({task.m}, {sspec.k})")
+    else:
+        probe = ()
     segments = plan_segments(schedule, num_epochs, block_epochs, start=start_t)
     stats = {
         "segments_planned": len(segments),
@@ -254,10 +284,10 @@ def run_epochs(
         "comm_logical_bytes": 0,
         "comm_wire_bytes": 0,
     }
-    epoch_cost = _comm_cost_per_k(reducer, task.d, task.m, workers)
+    epoch_cost = _comm_cost_per_k(reducer, task.d * k_block, task.m * k_block, workers)
     if comm_state is None:
-        comm_state = reducer.init_state(task.d, task.m, device=device)
-    carry = init_carry(state, iterate, key, comm_state, t=start_t)
+        comm_state = reducer.init_state(task.d * k_block, task.m * k_block, device=device)
+    carry = init_carry(state, iterate, key, comm_state, t=start_t, probe=probe)
     agree = (group is not None and not getattr(reducer, "per_node", False)
              and not getattr(reducer, "replicated", True))
     tol = None
@@ -282,8 +312,10 @@ def run_epochs(
             weight = None if masks is None else float(masks[carry.t, rank])
             carry, aux = epoch(carry, weight)
             stats["dispatches"] += 1
+            if adapt:  # one host read of the stop's verdict an iteration run
+                stats["host_syncs"] += epoch.last_iters
             for name, per_k in epoch_cost.items():
-                stats[name] = stats.get(name, 0) + seg.k * per_k
+                stats[name] = stats.get(name, 0) + epoch.last_iters * per_k
             epochs_run += 1
             rows.append(aux)
             if tol is not None:

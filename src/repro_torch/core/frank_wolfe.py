@@ -9,6 +9,11 @@ computes stays on the device: the step size, the gap and the aux row are
 Every epoch consumes and produces one ``EpochCarry``, in the JAX package's
 field layout. Execution lives in ``core/engine.py``; ``fit`` below is the
 driver on top of it, for one process or for one worker of a group.
+
+``solver="block:k[:adapt][:cold]"`` is the BlockFW tier (arXiv:1708.02105):
+a rank-k block power iteration whose k atoms are blended into one feasible
+direction and appended together, the orthonormalized right block carried in
+``EpochCarry.probe`` as the next epoch's warm start.
 """
 from __future__ import annotations
 
@@ -21,9 +26,9 @@ import torch
 
 from .. import DeviceLike, NoiseStream, V0Stream, as_v0_stream, resolve_device
 from ..comm.base import DenseReducer, WorkerGroup, pmax, psum
-from ..specs import validate
+from ..specs import parse_solver, validate
 from . import low_rank
-from .power_method import power_iterations
+from .power_method import block_power_iterations, orthonormalize_block, power_iterations
 from .trace_norm import default_step_size, duality_gap
 
 PyTree = Any
@@ -69,6 +74,35 @@ def init_carry(
         state=state, iterate=iterate, comm_state=comm_state, t=int(t),
         key=as_v0_stream(key), probe=probe,
     )
+
+
+# ---------------------------------------------------------------------------
+# Solver tiers
+# ---------------------------------------------------------------------------
+
+#: Relative tolerance of the adaptive block power iteration: once no
+#: estimated singular value moved by more than ADAPT_RTOL of the gap
+#: certificate's scale, the epoch's remaining iterations are skipped.
+ADAPT_RTOL = 0.05
+
+
+def solver_probe_shape(spec, m: int) -> Optional[tuple]:
+    """Shape of the warm-start probe in ``EpochCarry.probe``: (m, k) for the
+    block solver, None for rank1 (no probe)."""
+    s = parse_solver(spec)
+    return (m, s.k) if s.kind == "block" else None
+
+
+def init_probe(spec, m: int, device: DeviceLike = None, seed: int = 0x5EED):
+    """Cold-start probe of a fresh run: an orthonormal (m, k) block of unit
+    columns, ``V0Stream(seed).block(0, ...)`` on ``device`` (the same on
+    every worker, no communication), for the block solver, ``()``
+    for rank1. The reference draws its columns from ``PRNGKey(0x5EED)``; a
+    caller may pass that block to ``fit(..., probe=)`` instead."""
+    shape = solver_probe_shape(spec, m)
+    if shape is None:
+        return ()
+    return orthonormalize_block(V0Stream(seed).block(0, m, shape[1], resolve_device(device)))
 
 
 # ---------------------------------------------------------------------------
@@ -123,7 +157,8 @@ def make_epoch_step(
     group: Optional[WorkerGroup] = None,
 ) -> Callable:
     """Returns ``epoch(carry, worker_weight=None) -> (carry, aux)`` with K =
-    ``num_power_iters``.
+    ``num_power_iters``; ``epoch.last_iters`` is the count of power
+    iterations the last call ran (K, or fewer under ``:adapt``).
 
     The scalar aggregates (loss, <W, grad>, line-search terms) always stay
     exact f32 sums over ``group`` (None: one process); ``reducer`` (a
@@ -138,6 +173,15 @@ def make_epoch_step(
     reference (None: full participation, no multiply). The state, the
     iterate and the aux are the same on every worker after the epoch (on a
     flat graph): every worker forms them from the same all-reduced values.
+
+    ``solver`` "block:k" runs ``block_power_iterations`` from the carried
+    probe (its columns of norm <= 1e-6 swapped for the epoch's fresh ones,
+    ``carry.key.block``; ``:cold`` starts from the fresh columns alone), the
+    gap from the largest sigma, the atoms blended by c = sigma / (sum sigma
+    + 1e-30) folded into u, and appends k factors; ``:adapt`` stops the
+    iteration at ``ADAPT_RTOL`` (one host read an iteration). The
+    aux's ``piters`` is the count of iterations run. Gossip graphs take
+    rank1 only (as in the reference).
     """
     if step_size not in ("default", "linesearch"):
         raise ValueError(step_size)
@@ -148,12 +192,21 @@ def make_epoch_step(
             f"num_power_iters={num_power_iters}: at least one power iteration "
             "is required (K=0 would feed a zero singular direction to the LMO)"
         )
-    validate(solver=solver)
+    sspec, _, _ = validate(solver=solver)
     if reducer is None:
         reducer = DenseReducer()
     if noise is None:
         noise = NoiseStream(0)
+    if sspec.kind == "block" and getattr(reducer, "per_node", False):
+        raise ValueError(
+            "per-node topologies (gossip) support only the rank1 solver: the block tier "
+            "orthonormalizes against a consensus block, which a master-less exchange cannot "
+            "provide; use topology='flat' or 'hier:g' with solver='block:k'"
+        )
     per_node = group is not None and getattr(reducer, "per_node", False)
+    # where the workers' exchanged blocks may part, they vote on :adapt's stop
+    agree = (group if group is not None and not getattr(reducer, "replicated", True)
+             else None)
 
     def sums(w, *local):
         """The workers' sums of the w-weighted local scalars, in one all-reduce."""
@@ -168,6 +221,8 @@ def make_epoch_step(
         device = it.alpha.device
         t = torch.full((), float(carry.t), dtype=torch.float32, device=device)
         loss, inner = sums(worker_weight, task.local_loss(state), task.inner_w_grad(state))
+        if sspec.kind == "block":
+            return block_epoch(carry, worker_weight, t, loss, inner)
 
         v0 = carry.key(carry.t, task.m, device)
         res, comm_state = power_iterations(
@@ -197,9 +252,57 @@ def make_epoch_step(
             loss=loss, gap=gap, sigma=sigma, gamma=gamma,
             piters=torch.full((), num_power_iters, dtype=torch.float32, device=device),
         )
+        epoch.last_iters = num_power_iters
         return EpochCarry(
             state=state, iterate=it, comm_state=comm_state,
             t=carry.t + 1, key=carry.key, probe=carry.probe,
+        ), aux
+
+    def block_epoch(carry: EpochCarry, worker_weight, t, loss, inner):
+        state, it = carry.state, carry.iterate
+        device = it.alpha.device
+        # the epoch's fresh columns; a warm probe replaces all but its dead ones
+        v0 = carry.key.block(carry.t, task.m, sspec.k, device)
+        if not sspec.cold and isinstance(carry.probe, torch.Tensor):
+            col_norm = torch.linalg.vector_norm(carry.probe, dim=0, keepdim=True)
+            v0 = torch.where(col_norm > 1e-6, carry.probe, v0)
+        res, comm_state = block_power_iterations(
+            partial(task.matvec, state),
+            partial(task.rmatvec, state),
+            v0,
+            num_power_iters,
+            reducer=reducer,
+            comm_state=carry.comm_state,
+            noise=noise,
+            t=carry.t,
+            worker_weight=worker_weight,
+            adapt_rtol=ADAPT_RTOL if sspec.adaptive else None,
+            # the gap certificate is inner + mu sigma_max: changes small
+            # against |inner| / mu (or sigma itself) cannot move it
+            adapt_ref=torch.abs(inner) / mu,
+            agree=agree,
+        )
+        sigma_max = torch.max(res.sigma)
+        gap = duality_gap(inner, sigma_max, mu)
+        # S = -mu sum_j c_j u_j v_j^T with c = sigma / sum(sigma) (sum c <= 1
+        # keeps ||S||_* <= mu), c folded into u's columns for the tasks
+        c = res.sigma / (torch.sum(res.sigma) + 1e-30)
+        u_c = res.u * c[None, :]
+        if step_size == "linesearch":
+            numer, denom = sums(worker_weight, *task.linesearch_terms(state, u_c, res.v, mu))
+            gamma = torch.clamp(numer / torch.clamp(denom, min=1e-30), 0.0, 1.0)
+        else:
+            gamma = default_step_size(t)
+        state = task.update(state, u_c, res.v, gamma, mu)
+        it = low_rank.fw_update_block(it, res.u, res.v, c, gamma, mu)
+        aux = EpochAux(
+            loss=loss, gap=gap, sigma=sigma_max, gamma=gamma,
+            piters=torch.full((), res.iters, dtype=torch.float32, device=device),
+        )
+        epoch.last_iters = res.iters
+        return EpochCarry(
+            state=state, iterate=it, comm_state=comm_state,
+            t=carry.t + 1, key=carry.key, probe=res.probe,
         ), aux
 
     return epoch
@@ -218,7 +321,8 @@ class FitResult:
     ``stats`` are the engine's counters (see ``core/engine.py``); ``masks``
     the straggler weights of the epochs run, (epochs_run, N), when the run
     was given them; ``comm_state`` the reducer's state at the end (top-k's
-    residuals, ``()`` for dense and int8)."""
+    residuals, ``()`` for dense and int8); ``probe`` the block solver's
+    warm start at the end (``()`` for rank1)."""
 
     iterate: low_rank.FactoredIterate
     state: PyTree
@@ -228,6 +332,7 @@ class FitResult:
     stats: Dict[str, int] = dataclasses.field(default_factory=dict)
     masks: Optional[torch.Tensor] = None
     comm_state: PyTree = ()
+    probe: PyTree = ()  # the block solver's (m, k) warm start after the last epoch
 
 
 def fit(
@@ -254,6 +359,7 @@ def fit(
     device: DeviceLike = None,
     group: Optional[WorkerGroup] = None,
     masks=None,
+    probe=None,
 ) -> FitResult:
     """Run DFW-TRACE for up to ``num_epochs`` epochs on ``device``.
 
@@ -278,6 +384,11 @@ def fit(
 
     ``state`` is consumed: the dense tasks' update runs in place on its
     (n, m) tensors.
+
+    ``solver`` "block:k[:adapt][:cold]" runs the block tier: an epoch
+    appends k factors (``max_rank`` defaults to ``num_epochs * k``), and
+    ``probe`` is the (m, k) warm start of epoch ``start_t`` (default
+    ``init_probe``'s cold start); ``FitResult.probe`` is the last one.
     """
     from .engine import run_epochs  # engine builds on this module
 
@@ -308,6 +419,7 @@ def fit(
         device=dev,
         group=group,
         masks=masks,
+        probe=probe,
     )
     # F at the returned iterate over all the workers' rows: the plain sum,
     # never weighted by the straggler masks.
@@ -323,4 +435,5 @@ def fit(
         stats=eres.stats,
         masks=eres.masks,
         comm_state=eres.carry.comm_state,
+        probe=eres.carry.probe,
     )

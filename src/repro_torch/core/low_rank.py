@@ -4,8 +4,8 @@ W^t = alpha * sum_{k<count} s[k] U[k] V[k]^T, kept as factors: O(t(d+m))
 memory instead of O(dm). Buffers are preallocated at ``max_rank``. The FW
 recurrence W <- (1-gamma) W + gamma S is folded into the running scale
 ``alpha``, so an epoch touches O(d+m) memory. ``alpha`` and ``count`` live
-on the device, and ``fw_update`` writes row ``count`` without reading it on
-the host.
+on the device, and ``fw_update`` writes row ``count`` (``fw_update_block`` the
+k rows from ``count``) without reading it on the host.
 """
 from __future__ import annotations
 
@@ -60,6 +60,35 @@ def fw_update(
         v=it.v.index_copy(0, k, v.reshape(1, -1).to(it.v.dtype)),
         alpha=safe_alpha,
         count=it.count + 1,
+    )
+
+
+def fw_update_block(
+    it: FactoredIterate, u: torch.Tensor, v: torch.Tensor, c: torch.Tensor,
+    gamma: torch.Tensor, mu: float,
+) -> FactoredIterate:
+    """Rank-k FW step: W <- (1-gamma) W + gamma S with the blended block atom
+    S = -mu sum_j c_j u_j v_j^T, appending k factors at once.
+
+    ``u`` (d, k) and ``v`` (m, k) hold unit atom columns, ``c`` (k,) the
+    nonnegative blend weights with sum c <= 1, so ||S||_* <= mu. The alpha
+    folding and the gamma = 1 dead-iterate handling are ``fw_update``'s;
+    the k new rows land at ``count .. count+k-1`` (on the device: no host
+    read of ``count``).
+    """
+    k = u.shape[1]
+    new_alpha = it.alpha * (1.0 - gamma)
+    dead = torch.abs(new_alpha) < 1e-30
+    safe_alpha = torch.where(dead, torch.ones_like(new_alpha), new_alpha)
+    s_live = torch.where(dead, torch.zeros_like(it.s), it.s)
+    s_new = (-gamma * mu / safe_alpha) * c.to(it.s.dtype)
+    rows = it.count.reshape(1).long() + torch.arange(k, device=it.count.device)
+    return FactoredIterate(
+        u=it.u.index_copy(0, rows, u.T.to(it.u.dtype)),
+        s=s_live.index_copy(0, rows, s_new),
+        v=it.v.index_copy(0, rows, v.T.to(it.v.dtype)),
+        alpha=safe_alpha,
+        count=it.count + k,
     )
 
 

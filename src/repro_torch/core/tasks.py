@@ -28,8 +28,17 @@ plain PyTorch, as they stay plain XLA in the JAX package. ``local_grad``
 forms the d x m gradient that only the NAIVE-DFW and SVA baselines
 (``core.baselines``) read: plain f32 products (the reference computes them
 outside any kernel), and every sum in a fixed order, so a run repeats its
-bits on the card. The dense MTLS state and block atoms come with later
-slices.
+bits on the card.
+
+**Block atoms** (the block:k solver): ``u`` (d, k) with the blend weights
+folded into its columns and ``v`` (m, k) stand for the atom ``u v^T``, as
+the JAX package's ``_uvt``/block ``_entrywise_uv`` read them; a 1-D atom
+keeps the rank-1 path and its bits. The dense tasks' block update goes
+through the ``power_matvec.matmat`` and ``rankk_update(_axpy)`` kernels,
+matrix completion's through ``update_resid`` with block factors, which also
+gives MC's line search the block atom on the entries, never forming a (p,
+k) array (``linesearch_terms``). The dense MTLS state comes
+with a later slice.
 """
 from __future__ import annotations
 
@@ -54,6 +63,19 @@ def _row_chunked_sum(fn: Callable[..., torch.Tensor], *mats: torch.Tensor) -> to
     for lo in range(step, n, step):
         total = total + fn(*(mat[lo:lo + step] for mat in mats))
     return total
+
+
+def _uvt(xu: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The atom's action on the sample axis: ``outer(xu, v)`` for a rank-1
+    atom, ``xu @ v.T`` for a block atom (the reference's ``_uvt``)."""
+    if xu.dim() == 1:
+        return torch.outer(xu, v)
+    return xu @ v.T
+
+
+def _xu(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """X u through the kernel: ``matvec`` for a vector, ``matmat`` for a block."""
+    return pm_ops.matvec(x, u) if u.dim() == 1 else pm_ops.matmat(x, u)
 
 
 def _f32(t: torch.Tensor, name: str) -> torch.Tensor:
@@ -92,11 +114,11 @@ class MultiTaskLeastSquares:
         return s.r.T @ (s.x @ u)
 
     def update(self, s: MTLSState, u, v, gamma, mu) -> MTLSState:
-        # R' = X[(1-g)W + g S] - Y = (1-g)R - g Y - g mu (X u) v^T, in place.
-        xu = pm_ops.matvec(s.x, u)
-        r = r1_ops.rank1_update_axpy(
-            s.r, s.y, xu, v, 1.0 - gamma, -(gamma * mu), -gamma, out=s.r
-        )
+        # R' = X[(1-g)W + g S] - Y = (1-g)R - g Y - g mu (X u) v^T, in place
+        # (block atoms: u (d, k) with the blend folded in, v (m, k)).
+        xu = _xu(s.x, u)
+        update = r1_ops.rank1_update_axpy if u.dim() == 1 else r1_ops.rankk_update_axpy
+        r = update(s.r, s.y, xu, v, 1.0 - gamma, -(gamma * mu), -gamma, out=s.r)
         return MTLSState(x=s.x, y=s.y, r=r)
 
     def local_loss(self, s: MTLSState) -> torch.Tensor:
@@ -114,10 +136,10 @@ class MultiTaskLeastSquares:
         """Local (numerator, denominator) of the closed-form step (App. B):
         gamma* = <-grad, D> / <X^T X D, D> with D = S - W, via
         X D = -mu (X u) v^T - (R + Y). The caller sums them, then divides."""
-        xu = pm_ops.matvec(s.x, u)
+        xu = _xu(s.x, u)
 
         def terms(r, y, xu_c):
-            xd = -mu * torch.outer(xu_c, v) - (r + y)
+            xd = -mu * _uvt(xu_c, v) - (r + y)
             return torch.stack([-torch.sum(r * xd), torch.sum(xd * xd)])
 
         numer, denom = _row_chunked_sum(terms, s.r, s.y, xu)
@@ -172,7 +194,7 @@ class MultinomialLogistic:
     def _label_sum(self, s: LogisticState, t: torch.Tensor) -> torch.Tensor:
         """H^T t: t summed per label, each label's rows in row order (a
         segment sum; ``index_add_`` would add with atomics on CUDA, in an
-        order that changes from run to run)."""
+        order that changes from run to run). t may be (n, k): per column."""
         return torch.segment_reduce(t[s.label_perm], "sum", lengths=s.label_counts, unsafe=True)
 
     # grad = X^T (P - H); H is one-hot(y). Never materialized.
@@ -185,9 +207,10 @@ class MultinomialLogistic:
         return self._probs(s).T @ t - self._label_sum(s, t)
 
     def update(self, s: LogisticState, u, v, gamma, mu) -> LogisticState:
-        # Z' = (1-g) Z - g mu (X u) v^T, in place.
-        xu = pm_ops.matvec(s.x, u)
-        z = r1_ops.rank1_update(s.z, xu, v, 1.0 - gamma, -(gamma * mu), out=s.z)
+        # Z' = (1-g) Z - g mu (X u) v^T, in place (or (X U) V^T for a block).
+        xu = _xu(s.x, u)
+        update = r1_ops.rank1_update if u.dim() == 1 else r1_ops.rankk_update
+        z = update(s.z, xu, v, 1.0 - gamma, -(gamma * mu), out=s.z)
         return s._replace(z=z)
 
     def local_loss(self, s: LogisticState) -> torch.Tensor:
@@ -326,6 +349,7 @@ class MatrixCompletion:
         # W' = (1-g)W - g mu u v^T on the observed entries:
         # resid' = (1-g) resid - g w M - g mu w u[rows] v[cols], written in
         # caller order and in each sorted order by one update_resid launch
+        # (block factors: the k-term dot u[rows] . v[cols])
         resid, by_row, by_col = mc_ops.update_resid(
             gamma, mu, u, v, s.rows, s.cols, s.resid, s.vals, s.weight,
             s.by_row, s.copies("row"), s.by_col, s.copies("col"))
@@ -363,7 +387,18 @@ class MatrixCompletion:
     def linesearch_terms(self, s: MCState, u, v, mu):
         """Local (numerator, denominator) of the exact step for the quadratic
         objective: gamma* = <-grad, D> / ||P_Omega(D)||^2 with D = S - W, on
-        the observed entries."""
+        the observed entries. For a block atom, w (S - M) on the entries,
+        -mu w (u_i . v_j) - w M_ij, is ``update_resid``'s caller-order
+        result at gamma = 1 (``update_resid_caller``: that order alone), so
+        dw = that - resid: one pass of the kernel's gathers of the factors'
+        rows, where gathering them in plain PyTorch (two (p, k) gathers)
+        took ten times as long on the card."""
+        if u.dim() == 2:
+            step = mc_ops.update_resid_caller(
+                torch.ones((), dtype=torch.float32, device=u.device), mu, u, v, s.rows, s.cols,
+                s.resid, s.vals, s.weight)
+            dw = step - s.resid  # w (S - W)
+            return -torch.sum(s.resid * dw), torch.sum(dw * dw)
         # w * D_ij = -mu w u_i v_j - w W_ij, with w W_ij = resid + w M_ij
         dw = -(mu) * s.weight * _entrywise_uv(u, v, s.rows, s.cols) - (
             s.resid + s.weight * s.vals

@@ -46,6 +46,23 @@
 // - The product is rounded before the sum (no FMA contraction), as in the
 //   plain version, so a one-entry segment gives the plain version's bits.
 // - Zero-weight padding entries carry vals = 0 and contribute exactly 0.
+//
+// Block forms for the block:k solver, on the same orders and pieces:
+// - coo_matmat: out[seg_e, :] += vals_e * X[gat_e, :] with X (in_dim, k)
+//   row-major (the reference vmaps coo_matvec over the k columns). A warp
+//   per piece with the lanes along k (32 columns a pass; k > 32 in groups of
+//   32): at k = 32 a gathered row is one 128-byte line. The lanes load 32
+//   entries' (gat, val) at once and pass them round by shuffles; each lane
+//   adds its column's products in the piece's order (rounded product, then
+//   the add), and one thread per (segment, column) adds the pieces' partials
+//   in order. Bound: bytes, 8 per entry as coo_matvec plus X and out once
+//   (Netflix shapes, k = 32: 0.80 GB + 63 MB); the gathers of X rows are
+//   what it pays: 2.3 MB of V stays in L2, 61 MB of U does not.
+// - update_resid with block factors: the dot sum_j u[row, j] v[col, j] in
+//   place of u[row] v[col], in ascending j (rounded products, then adds),
+//   the same chain in all three orders, so each order has the caller
+//   order's bits. In the row order the warp's piece shares u's row, in the
+//   column order v's (read once a lane, from L1).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -205,12 +222,17 @@ struct SortedResid {
 // MatrixCompletion.update's chain, each operation rounded on its own, in
 // the chain's order (no FMA contraction): the plain version's bits.
 //   resid' = ((1 - g) resid - (g w) vals) - (g mu) (w (x_a x_b))
-__device__ __forceinline__ float resid_step(float omg, float g, float gmu, float resid, float val,
-                                            float w, float xa, float xb) {
-  const float uv = __fmul_rn(w, __fmul_rn(xa, xb));
+__device__ __forceinline__ float resid_step_dot(float omg, float g, float gmu, float resid,
+                                                float val, float w, float dot) {
+  const float uv = __fmul_rn(w, dot);
   const float keep = __fmul_rn(omg, resid);
   const float pull = __fmul_rn(__fmul_rn(g, w), val);
   return __fsub_rn(__fsub_rn(keep, pull), __fmul_rn(gmu, uv));
+}
+
+__device__ __forceinline__ float resid_step(float omg, float g, float gmu, float resid, float val,
+                                            float w, float xa, float xb) {
+  return resid_step_dot(omg, g, gmu, resid, val, w, __fmul_rn(xa, xb));
 }
 
 // The new residual in caller order (blocks [0, caller_blocks), four entries
@@ -264,6 +286,99 @@ update_resid_kernel(const float* __restrict__ gamma, float mu, const int32_t* __
     const float xg = __ldg(o.x_gat + __ldcs(o.gat + k));
     __stcs(o.out + k, resid_step(omg, g, gmu, __ldcs(o.resid + k), __ldcs(o.vals + k),
                                  __ldcs(o.weight + k), xs, xg));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Block forms
+// ---------------------------------------------------------------------------
+
+// Stage 1 of coo_matmat: partial[piece, col0 + lane] = the piece's sum of
+// vals_e * x[gat_e, col0 + lane], lane < kc; x (in_dim, k), partial (pieces, k).
+__global__ void __launch_bounds__(kThreads)
+piece_sum_block_kernel(const int32_t* __restrict__ gat, const float* __restrict__ vals,
+                       const float* __restrict__ x, const int64_t* __restrict__ piece_start,
+                       const int64_t* __restrict__ piece_end, float* __restrict__ partial,
+                       int64_t num_pieces, int64_t k, int col0, int kc) {
+  const int lane = threadIdx.x % kWarp;
+  const int64_t piece =
+      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
+  if (piece >= num_pieces) return;  // whole warp leaves together
+  const bool live = lane < kc;
+  const float* xc = x + col0 + lane;
+  const int64_t end = piece_end[piece];
+  float acc = 0.f;
+  for (int64_t base = piece_start[piece]; base < end; base += kWarp) {
+    const int64_t e = base + lane;
+    const int32_t ge = e < end ? __ldcs(gat + e) : 0;
+    const float ve = e < end ? __ldcs(vals + e) : 0.f;
+    const int count = static_cast<int>(end - base < kWarp ? end - base : kWarp);
+#pragma unroll 4
+    for (int i = 0; i < count; ++i) {
+      const int32_t gi = __shfl_sync(0xffffffffu, ge, i);
+      const float vi = __shfl_sync(0xffffffffu, ve, i);
+      if (live) acc = __fadd_rn(acc, __fmul_rn(vi, __ldg(xc + static_cast<int64_t>(gi) * k)));
+    }
+  }
+  if (live) partial[piece * k + col0 + lane] = acc;
+}
+
+// Stage 2: out[seg, col0 + c] = its pieces' partials added in order.
+__global__ void __launch_bounds__(kThreads)
+segment_sum_block_kernel(const float* __restrict__ partial, const int64_t* __restrict__ piece_ptr,
+                         float* __restrict__ out, int64_t out_dim, int64_t k, int col0, int kc) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= out_dim * kc) return;
+  const int64_t seg = i / kc;
+  const int64_t col = col0 + i % kc;
+  const int64_t end = piece_ptr[seg + 1];
+  float acc = 0.f;
+  for (int64_t j = piece_ptr[seg]; j < end; ++j) acc = __fadd_rn(acc, partial[j * k + col]);
+  out[seg * k + col] = acc;
+}
+
+// sum_j a[j] b[j] for j < k in ascending order, each product rounded.
+__device__ __forceinline__ float entry_dot(const float* __restrict__ a,
+                                           const float* __restrict__ b, int64_t k) {
+  float dot = __fmul_rn(__ldg(a), __ldg(b));
+  for (int64_t j = 1; j < k; ++j) dot = __fadd_rn(dot, __fmul_rn(__ldg(a + j), __ldg(b + j)));
+  return dot;
+}
+
+// update_resid_kernel with (d, k) and (m, k) factors: caller order a thread an
+// entry, then the row and the column order a warp a piece.
+__global__ void __launch_bounds__(kThreads)
+update_resid_block_kernel(const float* __restrict__ gamma, float mu,
+                          const int32_t* __restrict__ rows, const int32_t* __restrict__ cols,
+                          const float* __restrict__ resid, const float* __restrict__ vals,
+                          const float* __restrict__ weight, const float* __restrict__ u,
+                          const float* __restrict__ v, float* __restrict__ out, int64_t p,
+                          int64_t k, int64_t caller_blocks, SortedResid row, int64_t row_blocks,
+                          SortedResid col) {
+  const float g = __ldg(gamma);
+  const float omg = __fsub_rn(1.f, g);
+  const float gmu = __fmul_rn(g, mu);
+  int64_t blk = blockIdx.x;
+  if (blk < caller_blocks) {
+    const int64_t j = blk * kThreads + threadIdx.x;
+    if (j >= p) return;
+    const float dot = entry_dot(u + static_cast<int64_t>(__ldcs(rows + j)) * k,
+                                v + static_cast<int64_t>(__ldcs(cols + j)) * k, k);
+    out[j] = resid_step_dot(omg, g, gmu, __ldcs(resid + j), __ldcs(vals + j),
+                            __ldcs(weight + j), dot);
+    return;
+  }
+  blk -= caller_blocks;
+  const bool by_row = blk < row_blocks;
+  const SortedResid o = by_row ? row : col;
+  const int64_t piece = (by_row ? blk : blk - row_blocks) * kWarpsPerBlock + threadIdx.x / kWarp;
+  if (piece >= o.num_pieces) return;
+  const float* xs = o.x_seg + o.piece_seg[piece] * k;
+  const int64_t end = o.piece_end[piece];
+  for (int64_t e = o.piece_start[piece] + threadIdx.x % kWarp; e < end; e += kWarp) {
+    const float dot = entry_dot(xs, o.x_gat + static_cast<int64_t>(__ldcs(o.gat + e)) * k, k);
+    __stcs(o.out + e, resid_step_dot(omg, g, gmu, __ldcs(o.resid + e), __ldcs(o.vals + e),
+                                     __ldcs(o.weight + e), dot));
   }
 }
 
@@ -359,6 +474,65 @@ int mc_update_resid_f32(const float* gamma, float mu, const int32_t* rows, const
   update_resid_kernel<<<static_cast<unsigned>(caller_blocks + row_blocks + col_blocks), kThreads,
                         0, static_cast<cudaStream_t>(stream)>>>(
       gamma, mu, rows, cols, resid, vals, weight, u, v, out, p, vec, caller_blocks, row,
+      row_blocks, col);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out (out_dim, k) = segmented sums of vals_sorted * x[gat_sorted, :] over the
+// sorted order, x (in_dim, k); partial is (num_pieces, k) scratch. Groups of
+// 32 columns, one pass over the entries each.
+int mc_coo_matmat_f32(const int32_t* gat, const float* vals, const float* x,
+                      const int64_t* piece_start, const int64_t* piece_end,
+                      const int64_t* piece_ptr, float* partial, float* out,
+                      int64_t num_pieces, int64_t out_dim, int64_t k, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  for (int64_t col0 = 0; col0 < k; col0 += kWarp) {
+    const int kc = static_cast<int>(k - col0 < kWarp ? k - col0 : kWarp);
+    if (num_pieces > 0) {
+      const int64_t blocks = (num_pieces + kWarpsPerBlock - 1) / kWarpsPerBlock;
+      piece_sum_block_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+          gat, vals, x, piece_start, piece_end, partial, num_pieces, k,
+          static_cast<int>(col0), kc);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    const int64_t blocks = (out_dim * kc + kThreads - 1) / kThreads;
+    segment_sum_block_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        partial, piece_ptr, out, out_dim, k, static_cast<int>(col0), kc);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+// mc_update_resid_f32 with u (d, k) and v (m, k) row-major. p >= 1, k >= 1.
+// r_pieces = c_pieces = 0 (their pointers unused) writes the caller order
+// alone.
+int mc_update_resid_block_f32(const float* gamma, float mu, const int32_t* rows,
+                              const int32_t* cols, const float* resid, const float* vals,
+                              const float* weight, const float* u, const float* v, float* out,
+                              int64_t p, int64_t k,
+                              const int32_t* r_gat, const int64_t* r_start, const int64_t* r_end,
+                              const int64_t* r_seg, const float* r_resid, const float* r_vals,
+                              const float* r_weight, float* r_out, int64_t r_pieces,
+                              const int32_t* c_gat, const int64_t* c_start, const int64_t* c_end,
+                              const int64_t* c_seg, const float* c_resid, const float* c_vals,
+                              const float* c_weight, float* c_out, int64_t c_pieces, int device,
+                              void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const SortedResid row{r_gat, r_start, r_end, r_seg, r_resid, r_vals, r_weight, u, v, r_out,
+                        r_pieces};
+  const SortedResid col{c_gat, c_start, c_end, c_seg, c_resid, c_vals, c_weight, v, u, c_out,
+                        c_pieces};
+  const int64_t caller_blocks = (p + kThreads - 1) / kThreads;
+  const int64_t row_blocks = (r_pieces + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int64_t col_blocks = (c_pieces + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  update_resid_block_kernel<<<static_cast<unsigned>(caller_blocks + row_blocks + col_blocks),
+                              kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      gamma, mu, rows, cols, resid, vals, weight, u, v, out, p, k, caller_blocks, row,
       row_blocks, col);
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,6 +20,14 @@ WRAPPERS = {
     # one a call: a one-field gather, or an order's copies when a state is built
     "gather_sorted": mc_matvec.ops.gather_sorted,
     "update_resid": mc_matvec.ops.update_resid,
+    # the block:k solver's forms (update_resid's block form: its route_launches)
+    "matmat": power_matvec.ops.matmat,
+    "rmatmat": power_matvec.ops.rmatmat,
+    "rankk_update": rank1_update.ops.rankk_update,
+    "rankk_update_axpy": rank1_update.ops.rankk_update_axpy,
+    "coo_matmat": mc_matvec.ops.coo_matmat,
+    # the block update_resid's caller order alone (the block line search)
+    "update_resid_caller": mc_matvec.ops.update_resid_caller,
     "quantize": quantize.ops.quantize,
     "dequantize": quantize.ops.dequantize,
     "factor_matvec": factor_matvec.ops.factor_matvec,

@@ -27,6 +27,11 @@ def _library():
         lib.mc_update_resid_f32.argtypes = (
             [_P, ctypes.c_float] + [_P] * 8 + [_I64] + ([_P] * 8 + [_I64]) * 2 + [_I, _P])
         lib.mc_update_resid_f32.restype = ctypes.c_int
+        lib.mc_coo_matmat_f32.argtypes = [_P] * 8 + [_I64, _I64, _I64, _I, _P]
+        lib.mc_coo_matmat_f32.restype = ctypes.c_int
+        lib.mc_update_resid_block_f32.argtypes = (
+            [_P, ctypes.c_float] + [_P] * 8 + [_I64, _I64] + ([_P] * 8 + [_I64]) * 2 + [_I, _P])
+        lib.mc_update_resid_block_f32.restype = ctypes.c_int
         lib.mc_error_string.argtypes = [ctypes.c_int]
         lib.mc_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -50,6 +55,20 @@ def coo_matvec(order, vals_sorted: torch.Tensor, x: torch.Tensor, partial: torch
     ))
 
 
+def coo_matmat(order, vals_sorted: torch.Tensor, x: torch.Tensor, partial: torch.Tensor,
+               out: torch.Tensor) -> None:
+    """out (out_dim, k) = segment sums of vals_sorted * x[gat_sorted, :] over
+    ``order``, x (in_dim, k); ``partial`` is (pieces, k) scratch."""
+    lib = _library()
+    _raise(lib, "coo_matmat", lib.mc_coo_matmat_f32(
+        order.gat_sorted.data_ptr(), vals_sorted.data_ptr(), x.data_ptr(),
+        order.piece_start.data_ptr(), order.piece_end.data_ptr(), order.piece_ptr.data_ptr(),
+        partial.data_ptr(), out.data_ptr(), order.piece_start.numel(), order.out_dim,
+        x.shape[1], vals_sorted.device.index,
+        torch.cuda.current_stream(vals_sorted.device).cuda_stream,
+    ))
+
+
 def gather_sorted(perm: torch.Tensor, fields, outs, records) -> None:
     """outs[f] (p,) = fields[f][perm] for 1 to 4 fields of 4-byte words;
     ``records`` is (p, 4) int32 scratch (None for one field)."""
@@ -68,7 +87,8 @@ def update_resid(gamma: torch.Tensor, mu: float, u: torch.Tensor, v: torch.Tenso
     """outs[0] (p,) = the residual after a step, from ``entries`` (rows, cols,
     resid, vals, weight) in caller order; outs[1] and outs[2] likewise in
     the row and the column order, from ``orders``: ``(order, (resid, vals,
-    weight) in its sorted order)`` for each."""
+    weight) in its sorted order)`` for each. u (d,) and v (m,), or block
+    factors (d, k) and (m, k)."""
     lib = _library()
     sorted_args = []
     for (order, copies), out_sorted in zip(orders, outs[1:]):
@@ -76,8 +96,29 @@ def update_resid(gamma: torch.Tensor, mu: float, u: torch.Tensor, v: torch.Tenso
                         order.piece_end.data_ptr(), order.piece_seg.data_ptr(),
                         *(t.data_ptr() for t in copies), out_sorted.data_ptr(),
                         order.piece_start.numel()]
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    if u.dim() == 2:  # block factors (d, k) and (m, k)
+        _raise(lib, "update_resid", lib.mc_update_resid_block_f32(
+            gamma.data_ptr(), mu, *(t.data_ptr() for t in entries), u.data_ptr(), v.data_ptr(),
+            outs[0].data_ptr(), outs[0].numel(), u.shape[1], *sorted_args, u.device.index,
+            stream,
+        ))
+        return
     _raise(lib, "update_resid", lib.mc_update_resid_f32(
         gamma.data_ptr(), mu, *(t.data_ptr() for t in entries), u.data_ptr(), v.data_ptr(),
         outs[0].data_ptr(), outs[0].numel(), *sorted_args,
-        u.device.index, torch.cuda.current_stream(u.device).cuda_stream,
+        u.device.index, stream,
+    ))
+
+
+def update_resid_caller(gamma: torch.Tensor, mu: float, u: torch.Tensor, v: torch.Tensor,
+                        entries, out) -> None:
+    """out (p,) = ``update_resid``'s caller-order result for block factors u
+    (d, k) and v (m, k): its kernel launched with no sorted order."""
+    lib = _library()
+    no_order = [None] * 8 + [0]
+    _raise(lib, "update_resid_caller", lib.mc_update_resid_block_f32(
+        gamma.data_ptr(), mu, *(t.data_ptr() for t in entries), u.data_ptr(), v.data_ptr(),
+        out.data_ptr(), out.numel(), u.shape[1], *no_order, *no_order, u.device.index,
+        torch.cuda.current_stream(u.device).cuda_stream,
     ))

@@ -15,7 +15,11 @@ record gather (each entry's fields packed into one 16-byte record, fetched
 by one random read). ``update_resid`` then writes the matrix-completion
 residual after each step in caller order and in each order's sorted order
 at once, from values and weights kept in those orders, so the copies are
-never gathered again. CPU tensors take the plain versions (``ref.py``: the
+never gathered again. ``coo_matmat`` and ``update_resid`` with (d, k) and
+(m, k) factors are the block forms of the block:k solver;
+``update_resid_caller`` is that block ``update_resid``'s caller order alone
+(the block line search's entry values). CPU tensors take
+the plain versions (``ref.py``: the
 segment sum over the sorted order, the gather, the update's chain); CUDA
 tensors launch the hand-written kernels (``csrc/mc_matvec.cu``) or raise.
 Each wrapper counts its kernel launches in ``.launches``; the gather's count
@@ -218,6 +222,37 @@ def coo_matvec(order: SegmentOrder, vals_sorted: torch.Tensor, x: torch.Tensor) 
     return out
 
 
+def coo_matmat(order: SegmentOrder, vals_sorted: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The block form of :func:`coo_matvec`: ``out[seg_e, :] += vals_e *
+    x[gat_e, :]`` -> (out_dim, k) float32 for x (in_dim, k), values in the
+    order's sorted order (G V with the row order, G^T U with the column
+    order); on CUDA the same bits on every call."""
+    p = order.perm.numel()
+    vals_sorted = _checks.vector_f32(vals_sorted, "vals_sorted", p)
+    if not isinstance(x, torch.Tensor) or x.dim() != 2 or x.shape[1] < 1:
+        raise ValueError(f"x must be a 2-D ({order.in_dim}, k) tensor with k >= 1")
+    _checks.dense_f32(x, "x", (order.in_dim, x.shape[1]))
+    _checks.same_device(order.device, vals_sorted=vals_sorted, x=x)
+    if not _checks.kernel_device(vals_sorted.device, "coo_matmat"):
+        return ref.coo_matvec_sorted(order, vals_sorted, x)
+    k = x.shape[1]
+    out = torch.empty((order.out_dim, k), dtype=torch.float32, device=x.device)
+    if order.out_dim == 0:
+        return out
+    partial = torch.empty((order.piece_start.numel(), k), dtype=torch.float32, device=x.device)
+    kernel.coo_matmat(order, vals_sorted, x, partial, out)
+    coo_matmat.launches += 1
+    return out
+
+
+def _factor(t: torch.Tensor, name: str, rows: int) -> torch.Tensor:
+    """A (rows,) vector or a (rows, k) block factor, float32, contiguous."""
+    if isinstance(t, torch.Tensor) and t.dim() == 2 and t.shape[1] > 1:
+        _checks.dense_f32(t, name, (rows, t.shape[1]))
+        return t
+    return _checks.vector_f32(t, name, rows)
+
+
 def update_resid(
     gamma: torch.Tensor, mu: float, u: torch.Tensor, v: torch.Tensor,
     rows: torch.Tensor, cols: torch.Tensor, resid: torch.Tensor, vals: torch.Tensor,
@@ -234,7 +269,9 @@ def update_resid(
     weight) in each order's sorted order (``gather_sorted``), and each sorted
     result has the bits of ``gather_sorted(order, resid')``. ``gamma`` is a
     one-element float32 tensor on the entries' device (read there: no host
-    sync); ``mu`` a number."""
+    sync); ``mu`` a number. u (d,) and v (m,) are a rank-1 atom's factors; u
+    (d, k) and v (m, k) a block atom's, with u[row] v[col] the k-term dot
+    in ascending j (``ref.entry_dot``), the same chain in all three orders."""
     p = rows.numel()
     rows, cols = _index(rows, "rows"), _index(cols, "cols")
     if rows.shape != (p,) or cols.shape != (p,):
@@ -245,14 +282,16 @@ def update_resid(
             and gamma.dtype == torch.float32):
         raise TypeError("gamma must be a one-element float32 tensor")
     gamma = gamma.reshape(())
-    u = _checks.vector_f32(u, "u", by_row.out_dim)
-    v = _checks.vector_f32(v, "v", by_col.out_dim)
+    u = _factor(u, "u", by_row.out_dim)
+    v = _factor(v, "v", by_col.out_dim)
+    if u.dim() != v.dim() or (u.dim() == 2 and u.shape[1] != v.shape[1]):
+        raise ValueError(f"u {tuple(u.shape)} and v {tuple(v.shape)} are not one atom's factors")
     dev = rows.device
     _checks.same_device(dev, cols=cols, resid=resid, vals=vals, weight=weight, gamma=gamma,
                         u=u, v=v)
     orders = []
-    for name, order, copies, in_dim in (("row", by_row, row_copies, v.numel()),
-                                        ("column", by_col, col_copies, u.numel())):
+    for name, order, copies, in_dim in (("row", by_row, row_copies, v.shape[0]),
+                                        ("column", by_col, col_copies, u.shape[0])):
         if order.perm.numel() != p or order.in_dim != in_dim:
             raise ValueError(f"the {name} order is {order.out_dim} x {order.in_dim} over "
                              f"{order.perm.numel()} entries, not these")
@@ -272,9 +311,51 @@ def update_resid(
         return outs
     kernel.update_resid(gamma, mu, u, v, (rows, cols, resid, vals, weight), outs, orders)
     update_resid.launches += 1
+    update_resid.route_launches["block" if u.dim() == 2 else "rank1"] += 1
     return outs
+
+
+def update_resid_caller(
+    gamma: torch.Tensor, mu: float, u: torch.Tensor, v: torch.Tensor,
+    rows: torch.Tensor, cols: torch.Tensor, resid: torch.Tensor, vals: torch.Tensor,
+    weight: torch.Tensor,
+) -> torch.Tensor:
+    """``update_resid(...)[0]`` for block factors u (d, k) and v (m, k),
+    with the same bits: the block kernel launched over the caller order
+    alone, so that no sorted order is read or written. u and v are not
+    checked against the entries' index range (no order gives d and m)."""
+    p = rows.numel()
+    rows, cols = _index(rows, "rows"), _index(cols, "cols")
+    if rows.shape != (p,) or cols.shape != (p,):
+        raise ValueError("rows and cols must both be (p,)")
+    resid, vals, weight = (_checks.vector_f32(t, n, p) for t, n in (
+        (resid, "resid"), (vals, "vals"), (weight, "weight")))
+    if not (isinstance(gamma, torch.Tensor) and gamma.numel() == 1
+            and gamma.dtype == torch.float32):
+        raise TypeError("gamma must be a one-element float32 tensor")
+    gamma = gamma.reshape(())
+    if not (isinstance(u, torch.Tensor) and isinstance(v, torch.Tensor) and u.dim() == 2
+            and v.dim() == 2 and u.shape[1] == v.shape[1]):
+        raise ValueError("u and v must be one block atom's (d, k) and (m, k) factors")
+    _checks.dense_f32(u, "u", tuple(u.shape))
+    _checks.dense_f32(v, "v", tuple(v.shape))
+    dev = rows.device
+    _checks.same_device(dev, cols=cols, resid=resid, vals=vals, weight=weight, gamma=gamma,
+                        u=u, v=v)
+    mu = float(mu)
+    if not _checks.kernel_device(dev, "update_resid_caller"):
+        return ref.update_resid_caller(gamma, mu, u, v, rows, cols, resid, vals, weight)
+    out = torch.empty(p, dtype=torch.float32, device=dev)
+    if p == 0:
+        return out
+    kernel.update_resid_caller(gamma, mu, u, v, (rows, cols, resid, vals, weight), out)
+    update_resid_caller.launches += 1
+    return out
 
 
 gather_sorted.launches = 0
 coo_matvec.launches = 0
+coo_matmat.launches = 0
+update_resid.route_launches = {"rank1": 0, "block": 0}  # update_resid_kernel, the block one
 update_resid.launches = 0
+update_resid_caller.launches = 0

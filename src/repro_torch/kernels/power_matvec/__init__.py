@@ -1,4 +1,4 @@
 from . import kernel, ops, ref
-from .ops import matvec, rmatvec
+from .ops import matmat, matvec, rmatmat, rmatvec
 
-__all__ = ["kernel", "ops", "ref", "matvec", "rmatvec"]
+__all__ = ["kernel", "ops", "ref", "matvec", "rmatvec", "matmat", "rmatmat"]

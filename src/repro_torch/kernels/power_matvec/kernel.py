@@ -16,6 +16,8 @@ _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
     "pm_matvec_f32": [_P, _P, _P, _I64, _I64, _I, _I, _P],
     "pm_rmatvec_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _P],
+    "pm_matmat_f32": [_P, _P, _P, _I64, _I64, _I64, _I, _I, _P],
+    "pm_rmatmat_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _I, _P],
 }
 _lib = None
 
@@ -68,3 +70,25 @@ def rmatvec(
         rows_per_slab, _vec(a, m=m), a.device.index, stream,
     )
     _check(lib, err, "power_matvec.rmatvec")
+
+
+def matmat(a: torch.Tensor, v: torch.Tensor, out: torch.Tensor) -> None:
+    """out (n, k) = a (n, m) @ v (m, k); all f32, contiguous, on one CUDA device."""
+    lib = _library()
+    n, m = a.shape
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    err = lib.pm_matmat_f32(a.data_ptr(), v.data_ptr(), out.data_ptr(), n, m, v.shape[1],
+                            _vec(a, m=m), a.device.index, stream)
+    _check(lib, err, "power_matvec.matmat")
+
+
+def rmatmat(a: torch.Tensor, u: torch.Tensor, partial: torch.Tensor, out: torch.Tensor,
+            rows_per_slab: int) -> None:
+    """out (m, k) = a (n, m)^T @ u (n, k) via ``partial`` (ceil(n/rows_per_slab), m,
+    min(k, 32))."""
+    lib = _library()
+    n, m = a.shape
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    err = lib.pm_rmatmat_f32(a.data_ptr(), u.data_ptr(), partial.data_ptr(), out.data_ptr(), n, m,
+                             u.shape[1], rows_per_slab, _vec(a, m=m), a.device.index, stream)
+    _check(lib, err, "power_matvec.rmatmat")

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the power-method matvecs (f32 accumulation)."""
+"""Plain PyTorch versions of the power-method matvecs and their block forms
+(f32 accumulation)."""
 from __future__ import annotations
 
 import torch
@@ -12,3 +13,13 @@ def matvec(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def rmatvec(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """A^T @ u -> (m,) for A (n, m) and u (n,) or (n, 1)."""
     return a.T @ u.reshape(a.shape[0])
+
+
+def matmat(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """A @ V -> (n, k) for A (n, m) and V (m, k)."""
+    return a @ v
+
+
+def rmatmat(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """A^T @ U -> (m, k) for A (n, m) and U (n, k)."""
+    return a.T @ u

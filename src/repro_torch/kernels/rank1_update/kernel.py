@@ -22,6 +22,8 @@ def _library():
         lib = _build.library("rank1_update")
         lib.r1_update_f32.argtypes = [_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _P]
         lib.r1_update_f32.restype = ctypes.c_int
+        lib.rk_update_f32.argtypes = [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _P]
+        lib.rk_update_f32.restype = ctypes.c_int
         lib.r1_error_string.argtypes = [ctypes.c_int]
         lib.r1_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -45,4 +47,22 @@ def update(
     if err != 0:
         raise RuntimeError(
             f"rank1_update launch failed: {lib.r1_error_string(err).decode()}"
+        )
+
+
+def update_k(
+    out: torch.Tensor, z: torch.Tensor, y0: Optional[torch.Tensor],
+    p: torch.Tensor, q: torch.Tensor, scal: torch.Tensor,
+) -> None:
+    """out = a*z + b*p q^T [+ c*y0] for p (n, k), q (m, k), scal = [a, b(, c)]."""
+    lib = _library()
+    n, m = z.shape
+    err = lib.rk_update_f32(
+        out.data_ptr(), z.data_ptr(), y0.data_ptr() if y0 is not None else None,
+        p.data_ptr(), q.data_ptr(), scal.data_ptr(), n, m, p.shape[1], int(y0 is not None),
+        z.device.index, torch.cuda.current_stream(z.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"rankk_update launch failed: {lib.r1_error_string(err).decode()}"
         )

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the fused rank-1 update.
+"""Plain PyTorch versions of the fused rank-1 update and its rank-k forms.
 
 ``scal`` holds the scalars on the tensors' device: [a, b] or [a, b, c].
 """
@@ -19,3 +19,13 @@ def rank1_update_axpy(z, y0, x, y, scal) -> torch.Tensor:
         + scal[1] * torch.outer(x.reshape(-1), y.reshape(-1))
         + scal[2] * y0
     )
+
+
+def rankk_update(z, p, q, scal) -> torch.Tensor:
+    """a*Z + b*(P Q^T)."""
+    return scal[0] * z + scal[1] * (p @ q.T)
+
+
+def rankk_update_axpy(z, y0, p, q, scal) -> torch.Tensor:
+    """a*Z + b*(P Q^T) + c*Y0."""
+    return scal[0] * z + scal[1] * (p @ q.T) + scal[2] * y0

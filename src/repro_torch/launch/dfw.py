@@ -1,9 +1,10 @@
 """DFW-Trace execution layer, the port's counterpart of ``repro.launch.dfw``.
 
-Two drivers, for the three paper tasks, with solver ``rank1``, comm
-``dense``, ``int8`` or ``topk:r`` and topology ``flat``, ``ring``,
-``gossip:k`` or ``hier:g`` (``comm.make_topology``; a flat graph hands the
-bare reducer to the engine, the path without a topology):
+Two drivers, for the three paper tasks, with solver ``rank1`` or
+``block:k[:adapt][:cold]``, comm ``dense``, ``int8`` or ``topk:r`` and
+topology ``flat``, ``ring``, ``gossip:k`` or ``hier:g`` (``comm.make_topology``;
+a flat graph hands the bare reducer to the engine, the path without a
+topology; gossip takes rank1 only):
 
 - ``fit`` is the multi-worker run (paper Alg. 2): one process per worker
   over a ``torch.distributed`` process group (``comm.WorkerGroup``), each
@@ -17,8 +18,10 @@ bare reducer to the engine, the path without a topology):
 
 ``KernelizedTask`` routes the power method's matvecs through the
 hand-written ``power_matvec`` kernels (dense tasks) and ``mc_matvec`` kernel
-(matrix completion), and the dense tasks' update goes through
-``rank1_update``; ``verify_kernelized`` (and, for int8,
+(matrix completion), their block forms (``matmat``/``rmatmat``,
+``coo_matmat``) for the block solver's (m, k) and (d, k) blocks, and the
+dense tasks' update goes through ``rank1_update`` (``rankk_update``);
+``verify_kernelized`` (and, for int8,
 ``comm.verify_quantize_kernels``) holds the kernel route to the plain
 versions before a run starts. ``shard_observations`` lays out matrix
 completion entries as the JAX package does.
@@ -26,9 +29,9 @@ completion entries as the JAX package does.
 ``DFWConfig(checkpoint_dir=...)`` makes a run write checkpoints in the JAX
 package's layout and payload format (``repro_torch.checkpoint``), which the
 serving engine and the JAX package's readers load; in a multi-worker run
-worker 0 writes the whole state and the top-k residuals of every worker.
-Resuming, the block solvers and telemetry come with later slices; a
-``DFWConfig`` that asks for them is rejected.
+worker 0 writes the whole state and the top-k residuals of every worker
+(and the block solver's replicated probe). Resuming and telemetry come with
+later slices; a ``DFWConfig`` that asks for them is rejected.
 """
 from __future__ import annotations
 
@@ -51,7 +54,7 @@ from ..core.frank_wolfe import EpochAux
 from ..core.power_method import sphere_vector
 from ..kernels.mc_matvec import ops as mc_ops
 from ..kernels.power_matvec import ops as pm_ops
-from ..specs import NotYetPorted, parse_comm, validate
+from ..specs import NotYetPorted, parse_comm, parse_solver, validate
 
 PyTree = Any
 
@@ -72,8 +75,8 @@ class DFWConfig:
     workers are the process group's ranks). ``gossip_rounds`` overrides a
     gossip graph's mixing rounds per exchange (None: sized from its
     spectral gap, ``comm.default_gossip_rounds``). Every field of the second
-    group belongs to a path not yet ported (block solvers, Pallas, resume,
-    telemetry) and must keep its default; anything else raises
+    group belongs to a path not yet ported (Pallas, resume, telemetry) and
+    must keep its default; anything else raises
     ``NotYetPorted`` when the config is built. The port has no
     ``kernelize`` switch: the run always goes through ``KernelizedTask``,
     whose ops pick the kernel or the plain version by the tensors' device.
@@ -140,6 +143,7 @@ class DFWFitResult:
     epochs_run: int = 0  # < num_epochs when gap_tol stopped the run
     stats: Dict[str, int] = dataclasses.field(default_factory=dict)
     comm_state: PyTree = ()  # this worker's reducer state at the end (top-k residuals)
+    probe: PyTree = ()  # the block solver's (m, k) warm start at the end; () for rank1
 
 
 # ---------------------------------------------------------------------------
@@ -152,7 +156,10 @@ class KernelizedTask:
     iteration (paper Alg. 2 lines 5-10) through the kernels:
     ``power_matvec`` for the dense-state tasks, ``mc_matvec`` for the
     observed-entry (COO) completion gradient, along the state's row order
-    (G v) and column order (G^T u). The logistic softmax P, ``P @ v``,
+    (G v) and column order (G^T u). A 2-D operand, the block solver's (m, k)
+    or (d, k) block, goes to the block forms: ``matmat``/``rmatmat`` and
+    ``coo_matmat``, each reading its matrix once (the reference vmaps the
+    vector kernels over the k columns). The logistic softmax P, ``P @ v``,
     ``P^T @ t`` and the label scatter stay plain PyTorch, as they stay plain
     XLA in the JAX package. Everything else is delegated to the base task."""
 
@@ -163,24 +170,33 @@ class KernelizedTask:
         return getattr(self._base, name)
 
     def matvec(self, s, v: torch.Tensor) -> torch.Tensor:
+        mv, rmv, coo = _routes(v)
         if isinstance(s, tasks.MTLSState):  # A = X^T R
-            return pm_ops.rmatvec(s.x, pm_ops.matvec(s.r, v))
+            return rmv(s.x, mv(s.r, v))
         if isinstance(s, tasks.LogisticState):  # A = X^T (P - H)
             pv = self._base._probs(s) @ v - v[s.y]
-            return pm_ops.rmatvec(s.x, pv)
+            return rmv(s.x, pv)
         if isinstance(s, tasks.MCState):  # A = P_Omega(W - M), COO values resid
-            return mc_ops.coo_matvec(s.by_row, s.resid_by_row, v)
+            return coo(s.by_row, s.resid_by_row, v)
         return self._base.matvec(s, v)
 
     def rmatvec(self, s, u: torch.Tensor) -> torch.Tensor:
+        mv, rmv, coo = _routes(u)
         if isinstance(s, tasks.MTLSState):
-            return pm_ops.rmatvec(s.r, pm_ops.matvec(s.x, u))
+            return rmv(s.r, mv(s.x, u))
         if isinstance(s, tasks.LogisticState):
-            t = pm_ops.matvec(s.x, u)
+            t = mv(s.x, u)
             return self._base._probs(s).T @ t - self._base._label_sum(s, t)
         if isinstance(s, tasks.MCState):
-            return mc_ops.coo_matvec(s.by_col, s.resid_by_col, u)
+            return coo(s.by_col, s.resid_by_col, u)
         return self._base.rmatvec(s, u)
+
+
+def _routes(x: torch.Tensor):
+    """(A x, A^T x, COO) kernel wrappers for a vector or a block operand."""
+    if x.dim() == 1:
+        return pm_ops.matvec, pm_ops.rmatvec, mc_ops.coo_matvec
+    return pm_ops.matmat, pm_ops.rmatmat, mc_ops.coo_matmat
 
 
 def kernelize(task):
@@ -191,23 +207,28 @@ def kernelize(task):
 
 
 def verify_kernelized(task, ktask: KernelizedTask, state: PyTree, seed: int = 0,
-                      *, tol: float = 1e-4) -> float:
+                      *, tol: float = 1e-4, k: Optional[int] = None) -> float:
     """Raise ``AssertionError`` unless the kernel-routed matvec/rmatvec match
     the base task's plain operator chain on random unit probes (max error
-    relative to max |reference|). Returns the largest relative error."""
+    relative to max |reference|); with ``k`` (a block solver's width) also
+    on random (m, k) and (d, k) blocks, through the block forms. Returns the
+    largest relative error."""
     device = next(t for t in state if isinstance(t, torch.Tensor)).device
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    v = sphere_vector(gen, task.m, device)
-    u = sphere_vector(gen, task.d, device)
+    probes = [(sphere_vector(gen, task.m, device), sphere_vector(gen, task.d, device))]
+    if k is not None:
+        probes.append(tuple(torch.randn((dim, k), generator=gen, device=device)
+                            for dim in (task.m, task.d)))
 
     def rel_err(a, b):
         return torch.max(torch.abs(a - b)) / (torch.max(torch.abs(b)) + 1e-30)
 
-    err = float(torch.maximum(
-        rel_err(ktask.matvec(state, v), task.matvec(state, v)),
-        rel_err(ktask.rmatvec(state, u), task.rmatvec(state, u)),
-    ))
+    err = float(torch.max(torch.stack([
+        rel_err(got(state, x), want(state, x))
+        for v, u in probes
+        for got, want, x in ((ktask.matvec, task.matvec, v), (ktask.rmatvec, task.rmatvec, u))
+    ])))
     if not err <= tol:
         raise AssertionError(
             f"kernelized matvec diverges from the plain operator chain: rel err "
@@ -384,7 +405,7 @@ def _as_tensor(a, device: torch.device) -> torch.Tensor:
 
 
 def _run(task, x, y, *, cfg: DFWConfig, key, noise, callback, dev, group, masks, checkpointer,
-         num_workers: int) -> DFWFitResult:
+         num_workers: int, probe=None) -> DFWFitResult:
     """The run both drivers share, on this worker's rows ``x``, ``y``.
 
     The graph comes from ``make_topology`` (with a group, every worker
@@ -395,9 +416,12 @@ def _run(task, x, y, *, cfg: DFWConfig, key, noise, callback, dev, group, masks,
                          rounds=cfg.gossip_rounds, group=group)
     reducer = topo.reducer
     comm_obj = reducer if cfg.topology == "flat" else topo
+    sspec = parse_solver(cfg.solver)
+    k_block = sspec.k if sspec.kind == "block" else None
     if cfg.verify_kernels:
         rows = min(x.shape[0], 64)
-        verify_kernelized(task, ktask, task.init_state(x[:rows], y[:rows]), seed=0x5EED)
+        verify_kernelized(task, ktask, task.init_state(x[:rows], y[:rows]), seed=0x5EED,
+                          k=k_block)
         if isinstance(reducer, Int8Reducer):  # at the budget of the hop it encodes
             verify_quantize_kernels(num_workers=reducer.num_workers, device=dev)
     state = ktask.init_state(x, y)
@@ -412,7 +436,7 @@ def _run(task, x, y, *, cfg: DFWConfig, key, noise, callback, dev, group, masks,
         step_size=cfg.step_size,
         callback=callback,
         reducer=comm_obj,
-        max_rank=engine.resolve_max_rank(cfg.max_rank, cfg.num_epochs),
+        max_rank=engine.resolve_max_rank(cfg.max_rank, cfg.num_epochs, k_block or 1),
         gap_tol=cfg.gap_tol,
         block_epochs=cfg.block_epochs,
         solver=cfg.solver,
@@ -421,6 +445,7 @@ def _run(task, x, y, *, cfg: DFWConfig, key, noise, callback, dev, group, masks,
         device=dev,
         group=group,
         masks=masks,
+        probe=probe,
     )
     if checkpointer is not None:
         checkpointer.wait()
@@ -439,7 +464,7 @@ def _run(task, x, y, *, cfg: DFWConfig, key, noise, callback, dev, group, masks,
     return DFWFitResult(
         iterate=res.iterate, state=res.state, history=res.history, masks=res.masks,
         final_loss=res.final_loss, epochs_run=res.epochs_run, stats=res.stats,
-        comm_state=res.comm_state,
+        comm_state=res.comm_state, probe=res.probe,
     )
 
 
@@ -455,6 +480,7 @@ def fit(
     device: DeviceLike = None,
     masks=None,
     callback: Optional[Callable[[int, EpochAux], None]] = None,
+    probe=None,
 ) -> DFWFitResult:
     """Multi-worker DFW-Trace: this process's part of a run over ``group``
     (a ``comm.WorkerGroup``; None: one process), on ``device`` (CUDA unless
@@ -492,6 +518,12 @@ def fit(
     ``cfg.checkpoint_dir`` worker 0 writes the run's checkpoints with the
     whole state (gathered from the workers at each saved boundary), in the
     reference's layout.
+
+    ``cfg.solver`` "block:k[:adapt][:cold]" runs the block tier on flat and
+    hier graphs: every exchange carries the flattened (d k,) or (m k,)
+    block, and the (m, k) warm-start probe is replicated, the same on every
+    worker (``probe``: the start one, default ``frank_wolfe.init_probe``;
+    every worker must pass the same).
     """
     dev = resolve_device(device)
     workers, rank = (1, 0) if group is None else (group.size, group.rank)
@@ -518,7 +550,8 @@ def fit(
             cfg.checkpoint_every, cfg.num_epochs, workers,
         )
     return _run(task, x, y, cfg=cfg, key=key, noise=noise, callback=callback, dev=dev,
-                group=group, masks=table, checkpointer=checkpointer, num_workers=workers)
+                group=group, masks=table, checkpointer=checkpointer, num_workers=workers,
+                probe=probe)
 
 
 def fit_serial(
@@ -531,6 +564,7 @@ def fit_serial(
     noise: Optional[NoiseStream] = None,
     callback: Optional[Callable[[int, EpochAux], None]] = None,
     device: DeviceLike = None,
+    probe=None,
 ) -> DFWFitResult:
     """Single-worker DFW-Trace run on ``device`` (CUDA unless "cpu" is given).
 
@@ -547,10 +581,15 @@ def fit_serial(
     ``cfg.sample_prob`` < 1 is rejected, as in the reference: the straggler
     model samples workers, and a serial run has one.
 
+    ``cfg.solver`` "block:k[:adapt][:cold]" runs the block tier; ``probe``
+    is its (m, k) start probe (default ``frank_wolfe.init_probe``; the
+    parity tests hand in the reference's).
+
     The power method runs through the kernels, and with ``cfg.verify_kernels``
     that route is first held to the plain operator chain on the first 64
     rows (for matrix completion: the first 64 entries, with the full d and
-    m), and under int8 the quantize pair to its plain version. ``stats``
+    m), for the block solver also on random (m, k) and (d, k) blocks, and
+    under int8 the quantize pair to its plain version. ``stats``
     count the run itself (see ``core/engine.py``), not these set-up checks.
 
     With ``cfg.checkpoint_dir`` the run owns that directory: steps left there
@@ -569,7 +608,7 @@ def fit_serial(
     x, y = _as_tensor(x, dev), _as_tensor(y, dev)
     return _run(task, x, y, cfg=cfg, key=as_v0_stream(key), noise=noise, callback=callback,
                 dev=dev, group=None, masks=None, checkpointer=_make_checkpointer(task, cfg, cfg.comm),
-                num_workers=1)
+                num_workers=1, probe=probe)
 
 
 # ---------------------------------------------------------------------------

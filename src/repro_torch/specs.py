@@ -252,7 +252,7 @@ class NotYetPorted(NotImplementedError):
 
 
 #: What the port runs, per axis.
-PORTED = {"solver": ("rank1",), "comm": ("dense", "int8", "topk"),
+PORTED = {"solver": ("rank1", "block"), "comm": ("dense", "int8", "topk"),
           "topology": ("flat", "gossip", "hier")}
 
 

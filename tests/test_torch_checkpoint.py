@@ -33,7 +33,6 @@ from repro_torch import serve as pserve
 from repro_torch.checkpoint.store import CheckpointStore, read_leaves
 from repro_torch.core import frank_wolfe, low_rank, tasks
 from repro_torch.launch import dfw
-from repro_torch.specs import NotYetPorted
 
 torch.set_num_threads(2)
 
@@ -322,9 +321,12 @@ def test_jax_checkpoint_is_served_by_the_port(kind, data, tmp_path):
 
 
 def test_payload_refuses_unported_carry_parts():
-    """A block-solver probe is still refused. Reducer state is written since
-    top-k was ported (it was refused before): its residuals u, v follow the
-    iterate, in the reference's leaf order."""
+    """Every carry part is written now. Reducer state is written since top-k
+    was ported (it was refused before): its residuals u, v follow the
+    iterate, in the reference's leaf order. A block-solver probe is written
+    since the block tier was ported (it was refused before): the (m, k)
+    leaf ``carry/probe`` follows ``carry/key``, the carry's last field, as
+    in the reference's format 3; a rank1 carry has no probe leaf."""
     it = low_rank.init(2, D, M, device="cpu")
     state = tasks.MTLSState(*[torch.zeros(1, 1)] * 3)
     residuals = {"v": torch.arange(M, dtype=torch.float32), "u": torch.ones(D)}
@@ -334,8 +336,11 @@ def test_payload_refuses_unported_carry_parts():
     assert paths[paths.index("carry/iterate/v") + 1:paths.index("carry/t")] == [
         "carry/comm_state/u", "carry/comm_state/v"]
     assert leaves["carry/comm_state/v"] is residuals["v"]
-    with pytest.raises(NotYetPorted, match="probe"):
-        checkpoint.dfw.payload(carry._replace(probe=torch.zeros(M, 2)), {})
+    assert "carry/probe" not in leaves
+    probe = torch.zeros(M, 2)
+    paths = list(checkpoint.dfw.payload(carry._replace(probe=probe), {}))
+    assert paths[paths.index("carry/key") + 1] == "carry/probe"
+    assert checkpoint.dfw.payload(carry._replace(probe=probe), {})["carry/probe"] is probe
 
 
 # ---------------------------------------------------------------------------

@@ -249,19 +249,14 @@ def test_malformed_specs_fail_like_jax(bad):
     dict(comm="topk:8"), dict(topology="ring"), dict(topology="hier:2"),
 ])
 def test_valid_but_unported_specs_raise(spec):
-    """Valid in the reference. The block solvers still raise NotYetPorted;
-    top-k, ring and hier (ported in the slice that brought the graphs; they
-    raised here before) parse as in the reference and their config builds."""
+    """Valid in the reference, and ported: top-k, ring and hier (in the
+    slice that brought the graphs) and the block solvers (in the slice that
+    brought the block tier; each raised NotYetPorted here before) parse as
+    in the reference and their config builds."""
     want = jspecs.validate(**spec)  # valid in the reference
-    if "solver" not in spec:
-        assert [tuple(a) for a in specs.validate(**spec)] == [tuple(a) for a in want]
-        cfg = dfw.DFWConfig(mu=1.0, num_epochs=3, **spec)
-        assert all(getattr(cfg, k) == v for k, v in spec.items())
-        return
-    with pytest.raises(specs.NotYetPorted):
-        specs.validate(**spec)
-    with pytest.raises(specs.NotYetPorted):
-        dfw.DFWConfig(mu=1.0, num_epochs=3, **spec)
+    assert [tuple(a) for a in specs.validate(**spec)] == [tuple(a) for a in want]
+    cfg = dfw.DFWConfig(mu=1.0, num_epochs=3, **spec)
+    assert all(getattr(cfg, k) == v for k, v in spec.items())
 
 
 @pytest.mark.parametrize("field,value", [

@@ -758,3 +758,141 @@ def test_cuda_gossip_mixing_is_fixed_order(cuda):
     want, _ = topo.exchange(x, (), slot="u")
     torch.cuda.synchronize()
     assert torch.equal(a, b) and torch.equal(a.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# The block:k solver's kernel forms (tolerances as above: the block products
+# sum in another order than cuBLAS, the COO block form than index_add_'s
+# atomics; the rank-k update's k-term dot is one fmaf chain against the plain
+# version's cuBLAS product, so 1e-4 too; the block update_resid is spelled in
+# its plain version's order and must match it bit for bit)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m", [(300, 40), (65, 33), (37, 5), (1, 7), (5000, 1000),
+                                 (4099, 2048), (20000, 12), (9, 1001)])
+@pytest.mark.parametrize("k", [1, 3, 8, 17, 32, 33])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_cuda_matmat_rmatmat_match_plain(cuda, n, m, k, aligned):
+    """One launch a call of each; repeated calls give the same bits."""
+    a = torch.randn(n, m, device=cuda) if aligned else _misaligned((n, m), cuda)
+    v, u = torch.randn(m, k, device=cuda), torch.randn(n, k, device=cuda)
+    before = kernels.launches()
+    got = pm.matmat(a, v)
+    out = pm.rmatmat(a, u)
+    torch.cuda.synchronize()
+    _close(got.cpu(), pm.ref.matmat(a, v).cpu())
+    _close(out.cpu(), pm.ref.rmatmat(a, u).cpu())
+    assert kernels.launches()["matmat"] == before["matmat"] + 1
+    assert kernels.launches()["rmatmat"] == before["rmatmat"] + 1
+    assert torch.equal(pm.matmat(a, v), got)
+    assert torch.equal(pm.rmatmat(a, u), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m", [(300, 40), (37, 5), (5000, 1000), (333, 37), (129, 130)])
+@pytest.mark.parametrize("k", [1, 3, 17, 32, 33])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_cuda_rankk_update_matches_plain(cuda, n, m, k, aligned):
+    """Both forms, out of place and in place; the same bits on repeat."""
+    z = torch.randn(n, m, device=cuda) if aligned else _misaligned((n, m), cuda)
+    y0 = torch.randn(n, m, device=cuda)
+    p, q = torch.randn(n, k, device=cuda), torch.randn(m, k, device=cuda)
+    g = torch.tensor(0.3, device=cuda)
+    a, b, c = 1.0 - g, -g * 1.5, -g
+    scal2, scal3 = torch.stack([a, b]), torch.stack([a, b, c])
+    before = kernels.launches()
+    got = r1.rankk_update(z, p, q, a, b)
+    got_axpy = r1.rankk_update_axpy(z, y0, p, q, a, b, c)
+    torch.cuda.synchronize()
+    _close(got.cpu(), r1.ref.rankk_update(z, p, q, scal2).cpu())
+    _close(got_axpy.cpu(), r1.ref.rankk_update_axpy(z, y0, p, q, scal3).cpu())
+    assert kernels.launches()["rankk_update"] == before["rankk_update"] + 1
+    assert kernels.launches()["rankk_update_axpy"] == before["rankk_update_axpy"] + 1
+    assert torch.equal(r1.rankk_update(z, p, q, a, b), got)
+    zz = z.clone()
+    assert r1.rankk_update_axpy(zz, y0, p, q, a, b, c, out=zz) is zz
+    assert torch.equal(zz, got_axpy)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,m,p,heavy", [(40, 30, 600, 0), (1000, 300, 50000, 5000),
+                                         (20000, 17, 300000, 0), (3, 5000, 7, 0)])
+@pytest.mark.parametrize("k", [1, 3, 8, 32, 33])
+def test_cuda_coo_matmat_matches_plain(cuda, d, m, p, heavy, k):
+    """G V and G^T U on the sorted copies; the same bits on repeat."""
+    from repro_torch.kernels import mc_matvec as mc
+
+    rows, cols, vals = _coo(d, m, p, cuda, heavy=heavy)
+    v, u = torch.randn(m, k, device=cuda), torch.randn(d, k, device=cuda)
+    by_row, by_col = mc.build_order(rows, cols, d, m), mc.build_order(cols, rows, m, d)
+    vr, vc = mc.gather_sorted(by_row, vals), mc.gather_sorted(by_col, vals)
+    before = kernels.launches()["coo_matmat"]
+    gv, gu = mc.coo_matmat(by_row, vr, v), mc.coo_matmat(by_col, vc, u)
+    torch.cuda.synchronize()
+    assert kernels.launches()["coo_matmat"] == before + 2
+    _close(gv.cpu(), mc.ref.coo_matvec(rows, cols, vals, v, d).cpu())
+    _close(gu.cpu(), mc.ref.coo_matvec(cols, rows, vals, u, m).cpu())
+    assert torch.equal(mc.coo_matmat(by_row, vr, v), gv)
+    assert torch.equal(mc.coo_matmat(by_col, vc, u), gu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,m,p,heavy", [(40, 30, 600, 0), (1000, 300, 50000, 5000),
+                                         (20000, 17, 300001, 0), (3, 5000, 7, 0)])
+@pytest.mark.parametrize("k", [2, 3, 8, 32])
+def test_cuda_update_resid_block_is_the_chain_bit_for_bit(cuda, d, m, p, heavy, k):
+    """With (d, k) and (m, k) factors: the three outputs equal the plain
+    chain (the k-term dot in ascending j, then the step) and its gathers,
+    bit for bit; one launch, on the block route."""
+    from repro_torch.core import tasks
+    from repro_torch.kernels import mc_matvec as mc
+
+    rows, cols, vals = _coo(d, m, p, cuda, heavy=heavy)
+    weight = (torch.arange(rows.numel(), device=cuda) % 3 != 0).float()
+    resid = weight * torch.randn(rows.numel(), device=cuda)
+    state = tasks.mc_state(rows, cols, vals, resid, weight, d, m)
+    u, v = torch.randn(d, k, device=cuda), torch.randn(m, k, device=cuda)
+    gamma = 2.0 / (torch.full((), 5.0, device=cuda) + 2.0)
+    want = mc.ref.resid_step_dot(gamma, 1.75, resid, vals, weight,
+                                 mc.ref.entry_dot(u, v, rows, cols))
+    before = dict(mc.update_resid.route_launches)
+    got = tasks.MatrixCompletion(d, m).update(state, u, v, gamma, 1.75)
+    torch.cuda.synchronize()
+    assert mc.update_resid.route_launches["block"] == before["block"] + 1
+    assert torch.equal(got.resid, want)
+    assert torch.equal(got.resid_by_row, mc.gather_sorted(state.by_row, want))
+    assert torch.equal(got.resid_by_col, mc.gather_sorted(state.by_col, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,m,p,heavy", [(40, 30, 600, 0), (1000, 300, 50000, 5000),
+                                         (20000, 17, 300001, 0), (3, 5000, 7, 0)])
+@pytest.mark.parametrize("k", [1, 3, 8, 32])
+def test_cuda_update_resid_caller_is_the_block_launch_s_caller_order(cuda, d, m, p, heavy, k):
+    """The caller order alone (the block line search's values at gamma = 1):
+    the plain chain's bits and the three-order launch's caller-order bits;
+    one launch of its own, none on update_resid."""
+    from repro_torch.core import tasks
+    from repro_torch.kernels import mc_matvec as mc
+
+    rows, cols, vals = _coo(d, m, p, cuda, heavy=heavy)
+    weight = (torch.arange(rows.numel(), device=cuda) % 3 != 0).float()
+    resid = weight * torch.randn(rows.numel(), device=cuda)
+    state = tasks.mc_state(rows, cols, vals, resid, weight, d, m)
+    u, v = torch.randn(d, k, device=cuda), torch.randn(m, k, device=cuda)
+    gamma = torch.ones((), device=cuda)
+    args = (gamma, 1.75, u, v, rows, cols, resid, vals, weight)
+    before = kernels.launches()
+    got = mc.update_resid_caller(*args)
+    torch.cuda.synchronize()
+    after = kernels.launches()
+    assert after["update_resid_caller"] == before["update_resid_caller"] + 1
+    assert after["update_resid"] == before["update_resid"]
+    assert torch.equal(got, mc.ref.update_resid_caller(*args))
+    if k > 1:  # a (d, 1) factor is a vector to update_resid
+        assert torch.equal(got, mc.update_resid(*args, state.by_row, state.copies("row"),
+                                                state.by_col, state.copies("col"))[0])
+    assert torch.equal(mc.update_resid_caller(*args), got)
+
