@@ -183,9 +183,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    and X at n = 1,281,167, ``rankk_update`` and ``rankk_update_axpy`` on R
    (and Y), ``coo_matmat`` (G V, G^T U) and the block ``update_resid`` at the
    Netflix shapes, each against its bound, its plain version and one PyTorch
-   call (``A @ V``, ``addmm``, cuSPARSE's CSR SpMM), its bits repeated; the
-   block ``update_resid`` and its caller order alone (``update_resid_caller``,
-   the line search's) bit for bit; tiny odd shapes at k = 1, 3, 17, 33.
+   call (``A @ V``, ``addmm``, cuSPARSE's CSR SpMM; ``matmat``/``rmatmat``
+   and ``A @ V`` timed in turns, kernel, call, call, kernel), its bits
+   repeated; the block ``update_resid`` and its caller order alone
+   (``update_resid_caller``, the line search's) bit for bit; tiny odd shapes
+   at k = 1, 3, 17, 33.
    (b) Full-width fits: least squares ``block:32:adapt`` const:8 with the
    line search (10 epochs), logistic regression ``block:8`` (3 epochs),
    matrix completion ``block:8:adapt`` const:4, dense (10 epochs) and int8
@@ -645,7 +647,7 @@ PORT_KERNELS = ("matvec_kernel", "rmatvec_partial_kernel", "rmatvec_finish_kerne
                 "pack_records_kernel", "gather_records_kernel", "update_resid_kernel",
                 "quantize_kernel", "dequantize_kernel", "factor_matvec_kernel",
                 # the block:k solver's forms
-                "matmat_kernel", "rmatmat_partial_kernel", "rmatmat_finish_kernel",
+                "ring_matmat_kernel", "rmatmat_finish_kernel",
                 "rankk_kernel", "piece_sum_block_kernel", "segment_sum_block_kernel",
                 "update_resid_block_kernel")
 RECORD_KERNELS = ("pack_records_kernel", "gather_records_kernel")  # the state build's copies
@@ -2976,10 +2978,12 @@ TABLE1_EACH = 4.5
 
 
 def block_row(torch, name, label, shape, kfn, pfn, lfn, nbytes, nflops, peaks, reps,
-              plain_reps=None, exact=False, main=False):
+              plain_reps=None, exact=False, main=False, in_turns=False):
     """One block form against its plain version at one shape: the error (or
     the bits), the bits on repeat, and the times of kernel, plain version and
-    library call beside the bound."""
+    library call beside the bound. ``in_turns``: kernel and library call are
+    timed kernel, call, call, kernel (as phase 2 times matvec against
+    torch.mv), ms and library_ms the means of the two rounds."""
     bw, flops = peaks[:2]
     got = kfn()
     torch.cuda.synchronize()
@@ -3000,14 +3004,23 @@ def block_row(torch, name, label, shape, kfn, pfn, lfn, nbytes, nflops, peaks, r
     del got, want, again
     row = dict(name=name, operand=label, shape=list(shape), max_abs_err=err_abs,
                max_rel_err=err_rel, ms=time_ms(torch, kfn, reps),
-               plain_ms=time_ms(torch, pfn, plain_reps or reps),
                library_ms=time_ms(torch, lfn, reps) if lfn is not None else None,
                bound_ms=1e3 * max(nbytes / bw, nflops / flops),
                bound_by="bytes" if nbytes / bw >= nflops / flops else "operations",
                bytes=nbytes, main=main)
+    if in_turns:
+        lib2, ms2 = time_ms(torch, lfn, reps), time_ms(torch, kfn, reps)
+        row.update(ms_rounds=[row["ms"], ms2], library_ms_rounds=[row["library_ms"], lib2],
+                   ms=(row["ms"] + ms2) / 2, library_ms=(row["library_ms"] + lib2) / 2)
+        row["library_ratio"] = row["ms"] / row["library_ms"]
+    row["plain_ms"] = time_ms(torch, pfn, plain_reps or reps)
     print(f"kernel {name:18s} {label}: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "
           f"library {row['library_ms']}, bound {row['bound_ms']:.3f} by {row['bound_by']}) "
           f"rel err {err_rel:.2e}, bits repeat")
+    if in_turns:
+        print(f"  in turns: {name} {row['ms_rounds']} ms against the library's "
+              f"{row['library_ms_rounds']}: {row['library_ratio']:.4f} of its time, "
+              f"{row['bound_ms'] / row['ms']:.3f} of the bound")
     return row
 
 
@@ -3030,11 +3043,11 @@ def block_dense_kernels(torch, pm, r1, dev, X, Y, gen, reps, peaks):
             rows.append(block_row(torch, "matmat", f"{label} k={k}", (n, m, k),
                                   lambda: pm.matmat(A, v), lambda: pm.ref.matmat(A, v),
                                   lambda: torch.matmul(A, v), nbytes, nflops, peaks, reps,
-                                  main=main))
+                                  main=main, in_turns=True))
             rows.append(block_row(torch, "rmatmat", f"{label} k={k}", (n, m, k),
                                   lambda: pm.rmatmat(A, u), lambda: pm.ref.rmatmat(A, u),
                                   lambda: torch.matmul(A.T, u), nbytes, nflops, peaks, reps,
-                                  main=main))
+                                  main=main, in_turns=True))
             del v, u
         n, m = R.shape
         p_, q_ = rn(n, k), rn(m, k)

@@ -1,4 +1,4 @@
-from .base import DenseReducer, WorkerGroup, make_reducer, pmax, psum
+from .base import DenseReducer, WorkerGroup, destroy_groups, make_reducer, pmax, psum
 from .int8 import Int8Reducer, verify_quantize_kernels
 from .topk import TopKReducer
 from .topology import (CONSENSUS_TARGET, FlatTopology, GossipTopology, HierTopology, Topology,
@@ -6,5 +6,5 @@ from .topology import (CONSENSUS_TARGET, FlatTopology, GossipTopology, HierTopol
 
 __all__ = ["CONSENSUS_TARGET", "DenseReducer", "FlatTopology", "GossipTopology", "HierTopology",
            "Int8Reducer", "TopKReducer", "Topology", "WorkerGroup",
-           "default_gossip_rounds", "gossip_lambda2", "make_reducer", "make_topology", "pmax",
-           "psum", "verify_quantize_kernels"]
+           "default_gossip_rounds", "destroy_groups", "gossip_lambda2", "make_reducer",
+           "make_topology", "pmax", "psum", "verify_quantize_kernels"]

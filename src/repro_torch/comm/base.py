@@ -58,7 +58,8 @@ class Tally:
 # Subgroups made in this process, by (world group, global ranks). torch names
 # a locally synchronised group by its ranks alone, so a second group of the
 # same ranks would meet the first one's rendezvous keys in the store and hang
-# or connect to stale peers: each rank set's group is made once a process.
+# or connect to stale peers: each rank set's group is made once a world
+# group, and released with it (destroy_groups).
 _SUBGROUPS: Dict[tuple, object] = {}
 
 
@@ -168,6 +169,31 @@ class WorkerGroup:
         if mine is None:
             raise ValueError(f"worker {self.rank} is in no part of {parts}")
         return WorkerGroup(mine, tally=self.tally)
+
+
+def destroy_groups() -> None:
+    """Tear ``torch.distributed`` down in this process: the subgroups that
+    :meth:`WorkerGroup.split` made, in the order they were made, then the
+    world group, and free their objects now. Left to the interpreter's exit,
+    the cached subgroups' gloo objects were freed in no fixed order after
+    the world group was gone, and now and then a worker aborted there
+    ("terminate called without an active exception") after its work was
+    done. Every worker calls it (an NCCL group may be shut down
+    collectively); a second call does nothing."""
+    import gc
+
+    import torch.distributed as dist
+
+    # new_group gives None (or NON_GROUP_MEMBER) to the workers outside a part
+    made = [pg for pg in _SUBGROUPS.values()
+            if pg is not None and pg is not dist.GroupMember.NON_GROUP_MEMBER]
+    _SUBGROUPS.clear()
+    for pg in made:
+        dist.destroy_process_group(pg)
+    del made
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    gc.collect()  # groups held in reference cycles go now, not at exit
 
 
 def psum(x: torch.Tensor, group: Optional[WorkerGroup] = None) -> torch.Tensor:

@@ -4,8 +4,9 @@ On first use, every ``.cu`` file under ``repro_torch/csrc`` is compiled by
 ``nvcc`` into a shared library with a plain C interface (one ``nvcc`` per
 source, all started together) and loaded with ``ctypes``. Libraries land in
 ``build/kernels/`` at the root of the checkout (listed in ``.gitignore``),
-named by a hash of the source and the flags, so an edited source is rebuilt
-and an unchanged one is reused. ``nvcc``'s own output, including the
+named by a hash of the source, the shared ``.cuh`` headers beside it and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused. ``nvcc``'s own output, including the
 ``-Xptxas=-v`` register and spill report, is kept beside each library as
 ``<name>.log``.
 
@@ -54,7 +55,10 @@ def nvcc_path() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    # the shared headers are hashed into every source's name: an edited
+    # header rebuilds whatever includes it
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 

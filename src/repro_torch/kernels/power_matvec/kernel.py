@@ -85,7 +85,7 @@ def matmat(a: torch.Tensor, v: torch.Tensor, out: torch.Tensor) -> None:
 def rmatmat(a: torch.Tensor, u: torch.Tensor, partial: torch.Tensor, out: torch.Tensor,
             rows_per_slab: int) -> None:
     """out (m, k) = a (n, m)^T @ u (n, k) via ``partial`` (ceil(n/rows_per_slab), m,
-    min(k, 32))."""
+    min(k, 32)); ``rows_per_slab`` is a multiple of 32."""
     lib = _library()
     n, m = a.shape
     stream = torch.cuda.current_stream(a.device).cuda_stream

@@ -5,11 +5,17 @@ float32 row-major matrices with f32 accumulation, returning 1-D vectors like
 the JAX package's ops. ``matmat(a, v)`` (A @ V, V (m, k)) and ``rmatmat(a,
 u)`` (A^T @ U, U (n, k)) are their block forms for the block:k solver, where
 the reference vmaps the vector ops over the k columns: each reads A once per
-32 columns. CPU tensors take the plain version (``ref.py``); CUDA
-tensors launch the hand-written kernel (``csrc/power_matvec.cu``) or raise.
+32 columns. ``rmatmat``'s partials are (slabs, m, min(k, 32)): its work
+items are (slab of rows, 256-column tile) pairs on one persistent block an
+SM, and the slab height makes the item count a multiple of the block count
+(``_rmatmat_rows_per_slab``). CPU tensors take the plain version
+(``ref.py``); CUDA tensors launch the hand-written kernel
+(``csrc/power_matvec.cu``) or raise.
 Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -21,14 +27,30 @@ from . import kernel, ref
 RMATVEC_ROWS_PER_SLAB = 2048
 _MAX_SLABS = 65535  # gridDim.y limit
 
-
-# rmatmat's slab: its partials are (slabs, m, min(k, 32)), 41 MB on X at k = 32.
-RMATMAT_ROWS_PER_SLAB = 8192
 MATMAT_GROUP = 32  # columns per pass over A
+# rmatmat's work items (csrc/power_matvec.cu): A columns a tile holds, rows a
+# ring stage holds (a slab is whole stages), and the most rows a slab holds.
+RMATMAT_TILE = 256
+RMATMAT_STAGE = 32
+RMATMAT_MAX_ROWS = 65536
 
 
-def _rows_per_slab(n: int, rows: int = RMATVEC_ROWS_PER_SLAB) -> int:
-    return max(rows, -(-n // _MAX_SLABS))
+def _rows_per_slab(n: int) -> int:
+    return max(RMATVEC_ROWS_PER_SLAB, -(-n // _MAX_SLABS))
+
+
+def _rmatmat_rows_per_slab(n: int, m: int, blocks: int) -> int:
+    """The slab height for rmatmat on ``blocks`` persistent blocks: the
+    fewest slabs of at most RMATMAT_MAX_ROWS rows whose count times the
+    column tiles is a multiple of ``blocks``, so that every block takes the
+    same number of items; rounded up to whole stages (which may drop a slab
+    at small n, where the items do not fill one round anyway). Fixed per
+    shape and card, so the slab sums' order is too."""
+    tiles = -(-m // RMATMAT_TILE)
+    unit = blocks // math.gcd(tiles, blocks)
+    slabs = unit * -(-n // (unit * RMATMAT_MAX_ROWS))
+    rows = -(-n // slabs)
+    return -(-rows // RMATMAT_STAGE) * RMATMAT_STAGE
 
 
 def _block(t: torch.Tensor, name: str, rows: int) -> torch.Tensor:
@@ -108,7 +130,8 @@ def rmatmat(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, k), dtype=torch.float32, device=a.device)
     if n == 0 or m == 0:
         return out.zero_()
-    rows = _rows_per_slab(n, RMATMAT_ROWS_PER_SLAB)
+    rows = _rmatmat_rows_per_slab(
+        n, m, torch.cuda.get_device_properties(a.device).multi_processor_count)
     partial = torch.empty((-(-n // rows), m, min(k, MATMAT_GROUP)), dtype=torch.float32,
                           device=a.device)
     kernel.rmatmat(a, u, partial, out, rows)

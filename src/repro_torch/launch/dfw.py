@@ -48,7 +48,8 @@ import torch
 
 from .. import DeviceLike, NoiseStream, _mix, as_v0_stream, resolve_device
 from ..checkpoint import dfw as ckpt
-from ..comm import Int8Reducer, WorkerGroup, make_topology, verify_quantize_kernels
+from ..comm import (Int8Reducer, WorkerGroup, destroy_groups, make_topology,
+                    verify_quantize_kernels)
 from ..core import engine, frank_wolfe, low_rank, tasks
 from ..core.frank_wolfe import EpochAux
 from ..core.power_method import sphere_vector
@@ -638,7 +639,7 @@ def _worker_main(rank: int, num_workers: int, tmp: str, backend: str, device_typ
         try:
             result = fn(WorkerGroup(), device, *args)
         finally:
-            dist.destroy_process_group()
+            destroy_groups()
         with open(os.path.join(tmp, f"result{rank}.pkl"), "wb") as f:
             pickle.dump(result, f)
     except BaseException as e:
@@ -666,8 +667,10 @@ def run_workers(num_workers: int, fn: Callable, *args, backend: str = "gloo",
     torch tensors among them are shared, CUDA tensors through CUDA IPC, so
     the workers can read one copy of a data set made by the caller. If a
     worker raises, the others are stopped and its exception is raised here,
-    with its traceback as a note; a worker waits at most 600 s in a
-    collective.
+    with its traceback as a note; if one dies on a signal, a RuntimeError
+    names its rank, the signal and whether its result had been written. A
+    worker waits at most 600 s in a collective. Each worker tears its groups
+    down (``comm.destroy_groups``) before it writes its result.
     """
     import torch.multiprocessing as mp
 
@@ -682,6 +685,14 @@ def run_workers(num_workers: int, fn: Callable, *args, backend: str = "gloo",
             mp.spawn(_worker_main, nprocs=num_workers, join=True,
                      args=(num_workers, tmp, backend, device_type, fn, args))
         except Exception as failure:
+            signal_name = getattr(failure, "signal_name", None)
+            if signal_name:  # a native death: no error file, no traceback
+                rank = failure.error_index
+                written = os.path.exists(os.path.join(tmp, f"result{rank}.pkl"))
+                raise RuntimeError(
+                    f"worker {rank} of {num_workers} died on {signal_name} "
+                    + ("after its result was written (in its teardown)" if written
+                       else "before its result was written")) from failure
             # The first worker to fail is the cause; the others then fail in
             # their collectives (a peer closed the connection).
             errors = sorted((os.stat(os.path.join(tmp, f"error{rank}.pkl")).st_mtime_ns, rank)

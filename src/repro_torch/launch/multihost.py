@@ -121,6 +121,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     import torch.distributed as dist
 
     from .. import resolve_device
+    from ..comm import destroy_groups
 
     if args.device is None:
         device = resolve_device(torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0"))))
@@ -138,7 +139,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         _dfw_main([a for a in args.rest if a != "--"], hosts=hosts, device=device)
     finally:
         if grouped:
-            dist.destroy_process_group()
+            destroy_groups()
 
 
 if __name__ == "__main__":

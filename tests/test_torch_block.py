@@ -346,6 +346,20 @@ def test_matmat_rmatmat_plain_match_the_vmapped_jax_kernels(n, m, k):
     _close(pm.rmatmat(ta, torch.from_numpy(u)), want_rmm)
 
 
+@pytest.mark.parametrize("n,m", [(1_281_167, 1000), (1_281_167, 2048), (320_291, 1000),
+                                 (5_000_000, 12), (8_193, 1000), (100, 33), (1, 7)])
+@pytest.mark.parametrize("blocks", [132, 114])
+def test_rmatmat_slabs_fill_whole_rounds(n, m, blocks):
+    """rmatmat's slabs are whole 32-row stages covering n, at most 65,536
+    rows; at the main path's sizes the (slab, column tile) items are a
+    multiple of the persistent blocks, so no block sits out a last round."""
+    rows = pm.ops._rmatmat_rows_per_slab(n, m, blocks)
+    slabs = -(-n // rows)
+    assert rows % 32 == 0 and rows <= 65_536 and (slabs - 1) * rows < n <= slabs * rows
+    if n >= 300_000:
+        assert slabs * -(-m // 256) % blocks == 0
+
+
 @pytest.mark.parametrize("k", [1, 4])
 def test_rankk_update_plain_matches_jax_block_update(k, data):
     """K2: ``rankk_update_axpy`` is the MTLS block update and

@@ -357,3 +357,54 @@ def test_noise_stream_per_worker():
     assert all(not torch.equal(d, base) for d in draws)
     assert not torch.equal(draws[0], draws[1]) and not torch.equal(draws[1], draws[2])
     assert torch.equal(NoiseStream(7, worker=1)(3, 1, "u", 50, "cpu"), draws[1])
+
+
+def _die(group, device, rank, at_exit):
+    """Worker ``rank`` aborts (SIGABRT): at once, or at its interpreter's
+    exit, after run_workers has torn its groups down and written its result."""
+    import atexit
+    import resource
+
+    if group.rank == rank:
+        resource.setrlimit(resource.RLIMIT_CORE, (0, 0))  # no core file
+        if at_exit:
+            atexit.register(os.abort)
+        else:
+            os.abort()
+    return group.rank
+
+
+@pytest.mark.parametrize("at_exit", [False, True])
+def test_run_workers_names_a_worker_that_died_on_a_signal(at_exit):
+    """A native death leaves no error file: the error names the worker, the
+    signal, and whether its result had been written."""
+    when = "after" if at_exit else "before"
+    with pytest.raises(RuntimeError,
+                       match=f"worker 1 of 2 died on SIGABRT {when} its result was written"):
+        dfw.run_workers(2, _die, 1, at_exit, device="cpu")
+
+
+def _hier_then_teardown(group, device, x, y):
+    """A hier:2 fit (two subgroup splits: intra and cross), then the
+    teardown run_workers does; returns the cache before and after."""
+    import torch.distributed as dist
+
+    from repro_torch.comm import base
+
+    dfw.fit(tasks.MultiTaskLeastSquares(D, M), x, y, cfg=dfw.DFWConfig(
+        mu=1.0, num_epochs=2, schedule="const:2", topology="hier:2"), key=0, group=group,
+        device=device)
+    made = sorted(key[1] for key in base._SUBGROUPS)
+    base.destroy_groups()
+    base.destroy_groups()  # a second call (run_workers' own) does nothing
+    return made, len(base._SUBGROUPS), dist.is_initialized()
+
+
+def test_subgroups_are_released_with_the_world_group():
+    """The subgroups a hier:2 run split off are destroyed and forgotten when
+    the worker tears its groups down, not left to the interpreter's exit."""
+    data = _data()
+    got = dfw.run_workers(NW, _hier_then_teardown, data["x"], data["y"], device="cpu")
+    for made, left, initialized in got:
+        assert made == [(0, 1), (0, 2), (1, 3), (2, 3)]
+        assert left == 0 and not initialized

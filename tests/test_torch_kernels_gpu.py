@@ -771,11 +771,18 @@ def test_cuda_gossip_mixing_is_fixed_order(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,m", [(300, 40), (65, 33), (37, 5), (1, 7), (5000, 1000),
-                                 (4099, 2048), (20000, 12), (9, 1001)])
-@pytest.mark.parametrize("k", [1, 3, 8, 17, 32, 33])
+                                 (4099, 2048), (20000, 12), (9, 1001), (100, 1000),
+                                 (8193, 1000), (8193, 1001), (20000, 2048), (100, 33)])
+@pytest.mark.parametrize("k", [1, 3, 7, 8, 9, 16, 17, 31, 32, 33, 64])
 @pytest.mark.parametrize("aligned", [True, False])
 def test_cuda_matmat_rmatmat_match_plain(cuda, n, m, k, aligned):
-    """One launch a call of each; repeated calls give the same bits."""
+    """One launch a call of each; repeated calls give the same bits. The
+    edges of the ring design: n below one 256-row tile (100), one row past
+    a slab (8193 with m <= 1024 is 32 slabs of 256 rows and one of 1 on a
+    132-SM card), more (slab, tile) items than one round of the persistent
+    grid (20000 x 2048: 264), m not a multiple of the 32-wide stage (1000,
+    1001, 33), k across the 8-, 16- and 32-column groups and past them
+    (64: two passes), the misaligned (cp.async) route."""
     a = torch.randn(n, m, device=cuda) if aligned else _misaligned((n, m), cuda)
     v, u = torch.randn(m, k, device=cuda), torch.randn(n, k, device=cuda)
     before = kernels.launches()

@@ -93,8 +93,8 @@ def main() -> int:
     so = src.with_suffix(".so")
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     src.write_text(instrumented((_build.CSRC / "factor_matvec.cu").read_text()))
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(src)], check=True,
-                   capture_output=True)
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(so),
+                    str(src)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(so))
     P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.fm_factor_matvec_f32.argtypes = [P] * 5 + [I64] * 4 + [I, I, I64, I64, I, I, I, P, P, I]
