@@ -186,8 +186,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
    call (``A @ V``, ``addmm``, cuSPARSE's CSR SpMM; ``matmat``/``rmatmat``
    and ``A @ V`` timed in turns, kernel, call, call, kernel), its bits
    repeated; the block ``update_resid`` and its caller order alone
-   (``update_resid_caller``, the line search's) bit for bit; tiny odd shapes
-   at k = 1, 3, 17, 33.
+   (``update_resid_caller``, the line search's) bit for bit; ``coo_matmat``
+   bit for bit to ``ref.coo_matmat_chain`` (its association); the MC forms'
+   gather floors (``tools/torch_gather_probe.py``'s rate of random 32-byte
+   sectors, measured in the run, plus the sequential bytes); tiny odd shapes
+   at k = 1, 3, 17, 33, the MC forms' X and factors also 4 bytes off
+   16-byte alignment.
    (b) Full-width fits: least squares ``block:32:adapt`` const:8 with the
    line search (10 epochs), logistic regression ``block:8`` (3 epochs),
    matrix completion ``block:8:adapt`` const:4, dense (10 epochs) and int8
@@ -2978,12 +2982,14 @@ TABLE1_EACH = 4.5
 
 
 def block_row(torch, name, label, shape, kfn, pfn, lfn, nbytes, nflops, peaks, reps,
-              plain_reps=None, exact=False, main=False, in_turns=False):
+              plain_reps=None, exact=False, main=False, in_turns=False, floor_ms=None):
     """One block form against its plain version at one shape: the error (or
     the bits), the bits on repeat, and the times of kernel, plain version and
     library call beside the bound. ``in_turns``: kernel and library call are
     timed kernel, call, call, kernel (as phase 2 times matvec against
-    torch.mv), ms and library_ms the means of the two rounds."""
+    torch.mv), ms and library_ms the means of the two rounds. ``floor_ms``:
+    the gather floor (random sectors at the rate measured in this run, plus
+    the sequential bytes), printed and kept beside the bound."""
     bw, flops = peaks[:2]
     got = kfn()
     torch.cuda.synchronize()
@@ -3008,6 +3014,8 @@ def block_row(torch, name, label, shape, kfn, pfn, lfn, nbytes, nflops, peaks, r
                bound_ms=1e3 * max(nbytes / bw, nflops / flops),
                bound_by="bytes" if nbytes / bw >= nflops / flops else "operations",
                bytes=nbytes, main=main)
+    if floor_ms is not None:
+        row["gather_floor_ms"] = floor_ms
     if in_turns:
         lib2, ms2 = time_ms(torch, lfn, reps), time_ms(torch, kfn, reps)
         row.update(ms_rounds=[row["ms"], ms2], library_ms_rounds=[row["library_ms"], lib2],
@@ -3017,6 +3025,9 @@ def block_row(torch, name, label, shape, kfn, pfn, lfn, nbytes, nflops, peaks, r
     print(f"kernel {name:18s} {label}: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "
           f"library {row['library_ms']}, bound {row['bound_ms']:.3f} by {row['bound_by']}) "
           f"rel err {err_rel:.2e}, bits repeat")
+    if floor_ms is not None:
+        print(f"  gather floor {floor_ms:.3f} ms: the kernel at {floor_ms / row['ms']:.3f} of it, "
+              f"{row['bound_ms'] / row['ms']:.3f} of the bound")
     if in_turns:
         print(f"  in turns: {name} {row['ms_rounds']} ms against the library's "
               f"{row['library_ms_rounds']}: {row['library_ratio']:.4f} of its time, "
@@ -3070,17 +3081,48 @@ def block_dense_kernels(torch, pm, r1, dev, X, Y, gen, reps, peaks):
     return rows
 
 
+def gather_rates(torch, dev):
+    """The card's rate of random 32-byte sectors from tables the size of the
+    block forms' (``tools/torch_gather_probe.py``, built and run here)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    try:
+        import torch_gather_probe
+    finally:
+        sys.path.pop(0)
+    rates = torch_gather_probe.measure(torch, dev)
+    for (width, table), r in rates.items():
+        print(f"random {4 * width}-byte rows from {table} ({r['bytes'] / 1e6:.2f} MB): "
+              + ", ".join(f"{lpr} lanes a row {ms:.3f} ms, {rate / 1e9:.1f} G sectors/s"
+                          for lpr, (ms, rate) in r["lanes"].items()))
+    return rates, torch_gather_probe.floor_ms
+
+
 def block_mc_kernels(torch, mc, dev, state, mu, gen, reps, peaks):
     """(a) coo_matmat (G V in the row order, G^T U in the column order) and
     the block update_resid at the Netflix shapes, k = 8 and 32; cuSPARSE's
-    CSR SpMM as the library call (its CSR tensor is set-up, not timed)."""
+    CSR SpMM as the library call (its CSR tensor is set-up, not timed);
+    coo_matmat's bits held to ref.coo_matmat_chain's association; each
+    kernel's gather floor beside its bound: its random factor rows (one
+    32-byte sector an entry and side at k = 8, four at k = 32) at the rate
+    measured here, plus its sequential bytes over the memory rate."""
     rows = []
     p = state.rows.numel()
+    rates, floor_of = gather_rates(torch, dev)
+
+    def floor(k, sectors, nbytes):
+        per_row = 4 * k // 32
+        return floor_of(rates, 8 if k <= 8 else 32, {t: n * per_row for t, n in sectors.items()},
+                        nbytes, peaks[0])
+
     for k in BLOCK_KS:
         V = torch.randn(NF_M, k, generator=gen, device=dev)
         U = torch.randn(NF_D, k, generator=gen, device=dev) / math.sqrt(NF_D)
-        for label, order, vals, x in (("G V", state.by_row, state.resid_by_row, V),
-                                      ("G^T U", state.by_col, state.resid_by_col, U)):
+        for label, order, vals, x, table in (
+                ("G V", state.by_row, state.resid_by_row, V, "V"),
+                ("G^T U", state.by_col, state.resid_by_col, U, "U")):
+            check(torch.equal(mc.coo_matmat(order, vals, x),
+                              mc.ref.coo_matmat_chain(order, vals, x)),
+                  f"coo_matmat {label} k={k}: not the bits of its association")
             csr = torch.sparse_csr_tensor(order.seg_ptr.to(torch.int32), order.gat_sorted,
                                           vals, size=(order.out_dim, order.in_dim))
             nbytes = 8 * p + 4 * k * (order.in_dim + order.out_dim)
@@ -3088,24 +3130,27 @@ def block_mc_kernels(torch, mc, dev, state, mu, gen, reps, peaks):
                 torch, "coo_matmat", f"{label} k={k}", (order.out_dim, order.in_dim, p, k),
                 lambda: mc.coo_matmat(order, vals, x),
                 lambda: mc.ref.coo_matvec_sorted(order, vals, x),
-                lambda: csr @ x, nbytes, 2 * p * k, peaks, reps, plain_reps=2, main=k == 8))
+                lambda: csr @ x, nbytes, 2 * p * k, peaks, reps, plain_reps=2, main=k == 8,
+                floor_ms=floor(k, {table: p}, nbytes)))
             del csr
         gamma = torch.full((), 0.05, device=dev)
         args = (gamma, mu, U, V, state.rows, state.cols, state.resid, state.vals, state.weight,
                 state.by_row, state.copies("row"), state.by_col, state.copies("col"))
+        nbytes = 64 * p + 4 * k * (NF_D + NF_M)
         rows.append(block_row(
             torch, "update_resid_block", f"p={p}, k={k}, three orders", (NF_D, NF_M, p, k),
             lambda: mc.update_resid(*args), lambda: mc.ref.update_resid(*args), None,
-            64 * p + 4 * k * (NF_D + NF_M), 3 * p * (2 * k + 6), peaks, reps, plain_reps=1,
-            exact=True, main=k == 8))
+            nbytes, 3 * p * (2 * k + 6), peaks, reps, plain_reps=1, exact=True, main=k == 8,
+            floor_ms=floor(k, {"U": 2 * p, "V": 2 * p}, nbytes)))
         ones = torch.ones((), device=dev)
         args = (ones, mu, U, V, state.rows, state.cols, state.resid, state.vals, state.weight)
+        nbytes = 24 * p + 4 * k * (NF_D + NF_M)
         rows.append(block_row(
             torch, "update_resid_caller", f"p={p}, k={k}, caller order, gamma = 1",
             (NF_D, NF_M, p, k), lambda: mc.update_resid_caller(*args),
             lambda: mc.ref.update_resid_caller(*args), None,
-            24 * p + 4 * k * (NF_D + NF_M), p * (2 * k + 6), peaks, reps, plain_reps=1,
-            exact=True, main=k == 8))
+            nbytes, p * (2 * k + 6), peaks, reps, plain_reps=1, exact=True, main=k == 8,
+            floor_ms=floor(k, {"U": p, "V": p}, nbytes)))
         del U, V, args
         torch.cuda.empty_cache()
     return rows
@@ -3139,27 +3184,36 @@ def block_odd_shapes(torch, pm, r1, mc, dev, gen):
                          r1.ref.rankk_update_axpy(A, Y0, u, q, scal))):
                     err = rel_err(torch, got, want)[1]
                     check(err <= TOL[name], f"{name} at {n}x{m}, k={k}: rel err {err:.3e}")
-        xv, xu = rn(77, k), rn(301, k)
-        for label, got, want in (
-                ("G V", mc.coo_matmat(by_row, vr, xv), mc.ref.coo_matvec(rows_, cols_, vals,
-                                                                         xv, 301)),
-                ("G^T U", mc.coo_matmat(by_col, vc, xu), mc.ref.coo_matvec(cols_, rows_, vals,
-                                                                           xu, 77))):
-            err = rel_err(torch, got, want)[1]
-            check(err <= TOL["coo_matmat"], f"coo_matmat {label} k={k}: rel err {err:.3e}")
-        if k > 1:
-            weight = (torch.arange(5003, device=dev) % 3 != 0).float()
-            resid = weight * rn(5003)
-            args = (torch.full((), 0.2, device=dev), 1.5, xu, xv, rows_, cols_, resid, vals,
-                    weight, by_row, (resid[by_row.perm.long()], vr, weight[by_row.perm.long()]),
-                    by_col, (resid[by_col.perm.long()], vc, weight[by_col.perm.long()]))
-            check(all(torch.equal(a_, b_) for a_, b_ in zip(mc.update_resid(*args),
-                                                            mc.ref.update_resid(*args))),
-                  f"update_resid block k={k}: not the plain chain's bits")
-            check(torch.equal(mc.update_resid_caller(*args[:9]), mc.update_resid(*args)[0]),
-                  f"update_resid_caller k={k}: not update_resid's caller-order bits")
+        # X and the factors 16-byte aligned, then 4 bytes off (the scalar paths)
+        for off in (0, 1):
+            xv, xu = rn(77 * k + off)[off:].view(77, k), rn(301 * k + off)[off:].view(301, k)
+            where = f"k={k}" + (", 4 bytes off alignment" if off else "")
+            for label, got, want in (
+                    ("G V", mc.coo_matmat(by_row, vr, xv), mc.ref.coo_matvec(rows_, cols_, vals,
+                                                                             xv, 301)),
+                    ("G^T U", mc.coo_matmat(by_col, vc, xu), mc.ref.coo_matvec(
+                        cols_, rows_, vals, xu, 77))):
+                err = rel_err(torch, got, want)[1]
+                check(err <= TOL["coo_matmat"], f"coo_matmat {label} {where}: rel err {err:.3e}")
+            check(torch.equal(mc.coo_matmat(by_row, vr, xv),
+                              mc.ref.coo_matmat_chain(by_row, vr, xv)),
+                  f"coo_matmat G V {where}: not the bits of its association")
+            if k > 1:
+                weight = (torch.arange(5003, device=dev) % 3 != 0).float()
+                resid = weight * rn(5003)
+                args = (torch.full((), 0.2, device=dev), 1.5, xu, xv, rows_, cols_, resid, vals,
+                        weight, by_row,
+                        (resid[by_row.perm.long()], vr, weight[by_row.perm.long()]), by_col,
+                        (resid[by_col.perm.long()], vc, weight[by_col.perm.long()]))
+                check(all(torch.equal(a_, b_) for a_, b_ in zip(mc.update_resid(*args),
+                                                                mc.ref.update_resid(*args))),
+                      f"update_resid block {where}: not the plain chain's bits")
+                check(torch.equal(mc.update_resid_caller(*args[:9]),
+                                  mc.update_resid(*args)[0]),
+                      f"update_resid_caller {where}: not update_resid's caller-order bits")
     torch.cuda.synchronize()
-    print("block forms match their plain versions at k = 1, 3, 17, 33 and odd shapes")
+    print("block forms match their plain versions at k = 1, 3, 17, 33 and odd shapes, "
+          "the MC forms also with X and the factors 4 bytes off alignment")
 
 
 def block_fit(torch, kernels, dfw, kind, task, x, y, cfg, seed, dev):
@@ -3415,12 +3469,17 @@ def block_phase(torch, np, kernels, dfw, comm, tasks, low_rank, NoiseStream, pm,
     krows += block_mc_kernels(torch, mc, dev, state, mu, gen, args.reps, peaks)
     del state
     torch.cuda.empty_cache()
+    mc_forms = ("coo_matmat", "update_resid", "update_resid_caller")
+    netflix = dict.fromkeys(mc_forms, 0)
     for comm_name, epochs in (("dense", 10), ("int8", 5)):
         res, launches, report[f"mc_{comm_name}"] = block_fit(
             torch, kernels, dfw, "mc", mc_task, idx, yw, dfw.DFWConfig(
                 mu=mu, num_epochs=epochs, schedule="const:4", step_size="linesearch",
                 solver="block:8:adapt", comm=comm_name, block_epochs=5), args.seed, dev)
         add(launches)
+        for f_ in mc_forms:  # update_resid: its block route
+            netflix[f_] += (report[f"mc_{comm_name}"]["block_route"] if f_ == "update_resid"
+                            else launches[f_])
         route_block += report[f"mc_{comm_name}"]["block_route"]
         loss = report[f"mc_{comm_name}"]["loss"]
         if comm_name == "dense":
@@ -3445,6 +3504,11 @@ def block_phase(torch, np, kernels, dfw, comm, tasks, low_rank, NoiseStream, pm,
     report["table1"], launches, routed = table1_cell(torch, kernels, dfw, tasks, dev, args.seed)
     add(launches)
     route_block += routed
+    table1 = {f_: routed if f_ == "update_resid" else launches[f_] for f_ in mc_forms}
+    report["mc_form_launches"] = dict(netflix=netflix, table1=table1)
+    print("MC block forms' launches (update_resid: its block route): the Netflix-shape fits "
+          + ", ".join(f"{f_} {n_}" for f_, n_ in netflix.items()) + "; the Table-1 cell "
+          + ", ".join(f"{f_} {n_}" for f_, n_ in table1.items()))
 
     for kind, rank1_ms in (("mtls", rank1_ms_of.get("mtls")), ("mc_dense", rank1_ms_of.get("mc"))):
         seg = report[kind]["segments"]
@@ -3840,7 +3904,8 @@ def main(argv=None) -> int:
             by_operand={r["operand"]: {k: r[k] for k in (
                 "shape", "ms", "plain_ms", "library_ms", "library_rel_err", "library_chain_ms",
                 "library_ratio", "exact_ms", "bound_ms", "bound_f32_cores_ms", "bound_by",
-                "max_rel_err", "device_ms", "random_floor_ms", "random_floor_with_passes_ms")
+                "max_rel_err", "device_ms", "random_floor_ms", "random_floor_with_passes_ms",
+                "gather_floor_ms")
                 if k in r}
                 for r in rows},
         ))

@@ -49,20 +49,51 @@
 //
 // Block forms for the block:k solver, on the same orders and pieces:
 // - coo_matmat: out[seg_e, :] += vals_e * X[gat_e, :] with X (in_dim, k)
-//   row-major (the reference vmaps coo_matvec over the k columns). A warp
-//   per piece with the lanes along k (32 columns a pass; k > 32 in groups of
-//   32): at k = 32 a gathered row is one 128-byte line. The lanes load 32
-//   entries' (gat, val) at once and pass them round by shuffles; each lane
-//   adds its column's products in the piece's order (rounded product, then
-//   the add), and one thread per (segment, column) adds the pieces' partials
-//   in order. Bound: bytes, 8 per entry as coo_matvec plus X and out once
-//   (Netflix shapes, k = 32: 0.80 GB + 63 MB); the gathers of X rows are
-//   what it pays: 2.3 MB of V stays in L2, 61 MB of U does not.
+//   row-major (the reference vmaps coo_matvec over the k columns); k > 32 in
+//   groups of 32 columns, one pass over the entries each.
+//   Association (fixed, no atomics): for each (piece, column) the rounded
+//   products added in the piece's sorted order from 0, then a segment's
+//   pieces added in order from 0 (ref.coo_matmat_chain gives its bits). Only
+//   the order of the adds fixes the bits, so the loads run ahead of them.
+//   Bound: bytes, 8 per entry (gat, val) plus X and out once, 0.245 ms at the
+//   Netflix shapes and k = 8. But each entry also gathers its X row, one
+//   random 32-byte L2 sector at k = 8 (V, 0.6 MB, and U, 15 MB, both stay in
+//   L2), 100 M sectors a call, and an H100 80GB HBM3 at 700 W serves about
+//   136-152 G random sectors a second (tools/torch_gather_probe.py): that
+//   gather is the floor.
+//   Design: a group of G lanes takes a piece, each lane V columns: V = 4 (one
+//   16-byte load of the row's slice) where k % 4 == 0 and X is 16-byte
+//   aligned, else V = 1; so at k = 8 two lanes a piece and sixteen pieces a
+//   warp, at k = 32 eight and four, and every lane works (a warp along k
+//   would idle 24 of its lanes at k = 8). A warp walks a run of pieces and
+//   each group takes the next one as soon as it finishes the last (a
+//   warp-wide ballot; no atomics), so a long user or movie does not idle the
+//   warp's other groups. A step takes 8 (at least G) entries of the piece:
+//   each lane loads its share of their (gat, val) pairs (16 bytes at a time
+//   where it takes 4 or more and both arrays are aligned: the step's window
+//   then starts on a multiple of 4), the group passes them round by
+//   shuffles, and every X-row load of the step is issued before its adds. A
+//   segment of one piece (almost every user: a mean of 209 ratings against a
+//   piece of 1024) is written by its piece; only segments of several pieces
+//   go through `partial` and stage 2.
 // - update_resid with block factors: the dot sum_j u[row, j] v[col, j] in
-//   place of u[row] v[col], in ascending j (rounded products, then adds),
-//   the same chain in all three orders, so each order has the caller
-//   order's bits. In the row order the warp's piece shares u's row, in the
-//   column order v's (read once a lane, from L1).
+//   place of u[row] v[col], in ascending j (the first product, then each
+//   rounded product added), then resid_step_dot's chain: the same chain in
+//   all three orders, so each order has the caller order's bits. Bound:
+//   bytes, 64 an entry in the three orders (24 in the caller order alone);
+//   the floor adds the random factor rows: at k = 8 four 32-byte sectors an
+//   entry over the three orders (u's and v's rows in the caller order, the
+//   other factor's row in each sorted order), two in the caller order
+//   alone. Design: the caller order takes four consecutive entries a
+//   thread (16-byte loads of rows, cols, resid, vals, weight and a 16-byte
+//   streaming store where aligned) and gathers both factor rows of all four
+//   a tile of 8 columns at a time (16-byte loads where k % 4 == 0 and the
+//   factors are aligned, else 4-byte), all of a tile's loads issued before
+//   its chains. A sorted order gives a warp a piece: the piece's segment row
+//   is read once into registers (k <= 32; past that a tile at a time, once
+//   a step), each lane takes four entries a step (positions 32 apart, so
+//   each warp load and store is 128 contiguous bytes) and gathers only the
+//   other factor's row.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -293,37 +324,162 @@ update_resid_kernel(const float* __restrict__ gamma, float mu, const int32_t* __
 // Block forms
 // ---------------------------------------------------------------------------
 
-// Stage 1 of coo_matmat: partial[piece, col0 + lane] = the piece's sum of
-// vals_e * x[gat_e, col0 + lane], lane < kc; x (in_dim, k), partial (pieces, k).
-__global__ void __launch_bounds__(kThreads)
-piece_sum_block_kernel(const int32_t* __restrict__ gat, const float* __restrict__ vals,
-                       const float* __restrict__ x, const int64_t* __restrict__ piece_start,
-                       const int64_t* __restrict__ piece_end, float* __restrict__ partial,
-                       int64_t num_pieces, int64_t k, int col0, int kc) {
-  const int lane = threadIdx.x % kWarp;
-  const int64_t piece =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (piece >= num_pieces) return;  // whole warp leaves together
-  const bool live = lane < kc;
-  const float* xc = x + col0 + lane;
-  const int64_t end = piece_end[piece];
-  float acc = 0.f;
-  for (int64_t base = piece_start[piece]; base < end; base += kWarp) {
-    const int64_t e = base + lane;
-    const int32_t ge = e < end ? __ldcs(gat + e) : 0;
-    const float ve = e < end ? __ldcs(vals + e) : 0.f;
-    const int count = static_cast<int>(end - base < kWarp ? end - base : kWarp);
-#pragma unroll 4
-    for (int i = 0; i < count; ++i) {
-      const int32_t gi = __shfl_sync(0xffffffffu, ge, i);
-      const float vi = __shfl_sync(0xffffffffu, ve, i);
-      if (live) acc = __fadd_rn(acc, __fmul_rn(vi, __ldg(xc + static_cast<int64_t>(gi) * k)));
-    }
-  }
-  if (live) partial[piece * k + col0 + lane] = acc;
+constexpr unsigned kFull = 0xffffffffu;
+// Warps resident on one H100 (132 SMs x 64), and the most pieces a warp walks.
+constexpr int64_t kResidentWarps = 132 * 64;
+constexpr int64_t kMaxPiecesPerWarp = 32;
+
+// coo_matmat's operands (see mc_coo_matmat_f32): the order's sorted gather
+// index and values, X (in_dim, k) row-major, the pieces, the (pieces, k)
+// scratch and the (out_dim, k) output.
+struct CooBlock {
+  const int32_t* gat;
+  const float* vals;
+  const float* x;
+  const int64_t* piece_start;
+  const int64_t* piece_end;
+  const int64_t* piece_seg;
+  const int64_t* piece_ptr;
+  float* partial;
+  float* out;
+  int64_t num_pieces;
+  int64_t k;
+};
+
+// V consecutive columns of a row: one 4-byte or one 16-byte access.
+__device__ __forceinline__ void load_cols(const float* p, float (&c)[1]) { c[0] = __ldg(p); }
+__device__ __forceinline__ void load_cols(const float* p, float (&c)[4]) {
+  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+  c[0] = t.x;
+  c[1] = t.y;
+  c[2] = t.z;
+  c[3] = t.w;
+}
+__device__ __forceinline__ void store_cols(float* p, const float (&c)[1]) { *p = c[0]; }
+__device__ __forceinline__ void store_cols(float* p, const float (&c)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(c[0], c[1], c[2], c[3]);
 }
 
-// Stage 2: out[seg, col0 + c] = its pieces' partials added in order.
+// Stage 1 of coo_matmat, columns col0 .. col0 + kc: for each piece, its
+// entries' products vals_e * X[gat_e, c] added in sorted order from 0 (each
+// product rounded, then added). A group of G lanes takes one piece at a time,
+// lane s its V columns col0 + s V .. + V (live while s V < kc); a warp's
+// 32 / G groups walk the warp's `per_warp` pieces, each group taking the
+// next one as it finishes the last, so one long piece does not idle the
+// others. A step takes E = max(G, 8) entries of the group's piece: each lane
+// loads E / G of their (gat, val) pairs, the group passes them round by
+// shuffles, every X-row load of the step is issued before its adds. A piece
+// that is its segment's only one writes out (as stage 2 would: 0 + the sum);
+// the others write partial[piece].
+template <int G, int V>
+__global__ void __launch_bounds__(kThreads)
+piece_sum_block_kernel(CooBlock a, int col0, int kc, int per_warp, int quad) {
+  constexpr int kGroups = kWarp / G;
+  constexpr int E = G < 8 ? 8 : G;
+  constexpr int L = E / G;
+  // a lane's L entries as 16-byte loads of gat and vals (where `quad`: both
+  // 16-byte aligned), the step's window starting on a multiple of 4
+  constexpr bool kQuad = L % 4 == 0;
+  const int lane = threadIdx.x % kWarp;
+  const int sub = lane % G;
+  const int lead = lane - sub;
+  const int64_t first =
+      (static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp) * per_warp;
+  if (first >= a.num_pieces) return;  // whole warp leaves together
+  const int64_t last = first + per_warp < a.num_pieces ? first + per_warp : a.num_pieces;
+  const int64_t col = col0 + sub * V;
+  const bool live = sub * V < kc;
+  int64_t next = first + kGroups;
+  int64_t piece = first + lane / G;
+  // the piece's entries are start .. end; a step takes positions base .. base + E
+  int64_t start = 0, end = 0, base = 0;
+  if (piece < last) {
+    start = a.piece_start[piece];
+    end = a.piece_end[piece];
+    base = kQuad ? start & ~int64_t{3} : start;
+  } else {
+    piece = -1;
+  }
+  float acc[V];
+#pragma unroll
+  for (int c = 0; c < V; ++c) acc[c] = 0.f;
+  while (__any_sync(kFull, piece >= 0)) {
+    // lane sub holds positions base + sub L .. + L
+    int32_t gl[L];
+    float vl[L];
+    const int64_t e0 = base + sub * L;
+    if (kQuad && quad) {
+#pragma unroll
+      for (int q = 0; q < L; q += 4) {
+        const bool in = e0 + q < end;  // a quad past the piece is not read
+        const int4 g4 = in ? __ldcs(reinterpret_cast<const int4*>(a.gat + e0 + q))
+                           : make_int4(0, 0, 0, 0);
+        const float4 v4 = in ? __ldcs(reinterpret_cast<const float4*>(a.vals + e0 + q))
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+        gl[q] = g4.x, gl[q + 1] = g4.y, gl[q + 2] = g4.z, gl[q + 3] = g4.w;
+        vl[q] = v4.x, vl[q + 1] = v4.y, vl[q + 2] = v4.z, vl[q + 3] = v4.w;
+      }
+    } else {
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        const int64_t e = e0 + l;
+        const bool in = e >= start && e < end;
+        gl[l] = in ? __ldcs(a.gat + e) : 0;
+        vl[l] = in ? __ldcs(a.vals + e) : 0.f;
+      }
+    }
+    // window positions lo .. hi hold the piece's entries (hi <= lo for an idle group)
+    const int64_t lo64 = start - base, hi64 = end - base;
+    const int lo = lo64 > 0 ? static_cast<int>(lo64) : 0;
+    const int hi = hi64 < E ? static_cast<int>(hi64) : E;
+    float xv[E][V];
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const int32_t gi = G == 1 ? gl[i] : __shfl_sync(kFull, gl[i % L], i / L, G);
+      if (live && i >= lo && i < hi)
+        load_cols(a.x + static_cast<int64_t>(gi) * a.k + col, xv[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const float vi = G == 1 ? vl[i] : __shfl_sync(kFull, vl[i % L], i / L, G);
+      if (live && i >= lo && i < hi) {
+#pragma unroll
+        for (int c = 0; c < V; ++c) acc[c] = __fadd_rn(acc[c], __fmul_rn(vi, xv[i][c]));
+      }
+    }
+    base += E;
+    const bool done = piece >= 0 && base >= end;
+    if (done && live) {
+      const int64_t seg = a.piece_seg[piece];
+      if (a.piece_ptr[seg + 1] - a.piece_ptr[seg] == 1) {
+        float o[V];
+#pragma unroll
+        for (int c = 0; c < V; ++c) o[c] = __fadd_rn(0.f, acc[c]);
+        store_cols(a.out + seg * a.k + col, o);
+      } else {
+        store_cols(a.partial + piece * a.k + col, acc);
+      }
+    }
+    const unsigned fin = __ballot_sync(kFull, done && sub == 0);
+    if (done) {
+      piece = next + __popc(fin & ((1u << lead) - 1u));
+      if (piece < last) {
+        start = a.piece_start[piece];
+        end = a.piece_end[piece];
+        base = kQuad ? start & ~int64_t{3} : start;
+      } else {
+        piece = -1;
+        start = end = base = 0;
+      }
+#pragma unroll
+      for (int c = 0; c < V; ++c) acc[c] = 0.f;
+    }
+    next += __popc(fin);
+  }
+}
+
+// Stage 2: out[seg, col0 + c] = its pieces' partials added in order from 0
+// (0 for an empty segment); a segment of one piece was written by stage 1.
 __global__ void __launch_bounds__(kThreads)
 segment_sum_block_kernel(const float* __restrict__ partial, const int64_t* __restrict__ piece_ptr,
                          float* __restrict__ out, int64_t out_dim, int64_t k, int col0, int kc) {
@@ -331,41 +487,246 @@ segment_sum_block_kernel(const float* __restrict__ partial, const int64_t* __res
   if (i >= out_dim * kc) return;
   const int64_t seg = i / kc;
   const int64_t col = col0 + i % kc;
-  const int64_t end = piece_ptr[seg + 1];
+  const int64_t lo = piece_ptr[seg], end = piece_ptr[seg + 1];
+  if (end - lo == 1) return;
   float acc = 0.f;
-  for (int64_t j = piece_ptr[seg]; j < end; ++j) acc = __fadd_rn(acc, partial[j * k + col]);
+  for (int64_t j = lo; j < end; ++j) acc = __fadd_rn(acc, partial[j * k + col]);
   out[seg * k + col] = acc;
 }
 
-// sum_j a[j] b[j] for j < k in ascending order, each product rounded.
-__device__ __forceinline__ float entry_dot(const float* __restrict__ a,
-                                           const float* __restrict__ b, int64_t k) {
-  float dot = __fmul_rn(__ldg(a), __ldg(b));
-  for (int64_t j = 1; j < k; ++j) dot = __fadd_rn(dot, __fmul_rn(__ldg(a + j), __ldg(b + j)));
-  return dot;
+// Stage 1 with `group` lanes a piece (a power of 2), V columns a lane.
+template <int V>
+cudaError_t launch_piece_sum(int group, const CooBlock& a, int col0, int kc, int per_warp,
+                             int quad, unsigned blocks, cudaStream_t s) {
+  switch (group) {
+    case 1:
+      piece_sum_block_kernel<1, V><<<blocks, kThreads, 0, s>>>(a, col0, kc, per_warp, quad);
+      break;
+    case 2:
+      piece_sum_block_kernel<2, V><<<blocks, kThreads, 0, s>>>(a, col0, kc, per_warp, quad);
+      break;
+    case 4:
+      piece_sum_block_kernel<4, V><<<blocks, kThreads, 0, s>>>(a, col0, kc, per_warp, quad);
+      break;
+    case 8:
+      piece_sum_block_kernel<8, V><<<blocks, kThreads, 0, s>>>(a, col0, kc, per_warp, quad);
+      break;
+    default:  // 16-byte lanes take at most 8 lanes a piece
+      if constexpr (V == 1) {
+        if (group == 16)
+          piece_sum_block_kernel<16, V><<<blocks, kThreads, 0, s>>>(a, col0, kc, per_warp, quad);
+        else
+          piece_sum_block_kernel<32, V><<<blocks, kThreads, 0, s>>>(a, col0, kc, per_warp, quad);
+      }
+      break;
+  }
+  return cudaGetLastError();
 }
 
-// update_resid_kernel with (d, k) and (m, k) factors: caller order a thread an
-// entry, then the row and the column order a warp a piece.
+// The block update: entries a thread in the caller order (a multiple of 4),
+// entries a lane per step in a sorted order, and the factor columns loaded
+// at once (a tile).
+constexpr int kCallerBatch = 4;
+constexpr int kSortedBatch = 4;
+constexpr int kTile = 8;
+// A segment row of at most this many columns stays in registers.
+constexpr int kSegRegs = 32;
+
+// Columns j0 .. j0 + kTile of a factor row, zeros past k: 16-byte loads where
+// V (k % 4 == 0 and the factor 16-byte aligned), else 4-byte loads.
+template <bool V>
+__device__ __forceinline__ void load_tile(const float* __restrict__ row, int64_t j0, int64_t k,
+                                          float (&t)[kTile]) {
+  if (V) {
+    const float4 lo = __ldg(reinterpret_cast<const float4*>(row + j0));
+    const float4 hi = j0 + kTile <= k ? __ldg(reinterpret_cast<const float4*>(row + j0 + 4))
+                                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    t[0] = lo.x, t[1] = lo.y, t[2] = lo.z, t[3] = lo.w;
+    t[4] = hi.x, t[5] = hi.y, t[6] = hi.z, t[7] = hi.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kTile; ++j) t[j] = j0 + j < k ? __ldg(row + j0 + j) : 0.f;
+  }
+}
+
+// load_tile for an entry of a sorted order's step; zeros (no load) for a
+// position past the piece.
+template <bool V>
+__device__ __forceinline__ void load_gat_tile(bool in, const float* __restrict__ row, int64_t j0,
+                                              int64_t k, float (&t)[kTile]) {
+  if (in) {
+    load_tile<V>(row, j0, k, t);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kTile; ++j) t[j] = 0.f;
+  }
+}
+
+// dot = sum_j a[j] b[j] over one tile's columns j0 + j < k, continuing the
+// chain in ascending j: the first product is the start, each later one is
+// rounded and then added.
+__device__ __forceinline__ void dot_tile(const float (&a)[kTile], const float (&b)[kTile],
+                                         int64_t j0, int64_t k, float& dot) {
+#pragma unroll
+  for (int j = 0; j < kTile; ++j) {
+    if (j0 + j < k) {
+      const float p = __fmul_rn(a[j], b[j]);
+      dot = j0 + j == 0 ? p : __fadd_rn(dot, p);
+    }
+  }
+}
+
+// The caller order: kCallerBatch consecutive entries a thread (16-byte loads of
+// rows, cols, resid, vals, weight and a 16-byte streaming store where `vec`),
+// both factor rows of every entry gathered a tile at a time, each tile's
+// gathers issued before its chains.
+template <bool V>
+__device__ __forceinline__ void update_caller_block(
+    int64_t blk, float omg, float g, float gmu, const int32_t* __restrict__ rows,
+    const int32_t* __restrict__ cols, const float* __restrict__ resid,
+    const float* __restrict__ vals, const float* __restrict__ weight, const float* __restrict__ u,
+    const float* __restrict__ v, float* __restrict__ out, int64_t p, int64_t k, int vec) {
+  constexpr int B = kCallerBatch;
+  const int64_t e0 = B * (blk * kThreads + threadIdx.x);
+  if (e0 >= p) return;
+  const bool full = vec && e0 + B <= p;
+  int32_t r[B], c[B];
+  float re[B], va[B], w[B];
+  if (full) {
+#pragma unroll
+    for (int q = 0; q < B; q += 4) {
+      const int4 r4 = __ldcs(reinterpret_cast<const int4*>(rows + e0 + q));
+      const int4 c4 = __ldcs(reinterpret_cast<const int4*>(cols + e0 + q));
+      const float4 re4 = __ldcs(reinterpret_cast<const float4*>(resid + e0 + q));
+      const float4 va4 = __ldcs(reinterpret_cast<const float4*>(vals + e0 + q));
+      const float4 w4 = __ldcs(reinterpret_cast<const float4*>(weight + e0 + q));
+      r[q] = r4.x, r[q + 1] = r4.y, r[q + 2] = r4.z, r[q + 3] = r4.w;
+      c[q] = c4.x, c[q + 1] = c4.y, c[q + 2] = c4.z, c[q + 3] = c4.w;
+      re[q] = re4.x, re[q + 1] = re4.y, re[q + 2] = re4.z, re[q + 3] = re4.w;
+      va[q] = va4.x, va[q + 1] = va4.y, va[q + 2] = va4.z, va[q + 3] = va4.w;
+      w[q] = w4.x, w[q + 1] = w4.y, w[q + 2] = w4.z, w[q + 3] = w4.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < B; ++i) {
+      const bool in = e0 + i < p;  // past p: row and column 0, never stored
+      r[i] = in ? __ldcs(rows + e0 + i) : 0;
+      c[i] = in ? __ldcs(cols + e0 + i) : 0;
+      re[i] = in ? __ldcs(resid + e0 + i) : 0.f;
+      va[i] = in ? __ldcs(vals + e0 + i) : 0.f;
+      w[i] = in ? __ldcs(weight + e0 + i) : 0.f;
+    }
+  }
+  float dot[B];
+  for (int64_t j0 = 0; j0 < k; j0 += kTile) {
+    float ta[B][kTile], tb[B][kTile];
+#pragma unroll
+    for (int i = 0; i < B; ++i) {
+      load_tile<V>(u + static_cast<int64_t>(r[i]) * k, j0, k, ta[i]);
+      load_tile<V>(v + static_cast<int64_t>(c[i]) * k, j0, k, tb[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < B; ++i) dot_tile(ta[i], tb[i], j0, k, dot[i]);
+  }
+  float o[B];
+#pragma unroll
+  for (int i = 0; i < B; ++i) o[i] = resid_step_dot(omg, g, gmu, re[i], va[i], w[i], dot[i]);
+  if (full) {
+#pragma unroll
+    for (int q = 0; q < B; q += 4)
+      __stcs(reinterpret_cast<float4*>(out + e0 + q),
+             make_float4(o[q], o[q + 1], o[q + 2], o[q + 3]));
+  } else {
+#pragma unroll
+    for (int i = 0; i < B; ++i)
+      if (e0 + i < p) __stcs(out + e0 + i, o[i]);
+  }
+}
+
+// A sorted order, a warp per piece: the piece's segment row (x_seg) is read
+// once into registers (R: k <= kSegRegs; else a tile at a time from L1, once
+// per step), then each lane takes kSortedBatch entries a step (positions lane,
+// lane + 32, ...: every load of gat, resid, vals, weight and every store
+// covers 128 contiguous bytes a warp) and gathers only the other factor's row
+// of each, a tile at a time, each tile's gathers issued before its chains.
+template <bool V, bool R>
+__device__ __forceinline__ void update_sorted_piece(const SortedResid& o, int64_t piece,
+                                                    float omg, float g, float gmu, int64_t k) {
+  constexpr int kRegTiles = R ? kSegRegs / kTile : 1;
+  const int lane = threadIdx.x % kWarp;
+  const float* xs = o.x_seg + o.piece_seg[piece] * k;
+  float seg[kRegTiles][kTile];
+  if (R) {
+#pragma unroll
+    for (int t = 0; t < kRegTiles; ++t)
+      if (t * kTile < k) load_tile<V>(xs, t * kTile, k, seg[t]);
+  }
+  const int64_t end = o.piece_end[piece];
+  for (int64_t e0 = o.piece_start[piece] + lane; e0 < end; e0 += kWarp * kSortedBatch) {
+    const float* xg[kSortedBatch];
+    bool in[kSortedBatch];
+    float re[kSortedBatch], va[kSortedBatch], w[kSortedBatch];
+#pragma unroll
+    for (int i = 0; i < kSortedBatch; ++i) {
+      const int64_t e = e0 + kWarp * i;
+      in[i] = e < end;
+      xg[i] = o.x_gat + static_cast<int64_t>(in[i] ? __ldcs(o.gat + e) : 0) * k;
+      re[i] = in[i] ? __ldcs(o.resid + e) : 0.f;
+      va[i] = in[i] ? __ldcs(o.vals + e) : 0.f;
+      w[i] = in[i] ? __ldcs(o.weight + e) : 0.f;
+    }
+    float dot[kSortedBatch];
+    if (R) {
+#pragma unroll
+      for (int t = 0; t < kRegTiles; ++t) {
+        const int64_t j0 = t * kTile;
+        if (j0 < k) {
+          float tb[kSortedBatch][kTile];
+#pragma unroll
+          for (int i = 0; i < kSortedBatch; ++i) load_gat_tile<V>(in[i], xg[i], j0, k, tb[i]);
+#pragma unroll
+          for (int i = 0; i < kSortedBatch; ++i) dot_tile(seg[t], tb[i], j0, k, dot[i]);
+        }
+      }
+    } else {
+      for (int64_t j0 = 0; j0 < k; j0 += kTile) {
+        float ts[kTile], tb[kSortedBatch][kTile];
+        load_tile<V>(xs, j0, k, ts);
+#pragma unroll
+        for (int i = 0; i < kSortedBatch; ++i) load_gat_tile<V>(in[i], xg[i], j0, k, tb[i]);
+#pragma unroll
+        for (int i = 0; i < kSortedBatch; ++i) dot_tile(ts, tb[i], j0, k, dot[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kSortedBatch; ++i)
+      if (in[i])
+        __stcs(o.out + e0 + kWarp * i,
+               resid_step_dot(omg, g, gmu, re[i], va[i], w[i], dot[i]));
+  }
+}
+
+// update_resid_kernel with (d, k) and (m, k) factors: blocks [0,
+// caller_blocks) the caller order, the next row_blocks the row order (a warp
+// a piece), the rest the column order. The products are u_j v_j in every
+// order (x_seg x_gat in a sorted one: the same product), so each order has
+// the caller order's bits.
+template <bool V, bool R>
 __global__ void __launch_bounds__(kThreads)
 update_resid_block_kernel(const float* __restrict__ gamma, float mu,
                           const int32_t* __restrict__ rows, const int32_t* __restrict__ cols,
                           const float* __restrict__ resid, const float* __restrict__ vals,
                           const float* __restrict__ weight, const float* __restrict__ u,
                           const float* __restrict__ v, float* __restrict__ out, int64_t p,
-                          int64_t k, int64_t caller_blocks, SortedResid row, int64_t row_blocks,
-                          SortedResid col) {
+                          int64_t k, int vec, int64_t caller_blocks, SortedResid row,
+                          int64_t row_blocks, SortedResid col) {
   const float g = __ldg(gamma);
   const float omg = __fsub_rn(1.f, g);
   const float gmu = __fmul_rn(g, mu);
   int64_t blk = blockIdx.x;
   if (blk < caller_blocks) {
-    const int64_t j = blk * kThreads + threadIdx.x;
-    if (j >= p) return;
-    const float dot = entry_dot(u + static_cast<int64_t>(__ldcs(rows + j)) * k,
-                                v + static_cast<int64_t>(__ldcs(cols + j)) * k, k);
-    out[j] = resid_step_dot(omg, g, gmu, __ldcs(resid + j), __ldcs(vals + j),
-                            __ldcs(weight + j), dot);
+    update_caller_block<V>(blk, omg, g, gmu, rows, cols, resid, vals, weight, u, v, out, p, k,
+                           vec);
     return;
   }
   blk -= caller_blocks;
@@ -373,13 +734,7 @@ update_resid_block_kernel(const float* __restrict__ gamma, float mu,
   const SortedResid o = by_row ? row : col;
   const int64_t piece = (by_row ? blk : blk - row_blocks) * kWarpsPerBlock + threadIdx.x / kWarp;
   if (piece >= o.num_pieces) return;
-  const float* xs = o.x_seg + o.piece_seg[piece] * k;
-  const int64_t end = o.piece_end[piece];
-  for (int64_t e = o.piece_start[piece] + threadIdx.x % kWarp; e < end; e += kWarp) {
-    const float dot = entry_dot(xs, o.x_gat + static_cast<int64_t>(__ldcs(o.gat + e)) * k, k);
-    __stcs(o.out + e, resid_step_dot(omg, g, gmu, __ldcs(o.resid + e), __ldcs(o.vals + e),
-                                     __ldcs(o.weight + e), dot));
-  }
+  update_sorted_piece<V, R>(o, piece, omg, g, gmu, k);
 }
 
 }  // namespace
@@ -479,23 +834,40 @@ int mc_update_resid_f32(const float* gamma, float mu, const int32_t* rows, const
 }
 
 // out (out_dim, k) = segmented sums of vals_sorted * x[gat_sorted, :] over the
-// sorted order, x (in_dim, k); partial is (num_pieces, k) scratch. Groups of
-// 32 columns, one pass over the entries each.
+// sorted order, x (in_dim, k); partial is (num_pieces, k) scratch, written
+// only for segments of several pieces. Groups of 32 columns, one pass over the
+// entries each.
 int mc_coo_matmat_f32(const int32_t* gat, const float* vals, const float* x,
                       const int64_t* piece_start, const int64_t* piece_end,
-                      const int64_t* piece_ptr, float* partial, float* out,
-                      int64_t num_pieces, int64_t out_dim, int64_t k, int device, void* stream) {
+                      const int64_t* piece_seg, const int64_t* piece_ptr, float* partial,
+                      float* out, int64_t num_pieces, int64_t out_dim, int64_t k, int device,
+                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const CooBlock a{gat, vals, x, piece_start, piece_end, piece_seg, piece_ptr, partial, out,
+                   num_pieces, k};
+  // 16-byte lanes where every row of X starts on a 16-byte boundary
+  const bool vec = k % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int quad =
+      (reinterpret_cast<uintptr_t>(gat) | reinterpret_cast<uintptr_t>(vals)) % 16 == 0;
   for (int64_t col0 = 0; col0 < k; col0 += kWarp) {
     const int kc = static_cast<int>(k - col0 < kWarp ? k - col0 : kWarp);
     if (num_pieces > 0) {
-      const int64_t blocks = (num_pieces + kWarpsPerBlock - 1) / kWarpsPerBlock;
-      piece_sum_block_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-          gat, vals, x, piece_start, piece_end, partial, num_pieces, k,
-          static_cast<int>(col0), kc);
-      err = cudaGetLastError();
+      const int lanes = vec ? kc / 4 : kc;
+      int group = 1;
+      while (group < lanes) group *= 2;
+      // pieces a warp walks: enough warps for two per resident slot, at most
+      // kMaxPiecesPerWarp, and at least one a group
+      int64_t per = num_pieces / (2 * kResidentWarps);
+      if (per > kMaxPiecesPerWarp) per = kMaxPiecesPerWarp;
+      if (per < kWarp / group) per = kWarp / group;
+      const int64_t warps = (num_pieces + per - 1) / per;
+      const unsigned blocks = static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
+      err = vec ? launch_piece_sum<4>(group, a, static_cast<int>(col0), kc, static_cast<int>(per),
+                                      quad, blocks, s)
+                : launch_piece_sum<1>(group, a, static_cast<int>(col0), kc, static_cast<int>(per),
+                                      quad, blocks, s);
       if (err != cudaSuccess) return static_cast<int>(err);
     }
     const int64_t blocks = (out_dim * kc + kThreads - 1) / kThreads;
@@ -523,17 +895,33 @@ int mc_update_resid_block_f32(const float* gamma, float mu, const int32_t* rows,
                               void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec = (reinterpret_cast<uintptr_t>(rows) | reinterpret_cast<uintptr_t>(cols) |
+                   reinterpret_cast<uintptr_t>(resid) | reinterpret_cast<uintptr_t>(vals) |
+                   reinterpret_cast<uintptr_t>(weight) | reinterpret_cast<uintptr_t>(out)) %
+                      16 == 0;
+  const bool vec_rows = k % 4 == 0 &&
+      (reinterpret_cast<uintptr_t>(u) | reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+  const bool in_regs = k <= kSegRegs;
   const SortedResid row{r_gat, r_start, r_end, r_seg, r_resid, r_vals, r_weight, u, v, r_out,
                         r_pieces};
   const SortedResid col{c_gat, c_start, c_end, c_seg, c_resid, c_vals, c_weight, v, u, c_out,
                         c_pieces};
-  const int64_t caller_blocks = (p + kThreads - 1) / kThreads;
+  const int64_t caller_blocks =
+      (p + kCallerBatch * kThreads - 1) / (kCallerBatch * kThreads);
   const int64_t row_blocks = (r_pieces + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const int64_t col_blocks = (c_pieces + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  update_resid_block_kernel<<<static_cast<unsigned>(caller_blocks + row_blocks + col_blocks),
-                              kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      gamma, mu, rows, cols, resid, vals, weight, u, v, out, p, k, caller_blocks, row,
-      row_blocks, col);
+  const unsigned blocks = static_cast<unsigned>(caller_blocks + row_blocks + col_blocks);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MC_UPDATE_BLOCK(V, R)                                                                   \
+  update_resid_block_kernel<V, R><<<blocks, kThreads, 0, s>>>(                                  \
+      gamma, mu, rows, cols, resid, vals, weight, u, v, out, p, k, vec, caller_blocks, row,     \
+      row_blocks, col)
+  if (vec_rows) {
+    if (in_regs) MC_UPDATE_BLOCK(true, true); else MC_UPDATE_BLOCK(true, false);
+  } else {
+    if (in_regs) MC_UPDATE_BLOCK(false, true); else MC_UPDATE_BLOCK(false, false);
+  }
+#undef MC_UPDATE_BLOCK
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -27,7 +27,7 @@ def _library():
         lib.mc_update_resid_f32.argtypes = (
             [_P, ctypes.c_float] + [_P] * 8 + [_I64] + ([_P] * 8 + [_I64]) * 2 + [_I, _P])
         lib.mc_update_resid_f32.restype = ctypes.c_int
-        lib.mc_coo_matmat_f32.argtypes = [_P] * 8 + [_I64, _I64, _I64, _I, _P]
+        lib.mc_coo_matmat_f32.argtypes = [_P] * 9 + [_I64, _I64, _I64, _I, _P]
         lib.mc_coo_matmat_f32.restype = ctypes.c_int
         lib.mc_update_resid_block_f32.argtypes = (
             [_P, ctypes.c_float] + [_P] * 8 + [_I64, _I64] + ([_P] * 8 + [_I64]) * 2 + [_I, _P])
@@ -58,13 +58,14 @@ def coo_matvec(order, vals_sorted: torch.Tensor, x: torch.Tensor, partial: torch
 def coo_matmat(order, vals_sorted: torch.Tensor, x: torch.Tensor, partial: torch.Tensor,
                out: torch.Tensor) -> None:
     """out (out_dim, k) = segment sums of vals_sorted * x[gat_sorted, :] over
-    ``order``, x (in_dim, k); ``partial`` is (pieces, k) scratch."""
+    ``order``, x (in_dim, k); ``partial`` is (pieces, k) scratch, written only
+    for segments of several pieces."""
     lib = _library()
     _raise(lib, "coo_matmat", lib.mc_coo_matmat_f32(
         order.gat_sorted.data_ptr(), vals_sorted.data_ptr(), x.data_ptr(),
-        order.piece_start.data_ptr(), order.piece_end.data_ptr(), order.piece_ptr.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), order.piece_start.numel(), order.out_dim,
-        x.shape[1], vals_sorted.device.index,
+        order.piece_start.data_ptr(), order.piece_end.data_ptr(), order.piece_seg.data_ptr(),
+        order.piece_ptr.data_ptr(), partial.data_ptr(), out.data_ptr(),
+        order.piece_start.numel(), order.out_dim, x.shape[1], vals_sorted.device.index,
         torch.cuda.current_stream(vals_sorted.device).cuda_stream,
     ))
 

@@ -77,6 +77,29 @@ def coo_matvec_pieces(order, vals_sorted: torch.Tensor, x: torch.Tensor) -> torc
         0, seg_of, partial)
 
 
+def coo_matmat_chain(order, vals_sorted: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``coo_matmat``'s association in plain PyTorch, for its bits: for each
+    (piece, column) the products (each rounded) added in the piece's sorted
+    order from 0, one elementwise pass per position in a piece; then each
+    segment's pieces added in order from 0 (0 for an empty segment). x is
+    (in_dim, k), or (in_dim,) for ``coo_matvec``'s association. One multiply
+    or add a pass, so the card rounds as the CPU does."""
+    dev = vals_sorted.device
+    lengths = order.piece_end - order.piece_start
+    partial = torch.zeros((lengths.numel(), *x.shape[1:]), dtype=torch.float32, device=dev)
+    scale = (slice(None),) + (None,) * (x.dim() - 1)  # vals along x's rows
+    for t in range(int(lengths.max()) if lengths.numel() else 0):
+        live = torch.nonzero(lengths > t).squeeze(1)
+        e = order.piece_start[live] + t
+        partial[live] = partial[live] + vals_sorted[e][scale] * x[order.gat_sorted[e].long()]
+    counts = torch.diff(order.piece_ptr)
+    out = torch.zeros((order.out_dim, *x.shape[1:]), dtype=torch.float32, device=dev)
+    for j in range(int(counts.max()) if counts.numel() else 0):
+        live = torch.nonzero(counts > j).squeeze(1)
+        out[live] = out[live] + partial[order.piece_ptr[live] + j]
+    return out
+
+
 def resid_step(gamma, mu, resid, vals, weight, u_e, v_e) -> torch.Tensor:
     """``MatrixCompletion.update``'s chain on entries with factors u_e and
     v_e: resid' = (1 - g) resid - g w M - (g mu) w u_e v_e, each operation a

@@ -408,6 +408,38 @@ def test_coo_matmat_plain_matches_the_vmapped_jax_kernel(k, data):
            want_gu)
 
 
+@pytest.mark.parametrize("piece", [1, 3, 64, 1024])
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_coo_matmat_chain_is_the_kernels_association(piece, k, data, monkeypatch):
+    """``ref.coo_matmat_chain``, the association the card's ``coo_matmat``
+    keeps (its bits are held to it there): the reference's vmapped COO
+    matvec (interpret mode) to the tolerance above, over pieces of several
+    lengths; each column the chain of the vector form, bit for bit, and that
+    the kernel's two stages in plain PyTorch (``ref.coo_matvec_pieces``,
+    whose CPU ``index_add_`` adds in index order)."""
+    monkeypatch.setattr(mc.ops, "PIECE", piece)
+    rows, cols = data["rows"], data["cols"]
+    vals = np.random.default_rng(17).standard_normal(rows.size).astype(np.float32)
+    x_v = np.random.default_rng(18).standard_normal((MM, k)).astype(np.float32)
+    x_u = np.random.default_rng(19).standard_normal((MD, k)).astype(np.float32)
+    tr, tc, tvals = (torch.from_numpy(a) for a in (rows, cols, vals))
+    jr, jc, jv = jnp.asarray(rows), jnp.asarray(cols), jnp.asarray(vals)
+    for order, x, form, out_dim in ((mc.build_order(tr, tc, MD, MM), x_v, jmc.ops.matvec, MD),
+                                    (mc.build_order(tc, tr, MM, MD), x_u, jmc.ops.rmatvec, MM)):
+        want = jax.vmap(lambda c: form(jr, jc, jv, c, out_dim, block_e=128, interpret=True),
+                        1, 1)(jnp.asarray(x))
+        x = torch.from_numpy(x)
+        vs = mc.gather_sorted(order, tvals)
+        got = mc.ref.coo_matmat_chain(order, vs, x)
+        assert got.shape == (order.out_dim, k)
+        _close(got, want)
+        _close(got, mc.ref.coo_matvec_sorted(order, vs, x))
+        for j in range(k):
+            col = mc.ref.coo_matmat_chain(order, vs, x[:, j].contiguous())
+            assert torch.equal(col, got[:, j])
+            assert torch.equal(col, mc.ref.coo_matvec_pieces(order, vs, x[:, j].contiguous()))
+
+
 @pytest.mark.parametrize("k", [1, 3, 17])
 def test_update_resid_block_plain_matches_jax(k, data):
     """K4: ``update_resid`` with block factors against the JAX block

@@ -95,9 +95,11 @@ def test_cuda_rank1_update_matches_plain(cuda, n, m, aligned):
     assert got is z and torch.equal(z, want)
 
 
-def _coo(n_rows, n_cols, p, device, seed=0, heavy=0):
+def _coo(n_rows, n_cols, p, device, seed=0, heavy=0, long_row=0):
     """COO entries with a skewed row law, duplicates, an empty row and column
-    and ``heavy`` extra entries in column 1 (several kernel pieces)."""
+    and ``heavy`` extra entries in column 1 (several kernel pieces); with
+    ``long_row``, that many more in row 3 (a segment longer than a piece)
+    beside one entry in each row from 5 on (many one-entry segments)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     w = (torch.arange(n_rows, dtype=torch.float64) + 1) ** -0.6
     rows = torch.multinomial(w, p, replacement=True, generator=g)
@@ -105,6 +107,10 @@ def _coo(n_rows, n_cols, p, device, seed=0, heavy=0):
     if heavy:
         rows = torch.cat([rows, torch.randint(0, n_rows, (heavy,), generator=g)])
         cols = torch.cat([cols, torch.ones(heavy, dtype=torch.long)])
+    if long_row:
+        rows = torch.cat([rows, torch.full((long_row,), 3), torch.arange(5, n_rows)])
+        cols = torch.cat([cols, torch.randint(0, n_cols, (long_row + n_rows - 5,),
+                                              generator=g)])
     rows[rows == 2] = 1
     cols[cols == 0] = 1
     vals = torch.randn(rows.numel(), generator=g)
@@ -823,16 +829,27 @@ def test_cuda_rankk_update_matches_plain(cuda, n, m, k, aligned):
     assert torch.equal(zz, got_axpy)
 
 
+# (d, m, p, heavy, long_row) of the block forms' COO sets: a segment longer
+# than a piece (PIECE = 1024) beside many one-entry segments in the last
+_BLOCK_COO = [(40, 30, 600, 0, 0), (1000, 300, 50000, 5000, 0), (20000, 17, 300001, 0, 0),
+              (3, 5000, 7, 0, 0), (3000, 500, 4000, 0, 2500)]
+
+
+def _block_x(rows, k, aligned, device):
+    """A (rows, k) factor or X: 16-byte aligned, or 4 bytes off."""
+    return torch.randn(rows, k, device=device) if aligned else _misaligned((rows, k), device)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,m,p,heavy", [(40, 30, 600, 0), (1000, 300, 50000, 5000),
-                                         (20000, 17, 300000, 0), (3, 5000, 7, 0)])
-@pytest.mark.parametrize("k", [1, 3, 8, 32, 33])
-def test_cuda_coo_matmat_matches_plain(cuda, d, m, p, heavy, k):
+@pytest.mark.parametrize("d,m,p,heavy,long_row", _BLOCK_COO)
+@pytest.mark.parametrize("k", [1, 3, 8, 17, 32, 33])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_cuda_coo_matmat_matches_plain(cuda, d, m, p, heavy, long_row, k, aligned):
     """G V and G^T U on the sorted copies; the same bits on repeat."""
     from repro_torch.kernels import mc_matvec as mc
 
-    rows, cols, vals = _coo(d, m, p, cuda, heavy=heavy)
-    v, u = torch.randn(m, k, device=cuda), torch.randn(d, k, device=cuda)
+    rows, cols, vals = _coo(d, m, p, cuda, heavy=heavy, long_row=long_row)
+    v, u = _block_x(m, k, aligned, cuda), _block_x(d, k, aligned, cuda)
     by_row, by_col = mc.build_order(rows, cols, d, m), mc.build_order(cols, rows, m, d)
     vr, vc = mc.gather_sorted(by_row, vals), mc.gather_sorted(by_col, vals)
     before = kernels.launches()["coo_matmat"]
@@ -846,21 +863,42 @@ def test_cuda_coo_matmat_matches_plain(cuda, d, m, p, heavy, k):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,m,p,heavy", [(40, 30, 600, 0), (1000, 300, 50000, 5000),
-                                         (20000, 17, 300001, 0), (3, 5000, 7, 0)])
-@pytest.mark.parametrize("k", [2, 3, 8, 32])
-def test_cuda_update_resid_block_is_the_chain_bit_for_bit(cuda, d, m, p, heavy, k):
+@pytest.mark.parametrize("d,m,p,heavy,long_row", _BLOCK_COO + [(600_000, 2000, 2_000_000, 0, 0)])
+@pytest.mark.parametrize("k", [1, 3, 8, 17, 32, 33])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_cuda_coo_matmat_is_the_chain_bit_for_bit(cuda, d, m, p, heavy, long_row, k, aligned):
+    """Both orders equal ``ref.coo_matmat_chain`` (each piece's rounded
+    products added in sorted order, then the pieces in order) bit for bit,
+    on this call and the next. The last set has enough pieces (over half a
+    million rows) that each warp's groups walk several pieces in turn."""
+    from repro_torch.kernels import mc_matvec as mc
+
+    rows, cols, vals = _coo(d, m, p, cuda, seed=1, heavy=heavy, long_row=long_row)
+    for order, x in ((mc.build_order(rows, cols, d, m), _block_x(m, k, aligned, cuda)),
+                     (mc.build_order(cols, rows, m, d), _block_x(d, k, aligned, cuda))):
+        vs = mc.gather_sorted(order, vals)
+        want = mc.ref.coo_matmat_chain(order, vs, x)
+        assert torch.equal(mc.coo_matmat(order, vs, x), want)
+        assert torch.equal(mc.coo_matmat(order, vs, x), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,m,p,heavy,long_row", _BLOCK_COO)
+@pytest.mark.parametrize("k", [2, 3, 8, 17, 32, 33])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_cuda_update_resid_block_is_the_chain_bit_for_bit(cuda, d, m, p, heavy, long_row, k,
+                                                          aligned):
     """With (d, k) and (m, k) factors: the three outputs equal the plain
     chain (the k-term dot in ascending j, then the step) and its gathers,
-    bit for bit; one launch, on the block route."""
+    bit for bit, on this call and the next; one launch, on the block route."""
     from repro_torch.core import tasks
     from repro_torch.kernels import mc_matvec as mc
 
-    rows, cols, vals = _coo(d, m, p, cuda, heavy=heavy)
+    rows, cols, vals = _coo(d, m, p, cuda, heavy=heavy, long_row=long_row)
     weight = (torch.arange(rows.numel(), device=cuda) % 3 != 0).float()
     resid = weight * torch.randn(rows.numel(), device=cuda)
     state = tasks.mc_state(rows, cols, vals, resid, weight, d, m)
-    u, v = torch.randn(d, k, device=cuda), torch.randn(m, k, device=cuda)
+    u, v = _block_x(d, k, aligned, cuda), _block_x(m, k, aligned, cuda)
     gamma = 2.0 / (torch.full((), 5.0, device=cuda) + 2.0)
     want = mc.ref.resid_step_dot(gamma, 1.75, resid, vals, weight,
                                  mc.ref.entry_dot(u, v, rows, cols))
@@ -871,24 +909,28 @@ def test_cuda_update_resid_block_is_the_chain_bit_for_bit(cuda, d, m, p, heavy, 
     assert torch.equal(got.resid, want)
     assert torch.equal(got.resid_by_row, mc.gather_sorted(state.by_row, want))
     assert torch.equal(got.resid_by_col, mc.gather_sorted(state.by_col, want))
+    again = tasks.MatrixCompletion(d, m).update(state, u, v, gamma, 1.75)
+    for f in ("resid", "resid_by_row", "resid_by_col"):
+        assert torch.equal(getattr(again, f), getattr(got, f))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,m,p,heavy", [(40, 30, 600, 0), (1000, 300, 50000, 5000),
-                                         (20000, 17, 300001, 0), (3, 5000, 7, 0)])
-@pytest.mark.parametrize("k", [1, 3, 8, 32])
-def test_cuda_update_resid_caller_is_the_block_launch_s_caller_order(cuda, d, m, p, heavy, k):
+@pytest.mark.parametrize("d,m,p,heavy,long_row", _BLOCK_COO)
+@pytest.mark.parametrize("k", [1, 3, 8, 17, 32, 33])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_cuda_update_resid_caller_is_the_block_launch_s_caller_order(cuda, d, m, p, heavy,
+                                                                      long_row, k, aligned):
     """The caller order alone (the block line search's values at gamma = 1):
     the plain chain's bits and the three-order launch's caller-order bits;
     one launch of its own, none on update_resid."""
     from repro_torch.core import tasks
     from repro_torch.kernels import mc_matvec as mc
 
-    rows, cols, vals = _coo(d, m, p, cuda, heavy=heavy)
+    rows, cols, vals = _coo(d, m, p, cuda, heavy=heavy, long_row=long_row)
     weight = (torch.arange(rows.numel(), device=cuda) % 3 != 0).float()
     resid = weight * torch.randn(rows.numel(), device=cuda)
     state = tasks.mc_state(rows, cols, vals, resid, weight, d, m)
-    u, v = torch.randn(d, k, device=cuda), torch.randn(m, k, device=cuda)
+    u, v = _block_x(d, k, aligned, cuda), _block_x(m, k, aligned, cuda)
     gamma = torch.ones((), device=cuda)
     args = (gamma, 1.75, u, v, rows, cols, resid, vals, weight)
     before = kernels.launches()
