@@ -184,8 +184,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    (and Y), ``coo_matmat`` (G V, G^T U) and the block ``update_resid`` at the
    Netflix shapes, each against its bound, its plain version and one PyTorch
    call (``A @ V``, ``addmm``, cuSPARSE's CSR SpMM; ``matmat``/``rmatmat``
-   and ``A @ V`` timed in turns, kernel, call, call, kernel), its bits
-   repeated; the block ``update_resid`` and its caller order alone
+   against ``A @ V`` and the rank-k updates against ``addmm`` (+ ``add_``)
+   timed in turns, kernel, call, call, kernel), its bits repeated; the
+   rank-k updates also in place (out is the operand, as the fits call
+   them), held to the out-of-place bits and timed in turns against
+   ``addmm_`` (+ ``add_``); the block ``update_resid`` and its caller order alone
    (``update_resid_caller``, the line search's) bit for bit; ``coo_matmat``
    bit for bit to ``ref.coo_matmat_chain`` (its association); the MC forms'
    gather floors (``tools/torch_gather_probe.py``'s rate of random 32-byte
@@ -662,6 +665,7 @@ def is_kernel(part: str, key: str) -> bool:
     whole word: quantize_kernel is not dequantize_kernel)."""
     return re.search(rf"\b{part}\b", key) is not None
 FLASH_KERNELS = ("flash_fwd_kernel", "flash_fwd_wgmma_kernel")  # the two routes
+WKV6_KERNEL = "wkv6_chunk_kernel"  # the ssm profile's own sum
 
 
 def profile_fit(torch, kind, run):
@@ -2951,7 +2955,7 @@ def profile_ssm(torch, lm_serve, steps, cfg, params, toks, dev, seed):
             if str(getattr(ev, "device_type", "")).endswith("CUDA"):
                 dev_us[ev.key] = dev_us.get(ev.key, 0.0) + ev.self_device_time_total
         busy = sum(dev_us.values())
-        wkv = sum(t for k, t in dev_us.items() if "wkv6_chunk_kernel" in k)
+        wkv = sum(t for k, t in dev_us.items() if WKV6_KERNEL in k)
         out[label] = dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3, wkv6_ms=wkv / 1e3,
                           idle_share=1.0 - busy / wall_us if busy else None,
                           top=sorted(((k[:90], t / 1e3) for k, t in dev_us.items()),
@@ -3037,14 +3041,16 @@ def block_row(torch, name, label, shape, kfn, pfn, lfn, nbytes, nflops, peaks, r
 
 def block_dense_kernels(torch, pm, r1, dev, X, Y, gen, reps, peaks):
     """(a) matmat/rmatmat on R and X, the rank-k updates on R (and Y) at
-    n = 1,281,167, k = 8 and 32."""
+    n = 1,281,167, k = 8 and 32: out of place against their plain versions
+    and in place (as the fits call them) against the out-of-place bits, each
+    timed in turns with its library call."""
     rn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
     R = torch.neg(Y)
     g = torch.full((), 0.3, device=dev)
     a, b, c = 1.0 - g, -g * 1.5, -g
     scal2, scal3 = torch.stack([a, b]), torch.stack([a, b, c])
     rows = []
-    out = torch.empty_like(R)
+    out, W = torch.empty_like(R), torch.empty_like(R)
     for k in BLOCK_KS:
         for label, A in (("R", R), ("X", X)):
             n, m = A.shape
@@ -3063,22 +3069,65 @@ def block_dense_kernels(torch, pm, r1, dev, X, Y, gen, reps, peaks):
         n, m = R.shape
         p_, q_ = rn(n, k), rn(m, k)
         nm = n * m
+        shape, nflops = (n, m, k), 2 * nm * k
         rows.append(block_row(
-            torch, "rankk_update", f"Z k={k}", (n, m, k),
+            torch, "rankk_update", f"Z k={k}", shape,
             lambda: r1.rankk_update(R, p_, q_, a, b, out=out),
             lambda: r1.ref.rankk_update(R, p_, q_, scal2),
             lambda: torch.addmm(R, p_, q_.T, beta=0.7, alpha=-0.45),
-            8 * nm + 4 * (n + m) * k, 2 * nm * k + 3 * nm, peaks, reps, main=k == 8))
+            8 * nm + 4 * (n + m) * k, nflops + 3 * nm, peaks, reps, main=k == 8,
+            in_turns=True))
+        rows.append(block_row_in_place(
+            torch, "rankk_update", f"Z k={k} in place", shape,
+            lambda: r1.rankk_update(W, p_, q_, a, b, out=W),
+            lambda: W.addmm_(p_, q_.T, beta=0.7, alpha=-0.45), W, R,
+            r1.rankk_update(R, p_, q_, a, b), 8 * nm + 4 * (n + m) * k, nflops + 3 * nm,
+            peaks, reps))
         rows.append(block_row(
-            torch, "rankk_update_axpy", f"R, Y k={k}", (n, m, k),
+            torch, "rankk_update_axpy", f"R, Y k={k}", shape,
             lambda: r1.rankk_update_axpy(R, Y, p_, q_, a, b, c, out=out),
             lambda: r1.ref.rankk_update_axpy(R, Y, p_, q_, scal3),
             lambda: torch.addmm(R, p_, q_.T, beta=0.7, alpha=-0.45).add_(Y, alpha=-0.3),
-            12 * nm + 4 * (n + m) * k, 2 * nm * k + 5 * nm, peaks, reps, main=k == 32))
+            12 * nm + 4 * (n + m) * k, nflops + 5 * nm, peaks, reps, main=k == 32,
+            in_turns=True))
+        rows.append(block_row_in_place(
+            torch, "rankk_update_axpy", f"R, Y k={k} in place", shape,
+            lambda: r1.rankk_update_axpy(W, Y, p_, q_, a, b, c, out=W),
+            lambda: W.addmm_(p_, q_.T, beta=0.7, alpha=-0.45).add_(Y, alpha=-0.3), W, R,
+            r1.rankk_update_axpy(R, Y, p_, q_, a, b, c), 12 * nm + 4 * (n + m) * k,
+            nflops + 5 * nm, peaks, reps))
         del p_, q_
         torch.cuda.empty_cache()
-    del out, R
+    del out, W, R
     return rows
+
+
+def block_row_in_place(torch, name, label, shape, kfn, lfn, W, src, want, nbytes, nflops, peaks,
+                       reps):
+    """A rank-k update called in place, as the fits call it (``kfn`` writes
+    into its operand ``W``): from a copy of ``src``, the out-of-place bits
+    ``want``, twice; then the kernel and the library call in place (``lfn``)
+    timed in turns on ``W``, whose values drift from call to call (a = 0.7
+    keeps them finite)."""
+    bw, flops = peaks[:2]
+    for _ in range(2):
+        W.copy_(src)
+        check(kfn() is W and torch.equal(W, want),
+              f"{name} {label}: not the out-of-place call's bits")
+    del want
+    W.copy_(src)
+    ms1, lib1 = time_ms(torch, kfn, reps), time_ms(torch, lfn, reps)
+    lib2, ms2 = time_ms(torch, lfn, reps), time_ms(torch, kfn, reps)
+    row = dict(name=name, operand=label, shape=list(shape), ms=(ms1 + ms2) / 2,
+               library_ms=(lib1 + lib2) / 2, ms_rounds=[ms1, ms2], library_ms_rounds=[lib1, lib2],
+               bound_ms=1e3 * max(nbytes / bw, nflops / flops),
+               bound_by="bytes" if nbytes / bw >= nflops / flops else "operations",
+               bytes=nbytes, main=False)
+    row["library_ratio"] = row["ms"] / row["library_ms"]
+    print(f"kernel {name:18s} {label}: in turns {row['ms_rounds']} ms against the library's "
+          f"{row['library_ms_rounds']} in place: {row['library_ratio']:.4f} of its time, "
+          f"{row['bound_ms'] / row['ms']:.3f} of the bound; the out-of-place bits")
+    return row
 
 
 def gather_rates(torch, dev):

@@ -829,6 +829,43 @@ def test_cuda_rankk_update_matches_plain(cuda, n, m, k, aligned):
     assert torch.equal(zz, got_axpy)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1000, 1001, 130])
+@pytest.mark.parametrize("k", [1, 8, 32, 33, 64, 100, 130])
+@pytest.mark.parametrize("route", ["aligned", "z off", "p off", "q off"])
+def test_cuda_rankk_update_long_and_ragged(cuda, m, k, route):
+    """Both forms at n = 200,003: hundreds of blocks down each strip of 128
+    columns, the last block's rows ragged; the last strip ragged at m = 1001
+    and 130; k with P through the ring (up to 64), Q's strip in shared memory
+    (up to 128; 100 needs more than 48 KB) and both read from global memory
+    (130); Z 4 bytes off (4-byte Z, Y0 and out), P 4 bytes off (4-byte P) or
+    Q 4 bytes off (Q staged 4 bytes at a time). Held on the card to the plain
+    version (rtol 1e-4, atol 1e-5 of max|plain|); each call repeats its bits,
+    and in place (out is z) gives the out-of-place bits."""
+    n = 200_003
+    z = _misaligned((n, m), cuda) if route == "z off" else torch.randn(n, m, device=cuda)
+    y0 = torch.randn(n, m, device=cuda)
+    p = _misaligned((n, k), cuda) if route == "p off" else torch.randn(n, k, device=cuda)
+    q = _misaligned((m, k), cuda) if route == "q off" else torch.randn(m, k, device=cuda)
+    g = torch.tensor(0.3, device=cuda)
+    scal = torch.stack([1.0 - g, -g * 1.5, -g])
+    for form, extra in (("rankk_update", ()), ("rankk_update_axpy", (y0,))):
+        fn, s = getattr(r1, form), scal[:2 + len(extra)]
+        before = kernels.launches()[form]
+        got = fn(z, *extra, p, q, *s.unbind())
+        torch.cuda.synchronize()
+        assert kernels.launches()[form] == before + 1
+        want = getattr(r1.ref, form)(z, *extra, p, q, s)
+        tol = 1e-4 * want.abs() + 1e-5 * want.abs().max()
+        assert bool(((got - want).abs() <= tol).all()), float((got - want).abs().max())
+        del want, tol
+        assert torch.equal(fn(z, *extra, p, q, *s.unbind()), got)
+        zz = _misaligned((n, m), cuda) if route == "z off" else torch.empty_like(z)
+        zz.copy_(z)
+        assert fn(zz, *extra, p, q, *s.unbind(), out=zz) is zz
+        assert torch.equal(zz, got)
+
+
 # (d, m, p, heavy, long_row) of the block forms' COO sets: a segment longer
 # than a piece (PIECE = 1024) beside many one-entry segments in the last
 _BLOCK_COO = [(40, 30, 600, 0, 0), (1000, 300, 50000, 5000, 0), (20000, 17, 300001, 0, 0),
