@@ -13,7 +13,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
    call that computes the same function (CUDA events, median of --reps);
    print matvec's time over torch.mv's on R and on X (timed in turns,
    kernel, call, call, kernel; not a gate); matvec and rmatvec repeat their
-   bits.
+   bits. The rank-1 updates also in place, as the fits call them: the
+   out-of-place bits, timed in turns against ``addr_`` in place
+   (``rank1_update``) and against the chain ``addr_`` + ``add_``
+   (``rank1_update_axpy``, which no one call computes).
 3. Drive the main path, ``launch.dfw.fit_serial``, for multi-task least
    squares at the paper's ImageNet shapes (n = 1,281,167, d = 2048,
    m = 1000, f32): planted rank-10 trace-norm-1 W* plus small noise, log
@@ -212,6 +215,27 @@ Phases, each fatal on failure (exit code != 0, no result line):
    const:8 and its ``:cold`` ablation; every block run reaches the target,
    the median speedup must reach 5x (``benchmarks/baselines.json``) and
    each problem's 4.5x.
+26. Resume from a run checkpoint (``DFWConfig(resume_from=...,
+   resume_step=...)``), on phase 21's draws (phase 3's X and Y, new ratings
+   at the Netflix shapes), checkpoints in a temporary directory under
+   ``build/``. Every resumed run must give its uninterrupted run's bits
+   (history, final loss, iterate, final residual or logits, probe, reducer
+   state) and launch what the epochs after the step and one state build
+   imply. (a) Matrix completion dense, phase 8's configuration, 10 epochs
+   in segments of at most 5 (checkpoint steps 2, 7, 10 under the log
+   schedule), resumed at 7, after the first run's state is freed; the
+   bytes of a step and the restore's wall time by part (disk read, host to
+   device, state build). (b) ``block:8:adapt`` const:4 (phase 25's), 10
+   epochs, resumed at 5: the probe carried. (c) Least squares ``topk:16``
+   and (d) logistic regression int8 at d = 2048, m = 1000 with n cut to
+   --serve-rows (a full-n least-squares step is 20.7 GB), 8 epochs,
+   resumed at 4: the residuals and the noise stream. (e) Four gloo workers
+   on the card (phase 22's MC setup, --mc-int8-epochs), resumed at the
+   interior step on four (every worker its bits) and on two (phase 22's
+   tolerances against the four-worker run); a check, not a timing. (f) The
+   dense MTLS operator (X^T X, X^T Y, gradient) on phase 3's X and Y
+   against the factored operator: matvec, rmatvec and the gradient within
+   1e-3 of max, fresh and after an update.
 
 ``--coo-bits PATH`` runs only phases 1 and 6 and then G.v and G^T.u of
 ``coo_matvec`` at the full shape (x drawn from --seed), saving the results
@@ -482,7 +506,22 @@ def kernel_phase(torch, pm, r1, dev, X, R, Y, gen, reps, peaks):
         print(f"kernel {name:18s} {label} {tuple(row['shape'])}: {row['ms']:.3f} ms "
               f"(plain {row['plain_ms']:.3f}, library {row['library_ms']}, bound "
               f"{row['bound_ms']:.3f}, {row['GB_per_s']:.0f} GB/s) rel err {err_rel:.2e}")
-    del out
+    # In place, as the fits call them (out is the operand): held to the
+    # out-of-place bits and timed in turns against addr_ (rank1_update) and
+    # against the chain addr_ + add_ (rank1_update_axpy: no one call computes it).
+    W = torch.empty_like(R)
+    rows_out.append(block_row_in_place(
+        torch, "rank1_update", "R in place", R.shape,
+        lambda: r1.rank1_update(W, x_n, y_m, a, b, out=W),
+        lambda: W.addr_(x_n, y_m, beta=0.7, alpha=-0.3), W, R,
+        r1.rank1_update(R, x_n, y_m, a, b), 8 * nm + 4 * (n + PAPER_M), 4 * nm, peaks, reps))
+    rows_out.append(block_row_in_place(
+        torch, "rank1_update_axpy", "R, Y in place", R.shape,
+        lambda: r1.rank1_update_axpy(W, Y, x_n, y_m, a, b, c, out=W),
+        lambda: W.addr_(x_n, y_m, beta=0.7, alpha=-0.3).add_(Y, alpha=-0.15), W, R,
+        r1.rank1_update_axpy(R, Y, x_n, y_m, a, b, c), 12 * nm + 4 * (n + PAPER_M), 6 * nm,
+        peaks, reps, chain=True))
+    del out, W
     ratio = {r["operand"]: r["ms"] / r["library_ms"] for r in rows_out if r["name"] == "matvec"}
     for r in rows_out:
         if r["name"] == "matvec":
@@ -1980,6 +2019,11 @@ def factor_kernel_phase(torch, fm, _build, dev, gen, reps, peaks):
     return rows_out
 
 
+def step_bytes(directory, step: int) -> int:
+    """The bytes of one checkpoint step on disk."""
+    return sum(f.stat().st_size for f in Path(directory, f"step_{step:08d}").iterdir())
+
+
 def train_then_serve(torch, np, dfw, tasks, ckpt, serve, low_rank, kernels, dev, gen, args):
     """Phase 12: fit_serial writes checkpoints, the serving engine loads,
     scores and hot-swaps them. Returns (report, fit launches, serving
@@ -2011,10 +2055,10 @@ def train_then_serve(torch, np, dfw, tasks, ckpt, serve, low_rank, kernels, dev,
         steps = ckpt.store.list_steps(ckdir)
         check(steps[-1] == args.serve_epochs and len(steps) == res.stats["segments_run"],
               f"serve fit: checkpoint steps {steps} for {res.stats['segments_run']} segments")
-        step_bytes = sum(f.stat().st_size for f in Path(ckdir, f"step_{steps[-1]:08d}").iterdir())
-        rep.update(steps=steps, step_bytes=step_bytes, fit_stats=res.stats)
+        nbytes = step_bytes(ckdir, steps[-1])
+        rep.update(steps=steps, step_bytes=nbytes, fit_stats=res.stats)
         print(f"serve fit: MTLS n={n} d={SERVE_D} m={SERVE_M}, {res.epochs_run} epochs in "
-              f"{rep['fit_s']:.2f} s, checkpoint steps {steps} ({step_bytes / 1e9:.3f} GB each)")
+              f"{rep['fit_s']:.2f} s, checkpoint steps {steps} ({nbytes / 1e9:.3f} GB each)")
         del res, X, Y
         torch.cuda.empty_cache()
 
@@ -3103,12 +3147,13 @@ def block_dense_kernels(torch, pm, r1, dev, X, Y, gen, reps, peaks):
 
 
 def block_row_in_place(torch, name, label, shape, kfn, lfn, W, src, want, nbytes, nflops, peaks,
-                       reps):
-    """A rank-k update called in place, as the fits call it (``kfn`` writes
-    into its operand ``W``): from a copy of ``src``, the out-of-place bits
-    ``want``, twice; then the kernel and the library call in place (``lfn``)
-    timed in turns on ``W``, whose values drift from call to call (a = 0.7
-    keeps them finite)."""
+                       reps, chain=False):
+    """A rank-1 or rank-k update called in place, as the fits call it
+    (``kfn`` writes into its operand ``W``): from a copy of ``src``, the
+    out-of-place bits ``want``, twice; then the kernel and the library call
+    in place (``lfn``) timed in turns on ``W``, whose values drift from call
+    to call (a = 0.7 keeps them finite). ``chain``: ``lfn`` is a chain of
+    calls, kept as ``library_chain_ms`` (``library_ms`` None)."""
     bw, flops = peaks[:2]
     for _ in range(2):
         W.copy_(src)
@@ -3124,9 +3169,14 @@ def block_row_in_place(torch, name, label, shape, kfn, lfn, W, src, want, nbytes
                bound_by="bytes" if nbytes / bw >= nflops / flops else "operations",
                bytes=nbytes, main=False)
     row["library_ratio"] = row["ms"] / row["library_ms"]
-    print(f"kernel {name:18s} {label}: in turns {row['ms_rounds']} ms against the library's "
-          f"{row['library_ms_rounds']} in place: {row['library_ratio']:.4f} of its time, "
-          f"{row['bound_ms'] / row['ms']:.3f} of the bound; the out-of-place bits")
+    print(f"kernel {name:18s} {label}: in turns {row['ms_rounds']} ms against the "
+          f"{'chain' if chain else 'library'}'s {row['library_ms_rounds']} in place: "
+          f"{row['library_ratio']:.4f} of its time, {row['bound_ms'] / row['ms']:.3f} of the "
+          "bound; the out-of-place bits")
+    if chain:
+        row.update(library_chain_ms=row["library_ms"], library_ms=None,
+                   library_chain_ms_rounds=row.pop("library_ms_rounds"),
+                   library_chain_ratio=row.pop("library_ratio"))
     return row
 
 
@@ -3570,6 +3620,320 @@ def block_phase(torch, np, kernels, dfw, comm, tasks, low_rank, NoiseStream, pm,
     print(f"phase 25 took {report['wall_s']:.1f} s")
     return krows, report, total, route_block
 
+# ---------------------------------------------------------------------------
+# Phase 26: resume a run from its checkpoint
+# ---------------------------------------------------------------------------
+
+
+def interior_step(steps, epochs: int) -> int:
+    """The saved step before the run's end nearest half of it."""
+    inner = [s_ for s_ in steps if s_ < epochs]
+    check(bool(inner), f"no checkpoint step before epoch {epochs} in {steps}")
+    return min(inner, key=lambda s_: abs(s_ - epochs / 2))
+
+
+def kept_run(torch, low_rank, res):
+    """What the bit checks keep of a run on the host, so that its device
+    state can be freed: history, final loss, the packed iterate, the state's
+    updated field (MTLS r, logistic z, MC resid), probe, reducer state."""
+    last = next(getattr(res.state, f) for f in ("resid", "r", "z") if hasattr(res.state, f))
+    return dict(history=res.history, final_loss=res.final_loss, epochs_run=res.epochs_run,
+                packed=low_rank.pack_live(res.iterate), last=last.cpu(),
+                probe=res.probe.cpu() if isinstance(res.probe, torch.Tensor) else None,
+                comm_state={k: v.cpu() for k, v in (res.comm_state or {}).items()})
+
+
+def same_run(torch, np, low_rank, label, res, want):
+    """A resumed run against its uninterrupted run's ``kept_run``: every
+    part bit for bit."""
+    got = kept_run(torch, low_rank, res)
+    check(got["epochs_run"] == want["epochs_run"] and got["history"] == want["history"],
+          f"{label}: history differs from the uninterrupted run's")
+    check(got["final_loss"] == want["final_loss"],
+          f"{label}: final loss {got['final_loss']!r} != {want['final_loss']!r}")
+    check(all(np.array_equal(got["packed"][k], want["packed"][k]) for k in want["packed"]),
+          f"{label}: iterate differs from the uninterrupted run's")
+    check(torch.equal(got["last"], want["last"]), f"{label}: final state differs")
+    check((got["probe"] is None) == (want["probe"] is None) and (
+        got["probe"] is None or torch.equal(got["probe"], want["probe"])),
+        f"{label}: probe differs")
+    check(got["comm_state"].keys() == want["comm_state"].keys() and all(
+        torch.equal(got["comm_state"][k], v) for k, v in want["comm_state"].items()),
+        f"{label}: reducer state differs")
+
+
+def resumed_fit(torch, np, kernels, low_rank, dfw, kind, task, x, y, cfg, seed, dev, want,
+                label):
+    """``fit_serial(resume_from=...)`` under fresh launch counts: the
+    uninterrupted run's bits (``want``), and the launches of the epochs
+    after the resume step plus one state build (and the start-up checks).
+    Returns (result, launches, update_resid's block-route launches, wall s)."""
+    piters = []
+
+    def cb(start, aux):
+        piters.extend(int(p_) for p_ in aux.piters if p_ == p_)
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = dfw.fit_serial(task, x, y, cfg=cfg, key=seed, device=dev, callback=cb)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, route = kernels.launches(), kernels.route_launches()["update_resid"]["block"]
+    t = cfg.resume_step
+    check(len(piters) == cfg.num_epochs - t, f"{label}: ran {len(piters)} epochs from {t}")
+    if cfg.solver.startswith("block"):
+        exp = expected_block_launches(kind, piters, cfg.verify_kernels, cfg.comm,
+                                      cfg.step_size == "linesearch")
+    else:
+        exp = expected_launches(kind, res.history["k"][t:], cfg.verify_kernels, cfg.comm)
+    check(launches == exp, f"{label}: launches {launches} != expected {exp}")
+    same_run(torch, np, low_rank, label, res, want)
+    print(f"{label}: resumed at epoch {t}, {cfg.num_epochs - t} epochs in {wall:.2f} s: the "
+          f"uninterrupted run's bits (history, final loss, iterate, state, probe, reducer "
+          f"state); launches {launches}")
+    return res, launches, route, wall
+
+
+def resume_worker_rank(group, device, task, x, y, kw, ckdir, seed):
+    """One worker of phase 26 (e) (module level: run_workers starts it by
+    name): ``fit`` with checkpoints, then resumed at its interior step on
+    the same four workers and, on workers 0 and 1, on two."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.checkpoint.store import list_steps
+    from repro_torch.core import low_rank
+    from repro_torch.launch import dfw
+
+    def run(cfg, grp):
+        kernels.reset_launches()
+        res = dfw.fit(task, x, y, cfg=cfg, key=seed, group=grp, device=device)
+        out = dict(history=res.history, final_loss=res.final_loss, epochs_run=res.epochs_run,
+                   packed=low_rank.pack_live(res.iterate), launches=kernels.launches(),
+                   last=res.state.resid.cpu())
+        del res
+        torch.cuda.empty_cache()
+        return out
+
+    cfg = dfw.DFWConfig(checkpoint_dir=ckdir, **kw)
+    out = {"full": run(cfg, group)}
+    out["step"] = interior_step(list_steps(ckdir), kw["num_epochs"])
+    rcfg = dc.replace(cfg, checkpoint_dir=None, resume_from=ckdir, resume_step=out["step"])
+    out["four"] = run(rcfg, group)
+    two = group.split([[0, 1], [2, 3]])
+    if group.rank < 2:
+        out["two"] = run(rcfg, two)
+    return out
+
+
+def resume_phase(torch, np, kernels, dfw, tasks, low_rank, checkpoint, convert, dev, args):
+    """Phase 26: resume runs from their checkpoints on the card. Returns
+    (report, summed launches of the resumed and checkpointed runs,
+    update_resid's block-route launches among them)."""
+    import shutil
+    import tempfile
+
+    report = {}
+    total = dict.fromkeys(kernels.launches(), 0)
+    route_total = 0
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    free_gb = shutil.disk_usage(build).free / 1e9
+    print(f"checkpoints under {build}: {free_gb:.1f} GB free on its disk")
+    check(free_gb > 12, f"phase 26 needs about 12 GB of disk for MC checkpoints, {free_gb:.1f} free")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)  # phase 21's draws: phase 3's X and Y, its ratings
+    X, Y = dense_data(torch, gen, dev, args.rows)
+    labels = planted_labels(torch, gen, dev, X)
+    idx, yw, (te_rows, te_cols, te_vals), mu = make_mc_data(torch, gen, dev, args.mc_entries,
+                                                           NF_TEST, d=NF_D, m=NF_M)
+
+    # (f) the dense MTLS operator against the factored one, on phase 3's X, Y
+    dtask = tasks.MultiTaskLeastSquaresDense(PAPER_D, PAPER_M)
+    ftask = dfw.kernelize(tasks.MultiTaskLeastSquares(PAPER_D, PAPER_M))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sd = dtask.init_state(X, Y)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sf = ftask.init_state(X, Y)
+    v = torch.randn(PAPER_M, generator=gen, device=dev)
+    u = torch.randn(PAPER_D, generator=gen, device=dev)
+    v, u = v / torch.linalg.vector_norm(v), u / torch.linalg.vector_norm(u)
+    errs = {}
+    for stage in ("fresh", "updated"):
+        for op, got, want in (("matvec", dtask.matvec(sd, v), ftask.matvec(sf, v)),
+                              ("rmatvec", dtask.rmatvec(sd, u), ftask.rmatvec(sf, u)),
+                              ("local_grad", dtask.local_grad(sd), ftask.local_grad(sf))):
+            errs[f"{op} {stage}"] = err = rel_err(torch, got, want)[1]
+            check(err <= 1e-3, f"(f) dense MTLS {op} ({stage}): {err:.2e} of max from the "
+                  "factored operator (limit 1e-3)")
+        if stage == "fresh":
+            sd, sf = dtask.update(sd, u, v, 0.5, 1.0), ftask.update(sf, u, v, 0.5, 1.0)
+    report["dense_mtls"] = dict(init_s=init_s, errors=errs)
+    print(f"(f) dense MTLS operator at d = {PAPER_D}, m = {PAPER_M} (state X^T X, X^T Y, grad: "
+          f"{4 * (PAPER_D ** 2 + 2 * PAPER_D * PAPER_M) / 1e6:.1f} MB; built from n = "
+          f"{X.shape[0]} rows in {init_s:.3f} s) against the factored operator, fresh and after "
+          "an update, max error over max: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    del sd, sf
+    torch.cuda.empty_cache()
+
+    ck = tempfile.TemporaryDirectory(dir=build, prefix="resume_ckpt_")
+    try:
+        # (c), (d) MTLS topk:16 and logistic int8 at d = 2048, m = 1000, n cut
+        # to --serve-rows (the full MTLS state is 20.7 GB a step)
+        ns = args.serve_rows
+        for label, kind, task, target, kw in (
+            ("(c) mtls topk:16", "mtls", tasks.MultiTaskLeastSquares(PAPER_D, PAPER_M), Y,
+             dict(mu=1.0, schedule="const:2", step_size="linesearch", comm="topk:16")),
+            ("(d) logistic int8", "logistic", tasks.MultinomialLogistic(PAPER_D, PAPER_M),
+             labels, dict(mu=10.0, schedule="const:2", comm="int8")),
+        ):
+            d_ = f"{ck.name}/{kind}"
+            cfg = dfw.DFWConfig(num_epochs=8, block_epochs=4, checkpoint_dir=d_,
+                                checkpoint_keep=None, **kw)
+            res, launches, _ = run_path(torch, kernels, dfw, kind, task, X[:ns], target[:ns],
+                                        cfg, args.seed, dev)
+            add(launches)
+            want = kept_run(torch, low_rank, res)
+            del res
+            rcfg = dataclasses.replace(cfg, checkpoint_dir=None, resume_from=d_, resume_step=4)
+            res, launches, _, wall = resumed_fit(torch, np, kernels, low_rank, dfw, kind, task,
+                                                 X[:ns], target[:ns], rcfg, args.seed, dev,
+                                                 want, label)
+            add(launches)
+            report[label] = dict(step_bytes=step_bytes(d_, 4), resumed_wall_s=wall)
+            del res, want
+            torch.cuda.empty_cache()
+        del X, Y, labels
+        torch.cuda.empty_cache()
+
+        # (a) MC dense at the Netflix shapes, phase 8's configuration
+        mc_task = tasks.MatrixCompletion(NF_D, NF_M)
+        d_ = f"{ck.name}/mc"
+        cfg = dfw.DFWConfig(mu=mu, num_epochs=10, schedule="log", step_size="linesearch",
+                            block_epochs=5, checkpoint_dir=d_)
+        res, launches, rep = run_path(torch, kernels, dfw, "mc", mc_task, idx, yw, cfg,
+                                      args.seed, dev)
+        add(launches)
+        want = kept_run(torch, low_rank, res)
+        del res
+        torch.cuda.empty_cache()
+        steps = checkpoint.store.list_steps(d_)
+        step = interior_step(steps, cfg.num_epochs)
+        nbytes = {s_: step_bytes(d_, s_) for s_ in steps}
+        # the restore by part: disk read, host to device, the state build
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = checkpoint.restore_run(d_, task=mc_task, step=step)
+        t1 = time.perf_counter()
+        fields = convert.state_tensors(snap.state, device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        state = convert.task_state(fields, device=dev, d=NF_D, m=NF_M)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        parts = dict(read_s=t1 - t0, to_device_s=t2 - t1, build_s=t3 - t2)
+        del snap, fields, state
+        torch.cuda.empty_cache()
+        rcfg = dataclasses.replace(cfg, checkpoint_dir=None, resume_from=d_, resume_step=step)
+        res, launches, _, wall = resumed_fit(torch, np, kernels, low_rank, dfw, "mc", mc_task,
+                                             idx, yw, rcfg, args.seed, dev, want, "(a) mc dense")
+        add(launches)
+        report["(a) mc dense"] = dict(steps=steps, step=step, step_bytes=nbytes,
+                                      fit_wall_s=rep["wall_s"], resumed_wall_s=wall, **parts)
+        print(f"(a) mc dense: checkpoint steps kept {steps}, bytes a step "
+              + ", ".join(f"{s_}: {b_} ({b_ / 1e9:.3f} GB)" for s_, b_ in nbytes.items())
+              + f"; restore of step {step}: disk read {parts['read_s']:.3f} s, host to device "
+              f"{parts['to_device_s']:.3f} s, state build {parts['build_s']:.3f} s; the fit with "
+              f"checkpoints {rep['wall_s']:.2f} s")
+        del res, want
+        shutil.rmtree(d_)
+        torch.cuda.empty_cache()
+
+        # (b) MC block:8:adapt, phase 25's configuration, resumed at 5: the probe
+        d_ = f"{ck.name}/mc_block"
+        cfg = dfw.DFWConfig(mu=mu, num_epochs=10, schedule="const:4", step_size="linesearch",
+                            solver="block:8:adapt", block_epochs=5, checkpoint_dir=d_)
+        res, launches, rep = block_fit(torch, kernels, dfw, "mc", mc_task, idx, yw, cfg,
+                                       args.seed, dev)
+        add(launches)
+        route_total += rep["block_route"]
+        want = kept_run(torch, low_rank, res)
+        del res
+        torch.cuda.empty_cache()
+        rcfg = dataclasses.replace(cfg, checkpoint_dir=None, resume_from=d_, resume_step=5)
+        res, launches, route, wall = resumed_fit(torch, np, kernels, low_rank, dfw, "mc",
+                                                 mc_task, idx, yw, rcfg, args.seed, dev, want,
+                                                 "(b) mc block:8:adapt")
+        add(launches)
+        route_total += route
+        report["(b) mc block:8:adapt"] = dict(step_bytes=step_bytes(d_, 5), resumed_wall_s=wall)
+        del res, want
+        shutil.rmtree(d_)
+        torch.cuda.empty_cache()
+
+        # (e) four gloo workers on the card, phase 22's MC setup: resumed on
+        # four (bits) and on two (phase 22's tolerances)
+        nw = MULTI_WORKERS
+        idx4, yw4 = dfw.shard_observations(idx[:, 0], idx[:, 1], yw[:, 0], nw, NF_D, m=NF_M)
+        idx4, yw4 = idx4.to(dev), yw4.to(dev)
+        del idx, yw
+        torch.cuda.empty_cache()
+        kw = dict(mu=mu, num_epochs=args.mc_int8_epochs, schedule="log",
+                  step_size="linesearch", block_epochs=5)
+        t0 = time.perf_counter()
+        ranks = dfw.run_workers(nw, resume_worker_rank, mc_task, idx4, yw4, kw,
+                                f"{ck.name}/mc4", args.seed, backend="gloo", device=dev)
+        wall = time.perf_counter() - t0
+        step = ranks[0]["step"]
+        full = ranks[0]["full"]
+        for j, r_ in enumerate(ranks):
+            for part, ks in (("full", r_["full"]["history"]["k"]),
+                             ("four", r_["full"]["history"]["k"][step:])):
+                exp = expected_launches("mc", ks, True)
+                check(r_[part]["launches"] == exp,
+                      f"(e) worker {j} {part}: launches {r_[part]['launches']} != {exp}")
+                add(r_[part]["launches"])
+            got, mine = r_["four"], r_["full"]
+            check(got["history"] == mine["history"] and got["final_loss"] == mine["final_loss"]
+                  and all(np.array_equal(got["packed"][k], mine["packed"][k])
+                          for k in mine["packed"]) and torch.equal(got["last"], mine["last"]),
+                  f"(e) worker {j}: resumed on four is not its uninterrupted run's bits")
+            check(got["history"] == full["history"], f"(e) worker {j}'s history is not worker 0's")
+        for j in (0, 1):
+            exp = expected_launches("mc", full["history"]["k"][step:], True)
+            check(ranks[j]["two"]["launches"] == exp, f"(e) two workers: worker {j} launches")
+            add(ranks[j]["two"]["launches"])
+        two = ranks[0]["two"]
+        check(two["history"] == ranks[1]["two"]["history"], "(e) the two workers part")
+        it_two = low_rank.unpack_live(two["packed"], int(two["packed"]["count"]), device=dev)
+        it_full = low_rank.unpack_live(full["packed"], int(full["packed"]["count"]), device=dev)
+        deviation = fits_agree(np, two["history"], full["history"], "(e) resumed on two",
+                               low_rank.gather_entries(it_two, te_rows, te_cols).cpu().numpy(),
+                               low_rank.gather_entries(it_full, te_rows, te_cols).cpu().numpy())
+        report["(e) four gloo workers"] = dict(
+            step=step, wall_s=wall, deviation_on_two={
+                k_: max(v_) if isinstance(v_, list) else v_ for k_, v_ in deviation.items()})
+        print(f"(e) mc dense on {nw} gloo workers (the card shared; a check, not a timing), "
+              f"{kw['num_epochs']} epochs, checkpoints at every boundary: resumed at epoch "
+              f"{step} on four, every worker its uninterrupted run's bits; on two, largest "
+              f"deviation from the four-worker run {report['(e) four gloo workers']['deviation_on_two']}"
+              f"; {wall:.1f} s")
+        del idx4, yw4, it_two, it_full
+    finally:
+        ck.cleanup()
+    torch.cuda.empty_cache()
+    return report, total, route_total
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3622,7 +3986,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(src))
     import numpy as np
 
-    from repro_torch import NoiseStream, V0Stream, checkpoint, comm, kernels, resolve_device
+    from repro_torch import (NoiseStream, V0Stream, checkpoint, comm, convert, kernels,
+                             resolve_device)
     from repro_torch import serve
     from repro_torch.configs import get_config
     from repro_torch.core import baselines, frank_wolfe, low_rank, tasks
@@ -3919,13 +4284,25 @@ def main(argv=None) -> int:
         krows += block_rows
         print(f"phase 25 took {report['block']['wall_s']:.1f} s ({smi})")
         torch.cuda.empty_cache()
+
+        # 26. resume from checkpoints: MC dense and block:8:adapt at the Netflix
+        # shapes, MTLS topk:16 and logistic int8, four gloo workers resumed on
+        # four and on two; the dense MTLS operator
+        t0 = time.perf_counter()
+        report["resume"], resume_launch, resume_route = resume_phase(
+            torch, np, kernels, dfw, tasks, low_rank, checkpoint, convert, dev, args)
+        block_route += resume_route
+        report["resume"]["wall_s"] = time.perf_counter() - t0
+        print(f"phase 26 took {report['resume']['wall_s']:.1f} s ({smi})")
+        torch.cuda.empty_cache()
     except Check as e:
         return fail(str(e))
 
     out = []
     paths = (mtls_launch, log_launch, mc_launch, mc8_launch, fit12_launch, serve_launch,
              prefill_launch, decode_launch, ssm_prefill_launch, ssm_decode_launch,
-             world_one_launch, multi_launch, baselines_launch, graphs_launch, block_launch)
+             world_one_launch, multi_launch, baselines_launch, graphs_launch, block_launch,
+             resume_launch)
     for kname in (*TPU_KERNEL, *HELPER_KERNELS, *BLOCK_KERNELS, "update_resid_block"):
         rows = [r for r in krows if r["name"] == kname]
         main_row = next((r for r in rows if r.get("main")), None) or max(
@@ -3952,7 +4329,8 @@ def main(argv=None) -> int:
             shape=main_row["shape"],
             by_operand={r["operand"]: {k: r[k] for k in (
                 "shape", "ms", "plain_ms", "library_ms", "library_rel_err", "library_chain_ms",
-                "library_ratio", "exact_ms", "bound_ms", "bound_f32_cores_ms", "bound_by",
+                "library_ratio", "library_chain_ratio", "ms_rounds", "library_ms_rounds",
+                "library_chain_ms_rounds", "exact_ms", "bound_ms", "bound_f32_cores_ms", "bound_by",
                 "max_rel_err", "device_ms", "random_floor_ms", "random_floor_with_passes_ms",
                 "gather_floor_ms")
                 if k in r}

@@ -66,7 +66,9 @@ class V0Stream:
     ``V0Stream(seed)`` draws epoch t's vector from a ``torch.Generator`` on
     the target device, seeded from (seed, t); no host sync is involved.
     ``V0Stream.from_table(rows)`` returns row t of a caller-given (T, m)
-    table instead (moved to the device once).
+    table instead (moved to the device once); its seed is 0, the one a
+    checkpoint of the run records. A resume keeps a table-fed stream
+    (``tabled``): its rows are indexed by absolute epoch.
 
     ``stream.block(t, m, k, device)`` is the block solver's (m, k) block of
     fresh unit columns for epoch t, the counterpart of the reference's
@@ -83,11 +85,16 @@ class V0Stream:
 
     @classmethod
     def from_table(cls, table) -> "V0Stream":
-        stream = cls(0)
+        stream = cls()
         stream._table = torch.as_tensor(table, dtype=torch.float32)
         if stream._table.dim() not in (2, 3):
             raise ValueError("v0 table must be (epochs, m), or (epochs, m, k) for block columns")
         return stream
+
+    @property
+    def tabled(self) -> bool:
+        """Does the stream return a caller-given table's rows?"""
+        return self._table is not None
 
     def _row(self, t: int, shape: tuple, device: torch.device) -> torch.Tensor:
         if tuple(self._table.shape[1:]) != shape or not 0 <= t < self._table.shape[0]:

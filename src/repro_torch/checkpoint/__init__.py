@@ -4,8 +4,10 @@ from . import dfw, store
 from .dfw import (
     PAYLOAD_FORMAT,
     RunCheckpointer,
+    RunSnapshot,
     read_iterate_packed,
     read_run_extra,
+    restore_run,
     run_extra,
 )
 from .store import MANIFEST_FORMAT, CheckpointStore
@@ -15,9 +17,11 @@ __all__ = [
     "MANIFEST_FORMAT",
     "PAYLOAD_FORMAT",
     "RunCheckpointer",
+    "RunSnapshot",
     "dfw",
     "read_iterate_packed",
     "read_run_extra",
+    "restore_run",
     "run_extra",
     "store",
 ]

@@ -33,11 +33,28 @@ where the JAX package writes ``jax_version``, and ``solver``, from which the
 JAX package's ``restore_run`` sizes the reducer state (d k and m k for
 "block:k") and expects the probe leaf.
 
-Serving reads only the iterate (``read_iterate_packed``). ``RunSnapshot``
-and ``restore_run`` (resume) come with the resume path.
+Serving reads only the iterate (``read_iterate_packed``). A resume reads
+the whole step (``restore_run``) into a host-side ``RunSnapshot``, leaf by
+path; ``launch.dfw``'s ``fit_serial`` and ``fit`` rebuild the run from it.
+
+**The run key.** ``carry/key`` holds the run's seed, and a seed is all the
+port's randomness needs: the start vectors, the block solver's fresh
+columns and the int8 noise are stateless functions of (seed, t)
+(``repro_torch.V0Stream``, ``NoiseStream``). So ``RunSnapshot.seed``, the
+key's high word shifted over its low word, continues a port run bit for
+bit. A key the JAX package wrote decodes the same way (``PRNGKey(seed)``
+holds the seed's two words), but the port then continues with its own
+draws from that seed, not JAX's; a caller who wants JAX's hands them in
+through ``V0Stream.from_table``, whose table is indexed by absolute epoch
+and is kept across the resume (``fit_serial`` and ``fit`` do not replace a
+table-fed key).
+A table-fed run writes seed 0, so a table made from the JAX package's
+``PRNGKey(0)`` gives a checkpoint that the JAX package resumes with its own
+draws.
 """
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 from typing import Dict, Optional, Union
 
@@ -45,6 +62,7 @@ import numpy as np
 import torch
 
 from ..core import low_rank
+from ..specs import parse_solver
 from .store import CheckpointStore, read_leaves, read_manifest
 
 PAYLOAD_FORMAT = 3
@@ -63,6 +81,14 @@ def prng_key(seed: int) -> np.ndarray:
     bits of the seed, uint32."""
     seed = int(seed)
     return np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], np.uint32)
+
+
+def seed_of(key) -> int:
+    """The seed of a ``carry/key`` leaf: the inverse of :func:`prng_key`."""
+    words = np.asarray(key).reshape(-1)
+    if words.shape != (2,):
+        raise ValueError(f"carry/key has shape {np.asarray(key).shape}; expected (2,) uint32")
+    return (int(words[0]) << 32) | int(words[1])
 
 
 def _state_leaves(state) -> Dict[str, torch.Tensor]:
@@ -171,6 +197,11 @@ def run_extra(task, *, num_workers: int, comm: str, num_epochs: int, schedule: s
     }
 
 
+def _history_lists(arrays: Dict[str, np.ndarray]) -> Dict[str, list]:
+    return {k: [int(v) for v in arrays[k]] if k == "k" else [float(v) for v in arrays[k]]
+            for k in HISTORY_KEYS}
+
+
 def _directory(source: Source) -> Path:
     return source.dir if isinstance(source, CheckpointStore) else Path(source)
 
@@ -203,3 +234,85 @@ def read_iterate_packed(source: Source, step: Optional[int] = None) -> tuple:
             "RunCheckpointer.save_segment?"
         )
     return step, packed, extra
+
+
+@dataclasses.dataclass
+class RunSnapshot:
+    """A run checkpoint step on the host (numpy leaves).
+
+    ``t`` is the resume epoch (epochs run, the length of every ``history``
+    list). ``state`` holds the task state's saved fields in declaration
+    order (MTLS x, y, r; logistic x, y (int32, as written), z; MC rows,
+    cols, vals, resid, weight, worker j's shard at ``[j p, (j+1) p)`` after
+    a run of N workers); ``convert.task_state`` builds the port's state from
+    them, derived fields included. ``iterate`` is the ``pack_live`` dict;
+    ``comm_state`` the reducer's (``()``, or top-k's ``{"u", "v"}``, with a
+    leading worker axis after a run of N workers); ``probe`` the block
+    solver's (m, k) warm start, ``()`` where the step has none; ``seed`` the
+    run key's seed (module doc); ``masks`` the (num_epochs, N) worker
+    weights, None where the step saved none; ``extra`` the manifest's run
+    record."""
+
+    t: int
+    state: Dict[str, np.ndarray]
+    iterate: Dict[str, np.ndarray]
+    comm_state: object
+    probe: object
+    seed: int
+    history: Dict[str, list]
+    masks: Optional[np.ndarray]
+    extra: dict
+
+    @property
+    def done(self) -> bool:
+        """Did the run stop on its gap certificate (or end) at this step?"""
+        return bool(self.extra.get("done", False))
+
+    def unpack_iterate(self, max_rank: int, device) -> low_rank.FactoredIterate:
+        """The iterate on ``device`` in a store of ``max_rank`` factors."""
+        return low_rank.unpack_live(self.iterate, max_rank, device=device)
+
+
+def restore_run(source: Source, *, task, step: Optional[int] = None) -> RunSnapshot:
+    """Read checkpoint step ``step`` (default: the latest) of a run of
+    ``task``, every leaf by its path, into a :class:`RunSnapshot`.
+
+    Payload formats 1 to 3 are read (a port or a JAX package checkpoint).
+    The probe is ``()`` for a format-1 step (it has none) and for a probe
+    of another shape than (task.m, k) of the saved solver; a resume then
+    cold-starts it, as the JAX package does. Whether the snapshot belongs
+    to ``task``'s problem is the caller's check (its task name, d and m in
+    ``extra``)."""
+    step, leaves, extra = read_leaves(_directory(source), step)
+    fmt = extra.get("payload_format", -1)
+    if fmt not in READABLE_FORMATS:
+        raise ValueError(
+            f"checkpoint step {step} has payload format {fmt}; this build reads "
+            f"{READABLE_FORMATS}"
+        )
+
+    def under(prefix: str) -> Dict[str, np.ndarray]:
+        return {path[len(prefix):]: arr for path, arr in leaves.items()
+                if path.startswith(prefix)}
+
+    iterate = under("carry/iterate/")
+    missing = [k for k in low_rank.PACKED_KEYS if k not in iterate]
+    if missing or "carry/key" not in leaves:
+        raise ValueError(f"checkpoint step {step} under {_directory(source)} is no run "
+                         f"checkpoint: it lacks {missing or ['carry/key']}")
+    solver = parse_solver(extra.get("solver", "rank1"))
+    probe = leaves.get("carry/probe", ())
+    if fmt < 2 or solver.kind != "block" or np.shape(probe) != (int(task.m), solver.k):
+        probe = ()
+    masks = leaves.get("masks")
+    return RunSnapshot(
+        t=int(extra.get("t", leaves.get("carry/t", -1))),
+        state=under("carry/state/"),
+        iterate=iterate,
+        comm_state=under("carry/comm_state/") or (),
+        probe=probe,
+        seed=seed_of(leaves["carry/key"]),
+        history=_history_lists(under("history/")),
+        masks=None if masks is None or masks.size == 0 else masks,
+        extra=extra,
+    )

@@ -26,8 +26,8 @@ order and path, never through it.
 
 Readers (``read_leaves``, and ``checkpoint.dfw``'s readers given a path)
 list and load steps without opening a store, so a serving process that
-follows a training run's directory never renames anything in it. Restoring a
-run (``restore``) comes with the resume path.
+follows a training run's directory never renames anything in it; a resume
+reads its step the same way (``checkpoint.dfw.restore_run``).
 """
 from __future__ import annotations
 

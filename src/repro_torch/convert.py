@@ -28,35 +28,68 @@ def _fields(obj: Any) -> dict:
     raise TypeError(f"expected a NamedTuple or dict of arrays, got {type(obj).__name__}")
 
 
+_NUMPY = {torch.float32: np.float32, torch.int32: np.int32, torch.int64: np.int64}
+
+
+def _as(a, dtype: torch.dtype, device) -> torch.Tensor:
+    """A copy of host array ``a`` on ``device``; a tensor already there with
+    that dtype is returned as it is. An array bound for the card is copied
+    once, by the transfer: a writable, contiguous array of the right dtype
+    (a checkpoint's, read from disk) is handed to it without a host copy.
+    A read-only buffer (the JAX package's), or one bound for the CPU, is
+    copied on the host, so the tensor never aliases the caller's array."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype)
+    if device.type == "cpu":
+        return torch.from_numpy(np.array(a, dtype=_NUMPY[dtype], copy=True))
+    host = np.ascontiguousarray(a, dtype=_NUMPY[dtype])
+    if not host.flags.writeable:
+        host = host.copy()
+    return torch.from_numpy(host).to(device)
+
+
 def _f32(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True)).to(device)
+    return _as(a, torch.float32, device)
 
 
-def _i32(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.int32, copy=True)).to(device)
+# Field sets of the task states, with each field's dtype in the port.
+_STATE_DTYPES = (
+    {"rows": torch.int32, "cols": torch.int32, "vals": torch.float32,
+     "resid": torch.float32, "weight": torch.float32},
+    {"x": torch.float32, "y": torch.float32, "r": torch.float32},
+    {"x": torch.float32, "y": torch.int64, "z": torch.float32},
+)
+
+
+def state_tensors(state: Any, *, device: DeviceLike = None) -> dict:
+    """The saved fields of a task state (the JAX package's, or a
+    checkpoint's ``RunSnapshot.state``) on ``device`` with the port's dtypes
+    (logistic labels int64): the host-to-device half of :func:`task_state`.
+    Tensors already on ``device`` with their dtype are kept as they are."""
+    dev = resolve_device(device)
+    f = _fields(state)
+    dtypes = next((dt for dt in _STATE_DTYPES if set(dt) == set(f)), None)
+    if dtypes is None:
+        raise TypeError(f"no port state with fields {sorted(f)} (MTLS: x/y/r, logistic: "
+                        "x/y/z, MC: rows/cols/vals/resid/weight)")
+    return {name: _as(f[name], dtypes[name], dev) for name in f}
 
 
 def task_state(state: Any, *, device: DeviceLike = None, d: int = None, m: int = None):
     """``MTLSState`` (x, y, r), ``LogisticState`` (x, y, z; int32 labels
-    become int64) or ``MCState`` (rows, cols, vals, resid, weight, in the
-    same entry order) from the JAX package's state of the same name. An
-    ``MCState`` needs the task's ``d`` and ``m``, to build the kernel's row
-    and column orders and the residual's copies in them."""
-    dev = resolve_device(device)
-    f = _fields(state)
-    if set(f) == {"rows", "cols", "vals", "resid", "weight"}:
+    become int64, and the label order is built) or ``MCState`` (rows, cols,
+    vals, resid, weight, in the same entry order) from the JAX package's
+    state of the same name or a checkpoint's saved fields. An ``MCState``
+    needs the task's ``d`` and ``m``, to build the kernel's row and column
+    orders and the residual's copies in them (``tasks.mc_state``)."""
+    f = state_tensors(state, device=device)
+    if "rows" in f:
         if d is None or m is None:
             raise TypeError("an MCState needs the task's d and m")
-        return tasks.mc_state(_i32(f["rows"], dev), _i32(f["cols"], dev), _f32(f["vals"], dev),
-                              _f32(f["resid"], dev), _f32(f["weight"], dev), d, m)
-    if set(f) == {"x", "y", "r"}:
-        return tasks.MTLSState(x=_f32(f["x"], dev), y=_f32(f["y"], dev), r=_f32(f["r"], dev))
-    if set(f) == {"x", "y", "z"}:
-        labels = torch.from_numpy(np.asarray(f["y"]).astype(np.int64)).to(dev)
-        z = _f32(f["z"], dev)
-        return tasks.logistic_state(_f32(f["x"], dev), labels, z, z.shape[1])
-    raise TypeError(f"no port state with fields {sorted(f)} (MTLS: x/y/r, logistic: x/y/z, "
-                    "MC: rows/cols/vals/resid/weight)")
+        return tasks.mc_state(f["rows"], f["cols"], f["vals"], f["resid"], f["weight"], d, m)
+    if "r" in f:
+        return tasks.MTLSState(x=f["x"], y=f["y"], r=f["r"])
+    return tasks.logistic_state(f["x"], f["y"], f["z"], f["z"].shape[1])
 
 
 def iterate(it: Any, max_rank: int, *, device: DeviceLike = None) -> low_rank.FactoredIterate:

@@ -37,8 +37,13 @@ keeps the rank-1 path and its bits. The dense tasks' block update goes
 through the ``power_matvec.matmat`` and ``rankk_update(_axpy)`` kernels,
 matrix completion's through ``update_resid`` with block factors, which also
 gives MC's line search the block atom on the entries, never forming a (p,
-k) array (``linesearch_terms``). The dense MTLS state comes
-with a later slice.
+k) array (``linesearch_terms``).
+
+``MultiTaskLeastSquaresDense`` keeps the dense sufficient information (X^T
+X, X^T Y and the gradient) in plain f32 products, as the reference does
+outside any kernel. It is an operator only: it has no ``local_loss`` or
+``inner_w_grad``, so ``fit_serial`` and ``fit`` refuse it, as the
+reference's cannot run it.
 """
 from __future__ import annotations
 
@@ -144,6 +149,43 @@ class MultiTaskLeastSquares:
 
         numer, denom = _row_chunked_sum(terms, s.r, s.y, xu)
         return numer, denom
+
+
+class MTLSDenseState(NamedTuple):
+    """Dense sufficient information (paper App. B, "dense" column): X^T X,
+    X^T Y and the gradient. Memory O(d^2 + d m); an update's cost does not
+    depend on n_j."""
+
+    xtx: torch.Tensor  # (d, d) fixed
+    xty: torch.Tensor  # (d, m) fixed
+    g: torch.Tensor  # (d, m) local gradient X^T X W - X^T Y
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiTaskLeastSquaresDense:
+    d: int
+    m: int
+
+    def init_state(self, x: torch.Tensor, y: torch.Tensor) -> MTLSDenseState:
+        # W^0 = 0  =>  grad = -X^T Y
+        x = _f32(x, "x")
+        xty = x.T @ _f32(y, "y")
+        return MTLSDenseState(xtx=x.T @ x, xty=xty, g=-xty)
+
+    def matvec(self, s: MTLSDenseState, v: torch.Tensor) -> torch.Tensor:
+        return s.g @ v
+
+    def rmatvec(self, s: MTLSDenseState, u: torch.Tensor) -> torch.Tensor:
+        return s.g.T @ u
+
+    def update(self, s: MTLSDenseState, u, v, gamma, mu) -> MTLSDenseState:
+        # grad' = (1-g) grad + g (X^T X S - X^T Y),  X^T X S = -mu (X^T X u) v^T
+        atom = -mu * _uvt(s.xtx @ u, v)
+        g = (1.0 - gamma) * s.g + gamma * (atom - s.xty)
+        return MTLSDenseState(xtx=s.xtx, xty=s.xty, g=g)
+
+    def local_grad(self, s: MTLSDenseState) -> torch.Tensor:
+        return s.g
 
 
 # ---------------------------------------------------------------------------

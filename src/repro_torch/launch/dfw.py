@@ -30,8 +30,29 @@ completion entries as the JAX package does.
 package's layout and payload format (``repro_torch.checkpoint``), which the
 serving engine and the JAX package's readers load; in a multi-worker run
 worker 0 writes the whole state and the top-k residuals of every worker
-(and the block solver's replicated probe). Resuming and telemetry come with
-later slices; a ``DFWConfig`` that asks for them is rejected.
+(and the block solver's replicated probe). ``DFWConfig(resume_from=...,
+resume_step=...)`` continues a run from such a step (the port's or the JAX
+package's), as the reference's ``fit_serial`` and ``fit`` do:
+
+- **Bit-exact.** On the same problem with the same worker count, topology
+  and comm, the resumed run gives the uninterrupted run's history, final
+  loss, iterate and probe bit for bit: the state, the iterate, the epoch
+  counter, the run seed, every worker's reducer state, the probe and the
+  sampled-worker weights are restored, and the start vectors and noise are
+  functions of (seed, t) (``checkpoint.dfw``'s module doc).
+- **Elastic.** On another worker count each worker takes its rows of the
+  saved (global) state, the reducer state starts fresh and the
+  sampled-worker weights are drawn again; the trajectory then agrees to
+  the summation order.
+- **Warm restart.** ``schedule``, ``comm``, ``num_epochs`` and ``gap_tol``
+  may change at the resume point (a changed comm starts fresh reducer
+  state); a step at which the budget is spent or whose gap certificate
+  still stands under this config returns without running an epoch.
+
+A gossip run's checkpoint holds node 0's iterate; every node resumes from
+it. The run owns its checkpoint directory from the resume point: steps
+after it are removed. Telemetry comes with a later slice; a ``DFWConfig``
+that asks for it is rejected.
 """
 from __future__ import annotations
 
@@ -46,9 +67,9 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from .. import DeviceLike, NoiseStream, _mix, as_v0_stream, resolve_device
+from .. import DeviceLike, NoiseStream, V0Stream, _mix, as_v0_stream, convert, resolve_device
 from ..checkpoint import dfw as ckpt
-from ..comm import (Int8Reducer, WorkerGroup, destroy_groups, make_topology,
+from ..comm import (Int8Reducer, WorkerGroup, destroy_groups, make_topology, psum,
                     verify_quantize_kernels)
 from ..core import engine, frank_wolfe, low_rank, tasks
 from ..core.frank_wolfe import EpochAux
@@ -75,9 +96,11 @@ class DFWConfig:
     worker axis in the reference and is accepted and unused here (the
     workers are the process group's ranks). ``gossip_rounds`` overrides a
     gossip graph's mixing rounds per exchange (None: sized from its
-    spectral gap, ``comm.default_gossip_rounds``). Every field of the second
-    group belongs to a path not yet ported (Pallas, resume, telemetry) and
-    must keep its default; anything else raises
+    spectral gap, ``comm.default_gossip_rounds``). ``resume_from`` (a
+    checkpoint directory) and ``resume_step`` (default: its latest step)
+    resume a run (the module doc). Every field of the second
+    group belongs to a path not yet ported (Pallas, the legacy engine,
+    telemetry) and must keep its default; anything else raises
     ``NotYetPorted`` when the config is built. The port has no
     ``kernelize`` switch: the run always goes through ``KernelizedTask``,
     whose ops pick the kernel or the plain version by the tensors' device.
@@ -101,12 +124,12 @@ class DFWConfig:
     sample_prob: float = 1.0
     reweight: bool = True
     gossip_rounds: Optional[int] = None
+    resume_from: Optional[str] = None
+    resume_step: Optional[int] = None
     # --- not yet ported: must keep these defaults ---
     use_pallas: Optional[bool] = None
     interpret: bool = False
     engine: str = "scan"
-    resume_from: Optional[str] = None
-    resume_step: Optional[int] = None
     telemetry: Optional[Any] = None
 
     def __post_init__(self):
@@ -128,8 +151,6 @@ _UNPORTED = {
     "use_pallas": "Pallas dispatch (the port picks the kernel by tensor device)",
     "interpret": "Pallas interpret mode",
     "engine": "the legacy per-epoch engine",
-    "resume_from": "checkpoint resume",
-    "resume_step": "checkpoint resume",
     "telemetry": "telemetry",
 }
 
@@ -162,7 +183,8 @@ class KernelizedTask:
     ``coo_matmat``, each reading its matrix once (the reference vmaps the
     vector kernels over the k columns). The logistic softmax P, ``P @ v``,
     ``P^T @ t`` and the label scatter stay plain PyTorch, as they stay plain
-    XLA in the JAX package. Everything else is delegated to the base task."""
+    XLA in the JAX package. Everything else, the dense MTLS state's products
+    among it (as in the reference), is delegated to the base task."""
 
     def __init__(self, base):
         self._base = base
@@ -335,10 +357,12 @@ def worker_schedule(key, num_epochs: int, num_workers: int, sample_prob: float, 
 # ---------------------------------------------------------------------------
 
 
-def _make_checkpointer(task, cfg: DFWConfig, comm_spec: str, num_workers: int = 1
-                       ) -> Optional[ckpt.RunCheckpointer]:
-    """The run's checkpointer, or None without a dir. The run owns the dir:
-    steps an earlier run left there are removed."""
+def _make_checkpointer(task, cfg: DFWConfig, comm_spec: str, num_workers: int = 1,
+                       start_t: int = 0) -> Optional[ckpt.RunCheckpointer]:
+    """The run's checkpointer, or None without a dir. The run owns the dir
+    from its first epoch ``start_t`` on: steps after it (all of them, for a
+    fresh run) are removed, so a later latest-step read never splices
+    another timeline onto this one."""
     if cfg.checkpoint_dir is None:
         return None
     checkpointer = ckpt.RunCheckpointer(
@@ -353,7 +377,7 @@ def _make_checkpointer(task, cfg: DFWConfig, comm_spec: str, num_workers: int = 
             topology=cfg.topology,
         ),
     )
-    checkpointer.store.discard_after(0)
+    checkpointer.store.discard_after(start_t)
     return checkpointer
 
 
@@ -405,9 +429,146 @@ def _as_tensor(a, device: torch.device) -> torch.Tensor:
     return a.to(device)
 
 
+# ---------------------------------------------------------------------------
+# Resume
+# ---------------------------------------------------------------------------
+
+
+def _check_epoch_path(task) -> None:
+    """``fit_serial`` and ``fit`` run tasks with an epoch path; the dense
+    MTLS operator (``tasks.MultiTaskLeastSquaresDense``) has none, as in the
+    reference."""
+    missing = [name for name in ("local_loss", "inner_w_grad") if not hasattr(task, name)]
+    if missing:
+        raise TypeError(
+            f"{type(task).__name__} has no epoch path: it lacks {', '.join(missing)}, which "
+            "every DFW-Trace epoch reads (the loss and the gap certificate); it is an "
+            "operator (matvec, rmatvec, update, local_grad) only"
+        )
+
+
+def _check_snapshot(snap: ckpt.RunSnapshot, task, cfg: DFWConfig) -> None:
+    """A checkpoint resumes only the problem it was saved from: the same task
+    type and dimensions (the worker count, comm and schedule may change:
+    elastic resume, warm restart)."""
+    ext = snap.extra
+    want = (type(task).__name__, int(task.d), int(task.m))
+    got = (ext.get("task"), int(ext.get("d", -1)), int(ext.get("m", -1)))
+    if want != got:
+        raise ValueError(
+            f"checkpoint was saved by task {got} but resume targets {want}; "
+            "resume_from must point at a checkpoint of the same problem"
+        )
+    if snap.t > cfg.num_epochs:
+        raise ValueError(
+            f"checkpoint is at epoch {snap.t} but num_epochs={cfg.num_epochs}; "
+            "extend num_epochs to resume past it"
+        )
+
+
+def _resume_complete(snap: ckpt.RunSnapshot, cfg: DFWConfig) -> bool:
+    """Does the checkpoint already satisfy this config? Yes when the epoch
+    budget is spent, or when its saved early stop still stands under
+    ``cfg.gap_tol``; a warm restart that extends ``num_epochs`` or loosens
+    or drops ``gap_tol`` runs on (the saved ``done`` records the old
+    certificate, not this one)."""
+    if snap.t >= cfg.num_epochs:
+        return True
+    if not snap.done:
+        return False
+    gaps = snap.history.get("gap", [])
+    return bool(gaps) and cfg.gap_tol is not None and gaps[-1] <= cfg.gap_tol
+
+
+@dataclasses.dataclass
+class _Start:
+    """A resumed run's start on this worker: the carry of epoch ``t`` on the
+    device, where the engine takes it. ``comm_state`` and ``probe`` are None
+    where the run starts them fresh (the reducer's ``init_state``, the cold
+    probe); ``masks`` the saved worker weights where they apply."""
+
+    state: PyTree
+    iterate: low_rank.FactoredIterate
+    comm_state: PyTree
+    t: int
+    history: Dict[str, list]
+    probe: Any
+    key: V0Stream
+    masks: Optional[np.ndarray]
+    complete: bool
+
+
+def _resume(task, cfg: DFWConfig, key: V0Stream, dev: torch.device, *, rank: int = 0,
+            workers: int = 1, serial: bool = True) -> _Start:
+    """Read ``cfg.resume_from`` and rebuild this worker's start from it.
+
+    Worker ``rank`` of ``workers`` takes rows ``[rank n/N, (rank+1) n/N)``
+    of every saved state field (matrix completion: its part of the saved
+    ``shard_observations`` layout; padding entries weigh zero). The
+    reducer state is restored where it belongs to this run's encoding: in
+    ``fit_serial`` from a one-worker run with the same comm, in ``fit``
+    from a run with the same worker count, topology and comm (worker j's
+    row of the saved (N, ...) residuals); elsewhere it starts fresh. A
+    table-fed ``key`` is kept (its rows are indexed by absolute epoch);
+    otherwise the run continues with the checkpoint's seed."""
+    snap = ckpt.restore_run(cfg.resume_from, task=task, step=cfg.resume_step)
+    _check_snapshot(snap, task, cfg)
+    ext = snap.extra
+    n = next(iter(snap.state.values())).shape[0]
+    if n % workers:
+        raise ValueError(
+            f"leading dim {n} of the checkpointed state not divisible by {workers} workers; "
+            "pad or trim the sample axis before sharding"
+        )
+    lo, hi = rank * (n // workers), (rank + 1) * (n // workers)
+    state = convert.task_state({name: val[lo:hi] for name, val in snap.state.items()},
+                               device=dev, d=task.d, m=task.m)
+    sspec = parse_solver(cfg.solver)
+    k_block = sspec.k if sspec.kind == "block" else 1
+    iterate = snap.unpack_iterate(
+        engine.resolve_max_rank(cfg.max_rank, cfg.num_epochs, k_block), dev)
+    same_workers = int(ext.get("num_workers", -1)) == workers
+    same_encoding = same_workers and ext.get("comm") == parse_comm(cfg.comm).spec and (
+        serial or ext.get("topology", "flat") == cfg.topology)
+    comm_state = None
+    if same_encoding:
+        saved = snap.comm_state
+        stacked = saved != () and np.ndim(saved["u"]) == 2  # (N, ...) from N workers
+        comm_state = convert.comm_state(saved, worker=rank if stacked else None, device=dev)
+    probe = None
+    if sspec.kind == "block" and np.shape(snap.probe) == (task.m, sspec.k):
+        probe = torch.from_numpy(np.array(snap.probe, np.float32)).to(dev)
+    same_sampling = (float(ext.get("sample_prob", -1.0)) == cfg.sample_prob
+                     and bool(ext.get("reweight", not cfg.reweight)) == cfg.reweight)
+    masks = snap.masks
+    if not (same_workers and same_sampling and masks is not None
+            and masks.shape == (cfg.num_epochs, workers)):
+        masks = None
+    return _Start(state=state, iterate=iterate, comm_state=comm_state, t=snap.t,
+                  history=snap.history, probe=probe,
+                  key=key if key.tabled else V0Stream(snap.seed), masks=masks,
+                  complete=_resume_complete(snap, cfg))
+
+
+def _finished(task, start: _Start, group: Optional[WorkerGroup], masks) -> DFWFitResult:
+    """The result of a resume with nothing left to run: the restored carry,
+    and the full-data loss of its state (summed over the group)."""
+    final_loss = float(psum(task.local_loss(start.state), group))
+    return DFWFitResult(
+        iterate=start.iterate, state=start.state, history=start.history,
+        masks=None if masks is None else masks[:start.t], final_loss=final_loss,
+        epochs_run=start.t,
+        stats={"segments_planned": 0, "segments_run": 0, "dispatches": 1, "host_syncs": 1},
+        comm_state=() if start.comm_state is None else start.comm_state,
+        probe=() if start.probe is None else start.probe,
+    )
+
+
 def _run(task, x, y, *, cfg: DFWConfig, key, noise, callback, dev, group, masks, checkpointer,
-         num_workers: int, probe=None) -> DFWFitResult:
-    """The run both drivers share, on this worker's rows ``x``, ``y``.
+         num_workers: int, probe=None, start: Optional[_Start] = None) -> DFWFitResult:
+    """The run ``fit_serial`` and ``fit`` share, on this worker's rows ``x``,
+    ``y``, from epoch 0 or from a resumed ``start`` (whose restored state
+    replaces the one ``x``, ``y`` would build).
 
     The graph comes from ``make_topology`` (with a group, every worker
     builds hier's subgroups here in the same order); a flat graph's bare
@@ -425,7 +586,15 @@ def _run(task, x, y, *, cfg: DFWConfig, key, noise, callback, dev, group, masks,
                           k=k_block)
         if isinstance(reducer, Int8Reducer):  # at the budget of the hop it encodes
             verify_quantize_kernels(num_workers=reducer.num_workers, device=dev)
-    state = ktask.init_state(x, y)
+    resumed = {}
+    if start is None:
+        state = ktask.init_state(x, y)
+    else:
+        state = start.state
+        resumed = dict(iterate=start.iterate, comm_state=start.comm_state, start_t=start.t,
+                       initial_history=start.history)
+        if start.probe is not None:
+            probe = start.probe
     before = None if group is None else group.tally.snapshot()
     res = frank_wolfe.fit(
         ktask,
@@ -447,6 +616,7 @@ def _run(task, x, y, *, cfg: DFWConfig, key, noise, callback, dev, group, masks,
         group=group,
         masks=masks,
         probe=probe,
+        **resumed,
     )
     if checkpointer is not None:
         checkpointer.wait()
@@ -462,6 +632,10 @@ def _run(task, x, y, *, cfg: DFWConfig, key, noise, callback, dev, group, masks,
             # the count is the same)
             for t in res.iterate:
                 group.broadcast(t)
+        if checkpointer is not None:
+            # worker 0 has joined its last write: every worker returns with the
+            # run's checkpoints durable, so any of them may resume from them
+            group.all_reduce(torch.zeros(1, device=dev))
     return DFWFitResult(
         iterate=res.iterate, state=res.state, history=res.history, masks=res.masks,
         final_loss=res.final_loss, epochs_run=res.epochs_run, stats=res.stats,
@@ -525,7 +699,15 @@ def fit(
     block, and the (m, k) warm-start probe is replicated, the same on every
     worker (``probe``: the start one, default ``frank_wolfe.init_probe``;
     every worker must pass the same).
+
+    ``cfg.resume_from`` resumes a run (the module doc): every worker reads
+    the step and keeps its rows of the saved state (``x``, ``y`` then only
+    feed the start-up checks); with the same worker count, topology and
+    comm each worker takes its own saved reducer state, and with the same
+    sampling the saved masks. With a checkpoint dir, every worker returns
+    once worker 0's last write has landed.
     """
+    _check_epoch_path(task)
     dev = resolve_device(device)
     workers, rank = (1, 0) if group is None else (group.size, group.rank)
     n = x.shape[0]
@@ -537,22 +719,30 @@ def fit(
     lo, hi = rank * (n // workers), (rank + 1) * (n // workers)
     x, y = _as_tensor(x[lo:hi], dev), _as_tensor(y[lo:hi], dev)
     key = as_v0_stream(key)
-    if noise is None:
-        noise = NoiseStream(key.seed, worker=None if group is None else rank)
     sampling = cfg.sample_prob < 1.0
     if masks is not None and not sampling:
         raise ValueError("masks= injects the straggler schedule; it needs sample_prob < 1")
+    start = None
+    if cfg.resume_from is not None:
+        start = _resume(task, cfg, key, dev, rank=rank, workers=workers, serial=False)
+        key = start.key
+        if masks is None:
+            masks = start.masks
+    if noise is None:
+        noise = NoiseStream(key.seed, worker=None if group is None else rank)
     table = (worker_schedule(key, cfg.num_epochs, workers, cfg.sample_prob,
                              reweight=cfg.reweight, table=masks) if sampling else None)
+    if start is not None and start.complete:
+        return _finished(task, start, group, table)
     checkpointer = None
     if cfg.checkpoint_dir is not None:
         checkpointer = _WorkerCheckpointer(
-            _make_checkpointer(task, cfg, cfg.comm, workers) if rank == 0 else None, group,
-            cfg.checkpoint_every, cfg.num_epochs, workers,
+            _make_checkpointer(task, cfg, cfg.comm, workers, 0 if start is None else start.t)
+            if rank == 0 else None, group, cfg.checkpoint_every, cfg.num_epochs, workers,
         )
     return _run(task, x, y, cfg=cfg, key=key, noise=noise, callback=callback, dev=dev,
                 group=group, masks=table, checkpointer=checkpointer, num_workers=workers,
-                probe=probe)
+                probe=probe, start=start)
 
 
 def fit_serial(
@@ -593,10 +783,13 @@ def fit_serial(
     under int8 the quantize pair to its plain version. ``stats``
     count the run itself (see ``core/engine.py``), not these set-up checks.
 
-    With ``cfg.checkpoint_dir`` the run owns that directory: steps left there
-    by an earlier run are removed, every ``cfg.checkpoint_every``-th segment
-    boundary (and the last) is saved, the newest ``cfg.checkpoint_keep`` are
-    kept, and the writer is joined before this returns.
+    With ``cfg.checkpoint_dir`` the run owns that directory from its first
+    epoch: steps after it left by an earlier run are removed, every
+    ``cfg.checkpoint_every``-th segment boundary (and the last) is saved, the
+    newest ``cfg.checkpoint_keep`` are kept, and the writer is joined before
+    this returns. ``cfg.resume_from`` continues a run from a step (the
+    module doc); the reducer state is restored from a one-worker run with
+    the same comm, and a finished run returns without running an epoch.
     """
     if cfg.sample_prob < 1.0:
         raise ValueError(
@@ -605,11 +798,21 @@ def fit_serial(
             "in each of N worker processes (run_workers) for the straggler mode, "
             "or set sample_prob=1.0"
         )
+    _check_epoch_path(task)
     dev = resolve_device(device)
     x, y = _as_tensor(x, dev), _as_tensor(y, dev)
-    return _run(task, x, y, cfg=cfg, key=as_v0_stream(key), noise=noise, callback=callback,
-                dev=dev, group=None, masks=None, checkpointer=_make_checkpointer(task, cfg, cfg.comm),
-                num_workers=1, probe=probe)
+    key = as_v0_stream(key)
+    start = None
+    if cfg.resume_from is not None:
+        start = _resume(task, cfg, key, dev)
+        if start.complete:
+            return _finished(task, start, None, None)
+        key = start.key
+    return _run(task, x, y, cfg=cfg, key=key, noise=noise, callback=callback, dev=dev,
+                group=None, masks=None,
+                checkpointer=_make_checkpointer(task, cfg, cfg.comm, 1,
+                                                0 if start is None else start.t),
+                num_workers=1, probe=probe, start=start)
 
 
 # ---------------------------------------------------------------------------

@@ -7,9 +7,11 @@ same error messages as the JAX package:
     comm      "dense" | "int8" | "topk:r"
     topology  "flat" | "ring" | "gossip:k" | "hier:g"
 
-A malformed spec raises :class:`SpecError`. A well-formed spec that the port
-does not run yet (the ``block`` solvers) raises :class:`NotYetPorted` from
-:func:`validate`, before any device work, rather than running half-way.
+A malformed spec raises :class:`SpecError`. The port runs every kind the
+parsers return (``PORTED``); :func:`validate` still raises
+:class:`NotYetPorted` for a kind missing from ``PORTED``, before any device
+work, so a kind added to a parser without its code path fails there rather
+than half-way through a run.
 """
 from __future__ import annotations
 
