@@ -236,6 +236,37 @@ Phases, each fatal on failure (exit code != 0, no result line):
    dense MTLS operator (X^T X, X^T Y, gradient) on phase 3's X and Y
    against the factored operator: matvec, rmatvec and the gradient within
    1e-3 of max, fresh and after an update.
+27. The engine on the card (``core/engine.py``: one CUDA graph a (K, length)
+   segment program of at most ``MAX_PROGRAM_EPOCHS`` epochs, IF nodes for
+   ``gap_tol`` and ``:adapt``; every earlier phase's fits run that way
+   too, and phase 21 checks each of its runs was captured). From built
+   states, through ``frank_wolfe.fit``: (a) scan against legacy on MTLS
+   (phase 3's configuration), MTLS ``block:32:adapt`` and logistic
+   regression (phase 4's) at the ImageNet shapes, MC dense and int8
+   (phases 8, 9) and ``block:8:adapt`` (phase 25's) at the Netflix
+   shapes, and the Table-1 problem's rank1 and ``block:32:adapt`` (MTLS
+   and MC, 40 and 20 epochs): the same history, final loss and iterate
+   bits, and (e) the launches the device ran (counted on the device,
+   graph replays included) the same in both modes and equal to legacy's
+   wrapper calls; each scan run's stats, capture ms, pool and
+   table bytes, the draws' host µs and peak memory; ms an epoch of both
+   modes, unprofiled, over the segments after the first of a const
+   schedule in blocks (a callback timing each segment). (b) Every scan run
+   within ``engine.dispatch_contract(segments=...)``; a const:2 MC run
+   under ``Contract.guard()``. (c) MTLS with ``gap_tol`` (the gap an
+   unstopped run reaches at 60% of its epochs) in one const:2 segment:
+   scan stops at legacy's epoch, past the first and before the last, with
+   the same bits and launches and one sync at the boundary;
+   ``block:8:adapt``'s executed iterations the same in both modes. (f) One
+   long const segment each of MTLS (48 epochs) and MC int8 (100): replays
+   of pieces, at most two graphs, their capture ms and table bytes.
+
+The launches each fit phase checks (and the kernels line sums) are the
+device's: ``counting`` opens ``kernels.Executed``, which adds a counter on
+the device beside each launch (in the graph with it), since a wrapper
+counts a captured call once, when captured; those fits' times carry the
+counters' small kernels. Fits that are never captured (gloo workers, the
+baselines) count their wrappers' calls.
 
 ``--coo-bits PATH`` runs only phases 1 and 6 and then G.v and G^T.u of
 ``coo_matvec`` at the full shape (x drawn from --seed), saving the results
@@ -259,6 +290,7 @@ without ``src/repro_torch``, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -600,6 +632,20 @@ def segment_timer(torch, log):
     return cb
 
 
+@contextlib.contextmanager
+def counting(kernels):
+    """The launches the device runs inside the block, graph replays and
+    IF-node bodies included (``kernels.Executed``, counted on the device),
+    with the wrappers' call counts from 0: yields the Executed, whose
+    ``launches`` and ``routes`` hold the counts after the block. A wrapper
+    counts a captured call once, when captured, so on a captured fit only
+    the device's count says what ran. Times taken inside carry the
+    counters' cost (one small kernel a launch)."""
+    kernels.reset_launches()
+    with kernels.Executed() as ex:
+        yield ex
+
+
 def expected_launches(kind: str, ks, verify: bool, comm: str = "dense"):
     """Launches the path implies: per power iteration, MTLS runs R.v, X^T t,
     X.u and R^T s (2 matvec + 2 rmatvec), logistic X^T (Pv - v_y) and X.u
@@ -630,16 +676,16 @@ def expected_launches(kind: str, ks, verify: bool, comm: str = "dense"):
 
 
 def run_path(torch, kernels, dfw, kind, task, X, target, cfg, seed, dev):
-    kernels.reset_launches()
     seg_log = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    res = dfw.fit_serial(task, X, target, cfg=cfg, key=seed, device=dev,
-                         callback=segment_timer(torch, seg_log))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = kernels.launches()
+    with counting(kernels) as ran:  # its times carry the counters' cost
+        t0 = time.perf_counter()
+        res = dfw.fit_serial(task, X, target, cfg=cfg, key=seed, device=dev,
+                             callback=segment_timer(torch, seg_log))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = ran.launches
     want = expected_launches(kind, res.history["k"], cfg.verify_kernels, cfg.comm)
     check(launches == want, f"{kind}/{cfg.comm}: launches {launches} != expected {want}")
     loss = res.history["loss"]
@@ -695,7 +741,9 @@ PORT_KERNELS = ("matvec_kernel", "rmatvec_partial_kernel", "rmatvec_finish_kerne
                 # the block:k solver's forms
                 "ring_matmat_kernel", "rmatmat_finish_kernel",
                 "rankk_kernel", "piece_sum_block_kernel", "segment_sum_block_kernel",
-                "update_resid_block_kernel")
+                "update_resid_block_kernel",
+                # the engine's graphs: an IF node's predicate
+                "set_if_kernel")
 RECORD_KERNELS = ("pack_records_kernel", "gather_records_kernel")  # the state build's copies
 
 
@@ -1140,8 +1188,8 @@ def mc_kernel_phase(torch, mc, qz, dev, state, gen, reps, peaks):
 
 
 def update_resid_phase(torch, mc, tasks, dev, state, mu, gen, reps, peaks):
-    """update_resid (through MatrixCompletion.update) against the update's
-    plain chain followed by gather_sorted, bit for bit, at the MC shape and
+    """update_resid (through MatrixCompletion.update, in place) against the
+    update's plain chain followed by gather_sorted, bit for bit, at the MC shape and
     at tiny odd ones, with gamma from the line search's clamp and from the
     2/(t+2) schedule, and mu as given and 0; its time against that chain
     and the two gathers, and its bound: 64 bytes an entry (24 in caller
@@ -1162,10 +1210,12 @@ def update_resid_phase(torch, mc, tasks, dev, state, mu, gen, reps, peaks):
     def held(st, u, v, where):
         for label, gamma in gammas.items():
             for mu_ in (mu, 0.0):
-                got = tasks.MatrixCompletion(st.by_row.out_dim, st.by_col.out_dim).update(
-                    st, u, v, gamma, mu_)
+                # the chain from the residual before the update, which runs
+                # in place, as the fits call it
                 want = mc.ref.resid_step(gamma, mu_, st.resid, st.vals, st.weight, u[st.rows],
                                          v[st.cols])
+                got = tasks.MatrixCompletion(st.by_row.out_dim, st.by_col.out_dim).update(
+                    st, u, v, gamma, mu_)
                 torch.cuda.synchronize()
                 for name, a, b in (("caller", got.resid, want),
                                    ("row", got.resid_by_row, mc.gather_sorted(st.by_row, want)),
@@ -1184,13 +1234,14 @@ def update_resid_phase(torch, mc, tasks, dev, state, mu, gen, reps, peaks):
         return want, mc.gather_sorted(state.by_row, want), mc.gather_sorted(state.by_col, want)
 
     nbytes = 64 * p
-    row = dict(name="update_resid", operand=f"resid in three orders, {p} entries",
+    row = dict(name="update_resid", operand=f"resid in three orders, in place, {p} entries",
                shape=[d, m, p], max_abs_err=0.0, max_rel_err=0.0, bits_identical=True,
                ms=time_ms(torch, lambda: tasks.MatrixCompletion(d, m).update(
                    state, u, v, gamma, mu), reps),
                plain_ms=time_ms(torch, plain, reps), library_ms=None,
                bound_ms=1e3 * nbytes / peaks[0], bound_by="bytes", bytes=nbytes)
-    print(f"kernel update_resid ({p} entries, caller, row and column order): {row['ms']:.3f} ms "
+    print(f"kernel update_resid ({p} entries, caller, row and column order, in place): "
+          f"{row['ms']:.3f} ms "
           f"(plain chain and two gathers {row['plain_ms']:.3f}, bound {row['bound_ms']:.3f}), "
           f"bits identical to the chain followed by gather_sorted")
     # tiny odd shapes: empty rows and columns, one entry, zero-weight entries
@@ -1215,6 +1266,7 @@ class RecordingInt8:
     def __init__(self, comm, qref, torch):
         self.inner, self.qref, self.torch, self.log = comm.Int8Reducer(1), qref, torch, []
         self.spec = "int8"
+        self.stochastic = True  # the engine hands it each exchange's noise
 
     def init_state(self, d, m, device=None):
         return ()
@@ -1271,8 +1323,11 @@ def mc_small_parity(torch, np, V0Stream, NoiseStream, comm, qref, dfw, fw, tasks
         rec = RecordingInt8(comm, qref, torch)
         ktask = dfw.kernelize(task)
         state = ktask.init_state(idx.to(where), yw.to(where))
+        # the recorder reads every exchange on the host, which no graph can
+        # hold: the card runs the engine's uncaptured mode
         res.append(fw.fit(ktask, state, key=V0Stream.from_table(table), noise=noise,
-                          reducer=rec, device=where, **kw))
+                          reducer=rec, device=where, mode="legacy" if where == dev else "scan",
+                          **kw))
         recs.append(rec.log)
     check(len(recs[0]) == len(recs[1]) == 2 * sum(res[1].history["k"]),
           "small mc int8: exchange counts differ")
@@ -1349,16 +1404,21 @@ def fits_agree(np, got, want, label, w_got, w_want, logistic=False):
     return dev_of
 
 
-def timed_fit(torch, kernels, run, dev):
-    """run() under fresh launch counts: (result, launches, wall s, segment log)."""
+def timed_fit(torch, kernels, run, dev, captured=True):
+    """run() under fresh launch counts: (result, launches, wall s, segment
+    log). ``captured``: under ``counting`` (the launches the device ran; the
+    wall time carries the counters' cost); else (a gloo worker, whose fit
+    is never captured) the wrappers' calls, which are its launches."""
     seg_log = []
-    kernels.reset_launches()
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    sync()
-    t0 = time.perf_counter()
-    res = run(segment_timer(torch, seg_log))
-    sync()
-    return res, kernels.launches(), time.perf_counter() - t0, seg_log
+    with counting(kernels) if captured else contextlib.nullcontext() as ran:
+        kernels.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        res = run(segment_timer(torch, seg_log))
+        sync()
+        wall = time.perf_counter() - t0
+    return res, ran.launches if captured else kernels.launches(), wall, seg_log
 
 
 def steady_ms(seg_log, ks):
@@ -1403,6 +1463,9 @@ def world_one_phase(torch, np, kernels, dfw, comm, low_rank, NoiseStream, dev, j
                             return dfw.fit(task, x, y, cfg=cfg, key=seed, group=group,
                                            device=dev, callback=cb)
                     res, launches, wall, seg_log = timed_fit(torch, kernels, fn, dev)
+                    check(res.stats["graph_replays"] >= res.stats["segments_run"],
+                          f"(a) {label}: {side} ran {res.stats['graph_replays']} of "
+                          f"{res.stats['segments_run']} segments as graph replays")
                     summary = fit_summary(low_rank, res)
                     del res
                     torch.cuda.empty_cache()
@@ -1459,7 +1522,7 @@ def multi_worker_rank(group, device, jobs, seed):
             torch.cuda.reset_peak_memory_stats(device)
         res, launches, wall, seg_log = timed_fit(torch, kernels, lambda cb: dfw.fit(
             task, x, y, cfg=dfw.DFWConfig(**kw), key=seed, group=group, device=device,
-            callback=cb), device)
+            callback=cb), device, captured=False)
         out.append(dict(
             history=res.history, final_loss=res.final_loss, stats=res.stats,
             masks=None if res.masks is None else res.masks.numpy(), launches=launches,
@@ -2043,13 +2106,13 @@ def train_then_serve(torch, np, dfw, tasks, ckpt, serve, low_rank, kernels, dev,
         cfg = dfw.DFWConfig(mu=1.0, num_epochs=args.serve_epochs, schedule="log",
                             step_size="linesearch", block_epochs=16, checkpoint_dir=ckdir,
                             checkpoint_every=1, checkpoint_keep=None)
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        res = dfw.fit_serial(tasks.MultiTaskLeastSquares(SERVE_D, SERVE_M), X, Y, cfg=cfg,
-                             key=args.seed, device=dev)
-        torch.cuda.synchronize()
-        rep["fit_s"] = time.perf_counter() - t0
-        fit_launch = kernels.launches()
+        with counting(kernels) as ran:
+            t0 = time.perf_counter()
+            res = dfw.fit_serial(tasks.MultiTaskLeastSquares(SERVE_D, SERVE_M), X, Y, cfg=cfg,
+                                 key=args.seed, device=dev)
+            torch.cuda.synchronize()
+            rep["fit_s"] = time.perf_counter() - t0
+        fit_launch = ran.launches
         want = expected_launches("mtls", res.history["k"], cfg.verify_kernels)
         check(fit_launch == want, f"serve fit: launches {fit_launch} != expected {want}")
         steps = ckpt.store.list_steps(ckdir)
@@ -3325,14 +3388,14 @@ def block_fit(torch, kernels, dfw, kind, task, x, y, cfg, seed, dev):
         timer(start, aux)
         piters.extend(int(p_) for p_ in aux.piters if p_ == p_)
 
-    kernels.reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    res = dfw.fit_serial(task, x, y, cfg=cfg, key=seed, device=dev, callback=cb)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, routes = kernels.launches(), kernels.route_launches()
+    with counting(kernels) as ran:  # its times carry the counters' cost
+        t0 = time.perf_counter()
+        res = dfw.fit_serial(task, x, y, cfg=cfg, key=seed, device=dev, callback=cb)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches, routes = ran.launches, ran.routes
     want = expected_block_launches(kind, piters, cfg.verify_kernels, cfg.comm,
                                    cfg.step_size == "linesearch")
     label = f"{kind} {cfg.solver}/{cfg.comm}"
@@ -3412,11 +3475,11 @@ def table1_cell(torch, kernels, dfw, tasks, dev, seed):
                 cfg = dfw.DFWConfig(mu=1.0, num_epochs=t["budget"], schedule=schedule,
                                     step_size="linesearch", solver=solver, gap_tol=gap_tol,
                                     block_epochs=5, verify_kernels=False)
-                kernels.reset_launches()
-                res = dfw.fit_serial(task, x, y, cfg=cfg, key=seed, device=dev)
-                for key_, val in kernels.launches().items():
+                with counting(kernels) as ran:
+                    res = dfw.fit_serial(task, x, y, cfg=cfg, key=seed, device=dev)
+                for key_, val in ran.launches.items():
                     total[key_] += val
-                route_block += kernels.route_launches()["update_resid"]["block"]
+                route_block += ran.routes["update_resid"]["block"]
                 return res
 
             r1_run = run("rank1", "const:2")
@@ -3673,13 +3736,12 @@ def resumed_fit(torch, np, kernels, low_rank, dfw, kind, task, x, y, cfg, seed, 
     def cb(start, aux):
         piters.extend(int(p_) for p_ in aux.piters if p_ == p_)
 
-    kernels.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = dfw.fit_serial(task, x, y, cfg=cfg, key=seed, device=dev, callback=cb)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, route = kernels.launches(), kernels.route_launches()["update_resid"]["block"]
+    with counting(kernels) as ran:
+        t0 = time.perf_counter()
+        res = dfw.fit_serial(task, x, y, cfg=cfg, key=seed, device=dev, callback=cb)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches, route = ran.launches, ran.routes["update_resid"]["block"]
     t = cfg.resume_step
     check(len(piters) == cfg.num_epochs - t, f"{label}: ran {len(piters)} epochs from {t}")
     if cfg.solver.startswith("block"):
@@ -3935,6 +3997,304 @@ def resume_phase(torch, np, kernels, dfw, tasks, low_rank, checkpoint, convert, 
     return report, total, route_total
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: the engine on the card (one CUDA graph a (K, length) segment)
+# ---------------------------------------------------------------------------
+
+
+def engine_fit(torch, kernels, frank_wolfe, ktask, state, mu, kw, mode, seed, dev,
+               callback=None, count=False):
+    """frank_wolfe.fit of a built state in ``mode``: (result, launches the
+    device ran and their routes (``count``: under ``counting``; else
+    None), the wrappers' calls, wall s, peak GB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with counting(kernels) if count else contextlib.nullcontext() as ran:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = frank_wolfe.fit(ktask, state, mu=mu, key=seed, device=dev, callback=callback,
+                              mode=mode, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return (res, ran.launches if count else None, ran.routes if count else None,
+            kernels.launches(), wall, torch.cuda.max_memory_allocated() / 1e9)
+
+
+def same_fit(torch, a, b) -> bool:
+    """History, final loss, iterate (and probe) the same bits."""
+    return (a.history == b.history and a.final_loss == b.final_loss
+            and all(torch.equal(p_, q_) for p_, q_ in zip(a.iterate, b.iterate))
+            and (not isinstance(a.probe, torch.Tensor) or torch.equal(a.probe, b.probe)))
+
+
+def steady_epoch_ms(seg_log) -> float:
+    """ms an epoch over the segments after the first (segment_timer's log)."""
+    rest = seg_log[1:] or seg_log
+    return sum(s_["ms_per_epoch"] * s_["epochs"] for s_ in rest) / sum(s_["epochs"] for s_ in rest)
+
+
+def engine_pair(torch, kernels, frank_wolfe, engine, label, ktask, fresh, mu, kw, timing, seed,
+                dev, report):
+    """(a) One configuration in scan, then legacy, from fresh states, both
+    under ``counting``: the same bits and history, and (e) the launches the
+    device ran in scan (graph replays) equal legacy's, which equal legacy's
+    wrapper calls (uncaptured: a call is a launch); the stats within the
+    dispatch contract (b). Then both timed, unprofiled, on ``timing`` (a
+    const schedule of repeated segments) by segment_timer: ms an epoch over
+    the segments after the first. Returns the scan run."""
+    row = report[label] = {}
+    for mode in ("scan", "legacy"):
+        seg_log = []
+        res = engine_fit(torch, kernels, frank_wolfe, ktask, fresh(), mu, timing, mode, seed, dev,
+                         callback=segment_timer(torch, seg_log))[0]
+        row[f"{mode}_ms_per_epoch"] = steady_epoch_ms(seg_log)
+        del res
+    runs = {mode: engine_fit(torch, kernels, frank_wolfe, ktask, fresh(), mu, kw, mode, seed, dev,
+                             count=True) for mode in ("scan", "legacy")}
+    (sc, sl, sr, scalls, _, sp), (lg, ll, lr, lcalls, _, lp) = runs["scan"], runs["legacy"]
+    check(same_fit(torch, sc, lg), f"(a) {label}: scan's bits are not legacy's")
+    check(ll == lcalls, f"(e) {label}: legacy's device count {ll} is not its calls {lcalls}")
+    check(sl == ll and sr == lr, f"(e) {label}: the device ran {sl} in scan, {ll} in legacy")
+    st, tm = sc.stats, sc.timings
+    try:
+        engine.dispatch_contract(segments=st["segments_planned"],
+                                 max_compilations=None).check_stats(st)
+    except AssertionError as e:
+        check(False, f"(b) {label}: {e}")
+    row.update(
+        epochs=sc.epochs_run, captured=st["graph_replays"] >= st["segments_run"],
+        stats={k: st[k] for k in ("segments_run", "dispatches", "host_syncs", "compilations",
+                                  "graph_replays")},
+        legacy_stats={k: lg.stats[k] for k in ("dispatches", "host_syncs")},
+        capture_ms=tm["capture_ms"], instantiate_ms=tm["instantiate_ms"],
+        pool_bytes=tm["pool_bytes"], table_bytes=tm["table_bytes"],
+        draw_us=statistics.mean(tm["draw_us"]), draw_us_per_epoch=sum(tm["draw_us"])
+        / sc.epochs_run, peak_gb=dict(scan=sp, legacy=lp), launches=sl, calls=scalls,
+        block_route=sr["update_resid"]["block"])
+    print(f"(a) {label}: scan = legacy bit for bit; (e) the device ran legacy's launches in "
+          f"scan; stats {row['stats']}, legacy {row['legacy_stats']}; "
+          f"{'captured' if row['captured'] else 'UNCAPTURED'}; capture ms "
+          + ", ".join(f"{c:.1f} (instantiate {i:.1f})" for c, i in zip(
+              tm["capture_ms"], tm["instantiate_ms"])) + "; pool MB "
+          + ", ".join(f"{b_ / 2**20:.1f}" for b_ in tm["pool_bytes"]) + "; tables MB "
+          + ", ".join(f"{b_ / 2**20:.1f}" for b_ in tm["table_bytes"])
+          + f"; draws {row['draw_us']:.0f} us a piece ({row['draw_us_per_epoch']:.0f} an epoch)"
+          f"; peak GB scan {sp:.2f}, legacy {lp:.2f}")
+    print(f"(t) {label}: ms an epoch, steady segments ({timing['schedule']}, blocks of "
+          f"{timing.get('block_epochs')}): scan {row['scan_ms_per_epoch']:.3f}, legacy "
+          f"{row['legacy_ms_per_epoch']:.3f} (legacy / scan "
+          f"{row['legacy_ms_per_epoch'] / row['scan_ms_per_epoch']:.3f})")
+    del lg, runs
+    torch.cuda.empty_cache()
+    return sc
+
+
+def long_segment(torch, kernels, frank_wolfe, engine, label, ktask, fresh, mu, kw, seed, dev,
+                 report):
+    """(f) One const segment of many epochs: pieces of MAX_PROGRAM_EPOCHS
+    replayed back to back, so its graphs, their capture and their tables
+    are a piece's whatever the segment's length."""
+    res, _, _, _, wall, _ = engine_fit(torch, kernels, frank_wolfe, ktask, fresh(), mu, kw,
+                                       "scan", seed, dev)
+    st, tm, e = res.stats, res.timings, kw["num_epochs"]
+    pieces = -(-e // engine.MAX_PROGRAM_EPOCHS)
+    check(res.epochs_run == e and math.isfinite(res.final_loss)
+          and st["segments_run"] == 1 and st["graph_replays"] == pieces
+          and st["compilations"] == len(tm["capture_ms"]) <= 2,
+          f"(f) {label}: {e} epochs in one segment: stats {st}")
+    report[label] = dict(epochs=e, stats={k: st[k] for k in (
+        "segments_run", "dispatches", "host_syncs", "compilations", "graph_replays")},
+        capture_ms=tm["capture_ms"], instantiate_ms=tm["instantiate_ms"],
+        pool_bytes=tm["pool_bytes"], table_bytes=tm["table_bytes"], wall_s=wall)
+    whole_mb = tm["table_bytes"][0] * e / 2**20 / min(e, engine.MAX_PROGRAM_EPOCHS)
+    print(f"(f) {label}: one segment of {e} epochs in {pieces} replays of pieces of at most "
+          f"{engine.MAX_PROGRAM_EPOCHS}; graphs {st['compilations']}: capture ms "
+          + ", ".join(f"{c:.1f} (instantiate {i:.1f})" for c, i in zip(
+              tm["capture_ms"], tm["instantiate_ms"])) + "; pool MB "
+          + ", ".join(f"{b_ / 2**20:.1f}" for b_ in tm["pool_bytes"]) + "; tables MB "
+          + ", ".join(f"{b_ / 2**20:.1f}" for b_ in tm["table_bytes"])
+          + f" (one table for the whole segment: {whole_mb:.1f})")
+    del res
+    torch.cuda.empty_cache()
+
+
+def engine_phase(torch, np, kernels, dfw, comm, tasks, frank_wolfe, engine, dev, args):
+    """Phase 27 (see the module doc). Returns (report, summed launches the
+    device ran in its scan runs, their update_resid block-route launches)."""
+    from repro_torch.core.cuda_graph import runtime_version
+
+    report = {"cuda_runtime": runtime_version()}
+    if_nodes = report["cuda_runtime"] >= 12040  # else gap_tol and :adapt run uncaptured
+    print(f"phase 27: CUDA runtime {report['cuda_runtime']} (IF nodes: {if_nodes})")
+    t_phase = time.perf_counter()
+    seed = args.seed
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 27)
+    total = dict.fromkeys(kernels.launches(), 0)
+    routed = [0]
+
+    def pair(label, ktask, fresh, mu, kw, timing=None):
+        res = engine_pair(torch, kernels, frank_wolfe, engine, label, ktask, fresh, mu, kw,
+                          timing or kw, seed, dev, report)
+        for k_, v_ in report[label]["launches"].items():
+            total[k_] += v_
+        routed[0] += report[label]["block_route"]
+        return res
+
+    # the ImageNet shapes: MTLS and logistic (phases 3, 4), MTLS block:32:adapt (25)
+    X, Y = dense_data(torch, gen, dev, args.rows)
+    mtls = dfw.kernelize(tasks.MultiTaskLeastSquares(PAPER_D, PAPER_M))
+    base = mtls.init_state(X, Y)
+    ls = dict(step_size="linesearch")
+    pair("mtls", mtls, lambda: base._replace(r=-Y), 1.0,
+         dict(ls, num_epochs=args.epochs, schedule="log"),
+         dict(ls, num_epochs=12, schedule="const:2", block_epochs=4))
+    pair("mtls block:32:adapt", mtls, lambda: base._replace(r=-Y), 1.0,
+         dict(ls, num_epochs=10, schedule="const:8", solver="block:32:adapt", block_epochs=5))
+
+    # (c) the IF nodes: gap_tol firing inside a segment. MTLS's gap falls
+    # from its first epoch on: gap_tol is the gap an unstopped const:2 run
+    # reaches at 60% of its --epochs, so the certificate fires after epoch
+    # 0 and before the end of the one segment (pieces of 16 and the rest):
+    # the epochs before it run their IF-gated bodies, the rest skip them.
+    one = dict(ls, num_epochs=args.epochs, schedule="const:2")
+    free = engine_fit(torch, kernels, frank_wolfe, mtls, base._replace(r=-Y), 1.0, one, "scan",
+                      seed, dev)[0]
+    gaps = free.history["gap"]
+    tol = gaps[int(0.6 * len(gaps))]
+    stop = next(e_ for e_, g_ in enumerate(gaps) if g_ <= tol)
+    del free
+    stops = {mode: engine_fit(torch, kernels, frank_wolfe, mtls, base._replace(r=-Y), 1.0,
+                              dict(one, gap_tol=tol), mode, seed, dev, count=True)
+             for mode in ("scan", "legacy")}
+    (gs, gl_, gr_, *_), (lgs, ll_, lr_, *_) = stops["scan"], stops["legacy"]
+    check(1 <= stop and gs.epochs_run == lgs.epochs_run == stop + 1 < args.epochs
+          and same_fit(torch, gs, lgs),
+          f"(c) gap_tol: scan stopped at {gs.epochs_run}, legacy at {lgs.epochs_run} (want "
+          f"{stop + 1}, past the first epoch and before the last), or their bits part")
+    check(gl_ == ll_ and gr_ == lr_, f"(c) gap_tol: the device ran {gl_} in scan, {ll_} in "
+          "legacy")
+    for k_, v_ in gl_.items():
+        total[k_] += v_
+    pieces = -(-args.epochs // engine.MAX_PROGRAM_EPOCHS)
+    check(gs.stats["host_syncs"] == gs.stats["segments_run"] + 2 == 3
+          and gs.stats["graph_replays"] == pieces * if_nodes,
+          f"(c) gap_tol: stats {gs.stats}: want one segment, one sync at its boundary, every "
+          "piece a replay")
+    report["gap_tol"] = dict(tol=tol, stop=stop, epochs_run=gs.epochs_run, stats=gs.stats,
+                             legacy_host_syncs=lgs.stats["host_syncs"])
+    print(f"(c) mtls const:2 gap_tol {tol:.6g}: scan and legacy run {gs.epochs_run} of "
+          f"{args.epochs} epochs, the certificate firing at epoch {stop} of the one segment "
+          f"({pieces} pieces), with the same bits and the same launches on the device; scan "
+          f"host syncs {gs.stats['host_syncs']}, legacy {lgs.stats['host_syncs']}")
+    del stops, gs, lgs
+
+    # (f) long const segments: MTLS (line search) and MC int8 below
+    long_segment(torch, kernels, frank_wolfe, engine, "long mtls const:2", mtls,
+                 lambda: base._replace(r=-Y), 1.0, dict(ls, num_epochs=48, schedule="const:2"),
+                 seed, dev, report)
+    del base, Y
+    torch.cuda.empty_cache()
+    labels = planted_labels(torch, gen, dev, X)
+    logi = dfw.kernelize(tasks.MultinomialLogistic(PAPER_D, PAPER_M))
+    base = logi.init_state(X, labels)
+    pair("logistic", logi, lambda: base._replace(z=torch.zeros_like(base.z)), 10.0,
+         dict(num_epochs=args.logistic_epochs, schedule="log_half"),
+         dict(num_epochs=12, schedule="const:1", block_epochs=4))
+    del base, labels, X
+    torch.cuda.empty_cache()
+
+    # the Netflix shapes: MC dense and int8 (phases 8, 9), block:8:adapt (25)
+    idx, yw, _, mu = make_mc_data(torch, gen, dev, args.mc_entries, NF_TEST)
+    mc = dfw.kernelize(tasks.MatrixCompletion(NF_D, NF_M))
+    base = mc.init_state(idx, yw)
+    del idx, yw
+    torch.cuda.empty_cache()
+
+    def mc_fresh():
+        return base._replace(resid=base.resid.clone(), resid_by_row=base.resid_by_row.clone(),
+                             resid_by_col=base.resid_by_col.clone())
+
+    dense = dict(ls, num_epochs=args.mc_epochs, schedule="log")
+    steady = dict(ls, num_epochs=16, schedule="const:3", block_epochs=4)
+    sc = pair("mc dense", mc, mc_fresh, mu, dense, steady)
+    int8 = dict(reducer=comm.Int8Reducer())
+    pair("mc int8", mc, mc_fresh, mu, dict(dense, num_epochs=args.mc_int8_epochs, **int8),
+         dict(steady, num_epochs=12, **int8))
+    adapt = dict(ls, num_epochs=10, schedule="const:4", solver="block:8:adapt", block_epochs=5)
+    pair("mc block:8:adapt", mc, mc_fresh, mu, adapt)
+    long_segment(torch, kernels, frank_wolfe, engine, "long mc int8 const:4", mc, mc_fresh, mu,
+                 dict(ls, num_epochs=100, schedule="const:4", **int8), seed, dev, report)
+
+    # (b) a const:2 run under the contract's guard: no device read but the
+    # engine's counted fetches
+    contract = engine.dispatch_contract(name="engine.dispatch[mc const:2]")
+    state = mc_fresh()
+    torch.cuda.synchronize()
+    with contract.guard():
+        guarded = frank_wolfe.fit(mc, state, mu=mu, num_epochs=10, schedule="const:2",
+                                  step_size="linesearch", key=seed, device=dev)
+    try:
+        contract.check_stats(guarded.stats)
+    except AssertionError as e:
+        check(False, f"(b) {e}")
+    report["guarded"] = dict(stats=guarded.stats)
+    print(f"(b) mc const:2 under Contract.guard(): no implicit device read; stats "
+          f"{guarded.stats}")
+    del state, guarded
+
+    # (c) :adapt's executed iterations through its IF nodes
+    piters = {}
+    for mode in ("scan", "legacy"):
+        col = []
+        res = engine_fit(torch, kernels, frank_wolfe, mc, mc_fresh(), mu, adapt, mode, seed,
+                         dev, callback=lambda s_, aux: col.extend(aux.piters.tolist()))[0]
+        piters[mode] = col
+        check(res.stats["graph_replays"] == res.stats["segments_run"] * (
+              mode == "scan" and if_nodes), f"(c) :adapt {mode}: graph replays {res.stats}")
+        del res
+    check(piters["scan"] == piters["legacy"] and min(piters["scan"]) < 4,
+          f"(c) :adapt's executed iterations: scan {piters['scan']}, legacy "
+          f"{piters['legacy']}")
+    report["adapt_piters"] = piters["scan"]
+    print(f"(c) mc block:8:adapt: executed iterations {[int(p_) for p_ in piters['scan']]} "
+          "in both modes")
+    del base, sc
+    torch.cuda.empty_cache()
+
+    # the Table-1 cell's problem (phase 25 (e)): rank1 and block:32 at a
+    # fixed epoch count, MTLS and MC
+    g1 = torch.Generator(device=dev)
+    for kind in ("mtls", "mc"):
+        g1.manual_seed(_table1_seed(seed, 0))
+        x, y = table1_data(torch, g1, dev, kind)
+        task = dfw.kernelize((tasks.MultiTaskLeastSquares if kind == "mtls"
+                              else tasks.MatrixCompletion)(TABLE1["d"], TABLE1["m"]))
+        t_base = task.init_state(x, y)
+        if kind == "mtls":
+            def fresh():
+                return t_base._replace(r=-y)
+        else:
+            def fresh():
+                return t_base._replace(resid=t_base.resid.clone(),
+                                       resid_by_row=t_base.resid_by_row.clone(),
+                                       resid_by_col=t_base.resid_by_col.clone())
+        pair(f"table-1 {kind} rank1", task, fresh, 1.0,
+             dict(ls, num_epochs=40, schedule="const:2"),
+             dict(ls, num_epochs=40, schedule="const:2", block_epochs=5))
+        pair(f"table-1 {kind} block:32:adapt", task, fresh, 1.0,
+             dict(ls, num_epochs=20, schedule="const:8", solver="block:32:adapt",
+                  block_epochs=5))
+        del x, y, t_base
+    uncaptured = [k_ for k_, r_ in report.items() if isinstance(r_, dict)
+                  and r_.get("captured") is False]
+    if uncaptured:
+        print("runs not captured (no IF nodes on this CUDA): " + ", ".join(uncaptured))
+    report["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 27 took {report['wall_s']:.1f} s")
+    return report, total, routed[0]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3990,7 +4350,7 @@ def main(argv=None) -> int:
                              resolve_device)
     from repro_torch import serve
     from repro_torch.configs import get_config
-    from repro_torch.core import baselines, frank_wolfe, low_rank, tasks
+    from repro_torch.core import baselines, engine, frank_wolfe, low_rank, tasks
     from repro_torch.kernels import _build
     from repro_torch.kernels import factor_matvec as fm
     from repro_torch.kernels import flash_attention as fa
@@ -4022,8 +4382,13 @@ def main(argv=None) -> int:
             capture_output=True, text=True, timeout=60, check=True,
         ).stdout.strip().splitlines()[0]
         report["nvidia_smi"] = smi
+        driver = subprocess.run(
+            ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True,
+        ).stdout.strip().splitlines()[0]
+        report["driver"] = driver
+        print(f"torch {torch.__version__} cuda {torch.version.cuda} driver {driver} device {name}")
         print(smi)
-        print(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
         peaks = card_peaks(name)
 
         # data for the main path, made on the card from --seed
@@ -4295,6 +4660,14 @@ def main(argv=None) -> int:
         report["resume"]["wall_s"] = time.perf_counter() - t0
         print(f"phase 26 took {report['resume']['wall_s']:.1f} s ({smi})")
         torch.cuda.empty_cache()
+
+        # 27. the engine on the card: scan (one graph a segment) against
+        # legacy at the full shapes, the dispatch contract, IF nodes
+        report["engine"], engine_launch, engine_route = engine_phase(
+            torch, np, kernels, dfw, comm, tasks, frank_wolfe, engine, dev, args)
+        block_route += engine_route
+        print(f"phase 27 took {report['engine']['wall_s']:.1f} s ({smi})")
+        torch.cuda.empty_cache()
     except Check as e:
         return fail(str(e))
 
@@ -4302,7 +4675,7 @@ def main(argv=None) -> int:
     paths = (mtls_launch, log_launch, mc_launch, mc8_launch, fit12_launch, serve_launch,
              prefill_launch, decode_launch, ssm_prefill_launch, ssm_decode_launch,
              world_one_launch, multi_launch, baselines_launch, graphs_launch, block_launch,
-             resume_launch)
+             resume_launch, engine_launch)
     for kname in (*TPU_KERNEL, *HELPER_KERNELS, *BLOCK_KERNELS, "update_resid_block"):
         rows = [r for r in krows if r["name"] == kname]
         main_row = next((r for r in rows if r.get("main")), None) or max(

@@ -18,6 +18,10 @@ Two policies live here:
   the JAX run's stream that way. The int8 reducer's stochastic-rounding
   noise comes from a :class:`NoiseStream` in the same way: one uniform
   [0, 1) vector per exchange (epoch t, power iteration i, slot u or v).
+  The engine takes a whole segment's draws at once (``segment``) into
+  tables its graph reads: a generator draw captured in a CUDA graph would
+  replay with an advanced Philox offset instead of the (seed, t) seed, so
+  the draws stay on the host side of a replay.
 """
 from __future__ import annotations
 
@@ -131,6 +135,31 @@ class V0Stream:
         gen.manual_seed(_mix(self.seed, t))
         return sphere_vector(gen, m, device)
 
+    def segment(self, start: int, length: int, m: int, device, out=None) -> torch.Tensor:
+        """Epochs ``start .. start+length-1``'s vectors as a (length, m)
+        table, each row ``self(t, m, device)``'s bits; written into ``out``
+        when given (an engine's preallocated table)."""
+        return self._fill(start, length, (m,), device, out,
+                          lambda t, dev: self(t, m, dev))
+
+    def block_segment(self, start: int, length: int, m: int, k: int, device,
+                      out=None) -> torch.Tensor:
+        """:meth:`block`'s (m, k) blocks of epochs ``start ..
+        start+length-1`` as a (length, m, k) table."""
+        return self._fill(start, length, (m, k), device, out,
+                          lambda t, dev: self.block(t, m, k, dev))
+
+    def _fill(self, start, length, shape, device, out, draw) -> torch.Tensor:
+        device = torch.device(device)
+        if out is None:
+            out = torch.empty((length, *shape), dtype=torch.float32, device=device)
+        if self._table is not None:
+            self._row(start + length - 1, shape, device)  # bounds and device copy
+            return out.copy_(self._tables[device][start:start + length])
+        for j in range(length):
+            out[j].copy_(draw(start + j, device))
+        return out
+
 
 _SLOTS = {"u": 0, "v": 1}
 
@@ -190,6 +219,26 @@ class NoiseStream:
             gen = self._gens[device] = torch.Generator(device=device)
         gen.manual_seed(_mix(_mix(self._base, t), 2 * i + _SLOTS[slot] + 1))
         return torch.rand(dim, generator=gen, device=device, dtype=torch.float32)
+
+    def segment(self, start: int, length: int, iters: int, d: int, m: int, device,
+                out=None) -> tuple:
+        """The noise of epochs ``start .. start+length-1``, iterations below
+        ``iters``, as (length, iters, d) u-slot and (length, iters, m)
+        v-slot tables whose entries are ``self(t, i, slot, dim, device)``'s
+        bits; written into ``out`` (a pair) when given."""
+        device = torch.device(device)
+        if out is None:
+            out = tuple(torch.empty((length, iters, dim), dtype=torch.float32, device=device)
+                        for dim in (d, m))
+        for tab, slot, dim in zip(out, ("u", "v"), (d, m)):
+            if self._tables is not None:
+                self(start + length - 1, iters - 1, slot, dim, device)  # bounds, device copy
+                tab.copy_(self._on[slot, device][start:start + length, :iters])
+                continue
+            for j in range(length):
+                for i in range(iters):
+                    tab[j, i].copy_(self(start + j, i, slot, dim, device))
+        return out
 
 
 def as_v0_stream(key) -> V0Stream:

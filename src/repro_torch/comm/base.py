@@ -73,8 +73,10 @@ class WorkerGroup:
     must be initialized).
 
     ``rank``/``size`` are this worker's index and the worker count.
-    ``tally`` counts the collectives this process ran, by kind, and their
-    bytes (``KINDS``); ``all_reduces`` is its all-reduce count. Collectives
+    ``tally`` counts the collectives this process called, by kind, and
+    their bytes (``KINDS``); ``all_reduces`` is its all-reduce count. A
+    collective captured into a CUDA graph counts once, when captured, and
+    the graph's replays add nothing. Collectives
     run on whatever device the caller's tensor lies on, and enqueue without
     waiting for the host (NCCL on the card; gloo stages CUDA tensors of its
     collectives through the host inside ``torch.distributed``, and this class

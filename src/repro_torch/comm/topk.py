@@ -62,11 +62,15 @@ class TopKReducer:
         c = x + e
         k = min(self.k, c.shape[0])
         idx = top_k_indices(c, k)
-        alive = weight is None or weight > 0
-        vals = c[idx] if alive else torch.zeros(k, dtype=c.dtype, device=c.device)
+        vals = c[idx]
+        if weight is not None:  # on the device: a worker left out sends zeros
+            alive = torch.as_tensor(weight, device=c.device) > 0
+            vals = torch.where(alive, vals, torch.zeros_like(vals))
         sparse_local = torch.zeros_like(c).index_put_((idx,), vals)
         new_state = dict(state)
-        new_state[slot] = c - sparse_local if alive else e
+        # ... and keeps its residual
+        new_state[slot] = (c - sparse_local if weight is None
+                           else torch.where(alive, c - sparse_local, e))
         if self.group is None:
             return sparse_local, new_state
         gi = self.group.all_gather_rows(idx.to(torch.int32)[None])

@@ -4,7 +4,11 @@
 gradient -> step size (2/(t+2) or the closed-form line search) ->
 sufficient-information update + factored-iterate append. Everything an epoch
 computes stays on the device: the step size, the gap and the aux row are
-0-d tensors, and nothing in an epoch waits for the host.
+0-d tensors, and nothing in an epoch waits for the host. What an epoch
+reads besides its carry (the counter t, the straggler weight, the start
+vector or block, the int8 noise) comes in as device tensors
+(``EpochInputs``), so the engine can capture an epoch once in a CUDA graph
+and replay it for every epoch of a segment.
 
 Every epoch consumes and produces one ``EpochCarry``, in the JAX package's
 field layout. Execution lives in ``core/engine.py``; ``fit`` below is the
@@ -25,10 +29,12 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import torch
 
 from .. import DeviceLike, NoiseStream, V0Stream, as_v0_stream, resolve_device
+from ..analysis.contracts import explicit_sync
 from ..comm.base import DenseReducer, WorkerGroup, pmax, psum
 from ..specs import parse_solver, validate
 from . import low_rank
-from .power_method import block_power_iterations, orthonormalize_block, power_iterations
+from .power_method import (block_power_iterations, host_when, orthonormalize_block,
+                           power_iterations)
 from .trace_norm import default_step_size, duality_gap
 
 PyTree = Any
@@ -42,13 +48,23 @@ class EpochAux(NamedTuple):
     piters: torch.Tensor  # power iterations executed (float32 scalar)
 
 
+class EpochInputs(NamedTuple):
+    """What one epoch reads besides its carry, as device tensors: rows of a
+    segment's input tables (``core/engine.py``)."""
+
+    t: torch.Tensor  # () float32 epoch counter (the step size 2/(t+2))
+    weight: Optional[torch.Tensor]  # () float32 straggler weight; None: full participation
+    v0: torch.Tensor  # (m,) start vector, or the block solver's (m, k) fresh columns
+    noise: Optional[tuple]  # (K, D) u-slot and (K, M) v-slot draws of a stochastic encoding
+
+
 class EpochCarry(NamedTuple):
     """Everything one FW epoch threads to the next.
 
     ``comm_state`` is the reducer's per-worker state (``()`` for dense).
-    ``t`` is the epoch counter. It is a host int: the host loop drives the
-    epochs, and the step size 2/(t+2) is formed on the device from it without
-    a transfer. ``key`` is the run's start-vector source (a
+    ``t`` is the epoch counter, a host int: the engine knows each segment's
+    first epoch and hands the epochs their counters as ``EpochInputs.t``.
+    ``key`` is the run's start-vector source (a
     ``repro_torch.V0Stream``), the counterpart of the replicated PRNG key.
     ``probe`` is the block solver's warm start, ``()`` for rank1.
     """
@@ -155,33 +171,39 @@ def make_epoch_step(
     solver="rank1",
     noise: Optional[NoiseStream] = None,
     group: Optional[WorkerGroup] = None,
+    when: Callable = host_when,
 ) -> Callable:
-    """Returns ``epoch(carry, worker_weight=None) -> (carry, aux)`` with K =
-    ``num_power_iters``; ``epoch.last_iters`` is the count of power
-    iterations the last call ran (K, or fewer under ``:adapt``).
+    """Returns ``epoch(carry, worker_weight=None, inputs=None) -> (carry,
+    aux)`` with K = ``num_power_iters``.
+
+    ``inputs`` (an ``EpochInputs``) is what the engine hands each epoch: the
+    counter, the weight, the start vector (block) and the int8 noise as
+    device tensors. Without it the epoch draws them itself, from
+    ``carry.key`` and ``noise`` (default ``NoiseStream(0)``) at
+    ``carry.t``, with ``worker_weight`` as its weight.
 
     The scalar aggregates (loss, <W, grad>, line-search terms) always stay
     exact f32 sums over ``group`` (None: one process); ``reducer`` (a
     reducer or a ``comm.topology`` graph) carries the power method's vector
-    exchanges, with ``noise`` (default ``NoiseStream(0)``) for stochastic
-    encodings. Under a per-node graph (gossip) every worker has its own u,
+    exchanges. Under a per-node graph (gossip) every worker has its own u,
     v and sigma: the gap and sigma of the aux are then the largest over
     the workers (one all-reduce MAX), so ``gap <= tol`` certifies every
-    worker's iterate, as in the reference. ``worker_weight`` is this
-    worker's straggler weight for the epoch: it scales the worker's loss,
-    <W, grad>, line-search terms and power-method contributions, as in the
-    reference (None: full participation, no multiply). The state, the
-    iterate and the aux are the same on every worker after the epoch (on a
-    flat graph): every worker forms them from the same all-reduced values.
+    worker's iterate, as in the reference. The straggler weight scales the
+    worker's loss, <W, grad>, line-search terms and power-method
+    contributions, as in the reference (None: full participation, no
+    multiply). The state, the iterate and the aux are the same on every
+    worker after the epoch (on a flat graph): every worker forms them from
+    the same all-reduced values. The iterate's store is updated in place.
 
     ``solver`` "block:k" runs ``block_power_iterations`` from the carried
-    probe (its columns of norm <= 1e-6 swapped for the epoch's fresh ones,
-    ``carry.key.block``; ``:cold`` starts from the fresh columns alone), the
-    gap from the largest sigma, the atoms blended by c = sigma / (sum sigma
-    + 1e-30) folded into u, and appends k factors; ``:adapt`` stops the
-    iteration at ``ADAPT_RTOL`` (one host read an iteration). The
-    aux's ``piters`` is the count of iterations run. Gossip graphs take
-    rank1 only (as in the reference).
+    probe (its columns of norm <= 1e-6 swapped for the epoch's fresh ones;
+    ``:cold`` starts from the fresh columns alone), the gap from the largest
+    sigma, the atoms blended by c = sigma / (sum sigma + 1e-30) folded into
+    u, and appends k factors; ``:adapt`` stops the iteration at
+    ``ADAPT_RTOL``, its iterations after the first under ``when`` (a host
+    branch by default; the engine's IF nodes when it captures the epoch).
+    The aux's ``piters`` is the count of iterations run, on the device.
+    Gossip graphs take rank1 only (as in the reference).
     """
     if step_size not in ("default", "linesearch"):
         raise ValueError(step_size)
@@ -216,56 +238,81 @@ def make_epoch_step(
             return local
         return tuple(psum(torch.stack(local), group).unbind())
 
-    def epoch(carry: EpochCarry, worker_weight: Optional[float] = None):
-        state, it = carry.state, carry.iterate
-        device = it.alpha.device
-        t = torch.full((), float(carry.t), dtype=torch.float32, device=device)
-        loss, inner = sums(worker_weight, task.local_loss(state), task.inner_w_grad(state))
+    def draw(carry: EpochCarry, device, worker_weight) -> EpochInputs:
+        """The epoch's own inputs, drawn at ``carry.t``."""
         if sspec.kind == "block":
-            return block_epoch(carry, worker_weight, t, loss, inner)
+            v0 = carry.key.block(carry.t, task.m, sspec.k, device)
+        else:
+            v0 = carry.key(carry.t, task.m, device)
+        w = None
+        if worker_weight is not None:
+            w = torch.full((), float(worker_weight), dtype=torch.float32, device=device)
+        return EpochInputs(t=torch.full((), float(carry.t), dtype=torch.float32, device=device),
+                           weight=w, v0=v0, noise=None)
 
-        v0 = carry.key(carry.t, task.m, device)
+    def epoch(carry: EpochCarry, worker_weight: Optional[float] = None,
+              inputs: Optional[EpochInputs] = None):
+        state = carry.state
+        device = carry.iterate.alpha.device
+        # exchange (i, slot)'s noise: the stream at carry.t for an epoch that
+        # draws its own inputs, else the inputs' tables (None: no encoding
+        # that draws)
+        noise_fn = None
+        if inputs is None:
+            inputs = draw(carry, device, worker_weight)
+
+            def noise_fn(_t, i, slot, dim, dev):
+                return noise(carry.t, i, slot, dim, dev)
+        elif inputs.noise is not None:
+            tables = dict(zip(("u", "v"), inputs.noise))
+
+            def noise_fn(_t, i, slot, dim, dev):
+                return tables[slot][i]
+        w = inputs.weight
+        loss, inner = sums(w, task.local_loss(state), task.inner_w_grad(state))
+        if sspec.kind == "block":
+            return block_epoch(carry, inputs, noise_fn, loss, inner)
+
         res, comm_state = power_iterations(
             partial(task.matvec, state),
             partial(task.rmatvec, state),
-            v0,
+            inputs.v0,
             num_power_iters,
             reducer=reducer,
             comm_state=carry.comm_state,
-            noise=noise,
+            noise=noise_fn,
             t=carry.t,
-            worker_weight=worker_weight,
+            worker_weight=w,
         )
         gap, sigma = duality_gap(inner, res.sigma, mu), res.sigma
         if per_node:
             gap, sigma = pmax(torch.stack([gap, sigma]), group).unbind()
 
         if step_size == "linesearch":
-            numer, denom = sums(worker_weight, *task.linesearch_terms(state, res.u, res.v, mu))
+            numer, denom = sums(w, *task.linesearch_terms(state, res.u, res.v, mu))
             gamma = torch.clamp(numer / torch.clamp(denom, min=1e-30), 0.0, 1.0)
         else:
-            gamma = default_step_size(t)
+            gamma = default_step_size(inputs.t)
 
         state = task.update(state, res.u, res.v, gamma, mu)
-        it = low_rank.fw_update(it, res.u, res.v, gamma, mu)
+        it = low_rank.fw_update(carry.iterate, res.u, res.v, gamma, mu)
         aux = EpochAux(
             loss=loss, gap=gap, sigma=sigma, gamma=gamma,
             piters=torch.full((), num_power_iters, dtype=torch.float32, device=device),
         )
-        epoch.last_iters = num_power_iters
         return EpochCarry(
             state=state, iterate=it, comm_state=comm_state,
             t=carry.t + 1, key=carry.key, probe=carry.probe,
         ), aux
 
-    def block_epoch(carry: EpochCarry, worker_weight, t, loss, inner):
-        state, it = carry.state, carry.iterate
-        device = it.alpha.device
+    def block_epoch(carry: EpochCarry, inputs: EpochInputs, noise_fn, loss, inner):
+        state = carry.state
         # the epoch's fresh columns; a warm probe replaces all but its dead ones
-        v0 = carry.key.block(carry.t, task.m, sspec.k, device)
+        v0 = inputs.v0
         if not sspec.cold and isinstance(carry.probe, torch.Tensor):
             col_norm = torch.linalg.vector_norm(carry.probe, dim=0, keepdim=True)
             v0 = torch.where(col_norm > 1e-6, carry.probe, v0)
+        w = inputs.weight
         res, comm_state = block_power_iterations(
             partial(task.matvec, state),
             partial(task.rmatvec, state),
@@ -273,14 +320,15 @@ def make_epoch_step(
             num_power_iters,
             reducer=reducer,
             comm_state=carry.comm_state,
-            noise=noise,
+            noise=noise_fn,
             t=carry.t,
-            worker_weight=worker_weight,
+            worker_weight=w,
             adapt_rtol=ADAPT_RTOL if sspec.adaptive else None,
             # the gap certificate is inner + mu sigma_max: changes small
             # against |inner| / mu (or sigma itself) cannot move it
             adapt_ref=torch.abs(inner) / mu,
             agree=agree,
+            when=when,
         )
         sigma_max = torch.max(res.sigma)
         gap = duality_gap(inner, sigma_max, mu)
@@ -289,17 +337,13 @@ def make_epoch_step(
         c = res.sigma / (torch.sum(res.sigma) + 1e-30)
         u_c = res.u * c[None, :]
         if step_size == "linesearch":
-            numer, denom = sums(worker_weight, *task.linesearch_terms(state, u_c, res.v, mu))
+            numer, denom = sums(w, *task.linesearch_terms(state, u_c, res.v, mu))
             gamma = torch.clamp(numer / torch.clamp(denom, min=1e-30), 0.0, 1.0)
         else:
-            gamma = default_step_size(t)
+            gamma = default_step_size(inputs.t)
         state = task.update(state, u_c, res.v, gamma, mu)
-        it = low_rank.fw_update_block(it, res.u, res.v, c, gamma, mu)
-        aux = EpochAux(
-            loss=loss, gap=gap, sigma=sigma_max, gamma=gamma,
-            piters=torch.full((), res.iters, dtype=torch.float32, device=device),
-        )
-        epoch.last_iters = res.iters
+        it = low_rank.fw_update_block(carry.iterate, res.u, res.v, c, gamma, mu)
+        aux = EpochAux(loss=loss, gap=gap, sigma=sigma_max, gamma=gamma, piters=res.iters)
         return EpochCarry(
             state=state, iterate=it, comm_state=comm_state,
             t=carry.t + 1, key=carry.key, probe=res.probe,
@@ -322,7 +366,8 @@ class FitResult:
     the straggler weights of the epochs run, (epochs_run, N), when the run
     was given them; ``comm_state`` the reducer's state at the end (top-k's
     residuals, ``()`` for dense and int8); ``probe`` the block solver's
-    warm start at the end (``()`` for rank1)."""
+    warm start at the end (``()`` for rank1); ``timings`` the engine's
+    (draws, captures)."""
 
     iterate: low_rank.FactoredIterate
     state: PyTree
@@ -333,6 +378,7 @@ class FitResult:
     masks: Optional[torch.Tensor] = None
     comm_state: PyTree = ()
     probe: PyTree = ()  # the block solver's (m, k) warm start after the last epoch
+    timings: Dict[str, list] = dataclasses.field(default_factory=dict)  # the engine's
 
 
 def fit(
@@ -360,6 +406,7 @@ def fit(
     group: Optional[WorkerGroup] = None,
     masks=None,
     probe=None,
+    mode: str = "scan",
 ) -> FitResult:
     """Run DFW-TRACE for up to ``num_epochs`` epochs on ``device``.
 
@@ -382,8 +429,11 @@ def fit(
     ``repro_torch.checkpoint.RunCheckpointer``) saves segment boundaries;
     the caller joins its writer with ``checkpointer.wait()``.
 
-    ``state`` is consumed: the dense tasks' update runs in place on its
-    (n, m) tensors.
+    ``state`` is consumed: the run writes its tensors in place.
+
+    ``mode`` is the engine's: "scan" (one dispatch a segment, captured as a
+    CUDA graph on the card) or "legacy" (one an epoch, four blocking pulls
+    each); see ``core/engine.py``.
 
     ``solver`` "block:k[:adapt][:cold]" runs the block tier: an epoch
     appends k factors (``max_rank`` defaults to ``num_epochs * k``), and
@@ -420,10 +470,12 @@ def fit(
         group=group,
         masks=masks,
         probe=probe,
+        mode=mode,
     )
     # F at the returned iterate over all the workers' rows: the plain sum,
     # never weighted by the straggler masks.
-    final_loss = float(psum(task.local_loss(eres.carry.state), group))
+    with explicit_sync():
+        final_loss = float(psum(task.local_loss(eres.carry.state), group))
     eres.stats["dispatches"] += 1
     eres.stats["host_syncs"] += 1
     return FitResult(
@@ -436,4 +488,5 @@ def fit(
         masks=eres.masks,
         comm_state=eres.carry.comm_state,
         probe=eres.carry.probe,
+        timings=eres.timings,
     )

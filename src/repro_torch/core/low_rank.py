@@ -5,7 +5,8 @@ memory instead of O(dm). Buffers are preallocated at ``max_rank``. The FW
 recurrence W <- (1-gamma) W + gamma S is folded into the running scale
 ``alpha``, so an epoch touches O(d+m) memory. ``alpha`` and ``count`` live
 on the device, and ``fw_update`` writes row ``count`` (``fw_update_block`` the
-k rows from ``count``) without reading it on the host.
+k rows from ``count``) without reading it on the host, in place: the store
+a run carries is the one the engine's CUDA graphs write.
 """
 from __future__ import annotations
 
@@ -45,7 +46,8 @@ def fw_update(
     (W <- S): alpha underflows to zero, so it is floored back to 1 *and* the
     live factors' s entries are zeroed; flooring alone would bring the old
     factors back at full scale. The line search clips gamma into [0, 1], so
-    gamma == 1 is reachable at any t.
+    gamma == 1 is reachable at any t. ``it`` is updated in place and
+    returned.
     """
     new_alpha = it.alpha * (1.0 - gamma)
     dead = torch.abs(new_alpha) < 1e-30
@@ -54,13 +56,20 @@ def fw_update(
     s_live = torch.where(dead, torch.zeros_like(it.s), it.s)
     s_new = -gamma * mu / safe_alpha
     k = it.count.reshape(1).long()
-    return FactoredIterate(
-        u=it.u.index_copy(0, k, u.reshape(1, -1).to(it.u.dtype)),
-        s=s_live.index_copy(0, k, s_new.reshape(1).to(it.s.dtype)),
-        v=it.v.index_copy(0, k, v.reshape(1, -1).to(it.v.dtype)),
-        alpha=safe_alpha,
-        count=it.count + 1,
-    )
+    return _append(it, k, u.reshape(1, -1), s_live, s_new.reshape(1), v.reshape(1, -1),
+                   safe_alpha, 1)
+
+
+def _append(it: FactoredIterate, rows, u_rows, s_live, s_new, v_rows, alpha,
+            k: int) -> FactoredIterate:
+    """``it`` with factor rows ``rows`` written, ``s_live`` for the old
+    scales, ``alpha`` and the count advanced by k, in place."""
+    it.u.index_copy_(0, rows, u_rows.to(it.u.dtype))
+    it.s.copy_(s_live).index_copy_(0, rows, s_new.to(it.s.dtype))
+    it.v.index_copy_(0, rows, v_rows.to(it.v.dtype))
+    it.alpha.copy_(alpha)
+    it.count.add_(k)
+    return it
 
 
 def fw_update_block(
@@ -74,7 +83,7 @@ def fw_update_block(
     nonnegative blend weights with sum c <= 1, so ||S||_* <= mu. The alpha
     folding and the gamma = 1 dead-iterate handling are ``fw_update``'s;
     the k new rows land at ``count .. count+k-1`` (on the device: no host
-    read of ``count``).
+    read of ``count``), in place as in ``fw_update``.
     """
     k = u.shape[1]
     new_alpha = it.alpha * (1.0 - gamma)
@@ -83,13 +92,7 @@ def fw_update_block(
     s_live = torch.where(dead, torch.zeros_like(it.s), it.s)
     s_new = (-gamma * mu / safe_alpha) * c.to(it.s.dtype)
     rows = it.count.reshape(1).long() + torch.arange(k, device=it.count.device)
-    return FactoredIterate(
-        u=it.u.index_copy(0, rows, u.T.to(it.u.dtype)),
-        s=s_live.index_copy(0, rows, s_new),
-        v=it.v.index_copy(0, rows, v.T.to(it.v.dtype)),
-        alpha=safe_alpha,
-        count=it.count + k,
-    )
+    return _append(it, rows, u.T, s_live, s_new, v.T, safe_alpha, k)
 
 
 def materialize(it: FactoredIterate) -> torch.Tensor:

@@ -13,6 +13,10 @@ a ``repro_torch.NoiseStream`` at (epoch t, iteration i, slot).
 (m, k) blocks, flattened through the same reducer (so the encodings compose
 unchanged), Cholesky-QR orthonormalized against their (k, k) Gram on the
 already-summed block, still exactly 2K exchanges for K iterations.
+
+Nothing here reads the device from the host. The adaptive stop's branch is
+a ``when(pred, body)`` seam: a host branch by default, an IF node of the
+engine's CUDA graph when the engine captures the epoch.
 """
 from __future__ import annotations
 
@@ -40,19 +44,26 @@ class BlockPowerResult(NamedTuple):
     ``u``/``v`` columns pair up as rank-1 atoms (``u_j^T A v_j = sigma_j``);
     ``probe`` is the orthonormalized right block, the next epoch's warm
     start. ``iters`` counts the iterations that ran (< K when the adaptive
-    stop fired), a host int (the loop runs on the host)."""
+    stop fired), a 0-d float32 device tensor."""
 
     u: torch.Tensor  # (d, k) left block, orthonormal columns
     v: torch.Tensor  # (m, k) right block, unit columns (atom directions)
     sigma: torch.Tensor  # (k,) singular value estimates (unordered, >= 0)
     probe: torch.Tensor  # (m, k) orthonormal right block (warm-start carry)
-    iters: int  # iterations executed
+    iters: torch.Tensor  # () float32, iterations executed
 
 
 def sphere_vector(gen: torch.Generator, m: int, device, dtype=torch.float32) -> torch.Tensor:
     """Uniform random vector on the unit (m-1)-sphere, drawn from ``gen``."""
     v = torch.randn(m, generator=gen, device=device, dtype=dtype)
     return v / (torch.linalg.vector_norm(v) + _EPS)
+
+
+def host_when(pred: torch.Tensor, body: Callable[[], None]) -> None:
+    """``body()`` if the 0-d bool ``pred`` holds: the ``when`` seam as a
+    host branch (a device read on a CUDA tensor; none on the CPU)."""
+    if bool(pred):
+        body()
 
 
 def power_iterations(
@@ -176,6 +187,7 @@ def block_power_iterations(
     adapt_rtol: Optional[float] = None,
     adapt_ref: Optional[torch.Tensor] = None,
     agree: Optional[WorkerGroup] = None,
+    when: Callable[[torch.Tensor, Callable[[], None]], None] = host_when,
 ):
     """Block power iteration on the implicit operator: (d, k)/(m, k) blocks
     in place of vectors, the rank-k LMO of the block:k solver (BlockFW,
@@ -191,10 +203,12 @@ def block_power_iterations(
 
     ``adapt_rtol`` turns on the adaptive stop: once the largest per-column
     sigma change of an iteration is at most ``adapt_rtol * (max(adapt_ref,
-    max sigma) + 1e-30)``, the remaining iterations are skipped. The
-    reference makes them ``lax.cond`` no-ops; here the host reads the
-    verdict after every iteration and leaves the loop (one host sync an
-    iteration). Every worker must take the
+    max sigma) + 1e-30)``, the remaining iterations are skipped. As the
+    reference's ``lax.cond`` does, each iteration after the first runs
+    under ``when(~stopped, body)`` (default :func:`host_when`), with
+    ``stopped`` and the count ``iters`` on the device; the body writes the
+    blocks, the sigmas, the flag, the count and the reducer state in place.
+    Every worker must take the
     same branch: where the workers' blocks may part (``agree``, a group
     whose exchange leaves each worker its own sums), the verdict is the
     workers' (one all-reduce MAX of "not done": all stop together, when the
@@ -219,10 +233,7 @@ def block_power_iterations(
     def weighted(x):
         return x if worker_weight is None else worker_weight * x
 
-    v = orthonormalize_block(v0)
-    sigma = torch.zeros(k, dtype=torch.float32, device=v0.device)
-    iters = 0
-    for i in range(num_iters):
+    def iteration(i, v, sigma, comm_state):
         local = weighted(matmat(v))
         d = local.shape[0]
         uu, comm_state = reducer.exchange(
@@ -234,8 +245,6 @@ def block_power_iterations(
         vv = vv.reshape(m, k)
         sig = torch.linalg.vector_norm(vv, dim=0)
         v_atoms = vv / (sig[None, :] + _EPS)
-        v = orthonormalize_block(vv)
-        iters += 1
         done = None
         if adapt_rtol is not None:
             ref = torch.max(sig)
@@ -244,7 +253,31 @@ def block_power_iterations(
             done = torch.max(torch.abs(sig - sigma)) <= adapt_rtol * (ref + _EPS)
             if agree is not None:
                 done = pmax((~done).to(torch.float32), agree) == 0
-        sigma = sig
-        if done is not None and bool(done):
-            break
+        return [u, v_atoms, orthonormalize_block(vv), sig, comm_state, done]
+
+    sigma = torch.zeros(k, dtype=torch.float32, device=v0.device)
+    cur = iteration(0, orthonormalize_block(v0), sigma, comm_state)
+    if adapt_rtol is None:
+        for i in range(1, num_iters):
+            cur = iteration(i, cur[2], cur[3], cur[4])
+        iters = torch.full((), float(num_iters), dtype=torch.float32, device=v0.device)
+    else:
+        # From here the carried values are written in place (iteration 0
+        # exchanged both slots, so the reducer state is fresh tensors too):
+        # a body that does not run leaves them as they are.
+        iters = torch.ones((), dtype=torch.float32, device=v0.device)
+        stopped = cur[5]
+        for i in range(1, num_iters):
+            def body(i=i):
+                new = iteration(i, cur[2], cur[3], cur[4])
+                for old, fresh in zip(cur[:4], new[:4]):
+                    old.copy_(fresh)
+                if isinstance(new[4], dict):
+                    for key, fresh in new[4].items():
+                        cur[4][key].copy_(fresh)
+                stopped.copy_(new[5])
+                iters.add_(1.0)
+
+            when(~stopped, body)
+    u, v_atoms, v, sigma, comm_state, _ = cur
     return BlockPowerResult(u=u, v=v_atoms, sigma=sigma, probe=v, iters=iters), comm_state

@@ -15,9 +15,11 @@ the power method consume (the same duck-typed interface as the JAX package):
 ``matvec``/``rmatvec`` here are the plain PyTorch operator chains, the oracle
 ``launch.dfw.verify_kernelized`` holds the kernels to; the run itself routes
 them through the ``power_matvec`` kernels (``launch.dfw.KernelizedTask``).
-``update`` goes through the ``rank1_update`` kernels and **consumes its
-state**: the (n, m) residual or logits are updated in place, which saves one
-(n, m) buffer per epoch. Reductions over (n, m) run over row chunks, so the
+``update`` goes through the ``rank1_update`` kernels (matrix completion:
+``mc_matvec.update_resid``) and **consumes its state**: the (n, m)
+residual or logits, or the residual's three p-length copies, are updated
+in place, which saves those buffers per epoch and lets the engine's CUDA
+graphs write the run's own tensors. Reductions over (n, m) run over row chunks, so the
 temporaries stay bounded at any n.
 
 Matrix completion keeps its observed entries in COO layout (``MCState``);
@@ -391,11 +393,13 @@ class MatrixCompletion:
         # W' = (1-g)W - g mu u v^T on the observed entries:
         # resid' = (1-g) resid - g w M - g mu w u[rows] v[cols], written in
         # caller order and in each sorted order by one update_resid launch
-        # (block factors: the k-term dot u[rows] . v[cols])
-        resid, by_row, by_col = mc_ops.update_resid(
+        # (block factors: the k-term dot u[rows] . v[cols]), in place, as
+        # the dense tasks' updates run
+        mc_ops.update_resid(
             gamma, mu, u, v, s.rows, s.cols, s.resid, s.vals, s.weight,
-            s.by_row, s.copies("row"), s.by_col, s.copies("col"))
-        return s._replace(resid=resid, resid_by_row=by_row, resid_by_col=by_col)
+            s.by_row, s.copies("row"), s.by_col, s.copies("col"),
+            out=(s.resid, s.resid_by_row, s.resid_by_col))
+        return s
 
     def local_loss(self, s: MCState) -> torch.Tensor:
         # weight^2 == weight for a {0,1} mask, so resid^2 is already masked

@@ -270,13 +270,16 @@ __device__ __forceinline__ float resid_step(float omg, float g, float gmu, float
 // a thread, 16-byte loads and stores where `vec`), then in the row order
 // (the next row.num_pieces / 8 blocks) and the column order (the rest), a
 // warp per piece. gamma is read on the device (no host sync); 1 - g and
-// g * mu are formed as the chain forms them in f32.
+// g * mu are formed as the chain forms them in f32. Each order's residual
+// and its output may be one array (the fits update in place): an entry is
+// read by the thread that writes it, before the store, so neither pointer
+// is __restrict__ (nor the SortedResid ones).
 __global__ void __launch_bounds__(kThreads)
 update_resid_kernel(const float* __restrict__ gamma, float mu, const int32_t* __restrict__ rows,
-                    const int32_t* __restrict__ cols, const float* __restrict__ resid,
+                    const int32_t* __restrict__ cols, const float* resid,
                     const float* __restrict__ vals, const float* __restrict__ weight,
                     const float* __restrict__ u, const float* __restrict__ v,
-                    float* __restrict__ out, int64_t p, int vec, int64_t caller_blocks,
+                    float* out, int64_t p, int vec, int64_t caller_blocks,
                     SortedResid row, int64_t row_blocks, SortedResid col) {
   const float g = __ldg(gamma);
   const float omg = __fsub_rn(1.f, g);
@@ -583,9 +586,9 @@ __device__ __forceinline__ void dot_tile(const float (&a)[kTile], const float (&
 template <bool V>
 __device__ __forceinline__ void update_caller_block(
     int64_t blk, float omg, float g, float gmu, const int32_t* __restrict__ rows,
-    const int32_t* __restrict__ cols, const float* __restrict__ resid,
+    const int32_t* __restrict__ cols, const float* resid,
     const float* __restrict__ vals, const float* __restrict__ weight, const float* __restrict__ u,
-    const float* __restrict__ v, float* __restrict__ out, int64_t p, int64_t k, int vec) {
+    const float* __restrict__ v, float* out, int64_t p, int64_t k, int vec) {
   constexpr int B = kCallerBatch;
   const int64_t e0 = B * (blk * kThreads + threadIdx.x);
   if (e0 >= p) return;
@@ -710,14 +713,17 @@ __device__ __forceinline__ void update_sorted_piece(const SortedResid& o, int64_
 // caller_blocks) the caller order, the next row_blocks the row order (a warp
 // a piece), the rest the column order. The products are u_j v_j in every
 // order (x_seg x_gat in a sorted one: the same product), so each order has
-// the caller order's bits.
-template <bool V, bool R>
+// the caller order's bits. ORDERS names the launch in a profile: true when
+// it writes the sorted orders too (update_resid), false for the caller
+// order alone (update_resid_caller); the code is the same. resid and out
+// may alias, as in update_resid_kernel.
+template <bool V, bool R, bool ORDERS>
 __global__ void __launch_bounds__(kThreads)
 update_resid_block_kernel(const float* __restrict__ gamma, float mu,
                           const int32_t* __restrict__ rows, const int32_t* __restrict__ cols,
-                          const float* __restrict__ resid, const float* __restrict__ vals,
+                          const float* resid, const float* __restrict__ vals,
                           const float* __restrict__ weight, const float* __restrict__ u,
-                          const float* __restrict__ v, float* __restrict__ out, int64_t p,
+                          const float* __restrict__ v, float* out, int64_t p,
                           int64_t k, int vec, int64_t caller_blocks, SortedResid row,
                           int64_t row_blocks, SortedResid col) {
   const float g = __ldg(gamma);
@@ -912,15 +918,18 @@ int mc_update_resid_block_f32(const float* gamma, float mu, const int32_t* rows,
   const int64_t col_blocks = (c_pieces + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const unsigned blocks = static_cast<unsigned>(caller_blocks + row_blocks + col_blocks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MC_UPDATE_BLOCK(V, R)                                                                   \
-  update_resid_block_kernel<V, R><<<blocks, kThreads, 0, s>>>(                                  \
+#define MC_UPDATE_BLOCK(V, R, O)                                                                \
+  update_resid_block_kernel<V, R, O><<<blocks, kThreads, 0, s>>>(                               \
       gamma, mu, rows, cols, resid, vals, weight, u, v, out, p, k, vec, caller_blocks, row,     \
       row_blocks, col)
+#define MC_UPDATE_BLOCK_ORDERS(V, R)                                                            \
+  if (r_pieces + c_pieces > 0) MC_UPDATE_BLOCK(V, R, true); else MC_UPDATE_BLOCK(V, R, false)
   if (vec_rows) {
-    if (in_regs) MC_UPDATE_BLOCK(true, true); else MC_UPDATE_BLOCK(true, false);
+    if (in_regs) MC_UPDATE_BLOCK_ORDERS(true, true); else MC_UPDATE_BLOCK_ORDERS(true, false);
   } else {
-    if (in_regs) MC_UPDATE_BLOCK(false, true); else MC_UPDATE_BLOCK(false, false);
+    if (in_regs) MC_UPDATE_BLOCK_ORDERS(false, true); else MC_UPDATE_BLOCK_ORDERS(false, false);
   }
+#undef MC_UPDATE_BLOCK_ORDERS
 #undef MC_UPDATE_BLOCK
   return static_cast<int>(cudaGetLastError());
 }

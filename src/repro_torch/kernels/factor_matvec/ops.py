@@ -22,6 +22,7 @@ from typing import Union
 import torch
 
 from .. import _checks
+from .._count import launched
 from . import kernel, ref
 
 
@@ -58,7 +59,7 @@ def factor_matvec(
     if bt == 0 or n_out == 0:
         return out
     kernel.factor_matvec(x, a, s, b, out)
-    factor_matvec.launches += 1
+    launched(factor_matvec, out)
     return out
 
 

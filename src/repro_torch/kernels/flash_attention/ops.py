@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from .. import _checks
+from .._count import launched
 from . import kernel, ref
 
 DTYPES = (torch.bfloat16, torch.float32)
@@ -66,8 +67,7 @@ def flash_attention(
     route = "wgmma" if kernel.wgmma_route(q, k, v) else "generic"
     launch = kernel.flash_attention_wgmma if route == "wgmma" else kernel.flash_attention
     launch(q, k, v, out, scale=float(scale), causal=bool(causal))
-    flash_attention.launches += 1
-    flash_attention.route_launches[route] += 1
+    launched(flash_attention, out, route)
     return out
 
 

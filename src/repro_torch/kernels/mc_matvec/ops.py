@@ -29,11 +29,12 @@ copies: its pack and its gather).
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from .. import _checks
+from .._count import launched
 from . import kernel, ref
 
 # Entries per piece: a warp's share of one segment. Fixed per run, so the
@@ -179,7 +180,7 @@ def _gather(perm: torch.Tensor, fields) -> list:
     records = (torch.empty((p, 4), dtype=torch.int32, device=perm.device)
                if len(fields) > 1 else None)
     kernel.gather_sorted(perm, fields, outs, records)
-    gather_sorted.launches += 1
+    launched(gather_sorted, perm)
     return outs
 
 
@@ -218,7 +219,7 @@ def coo_matvec(order: SegmentOrder, vals_sorted: torch.Tensor, x: torch.Tensor) 
         return out
     partial = torch.empty(order.piece_start.numel(), dtype=torch.float32, device=x.device)
     kernel.coo_matvec(order, vals_sorted, x, partial, out)
-    coo_matvec.launches += 1
+    launched(coo_matvec, out)
     return out
 
 
@@ -241,7 +242,7 @@ def coo_matmat(order: SegmentOrder, vals_sorted: torch.Tensor, x: torch.Tensor) 
         return out
     partial = torch.empty((order.piece_start.numel(), k), dtype=torch.float32, device=x.device)
     kernel.coo_matmat(order, vals_sorted, x, partial, out)
-    coo_matmat.launches += 1
+    launched(coo_matmat, out)
     return out
 
 
@@ -258,6 +259,7 @@ def update_resid(
     rows: torch.Tensor, cols: torch.Tensor, resid: torch.Tensor, vals: torch.Tensor,
     weight: torch.Tensor, by_row: SegmentOrder, row_copies: Sequence[torch.Tensor],
     by_col: SegmentOrder, col_copies: Sequence[torch.Tensor],
+    *, out: Optional[Sequence[torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The matrix-completion residual after a step of size ``gamma`` towards
     the atom ``-mu u v^T``, on the entries (rows, cols) with observed values
@@ -271,7 +273,11 @@ def update_resid(
     one-element float32 tensor on the entries' device (read there: no host
     sync); ``mu`` a number. u (d,) and v (m,) are a rank-1 atom's factors; u
     (d, k) and v (m, k) a block atom's, with u[row] v[col] the k-term dot
-    in ascending j (``ref.entry_dot``), the same chain in all three orders."""
+    in ascending j (``ref.entry_dot``), the same chain in all three orders.
+    ``out`` (three (p,) float32 tensors) receives the three results; each
+    may be its own order's residual input (``resid``, ``row_copies[0]``,
+    ``col_copies[0]``): every entry is read and written by one thread, so
+    the update runs in place with the same bits."""
     p = rows.numel()
     rows, cols = _index(rows, "rows"), _index(cols, "cols")
     if rows.shape != (p,) or cols.shape != (p,):
@@ -302,16 +308,23 @@ def update_resid(
         _checks.same_device(dev, order=order.perm, **{f"{name}_copy{i}": t
                                                       for i, t in enumerate(copies)})
         orders.append((order, copies))
+    if out is not None:
+        if len(out) != 3:
+            raise ValueError("out takes the caller, row and column orders' results")
+        out = tuple(_checks.vector_f32(t, f"out {n}", p)
+                    for t, n in zip(out, ("caller", "row", "column")))
+        _checks.same_device(dev, **{f"out_{i}": t for i, t in enumerate(out)})
     mu = float(mu)
     if not _checks.kernel_device(dev, "update_resid"):
-        return ref.update_resid(gamma, mu, u, v, rows, cols, resid, vals, weight,
-                                by_row, orders[0][1], by_col, orders[1][1])
-    outs = tuple(torch.empty(p, dtype=torch.float32, device=dev) for _ in range(3))
+        got = ref.update_resid(gamma, mu, u, v, rows, cols, resid, vals, weight,
+                               by_row, orders[0][1], by_col, orders[1][1])
+        return got if out is None else tuple(o.copy_(g) for o, g in zip(out, got))
+    outs = out if out is not None else tuple(
+        torch.empty(p, dtype=torch.float32, device=dev) for _ in range(3))
     if p == 0:
         return outs
     kernel.update_resid(gamma, mu, u, v, (rows, cols, resid, vals, weight), outs, orders)
-    update_resid.launches += 1
-    update_resid.route_launches["block" if u.dim() == 2 else "rank1"] += 1
+    launched(update_resid, u, "block" if u.dim() == 2 else "rank1")
     return outs
 
 
@@ -349,7 +362,7 @@ def update_resid_caller(
     if p == 0:
         return out
     kernel.update_resid_caller(gamma, mu, u, v, (rows, cols, resid, vals, weight), out)
-    update_resid_caller.launches += 1
+    launched(update_resid_caller, u)
     return out
 
 

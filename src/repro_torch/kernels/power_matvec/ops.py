@@ -20,6 +20,7 @@ import math
 import torch
 
 from .. import _checks
+from .._count import launched
 from . import kernel, ref
 
 # rmatvec row slab per stage-1 block; fixed per shape, so the summation
@@ -79,7 +80,7 @@ def matvec(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if n == 0 or m == 0:
         return out.zero_()
     kernel.matvec(a, v, out)
-    matvec.launches += 1
+    launched(matvec, out)
     return out
 
 
@@ -97,7 +98,7 @@ def rmatvec(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     rows = _rows_per_slab(n)
     partial = torch.empty((-(-n // rows), m), dtype=torch.float32, device=a.device)
     kernel.rmatvec(a, u, partial, out, rows)
-    rmatvec.launches += 1
+    launched(rmatvec, out)
     return out
 
 
@@ -113,7 +114,7 @@ def matmat(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if n == 0 or m == 0:
         return out.zero_()
     kernel.matmat(a, v, out)
-    matmat.launches += 1
+    launched(matmat, out)
     return out
 
 
@@ -135,7 +136,7 @@ def rmatmat(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     partial = torch.empty((-(-n // rows), m, min(k, MATMAT_GROUP)), dtype=torch.float32,
                           device=a.device)
     kernel.rmatmat(a, u, partial, out, rows)
-    rmatmat.launches += 1
+    launched(rmatmat, out)
     return out
 
 

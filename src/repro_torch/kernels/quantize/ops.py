@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from .. import _checks
+from .._count import launched
 from . import kernel, ref
 
 
@@ -43,7 +44,7 @@ def quantize(x: torch.Tensor, noise: torch.Tensor, scale: torch.Tensor, *,
     out = torch.empty(n, dtype=torch.int8, device=x.device)
     if n:
         kernel.quantize(x, noise, scale, out, budget)
-        quantize.launches += 1
+        launched(quantize, out)
     return out
 
 
@@ -59,7 +60,7 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor, *, budget: int) -> torch.Te
     out = torch.empty(q.shape[0], dtype=torch.float32, device=q.device)
     if q.numel():
         kernel.dequantize(q, scale, out, budget)
-        dequantize.launches += 1
+        launched(dequantize, out)
     return out
 
 

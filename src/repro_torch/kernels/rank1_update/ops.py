@@ -19,6 +19,7 @@ from typing import Optional, Union
 import torch
 
 from .. import _checks
+from .._count import launched
 from . import kernel, ref
 
 Scalar = Union[float, torch.Tensor]
@@ -69,7 +70,7 @@ def rank1_update(
         out = torch.empty_like(z)
     if z.numel():
         kernel.update(out, z, None, x, y, scal)
-        rank1_update.launches += 1
+        launched(rank1_update, out)
     return out
 
 
@@ -87,7 +88,7 @@ def rank1_update_axpy(
         out = torch.empty_like(z)
     if z.numel():
         kernel.update(out, z, y0, x, y, scal)
-        rank1_update_axpy.launches += 1
+        launched(rank1_update_axpy, out)
     return out
 
 
@@ -125,7 +126,7 @@ def rankk_update(
         out = torch.empty_like(z)
     if z.numel():
         kernel.update_k(out, z, None, p, q, scal)
-        rankk_update.launches += 1
+        launched(rankk_update, out)
     return out
 
 
@@ -143,7 +144,7 @@ def rankk_update_axpy(
         out = torch.empty_like(z)
     if z.numel():
         kernel.update_k(out, z, y0, p, q, scal)
-        rankk_update_axpy.launches += 1
+        launched(rankk_update_axpy, out)
     return out
 
 

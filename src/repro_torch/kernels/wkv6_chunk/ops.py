@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _checks
+from .._count import launched
 from . import kernel, ref
 
 DTYPES = (torch.bfloat16, torch.float32)
@@ -83,7 +84,7 @@ def wkv6_chunk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Te
     y = torch.empty((b, h, q, dv), dtype=torch.float32, device=r.device) if out is None else out
     s_out = torch.empty_like(s0)
     kernel.wkv6_chunk(r, k, v, logw, u, s0, y, s_out)
-    wkv6_chunk.launches += 1
+    launched(wkv6_chunk, y)
     return y, s_out
 
 

@@ -98,12 +98,15 @@ class DFWConfig:
     gossip graph's mixing rounds per exchange (None: sized from its
     spectral gap, ``comm.default_gossip_rounds``). ``resume_from`` (a
     checkpoint directory) and ``resume_step`` (default: its latest step)
-    resume a run (the module doc). Every field of the second
-    group belongs to a path not yet ported (Pallas, the legacy engine,
-    telemetry) and must keep its default; anything else raises
-    ``NotYetPorted`` when the config is built. The port has no
-    ``kernelize`` switch: the run always goes through ``KernelizedTask``,
-    whose ops pick the kernel or the plain version by the tensors' device.
+    resume a run (the module doc). ``engine`` is the epoch engine's mode:
+    "scan" (one dispatch a segment, a CUDA graph replay on the card) or
+    "legacy" (one an epoch, four blocking pulls each, the equivalence
+    oracle); see ``core/engine.py``. Every field of the second group
+    belongs to a path not yet ported (Pallas, telemetry) and must keep its
+    default; anything else raises ``NotYetPorted`` when the config is
+    built. The port has no ``kernelize`` switch: the run always goes
+    through ``KernelizedTask``, whose ops pick the kernel or the plain
+    version by the tensors' device.
     """
 
     mu: float
@@ -126,10 +129,10 @@ class DFWConfig:
     gossip_rounds: Optional[int] = None
     resume_from: Optional[str] = None
     resume_step: Optional[int] = None
+    engine: str = "scan"
     # --- not yet ported: must keep these defaults ---
     use_pallas: Optional[bool] = None
     interpret: bool = False
-    engine: str = "scan"
     telemetry: Optional[Any] = None
 
     def __post_init__(self):
@@ -139,6 +142,8 @@ class DFWConfig:
             raise ValueError(f"step_size={self.step_size!r}")
         if not 0.0 < self.sample_prob <= 1.0:
             raise ValueError(f"sample_prob={self.sample_prob}: must lie in (0, 1]")
+        if self.engine not in engine.MODES:
+            raise ValueError(f"engine={self.engine!r}: expected 'scan' or 'legacy'")
         for f in dataclasses.fields(self):
             if f.name in _UNPORTED and getattr(self, f.name) != f.default:
                 raise NotYetPorted(
@@ -150,7 +155,6 @@ class DFWConfig:
 _UNPORTED = {
     "use_pallas": "Pallas dispatch (the port picks the kernel by tensor device)",
     "interpret": "Pallas interpret mode",
-    "engine": "the legacy per-epoch engine",
     "telemetry": "telemetry",
 }
 
@@ -166,6 +170,7 @@ class DFWFitResult:
     stats: Dict[str, int] = dataclasses.field(default_factory=dict)
     comm_state: PyTree = ()  # this worker's reducer state at the end (top-k residuals)
     probe: PyTree = ()  # the block solver's (m, k) warm start at the end; () for rank1
+    timings: Dict[str, list] = dataclasses.field(default_factory=dict)  # the engine's
 
 
 # ---------------------------------------------------------------------------
@@ -616,6 +621,7 @@ def _run(task, x, y, *, cfg: DFWConfig, key, noise, callback, dev, group, masks,
         group=group,
         masks=masks,
         probe=probe,
+        mode=cfg.engine,
         **resumed,
     )
     if checkpointer is not None:
@@ -639,7 +645,7 @@ def _run(task, x, y, *, cfg: DFWConfig, key, noise, callback, dev, group, masks,
     return DFWFitResult(
         iterate=res.iterate, state=res.state, history=res.history, masks=res.masks,
         final_loss=res.final_loss, epochs_run=res.epochs_run, stats=res.stats,
-        comm_state=res.comm_state, probe=res.probe,
+        comm_state=res.comm_state, probe=res.probe, timings=res.timings,
     )
 
 
@@ -680,7 +686,10 @@ def fit(
     groups. Where the workers' iterates part (gossip, or int8 across hier
     groups) every worker returns worker 0's, the reference's convention.
     ``stats`` add, over the group, ``all_reduces`` and ``bytes_<kind>``,
-    the bytes of this worker's collectives by kind (``comm.base.KINDS``).
+    the bytes of this worker's collectives by kind (``comm.base.KINDS``),
+    from the group's ``tally``: the collectives called, so a fit captured
+    into CUDA graphs (an NCCL group) counts each captured one once, when
+    captured (the engine's analytic ``comm_*`` stats count the epochs run).
 
     ``cfg.sample_prob`` < 1 samples the workers per epoch
     (``worker_schedule``, or the injected (num_epochs, N) ``masks``

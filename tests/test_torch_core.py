@@ -266,15 +266,22 @@ def test_valid_but_unported_specs_raise(spec):
 ])
 def test_config_rejects_unported_fields(field, value):
     """Every field not yet ported raises NotYetPorted. ``gossip_rounds`` is
-    ported with the gossip graph and ``resume_from``/``resume_step`` with
-    the resume path (each raised here before): the config takes them, as
-    the reference's does."""
+    ported with the gossip graph, ``resume_from``/``resume_step`` with
+    the resume path and ``engine`` with the legacy engine (each raised here
+    before): the config takes them, as the reference's does; an engine that
+    is neither "scan" nor "legacy" is a ValueError."""
     assert field in {f.name for f in dataclasses.fields(jdfw.DFWConfig)}
     if field == "gossip_rounds":
         cfg = dfw.DFWConfig(mu=1.0, num_epochs=3, topology="ring", **{field: value})
         assert cfg.gossip_rounds == value
         assert jdfw.DFWConfig(mu=1.0, num_epochs=3, topology="ring",
                               **{field: value}).gossip_rounds == value
+        return
+    if field == "engine":
+        assert dfw.DFWConfig(mu=1.0, num_epochs=3, engine=value).engine == value
+        assert jdfw.DFWConfig(mu=1.0, num_epochs=3, engine=value).engine == value
+        with pytest.raises(ValueError, match="engine"):
+            dfw.DFWConfig(mu=1.0, num_epochs=3, engine="bogus")
         return
     if field in ("resume_from", "resume_step"):
         assert getattr(dfw.DFWConfig(mu=1.0, num_epochs=3, **{field: value}), field) == value

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+and the engine's CUDA graphs against the same programs run uncaptured
+(``captured`` in their names: the same bits, launches and stats).
 
 Every test here is marked ``gpu`` and skips without CUDA. This file imports
 no JAX, so it also runs where only PyTorch is installed:
@@ -940,13 +942,16 @@ def test_cuda_update_resid_block_is_the_chain_bit_for_bit(cuda, d, m, p, heavy, 
     want = mc.ref.resid_step_dot(gamma, 1.75, resid, vals, weight,
                                  mc.ref.entry_dot(u, v, rows, cols))
     before = dict(mc.update_resid.route_launches)
+    # the update runs in place: a second run starts from copies of the input
+    fresh = state._replace(**{f: getattr(state, f).clone()
+                              for f in ("resid", "resid_by_row", "resid_by_col")})
     got = tasks.MatrixCompletion(d, m).update(state, u, v, gamma, 1.75)
     torch.cuda.synchronize()
     assert mc.update_resid.route_launches["block"] == before["block"] + 1
     assert torch.equal(got.resid, want)
     assert torch.equal(got.resid_by_row, mc.gather_sorted(state.by_row, want))
     assert torch.equal(got.resid_by_col, mc.gather_sorted(state.by_col, want))
-    again = tasks.MatrixCompletion(d, m).update(state, u, v, gamma, 1.75)
+    again = tasks.MatrixCompletion(d, m).update(fresh, u, v, gamma, 1.75)
     for f in ("resid", "resid_by_row", "resid_by_col"):
         assert torch.equal(getattr(again, f), getattr(got, f))
 
@@ -982,3 +987,170 @@ def test_cuda_update_resid_caller_is_the_block_launch_s_caller_order(cuda, d, m,
                                                 state.by_col, state.copies("col"))[0])
     assert torch.equal(mc.update_resid_caller(*args), got)
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [None, 8, 32])
+def test_cuda_update_resid_in_place_is_out_of_place_bits(cuda, k):
+    """update_resid writing each order's result over that order's residual
+    (as MatrixCompletion.update calls it) gives the fresh outputs' bits."""
+    from repro_torch.core import tasks
+    from repro_torch.kernels import mc_matvec as mc
+
+    d, m = 3000, 700
+    rows, cols, vals = _coo(d, m, 200_000, cuda, heavy=5000)
+    weight = (torch.arange(rows.numel(), device=cuda) % 3 != 0).float()
+    state = tasks.mc_state(rows, cols, vals, weight * torch.randn(rows.numel(), device=cuda),
+                           weight, d, m)
+    u = torch.randn(d, device=cuda) if k is None else _block_x(d, k, True, cuda)
+    v = torch.randn(m, device=cuda) if k is None else _block_x(m, k, True, cuda)
+    gamma = torch.full((), 0.3, device=cuda)
+    args = (gamma, 1.25, u, v, state.rows, state.cols, state.resid, state.vals, state.weight,
+            state.by_row, state.copies("row"), state.by_col, state.copies("col"))
+    want = mc.update_resid(*args)
+    got = mc.update_resid(*args, out=(state.resid, state.resid_by_row, state.resid_by_col))
+    assert got[0] is state.resid and got[1] is state.resid_by_row
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# The engine on the card: one CUDA graph per (K, length) segment program
+# ---------------------------------------------------------------------------
+
+
+def _engine_problem(kind, device):
+    """Small MTLS / logistic / MC data from a seed (numpy), as torch tensors."""
+    from repro_torch.core import tasks
+
+    rng = np.random.default_rng(11)
+    if kind == "mc":
+        d, m, p = 60, 50, 800
+        u, v = rng.standard_normal((d, 3)), rng.standard_normal((m, 3))
+        rows, cols = rng.integers(0, d, p), rng.integers(0, m, p)
+        vals = ((u @ v.T)[rows, cols] / 3).astype(np.float32)
+        idx, yw = tasks.pack_observations(rows, cols, vals)
+        return tasks.MatrixCompletion(d, m), idx.to(device), yw.to(device), 2.0
+    n, d, m = 512, 48, 40
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    w = rng.standard_normal((d, m))
+    w /= np.linalg.svd(w, compute_uv=False).sum()
+    if kind == "logistic":
+        y = np.argmax(x @ rng.standard_normal((d, m)), axis=1).astype(np.int64)
+        return (tasks.MultinomialLogistic(d, m), torch.from_numpy(x).to(device),
+                torch.from_numpy(y).to(device), 10.0)
+    return (tasks.MultiTaskLeastSquares(d, m), torch.from_numpy(x).to(device),
+            torch.from_numpy((x @ w).astype(np.float32)).to(device), 1.0)
+
+
+_ENGINE_CASES = {
+    "mtls-log-linesearch": ("mtls", dict(num_epochs=12, schedule="log", step_size="linesearch")),
+    "logistic-int8": ("logistic", dict(num_epochs=8, schedule="log", comm="int8")),
+    "mc-dense": ("mc", dict(num_epochs=10, schedule="log", step_size="linesearch")),
+    "mc-int8": ("mc", dict(num_epochs=8, schedule="log", comm="int8", step_size="linesearch")),
+    "mtls-topk": ("mtls", dict(num_epochs=10, schedule="const:2", comm="topk:6")),
+    "mtls-block4-adapt-gap_tol": ("mtls", dict(num_epochs=24, schedule="const:4",
+                                               solver="block:4:adapt", step_size="linesearch",
+                                               gap_tol="mid")),
+    "mc-block4-adapt": ("mc", dict(num_epochs=10, schedule="const:3", solver="block:4:adapt",
+                                   step_size="linesearch")),
+}
+
+
+def _engine_fit(kind, kw, device):
+    """fit_serial on ``device`` under fresh launch counts: (result, the
+    launches the device ran and their routes (``kernels.Executed``; None
+    off the card), the wrappers' calls)."""
+    import contextlib
+
+    from repro_torch.launch import dfw
+
+    task, x, y, mu = _engine_problem(kind, device)
+    kernels.reset_launches()
+    with kernels.Executed() if device.type == "cuda" else contextlib.nullcontext() as ran:
+        res = dfw.fit_serial(task, x, y, cfg=dfw.DFWConfig(mu=mu, verify_kernels=False, **kw),
+                             key=5, device=device)
+    if ran is None:
+        return res, None, kernels.launches()
+    return res, (ran.launches, ran.routes), kernels.launches()
+
+
+def _same_bits(a, b):
+    assert a.epochs_run == b.epochs_run
+    assert a.history == b.history  # NaN-free: cut to the epochs run
+    assert a.final_loss == b.final_loss
+    for p, q in zip(a.iterate, b.iterate):
+        assert torch.equal(p, q)
+    for p, q in zip(a.state, b.state):
+        if isinstance(p, torch.Tensor):
+            assert torch.equal(p, q)
+    if isinstance(a.probe, torch.Tensor):
+        assert torch.equal(a.probe, b.probe)
+
+
+def _with_gap_tol(kind, kw, device):
+    """``gap_tol="mid"``: the gap an unstopped run reaches at 60% of its
+    epochs, so that the certificate fires inside the one segment."""
+    if kw.get("gap_tol") != "mid":
+        return kw
+    full, _, _ = _engine_fit(kind, {**kw, "gap_tol": None}, device)
+    return {**kw, "gap_tol": full.history["gap"][int(0.6 * kw["num_epochs"])]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(_ENGINE_CASES))
+def test_cuda_captured_run_equals_uncaptured_and_legacy(cuda, case, monkeypatch):
+    """A captured scan run gives the bits, history, launches on the device
+    and stats of the same programs run uncaptured on the card, and legacy's
+    bits; uncaptured, the device ran the wrappers' calls; gap_tol fires
+    mid-segment where asked."""
+    from repro_torch.core import engine
+
+    kind, kw = _ENGINE_CASES[case]
+    kw = _with_gap_tol(kind, kw, cuda)
+    graph, gran, _ = _engine_fit(kind, kw, cuda)
+    # a replay a piece of at most MAX_PROGRAM_EPOCHS (24 epochs: two pieces)
+    assert graph.stats["graph_replays"] >= graph.stats["segments_run"] > 0
+    monkeypatch.setattr(engine, "_capturable", lambda *a: False)
+    plain, pran, pcalls = _engine_fit(kind, kw, cuda)
+    assert plain.stats["graph_replays"] == 0
+    legacy, lran, lcalls = _engine_fit(kind, {**kw, "engine": "legacy"}, cuda)
+    for other in (plain, legacy):
+        _same_bits(graph, other)
+    assert gran == pran == lran
+    assert pran[0] == pcalls and lran[0] == lcalls
+    assert {**graph.stats, "graph_replays": 0} == plain.stats
+    if kw.get("gap_tol") is not None:
+        assert graph.epochs_run < kw["num_epochs"]
+        assert graph.stats["segments_run"] == 1  # stopped inside the segment
+
+
+@pytest.mark.gpu
+def test_cuda_captured_run_passes_the_transfer_guard(cuda):
+    """A const:2 MC run, state built first, meets dispatch_contract() under
+    its guard: no device read outside the engine's counted fetches."""
+    from repro_torch.core import engine, frank_wolfe
+    from repro_torch.launch import dfw
+
+    task, idx, yw, mu = _engine_problem("mc", cuda)
+    ktask = dfw.kernelize(task)
+    state = ktask.init_state(idx, yw)
+    contract = engine.dispatch_contract()
+    with contract.guard():
+        res = frank_wolfe.fit(ktask, state, mu=mu, num_epochs=12, schedule="const:2",
+                              step_size="linesearch", key=5, device=cuda)
+    contract.check_stats(res.stats)
+    assert res.stats["graph_replays"] == 1 and res.epochs_run == 12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["mtls-log-linesearch", "mc-int8", "mtls-topk"])
+def test_cuda_captured_stats_equal_the_cpu_run(cuda, case):
+    """The engine's stats count the reference's logical points, on every
+    device: the card's captured run and the CPU's differ in graph_replays
+    alone."""
+    kind, kw = _ENGINE_CASES[case]
+    card, _, _ = _engine_fit(kind, kw, cuda)
+    cpu, _, _ = _engine_fit(kind, kw, torch.device("cpu"))
+    assert cpu.stats["graph_replays"] == 0 < card.stats["graph_replays"]
+    assert {**card.stats, "graph_replays": 0} == cpu.stats
