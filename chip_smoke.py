@@ -72,10 +72,17 @@ Phases, each fatal on failure (exit code != 0, no result line):
    every segment boundary; ``ServingEngine.from_checkpoint`` on the first
    step scores --serve-batches full batches of 64 (p50/p99 per dispatch,
    requests per second), hot-swaps to the latest step while a batch is in
-   flight, walks every step, serves 640 single requests through a
-   ``MicroBatcher`` and a transposed engine. Every score is checked against
-   x @ W on the card; launches, rank buckets and the device memory the
-   scoring adds are checked too.
+   flight, walks every step, swaps inside one rank bucket while a batch is
+   in flight, dispatches a full batch under its contract's guard (no
+   implicit host sync), serves 640 single requests through a
+   ``MicroBatcher`` (ten batches in flight) and a transposed engine. Each
+   rank bucket is one captured CUDA graph of ``factor_matvec`` (compilations
+   = buckets visited; capture ms and pool bytes printed), each dispatch a
+   replay. Every score is checked against x @ W on the card and bit for bit
+   against the uncaptured kernel on the same padded inputs and factors
+   (in-flight handles keep their rows and their model); the launches the
+   device ran (one replay a dispatch, one warm-up a bucket), rank buckets
+   and the device memory the scoring adds are checked too.
 
 13. Hold the flash attention kernel (``flash_attention``) against its plain
    version at the main path's shape (B = 4, Hq 12 / Hkv 2, S = 8192, Dh 128,
@@ -94,8 +101,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    launch per layer, each on the wgmma route; ms per prefill (median of 3),
    tokens/s, peak memory.
 15. Full-width decode: ``launch.serve.generate`` at batch 4, a 64-token
-   prompt and 32 new tokens: tokens in range, no flash_attention launch
-   (decode attention is the dense path); ms per step.
+   prompt and 32 new tokens, one captured step replayed for every position:
+   its tokens and the cache it filled the same bits as a loop of the
+   uncaptured serve step on the same weights and prompt; no launch of
+   flash_attention on the device (decode attention is the dense path); ms
+   per step of both, the capture's ms and its graph pool's bytes.
 16. Cross-checks: full-width prefill against ``decode_step`` fed the prompt
    token by token (4 x 64 tokens) in f32 (1e-3 of max|logits|) and in bf16
    (5e-2); the smoke config's prefill on the card against the CPU (f32,
@@ -120,8 +130,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
    64, 64) and x_tm, x_cm (32, 4, 4096) f32, wkv6_chunk launched 32 x 16 =
    512 times; ms per prefill (median of 3), tokens/s, peak memory.
 19. Full-width decode: ``generate`` at batch 4 with those weights, a 64-token
-   prompt and 32 new tokens: tokens in range, no wkv6_chunk launch (decode
-   is the exact recurrence in plain PyTorch); ms per step.
+   prompt and 32 new tokens, captured as in phase 15 and held bit for bit
+   to the uncaptured step loop (tokens, wkv states and token-shift inputs);
+   no wkv6_chunk launch (decode is the exact recurrence in plain PyTorch);
+   ms per step of both, capture ms, pool bytes.
 20. Cross-checks: (a) full-width prefill against ``decode_step`` fed the
    prompt token by token at 4 x 64 tokens (two chunks of 32, so no clamp
    binds: the least in-chunk cw is printed and must stay above -80), logits
@@ -275,9 +287,10 @@ and says whether the bits are the same; ``--src`` imports the port from
 another checkout's ``src``, so two versions of the kernel are compared in
 one call (old, new, new, old), each on the same data made from --seed.
 
-``--profile`` adds 3-epoch fits of the three tasks, 50 serving dispatches,
-one prefill and a short decode of each LM under ``torch.profiler`` (device
-time by kernel, the device's idle share); ``--report PATH`` writes every
+``--profile`` adds 3-epoch fits of the three tasks, 50 captured serving
+dispatches, one prefill and a short captured decode of each LM under
+``torch.profiler`` (device time by kernel, the device's idle share; the
+decode's over its replayed steps); ``--report PATH`` writes every
 number to a JSON file. ``--rows``, ``--mc-entries``, ``--lm-batch/--lm-seq/
 --lm-layers`` and ``--ssm-batch/--ssm-seq/--ssm-layers`` cut depth
 (samples, training ratings, prompts, tokens, layers) for a quick check; the
@@ -2047,9 +2060,9 @@ def factor_kernel_phase(torch, fm, _build, dev, gen, reps, peaks):
                                             "factor_matvec_kernel"),
                         library_device_ms=device_ms(torch, lib),
                         library_chain_device_ms=device_ms(torch, lambda: (x @ a.T * s) @ b))
-                    print(f"  device time per call: kernel {row['device_ms']:.4f} ms, einsum "
-                          f"{row['library_device_ms']:.4f}, chain "
-                          f"{row['library_chain_device_ms']:.4f}; plan {row['plan']}")
+                    print(f"  device time per call: kernel {fmt_ms(row['device_ms'])} ms, einsum "
+                          f"{fmt_ms(row['library_device_ms'])}, chain "
+                          f"{fmt_ms(row['library_chain_device_ms'])}; plan {row['plan']}")
                 rows_out.append(row)
                 print(f"kernel factor_matvec b={bt:4d} r={cap:3d} {n_in}->{n_out}: "
                       f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, einsum "
@@ -2087,7 +2100,7 @@ def step_bytes(directory, step: int) -> int:
     return sum(f.stat().st_size for f in Path(directory, f"step_{step:08d}").iterdir())
 
 
-def train_then_serve(torch, np, dfw, tasks, ckpt, serve, low_rank, kernels, dev, gen, args):
+def train_then_serve(torch, np, dfw, tasks, ckpt, serve, low_rank, kernels, fm, dev, gen, args):
     """Phase 12: fit_serial writes checkpoints, the serving engine loads,
     scores and hot-swaps them. Returns (report, fit launches, serving
     launches)."""
@@ -2136,94 +2149,171 @@ def train_then_serve(torch, np, dfw, tasks, ckpt, serve, low_rank, kernels, dev,
 
         rng = np.random.default_rng(args.seed)
         scfg = serve.ServeConfig(max_batch=SERVE_BATCH, rank_block=SERVE_BLOCK)
-        kernels.reset_launches()
+        caps = {s: serve.rank_bucket(int(ckpt.read_iterate_packed(ckdir, s)[1]["count"]),
+                                     SERVE_BLOCK) for s in steps}
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng = serve.ServingEngine.from_checkpoint(ckdir, scfg, step=steps[0], device=dev)
-        rep["first_load_s"] = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base_mem = torch.cuda.memory_allocated()
-        served = []  # (step, x, scores) checked after the scoring window
-        lat = []
-        for _ in range(args.serve_batches):
-            x = rng.standard_normal((SERVE_BATCH, SERVE_D), dtype=np.float32)
+        # the main path's serving run: launches counted on the device (a
+        # dispatch is a graph replay, which calls no wrapper)
+        with counting(kernels) as ran:
             t0 = time.perf_counter()
-            got = eng.score(x)
-            lat.append(time.perf_counter() - t0)
-            served.append((eng.model.step, x, got))
-        # hot-swap to the latest step while a batch is in flight
-        x = rng.standard_normal((SERVE_BATCH, SERVE_D), dtype=np.float32)
-        first = eng.score_async(x)
-        t0 = time.perf_counter()
-        eng.load(ckdir)
-        swap_s = [time.perf_counter() - t0]
-        second = eng.score_async(x)
-        check(first.version == 0 and second.version == 1 and second.step == steps[-1],
-              f"in-flight swap: versions {first.version}, {second.version}")
-        served += [(steps[0], x, first.block()), (steps[-1], x, second.block())]
-        # every step in turn, one batch each
-        for step in steps[1:]:
-            t0 = time.perf_counter()
-            eng.load(ckdir, step=step)
-            swap_s.append(time.perf_counter() - t0)
+            eng = serve.ServingEngine.from_checkpoint(ckdir, scfg, step=steps[0], device=dev)
+            rep["first_load_s"] = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_mem = torch.cuda.memory_allocated()
+            served = []  # (step, capacity, x, scores) checked after the scoring window
+            lat, lat_async = [], []  # a round trip (score), its dispatch (score_async)
+            for _ in range(args.serve_batches):
+                x = rng.standard_normal((SERVE_BATCH, SERVE_D), dtype=np.float32)
+                t0 = time.perf_counter()
+                pending = eng.score_async(x)
+                t1 = time.perf_counter()
+                got = pending.block()
+                lat.append(time.perf_counter() - t0)
+                lat_async.append(t1 - t0)
+                served.append((steps[0], eng.model.capacity, x, got))
+            # hot-swap to the latest step (another bucket) while a batch is in flight
             x = rng.standard_normal((SERVE_BATCH, SERVE_D), dtype=np.float32)
-            served.append((step, x, eng.score(x)))
-        buckets = {serve.rank_bucket(s, SERVE_BLOCK) for s in steps}
-        check(eng.stats["compilations"] == len(buckets),
-              f"rank buckets prepared {eng.stats['compilations']} != visited {len(buckets)}")
-        # 640 single requests through a MicroBatcher
-        batcher = serve.MicroBatcher(eng, flush_at=SERVE_BATCH)
-        singles = rng.standard_normal((10 * SERVE_BATCH, SERVE_D), dtype=np.float32)
-        tickets = [batcher.submit(q) for q in singles]
-        check(batcher.pending_count == 0 and all(tk.dispatched for tk in tickets),
-              "micro-batcher left requests queued")
-        served.append((eng.model.step, singles, np.stack([tk.result() for tk in tickets])))
-        rise = torch.cuda.max_memory_allocated() - base_mem
-        dispatches = eng.stats["dispatches"]
-        check(dispatches == args.serve_batches + 2 + len(steps) - 1 + 10,
-              f"serving dispatches {dispatches}")
-        # a transposed engine on the latest step (the first engine's start-up
-        # check covered both directions)
-        teng = serve.ServingEngine.from_checkpoint(
-            ckdir, serve.ServeConfig(max_batch=SERVE_BATCH, rank_block=SERVE_BLOCK,
-                                     transpose=True, verify_kernels=False), device=dev)
-        tserved = []
-        for _ in range(20):
-            x = rng.standard_normal((SERVE_BATCH, SERVE_M), dtype=np.float32)
-            tserved.append((teng.model.step, x, teng.score(x)))
-        serve_launch = kernels.launches()
+            cap = eng.model.capacity
+            first = eng.score_async(x)
+            t0 = time.perf_counter()
+            eng.load(ckdir)
+            swap_s = [time.perf_counter() - t0]
+            second = eng.score_async(x)
+            check(first.version == 0 and second.version == 1 and second.step == steps[-1],
+                  f"in-flight swap: versions {first.version}, {second.version}")
+            served += [(steps[0], cap, x, first.block()),
+                       (steps[-1], eng.model.capacity, x, second.block())]
+            # every step in turn, one batch each
+            for step in steps[1:]:
+                t0 = time.perf_counter()
+                eng.load(ckdir, step=step)
+                swap_s.append(time.perf_counter() - t0)
+                x = rng.standard_normal((SERVE_BATCH, SERVE_D), dtype=np.float32)
+                served.append((step, eng.model.capacity, x, eng.score(x)))
+            # a swap inside one bucket while a batch is in flight: the new
+            # factors overwrite the bucket's slots, after the pending replay
+            pair = next(((a, b) for a, b in zip(steps, steps[1:]) if caps[a] == caps[b]), None)
+            check(pair is not None, f"no two consecutive steps share a bucket: {caps}")
+            eng.load(ckdir, step=pair[0])
+            x = rng.standard_normal((SERVE_BATCH, SERVE_D), dtype=np.float32)
+            held = eng.score_async(x)
+            eng.load(ckdir, step=pair[1])
+            after = eng.score_async(x)
+            check(held.step == pair[0] and after.step == pair[1],
+                  f"same-bucket swap: steps {held.step}, {after.step} != {pair}")
+            served += [(pair[0], caps[pair[0]], x, held.block()),
+                       (pair[1], caps[pair[1]], x, after.block())]
+            check(not np.array_equal(held.block(), after.block()),
+                  f"same-bucket swap: steps {pair} scored alike")
+            buckets = {caps[s] for s in steps}
+            check(eng.stats["compilations"] == len(buckets),
+                  f"rank buckets prepared {eng.stats['compilations']} != visited {len(buckets)}")
+            # a full batch under the serving contract: no implicit host sync
+            x = rng.standard_normal((SERVE_BATCH, SERVE_D), dtype=np.float32)
+            with eng.contract().guard():
+                guarded = eng.score_async(x)
+            served.append((eng.model.step, eng.model.capacity, x, guarded.block()))
+            eng.check_contract(eng.contract(max_compilations=len(buckets)))
+            # 640 single requests through a MicroBatcher: ten batches in flight
+            batcher = serve.MicroBatcher(eng, flush_at=SERVE_BATCH)
+            singles = rng.standard_normal((10 * SERVE_BATCH, SERVE_D), dtype=np.float32)
+            tickets = [batcher.submit(q) for q in singles]
+            check(batcher.pending_count == 0 and all(tk.dispatched for tk in tickets),
+                  "micro-batcher left requests queued")
+            served.append((eng.model.step, eng.model.capacity, singles,
+                           np.stack([tk.result() for tk in tickets])))
+            rise = torch.cuda.max_memory_allocated() - base_mem
+            dispatches = eng.stats["dispatches"]
+            check(dispatches == args.serve_batches + 2 + len(steps) - 1 + 2 + 1 + 10,
+                  f"serving dispatches {dispatches}")
+            # a transposed engine on the latest step (the first engine's
+            # start-up check covered both directions)
+            teng = serve.ServingEngine.from_checkpoint(
+                ckdir, serve.ServeConfig(max_batch=SERVE_BATCH, rank_block=SERVE_BLOCK,
+                                         transpose=True, verify_kernels=False), device=dev)
+            tserved = []
+            for _ in range(20):
+                x = rng.standard_normal((SERVE_BATCH, SERVE_M), dtype=np.float32)
+                tserved.append((teng.model.step, teng.model.capacity, x, teng.score(x)))
+        serve_launch = ran.launches
+        calls = kernels.launches()["factor_matvec"]
         dispatches += teng.stats["dispatches"]
-        check(serve_launch["factor_matvec"] == dispatches + 2,
-              f"factor_matvec launches {serve_launch['factor_matvec']} != dispatches "
-              f"{dispatches} + 2")
+        graphs = eng.stats["compilations"] + teng.stats["compilations"]
+        # the device ran: the start-up check's 2, one warm-up a captured
+        # bucket, one replay a dispatch; the wrapper was called for the
+        # check, the warm-ups and the captures
+        check(serve_launch["factor_matvec"] == 2 + graphs + dispatches,
+              f"factor_matvec launches {serve_launch['factor_matvec']} != 2 + {graphs} warm-ups "
+              f"+ {dispatches} dispatches")
+        check(calls == 2 + 2 * graphs, f"factor_matvec calls {calls} != 2 + 2 x {graphs} graphs")
         check(rise < 4 * SERVE_D * SERVE_M,
               f"scoring raised device memory by {rise} bytes, a d x m f32 matrix is "
               f"{4 * SERVE_D * SERVE_M}")
-        # every score against x @ W (or x @ W^T) on the card
+        # every score against x @ W (or x @ W^T) on the card, and bit for bit
+        # against the uncaptured kernel on the same padded inputs and factors
         ws = {s: dense(s) for s in steps}
-        worst = max(score_err(got, x, ws[s]) for s, x, got in served)
-        worst_t = max(score_err(got, x, ws[s].T) for s, x, got in tserved)
+        worst = max(score_err(got, x, ws[s]) for s, _, x, got in served)
+        worst_t = max(score_err(got, x, ws[s].T) for s, _, x, got in tserved)
         check(worst <= TOL["serve"] and worst_t <= TOL["serve"],
               f"served scores differ from x @ W: rel err {worst:.3e} / transposed {worst_t:.3e}")
         del ws
+        factors = {}  # (step, capacity) -> the device factors a load makes of them
+
+        def model_at(step, cap):
+            if (step, cap) not in factors:
+                packed = ckpt.read_iterate_packed(ckdir, step)[1]
+                it = low_rank.unpack_live(packed, cap, device=dev)
+                factors[step, cap] = (it.u, it.s * it.alpha, it.v)
+            return factors[step, cap]
+
+        bits = all(np.array_equal(got, uncaptured_scores(torch, np, fm, dev, model_at(s, c), x,
+                                                         False))
+                   for s, c, x, got in served) and all(
+            np.array_equal(got, uncaptured_scores(torch, np, fm, dev, model_at(s, c), x, True))
+            for s, c, x, got in tserved)
+        check(bits, "captured scores differ from the uncaptured factor_matvec's bits")
     lat_ms = sorted(1e3 * v for v in lat)
     rep.update(
         dispatches=dispatches, compilations=eng.stats["compilations"], buckets=sorted(buckets),
-        launches=serve_launch["factor_matvec"], memory_rise_bytes=rise,
+        launches=serve_launch["factor_matvec"], wrapper_calls=calls, memory_rise_bytes=rise,
         latency_p50_ms=statistics.median(lat_ms),
         latency_p99_ms=lat_ms[min(len(lat_ms) - 1, math.ceil(0.99 * len(lat_ms)) - 1)],
+        dispatch_host_p50_us=1e6 * statistics.median(lat_async),
         requests_per_s=SERVE_BATCH * len(lat) / sum(lat), swap_ms=[1e3 * v for v in swap_s],
-        max_rel_err=worst, max_rel_err_transposed=worst_t)
+        capture_ms=eng.timings["capture_ms"] + teng.timings["capture_ms"],
+        pool_bytes=eng.timings["pool_bytes"] + teng.timings["pool_bytes"],
+        same_bucket_swap=list(pair), max_rel_err=worst, max_rel_err_transposed=worst_t)
     print(f"serve: {len(lat)} batches of {SERVE_BATCH} at live rank {steps[0]} (bucket "
-          f"{serve.rank_bucket(steps[0], SERVE_BLOCK)}): per dispatch p50 "
-          f"{rep['latency_p50_ms']:.4f} ms, p99 {rep['latency_p99_ms']:.4f} ms, "
+          f"{caps[steps[0]]}), one graph replay each: per dispatch p50 "
+          f"{rep['latency_p50_ms']:.4f} ms, p99 {rep['latency_p99_ms']:.4f} ms (score_async "
+          f"p50 {rep['dispatch_host_p50_us']:.1f} us of host time), "
           f"{rep['requests_per_s']:.0f} requests/s")
-    print(f"serve: hot-swaps {', '.join(f'{v:.2f}' for v in rep['swap_ms'])} ms; buckets "
-          f"{sorted(buckets)} prepared {eng.stats['compilations']}; {dispatches} dispatches, "
-          f"{serve_launch['factor_matvec']} factor_matvec launches; scoring added "
-          f"{rise} bytes of device memory; max rel err {worst:.2e} (transposed {worst_t:.2e})")
+    print(f"serve: hot-swaps {', '.join(f'{v:.2f}' for v in rep['swap_ms'])} ms (in flight "
+          f"across buckets and inside bucket {caps[pair[0]]}, steps {pair}); buckets "
+          f"{sorted(buckets)} captured {eng.stats['compilations']} (+{teng.stats['compilations']} "
+          f"transposed) in {', '.join(f'{v:.2f}' for v in rep['capture_ms'])} ms, pool bytes "
+          f"{rep['pool_bytes']}; {dispatches} dispatches, {serve_launch['factor_matvec']} "
+          f"factor_matvec launches run, {calls} calls; scoring added {rise} bytes of device "
+          f"memory; max rel err {worst:.2e} (transposed {worst_t:.2e}); every score the "
+          f"uncaptured kernel's bits; a full batch under the contract's guard")
     return rep, fit_launch, serve_launch, eng
+
+
+def uncaptured_scores(torch, np, fm, dev, factors, x, transpose: bool):
+    """``factor_matvec`` called directly (no graph) on a model's device
+    factors (u, s * alpha, v at its bucket's capacity, as ``load`` makes
+    them) and x zero-padded to full batches, as the engine stages it: the
+    caller's rows."""
+    u, s_alpha, v = factors
+    a, b = (v, u) if transpose else (u, v)
+    out = []
+    for i in range(0, x.shape[0], SERVE_BATCH):
+        pad = torch.zeros((SERVE_BATCH, x.shape[1]), dtype=torch.float32, device=dev)
+        rows = x[i:i + SERVE_BATCH]
+        pad[:rows.shape[0]] = torch.from_numpy(rows).to(dev)
+        out.append(fm.factor_matvec(pad, a, s_alpha, b)[:rows.shape[0]].cpu().numpy())
+    return np.concatenate(out)
 
 
 def profile_serving(torch, np, eng, n=50):
@@ -2525,25 +2615,75 @@ def lm_prefill_phase(torch, kernels, lm, steps, cfg, dev, gen, args):
     return rep, launches, params, toks
 
 
-def lm_decode_phase(torch, np, kernels, lm_serve, cfg, dev, seed):
-    """Phase 15: ``generate`` at full width: the prompt fed token by token,
-    then greedy decoding; no launch of the flash kernel (decode attention is
-    the dense path, as in the reference)."""
+def captured_decode(torch, np, kernels, lm, steps, lm_serve, arch, cfg, params, dev, seed,
+                    label, absent):
+    """``generate`` at batch DECODE_BATCH, a DECODE_PROMPT-token prompt and
+    DECODE_NEW new tokens, greedy: one captured step replayed for every
+    position. Its tokens and the cache it filled are held bit for bit to a
+    loop of the uncaptured serve step on the same weights and prompt (the
+    prompt fed token by token, then the last token); the device runs no
+    launch of ``absent`` (decode is plain PyTorch, as in the reference)."""
+    b, plen, new_n = DECODE_BATCH, DECODE_PROMPT, DECODE_NEW
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    prompt = torch.randint(0, cfg.vocab_size, (b, plen), generator=gen, device=dev)
+    cache = lm.init_cache(cfg, b, plen + new_n, device=dev)
     stats = {}
-    kernels.reset_launches()
-    new = lm_serve.generate(arch=LM_ARCH, smoke=False, batch=DECODE_BATCH,
-                            prompt_len=DECODE_PROMPT, max_new_tokens=DECODE_NEW, seed=seed,
-                            device=dev, stats=stats)
-    launches = kernels.launches()
-    check(all(v == 0 for v in launches.values()), f"decode: launches {launches}")
-    check(new.shape == (DECODE_BATCH, DECODE_NEW) and int(new.min()) >= 0
-          and int(new.max()) < cfg.vocab_size, f"decode: tokens {new.shape} out of range")
-    rep = dict(stats, batch=DECODE_BATCH, prompt_len=DECODE_PROMPT, new_tokens=DECODE_NEW,
-               ms_per_token=stats["ms_per_step"], distinct_tokens=int(np.unique(new).size))
-    print(f"decode {cfg.name} at batch {DECODE_BATCH}: {stats['steps']} steps in "
-          f"{stats['loop_s']:.2f} s, {rep['ms_per_token']:.2f} ms per step; tokens in range, "
-          f"0 flash_attention launches")
+    torch.cuda.synchronize()
+    with counting(kernels) as ran:
+        new = lm_serve.generate(arch=arch, smoke=False, batch=b, prompt_len=plen,
+                                max_new_tokens=new_n, seed=seed, device=dev, params=params,
+                                prompt=prompt.cpu().numpy(), cache=cache, stats=stats)
+    launches = ran.launches
+    check(all(v == 0 for v in launches.values()), f"{label}: launches {launches}")
+    check(stats["captures"] == 1 and stats["graph_replays"] == plen + new_n - 1,
+          f"{label}: {stats['captures']} captures, {stats['graph_replays']} replays")
+    check(new.shape == (b, new_n) and int(new.min()) >= 0 and int(new.max()) < cfg.vocab_size,
+          f"{label}: tokens {new.shape} out of range")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want, want_cache = step_loop(torch, lm, steps, cfg, params, prompt, new_n)
+    want = want.cpu().numpy()
+    eager_s = time.perf_counter() - t0
+    check(np.array_equal(new, want), f"{label}: captured tokens differ from the step loop's")
+    for name in cache:
+        check(torch.equal(cache[name], want_cache[name]),
+              f"{label}: the captured run's cache {name!r} differs from the step loop's")
+    eager_ms = 1e3 * eager_s / (plen + new_n - 1)
+    rep = dict(stats, batch=b, prompt_len=plen, new_tokens=new_n,
+               ms_per_token=stats["ms_per_step"], uncaptured_ms_per_step=eager_ms,
+               distinct_tokens=int(np.unique(new).size), layers=len(params["layers"]))
+    print(f"decode {cfg.name} at batch {b}: {stats['steps']} steps, one graph replay each: "
+          f"{stats['ms_per_step']:.3f} ms per step (uncaptured step loop {eager_ms:.3f} ms); "
+          f"capture {stats['capture_ms']:.1f} ms, graph pool {stats['pool_bytes']} bytes; "
+          f"tokens and every cache the step loop's bits; 0 {absent} launches")
     return rep, launches
+
+
+def step_loop(torch, lm, steps, cfg, params, prompt, new_n: int):
+    """Greedy decode by a loop of the uncaptured serve step: the prompt fed
+    token by token, then each step's argmax, with the position an int.
+    Returns (new tokens (B, new_n), the cache it filled)."""
+    b, plen = prompt.shape
+    step = steps.make_serve_step(cfg)
+    cache = lm.init_cache(cfg, b, plen + new_n, device=prompt.device)
+    toks = []
+    for t in range(plen + new_n - 1):
+        cur = prompt[:, t:t + 1] if t < plen else toks[-1]
+        logits, _ = step(params, cache, {"tokens": cur, "cache_pos": t})
+        if t >= plen - 1:
+            toks.append(torch.argmax(logits[:, 0, :].float(), dim=-1, keepdim=True))
+    return torch.cat(toks, dim=1), cache
+
+
+def lm_decode_phase(torch, np, kernels, lm, steps, lm_serve, cfg, dev, seed):
+    """Phase 15: ``generate`` at full width, captured, against the step
+    loop; weights drawn on the card from ``seed``."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = lm.init_params(cfg, gen)
+    return captured_decode(torch, np, kernels, lm, steps, lm_serve, LM_ARCH, cfg, params, dev,
+                           seed, "decode", "flash_attention")
 
 
 def prefill_vs_decode(torch, lm, steps, cfg, params, toks):
@@ -2600,17 +2740,36 @@ def lm_crosscheck_phase(torch, lm, steps, get_config, kernels, cfg, params16, de
     return rep
 
 
-def profile_lm(torch, lm_serve, steps, cfg, params, toks, dev, seed):
+def decode_idle(row, stats, busy_us) -> None:
+    """The captured decode's idle share: the device time of one step (the
+    profiled call's device time over its warm-up step and replays, which run
+    the same kernels) against the wall time of a replayed step. The call's
+    own wall time also holds the capture, so its idle share says little."""
+    if not busy_us:
+        return
+    step_busy_ms = busy_us / 1e3 / (stats["graph_replays"] + 1)
+    row.update(step_busy_ms=step_busy_ms, ms_per_step=stats["ms_per_step"],
+               capture_ms=stats["capture_ms"],
+               captured_idle_share=1.0 - step_busy_ms / stats["ms_per_step"])
+    print(f"profile decode, captured: device {step_busy_ms:.3f} ms a step, wall "
+          f"{stats['ms_per_step']:.3f} ms a replayed step: idle share "
+          f"{row['captured_idle_share']:.3f}")
+
+
+def profile_lm(torch, lm, lm_serve, steps, cfg, params, toks, dev, seed):
     """Device time by kernel and the idle share of one prefill and of a
     short decode (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
-    out = {}
+    out, dstats = {}, {}
     step = steps.make_prefill_step(cfg)
     runs = (("prefill", lambda: step(params, {"tokens": toks})),
             ("decode", lambda: lm_serve.generate(
                 arch=LM_ARCH, smoke=False, batch=DECODE_BATCH, prompt_len=8,
-                max_new_tokens=8, seed=seed, device=dev, params=params)))
+                max_new_tokens=8, seed=seed, device=dev, params=params, stats=dstats)),
+            ("decode, uncaptured", lambda: step_loop(
+                torch, lm, steps, cfg, params, toks[:DECODE_BATCH, :8].expand(DECODE_BATCH, 8),
+                8)))
     for label, run in runs:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2629,6 +2788,11 @@ def profile_lm(torch, lm_serve, steps, cfg, params, toks, dev, seed):
                           flash_ms=flash / 1e3, idle_share=1.0 - busy / wall_us if busy else None,
                           top=sorted(((k[:90], t / 1e3) for k, t in dev_us.items()),
                                      key=lambda kv: -kv[1])[:10])
+        if label == "decode":
+            decode_idle(out[label], dstats, busy)
+        elif label == "decode, uncaptured":
+            out[label]["step_busy_ms"] = busy / 1e3 / 15
+            out[label]["ms_per_step"] = wall_us / 1e3 / 15
         if busy:
             print(f"profile {label}: wall {out[label]['wall_ms']:.1f} ms, device busy "
                   f"{out[label]['device_busy_ms']:.1f} ms (flash_attention "
@@ -2883,26 +3047,12 @@ def ssm_prefill_phase(torch, kernels, lm, steps, cfg, dev, gen, args):
     return rep, launches, params, toks
 
 
-def ssm_decode_phase(torch, np, kernels, lm_serve, cfg, params, dev, seed):
-    """Phase 19: ``generate`` at full width with the prefill's weights: the
-    prompt fed token by token, then greedy decoding; no wkv6_chunk launch
-    (decode is the exact recurrence in plain PyTorch, as in the reference)."""
-    stats = {}
-    kernels.reset_launches()
-    new = lm_serve.generate(arch=SSM_ARCH, smoke=False, batch=DECODE_BATCH,
-                            prompt_len=DECODE_PROMPT, max_new_tokens=DECODE_NEW, seed=seed,
-                            device=dev, params=params, stats=stats)
-    launches = kernels.launches()
-    check(all(v == 0 for v in launches.values()), f"ssm decode: launches {launches}")
-    check(new.shape == (DECODE_BATCH, DECODE_NEW) and int(new.min()) >= 0
-          and int(new.max()) < cfg.vocab_size, f"ssm decode: tokens {new.shape} out of range")
-    rep = dict(stats, batch=DECODE_BATCH, prompt_len=DECODE_PROMPT, new_tokens=DECODE_NEW,
-               layers=len(params["layers"]), ms_per_token=stats["ms_per_step"],
-               distinct_tokens=int(np.unique(new).size))
-    print(f"decode {cfg.name} at batch {DECODE_BATCH}: {stats['steps']} steps in "
-          f"{stats['loop_s']:.2f} s, {rep['ms_per_token']:.2f} ms per step; tokens in range, "
-          f"0 wkv6_chunk launches")
-    return rep, launches
+def ssm_decode_phase(torch, np, kernels, lm, steps, lm_serve, cfg, params, dev, seed):
+    """Phase 19: ``generate`` at full width with the prefill's weights,
+    captured, against the step loop; no wkv6_chunk launch (decode is the
+    exact recurrence in plain PyTorch, as in the reference)."""
+    return captured_decode(torch, np, kernels, lm, steps, lm_serve, SSM_ARCH, cfg, params, dev,
+                           seed, "ssm decode", "wkv6_chunk")
 
 
 def ssm_prefill_vs_decode(torch, lm, steps, rwkv6, cfg, params, toks):
@@ -3038,17 +3188,20 @@ def ssm_crosscheck_phase(torch, lm, steps, rwkv6, get_config, kernels, cfg, para
     return rep
 
 
-def profile_ssm(torch, lm_serve, steps, cfg, params, toks, dev, seed):
+def profile_ssm(torch, lm, lm_serve, steps, cfg, params, toks, dev, seed):
     """Device time by kernel and the idle share of one ssm prefill and of a
     short decode (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
-    out = {}
+    out, dstats = {}, {}
     step = steps.make_prefill_step(cfg)
     runs = (("prefill", lambda: step(params, {"tokens": toks})),
             ("decode", lambda: lm_serve.generate(
                 arch=SSM_ARCH, smoke=False, batch=DECODE_BATCH, prompt_len=8,
-                max_new_tokens=8, seed=seed, device=dev, params=params)))
+                max_new_tokens=8, seed=seed, device=dev, params=params, stats=dstats)),
+            ("decode, uncaptured", lambda: step_loop(
+                torch, lm, steps, cfg, params, toks[:DECODE_BATCH, :8].expand(DECODE_BATCH, 8),
+                8)))
     for label, run in runs:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3067,6 +3220,11 @@ def profile_ssm(torch, lm_serve, steps, cfg, params, toks, dev, seed):
                           idle_share=1.0 - busy / wall_us if busy else None,
                           top=sorted(((k[:90], t / 1e3) for k, t in dev_us.items()),
                                      key=lambda kv: -kv[1])[:10])
+        if label == "decode":
+            decode_idle(out[label], dstats, busy)
+        elif label == "decode, uncaptured":
+            out[label]["step_busy_ms"] = busy / 1e3 / 15
+            out[label]["ms_per_step"] = wall_us / 1e3 / 15
         if busy:
             print(f"profile ssm {label}: wall {out[label]['wall_ms']:.1f} ms, device busy "
                   f"{out[label]['device_busy_ms']:.1f} ms (wkv6_chunk "
@@ -4531,7 +4689,7 @@ def main(argv=None) -> int:
 
         # 12. train, checkpoint, serve
         report["serve"], fit12_launch, serve_launch, eng = train_then_serve(
-            torch, np, dfw, tasks, checkpoint, serve, low_rank, kernels, dev, gen, args)
+            torch, np, dfw, tasks, checkpoint, serve, low_rank, kernels, fm, dev, gen, args)
         if args.profile:
             report["serve_profile"] = profile_serving(torch, np, eng)
         del eng
@@ -4548,14 +4706,14 @@ def main(argv=None) -> int:
         report["lm_prefill"], prefill_launch, lm_params, lm_toks = lm_prefill_phase(
             torch, kernels, lm, steps, lm_cfg, dev, gen, args)
         if args.profile:
-            report["lm_profile"] = profile_lm(torch, lm_serve, steps, lm_cfg, lm_params, lm_toks,
-                                              dev, args.seed)
+            report["lm_profile"] = profile_lm(torch, lm, lm_serve, steps, lm_cfg, lm_params,
+                                              lm_toks, dev, args.seed)
         del lm_toks
         torch.cuda.empty_cache()
 
         # 15. full-width decode through generate
         report["lm_decode"], decode_launch = lm_decode_phase(
-            torch, np, kernels, lm_serve, get_config(LM_ARCH), dev, args.seed)
+            torch, np, kernels, lm, steps, lm_serve, get_config(LM_ARCH), dev, args.seed)
         torch.cuda.empty_cache()
 
         # 16. cross-checks: prefill against decode (f32, bf16), card against CPU
@@ -4573,14 +4731,15 @@ def main(argv=None) -> int:
         report["ssm_prefill"], ssm_prefill_launch, ssm_params, ssm_toks = ssm_prefill_phase(
             torch, kernels, lm, steps, ssm_cfg, dev, gen, args)
         if args.profile:
-            report["ssm_profile"] = profile_ssm(torch, lm_serve, steps, ssm_cfg, ssm_params,
+            report["ssm_profile"] = profile_ssm(torch, lm, lm_serve, steps, ssm_cfg, ssm_params,
                                                 ssm_toks, dev, args.seed)
         del ssm_toks
         torch.cuda.empty_cache()
 
         # 19. full-width decode through generate, with the prefill's weights
         report["ssm_decode"], ssm_decode_launch = ssm_decode_phase(
-            torch, np, kernels, lm_serve, ssm_cfg, ssm_params, dev, args.seed)
+            torch, np, kernels, lm, steps, lm_serve, get_config(SSM_ARCH), ssm_params, dev,
+            args.seed)
         torch.cuda.empty_cache()
 
         # 20. cross-checks: prefill against decode (f32, bf16; 64 and 256 tokens), card

@@ -1,4 +1,11 @@
-"""One executable CUDA graph with IF conditional nodes, from captured pieces.
+"""CUDA graphs: one captured program (:func:`capture`), and one executable
+graph with IF conditional nodes from captured pieces (:class:`CondGraph`).
+
+:func:`capture` records straight-line device work into one
+``torch.cuda.CUDAGraph``, replayed with ``graph.replay()``: the decode step of
+``launch.serve.generate`` and the per-bucket scorer of
+``serve.ServingEngine``, the counterparts of ``jax.jit(serve_step)`` and of the
+reference's ahead-of-time executables.
 
 PyTorch captures straight-line work (``torch.cuda.CUDAGraph(keep_graph=True)``);
 ``csrc/cuda_graph.cu`` strings such pieces together and puts some under IF
@@ -25,6 +32,8 @@ import warnings
 from typing import Callable, List
 
 import torch
+
+from ..kernels import _count
 
 _P = ctypes.c_void_p
 _lib = None
@@ -56,6 +65,50 @@ def _library():
 def _check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA graph {what} failed: {_library().cg_error_string(err).decode()}")
+
+
+def capture(program: Callable[[], None], *, stream: torch.cuda.Stream, pool=None,
+            generators=()):
+    """Capture ``program()`` (device work with no host reads) into one
+    ``torch.cuda.CUDAGraph`` on ``stream``, after it waits for the current
+    stream; the current stream then waits for ``stream``. ``pool``: a
+    ``torch.cuda.graph_pool_handle()`` to share (default: a fresh one);
+    ``generators``: ``torch.Generator`` s the program draws from, registered
+    so that each replay draws afresh. Returns ``(graph, capture ms, pool
+    bytes)``, the bytes the capture reserved. A capture that fails raises;
+    no garbage collection runs while it is open (see :class:`CondGraph`)."""
+    dev = stream.device
+    graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
+    current = torch.cuda.current_stream(dev)
+    stream.wait_stream(current)
+    reserved = torch.cuda.memory_stats(dev)["reserved_bytes.all.current"]
+    collecting = gc.isenabled()
+    gc.disable()
+    t0 = time.perf_counter()
+    try:
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=torch.cuda.graph_pool_handle() if pool is None else pool)
+            try:
+                program()
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass
+                raise
+            graph.capture_end()
+    finally:
+        if collecting:
+            gc.enable()
+    capture_ms = 1e3 * (time.perf_counter() - t0)
+    current.wait_stream(stream)
+    # The device counters of an open ``kernels.Executed`` block that the
+    # graph's launches add into: kept alive as long as the graph, which may
+    # be replayed after the block has closed.
+    graph.counters = None if _count.ACTIVE is None else _count.ACTIVE[1]
+    return graph, capture_ms, torch.cuda.memory_stats(dev)["reserved_bytes.all.current"] - reserved
 
 
 def runtime_version() -> int:

@@ -7,6 +7,8 @@ bf16 ``p`` is rounded (the kernel keeps it in f32; see ``csrc``).
 """
 from __future__ import annotations
 
+from typing import Union
+
 import torch
 
 NEG_INF = -1e30
@@ -29,12 +31,13 @@ def attention(
     *,
     scale: float,
     causal: bool = True,
-    q_offset: int = 0,
+    q_offset: Union[int, torch.Tensor] = 0,
 ) -> torch.Tensor:
     """Dense softmax attention with GQA head-group broadcast, f32 softmax.
 
     ``q_offset`` positions the query block within the kv timeline (decode:
-    q_offset = kv_len - sq)."""
+    q_offset = kv_len - sq); an int, or a 0-d integer tensor on q's device
+    (decode's position, never read back to the host)."""
     b, hq, sq, dh = q.shape
     _, hkv, skv, _ = k.shape
     group = hq // hkv

@@ -60,7 +60,9 @@ import dataclasses
 import datetime
 import os
 import pickle
+import signal
 import tempfile
+import time
 import traceback
 from typing import Any, Callable, Dict, List, Optional
 
@@ -864,6 +866,74 @@ def _worker_main(rank: int, num_workers: int, tmp: str, backend: str, device_typ
         raise
 
 
+# How long the other workers get to end on their own once one has failed.
+_FAILURE_GRACE_S = 5.0
+
+
+def _join_workers(procs) -> Optional[Dict[int, int]]:
+    """Wait for every worker; None if all exited with 0. Otherwise, once one
+    has failed, give the others ``_FAILURE_GRACE_S`` to end on their own,
+    note the exit code of each that did (rank -> code), and only then stop
+    the rest, so that the codes say who ended first and how."""
+    from multiprocessing.connection import wait
+
+    waiting = {p.sentinel: p for p in procs}
+    while waiting:
+        for sentinel in wait(list(waiting)):
+            waiting.pop(sentinel).join()
+        if any(p.exitcode not in (None, 0) for p in procs):
+            break
+    else:
+        return None
+    deadline = time.monotonic() + _FAILURE_GRACE_S
+    while waiting and time.monotonic() < deadline:
+        for sentinel in wait(list(waiting), timeout=max(0.0, deadline - time.monotonic())):
+            waiting.pop(sentinel).join()
+    ended = {rank: p.exitcode for rank, p in enumerate(procs) if p.exitcode is not None}
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+    for p in procs:
+        p.join(30)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    return ended
+
+
+def _raise_worker_failure(ended: Dict[int, int], num_workers: int, tmp: str) -> None:
+    """Raise the failure of a run whose workers ended with ``ended`` (rank ->
+    exit code, before the rest were stopped). A worker that died on a signal
+    is the cause, whatever its peers raised after it (they fail in their
+    collectives or their teardown once it is gone); else the first error
+    file written."""
+    died = sorted(rank for rank, code in ended.items() if code < 0)
+    if died:  # a native death: no error file, no traceback
+        rank = died[0]
+        try:
+            signal_name = signal.Signals(-ended[rank]).name
+        except ValueError:
+            signal_name = f"signal {-ended[rank]}"
+        written = os.path.exists(os.path.join(tmp, f"result{rank}.pkl"))
+        raise RuntimeError(
+            f"worker {rank} of {num_workers} died on {signal_name} "
+            + ("after its result was written (in its teardown)" if written
+               else "before its result was written"))
+    # The first worker to fail is the cause; the others then fail in their
+    # collectives (a peer closed the connection).
+    errors = sorted((os.stat(os.path.join(tmp, f"error{rank}.pkl")).st_mtime_ns, rank)
+                    for rank in range(num_workers)
+                    if os.path.exists(os.path.join(tmp, f"error{rank}.pkl")))
+    if not errors:
+        rank, code = min((r, c) for r, c in ended.items() if c != 0)
+        raise RuntimeError(f"worker {rank} of {num_workers} exited with code {code}")
+    rank = errors[0][1]
+    with open(os.path.join(tmp, f"error{rank}.pkl"), "rb") as f:
+        exc, tb = pickle.load(f)
+    exc.add_note(f"raised in worker {rank} of {num_workers}:\n{tb}")
+    raise exc
+
+
 def run_workers(num_workers: int, fn: Callable, *args, backend: str = "gloo",
                 device: DeviceLike = None) -> List[Any]:
     """Run ``fn(group, device, *args)`` in ``num_workers`` processes, one
@@ -893,30 +963,11 @@ def run_workers(num_workers: int, fn: Callable, *args, backend: str = "gloo",
             f"{torch.cuda.device_count() if device_type == 'cuda' else 0} cards"
         )
     with tempfile.TemporaryDirectory() as tmp:
-        try:
-            mp.spawn(_worker_main, nprocs=num_workers, join=True,
-                     args=(num_workers, tmp, backend, device_type, fn, args))
-        except Exception as failure:
-            signal_name = getattr(failure, "signal_name", None)
-            if signal_name:  # a native death: no error file, no traceback
-                rank = failure.error_index
-                written = os.path.exists(os.path.join(tmp, f"result{rank}.pkl"))
-                raise RuntimeError(
-                    f"worker {rank} of {num_workers} died on {signal_name} "
-                    + ("after its result was written (in its teardown)" if written
-                       else "before its result was written")) from failure
-            # The first worker to fail is the cause; the others then fail in
-            # their collectives (a peer closed the connection).
-            errors = sorted((os.stat(os.path.join(tmp, f"error{rank}.pkl")).st_mtime_ns, rank)
-                            for rank in range(num_workers)
-                            if os.path.exists(os.path.join(tmp, f"error{rank}.pkl")))
-            if not errors:
-                raise
-            rank = errors[0][1]
-            with open(os.path.join(tmp, f"error{rank}.pkl"), "rb") as f:
-                exc, tb = pickle.load(f)
-            exc.add_note(f"raised in worker {rank} of {num_workers}:\n{tb}")
-            raise exc from failure
+        ctx = mp.spawn(_worker_main, nprocs=num_workers, join=False,
+                       args=(num_workers, tmp, backend, device_type, fn, args))
+        ended = _join_workers(ctx.processes)
+        if ended is not None:
+            _raise_worker_failure(ended, num_workers, tmp)
         results = []
         for rank in range(num_workers):
             with open(os.path.join(tmp, f"result{rank}.pkl"), "rb") as f:

@@ -11,7 +11,7 @@ matrix in either.
 * ``generate`` decodes a batch of prompts over the LM zoo's dense and ssm
   (RWKV-6) families, token by token through ``decode_step`` against a KV
   cache (dense) or a recurrent state (ssm), greedily or with temperature
-  sampling.
+  sampling; on the card every step is a replay of one captured CUDA graph.
 
 CLI: ``python -m repro_torch.launch.serve factor --checkpoint DIR`` or
 ``python -m repro_torch.launch.serve lm --arch NAME`` (on the card;
@@ -30,6 +30,7 @@ import torch
 from .. import DeviceLike, resolve_device
 from ..checkpoint.store import list_steps
 from ..configs import get_config
+from ..core import cuda_graph
 from ..models import lm
 from ..serve import ServeConfig, ServingEngine
 from .steps import make_serve_step
@@ -108,6 +109,7 @@ def generate(
     device: DeviceLike = None,
     params: Optional[dict] = None,
     prompt=None,
+    cache: Optional[dict] = None,
     stats: Optional[dict] = None,
 ):
     """Greedy or temperature sampling over the synthetic-token distribution,
@@ -116,17 +118,36 @@ def generate(
     max_new_tokens - 1 steps against a cache of prompt_len + max_new_tokens
     slots. Returns the (batch, max_new_tokens) new tokens as numpy int64.
 
+    One step (``_decode_step``) reads its position from the device, picks
+    its input token there (the prompt's column while the position is inside
+    the prompt, else the last sampled token), runs ``decode_step``, samples,
+    writes the token into its output column and advances the position. On
+    CUDA that step is captured once into a CUDA graph (after one warm-up
+    step on a scratch cache) and replayed for every position, the
+    counterpart of the reference's ``jax.jit(serve_step)``; the tokens come
+    back to the host once, at the end. On the CPU the same step runs
+    uncaptured. A failed capture or replay raises.
+
     Free runs draw the parameters and then the prompt from one
     ``torch.Generator`` seeded with ``seed`` on the device; temperature
-    sampling draws from it too (``torch.multinomial``), so it matches the
+    sampling draws from it too (``torch.multinomial``; the graph registers
+    the generator, so each replay draws afresh), so it matches the
     reference in distribution only. ``params`` (a port parameter dict, e.g.
     from ``convert.lm_params``) and ``prompt`` ((batch, prompt_len) token
     ids) replace the draws; the tests inject the JAX run's arrays there.
-    ``stats``, when given a dict, receives the decode loop's wall time."""
+    ``cache`` (``lm.init_cache``'s zeroed allocation for batch and
+    prompt_len + max_new_tokens) is the cache to fill, which the caller can
+    read after the run. ``stats``, when given a dict, receives the loop's
+    wall time (``loop_s``, ``ms_per_step``: the replays and the final read),
+    ``captures``, ``capture_ms``, ``graph_replays`` and the graph's
+    ``pool_bytes``."""
     cfg = get_config(arch, smoke=smoke)
     if cfg.encoder_only:
         raise ValueError(f"{arch} is encoder-only; no decode path")
     lm.check_family(cfg)
+    if prompt_len < 1 or max_new_tokens < 1:
+        raise ValueError(f"prompt_len={prompt_len}, max_new_tokens={max_new_tokens}: "
+                         "both must be >= 1")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
@@ -140,32 +161,77 @@ def generate(
             raise ValueError(f"prompt has shape {tuple(prompt.shape)}, expected "
                              f"{(batch, prompt_len)}")
     max_len = prompt_len + max_new_tokens
-    cache = lm.init_cache(cfg, batch, max_len, device=dev)
+    specs = lm.cache_specs(cfg, batch, max_len)
+    if cache is None:
+        cache = lm.init_cache(cfg, batch, max_len, device=dev)
+    elif {k: (tuple(v.shape), v.dtype, v.device) for k, v in cache.items()} != {
+            k: (shape, dt, dev) for k, (shape, dt) in specs.items()}:
+        raise ValueError(f"cache does not match lm.cache_specs for batch {batch} and "
+                         f"{max_len} slots on {dev}")
     step = make_serve_step(cfg)
+    pos = torch.zeros((), dtype=torch.int64, device=dev)
+    last = torch.zeros((batch, 1), dtype=torch.int64, device=dev)
+    out = torch.zeros((batch, max_new_tokens), dtype=torch.int64, device=dev)
 
-    out_tokens = []
+    def run(cache, pos, last, out):
+        _decode_step(step, params, cache, prompt, pos, last, out, temperature, gen)
+
+    steps = max_len - 1
+    info = dict(captures=0, capture_ms=0.0, graph_replays=0, pool_bytes=0)
     if dev.type == "cuda":
+        stream = torch.cuda.Stream(dev)
+        # one step outside the capture, on the capture stream and a scratch
+        # cache: lazy kernels and cuBLAS's workspace are made here
+        scratch = ({k: torch.zeros_like(v) for k, v in cache.items()}, torch.zeros_like(pos),
+                   torch.zeros_like(last), torch.zeros_like(out))
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            run(*scratch)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        graph, capture_ms, pool_bytes = cuda_graph.capture(
+            lambda: run(cache, pos, last, out), stream=stream,
+            generators=(gen,) if temperature > 0 else ())
+        del scratch
+        info.update(captures=1, capture_ms=capture_ms, pool_bytes=pool_bytes)
         torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    for t in range(max_len - 1):
-        cur = prompt[:, t:t + 1] if t < prompt_len else out_tokens[-1]
-        logits, cache = step(params, cache, {"tokens": cur, "cache_pos": t})
-        if t >= prompt_len - 1:
-            last = logits[:, 0, :].float()
-            if temperature > 0:
-                probs = torch.softmax(last / temperature, dim=-1)
-                nxt = torch.multinomial(probs, 1, generator=gen)
-            else:
-                nxt = torch.argmax(last, dim=-1, keepdim=True)
-            out_tokens.append(nxt)
-    new = torch.cat(out_tokens, dim=1).cpu().numpy()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            graph.replay()
+        info["graph_replays"] = steps
+    else:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run(cache, pos, last, out)
+    new = out.cpu().numpy()
     dt = time.perf_counter() - t0
     if stats is not None:
-        stats.update(loop_s=dt, steps=max_len - 1, new_tokens=len(out_tokens),
-                     ms_per_step=1e3 * dt / max(max_len - 1, 1))
+        stats.update(loop_s=dt, steps=steps, new_tokens=max_new_tokens,
+                     ms_per_step=1e3 * dt / steps, **info)
     print(f"[serve] {arch}: generated {new.shape} in {dt:.2f}s "
-          f"({dt / max(len(out_tokens), 1) * 1e3:.1f} ms/token at batch {batch})")
+          f"({dt / max_new_tokens * 1e3:.1f} ms/token at batch {batch})")
     return new
+
+
+def _decode_step(step, params, cache, prompt, pos, last, out, temperature: float,
+                 gen: torch.Generator) -> None:
+    """One step of ``generate``'s loop at the device position ``pos`` (0-d
+    int64): the input token is the prompt's column ``pos`` while ``pos`` <
+    prompt_len, else ``last``; the sampled token goes into ``last`` and into
+    ``out``'s column pos - (prompt_len - 1) (column 0 while still inside the
+    prompt, rewritten by the prompt's last step); then ``pos`` += 1. Reads
+    nothing back to the host."""
+    prompt_len = prompt.shape[1]
+    fed = prompt.index_select(1, pos.clamp(max=prompt_len - 1).reshape(1))
+    cur = torch.where(pos < prompt_len, fed, last)
+    logits, _ = step(params, cache, {"tokens": cur, "cache_pos": pos})
+    scores = logits[:, 0, :].float()
+    if temperature > 0:
+        nxt = torch.multinomial(torch.softmax(scores / temperature, dim=-1), 1, generator=gen)
+    else:
+        nxt = torch.argmax(scores, dim=-1, keepdim=True)
+    last.copy_(nxt)
+    out.index_copy_(1, (pos - (prompt_len - 1)).clamp(min=0).reshape(1), nxt)
+    pos.add_(1)
 
 
 def main(argv=None):

@@ -28,7 +28,11 @@ def make_prefill_step(cfg: ModelConfig):
 
 def make_serve_step(cfg: ModelConfig):
     """``serve_step(params, cache, batch) -> (logits (B, 1, V), cache)``, one
-    decode step; the cache is updated in place (``lm.decode_step``)."""
+    decode step; ``batch["cache_pos"]`` is a 0-d integer tensor on the
+    step's device (or an int), the cache is updated in place and nothing is
+    read back to the host (``lm.decode_step``), so ``launch.serve.generate``
+    captures the step into a CUDA graph, the counterpart of
+    ``jax.jit(make_serve_step(cfg))``."""
     lm.check_family(cfg)
 
     def serve_step(params, cache, batch):

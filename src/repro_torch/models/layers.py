@@ -39,7 +39,8 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float) -> torch.T
     """(B, S, head_dim/2) rotation angles for integer positions (B, S)."""
     half = head_dim // 2
     exponent = -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    inv_freq = torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device),
+    # a fill, not a copy from the host: capturable into a CUDA graph
+    inv_freq = torch.pow(torch.full((), theta, dtype=torch.float32, device=positions.device),
                          exponent)
     return positions[..., None].float() * inv_freq
 
@@ -151,13 +152,16 @@ def attention_block(
     *,
     angles: Optional[torch.Tensor],  # rope angles for the current positions
     cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (k, v): (B, Hkv, Smax, Dh)
-    cache_pos: Optional[int] = None,  # write offset / number of valid entries
+    cache_pos: Optional[torch.Tensor] = None,  # 0-d int on the device: the write offset
     return_kv: bool = False,  # prefill: emit this layer's (k, v) as the cache
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Without a cache: attention over x's own positions. With a cache and
     one token: the token's k and v are written into the cache IN PLACE at
-    ``cache_pos`` (the reference returns an updated copy), and the token
-    attends to positions 0..cache_pos."""
+    ``cache_pos`` (the reference's ``dynamic_update_slice`` returns an
+    updated copy), and the token attends to the whole cache masked at
+    ``q_offset=cache_pos``, i.e. to positions 0..cache_pos. The position
+    stays on the device (``index_copy_`` at it, the mask compares against
+    it), so nothing here waits for the card."""
     b, s, _ = x.shape
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
 
@@ -183,9 +187,10 @@ def attention_block(
         raise NotImplementedError("chunked prefill-into-cache not needed here")
     else:
         ck, cv = cache
-        pos = int(cache_pos)
-        ck[:, :, pos:pos + 1] = kk.to(ck.dtype)
-        cv[:, :, pos:pos + 1] = vv.to(cv.dtype)
+        pos = torch.as_tensor(cache_pos, device=ck.device)
+        at = pos.to(torch.int64).reshape(1)
+        ck.index_copy_(2, at, kk.to(ck.dtype))
+        cv.index_copy_(2, at, vv.to(cv.dtype))
         new_cache = (ck, cv)
         out = _dense_attention(q, ck, cv, scale=scale, causal=True, q_offset=pos)
 

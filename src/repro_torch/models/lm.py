@@ -192,13 +192,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 def decode_step(params: Params, cache: Dict[str, torch.Tensor], batch: Dict[str, Any],
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One token for every sequence in the batch: tokens (B, 1) at position
-    ``cache_pos`` (an int; the ssm family ignores it). Returns logits
-    (B, 1, V) and the cache, which is updated IN PLACE: each dense layer
-    writes the token's k and v at cache_pos, each ssm layer its new state
-    and token-shift inputs (the reference returns a new cache instead), so
-    the returned dict is the one passed in."""
+    ``cache_pos``, a 0-d integer tensor on the tokens' device, as the
+    reference's traced ``jnp.int32(t)`` (a Python int is turned into one; the
+    ssm family ignores it). Nothing here reads the position back to the host,
+    so the step can be captured into a CUDA graph and replayed with the
+    position advanced on the device. Returns logits (B, 1, V) and the cache,
+    which is updated IN PLACE: each dense layer writes the token's k and v at
+    cache_pos, each ssm layer its new state and token-shift inputs (the
+    reference returns a new cache instead), so the returned dict is the one
+    passed in."""
     check_family(cfg)
-    tokens, pos = batch["tokens"], int(batch["cache_pos"])
+    tokens = batch["tokens"]
+    pos = torch.as_tensor(batch["cache_pos"], device=tokens.device)
+    if pos.dim() != 0 or pos.dtype.is_floating_point or pos.dtype == torch.bool:
+        raise TypeError(f"cache_pos must be a 0-d integer tensor or an int, got {pos.dtype} "
+                        f"of shape {tuple(pos.shape)}")
     b = tokens.shape[0]
     h = params["embed"][tokens.long()]
     if cfg.family == "ssm":
@@ -216,7 +224,7 @@ def decode_step(params: Params, cache: Dict[str, torch.Tensor], batch: Dict[str,
             cache["x_cm"][i].copy_(x_cm)
         h = L.rms_norm(h2[:, None, :], params["final_norm"], cfg.norm_eps)
         return _unembed(params, h, cfg), cache
-    positions = torch.full((b, 1), pos, dtype=torch.int64, device=tokens.device)
+    positions = pos.to(torch.int64).reshape(1, 1).expand(b, 1)
     angles = L.rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
     for i, lp in enumerate(params["layers"]):
         a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)

@@ -13,22 +13,29 @@ The reference's three serving contracts carry over:
   dispatch does not depend on the batch fill.
 - **Live-rank buckets.** A model loads through ``low_rank.pack_live``: a
   t-epoch iterate ships t factors, padded with s = 0 rows up to the next
-  ``rank_block`` multiple, exact no-ops in the kernel. ``stats
-  ["compilations"]`` counts the buckets the engine has prepared (the
-  counterpart of the reference's ahead-of-time executables); a swap inside
-  a prepared bucket adds none.
-- **Hot-swap.** ``load`` stages the new factors on the device, then
-  republishes the engine's model reference. A batch already dispatched
-  finishes against the factors it was dispatched with: everything runs on
-  one stream in order, and its ``PendingScores`` holds a reference to its
-  ``Model`` until ``block()``, so the caching allocator cannot hand the old
-  factors' memory to anything else meanwhile.
+  ``rank_block`` multiple, exact no-ops in the kernel. Each bucket has
+  static factor slots at its capacity and, on CUDA, one captured scorer: a
+  CUDA graph of ``factor_matvec`` (the hand-written kernel) on those slots
+  and the engine's static padded input, the counterpart of the reference's
+  ahead-of-time executable per bucket. ``stats["compilations"]`` counts the
+  buckets prepared (on CUDA, the graphs captured); a swap inside a prepared
+  bucket adds none.
+- **Hot-swap.** ``load`` stages the new factors on the device, copies them
+  into their bucket's slots on the serving stream (the current stream,
+  which every dispatch's staging and replay go on too), then republishes
+  the engine's model reference. A batch already dispatched finishes against
+  the factors it was dispatched with: the stream runs in order, so its
+  replay, and the copy of its scores out of the bucket's static output,
+  come before the slots are overwritten.
 
-``score_async`` makes no implicit device-to-host sync: the request goes to
-the device from pinned memory without waiting, and ``PendingScores.block()``
-is the one device-to-host copy. The engine runs on CUDA unless it is given
-``device="cpu"`` (the plain PyTorch version, for tests). On the first load
-``verify_factor_kernels`` holds the kernel route to the dense product.
+``score_async`` makes no implicit device-to-host sync (``contract()``): the
+request goes to the static input from pinned memory without waiting, the
+bucket's graph is replayed, and the scores are copied on the device into a
+fresh tensor, so a later dispatch cannot overwrite them;
+``PendingScores.block()`` is the one device-to-host copy. The engine runs
+on CUDA unless it is given ``device="cpu"`` (the plain PyTorch version,
+uncaptured, for tests). On the first load ``verify_factor_kernels`` holds
+the kernel route to the dense product.
 """
 from __future__ import annotations
 
@@ -40,9 +47,10 @@ import numpy as np
 import torch
 
 from .. import DeviceLike, resolve_device
+from ..analysis.contracts import Contract
 from ..checkpoint import dfw as ckpt
 from ..checkpoint.store import CheckpointStore
-from ..core import low_rank
+from ..core import cuda_graph, low_rank
 from ..kernels.factor_matvec import ops as fm_ops
 from ..kernels.factor_matvec import ref as fm_ref
 from ..specs import NotYetPorted
@@ -123,6 +131,22 @@ class PendingScores:
         return self._host
 
 
+class _Bucket:
+    """One rank capacity's scorer: static factor slots ``a`` (capacity,
+    n_in), ``s`` (capacity,) and ``b`` (capacity, n_out) that ``load``
+    copies a model into (u, s * alpha, v; v and u when transposed), and on
+    CUDA the captured ``factor_matvec`` on them and the engine's static
+    input, which writes ``out``."""
+
+    __slots__ = ("a", "s", "b", "graph", "out")
+
+    def __init__(self, capacity: int, n_in: int, n_out: int, device: torch.device):
+        self.a = torch.zeros((capacity, n_in), dtype=torch.float32, device=device)
+        self.s = torch.zeros((capacity,), dtype=torch.float32, device=device)
+        self.b = torch.zeros((capacity, n_out), dtype=torch.float32, device=device)
+        self.graph = self.out = None
+
+
 def rank_bucket(live_rank: int, rank_block: int) -> int:
     """Smallest ``rank_block`` multiple >= max(live_rank, 1): the capacity
     serving this live rank. Rank 0 shares the first bucket (all s are 0, so
@@ -159,9 +183,11 @@ class ServingEngine:
     ``load`` is both first load and hot-swap. ``score``/``score_async``
     take 1..max_batch requests of dimension ``n_in`` (d, or m when
     ``transpose``) and return ``n_out`` scores each. ``stats`` has the
-    reference's counters: ``compilations`` (rank buckets prepared),
-    ``dispatches``, ``loads`` and ``requests`` (caller rows, padding
-    excluded).
+    reference's counters: ``compilations`` (rank buckets prepared: on CUDA
+    the scorers captured), ``dispatches``, ``loads`` and ``requests``
+    (caller rows, padding excluded). ``timings`` holds each capture's host
+    ms (``capture_ms``) and the bytes of graph pool it reserved
+    (``pool_bytes``), in the order the buckets were prepared.
     """
 
     def __init__(self, d: int, m: int, cfg: ServeConfig = ServeConfig(), *,
@@ -172,27 +198,60 @@ class ServingEngine:
         self.n_in = self.m if cfg.transpose else self.d
         self.n_out = self.d if cfg.transpose else self.m
         self._model: Optional[Model] = None
-        self._buckets: set = set()
+        self._buckets: Dict[int, _Bucket] = {}
         self._verified = not cfg.verify_kernels
         self._stats = dict.fromkeys(("compilations", "dispatches", "loads", "requests"), 0)
+        self.timings: Dict[str, list] = {"capture_ms": [], "pool_bytes": []}
+        # the static padded input every bucket's scorer reads
+        self._x = torch.zeros((cfg.max_batch, self.n_in), dtype=torch.float32,
+                              device=self.device)
+        self._stream = self._pool = None  # the captures' stream and graph pool
 
     @property
     def stats(self) -> Dict[str, int]:
         return dict(self._stats)
 
-    def _prepare(self, capacity: int) -> None:
-        """Count a rank bucket the first time a model lands in it."""
-        if capacity not in self._buckets:
-            self._buckets.add(capacity)
+    def _prepare(self, capacity: int) -> _Bucket:
+        """The rank bucket of ``capacity``, made the first time a model lands
+        in it: its slots and, on CUDA, its captured scorer."""
+        bucket = self._buckets.get(capacity)
+        if bucket is None:
+            bucket = _Bucket(capacity, self.n_in, self.n_out, self.device)
+            if self.device.type == "cuda":
+                self._capture(bucket)
+            self._buckets[capacity] = bucket
             self._stats["compilations"] += 1
+        return bucket
+
+    def _capture(self, bucket: _Bucket) -> None:
+        """Capture ``factor_matvec`` on the bucket's slots and the static
+        input into one CUDA graph, after one launch outside the capture (the
+        kernel's attributes are set on its first launch at a shape)."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+
+        def score():
+            return fm_ops.factor_matvec(self._x, bucket.a, bucket.s, bucket.b)
+
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._stream):
+            score()
+        out = []
+        graph, capture_ms, pool_bytes = cuda_graph.capture(
+            lambda: out.append(score()), stream=self._stream, pool=self._pool)
+        bucket.graph, bucket.out = graph, out[0]
+        self.timings["capture_ms"].append(capture_ms)
+        self.timings["pool_bytes"].append(pool_bytes)
 
     # --------------------------------------------------------------- load
     def load(self, source: ModelSource, *, step: Optional[int] = None) -> Model:
         """Publish a model (first load or hot-swap) from a ``FactoredIterate``,
         a ``pack_live`` dict, or a run-checkpoint directory/store (``step``
-        None: its latest step). The factors reach the device and their
-        bucket is prepared before the model reference flips; batches already
-        dispatched keep the old factors."""
+        None: its latest step). The factors reach the device, their bucket
+        is prepared and they are copied into its slots on the serving stream
+        before the model reference flips; batches already dispatched keep
+        the old factors (the stream runs in order)."""
         packed, ck_step, extra = _as_packed(source, step)
         if extra:
             got = (int(extra.get("d", -1)), int(extra.get("m", -1)))
@@ -215,7 +274,11 @@ class ServingEngine:
             step=ck_step,
         )
         self._verify_once()
-        self._prepare(capacity)
+        bucket = self._prepare(capacity)
+        a, b = (model.v, model.u) if self.cfg.transpose else (model.u, model.v)
+        bucket.a.copy_(a)
+        bucket.s.copy_(model.s_alpha)
+        bucket.b.copy_(b)
         self._model = model
         self._stats["loads"] += 1
         return model
@@ -243,7 +306,10 @@ class ServingEngine:
 
         ``x`` is (b, n_in) with 1 <= b <= max_batch, or one (n_in,) request.
         The handle is bound to the model of this moment: a later ``load``
-        cannot retarget it.
+        cannot retarget it. The rows go through pinned memory into the
+        static input (zero padding), the model's bucket scores them (a graph
+        replay on CUDA) and the scores are copied into a fresh device
+        tensor, all enqueued on the current stream without waiting.
         """
         model = self.model
         xh = np.asarray(x, np.float32)
@@ -260,14 +326,18 @@ class ServingEngine:
                 f"batch of {b} exceeds max_batch={self.cfg.max_batch}; split it "
                 "(serve.MicroBatcher does this)"
             )
-        pad = torch.zeros((self.cfg.max_batch, self.n_in), dtype=torch.float32,
-                          pin_memory=self.device.type == "cuda")
-        pad[:b] = torch.from_numpy(xh)
-        xd = pad.to(self.device, non_blocking=True)
-        if self.cfg.transpose:
-            raw = fm_ops.factor_matvec(xd, model.v, model.s_alpha, model.u)
+        bucket = self._buckets[model.capacity]
+        cuda = self.device.type == "cuda"
+        pad = torch.empty((self.cfg.max_batch, self.n_in), dtype=torch.float32, pin_memory=cuda)
+        staged = pad.numpy()
+        staged[:b] = xh
+        staged[b:] = 0.0
+        self._x.copy_(pad, non_blocking=cuda)
+        if bucket.graph is not None:
+            bucket.graph.replay()
+            raw = bucket.out.clone()
         else:
-            raw = fm_ops.factor_matvec(xd, model.u, model.s_alpha, model.v)
+            raw = fm_ops.factor_matvec(self._x, bucket.a, bucket.s, bucket.b)
         self._stats["dispatches"] += 1
         self._stats["requests"] += b
         return PendingScores(raw, b, model)
@@ -275,6 +345,25 @@ class ServingEngine:
     def score(self, x) -> np.ndarray:
         """``score_async(x).block()``."""
         return self.score_async(x).block()
+
+    # ----------------------------------------------------------- contract
+    def contract(self, *, max_compilations: Optional[int] = None) -> Contract:
+        """The serving layer's declared invariant (``analysis.contracts``):
+        the request path makes no implicit device-to-host transfer
+        (``score_async`` under ``Contract.guard()`` raises on one);
+        ``max_compilations`` optionally pins the no-recapture guarantee,
+        one scorer a rank bucket. The reference's ``forbid_shapes`` clause
+        (no compiled scorer makes a d x m intermediate) reads compiled HLO
+        and has no counterpart here yet."""
+        return Contract(name=f"serve.never_materialize[{self.d}x{self.m}]",
+                        max_compilations=max_compilations, no_host_transfers=True)
+
+    def check_contract(self, contract: Optional[Contract] = None) -> Contract:
+        """Assert ``contract`` (default: ``self.contract()``) against the
+        engine's counters. Raises ``ContractViolation`` on failure."""
+        c = contract if contract is not None else self.contract()
+        c.check_stats(self.stats)
+        return c
 
     # ------------------------------------------------------------- verify
     def _verify_once(self) -> None:

@@ -25,6 +25,7 @@ carries into the last digits. The port's world-size-1 ``fit`` equals
 the dense tolerances.
 """
 import os
+import pickle
 import subprocess
 import sys
 import textwrap
@@ -382,6 +383,55 @@ def test_run_workers_names_a_worker_that_died_on_a_signal(at_exit):
     with pytest.raises(RuntimeError,
                        match=f"worker 1 of 2 died on SIGABRT {when} its result was written"):
         dfw.run_workers(2, _die, 1, at_exit, device="cpu")
+
+
+def _gone(pid: int) -> bool:
+    """Has process ``pid`` died (a zombie, or reaped)?"""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except FileNotFoundError:
+        return True
+
+
+def _die_then_peer_fails(group, device, where):
+    """Worker 1 aborts (SIGABRT); worker 0 waits until it is dead, then
+    raises, so its error file is written after the abort."""
+    import resource
+    import time
+
+    pid_file = os.path.join(where, "pid1")
+    if group.rank == 1:
+        with open(pid_file + ".tmp", "w") as f:
+            f.write(str(os.getpid()))
+        os.replace(pid_file + ".tmp", pid_file)
+        resource.setrlimit(resource.RLIMIT_CORE, (0, 0))
+        os.abort()
+    deadline = time.monotonic() + 60
+    while not os.path.exists(pid_file) and time.monotonic() < deadline:
+        time.sleep(0.01)
+    with open(pid_file) as f:
+        pid = int(f.read())
+    while not _gone(pid) and time.monotonic() < deadline:
+        time.sleep(0.01)
+    raise ValueError("worker 0 failed after its peer died")
+
+
+def test_run_workers_names_the_signal_over_a_later_peer_error(tmp_path):
+    """The bad order: the peer of a worker that died on a signal fails after
+    it, with an error file. The dead worker is named, whichever process the
+    join reaches first, and whatever the exit codes' order."""
+    with pytest.raises(RuntimeError,
+                       match="worker 1 of 2 died on SIGABRT before its result was written"):
+        dfw.run_workers(2, _die_then_peer_fails, str(tmp_path), device="cpu")
+    # the decision alone, from the exit codes in both orders, beside worker 0's error file
+    with open(tmp_path / "error0.pkl", "wb") as f:
+        pickle.dump((ValueError("later"), "traceback"), f)
+    for ended in ({0: 1, 1: -6}, {1: -6, 0: 1}):
+        with pytest.raises(RuntimeError, match="worker 1 of 2 died on SIGABRT before"):
+            dfw._raise_worker_failure(ended, 2, str(tmp_path))
+    with pytest.raises(ValueError, match="later"):  # no signal: the first error file
+        dfw._raise_worker_failure({0: 1, 1: 1}, 2, str(tmp_path))
 
 
 def _hier_then_teardown(group, device, x, y):

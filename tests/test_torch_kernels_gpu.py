@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
-and the engine's CUDA graphs against the same programs run uncaptured
-(``captured`` in their names: the same bits, launches and stats).
+and the CUDA graphs (the engine's segment programs, the serving engine's
+scorer a rank bucket, ``generate``'s decode step) against the same work run
+uncaptured (``captured`` in their names: the same bits, launches and stats).
 
 Every test here is marked ``gpu`` and skips without CUDA. This file imports
 no JAX, so it also runs where only PyTorch is installed:
@@ -417,18 +418,179 @@ def test_cuda_serving_engine_scores_and_swaps(cuda):
         return 0.5 * (p["u"].T * p["s"]) @ p["v"]
 
     before = kernels.launches()["factor_matvec"]
-    eng = serve.ServingEngine(300, 200, serve.ServeConfig(max_batch=16, rank_block=8))
-    old, new = packed(5), packed(7)
-    eng.load(old)
-    x = rng.standard_normal((9, 300)).astype(np.float32)
-    first = eng.score_async(x)
-    eng.load(new)
-    second = eng.score_async(x)
-    np.testing.assert_allclose(first.block(), x @ dense(old), rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(second.block(), x @ dense(new), rtol=1e-4, atol=1e-4)
+    with kernels.Executed() as ran:
+        eng = serve.ServingEngine(300, 200, serve.ServeConfig(max_batch=16, rank_block=8))
+        old, new = packed(5), packed(7)
+        eng.load(old)
+        x = rng.standard_normal((9, 300)).astype(np.float32)
+        first = eng.score_async(x)
+        eng.load(new)
+        second = eng.score_async(x)
+        got_first, got_second = first.block(), second.block()
+    np.testing.assert_allclose(got_first, x @ dense(old), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got_second, x @ dense(new), rtol=1e-4, atol=1e-4)
     assert (first.version, second.version) == (0, 1)
-    assert kernels.launches()["factor_matvec"] == before + 2 + 2
+    # calls: the start-up check's 2, the bucket's warm-up and its capture;
+    # the device ran the check's 2, the warm-up and one replay a dispatch
+    assert kernels.launches()["factor_matvec"] == before + 2 + 1 + 1
+    assert ran.launches["factor_matvec"] == 2 + 1 + 2
     assert eng.stats == {"compilations": 1, "dispatches": 2, "loads": 2, "requests": 18}
+
+
+def _serving(cuda, rank_block=8, transpose=False):
+    """A captured engine on the card at 300 x 200 (batch 16) and a source of
+    pack_live dicts of a given live rank."""
+    from repro_torch import serve
+
+    rng = np.random.default_rng(1)
+
+    def packed(k):
+        return {"u": rng.standard_normal((k, 300)).astype(np.float32),
+                "s": rng.standard_normal(k).astype(np.float32),
+                "v": rng.standard_normal((k, 200)).astype(np.float32),
+                "alpha": np.float32(0.5), "count": np.int32(k)}
+
+    eng = serve.ServingEngine(300, 200, serve.ServeConfig(max_batch=16, rank_block=rank_block,
+                                                          transpose=transpose), device=cuda)
+    return eng, packed, rng
+
+
+def _uncaptured(fm, model, x, max_batch, transpose=False):
+    """factor_matvec called directly on the model's factors and x zero-padded
+    to the engine's batch: the caller's rows."""
+    a, b = (model.v, model.u) if transpose else (model.u, model.v)
+    pad = torch.zeros((max_batch, x.shape[1]), device=model.u.device)
+    pad[:x.shape[0]] = torch.from_numpy(x).to(pad.device)
+    return fm.factor_matvec(pad, a, model.s_alpha, b)[:x.shape[0]].cpu().numpy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("transpose", [False, True])
+def test_cuda_captured_engine_scores_are_the_kernels_bits(cuda, transpose):
+    """One captured scorer a rank bucket: every dispatch a replay (counted on
+    the device), its scores the uncaptured kernel's bits on the same padded
+    rows and factors, across three buckets and back."""
+    from repro_torch.kernels import factor_matvec as fm
+
+    eng, packed, rng = _serving(cuda, transpose=transpose)
+    n_in = 200 if transpose else 300
+    served = []
+    with kernels.Executed() as ran:
+        for live in (3, 8, 12, 20, 5):
+            eng.load(packed(live))
+            for b in (1, 9, 16):
+                x = rng.standard_normal((b, n_in)).astype(np.float32)
+                served.append((eng.model, x, eng.score(x)))
+    assert eng.stats["compilations"] == 3 and eng.stats["dispatches"] == 15
+    assert len(eng.timings["capture_ms"]) == len(eng.timings["pool_bytes"]) == 3
+    assert ran.launches["factor_matvec"] == 2 + 3 + 15  # check, warm-ups, replays
+    for model, x, got in served:
+        assert np.array_equal(got, _uncaptured(fm, model, x, 16, transpose))
+
+
+@pytest.mark.gpu
+def test_cuda_captured_dispatches_in_flight_keep_their_rows(cuda):
+    """Many dispatches queued before any is read: each handle keeps its own
+    rows (the scores leave the bucket's static output before the next
+    replay), as the MicroBatcher's batches in flight do."""
+    from repro_torch import serve
+    from repro_torch.kernels import factor_matvec as fm
+
+    eng, packed, rng = _serving(cuda)
+    eng.load(packed(6))
+    xs = [rng.standard_normal((16, 300)).astype(np.float32) for _ in range(8)]
+    handles = [eng.score_async(x) for x in xs]
+    batcher = serve.MicroBatcher(eng, flush_at=4)
+    singles = rng.standard_normal((12, 300)).astype(np.float32)
+    tickets = [batcher.submit(q) for q in singles]
+    for x, h in zip(xs, handles):
+        assert np.array_equal(h.block(), _uncaptured(fm, eng.model, x, 16))
+    want = _uncaptured(fm, eng.model, singles, 16)
+    assert np.array_equal(np.stack([t.result() for t in tickets]), want)
+
+
+@pytest.mark.gpu
+def test_cuda_captured_same_bucket_hot_swap_keeps_a_pending_handle(cuda):
+    """A swap inside one bucket overwrites its slots on the serving stream,
+    after the pending replay: the pending handle scores the old model's
+    bits, the next dispatch the new one's; no new capture."""
+    from repro_torch.kernels import factor_matvec as fm
+
+    eng, packed, rng = _serving(cuda)
+    old = eng.load(packed(3))
+    x = rng.standard_normal((16, 300)).astype(np.float32)
+    pending = eng.score_async(x)
+    new = eng.load(packed(7))
+    after = eng.score_async(x)
+    assert old.capacity == new.capacity and eng.stats["compilations"] == 1
+    assert pending.version == 0 and after.version == 1
+    assert np.array_equal(pending.block(), _uncaptured(fm, old, x, 16))
+    assert np.array_equal(after.block(), _uncaptured(fm, new, x, 16))
+
+
+@pytest.mark.gpu
+def test_cuda_captured_dispatch_under_the_contract_guard(cuda):
+    """``score_async`` of a full batch under ``Contract.guard()`` makes no
+    implicit host sync (the guard raises on one, as a ``.item()`` shows);
+    ``check_contract`` pins the captures at the buckets visited."""
+    from repro_torch.analysis.contracts import ContractViolation
+
+    eng, packed, rng = _serving(cuda, rank_block=4)
+    for live in (2, 6, 3):
+        eng.load(packed(live))
+    x = rng.standard_normal((16, 300)).astype(np.float32)
+    eng.score(x)
+    with eng.contract().guard():
+        pending = eng.score_async(x)
+        with pytest.raises(RuntimeError):
+            torch.ones(1, device=cuda).item()
+    assert pending.block().shape == (16, 200)
+    eng.check_contract(eng.contract(max_compilations=2))
+    with pytest.raises(ContractViolation, match="compilations"):
+        eng.check_contract(eng.contract(max_compilations=1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2_1_5b", "rwkv6_7b"])
+def test_cuda_captured_generate_is_the_step_loop_bit_for_bit(cuda, arch):
+    """``generate`` on the card replays one captured step a position (one
+    capture a call): its tokens and the cache it filled equal a loop of the
+    uncaptured serve step's bit for bit; no kernel launch on the device;
+    temperature sampling through the registered generator repeats with the
+    seed and stays in range."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+
+    cfg = get_config(arch, smoke=True)
+    b, plen, new_n = 3, 6, 5
+    params = lm.init_params(cfg, 2, device=cuda)
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, (b, plen))
+    cache = lm.init_cache(cfg, b, plen + new_n, device=cuda)
+    stats = {}
+    with kernels.Executed() as ran:
+        got = lm_serve.generate(arch=arch, batch=b, prompt_len=plen, max_new_tokens=new_n,
+                                device=cuda, params=params, prompt=prompt, cache=cache,
+                                stats=stats)
+    assert all(v == 0 for v in ran.launches.values()), ran.launches
+    assert stats["captures"] == 1 and stats["graph_replays"] == plen + new_n - 1
+    step, toks = steps.make_serve_step(cfg), []
+    want_cache = lm.init_cache(cfg, b, plen + new_n, device=cuda)
+    ptoks = torch.from_numpy(prompt).to(cuda)
+    for t in range(plen + new_n - 1):
+        cur = ptoks[:, t:t + 1] if t < plen else toks[-1]
+        logits, _ = step(params, want_cache, {"tokens": cur, "cache_pos": t})
+        if t >= plen - 1:
+            toks.append(torch.argmax(logits[:, 0, :].float(), dim=-1, keepdim=True))
+    assert np.array_equal(got, torch.cat(toks, dim=1).cpu().numpy())
+    for name in cache:
+        assert torch.equal(cache[name], want_cache[name]), name
+    kw = dict(arch=arch, batch=b, prompt_len=plen, max_new_tokens=new_n, device=cuda,
+              params=params, temperature=1.0, seed=4)
+    hot = lm_serve.generate(**kw)
+    assert np.array_equal(hot, lm_serve.generate(**kw))
+    assert hot.min() >= 0 and hot.max() < cfg.vocab_size
 
 
 def _attention_inputs(b, hq, hkv, sq, skv, dh, dtype, device, seed=0):

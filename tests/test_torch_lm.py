@@ -227,6 +227,66 @@ def test_decode_sequence_matches_jax(arch):
     _close(pcache["v"], jcache["v"], atol_rel=1e-4)
 
 
+@pytest.mark.parametrize("arch", ["qwen2_1_5b", "starcoder2_7b"])
+def test_decode_step_with_a_tensor_position_matches_jax(arch):
+    """``cache_pos`` as a 0-d int64 tensor, as the reference's traced
+    ``jnp.int32(t)``: at every position the logits and the caches against
+    the JAX ``decode_step``; the int form gives the same bits, and the step
+    leaves the position as it was."""
+    cfg, jp, pp, pcfg = _model(arch, seed=12)
+    b, s = 2, 10
+    toks = _tokens(cfg, b, s, seed=13)
+    jcache = jlm.init_cache(cfg, b, s)
+    pcache = plm.init_cache(pcfg, b, s, device="cpu")
+    icache = plm.init_cache(pcfg, b, s, device="cpu")
+    jstep = jax.jit(jsteps.make_serve_step(cfg))
+    for t in range(s):
+        jl, jcache = jstep(jp, jcache, {"tokens": jnp.asarray(toks[:, t:t + 1]),
+                                        "cache_pos": jnp.int32(t)})
+        pos = torch.tensor(t)
+        pl, _ = plm.decode_step(pp, pcache, {"tokens": _t(toks[:, t:t + 1]), "cache_pos": pos},
+                                pcfg)
+        il, _ = plm.decode_step(pp, icache, {"tokens": _t(toks[:, t:t + 1]), "cache_pos": t},
+                                pcfg)
+        assert pos.dim() == 0 and int(pos) == t
+        _close(pl, jl, atol_rel=1e-4)
+        assert torch.equal(pl, il)
+        for name in ("k", "v"):
+            _close(pcache[name], jcache[name], atol_rel=1e-4)
+            assert torch.equal(pcache[name], icache[name])
+    for bad in (torch.tensor([1]), torch.tensor(1.0), 1.5):
+        with pytest.raises(TypeError, match="cache_pos"):
+            plm.decode_step(pp, pcache, {"tokens": _t(toks[:, :1]), "cache_pos": bad}, pcfg)
+
+
+def test_generate_fills_the_given_cache_as_the_step_loop_does():
+    """On the CPU ``generate`` runs its step uncaptured: its tokens and the
+    cache it was given equal a plain loop of the serve step's, bit for bit
+    (the loop the card's captured run is held to); no capture, no replay."""
+    arch, batch, plen, new = "qwen2_1_5b", 2, 4, 5
+    pcfg = configs.get_config(arch, smoke=True)
+    params = plm.init_params(pcfg, 3, device="cpu")
+    prompt = _tokens(pcfg, batch, plen, seed=14).astype(np.int64)
+    cache = plm.init_cache(pcfg, batch, plen + new, device="cpu")
+    stats = {}
+    got = pserve.generate(arch=arch, batch=batch, prompt_len=plen, max_new_tokens=new,
+                          device="cpu", params=params, prompt=prompt, cache=cache, stats=stats)
+    want_cache = plm.init_cache(pcfg, batch, plen + new, device="cpu")
+    step, toks = psteps.make_serve_step(pcfg), []
+    for t in range(plen + new - 1):
+        cur = _t(prompt[:, t:t + 1]) if t < plen else toks[-1]
+        logits, _ = step(params, want_cache, {"tokens": cur, "cache_pos": t})
+        if t >= plen - 1:
+            toks.append(torch.argmax(logits[:, 0, :].float(), dim=-1, keepdim=True))
+    np.testing.assert_array_equal(got, torch.cat(toks, dim=1).numpy())
+    for name in ("k", "v"):
+        assert torch.equal(cache[name], want_cache[name])
+    assert stats["captures"] == stats["graph_replays"] == stats["pool_bytes"] == 0
+    with pytest.raises(ValueError, match="cache"):
+        pserve.generate(arch=arch, batch=batch, prompt_len=plen, max_new_tokens=new + 1,
+                        device="cpu", params=params, prompt=prompt, cache=cache)
+
+
 @pytest.mark.parametrize("arch", ["qwen2_5_14b", "starcoder2_7b"])
 def test_prefill_then_decode_matches_forward(arch):
     """Prefill s tokens, grow the cache by one slot, decode token s: the

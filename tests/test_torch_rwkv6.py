@@ -218,6 +218,56 @@ def test_decode_sequence_matches_jax():
         _close(pcache[name], jcache[name], atol_rel=1e-4)
 
 
+def test_decode_step_with_a_tensor_position_matches_jax():
+    """``cache_pos`` as a 0-d int64 tensor, as the reference's traced
+    ``jnp.int32(t)`` (the ssm family ignores it): at every position the
+    logits and the three caches against the JAX ``decode_step``; the int form
+    gives the same bits."""
+    cfg, jp, pp, pcfg = _model(seed=12)
+    b, s = 2, 10
+    toks = _tokens(b, s, seed=13)
+    jcache = jlm.init_cache(cfg, b, s)
+    pcache = plm.init_cache(pcfg, b, s, device="cpu")
+    icache = plm.init_cache(pcfg, b, s, device="cpu")
+    jstep = jax.jit(jsteps.make_serve_step(cfg))
+    for t in range(s):
+        jl, jcache = jstep(jp, jcache, {"tokens": jnp.asarray(toks[:, t:t + 1]),
+                                        "cache_pos": jnp.int32(t)})
+        pl, _ = plm.decode_step(pp, pcache, {"tokens": _t(toks[:, t:t + 1]),
+                                             "cache_pos": torch.tensor(t)}, pcfg)
+        il, _ = plm.decode_step(pp, icache, {"tokens": _t(toks[:, t:t + 1]), "cache_pos": t},
+                                pcfg)
+        _close(pl, jl, atol_rel=1e-4)
+        assert torch.equal(pl, il)
+        for name in ("s", "x_tm", "x_cm"):
+            _close(pcache[name], jcache[name], atol_rel=1e-4)
+            assert torch.equal(pcache[name], icache[name])
+
+
+def test_generate_fills_the_given_cache_as_the_step_loop_does():
+    """On the CPU ``generate`` runs its step uncaptured: its tokens and the
+    state it was given equal a plain loop of the serve step's, bit for bit."""
+    batch, plen, new = 2, 4, 3
+    pcfg = configs.get_config(ARCH, smoke=True)
+    params = plm.init_params(pcfg, 5, device="cpu")
+    prompt = _tokens(batch, plen, seed=15).astype(np.int64)
+    cache = plm.init_cache(pcfg, batch, plen + new, device="cpu")
+    stats = {}
+    got = pserve.generate(arch="rwkv6-7b", batch=batch, prompt_len=plen, max_new_tokens=new,
+                          device="cpu", params=params, prompt=prompt, cache=cache, stats=stats)
+    want_cache = plm.init_cache(pcfg, batch, plen + new, device="cpu")
+    step, toks = psteps.make_serve_step(pcfg), []
+    for t in range(plen + new - 1):
+        cur = _t(prompt[:, t:t + 1]) if t < plen else toks[-1]
+        logits, _ = step(params, want_cache, {"tokens": cur, "cache_pos": t})
+        if t >= plen - 1:
+            toks.append(torch.argmax(logits[:, 0, :].float(), dim=-1, keepdim=True))
+    np.testing.assert_array_equal(got, torch.cat(toks, dim=1).numpy())
+    for name in ("s", "x_tm", "x_cm"):
+        assert torch.equal(cache[name], want_cache[name])
+    assert stats["captures"] == stats["graph_replays"] == 0
+
+
 @pytest.mark.parametrize("chunk,s", [(None, 64), (None, 24)])
 def test_prefill_then_decode_matches_forward(chunk, s):
     """Prefill s tokens: the last-position logits equal the JAX forward's and

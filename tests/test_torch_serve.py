@@ -182,6 +182,30 @@ def test_bucket_crossing_prepares_once_per_bucket():
     assert port.stats == ref.stats and port.stats["loads"] == 6
 
 
+def test_contract_pins_compilations_as_the_reference_does():
+    """``contract()``/``check_contract()`` against the reference's on the same
+    load sequence: both engines prepare the same buckets, hold a cap at that
+    count and break one below it; the port's contract declares no host
+    transfers, and a dispatch under its guard runs (a no-op off the card)."""
+    port, ref = _engines(rank_block=4, verify_kernels=False)
+    x = _requests(3, D, seed=5)
+    for live in (0, 2, 5, 8, 3, 9):
+        for eng in (port, ref):
+            eng.load(_packed(live, seed=live))
+            eng.score(x)
+    n = ref.stats["compilations"]
+    assert n == 3 and port.stats == ref.stats
+    for eng in (port, ref):
+        c = eng.check_contract(eng.contract(max_compilations=n))
+        assert c.name == f"serve.never_materialize[{D}x{M}]"
+        assert c.max_compilations == n and c.no_host_transfers
+        with pytest.raises(AssertionError, match="compilations"):
+            eng.check_contract(eng.contract(max_compilations=n - 1))
+    assert port.check_contract().max_compilations is None
+    with port.contract().guard():
+        _dense_close(port.score_async(x).block(), x @ _dense(_packed(9, seed=9)))
+
+
 @pytest.mark.parametrize("rank_block", [1, 3, 8, 32])
 def test_rank_bucket_matches_jax(rank_block):
     for live in range(0, 70):
