@@ -272,6 +272,37 @@ Phases, each fatal on failure (exit code != 0, no result line):
    ``block:8:adapt``'s executed iterations the same in both modes. (f) One
    long const segment each of MTLS (48 epochs) and MC int8 (100): replays
    of pieces, at most two graphs, their capture ms and table bytes.
+28. Telemetry (``repro_torch.obs``) and the op recorder
+   (``analysis.recorder``). (a) MTLS ``fit_serial`` (phase 3's
+   configuration, 5 epochs; with a checkpoint dir at n = --serve-rows, a
+   full-n step being 20.7 GB) and MC dense (phase 8's, 5 epochs), each with
+   an enabled handle and without, on the same draws: the same history,
+   final loss and iterate bits, the same ``stats`` and the same launches on
+   the device; both sinks written and parsed, the events covering
+   ``engine.segment``, ``comm.exchange`` and ``checkpoint.write``; each
+   fit run four times in turns (off, on, on, off), its whole wall and its
+   programs' capture ms printed (an enabled handle records each capture);
+   ms an epoch with the handle off and on, in turns (off, on, on, off; MTLS
+   const:2 and MC const:3 in blocks of 4 from built states; printed, not a
+   gate). (b) An enabled MC const:2 run under
+   ``dispatch_contract().guard()`` and the recorder: nothing raises, no
+   implicit device read, explicit fetches that read the device =
+   ``host_syncs``, a ``comm.executable`` op log per captured program. (c)
+   Phase 21's one-worker NCCL ``fit``, MC int8, under the recorder:
+   all-reduces an epoch from each captured program's log = 1 + 2K x 2 + 1,
+   explicit fetches that read = ``host_syncs``. (d)
+   ``Telemetry(profiler_dir=...)`` on a 3-epoch MTLS fit (const:3, no IF
+   node): the torch.profiler trace names the port's matvec, rmatvec and
+   rank-1 kernels. (e) Phase 12's serving shapes at rank 48 on four
+   engines, built without a handle, with, with, without; each of 2,000
+   requests (``TELEMETRY_REQUESTS``) scored on all four, the first engine
+   turning with the request, then all again with the garbage collector
+   off: p50/p99 a side and an engine, the host µs of ``score_async`` and
+   ``block()``, the same scores, ``check_contract()`` on every bucket's
+   capture log (no d x m tensor), histogram count = dispatches. (f)
+   ``analysis.contracts.verify_declared()`` with its default device, the
+   card: the engine's and the scorer's contracts read from their captures.
+   About 45 s of command time.
 
 The launches each fit phase checks (and the kernels line sums) are the
 device's: ``counting`` opens ``kernels.Executed``, which adds a counter on
@@ -1984,6 +2015,9 @@ def graphs_phase(torch, np, kernels, dfw, comm, tasks, low_rank, NoiseStream, de
 
 
 SERVE_D, SERVE_M, SERVE_BATCH, SERVE_BLOCK = PAPER_D, PAPER_M, 64, 32
+# phase 28 (e): requests a pass on each of four engines; 4,000 dispatches a
+# side a pass put each side's p99 among 40 samples, not 2
+TELEMETRY_REQUESTS = 2000
 
 
 def device_ms(torch, fn, name="", n=20):
@@ -4453,6 +4487,436 @@ def engine_phase(torch, np, kernels, dfw, comm, tasks, frank_wolfe, engine, dev,
     return report, total, routed[0]
 
 
+def telemetry_phase(torch, np, kernels, dfw, comm, tasks, frank_wolfe, engine, serve, low_rank,
+                    dev, args):
+    """Phase 28 (see the module doc). Returns (report, summed launches the
+    device ran in its fits and serving, their update_resid block-route
+    launches)."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.analysis.recorder import OpRecorder
+    from repro_torch.obs import Telemetry
+
+    report = {}
+    t_phase = time.perf_counter()
+    seed = args.seed
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)  # phase 3's X and Y, phase 8's ratings
+    total = dict.fromkeys(kernels.launches(), 0)
+    routed = [0]
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=build, prefix="telemetry_"))
+
+    def add(ran):
+        for k_, v_ in ran.launches.items():
+            total[k_] += v_
+        routed[0] += ran.routes["update_resid"]["block"]
+
+    def sinks(label, tel, want):
+        """Write both sinks, parse them back, check ``want`` among the names."""
+        jl, ct = tmp / f"{label}.jsonl", tmp / f"{label}.trace.json"
+        tel.write_jsonl(jl)
+        tel.write_chrome_trace(ct)
+        lines = [json.loads(s_) for s_ in jl.read_text().splitlines()]
+        doc = json.loads(ct.read_text())
+        n = tel.event_count()
+        names = {ev["name"] for ev in doc["traceEvents"]}
+        check(lines[0]["type"] == "meta" and lines[-1]["type"] == "metrics"
+              and len(lines) - 2 == n == len(doc["traceEvents"]) and want <= names,
+              f"(a) {label}: sinks {len(lines)} lines, {len(doc['traceEvents'])} trace events "
+              f"for {n} events; missing {sorted(want - names)}")
+        return dict(events=n, jsonl_bytes=jl.stat().st_size, trace_bytes=ct.stat().st_size,
+                    names=sorted(names))
+
+    def on_off(label, run, want):
+        """(a) ``run(tel, turn)`` with telemetry off and on in turns (off,
+        on, on, off; the same draws): the same bits, stats and launches on
+        the device; each run's wall and its programs' capture ms, which
+        with the handle on hold the op recorder's pass over each capture."""
+        got = []
+        for turn, on in enumerate((False, True, True, False)):
+            tel = Telemetry() if on else None
+            torch.cuda.synchronize()
+            with counting(kernels) as ran:
+                t0 = time.perf_counter()
+                res = run(tel, turn)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            add(ran)
+            got.append(dict(history=res.history, final_loss=res.final_loss, stats=res.stats,
+                            iterate=[t_.clone() for t_ in res.iterate], launches=ran.launches,
+                            wall_s=wall, capture_ms=sum(res.timings.get("capture_ms", [])),
+                            tel=tel))
+            del res
+            torch.cuda.empty_cache()
+        off = got[0]
+        for turn, g_ in enumerate(got[1:], 1):
+            check(g_["history"] == off["history"] and g_["final_loss"] == off["final_loss"]
+                  and all(torch.equal(p_, q_) for p_, q_ in zip(g_["iterate"], off["iterate"])),
+                  f"(a) {label}: turn {turn} changed the run's bits")
+            check(g_["stats"] == off["stats"], f"(a) {label}: stats {g_['stats']} in turn "
+                  f"{turn}, {off['stats']} in turn 0")
+            check(g_["launches"] == off["launches"], f"(a) {label}: the device ran "
+                  f"{g_['launches']} in turn {turn}, {off['launches']} in turn 0")
+        tel = got[1]["tel"]
+        row = report[label] = dict(stats=off["stats"], walls_s=[g_["wall_s"] for g_ in got],
+                                   capture_ms=[g_["capture_ms"] for g_ in got],
+                                   sinks=sinks(label.replace(" ", "_"), tel, want),
+                                   counters=tel.registry.snapshot()["counters"])
+        print(f"(a) {label}: telemetry on = off bit for bit (history, final loss, iterate), "
+              f"stats and launches the same; {row['sinks']['events']} events, sinks "
+              f"{row['sinks']['jsonl_bytes']} / {row['sinks']['trace_bytes']} bytes; "
+              f"counters {row['counters']}; whole fit in turns off, on, on, off: walls "
+              + ", ".join(f"{w_:.4f}" for w_ in row["walls_s"]) + " s, capture ms "
+              + ", ".join(f"{c_:.1f}" for c_ in row["capture_ms"]))
+        return tel
+
+    def timed(label, ktask, fresh, mu, kw):
+        """ms an epoch with telemetry off and on, in turns (off, on, on,
+        off), over the segments after the first (segment_timer); not a gate."""
+        ms = {False: [], True: []}
+        for on in (False, True, True, False):
+            seg_log = []
+            res = engine_fit(torch, kernels, frank_wolfe, ktask, fresh(), mu,
+                             dict(kw, telemetry=Telemetry() if on else None), "scan", seed, dev,
+                             callback=segment_timer(torch, seg_log))[0]
+            ms[on].append(steady_epoch_ms(seg_log))
+            del res
+        off, on = statistics.mean(ms[False]), statistics.mean(ms[True])
+        # what the handle adds on the host at a boundary: one segment's
+        # records (its spans, 4 epochs of samples, gauges and counters),
+        # timed alone over 500 segments
+        seg = engine.Segment(start=0, length=kw["block_epochs"], k=2)
+        rows = np.random.default_rng(0).random((seg.length, 5)).astype(np.float32)
+        per_k = engine._comm_cost_per_k(comm.DenseReducer(), ktask.d, ktask.m, 1)
+        tel = Telemetry()
+        t0 = time.perf_counter()
+        for _ in range(500):
+            engine._record_segment(tel, seg, 0.0, 1.0, rows, per_k, "dense", 1, None)
+        record_us = 1e6 * (time.perf_counter() - t0) / 500
+        report[label] = dict(ms_per_epoch_off=ms[False], ms_per_epoch_on=ms[True],
+                             overhead=on / off - 1, segment_records_us=record_us)
+        print(f"(a) {label} ({kw['schedule']}, blocks of {kw['block_epochs']}): ms an epoch in "
+              f"turns off {ms[False][0]:.3f}, on {ms[True][0]:.3f}, on {ms[True][1]:.3f}, off "
+              f"{ms[False][1]:.3f}: telemetry {100 * (on / off - 1):+.2f}%; a segment's "
+              f"records take {record_us:.1f} us of host time")
+
+    ls = dict(step_size="linesearch")
+    seg_want = {"run.start", "engine.compile", "engine.dispatch", "engine.segment",
+                "comm.exchange", "comm.executable", "engine.fetch", "engine.final_loss",
+                "dfw.loss"}
+    try:
+        # (a) MTLS at the ImageNet shapes, phase 3's configuration, 5 epochs
+        X, Y = dense_data(torch, gen, dev, args.rows)
+        mtls_task = tasks.MultiTaskLeastSquares(PAPER_D, PAPER_M)
+        main = dict(mu=1.0, num_epochs=5, schedule="log", **ls)
+        on_off("mtls", lambda tel, turn: dfw.fit_serial(
+            mtls_task, X, Y, cfg=dfw.DFWConfig(telemetry=tel, **main), key=seed, device=dev),
+            seg_want)
+        # with a checkpoint dir (n cut to --serve-rows: a full-n step is 20.7 GB)
+        n_ck = args.serve_rows
+        on_off("mtls checkpointed", lambda tel, turn: dfw.fit_serial(
+            mtls_task, X[:n_ck], Y[:n_ck], key=seed, device=dev, cfg=dfw.DFWConfig(
+                telemetry=tel, checkpoint_dir=str(tmp / f"ck_{turn}"),
+                checkpoint_keep=1, **main)),
+            seg_want | {"checkpoint.snapshot", "checkpoint.write", "checkpoint.prune",
+                        "checkpoint.join"})
+        mtls = dfw.kernelize(mtls_task)
+        base = mtls.init_state(X, Y)
+        timed("mtls timing", mtls, lambda: base._replace(r=-Y), 1.0,
+              dict(ls, num_epochs=12, schedule="const:2", block_epochs=4))
+        del base
+        torch.cuda.empty_cache()
+
+        # (d) torch.profiler through the handle: 3 epochs, no IF node
+        prof = Telemetry(profiler_dir=str(tmp / "profile"))
+        with counting(kernels) as ran:
+            res = dfw.fit_serial(mtls_task, X, Y, key=seed, device=dev, cfg=dfw.DFWConfig(
+                mu=1.0, num_epochs=3, schedule="const:3", verify_kernels=False,
+                telemetry=prof, **ls))
+            torch.cuda.synchronize()
+        add(ran)
+        del res
+        (trace,) = prof.profiler_traces
+        doc = json.loads(Path(trace).read_text())
+        device = [ev["name"] for ev in doc["traceEvents"] if ev.get("cat") == "kernel"]
+        named = {p_: sum(1 for k_ in device if is_kernel(p_, k_)) for p_ in (
+            "matvec_kernel", "rmatvec_partial_kernel", "rmatvec_finish_kernel", "rank1_kernel")}
+        check(all(named.values()), f"(d) the profiler's trace names {named} of the port's "
+              f"kernels among {len(device)} device events")
+        report["profiler"] = dict(trace_bytes=Path(trace).stat().st_size,
+                                  device_events=len(device), port_kernels=named,
+                                  launches=ran.launches)
+        print(f"(d) Telemetry(profiler_dir=...): a {report['profiler']['trace_bytes']}-byte "
+              f"torch.profiler trace of a 3-epoch MTLS fit, {len(device)} device events naming "
+              f"the port's kernels {named} (launched {ran.launches['matvec']} matvec, "
+              f"{ran.launches['rmatvec']} rmatvec, {ran.launches['rank1_update_axpy']} "
+              "rank1_update_axpy)")
+        os.remove(trace)
+        del X, Y, doc, device
+        torch.cuda.empty_cache()
+
+        # (a) MC dense at the Netflix shapes, phase 8's configuration, 5 epochs
+        idx, yw, _, mu = make_mc_data(torch, gen, dev, args.mc_entries, NF_TEST)
+        mc_task = tasks.MatrixCompletion(NF_D, NF_M)
+        on_off("mc dense", lambda tel, turn: dfw.fit_serial(
+            mc_task, idx, yw, key=seed, device=dev, cfg=dfw.DFWConfig(
+                mu=mu, num_epochs=5, schedule="log", telemetry=tel, **ls)), seg_want)
+        mc = dfw.kernelize(mc_task)
+        base = mc.init_state(idx, yw)
+
+        def mc_fresh():
+            return base._replace(resid=base.resid.clone(), resid_by_row=base.resid_by_row.clone(),
+                                 resid_by_col=base.resid_by_col.clone())
+
+        timed("mc timing", mc, mc_fresh, mu, dict(ls, num_epochs=16, schedule="const:3",
+                                                  block_epochs=4))
+
+        # (b) the enabled run under the dispatch contract's guard, and its op
+        # log: no implicit device read, the engine's counted fetches only
+        contract = engine.dispatch_contract(name="engine.dispatch[mc const:2, telemetry]")
+        tel = Telemetry()
+        state = mc_fresh()
+        torch.cuda.synchronize()
+        with counting(kernels) as ran, OpRecorder() as rec, contract.guard():
+            res = frank_wolfe.fit(mc, state, mu=mu, num_epochs=10, schedule="const:2",
+                                  key=seed, device=dev, telemetry=tel, **ls)
+            torch.cuda.synchronize()
+        add(ran)
+        try:
+            contract.check_stats(res.stats)
+            seen = contract.check_ops(rec)
+        except AssertionError as e:
+            check(False, f"(b) {e}")
+        check(seen["explicit_syncs"] == res.stats["host_syncs"] and res.stats["graph_replays"],
+              f"(b) {seen['explicit_syncs']} explicit fetches that read the device for stats "
+              f"{res.stats}")
+        execs = [ev["args"] for ev in tel.events() if ev["name"] == "comm.executable"]
+        check(len(execs) == res.stats["compilations"] and all(e_["captured"] for e_ in execs),
+              f"(b) comm.executable events {execs} for {res.stats['compilations']} programs")
+        report["guarded"] = dict(stats=res.stats, implicit_syncs=seen["implicit_syncs"],
+                                 explicit_syncs=seen["explicit_syncs"], ops=seen["ops"],
+                                 executables=execs)
+        print(f"(b) mc const:2 with telemetry under Contract.guard(): nothing raised; op log "
+              f"of the run: {seen['ops']} ops, {seen['implicit_syncs']} implicit device reads, "
+              f"{seen['explicit_syncs']} explicit fetches that read the device = host_syncs; "
+              f"stats {res.stats}; "
+              f"captured programs' op logs " + ", ".join(
+                  f"(K={e_['k']}, {e_['length']} epochs): {e_['ops']} ops" for e_ in execs))
+        del res, state
+        torch.cuda.empty_cache()
+
+        # (c) phase 21's one-worker NCCL fit, MC int8, under the recorder
+        with tempfile.TemporaryDirectory() as store_dir:
+            dist.init_process_group("nccl", store=dist.FileStore(
+                os.path.join(store_dir, "store"), 1), rank=0, world_size=1, device_id=dev)
+            try:
+                group = comm.WorkerGroup()
+                tel = Telemetry()
+                cfg = dfw.DFWConfig(mu=mu, num_epochs=5, schedule="log", comm="int8",
+                                    telemetry=tel, **ls)
+                with counting(kernels) as ran, OpRecorder() as rec:
+                    res = dfw.fit(mc_task, idx, yw, cfg=cfg, key=seed, group=group, device=dev)
+                    torch.cuda.synchronize()
+                add(ran)
+            finally:
+                dist.destroy_process_group()
+        seen = rec.analyze()
+        execs = [ev["args"] for ev in tel.events() if ev["name"] == "comm.executable"]
+        ks = res.history["k"]
+        per_epoch = {e_["k"]: e_["hlo_collective_count"].get("all-reduce", 0) / e_["length"]
+                     for e_ in execs}
+        want = {k_: 1 + 2 * k_ * 2 + 1 for k_ in set(ks)}  # loss, 2K int8 exchanges, line search
+        check(per_epoch == want and all(e_["captured"] for e_ in execs),
+              f"(c) all-reduces an epoch from the captures' op logs {per_epoch}, want {want}")
+        check(seen["explicit_syncs"] == res.stats["host_syncs"],
+              f"(c) {seen['explicit_syncs']} explicit fetches that read, host_syncs {res.stats}")
+        # the tally counts the group's calls; the recorder also sees the
+        # engine's warm-up all-reduce before its first capture
+        check(seen["collective_count"]["all-reduce"] == res.stats["all_reduces"] + 1,
+              f"(c) the op log's all-reduces {seen['collective_count']} against the tally's "
+              f"{res.stats['all_reduces']} + 1 warm-up")
+        report["world_one_int8"] = dict(per_epoch=per_epoch, ks=ks, stats=res.stats,
+                                        collective_count=seen["collective_count"],
+                                        collective_bytes=seen["collective_bytes"],
+                                        explicit_syncs=seen["explicit_syncs"],
+                                        implicit_syncs=seen["implicit_syncs"])
+        print(f"(c) mc int8 fit over one NCCL worker under the recorder: all-reduces an epoch "
+              f"from each captured program {per_epoch} (1 + 2K x 2 + 1); {seen['explicit_syncs']}"
+              f" explicit fetches that read = host_syncs; {seen['collective_count']} in the op "
+              f"log = the "
+              f"tally's {res.stats['all_reduces']} + the warm-up; implicit reads (the start-up "
+              f"checks) {seen['implicit_syncs']}")
+        del res, base, idx, yw
+        torch.cuda.empty_cache()
+
+        # (e) phase 12's serving shapes: four engines, built off, on, on, off;
+        # each request on all four, the first engine turning with the request,
+        # then all again with the garbage collector off. After each dispatch
+        # of an engine without a handle, outside its latency, the records an
+        # enabled engine makes in block() go into a probe handle, timed there
+        # (the records' cost in place, on a host just back from the card).
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed + 12)
+        rank = 48
+        it = low_rank.FactoredIterate(
+            u=torch.randn((rank, SERVE_D), generator=g, device=dev) / SERVE_D ** 0.5,
+            s=torch.rand(rank, generator=g, device=dev),
+            v=torch.randn((rank, SERVE_M), generator=g, device=dev) / SERVE_M ** 0.5,
+            alpha=torch.tensor(0.9, device=dev), count=torch.tensor(rank, dtype=torch.int32))
+        rng = np.random.default_rng(seed)
+        xs = [rng.standard_normal((SERVE_BATCH, SERVE_D), dtype=np.float32)
+              for _ in range(args.serve_batches)]
+        sides = (False, True, True, False)  # has a handle, in the order built
+        n_req = TELEMETRY_REQUESTS
+        lat = {gc_off: [[] for _ in sides] for gc_off in (False, True)}
+        in_place = {False: [], True: []}
+        probe = Telemetry()
+        probe_hist = probe.registry.histogram("probe.latency_us")
+        same = True
+        with counting(kernels) as ran:
+            engines = []
+            for on in sides:
+                eng = serve.ServingEngine(
+                    SERVE_D, SERVE_M, serve.ServeConfig(
+                        max_batch=SERVE_BATCH, rank_block=SERVE_BLOCK,
+                        telemetry=Telemetry() if on else None), device=dev)
+                eng.load(it)
+                eng.load(it._replace(s=it.s * 0.5))  # a hot swap inside the bucket
+                engines.append(eng)
+            for gc_off in (False, True):
+                if gc_off:
+                    gc.collect()
+                    gc.disable()
+                try:
+                    for i in range(n_req):
+                        x, first = xs[i % len(xs)], None
+                        for j in range(len(engines)):
+                            e_ = (i + j) % len(engines)
+                            t0 = time.perf_counter()
+                            pending = engines[e_].score_async(x)
+                            t1 = time.perf_counter()
+                            out = pending.block()
+                            t2 = time.perf_counter()
+                            lat[gc_off][e_].append((1e3 * (t2 - t0), 1e6 * (t1 - t0),
+                                                    1e6 * (t2 - t1)))
+                            if not sides[e_]:
+                                dur = 1e6 * (time.perf_counter() - t0)
+                                probe.complete("probe.dispatch", "serve", probe.now_us() - dur,
+                                               dur, n=SERVE_BATCH, version=1)
+                                probe_hist.observe(dur)
+                                in_place[gc_off].append(1e6 * (time.perf_counter() - t2))
+                            if first is None:
+                                first = out
+                            elif not np.array_equal(first, out):
+                                same = False
+                finally:
+                    gc.enable()
+            torch.cuda.synchronize()
+        add(ran)
+        check(same, "(e) telemetry changed served scores")
+        for e_, eng in enumerate(engines):
+            try:
+                eng.check_contract(eng.contract(max_compilations=1))
+            except AssertionError as e:
+                check(False, f"(e) engine {e_} (telemetry {sides[e_]}): {e}")
+        st = engines[0].stats
+        check(all(eng.stats == st for eng in engines) and st["dispatches"] == 2 * n_req,
+              f"(e) stats {[eng.stats for eng in engines]}")
+        for e_ in (1, 2):
+            tel = engines[e_].telemetry
+            snap = tel.registry.snapshot()
+            names = [ev["name"] for ev in tel.events()]
+            check(snap["histograms"]["serve.latency_us"]["count"] == st["dispatches"]
+                  == names.count("serve.dispatch")
+                  and names.count("serve.hot_swap") == 1 and "serve.compile" in names
+                  and "serve.executable" in names,
+                  f"(e) engine {e_}: histogram {snap['histograms'].get('serve.latency_us')}, "
+                  f"stats {st}, events {sorted(set(names))}")
+
+        def pct(vals, q):
+            vals = sorted(vals)
+            return vals[min(len(vals) - 1, max(0, math.ceil(q * len(vals)) - 1))]
+
+        def summary(samples):
+            part = [[v_[j_] for v_ in samples] for j_ in range(3)]
+            return dict(n=len(samples), p50_ms=pct(part[0], 0.5), p99_ms=pct(part[0], 0.99),
+                        score_async_p50_us=pct(part[1], 0.5), block_p50_us=pct(part[2], 0.5))
+
+        row = report["serving"] = {}
+        for gc_off in (False, True):
+            by = lat[gc_off]
+            row["gc_off" if gc_off else "gc_on"] = dict(
+                off=summary(by[0] + by[3]), on=summary(by[1] + by[2]),
+                engines=[summary(b_) for b_ in by],
+                records_in_place_p50_us=pct(in_place[gc_off], 0.5),
+                records_in_place_mean_us=statistics.mean(in_place[gc_off]))
+        row["log_ops"] = [b_.log["ops"] for b_ in engines[1]._buckets.values()]
+        # what the handle adds to a dispatch on the host, timed alone: the
+        # t0 stamp, the serve.dispatch span and the histogram observation;
+        # and a span of the disabled handle (noop_contract's clause)
+        tel = Telemetry()
+        hist = tel.registry.histogram("probe.latency_us")
+        t0 = time.perf_counter()
+        for _ in range(10_000):
+            t_ = tel.now_us()
+            tel.complete("probe.dispatch", "serve", t_, tel.now_us() - t_, n=SERVE_BATCH,
+                         version=1)
+            hist.observe(5.0)
+        row["dispatch_records_us"] = 1e6 * (time.perf_counter() - t0) / 10_000
+        noop = Telemetry.noop()
+        t0 = time.perf_counter()
+        for _ in range(10_000):
+            with noop.span("probe"):
+                pass
+        row["noop_span_us"] = 1e6 * (time.perf_counter() - t0) / 10_000
+
+        def side(r_):
+            return (f"{r_['p50_ms']:.4f} / {r_['p99_ms']:.4f} ms (score_async "
+                    f"{r_['score_async_p50_us']:.1f} us, block {r_['block_p50_us']:.1f})")
+
+        print(f"(e) serving {SERVE_BATCH} x {SERVE_D} -> {SERVE_M}, rank {rank}, four engines "
+              f"built off, on, on, off, each of {n_req} requests on all four (the first "
+              f"turning), {2 * n_req} dispatches a side; the same scores; check_contract "
+              f"passes on every bucket's capture log ({row['log_ops']} ops, no {SERVE_D} x "
+              f"{SERVE_M}); histogram counts = dispatches")
+        for key in ("gc_on", "gc_off"):
+            r_ = row[key]
+            print(f"(e) {key.replace('_', ' ')}: p50 / p99 off {side(r_['off'])}, on "
+                  f"{side(r_['on'])}; by engine (off, on, on, off) p50 "
+                  + ", ".join(f"{e_['p50_ms']:.4f}" for e_ in r_["engines"]) + ", p99 "
+                  + ", ".join(f"{e_['p99_ms']:.4f}" for e_ in r_["engines"]) + " ms; the "
+                  f"records in place p50 {r_['records_in_place_p50_us']:.2f} us, mean "
+                  f"{r_['records_in_place_mean_us']:.2f}")
+        print(f"(e) a dispatch's records take {row['dispatch_records_us']:.2f} us of host "
+              f"time back to back, a disabled handle's span {row['noop_span_us']:.3f} us")
+        del engines, it, xs
+
+        # (f) every declared contract, with the default device: the card
+        from repro_torch.analysis import contracts
+
+        t0 = time.perf_counter()
+        with counting(kernels) as ran:
+            rc = contracts.verify_declared(verbose=True)
+            torch.cuda.synchronize()
+        add(ran)
+        check(rc == 0, "(f) verify_declared() found a broken contract on the card")
+        report["verify_declared_s"] = time.perf_counter() - t0
+        print(f"(f) verify_declared() on the card (its default device): every declared "
+              f"contract holds, {report['verify_declared_s']:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 28 took {report['wall_s']:.1f} s")
+    return report, total, routed[0]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4827,6 +5291,15 @@ def main(argv=None) -> int:
         block_route += engine_route
         print(f"phase 27 took {report['engine']['wall_s']:.1f} s ({smi})")
         torch.cuda.empty_cache()
+
+        # 28. telemetry through the fits, the checkpoint store and serving: the
+        # same bits, stats and launches with the handle on and off, its cost,
+        # the op recorder's contracts on the captured programs
+        report["telemetry"], telemetry_launch, telemetry_route = telemetry_phase(
+            torch, np, kernels, dfw, comm, tasks, frank_wolfe, engine, serve, low_rank, dev, args)
+        block_route += telemetry_route
+        print(f"phase 28 ({smi})")
+        torch.cuda.empty_cache()
     except Check as e:
         return fail(str(e))
 
@@ -4834,7 +5307,7 @@ def main(argv=None) -> int:
     paths = (mtls_launch, log_launch, mc_launch, mc8_launch, fit12_launch, serve_launch,
              prefill_launch, decode_launch, ssm_prefill_launch, ssm_decode_launch,
              world_one_launch, multi_launch, baselines_launch, graphs_launch, block_launch,
-             resume_launch, engine_launch)
+             resume_launch, engine_launch, telemetry_launch)
     for kname in (*TPU_KERNEL, *HELPER_KERNELS, *BLOCK_KERNELS, "update_resid_block"):
         rows = [r for r in krows if r["name"] == kname]
         main_row = next((r for r in rows if r.get("main")), None) or max(

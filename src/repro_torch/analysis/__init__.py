@@ -1,2 +1,3 @@
-"""Checkable cost contracts of the port (``contracts``), the counterpart of
-``repro.analysis``."""
+"""Checkable cost contracts of the port (``contracts``) and the op recorder
+they read programs with (``recorder``), the counterpart of
+``repro.analysis``'s contracts and HLO walker."""

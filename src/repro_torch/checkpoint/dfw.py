@@ -147,14 +147,16 @@ class RunCheckpointer:
     ``CheckpointStore.save_async`` (the carry's leaves are copied to the host
     there, the write runs behind the next segment). ``save_every`` saves
     every Nth boundary; the last (or early-stop) boundary is always saved.
-    ``extra`` is the run configuration (``run_extra``)."""
+    ``extra`` is the run configuration (``run_extra``); ``telemetry`` (an
+    ``obs.Telemetry``) goes to the store it opens."""
 
     def __init__(self, store: Source, *, save_every: int = 1,
-                 keep_last: Optional[int] = 2, extra: Optional[dict] = None):
+                 keep_last: Optional[int] = 2, extra: Optional[dict] = None,
+                 telemetry=None):
         if save_every < 1:
             raise ValueError(f"save_every={save_every}: must be >= 1")
         if not isinstance(store, CheckpointStore):
-            store = CheckpointStore(store, keep_last=keep_last)
+            store = CheckpointStore(store, keep_last=keep_last, telemetry=telemetry)
         self.store = store
         self.save_every = save_every
         self.extra = dict(extra or {})

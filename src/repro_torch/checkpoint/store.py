@@ -28,6 +28,14 @@ Readers (``read_leaves``, and ``checkpoint.dfw``'s readers given a path)
 list and load steps without opening a store, so a serving process that
 follows a training run's directory never renames anything in it; a resume
 reads its step the same way (``checkpoint.dfw.restore_run``).
+
+``telemetry`` (an ``obs.Telemetry``; the inert no-op when None) records the
+reference's events: a ``checkpoint.snapshot`` span around the copy to the
+host, a ``checkpoint.write`` span (step, bytes) with the
+``checkpoint.write_us`` histogram and the ``checkpoint.saves`` and
+``checkpoint.bytes`` counters once a write has landed (on the writer
+thread, through the handle's thread-safe append), a ``checkpoint.prune``
+event (steps, keep) and a ``checkpoint.restore`` span (``restore``).
 """
 from __future__ import annotations
 
@@ -39,6 +47,8 @@ from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from ..obs import Telemetry
 
 # Manifest schema version, the JAX package's: readers reject a newer one.
 MANIFEST_FORMAT = 1
@@ -98,12 +108,14 @@ def _host(leaf) -> np.ndarray:
 
 
 class CheckpointStore:
-    def __init__(self, directory: Union[str, Path], *, keep_last: Optional[int] = None):
+    def __init__(self, directory: Union[str, Path], *, keep_last: Optional[int] = None,
+                 telemetry: Optional[Telemetry] = None):
         if keep_last is not None and keep_last < 1:
             raise ValueError(f"keep_last={keep_last}: must be >= 1 (or None)")
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep_last = keep_last
+        self.telemetry = telemetry if telemetry is not None else Telemetry.noop()
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Tuple[int, Path, BaseException]] = None
         # A crash inside _write's overwrite window leaves .old_step_X with
@@ -120,21 +132,42 @@ class CheckpointStore:
     def save(self, step: int, leaves: Leaves, *, extra: Optional[dict] = None) -> Path:
         """Write ``step`` now; returns its directory."""
         self.wait()
-        host = {path: _host(leaf) for path, leaf in leaves.items()}
+        host = self._snapshot(step, leaves)
+        t0 = self.telemetry.now_us()
         out = self._write(step, host, extra or {})
+        self._record_write(step, host, t0)
         self._prune(keep=step)
         return out
+
+    def _snapshot(self, step: int, leaves: Leaves) -> Dict[str, np.ndarray]:
+        with self.telemetry.span("checkpoint.snapshot", "checkpoint", step=step):
+            return {path: _host(leaf) for path, leaf in leaves.items()}
+
+    def _record_write(self, step: int, host: Dict[str, np.ndarray], t0_us: float) -> None:
+        """Stamp one landed write (on the thread that wrote it): the span from
+        ``t0_us``, when the write began, the latency histogram, the counters."""
+        tel = self.telemetry
+        if not tel.enabled:
+            return
+        dur = tel.now_us() - t0_us
+        nbytes = sum(int(a.nbytes) for a in host.values())
+        tel.complete("checkpoint.write", "checkpoint", t0_us, dur, step=step, bytes=nbytes)
+        tel.registry.histogram("checkpoint.write_us").observe(dur)
+        tel.registry.counter("checkpoint.saves").inc()
+        tel.registry.counter("checkpoint.bytes").inc(nbytes)
 
     def save_async(self, step: int, leaves: Leaves, *, extra: Optional[dict] = None) -> None:
         """Copy the leaves to host memory now, write them on a background
         thread. A write failure is raised by the next ``wait()`` (or save):
         call ``wait()`` once after the last save."""
         self.wait()
-        host = {path: _host(leaf) for path, leaf in leaves.items()}
+        host = self._snapshot(step, leaves)
 
         def _run():
             try:
+                t0 = self.telemetry.now_us()
                 self._write(step, host, extra or {})
+                self._record_write(step, host, t0)
                 self._prune(keep=step)
             except BaseException as e:  # noqa: BLE001 - handed to wait()
                 self._error = (step, step_dir(self.dir, step), e)
@@ -161,8 +194,11 @@ class CheckpointStore:
         if self.keep_last is None:
             return
         steps = [s for s in self.steps() if s != keep]
-        for s in steps[: max(0, len(steps) + 1 - self.keep_last)]:
+        dropped = steps[: max(0, len(steps) + 1 - self.keep_last)]
+        for s in dropped:
             shutil.rmtree(step_dir(self.dir, s), ignore_errors=True)
+        if dropped:
+            self.telemetry.event("checkpoint.prune", "checkpoint", steps=dropped, keep=keep)
 
     def _write(self, step: int, host: Dict[str, np.ndarray], extra: dict) -> Path:
         out = step_dir(self.dir, step)
@@ -202,6 +238,17 @@ class CheckpointStore:
     def latest_step(self) -> Optional[int]:
         steps = self.steps()
         return steps[-1] if steps else None
+
+    def restore(self, step: Optional[int] = None, *, prefix: str = ""
+                ) -> Tuple[int, Dict[str, np.ndarray], dict]:
+        """``read_leaves`` of ``step`` (default: the latest) in this store,
+        as a ``checkpoint.restore`` span."""
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {self.dir}")
+        with self.telemetry.span("checkpoint.restore", "checkpoint", step=step):
+            return read_leaves(self.dir, step, prefix=prefix)
 
     def discard_after(self, step: int) -> None:
         """Remove complete steps newer than ``step``: a run that writes into

@@ -30,8 +30,9 @@ the reference's tests.
 ``exchange`` has the reducer's signature, so a topology stands in the
 power method's reducer slot. ``hop_wire_bytes`` splits an exchange's
 analytic bytes by hop; ``collective_counts`` gives the collectives one
-exchange issues (the reference's ``collective_contract`` reads XLA HLO and
-waits for a contracts recorder).
+exchange issues, and ``collective_contract`` pins them as an
+``analysis.contracts.Contract`` checked against a program's op log
+(``analysis.recorder``).
 """
 from __future__ import annotations
 
@@ -94,6 +95,14 @@ class Topology:
 
     def wire_bytes(self, dim: int, num_workers: int) -> int:
         return sum(self.hop_wire_bytes(dim).values())
+
+    def collective_contract(self, num_exchanges: int = 1, *, name: Optional[str] = None):
+        """An ``analysis.contracts.Contract`` pinning exactly the collectives
+        this graph issues over ``num_exchanges`` exchanges."""
+        from ..analysis.contracts import Contract
+
+        return Contract(name=name or f"comm.topology[{self.spec}]",
+                        collective_counts=self.collective_counts(num_exchanges))
 
 
 class FlatTopology(Topology):

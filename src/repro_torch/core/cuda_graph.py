@@ -33,6 +33,7 @@ from typing import Callable, List
 
 import torch
 
+from ..analysis import recorder
 from ..kernels import _count
 
 _P = ctypes.c_void_p
@@ -200,7 +201,8 @@ class CondGraph:
                                     ctypes.byref(inner)), "IF node")
         self._frames.append([inner, _P()])
         self._begin()
-        body()
+        with recorder.conditional():  # an open OpRecorder marks the body's ops
+            body()
         self._end()
         self._frames.pop()
         self._begin()

@@ -85,10 +85,35 @@ multi-worker run: every worker runs this same program on its own rows, and
 every aggregate of an epoch is an all-reduce over the group. ``masks`` is
 the run's (num_epochs, N) straggler-weight table on the host; worker j
 takes column j of row t as its weight in epoch t.
+
+``telemetry`` (an ``obs.Telemetry``; the inert no-op when None) records
+what the reference's engine records, under its names: ``engine.compile``
+(a program's build and capture, with ``capture_ms``/``instantiate_ms``),
+``engine.dispatch`` (the host time of each piece's launch),
+``engine.segment`` and ``comm.exchange`` (from a segment's first launch
+until its rows land on the host: at the boundary fetch that serves a
+callback, ``gap_tol`` or a checkpoint, else at the final fetch, which
+stamps every segment still pending), ``comm.topology`` and the
+``comm.hop_bytes.<hop>`` counters for a graph, ``engine.fetch`` spans by
+kind, ``dfw.loss/gap/sigma/gamma`` samples and gauges (one an epoch run,
+none for the NaN rows past an early stop), the ``engine.epochs``,
+``comm.rounds/logical_bytes/wire_bytes`` and ``dfw.block.power_iters``
+counters and the ``dfw.block.k`` gauge (the comm counters over each
+segment's K(t) and length, as the reference's), the
+``engine.alive_workers`` histogram and ``engine.straggler_masks`` event
+from the host mask table, and ``engine.early_stop``. Every record is made
+on the host around a launch and the fetches the engine makes anyway, from
+host values: telemetry adds no fetch, no dispatch, no launch and no graph,
+and never sits inside a captured body (whose Python runs once, at
+capture). With ``telemetry.wants_hlo`` each program is recorded once by
+``analysis.recorder.OpRecorder`` (its capture; uncaptured, its first
+launch) and its op log's collectives go out as a ``comm.executable`` event.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional
 
@@ -97,7 +122,9 @@ import torch
 
 from .. import NoiseStream, as_v0_stream
 from ..analysis.contracts import Contract, explicit_sync
+from ..analysis.recorder import OpRecorder
 from ..comm.base import DenseReducer, WorkerGroup, pmax
+from ..obs import Telemetry
 from ..specs import validate
 from . import low_rank
 from .frank_wolfe import (EpochAux, EpochCarry, EpochInputs, init_carry, init_probe, k_schedule,
@@ -381,6 +408,59 @@ class _Program:
             self.program(host_when)
 
 
+def _record_executable(tel: Telemetry, prog: _Program, rec: OpRecorder) -> None:
+    """``comm.executable``: a program's collectives from its op log (its
+    capture, which every replay runs; uncaptured, its first launch), once
+    a program. The reference's ``hlo_`` names are kept."""
+    info = rec.analyze()
+    tel.event("comm.executable", "comm", k=prog.k, length=prog.length,
+              captured=prog.graph is not None, ops=info["ops"],
+              hlo_collective_bytes=info["collective_bytes_total"],
+              hlo_collective_count=info["collective_count"],
+              conditional_collective_count=info["conditional_collective_count"])
+
+
+def _record_segment(tel: Telemetry, seg: Segment, t0: float, t_end: float, rows: np.ndarray,
+                    per_k: Dict[str, int], spec, workers: int, k_block: Optional[int]) -> None:
+    """The telemetry of one segment whose host rows (``rows[:seg.length]``)
+    have landed: its span from its first launch to ``t_end``, the
+    comm-exchange span with the analytic costs of K(t) iterations over its
+    length (the reference's accounting), and each epoch's scalars, stamped
+    evenly across the span; NaN rows (past an early stop) are skipped."""
+    dur = max(t_end - t0, 0.0)
+    tel.complete("engine.segment", "engine", t0, dur,
+                 start=seg.start, length=seg.length, k=seg.k)
+    iters = seg.k * seg.length
+    cost = {"rounds": per_k["comm_rounds"] * iters,
+            "logical_bytes": float(per_k["comm_logical_bytes"] * iters),
+            "wire_bytes": float(per_k["comm_wire_bytes"] * iters)}
+    tel.complete("comm.exchange", "comm", t0, dur, spec=spec, num_workers=workers, **cost)
+    reg = tel.registry
+    for name, val in cost.items():
+        reg.counter(f"comm.{name}").inc(val)
+    hops = {key[len("comm_hop_bytes_"):]: float(val * iters) for key, val in per_k.items()
+            if key.startswith("comm_hop_bytes_")}
+    if hops:
+        tel.complete("comm.topology", "comm", t0, dur, topology=spec,
+                     rounds_per_exchange=per_k["comm_rounds"] // 2,
+                     **{f"bytes_{h}": b for h, b in sorted(hops.items())})
+        for h, b in hops.items():
+            reg.counter(f"comm.hop_bytes.{h}").inc(b)
+    if k_block is not None:
+        reg.gauge("dfw.block.k").set(k_block)
+    for j in range(seg.length):
+        vals = [float(v) for v in rows[j]]
+        if math.isnan(vals[0]):
+            continue
+        ts = t0 + dur * (j + 1) / seg.length
+        for name, val in zip(_HISTORY_KEYS, vals):
+            tel.counter_sample(f"dfw.{name}", val, ts_us=ts)
+            reg.gauge(f"dfw.{name}").set(val)
+        if k_block is not None:
+            reg.counter("dfw.block.power_iters").inc(vals[4])
+        reg.counter("engine.epochs").inc()
+
+
 def _capturable(device: torch.device, mode: str, group: Optional[WorkerGroup],
                 needs_if: bool) -> bool:
     """Does this run capture its programs? On a CUDA device in scan mode,
@@ -418,7 +498,7 @@ def _warm_up(device: torch.device, stream, groups) -> None:
         orthonormalize_block(torch.ones((4, 2), device=device))
         for pg in groups:
             torch.distributed.all_reduce(torch.zeros(1, device=device), group=pg)
-    with explicit_sync():
+    with explicit_sync(counted=False):  # set-up, not one of the run's fetches
         torch.cuda.synchronize(device)
 
 
@@ -448,10 +528,12 @@ def run_epochs(
     masks=None,
     probe=None,
     mode: str = "scan",
+    telemetry: Optional[Telemetry] = None,
 ) -> EngineResult:
     """Run up to ``num_epochs`` DFW-Trace epochs of one worker on ``device``
     (``group``: one worker of that group; ``masks``: the (num_epochs, N)
-    straggler weights; ``mode``: "scan" or "legacy"; see the module doc).
+    straggler weights; ``mode``: "scan" or "legacy"; ``telemetry``: an
+    ``obs.Telemetry``; see the module doc).
 
     ``iterate`` defaults to a fresh store of ``max_rank`` capacity (validated
     >= num_epochs times the atoms an epoch appends), ``comm_state`` to
@@ -550,6 +632,15 @@ def run_epochs(
         return make_epoch_step(task, mu, k, step_size=step_size, reducer=reducer,
                                solver=solver, noise=noise, group=group, when=when)
 
+    tel = telemetry if telemetry is not None else Telemetry.noop()
+    if masks is not None and tel.enabled:
+        # the straggler accounting, from the host table the run already holds
+        alive = [int(a) for a in (masks.numpy() > 0).sum(axis=1)]
+        hist_alive = tel.registry.histogram("engine.alive_workers")
+        for a in alive:
+            hist_alive.observe(a)
+        tel.event("engine.straggler_masks", "engine", epochs=len(alive), num_workers=workers,
+                  min_alive=min(alive), mean_alive=sum(alive) / len(alive))
     capture = _capturable(device, mode, group, gap_tol is not None or adapt)
     stream = pool = None
     programs: Dict[tuple, _Program] = {}
@@ -560,16 +651,34 @@ def run_epochs(
     host = np.full((rows, 5), np.nan, dtype=np.float32)
     fetched = 0  # rows of ``hist`` already in ``host``
     ran: List[Segment] = []  # in order
+    seg_t0: List[float] = []  # each segment's first launch (telemetry us)
+    recorded = 0  # segments of ``ran`` whose telemetry is out
     epochs_run = start_t
 
-    def fetch_rows(upto: int):
+    def fetch_rows(upto: int, kind: str):
         """Fetch hist rows [fetched, upto) with the counters: (nrun, done)."""
         nonlocal fetched
-        got, cnt = _fetch(hist[fetched:upto], torch.stack([run.nrun.float(),
-                                                           run.done.float()]))
+        with tel.span("engine.fetch", "engine", kind=kind):
+            got, cnt = _fetch(hist[fetched:upto], torch.stack([run.nrun.float(),
+                                                               run.done.float()]))
         host[fetched:upto] = got.reshape(-1, 5)
         fetched = upto
+        record_landed()
         return int(cnt[0]), bool(cnt[1])
+
+    def record_landed():
+        """Telemetry of every segment whose rows are now all on the host,
+        stamped now (the reference's ``_record_block``)."""
+        nonlocal recorded
+        if not tel.enabled:
+            return
+        t_end = tel.now_us()
+        while recorded < len(ran) and ran[recorded].start - start_t + ran[recorded].length <= fetched:
+            _record_segment(tel, ran[recorded], seg_t0[recorded], t_end,
+                            host[ran[recorded].start - start_t:], epoch_cost,
+                            getattr(reducer, "spec", None), workers,
+                            k_block if sspec.kind == "block" else None)
+            recorded += 1
 
     def history(upto: int) -> Dict[str, list]:
         hist_lists = {k: list(initial_history[k]) if initial_history is not None else []
@@ -589,20 +698,36 @@ def run_epochs(
             length = min(MAX_PROGRAM_EPOCHS, seg.length - off)
             sig = (seg.k, length, off > 0 and gap_tol is not None)
             prog = programs.get(sig)
+            rec = None  # the op log of a program's capture or first launch
             if prog is None:
+                t_build = tel.now_us()
                 prog = programs[sig] = _Program(run, *sig, make_epoch)
                 stats["compilations"] += 1
                 timings["table_bytes"].append(prog.table_bytes)
+                rec = OpRecorder() if tel.wants_hlo else None
                 if capture:
                     if stream is None:
                         stream, pool = torch.cuda.Stream(device), torch.cuda.graph_pool_handle()
                         _warm_up(device, stream, _process_groups(group, reducer))
-                    prog.capture(pool, stream)
+                    with rec if rec is not None else contextlib.nullcontext():
+                        prog.capture(pool, stream)
                     timings["capture_ms"].append(prog.capture_ms)
                     timings["instantiate_ms"].append(prog.graph.instantiate_ms)
                     timings["pool_bytes"].append(prog.pool_bytes)
+                tel.complete("engine.compile", "engine", t_build, tel.now_us() - t_build,
+                             k=seg.k, length=length, captured=capture,
+                             capture_ms=prog.capture_ms if capture else None,
+                             instantiate_ms=prog.graph.instantiate_ms if capture else None)
             timings["draw_us"].append(prog.fill(seg.start + off))
-            prog.launch()
+            t_disp = tel.now_us()
+            if off == 0:
+                seg_t0.append(t_disp)
+            with rec if rec is not None and not capture else contextlib.nullcontext():
+                prog.launch()
+            tel.complete("engine.dispatch", "engine", t_disp, tel.now_us() - t_disp,
+                         start=seg.start + off, length=length, k=seg.k)
+            if rec is not None:
+                _record_executable(tel, prog, rec)
             hist[lo + off:lo + off + length].copy_(prog.aux)
             stats["graph_replays"] += prog.graph is not None
         ran.append(seg)
@@ -619,6 +744,7 @@ def run_epochs(
                 stats["host_syncs"] += 1
             host[lo] = row + [piters]
             fetched = lo + 1
+            record_landed()
             epochs_run += 1
             stop = False
             if gap_tol is not None:
@@ -640,14 +766,16 @@ def run_epochs(
         stopped = None
         if callback is not None or (checkpointer is not None and gap_tol is not None):
             # the light boundary fetch: it serves the callback and the stop
-            epochs_run, stopped = fetch_rows(lo + seg.length)
+            epochs_run, stopped = fetch_rows(lo + seg.length, "boundary")
             stats["host_syncs"] += 1
             if callback is not None:
                 callback(seg.start, EpochAux(*host[lo:lo + seg.length].T))
         if checkpointer is not None and checkpointer.want(i, bool(stopped) or last):
-            epochs_run, stopped = fetch_rows(lo + seg.length)
             stats["host_syncs"] += 1
-            with explicit_sync():  # the carry's copy to the host, before the next replay
+            # one fetch: the rows, the counters and the carry's copy to the
+            # host, before the next replay
+            with explicit_sync():
+                epochs_run, stopped = fetch_rows(lo + seg.length, "checkpoint")
                 checkpointer.save_segment(
                     t=epochs_run, carry=run.carry._replace(t=epochs_run),
                     history=history(epochs_run),
@@ -655,13 +783,18 @@ def run_epochs(
         if gap_tol is not None:
             if stopped is None:  # one flag at the boundary: launch the next segment?
                 stats["host_syncs"] += 1
-                stopped = _fetch(run.done.float())[0][0] > 0
+                with tel.span("engine.fetch", "engine", kind="done-flag"):
+                    stopped = _fetch(run.done.float())[0][0] > 0
             if stopped:
                 break
 
     if mode == "scan":
-        epochs_run, _ = fetch_rows(ran[-1].start - start_t + ran[-1].length)
+        epochs_run, _ = fetch_rows(ran[-1].start - start_t + ran[-1].length, "final")
         stats["host_syncs"] += 1
+    if gap_tol is not None and epochs_run < num_epochs:
+        tel.event("engine.early_stop", "engine", epoch=epochs_run,
+                  gap=float(host[epochs_run - start_t - 1, 1]) if epochs_run > start_t else None,
+                  gap_tol=gap_tol)
     live = host[:epochs_run - start_t]
     iters = int(live[:, 4].sum())
     for name, per_k in epoch_cost.items():

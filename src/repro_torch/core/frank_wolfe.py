@@ -407,6 +407,7 @@ def fit(
     masks=None,
     probe=None,
     mode: str = "scan",
+    telemetry=None,
 ) -> FitResult:
     """Run DFW-TRACE for up to ``num_epochs`` epochs on ``device``.
 
@@ -439,9 +440,17 @@ def fit(
     appends k factors (``max_rank`` defaults to ``num_epochs * k``), and
     ``probe`` is the (m, k) warm start of epoch ``start_t`` (default
     ``init_probe``'s cold start); ``FitResult.probe`` is the last one.
+
+    ``telemetry`` (an ``obs.Telemetry``; the inert no-op when None) goes to
+    the engine (its spans, samples and counters; see ``core/engine.py``),
+    and the final loss's evaluation is its ``engine.final_loss`` span and
+    ``dfw.final_loss`` gauge. It changes no bit, no ``stats`` entry and no
+    launch.
     """
+    from ..obs import Telemetry
     from .engine import run_epochs  # engine builds on this module
 
+    tel = telemetry if telemetry is not None else Telemetry.noop()
     dev = resolve_device(device)
     state = type(state)(*(t if t is None else t.to(dev) for t in state))
     if iterate is not None:
@@ -471,13 +480,16 @@ def fit(
         masks=masks,
         probe=probe,
         mode=mode,
+        telemetry=tel,
     )
     # F at the returned iterate over all the workers' rows: the plain sum,
     # never weighted by the straggler masks.
-    with explicit_sync():
+    with tel.span("engine.final_loss", "engine"), explicit_sync():
         final_loss = float(psum(task.local_loss(eres.carry.state), group))
     eres.stats["dispatches"] += 1
     eres.stats["host_syncs"] += 1
+    if tel.enabled:
+        tel.registry.gauge("dfw.final_loss").set(final_loss)
     return FitResult(
         iterate=eres.carry.iterate,
         state=eres.carry.state,

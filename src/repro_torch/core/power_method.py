@@ -25,6 +25,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..analysis import recorder
 from ..comm.base import DenseReducer, WorkerGroup, pmax
 
 _EPS = 1e-30
@@ -61,9 +62,48 @@ def sphere_vector(gen: torch.Generator, m: int, device, dtype=torch.float32) -> 
 
 def host_when(pred: torch.Tensor, body: Callable[[], None]) -> None:
     """``body()`` if the 0-d bool ``pred`` holds: the ``when`` seam as a
-    host branch (a device read on a CUDA tensor; none on the CPU)."""
-    if bool(pred):
-        body()
+    host branch (a device read on a CUDA tensor; none on the CPU). An open
+    ``analysis.recorder.OpRecorder`` takes the read as a branch read and
+    marks the body's ops conditional."""
+    with recorder.branch():
+        take = bool(pred)
+    if take:
+        with recorder.conditional():
+            body()
+
+
+def collective_rounds_contract(num_iters: int, topology=None):
+    """The paper's communication budget as a checkable contract: K
+    two-sided power iterations run exactly 2K all-reduces (one a matvec
+    side), never 2K + 1: the carried sigma. ``analysis.contracts.
+    verify_declared`` and the tests check it against the op log of
+    ``power_iterations`` over a gloo group. With a ``topology``
+    (``comm.Topology``) the 2K exchanges go over that graph, and the
+    contract pins its own profile (``Topology.collective_contract``)."""
+    from ..analysis.contracts import Contract
+
+    if topology is not None:
+        return topology.collective_contract(
+            2 * num_iters,
+            name=f"power_method.collective_rounds[K={num_iters},topology={topology.spec}]")
+    return Contract(name=f"power_method.collective_rounds[K={num_iters}]",
+                    collective_counts={"all-reduce": 2.0 * num_iters})
+
+
+def block_collective_rounds_contract(num_iters: int, k: int, topology=None):
+    """``collective_rounds_contract`` of the block form: K block iterations
+    still run exactly 2K all-reduces, the (k, k) Gram orthogonalization
+    working on the already-summed block; ``k`` widens each payload, never
+    the round count."""
+    from ..analysis.contracts import Contract
+
+    if topology is not None:
+        return topology.collective_contract(
+            2 * num_iters,
+            name=(f"power_method.block_collective_rounds[K={num_iters},k={k},"
+                  f"topology={topology.spec}]"))
+    return Contract(name=f"power_method.block_collective_rounds[K={num_iters},k={k}]",
+                    collective_counts={"all-reduce": 2.0 * num_iters})
 
 
 def power_iterations(
@@ -125,21 +165,6 @@ def power_iterations(
         sigma = torch.linalg.vector_norm(vv)
         v = vv / (sigma + _EPS)
     return PowerResult(u=u, v=v, sigma=sigma), comm_state
-
-
-def block_collective_rounds_contract(num_iters: int, k: int, topology=None) -> dict:
-    """The block iteration's communication budget: K iterations make exactly
-    2K exchanges whatever k is (the Gram orthogonalization runs on the
-    already-summed block), each k times as wide. ``collective_counts`` holds
-    the collectives of those 2K exchanges: one all-reduce each on a flat
-    graph, the graph's own counts (``collective_counts``) with a topology."""
-    if topology is not None:
-        return dict(name=f"power_method.block_collective_rounds[K={num_iters},k={k},"
-                         f"topology={topology.spec}]",
-                    exchanges=2 * num_iters,
-                    collective_counts=topology.collective_counts(2 * num_iters))
-    return dict(name=f"power_method.block_collective_rounds[K={num_iters},k={k}]",
-                exchanges=2 * num_iters, collective_counts={"all-reduce": 2.0 * num_iters})
 
 
 def orthonormalize_block(b: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -51,8 +51,16 @@ package's), as the reference's ``fit_serial`` and ``fit`` do:
 
 A gossip run's checkpoint holds node 0's iterate; every node resumes from
 it. The run owns its checkpoint directory from the resume point: steps
-after it are removed. Telemetry comes with a later slice; a ``DFWConfig``
-that asks for it is rejected.
+after it are removed.
+
+``DFWConfig(telemetry=obs.Telemetry())`` records the run (a ``run.start``
+event, the engine's spans and samples, the checkpoint store's writes,
+``checkpoint.join`` and ``engine.final_loss``; with the handle's
+``profiler_dir``, a ``torch.profiler`` trace of the fit) without changing
+a bit of it; export with ``telemetry.write_jsonl(path)`` /
+``write_chrome_trace(path)`` after the run. In ``fit`` the handle records
+the worker of the process that holds it: a handle cannot cross
+``run_workers``' spawn, so each worker builds its own.
 """
 from __future__ import annotations
 
@@ -78,6 +86,7 @@ from ..core.frank_wolfe import EpochAux
 from ..core.power_method import sphere_vector
 from ..kernels.mc_matvec import ops as mc_ops
 from ..kernels.power_matvec import ops as pm_ops
+from ..obs import Telemetry
 from ..specs import NotYetPorted, parse_comm, parse_solver, validate
 
 PyTree = Any
@@ -104,11 +113,18 @@ class DFWConfig:
     "scan" (one dispatch a segment, a CUDA graph replay on the card) or
     "legacy" (one an epoch, four blocking pulls each, the equivalence
     oracle); see ``core/engine.py``. Every field of the second group
-    belongs to a path not yet ported (Pallas, telemetry) and must keep its
-    default; anything else raises ``NotYetPorted`` when the config is
+    belongs to the Pallas path, which has no counterpart here, and must keep
+    its default; anything else raises ``NotYetPorted`` when the config is
     built. The port has no ``kernelize`` switch: the run always goes
     through ``KernelizedTask``, whose ops pick the kernel or the plain
     version by the tensors' device.
+
+    ``telemetry`` (an ``obs.Telemetry``; None: the inert no-op) records the
+    run (the module doc). A handle belongs to one process: it holds a lock
+    and cannot be pickled into ``run_workers``' workers, so each worker of a
+    multi-worker ``fit`` builds its own (``dataclasses.replace(cfg,
+    telemetry=Telemetry())`` inside the worker), which records that
+    worker's run, as the reference's handle records its one process.
     """
 
     mu: float
@@ -132,10 +148,10 @@ class DFWConfig:
     resume_from: Optional[str] = None
     resume_step: Optional[int] = None
     engine: str = "scan"
-    # --- not yet ported: must keep these defaults ---
+    telemetry: Optional[Any] = None  # obs.Telemetry (None: the no-op)
+    # --- the Pallas path, not ported: must keep these defaults ---
     use_pallas: Optional[bool] = None
     interpret: bool = False
-    telemetry: Optional[Any] = None
 
     def __post_init__(self):
         validate(solver=self.solver, comm=self.comm, topology=self.topology)
@@ -157,7 +173,6 @@ class DFWConfig:
 _UNPORTED = {
     "use_pallas": "Pallas dispatch (the port picks the kernel by tensor device)",
     "interpret": "Pallas interpret mode",
-    "telemetry": "telemetry",
 }
 
 
@@ -376,6 +391,7 @@ def _make_checkpointer(task, cfg: DFWConfig, comm_spec: str, num_workers: int = 
         cfg.checkpoint_dir,
         save_every=cfg.checkpoint_every,
         keep_last=cfg.checkpoint_keep,
+        telemetry=cfg.telemetry,
         extra=ckpt.run_extra(
             task, num_workers=num_workers, comm=parse_comm(comm_spec).spec,
             num_epochs=cfg.num_epochs,
@@ -580,6 +596,12 @@ def _run(task, x, y, *, cfg: DFWConfig, key, noise, callback, dev, group, masks,
     The graph comes from ``make_topology`` (with a group, every worker
     builds hier's subgroups here in the same order); a flat graph's bare
     reducer goes to the engine."""
+    tel = cfg.telemetry if cfg.telemetry is not None else Telemetry.noop()
+    tel.event("run.start", "run", driver="launch.dfw.fit_serial" if group is None else
+              "launch.dfw.fit", task=type(task).__name__, d=int(task.d), m=int(task.m),
+              num_workers=num_workers, rank=0 if group is None else group.rank, comm=cfg.comm,
+              topology=cfg.topology, schedule=cfg.schedule, num_epochs=cfg.num_epochs,
+              solver=cfg.solver, engine=cfg.engine)
     ktask = kernelize(task)
     topo = make_topology(cfg.topology, num_workers=num_workers, comm=cfg.comm,
                          rounds=cfg.gossip_rounds, group=group)
@@ -603,31 +625,34 @@ def _run(task, x, y, *, cfg: DFWConfig, key, noise, callback, dev, group, masks,
         if start.probe is not None:
             probe = start.probe
     before = None if group is None else group.tally.snapshot()
-    res = frank_wolfe.fit(
-        ktask,
-        state,
-        mu=cfg.mu,
-        num_epochs=cfg.num_epochs,
-        key=key,
-        schedule=cfg.schedule,
-        step_size=cfg.step_size,
-        callback=callback,
-        reducer=comm_obj,
-        max_rank=engine.resolve_max_rank(cfg.max_rank, cfg.num_epochs, k_block or 1),
-        gap_tol=cfg.gap_tol,
-        block_epochs=cfg.block_epochs,
-        solver=cfg.solver,
-        noise=noise,
-        checkpointer=checkpointer,
-        device=dev,
-        group=group,
-        masks=masks,
-        probe=probe,
-        mode=cfg.engine,
-        **resumed,
-    )
+    with tel.profiler():
+        res = frank_wolfe.fit(
+            ktask,
+            state,
+            mu=cfg.mu,
+            num_epochs=cfg.num_epochs,
+            key=key,
+            schedule=cfg.schedule,
+            step_size=cfg.step_size,
+            callback=callback,
+            reducer=comm_obj,
+            max_rank=engine.resolve_max_rank(cfg.max_rank, cfg.num_epochs, k_block or 1),
+            gap_tol=cfg.gap_tol,
+            block_epochs=cfg.block_epochs,
+            solver=cfg.solver,
+            noise=noise,
+            checkpointer=checkpointer,
+            device=dev,
+            group=group,
+            masks=masks,
+            probe=probe,
+            mode=cfg.engine,
+            telemetry=tel,
+            **resumed,
+        )
     if checkpointer is not None:
-        checkpointer.wait()
+        with tel.span("checkpoint.join", "checkpoint"):
+            checkpointer.wait()
     if group is not None:
         after = group.tally.snapshot()
         res.stats["all_reduces"] = after["calls"]["all_reduce"] - before["calls"]["all_reduce"]

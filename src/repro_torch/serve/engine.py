@@ -36,6 +36,22 @@ fresh tensor, so a later dispatch cannot overwrite them;
 on CUDA unless it is given ``device="cpu"`` (the plain PyTorch version,
 uncaptured, for tests). On the first load ``verify_factor_kernels`` holds
 the kernel route to the dense product.
+
+Each bucket keeps the op log (``analysis.recorder``) of its scorer: on CUDA
+the capture, which every replay runs; on the CPU one run of the scorer on
+the bucket's fresh (zero) slots when the bucket is made.
+``check_contract()`` holds every bucket's log to ``contract()``'s
+``forbid_shapes`` (no d x m or m x d tensor) and ``stats`` to its caps.
+
+``ServeConfig(telemetry=obs.Telemetry())`` records the reference's events:
+``serve.compile`` (a bucket's preparation: its capture on CUDA),
+``serve.executable`` (what the bucket's op log shows, with
+``telemetry.wants_hlo``), ``serve.load``, ``serve.hot_swap`` (every load
+after the first), and for each batch a ``serve.dispatch`` span from
+``score_async`` to the end of its ``block()``, with the ``serve.latency_us``
+histogram, stamped on the host. ``stats`` is a view of the registry's
+``serve.*`` counters (the handle's; a private registry when telemetry is
+off, so engines never share counters).
 """
 from __future__ import annotations
 
@@ -52,8 +68,9 @@ from ..checkpoint import dfw as ckpt
 from ..checkpoint.store import CheckpointStore
 from ..core import cuda_graph, low_rank
 from ..kernels.factor_matvec import ops as fm_ops
+from ..analysis.recorder import OpRecorder
 from ..kernels.factor_matvec import ref as fm_ref
-from ..specs import NotYetPorted
+from ..obs import MetricsRegistry, Telemetry
 
 ModelSource = Union[low_rank.FactoredIterate, Dict[str, Any], CheckpointStore, str, Path]
 
@@ -68,8 +85,9 @@ class ServeConfig:
     ``x @ W^T`` (m -> d). ``verify_kernels`` runs ``verify_factor_kernels``
     at the first load. The reference's ``use_pallas``/``interpret``/
     ``block_o`` have no counterpart (the tensors' device picks kernel or
-    plain version, and the kernel has no out-axis tile); ``telemetry`` is
-    not yet ported and must stay None.
+    plain version, and the kernel has no out-axis tile). ``telemetry`` (an
+    ``obs.Telemetry``; None: the inert no-op) records the engine (the
+    module doc).
     """
 
     max_batch: int = 64
@@ -83,8 +101,6 @@ class ServeConfig:
             raise ValueError(f"max_batch={self.max_batch}: must be >= 1")
         if self.rank_block < 1:
             raise ValueError(f"rank_block={self.rank_block}: must be >= 1")
-        if self.telemetry is not None:
-            raise NotYetPorted("ServeConfig.telemetry: telemetry is not yet ported to PyTorch")
 
 
 class Model:
@@ -112,22 +128,35 @@ class PendingScores:
     ``raw`` is the (max_batch, n_out) result; ``block()`` copies the
     caller's ``n`` rows to the host once (cached) and releases the model
     the batch was scored against. ``version``/``step`` name that model.
+    With an enabled ``telemetry`` the first ``block()`` records the batch's
+    ``serve.dispatch`` span from ``t0_us`` and its latency in ``latency``
+    (the ``serve.latency_us`` histogram).
     """
 
-    __slots__ = ("raw", "n", "version", "step", "_model", "_host")
+    __slots__ = ("raw", "n", "version", "step", "_model", "_host", "_tel", "_t0", "_hist")
 
-    def __init__(self, raw: torch.Tensor, n: int, model: Model):
+    def __init__(self, raw: torch.Tensor, n: int, model: Model,
+                 telemetry: Optional[Telemetry] = None, t0_us: float = 0.0, latency=None):
         self.raw = raw
         self.n = n
         self.version = model.version
         self.step = model.step
         self._model: Optional[Model] = model
         self._host: Optional[np.ndarray] = None
+        self._tel = telemetry
+        self._t0 = t0_us
+        self._hist = latency
 
     def block(self) -> np.ndarray:
         if self._host is None:
             self._host = self.raw[: self.n].cpu().numpy()
             self._model = None
+            tel = self._tel
+            if tel is not None and tel.enabled:
+                dur = tel.now_us() - self._t0
+                tel.complete("serve.dispatch", "serve", self._t0, dur, n=self.n,
+                             version=self.version)
+                self._hist.observe(dur)
         return self._host
 
 
@@ -136,15 +165,16 @@ class _Bucket:
     n_in), ``s`` (capacity,) and ``b`` (capacity, n_out) that ``load``
     copies a model into (u, s * alpha, v; v and u when transposed), and on
     CUDA the captured ``factor_matvec`` on them and the engine's static
-    input, which writes ``out``."""
+    input, which writes ``out``; ``log`` is the scorer's op log (the
+    capture's on CUDA)."""
 
-    __slots__ = ("a", "s", "b", "graph", "out")
+    __slots__ = ("a", "s", "b", "graph", "out", "log")
 
     def __init__(self, capacity: int, n_in: int, n_out: int, device: torch.device):
         self.a = torch.zeros((capacity, n_in), dtype=torch.float32, device=device)
         self.s = torch.zeros((capacity,), dtype=torch.float32, device=device)
         self.b = torch.zeros((capacity, n_out), dtype=torch.float32, device=device)
-        self.graph = self.out = None
+        self.graph = self.out = self.log = None
 
 
 def rank_bucket(live_rank: int, rank_block: int) -> int:
@@ -185,9 +215,11 @@ class ServingEngine:
     ``transpose``) and return ``n_out`` scores each. ``stats`` has the
     reference's counters: ``compilations`` (rank buckets prepared: on CUDA
     the scorers captured), ``dispatches``, ``loads`` and ``requests``
-    (caller rows, padding excluded). ``timings`` holds each capture's host
-    ms (``capture_ms``) and the bytes of graph pool it reserved
-    (``pool_bytes``), in the order the buckets were prepared.
+    (caller rows, padding excluded), read from the ``serve.*`` counters of
+    the telemetry's registry (a private one when telemetry is off).
+    ``timings`` holds each capture's host ms (``capture_ms``) and the bytes
+    of graph pool it reserved (``pool_bytes``), in the order the buckets
+    were prepared.
     """
 
     def __init__(self, d: int, m: int, cfg: ServeConfig = ServeConfig(), *,
@@ -200,7 +232,13 @@ class ServingEngine:
         self._model: Optional[Model] = None
         self._buckets: Dict[int, _Bucket] = {}
         self._verified = not cfg.verify_kernels
-        self._stats = dict.fromkeys(("compilations", "dispatches", "loads", "requests"), 0)
+        self.telemetry = cfg.telemetry if cfg.telemetry is not None else Telemetry.noop()
+        # the disabled handle's registry is the shared no-op one: counting
+        # there would merge every engine's counters, so each gets its own
+        reg = self.telemetry.registry if self.telemetry.enabled else MetricsRegistry()
+        self._counters = {k: reg.counter(f"serve.{k}")
+                          for k in ("compilations", "dispatches", "loads", "requests")}
+        self._latency = reg.histogram("serve.latency_us")
         self.timings: Dict[str, list] = {"capture_ms": [], "pool_bytes": []}
         # the static padded input every bucket's scorer reads
         self._x = torch.zeros((cfg.max_batch, self.n_in), dtype=torch.float32,
@@ -209,24 +247,43 @@ class ServingEngine:
 
     @property
     def stats(self) -> Dict[str, int]:
-        return dict(self._stats)
+        """The registry's counters, as ints (the reference's four keys)."""
+        return {k: int(c.value) for k, c in self._counters.items()}
 
     def _prepare(self, capacity: int) -> _Bucket:
         """The rank bucket of ``capacity``, made the first time a model lands
-        in it: its slots and, on CUDA, its captured scorer."""
+        in it: its slots, its scorer's op log and, on CUDA, its captured
+        scorer."""
         bucket = self._buckets.get(capacity)
         if bucket is None:
+            tel = self.telemetry
+            t0 = tel.now_us()
             bucket = _Bucket(capacity, self.n_in, self.n_out, self.device)
+            rec = OpRecorder()
             if self.device.type == "cuda":
-                self._capture(bucket)
+                self._capture(bucket, rec)
+            else:
+                with rec:
+                    fm_ops.factor_matvec(self._x, bucket.a, bucket.s, bucket.b)
+            bucket.log = rec.analyze()
             self._buckets[capacity] = bucket
-            self._stats["compilations"] += 1
+            self._counters["compilations"].inc()
+            tel.complete("serve.compile", "serve", t0, tel.now_us() - t0, capacity=capacity,
+                         max_batch=self.cfg.max_batch,
+                         capture_ms=self.timings["capture_ms"][-1] if bucket.graph else None)
+            if tel.wants_hlo:
+                tel.event("serve.executable", "serve", capacity=capacity,
+                          captured=bucket.graph is not None, ops=bucket.log["ops"],
+                          op_count=bucket.log["op_count"],
+                          largest_output=max((int(np.prod(s)) for s in bucket.log["shapes"]),
+                                             default=0))
         return bucket
 
-    def _capture(self, bucket: _Bucket) -> None:
+    def _capture(self, bucket: _Bucket, rec: OpRecorder) -> None:
         """Capture ``factor_matvec`` on the bucket's slots and the static
-        input into one CUDA graph, after one launch outside the capture (the
-        kernel's attributes are set on its first launch at a shape)."""
+        input into one CUDA graph (under ``rec``, which logs the capture),
+        after one launch outside the capture (the kernel's attributes are
+        set on its first launch at a shape)."""
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
             self._pool = torch.cuda.graph_pool_handle()
@@ -238,8 +295,9 @@ class ServingEngine:
         with torch.cuda.stream(self._stream):
             score()
         out = []
-        graph, capture_ms, pool_bytes = cuda_graph.capture(
-            lambda: out.append(score()), stream=self._stream, pool=self._pool)
+        with rec:
+            graph, capture_ms, pool_bytes = cuda_graph.capture(
+                lambda: out.append(score()), stream=self._stream, pool=self._pool)
         bucket.graph, bucket.out = graph, out[0]
         self.timings["capture_ms"].append(capture_ms)
         self.timings["pool_bytes"].append(pool_bytes)
@@ -252,6 +310,8 @@ class ServingEngine:
         is prepared and they are copied into its slots on the serving stream
         before the model reference flips; batches already dispatched keep
         the old factors (the stream runs in order)."""
+        tel = self.telemetry
+        t0 = tel.now_us()
         packed, ck_step, extra = _as_packed(source, step)
         if extra:
             got = (int(extra.get("d", -1)), int(extra.get("m", -1)))
@@ -280,7 +340,12 @@ class ServingEngine:
         bucket.s.copy_(model.s_alpha)
         bucket.b.copy_(b)
         self._model = model
-        self._stats["loads"] += 1
+        self._counters["loads"].inc()
+        tel.complete("serve.load", "serve", t0, tel.now_us() - t0, version=model.version,
+                     step=model.step, live_rank=live, capacity=capacity)
+        if model.version > 0:
+            tel.event("serve.hot_swap", "serve", version=model.version, step=model.step,
+                      live_rank=live, capacity=capacity)
         return model
 
     @classmethod
@@ -332,15 +397,16 @@ class ServingEngine:
         staged = pad.numpy()
         staged[:b] = xh
         staged[b:] = 0.0
+        t0 = self.telemetry.now_us()
         self._x.copy_(pad, non_blocking=cuda)
         if bucket.graph is not None:
             bucket.graph.replay()
             raw = bucket.out.clone()
         else:
             raw = fm_ops.factor_matvec(self._x, bucket.a, bucket.s, bucket.b)
-        self._stats["dispatches"] += 1
-        self._stats["requests"] += b
-        return PendingScores(raw, b, model)
+        self._counters["dispatches"].inc()
+        self._counters["requests"].inc(b)
+        return PendingScores(raw, b, model, self.telemetry, t0, self._latency)
 
     def score(self, x) -> np.ndarray:
         """``score_async(x).block()``."""
@@ -349,19 +415,22 @@ class ServingEngine:
     # ----------------------------------------------------------- contract
     def contract(self, *, max_compilations: Optional[int] = None) -> Contract:
         """The serving layer's declared invariant (``analysis.contracts``):
-        the request path makes no implicit device-to-host transfer
-        (``score_async`` under ``Contract.guard()`` raises on one);
-        ``max_compilations`` optionally pins the no-recapture guarantee,
-        one scorer a rank bucket. The reference's ``forbid_shapes`` clause
-        (no compiled scorer makes a d x m intermediate) reads compiled HLO
-        and has no counterpart here yet."""
+        no scorer makes a d x m (or m x d) tensor, so scoring stays factored,
+        O(rank (d + m)) a request; the request path makes no implicit
+        device-to-host transfer (``score_async`` under ``Contract.guard()``
+        raises on one); ``max_compilations`` optionally pins the
+        no-recapture guarantee, one scorer a rank bucket."""
         return Contract(name=f"serve.never_materialize[{self.d}x{self.m}]",
+                        forbid_shapes=((self.d, self.m), (self.m, self.d)),
                         max_compilations=max_compilations, no_host_transfers=True)
 
     def check_contract(self, contract: Optional[Contract] = None) -> Contract:
-        """Assert ``contract`` (default: ``self.contract()``) against the
-        engine's counters. Raises ``ContractViolation`` on failure."""
+        """Assert ``contract`` (default: ``self.contract()``) against every
+        bucket's scorer log (its op-log clauses) and the engine's counters.
+        Raises ``ContractViolation`` naming the op or counter on failure."""
         c = contract if contract is not None else self.contract()
+        for bucket in self._buckets.values():
+            c.check_ops(bucket.log)
         c.check_stats(self.stats)
         return c
 

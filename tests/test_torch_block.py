@@ -249,7 +249,8 @@ def test_block_power_iterations_match_jax(comm, adapt):
     assert res.iters < K if adapt else res.iters == K
     if reducer is not None:
         assert reducer.exchanges == 2 * res.iters  # block_collective_rounds_contract
-    assert power_method.block_collective_rounds_contract(K, k)["exchanges"] == 2 * K
+    assert power_method.block_collective_rounds_contract(K, k).collective_counts == {
+        "all-reduce": 2.0 * K}
     for got, want in ((res.u, jres.u), (res.v, jres.v), (res.sigma, jres.sigma),
                       (res.probe, jres.probe)):
         _close(got, want, rtol=1e-4, atol_rel=1e-4)

@@ -349,7 +349,7 @@ def test_payload_refuses_unported_carry_parts():
 
 
 def test_dfwconfig_takes_the_checkpoint_fields(tmp_path):
-    """(telemetry: still NotYetPorted, tests/test_torch_core.py; resume_*:
+    """(telemetry: tests/test_torch_obs.py; resume_*:
     tests/test_torch_resume.py)"""
     cfg = dfw.DFWConfig(mu=1.0, num_epochs=2, checkpoint_dir=str(tmp_path),
                         checkpoint_every=3, checkpoint_keep=None)

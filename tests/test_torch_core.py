@@ -267,9 +267,10 @@ def test_valid_but_unported_specs_raise(spec):
 def test_config_rejects_unported_fields(field, value):
     """Every field not yet ported raises NotYetPorted. ``gossip_rounds`` is
     ported with the gossip graph, ``resume_from``/``resume_step`` with
-    the resume path and ``engine`` with the legacy engine (each raised here
-    before): the config takes them, as the reference's does; an engine that
-    is neither "scan" nor "legacy" is a ValueError."""
+    the resume path, ``engine`` with the legacy engine and ``telemetry``
+    with ``repro_torch.obs`` (each raised here before): the config takes
+    them, as the reference's does; an engine that is neither "scan" nor
+    "legacy" is a ValueError."""
     assert field in {f.name for f in dataclasses.fields(jdfw.DFWConfig)}
     if field == "gossip_rounds":
         cfg = dfw.DFWConfig(mu=1.0, num_epochs=3, topology="ring", **{field: value})
@@ -283,7 +284,7 @@ def test_config_rejects_unported_fields(field, value):
         with pytest.raises(ValueError, match="engine"):
             dfw.DFWConfig(mu=1.0, num_epochs=3, engine="bogus")
         return
-    if field in ("resume_from", "resume_step"):
+    if field in ("resume_from", "resume_step", "telemetry"):
         assert getattr(dfw.DFWConfig(mu=1.0, num_epochs=3, **{field: value}), field) == value
         assert getattr(jdfw.DFWConfig(mu=1.0, num_epochs=3, **{field: value}), field) == value
         return

@@ -75,5 +75,6 @@ def test_scan_sees_the_whole_package():
     names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in FILES[:-1]}
     assert {"kernels/flash_attention/ops.py", "models/lm.py", "models/layers.py",
             "configs/__init__.py", "configs/qwen2_1_5b.py", "launch/steps.py",
-            "launch/serve.py", "core/engine.py"} <= names
+            "launch/serve.py", "core/engine.py", "obs/__init__.py", "obs/registry.py",
+            "obs/telemetry.py", "analysis/recorder.py", "analysis/contracts.py"} <= names
     assert FILES[-1].name == "chip_smoke.py"

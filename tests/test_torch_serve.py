@@ -381,8 +381,16 @@ def test_engine_input_validation():
 
 
 def test_serve_config_rejects_unported_telemetry():
-    with pytest.raises(NotYetPorted, match="telemetry"):
-        pserve.ServeConfig(telemetry=object())
+    """ServeConfig.telemetry raised NotYetPorted until the port had its
+    ``obs``; it now takes a handle, which the engine records into
+    (tests/test_torch_obs.py holds what it records)."""
+    from repro_torch.obs import Telemetry
+
+    tel = Telemetry()
+    eng = pserve.ServingEngine(D, M, pserve.ServeConfig(max_batch=4, verify_kernels=False,
+                                                        telemetry=tel), device="cpu")
+    assert eng.telemetry is tel
+    assert "serve.compilations" in tel.registry.snapshot()["counters"]
 
 
 def test_engine_needs_cuda_unless_cpu_is_given():
