@@ -303,6 +303,32 @@ Phases, each fatal on failure (exit code != 0, no result line):
    ``analysis.contracts.verify_declared()`` with its default device, the
    card: the engine's and the scorer's contracts read from their captures.
    About 45 s of command time.
+29. The paper's head (``core.dfw_head``). (a) ``train_head`` at the
+   ImageNet shapes (X n x 2048 standard normal, planted rank-10 labels with
+   5% noise over m = 1000, made on the card from --seed; 10 epochs const:2,
+   mu 10): ``fit_serial``'s history, final loss and iterate bits, final
+   loss below n ln m, the device's launches of matvec, rmatvec and
+   rank1_update what the path implies; ms an epoch (a const:2
+   ``fit_serial`` in segments of 5, the second's). (b) ``sharded_fit`` over
+   one NCCL worker on (a)'s data and draws: (a)'s bits and launches; at n
+   cut to 16,384 (phase 26's cut) with a ``RunCheckpointer``, 12 epochs in
+   segments of 4: steps [4, 8, 12], a resume from 8 the uninterrupted
+   run's bits, a resume from 12 returns it and launches nothing. (e)
+   PowerSGD (``optim.compression``) at rank 4 on a (1536, 8960) gradient
+   (qwen2-1.5b's MLP), 5 steps: the CPU's result on the same draws within
+   rtol 1e-4 (atol 1e-4 of max), over one NCCL worker the serial bits; ms
+   a step, wire bytes against dense. (c) ``top_k_error`` of (a)'s head over
+   all n rows, one ``factor_matvec`` launch a chunk of 65,536 rows: every
+   row whose hit differs from the plain chain's on the same chunks ties at
+   its 5th logit, the error below W = 0's (1 - 5/1000); its wall ms, and
+   the kernel at the chunk operand timed beside its plain version and
+   einsum (a row of the kernels line). (d) ``extract_features`` from
+   qwen2-1.5b at full width and depth (bf16, weights drawn on the card) on
+   8 batches of 4 x 2048 tokens: 65,536 x 1536 f32 features, 224
+   flash_attention launches all on wgmma; ``train_head`` on labels from a
+   planted rank-10 head over 1000 classes: the loss falls, the top-5 error
+   below chance; then rwkv6-7b on one batch of 4 x 1024 tokens (128
+   wkv6_chunk launches). About 10 s of command time.
 
 The launches each fit phase checks (and the kernels line sums) are the
 device's: ``counting`` opens ``kernels.Executed``, which adds a counter on
@@ -4917,6 +4943,312 @@ def telemetry_phase(torch, np, kernels, dfw, comm, tasks, frank_wolfe, engine, s
     return report, total, routed[0]
 
 
+HEAD_EPOCHS = 10  # phase 29's head fits
+HEAD_CKPT_ROWS = 16_384  # phase 26's cut: a full-n logistic step holds X and Z (about 15.6 GB)
+FEATURE_BATCHES, FEATURE_SHAPE = 8, (4, 2048)  # qwen2-1.5b: 65,536 feature rows
+SSM_FEATURE_SHAPE = (4, 1024)  # rwkv6-7b: one batch
+PSGD_SHAPE, PSGD_RANK, PSGD_STEPS = (1536, 8960), 4, 5  # qwen2-1.5b's MLP gradient
+
+
+def head_summary(low_rank, res):
+    return dict(history=res.history, final_loss=res.final_loss,
+                packed=low_rank.pack_live(res.iterate))
+
+
+def same_head(np, a, b) -> bool:
+    """The same history, final loss and iterate, bit for bit."""
+    return (a["history"] == b["history"] and a["final_loss"] == b["final_loss"]
+            and all(np.array_equal(a["packed"][k], b["packed"][k]) for k in a["packed"]))
+
+
+def top_k_rows(torch, fm, it, x, y, k, rows, plain: bool):
+    """Per-row top-k hits of the head on x and each row's gap between its
+    k-th and (k+1)-th logit, chunk by chunk: from the kernel
+    (``factor_matvec``), or with ``plain`` from its plain rank-by-rank chain
+    on the same chunks, and then also each row's largest |kernel - plain|
+    logit."""
+    hits, gaps, parts = [], [], []
+    for lo in range(0, x.shape[0], rows):
+        xc = x[lo:lo + rows]
+        kern = fm.factor_matvec(xc, it.u, it.s, it.v, alpha=it.alpha)
+        logits = fm.ref.factor_matvec(xc, it.u, it.s * it.alpha, it.v) if plain else kern
+        top = torch.topk(logits, k + 1, dim=1).values
+        gaps.append(top[:, k - 1] - top[:, k])
+        hits.append((torch.topk(logits, k, dim=1).indices == y[lo:lo + rows, None]).any(dim=1))
+        if plain:
+            parts.append(torch.max(torch.abs(kern - logits), dim=1).values)
+    return torch.cat(hits), torch.cat(gaps), torch.cat(parts) if parts else None
+
+
+def head_phase(torch, np, kernels, dfw, comm, tasks, low_rank, checkpoint, dfw_head,
+               compression, lm, get_config, fm, dev, args, peaks):
+    """Phase 29 (see the module doc). Returns (report, summed launches of its
+    main-path runs, its kernel rows: row 8's top_k_error chunk)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    report, rows_out = {}, []
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(kernels.launches(), 0)
+    bw, flops = peaks[:2]
+
+    def add(launches):
+        for k_, v_ in launches.items():
+            total[k_] += v_
+
+    def sync_wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # (a) train_head at the ImageNet shapes, against fit_serial
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    n = args.rows
+    X = torch.randn(n, PAPER_D, generator=gen, device=dev)
+    labels = planted_labels(torch, gen, dev, X)
+    kw = dict(mu=10.0, num_epochs=HEAD_EPOCHS, schedule="const:2")
+    with counting(kernels) as ran:
+        head, wall = sync_wall(lambda: dfw_head.train_head(X, labels, PAPER_M, key=args.seed,
+                                                           device=dev, **kw))
+    add(ran.launches)
+    want = expected_launches("logistic", head.history["k"], False)
+    check(ran.launches == want, f"(a) train_head: launches {ran.launches} != expected {want}")
+    head_s = head_summary(low_rank, head)
+    bound = n * math.log(PAPER_M)
+    check(head.final_loss < bound, f"(a) train_head: final loss {head.final_loss} >= n ln m")
+    ser = dfw.fit_serial(tasks.MultinomialLogistic(PAPER_D, PAPER_M), X, labels, key=args.seed,
+                         device=dev, cfg=dfw.DFWConfig(verify_kernels=False, **kw))
+    check(same_head(np, head_s, head_summary(low_rank, ser)),
+          "(a) train_head is not fit_serial, bit for bit")
+    del ser
+    torch.cuda.empty_cache()
+    seg_log = []
+    timed = dfw.fit_serial(tasks.MultinomialLogistic(PAPER_D, PAPER_M), X, labels, key=args.seed,
+                           device=dev, callback=segment_timer(torch, seg_log),
+                           cfg=dfw.DFWConfig(verify_kernels=False, block_epochs=5, **kw))
+    ms_epoch = seg_log[-1]["ms_per_epoch"]
+    del timed
+    torch.cuda.empty_cache()
+    report["a"] = dict(wall_s=wall, ms_per_epoch=ms_epoch, loss=head.history["loss"],
+                       final_loss=head.final_loss, launches=ran.launches)
+    print(f"(a) train_head, logistic head at n={n}, d={PAPER_D}, m={PAPER_M}, "
+          f"{HEAD_EPOCHS} epochs const:2: fit_serial's bits; {wall:.3f} s whole, "
+          f"{ms_epoch:.3f} ms an epoch (second segment of 5); final loss "
+          f"{head.final_loss:.6g} < n ln m = {bound:.6g}; launches {ran.launches}")
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=build, prefix="head_"))
+    with tempfile.TemporaryDirectory() as store_dir:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(store_dir, "store"), 1),
+                                rank=0, world_size=1, device_id=dev)
+        try:
+            group = comm.WorkerGroup()
+            # (b) sharded_fit over one NCCL worker; checkpoints and resume at n cut
+            with counting(kernels) as ran:
+                res = dfw_head.sharded_fit(group, X, labels, PAPER_M, key=args.seed, device=dev,
+                                           **kw)
+            add(ran.launches)
+            check(same_head(np, head_summary(low_rank, res), head_s),
+                  "(b) sharded_fit over one NCCL worker is not train_head, bit for bit")
+            check(ran.launches == want, f"(b) sharded_fit launched {ran.launches}, not {want}")
+            del res
+            torch.cuda.empty_cache()
+            xs, ys = X[:HEAD_CKPT_ROWS], labels[:HEAD_CKPT_ROWS]
+            ckw = dict(mu=10.0, num_epochs=12, schedule="const:2", block_epochs=4)
+            task = tasks.MultinomialLogistic(PAPER_D, PAPER_M)
+            ck = checkpoint.RunCheckpointer(tmp / "ck", keep_last=None, extra=checkpoint.run_extra(
+                task, num_workers=1, comm="dense", num_epochs=12, schedule="const:2", mu=10.0,
+                step_size="default"))
+            full = head_summary(low_rank, dfw_head.sharded_fit(
+                group, xs, ys, PAPER_M, key=args.seed, checkpointer=ck, device=dev, **ckw))
+            check(ck.store.steps() == [4, 8, 12], f"(b) checkpoint steps {ck.store.steps()}")
+            snap = checkpoint.restore_run(tmp / "ck", task=task, step=8)
+            with counting(kernels) as ran8:
+                res8 = head_summary(low_rank, dfw_head.sharded_fit(
+                    group, xs, ys, PAPER_M, key=args.seed, resume=snap, device=dev, **ckw))
+            check(same_head(np, res8, full), "(b) the resume from step 8 is not the full run")
+            snap = checkpoint.restore_run(tmp / "ck", task=task, step=12)
+            with counting(kernels) as ran12:
+                res12 = head_summary(low_rank, dfw_head.sharded_fit(
+                    group, xs, ys, PAPER_M, key=args.seed, resume=snap, device=dev, **ckw))
+            check(same_head(np, res12, full), "(b) the resume from step 12 is not the full run")
+            check(not any(ran12.launches.values()),
+                  f"(b) the resume from step 12 launched {ran12.launches}")
+            report["b"] = dict(steps=ck.store.steps(), step_bytes=step_bytes(tmp / "ck", 8),
+                               resume8_launches=ran8.launches)
+            print(f"(b) sharded_fit over one NCCL worker = train_head bit for bit; at n = "
+                  f"{HEAD_CKPT_ROWS} steps {ck.store.steps()} ({report['b']['step_bytes']} bytes "
+                  f"a step), the resume from 8 the full run's bits, from 12 nothing launched")
+
+            # (e) PowerSGD on qwen2-1.5b's MLP gradient shape
+            pgen = torch.Generator(device=dev)
+            pgen.manual_seed(args.seed)
+            grads = [{"w": torch.randn(PSGD_SHAPE, generator=pgen, device=dev)}
+                     for _ in range(PSGD_STEPS)]
+            st0 = compression.init(grads[0], rank=PSGD_RANK, min_size=4096, gen=pgen)
+            st_card = st_nccl = st0
+            st_cpu = compression.PowerSGDState(q={"w": st0.q["w"].cpu()},
+                                               error={"w": st0.error["w"].cpu()})
+            errs, step_ms = [], []
+            for g in grads:
+                (out, st_card), wall = sync_wall(
+                    lambda g=g, st=st_card: compression.compress_and_sync(g, st, min_size=4096))
+                step_ms.append(1e3 * wall)
+                out_n, st_nccl = compression.compress_and_sync(g, st_nccl, min_size=4096,
+                                                               group=group)
+                out_c, st_cpu = compression.compress_and_sync({"w": g["w"].cpu()}, st_cpu,
+                                                              min_size=4096)
+                check(torch.equal(out_n["w"], out["w"]) and torch.equal(st_nccl.q["w"],
+                                                                        st_card.q["w"]),
+                      "(e) PowerSGD over one NCCL worker is not the serial run, bit for bit")
+                got, want_c = out["w"].cpu(), out_c["w"]
+                # rtol 1e-4 with an atol of 1e-4 of max|CPU|
+                err = float(torch.max(torch.abs(got - want_c) / (
+                    torch.abs(want_c) + torch.max(torch.abs(want_c)))))
+                errs.append(err)
+                check(err <= 1e-4, f"(e) PowerSGD on the card departs from the CPU by {err:.2e}")
+            wb = compression.wire_bytes(grads[0], rank=PSGD_RANK, min_size=4096)
+            report["e"] = dict(ms_per_step=step_ms, max_err=errs, wire_bytes=wb)
+            print(f"(e) PowerSGD rank {PSGD_RANK} on {PSGD_SHAPE}, {PSGD_STEPS} steps: the CPU's "
+                  f"within {max(errs):.2e} (rtol 1e-4 with atol 1e-4 of max); over one NCCL worker "
+                  f"the serial bits; ms a step {', '.join(f'{v:.3f}' for v in step_ms)}; wire "
+                  f"bytes {wb['compressed']} against {wb['dense']} dense "
+                  f"({wb['dense'] / wb['compressed']:.1f}x)")
+            del grads, st0, st_card, st_nccl, st_cpu, out, out_n, out_c
+        finally:
+            comm.destroy_groups()
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (c) top_k_error over every row, factor_matvec in row chunks
+    it = head.iterate
+    rows = low_rank.RIGHT_MULTIPLY_ROWS
+    with counting(kernels) as ran:
+        err5, wall = sync_wall(lambda: dfw_head.top_k_error(it, X, labels, k=5))
+    add(ran.launches)
+    chunks = -(-n // rows)
+    check(ran.launches["factor_matvec"] == chunks,
+          f"(c) top_k_error launched factor_matvec {ran.launches['factor_matvec']} times, "
+          f"not once a chunk ({chunks})")
+    hits_k, _, _ = top_k_rows(torch, fm, it, X, labels, 5, rows, plain=False)
+    hits_p, gaps_p, parts = top_k_rows(torch, fm, it, X, labels, 5, rows, plain=True)
+    err_k = float(1.0 - hits_k.sum().to(torch.float32) / n)
+    check(err_k == err5, f"(c) top_k_error {err5} is not its own chunks' hits' {err_k}")
+    differ = hits_k != hits_p
+    untied = differ & (gaps_p.abs() > 2 * parts)
+    check(not bool(untied.any()),
+          f"(c) {int(untied.sum())} rows' hits differ from the plain chain's without a tie")
+    err_plain = float(1.0 - hits_p.sum().to(torch.float32) / n)
+    chance = 1.0 - 5 / PAPER_M
+    check(err5 < chance, f"(c) top-5 error {err5} not below W = 0's {chance}")
+    _, wall2 = sync_wall(lambda: dfw_head.top_k_error(it, X, labels, k=5))
+    xc = X[:rows]
+    r = int(it.u.shape[0])
+    kern = lambda: fm.factor_matvec(xc, it.u, it.s, it.v, alpha=it.alpha)  # noqa: E731
+    sa = it.s * it.alpha
+    plain = lambda: fm.ref.factor_matvec(xc, it.u, sa, it.v)  # noqa: E731
+    lib = lambda: torch.einsum("bi,ki,k,kj->bj", xc, it.u, sa, it.v)  # noqa: E731
+    e_abs, e_rel = rel_err(torch, kern(), plain())
+    check(e_rel <= TOL["factor_matvec"], f"(c) factor_matvec at the chunk: rel err {e_rel:.2e}")
+    nbytes = 4 * (rows * PAPER_D + r * (PAPER_D + PAPER_M + 1) + rows * PAPER_M)
+    nflops = 2 * rows * r * (PAPER_D + PAPER_M) + rows * r
+    row = dict(name="factor_matvec", operand=f"b={rows} r={r} {PAPER_D}->{PAPER_M} "
+               "(top_k_error chunk)", shape=[rows, PAPER_D, r, PAPER_M], max_abs_err=e_abs,
+               max_rel_err=e_rel, ms=time_ms(torch, kern, args.reps),
+               plain_ms=time_ms(torch, plain, args.reps), library_ms=time_ms(torch, lib, args.reps),
+               library_rel_err=rel_err(torch, lib(), kern())[1],
+               bound_ms=1e3 * max(nbytes / bw, nflops / flops),
+               bound_by="bytes" if nbytes / bw >= nflops / flops else "operations",
+               bytes=nbytes, flops=nflops, device_ms=device_ms(torch, kern, "factor_matvec_kernel"),
+               library_device_ms=device_ms(torch, lib))
+    rows_out.append(row)
+    report["c"] = dict(top5_error=err5, plain_error=err_plain, rows_differing=int(differ.sum()),
+                       wall_ms=1e3 * wall, wall_ms_again=1e3 * wall2, chunks=chunks, row=row)
+    print(f"(c) top_k_error over {n} rows, {chunks} factor_matvec launches of {rows} rows: top-5 "
+          f"error {err5:.6f} (W = 0: {chance}; plain chain on the same chunks {err_plain:.6f}, "
+          f"{int(differ.sum())} rows differing, each at a tie); {1e3 * wall:.2f} ms "
+          f"({1e3 * wall2:.2f} again); kernel at the chunk {row['ms']:.4f} ms (device "
+          f"{fmt_ms(row['device_ms'])}), "
+          f"einsum {row['library_ms']:.4f} (device {fmt_ms(row['library_device_ms'])}), plain "
+          f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} by {row['bound_by']}, rel err "
+          f"{e_rel:.2e}")
+    del head, it, X, labels, hits_k, hits_p, gaps_p, parts, xc
+    torch.cuda.empty_cache()
+
+    # (d) features from qwen2-1.5b (full width and depth, bf16), a head on them
+    cfg = get_config(LM_ARCH)
+    params = lm.init_params(cfg, gen)
+    b, s = FEATURE_SHAPE
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev),
+                "labels": torch.zeros((b, s), dtype=torch.int64, device=dev)}
+               for _ in range(FEATURE_BATCHES)]
+    with counting(kernels) as ran:
+        (feats, _), wall = sync_wall(lambda: dfw_head.extract_features(params, batches, cfg))
+    add(ran.launches)
+    want_fa = cfg.num_layers * FEATURE_BATCHES
+    check(ran.launches["flash_attention"] == want_fa and ran.routes["flash_attention"] == {
+        "wgmma": want_fa, "generic": 0},
+          f"(d) features: flash_attention {ran.launches['flash_attention']} launches, routes "
+          f"{ran.routes['flash_attention']}; expected {want_fa}, all wgmma")
+    rows_f = FEATURE_BATCHES * b * s
+    check(tuple(feats.shape) == (rows_f, cfg.d_model) and feats.dtype == torch.float32
+          and bool(torch.isfinite(feats).all()),
+          f"(d) features {tuple(feats.shape)}: not finite f32 of the expected shape")
+    del params, batches
+    torch.cuda.empty_cache()
+    w_plant = torch.randn(cfg.d_model, 10, generator=gen, device=dev) @ torch.randn(
+        10, PAPER_M, generator=gen, device=dev)
+    y_f = torch.argmax(feats @ w_plant, dim=1)
+    with counting(kernels) as ran:
+        fhead = dfw_head.train_head(feats, y_f, PAPER_M, key=args.seed, device=dev, **kw)
+        ferr = dfw_head.top_k_error(fhead.iterate, feats, y_f, k=5)
+    add(ran.launches)
+    fwant = expected_launches("logistic", fhead.history["k"], False)
+    fwant["factor_matvec"] = -(-rows_f // rows)
+    check(ran.launches == fwant, f"(d) head on features: launches {ran.launches} != {fwant}")
+    floss = fhead.history["loss"] + [fhead.final_loss]
+    check(floss[-1] < floss[0], "(d) the head's loss on the features did not decrease")
+    check(ferr < chance, f"(d) top-5 error {ferr} on the features not below chance {chance}")
+    report["d"] = dict(feature_s=wall, rows=rows_f, d=cfg.d_model, loss=floss, top5_error=ferr)
+    print(f"(d) {cfg.name} features ({cfg.num_layers} layers, {cfg.dtype}) over "
+          f"{FEATURE_BATCHES} batches of {b} x {s} tokens: {rows_f} x {cfg.d_model} f32 in "
+          f"{1e3 * wall:.1f} ms, {want_fa} flash_attention launches, all wgmma; head "
+          f"{HEAD_EPOCHS} epochs: loss {floss[0]:.6g} -> {floss[-1]:.6g}, top-5 error "
+          f"{ferr:.4f} (chance {chance})")
+    del feats, y_f, fhead, w_plant
+    torch.cuda.empty_cache()
+    scfg = get_config(SSM_ARCH)
+    params = lm.init_params(scfg, gen)
+    nonzero_bonus(torch, params, gen)
+    b, s = SSM_FEATURE_SHAPE
+    toks = torch.randint(0, scfg.vocab_size, (b, s), generator=gen, device=dev)
+    with counting(kernels) as ran:
+        (feats, fy), wall = sync_wall(lambda: dfw_head.extract_features(
+            params, [{"tokens": toks, "labels": toks}], scfg))
+    add(ran.launches)
+    want_wkv = scfg.num_layers * (s // min(scfg.ssm_chunk, s))
+    check(ran.launches["wkv6_chunk"] == want_wkv,
+          f"(d) rwkv features: wkv6_chunk {ran.launches['wkv6_chunk']} launches, not {want_wkv}")
+    check(tuple(feats.shape) == (b * s, scfg.d_model) and bool(torch.isfinite(feats).all())
+          and torch.equal(fy, toks.reshape(-1)), "(d) rwkv features or labels wrong")
+    report["d"].update(ssm_feature_s=wall, ssm_rows=b * s)
+    print(f"(d) {scfg.name} features ({scfg.num_layers} layers) on {b} x {s} tokens: "
+          f"{b * s} x {scfg.d_model} in {1e3 * wall:.1f} ms, {want_wkv} wkv6_chunk launches")
+    del params, toks, feats, fy
+    torch.cuda.empty_cache()
+    report["wall_s"] = time.perf_counter() - t_phase
+    report["launches"] = total
+    print(f"phase 29 took {report['wall_s']:.1f} s")
+    return report, total, rows_out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4972,7 +5304,7 @@ def main(argv=None) -> int:
                              resolve_device)
     from repro_torch import serve
     from repro_torch.configs import get_config
-    from repro_torch.core import baselines, engine, frank_wolfe, low_rank, tasks
+    from repro_torch.core import baselines, dfw_head, engine, frank_wolfe, low_rank, tasks
     from repro_torch.kernels import _build
     from repro_torch.kernels import factor_matvec as fm
     from repro_torch.kernels import flash_attention as fa
@@ -4984,6 +5316,7 @@ def main(argv=None) -> int:
     from repro_torch.launch import dfw, steps
     from repro_torch.launch import serve as lm_serve
     from repro_torch.models import lm, rwkv6
+    from repro_torch.optim import compression
 
     dev = resolve_device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -5300,6 +5633,16 @@ def main(argv=None) -> int:
         block_route += telemetry_route
         print(f"phase 28 ({smi})")
         torch.cuda.empty_cache()
+
+        # 29. the paper's head: train_head and sharded_fit at the ImageNet
+        # shapes, checkpoints and resume, top_k_error, features from the LM
+        # zoo, PowerSGD
+        report["head"], head_launch, head_rows = head_phase(
+            torch, np, kernels, dfw, comm, tasks, low_rank, checkpoint, dfw_head, compression,
+            lm, get_config, fm, dev, args, peaks)
+        krows += head_rows
+        print(f"phase 29 ({smi})")
+        torch.cuda.empty_cache()
     except Check as e:
         return fail(str(e))
 
@@ -5307,7 +5650,7 @@ def main(argv=None) -> int:
     paths = (mtls_launch, log_launch, mc_launch, mc8_launch, fit12_launch, serve_launch,
              prefill_launch, decode_launch, ssm_prefill_launch, ssm_decode_launch,
              world_one_launch, multi_launch, baselines_launch, graphs_launch, block_launch,
-             resume_launch, engine_launch, telemetry_launch)
+             resume_launch, engine_launch, telemetry_launch, head_launch)
     for kname in (*TPU_KERNEL, *HELPER_KERNELS, *BLOCK_KERNELS, "update_resid_block"):
         rows = [r for r in krows if r["name"] == kname]
         main_row = next((r for r in rows if r.get("main")), None) or max(

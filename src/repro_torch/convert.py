@@ -6,7 +6,9 @@ build the port's objects on ``device``, so both packages can compute from
 the same point: a run of the JAX package stopped at epoch t continues in the
 port with ``core.frank_wolfe.fit(..., state=task_state(...),
 iterate=iterate(...), comm_state=comm_state(...),
-start_t=epoch_counter(...))``. Nothing here imports
+start_t=epoch_counter(...))``; a head's ``FactoredIterate`` crosses with
+``iterate``, LM weights with ``lm_params`` and a PowerSGD state with
+``powersgd_state``. Nothing here imports
 JAX or the JAX package.
 """
 from __future__ import annotations
@@ -172,6 +174,24 @@ def lm_params(params: Any, cfg, *, device: DeviceLike = None) -> dict:
 
     out["layers"] = [layer(stacked, i) for i in range(cfg.num_layers)]
     return out
+
+
+def powersgd_state(state: Any, *, device: DeviceLike = None):
+    """The port's ``optim.compression.PowerSGDState`` from the JAX package's
+    (after ``jax.device_get``): its ``q`` and ``error`` trees with each array
+    an f32 tensor on ``device`` and each None (an uncompressed leaf) kept."""
+    from .optim import compression
+
+    f = _fields(state)
+    if set(f) != {"q", "error"}:
+        raise TypeError(f"no PowerSGD state with fields {sorted(f)} (expected q/error)")
+    dev = resolve_device(device)
+
+    def leaf(a):
+        return None if a is None else _f32(np.asarray(a), dev)
+
+    return compression.PowerSGDState(q=compression.tree_map(leaf, f["q"]),
+                                     error=compression.tree_map(leaf, f["error"]))
 
 
 def epoch_counter(t: Union[int, np.ndarray, Any]) -> int:

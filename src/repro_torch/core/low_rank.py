@@ -7,6 +7,12 @@ recurrence W <- (1-gamma) W + gamma S is folded into the running scale
 on the device, and ``fw_update`` writes row ``count`` (``fw_update_block`` the
 k rows from ``count``) without reading it on the host, in place: the store
 a run carries is the one the engine's CUDA graphs write.
+
+``right_multiply`` scores row-major data against the iterate (X W, the
+head's logits) through the ``factor_matvec`` kernel on the card.
+The reference's ``packed_like`` (a treedef skeleton for its restores) has
+no counterpart: the port's ``checkpoint.restore_run`` reads each leaf by
+its path.
 """
 from __future__ import annotations
 
@@ -14,6 +20,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..kernels.factor_matvec import ops as fm_ops
 
 
 class FactoredIterate(NamedTuple):
@@ -115,6 +123,31 @@ def gather_entries(it: FactoredIterate, rows: torch.Tensor, cols: torch.Tensor) 
     for matrix completion without materializing W."""
     rows, cols = rows.long(), cols.long()
     return it.alpha * torch.einsum("k,kp,kp->p", it.s, it.u[:, rows], it.v[:, cols])
+
+
+#: Rows of X a ``right_multiply`` launch takes: 65,536 rows of 1,000
+#: logits are 262 MB on the card.
+RIGHT_MULTIPLY_ROWS = 1 << 16
+
+
+def right_multiply(it: FactoredIterate, x: torch.Tensor) -> torch.Tensor:
+    """X @ W for row-major data X (n, d) -> (n, m), factored: alpha ((X U^T)
+    diag(s)) V, without forming W. One ``factor_matvec`` call a chunk of
+    ``RIGHT_MULTIPLY_ROWS`` rows: the kernel on a CUDA tensor, its plain
+    version on the CPU. Rows of the store past ``count`` carry s = 0 and add
+    exact zeros, and the kernel's batch tiling moves no bit, so on the card
+    the chunks give one call's bits."""
+    x = x.contiguous()
+    parts = [fm_ops.factor_matvec(x[lo:lo + RIGHT_MULTIPLY_ROWS], it.u, it.s, it.v,
+                                  alpha=it.alpha)
+             for lo in range(0, x.shape[0], RIGHT_MULTIPLY_ROWS)] or [
+        torch.zeros((0, it.v.shape[1]), dtype=torch.float32, device=x.device)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def trace_norm_upper_bound(it: FactoredIterate) -> torch.Tensor:
+    """||W||_* <= |alpha| sum_k |s_k| (triangle inequality on unit factors)."""
+    return torch.abs(it.alpha) * torch.sum(torch.abs(it.s))
 
 
 #: Keys of ``pack_live``'s dict, in the order a checkpoint stores them.

@@ -14,6 +14,10 @@ a ``repro_torch.NoiseStream`` at (epoch t, iteration i, slot).
 unchanged), Cholesky-QR orthonormalized against their (k, k) Gram on the
 already-summed block, still exactly 2K exchanges for K iterations.
 
+``power_method_dense`` and ``top_singular_pair`` run the same iteration on
+an explicit row-major matrix (NAIVE-DFW's oracle, the tests' SVD check):
+A v and A^T u go through ``power_matvec``'s kernels on the card.
+
 Nothing here reads the device from the host. The adaptive stop's branch is
 a ``when(pred, body)`` seam: a host branch by default, an IF node of the
 engine's CUDA graph when the engine captures the epoch.
@@ -21,12 +25,13 @@ engine's CUDA graph when the engine captures the epoch.
 from __future__ import annotations
 
 from functools import partial
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Union
 
 import torch
 
 from ..analysis import recorder
 from ..comm.base import DenseReducer, WorkerGroup, pmax
+from ..kernels.power_matvec import ops as pm_ops
 
 _EPS = 1e-30
 
@@ -167,6 +172,39 @@ def power_iterations(
     return PowerResult(u=u, v=v, sigma=sigma), comm_state
 
 
+def power_method_dense(a: torch.Tensor, v0: torch.Tensor, num_iters: int, *,
+                       group: Optional[WorkerGroup] = None) -> PowerResult:
+    """``num_iters`` two-sided power iterations on an explicit (n, m) f32
+    matrix ``a`` from the start vector ``v0`` (m,): A v and A^T u by the
+    ``power_matvec`` kernels on a CUDA tensor (their plain versions on the
+    CPU). With a ``group`` each worker holds its own part A_j, of the same
+    shape, and the iteration runs on their sum (the gradient summed over
+    the workers' samples): every aggregate is summed over the workers
+    (``DenseReducer``), the counterpart of the reference's ``axis_name``."""
+    res, _ = power_iterations(lambda v: pm_ops.matvec(a, v), lambda u: pm_ops.rmatvec(a, u),
+                              v0, num_iters, reducer=DenseReducer(group))
+    return res
+
+
+def top_singular_pair(a: torch.Tensor, gen_or_seed: Union[torch.Generator, int, None] = 0,
+                      num_iters: int = 50, *, v0: Optional[torch.Tensor] = None
+                      ) -> PowerResult:
+    """Serial oracle: the top singular triple of ``a`` after ``num_iters``
+    power iterations from a uniform unit start vector drawn from
+    ``gen_or_seed`` (a ``torch.Generator`` on ``a``'s device, or a seed), or
+    from ``v0`` when given (the tests inject the reference's
+    ``sphere_vector``)."""
+    if v0 is None:
+        gen = gen_or_seed
+        if not isinstance(gen, torch.Generator):
+            gen = torch.Generator(device=a.device)
+            gen.manual_seed(int(gen_or_seed or 0))
+        v0 = sphere_vector(gen, a.shape[1], a.device, a.dtype)
+    elif not isinstance(v0, torch.Tensor):  # a host array: copied
+        v0 = torch.tensor(v0, dtype=a.dtype)
+    return power_method_dense(a, v0.to(device=a.device, dtype=a.dtype), num_iters)
+
+
 def orthonormalize_block(b: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """The columns of ``b`` (n, k) orthonormalized by Cholesky-QR on the
     (k, k) Gram, with the reference's jitter ``eps * trace(G) / k + 1e-30``
@@ -192,7 +230,7 @@ def block_power_step(
 ) -> tuple:
     """One warm-started step of block power iteration: ``p = orth(reduce(A
     q)); q' = reduce(A^T p)``; returns ``(p, q')``. The primitive the block
-    LMO shares with PowerSGD compression (``reduce``: the aggregate, the
+    LMO shares with ``optim.compression`` (``reduce``: the aggregate, the
     identity in one process)."""
     p = orthonormalize_block(reduce(matmat(q)))
     return p, reduce(rmatmat(p))

@@ -206,7 +206,9 @@ class KernelizedTask:
     vector kernels over the k columns). The logistic softmax P, ``P @ v``,
     ``P^T @ t`` and the label scatter stay plain PyTorch, as they stay plain
     XLA in the JAX package. Everything else, the dense MTLS state's products
-    among it (as in the reference), is delegated to the base task."""
+    among it (as in the reference), is delegated to the base task. The
+    drivers here and ``core.dfw_head`` (the ImageNet head's fits) run their
+    tasks through it."""
 
     def __init__(self, base):
         self._base = base
@@ -470,7 +472,7 @@ def _check_epoch_path(task) -> None:
         )
 
 
-def _check_snapshot(snap: ckpt.RunSnapshot, task, cfg: DFWConfig) -> None:
+def _check_problem(snap: ckpt.RunSnapshot, task) -> None:
     """A checkpoint resumes only the problem it was saved from: the same task
     type and dimensions (the worker count, comm and schedule may change:
     elastic resume, warm restart)."""
@@ -481,11 +483,6 @@ def _check_snapshot(snap: ckpt.RunSnapshot, task, cfg: DFWConfig) -> None:
         raise ValueError(
             f"checkpoint was saved by task {got} but resume targets {want}; "
             "resume_from must point at a checkpoint of the same problem"
-        )
-    if snap.t > cfg.num_epochs:
-        raise ValueError(
-            f"checkpoint is at epoch {snap.t} but num_epochs={cfg.num_epochs}; "
-            "extend num_epochs to resume past it"
         )
 
 
@@ -535,7 +532,21 @@ def _resume(task, cfg: DFWConfig, key: V0Stream, dev: torch.device, *, rank: int
     table-fed ``key`` is kept (its rows are indexed by absolute epoch);
     otherwise the run continues with the checkpoint's seed."""
     snap = ckpt.restore_run(cfg.resume_from, task=task, step=cfg.resume_step)
-    _check_snapshot(snap, task, cfg)
+    _check_problem(snap, task)
+    if snap.t > cfg.num_epochs:
+        raise ValueError(
+            f"checkpoint is at epoch {snap.t} but num_epochs={cfg.num_epochs}; "
+            "extend num_epochs to resume past it"
+        )
+    return _place(snap, task, cfg, key, dev, rank=rank, workers=workers, serial=serial)
+
+
+def _place(snap: ckpt.RunSnapshot, task, cfg: DFWConfig, key: V0Stream, dev: torch.device, *,
+           rank: int = 0, workers: int = 1, serial: bool = True) -> _Start:
+    """``_resume``'s placement of a snapshot read elsewhere (``core.dfw_head``
+    takes one): worker ``rank``'s rows of the saved state, the iterate in a
+    store of ``resolve_max_rank(cfg.max_rank, cfg.num_epochs)`` factors, the
+    reducer state, probe, key and masks where they apply."""
     ext = snap.extra
     n = next(iter(snap.state.values())).shape[0]
     if n % workers:

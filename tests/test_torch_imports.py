@@ -76,5 +76,6 @@ def test_scan_sees_the_whole_package():
     assert {"kernels/flash_attention/ops.py", "models/lm.py", "models/layers.py",
             "configs/__init__.py", "configs/qwen2_1_5b.py", "launch/steps.py",
             "launch/serve.py", "core/engine.py", "obs/__init__.py", "obs/registry.py",
-            "obs/telemetry.py", "analysis/recorder.py", "analysis/contracts.py"} <= names
+            "obs/telemetry.py", "analysis/recorder.py", "analysis/contracts.py",
+            "core/dfw_head.py", "optim/__init__.py", "optim/compression.py"} <= names
     assert FILES[-1].name == "chip_smoke.py"

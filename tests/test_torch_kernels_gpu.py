@@ -1316,3 +1316,77 @@ def test_cuda_captured_stats_equal_the_cpu_run(cuda, case):
     cpu, _, _ = _engine_fit(kind, kw, torch.device("cpu"))
     assert cpu.stats["graph_replays"] == 0 < card.stats["graph_replays"]
     assert {**card.stats, "graph_replays": 0} == cpu.stats
+
+
+# ---------------------------------------------------------------------------
+# The ImageNet head's paths: right_multiply, power_method_dense, train_head
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,m,count", [(5000, 2048, 1000, 10), (777, 48, 33, 3),
+                                         (70_000, 64, 40, 7)])
+def test_cuda_right_multiply_runs_factor_matvec(cuda, n, d, m, count, monkeypatch):
+    """X W through factor_matvec, one launch a chunk of rows, against the
+    plain chain; the chunks give one call's bits; rows past count are
+    no-ops."""
+    from repro_torch.core import low_rank
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    it = low_rank.init(count + 4, d, m, device=cuda)
+    it.u[:count] = torch.randn((count, d), generator=gen, device=cuda)
+    it.v[:count] = torch.randn((count, m), generator=gen, device=cuda)
+    it.s[:count] = torch.randn((count,), generator=gen, device=cuda)
+    it.alpha.fill_(0.3)
+    it.count.fill_(count)
+    x = torch.randn((n, d), generator=gen, device=cuda)
+    before = kernels.launches()["factor_matvec"]
+    got = low_rank.right_multiply(it, x)
+    chunks = -(-n // low_rank.RIGHT_MULTIPLY_ROWS)
+    assert kernels.launches()["factor_matvec"] == before + chunks
+    want = ((x @ it.u[:count].T) * (it.s[:count] * it.alpha)) @ it.v[:count]
+    _close(got.cpu(), want.cpu())
+    monkeypatch.setattr(low_rank, "RIGHT_MULTIPLY_ROWS", 1000)
+    assert torch.equal(low_rank.right_multiply(it, x), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m", [(4099, 2048), (300, 40)])
+def test_cuda_power_method_dense_runs_power_matvec(cuda, n, m):
+    from repro_torch.core import power_method
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4)
+    a = torch.randn((n, m), generator=gen, device=cuda)
+    v0 = power_method.sphere_vector(gen, m, cuda)
+    before = kernels.launches()
+    got = power_method.power_method_dense(a, v0, 6)
+    after = kernels.launches()
+    assert after["matvec"] - before["matvec"] == 6 and after["rmatvec"] - before["rmatvec"] == 6
+    want = power_method.power_method_dense(a.cpu(), v0.cpu(), 6)
+    for g, w in zip(got, want):
+        _close(g.cpu(), w)
+
+
+@pytest.mark.gpu
+def test_cuda_train_head_is_fit_serial_bit_for_bit(cuda):
+    """train_head and sharded_fit (one process) on the card give
+    fit_serial's bits, and the device ran the power_matvec and rank1_update
+    kernels."""
+    from repro_torch.core import dfw_head, tasks
+    from repro_torch.launch import dfw
+
+    _, x, y, _ = _engine_problem("logistic", cuda)
+    kw = dict(mu=10.0, num_epochs=9, schedule="const:2")
+    with kernels.Executed() as ran:
+        head = dfw_head.train_head(x, y, 40, key=5, device=cuda, **kw)
+    assert ran.launches["matvec"] > 0 and ran.launches["rmatvec"] > 0
+    assert ran.launches["rank1_update"] == 9
+    sharded = dfw_head.sharded_fit(None, x, y, 40, key=5, device=cuda, **kw)
+    ref = dfw.fit_serial(tasks.MultinomialLogistic(48, 40), x, y, key=5, device=cuda,
+                         cfg=dfw.DFWConfig(**kw))
+    for res in (head, sharded):
+        assert res.history == ref.history and res.final_loss == ref.final_loss
+        for p, q in zip(res.iterate, ref.iterate):
+            assert torch.equal(p, q)
