@@ -318,17 +318,51 @@ Phases, each fatal on failure (exit code != 0, no result line):
    (qwen2-1.5b's MLP), 5 steps: the CPU's result on the same draws within
    rtol 1e-4 (atol 1e-4 of max), over one NCCL worker the serial bits; ms
    a step, wire bytes against dense. (c) ``top_k_error`` of (a)'s head over
-   all n rows, one ``factor_matvec`` launch a chunk of 65,536 rows: every
-   row whose hit differs from the plain chain's on the same chunks ties at
-   its 5th logit, the error below W = 0's (1 - 5/1000); its wall ms, and
-   the kernel at the chunk operand timed beside its plain version and
-   einsum (a row of the kernels line). (d) ``extract_features`` from
+   all n rows, one ``factor_matvec`` launch a chunk of 65,536 rows, ties
+   broken as ``jax.lax.top_k`` breaks them (the lower index first): every
+   row's hit is the first 5 of a stable descending sort of the same logits;
+   a row's hit may differ from the plain chain's (the same rule on its
+   logits) only where the two chains' logits differ by more than half the
+   row's 5th-to-6th gap; the tie probe of ROADMAP section 3 (a rank-1 head
+   with one nonzero logit column on features >= 0) gives the reference's
+   errors 0 (labels 0) and 1 (labels 5); the error below W = 0's (1 -
+   5/1000); its wall ms, and in turns with the loop before the tie rule
+   (torch.topk's indices); the kernel at the chunk operand timed beside its
+   plain version and einsum (a row of the kernels line). (d) ``extract_features`` from
    qwen2-1.5b at full width and depth (bf16, weights drawn on the card) on
    8 batches of 4 x 2048 tokens: 65,536 x 1536 f32 features, 224
    flash_attention launches all on wgmma; ``train_head`` on labels from a
    planted rank-10 head over 1000 classes: the loss falls, the top-5 error
    below chance; then rwkv6-7b on one batch of 4 x 1024 tokens (128
    wkv6_chunk launches). About 10 s of command time.
+30. LM training (4 x 2048 tokens a step, bf16, weights drawn on the card
+   from --seed). (a) qwen2-1.5b at full width and depth through
+   ``launch.train.train`` (AdamW, ``SyntheticLMStream``), 10 steps: losses
+   finite, every parameter a nonzero gradient at every step (read from the
+   steps' own ``lm.value_and_grad``), no flash_attention or wkv6_chunk
+   launch in a train step (the reference's differentiable attention), then
+   a prefill on the trained weights with one flash_attention launch a
+   layer, all on wgmma; ms a step, tokens/s, peak memory. At a depth cut of
+   2 layers (full width; a step's checkpoint ~2.8 GB): checkpoints at steps
+   5 and 10, a run resumed at 5 gives the uninterrupted run's parameters
+   and AdamW state bit for bit. (b) The hybrid optimizer (AdamW + the
+   DFW-Trace head) on codeqwen1.5-7b at full width, 16 of 32 layers, mu
+   100, 2 power iterations, 5 steps: each step matvec and rmatvec 2
+   launches and the bf16 rank1_update 1 (device counts); after step 1
+   (gamma = 1) the head's trace norm (f64 Gram eigenvalues) at most mu |u|
+   |v| + sqrt(min(d, V)) ||E||_F, E the head's bf16 rounding; step 2's head
+   update the bits of ((1 - gamma) W - gamma mu u v^T) in f32 rounded to
+   bf16 on the step's own u and v, and within one bf16 ulp of the update's
+   terms of the whole plain chain (torch.mv power iterations on the same
+   f32 gradient and v0, then that update); every parameter a nonzero gradient;
+   ms a step, the head's share (power method + update, CUDA events), peak
+   memory. (c) rwkv6-7b at full width, 8 of 32 layers, 2 AdamW steps:
+   losses finite, every parameter a nonzero gradient, no wkv6_chunk launch
+   (the plain chunk form under autograd). (d) The bf16 rank1_update at
+   4096 x 92,416 in place against its plain version (one bf16 ulp) and
+   ``torch.addr_`` in bf16 (in turns), and matvec/rmatvec at the head
+   gradient's shape against torch.mv (in turns), each beside its bound.
+   (e) is phase 29 (c)'s tie rule. About a minute of command time.
 
 The launches each fit phase checks (and the kernels line sums) are the
 device's: ``counting`` opens ``kernels.Executed``, which adds a counter on
@@ -409,7 +443,9 @@ BLOCK_KERNELS = ("matmat", "rmatmat", "rankk_update", "rankk_update_axpy", "coo_
                  "update_resid_caller")
 BLOCK_OF = {"matmat": "matvec", "rmatmat": "rmatvec", "rankk_update": "rank1_update",
             "rankk_update_axpy": "rank1_update_axpy", "coo_matmat": "coo_matvec",
-            "update_resid_block": "coo_matvec", "update_resid_caller": "coo_matvec"}
+            "update_resid_block": "coo_matvec", "update_resid_caller": "coo_matvec",
+            # not a block form: the bf16 Z route of the rank1_update wrapper (phase 30)
+            "rank1_update_bf16": "rank1_update"}
 SOURCE = {
     "matvec": "src/repro_torch/csrc/power_matvec.cu",
     "rmatvec": "src/repro_torch/csrc/power_matvec.cu",
@@ -430,6 +466,7 @@ SOURCE = {
     "coo_matmat": "src/repro_torch/csrc/mc_matvec.cu",
     "update_resid_block": "src/repro_torch/csrc/mc_matvec.cu",
     "update_resid_caller": "src/repro_torch/csrc/mc_matvec.cu",
+    "rank1_update_bf16": "src/repro_torch/csrc/rank1_update.cu",
 }
 # Memory rate (bytes/s), f32 non-tensor-core peak, bf16 dense tensor-core
 # peak and TF32 dense tensor-core peak (flop/s) of each part this script has
@@ -813,7 +850,9 @@ PORT_KERNELS = ("matvec_kernel", "rmatvec_partial_kernel", "rmatvec_finish_kerne
                 "rankk_kernel", "piece_sum_block_kernel", "segment_sum_block_kernel",
                 "update_resid_block_kernel",
                 # the engine's graphs: an IF node's predicate
-                "set_if_kernel")
+                "set_if_kernel",
+                # the hybrid optimizer's bf16 head update
+                "rank1_bf16_kernel")
 RECORD_KERNELS = ("pack_records_kernel", "gather_records_kernel")  # the state build's copies
 
 
@@ -4944,6 +4983,10 @@ def telemetry_phase(torch, np, kernels, dfw, comm, tasks, frank_wolfe, engine, s
 
 
 HEAD_EPOCHS = 10  # phase 29's head fits
+# top_k_error's wall ms over 1,281,167 rows before the tie rule (torch.topk's
+# indices; first call, again), measured by this script on an NVIDIA H100 80GB
+# HBM3 at 700 W; printed beside this run's, which also times that rule
+TOP_K_MS_BEFORE = (76.94, 69.96)
 HEAD_CKPT_ROWS = 16_384  # phase 26's cut: a full-n logistic step holds X and Z (about 15.6 GB)
 FEATURE_BATCHES, FEATURE_SHAPE = 8, (4, 2048)  # qwen2-1.5b: 65,536 feature rows
 SSM_FEATURE_SHAPE = (4, 1024)  # rwkv6-7b: one batch
@@ -4961,23 +5004,47 @@ def same_head(np, a, b) -> bool:
             and all(np.array_equal(a["packed"][k], b["packed"][k]) for k in a["packed"]))
 
 
-def top_k_rows(torch, fm, it, x, y, k, rows, plain: bool):
-    """Per-row top-k hits of the head on x and each row's gap between its
-    k-th and (k+1)-th logit, chunk by chunk: from the kernel
-    (``factor_matvec``), or with ``plain`` from its plain rank-by-rank chain
-    on the same chunks, and then also each row's largest |kernel - plain|
-    logit."""
+def top_k_rows(torch, fm, hits_fn, it, x, y, k, rows, plain: bool):
+    """Per-row top-k hits of the head on x (``hits_fn``: the port's
+    ``dfw_head.top_k_hits``, ties to the lower index as ``jax.lax.top_k``)
+    and each row's gap between its k-th and (k+1)-th logit, chunk by chunk:
+    from the kernel (``factor_matvec``), or with ``plain`` from its plain
+    rank-by-rank chain on the same chunks, and then also each row's largest
+    |kernel - plain| logit. Without ``plain``, the last value is the count
+    of rows whose hit differs from the first k of a stable descending sort
+    of the same logits (the reference's rule, taken the slow way)."""
     hits, gaps, parts = [], [], []
+    off_rule = torch.zeros((), dtype=torch.int64, device=x.device)
     for lo in range(0, x.shape[0], rows):
-        xc = x[lo:lo + rows]
+        xc, yc = x[lo:lo + rows], y[lo:lo + rows]
         kern = fm.factor_matvec(xc, it.u, it.s, it.v, alpha=it.alpha)
         logits = fm.ref.factor_matvec(xc, it.u, it.s * it.alpha, it.v) if plain else kern
         top = torch.topk(logits, k + 1, dim=1).values
         gaps.append(top[:, k - 1] - top[:, k])
-        hits.append((torch.topk(logits, k, dim=1).indices == y[lo:lo + rows, None]).any(dim=1))
+        hit = hits_fn(logits, yc, k)
+        hits.append(hit)
         if plain:
             parts.append(torch.max(torch.abs(kern - logits), dim=1).values)
-    return torch.cat(hits), torch.cat(gaps), torch.cat(parts) if parts else None
+        else:
+            order = torch.sort(logits, dim=1, descending=True, stable=True).indices[:, :k]
+            off_rule += (hit != (order == yc[:, None]).any(dim=1)).sum()
+    return torch.cat(hits), torch.cat(gaps), torch.cat(parts) if parts else int(off_rule)
+
+
+def top_k_tie_probe(torch, low_rank, dfw_head, x, dev):
+    """ROADMAP section 3's probe at the card's shapes: a rank-1 head whose
+    only nonzero logit column is 7, on features x >= 0, so every row's other
+    logits tie at 0. With jax.lax.top_k's rule, column 0 is among the top 5
+    and column 5 is not: labels 0 give an error of 0, labels 5 of 1."""
+    m = PAPER_M
+    v = torch.zeros((1, m), device=dev)
+    v[0, 7] = 1.0
+    it = low_rank.FactoredIterate(
+        u=torch.ones((1, x.shape[1]), device=dev), s=torch.ones(1, device=dev), v=v,
+        alpha=torch.ones((), device=dev), count=torch.ones((), dtype=torch.int32, device=dev))
+    n = x.shape[0]
+    zeros = torch.zeros(n, dtype=torch.int64, device=dev)
+    return (dfw_head.top_k_error(it, x, zeros, k=5), dfw_head.top_k_error(it, x, zeros + 5, k=5))
 
 
 def head_phase(torch, np, kernels, dfw, comm, tasks, low_rank, checkpoint, dfw_head,
@@ -5137,14 +5204,35 @@ def head_phase(torch, np, kernels, dfw, comm, tasks, low_rank, checkpoint, dfw_h
     check(ran.launches["factor_matvec"] == chunks,
           f"(c) top_k_error launched factor_matvec {ran.launches['factor_matvec']} times, "
           f"not once a chunk ({chunks})")
-    hits_k, _, _ = top_k_rows(torch, fm, it, X, labels, 5, rows, plain=False)
-    hits_p, gaps_p, parts = top_k_rows(torch, fm, it, X, labels, 5, rows, plain=True)
+    hits_k, _, off_rule = top_k_rows(torch, fm, dfw_head.top_k_hits, it, X, labels, 5, rows,
+                                     plain=False)
+    hits_p, gaps_p, parts = top_k_rows(torch, fm, dfw_head.top_k_hits, it, X, labels, 5, rows,
+                                       plain=True)
     err_k = float(1.0 - hits_k.sum().to(torch.float32) / n)
     check(err_k == err5, f"(c) top_k_error {err5} is not its own chunks' hits' {err_k}")
+    check(off_rule == 0, f"(c) {off_rule} rows' hits are not the first 5 of a stable descending "
+          "sort of the same logits (jax.lax.top_k's rule)")
+    # With the reference's tie rule on both sides, a row's hit may differ only
+    # where the kernel's logits differ from the plain chain's by more than
+    # half the row's 5th-to-6th gap: a tie of equal logits is broken alike.
     differ = hits_k != hits_p
-    untied = differ & (gaps_p.abs() > 2 * parts)
+    untied = differ & ~((gaps_p.abs() <= 2 * parts) & (parts > 0))
     check(not bool(untied.any()),
-          f"(c) {int(untied.sum())} rows' hits differ from the plain chain's without a tie")
+          f"(c) {int(untied.sum())} rows' hits differ from the plain chain's without a near tie")
+    probe = top_k_tie_probe(torch, low_rank, dfw_head, X[:rows].abs(), dev)
+    check(probe == (0.0, 1.0), f"(c) tie probe: top-5 errors {probe}, the reference's (0.0, 1.0)")
+
+    def topk_indices_rule():  # the loop before the tie rule, for its time
+        hits = torch.zeros((), dtype=torch.int64, device=dev)
+        for lo in range(0, n, rows):
+            idx = torch.topk(low_rank.right_multiply(it, X[lo:lo + rows]), 5, dim=1).indices
+            hits += (idx == labels[lo:lo + rows, None]).any(dim=1).sum()
+        return float(1.0 - hits.to(torch.float32) / n)
+
+    turns = []  # new, old, old, new
+    for fn in (lambda: dfw_head.top_k_error(it, X, labels, k=5), topk_indices_rule,
+               topk_indices_rule, lambda: dfw_head.top_k_error(it, X, labels, k=5)):
+        turns.append(1e3 * sync_wall(fn)[1])
     err_plain = float(1.0 - hits_p.sum().to(torch.float32) / n)
     chance = 1.0 - 5 / PAPER_M
     check(err5 < chance, f"(c) top-5 error {err5} not below W = 0's {chance}")
@@ -5170,11 +5258,16 @@ def head_phase(torch, np, kernels, dfw, comm, tasks, low_rank, checkpoint, dfw_h
                library_device_ms=device_ms(torch, lib))
     rows_out.append(row)
     report["c"] = dict(top5_error=err5, plain_error=err_plain, rows_differing=int(differ.sum()),
-                       wall_ms=1e3 * wall, wall_ms_again=1e3 * wall2, chunks=chunks, row=row)
+                       wall_ms=1e3 * wall, wall_ms_again=1e3 * wall2, chunks=chunks, row=row,
+                       tie_probe=probe, turns_ms=turns, pr30_ms=TOP_K_MS_BEFORE)
     print(f"(c) top_k_error over {n} rows, {chunks} factor_matvec launches of {rows} rows: top-5 "
           f"error {err5:.6f} (W = 0: {chance}; plain chain on the same chunks {err_plain:.6f}, "
-          f"{int(differ.sum())} rows differing, each at a tie); {1e3 * wall:.2f} ms "
-          f"({1e3 * wall2:.2f} again); kernel at the chunk {row['ms']:.4f} ms (device "
+          f"{int(differ.sum())} rows differing, each at a near tie; every row's hit the first 5 "
+          f"of a stable sort's; tie probe {probe}); {1e3 * wall:.2f} ms ({1e3 * wall2:.2f} "
+          f"again); in turns tie rule / torch.topk's indices / indices / tie rule: "
+          f"{', '.join(f'{v:.2f}' for v in turns)} ms (the earlier measurement, indices: "
+          f"{TOP_K_MS_BEFORE[0]} first, {TOP_K_MS_BEFORE[1]} again); "
+          f"kernel at the chunk {row['ms']:.4f} ms (device "
           f"{fmt_ms(row['device_ms'])}), "
           f"einsum {row['library_ms']:.4f} (device {fmt_ms(row['library_device_ms'])}), plain "
           f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} by {row['bound_by']}, rel err "
@@ -5249,6 +5342,450 @@ def head_phase(torch, np, kernels, dfw, comm, tasks, low_rank, checkpoint, dfw_h
     return report, total, rows_out
 
 
+TRAIN_ARCH = LM_ARCH  # qwen2-1.5b at full width and depth
+TRAIN_SHAPE = (4, 2048)  # (B, S) of every phase-30 train step
+TRAIN_STEPS = 10
+TRAIN_RESUME_LAYERS, TRAIN_RESUME_AT = 2, 5  # (a)'s resume at a depth cut: ~2.8 GB a step
+HYBRID_ARCH = "codeqwen1_5_7b"  # untied head (4096 x 92,416)
+HYBRID_LAYERS = 16  # of 32: 53.7 GB of training state
+HYBRID_STEPS, HYBRID_MU, HYBRID_ITERS = 5, 100.0, 2
+HYBRID_CHECK_STEP = 1  # the step whose head update is held to the plain chain (gamma 2/3)
+SSM_TRAIN_LAYERS, SSM_TRAIN_STEPS = 8, 2  # rwkv6-7b at full width: 8 of 32 layers
+
+
+def leaf_names(tree, prefix=""):
+    """Leaf paths of a parameter tree in ``tree_leaves``'s order (dict keys
+    sorted, list items in order)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, sub in enumerate(tree) for n in leaf_names(sub, f"{prefix}{i}/")]
+    return [prefix.rstrip("/")]
+
+
+@contextlib.contextmanager
+def grad_watch(torch, lm):
+    """Inside the block every ``lm.value_and_grad`` call (the train steps')
+    also records each gradient leaf's max |g| on the device: yields the list
+    of (leaves,) tensors, one a step."""
+    from repro_torch.optim.compression import tree_leaves
+
+    seen, orig = [], lm.value_and_grad
+
+    def watched(params, batch, cfg, **kw):
+        out, grads = orig(params, batch, cfg, **kw)
+        seen.append(torch.stack([g.detach().abs().amax().float() for g in tree_leaves(grads)]))
+        return out, grads
+
+    lm.value_and_grad = watched
+    try:
+        yield seen
+    finally:
+        lm.value_and_grad = orig
+
+
+def zero_grad_leaves(torch, seen, names):
+    """The leaves whose gradient was exactly zero (or not finite) at some step."""
+    g = torch.stack(seen)
+    bad = ~(torch.isfinite(g) & (g > 0)).all(dim=0)
+    return [names[i] for i in torch.nonzero(bad).flatten().tolist()]
+
+
+def bf16_ulps(torch, got, want) -> int:
+    """Largest distance in bf16 units in the last place (ordered bits)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordered(got) - ordered(want)).abs().max())
+
+
+def trace_norm_f64(torch, w):
+    """||w||_*: the square roots of the eigenvalues of w w^T (the short
+    side), in f64 on the card."""
+    w64 = w.to(torch.float64)
+    g = w64 @ w64.T if w.shape[0] <= w.shape[1] else w64.T @ w64
+    del w64
+    return float(torch.linalg.eigvalsh(g).clamp_min(0).sqrt().sum())
+
+
+def held_memory(torch):
+    """(GB allocated on the card, the largest live CUDA tensors the garbage
+    collector can reach: (shape, dtype, GB))."""
+    import gc
+
+    found = {}
+    for obj in gc.get_objects():
+        try:
+            if isinstance(obj, torch.Tensor) and obj.is_cuda:
+                st = obj.untyped_storage()
+                found[st.data_ptr()] = (tuple(obj.shape), str(obj.dtype), st.nbytes() / 1e9)
+        except Exception:  # noqa: BLE001 - objects that refuse inspection are skipped
+            continue
+    top = sorted(found.values(), key=lambda t: -t[2])[:5]
+    return torch.cuda.memory_allocated() / 1e9, top
+
+
+def train_phase(torch, np, kernels, lm, steps, train_mod, hybrid, adamw, data, ShapeSpec,
+                power_method, pm, r1, get_config, dev, args, peaks):
+    """Phase 30 (see the module doc). Returns (report, summed launches of its
+    train runs, prefill and hybrid steps, its kernel rows)."""
+    import shutil
+    import tempfile
+    import types
+
+    from repro_torch.optim.compression import tree_leaves
+
+    import gc
+
+    report, rows_out = {}, []
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(kernels.launches(), 0)
+    bf16_total = 0
+    b, s = TRAIN_SHAPE
+    # what the earlier phases leave on the card: the training configurations
+    # need most of it (codeqwen1.5-7b at 16 layers peaks at about 62 GB)
+    held = held_memory(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["held_gb"] = [held[0], torch.cuda.memory_allocated() / 1e9]
+    print(f"phase 30 starts with {held[0]:.2f} GB allocated ({report['held_gb'][1]:.2f} GB after "
+          f"a garbage collection); largest live tensors {held[1]}")
+    tokens = b * s
+    bw, flops = peaks[:2]
+
+    def add(ran):
+        nonlocal bf16_total
+        for k_, v_ in ran.launches.items():
+            total[k_] += v_
+        bf16_total += ran.routes["rank1_update"]["bf16"]
+
+    def step_clock(stamps):
+        def cb(step, metrics):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        return cb
+
+    # (a) qwen2-1.5b at full width and depth: launch.train.train, AdamW
+    cfg = get_config(TRAIN_ARCH)
+    stamps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with grad_watch(torch, lm) as seen, counting(kernels) as ran:
+        params, opt, hist = train_mod.train(
+            arch=TRAIN_ARCH, steps=TRAIN_STEPS, smoke=False, seq_len=s, global_batch=b,
+            log_every=1, device=dev, seed=args.seed, callback=step_clock(stamps))
+    add(ran)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [v for _, v in hist]
+    check(len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses),
+          f"(a) train losses {losses}")
+    bad = zero_grad_leaves(torch, seen, leaf_names(params))
+    check(not bad, f"(a) {len(bad)} parameters got a zero gradient, e.g. {bad[:5]}")
+    check(ran.launches["flash_attention"] == 0 and ran.launches["wkv6_chunk"] == 0,
+          f"(a) a train step launched flash_attention/wkv6_chunk: {ran.launches}")
+    step_ms = [1e3 * (t1 - t0_) for t0_, t1 in zip(stamps, stamps[1:])]
+    ms = statistics.median(step_ms)
+    n_params = lm.param_count(params)
+    prefill = steps.make_prefill_step(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    with counting(kernels) as ranp, torch.no_grad():
+        last, _ = prefill(params, {"tokens": toks})
+    add(ranp)
+    check(ranp.launches["flash_attention"] == cfg.num_layers and ranp.routes[
+        "flash_attention"] == {"wgmma": cfg.num_layers, "generic": 0},
+          f"(a) prefill on the trained weights: flash_attention {ranp.routes['flash_attention']}")
+    check(bool(torch.isfinite(last.float()).all()), "(a) prefill logits not finite")
+    report["a"] = dict(params=n_params, losses=losses, ms_per_step=ms, step_ms=step_ms,
+                       tokens_per_s=tokens / (ms / 1e3), peak_gb=peak, wall_s=wall,
+                       launches=ran.launches)
+    print(f"(a) {cfg.name} ({cfg.num_layers} layers, {n_params / 1e9:.3f} B parameters, "
+          f"{cfg.dtype}) launch.train.train, AdamW, {TRAIN_STEPS} steps of {b} x {s} tokens: "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; {ms:.1f} ms a step (median of steps 2-"
+          f"{TRAIN_STEPS}), {tokens / (ms / 1e3):.0f} tokens/s, peak {peak:.2f} GB; every "
+          f"parameter a nonzero gradient every step, no flash_attention launch in a step; the "
+          f"prefill after: {cfg.num_layers} flash_attention launches, all wgmma")
+    del params, opt, last, toks, seen
+    torch.cuda.empty_cache()
+
+    # (a) resume: a depth cut, checkpoints at steps 5 and 10
+    rcfg = dataclasses.replace(cfg, num_layers=TRAIN_RESUME_LAYERS)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=build, prefix="train_"))
+    try:
+        kw = dict(arch=TRAIN_ARCH, cfg=rcfg, steps=TRAIN_STEPS, seq_len=s, global_batch=b,
+                  log_every=TRAIN_STEPS, device=dev, seed=args.seed, ckpt_every=TRAIN_RESUME_AT)
+        with counting(kernels) as ran:
+            pa, oa, ha = train_mod.train(ckpt_dir=str(tmp / "a"), **kw)
+        add(ran)
+        steps_a = train_mod.CheckpointStore(tmp / "a").steps()
+        check(steps_a == [TRAIN_RESUME_AT, TRAIN_STEPS], f"(a) checkpoint steps {steps_a}")
+        shutil.copytree(tmp / "a" / f"step_{TRAIN_RESUME_AT:08d}",
+                        tmp / "b" / f"step_{TRAIN_RESUME_AT:08d}")
+        t0 = time.perf_counter()
+        with counting(kernels) as ran:
+            pb, ob, hb = train_mod.train(ckpt_dir=str(tmp / "b"), **kw)
+        add(ran)
+        resume_wall = time.perf_counter() - t0
+        same = (all(torch.equal(x, y) for x, y in zip(tree_leaves(pa), tree_leaves(pb)))
+                and all(torch.equal(x, y) for x, y in zip(tree_leaves(oa), tree_leaves(ob))))
+        check(same and hb[-1] == ha[-1],
+              f"(a) the run resumed at step {TRAIN_RESUME_AT} is not the uninterrupted run's "
+              f"bits (loss {hb[-1]} against {ha[-1]})")
+        nbytes = step_bytes(tmp / "a", TRAIN_RESUME_AT)
+        report["a"].update(resume_layers=TRAIN_RESUME_LAYERS, resume_step_bytes=nbytes,
+                           resume_wall_s=resume_wall)
+        print(f"(a) resume at a depth cut of {TRAIN_RESUME_LAYERS} of {cfg.num_layers} layers "
+              f"(full width): checkpoints {steps_a} ({nbytes} bytes a step), resumed at "
+              f"{TRAIN_RESUME_AT} and run to {TRAIN_STEPS} in {resume_wall:.1f} s: params and "
+              f"AdamW state the uninterrupted run's bits")
+        del pa, oa, pb, ob
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (b) the hybrid head on codeqwen1.5-7b at full width, a depth cut
+    hcfg = dataclasses.replace(get_config(HYBRID_ARCH), num_layers=HYBRID_LAYERS)
+    params = lm.init_params(hcfg, gen)
+    n_params = lm.param_count(params)
+    stream = data.SyntheticLMStream(hcfg, ShapeSpec("hybrid", "train", s, b))
+    step = hybrid.make_hybrid_train_step(hcfg, mu=HYBRID_MU, power_iters=HYBRID_ITERS)
+    state = hybrid.init(params)
+    rec = {}
+    orig_pm, orig_r1 = hybrid.power_method_dense, hybrid.r1_ops
+
+    def watched_pm(a, v0, k):
+        rec["start"] = torch.cuda.Event(enable_timing=True)
+        rec["start"].record()
+        res = orig_pm(a, v0, k)
+        rec.update(res=res, g=a if rec.get("keep") else None, v0=v0)
+        return res
+
+    def watched_r1(z, x, y, a_, b_, out=None):
+        got = orig_r1.rank1_update(z, x, y, a_, b_, out=out)
+        rec["end"] = torch.cuda.Event(enable_timing=True)
+        rec["end"].record()
+        rec["ab"] = (a_, b_)
+        return got
+
+    hybrid.power_method_dense = watched_pm
+    hybrid.r1_ops = types.SimpleNamespace(rank1_update=watched_r1)
+    hl, head_ms, hstep_ms, sigma = [], [], [], []
+    try:
+        d, v = params["unembed"].shape
+        with grad_watch(torch, lm) as seen:
+            for t in range(HYBRID_STEPS):
+                rec["keep"] = t == HYBRID_CHECK_STEP
+                before = params["unembed"].clone() if rec["keep"] else None
+                if t == HYBRID_CHECK_STEP + 1:
+                    torch.cuda.reset_peak_memory_stats()
+                batch = data.device_put_batch(stream.batch_for_step(t), dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with counting(kernels) as ran:
+                    params, state, m = step(params, state, batch, args.seed)
+                hstep_ms.append(1e3 * (time.perf_counter() - t0))
+                add(ran)
+                head_ms.append(rec["start"].elapsed_time(rec["end"]))
+                hl.append(float(m["loss"]))
+                sigma.append(float(m["fw_sigma"]))
+                check(math.isfinite(hl[-1]), f"(b) step {t}: loss {hl[-1]}")
+                check(ran.launches["matvec"] == HYBRID_ITERS and ran.launches["rmatvec"]
+                      == HYBRID_ITERS and ran.routes["rank1_update"] == {"f32": 0, "bf16": 1},
+                      f"(b) step {t}: launches {ran.launches}, rank1 routes "
+                      f"{ran.routes['rank1_update']}")
+                check(ran.launches["flash_attention"] == 0, "(b) flash_attention in a step")
+                w = params["unembed"]
+                if t == 0:  # gamma = 1: the head is -mu u v^T rounded to bf16
+                    res = rec["res"]
+                    wf = torch.outer(res.u, res.v).mul_(-float(np.float32(HYBRID_MU)))
+                    err_f = float(torch.linalg.vector_norm(w.float() - wf))
+                    del wf
+                    nu = float(torch.linalg.vector_norm(res.u) * torch.linalg.vector_norm(res.v))
+                    tn = trace_norm_f64(torch, w)
+                    bound = HYBRID_MU * nu + math.sqrt(min(d, v)) * err_f
+                    prior = HYBRID_MU * (1 + math.sqrt(min(d, v)) * 2 ** -8)
+                    check(tn <= bound, f"(b) trace norm {tn} after step 1 above mu |u| |v| + "
+                          f"sqrt(min(d, V)) ||E||_F = {bound}")
+                    report["b_trace"] = dict(trace_norm=tn, bound=bound, prior_bound=prior,
+                                             rounding_fro=err_f)
+                    print(f"(b) after step 1 (gamma = 1): ||W||_* = {tn:.4f}, mu = {HYBRID_MU}; "
+                          f"bound mu |u| |v| + sqrt(min(d, V)) ||E||_F = {bound:.4f} (E the "
+                          f"head's bf16 rounding, ||E||_F = {err_f:.4g}; a priori mu (1 + "
+                          f"sqrt(min(d, V)) 2^-8) = {prior:.2f})")
+                if t == HYBRID_CHECK_STEP:
+                    g, v0, res = rec.pop("g"), rec["v0"], rec["res"]
+                    gam = np.float32(2.0) / np.float32(t + 2)
+                    a_, c_ = float(np.float32(1.0) - gam), float(gam * np.float32(HYBRID_MU))
+                    check(rec["ab"] == (a_, -c_), f"(b) scalars {rec['ab']} != {(a_, -c_)}")
+                    # the update alone: the step's own u, v through the plain chain
+                    same = (a_ * before.float() - c_ * torch.outer(res.u, res.v)).bfloat16()
+                    check(torch.equal(w, same), "(b) the head update is not the plain chain's "
+                          "bits on the step's own u and v")
+                    del same
+                    # the whole chain: torch.mv power iterations on the same gradient and v0
+                    pres, _ = power_method.power_iterations(
+                        lambda x: pm.ref.matvec(g, x), lambda x: pm.ref.rmatvec(g, x), v0,
+                        HYBRID_ITERS)
+                    uv_err = max(float(torch.max(torch.abs(res.u - pres.u))),
+                                 float(torch.max(torch.abs(res.v - pres.v))))
+                    term = c_ * torch.outer(pres.u, pres.v)
+                    want = (a_ * before.float() - term).bfloat16()
+                    # one bf16 ulp at the scale of the update's terms: where they cancel,
+                    # the two chains' u v^T (a few f32 ulps apart) round apart
+                    scale = term.abs_().add_(before.float().abs_().mul_(a_))
+                    excess = float(torch.max((w.float() - want.float()).abs_() - scale.mul_(
+                        2.0 ** -7)))
+                    del term, scale
+                    ulps = bf16_ulps(torch, w, want)
+                    frac = float((w != want).float().mean())
+                    check(excess <= 0, f"(b) step {t + 1}'s head departs from the plain chain "
+                          f"by more than one bf16 ulp of its terms ({excess:.3g} over)")
+                    report["b_chain"] = dict(step=t + 1, ulps_elementwise=ulps, differing=frac,
+                                             uv_max_abs_diff=uv_err)
+                    print(f"(b) step {t + 1}'s head update: the plain chain's bits on the "
+                          f"step's own u, v; against the whole plain chain (torch.mv power "
+                          f"iterations on the same f32 gradient and v0, u and v within "
+                          f"{uv_err:.2e}, then ((1 - gamma) W - gamma mu u v^T) in f32 "
+                          f"rounded to bf16) within one bf16 ulp of the terms, {frac:.2e} of "
+                          f"the entries differing (at most {ulps} ulps of the result where "
+                          f"the terms cancel)")
+                    del g, want, before, pres
+                    torch.cuda.empty_cache()
+        bad = zero_grad_leaves(torch, seen, leaf_names(params))
+        check(not bad, f"(b) {len(bad)} parameters got a zero gradient, e.g. {bad[:5]}")
+    finally:
+        hybrid.power_method_dense, hybrid.r1_ops = orig_pm, orig_r1
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms = statistics.median(hstep_ms[1:])
+    hms = statistics.median(head_ms[1:])
+    report["b"] = dict(layers=HYBRID_LAYERS, params=n_params, losses=hl, fw_sigma=sigma,
+                       step_ms=hstep_ms, ms_per_step=ms, head_ms=head_ms, head_share=hms / ms,
+                       tokens_per_s=tokens / (ms / 1e3), peak_gb=peak)
+    print(f"(b) {hcfg.name} hybrid (AdamW + DFW-Trace head, mu {HYBRID_MU}, {HYBRID_ITERS} power "
+          f"iterations), depth cut {HYBRID_LAYERS} of 32 layers at full width "
+          f"({n_params / 1e9:.3f} B parameters, bf16), {HYBRID_STEPS} steps of {b} x {s} tokens: "
+          f"loss {hl[0]:.4f} -> {hl[-1]:.4f}, sigma {sigma}; {ms:.1f} ms a step (median of steps "
+          f"2-{HYBRID_STEPS}), the head (power method + update) {hms:.2f} ms of it "
+          f"({100 * hms / ms:.2f}%), {tokens / (ms / 1e3):.0f} tokens/s, peak {peak:.2f} GB "
+          f"(steps {HYBRID_CHECK_STEP + 2}-{HYBRID_STEPS}); each step matvec and rmatvec "
+          f"{HYBRID_ITERS} launches, the bf16 rank1_update one")
+    del params, state, m, seen, stream
+    torch.cuda.empty_cache()
+
+    # (c) rwkv6-7b at full width, a depth cut: AdamW steps
+    scfg = dataclasses.replace(get_config(SSM_ARCH), num_layers=SSM_TRAIN_LAYERS)
+    params = lm.init_params(scfg, gen)
+    n_params = lm.param_count(params)
+    opt = adamw.init(params)
+    sstep = steps.make_train_step(scfg)
+    stream = data.SyntheticLMStream(scfg, ShapeSpec("ssm", "train", s, b))
+    sl, sms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    with grad_watch(torch, lm) as seen:
+        for t in range(SSM_TRAIN_STEPS):
+            batch = data.device_put_batch(stream.batch_for_step(t), dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with counting(kernels) as ran:
+                params, opt, m = sstep(params, opt, batch)
+            sms.append(1e3 * (time.perf_counter() - t0))
+            add(ran)
+            sl.append(float(m["loss"]))
+            check(math.isfinite(sl[-1]), f"(c) step {t}: loss {sl[-1]}")
+            check(ran.launches["wkv6_chunk"] == 0, f"(c) wkv6_chunk launched: {ran.launches}")
+    bad = zero_grad_leaves(torch, seen, leaf_names(params))
+    check(not bad, f"(c) {len(bad)} parameters got a zero gradient, e.g. {bad[:5]}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    report["c"] = dict(layers=SSM_TRAIN_LAYERS, params=n_params, losses=sl, step_ms=sms,
+                       tokens_per_s=tokens / (sms[-1] / 1e3), peak_gb=peak)
+    print(f"(c) {scfg.name} AdamW, depth cut {SSM_TRAIN_LAYERS} of 32 layers at full width "
+          f"({n_params / 1e9:.3f} B parameters, bf16), {SSM_TRAIN_STEPS} steps of {b} x {s} "
+          f"tokens: loss {sl[0]:.4f} -> {sl[-1]:.4f}; {sms[-1]:.1f} ms the second step, "
+          f"{tokens / (sms[-1] / 1e3):.0f} tokens/s, peak {peak:.2f} GB; every parameter "
+          f"(time mix, channel mix, norms, embed, head) a nonzero gradient, no wkv6_chunk "
+          f"launch in a step (the plain chunk form under autograd)")
+    del params, opt, m, seen, stream
+    torch.cuda.empty_cache()
+
+    # (d) the kernel rows at the hybrid head's shape
+    d, v = get_config(HYBRID_ARCH).d_model, get_config(HYBRID_ARCH).vocab_size
+    rn = lambda *shape: torch.randn(*shape, generator=gen, device=dev)  # noqa: E731
+    z0 = rn(d, v).bfloat16()
+    x, y = rn(d), rn(v)
+    a_, b_ = 0.75, -1.5
+    scal = torch.tensor([a_, b_], device=dev)
+    want = r1.ref.rank1_update(z0, x, y, scal)
+    W = z0.clone()
+    check(r1.rank1_update(W, x, y, a_, b_, out=W) is W, "(d) bf16 rank1_update not in place")
+    torch.cuda.synchronize()
+    ulps = bf16_ulps(torch, W, want)
+    e_abs, e_rel = rel_err(torch, W.float(), want.float())
+    check(ulps <= 1, f"(d) bf16 rank1_update is {ulps} bf16 ulps from its plain version")
+    check(torch.equal(r1.rank1_update(z0, x, y, a_, b_), W), "(d) bf16 out of place != in place")
+    xb, yb = x.bfloat16(), y.bfloat16()
+    lib_err = rel_err(torch, torch.addr(z0, xb, yb, beta=a_, alpha=b_).float(), want.float())[1]
+    nbytes, nflops = 4 * d * v + 4 * (d + v), 4 * d * v
+    kfn = lambda: r1.rank1_update(W, x, y, a_, b_, out=W)  # noqa: E731
+    lfn = lambda: W.addr_(xb, yb, beta=a_, alpha=b_)  # noqa: E731
+    ms1, lib1 = time_ms(torch, kfn, args.reps), time_ms(torch, lfn, args.reps)
+    lib2, ms2 = time_ms(torch, lfn, args.reps), time_ms(torch, kfn, args.reps)
+    row = dict(name="rank1_update_bf16", operand=f"{d}x{v} bf16 in place (the hybrid head)",
+               shape=[d, v], max_abs_err=e_abs, max_rel_err=e_rel, ulps=ulps,
+               ms=(ms1 + ms2) / 2, ms_rounds=[ms1, ms2],
+               plain_ms=time_ms(torch, lambda: r1.ref.rank1_update(z0, x, y, scal), args.reps),
+               library_ms=(lib1 + lib2) / 2, library_ms_rounds=[lib1, lib2],
+               library_rel_err=lib_err,
+               bound_ms=1e3 * max(nbytes / bw, nflops / flops),
+               bound_by="bytes" if nbytes / bw >= nflops / flops else "operations",
+               bytes=nbytes, flops=nflops, main=True,
+               device_ms=device_ms(torch, kfn, "rank1_bf16_kernel"))
+    rows_out.append(row)
+    print(f"(d) kernel rank1_update_bf16 {d}x{v} in place: {row['ms']:.4f} ms (turns "
+          f"{row['ms_rounds']}; device {fmt_ms(row['device_ms'])}), plain "
+          f"{row['plain_ms']:.4f}, torch.addr_ bf16 {row['library_ms']:.4f} (turns "
+          f"{row['library_ms_rounds']}; rel err from the plain version {lib_err:.2e}), bound "
+          f"{row['bound_ms']:.4f} by {row['bound_by']} ({row['bound_ms'] / row['ms']:.3f} of it); "
+          f"within {ulps} bf16 ulp of its plain version")
+    del z0, W, want, xb, yb
+    torch.cuda.empty_cache()
+    A = rn(d, v)
+    vv, uu = rn(v), rn(d)
+    for name, kfn, pfn, lfn in (
+            ("matvec", lambda: pm.matvec(A, vv), lambda: pm.ref.matvec(A, vv),
+             lambda: torch.mv(A, vv)),
+            ("rmatvec", lambda: pm.rmatvec(A, uu), lambda: pm.ref.rmatvec(A, uu),
+             lambda: torch.mv(A.t(), uu))):
+        e_abs, e_rel = rel_err(torch, kfn(), pfn())
+        check(e_rel <= TOL[name], f"(d) {name} at the head gradient: rel err {e_rel:.2e}")
+        nb, nf = 4 * (d * v + d + v), 2 * d * v
+        ms1, lib1 = time_ms(torch, kfn, args.reps), time_ms(torch, lfn, args.reps)
+        lib2, ms2 = time_ms(torch, lfn, args.reps), time_ms(torch, kfn, args.reps)
+        row = dict(name=name, operand=f"head gradient {d}x{v}", shape=[d, v],
+                   max_abs_err=e_abs, max_rel_err=e_rel, ms=(ms1 + ms2) / 2,
+                   ms_rounds=[ms1, ms2], plain_ms=time_ms(torch, pfn, args.reps),
+                   library_ms=(lib1 + lib2) / 2, library_ms_rounds=[lib1, lib2],
+                   bound_ms=1e3 * max(nb / bw, nf / flops),
+                   bound_by="bytes" if nb / bw >= nf / flops else "operations", bytes=nb)
+        rows_out.append(row)
+        print(f"(d) kernel {name} at the head gradient {d}x{v}: {row['ms']:.4f} ms (turns "
+              f"{row['ms_rounds']}), plain {row['plain_ms']:.4f}, torch.mv "
+              f"{row['library_ms']:.4f} (turns {row['library_ms_rounds']}), bound "
+              f"{row['bound_ms']:.4f} ({row['bound_ms'] / row['ms']:.3f} of it), rel err "
+              f"{e_rel:.2e}")
+    del A
+    torch.cuda.empty_cache()
+    report["wall_s"] = time.perf_counter() - t_phase
+    report["launches"] = total
+    report["bf16_launches"] = bf16_total
+    print(f"phase 30 took {report['wall_s']:.1f} s")
+    return report, total, bf16_total, rows_out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5300,7 +5837,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(src))
     import numpy as np
 
-    from repro_torch import (NoiseStream, V0Stream, checkpoint, comm, convert, kernels,
+    from repro_torch import (NoiseStream, V0Stream, checkpoint, comm, convert, data, kernels,
                              resolve_device)
     from repro_torch import serve
     from repro_torch.configs import get_config
@@ -5313,13 +5850,20 @@ def main(argv=None) -> int:
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import rank1_update as r1
     from repro_torch.kernels import wkv6_chunk as wkv
+    from repro_torch.core import power_method
     from repro_torch.launch import dfw, steps
     from repro_torch.launch import serve as lm_serve
+    from repro_torch.launch import train as train_mod
     from repro_torch.models import lm, rwkv6
-    from repro_torch.optim import compression
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import adamw, compression, hybrid
 
     dev = resolve_device("cuda")
     name = torch.cuda.get_device_name(0)
+
+    def held_gb():
+        return f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated after it"
+
     report = dict(device=name, torch=torch.__version__, cuda=torch.version.cuda)
     try:
         # 1. build + card
@@ -5591,7 +6135,7 @@ def main(argv=None) -> int:
             args.seed, args, report["world_one"])
         report["graphs"]["wall_s"] = time.perf_counter() - t0
         print(f"phase 23 took {report['baselines']['wall_s']:.1f} s, phase 24 "
-              f"{report['graphs']['wall_s']:.1f} s ({smi})")
+              f"{report['graphs']['wall_s']:.1f} s ({smi}); {held_gb()}")
         del X, Y, idx, yw, mc_data
         torch.cuda.empty_cache()
 
@@ -5603,7 +6147,7 @@ def main(argv=None) -> int:
             torch, np, kernels, dfw, comm, tasks, low_rank, NoiseStream, pm, r1, mc, dev, args,
             peaks, rank1_ms)
         krows += block_rows
-        print(f"phase 25 took {report['block']['wall_s']:.1f} s ({smi})")
+        print(f"phase 25 took {report['block']['wall_s']:.1f} s ({smi}); {held_gb()}")
         torch.cuda.empty_cache()
 
         # 26. resume from checkpoints: MC dense and block:8:adapt at the Netflix
@@ -5614,7 +6158,7 @@ def main(argv=None) -> int:
             torch, np, kernels, dfw, tasks, low_rank, checkpoint, convert, dev, args)
         block_route += resume_route
         report["resume"]["wall_s"] = time.perf_counter() - t0
-        print(f"phase 26 took {report['resume']['wall_s']:.1f} s ({smi})")
+        print(f"phase 26 took {report['resume']['wall_s']:.1f} s ({smi}); {held_gb()}")
         torch.cuda.empty_cache()
 
         # 27. the engine on the card: scan (one graph a segment) against
@@ -5622,7 +6166,7 @@ def main(argv=None) -> int:
         report["engine"], engine_launch, engine_route = engine_phase(
             torch, np, kernels, dfw, comm, tasks, frank_wolfe, engine, dev, args)
         block_route += engine_route
-        print(f"phase 27 took {report['engine']['wall_s']:.1f} s ({smi})")
+        print(f"phase 27 took {report['engine']['wall_s']:.1f} s ({smi}); {held_gb()}")
         torch.cuda.empty_cache()
 
         # 28. telemetry through the fits, the checkpoint store and serving: the
@@ -5631,7 +6175,7 @@ def main(argv=None) -> int:
         report["telemetry"], telemetry_launch, telemetry_route = telemetry_phase(
             torch, np, kernels, dfw, comm, tasks, frank_wolfe, engine, serve, low_rank, dev, args)
         block_route += telemetry_route
-        print(f"phase 28 ({smi})")
+        print(f"phase 28 ({smi}); {held_gb()}")
         torch.cuda.empty_cache()
 
         # 29. the paper's head: train_head and sharded_fit at the ImageNet
@@ -5641,7 +6185,17 @@ def main(argv=None) -> int:
             torch, np, kernels, dfw, comm, tasks, low_rank, checkpoint, dfw_head, compression,
             lm, get_config, fm, dev, args, peaks)
         krows += head_rows
-        print(f"phase 29 ({smi})")
+        print(f"phase 29 ({smi}); {held_gb()}")
+        torch.cuda.empty_cache()
+
+        # 30. LM training: qwen2-1.5b with AdamW through launch.train and a
+        # resume, the hybrid DFW-Trace head on codeqwen1.5-7b, rwkv6-7b;
+        # the bf16 rank-1 update and the matvecs at the head's shape
+        report["train"], train_launch, train_bf16, train_rows = train_phase(
+            torch, np, kernels, lm, steps, train_mod, hybrid, adamw, data, ShapeSpec,
+            power_method, pm, r1, get_config, dev, args, peaks)
+        krows += train_rows
+        print(f"phase 30 ({smi})")
         torch.cuda.empty_cache()
     except Check as e:
         return fail(str(e))
@@ -5650,8 +6204,9 @@ def main(argv=None) -> int:
     paths = (mtls_launch, log_launch, mc_launch, mc8_launch, fit12_launch, serve_launch,
              prefill_launch, decode_launch, ssm_prefill_launch, ssm_decode_launch,
              world_one_launch, multi_launch, baselines_launch, graphs_launch, block_launch,
-             resume_launch, engine_launch, telemetry_launch, head_launch)
-    for kname in (*TPU_KERNEL, *HELPER_KERNELS, *BLOCK_KERNELS, "update_resid_block"):
+             resume_launch, engine_launch, telemetry_launch, head_launch, train_launch)
+    for kname in (*TPU_KERNEL, *HELPER_KERNELS, *BLOCK_KERNELS, "update_resid_block",
+                  "rank1_update_bf16"):
         rows = [r for r in krows if r["name"] == kname]
         main_row = next((r for r in rows if r.get("main")), None) or max(
             rows, key=lambda r: r["bytes"])
@@ -5665,9 +6220,12 @@ def main(argv=None) -> int:
             replaces = TPU_KERNEL[kname if kname in TPU_KERNEL else "coo_matvec"]
         if kname == "update_resid_block":  # a route of the update_resid wrapper
             launches = block_route
+        elif kname == "rank1_update_bf16":  # a route of the rank1_update wrapper
+            launches = train_bf16
         else:
             launches = sum(path[kname] for path in paths) - (
-                block_route if kname == "update_resid" else 0)
+                block_route if kname == "update_resid" else 0) - (
+                train_bf16 if kname == "rank1_update" else 0)
         out.append(dict(
             name=kname, route="cuda", source=SOURCE[kname], replaces=replaces, **helper,
             launches=launches,

@@ -7,8 +7,12 @@ package's on-disk layout:
         leaf_<i:05d>.npy one numpy file per leaf
 
 A payload is an ordered mapping of leaf path ("carry/iterate/u") to array
-(numpy arrays, torch tensors on any device, or scalars); the order of the
-mapping is the order of the leaves. ``treedef`` is written as null: the JAX
+(numpy arrays, torch tensors on any device, or scalars; a list of tensors
+is stacked on the host along a new first axis, as the JAX package's LM
+layers are stacked); the order of the mapping is the order of the leaves.
+A bfloat16 leaf is written as the JAX package writes one (raw 2-byte
+records, manifest dtype "bfloat16") and read back as such records
+(``convert`` turns them into bf16 tensors). ``treedef`` is written as null: the JAX
 package encodes it with jax, and its readers of run checkpoints map leaves by
 order and path, never through it.
 
@@ -100,11 +104,23 @@ def read_leaves(
     return manifest["step"], leaves, manifest.get("extra", {})
 
 
+BF16_RECORD = np.dtype("V2")  # how numpy stores (and np.load reads) a bfloat16 leaf
+
+
 def _host(leaf) -> np.ndarray:
     """A host copy of ``leaf`` that later in-place updates cannot change."""
+    if isinstance(leaf, (list, tuple)):
+        return np.stack([_host(part) for part in leaf])
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
+        host = leaf.detach().to("cpu", copy=True)
+        if host.dtype == torch.bfloat16:
+            return host.view(torch.int16).numpy().view(BF16_RECORD)
+        return host.numpy()
     return np.array(leaf, copy=True)
+
+
+def _dtype_name(leaf: np.ndarray) -> str:
+    return "bfloat16" if leaf.dtype == BF16_RECORD else str(leaf.dtype)
 
 
 class CheckpointStore:
@@ -213,7 +229,8 @@ class CheckpointStore:
             fname = f"leaf_{i:05d}.npy"
             np.save(tmp / fname, leaf)
             manifest["leaves"].append(
-                {"file": fname, "path": path, "shape": list(leaf.shape), "dtype": str(leaf.dtype)}
+                {"file": fname, "path": path, "shape": list(leaf.shape),
+                 "dtype": _dtype_name(leaf)}
             )
         (tmp / "manifest.json").write_text(json.dumps(manifest))
         if out.exists():

@@ -44,7 +44,8 @@ def _as(a, dtype: torch.dtype, device) -> torch.Tensor:
         return a.to(device=device, dtype=dtype)
     if device.type == "cpu":
         return torch.from_numpy(np.array(a, dtype=_NUMPY[dtype], copy=True))
-    host = np.ascontiguousarray(a, dtype=_NUMPY[dtype])
+    # np.ascontiguousarray makes a 0-d array 1-d: keep the caller's shape
+    host = np.ascontiguousarray(a, dtype=_NUMPY[dtype]).reshape(np.shape(a))
     if not host.flags.writeable:
         host = host.copy()
     return torch.from_numpy(host).to(device)
@@ -139,7 +140,8 @@ def _float_tensor(a, device) -> torch.Tensor:
     bf16 arrives as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
     refuses: it is viewed as uint16, then as bf16."""
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
+    # ml_dtypes' bfloat16, or the 2-byte records np.load gives for one
+    if a.dtype.name == "bfloat16" or a.dtype == np.dtype("V2"):
         return torch.from_numpy(np.array(a.view(np.uint16), copy=True)).view(
             torch.bfloat16).to(device)
     if a.dtype != np.float32:
@@ -174,6 +176,35 @@ def lm_params(params: Any, cfg, *, device: DeviceLike = None) -> dict:
 
     out["layers"] = [layer(stacked, i) for i in range(cfg.num_layers)]
     return out
+
+
+def adamw_state(state: Any, cfg, *, device: DeviceLike = None):
+    """The port's ``optim.adamw.AdamWState`` from the JAX package's (after
+    ``jax.device_get``), or from a train checkpoint's ``{"step", "m", "v"}``
+    leaves: ``step`` a 0-d int32 tensor, ``m`` and ``v`` f32 parameter trees
+    laid out as ``lm_params`` lays out the weights."""
+    from .optim import adamw
+
+    f = _fields(state)
+    if set(f) != {"step", "m", "v"}:
+        raise TypeError(f"no AdamW state with fields {sorted(f)} (expected step/m/v)")
+    dev = resolve_device(device)
+    return adamw.AdamWState(step=_as(np.asarray(f["step"]).reshape(()), torch.int32, dev),
+                            m=lm_params(f["m"], cfg, device=dev),
+                            v=lm_params(f["v"], cfg, device=dev))
+
+
+def hybrid_state(state: Any, cfg, *, device: DeviceLike = None):
+    """The port's ``optim.hybrid.HybridState`` from the JAX package's (after
+    ``jax.device_get``): its AdamW state as ``adamw_state`` and the FW step
+    counter as a host int."""
+    from .optim import hybrid
+
+    f = _fields(state)
+    if set(f) != {"adam", "fw_step"}:
+        raise TypeError(f"no hybrid state with fields {sorted(f)} (expected adam/fw_step)")
+    return hybrid.HybridState(adam=adamw_state(f["adam"], cfg, device=device),
+                              fw_step=int(np.asarray(f["fw_step"])))
 
 
 def powersgd_state(state: Any, *, device: DeviceLike = None):

@@ -151,11 +151,29 @@ def sharded_fit(group: Optional[WorkerGroup], x, y, num_classes: int, *, mu: flo
     return HeadFitResult(iterate=res.iterate, history=res.history, final_loss=res.final_loss)
 
 
+def top_k_hits(logits: torch.Tensor, y: torch.Tensor, k: int) -> torch.Tensor:
+    """(b,) bool: is label ``y[i]`` among the k largest of ``logits[i]``,
+    with ``jax.lax.top_k``'s rule among equal logits (the lower index
+    first)? Under that rule the label's place in the row's order is the
+    count of logits above its own plus the count of equal ones at lower
+    indices, so it is a hit when that count is below k: two comparisons
+    with the label's logit, no sort and no ``torch.topk`` (which promises no
+    order among ties)."""
+    if not 1 <= k <= logits.shape[1]:
+        raise ValueError(f"k = {k} is outside 1..{logits.shape[1]}")
+    y = y.to(device=logits.device, dtype=torch.int64)[:, None]
+    gold = torch.gather(logits, 1, y)
+    cols = torch.arange(logits.shape[1], device=logits.device)
+    ahead = (logits > gold) | ((logits == gold) & (cols < y))
+    return ahead.sum(dim=1) < k
+
+
 def top_k_error(it: low_rank.FactoredIterate, x: torch.Tensor, y: torch.Tensor,
                 k: int = 5) -> float:
     """The paper's top-k misclassification rate of the factored head on
     features ``x`` (n, d) and labels ``y`` (n,): a row is a hit when its
-    label is among its k largest logits. The logits come from
+    label is among its k largest logits, ties broken as the reference's
+    ``jax.lax.top_k`` breaks them (``top_k_hits``). The logits come from
     ``low_rank.right_multiply`` (the ``factor_matvec`` kernel on the card)
     one chunk of ``low_rank.RIGHT_MULTIPLY_ROWS`` rows at a time, so the (n,
     m) logits are never all on the device at once. The rate is 1 - hits / n
@@ -164,6 +182,6 @@ def top_k_error(it: low_rank.FactoredIterate, x: torch.Tensor, y: torch.Tensor,
     n = x.shape[0]
     hits = torch.zeros((), dtype=torch.int64, device=x.device)
     for lo in range(0, n, rows):
-        idx = torch.topk(low_rank.right_multiply(it, x[lo:lo + rows]), k, dim=1).indices
-        hits += (idx == y[lo:lo + rows, None].to(idx.device)).any(dim=1).sum()
+        hits += top_k_hits(low_rank.right_multiply(it, x[lo:lo + rows]), y[lo:lo + rows],
+                           k).sum()
     return float(1.0 - hits.to(torch.float32) / n)

@@ -55,6 +55,20 @@
 // a launch's bits do not depend on the launch plan. Each element is read (a
 // step ahead, into the ring) and then written by one lane, so out may be z.
 // No atomics: a run repeats its bits.
+//
+// bf16 form (the hybrid optimizer's head update at full width):
+//   rank1_update_bf16  Z' = a*Z + b*x y^T, Z and Z' bf16, x, y, a, b f32
+// The reference's kernel takes Z of any dtype and writes z.dtype: a*z
+// promotes a bf16 z to f32 and the outer product is f32, so it computes in
+// f32 and rounds once to bf16. This kernel does the same, in the plain
+// version's order: z widened exactly, a*z + b*(x*y) with round-to-nearest
+// intrinsics (nothing contracted), rounded to nearest even.
+// Bound: bytes, one HBM pass, 2 bytes read and 2 written an element: at
+// 4096 x 92,416 (codeqwen1.5-7b's head) that is 1.514 GB.
+// Design: rank1_kernel's, with 16-byte accesses of 8 bf16 when m % 8 == 0
+// and Z, out 16-byte aligned (else one element a thread). Each element is
+// read and then written by one thread, so out may be z.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -116,6 +130,55 @@ void launch(float* out, const float* z, const float* y0, const float* x, const f
     rank1_kernel<4, AXPY><<<grid, kThreads, 0, s>>>(out, z, y0, x, y, scal, n, m);
   } else {
     rank1_kernel<1, AXPY><<<grid, kThreads, 0, s>>>(out, z, y0, x, y, scal, n, m);
+  }
+}
+
+__device__ __forceinline__ __nv_bfloat16 combine_bf16(float a, __nv_bfloat16 z, float b,
+                                                       float xr, float yj) {
+  return __float2bfloat16_rn(combine(a, __bfloat162float(z), b, xr, yj, 0.f, 0.f, false));
+}
+
+// Two packed bf16 (low half first) through combine_bf16.
+__device__ __forceinline__ uint32_t combine_pair(float a, uint32_t zz, float b, float xr,
+                                                 float y_lo, float y_hi) {
+  const __nv_bfloat16 lo = combine_bf16(a, __ushort_as_bfloat16(static_cast<uint16_t>(zz)), b,
+                                        xr, y_lo);
+  const __nv_bfloat16 hi = combine_bf16(
+      a, __ushort_as_bfloat16(static_cast<uint16_t>(zz >> 16)), b, xr, y_hi);
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+rank1_bf16_kernel(__nv_bfloat16* out, const __nv_bfloat16* z, const float* __restrict__ x,
+                  const float* __restrict__ y, const float* __restrict__ scal, int64_t n,
+                  int64_t m) {
+  const float a = scal[0];
+  const float b = scal[1];
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock;
+  const int64_t row1 = (row0 + kRowsPerBlock < n) ? row0 + kRowsPerBlock : n;
+  for (int64_t r = row0; r < row1; ++r) {
+    const float xr = __ldg(x + r);
+    const int64_t base = r * m;
+    if constexpr (VEC == 8) {
+      const int64_t m8 = m / 8;
+      for (int64_t j = threadIdx.x; j < m8; j += kThreads) {
+        const uint4 zz = reinterpret_cast<const uint4*>(z + base)[j];
+        const float4 y0 = __ldg(reinterpret_cast<const float4*>(y) + 2 * j);
+        const float4 y1 = __ldg(reinterpret_cast<const float4*>(y) + 2 * j + 1);
+        uint4 o;
+        o.x = combine_pair(a, zz.x, b, xr, y0.x, y0.y);
+        o.y = combine_pair(a, zz.y, b, xr, y0.z, y0.w);
+        o.z = combine_pair(a, zz.z, b, xr, y1.x, y1.y);
+        o.w = combine_pair(a, zz.w, b, xr, y1.z, y1.w);
+        reinterpret_cast<uint4*>(out + base)[j] = o;
+      }
+    } else {
+      for (int64_t j = threadIdx.x; j < m; j += kThreads) {
+        out[base + j] = combine_bf16(a, z[base + j], b, xr, __ldg(y + j));
+      }
+    }
   }
 }
 
@@ -421,6 +484,25 @@ int r1_update_f32(float* out, const float* z, const float* y0, const float* x,
     launch<true>(out, z, y0, x, y, scal, n, m, vec, s);
   } else {
     launch<false>(out, z, y0, x, y, scal, n, m, vec, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out (n, m) = a*z + b*x y^T for bf16 z and out (n, m) row-major, f32 x (n,),
+// y (m,) and scal = [a, b] on the device; out may equal z. The 16-byte route
+// takes m % 8 == 0 with z, out and y 16-byte aligned.
+int r1_update_bf16(void* out, const void* z, const float* x, const float* y, const float* scal,
+                   int64_t n, int64_t m, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>((n + kRowsPerBlock - 1) / kRowsPerBlock));
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  const auto* zz = static_cast<const __nv_bfloat16*>(z);
+  if (m % 8 == 0 && aligned16(out) && aligned16(z) && aligned16(y)) {
+    rank1_bf16_kernel<8><<<grid, kThreads, 0, s>>>(o, zz, x, y, scal, n, m);
+  } else {
+    rank1_bf16_kernel<1><<<grid, kThreads, 0, s>>>(o, zz, x, y, scal, n, m);
   }
   return static_cast<int>(cudaGetLastError());
 }

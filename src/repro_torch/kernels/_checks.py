@@ -11,12 +11,13 @@ from typing import Sequence
 import torch
 
 
-def dense_f32(t: torch.Tensor, name: str, shape: Sequence[int]) -> None:
-    """``t`` is a contiguous float32 tensor of exactly ``shape``."""
+def dense_f32(t: torch.Tensor, name: str, shape: Sequence[int],
+              dtype: torch.dtype = torch.float32) -> None:
+    """``t`` is a contiguous float32 (or ``dtype``) tensor of exactly ``shape``."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {str(dtype).removeprefix('torch.')}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
@@ -44,3 +45,15 @@ def kernel_device(device: torch.device, op: str) -> bool:
     if device.type == "cpu":
         return False
     raise ValueError(f"{op}: no kernel for device {device}")
+
+
+def forward_only(op: str, *tensors: torch.Tensor) -> None:
+    """Refuse a CUDA input that autograd would record through: the kernel
+    ``op`` is a forward only, and a ctypes launch leaves no graph, so its
+    inputs would silently get no gradient."""
+    if torch.is_grad_enabled() and any(t.device.type == "cuda" and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(
+            f"{op}: an input requires grad, but the kernel has no backward; take the "
+            "differentiable path (the model's layers do under autograd) or run under "
+            "torch.no_grad()")

@@ -17,6 +17,11 @@ contiguous (stride 1). Ragged Sq and Skv are masked in the kernel; nothing
 is padded. ``flash_attention.launches`` counts the kernel launches, and
 ``flash_attention.route_launches`` splits them by route ("wgmma",
 "generic").
+
+The kernel is a forward only: a CUDA input that requires grad under grad
+mode is refused (``_checks.forward_only``), so no caller can lose a
+gradient without being told; ``models.layers.attention`` takes its
+differentiable path then.
 """
 from __future__ import annotations
 
@@ -58,6 +63,7 @@ def flash_attention(
 ) -> torch.Tensor:
     """softmax(Q K^T * scale [causal mask]) V with GQA -> (B, Hq, Sq, Dh)."""
     _check(q, k, v)
+    _checks.forward_only("flash_attention", q, k, v)
     if not _checks.kernel_device(q.device, "flash_attention"):
         return ref.attention(q, k, v, scale=scale, causal=causal)
     b, hq, sq, dh = q.shape

@@ -24,6 +24,8 @@ def _library():
         lib.r1_update_f32.restype = ctypes.c_int
         lib.rk_update_f32.argtypes = [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _P]
         lib.rk_update_f32.restype = ctypes.c_int
+        lib.r1_update_bf16.argtypes = [_P, _P, _P, _P, _P, _I64, _I64, _I, _P]
+        lib.r1_update_bf16.restype = ctypes.c_int
         lib.r1_error_string.argtypes = [ctypes.c_int]
         lib.r1_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -47,6 +49,21 @@ def update(
     if err != 0:
         raise RuntimeError(
             f"rank1_update launch failed: {lib.r1_error_string(err).decode()}"
+        )
+
+
+def update_bf16(out: torch.Tensor, z: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                scal: torch.Tensor) -> None:
+    """out = a*z + b*x y^T for bf16 z and out, f32 x, y; scal = [a, b]."""
+    lib = _library()
+    n, m = z.shape
+    err = lib.r1_update_bf16(
+        out.data_ptr(), z.data_ptr(), x.data_ptr(), y.data_ptr(), scal.data_ptr(), n, m,
+        z.device.index, torch.cuda.current_stream(z.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"rank1_update (bf16) launch failed: {lib.r1_error_string(err).decode()}"
         )
 
 

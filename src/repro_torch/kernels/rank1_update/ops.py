@@ -2,7 +2,12 @@
 
 ``rank1_update(z, x, y, a, b)`` is a*Z + b*x y^T and
 ``rank1_update_axpy(z, y0, x, y, a, b, c)`` is a*Z + b*x y^T + c*Y0, for
-(n, m) float32 row-major Z/Y0 and vectors x (n,), y (m,). The scalars may be
+(n, m) float32 row-major Z/Y0 and vectors x (n,), y (m,). ``rank1_update``
+also takes a bfloat16 Z (its "bf16" route, the hybrid optimizer's head
+update): x, y and the scalars stay f32, the arithmetic is f32 and the
+result is rounded once to bf16, as the reference's kernel computes for a
+bf16 Z; ``rank1_update.route_launches`` splits its launches by route
+("f32", "bf16"). The scalars may be
 Python floats or 0-d float32 tensors on Z's device; they are stacked on the
 device, never read by the host. ``out`` may be ``z`` itself to update in
 place. ``rankk_update(z, p, q, a, b)`` and ``rankk_update_axpy(z, y0, p, q,
@@ -38,10 +43,10 @@ def _scalars(device: torch.device, *vals: Scalar) -> torch.Tensor:
     return torch.stack(out)
 
 
-def _prepare(z, x, y, out, y0=None):
+def _prepare(z, x, y, out, y0=None, dtype=torch.float32):
     if not isinstance(z, torch.Tensor) or z.dim() != 2:
         raise ValueError("z must be a 2-D tensor")
-    _checks.dense_f32(z, "z", z.shape)
+    _checks.dense_f32(z, "z", z.shape, dtype)
     n, m = z.shape
     x = _checks.vector_f32(x, "x", n)
     y = _checks.vector_f32(y, "y", m)
@@ -50,7 +55,7 @@ def _prepare(z, x, y, out, y0=None):
         _checks.dense_f32(y0, "y0", (n, m))
         named["y0"] = y0
     if out is not None:
-        _checks.dense_f32(out, "out", (n, m))
+        _checks.dense_f32(out, "out", (n, m), dtype)
         named["out"] = out
     _checks.same_device(z.device, **named)
     return x, y
@@ -60,8 +65,10 @@ def rank1_update(
     z: torch.Tensor, x: torch.Tensor, y: torch.Tensor, a: Scalar, b: Scalar,
     *, out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Z' = a*Z + b*x y^T, one pass over Z; written into ``out`` when given."""
-    x, y = _prepare(z, x, y, out)
+    """Z' = a*Z + b*x y^T, one pass over Z; written into ``out`` when given.
+    Z (and out) float32, or bfloat16 with x, y still float32."""
+    bf16 = isinstance(z, torch.Tensor) and z.dtype == torch.bfloat16
+    x, y = _prepare(z, x, y, out, dtype=torch.bfloat16 if bf16 else torch.float32)
     scal = _scalars(z.device, a, b)
     if not _checks.kernel_device(z.device, "rank1_update"):
         res = ref.rank1_update(z, x, y, scal)
@@ -69,8 +76,11 @@ def rank1_update(
     if out is None:
         out = torch.empty_like(z)
     if z.numel():
-        kernel.update(out, z, None, x, y, scal)
-        launched(rank1_update, out)
+        if bf16:
+            kernel.update_bf16(out, z, x, y, scal)
+        else:
+            kernel.update(out, z, None, x, y, scal)
+        launched(rank1_update, out, "bf16" if bf16 else "f32")
     return out
 
 
@@ -149,6 +159,7 @@ def rankk_update_axpy(
 
 
 rank1_update.launches = 0
+rank1_update.route_launches = {"f32": 0, "bf16": 0}
 rank1_update_axpy.launches = 0
 rankk_update.launches = 0
 rankk_update_axpy.launches = 0

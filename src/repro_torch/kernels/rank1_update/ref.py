@@ -8,8 +8,11 @@ import torch
 
 
 def rank1_update(z, x, y, scal) -> torch.Tensor:
-    """a*Z + b*outer(x, y)."""
-    return scal[0] * z + scal[1] * torch.outer(x.reshape(-1), y.reshape(-1))
+    """a*Z + b*outer(x, y) in f32, in Z's dtype: a bf16 Z is widened, and
+    the f32 result rounded once to bf16 (to nearest even), as the
+    reference's kernel computes ``(a * z + b * xy).astype(z.dtype)``."""
+    out = scal[0] * z.float() + scal[1] * torch.outer(x.reshape(-1), y.reshape(-1))
+    return out.to(z.dtype)
 
 
 def rank1_update_axpy(z, y0, x, y, scal) -> torch.Tensor:

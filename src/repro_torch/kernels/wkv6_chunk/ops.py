@@ -19,6 +19,10 @@ v and logw through their batch, head and token strides, so the model's
 f32 view, last dimension contiguous) receives y in place, so y can land in
 the model's (B, S, H, 64) buffer. dk and dv are at most 64.
 ``wkv6_chunk.launches`` counts the kernel launches.
+
+The kernel is a forward only: a CUDA input that requires grad under grad
+mode is refused (``_checks.forward_only``); ``models.rwkv6.time_mix`` takes
+the plain chunk form then.
 """
 from __future__ import annotations
 
@@ -73,6 +77,7 @@ def wkv6_chunk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Te
     """One chunk -> (y (B, H, q, dv) f32, S_out (B, H, dk, dv) f32); y is
     ``out`` when given. S_out is a new tensor (never s0)."""
     _check(r, k, v, logw, u, s0, out)
+    _checks.forward_only("wkv6_chunk", r, k, v, logw, u, s0)
     if not _checks.kernel_device(r.device, "wkv6_chunk"):
         y, s_out = ref.wkv6_chunk_factored(r, k, v, logw, u, s0)
         if out is None:

@@ -872,7 +872,12 @@ _COLLECTIVE_TIMEOUT = datetime.timedelta(seconds=600)
 
 
 def _worker_main(rank: int, num_workers: int, tmp: str, backend: str, device_type: str,
-                 fn, args) -> None:
+                 fn, boxed: list) -> None:
+    """One worker. ``boxed`` holds the arguments, and ``fn`` takes them out
+    of it: once ``fn`` returns, nothing here refers to them, so the CUDA
+    tensors received through IPC are freed before the process ends (the
+    spawn machinery holds its arguments until exit, and a received tensor
+    still alive then keeps the caller's memory pinned for good)."""
     import torch.distributed as dist
 
     try:
@@ -887,9 +892,9 @@ def _worker_main(rank: int, num_workers: int, tmp: str, backend: str, device_typ
             backend, store=dist.FileStore(os.path.join(tmp, "store"), num_workers), rank=rank,
             world_size=num_workers, timeout=_COLLECTIVE_TIMEOUT)
         try:
-            result = fn(WorkerGroup(), device, *args)
+            result = fn(WorkerGroup(), device, *boxed.pop())
         finally:
-            destroy_groups()
+            destroy_groups()  # also collects the garbage: the received tensors go
         with open(os.path.join(tmp, f"result{rank}.pkl"), "wb") as f:
             pickle.dump(result, f)
     except BaseException as e:
@@ -988,7 +993,9 @@ def run_workers(num_workers: int, fn: Callable, *args, backend: str = "gloo",
     with its traceback as a note; if one dies on a signal, a RuntimeError
     names its rank, the signal and whether its result had been written. A
     worker waits at most 600 s in a collective. Each worker tears its groups
-    down (``comm.destroy_groups``) before it writes its result.
+    down (``comm.destroy_groups``) before it writes its result, with the
+    tensors it received freed, and the caller's memory they shared is
+    released once the workers have ended (``torch.cuda.ipc_collect``).
     """
     import torch.multiprocessing as mp
 
@@ -1000,8 +1007,10 @@ def run_workers(num_workers: int, fn: Callable, *args, backend: str = "gloo",
         )
     with tempfile.TemporaryDirectory() as tmp:
         ctx = mp.spawn(_worker_main, nprocs=num_workers, join=False,
-                       args=(num_workers, tmp, backend, device_type, fn, args))
+                       args=(num_workers, tmp, backend, device_type, fn, [args]))
         ended = _join_workers(ctx.processes)
+        if device_type == "cuda":  # free what the workers received and released
+            torch.cuda.ipc_collect()
         if ended is not None:
             _raise_worker_failure(ended, num_workers, tmp)
         results = []

@@ -1,12 +1,32 @@
-"""Prefill and serve steps of the LM zoo, the port's counterpart of
-``repro.launch.steps``. The train step and the sharding specs are not
-ported yet.
+"""Train, prefill and serve steps of the LM zoo, the port's counterpart of
+``repro.launch.steps``. The sharding specs (a mesh) are not ported yet.
 """
 from __future__ import annotations
 
 from ..models import lm
 from ..models.config import ModelConfig
+from ..optim import adamw, schedule
 from ..specs import NotYetPorted
+
+
+def make_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4, warmup: int = 100,
+                    total_steps: int = 10000):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: the loss and its gradients by autograd through
+    ``lm.loss_fn``, the learning rate of ``schedule.cosine_with_warmup`` at
+    the optimizer's step, then ``adamw.update``, which updates ``params`` and
+    the state's moments IN PLACE (the returned params are the dict passed
+    in). Metrics ``loss``, ``ce``, ``aux`` and ``lr`` stay on the device."""
+    lm.check_family(cfg)
+
+    def train_step(params, opt_state: adamw.AdamWState, batch):
+        (loss, metrics), grads = lm.value_and_grad(params, batch, cfg)
+        lr = schedule.cosine_with_warmup(opt_state.step, peak_lr=peak_lr, warmup=warmup,
+                                         total=total_steps)
+        params, opt_state = adamw.update(grads, opt_state, params, lr=lr)
+        return params, opt_state, dict(metrics, loss=loss, lr=lr)
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig):

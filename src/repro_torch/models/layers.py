@@ -5,13 +5,27 @@ Functions take parameter dicts of tensors, in the reference's layout
 (weights ``(in, out)``, used as ``x @ w``). The reference's sharding
 annotations are no-ops on one device and are dropped; M-RoPE (vlm) and the
 sequence-sharded decode (multi-device) are not ported yet.
+
+Attention under autograd: the hand-written flash kernel is a forward only,
+as the reference's Pallas kernel is (``jax.grad`` through that kernel fails,
+and the reference's training runs the plain XLA paths). So when autograd
+records through q, k or v (grad mode on and one of them requires grad),
+``attention`` takes the reference's training path on the card too: the
+chunked path past ``chunk`` when the length divides, else the dense one,
+both differentiable. This is a choice between two exact computations made
+by what the caller asks for, not a fallback: without a gradient (prefill,
+``extract_features``, serving) a multi-token call launches the kernel, and
+the kernel's wrapper refuses a CUDA input that requires grad.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+from functools import partial
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import ops as attn_ops
 from ..kernels.flash_attention import ref as attn_ref
@@ -58,17 +72,32 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Attention (GQA). Three execution paths:
 #   flash   — the CUDA kernel: every multi-token, offset-0 call on the card
-#   chunked — a loop over q chunks, O(chunk * S) live scores (long, off-card)
+#             that records no gradient
+#   chunked — a loop over q chunks, O(chunk * S) live scores (long sequences
+#             off the card, or under autograd)
 #   dense   — everything else: short sequences, decode against a cache
 # ---------------------------------------------------------------------------
 
 
 def _expand_heads(kv: torch.Tensor, hq: int) -> torch.Tensor:
-    """Repeat each KV head hq / Hkv times along the head axis."""
-    hkv = kv.shape[1]
+    """Repeat each KV head hq / Hkv times along the head axis (as
+    ``repeat_interleave`` does; an expanded view copied, whose gradient is a
+    sum over the group rather than ``repeat_interleave``'s accumulating
+    index on the card)."""
+    b, hkv, s, dh = kv.shape
     if hkv != hq:
-        kv = torch.repeat_interleave(kv, hq // hkv, dim=1)
+        kv = kv[:, :, None].expand(b, hkv, hq // hkv, s, dh).reshape(b, hq, s, dh)
     return kv
+
+
+def records_grad(*trees) -> bool:
+    """Does autograd record through an op reading these tensors (or dicts
+    of them)? Grad mode on, and one of them requires grad."""
+    def any_requires(tree) -> bool:
+        if isinstance(tree, dict):
+            return any(any_requires(t) for t in tree.values())
+        return tree.requires_grad
+    return torch.is_grad_enabled() and any(any_requires(t) for t in trees)
 
 
 def _dense_attention(q, k, v, *, scale, causal, q_offset=0):
@@ -81,16 +110,19 @@ def _dense_attention(q, k, v, *, scale, causal, q_offset=0):
 
 def _chunked_attention(q, k, v, *, scale, causal, chunk: int):
     """Query chunks in turn; each sees the full K/V with masking. Live
-    scores: O(B * H * chunk * S). (The reference scans with remat; with no
-    gradients here a loop is the same computation.)"""
+    scores: O(B * H * chunk * S). Under autograd each chunk is checkpointed
+    (non-reentrant), as the reference's scan body is rematerialized."""
     s = q.shape[2]
     k = _expand_heads(k, q.shape[1])
     v = _expand_heads(v, q.shape[1])
-    outs = [
-        attn_ref.attention(q[:, :, i:i + chunk], k, v, scale=scale, causal=causal, q_offset=i)
-        for i in range(0, s, chunk)
-    ]
-    return torch.cat(outs, dim=2)
+    remat = records_grad(q, k, v)
+
+    def one(i):
+        fn = partial(attn_ref.attention, scale=scale, causal=causal, q_offset=i)
+        qi = q[:, :, i:i + chunk]
+        return checkpoint(fn, qi, k, v, use_reentrant=False) if remat else fn(qi, k, v)
+
+    return torch.cat([one(i) for i in range(0, s, chunk)], dim=2)
 
 
 def attention(
@@ -104,10 +136,11 @@ def attention(
     chunk: int = 2048,
 ) -> torch.Tensor:
     """Dispatch, as the reference's: the flash kernel for a multi-token
-    offset-0 call on the accelerator (here: a CUDA tensor), else the
-    chunked path for long sequences that split evenly, else dense."""
+    offset-0 call on the accelerator (here: a CUDA tensor) that records no
+    gradient, else the chunked path for long sequences that split evenly,
+    else dense (the reference's training path; module doc)."""
     sq = q.shape[2]
-    if q.device.type == "cuda" and sq > 1 and q_offset == 0:
+    if q.device.type == "cuda" and sq > 1 and q_offset == 0 and not records_grad(q, k, v):
         return attn_ops.flash_attention(q, k, v, scale=scale, causal=causal)
     if sq > chunk and sq % chunk == 0 and q_offset == 0:
         return _chunked_attention(q, k, v, scale=scale, causal=causal, chunk=chunk)

@@ -5,16 +5,33 @@ Parameters are a dict of tensors with the reference's names and layouts,
 except that the reference's stacked ``(L, ...)`` layer leaves are a list of
 per-layer dicts here (``params["layers"][i]``), run by a Python loop in
 place of ``lax.scan``. ``convert.lm_params`` carries a JAX parameter dict
-across. The other families (moe, vlm, audio, hybrid) and the training
-objective (``loss_fn``) are not ported yet: ``init_params``, ``forward``,
-``cache_specs`` and ``decode_step`` raise ``NotYetPorted`` for them before
-any device work.
+across. The other families (moe, vlm, audio, hybrid) are not ported yet:
+``init_params``, ``forward``, ``loss_fn``, ``cache_specs`` and
+``decode_step`` raise ``NotYetPorted`` for them before any device work.
+
+Training: ``loss_fn`` is the reference's objective, differentiated by
+autograd. While autograd records through a layer (``torch.is_grad_enabled()``
+and a tensor it reads requires grad), ``cfg.remat == "full"`` checkpoints
+each layer (``torch.utils.checkpoint``, non-reentrant), as the reference's
+``jax.checkpoint`` of the scanned block does, and the layers take their
+differentiable paths: ``layers.attention`` the reference's own training
+path (dense or chunked), ``rwkv6.time_mix`` the plain chunk form; neither
+hand-written forward kernel has a backward (see those modules). ``"none"``
+checkpoints nothing; ``"dots"`` (no configuration uses it) is not ported.
+The reference's sequence-sharded loss (its ``seq_act`` branch) needs a mesh
+and waits with the sharded LM paths (ROADMAP section 1, Sharded LM paths).
+
+The embedding lookup is ``F.embedding``, whose gradient sums each row's
+tokens in a fixed order on the card (no atomics), so a training step
+repeats its bits.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import DeviceLike, resolve_device
 from ..specs import NotYetPorted
@@ -85,7 +102,7 @@ def _embed_inputs(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConf
     """Returns (h (B, S, D), rope angles (B, S, Dh/2); None for the
     attention-free ssm family)."""
     tokens = batch["tokens"]
-    h = params["embed"][tokens.long()]
+    h = F.embedding(tokens.long(), params["embed"])
     if cfg.family == "ssm":
         return h, None
     b, s = tokens.shape
@@ -125,14 +142,29 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
     return out
 
 
+def _maybe_remat(fn, cfg: ModelConfig, h, lp):
+    """``fn(h, lp)``, checkpointed as the reference's ``jax.checkpoint`` of
+    a layer when ``cfg.remat == "full"`` and autograd records through it."""
+    if cfg.remat == "dots":
+        raise NotYetPorted(f"{cfg.name}: remat='dots' (checkpoint_dots_with_no_batch_dims) is "
+                           "not yet ported; 'none' and 'full' are")
+    if cfg.remat == "full" and L.records_grad(h, lp):
+        return checkpoint(fn, h, lp, use_reentrant=False)
+    return fn(h, lp)
+
+
 def _dense_layers(params: Params, h, angles, cfg: ModelConfig, prefill: bool):
-    ks, vs = [], []
-    for lp in params["layers"]:
-        a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
+    def block(hh, lp):
+        a_in = L.rms_norm(hh, lp["ln1"], cfg.norm_eps)
         attn_out, kv = L.attention_block(lp["attn"], a_in, cfg, angles=angles,
                                          return_kv=prefill)
-        h = h + attn_out
-        h = h + L.mlp_block(lp["mlp"], L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg.mlp_type)
+        hh = hh + attn_out
+        hh = hh + L.mlp_block(lp["mlp"], L.rms_norm(hh, lp["ln2"], cfg.norm_eps), cfg.mlp_type)
+        return hh, kv
+
+    ks, vs = [], []
+    for lp in params["layers"]:
+        h, kv = _maybe_remat(block, cfg, h, lp)
         if prefill:
             ks.append(kv[0])
             vs.append(kv[1])
@@ -145,14 +177,18 @@ def _ssm_layers(params: Params, h, cfg: ModelConfig, prefill: bool):
     zeros_x = torch.zeros((b, cfg.d_model), dtype=h.dtype, device=h.device)
     s0 = torch.zeros((b, cfg.d_model // rwkv6.HEAD, rwkv6.HEAD, rwkv6.HEAD),
                      dtype=torch.float32, device=h.device)
+
+    def block(hh, lp):
+        y, s_n, x_tm = rwkv6.time_mix(lp["tm_cm"], L.rms_norm(hh, lp["ln1"], cfg.norm_eps), cfg,
+                                      zeros_x, s0)
+        hh = hh + y
+        cm, x_cm = rwkv6.channel_mix(lp["tm_cm"], L.rms_norm(hh, lp["ln2"], cfg.norm_eps),
+                                     zeros_x)
+        return hh + cm, (s_n, x_tm, x_cm)
+
     ss, xtm, xcm = [], [], []
     for lp in params["layers"]:
-        y, s_n, x_tm = rwkv6.time_mix(lp["tm_cm"], L.rms_norm(h, lp["ln1"], cfg.norm_eps), cfg,
-                                      zeros_x, s0)
-        h = h + y
-        cm, x_cm = rwkv6.channel_mix(lp["tm_cm"], L.rms_norm(h, lp["ln2"], cfg.norm_eps),
-                                     zeros_x)
-        h = h + cm
+        h, (s_n, x_tm, x_cm) = _maybe_remat(block, cfg, h, lp)
         if prefill:
             ss.append(s_n)
             xtm.append(x_tm.float())
@@ -160,6 +196,81 @@ def _ssm_layers(params: Params, h, cfg: ModelConfig, prefill: bool):
     if not prefill:
         return h, None
     return h, {"s": torch.stack(ss), "x_tm": torch.stack(xtm), "x_cm": torch.stack(xcm)}
+
+
+# ---------------------------------------------------------------------------
+# Loss / train objective
+# ---------------------------------------------------------------------------
+
+
+def _ce_chunk(hi: torch.Tensor, li: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Sum over one chunk's positions of logsumexp - gold logit, in f32."""
+    logits = (hi @ w).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    # one gold position a row: on the card the gather's gradient adds one
+    # value onto zero at distinct places, so its order cannot change a bit
+    gold = torch.gather(logits, -1, li.long()[..., None])[..., 0]
+    return torch.sum(lse - gold)
+
+
+def _chunked_ce(h: torch.Tensor, labels: torch.Tensor, w: torch.Tensor,
+                chunk: int) -> torch.Tensor:
+    """Cross entropy without the full-sequence f32 logits: the sequence in
+    chunks of ``chunk`` positions (one chunk when S does not divide), each
+    chunk's logits ``(h @ w).float()`` recomputed in the backward
+    (non-reentrant ``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint``), so one (B, chunk, V) f32 slab is live. The chunk
+    sums add up in f32 in chunk order, divided by B S."""
+    b, s, _ = h.shape
+    if s % chunk:
+        chunk = s
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for lo in range(0, s, chunk):
+        hi, li = h[:, lo:lo + chunk], labels[:, lo:lo + chunk]
+        if L.records_grad(hi, w):
+            part = checkpoint(_ce_chunk, hi, li, w, use_reentrant=False)
+        else:
+            part = _ce_chunk(hi, li, w)
+        total = total + part
+    return total / (b * s)
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
+            loss_chunk: int = 512) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The training objective: ``(ce + 0.01 aux, {"ce", "aux"})``, the mean
+    next-token cross entropy over B x S positions from the final hidden
+    states and the head (``embed.T`` when tied, else ``unembed``) in
+    ``loss_chunk`` chunks (``_chunked_ce``); ``aux`` is 0 for the ported
+    families. Differentiate with autograd (``launch.steps.make_train_step``)."""
+    check_family(cfg)
+    out = forward(params, batch, cfg, mode="hidden")
+    h = out["hidden"]
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    ce = _chunked_ce(h, batch["labels"], w.to(h.dtype), loss_chunk)
+    total = ce + 0.01 * out["aux_loss"]
+    return total, {"ce": ce, "aux": out["aux_loss"]}
+
+
+def value_and_grad(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, **kw
+                   ) -> Tuple[Tuple[torch.Tensor, Dict[str, torch.Tensor]], Params]:
+    """``((loss, metrics), grads)`` of :func:`loss_fn` by autograd, the
+    counterpart of ``jax.value_and_grad(loss_fn, has_aux=True)``: every
+    parameter leaf requires grad for the forward and backward only, and
+    ``grads`` mirrors ``params`` (a tied embedding's gradient sums both
+    uses). Nothing is read back to the host."""
+    from ..optim.compression import tree_leaves, tree_map
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        loss, metrics = loss_fn(params, batch, cfg, **kw)
+        grads = iter(torch.autograd.grad(loss, leaves))
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return (loss.detach(), metrics), tree_map(lambda _: next(grads), params)
 
 
 # ---------------------------------------------------------------------------
@@ -208,7 +319,7 @@ def decode_step(params: Params, cache: Dict[str, torch.Tensor], batch: Dict[str,
         raise TypeError(f"cache_pos must be a 0-d integer tensor or an int, got {pos.dtype} "
                         f"of shape {tuple(pos.shape)}")
     b = tokens.shape[0]
-    h = params["embed"][tokens.long()]
+    h = F.embedding(tokens.long(), params["embed"])
     if cfg.family == "ssm":
         h2 = h[:, 0, :]
         for i, lp in enumerate(params["layers"]):

@@ -10,6 +10,18 @@ chunk of ``cfg.ssm_chunk`` tokens (the CUDA kernel on the card, its plain
 chunk form on the CPU: the reference's own chunk step, clamps included);
 decode is the exact recurrence in plain PyTorch.
 
+Under autograd (grad mode on and a time-mix input requiring grad) the chunks
+take the plain chunk form ``ref.wkv6_chunk_factored`` on the card too, each
+chunk's y a tensor of its own rather than a slice written through the
+kernel's ``out=``, so the gradient flows: the kernel is a forward only, and
+its wrapper refuses a CUDA input that requires grad. The reference's
+training differentiates its own jnp chunk scan (its model never calls the
+Pallas kernel); the plain form computes the same chunk step with the
+kernel's five clamps (ROADMAP caveats (c), (e)). This is a choice between
+two exact computations made by what the caller asks for, not a fallback:
+with no gradient recorded (prefill, features, serving) every chunk launches
+the kernel as before.
+
 Channel mix: relu^2 gated FFN with token shift (Finch §2).
 """
 from __future__ import annotations
@@ -20,7 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.wkv6_chunk import ops as wkv_ops
-from .layers import normal, rms_norm
+from ..kernels.wkv6_chunk import ref as wkv_ref
+from .layers import normal, records_grad, rms_norm
 
 Params = Dict[str, torch.Tensor]
 
@@ -108,12 +121,20 @@ def time_mix(p: Params, x: torch.Tensor, cfg, x_prev: torch.Tensor,
     logw = _log_decay(p, _mix(x, xs, p["mu_w"]))  # (B, S, D) log decay <= 0
 
     heads = [t.reshape(b, s, h, HEAD) for t in (r, k, v, logw)]
-    y = torch.empty((b, s, h, HEAD), dtype=torch.float32, device=x.device)
     state = s0.float().contiguous()
-    for c in range(0, s, q):  # (B, H, q, 64) views of chunk c
-        r_c, k_c, v_c, lw_c = (t[:, c:c + q].transpose(1, 2) for t in heads)
-        _, state = wkv_ops.wkv6_chunk(r_c, k_c, v_c, lw_c, p["u_bonus"], state,
-                                      out=y[:, c:c + q].transpose(1, 2))
+    chunks = [[t[:, c:c + q].transpose(1, 2) for t in heads]  # (B, H, q, 64) views
+              for c in range(0, s, q)]
+    if records_grad(*heads, p["u_bonus"], s0):
+        ys = []
+        for r_c, k_c, v_c, lw_c in chunks:
+            y_c, state = wkv_ref.wkv6_chunk_factored(r_c, k_c, v_c, lw_c, p["u_bonus"], state)
+            ys.append(y_c)
+        y = torch.cat(ys, dim=2).transpose(1, 2)
+    else:
+        y = torch.empty((b, s, h, HEAD), dtype=torch.float32, device=x.device)
+        for c, (r_c, k_c, v_c, lw_c) in zip(range(0, s, q), chunks):
+            _, state = wkv_ops.wkv6_chunk(r_c, k_c, v_c, lw_c, p["u_bonus"], state,
+                                          out=y[:, c:c + q].transpose(1, 2))
     y = y.reshape(b, s, d).to(x.dtype)
     y = rms_norm(y, p["ln_x"], cfg.norm_eps) * g
     return y @ p["wo"], state, x[:, -1, :]

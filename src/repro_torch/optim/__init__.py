@@ -1,20 +1,11 @@
-"""Optimizer-side substrates, the port's counterpart of ``repro.optim``.
-
-``compression`` (PowerSGD low-rank gradient compression with error
-feedback) is ported. ``adamw``, ``schedule`` and ``hybrid`` belong to LM
-training, which is not yet ported: importing them raises ``NotYetPorted``.
+"""Optimizer-side substrates, the port's counterpart of ``repro.optim``:
+``adamw`` (AdamW from the reference's formula), ``schedule`` (learning-rate
+schedules), ``hybrid`` (AdamW on the backbone, DFW-Trace Frank-Wolfe steps
+on the unembedding head) and ``compression`` (PowerSGD low-rank gradient
+compression with error feedback).
 """
-from ..specs import NotYetPorted
-from . import compression
+from . import adamw, compression, hybrid, schedule
+from .adamw import AdamWState
 from .compression import PowerSGDState
 
-_UNPORTED = ("adamw", "schedule", "hybrid", "AdamWState")
-
-__all__ = ["compression", "PowerSGDState"]
-
-
-def __getattr__(name):
-    if name in _UNPORTED:
-        raise NotYetPorted(f"repro_torch.optim.{name} (LM training) is not yet ported to "
-                           "PyTorch")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+__all__ = ["adamw", "compression", "hybrid", "schedule", "AdamWState", "PowerSGDState"]

@@ -77,5 +77,7 @@ def test_scan_sees_the_whole_package():
             "configs/__init__.py", "configs/qwen2_1_5b.py", "launch/steps.py",
             "launch/serve.py", "core/engine.py", "obs/__init__.py", "obs/registry.py",
             "obs/telemetry.py", "analysis/recorder.py", "analysis/contracts.py",
-            "core/dfw_head.py", "optim/__init__.py", "optim/compression.py"} <= names
+            "core/dfw_head.py", "optim/__init__.py", "optim/compression.py",
+            "optim/adamw.py", "optim/schedule.py", "optim/hybrid.py", "data/__init__.py",
+            "data/pipeline.py", "launch/train.py"} <= names
     assert FILES[-1].name == "chip_smoke.py"

@@ -117,10 +117,60 @@ def test_wrappers_refuse_bad_inputs(case):
         pm.matvec(a, v)
     with pytest.raises(err):
         pm.rmatvec(a, u)
-    with pytest.raises(err):
-        r1.rank1_update(a, x, v, 1.0, 1.0)
+    if case == "bfloat16":  # rank1_update's bf16 form takes a bf16 Z with f32 x, y
+        assert r1.rank1_update(a, x, v, 1.0, 1.0).dtype == torch.bfloat16
+        with pytest.raises(TypeError):
+            r1.rank1_update(a, x.bfloat16(), v, 1.0, 1.0)
+        with pytest.raises(TypeError):
+            r1.rank1_update(a, x, v, 1.0, 1.0, out=torch.empty(6, 4))
+    else:
+        with pytest.raises(err):
+            r1.rank1_update(a, x, v, 1.0, 1.0)
     with pytest.raises(err):
         r1.rank1_update_axpy(a, a, x, v, 1.0, 1.0, 1.0)
+
+
+BF16_SHAPES = [(128, 64), (130, 72), (37, 5), (1, 9)]
+
+
+def _bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Largest distance in bf16 units in the last place (ordered bit
+    patterns), so one ulp is a neighbouring value."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordered(got) - ordered(want)).abs().max())
+
+
+@pytest.mark.parametrize("n,m", BF16_SHAPES)
+def test_rank1_update_bf16_matches_jax_kernel(n, m):
+    """The bf16 form (Z and out bf16, x, y and scalars f32) against the JAX
+    kernel in interpret mode given a bf16 Z: f32 arithmetic rounded once to
+    bf16. XLA may contract a*z + b*xy into one multiply-add, which moves the
+    f32 value by an ulp and can move its bf16 rounding by one bf16 ulp; so
+    the bits are held within one bf16 ulp, and most must be equal."""
+    import ml_dtypes
+
+    rng = np.random.default_rng(n + m)
+    z = rng.standard_normal((n, m)).astype(ml_dtypes.bfloat16)
+    x, y = rng.standard_normal(n).astype(np.float32), rng.standard_normal(m).astype(np.float32)
+    a, b = 0.75, -1.25
+    tz = torch.from_numpy(z.view(np.uint16).astype(np.int32).astype(np.int16)).view(torch.bfloat16)
+    got = r1.rank1_update(tz, torch.from_numpy(x), torch.from_numpy(y), a, b)
+    assert got.dtype == torch.bfloat16
+    want = jr1.ops.rank1_update(jnp.asarray(z), jnp.asarray(x), jnp.asarray(y), a, b,
+                                block_r=64, block_c=64, interpret=True)
+    assert want.dtype == jnp.bfloat16
+    want = torch.from_numpy(np.asarray(want).view(np.uint16).astype(np.int32).astype(
+        np.int16)).view(torch.bfloat16)
+    assert _bf16_ulps(got, want) <= 1
+    assert float((got != want).float().mean()) < 0.01
+    # the plain chain the hybrid head checks against, bit for bit
+    chain = (a * tz.float() + b * torch.outer(torch.from_numpy(x), torch.from_numpy(y))).bfloat16()
+    assert torch.equal(got, chain)
+    # in place
+    out = r1.rank1_update(tz, torch.from_numpy(x), torch.from_numpy(y), a, b, out=tz)
+    assert out.data_ptr() == tz.data_ptr() and torch.equal(tz, got)
 
 
 def test_rank1_update_refuses_bad_scalar():

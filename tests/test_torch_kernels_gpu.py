@@ -1390,3 +1390,190 @@ def test_cuda_train_head_is_fit_serial_bit_for_bit(cuda):
         assert res.history == ref.history and res.final_loss == ref.final_loss
         for p, q in zip(res.iterate, ref.iterate):
             assert torch.equal(p, q)
+
+
+# ---------------------------------------------------------------------------
+# LM training: the bf16 rank-1 form, forward-only kernels under autograd,
+# the train and hybrid steps on the card
+# ---------------------------------------------------------------------------
+
+
+def _bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Largest distance in bf16 units in the last place (ordered bits)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordered(got) - ordered(want)).abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m", [(4096, 2048), (300, 40), (65, 33), (37, 5), (1, 8), (9, 1001)])
+@pytest.mark.parametrize("in_place", [False, True])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_cuda_rank1_update_bf16_matches_plain(cuda, n, m, in_place, aligned):
+    """The bf16 form against its plain version (f32 arithmetic in its order,
+    rounded once): within one bf16 ulp, expected bit for bit; identical bits
+    on repeat; one launch a call on the "bf16" route. m % 8 == 0 with Z
+    16-byte aligned takes the 16-byte path; m = 33, 5, 1001 and a Z 2 bytes
+    off alignment take the one-element path."""
+    z = torch.randn(n * m + 1, device=cuda).to(torch.bfloat16)
+    z = (z[:-1] if aligned else z[1:]).view(n, m)
+    x, y = torch.randn(n, device=cuda), torch.randn(m, device=cuda)
+    a, b = torch.tensor(0.625, device=cuda), -3.5
+    want = r1.ref.rank1_update(z, x, y, torch.stack([a, torch.tensor(b, device=cuda)]))
+    before = kernels.route_launches()["rank1_update"]
+    again = r1.rank1_update(z, x, y, a, b)
+    got = r1.rank1_update(z, x, y, a, b, out=z if in_place else None)
+    torch.cuda.synchronize()
+    after = kernels.route_launches()["rank1_update"]
+    assert after["bf16"] == before["bf16"] + 2 and after["f32"] == before["f32"]
+    assert got.dtype == torch.bfloat16 and (got.data_ptr() == z.data_ptr()) == in_place
+    assert _bf16_ulps(got, want) <= 1 and torch.equal(got, again)
+
+
+def _grad_inputs(cuda):
+    q, k, v = _attention_inputs(1, 4, 2, 64, 64, 64, torch.bfloat16, cuda, seed=1)
+    return q.requires_grad_(), k, v
+
+
+@pytest.mark.gpu
+def test_cuda_forward_only_kernels_refuse_inputs_that_require_grad(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import wkv6_chunk as wkv
+
+    q, k, v = _grad_inputs(cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention(q, k, v, scale=0.125, causal=True)
+    with torch.no_grad():
+        assert fa.flash_attention(q, k, v, scale=0.125, causal=True).shape == q.shape
+    r, kk, vv, lw = (torch.randn(1, 2, 16, 64, device=cuda) for _ in range(4))
+    u, s0 = torch.zeros(2, 64, device=cuda), torch.zeros(1, 2, 64, 64, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        wkv.wkv6_chunk(r, kk.requires_grad_(), vv, -lw.abs(), u, s0)
+    with pytest.raises(RuntimeError, match="no backward"):
+        wkv.wkv6_chunk(r, kk.detach(), vv, -lw.abs(), u.requires_grad_(), s0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,chunk", [(256, 2048), (256, 64)])
+def test_cuda_attention_under_grad_takes_the_plain_path(cuda, sq, chunk):
+    """layers.attention with q requiring grad: no flash launch, the dense
+    (or chunked) path, whose output agrees with the kernel's under no_grad
+    within bf16's 1e-2 of each row's max; its gradient reaches q, k and v."""
+    from repro_torch.models import layers
+
+    q, k, v = _attention_inputs(2, 4, 2, sq, sq, 64, torch.bfloat16, cuda, seed=2)
+    k.requires_grad_()
+    v.requires_grad_()
+    q.requires_grad_()
+    before = kernels.launches()["flash_attention"]
+    out = layers.attention(q, k, v, scale=0.125, causal=True, chunk=chunk)
+    assert kernels.launches()["flash_attention"] == before
+    with torch.no_grad():
+        flash = layers.attention(q, k, v, scale=0.125, causal=True, chunk=chunk)
+    assert kernels.launches()["flash_attention"] == before + 1
+    err = (out.float() - flash.float()).abs().amax(dim=-1)
+    assert bool((err <= 1e-2 * flash.float().abs().amax(dim=-1) + 1e-6).all())
+    out.float().square().sum().backward()
+    assert all(t.grad is not None and bool(t.grad.abs().sum() > 0) for t in (q, k, v))
+
+
+def _smoke_train_inputs(arch, device):
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLMStream, device_put_batch
+    from repro_torch.models import lm
+    from repro_torch.models.config import ShapeSpec
+
+    cfg = configs.get_config(arch, smoke=True)
+    params = lm.init_params(cfg, 3, device="cpu")
+    stream = SyntheticLMStream(cfg, ShapeSpec("t", "train", 64, 4))
+    return cfg, params, [stream.batch_for_step(t) for t in range(3)], device_put_batch
+
+
+def _tree_to(tree, device):
+    from repro_torch.optim.compression import tree_map
+
+    return tree_map(lambda t: t.to(device, copy=True), tree)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2_1_5b", "rwkv6_7b"])
+def test_cuda_train_step_matches_the_cpu(cuda, arch):
+    """Three AdamW steps of the smoke config on the card against the CPU:
+    loss rtol 1e-4, parameters 1e-3 of each leaf's max (f32 sums in other
+    orders, amplified by AdamW's normalized step); no flash_attention or
+    wkv6_chunk launch inside a train step; the same bits when repeated."""
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+    from repro_torch.optim.compression import tree_leaves
+
+    cfg, p_cpu, batches, put = _smoke_train_inputs(arch, cuda)
+    runs = {}
+    for dev in ("cpu", cuda, cuda):
+        params = _tree_to(p_cpu, dev)
+        st = adamw.init(params)
+        step = steps.make_train_step(cfg, peak_lr=1e-3, warmup=2)
+        losses = []
+        with kernels.Executed(cuda) as ran:
+            for b in batches:
+                params, st, m = step(params, st, put(b, dev))
+                losses.append(float(m["loss"]))
+        runs.setdefault(str(dev), []).append((losses, params))
+        if dev != "cpu":
+            assert ran.launches["flash_attention"] == 0 and ran.launches["wkv6_chunk"] == 0
+    (cpu_losses, cpu_p), = runs["cpu"]
+    (l1, p1), (l2, p2) = runs[str(cuda)]
+    np.testing.assert_allclose(l1, cpu_losses, rtol=1e-4)
+    for g, w in zip(tree_leaves(p1), tree_leaves(cpu_p)):
+        _close(g.cpu(), w, rtol=0, atol_rel=1e-3)
+    assert l1 == l2 and all(torch.equal(a, b) for a, b in zip(tree_leaves(p1), tree_leaves(p2)))
+
+
+@pytest.mark.gpu
+def test_cuda_hybrid_step_launches_its_kernels(cuda):
+    """The hybrid step on codeqwen1.5-7b's smoke config in bf16: each step
+    launches matvec and rmatvec power_iters times and the bf16 rank-1 update
+    once. After the first step (gamma = 1) the f32 head -mu u v^T has trace
+    norm mu, and rounding each entry to bf16 (a relative error of at most
+    2^-8) adds E with ||E||_* <= sqrt(min(d, V)) ||E||_F <= sqrt(min(d, V))
+    2^-8 mu: that is the bound held."""
+    import dataclasses
+
+    from repro_torch.optim import hybrid
+    from repro_torch.optim.compression import tree_map
+
+    cfg, p_cpu, batches, put = _smoke_train_inputs("codeqwen1_5_7b", cuda)
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    params = tree_map(lambda t: t.to(cuda, torch.bfloat16), p_cpu)
+    step = hybrid.make_hybrid_train_step(cfg, mu=5.0, power_iters=3)
+    st = hybrid.init(params)
+    for t, b in enumerate(batches):
+        with kernels.Executed(cuda) as ran:
+            params, st, m = step(params, st, put(b, cuda), 11)
+        assert ran.launches["matvec"] == ran.launches["rmatvec"] == 3
+        assert ran.routes["rank1_update"] == {"f32": 0, "bf16": 1}
+        assert bool(torch.isfinite(m["loss"]))
+        if t == 0:
+            d, v = params["unembed"].shape
+            tn = float(torch.linalg.svdvals(params["unembed"].float()).sum())
+            assert tn <= 5.0 * (1 + min(d, v) ** 0.5 * 2 ** -8), tn
+
+
+def _sum_worker(group, device, x):
+    return float(x.sum())
+
+
+@pytest.mark.gpu
+def test_cuda_run_workers_returns_the_shared_memory(cuda):
+    """A CUDA tensor shared with gloo workers is freed once the caller drops
+    it: each worker releases what it received before it exits, and
+    run_workers collects the released blocks (before, they stayed pinned
+    until the caller's exit)."""
+    from repro_torch.launch import dfw
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    x = torch.ones(1 << 26, device=cuda)  # 256 MB
+    assert dfw.run_workers(2, _sum_worker, x, device="cuda") == [float(1 << 26)] * 2
+    del x
+    assert torch.cuda.memory_allocated() == base

@@ -356,6 +356,10 @@ def test_other_families_not_yet_ported(arch):
     with pytest.raises(NotYetPorted):
         psteps.make_prefill_step(cfg)
     with pytest.raises(NotYetPorted):
+        psteps.make_train_step(cfg)
+    with pytest.raises(NotYetPorted):
+        plm.loss_fn({}, {}, cfg)
+    with pytest.raises(NotYetPorted):
         plm.cache_specs(cfg, 1, 8)
     with pytest.raises(NotYetPorted):
         convert.lm_params({}, cfg, device="cpu")

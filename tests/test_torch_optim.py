@@ -17,7 +17,8 @@ against the JAX package's ``repro.optim.compression``, on the CPU.
   ``power_method_dense`` over the workers' parts A_j to the serial run on
   their sum (rtol 1e-5).
 - ``wire_bytes`` equals the reference's dict; ``adamw``, ``schedule`` and
-  ``hybrid`` raise ``NotYetPorted``.
+  ``hybrid`` are importable from ``repro_torch.optim`` (their parity tests
+  are tests/test_torch_train.py and tests/test_torch_hybrid.py).
 """
 import numpy as np
 import pytest
@@ -27,7 +28,6 @@ from repro_torch import convert, optim
 from repro_torch.core import power_method
 from repro_torch.launch import dfw
 from repro_torch.optim import compression
-from repro_torch.specs import NotYetPorted
 
 torch.set_num_threads(2)
 
@@ -98,12 +98,16 @@ def test_init_keeps_the_tree_and_draws_from_the_generator():
 
 
 def test_unported_optimizers_raise():
+    """adamw, schedule and hybrid raised NotYetPorted until LM training was
+    ported; now every optimizer of the reference's package is there, and a
+    name it does not have is an AttributeError."""
+    from repro_torch.optim import adamw, hybrid, schedule
+
     assert optim.PowerSGDState is compression.PowerSGDState
-    for name in ("adamw", "schedule", "hybrid"):
-        with pytest.raises(NotYetPorted):
-            getattr(optim, name)
-    with pytest.raises(NotYetPorted):
-        from repro_torch.optim import adamw  # noqa: F401
+    assert (optim.adamw, optim.schedule, optim.hybrid) == (adamw, schedule, hybrid)
+    assert optim.AdamWState is adamw.AdamWState
+    with pytest.raises(AttributeError):
+        optim.lion  # noqa: B018
 
 
 # ---------------------------------------------------------------------------
