@@ -363,6 +363,44 @@ Phases, each fatal on failure (exit code != 0, no result line):
    ``torch.addr_`` in bf16 (in turns), and matvec/rmatvec at the head
    gradient's shape against torch.mv (in turns), each beside its bound.
    (e) is phase 29 (c)'s tie rule. About a minute of command time.
+31. Serving of the LM zoo's audio, vlm and hybrid families (bf16, weights
+   drawn on the card from --seed, full width), after a check that the
+   earlier phases hold under 2 GB of the card. (a) hubert-xlarge, all 48
+   layers: the encoder step (``make_prefill_step`` of an encoder-only
+   config) on 8 x 1,500 frames of 512 (30 s of audio at 50 frames/s):
+   logits (8, 1500, 504) finite, no cache, 48 flash_attention launches all
+   on the generic route (Dh 80, non-causal, ragged against its tiles); in
+   f32 on 2 x 300 frames the encoder through the kernel against the plain
+   attention (autograd recording through the frames sends
+   ``layers.attention`` down the reference's differentiable path), 1e-3 of
+   max. (b) zamba2-2.7b, all 54 Mamba-2 layers and the shared block's 9
+   applications: prefill 4 x 4096 tokens, caches k/v (9, 4, 32, 4096, 80),
+   mamba_h (54, 4, 80, 64, 64) f32, mamba_conv (54, 4, 3, 5248), 9 flash
+   launches (generic); ``generate`` at batch 4 (64 + 32 tokens) captured,
+   the step loop's bits and no flash launch; prefill against decode_step
+   fed the same 4 x 64 prompt token by token: in f32 the logits and every
+   layer's caches within 1e-3; in bf16 layer 0's Mamba-2 state and conv
+   window and the first shared block's k and v within 5e-2 (the same
+   inputs on both paths), the logits' distance printed beside each bf16
+   path's distance from the f32 computation, not held (bf16 rounding
+   through 63 blocks of a random-init model moves both paths about as far
+   from f32 as from each other). (c) qwen2-vl-72b cut to 32 of its 80 layers
+   (61 GB of bf16 weights; the whole model is 145 GB): first, in f32 at 4
+   layers, a prefill of 2 x (64 vision embeddings + 63 tokens) and one
+   decode step against the full forward's last logits (1e-3); then prefill
+   4 x (1,024 vision embeddings + 1,024 tokens) with Qwen2-VL's positions
+   (patches at (0, row, column) of a 32 x 32 grid, text from 32 on in all
+   three streams), 32 flash launches all on wgmma; ``generate`` captured
+   (the M-RoPE positions made in the captured step from the device
+   position), the step loop's bits. ms per prefill (median of 3),
+   tokens (frames) a second, ms per decode step captured and uncaptured,
+   peak memory. (d) flash_attention at the three prefills' operands (B 8,
+   H 16, S 1500, Dh 80, full; B 4, H 32, S 4096, Dh 80, causal; B 4, Hq 64
+   / Hkv 8, S 2048, Dh 128, causal; bf16) against its plain version (1e-2
+   of each row's max), the same bits on repeat, timed beside SDPA and the
+   bound: rows of the kernels line. Under --profile, device time by kind
+   (flash, GEMMs, the rest) of one prefill of each family and the idle
+   share of a replayed decode step of zamba2 and qwen2-vl.
 
 The launches each fit phase checks (and the kernels line sums) are the
 device's: ``counting`` opens ``kernels.Executed``, which adds a counter on
@@ -509,7 +547,13 @@ CARD_PEAKS = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12, 989e12, 495e12)}
 # f32 computation on the same weights), so bf16 prefill and decode are held
 # to that distance of bf16 decode from f32, measured in the same run (logits
 # and every cache), and bf16 prefill's own distance from f32 to 1.25 times
-# decode's.
+# decode's. The hybrid family (phase 31) in bf16: its logits after 54
+# Mamba-2 layers and 9 shared blocks are not held (on an NVIDIA H100 80GB
+# HBM3, bf16 prefill and bf16 decode each landed about 6e-2 from the f32
+# computation on the same weights, 7e-2 from each other; the JAX package's
+# own bf16 prefill and decode part likewise, growing with depth, on the
+# smoke config); layer 0's caches and the first shared block's
+# k and v, computed from the same inputs on both paths, are held to 5e-2.
 # The block forms (phase 25): matmat/rmatmat and coo_matmat sum in another
 # order than cuBLAS and index_add_ (1e-4, as their vector forms); the rank-k
 # update's k-term dot is one fmaf chain against the plain version's cuBLAS
@@ -2518,14 +2562,104 @@ def hgmma_counts(_build):
     return sass_counts(_build, "flash_attention", "HGMMA", "wgmma")
 
 
+def fa_routed(kernels, call, want):
+    """Run ``call`` and check that it launched flash_attention once, on
+    route ``want``."""
+    before = kernels.route_launches()["flash_attention"]
+    out = call()
+    after = kernels.route_launches()["flash_attention"]
+    moved = {r: after[r] - before[r] for r in after if after[r] != before[r]}
+    check(moved == {want: 1}, f"flash_attention took {moved}, expected {{{want!r}: 1}}")
+    return out
+
+
+def fa_plain(torch, fa, q, k, v, scale, causal, chunk=1024):
+    """flash_attention's plain version; past 4096 rows over 1024-row query
+    chunks (the whole score matrix would take 13 GB at the main shape, 52 GB
+    at 32k)."""
+    if q.shape[2] <= FA_ALL_ROWS:
+        return fa.ref.attention(q, k, v, scale=scale, causal=causal)
+    return torch.cat([fa.ref.attention(q[:, :, i:i + chunk], k, v, scale=scale, causal=causal,
+                                       q_offset=i)
+                      for i in range(0, q.shape[2], chunk)], dim=2)
+
+
+def fa_error(torch, fa, got, q, k, v, scale, causal):
+    """Each query row against its own max|plain|, the plain version on the
+    f32 upcast: every row up to S = 4096, else the first and last 256 query
+    rows. Returns max |kernel - plain|, the worst row's share of its
+    max|plain|, and that share over the last span alone (the rows that
+    average the most keys, whose values are the smallest)."""
+    sq = q.shape[2]
+    spans = [(0, sq)] if sq <= FA_ALL_ROWS else [(0, 256), (sq - 256, sq)]
+    diff = worst = 0.0
+    for lo, hi in spans:
+        want = fa.ref.attention(q[:, :, lo:hi].float(), k.float(), v.float(), scale=scale,
+                                causal=causal, q_offset=lo)
+        row_diff = (got[:, :, lo:hi].float() - want).abs().amax(-1)
+        row_rel = float((row_diff / want.abs().amax(-1).clamp_min(1e-30)).max())
+        diff, worst = max(diff, float(row_diff.max())), max(worst, row_rel)
+        del want, row_diff
+    return diff, worst, row_rel
+
+
+def flash_row(torch, fa, kernels, label, q, k, v, causal, nrep, peaks, main=False):
+    """flash_attention at one operand: the route it takes (bf16 with Dh 64
+    or 128 on wgmma, the rest generic), each query row held to the plain
+    version (``fa_error``; bf16 1e-2, f32 1e-4), the same bits on repeat;
+    times of kernel, plain version and scaled_dot_product_attention (median
+    of ``nrep``) beside the bound. Returns the kernels line's row."""
+    bw, f32_peak, bf16_peak = peaks[:3]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, hq, s, dh = q.shape
+    hkv, skv, dtype = k.shape[1], k.shape[2], q.dtype
+    scale = dh ** -0.5
+    route = "wgmma" if dtype == torch.bfloat16 and dh in (64, 128) else "generic"
+    got = fa_routed(kernels, lambda: fa.flash_attention(q, k, v, scale=scale, causal=causal),
+                    route)
+    torch.cuda.synchronize()
+    err_abs, err_rel, err_last = fa_error(torch, fa, got, q, k, v, scale, causal)
+    tol = TOL["flash_attention_bf16" if dtype == torch.bfloat16 else "flash_attention"]
+    check(math.isfinite(err_rel) and err_rel <= tol,
+          f"flash_attention {label}: row-relative err {err_rel:.3e} > {tol:.0e}")
+    check(torch.equal(fa.flash_attention(q, k, v, scale=scale, causal=causal), got),
+          f"flash_attention {label} is not bit-stable")
+    del got
+    esize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = esize * (2 * b * hq * s * dh + 2 * b * hkv * skv * dh)
+    nflops = 4 * dh * b * hq * attention_pairs(s, skv, causal)
+    peak = bf16_peak if dtype == torch.bfloat16 else f32_peak
+    row = dict(
+        name="flash_attention", operand=f"{label}: B={b} Hq={hq} Hkv={hkv} S={s} Dh={dh} "
+        f"{'causal' if causal else 'full'} {str(dtype)[6:]}",
+        shape=[b, hq, hkv, s, skv, dh], max_abs_err=err_abs, max_rel_err=err_rel,
+        last_rows_rel_err=err_last, tol=tol,
+        ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, scale=scale, causal=causal), nrep),
+        plain_ms=time_ms(torch, lambda: fa_plain(torch, fa, q, k, v, scale, causal), nrep),
+        library_ms=time_ms(torch, lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True,
+                                               scale=scale), nrep),
+        bound_ms=1e3 * max(nbytes / bw, nflops / peak),
+        bound_by="bytes" if nbytes / bw >= nflops / peak else "operations",
+        bytes=nbytes, flops=nflops, main=main, route=route)
+    if route == "wgmma":
+        # the p_hi/p_lo split runs the P.V products twice: 1.5x the work
+        row["split_floor_ms"] = 1.5 * 1e3 * nflops / peak
+    row["tflops"] = nflops / row["ms"] / 1e9
+    print(f"kernel flash_attention {row['operand']} ({route} route): {row['ms']:.3f} ms "
+          f"({row['tflops']:.1f} TFLOP/s; plain {row['plain_ms']:.3f}, sdpa "
+          f"{row['library_ms']:.3f}, bound {row['bound_ms']:.4f} by {row['bound_by']}"
+          + (f", split floor {row['split_floor_ms']:.4f}" if route == "wgmma" else "")
+          + f") row-relative err {err_rel:.2e}, last rows {err_last:.2e} (limit {tol:.0e}), "
+          "bit-stable")
+    return row
+
+
 def flash_kernel_phase(torch, fa, kernels, _build, dev, gen, reps, peaks):
     """flash_attention against its plain version: the main path's shape (B 4,
     S 8192, causal, bf16), prefill_32k's length (B 1, S 32,768), non-causal
     cases, tiny odd f32 ones and ragged bf16 ones; identical bits on repeat;
     the route each took; the HGMMA count of the wgmma kernels; times of
     kernel, plain version and scaled_dot_product_attention."""
-    bw, f32_peak, bf16_peak = peaks[:3]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     counts = hgmma_counts(_build)
     for fn, n in sorted(counts.items()):
         print(f"  SASS of {fn}: {n} HGMMA instructions")
@@ -2533,45 +2667,14 @@ def flash_kernel_phase(torch, fa, kernels, _build, dev, gen, reps, peaks):
           f"no HGMMA in the wgmma kernels' SASS: {counts}")
 
     def routed(call, want):
-        """Run ``call`` and check that it launched flash_attention once, on
-        route ``want``."""
-        before = kernels.route_launches()["flash_attention"]
-        out = call()
-        after = kernels.route_launches()["flash_attention"]
-        moved = {r: after[r] - before[r] for r in after if after[r] != before[r]}
-        check(moved == {want: 1}, f"flash_attention took {moved}, expected {{{want!r}: 1}}")
-        return out
+        return fa_routed(kernels, call, want)
 
     def inputs(b, hq, hkv, sq, skv, dh, dtype):
         return [torch.randn(b, h, s, dh, generator=gen, device=dev).to(dtype)
                 for h, s in ((hq, sq), (hkv, skv), (hkv, skv))]
 
-    def plain(q, k, v, scale, causal, chunk=1024):
-        """The plain version; past 4096 rows over 1024-row query chunks (the
-        whole score matrix would take 13 GB at the main shape, 52 GB at 32k)."""
-        if q.shape[2] <= FA_ALL_ROWS:
-            return fa.ref.attention(q, k, v, scale=scale, causal=causal)
-        return torch.cat([fa.ref.attention(q[:, :, i:i + chunk], k, v, scale=scale,
-                                           causal=causal, q_offset=i)
-                          for i in range(0, q.shape[2], chunk)], dim=2)
-
     def error(got, q, k, v, scale, causal):
-        """Each query row against its own max|plain|, the plain version on the
-        f32 upcast: every row up to S = 4096, else the first and last 256
-        query rows. Returns max |kernel - plain|, the worst row's share of its
-        max|plain|, and that share over the last span alone (the rows that
-        average the most keys, whose values are the smallest)."""
-        sq = q.shape[2]
-        spans = [(0, sq)] if sq <= FA_ALL_ROWS else [(0, 256), (sq - 256, sq)]
-        diff = worst = 0.0
-        for lo, hi in spans:
-            want = fa.ref.attention(q[:, :, lo:hi].float(), k.float(), v.float(), scale=scale,
-                                    causal=causal, q_offset=lo)
-            row_diff = (got[:, :, lo:hi].float() - want).abs().amax(-1)
-            row_rel = float((row_diff / want.abs().amax(-1).clamp_min(1e-30)).max())
-            diff, worst = max(diff, float(row_diff.max())), max(worst, row_rel)
-            del want, row_diff
-        return diff, worst, row_rel
+        return fa_error(torch, fa, got, q, k, v, scale, causal)
 
     rows_out = []
     big = [  # (label, b, sq, causal, dtype, reps)
@@ -2582,45 +2685,8 @@ def flash_kernel_phase(torch, fa, kernels, _build, dev, gen, reps, peaks):
     ]
     for label, b, s, causal, dtype, nrep in big:
         q, k, v = inputs(b, FA_HQ, FA_HKV, s, s, FA_DH, dtype)
-        scale = FA_DH ** -0.5
-        route = "wgmma" if dtype == torch.bfloat16 else "generic"
-        got = routed(lambda: fa.flash_attention(q, k, v, scale=scale, causal=causal), route)
-        torch.cuda.synchronize()
-        err_abs, err_rel, err_last = error(got, q, k, v, scale, causal)
-        tol = TOL["flash_attention_bf16" if dtype == torch.bfloat16 else "flash_attention"]
-        check(math.isfinite(err_rel) and err_rel <= tol,
-              f"flash_attention {label}: row-relative err {err_rel:.3e} > {tol:.0e}")
-        check(torch.equal(fa.flash_attention(q, k, v, scale=scale, causal=causal), got),
-              f"flash_attention {label} is not bit-stable")
-        del got
-        esize = torch.tensor([], dtype=dtype).element_size()
-        nbytes = esize * (2 * b * FA_HQ * s * FA_DH + 2 * b * FA_HKV * s * FA_DH)
-        nflops = 4 * FA_DH * b * FA_HQ * attention_pairs(s, s, causal)
-        peak = bf16_peak if dtype == torch.bfloat16 else f32_peak
-        row = dict(
-            name="flash_attention", operand=f"{label}: B={b} Hq={FA_HQ} Hkv={FA_HKV} S={s} "
-            f"Dh={FA_DH} {'causal' if causal else 'full'} {str(dtype)[6:]}",
-            shape=[b, FA_HQ, FA_HKV, s, s, FA_DH], max_abs_err=err_abs, max_rel_err=err_rel,
-            last_rows_rel_err=err_last, tol=tol,
-            ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, scale=scale, causal=causal),
-                       nrep),
-            plain_ms=time_ms(torch, lambda: plain(q, k, v, scale, causal), nrep),
-            library_ms=time_ms(torch, lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True,
-                                                   scale=scale), nrep),
-            bound_ms=1e3 * max(nbytes / bw, nflops / peak),
-            bound_by="bytes" if nbytes / bw >= nflops / peak else "operations",
-            bytes=nbytes, flops=nflops, main=label == "main path", route=route)
-        if route == "wgmma":
-            # the p_hi/p_lo split issues the P.V products twice: 1.5x the work
-            row["split_floor_ms"] = 1.5 * 1e3 * nflops / peak
-        row["tflops"] = nflops / row["ms"] / 1e9
-        rows_out.append(row)
-        print(f"kernel flash_attention {row['operand']} ({route} route): {row['ms']:.3f} ms "
-              f"({row['tflops']:.1f} TFLOP/s; plain {row['plain_ms']:.3f}, sdpa "
-              f"{row['library_ms']:.3f}, bound {row['bound_ms']:.4f} by {row['bound_by']}"
-              + (f", split floor {row['split_floor_ms']:.4f}" if route == "wgmma" else "")
-              + f") row-relative err {err_rel:.2e}, last rows {err_last:.2e} (limit {tol:.0e}), "
-              "bit-stable")
+        rows_out.append(flash_row(torch, fa, kernels, label, q, k, v, causal, nrep, peaks,
+                                  main=label == "main path"))
         del q, k, v
         torch.cuda.empty_cache()
 
@@ -2761,15 +2827,20 @@ def captured_decode(torch, np, kernels, lm, steps, lm_serve, arch, cfg, params, 
 
 def step_loop(torch, lm, steps, cfg, params, prompt, new_n: int):
     """Greedy decode by a loop of the uncaptured serve step: the prompt fed
-    token by token, then each step's argmax, with the position an int.
-    Returns (new tokens (B, new_n), the cache it filled)."""
+    token by token, then each step's argmax, with the position an int (vlm:
+    and M-RoPE positions built on the host each step). Returns (new tokens
+    (B, new_n), the cache it filled)."""
     b, plen = prompt.shape
     step = steps.make_serve_step(cfg)
     cache = lm.init_cache(cfg, b, plen + new_n, device=prompt.device)
     toks = []
     for t in range(plen + new_n - 1):
         cur = prompt[:, t:t + 1] if t < plen else toks[-1]
-        logits, _ = step(params, cache, {"tokens": cur, "cache_pos": t})
+        batch = {"tokens": cur, "cache_pos": t}
+        if cfg.family == "vlm":  # M-RoPE positions (t, t, t), as the reference's generate
+            batch["positions"] = torch.full((b, 3, 1), t, dtype=torch.int64,
+                                            device=prompt.device)
+        logits, _ = step(params, cache, batch)
         if t >= plen - 1:
             toks.append(torch.argmax(logits[:, 0, :].float(), dim=-1, keepdim=True))
     return torch.cat(toks, dim=1), cache
@@ -2785,15 +2856,22 @@ def lm_decode_phase(torch, np, kernels, lm, steps, lm_serve, cfg, dev, seed):
                            seed, "decode", "flash_attention")
 
 
-def prefill_vs_decode(torch, lm, steps, cfg, params, toks):
-    """Last-position logits of the prefill (flash kernel) and of decode_step
-    fed the prompt token by token (dense path): max diff / max |decode|."""
-    last, _ = steps.make_prefill_step(cfg)(params, {"tokens": toks})
+def prefill_and_decode(torch, lm, steps, cfg, params, toks):
+    """The prefill (flash kernel) and decode_step fed the prompt token by
+    token (dense path): ((last-position logits in f32, cache) of each)."""
+    last, pcache = steps.make_prefill_step(cfg)(params, {"tokens": toks})
     cache = lm.init_cache(cfg, toks.shape[0], toks.shape[1], device=toks.device)
     for t in range(toks.shape[1]):
         logits, cache = lm.decode_step(params, cache, {"tokens": toks[:, t:t + 1],
                                                        "cache_pos": t}, cfg)
-    return rel_err(torch, last.float(), logits[:, 0].float())[1]
+    return (last.float(), pcache), (logits[:, 0].float(), cache)
+
+
+def prefill_vs_decode(torch, lm, steps, cfg, params, toks):
+    """Last-position logits of ``prefill_and_decode``: max diff / max
+    |decode|."""
+    (last, _), (logits, _) = prefill_and_decode(torch, lm, steps, cfg, params, toks)
+    return rel_err(torch, last, logits)[1]
 
 
 def lm_crosscheck_phase(torch, lm, steps, get_config, kernels, cfg, params16, dev, gen):
@@ -5786,6 +5864,358 @@ def train_phase(torch, np, kernels, lm, steps, train_mod, hybrid, adamw, data, S
     return report, total, bf16_total, rows_out
 
 
+AUDIO_ARCH = "hubert_xlarge"  # 48 layers, d 1280, 16 heads of 80, gelu, non-causal, frontend 512
+AUDIO_SHAPE = (8, 1500)  # utterances x frames: 30 s of audio at HuBERT's 50 frames/s
+AUDIO_XCHECK = (2, 300)  # the f32 encoder check against the plain attention path
+HYBRID_SERVE_ARCH = "zamba2_2_7b"  # 54 Mamba-2 layers, d 2560; a shared block (32 x 80) x 9
+HYBRID_SERVE_SHAPE = (4, 4096)  # prompts x tokens of the prefill
+VLM_ARCH = "qwen2_vl_72b"  # d 8192, Hq 64 / Hkv 8, Dh 128, d_ff 29,568, M-RoPE (16, 24, 24)
+VLM_LAYERS = 32  # of 80: 61 GB of bf16 weights (the whole model is 145 GB)
+VLM_SHAPE = (4, 1024, 1024)  # prompts x (vision embeddings: a 32 x 32 patch grid, text tokens)
+VLM_XCHECK = (4, 64, 64)  # the f32 check: layers (24 GB of f32 weights), vision, text
+# flash_attention at the three prefills' operands: (label, B, Hq, Hkv, S, Dh, causal), bf16
+FAMILY_OPERANDS = (("hubert-xlarge", 8, 16, 16, 1500, 80, False),
+                   ("zamba2-2.7b", 4, 32, 32, 4096, 80, True),
+                   ("qwen2-vl-72b", 4, 64, 8, 2048, 128, True))
+PHASE31_HELD_GB = 2.0  # what earlier phases may still hold on the card when it starts
+
+
+def vlm_inputs(torch, gen, dev, cfg, b, sv, st):
+    """Qwen2-VL's prefill inputs: sv vision embeddings (a square grid of
+    patches; N(0, 1) times d^-0.5, the token embeddings' scale, in the model
+    dtype) ahead of st random tokens; M-RoPE positions (0, row, column) for
+    the patches and, for the text, from the grid's side on in all three
+    streams."""
+    side = math.isqrt(sv)
+    idx = torch.arange(sv, device=dev)
+    grid = torch.stack([torch.zeros_like(idx), idx // side, idx % side])
+    text = (side + torch.arange(st, device=dev)).expand(3, st)
+    vision = torch.randn(b, sv, cfg.d_model, generator=gen, device=dev) * cfg.d_model ** -0.5
+    return {"tokens": torch.randint(0, cfg.vocab_size, (b, st), generator=gen, device=dev),
+            "vision_embeds": vision.to(cfg.torch_dtype),
+            "positions": torch.cat([grid, text], 1).expand(b, 3, sv + st).contiguous()}
+
+
+def family_prefill(torch, kernels, lm, steps, cfg, params, batch, label, tokens, attn_layers,
+                   route):
+    """One family's main path: ``make_prefill_step`` with the counters from 0
+    (read on the device), then three more runs for the time. Returns (the
+    report, its launches, the first run's (logits, cache))."""
+    step = steps.make_prefill_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with counting(kernels) as ran:
+        out = step(params, batch)
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    launches = ran.launches
+    want = dict.fromkeys(launches, 0)
+    want["flash_attention"] = attn_layers
+    check(launches == want, f"{label} prefill: launches {launches} != {want}")
+    check(kernels.launches() == launches,
+          f"{label} prefill: wrapper calls {kernels.launches()} != the device's {launches}")
+    routes = ran.routes["flash_attention"]
+    check(routes[route] == attn_layers, f"{label} prefill: flash_attention routes {routes}, "
+          f"expected all {attn_layers} on {route}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again = step(params, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del again
+    med = statistics.median(times)
+    rep = dict(arch=cfg.name, layers=cfg.num_layers, params=lm.param_count(params),
+               first_ms=first_ms, ms=[1e3 * t for t in times], ms_median=1e3 * med,
+               tokens=tokens, tokens_per_s=tokens / med, peak_gb=peak_gb, routes=routes,
+               launches=launches)
+    print(f"prefill {label} ({cfg.num_layers} layers, {rep['params']} parameters, {cfg.dtype}) "
+          f"on {tokens} positions: median {rep['ms_median']:.1f} ms ({rep['tokens_per_s']:.0f} "
+          f"a second; first {first_ms:.1f} ms), peak {peak_gb:.2f} GB, {attn_layers} "
+          f"flash_attention launches, all on {route}")
+    return rep, launches, out
+
+
+def kind_profile(torch, run):
+    """Device time by kind of one call of ``run`` (torch.profiler): flash
+    (the two flash routes), GEMMs (cuBLAS and CUTLASS kernels by name), the
+    rest (elementwise, reductions, copies); wall time and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    del out
+    kinds = dict(flash=0.0, gemm=0.0, other=0.0)
+    for ev in prof.key_averages():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue
+        name = ev.key.lower()
+        kind = ("flash" if any(f in ev.key for f in FLASH_KERNELS) else "gemm"
+                if any(g in name for g in ("gemm", "nvjet", "xmma", "cutlass", "cublas"))
+                else "other")
+        kinds[kind] += ev.self_device_time_total
+    busy = sum(kinds.values())
+    return dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
+                idle_share=1.0 - busy / wall_us if busy else None,
+                **{f"{k}_ms": v / 1e3 for k, v in kinds.items()}), busy
+
+
+def print_kinds(label, row):
+    if not row["busy_ms"]:
+        print(f"profile {label}: the profiler recorded no device time (not measured)")
+        return
+    print(f"profile {label}: wall {row['wall_ms']:.1f} ms, device busy {row['busy_ms']:.1f} ms "
+          f"(flash_attention {row['flash_ms']:.1f}, GEMMs {row['gemm_ms']:.1f}, other "
+          f"{row['other_ms']:.1f}), idle share {row['idle_share']:.3f}")
+
+
+def families_phase(torch, np, kernels, lm, steps, lm_serve, fa, mamba2, get_config, dev, args,
+                   peaks):
+    """Phase 31 (see the module doc). Returns (report, summed launches of
+    its main paths, its kernel rows)."""
+    import gc
+
+    report, rows_out = {}, []
+    t_phase = time.perf_counter()
+    before_gc = torch.cuda.memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
+    report["held_gb"] = [before_gc, held]
+    print(f"phase 31 starts with {before_gc:.2f} GB allocated ({held:.2f} GB after a garbage "
+          "collection)")
+    check(held < PHASE31_HELD_GB, f"phase 31: earlier phases still hold {held:.2f} GB on the "
+          f"card (limit {PHASE31_HELD_GB})")
+    total = dict.fromkeys(kernels.launches(), 0)
+
+    def add(launches):
+        for k_, v_ in launches.items():
+            total[k_] += v_
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+
+    # (a) hubert-xlarge, the encoder step
+    cfg = get_config(AUDIO_ARCH)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    b, s = AUDIO_SHAPE
+    frames = torch.randn(b, s, cfg.frontend_dim, generator=gen, device=dev)
+    rep, launches, (logits, cache) = family_prefill(
+        torch, kernels, lm, steps, cfg, params, {"frames": frames},
+        "hubert-xlarge (encoder step)", b * s, cfg.num_layers, "generic")
+    add(launches)
+    rep["init_s"] = time.perf_counter() - t0
+    check(cache is None, "hubert: the encoder step returned a cache")
+    check(tuple(logits.shape) == (b, s, cfg.vocab_size),
+          f"hubert logits {tuple(logits.shape)} != {(b, s, cfg.vocab_size)}")
+    check(bool(torch.isfinite(logits).all()), "hubert: non-finite logits")
+    rep["frames_per_s"] = rep.pop("tokens_per_s")
+    del logits, frames
+    # f32 at full width: the encoder through the kernel against the plain
+    # attention (autograd records through the frames: layers.attention then
+    # takes the reference's differentiable path)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_to(torch, params, torch.float32)
+    x = torch.randn(*AUDIO_XCHECK, cfg.frontend_dim, generator=gen, device=dev)
+    with counting(kernels) as ran:
+        kern = lm.forward(p32, {"frames": x}, cfg32, mode="train")["logits"]
+    check(ran.launches["flash_attention"] == cfg.num_layers,
+          f"hubert f32: {ran.launches['flash_attention']} flash launches")
+    with counting(kernels) as ran, torch.enable_grad():
+        plain = lm.forward(p32, {"frames": x.clone().requires_grad_(True)}, cfg32,
+                           mode="train")["logits"].detach()
+    check(ran.launches["flash_attention"] == 0, "hubert f32: the plain path launched the kernel")
+    rep["f32_rel_err"] = rel_err(torch, kern, plain)[1]
+    check(rep["f32_rel_err"] <= TOL["lm_f32"],
+          f"hubert f32: encoder with the kernel vs the plain attention rel err "
+          f"{rep['f32_rel_err']:.3e} > {TOL['lm_f32']:.0e}")
+    if args.profile:
+        rep["profile"], _ = kind_profile(torch, lambda: steps.make_prefill_step(cfg)(
+            params, {"frames": torch.randn(b, s, cfg.frontend_dim, generator=gen, device=dev)}))
+        print_kinds("hubert-xlarge encoder step", rep["profile"])
+    print(f"hubert-xlarge: {rep['frames_per_s']:.0f} frames/s; f32 encoder (kernel) against "
+          f"the plain attention on {AUDIO_XCHECK[0]} x {AUDIO_XCHECK[1]} frames: rel err "
+          f"{rep['f32_rel_err']:.2e} (tolerance {TOL['lm_f32']:.0e})")
+    report["audio"] = rep
+    del params, p32, kern, plain, x
+    free()
+
+    # (b) zamba2-2.7b: prefill, captured decode, prefill against decode
+    cfg = get_config(HYBRID_SERVE_ARCH)
+    nb = cfg.num_layers // cfg.hybrid_block
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    b, s = HYBRID_SERVE_SHAPE
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    rep, launches, (last, cache) = family_prefill(
+        torch, kernels, lm, steps, cfg, params, {"tokens": toks}, "zamba2-2.7b", b * s, nb,
+        "generic")
+    add(launches)
+    rep["init_s"] = time.perf_counter() - t0
+    d_inner, nh, hd, n = mamba2.dims(cfg)
+    kv = (nb, b, cfg.num_kv_heads, s, cfg.head_dim_)
+    shapes = {"k": (kv, cfg.torch_dtype), "v": (kv, cfg.torch_dtype),
+              "mamba_h": ((cfg.num_layers, b, nh, hd, n), torch.float32),
+              "mamba_conv": ((cfg.num_layers, b, cfg.d_conv - 1, d_inner + 2 * n),
+                             cfg.torch_dtype)}
+    check(tuple(last.shape) == (b, cfg.vocab_size) and bool(torch.isfinite(last).all()),
+          f"zamba2: last logits {tuple(last.shape)} not finite or not {(b, cfg.vocab_size)}")
+    for name, (shape, dt) in shapes.items():
+        check(tuple(cache[name].shape) == shape and cache[name].dtype == dt,
+              f"zamba2 cache {name} {tuple(cache[name].shape)} {cache[name].dtype} != {shape} "
+              f"{dt}")
+        check(bool(torch.isfinite(cache[name]).all()), f"zamba2: non-finite cache {name}")
+    del last, cache
+    if args.profile:
+        rep["profile"], _ = kind_profile(torch, lambda: steps.make_prefill_step(cfg)(
+            params, {"tokens": toks}))
+        print_kinds("zamba2-2.7b prefill", rep["profile"])
+    del toks
+    rep["decode"], launches = captured_decode(
+        torch, np, kernels, lm, steps, lm_serve, HYBRID_SERVE_ARCH, cfg, params, dev, args.seed,
+        "zamba2 decode", "flash_attention")
+    add(launches)
+    if args.profile:
+        dstats = {}
+        row, busy = kind_profile(torch, lambda: lm_serve.generate(
+            arch=HYBRID_SERVE_ARCH, smoke=False, batch=DECODE_BATCH, prompt_len=8,
+            max_new_tokens=8, seed=args.seed, device=dev, params=params, stats=dstats))
+        decode_idle(row, dstats, busy)
+        rep["decode_profile"] = row
+    # prefill against decode on 4 x 64 tokens (one chunk of 64), f32 (an f32
+    # copy of the weights) and bf16: the last logits and every cache
+    xtoks = torch.randint(0, cfg.vocab_size, (4, DECODE_PROMPT), generator=gen, device=dev)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_to(torch, params, torch.float32)
+    kernels.reset_launches()
+    (pre32, pc32), (dec32, dc32) = prefill_and_decode(torch, lm, steps, cfg32, p32, xtoks)
+    check(kernels.launches()["flash_attention"] == nb,
+          "zamba2 f32 prefill did not launch the flash kernel once a shared block")
+    del p32
+    free()
+    (pre16, pc16), (dec16, dc16) = prefill_and_decode(torch, lm, steps, cfg, params, xtoks)
+
+    def worst(a, b):  # each layer's (or shared block's) entry to its own max
+        return max(rel_err(torch, a[i].float(), b[i].float())[1] for i in range(a.shape[0]))
+
+    rep.update(f32_rel_err=rel_err(torch, pre32, dec32)[1],
+               f32_cache_rel_err={k_: worst(pc32[k_], dc32[k_]) for k_ in pc32},
+               bf16_rel_err=rel_err(torch, pre16, dec16)[1],
+               bf16_first_rel_err={k_: rel_err(torch, pc16[k_][0].float(),
+                                                dc16[k_][0].float())[1] for k_ in pc16},
+               bf16_decode_vs_f32=rel_err(torch, dec16, dec32)[1],
+               bf16_prefill_vs_f32=rel_err(torch, pre16, pre32)[1])
+    f32_worst = max(rep["f32_rel_err"], *rep["f32_cache_rel_err"].values())
+    first = max(rep["bf16_first_rel_err"].values())
+
+    def fmt(d):
+        return ", ".join(f"{k_} {v_:.2e}" for k_, v_ in d.items())
+
+    print(f"zamba2-2.7b prefill vs decode at full width, 4 x {DECODE_PROMPT} tokens: f32 logits "
+          f"rel err {rep['f32_rel_err']:.2e}, caches {fmt(rep['f32_cache_rel_err'])} (tolerance "
+          f"{TOL['lm_f32']:.0e}); bf16 logits {rep['bf16_rel_err']:.2e} (the dense family's "
+          f"{TOL['lm_bf16']:.0e} {'met' if rep['bf16_rel_err'] <= TOL['lm_bf16'] else 'not met'}"
+          f"; bf16 prefill from f32 {rep['bf16_prefill_vs_f32']:.2e}, bf16 decode from f32 "
+          f"{rep['bf16_decode_vs_f32']:.2e}: not held, bf16 rounding through 63 blocks of a "
+          f"random-init model), layer 0 and the first shared block's caches "
+          f"{fmt(rep['bf16_first_rel_err'])} (tolerance {TOL['lm_bf16']:.0e})")
+    check(f32_worst <= TOL["lm_f32"],
+          f"zamba2 f32: prefill vs decode rel err {f32_worst:.3e} > {TOL['lm_f32']:.0e}")
+    check(first <= TOL["lm_bf16"],
+          f"zamba2 bf16: layer 0's caches differ between prefill and decode by {first:.3e}")
+    del pre32, pc32, dec32, dc32, pre16, pc16, dec16, dc16
+    report["hybrid"] = rep
+    del params, xtoks
+    free()
+
+    # (c) qwen2-vl-72b: first the f32 check at a depth of VLM_XCHECK[0], then
+    # the main path at VLM_LAYERS of 80 layers
+    nl, sv, st = VLM_XCHECK
+    cfg = dataclasses.replace(get_config(VLM_ARCH), num_layers=nl, dtype="float32")
+    params = lm.init_params(cfg, gen)
+    full = vlm_inputs(torch, gen, dev, cfg, 2, sv, st)
+    want = lm.forward(params, full, cfg, mode="train")["logits"][:, -1]
+    prompt = dict(full, tokens=full["tokens"][:, :-1], positions=full["positions"][:, :, :-1])
+    last, cache = steps.make_prefill_step(cfg)(params, prompt)
+    cache = {k_: torch.nn.functional.pad(v_, (0, 0, 0, 1)).contiguous()
+             for k_, v_ in cache.items()}
+    logits, _ = lm.decode_step(params, cache, {
+        "tokens": full["tokens"][:, -1:], "cache_pos": sv + st - 1,
+        "positions": full["positions"][:, :, -1:]}, cfg)
+    vlm_f32 = rel_err(torch, logits[:, 0], want)[1]
+    print(f"qwen2-vl-72b f32 at {nl} layers, 2 x ({sv} vision + {st} text): the prefill's cache "
+          f"and one decode step against the full forward's last logits: rel err {vlm_f32:.2e} "
+          f"(tolerance {TOL['lm_f32']:.0e})")
+    check(vlm_f32 <= TOL["lm_f32"], f"qwen2-vl f32: decode after prefill rel err {vlm_f32:.3e}")
+    del params, full, want, prompt, last, cache, logits
+    free()
+    cfg = dataclasses.replace(get_config(VLM_ARCH), num_layers=VLM_LAYERS)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    b, sv, st = VLM_SHAPE
+    batch = vlm_inputs(torch, gen, dev, cfg, b, sv, st)
+    rep, launches, (last, cache) = family_prefill(
+        torch, kernels, lm, steps, cfg, params, batch,
+        f"qwen2-vl-72b ({VLM_LAYERS} of 80 layers)", b * (sv + st), VLM_LAYERS, "wgmma")
+    add(launches)
+    rep.update(init_s=time.perf_counter() - t0, f32_rel_err=vlm_f32, cut_layers=VLM_LAYERS)
+    kv = (VLM_LAYERS, b, cfg.num_kv_heads, sv + st, cfg.head_dim_)
+    check(tuple(last.shape) == (b, cfg.vocab_size) and bool(torch.isfinite(last).all()),
+          f"qwen2-vl: last logits {tuple(last.shape)} not finite or not {(b, cfg.vocab_size)}")
+    check(tuple(cache["k"].shape) == kv and tuple(cache["v"].shape) == kv,
+          f"qwen2-vl cache {tuple(cache['k'].shape)} != {kv}")
+    del last, cache
+    if args.profile:
+        rep["profile"], _ = kind_profile(
+            torch, lambda: steps.make_prefill_step(cfg)(params, batch))
+        print_kinds("qwen2-vl-72b prefill", rep["profile"])
+    del batch
+    free()
+    # generate takes the published config (80 layers): its cache holds 80
+    # layers, of which decode writes the 32 the weights have
+    rep["decode"], launches = captured_decode(
+        torch, np, kernels, lm, steps, lm_serve, VLM_ARCH, get_config(VLM_ARCH), params, dev,
+        args.seed, "qwen2-vl decode", "flash_attention")
+    add(launches)
+    if args.profile:
+        dstats = {}
+        row, busy = kind_profile(torch, lambda: lm_serve.generate(
+            arch=VLM_ARCH, smoke=False, batch=DECODE_BATCH, prompt_len=8, max_new_tokens=8,
+            seed=args.seed, device=dev, params=params, stats=dstats))
+        decode_idle(row, dstats, busy)
+        rep["decode_profile"] = row
+    report["vlm"] = rep
+    del params
+    free()
+
+    # (d) flash_attention at the three families' operands
+    bf16 = torch.bfloat16
+    for label, b, hq, hkv, s, dh, causal in FAMILY_OPERANDS:
+        q, k, v = [torch.randn(b, h, s, dh, generator=gen, device=dev).to(bf16)
+                   for h in (hq, hkv, hkv)]
+        rows_out.append(flash_row(torch, fa, kernels, label, q, k, v, causal, args.reps, peaks))
+        del q, k, v
+        free()
+
+    report["wall_s"] = time.perf_counter() - t_phase
+    report["launches"] = total
+    print(f"phase 31 took {report['wall_s']:.1f} s")
+    return report, total, rows_out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5854,7 +6284,7 @@ def main(argv=None) -> int:
     from repro_torch.launch import dfw, steps
     from repro_torch.launch import serve as lm_serve
     from repro_torch.launch import train as train_mod
-    from repro_torch.models import lm, rwkv6
+    from repro_torch.models import lm, mamba2, rwkv6
     from repro_torch.models.config import ShapeSpec
     from repro_torch.optim import adamw, compression, hybrid
 
@@ -6197,6 +6627,15 @@ def main(argv=None) -> int:
         krows += train_rows
         print(f"phase 30 ({smi})")
         torch.cuda.empty_cache()
+
+        # 31. serving of the LM zoo's audio, vlm and hybrid families at full
+        # width: hubert-xlarge's encoder step, zamba2-2.7b and qwen2-vl-72b
+        # (32 of 80 layers) prefill and captured decode; flash_attention at
+        # their operands
+        report["families"], families_launch, families_rows = families_phase(
+            torch, np, kernels, lm, steps, lm_serve, fa, mamba2, get_config, dev, args, peaks)
+        krows += families_rows
+        print(f"phase 31 ({smi})")
     except Check as e:
         return fail(str(e))
 
@@ -6204,7 +6643,8 @@ def main(argv=None) -> int:
     paths = (mtls_launch, log_launch, mc_launch, mc8_launch, fit12_launch, serve_launch,
              prefill_launch, decode_launch, ssm_prefill_launch, ssm_decode_launch,
              world_one_launch, multi_launch, baselines_launch, graphs_launch, block_launch,
-             resume_launch, engine_launch, telemetry_launch, head_launch, train_launch)
+             resume_launch, engine_launch, telemetry_launch, head_launch, train_launch,
+             families_launch)
     for kname in (*TPU_KERNEL, *HELPER_KERNELS, *BLOCK_KERNELS, "update_resid_block",
                   "rank1_update_bf16"):
         rows = [r for r in krows if r["name"] == kname]

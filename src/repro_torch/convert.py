@@ -153,8 +153,11 @@ def lm_params(params: Any, cfg, *, device: DeviceLike = None) -> dict:
     """The port's parameter dict of an LM from the JAX package's (after
     ``jax.device_get``): the same names and leaves, with the stacked
     ``(L, ...)`` layer leaves unstacked into ``params["layers"][i]``, nested
-    dicts (the ssm family's ``tm_cm``) included; each leaf keeps its dtype,
-    so the f32 leaves of a bf16 model (``w_base``, ``u_bonus``) stay f32.
+    dicts (the ssm family's ``tm_cm``, the hybrid family's ``mamba``)
+    included; the audio family's ``frame_proj`` and the hybrid family's
+    ``shared`` block (one set of weights, not stacked) are carried as they
+    are. Each leaf keeps its dtype, so the f32 leaves of a bf16 model
+    (``w_base``, ``u_bonus``; ``a_log``, ``dt_bias``, ``d_skip``) stay f32.
     Only the families the port runs (``models.lm.PORTED_FAMILIES``) are
     taken."""
     from .models import lm
@@ -162,8 +165,12 @@ def lm_params(params: Any, cfg, *, device: DeviceLike = None) -> dict:
     lm.check_family(cfg)
     dev = resolve_device(device)
     f = _fields(params)
-    out = {name: _float_tensor(f[name], dev)
-           for name in ("embed", "final_norm", "unembed") if name in f}
+
+    def carry(t):
+        return {k: carry(v) for k, v in t.items()} if isinstance(t, dict) else _float_tensor(t, dev)
+
+    out = {name: carry(f[name])
+           for name in ("frame_proj", "embed", "shared", "final_norm", "unembed") if name in f}
     stacked = f["layers"]
 
     def layer(tree, i):

@@ -8,10 +8,13 @@ kernel, padded static batches, rank buckets) and, with ``follow``, polls the
 directory and hot-swaps onto every newer step that training writes: one
 process fits, this one scores, and the model never exists as a dense d x m
 matrix in either.
-* ``generate`` decodes a batch of prompts over the LM zoo's dense and ssm
-  (RWKV-6) families, token by token through ``decode_step`` against a KV
-  cache (dense) or a recurrent state (ssm), greedily or with temperature
-  sampling; on the card every step is a replay of one captured CUDA graph.
+* ``generate`` decodes a batch of prompts over the LM zoo's decoder
+  families (dense, ssm (RWKV-6), vlm, hybrid (Mamba-2 with a shared
+  attention block)), token by token through ``decode_step`` against a KV
+  cache (dense, vlm), a recurrent state (ssm) or both (hybrid), greedily or
+  with temperature sampling; on the card every step is a replay of one
+  captured CUDA graph. The encoder-only audio family has no decode (its
+  step is ``launch.steps.make_prefill_step``'s encoder step).
 
 CLI: ``python -m repro_torch.launch.serve factor --checkpoint DIR`` or
 ``python -m repro_torch.launch.serve lm --arch NAME`` (on the card;
@@ -174,7 +177,8 @@ def generate(
     out = torch.zeros((batch, max_new_tokens), dtype=torch.int64, device=dev)
 
     def run(cache, pos, last, out):
-        _decode_step(step, params, cache, prompt, pos, last, out, temperature, gen)
+        _decode_step(step, params, cache, prompt, pos, last, out, temperature, gen,
+                     mrope=cfg.family == "vlm")
 
     steps = max_len - 1
     info = dict(captures=0, capture_ms=0.0, graph_replays=0, pool_bytes=0)
@@ -213,17 +217,23 @@ def generate(
 
 
 def _decode_step(step, params, cache, prompt, pos, last, out, temperature: float,
-                 gen: torch.Generator) -> None:
+                 gen: torch.Generator, mrope: bool = False) -> None:
     """One step of ``generate``'s loop at the device position ``pos`` (0-d
     int64): the input token is the prompt's column ``pos`` while ``pos`` <
     prompt_len, else ``last``; the sampled token goes into ``last`` and into
     ``out``'s column pos - (prompt_len - 1) (column 0 while still inside the
-    prompt, rewritten by the prompt's last step); then ``pos`` += 1. Reads
-    nothing back to the host."""
+    prompt, rewritten by the prompt's last step); then ``pos`` += 1. With
+    ``mrope`` (the vlm family) the step's M-RoPE positions are (pos, pos,
+    pos) for every row, made here from the device position, as the
+    reference passes ``jnp.full((B, 3, 1), t)``. Reads nothing back to the
+    host."""
     prompt_len = prompt.shape[1]
     fed = prompt.index_select(1, pos.clamp(max=prompt_len - 1).reshape(1))
     cur = torch.where(pos < prompt_len, fed, last)
-    logits, _ = step(params, cache, {"tokens": cur, "cache_pos": pos})
+    batch = {"tokens": cur, "cache_pos": pos}
+    if mrope:
+        batch["positions"] = pos.reshape(1, 1, 1).expand(cur.shape[0], 3, 1)
+    logits, _ = step(params, cache, batch)
     scores = logits[:, 0, :].float()
     if temperature > 0:
         nxt = torch.multinomial(torch.softmax(scores / temperature, dim=-1), 1, generator=gen)
@@ -249,7 +259,8 @@ def main(argv=None):
     fp.add_argument("--poll-s", type=float, default=0.2)
     fp.add_argument("--seed", type=int, default=0)
     fp.add_argument("--device", default=None, help="default: cuda")
-    lp = sub.add_parser("lm", help="LM decode over the model zoo (dense and ssm families)")
+    lp = sub.add_parser("lm", help="LM decode over the model zoo (dense, ssm, vlm and hybrid "
+                        "families)")
     lp.add_argument("--arch", required=True)
     lp.add_argument("--batch", type=int, default=4)
     lp.add_argument("--prompt-len", type=int, default=16)

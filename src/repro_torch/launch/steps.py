@@ -1,12 +1,14 @@
 """Train, prefill and serve steps of the LM zoo, the port's counterpart of
-``repro.launch.steps``. The sharding specs (a mesh) are not ported yet.
+``repro.launch.steps``: prefill and serve for every family in
+``models.lm.PORTED_FAMILIES`` (an encoder-only config's prefill is its
+encoder step), training for ``models.lm.TRAINED_FAMILIES``. The sharding
+specs (a mesh) are not ported yet.
 """
 from __future__ import annotations
 
 from ..models import lm
 from ..models.config import ModelConfig
 from ..optim import adamw, schedule
-from ..specs import NotYetPorted
 
 
 def make_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4, warmup: int = 100,
@@ -16,8 +18,9 @@ def make_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4, warmup: int = 10
     ``lm.loss_fn``, the learning rate of ``schedule.cosine_with_warmup`` at
     the optimizer's step, then ``adamw.update``, which updates ``params`` and
     the state's moments IN PLACE (the returned params are the dict passed
-    in). Metrics ``loss``, ``ce``, ``aux`` and ``lr`` stay on the device."""
-    lm.check_family(cfg)
+    in). Metrics ``loss``, ``ce``, ``aux`` and ``lr`` stay on the device.
+    Only the families in ``lm.TRAINED_FAMILIES``."""
+    lm.check_trains(cfg)
 
     def train_step(params, opt_state: adamw.AdamWState, batch):
         (loss, metrics), grads = lm.value_and_grad(params, batch, cfg)
@@ -33,11 +36,15 @@ def make_prefill_step(cfg: ModelConfig):
     """``prefill_step(params, batch) -> (last-position logits (B, V), cache)``:
     the forward over the prompt computes every position's logits and keeps
     the last, as the reference does (copied, so the full-sequence logits are
-    freed on return). An encoder-only config (audio) has no cache and is
-    not ported."""
+    freed on return). An encoder-only config (audio) has no cache: its step
+    is ``encode_step(params, batch) -> (every position's logits (B, S, V),
+    None)``, the bidirectional forward in "train" mode, as the reference's."""
     lm.check_family(cfg)
     if cfg.encoder_only:
-        raise NotYetPorted(f"{cfg.name}: the encoder-only step (audio) is not yet ported")
+        def encode_step(params, batch):
+            return lm.forward(params, batch, cfg, mode="train")["logits"], None
+
+        return encode_step
 
     def prefill_step(params, batch):
         out = lm.forward(params, batch, cfg, mode="prefill")

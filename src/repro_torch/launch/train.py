@@ -119,6 +119,7 @@ def train(*, arch: str, steps: int, smoke: bool = True, seq_len: int = 128,
         raise NotYetPorted("--mesh: a sharded train run is not yet ported to PyTorch "
                            "(ROADMAP section 1, Sharded LM paths)")
     cfg = cfg if cfg is not None else get_config(arch, smoke=smoke)
+    lm.check_trains(cfg)
     dev = resolve_device(device)
     shape = ShapeSpec("train_custom", "train", seq_len, global_batch)
     init_fn, step_fn, _ = build(cfg, shape, peak_lr=peak_lr, seed=seed, device=dev)

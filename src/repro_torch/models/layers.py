@@ -1,10 +1,10 @@
-"""Shared transformer layers of the dense LM family: norms, RoPE, GQA
+"""Shared transformer layers of the LM zoo: norms, RoPE and M-RoPE, GQA
 attention, MLPs. The port's counterpart of ``repro.models.layers``.
 
 Functions take parameter dicts of tensors, in the reference's layout
 (weights ``(in, out)``, used as ``x @ w``). The reference's sharding
-annotations are no-ops on one device and are dropped; M-RoPE (vlm) and the
-sequence-sharded decode (multi-device) are not ported yet.
+annotations are no-ops on one device and are dropped; the sequence-sharded
+decode (multi-device) is not ported yet.
 
 Attention under autograd: the hand-written flash kernel is a forward only,
 as the reference's Pallas kernel is (``jax.grad`` through that kernel fails,
@@ -49,14 +49,36 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
 # ---------------------------------------------------------------------------
 
 
+def _inv_freq(half: int, theta: float, device) -> torch.Tensor:
+    """theta ** (-i / half) for i < half, in f32."""
+    exponent = -torch.arange(0, half, dtype=torch.float32, device=device) / half
+    # a fill, not a copy from the host: capturable into a CUDA graph
+    return torch.pow(torch.full((), theta, dtype=torch.float32, device=device), exponent)
+
+
 def rope_angles(positions: torch.Tensor, head_dim: int, theta: float) -> torch.Tensor:
     """(B, S, head_dim/2) rotation angles for integer positions (B, S)."""
+    return positions[..., None].float() * _inv_freq(head_dim // 2, theta, positions.device)
+
+
+def mrope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                 sections: Tuple[int, ...]) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: (B, S, head_dim/2) angles from (B, 3, S) integer
+    (temporal, height, width) positions. The half-dim frequency slots are
+    split into ``sections`` in order, each rotating by its own position
+    stream. The sections come from the config's tuple as slices, so no
+    index tensor is copied from the host and the angles are capturable
+    into a CUDA graph; each angle is the reference's one product."""
     half = head_dim // 2
-    exponent = -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    # a fill, not a copy from the host: capturable into a CUDA graph
-    inv_freq = torch.pow(torch.full((), theta, dtype=torch.float32, device=positions.device),
-                         exponent)
-    return positions[..., None].float() * inv_freq
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to head_dim / 2 = {half}")
+    inv_freq = _inv_freq(half, theta, positions.device)
+    pos = positions.float()
+    parts, lo = [], 0
+    for stream, n in enumerate(sections):
+        parts.append(pos[:, stream, :, None] * inv_freq[lo:lo + n])
+        lo += n
+    return torch.cat(parts, dim=-1)
 
 
 def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:

@@ -1,16 +1,23 @@
-"""The LM zoo's dense and ssm (RWKV-6) families: init / forward / decode.
-The port's counterpart of ``repro.models.lm``.
+"""The LM zoo's dense, ssm (RWKV-6), audio, vlm and hybrid (Mamba-2 with a
+shared attention block) families: init / forward / decode. The port's
+counterpart of ``repro.models.lm``.
 
 Parameters are a dict of tensors with the reference's names and layouts,
 except that the reference's stacked ``(L, ...)`` layer leaves are a list of
 per-layer dicts here (``params["layers"][i]``), run by a Python loop in
-place of ``lax.scan``. ``convert.lm_params`` carries a JAX parameter dict
-across. The other families (moe, vlm, audio, hybrid) are not ported yet:
+place of ``lax.scan``; the hybrid family's ``shared`` block is one dict,
+applied after every ``hybrid_block`` Mamba-2 layers. ``convert.lm_params``
+carries a JAX parameter dict across. The moe family is not ported yet:
 ``init_params``, ``forward``, ``loss_fn``, ``cache_specs`` and
-``decode_step`` raise ``NotYetPorted`` for them before any device work.
+``decode_step`` raise ``NotYetPorted`` for it before any device work.
+The audio family (hubert) is encoder-only: a bidirectional forward
+through the frame-embedding frontend, with no cache and no decode.
 
 Training: ``loss_fn`` is the reference's objective, differentiated by
-autograd. While autograd records through a layer (``torch.is_grad_enabled()``
+autograd, for the families in ``TRAINED_FAMILIES`` (dense, ssm); it raises
+``NotYetPorted`` for the others before any device work (vlm's loss over the
+text positions and audio's frame labels come with their training).
+While autograd records through a layer (``torch.is_grad_enabled()``
 and a tensor it reads requires grad), ``cfg.remat == "full"`` checkpoints
 each layer (``torch.utils.checkpoint``, non-reentrant), as the reference's
 ``jax.checkpoint`` of the scanned block does, and the layers take their
@@ -36,12 +43,15 @@ from torch.utils.checkpoint import checkpoint
 from .. import DeviceLike, resolve_device
 from ..specs import NotYetPorted
 from . import layers as L
-from . import rwkv6
+from . import mamba2, rwkv6
 from .config import ModelConfig
 
 Params = Dict[str, Any]
 
-PORTED_FAMILIES = ("dense", "ssm")
+#: Families whose forward, prefill and decode the port runs.
+PORTED_FAMILIES = ("dense", "ssm", "audio", "vlm", "hybrid")
+#: Families the port also trains (``loss_fn`` and everything built on it).
+TRAINED_FAMILIES = ("dense", "ssm")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -50,6 +60,16 @@ def check_family(cfg: ModelConfig) -> None:
         raise NotYetPorted(
             f"{cfg.name}: family {cfg.family!r} is not yet ported to PyTorch; the port runs "
             f"{PORTED_FAMILIES}"
+        )
+
+
+def check_trains(cfg: ModelConfig) -> None:
+    """Raise ``NotYetPorted`` unless the port trains ``cfg``'s family."""
+    check_family(cfg)
+    if cfg.family not in TRAINED_FAMILIES:
+        raise NotYetPorted(
+            f"{cfg.name}: training of family {cfg.family!r} is not yet ported to PyTorch (it "
+            f"serves); the port trains {TRAINED_FAMILIES}"
         )
 
 
@@ -63,9 +83,12 @@ def init_params(cfg: ModelConfig, key: Union[int, torch.Generator] = 0, *,
     """Random parameters with the reference's names, shapes and scales:
     N(0, 1) weights times d^-0.5 (the down projections f^-0.5), zero QKV
     biases, unit norms; for the ssm family the RWKV-6 blocks of
-    ``rwkv6.init_rwkv``. ``key`` is a seed or a ``torch.Generator`` on the
-    target device (free runs draw different numbers from the reference's
-    ``jax.random`` stream; ``convert.lm_params`` carries those across)."""
+    ``rwkv6.init_rwkv``, for the hybrid family the Mamba-2 layers of
+    ``mamba2.init_mamba`` and one ``shared`` attention + MLP block, for the
+    audio family the ``frame_proj`` frontend (frontend_dim^-0.5). ``key``
+    is a seed or a ``torch.Generator`` on the target device (free runs draw
+    different numbers from the reference's ``jax.random`` stream;
+    ``convert.lm_params`` carries those across)."""
     cfg.validate()
     check_family(cfg)
     if isinstance(key, torch.Generator):
@@ -76,18 +99,30 @@ def init_params(cfg: ModelConfig, key: Union[int, torch.Generator] = 0, *,
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(key))
     dt, d = cfg.torch_dtype, cfg.d_model
-    p: Params = {"embed": L.normal(gen, (cfg.vocab_size, d), dt, dev) * d**-0.5}
+    p: Params = {}
+    if cfg.family == "audio":
+        p["frame_proj"] = (L.normal(gen, (cfg.frontend_dim, d), dt, dev)
+                           * cfg.frontend_dim**-0.5)
+    p["embed"] = L.normal(gen, (cfg.vocab_size, d), dt, dev) * d**-0.5
 
-    def layer():
-        ones = {"ln1": torch.ones((d,), dtype=dt, device=dev),
-                "ln2": torch.ones((d,), dtype=dt, device=dev)}
-        if cfg.family == "ssm":
-            return dict(ones, tm_cm=rwkv6.init_rwkv(gen, cfg, dt, dev))
+    def ones():
+        return torch.ones((d,), dtype=dt, device=dev)
+
+    def attn_mlp():
         attn = L.init_attention(gen, cfg, dt, dev)  # drawn before the MLP
-        return dict(ones, attn=attn, mlp=L.init_mlp(gen, d, cfg.d_ff, cfg.mlp_type, dt, dev))
+        return {"ln1": ones(), "attn": attn, "ln2": ones(),
+                "mlp": L.init_mlp(gen, d, cfg.d_ff, cfg.mlp_type, dt, dev)}
 
-    p["layers"] = [layer() for _ in range(cfg.num_layers)]
-    p["final_norm"] = torch.ones((d,), dtype=dt, device=dev)
+    if cfg.family == "ssm":
+        p["layers"] = [{"ln1": ones(), "ln2": ones(), "tm_cm": rwkv6.init_rwkv(gen, cfg, dt, dev)}
+                       for _ in range(cfg.num_layers)]
+    elif cfg.family == "hybrid":
+        p["layers"] = [{"ln": ones(), "mamba": mamba2.init_mamba(gen, cfg, dt, dev)}
+                       for _ in range(cfg.num_layers)]
+        p["shared"] = attn_mlp()
+    else:
+        p["layers"] = [attn_mlp() for _ in range(cfg.num_layers)]
+    p["final_norm"] = ones()
     if not cfg.tie_embeddings:
         p["unembed"] = L.normal(gen, (d, cfg.vocab_size), dt, dev) * d**-0.5
     return p
@@ -100,11 +135,29 @@ def init_params(cfg: ModelConfig, key: Union[int, torch.Generator] = 0, *,
 
 def _embed_inputs(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     """Returns (h (B, S, D), rope angles (B, S, Dh/2); None for the
-    attention-free ssm family)."""
+    attention-free ssm family and for audio, whose stub position code is
+    added to h). audio: ``frames`` (B, S, frontend_dim) cast to the model
+    dtype times ``frame_proj``, plus a sinusoidal code computed in f32 and
+    cast to h's dtype. vlm: the ``vision_embeds`` (cast to the token dtype)
+    ahead of the token embeddings, M-RoPE angles from ``positions`` (B, 3,
+    S)."""
+    if cfg.family == "audio":
+        h = batch["frames"].to(cfg.torch_dtype) @ params["frame_proj"]
+        s, d = h.shape[1], h.shape[2]
+        # stub positional encoding (the real model uses a conv pos-embed)
+        half = d // 2
+        inv = torch.pow(torch.full((), 10000.0, device=h.device),
+                        -torch.arange(half, dtype=torch.float32, device=h.device) / half)
+        pos = torch.arange(s, dtype=torch.float32, device=h.device)[:, None] * inv
+        return h + torch.cat([torch.sin(pos), torch.cos(pos)], -1).to(h.dtype), None
     tokens = batch["tokens"]
     h = F.embedding(tokens.long(), params["embed"])
     if cfg.family == "ssm":
         return h, None
+    if cfg.family == "vlm":
+        h = torch.cat([batch["vision_embeds"].to(h.dtype), h], dim=1)
+        return h, L.mrope_angles(batch["positions"], cfg.head_dim_, cfg.rope_theta,
+                                 cfg.mrope_sections)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
     return h, L.rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
@@ -123,14 +176,20 @@ def _unembed(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
             mode: str = "train") -> Dict[str, Any]:
     """All positions at once. ``mode``: "train" (hidden + logits), "prefill"
-    (+ the cache: dense ``k``/``v`` of shape (L, B, Hkv, S, Dh); ssm ``s``
-    (L, B, H, 64, 64), ``x_tm`` and ``x_cm`` (L, B, D), all f32) or "hidden"
-    (no logits). ``aux_loss`` is 0, as for every non-MoE family."""
+    (+ the cache: dense and vlm ``k``/``v`` of shape (L, B, Hkv, S, Dh); ssm
+    ``s`` (L, B, H, 64, 64), ``x_tm`` and ``x_cm`` (L, B, D), all f32; hybrid
+    ``k``/``v`` (nb, B, Hkv, S, Dh) of the nb shared-block applications,
+    ``mamba_h`` (L, B, nh, hd, N) f32 and ``mamba_conv`` (L, B, d_conv - 1,
+    conv_dim); audio's encoder gives its ``k``/``v`` too, as the reference's
+    does, though nothing decodes from them) or "hidden" (no logits).
+    ``aux_loss`` is 0, as for every non-MoE family."""
     check_family(cfg)
     h, angles = _embed_inputs(params, batch, cfg)
     prefill = mode == "prefill"
     if cfg.family == "ssm":
         h, cache = _ssm_layers(params, h, cfg, prefill)
+    elif cfg.family == "hybrid":
+        h, cache = _hybrid_layers(params, h, angles, cfg, prefill)
     else:
         h, cache = _dense_layers(params, h, angles, cfg, prefill)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
@@ -153,14 +212,20 @@ def _maybe_remat(fn, cfg: ModelConfig, h, lp):
     return fn(h, lp)
 
 
+def _attn_mlp_block(hh, lp, angles, cfg: ModelConfig, **attn_kw):
+    """Pre-norm attention then MLP, each added to the residual: a dense
+    layer, or the hybrid family's shared block. Returns (h, the attention's
+    (k, v) or None)."""
+    a_in = L.rms_norm(hh, lp["ln1"], cfg.norm_eps)
+    attn_out, kv = L.attention_block(lp["attn"], a_in, cfg, angles=angles, **attn_kw)
+    hh = hh + attn_out
+    hh = hh + L.mlp_block(lp["mlp"], L.rms_norm(hh, lp["ln2"], cfg.norm_eps), cfg.mlp_type)
+    return hh, kv
+
+
 def _dense_layers(params: Params, h, angles, cfg: ModelConfig, prefill: bool):
     def block(hh, lp):
-        a_in = L.rms_norm(hh, lp["ln1"], cfg.norm_eps)
-        attn_out, kv = L.attention_block(lp["attn"], a_in, cfg, angles=angles,
-                                         return_kv=prefill)
-        hh = hh + attn_out
-        hh = hh + L.mlp_block(lp["mlp"], L.rms_norm(hh, lp["ln2"], cfg.norm_eps), cfg.mlp_type)
-        return hh, kv
+        return _attn_mlp_block(hh, lp, angles, cfg, return_kv=prefill)
 
     ks, vs = [], []
     for lp in params["layers"]:
@@ -169,6 +234,39 @@ def _dense_layers(params: Params, h, angles, cfg: ModelConfig, prefill: bool):
             ks.append(kv[0])
             vs.append(kv[1])
     return h, ({"k": torch.stack(ks), "v": torch.stack(vs)} if prefill else None)
+
+
+def _hybrid_layers(params: Params, h, angles, cfg: ModelConfig, prefill: bool):
+    """nb = num_layers / hybrid_block groups: each group's Mamba-2 layers,
+    then the one shared attention + MLP block (the same weights at every
+    application)."""
+    hb, shared = cfg.hybrid_block, params["shared"]
+
+    def mblock(hh, lp):
+        out = mamba2.mamba_block(lp["mamba"], L.rms_norm(hh, lp["ln"], cfg.norm_eps), cfg,
+                                 return_state=prefill)
+        if prefill:
+            return hh + out[0], out[1]
+        return hh + out, None
+
+    def sblock(hh, sp):
+        return _attn_mlp_block(hh, sp, angles, cfg, return_kv=prefill)
+
+    ks, vs, m_h, m_conv = [], [], [], []
+    for i in range(cfg.num_layers // hb):
+        for lp in params["layers"][i * hb:(i + 1) * hb]:
+            h, mcache = _maybe_remat(mblock, cfg, h, lp)
+            if prefill:
+                m_h.append(mcache.h)
+                m_conv.append(mcache.conv)
+        h, kv = _maybe_remat(sblock, cfg, h, shared)
+        if prefill:
+            ks.append(kv[0])
+            vs.append(kv[1])
+    if not prefill:
+        return h, None
+    return h, {"k": torch.stack(ks), "v": torch.stack(vs), "mamba_h": torch.stack(m_h),
+               "mamba_conv": torch.stack(m_conv).to(cfg.torch_dtype)}
 
 
 def _ssm_layers(params: Params, h, cfg: ModelConfig, prefill: bool):
@@ -241,8 +339,9 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
     next-token cross entropy over B x S positions from the final hidden
     states and the head (``embed.T`` when tied, else ``unembed``) in
     ``loss_chunk`` chunks (``_chunked_ce``); ``aux`` is 0 for the ported
-    families. Differentiate with autograd (``launch.steps.make_train_step``)."""
-    check_family(cfg)
+    families. Differentiate with autograd (``launch.steps.make_train_step``).
+    Only the families in ``TRAINED_FAMILIES``."""
+    check_trains(cfg)
     out = forward(params, batch, cfg, mode="hidden")
     h = out["hidden"]
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
@@ -260,6 +359,7 @@ def value_and_grad(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelCon
     uses). Nothing is read back to the host."""
     from ..optim.compression import tree_leaves, tree_map
 
+    check_trains(cfg)
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
@@ -278,18 +378,34 @@ def value_and_grad(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelCon
 # ---------------------------------------------------------------------------
 
 
+def _decoder_only(cfg: ModelConfig) -> None:
+    check_family(cfg)
+    if cfg.encoder_only:
+        raise ValueError(f"{cfg.name} is encoder-only ({cfg.family}): no decode cache")
+
+
 def cache_specs(cfg: ModelConfig, batch: int,
                 max_len: int) -> Dict[str, Tuple[tuple, torch.dtype]]:
     """name -> (shape, dtype) of the decode cache. The ssm family's does not
-    grow with ``max_len``: the wkv state and the two token-shift inputs."""
-    check_family(cfg)
+    grow with ``max_len``: the wkv state and the two token-shift inputs. The
+    hybrid family's holds the shared block's k and v at each of its nb
+    applications and every Mamba-2 layer's state (f32) and conv window. An
+    encoder-only config has none (``ValueError``)."""
+    _decoder_only(cfg)
+    dt, nl = cfg.torch_dtype, cfg.num_layers
     if cfg.family == "ssm":
-        nl, d, hd = cfg.num_layers, cfg.d_model, rwkv6.HEAD
+        d, hd = cfg.d_model, rwkv6.HEAD
         return {"s": ((nl, batch, d // hd, hd, hd), torch.float32),
                 "x_tm": ((nl, batch, d), torch.float32),
                 "x_cm": ((nl, batch, d), torch.float32)}
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim_)
-    return {"k": (shape, cfg.torch_dtype), "v": (shape, cfg.torch_dtype)}
+    kv = (cfg.num_kv_heads, max_len, cfg.head_dim_)
+    if cfg.family == "hybrid":
+        nb = nl // cfg.hybrid_block
+        d_inner, nh, hd, n = mamba2.dims(cfg)
+        return {"k": ((nb, batch, *kv), dt), "v": ((nb, batch, *kv), dt),
+                "mamba_h": ((nl, batch, nh, hd, n), torch.float32),
+                "mamba_conv": ((nl, batch, cfg.d_conv - 1, d_inner + 2 * n), dt)}
+    return {"k": ((nl, batch, *kv), dt), "v": ((nl, batch, *kv), dt)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -305,14 +421,16 @@ def decode_step(params: Params, cache: Dict[str, torch.Tensor], batch: Dict[str,
     """One token for every sequence in the batch: tokens (B, 1) at position
     ``cache_pos``, a 0-d integer tensor on the tokens' device, as the
     reference's traced ``jnp.int32(t)`` (a Python int is turned into one; the
-    ssm family ignores it). Nothing here reads the position back to the host,
-    so the step can be captured into a CUDA graph and replayed with the
-    position advanced on the device. Returns logits (B, 1, V) and the cache,
-    which is updated IN PLACE: each dense layer writes the token's k and v at
-    cache_pos, each ssm layer its new state and token-shift inputs (the
-    reference returns a new cache instead), so the returned dict is the one
-    passed in."""
-    check_family(cfg)
+    ssm family ignores it); the vlm family's rotation comes from
+    ``positions`` (B, 3, 1) instead, as in the reference. Nothing here reads
+    the position back to the host, so the step can be captured into a CUDA
+    graph and replayed with the position advanced on the device. Returns
+    logits (B, 1, V) and the cache, which is updated IN PLACE: each
+    attention layer writes the token's k and v at cache_pos, each ssm layer
+    its new state and token-shift inputs, each Mamba-2 layer its new state
+    and conv window (the reference returns a new cache instead), so the
+    returned dict is the one passed in."""
+    _decoder_only(cfg)
     tokens = batch["tokens"]
     pos = torch.as_tensor(batch["cache_pos"], device=tokens.device)
     if pos.dim() != 0 or pos.dtype.is_floating_point or pos.dtype == torch.bool:
@@ -335,14 +453,33 @@ def decode_step(params: Params, cache: Dict[str, torch.Tensor], batch: Dict[str,
             cache["x_cm"][i].copy_(x_cm)
         h = L.rms_norm(h2[:, None, :], params["final_norm"], cfg.norm_eps)
         return _unembed(params, h, cfg), cache
-    positions = pos.to(torch.int64).reshape(1, 1).expand(b, 1)
-    angles = L.rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
-    for i, lp in enumerate(params["layers"]):
-        a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
-        attn_out, _ = L.attention_block(lp["attn"], a_in, cfg, angles=angles,
-                                        cache=(cache["k"][i], cache["v"][i]), cache_pos=pos)
-        h = h + attn_out
-        h = h + L.mlp_block(lp["mlp"], L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg.mlp_type)
+    if cfg.family == "vlm":
+        angles = L.mrope_angles(torch.as_tensor(batch["positions"], device=tokens.device),
+                                cfg.head_dim_, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        positions = pos.to(torch.int64).reshape(1, 1).expand(b, 1)
+        angles = L.rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
+
+    def attend(hh, lp, i):
+        return _attn_mlp_block(hh, lp, angles, cfg, cache=(cache["k"][i], cache["v"][i]),
+                               cache_pos=pos)[0]
+
+    if cfg.family == "hybrid":
+        hb = cfg.hybrid_block
+        for i in range(cfg.num_layers // hb):
+            for li in range(i * hb, (i + 1) * hb):
+                lp = params["layers"][li]
+                y, new = mamba2.mamba_decode_step(
+                    lp["mamba"], L.rms_norm(h, lp["ln"], cfg.norm_eps),
+                    mamba2.MambaCache(h=cache["mamba_h"][li], conv=cache["mamba_conv"][li]), cfg)
+                h = h + y
+                cache["mamba_h"][li].copy_(new.h)
+                # new.conv is a view of a fresh buffer: no overlap with the window
+                cache["mamba_conv"][li].copy_(new.conv)
+            h = attend(h, params["shared"], i)
+    else:
+        for i, lp in enumerate(params["layers"]):
+            h = attend(h, lp, i)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _unembed(params, h, cfg), cache
 

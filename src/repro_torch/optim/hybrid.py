@@ -59,7 +59,7 @@ def make_hybrid_train_step(cfg, *, mu: float = 100.0, power_iters: int = 2,
     device."""
     from ..models import lm
 
-    lm.check_family(cfg)
+    lm.check_trains(cfg)
     if cfg.tie_embeddings:
         raise ValueError("hybrid DFW head requires an untied unembedding")
 

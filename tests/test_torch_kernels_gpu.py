@@ -20,8 +20,9 @@ held to its plain chunk form taken in f64 on the same inputs, each (head,
 row) of y to its own max and S_out to its max, 2e-4 (the kernel's 3xTF32
 products, about 2^-20 of each product, and its prefix sums rounded to f32,
 which the clamped exp factors carry relatively), and at q = 32 to the exact recurrence as the JAX
-package's test holds its kernel (rtol = atol = 2e-4, f32); the ssm smoke
-model's prefill on the card to the CPU's as the dense one's.
+package's test holds its kernel (rtol = atol = 2e-4, f32); the ssm, audio,
+vlm and hybrid smoke models' prefill on the card to the CPU's as the dense
+one's.
 """
 import numpy as np
 import pytest
@@ -551,13 +552,15 @@ def test_cuda_captured_dispatch_under_the_contract_guard(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["qwen2_1_5b", "rwkv6_7b"])
+@pytest.mark.parametrize("arch", ["qwen2_1_5b", "rwkv6_7b", "qwen2_vl_72b", "zamba2_2_7b"])
 def test_cuda_captured_generate_is_the_step_loop_bit_for_bit(cuda, arch):
     """``generate`` on the card replays one captured step a position (one
     capture a call): its tokens and the cache it filled equal a loop of the
-    uncaptured serve step's bit for bit; no kernel launch on the device;
-    temperature sampling through the registered generator repeats with the
-    seed and stays in range."""
+    uncaptured serve step's bit for bit (vlm: the loop passes M-RoPE
+    positions (t, t, t), the captured step makes them from its device
+    position; hybrid: the Mamba-2 states and conv windows too); no kernel
+    launch on the device; temperature sampling through the registered
+    generator repeats with the seed and stays in range."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as lm_serve
     from repro_torch.launch import steps
@@ -580,7 +583,10 @@ def test_cuda_captured_generate_is_the_step_loop_bit_for_bit(cuda, arch):
     ptoks = torch.from_numpy(prompt).to(cuda)
     for t in range(plen + new_n - 1):
         cur = ptoks[:, t:t + 1] if t < plen else toks[-1]
-        logits, _ = step(params, want_cache, {"tokens": cur, "cache_pos": t})
+        sb = {"tokens": cur, "cache_pos": t}
+        if cfg.family == "vlm":
+            sb["positions"] = torch.full((b, 3, 1), t, dtype=torch.int64, device=cuda)
+        logits, _ = step(params, want_cache, sb)
         if t >= plen - 1:
             toks.append(torch.argmax(logits[:, 0, :].float(), dim=-1, keepdim=True))
     assert np.array_equal(got, torch.cat(toks, dim=1).cpu().numpy())
@@ -661,6 +667,23 @@ def test_cuda_flash_attention_wgmma_ragged_shapes(cuda, b, hq, hkv, sq, skv, dh,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,hq,hkv,sq,skv", [
+    (2, 16, 16, 1500, 1500), (1, 32, 32, 300, 300), (1, 4, 4, 129, 257), (1, 4, 2, 257, 129),
+    (3, 2, 1, 1, 70),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_dh80_bf16(cuda, b, hq, hkv, sq, skv, causal):
+    """Dh 80 in bf16 (hubert-xlarge's and zamba2-2.7b's heads) takes the
+    generic route (its 128 build, a zero tail): ragged S around its 64-row
+    tiles, hubert's 1,500 frames, full and causal, each query row within
+    1e-2 of its own max, the same bits on repeat."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _attention_inputs(b, hq, hkv, sq, skv, 80, torch.bfloat16, cuda, seed=sq + skv)
+    assert _flash_check(fa, q, k, v, causal, 1e-2) == "generic"
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_attention_reads_head_major_views(cuda, dtype):
     """The (B, S, H * Dh) projections' head-major views go in without a
@@ -703,6 +726,54 @@ def test_cuda_dense_lm_prefill_matches_cpu(cuda, arch):
     _close(last.cpu(), want_last, atol_rel=1e-4)
     _close(cache["k"].cpu(), want_cache["k"], atol_rel=1e-4)
     _close(cache["v"].cpu(), want_cache["v"], atol_rel=1e-4)
+
+
+def _family_batch(cfg, b, s, seed):
+    """CPU inputs of s positions for a smoke config: frames (audio), vision
+    embeddings ahead of s - vision_tokens tokens with Qwen2-VL's positions
+    (vlm), else tokens."""
+    g = torch.Generator().manual_seed(seed)
+    if cfg.family == "audio":
+        return {"frames": torch.randn(b, s, cfg.frontend_dim, generator=g)}
+    if cfg.family != "vlm":
+        return {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=g)}
+    sv = cfg.vision_tokens
+    side = int(round(sv ** 0.5))
+    grid = torch.stack([torch.zeros(sv, dtype=torch.int64), torch.arange(sv) // side,
+                        torch.arange(sv) % side])
+    text = (side + torch.arange(s - sv)).expand(3, s - sv)
+    return {"tokens": torch.randint(0, cfg.vocab_size, (b, s - sv), generator=g),
+            "vision_embeds": torch.randn(b, sv, cfg.d_model, generator=g),
+            "positions": torch.cat([grid, text], 1).expand(b, 3, s).contiguous()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["hubert_xlarge", "qwen2_vl_72b", "zamba2_2_7b"])
+def test_cuda_lm_family_prefill_matches_cpu(cuda, arch):
+    """The audio, vlm and hybrid smoke models' prefill on the card (the flash
+    kernel: one launch per attention layer, the hybrid's shared block once
+    a group) against the CPU (plain versions), same weights, f32: logits
+    and every cache to rtol 1e-4 / atol 1e-4 of max. hubert's step is its
+    encoder step (every frame's logits, no cache), at a ragged 100 frames."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+
+    cfg = get_config(arch, smoke=True)
+    cpu_params = lm.init_params(cfg, 0, device="cpu")
+    dev_params = lm_to(cpu_params, cuda)
+    batch = _family_batch(cfg, 2, 100 if cfg.family == "audio" else 128, seed=1)
+    attn_layers = cfg.num_layers // cfg.hybrid_block if cfg.family == "hybrid" else cfg.num_layers
+    before = kernels.launches()["flash_attention"]
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    got, cache = steps.make_prefill_step(cfg)(dev_params, on_card)
+    torch.cuda.synchronize()
+    assert kernels.launches()["flash_attention"] == before + attn_layers
+    want, want_cache = steps.make_prefill_step(cfg)(cpu_params, batch)
+    _close(got.cpu(), want, atol_rel=1e-4)
+    assert (cache is None) == (want_cache is None) == (cfg.family == "audio")
+    for name in want_cache or {}:
+        _close(cache[name].cpu(), want_cache[name], atol_rel=1e-4)
 
 
 def lm_to(tree, device):

@@ -38,8 +38,8 @@ from repro_torch.specs import NotYetPorted
 torch.set_num_threads(2)
 
 DENSE = ["qwen2_1_5b", "qwen2_5_14b", "codeqwen1_5_7b", "starcoder2_7b"]
-OTHERS = ["arctic_480b", "llama4_scout_17b_a16e", "qwen2_vl_72b", "hubert_xlarge",
-          "zamba2_2_7b"]
+MOE = ["arctic_480b", "llama4_scout_17b_a16e"]
+SERVED = ["qwen2_vl_72b", "hubert_xlarge", "zamba2_2_7b"]  # served, not trained yet
 
 
 def _close(got, want, rtol=1e-5, atol_rel=1e-5):
@@ -348,7 +348,7 @@ def test_lm_cli_on_cpu(capsys):
     assert "starcoder2-7b: generated (2, 4)" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("arch", OTHERS)
+@pytest.mark.parametrize("arch", MOE)
 def test_other_families_not_yet_ported(arch):
     cfg = configs.get_config(arch, smoke=True)
     with pytest.raises(NotYetPorted, match=cfg.family):
@@ -363,16 +363,54 @@ def test_other_families_not_yet_ported(arch):
         plm.cache_specs(cfg, 1, 8)
     with pytest.raises(NotYetPorted):
         convert.lm_params({}, cfg, device="cpu")
-    with pytest.raises(ValueError if cfg.encoder_only else NotYetPorted):
+    with pytest.raises(NotYetPorted):
         pserve.generate(arch=arch, device="cpu")
 
 
+@pytest.mark.parametrize("arch", SERVED)
+def test_served_families_do_not_train_yet(arch):
+    """audio, vlm and hybrid serve (tests/test_torch_lm_families.py) but do
+    not train: every training entry refuses them with ``NotYetPorted``
+    before any device work; hubert, encoder-only, has no decode."""
+    from repro_torch.launch import train as ptrain
+    from repro_torch.optim import hybrid
+
+    cfg = configs.get_config(arch, smoke=True)
+    assert cfg.family in plm.PORTED_FAMILIES and cfg.family not in plm.TRAINED_FAMILIES
+    params = plm.init_params(cfg, 0, device="cpu")
+    psteps.make_prefill_step(cfg)
+    for call in (lambda: plm.loss_fn(params, {}, cfg), lambda: plm.value_and_grad(params, {}, cfg),
+                 lambda: psteps.make_train_step(cfg), lambda: hybrid.make_hybrid_train_step(cfg),
+                 lambda: ptrain.train(arch=arch, steps=1, device="cpu")):
+        with pytest.raises(NotYetPorted, match="training"):
+            call()
+    assert not any(t.requires_grad for t in jax.tree.leaves(params))
+    if cfg.encoder_only:
+        with pytest.raises(ValueError, match="encoder-only"):
+            pserve.generate(arch=arch, device="cpu")
+        with pytest.raises(ValueError, match="encoder-only"):
+            plm.cache_specs(cfg, 1, 8)
+    else:
+        assert set(plm.cache_specs(cfg, 1, 8)) >= {"k", "v"}
+
+
 def test_encoder_only_prefill_not_yet_ported():
-    """The reference's encoder-only prefill (audio's bidirectional forward)
-    is refused, whatever the family."""
-    cfg = dataclasses.replace(configs.get_config("qwen2_1_5b", smoke=True), causal=False)
-    with pytest.raises(NotYetPorted, match="encoder-only"):
-        psteps.make_prefill_step(cfg)
+    """The reference's encoder-only step, refused here until the audio
+    family was served, now runs for any family: the dense config with
+    causal=False gives every position's logits and no cache, as the JAX
+    package's ``make_prefill_step`` does (1e-4 of max)."""
+    cfg = dataclasses.replace(jax_get_config("qwen2_1_5b", smoke=True), causal=False)
+    pcfg = dataclasses.replace(configs.get_config("qwen2_1_5b", smoke=True), causal=False)
+    jp = jlm.init_params(cfg, jax.random.PRNGKey(5))
+    pp = convert.lm_params(jax.device_get(jp), pcfg, device="cpu")
+    toks = _tokens(cfg, 2, 24, seed=6)
+    want, wcache = jsteps.make_prefill_step(cfg)(jp, {"tokens": jnp.asarray(toks)})
+    got, cache = psteps.make_prefill_step(pcfg)(pp, {"tokens": _t(toks)})
+    assert cache is None and wcache is None and tuple(got.shape) == (2, 24, cfg.vocab_size)
+    _close(got, want, atol_rel=1e-4)
+    causal = plm.forward(pp, {"tokens": _t(toks)}, configs.get_config("qwen2_1_5b", smoke=True),
+                         mode="train")["logits"]
+    assert not torch.allclose(got[:, 0], causal[:, 0], atol=1e-3)  # position 0 sees them all
 
 
 def test_lm_params_carries_bf16_bit_for_bit():

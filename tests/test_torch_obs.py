@@ -176,6 +176,25 @@ def test_noop_contract_rejects_an_enabled_handle():
         noop_contract().check_telemetry(Telemetry())
 
 
+def test_noop_contract_names_every_failed_clause(monkeypatch):
+    """A clock that steps 1 s a read (the probe reads it before and after its
+    2000 spans: 500 us a span) fails the timing clause on purpose; the
+    violation still names the event clause an enabled handle breaks (one
+    violation naming both), whatever the machine's load, and a disabled
+    handle fails the timing clause alone."""
+    from repro_torch.analysis import contracts
+
+    ticks = iter(range(10**9))
+    monkeypatch.setattr(contracts, "time",
+                        types.SimpleNamespace(perf_counter=lambda: float(next(ticks))))
+    with pytest.raises(contracts.ContractViolation) as err:
+        noop_contract().check_telemetry(Telemetry())
+    assert "max_noop_span_us" in str(err.value) and "max_events" in str(err.value)
+    with pytest.raises(contracts.ContractViolation) as err:
+        noop_contract().check_telemetry(Telemetry.noop())
+    assert "max_noop_span_us" in str(err.value) and "max_events" not in str(err.value)
+
+
 # ---------------------------------------------------------------------------
 # Sinks from an instrumented fit
 # ---------------------------------------------------------------------------
