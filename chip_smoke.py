@@ -401,6 +401,39 @@ Phases, each fatal on failure (exit code != 0, no result line):
    bound: rows of the kernels line. Under --profile, device time by kind
    (flash, GEMMs, the rest) of one prefill of each family and the idle
    share of a replayed decode step of zamba2 and qwen2-vl.
+32. Serving of the moe family (bf16, weights drawn on the card from
+   --seed, full width), after a check that the earlier phases hold under
+   2 GB of the card (its allocation printed at its start and end). (a)
+   arctic-480b (128 experts, top-2, a dense residual MLP beside them) cut
+   to 2 of its 35 layers (27.2 GB a layer; three and the embeddings would
+   be 82.6 GB): prefill 4 x 2048 tokens, 2 flash_attention launches all on
+   wgmma (a GQA group of 7), last logits finite, cache (2, 4, 8, 2048,
+   128); each layer's share of routed (token, expert) pairs the capacity
+   (160 slots an expert) dropped and its busiest expert's load, from a
+   recording wrapper around ``moe.moe_block`` in one more forward; the
+   summed aux loss finite and positive; ``generate`` at batch 4 (64 + 32
+   tokens) captured, the step loop's bits, no flash launch; the decode
+   floor (every weight read once at the memory rate: each expert runs its
+   MLP on its 4 slots). (b) llama4-scout-17b-a16e (16 experts, top-1,
+   vocab 202,048) cut to 16 of 48 layers (4.16 GB a layer, 4.14 GB of
+   embeddings, 3.3 GB of prefill logits: the prefill peaks near 74.6 GB
+   alone; 17 peaked at 78.8 alone and ran out of memory after the earlier
+   phases), the same, capacity 640, a group of 5. (c) ``moe_block`` in f32 on the card against the CPU at D 1024, F
+   512, 8192 tokens, arctic's routing (E 128, top-2) and llama4-scout's (E
+   16, top-1), router column 0 times 3 so that expert 0 drops tokens:
+   picks index for index (a differing pick must sit at a k-th/(k+1)-th
+   gap under 1e-6, and is named), each expert's selection slot for slot
+   (a slot may hold another token only if the two tokens' CPU gates are
+   within 1e-6: near-equal gates the two softmaxes order by rounding; the
+   count of such slots printed), out within 1e-5 of max|CPU| on the tokens
+   kept alike, aux within rtol 1e-6, the card's bits on repeat; the
+   smallest gap printed. (d) flash_attention at both prefills' operands (B 4, Hq 56
+   / Hkv 8 and Hq 40 / Hkv 8, S 2048, Dh 128, causal, bf16) on wgmma, as
+   phase 31 (d): rows of the kernels line. ms per prefill (median of 3),
+   tokens a second, peak memory, ms per decode step captured and
+   uncaptured. Under --profile, device time by kind (flash, GEMMs, routing
+   and dispatch, the rest) of one prefill of each and the idle share of a
+   replayed decode step.
 
 The launches each fit phase checks (and the kernels line sums) are the
 device's: ``counting`` opens ``kernels.Executed``, which adds a counter on
@@ -5937,10 +5970,17 @@ def family_prefill(torch, kernels, lm, steps, cfg, params, batch, label, tokens,
     return rep, launches, out
 
 
-def kind_profile(torch, run):
+ROUTING_KERNELS = ("sort", "scatter", "gather", "index", "bincount")  # the moe dispatch's kinds
+
+
+def kind_profile(torch, run, routing=False):
     """Device time by kind of one call of ``run`` (torch.profiler): flash
     (the two flash routes), GEMMs (cuBLAS and CUTLASS kernels by name), the
-    rest (elementwise, reductions, copies); wall time and idle share."""
+    rest (elementwise, reductions, copies); with ``routing`` the moe
+    family's routing and dispatch apart from the rest (sorts, gathers,
+    scatters, index kernels by name: the stable top-k sorts, the token
+    gather, the combine; the embedding lookup's index kernel too); wall
+    time and idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -5950,13 +5990,14 @@ def kind_profile(torch, run):
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     del out
-    kinds = dict(flash=0.0, gemm=0.0, other=0.0)
+    kinds = dict(flash=0.0, gemm=0.0, other=0.0, **({"routing": 0.0} if routing else {}))
     for ev in prof.key_averages():
         if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
             continue
         name = ev.key.lower()
         kind = ("flash" if any(f in ev.key for f in FLASH_KERNELS) else "gemm"
                 if any(g in name for g in ("gemm", "nvjet", "xmma", "cutlass", "cublas"))
+                else "routing" if routing and any(r in name for r in ROUTING_KERNELS)
                 else "other")
         kinds[kind] += ev.self_device_time_total
     busy = sum(kinds.values())
@@ -5969,8 +6010,9 @@ def print_kinds(label, row):
     if not row["busy_ms"]:
         print(f"profile {label}: the profiler recorded no device time (not measured)")
         return
+    routing = (f", routing and dispatch {row['routing_ms']:.1f}" if "routing_ms" in row else "")
     print(f"profile {label}: wall {row['wall_ms']:.1f} ms, device busy {row['busy_ms']:.1f} ms "
-          f"(flash_attention {row['flash_ms']:.1f}, GEMMs {row['gemm_ms']:.1f}, other "
+          f"(flash_attention {row['flash_ms']:.1f}, GEMMs {row['gemm_ms']:.1f}{routing}, other "
           f"{row['other_ms']:.1f}), idle share {row['idle_share']:.3f}")
 
 
@@ -6216,6 +6258,260 @@ def families_phase(torch, np, kernels, lm, steps, lm_serve, fa, mamba2, get_conf
     return report, total, rows_out
 
 
+MOE_ARCTIC = "arctic_480b"  # d 7168, Hq 56 / Hkv 8 of 128, 128 experts (top-2) of 4864, dense residual
+MOE_ARCTIC_LAYERS = 2  # of 35: 27.2 GB a layer (26.8 of experts); 3 would be 82.6 GB with the embeddings
+MOE_SCOUT = "llama4_scout_17b_a16e"  # d 5120, Hq 40 / Hkv 8 of 128, 16 experts (top-1) of 8192
+MOE_SCOUT_LAYERS = 16  # of 48: 4.16 GB a layer + 4.14 GB of embeddings + 3.3 GB of prefill logits;
+# the prefill peaks near 74.6 GB alone; at 17 (78.8 alone) it ran out of the card's memory
+# after the earlier phases (1.16 GB still held, 3.9 GiB reserved but unallocated)
+MOE_SHAPE = (4, 2048)  # prompts x tokens of both prefills: n = 8192 routed tokens
+MOE_XCHECK = ((128, 2), (16, 1))  # (E, k) of the card-against-CPU check: arctic's, llama4-scout's
+MOE_XCHECK_WIDTH = (1024, 512)  # (D, F) of that check; n = 8192 tokens
+MOE_FLIP_GAP = 1e-6  # a routing may differ only where a k-th/(k+1)-th probability gap is below
+# flash_attention at the moe prefills' operands: (label, B, Hq, Hkv, S, Dh, causal), bf16
+MOE_OPERANDS = (("arctic-480b", 4, 56, 8, 2048, 128, True),
+                ("llama4-scout-17b-a16e", 4, 40, 8, 2048, 128, True))
+PHASE32_HELD_GB = 2.0  # what earlier phases may still hold on the card when it starts
+
+
+@contextlib.contextmanager
+def moe_drops(torch, moe):
+    """Wrap ``moe.moe_block`` to record, a call a layer, the share of routed
+    (token, expert) pairs the capacity drops and the busiest expert's load
+    (device tensors, read after the block). Yields the list of records."""
+    block, log = moe.moe_block, []
+
+    def recorded(p, x, cfg):
+        out = block(p, x, cfg)
+        b, s, d = x.shape
+        k, e = cfg.experts_per_token, cfg.num_experts
+        _, _, eidx = moe.route(x.reshape(b * s, d), p["router"], k)
+        cap = moe._capacity(b * s, k, e, cfg.moe_capacity_factor)
+        load = torch.bincount(eidx.reshape(-1), minlength=e)
+        log.append(((load - cap).clamp(min=0).sum() / (b * s * k), load.max(), cap))
+        return out
+
+    moe.moe_block = recorded
+    try:
+        yield log
+    finally:
+        moe.moe_block = block
+
+
+def decode_floor_ms(params, batch: int, bw: float) -> float:
+    """The least time of a decode step: every weight read once (the
+    embedding's ``batch`` rows only) at the memory rate. A moe step reads
+    every expert, since each runs its MLP on its B slots."""
+    def nbytes(tree):
+        if isinstance(tree, dict):
+            return sum(nbytes(v) for v in tree.values())
+        if isinstance(tree, list):
+            return sum(nbytes(v) for v in tree)
+        return tree.numel() * tree.element_size()
+
+    emb = params["embed"]
+    total = nbytes(params) - nbytes(emb) + batch * emb.shape[1] * emb.element_size()
+    return 1e3 * total / bw
+
+
+def moe_model(torch, np, kernels, lm, steps, lm_serve, moe, get_config, dev, gen, args, peaks,
+              arch, layers):
+    """One moe configuration at full width, cut to ``layers``: prefill
+    MOE_SHAPE (its launches, ms, tokens/s, peak memory), each layer's
+    dropped share, the captured decode against the step loop, its floor.
+    Returns (report, launches of its main paths)."""
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers)
+    label = f"{full.name} ({layers} of {full.num_layers} layers)"
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    b, s = MOE_SHAPE
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)}
+    rep, launches, (last, cache) = family_prefill(
+        torch, kernels, lm, steps, cfg, params, batch, label, b * s, layers, "wgmma")
+    total = dict(launches)
+    rep.update(init_s=time.perf_counter() - t0, cut_layers=layers, published_layers=full.num_layers)
+    kv = (layers, b, cfg.num_kv_heads, s, cfg.head_dim_)
+    check(tuple(last.shape) == (b, cfg.vocab_size) and bool(torch.isfinite(last).all()),
+          f"{label}: last logits {tuple(last.shape)} not finite or not {(b, cfg.vocab_size)}")
+    check(tuple(cache["k"].shape) == kv and tuple(cache["v"].shape) == kv,
+          f"{label}: cache {tuple(cache['k'].shape)} != {kv}")
+    del last, cache
+    with moe_drops(torch, moe) as log:
+        out = lm.forward(params, batch, cfg, mode="hidden")
+        aux = float(out["aux_loss"])
+    del out
+    rep.update(dropped_share=[float(r[0]) for r in log], busiest_load=[int(r[1]) for r in log],
+               capacity=log[0][2], aux_loss=aux)
+    check(len(log) == layers and math.isfinite(aux) and aux > 0,
+          f"{label}: {len(log)} moe layers recorded, aux loss {aux}")
+    print(f"{label}: capacity {rep['capacity']} slots an expert for {b * s} tokens; dropped share "
+          f"of routed (token, expert) pairs by layer {[f'{x:.4f}' for x in rep['dropped_share']]}, "
+          f"busiest expert's load {rep['busiest_load']}; aux loss (the layers' sum) {aux:.4f}")
+    if args.profile:
+        rep["profile"], _ = kind_profile(
+            torch, lambda: steps.make_prefill_step(cfg)(params, batch), routing=True)
+        print_kinds(f"{label} prefill", rep["profile"])
+    del batch
+    torch.cuda.empty_cache()
+    # generate takes the published config: its cache holds every layer, of
+    # which decode writes the ones the weights have
+    rep["decode"], launches = captured_decode(
+        torch, np, kernels, lm, steps, lm_serve, arch, full, params, dev, args.seed,
+        f"{full.name} decode", "flash_attention")
+    for k_, v_ in launches.items():
+        total[k_] += v_
+    floor = decode_floor_ms(params, DECODE_BATCH, peaks[0])
+    rep["decode"]["floor_ms"] = floor
+    print(f"{label} decode: {rep['decode']['ms_per_token']:.3f} ms a step captured, "
+          f"{rep['decode']['uncaptured_ms_per_step']:.3f} uncaptured, against a floor of "
+          f"{floor:.3f} ms (every weight read once at the memory rate; each expert runs its MLP "
+          f"on its {DECODE_BATCH} slots, none dropped)")
+    if args.profile:
+        dstats = {}
+        row, busy = kind_profile(torch, lambda: lm_serve.generate(
+            arch=arch, smoke=False, batch=DECODE_BATCH, prompt_len=8, max_new_tokens=8,
+            seed=args.seed, device=dev, params=params, stats=dstats), routing=True)
+        decode_idle(row, dstats, busy)
+        rep["decode_profile"] = row
+    del params
+    return rep, total
+
+
+def moe_crosscheck(torch, moe, dev, seed, e, k):
+    """``moe_block`` in f32 on the card against the CPU at MOE_XCHECK_WIDTH,
+    8192 tokens, router column 0 times 3 (so expert 0's tokens overflow its
+    capacity). Each token's picks must be the CPU's, unless they differ at
+    a k-th/(k+1)-th probability gap under MOE_FLIP_GAP (the token is named
+    otherwise; a flipped token's experts are then left out). Each expert's
+    capacity selection must be the CPU's slot for slot, unless a slot holds
+    on the card a token whose gate on the CPU is within MOE_FLIP_GAP of the
+    CPU's token's there: two tokens' near-equal gates, which the two
+    softmaxes may order either way by rounding (the slot is named
+    otherwise). The output within 1e-5 of max|CPU| on the tokens whose
+    experts kept them on both sides, aux within rtol 1e-6; the card's bits
+    on repeat. Returns its report."""
+    d, f = MOE_XCHECK_WIDTH
+    g = torch.Generator().manual_seed(seed + e)
+    skew = torch.ones(e)
+    skew[0] = 3.0
+    p = {"router": torch.randn(d, e, generator=g) * d**-0.5 * skew,
+         "wg": torch.randn(e, d, f, generator=g) * d**-0.5,
+         "wu": torch.randn(e, d, f, generator=g) * d**-0.5,
+         "wd": torch.randn(e, f, d, generator=g) * f**-0.5}
+    x = torch.randn(*MOE_SHAPE, d, generator=g)
+    cfg = argparse.Namespace(experts_per_token=k, num_experts=e, moe_capacity_factor=1.25)
+    n = x.shape[0] * x.shape[1]
+    cap = moe._capacity(n, k, e, 1.25)
+    dp = {name: t.to(dev) for name, t in p.items()}
+    xd = x.to(dev)
+    out, aux = moe.moe_block(dp, xd, cfg)
+    again, again_aux = moe.moe_block(dp, xd, cfg)
+    same = bool(torch.equal(again, out)) and bool(torch.equal(again_aux, aux))
+    want, want_aux = moe.moe_block(p, x, cfg)
+    probs, gate, eidx = moe.route(x.reshape(n, d), p["router"], k)
+    sel_gate, sel = moe.select(gate, eidx, e, 0, cap)
+    _, dgate, deidx = moe.route(xd.reshape(n, d), dp["router"], k)
+    dsel_gate, dsel = moe.select(dgate, deidx, e, 0, cap)
+    deidx, dsel, dsel_gate = deidx.cpu(), dsel.cpu(), dsel_gate.cpu()
+    top = torch.sort(probs, dim=-1, descending=True).values
+    gaps = (top[:, k - 1] - top[:, k]).double()
+    flipped = (deidx != eidx).any(dim=1).nonzero().flatten().tolist()
+    for t in flipped:
+        check(float(gaps[t]) < MOE_FLIP_GAP,
+              f"moe (E {e}, top-{k}) card vs CPU: token {t} routed to {deidx[t].tolist()} on the "
+              f"card, {eidx[t].tolist()} on the CPU, at a gap of {float(gaps[t]):.3e}")
+    hit = torch.zeros(e, dtype=torch.bool)
+    if flipped:
+        hit[eidx[flipped].flatten()] = True
+        hit[deidx[flipped].flatten()] = True
+    # each token's gate on the CPU in each expert's row (-1 where not routed)
+    score = torch.where(eidx[None] == torch.arange(e)[:, None, None], gate[None], -1.0).amax(-1)
+    moved = (dsel != sel) & ~hit[:, None]
+    apart = (score.gather(1, dsel) - sel_gate).abs()
+    bad = (moved & (apart >= MOE_FLIP_GAP)).nonzero().tolist()
+    if bad:
+        ex, sl = bad[0]
+        check(False, f"moe (E {e}, top-{k}) card vs CPU: expert {ex} slot {sl} holds token "
+              f"{int(dsel[ex, sl])} on the card, {int(sel[ex, sl])} on the CPU, gates "
+              f"{float(apart[ex, sl]):.3e} apart ({len(bad)} such slots)")
+    kept = torch.zeros(e, n, dtype=torch.bool).scatter_(1, sel, sel_gate > -0.5)
+    dkept = torch.zeros(e, n, dtype=torch.bool).scatter_(1, dsel, dsel_gate > -0.5)
+    changed = (kept != dkept)[~hit].any(dim=0)  # kept on one side only: a tie at the boundary
+    rows = (~hit[eidx].any(dim=1) & ~changed).view(*MOE_SHAPE)
+    load = torch.bincount(eidx.flatten(), minlength=e)
+    dropped = float((load - cap).clamp(min=0).sum()) / (n * k)
+    err = float((out.cpu()[rows] - want[rows]).abs().max() / want.abs().max())
+    aux_rel = abs(float(aux) - float(want_aux)) / abs(float(want_aux))
+    rep = dict(experts=e, top_k=k, d=d, f=f, tokens=n, capacity=cap, dropped_share=dropped,
+               min_gap=float(gaps.min()), min_gap_token=int(gaps.argmin()), flipped=flipped,
+               swapped_slots=int(moved.sum()), boundary_tokens=int(changed.sum()),
+               max_swap_gap=float(apart[moved].max()) if bool(moved.any()) else 0.0,
+               out_rel_err=err, aux_rel_err=aux_rel, bits_repeat=same)
+    print(f"moe_block f32 card vs CPU (E {e}, top-{k}, D {d}, F {f}, {n} tokens, capacity {cap}, "
+          f"dropped share {dropped:.4f}): picks equal"
+          f"{f' but for near-tie tokens {flipped}' if flipped else ''} (smallest k-th/(k+1)-th "
+          f"gap {rep['min_gap']:.3e}, token {rep['min_gap_token']}); selections equal slot for "
+          f"slot but {rep['swapped_slots']} slots of near-equal gates in another order (at most "
+          f"{rep['max_swap_gap']:.3e} apart; {rep['boundary_tokens']} tokens kept on one side "
+          f"only); out {err:.2e} of max|CPU| (limit 1e-5), aux rel {aux_rel:.2e} (limit 1e-6); "
+          f"card bits repeat: {same}")
+    check(dropped > 0, f"moe (E {e}, top-{k}): the check's routing dropped no token")
+    check(err <= 1e-5, f"moe (E {e}, top-{k}): out rel err {err:.3e} > 1e-5")
+    check(aux_rel <= 1e-6, f"moe (E {e}, top-{k}): aux rel err {aux_rel:.3e} > 1e-6")
+    check(same, f"moe (E {e}, top-{k}): a repeated call on the card gave other bits")
+    return rep
+
+
+def moe_phase(torch, np, kernels, lm, steps, lm_serve, fa, moe, get_config, dev, args, peaks):
+    """Phase 32 (see the module doc). Returns (report, summed launches of
+    its main paths, its kernel rows)."""
+    import gc
+
+    report, rows_out = {}, []
+    t_phase = time.perf_counter()
+    before_gc = torch.cuda.memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
+    print(f"phase 32 starts with {before_gc:.2f} GB allocated ({held:.2f} GB after a garbage "
+          "collection)")
+    check(held < PHASE32_HELD_GB, f"phase 32: earlier phases still hold {held:.2f} GB on the "
+          f"card (limit {PHASE32_HELD_GB})")
+    total = dict.fromkeys(kernels.launches(), 0)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    for key, arch, layers in (("arctic", MOE_ARCTIC, MOE_ARCTIC_LAYERS),
+                              ("scout", MOE_SCOUT, MOE_SCOUT_LAYERS)):
+        report[key], launches = moe_model(torch, np, kernels, lm, steps, lm_serve, moe,
+                                          get_config, dev, gen, args, peaks, arch, layers)
+        for k_, v_ in launches.items():
+            total[k_] += v_
+        free()
+    report["xcheck"] = [moe_crosscheck(torch, moe, dev, args.seed, e, k)
+                        for e, k in MOE_XCHECK]
+    free()
+    bf16 = torch.bfloat16
+    for label, b, hq, hkv, s, dh, causal in MOE_OPERANDS:
+        q, k, v = [torch.randn(b, h, s, dh, generator=gen, device=dev).to(bf16)
+                   for h in (hq, hkv, hkv)]
+        rows_out.append(flash_row(torch, fa, kernels, label, q, k, v, causal, args.reps, peaks))
+        del q, k, v
+        free()
+    report["held_gb"] = [before_gc, held, torch.cuda.memory_allocated() / 1e9]
+    report["wall_s"] = time.perf_counter() - t_phase
+    report["launches"] = total
+    print(f"phase 32 took {report['wall_s']:.1f} s; {report['held_gb'][2]:.2f} GB allocated at "
+          "its end")
+    return report, total, rows_out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6284,7 +6580,7 @@ def main(argv=None) -> int:
     from repro_torch.launch import dfw, steps
     from repro_torch.launch import serve as lm_serve
     from repro_torch.launch import train as train_mod
-    from repro_torch.models import lm, mamba2, rwkv6
+    from repro_torch.models import lm, mamba2, moe, rwkv6
     from repro_torch.models.config import ShapeSpec
     from repro_torch.optim import adamw, compression, hybrid
 
@@ -6636,6 +6932,16 @@ def main(argv=None) -> int:
             torch, np, kernels, lm, steps, lm_serve, fa, mamba2, get_config, dev, args, peaks)
         krows += families_rows
         print(f"phase 31 ({smi})")
+        torch.cuda.empty_cache()
+
+        # 32. serving of the moe family at full width: arctic-480b (2 of 35
+        # layers) and llama4-scout (16 of 48) prefill and captured decode;
+        # moe_block on the card against the CPU; flash_attention at their
+        # GQA groups of 7 and 5
+        report["moe"], moe_launch, moe_rows = moe_phase(
+            torch, np, kernels, lm, steps, lm_serve, fa, moe, get_config, dev, args, peaks)
+        krows += moe_rows
+        print(f"phase 32 ({smi})")
     except Check as e:
         return fail(str(e))
 
@@ -6644,7 +6950,7 @@ def main(argv=None) -> int:
              prefill_launch, decode_launch, ssm_prefill_launch, ssm_decode_launch,
              world_one_launch, multi_launch, baselines_launch, graphs_launch, block_launch,
              resume_launch, engine_launch, telemetry_launch, head_launch, train_launch,
-             families_launch)
+             families_launch, moe_launch)
     for kname in (*TPU_KERNEL, *HELPER_KERNELS, *BLOCK_KERNELS, "update_resid_block",
                   "rank1_update_bf16"):
         rows = [r for r in krows if r["name"] == kname]

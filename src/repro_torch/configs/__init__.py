@@ -2,9 +2,9 @@
 
 Each module defines CONFIG (full size) and SMOKE (reduced, same family and
 topology, runnable on the CPU), with the same values as the reference. The
-registry holds every family; the port runs those in
-``models.lm.PORTED_FAMILIES``, and ``models.lm.init_params`` refuses the
-others (moe) with ``NotYetPorted``.
+registry holds every family, and the port serves them all
+(``models.lm.PORTED_FAMILIES``); it trains those in
+``models.lm.TRAINED_FAMILIES``.
 """
 from __future__ import annotations
 

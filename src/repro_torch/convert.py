@@ -153,11 +153,13 @@ def lm_params(params: Any, cfg, *, device: DeviceLike = None) -> dict:
     """The port's parameter dict of an LM from the JAX package's (after
     ``jax.device_get``): the same names and leaves, with the stacked
     ``(L, ...)`` layer leaves unstacked into ``params["layers"][i]``, nested
-    dicts (the ssm family's ``tm_cm``, the hybrid family's ``mamba``)
-    included; the audio family's ``frame_proj`` and the hybrid family's
-    ``shared`` block (one set of weights, not stacked) are carried as they
-    are. Each leaf keeps its dtype, so the f32 leaves of a bf16 model
-    (``w_base``, ``u_bonus``; ``a_log``, ``dt_bias``, ``d_skip``) stay f32.
+    dicts (the ssm family's ``tm_cm``, the hybrid family's ``mamba``, the
+    moe family's ``moe`` experts: ``router`` (D, E) f32, ``wg``/``wu`` (E,
+    D, F), ``wd`` (E, F, D)) included; the audio family's ``frame_proj``
+    and the hybrid family's ``shared`` block (one set of weights, not
+    stacked) are carried as they are. Each leaf keeps its dtype, so the f32
+    leaves of a bf16 model (``w_base``, ``u_bonus``; ``a_log``, ``dt_bias``,
+    ``d_skip``; the moe ``router``) stay f32.
     Only the families the port runs (``models.lm.PORTED_FAMILIES``) are
     taken."""
     from .models import lm

@@ -1,22 +1,25 @@
-"""The LM zoo's dense, ssm (RWKV-6), audio, vlm and hybrid (Mamba-2 with a
-shared attention block) families: init / forward / decode. The port's
-counterpart of ``repro.models.lm``.
+"""The LM zoo's dense, moe, ssm (RWKV-6), audio, vlm and hybrid (Mamba-2
+with a shared attention block) families: init / forward / decode. The
+port's counterpart of ``repro.models.lm``.
 
 Parameters are a dict of tensors with the reference's names and layouts,
 except that the reference's stacked ``(L, ...)`` layer leaves are a list of
 per-layer dicts here (``params["layers"][i]``), run by a Python loop in
 place of ``lax.scan``; the hybrid family's ``shared`` block is one dict,
 applied after every ``hybrid_block`` Mamba-2 layers. ``convert.lm_params``
-carries a JAX parameter dict across. The moe family is not ported yet:
-``init_params``, ``forward``, ``loss_fn``, ``cache_specs`` and
-``decode_step`` raise ``NotYetPorted`` for it before any device work.
-The audio family (hubert) is encoder-only: a bidirectional forward
-through the frame-embedding frontend, with no cache and no decode.
+carries a JAX parameter dict across. A moe layer swaps the MLP for
+``moe.moe_block`` (capacity-bounded top-k routing over the experts; arctic
+adds a dense residual MLP on the same input), and its forward sums the
+layers' Switch losses into ``aux_loss``; the expert-parallel path waits
+for the sharded LM paths. The audio family (hubert) is encoder-only: a
+bidirectional forward through the frame-embedding frontend, with no cache
+and no decode.
 
 Training: ``loss_fn`` is the reference's objective, differentiated by
 autograd, for the families in ``TRAINED_FAMILIES`` (dense, ssm); it raises
 ``NotYetPorted`` for the others before any device work (vlm's loss over the
-text positions and audio's frame labels come with their training).
+text positions, audio's frame labels and moe's aux loss under autograd
+come with their training).
 While autograd records through a layer (``torch.is_grad_enabled()``
 and a tensor it reads requires grad), ``cfg.remat == "full"`` checkpoints
 each layer (``torch.utils.checkpoint``, non-reentrant), as the reference's
@@ -43,13 +46,13 @@ from torch.utils.checkpoint import checkpoint
 from .. import DeviceLike, resolve_device
 from ..specs import NotYetPorted
 from . import layers as L
-from . import mamba2, rwkv6
+from . import mamba2, moe, rwkv6
 from .config import ModelConfig
 
 Params = Dict[str, Any]
 
 #: Families whose forward, prefill and decode the port runs.
-PORTED_FAMILIES = ("dense", "ssm", "audio", "vlm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "audio", "vlm", "hybrid")
 #: Families the port also trains (``loss_fn`` and everything built on it).
 TRAINED_FAMILIES = ("dense", "ssm")
 
@@ -82,7 +85,9 @@ def init_params(cfg: ModelConfig, key: Union[int, torch.Generator] = 0, *,
                 device: DeviceLike = None) -> Params:
     """Random parameters with the reference's names, shapes and scales:
     N(0, 1) weights times d^-0.5 (the down projections f^-0.5), zero QKV
-    biases, unit norms; for the ssm family the RWKV-6 blocks of
+    biases, unit norms; for the moe family each layer's ``moe`` experts of
+    ``moe.init_moe`` (and ``mlp`` of width ``moe_dense_ff or d_ff`` where
+    ``moe_dense_residual`` is set), for the ssm family the RWKV-6 blocks of
     ``rwkv6.init_rwkv``, for the hybrid family the Mamba-2 layers of
     ``mamba2.init_mamba`` and one ``shared`` attention + MLP block, for the
     audio family the ``frame_proj`` frontend (frontend_dim^-0.5). ``key``
@@ -113,6 +118,13 @@ def init_params(cfg: ModelConfig, key: Union[int, torch.Generator] = 0, *,
         return {"ln1": ones(), "attn": attn, "ln2": ones(),
                 "mlp": L.init_mlp(gen, d, cfg.d_ff, cfg.mlp_type, dt, dev)}
 
+    def attn_moe():
+        lp = {"ln1": ones(), "attn": L.init_attention(gen, cfg, dt, dev), "ln2": ones(),
+              "moe": moe.init_moe(gen, cfg, dt, dev)}
+        if cfg.moe_dense_residual:
+            lp["mlp"] = L.init_mlp(gen, d, cfg.moe_dense_ff or cfg.d_ff, cfg.mlp_type, dt, dev)
+        return lp
+
     if cfg.family == "ssm":
         p["layers"] = [{"ln1": ones(), "ln2": ones(), "tm_cm": rwkv6.init_rwkv(gen, cfg, dt, dev)}
                        for _ in range(cfg.num_layers)]
@@ -120,6 +132,8 @@ def init_params(cfg: ModelConfig, key: Union[int, torch.Generator] = 0, *,
         p["layers"] = [{"ln": ones(), "mamba": mamba2.init_mamba(gen, cfg, dt, dev)}
                        for _ in range(cfg.num_layers)]
         p["shared"] = attn_mlp()
+    elif cfg.family == "moe":
+        p["layers"] = [attn_moe() for _ in range(cfg.num_layers)]
     else:
         p["layers"] = [attn_mlp() for _ in range(cfg.num_layers)]
     p["final_norm"] = ones()
@@ -182,18 +196,20 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
     ``mamba_h`` (L, B, nh, hd, N) f32 and ``mamba_conv`` (L, B, d_conv - 1,
     conv_dim); audio's encoder gives its ``k``/``v`` too, as the reference's
     does, though nothing decodes from them) or "hidden" (no logits).
-    ``aux_loss`` is 0, as for every non-MoE family."""
+    ``aux_loss`` (f32) is the sum over the layers of the moe family's Switch
+    losses, in layer order; 0 for every other family."""
     check_family(cfg)
     h, angles = _embed_inputs(params, batch, cfg)
     prefill = mode == "prefill"
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.family == "ssm":
         h, cache = _ssm_layers(params, h, cfg, prefill)
     elif cfg.family == "hybrid":
         h, cache = _hybrid_layers(params, h, angles, cfg, prefill)
     else:
-        h, cache = _dense_layers(params, h, angles, cfg, prefill)
+        h, cache, aux = _dense_layers(params, h, angles, cfg, prefill, aux)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    out = {"hidden": h, "aux_loss": torch.zeros((), dtype=torch.float32, device=h.device)}
+    out = {"hidden": h, "aux_loss": aux}
     if mode != "hidden":
         out["logits"] = _unembed(params, h, cfg)
     if prefill:
@@ -213,27 +229,38 @@ def _maybe_remat(fn, cfg: ModelConfig, h, lp):
 
 
 def _attn_mlp_block(hh, lp, angles, cfg: ModelConfig, **attn_kw):
-    """Pre-norm attention then MLP, each added to the residual: a dense
-    layer, or the hybrid family's shared block. Returns (h, the attention's
-    (k, v) or None)."""
+    """Pre-norm attention then the feed-forward, each added to the
+    residual: a dense or moe layer, or the hybrid family's shared block. A
+    moe layer's feed-forward is ``moe.moe_block`` plus, with
+    ``moe_dense_residual``, the dense MLP on the same input. Returns (h, the
+    attention's (k, v) or None, the layer's Switch loss or None)."""
     a_in = L.rms_norm(hh, lp["ln1"], cfg.norm_eps)
     attn_out, kv = L.attention_block(lp["attn"], a_in, cfg, angles=angles, **attn_kw)
     hh = hh + attn_out
-    hh = hh + L.mlp_block(lp["mlp"], L.rms_norm(hh, lp["ln2"], cfg.norm_eps), cfg.mlp_type)
-    return hh, kv
+    m_in = L.rms_norm(hh, lp["ln2"], cfg.norm_eps)
+    if cfg.family != "moe":
+        return hh + L.mlp_block(lp["mlp"], m_in, cfg.mlp_type), kv, None
+    mo, aux = moe.moe_block(lp["moe"], m_in, cfg)
+    if cfg.moe_dense_residual:
+        mo = mo + L.mlp_block(lp["mlp"], m_in, cfg.mlp_type)
+    return hh + mo, kv, aux
 
 
-def _dense_layers(params: Params, h, angles, cfg: ModelConfig, prefill: bool):
+def _dense_layers(params: Params, h, angles, cfg: ModelConfig, prefill: bool, aux):
+    """The dense, moe, vlm and audio layers. Returns (h, the cache or None,
+    ``aux`` plus each moe layer's Switch loss in layer order)."""
     def block(hh, lp):
         return _attn_mlp_block(hh, lp, angles, cfg, return_kv=prefill)
 
     ks, vs = [], []
     for lp in params["layers"]:
-        h, kv = _maybe_remat(block, cfg, h, lp)
+        h, kv, al = _maybe_remat(block, cfg, h, lp)
+        if al is not None:
+            aux = aux + al
         if prefill:
             ks.append(kv[0])
             vs.append(kv[1])
-    return h, ({"k": torch.stack(ks), "v": torch.stack(vs)} if prefill else None)
+    return h, ({"k": torch.stack(ks), "v": torch.stack(vs)} if prefill else None), aux
 
 
 def _hybrid_layers(params: Params, h, angles, cfg: ModelConfig, prefill: bool):
@@ -250,7 +277,7 @@ def _hybrid_layers(params: Params, h, angles, cfg: ModelConfig, prefill: bool):
         return hh + out, None
 
     def sblock(hh, sp):
-        return _attn_mlp_block(hh, sp, angles, cfg, return_kv=prefill)
+        return _attn_mlp_block(hh, sp, angles, cfg, return_kv=prefill)[:2]
 
     ks, vs, m_h, m_conv = [], [], [], []
     for i in range(cfg.num_layers // hb):
@@ -338,7 +365,7 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
     """The training objective: ``(ce + 0.01 aux, {"ce", "aux"})``, the mean
     next-token cross entropy over B x S positions from the final hidden
     states and the head (``embed.T`` when tied, else ``unembed``) in
-    ``loss_chunk`` chunks (``_chunked_ce``); ``aux`` is 0 for the ported
+    ``loss_chunk`` chunks (``_chunked_ce``); ``aux`` is 0 for the trained
     families. Differentiate with autograd (``launch.steps.make_train_step``).
     Only the families in ``TRAINED_FAMILIES``."""
     check_trains(cfg)
@@ -429,7 +456,10 @@ def decode_step(params: Params, cache: Dict[str, torch.Tensor], batch: Dict[str,
     attention layer writes the token's k and v at cache_pos, each ssm layer
     its new state and token-shift inputs, each Mamba-2 layer its new state
     and conv window (the reference returns a new cache instead), so the
-    returned dict is the one passed in."""
+    returned dict is the one passed in. A moe layer routes the B tokens of
+    the step alone (capacity ``moe._capacity(B, ...)``, so no token is
+    dropped, where a prefill of the same positions may drop some: moe
+    decode after a prefill is not the forward) and discards its aux loss."""
     _decoder_only(cfg)
     tokens = batch["tokens"]
     pos = torch.as_tensor(batch["cache_pos"], device=tokens.device)

@@ -1,0 +1,154 @@
+"""Mixture-of-experts layer (arctic-480b, llama4-scout): capacity-bounded
+top-k routing, the batched expert MLP and the Switch load-balance loss. The
+port's counterpart of ``repro.models.moe``.
+
+Each expert takes at most C tokens (``_capacity``): the tokens routed to it
+with the largest gates, the rest dropped (Switch/GShard semantics). Shapes
+are static, as in the reference: every expert runs its MLP on C slots, some
+of them empty (gate 0), so nothing here reads a count back to the host and
+the decode step can be captured into a CUDA graph.
+
+The router, the selection and the combine are plain PyTorch, and the
+expert products are ``torch.bmm``: the reference computes them in plain jnp
+too, with no Pallas kernel. The reference's expert-parallel path (a
+``shard_map`` over the model axis: the ZeRO-3 gather of each shard's
+experts, the ``psum`` combine, the ``pmean`` of the aux loss) waits for the
+sharded LM paths; ``_moe_math`` already takes a shard's ``expert_offset``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .layers import normal
+
+Params = Dict[str, torch.Tensor]
+
+
+def init_moe(gen: torch.Generator, cfg, dtype: torch.dtype, device) -> Params:
+    """The reference's leaves and scales: ``router`` (D, E), always f32,
+    ``wg`` and ``wu`` (E, D, F) times D^-0.5, ``wd`` (E, F, D) times
+    F^-0.5. The scales are applied in place: an arctic layer's three expert
+    tensors are 8.9 GB each in bf16."""
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+    std = d**-0.5
+    return {
+        "router": normal(gen, (d, e), torch.float32, device).mul_(std),
+        "wg": normal(gen, (e, d, f), dtype, device).mul_(std),
+        "wu": normal(gen, (e, d, f), dtype, device).mul_(std),
+        "wd": normal(gen, (e, f, d), dtype, device).mul_(f**-0.5),
+    }
+
+
+def _capacity(n_loc: int, k: int, e: int, factor: float) -> int:
+    """Slots per expert: ceil(n k / E * factor), raised to a multiple of 8
+    (at least 8) and capped at n, exactly as the reference: which tokens
+    are dropped depends on it."""
+    c = int(math.ceil(n_loc * k / e * factor))
+    c = max(8, ((c + 7) // 8) * 8)
+    return min(c, n_loc)
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest entries along the last axis in
+    ``jax.lax.top_k``'s order: descending, the lower index first among
+    equal values (the first k of a stable sort; ``torch.topk`` promises no
+    order among ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route(x: torch.Tensor, router: torch.Tensor, k: int):
+    """The router: f32 logits ``x.float() @ router``, their softmax and its
+    top k. Returns (probs (n, E), gate (n, k), eidx (n, k))."""
+    probs = torch.softmax(x.float() @ router, dim=-1)
+    gate, eidx = top_k(probs, k)
+    return probs, gate, eidx
+
+
+def select(gate: torch.Tensor, eidx: torch.Tensor, e_loc: int, expert_offset: int,
+           capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each local expert's tokens: ``score[e, t]`` is token t's gate if t
+    was routed to expert ``expert_offset + e``, else -1; the top
+    ``capacity`` of each row. Returns (sel_gate, sel_idx), both (E_loc, C);
+    a slot is valid where ``sel_gate > -0.5``."""
+    eid = expert_offset + torch.arange(e_loc, device=eidx.device)
+    routed = eidx[None, :, :] == eid[:, None, None]  # (E_loc, n, k)
+    score = torch.where(routed, gate[None], -1.0).amax(dim=-1)  # (E_loc, n)
+    return top_k(score, capacity)
+
+
+def _combine(ye: torch.Tensor, sel_idx: torch.Tensor, valid: torch.Tensor,
+             eidx: torch.Tensor, expert_offset: int) -> torch.Tensor:
+    """out[t] = the sum of ye over the valid slots that hold token t, the
+    reference's scatter-add into zeros of the storage dtype, as a gather
+    with no atomics. A token sits in at most one slot of each expert (each
+    row of ``sel_idx`` is distinct) and in valid slots only of its k picks,
+    so its row has at most k nonzero addends; every other addend of the
+    reference's scatter is an exact +-0 (an invalid slot's ye times gate 0).
+    Adding +-0 to a value or to +0 leaves it, and two values commute, so for
+    k <= 2 the reference's sum equals this one in any order: ye's rows
+    gathered at each pick's slot (an empty pick reads a zero row), added in
+    pick order."""
+    e_loc, cap, d = ye.shape
+    n = eidx.shape[0]
+    empty = e_loc * cap  # the zero row's index
+    flat = torch.arange(empty, device=ye.device).view(e_loc, cap)
+    # slot_of[e, t]: the flat slot of token t in expert e, or the zero row
+    slot_of = torch.full((e_loc, n), empty, dtype=torch.int64, device=ye.device)
+    slot_of.scatter_(1, sel_idx, torch.where(valid, flat, empty))
+    local = eidx - expert_offset  # (n, k)
+    mine = (local >= 0) & (local < e_loc)
+    at = torch.gather(slot_of, 0, local.clamp(0, e_loc - 1).T).T  # (n, k)
+    at = torch.where(mine, at, empty)
+    rows = torch.cat([ye.reshape(empty, d), ye.new_zeros((1, d))])
+    picked = rows.index_select(0, at.reshape(-1)).view(n, -1, d)
+    out = picked[:, 0]
+    for j in range(1, picked.shape[1]):
+        out = out + picked[:, j]
+    return out
+
+
+def _moe_math(x: torch.Tensor, router: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+              wd: torch.Tensor, *, k: int, num_experts: int, expert_offset: int,
+              capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One shard's dispatch, expert MLP and combine, step by step as the
+    reference's: x (n, D) tokens, ``router`` (D, E) f32, the local experts'
+    ``wg``/``wu`` (E_loc, D, F) and ``wd`` (E_loc, F, D). The expert
+    products are batched in the storage dtype; the gated outputs are cast
+    to x's dtype and combined there. Returns (out (n, D), the Switch loss
+    E * sum_e frac_e * mean_p_e ())."""
+    n, d = x.shape
+    e_loc = wg.shape[0]
+    probs, gate, eidx = route(x, router, k)
+    sel_gate, sel_idx = select(gate, eidx, e_loc, expert_offset, capacity)
+    valid = sel_gate > -0.5
+
+    xg = x.index_select(0, sel_idx.reshape(-1)).view(e_loc, capacity, d)
+    h = F.silu(torch.bmm(xg, wg)) * torch.bmm(xg, wu)
+    ye = torch.bmm(h, wd)
+    ye = (ye * (sel_gate * valid).to(ye.dtype)[..., None]).to(x.dtype)
+    out = _combine(ye, sel_idx, valid, eidx, expert_offset)
+
+    # the share of tokens with e among their picks (each row's picks distinct)
+    picked = torch.zeros((n, num_experts), dtype=torch.float32, device=x.device)
+    picked.scatter_(1, eidx, 1.0)
+    aux = num_experts * torch.sum(picked.mean(dim=0) * probs.mean(dim=0))
+    return out, aux
+
+
+def moe_block(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D) -> (out (B, S, D), aux ()), every expert local: the
+    reference's no-mesh path, capacity from the B S tokens. The
+    expert-parallel path (the ZeRO-3 gather of expert shards, the ``psum``
+    combine, the ``pmean`` of aux) waits for the sharded LM paths (ROADMAP
+    section 1, Sharded LM paths)."""
+    b, s, d = x.shape
+    k, e = cfg.experts_per_token, cfg.num_experts
+    cap = _capacity(b * s, k, e, cfg.moe_capacity_factor)
+    out, aux = _moe_math(x.reshape(b * s, d), p["router"], p["wg"], p["wu"], p["wd"],
+                         k=k, num_experts=e, expert_offset=0, capacity=cap)
+    return out.reshape(b, s, d).to(x.dtype), aux

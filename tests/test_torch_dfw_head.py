@@ -1,8 +1,8 @@
 """The paper's ImageNet head in the port (``repro_torch.core.dfw_head``)
 against the JAX package's ``repro.core.dfw_head``, on the CPU.
 
-- **Features.** ``extract_features`` on the smoke qwen2-1.5b and rwkv6-7b
-  configs, weights carried across by ``convert.lm_params``: X within the
+- **Features.** ``extract_features`` on the smoke qwen2-1.5b, rwkv6-7b and
+  arctic-480b configs, weights carried across by ``convert.lm_params``: X within the
   whole-forward tolerance of tests/test_torch_lm.py (rtol 1e-5, atol 1e-4
   of max|reference|), y equal, ``max_tokens`` honoured.
 - **The head on backbone features** (tests/test_system.py's pipeline):
@@ -40,6 +40,7 @@ against the JAX package's ``repro.core.dfw_head``, on the CPU.
 The JAX package is imported in fixtures, not at module level: the worker
 processes import this module and need none of it.
 """
+import dataclasses
 import types
 
 import numpy as np
@@ -153,11 +154,22 @@ def test_extract_features_matches_jax(arch, jx):
     assert torch.equal(xc, x[:100]) and torch.equal(yc, y[:100])
 
 
-def test_extract_features_refuses_an_unported_family():
-    cfg = configs.get_config("arctic_480b", smoke=True)
-    with pytest.raises(NotYetPorted):
-        dfw_head.extract_features({}, [{"tokens": torch.zeros((1, 4), dtype=torch.int32),
-                                        "labels": torch.zeros((1, 4))}], cfg)
+def test_extract_features_refuses_an_unported_family(jx):
+    """Every family of the zoo runs since the moe family was ported: arctic's
+    features (8 experts, top-2, a dense residual) match the JAX package's
+    within the whole-forward tolerance; a family outside
+    ``lm.PORTED_FAMILIES`` is still refused before any device work."""
+    cfg, jp, pcfg, pp = _lm(jx, "arctic_480b")
+    batches = _batches(cfg.vocab_size, 4)
+    jxf, jyf = jx.jhead.extract_features(
+        jp, [{"tokens": jx.jnp.asarray(t), "labels": jx.jnp.asarray(y)} for t, y in batches], cfg)
+    tb = [{"tokens": torch.from_numpy(t), "labels": torch.from_numpy(y)} for t, y in batches]
+    x, y = dfw_head.extract_features(pp, tb, pcfg)
+    assert x.dtype == torch.float32 and tuple(x.shape) == (2 * 2 * 64, cfg.d_model)
+    _close(x, jxf, rtol=1e-5, atol_rel=1e-4)
+    np.testing.assert_array_equal(y.numpy(), np.asarray(jyf))
+    with pytest.raises(NotYetPorted, match="not yet ported"):
+        dfw_head.extract_features(pp, tb, dataclasses.replace(pcfg, family="retnet"))
 
 
 def _hits(logits, y, k):

@@ -24,6 +24,8 @@ package's test holds its kernel (rtol = atol = 2e-4, f32); the ssm, audio,
 vlm and hybrid smoke models' prefill on the card to the CPU's as the dense
 one's.
 """
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -552,13 +554,16 @@ def test_cuda_captured_dispatch_under_the_contract_guard(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["qwen2_1_5b", "rwkv6_7b", "qwen2_vl_72b", "zamba2_2_7b"])
+@pytest.mark.parametrize("arch", ["qwen2_1_5b", "rwkv6_7b", "qwen2_vl_72b", "zamba2_2_7b",
+                                  "arctic_480b", "llama4_scout_17b_a16e"])
 def test_cuda_captured_generate_is_the_step_loop_bit_for_bit(cuda, arch):
     """``generate`` on the card replays one captured step a position (one
     capture a call): its tokens and the cache it filled equal a loop of the
     uncaptured serve step's bit for bit (vlm: the loop passes M-RoPE
     positions (t, t, t), the captured step makes them from its device
-    position; hybrid: the Mamba-2 states and conv windows too); no kernel
+    position; hybrid: the Mamba-2 states and conv windows too; moe: the
+    routing, the capacity selection and the combine inside the graph, which
+    a host synchronisation would have broken at capture); no kernel
     launch on the device; temperature sampling through the registered
     generator repeats with the seed and stays in range."""
     from repro_torch.configs import get_config
@@ -668,6 +673,24 @@ def test_cuda_flash_attention_wgmma_ragged_shapes(cuda, b, hq, hkv, sq, skv, dh,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,hq,hkv,sq,skv", [
+    (2, 56, 8, 300, 300), (2, 40, 8, 257, 257), (1, 7, 1, 129, 129), (1, 5, 1, 127, 1000),
+    (1, 14, 2, 1000, 127), (1, 10, 2, 2048, 2048),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_wgmma_odd_groups(cuda, b, hq, hkv, sq, skv, causal):
+    """The moe family's GQA groups on the wgmma route (bf16, Dh 128):
+    arctic-480b's 56 / 8 = 7 and llama4-scout's 40 / 8 = 5 query heads a kv
+    head (the kernel maps head h to kv head h / group), at ragged S around
+    its 128-row tiles: each query row within 1e-2 of its own max, the same
+    bits on repeat."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _attention_inputs(b, hq, hkv, sq, skv, 128, torch.bfloat16, cuda, seed=hq + sq)
+    assert _flash_check(fa, q, k, v, causal, 1e-2) == "wgmma"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,hq,hkv,sq,skv", [
     (2, 16, 16, 1500, 1500), (1, 32, 32, 300, 300), (1, 4, 4, 129, 257), (1, 4, 2, 257, 129),
     (3, 2, 1, 1, 70),
 ])
@@ -748,9 +771,10 @@ def _family_batch(cfg, b, s, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["hubert_xlarge", "qwen2_vl_72b", "zamba2_2_7b"])
+@pytest.mark.parametrize("arch", ["hubert_xlarge", "qwen2_vl_72b", "zamba2_2_7b",
+                                  "arctic_480b", "llama4_scout_17b_a16e"])
 def test_cuda_lm_family_prefill_matches_cpu(cuda, arch):
-    """The audio, vlm and hybrid smoke models' prefill on the card (the flash
+    """The audio, vlm, hybrid and moe smoke models' prefill on the card (the flash
     kernel: one launch per attention layer, the hybrid's shared block once
     a group) against the CPU (plain versions), same weights, f32: logits
     and every cache to rtol 1e-4 / atol 1e-4 of max. hubert's step is its
@@ -774,6 +798,66 @@ def test_cuda_lm_family_prefill_matches_cpu(cuda, arch):
     assert (cache is None) == (want_cache is None) == (cfg.family == "audio")
     for name in want_cache or {}:
         _close(cache[name].cpu(), want_cache[name], atol_rel=1e-4)
+
+
+# (E, k, d, f): arctic-480b's and llama4-scout's routings at a cut width
+MOE_ROUTINGS = [(128, 2, 1024, 512), (16, 1, 1024, 512)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e,k,d,f", MOE_ROUTINGS)
+def test_cuda_moe_block_matches_cpu(cuda, e, k, d, f):
+    """``moe_block`` on the card against the CPU, f32, on 8,192 tokens (router
+    column 0 times 3: the capacity drops some of expert 0's). The routing
+    index for index (a token whose picks differ would need a k-th/(k+1)-th
+    gap under 1e-6); each expert's selection slot for slot, where a slot
+    may hold another token only if the two tokens' CPU gates are within
+    1e-6 (near-equal gates, which the two softmaxes may order either way);
+    the output within 1e-5 of max|CPU| on the tokens kept alike, the aux
+    loss within rtol 1e-6; the same bits on repeat; and no host
+    synchronisation (CUDA sync debug mode raises on one)."""
+    from repro_torch.models import moe
+
+    g = torch.Generator().manual_seed(e + k)
+    skew = torch.ones(e)
+    skew[0] = 3.0  # expert 0 takes more tokens than its capacity
+    p = {"router": torch.randn(d, e, generator=g) * d**-0.5 * skew,
+         "wg": torch.randn(e, d, f, generator=g) * d**-0.5,
+         "wu": torch.randn(e, d, f, generator=g) * d**-0.5,
+         "wd": torch.randn(e, f, d, generator=g) * f**-0.5}
+    x = torch.randn(4, 2048, d, generator=g)
+    cfg = types.SimpleNamespace(experts_per_token=k, num_experts=e, moe_capacity_factor=1.25)
+    dp = {name: t.to(cuda) for name, t in p.items()}
+    xd = x.to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, aux = moe.moe_block(dp, xd, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want, want_aux = moe.moe_block(p, x, cfg)
+    n, cap = 8192, moe._capacity(8192, k, e, 1.25)
+    probs, gate, eidx = moe.route(x.reshape(n, d), p["router"], k)
+    sel_gate, sel = moe.select(gate, eidx, e, 0, cap)
+    _, dgate, deidx = moe.route(xd.reshape(n, d), dp["router"], k)
+    dsel_gate, dsel = (t.cpu() for t in moe.select(dgate, deidx, e, 0, cap))
+    top = torch.sort(probs, dim=-1, descending=True).values
+    gap = top[:, k - 1] - top[:, k]
+    flipped = (deidx.cpu() != eidx).any(dim=1).nonzero().flatten().tolist()
+    assert all(float(gap[t]) < 1e-6 for t in flipped), (flipped, gap[flipped])
+    assert not flipped, f"near-tie flips at tokens {flipped}"
+    assert bool((torch.bincount(eidx.flatten(), minlength=e) > cap).any())  # tokens dropped
+    score = torch.where(eidx[None] == torch.arange(e)[:, None, None], gate[None], -1.0).amax(-1)
+    moved = dsel != sel
+    apart = (score.gather(1, dsel) - sel_gate).abs()
+    assert not bool((moved & (apart >= 1e-6)).any()), apart[moved].max()
+    kept = torch.zeros(e, n, dtype=torch.bool).scatter_(1, sel, sel_gate > -0.5)
+    dkept = torch.zeros(e, n, dtype=torch.bool).scatter_(1, dsel, dsel_gate > -0.5)
+    rows = ~(kept != dkept).any(dim=0).view(4, 2048)
+    _close(out.cpu()[rows], want[rows], rtol=0, atol_rel=1e-5)
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-6)
+    again, again_aux = moe.moe_block(dp, xd, cfg)
+    assert torch.equal(again, out) and torch.equal(again_aux, aux)
 
 
 def lm_to(tree, device):

@@ -350,21 +350,31 @@ def test_lm_cli_on_cpu(capsys):
 
 @pytest.mark.parametrize("arch", MOE)
 def test_other_families_not_yet_ported(arch):
+    """The moe family serves (its parity is in tests/test_torch_moe.py and
+    tests/test_torch_lm_families.py) but its training is not ported yet:
+    every training entry refuses it with ``NotYetPorted`` naming training,
+    before any device work."""
+    from repro_torch.launch import train as ptrain
+    from repro_torch.optim import hybrid
+
     cfg = configs.get_config(arch, smoke=True)
-    with pytest.raises(NotYetPorted, match=cfg.family):
-        plm.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotYetPorted):
-        psteps.make_prefill_step(cfg)
-    with pytest.raises(NotYetPorted):
-        psteps.make_train_step(cfg)
-    with pytest.raises(NotYetPorted):
-        plm.loss_fn({}, {}, cfg)
-    with pytest.raises(NotYetPorted):
-        plm.cache_specs(cfg, 1, 8)
-    with pytest.raises(NotYetPorted):
-        convert.lm_params({}, cfg, device="cpu")
-    with pytest.raises(NotYetPorted):
-        pserve.generate(arch=arch, device="cpu")
+    assert cfg.family == "moe" and "moe" in plm.PORTED_FAMILIES
+    assert "moe" not in plm.TRAINED_FAMILIES
+    params = plm.init_params(cfg, 0, device="cpu")
+    assert set(params["layers"][0]) >= {"ln1", "attn", "ln2", "moe"}
+    assert ("mlp" in params["layers"][0]) == cfg.moe_dense_residual
+    toks = torch.from_numpy(_tokens(cfg, 2, 16, seed=1))
+    last, cache = psteps.make_prefill_step(cfg)(params, {"tokens": toks})
+    assert tuple(last.shape) == (2, cfg.vocab_size) and bool(torch.isfinite(last).all())
+    assert set(cache) == set(plm.cache_specs(cfg, 1, 8)) == {"k", "v"}
+    for call in (lambda: plm.loss_fn(params, {}, cfg), lambda: plm.value_and_grad(params, {}, cfg),
+                 lambda: psteps.make_train_step(cfg), lambda: hybrid.make_hybrid_train_step(cfg),
+                 lambda: ptrain.train(arch=arch, steps=1, device="cpu")):
+        with pytest.raises(NotYetPorted, match="training"):
+            call()
+    assert not any(t.requires_grad for t in jax.tree.leaves(params))
+    new = pserve.generate(arch=arch, batch=2, prompt_len=3, max_new_tokens=2, device="cpu")
+    assert new.shape == (2, 2)
 
 
 @pytest.mark.parametrize("arch", SERVED)

@@ -1,10 +1,11 @@
-"""The port's serving of the LM zoo's audio, vlm and hybrid families against
-the JAX package, on the CPU.
+"""The port's serving of the LM zoo's audio, vlm, hybrid and moe families
+against the JAX package, on the CPU.
 
 The smoke configs of hubert-xlarge (audio: encoder-only, the frame
 frontend), qwen2-vl-72b (vlm: vision embeddings ahead of the tokens,
-M-RoPE) and zamba2-2.7b (hybrid: Mamba-2 layers with one shared attention
-block) run in f32. Parameters come from the JAX package's ``lm.init_params``
+M-RoPE), zamba2-2.7b (hybrid: Mamba-2 layers with one shared attention
+block), arctic-480b (moe: 8 experts, top-2, a dense residual MLP) and
+llama4-scout (moe: 4 experts, top-1) run in f32. Parameters come from the JAX package's ``lm.init_params``
 and are carried across by ``convert.lm_params``; inputs are numpy arrays
 from a seed (or the JAX run's own draws). On the CPU the port's attention
 takes the reference's own off-TPU branches.
@@ -13,8 +14,10 @@ Tolerances (f32 sums taken in another order by XLA and by PyTorch's CPU
 kernels): single modules (M-RoPE angles) rtol 1e-5 with an atol of 1e-5
 times max|reference|; whole forwards, caches and decode sequences 1e-4 of
 max|reference| (the Mamba-2 chunk scan's einsums contract in another order
-than the reference's). Greedy tokens and the bf16 parameters' bits must be
-identical.
+than the reference's); the moe family's summed Switch loss ``aux_loss``
+within rtol 1e-5. Greedy tokens and the bf16 parameters' bits must be
+identical. The routing itself (ties, near-ties, the capacity's drops) is
+held index for index in tests/test_torch_moe.py.
 """
 import dataclasses
 
@@ -37,8 +40,9 @@ from repro_torch.models import lm as plm
 
 torch.set_num_threads(2)
 
-FAMILIES = ["hubert_xlarge", "qwen2_vl_72b", "zamba2_2_7b"]
-DECODERS = ["qwen2_vl_72b", "zamba2_2_7b"]
+MOE = ["arctic_480b", "llama4_scout_17b_a16e"]
+FAMILIES = ["hubert_xlarge", "qwen2_vl_72b", "zamba2_2_7b", *MOE]
+DECODERS = ["qwen2_vl_72b", "zamba2_2_7b", *MOE]
 
 
 def _close(got, want, rtol=1e-5, atol_rel=1e-5):
@@ -132,6 +136,12 @@ def test_forward_matches_jax(arch, mode):
             got = pout["cache"][name]
             assert got.dtype == {jnp.float32: torch.float32}[want.dtype.type], name
             _close(got, want, atol_rel=1e-4)
+    assert pout["aux_loss"].dtype == torch.float32 and pout["aux_loss"].dim() == 0
+    if cfg.family == "moe":
+        assert float(jout["aux_loss"]) > 0
+        np.testing.assert_allclose(float(pout["aux_loss"]), float(jout["aux_loss"]), rtol=1e-5)
+    else:
+        assert float(pout["aux_loss"]) == 0.0 == float(jout["aux_loss"])
 
 
 def test_encoder_step_matches_jax():
@@ -211,33 +221,63 @@ def test_decode_sequence_matches_jax(arch):
         _close(pcache[name], jcache[name], atol_rel=1e-4)
 
 
+def _jax_prefill_then_decode(cfg, jp, prompt, steps_in):
+    """The JAX package's prefill step on ``prompt`` and its jitted serve step
+    on each of ``steps_in`` (its cache grown by their count): the last
+    prefill logits and each step's."""
+    last, cache = jsteps.make_prefill_step(cfg)(jp, _j(prompt))
+    grow = len(steps_in)
+    cache = {k: jnp.pad(v, ((0, 0),) * 3 + ((0, grow), (0, 0))) for k, v in cache.items()}
+    jstep = jax.jit(jsteps.make_serve_step(cfg))
+    out = []
+    for sb in steps_in:
+        logits, cache = jstep(jp, cache, dict(_j({k: v for k, v in sb.items() if k != "cache_pos"}),
+                                              cache_pos=jnp.int32(sb["cache_pos"])))
+        out.append(np.asarray(logits[:, 0]))
+    return np.asarray(last), out
+
+
 @pytest.mark.parametrize("arch", DECODERS)
 def test_prefill_then_decode_matches_forward(arch):
     """Prefill s = 64 positions, grow the KV cache, decode the positions after
     them one by one: the logits equal the full forward's at each (zamba2:
     32 more, since its full forward takes whole chunks of 32, and its
     Mamba-2 states continue from the prefill's; vlm: one more, the decoded
-    token's M-RoPE position following the prompt's text stream)."""
+    token's M-RoPE position following the prompt's text stream). moe: the
+    forward routes all positions' tokens under one capacity, the prefill
+    routes the prompt's under another and a decode step its B tokens with
+    no drop, so prefill then decode is not the forward, in either package;
+    the port's (4 more positions) is held to the JAX package's prefill then
+    decode instead."""
     cfg, jp, pp, pcfg = _model(arch, seed=7)
     b, s = 2, 64
-    total = s + (32 if cfg.family == "hybrid" else 1)
+    total = s + {"hybrid": 32, "moe": 4}.get(cfg.family, 1)
     full_batch = _batch(cfg, b, total, seed=2)
-    full = np.asarray(jlm.forward(jp, _j(full_batch), cfg, mode="train")["logits"])
     ntext = full_batch["tokens"].shape[1]
     prompt = dict(full_batch, tokens=full_batch["tokens"][:, :ntext - (total - s)])
     if cfg.family == "vlm":
         prompt["positions"] = full_batch["positions"][:, :, :s]
-    last, cache = psteps.make_prefill_step(pcfg)(pp, _t(prompt))
-    _close(last, full[:, s - 1], atol_rel=1e-4)
-    for name in ("k", "v"):
-        cache[name] = torch.nn.functional.pad(cache[name], (0, 0, 0, total - s)).contiguous()
+    steps_in = []
     for t in range(s, total):
         col = ntext - (total - t)
-        step = {"tokens": torch.from_numpy(full_batch["tokens"][:, col:col + 1]), "cache_pos": t}
+        step = {"tokens": full_batch["tokens"][:, col:col + 1], "cache_pos": t}
         if cfg.family == "vlm":
-            step["positions"] = torch.from_numpy(full_batch["positions"][:, :, t:t + 1])
-        logits, _ = plm.decode_step(pp, cache, step, pcfg)
-        _close(logits[:, 0], full[:, t], atol_rel=1e-4)
+            step["positions"] = full_batch["positions"][:, :, t:t + 1]
+        steps_in.append(step)
+    if cfg.family == "moe":
+        want_last, want = _jax_prefill_then_decode(cfg, jp, prompt, steps_in)
+    else:
+        full = np.asarray(jlm.forward(jp, _j(full_batch), cfg, mode="train")["logits"])
+        want_last, want = full[:, s - 1], [full[:, t] for t in range(s, total)]
+    last, cache = psteps.make_prefill_step(pcfg)(pp, _t(prompt))
+    _close(last, want_last, atol_rel=1e-4)
+    for name in ("k", "v"):
+        cache[name] = torch.nn.functional.pad(cache[name], (0, 0, 0, total - s)).contiguous()
+    for step, w in zip(steps_in, want):
+        logits, _ = plm.decode_step(pp, cache, dict(_t({k: v for k, v in step.items()
+                                                        if k != "cache_pos"}),
+                                                    cache_pos=step["cache_pos"]), pcfg)
+        _close(logits[:, 0], w, atol_rel=1e-4)
 
 
 @pytest.mark.parametrize("arch", DECODERS)
@@ -325,11 +365,17 @@ def test_lm_params_carries_bf16_and_f32_leaves_bit_for_bit(arch):
             assert t.dtype == torch.bfloat16, name
             np.testing.assert_array_equal(t.view(torch.int16).numpy().view(np.uint16),
                                           a.view(np.uint16))
-    assert f32 == ({"a_log", "dt_bias", "d_skip"} if cfg.family == "hybrid" else set())
+    assert f32 == {"hybrid": {"a_log", "dt_bias", "d_skip"}, "moe": {"router"}}.get(
+        cfg.family, set())
     if cfg.family == "audio":
         assert "frame_proj" in got
     if cfg.family == "hybrid":
         assert "shared/attn/wq" in got and "layers/0/mamba/w_in" in got
+    if cfg.family == "moe":
+        e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+        assert tuple(got["layers/0/moe/router"].shape) == (d, e)
+        assert tuple(got["layers/1/moe/wd"].shape) == (e, f, d)
+        assert ("layers/0/mlp/wg" in got) == cfg.moe_dense_residual
     own = plm.init_params(pcfg, 0, device="cpu")
     assert jax.tree.map(lambda t: (tuple(t.shape), t.dtype), own) == jax.tree.map(
         lambda t: (tuple(t.shape), t.dtype), pp)

@@ -23,7 +23,6 @@ from repro_torch.core.frank_wolfe import init_carry
 from repro_torch.core.tasks import MTLSState
 from repro_torch.kernels.factor_matvec import ops as fm_ops
 from repro_torch.launch import serve as pserve_launch
-from repro_torch.specs import NotYetPorted
 
 torch.set_num_threads(2)
 
@@ -303,12 +302,14 @@ def test_serve_cli_factor_and_lm(tmp_path, capsys):
     pserve_launch.main(["factor", "--checkpoint", str(tmp_path), "--device", "cpu",
                         "--batches", "1", "--max-batch", "2", "--transpose"])
     assert "scored 2 requests" in capsys.readouterr().out
-    # the lm subcommand decodes the dense family; the other families are not ported
+    # the lm subcommand decodes the dense family, and the moe family since it
+    # was ported (arctic: 8 experts, top-2, a dense residual MLP)
     new = pserve_launch.main(["lm", "--arch", "qwen2-1.5b", "--device", "cpu", "--batch", "2",
                               "--prompt-len", "3", "--max-new-tokens", "2"])
     assert new.shape == (2, 2) and "generated (2, 2)" in capsys.readouterr().out
-    with pytest.raises(NotYetPorted, match="moe"):
-        pserve_launch.main(["lm", "--arch", "arctic_480b", "--device", "cpu"])
+    new = pserve_launch.main(["lm", "--arch", "arctic_480b", "--device", "cpu", "--batch", "2",
+                              "--prompt-len", "3", "--max-new-tokens", "2"])
+    assert new.shape == (2, 2) and "arctic_480b: generated (2, 2)" in capsys.readouterr().out
 
 
 # ---------------------------------------------------------------------------
