@@ -434,6 +434,35 @@ Phases, each fatal on failure (exit code != 0, no result line):
    uncaptured. Under --profile, device time by kind (flash, GEMMs, routing
    and dispatch, the rest) of one prefill of each and the idle share of a
    replayed decode step.
+33. The sharded LM paths (``launch.mesh``/``sharding``/``params``,
+   ``comm.spmd``). (a) ``launch.train.train(mesh_shape=(1, 1))`` over one
+   NCCL worker: qwen2-1.5b whole, bf16, 2 steps of 4 x 2048, its losses,
+   parameters and AdamW m the unsharded run's bits. (b)-(d) a (2, 2)
+   (data, model) mesh on four gloo workers sharing the card (NCCL refuses
+   two ranks on one device: a check, not a timing), in f32 against the
+   unsharded runs on the card from the same --seed: qwen2-1.5b at full
+   width cut to 4 of 28 layers (2 train steps of 4 x 1024, losses rtol
+   2e-5; a prefill of 4 x 2048, last logits within 1e-4 of max; a batch-4
+   decode step; 16 sequence-sharded batch-1 decode steps; each worker's
+   share of the parameter bytes at most 0.26, its peak memory, the
+   collectives a train step by kind and bytes), rwkv6-7b cut to 2 of 32
+   layers (2 train steps and a prefill of 4 x 1024, ``wkv6_chunk`` on 32
+   of 64 heads), llama4-scout cut to 2 of 48 layers (a prefill of 4 x 1024
+   at capacity factor 32, where nothing drops, within 1e-4 of max; at the
+   configured factor each data shard's dropped share by layer). In (b)
+   and (c) each worker holds its blocks of the gradient at the initial
+   weights and of AdamW's m after the steps against the unsharded run's
+   (read over CUDA IPC; (d) runs in a second spawn, once they are freed),
+   each leaf within the larger of 1e-4 and 3x its spread in this run (the
+   unsharded gradient's change when every weight moves by one rounding),
+   and its parameters within 2.1 lr_1 of the unsharded run's (the
+   schedule's one nonzero step, each side). (e) every worker launched
+   ``flash_attention`` 8 times and ``wkv6_chunk`` 8 times
+   (``kernels.Executed``). Then both kernels on the operands the shards
+   give them, as strided views of a worker's projections (f32 as in
+   (b)-(d) and bf16 as the configurations run), against their plain
+   versions at phases 13 and 17's tolerances, with their times: rows of
+   the kernels line. The phase prints its wall time.
 
 The launches each fit phase checks (and the kernels line sums) are the
 device's: ``counting`` opens ``kernels.Executed``, which adds a counter on
@@ -6512,6 +6541,599 @@ def moe_phase(torch, np, kernels, lm, steps, lm_serve, fa, moe, get_config, dev,
     return report, total, rows_out
 
 
+# Phase 33: the sharded LM paths (launch.mesh/sharding/params, comm.spmd)
+MESH_SHAPE = (2, 2)  # (data, model): four gloo workers sharing the card
+MESH_ONE_SHAPE, MESH_STEPS = (4, 2048), 2  # (a) qwen2-1.5b full depth, bf16, one NCCL worker
+MESH_DENSE_LAYERS = 4  # (b) qwen2-1.5b at full width, 4 of 28 layers, f32
+MESH_TRAIN_SHAPE = (4, 1024)  # (b), (c) train steps
+MESH_PREFILL_SHAPE = (4, 2048)  # (b) prefill and the batch-4 decode step after it
+MESH_DECODE_ONE = 16  # (b) sequence-sharded decode steps at batch 1
+MESH_SSM_LAYERS = 2  # (c) rwkv6-7b at full width, 2 of 32 layers, f32
+MESH_MOE_LAYERS = 2  # (d) llama4-scout at full width, 2 of 48 layers, f32
+MESH_MOE_SHAPE = (4, 1024)
+MESH_NO_DROP = 32.0  # (d) a capacity factor under which no token drops
+# f32 sums in other orders: the row-parallel partial products' psum, the
+# vocab-parallel head and cross entropy, cuBLAS's kernels for the split
+# shapes; two AdamW steps carry them into the second loss
+# each worker's blocks against the unsharded run's. The gradient at the
+# initial weights on step 0's batch and AdamW's m after the two steps (whose
+# gradients are both taken at the initial weights: the schedule's rate is 0
+# at step 0), each leaf's max difference over its max, within the larger of
+# "grad" and "sensitivity" x that leaf's own spread in this run: the
+# unsharded gradient's change when every weight moves by one f32 rounding.
+# qwen2's spread is ~6e-6; rwkv6's decay leaves (w_base, w_lora_b) reach
+# 4e-2, since the chunk form's exp(+-cumsum) factors at q = 256 amplify any
+# rounding of r, k, v, w (tools/torch_grad_spread.py on an H100 80GB HBM3 at
+# 700 W). A gradient off by a factor on a
+# leaf is off by order 1. The parameters: the one nonzero step moves each
+# element by lr_1 |m^ / (sqrt(v^) + eps)| <= 1.0004 lr_1 (b1 0.9, b2 0.95,
+# step 2), so the runs differ by at most 2.0004 lr_1 plus one f32 rounding
+# of the stored value (under 0.04 lr_1 for |p| < 2): "params_lr"
+MESH_TOL = {"loss": 2e-5, "logits": 1e-4, "param_share": 0.26, "grad": 1e-4,
+            "sensitivity": 3.0, "params_lr": 2.1}
+MESH_ROUNDING = 6e-8  # relative size of the weights' perturbation for the spread
+# the kernels on a shard's operands, as the sharded layers build them: q, k,
+# v as (B, H, S, Dh) views of the (B, S, H Dh) projections of a worker's
+# heads; "slice": the q heads of one kv head of the two a worker computes,
+# whose k and v are a head slice of the view (mesh (1, 4))
+# (label, B, S, q heads, kv heads computed, kv heads read, dtype, causal)
+MESH_FA_OPERANDS = (
+    ("qwen2-1.5b (2, 2) shard", 2, 2048, 6, 1, 1, "float32"),
+    ("qwen2-1.5b (2, 2) shard", 2, 2048, 6, 1, 1, "bfloat16"),
+    ("qwen2-1.5b (1, 4) shard, kv head slice", 4, 2048, 3, 2, 1, "float32"),
+    ("qwen2-1.5b (1, 4) shard, kv head slice", 4, 2048, 3, 2, 1, "bfloat16"),
+    ("llama4-scout (2, 2) shard", 2, 1024, 20, 4, 4, "float32"),
+    ("llama4-scout (2, 2) shard", 2, 1024, 20, 4, 4, "bfloat16"),
+)
+# rwkv6-7b at (2, 2): 32 of 64 heads, B 2, the second 256-token chunk of
+# 1024 as (B, H, q, 64) views of the (B, S, H 64) projections; r/k/v dtype
+MESH_WKV_OPERANDS = (("rwkv6-7b (2, 2) shard", 2, 1024, 32, "float32"),
+                     ("rwkv6-7b (2, 2) shard", 2, 1024, 32, "bfloat16"))
+
+
+def _leaf_paths(tree, prefix=""):
+    """The key paths of a parameter tree's leaves, in ``tree_leaves``' order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _leaf_paths(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, t in enumerate(tree) for p in _leaf_paths(t, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def _mesh_nbytes(tree):
+    from repro_torch.optim.compression import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def mesh_rank(group, device, seed, inputs, parts):
+    """One worker of phase 33 (module level: run_workers starts it by name):
+    ``parts`` of (b)-(d) on this worker's blocks of a MESH_SHAPE mesh; host
+    results."""
+    import gc
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import params as P
+    from repro_torch.launch import sharding, steps
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import lm, moe
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim.compression import tree_leaves
+
+    mesh = M.make_mesh(MESH_SHAPE, ("data", "model"), group)
+    out = {"coords": mesh.coords, "launches": dict.fromkeys(kernels.launches(), 0)}
+    cuda = device.type == "cuda"
+    n_steps, train_shape = inputs["steps"], inputs["train_shape"]
+    prompt, n_one = inputs["b_toks"].shape[1], inputs["b_dec"].shape[0]
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def reset_peak():
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated(device) / 1e9 if cuda else None
+
+    def ran_add(ran):
+        for k_, v_ in ran.launches.items():
+            out["launches"][k_] += v_
+
+    def train_run(cfg, shape, ref_state):
+        """The sharded train run: (losses, seconds, collectives a step, the
+        worst leaf's max |block - the unsharded run's block| over that
+        block's max |.|, for the parameters and for AdamW's m)."""
+        before = group.tally.snapshot()
+        t0 = time.perf_counter()
+        params, opt, hist = train_mod.train(
+            arch=cfg.name, cfg=cfg, steps=n_steps, seq_len=shape[1], global_batch=shape[0],
+            device=device, seed=seed, log_every=1, mesh_shape=MESH_SHAPE, group=group)
+        if cuda:
+            torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - t0
+        after = group.tally.snapshot()
+        per_step = {k: {kind: (after[k][kind] - before[k][kind]) / n_steps
+                        for kind in after[k]} for k in after}
+        errs = [leaf_errs(cfg, params, ref_state[0], relative=False),
+                leaf_errs(cfg, opt.m, ref_state[1])]
+        return [v for _, v in hist], seconds, per_step, errs
+
+    def leaf_errs(cfg, got, full, relative=True):
+        """Per leaf (``tree_leaves``' order) of a tree of this worker's blocks
+        ``got``: max |block - full's block|, over that block's max |.| where
+        ``relative``."""
+        with sharding.use_mesh(mesh):
+            specs = lm.param_specs(cfg)
+        out_ = []
+        for g, w in zip(tree_leaves(got), tree_leaves(P.shard_params(full, mesh, specs)),
+                        strict=True):
+            d = (g - w).abs().max()
+            out_.append(float(d / w.abs().max().clamp_min(1e-30) if relative else d))
+        return out_
+
+    def grad_err(cfg, params, key):
+        """The gradient at these (initial) blocks on step 0's global batch
+        against the unsharded gradient's blocks."""
+        with sharding.use_mesh(mesh):
+            _, grads = lm.value_and_grad(params, inputs[key + "_batch"], cfg)
+        return leaf_errs(cfg, grads, inputs[key + "_grad"])
+
+    def prefill(cfg, params, toks, label):
+        with sharding.use_mesh(mesh), torch.no_grad(), kernels.Executed(device) as ran:
+            last, cache = steps.make_prefill_step(cfg)(params, {"tokens": toks})
+        ran_add(ran)
+        return last.cpu(), cache, {label: dict(ran.launches), label + "_routes": {
+            k: dict(v) for k, v in ran.routes.items()}}
+
+    def dense_part(cfg):  # (b) qwen2-1.5b at full width, 4 of 28 layers, f32
+        reset_peak()
+        params = P.init_local_params(cfg, seed, mesh, device=device)
+        b = {"param_bytes": _mesh_nbytes(params),
+             "full_bytes": _mesh_nbytes(lm.init_params(cfg, device="meta")),
+             "grad_err": grad_err(cfg, params, "b")}
+        free()
+        b["prefill"], _, ran = prefill(cfg, params, inputs["b_toks"], "prefill_launches")
+        b.update(ran)
+        serve = steps.make_serve_step(cfg)
+        s4, s1 = inputs["b_cache4"]["k"].shape[3], inputs["b_cache1"]["k"].shape[3]
+        with sharding.use_mesh(mesh), torch.no_grad():
+            c4 = steps.local_cache(inputs["b_cache4"], cfg, ShapeSpec("d", "decode", s4, 4))
+            b["cache4_shape"] = tuple(c4["k"].shape)
+            b["decode4"] = serve(params, c4, {"tokens": inputs["b_next"], "cache_pos":
+                                              torch.tensor(prompt, device=device)})[0].cpu()
+            del c4
+            c1 = steps.local_cache(inputs["b_cache1"], cfg, ShapeSpec("d", "decode", s1, 1))
+            b["cache1_shape"] = tuple(c1["k"].shape)
+            t0 = time.perf_counter()
+            b["decode1"] = [serve(params, c1, {"tokens": inputs["b_dec"][t].view(1, 1),
+                                               "cache_pos": torch.tensor(prompt + t,
+                                                                         device=device)}
+                                  )[0].cpu() for t in range(n_one)]
+            if cuda:
+                torch.cuda.synchronize(device)
+            b["decode1_ms"] = 1e3 * (time.perf_counter() - t0) / n_one
+        del params, c1
+        free()
+        b["losses"], b["train_s"], b["tally_per_step"], b["state_err"] = train_run(
+            cfg, train_shape, inputs["b_state"])
+        b["peak_gb"] = peak_gb()
+        return b
+
+    def ssm_part(cfg):  # (c) rwkv6-7b at full width, 2 of 32 layers, f32
+        reset_peak()
+        params = P.init_local_params(cfg, seed, mesh, device=device)
+        c = {"param_bytes": _mesh_nbytes(params), "grad_err": grad_err(cfg, params, "c")}
+        free()
+        c["prefill"], cache, ran = prefill(cfg, params, inputs["c_toks"], "prefill_launches")
+        c.update(ran)
+        c["state_shape"] = tuple(cache["s"].shape)
+        del params, cache
+        free()
+        c["losses"], c["train_s"], c["tally_per_step"], c["state_err"] = train_run(
+            cfg, train_shape, inputs["c_state"])
+        c["peak_gb"] = peak_gb()
+        return c
+
+    def moe_part(cfg):
+        """(d) llama4-scout at full width, 2 of 48 layers, f32: no drops, then
+        the configured capacity factor with each layer's drops on this data
+        shard."""
+        reset_peak()
+        params = P.init_local_params(cfg, seed, mesh, device=device)
+        d = {"param_bytes": _mesh_nbytes(params)}
+        d["prefill"], _, ran = prefill(cfg, params, inputs["d_toks"], "prefill_launches")
+        d.update(ran)
+        with moe_drops(torch, moe) as log:
+            d["prefill_configured"], _, ran = prefill(inputs["cfgs"]["d_configured"], params,
+                                                      inputs["d_toks"], "configured_launches")
+            d["drops"] = [(float(share), int(busiest), cap) for share, busiest, cap in log]
+        d.update(ran)
+        d["peak_gb"] = peak_gb()
+        return d
+
+    for key, part in (("b", dense_part), ("c", ssm_part), ("d", moe_part)):
+        if key in parts:
+            out[key] = part(inputs["cfgs"][key])
+            free()
+    return out
+
+
+def wkv_shard_row(torch, wkv, label, b, s, h, dtype, gen, dev, reps, peaks):
+    """wkv6_chunk on a shard's operands (MESH_WKV_OPERANDS): r, k, v and
+    logw as (B, H, q, 64) views of the chunk's rows of (B, S, H 64)
+    projections, y written into a strided view of a (B, S, H, 64) buffer as
+    ``rwkv6.time_mix`` does; held to the plain chunk form in f64 (row 10's
+    tolerance), the same bits on repeat; times beside the bound. Returns
+    the kernels line's row."""
+    bw, f32_peak, _, tf32_peak = peaks
+    q, d = WKV_Q, WKV_D
+    mean, sd = DECAYS["model"]
+
+    def proj(scale, dt):
+        t = torch.randn(b, s, h * d, generator=gen, device=dev) * scale
+        return t.to(dt).reshape(b, s, h, d)[:, q:2 * q].transpose(1, 2)
+
+    r, k, v = proj(0.5, dtype), proj(0.5, dtype), proj(1.0, dtype)
+    logw = -torch.exp(proj(sd, torch.float32) + mean)
+    u = (torch.randn(2 * h, d, generator=gen, device=dev) * 0.5)[h:]  # this shard's heads
+    s0 = torch.randn(b, h, d, d, generator=gen, device=dev) * 0.3
+    args = (r, k, v, logw, u, s0)
+    check(not r.is_contiguous(), f"wkv6_chunk {label}: the operand is not a strided view")
+    buf = torch.empty(b, s, h, d, device=dev)
+    out = buf[:, q:2 * q].transpose(1, 2)
+    _, state = wkv.wkv6_chunk(*args, out=out)
+    torch.cuda.synchronize()
+    got = (out.clone(), state)
+    err_abs, err_rel, s_rel = wkv_errors(torch, wkv, got, args)
+    tol = TOL["wkv6_chunk"]
+    check(math.isfinite(err_rel) and err_rel <= tol and s_rel <= tol,
+          f"wkv6_chunk {label}: row-relative err {err_rel:.3e}, state {s_rel:.3e} > {tol:.0e}")
+    again = wkv.wkv6_chunk(*args)
+    check(torch.equal(again[0], got[0]) and torch.equal(again[1], got[1]),
+          f"wkv6_chunk {label} is not bit-stable")
+    esize = torch.tensor([], dtype=dtype).element_size()
+    nbytes, nflops = wkv_work(b, h, q, d, d, esize, 4)
+    by_bytes, by_ops = nbytes / bw, 3 * nflops / tf32_peak  # 3xTF32
+    row = dict(
+        name="wkv6_chunk", operand=f"{label}: B={b} H={h} q={q} dk=dv={d} {str(dtype)[6:]} "
+        "r/k/v as strided views, f32 logw", shape=[b, h, q, d, d], max_abs_err=err_abs,
+        max_rel_err=err_rel, state_rel_err=s_rel, tol=tol, main=False,
+        ms=time_ms(torch, lambda: wkv.wkv6_chunk(*args, out=out), reps),
+        plain_ms=time_ms(torch, lambda: wkv.ref.wkv6_chunk_factored(*args), reps),
+        library_ms=None, bound_ms=1e3 * max(by_bytes, by_ops),
+        bound_by="bytes" if by_bytes >= by_ops else "operations", bytes=nbytes, flops=nflops)
+    print(f"kernel wkv6_chunk {row['operand']}: {row['ms']:.4f} ms (plain chunk form "
+          f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} by {row['bound_by']}) row-relative "
+          f"err {err_rel:.2e} (state {s_rel:.2e}; limit {tol:.0e}) against the f64 plain "
+          "version; bit-stable")
+    return row
+
+
+def mesh_kernel_rows(torch, fa, wkv, kernels, dev, gen, reps, peaks):
+    """flash_attention and wkv6_chunk on the operands the (2, 2) and (1, 4)
+    shards give them (MESH_FA_OPERANDS, MESH_WKV_OPERANDS), each against
+    its plain version at rows 9 and 10's tolerances (``flash_row``,
+    ``wkv_shard_row``)."""
+    rows_out, dh = [], 128
+    for label, b, s, hq, hkv, hread, dtype in MESH_FA_OPERANDS:
+        dt = getattr(torch, dtype)
+
+        def proj(h):
+            return torch.randn(b, s, h * dh, generator=gen, device=dev).to(dt).reshape(
+                b, s, h, dh).transpose(1, 2)
+
+        q, k, v = proj(hq), proj(hkv)[:, :hread], proj(hkv)[:, :hread]
+        check(not q.is_contiguous(), f"flash_attention {label}: q is not a strided view")
+        rows_out.append(flash_row(torch, fa, kernels, label, q, k, v, True, reps, peaks))
+        del q, k, v
+    for label, b, s, h, dtype in MESH_WKV_OPERANDS:
+        rows_out.append(wkv_shard_row(torch, wkv, label, b, s, h, getattr(torch, dtype), gen,
+                                      dev, reps, peaks))
+    torch.cuda.empty_cache()
+    return rows_out
+
+
+def mesh_phase(torch, np, kernels, lm, steps, train_mod, comm, dfw, fa, wkv, get_config, dev,
+               args, peaks):
+    """Phase 33 (see the module doc). Returns (report, summed launches of its
+    workers' sharded prefills, the kernel rows at the shards' operands)."""
+    import gc
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import data
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import schedule
+    from repro_torch.optim.compression import tree_leaves
+
+    t_phase = time.perf_counter()
+    report = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["held_gb"] = torch.cuda.memory_allocated() / 1e9
+    print(f"phase 33 starts with {report['held_gb']:.2f} GB allocated")
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (a) train(mesh_shape=(1, 1)) over one NCCL worker against the unsharded
+    # steps: qwen2-1.5b at full width and depth, bf16, the same bits
+    b, s = MESH_ONE_SHAPE
+    kw = dict(arch=LM_ARCH, smoke=False, steps=MESH_STEPS, seq_len=s, global_batch=b,
+              log_every=1, device=dev, seed=args.seed)
+    t0 = time.perf_counter()
+    p0, o0, h0 = train_mod.train(**kw)
+    want = [t.cpu() for t in tree_leaves(p0)] + [t.cpu() for t in tree_leaves(o0.m)]
+    del p0, o0
+    free()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1, device_id=dev)
+        try:
+            p1, o1, h1 = train_mod.train(mesh_shape=(1, 1), group=comm.WorkerGroup(), **kw)
+            got = tree_leaves(p1) + tree_leaves(o1.m)
+            same = h0 == h1 and len(got) == len(want) and all(
+                torch.equal(g.cpu(), w) for g, w in zip(got, want))
+        finally:
+            comm.destroy_groups()
+    del p1, o1, got, want
+    free()
+    report["a"] = dict(losses=[v for _, v in h0], mesh_losses=[v for _, v in h1], same_bits=same,
+                       wall_s=time.perf_counter() - t0)
+    print(f"(a) {LM_ARCH} (28 layers, bf16) launch.train.train over one NCCL worker with "
+          f"mesh_shape=(1, 1), {MESH_STEPS} steps of {b} x {s}: losses {report['a']['mesh_losses']}"
+          f" against the unsharded {report['a']['losses']}; parameters and AdamW m the same "
+          f"bits: {same}")
+
+    # the unsharded references on the card, f32, from the same seed
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    inputs, refs = {}, {}
+    cfg_b = dataclasses.replace(get_config(LM_ARCH), num_layers=MESH_DENSE_LAYERS,
+                                dtype="float32")
+    pb, sb = MESH_PREFILL_SHAPE
+    params = lm.init_params(cfg_b, args.seed, device=dev)
+    inputs["b_toks"] = torch.randint(0, cfg_b.vocab_size, (pb, sb), generator=gen, device=dev)
+    inputs["b_next"] = torch.randint(0, cfg_b.vocab_size, (pb, 1), generator=gen, device=dev)
+    inputs["b_dec"] = torch.randint(0, cfg_b.vocab_size, (MESH_DECODE_ONE,), generator=gen,
+                                    device=dev)
+    prefill, serve = steps.make_prefill_step(cfg_b), steps.make_serve_step(cfg_b)
+    with torch.no_grad():
+        last, cache = prefill(params, {"tokens": inputs["b_toks"]})
+        refs["b_prefill"] = last.cpu()
+        for key, rows, length in (("b_cache4", slice(None), sb + 1),
+                                  ("b_cache1", slice(0, 1), sb + MESH_DECODE_ONE)):
+            full = lm.init_cache(cfg_b, rows.stop or pb, length, device=dev)
+            for name in full:
+                full[name][:, :, :, :sb] = cache[name][:, rows]
+            inputs[key] = full
+        del cache
+        c4 = {k: v.clone() for k, v in inputs["b_cache4"].items()}
+        refs["b_decode4"] = serve(params, c4, {"tokens": inputs["b_next"], "cache_pos":
+                                               torch.tensor(sb, device=dev)})[0].cpu()
+        c1 = {k: v.clone() for k, v in inputs["b_cache1"].items()}
+        refs["b_decode1"] = [serve(params, c1, {"tokens": inputs["b_dec"][t].view(1, 1),
+                                                "cache_pos": torch.tensor(sb + t, device=dev)}
+                                   )[0].cpu() for t in range(MESH_DECODE_ONE)]
+    del params, c4, c1
+    free()
+    tb, ts = MESH_TRAIN_SHAPE
+
+    spread = {}
+
+    def unsharded_grad(cfg, key):
+        """The gradient at the initial weights on step 0's batch, and each
+        leaf's spread: its change when every weight moves by one rounding."""
+        batch = data.device_put_batch(data.SyntheticLMStream(cfg, ShapeSpec(
+            "t", "train", ts, tb)).batch_for_step(0), dev)
+        params = lm.init_params(cfg, args.seed, device=dev)
+        _, grads = lm.value_and_grad(params, batch, cfg)
+        inputs[key + "_batch"], inputs[key + "_grad"] = batch, tree_to(torch, grads, "cpu")
+        del grads
+        pgen = torch.Generator(device=dev)
+        pgen.manual_seed(args.seed + 1)
+        for t in tree_leaves(params):
+            t.copy_(t.double() * (1 + MESH_ROUNDING * torch.randn(
+                t.shape, generator=pgen, device=dev, dtype=torch.float64)))
+        _, moved = lm.value_and_grad(params, batch, cfg)
+        spread[key] = [float((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                       for a, b in zip(tree_leaves(moved), tree_leaves(inputs[key + "_grad"]),
+                                       strict=True)]
+        spread[key + "_paths"] = _leaf_paths(inputs[key + "_grad"])
+        del params, moved
+        free()
+
+    unsharded_grad(cfg_b, "b")
+    p_ref, o_ref, h_ref = train_mod.train(
+        arch=LM_ARCH, cfg=cfg_b, steps=MESH_STEPS, seq_len=ts, global_batch=tb, device=dev,
+        seed=args.seed, log_every=1)
+    refs["b_losses"] = [v for _, v in h_ref]
+    # on the host until the workers start, so the card holds nothing else of
+    # these runs (their blocks would pin the allocator's segments)
+    inputs["b_state"] = tree_to(torch, (p_ref, o_ref.m), "cpu")
+    del p_ref, o_ref
+    free()
+    cfg_c = dataclasses.replace(get_config(SSM_ARCH), num_layers=MESH_SSM_LAYERS, dtype="float32")
+    params = lm.init_params(cfg_c, args.seed, device=dev)
+    inputs["c_toks"] = torch.randint(0, cfg_c.vocab_size, MESH_TRAIN_SHAPE, generator=gen,
+                                     device=dev)
+    with torch.no_grad():
+        refs["c_prefill"] = steps.make_prefill_step(cfg_c)(params, {"tokens": inputs["c_toks"]}
+                                                           )[0].cpu()
+    del params
+    free()
+    unsharded_grad(cfg_c, "c")
+    p_ref, o_ref, h_ref = train_mod.train(
+        arch=SSM_ARCH, cfg=cfg_c, steps=MESH_STEPS, seq_len=ts, global_batch=tb, device=dev,
+        seed=args.seed, log_every=1)
+    refs["c_losses"] = [v for _, v in h_ref]
+    inputs["c_state"] = tree_to(torch, (p_ref, o_ref.m), "cpu")
+    del p_ref, o_ref
+    free()
+    cfg_d = dataclasses.replace(get_config(MOE_SCOUT), num_layers=MESH_MOE_LAYERS, dtype="float32",
+                                moe_capacity_factor=MESH_NO_DROP)
+    params = lm.init_params(cfg_d, args.seed, device=dev)
+    inputs["d_toks"] = torch.randint(0, cfg_d.vocab_size, MESH_MOE_SHAPE, generator=gen,
+                                     device=dev)
+    with torch.no_grad():
+        refs["d_prefill"] = steps.make_prefill_step(cfg_d)(params, {"tokens": inputs["d_toks"]}
+                                                           )[0].cpu()
+    del params
+    free()
+    report["refs_s"] = time.perf_counter() - t0
+    inputs.update(steps=MESH_STEPS, train_shape=MESH_TRAIN_SHAPE)
+    inputs["cfgs"] = dict(b=cfg_b, c=cfg_c, d=cfg_d, d_configured=dataclasses.replace(
+        cfg_d, moe_capacity_factor=get_config(MOE_SCOUT).moe_capacity_factor))
+
+    # (b)-(e) four gloo workers sharing the card, mesh MESH_SHAPE: (b) and
+    # (c) with the unsharded runs' states held here, then (d) without them
+    t0 = time.perf_counter()
+    free()
+    for key in ("b_state", "c_state", "b_grad", "c_grad"):  # read by the workers (CUDA IPC)
+        inputs[key] = tree_to(torch, inputs[key], dev)
+    outs = dfw.run_workers(MULTI_WORKERS, mesh_rank, args.seed, inputs, ("b", "c"),
+                           backend="gloo", device="cuda")
+    for key in ("b_state", "c_state", "b_grad", "c_grad"):
+        del inputs[key]
+    free()
+    for o, o_d in zip(outs, dfw.run_workers(MULTI_WORKERS, mesh_rank, args.seed, inputs, ("d",),
+                                            backend="gloo", device="cuda"), strict=True):
+        o["d"] = o_d["d"]
+        for k_, v_ in o_d["launches"].items():
+            o["launches"][k_] += v_
+    report["workers_s"] = time.perf_counter() - t0
+    del inputs
+    free()
+    n_data, n_model = MESH_SHAPE
+
+    def rows(key, name):  # the global batch from each data shard's rows
+        return torch.cat([outs[i * n_model][key][name] for i in range(n_data)])
+
+    def err(got, want):
+        return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+    def loss_err(got, want):
+        return max(abs(g - w) / abs(w) for g, w in zip(got, want))
+
+    def against_spread(key, per_worker):
+        """(the worst leaf's error over its bound, the error, the leaf's
+        spread, its path): a leaf's bound is the larger of MESH_TOL["grad"]
+        and MESH_TOL["sensitivity"] x its spread."""
+        return max((e / max(MESH_TOL["grad"], MESH_TOL["sensitivity"] * sp), e, sp, name)
+                   for errs_ in per_worker for e, sp, name in zip(
+                       errs_, spread[key], spread[key + "_paths"], strict=True))
+
+    lr_1 = float(schedule.cosine_with_warmup(torch.tensor(1), peak_lr=3e-4, warmup=100,
+                                             total=10000))  # make_train_step's defaults
+
+    errs = {
+        "b_prefill": err(rows("b", "prefill"), refs["b_prefill"]),
+        "b_decode4": err(rows("b", "decode4"), refs["b_decode4"]),
+        "b_decode1": max(err(g, w) for o in outs for g, w in zip(o["b"]["decode1"],
+                                                                refs["b_decode1"])),
+        "b_losses": max(loss_err(o["b"]["losses"], refs["b_losses"]) for o in outs),
+        "c_prefill": err(rows("c", "prefill"), refs["c_prefill"]),
+        "c_losses": max(loss_err(o["c"]["losses"], refs["c_losses"]) for o in outs),
+        **{f"{k}_grad": against_spread(k, [o[k]["grad_err"] for o in outs]) for k in "bc"},
+        **{f"{k}_adam_m": against_spread(k, [o[k]["state_err"][1] for o in outs])
+           for k in "bc"},
+        **{f"{k}_params_lr": max((e / lr_1, name) for o in outs for e, name in zip(
+            o[k]["state_err"][0], spread[k + "_paths"])) for k in "bc"},
+        "d_prefill": err(rows("d", "prefill"), refs["d_prefill"]),
+    }
+    fa_each = [o["b"]["prefill_launches"]["flash_attention"]
+               + o["d"]["prefill_launches"]["flash_attention"]
+               + o["d"]["configured_launches"]["flash_attention"] for o in outs]
+    wkv_each = [o["c"]["prefill_launches"]["wkv6_chunk"] for o in outs]
+    fa_want = cfg_b.num_layers + 2 * cfg_d.num_layers
+    wkv_want = cfg_c.num_layers * (ts // min(cfg_c.ssm_chunk, ts))
+    share = [o["b"]["param_bytes"] / o["b"]["full_bytes"] for o in outs]
+    total = dict.fromkeys(kernels.launches(), 0)
+    for o in outs:
+        for k_, v_ in o["launches"].items():
+            total[k_] += v_
+    report.update(errs=errs, flash_launches=fa_each, wkv6_launches=wkv_each, param_share=share,
+                  peak_gb={k: [o[k]["peak_gb"] for o in outs] for k in "bcd"},
+                  param_gb={k: [o[k]["param_bytes"] / 1e9 for o in outs] for k in "bcd"},
+                  train_s={k: [o[k]["train_s"] for o in outs] for k in "bc"},
+                  tally_per_step={k: outs[0][k]["tally_per_step"] for k in "bc"},
+                  losses={k: outs[0][k]["losses"] for k in "bc"},
+                  ref_losses={k: refs[k + "_losses"] for k in "bc"},
+                  decode1_ms=[o["b"]["decode1_ms"] for o in outs],
+                  cache_shapes=dict(b4=outs[0]["b"]["cache4_shape"],
+                                    b1=outs[0]["b"]["cache1_shape"],
+                                    c_state=outs[0]["c"]["state_shape"]),
+                  drops={str(outs[i * n_model]["coords"]): outs[i * n_model]["d"]["drops"]
+                         for i in range(n_data)},
+                  launches=total)
+    print(f"(b) {LM_ARCH} at full width, {MESH_DENSE_LAYERS} of 28 layers, f32, mesh "
+          f"{MESH_SHAPE} (data, model) on {MULTI_WORKERS} gloo workers: losses "
+          f"{report['losses']['b']} against the unsharded {report['ref_losses']['b']} (rel "
+          f"{errs['b_losses']:.2e}); each worker's blocks against the unsharded run's, the "
+          f"worst leaf's (error over its bound, error over its max, its spread, path): step "
+          f"0's gradient {errs['b_grad']}, AdamW m after the steps {errs['b_adam_m']}; the "
+          f"parameters' worst difference in units of lr_1 {errs['b_params_lr']}; prefill "
+          f"{pb} x {sb} last logits rel "
+          f"{errs['b_prefill']:.2e}, "
+          f"batch-4 decode step {errs['b_decode4']:.2e} (cache block "
+          f"{report['cache_shapes']['b4']}), {MESH_DECODE_ONE} sequence-sharded batch-1 steps "
+          f"{errs['b_decode1']:.2e} (cache block {report['cache_shapes']['b1']}, "
+          f"{statistics.median(report['decode1_ms']):.1f} ms a step); parameter bytes a worker "
+          f"{[round(x, 4) for x in share]} of the whole; peak GB {report['peak_gb']['b']}; "
+          f"collectives a train step (worker 0) {report['tally_per_step']['b']}")
+    print(f"(c) {SSM_ARCH} at full width, {MESH_SSM_LAYERS} of 32 layers, f32: losses "
+          f"{report['losses']['c']} against {report['ref_losses']['c']} (rel "
+          f"{errs['c_losses']:.2e}); blocks: step 0's gradient {errs['c_grad']}, AdamW m "
+          f"{errs['c_adam_m']}, parameters {errs['c_params_lr']}; prefill "
+          f"{MESH_TRAIN_SHAPE} last logits rel "
+          f"{errs['c_prefill']:.2e}; state block {report['cache_shapes']['c_state']} (32 of 64 "
+          f"heads); peak GB {report['peak_gb']['c']}")
+    print(f"(d) {MOE_SCOUT} at full width, {MESH_MOE_LAYERS} of 48 layers, f32, 8 of 16 experts "
+          f"a model shard: prefill {MESH_MOE_SHAPE} at capacity factor {MESH_NO_DROP} rel "
+          f"{errs['d_prefill']:.2e}; at the configured factor each data shard's dropped share, "
+          f"busiest expert and capacity a layer: {report['drops']}; peak GB "
+          f"{report['peak_gb']['d']}")
+    print(f"(e) flash_attention launches a worker {fa_each} (want {fa_want}), wkv6_chunk "
+          f"{wkv_each} (want {wkv_want})")
+    t0 = time.perf_counter()
+    rows_out = mesh_kernel_rows(torch, fa, wkv, kernels, dev, gen, args.reps, peaks)
+    report["kernel_rows_s"] = time.perf_counter() - t0
+    report["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 33 took {report['wall_s']:.1f} s (the kernels at the shards' operands "
+          f"{report['kernel_rows_s']:.1f} s, (a) and the references "
+          f"{report['refs_s']:.1f} s, "
+          f"workers {report['workers_s']:.1f} s)")
+    check(same, "(a) the (1, 1)-mesh train run is not the unsharded run's bits")
+    for key in ("b_prefill", "b_decode4", "b_decode1", "c_prefill", "d_prefill"):
+        check(errs[key] <= MESH_TOL["logits"], f"({key[0]}) {key}: rel {errs[key]:.2e} > "
+              f"{MESH_TOL['logits']}")
+    for key in ("b_losses", "c_losses"):
+        check(errs[key] <= MESH_TOL["loss"], f"({key[0]}) {key}: rel {errs[key]:.2e} > "
+              f"{MESH_TOL['loss']}")
+    for key in ("b_grad", "b_adam_m", "c_grad", "c_adam_m"):
+        check(errs[key][0] <= 1, f"({key[0]}) {key}: a leaf past its bound (error over bound, "
+              f"error, spread, path) {errs[key]}")
+    for key in ("b_params_lr", "c_params_lr"):
+        check(errs[key][0] <= MESH_TOL["params_lr"], f"({key[0]}) {key}: {errs[key]} > "
+              f"{MESH_TOL['params_lr']} lr_1")
+    check(all(x <= MESH_TOL["param_share"] for x in share),
+          f"(b) a worker holds {max(share):.4f} of the parameters")
+    check(all(n == fa_want for n in fa_each), f"(e) flash_attention launches {fa_each}")
+    check(all(n == wkv_want for n in wkv_each), f"(e) wkv6_chunk launches {wkv_each}")
+    check(all(math.isfinite(float(o["d"]["prefill_configured"].abs().max())) for o in outs),
+          "(d) logits at the configured capacity not finite")
+    return report, total, rows_out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6942,6 +7564,15 @@ def main(argv=None) -> int:
             torch, np, kernels, lm, steps, lm_serve, fa, moe, get_config, dev, args, peaks)
         krows += moe_rows
         print(f"phase 32 ({smi})")
+        torch.cuda.empty_cache()
+
+        # 33. the sharded LM paths: a (1, 1) mesh over one NCCL worker, then
+        # a (2, 2) mesh on four gloo workers sharing the card
+        report["mesh"], mesh_launch, mesh_rows = mesh_phase(
+            torch, np, kernels, lm, steps, train_mod, comm, dfw, fa, wkv, get_config, dev, args,
+            peaks)
+        krows += mesh_rows
+        print(f"phase 33 ({smi})")
     except Check as e:
         return fail(str(e))
 
@@ -6950,7 +7581,7 @@ def main(argv=None) -> int:
              prefill_launch, decode_launch, ssm_prefill_launch, ssm_decode_launch,
              world_one_launch, multi_launch, baselines_launch, graphs_launch, block_launch,
              resume_launch, engine_launch, telemetry_launch, head_launch, train_launch,
-             families_launch, moe_launch)
+             families_launch, moe_launch, mesh_launch)
     for kname in (*TPU_KERNEL, *HELPER_KERNELS, *BLOCK_KERNELS, "update_resid_block",
                   "rank1_update_bf16"):
         rows = [r for r in krows if r["name"] == kname]

@@ -34,9 +34,9 @@ Noise = Optional[Callable[[int, torch.device], torch.Tensor]]
 
 #: The collective kinds a ``WorkerGroup`` counts, with their byte
 #: conventions (``benchmarks/comm_cost.py``'s): an all-reduce moves twice its
-#: payload (ring), an all-gather its gathered output, a send or a broadcast
-#: its payload.
-KINDS = ("all_reduce", "all_gather", "send", "broadcast")
+#: payload (ring), an all-gather its gathered output, a reduce-scatter its
+#: input, a send or a broadcast its payload.
+KINDS = ("all_reduce", "all_gather", "reduce_scatter", "send", "broadcast")
 
 
 class Tally:
@@ -111,13 +111,30 @@ class WorkerGroup:
         self._dist.all_reduce(x, op=ops[op], group=self.process_group)
         return x
 
-    def all_gather_rows(self, x: torch.Tensor) -> torch.Tensor:
-        """Every worker's ``x`` (the same shape on each) stacked along dim 0
-        in rank order: the row blocks of a sharded array, reassembled."""
+    def all_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every worker's ``x`` (the same shape on each) concatenated along
+        ``dim`` in rank order: the blocks of a sharded array reassembled."""
         parts: List[torch.Tensor] = [torch.empty_like(x) for _ in range(self.size)]
         self.tally.add("all_gather", self.size * _nbytes(x))
         self._dist.all_gather(parts, x.contiguous(), group=self.process_group)
-        return torch.cat(parts)
+        return torch.cat(parts, dim=dim)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The sum over the workers of ``x`` (the same shape on each), cut
+        into ``size`` equal blocks along ``dim``: this worker's block (rank
+        order), a new tensor. NCCL reduce-scatters; gloo has no
+        reduce-scatter of CUDA tensors, so there the sum is an all-reduce of
+        a copy, then the block (counted as the all-reduce it is)."""
+        n = x.shape[dim] // self.size
+        if self._host_p2p:
+            full = x.clone()
+            self.all_reduce(full, "sum")
+            return full.narrow(dim, self.rank * n, n).clone()
+        moved = x.movedim(dim, 0).contiguous()
+        out = torch.empty((n, *moved.shape[1:]), dtype=x.dtype, device=x.device)
+        self.tally.add("reduce_scatter", _nbytes(moved))
+        self._dist.reduce_scatter_tensor(out, moved, group=self.process_group)
+        return out.movedim(0, dim).contiguous()
 
     def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
         """``x`` of worker ``src`` on every worker, in place; returns ``x``."""

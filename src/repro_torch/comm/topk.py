@@ -73,8 +73,8 @@ class TopKReducer:
                            else torch.where(alive, c - sparse_local, e))
         if self.group is None:
             return sparse_local, new_state
-        gi = self.group.all_gather_rows(idx.to(torch.int32)[None])
-        gv = self.group.all_gather_rows(vals[None])
+        gi = self.group.all_gather(idx.to(torch.int32)[None])
+        gv = self.group.all_gather(vals[None])
         return reassemble(gi, gv, c.shape[0]), new_state
 
     def wire_bytes(self, dim: int, num_workers: int) -> int:

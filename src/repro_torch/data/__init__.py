@@ -1,4 +1,4 @@
 from . import pipeline
-from .pipeline import DataConfig, SyntheticLMStream, device_put_batch
+from .pipeline import DataConfig, SyntheticLMStream, device_put_batch, shard_rows
 
-__all__ = ["pipeline", "DataConfig", "SyntheticLMStream", "device_put_batch"]
+__all__ = ["pipeline", "DataConfig", "SyntheticLMStream", "device_put_batch", "shard_rows"]

@@ -8,6 +8,12 @@ batches are numpy arrays made by this module's own copy of the reference's
 generator, so they equal the reference's bit for bit for every family
 branch, host and host count; ``device_put_batch`` moves one to the device
 as torch tensors.
+
+Under a mesh every worker makes the same global batch (a pure function of
+the step, as above) and runs the rows of its data shard: ``shard_rows``
+gives data shard i of n the contiguous block [i B/n, (i + 1) B/n) of every
+batch entry, the block GSPMD gives data coordinate i of a batch-sharded
+array.
 """
 from __future__ import annotations
 
@@ -72,6 +78,20 @@ class SyntheticLMStream:
         while True:
             yield self.batch_for_step(step)
             step += 1
+
+
+def shard_rows(batch: Dict[str, object], index: int, count: int) -> Dict[str, object]:
+    """Rows [index B/count, (index + 1) B/count) of each batch entry whose
+    leading dim is the batch B (numpy arrays or tensors; a 0-d entry such as
+    ``cache_pos`` is kept). B must divide by ``count``."""
+    key = "tokens" if "tokens" in batch else "frames"
+    b = batch[key].shape[0]
+    if b % count:
+        raise ValueError(f"a batch of {b} does not split over {count} data shards")
+    n = b // count
+    return {k: (v[index * n:(index + 1) * n]
+                if getattr(v, "ndim", 0) >= 1 and v.shape[0] == b else v)
+            for k, v in batch.items()}
 
 
 def device_put_batch(batch: Dict[str, np.ndarray], device: DeviceLike = None

@@ -12,8 +12,9 @@ or raise: the wgmma kernel for bf16 with Dh 64 or 128 and strides TMA can
 describe (``kernel.wgmma_route``), the generic kernel for the rest (f32,
 other head dims). The kernels read q, k and v through their batch, head and
 sequence strides, so the head-major view ``x.reshape(b, s, h,
-dh).transpose(1, 2)`` goes in without a copy; the last dimension must be
-contiguous (stride 1). Ragged Sq and Skv are masked in the kernel; nothing
+dh).transpose(1, 2)`` goes in without a copy, and so does a head slice
+``x[:, h0:h1]`` of it (a model shard's kv heads under a mesh,
+``models.layers``); the last dimension must be contiguous (stride 1). Ragged Sq and Skv are masked in the kernel; nothing
 is padded. ``flash_attention.launches`` counts the kernel launches, and
 ``flash_attention.route_launches`` splits them by route ("wgmma",
 "generic").

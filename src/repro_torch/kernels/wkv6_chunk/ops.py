@@ -17,7 +17,10 @@ v and logw through their batch, head and token strides, so the model's
 ``(B, S, H, 64)`` projections go in at a chunk offset as
 ``x[:, c:c + q].transpose(1, 2)`` without a copy; ``out`` (a (B, H, q, dv)
 f32 view, last dimension contiguous) receives y in place, so y can land in
-the model's (B, S, H, 64) buffer. dk and dv are at most 64.
+the model's (B, S, H, 64) buffer. A head slice ``t[:, h0:h1]`` of such a
+view (a model shard's heads, ``models.rwkv6`` under a mesh) goes in through
+its strides too, not copied; u and s0 are dense (a shard's own). dk and dv
+are at most 64.
 ``wkv6_chunk.launches`` counts the kernel launches.
 
 The kernel is a forward only: a CUDA input that requires grad under grad

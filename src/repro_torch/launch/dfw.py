@@ -430,10 +430,10 @@ class _WorkerCheckpointer:
         if self.group is not None:
             derived = getattr(state, "DERIVED", ())
             state = state._replace(**{
-                name: self.group.all_gather_rows(val) for name, val in zip(state._fields, state)
+                name: self.group.all_gather(val) for name, val in zip(state._fields, state)
                 if isinstance(val, torch.Tensor) and name not in derived})
             if comm_state != ():
-                comm_state = {k: self.group.all_gather_rows(v[None])
+                comm_state = {k: self.group.all_gather(v[None])
                               for k, v in sorted(comm_state.items())}
         if self.inner is not None:
             self.inner.save_segment(t=t, carry=carry._replace(state=state, comm_state=comm_state),

@@ -14,8 +14,12 @@ the exchange graph: ``hier:<hosts>`` across hosts (the exact sum stays
 inside a host, only the encoded hop crosses the host network), ``flat`` on
 one host. The ``dfw`` subcommand fits a synthetic low-rank least-squares
 problem with ``launch.dfw.fit`` over all the processes, a bring-up probe of
-the distributed path. ``train``, ``serve`` and ``dryrun`` (the LM paths)
-are not ported yet.
+the distributed path. ``train`` runs ``launch.train`` over the group (with
+``--mesh DxM`` sharded over all its processes: ``torchrun
+--nproc-per-node 4 -m repro_torch.launch.multihost train --arch qwen2-1.5b
+--mesh 2x2``); ``serve`` runs ``launch.serve`` in every process (the
+reference's serve takes no mesh). ``dryrun`` (the lowering for 512
+placeholder workers) is not ported yet.
 """
 from __future__ import annotations
 
@@ -114,9 +118,10 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("command", choices=["train", "serve", "dryrun", "dfw"])
     ap.add_argument("rest", nargs=argparse.REMAINDER)
     args = ap.parse_args(argv)
-    if args.command != "dfw":
-        raise NotYetPorted(f"multihost {args.command!r} (the LM paths) is not yet ported to "
-                           "PyTorch; the port runs 'dfw'")
+    if args.command == "dryrun":
+        raise NotYetPorted("multihost 'dryrun' (the lowering for 512 placeholder workers, "
+                           "over a fake process group and meta tensors) is not yet ported to "
+                           "PyTorch: it is the next item of ROADMAP section 1, Sharded LM paths")
 
     import torch.distributed as dist
 
@@ -136,7 +141,14 @@ def main(argv: Optional[List[str]] = None) -> None:
             world = dist.get_world_size() if grouped else 1
             print(f"[multihost] {world} processes on {hosts} host(s) "
                   f"(host_topology={host_topology(hosts)})")
-        _dfw_main([a for a in args.rest if a != "--"], hosts=hosts, device=device)
+        rest = [a for a in args.rest if a != "--"]
+        if args.command == "dfw":
+            _dfw_main(rest, hosts=hosts, device=device)
+        else:
+            from . import serve, train
+            if "--device" not in rest:
+                rest += ["--device", str(device)]
+            (train if args.command == "train" else serve).main(rest)
     finally:
         if grouped:
             destroy_groups()

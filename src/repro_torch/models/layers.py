@@ -2,9 +2,22 @@
 attention, MLPs. The port's counterpart of ``repro.models.layers``.
 
 Functions take parameter dicts of tensors, in the reference's layout
-(weights ``(in, out)``, used as ``x @ w``). The reference's sharding
-annotations are no-ops on one device and are dropped; the sequence-sharded
-decode (multi-device) is not ported yet.
+(weights ``(in, out)``, used as ``x @ w``). Under a mesh (``launch.sharding
+.use_mesh``; ``models.parallel``) each worker holds its blocks, and the
+reference's layout annotations become explicit collectives
+(``comm.spmd``): the q/k/v and gate/up projections are column-parallel (the
+FSDP dim gathered over the data axes, then this model shard's heads or MLP
+columns), the out and down projections row-parallel (the local product,
+then ``psum`` over the model axis). Where the model axis does not divide
+the kv heads, every shard computes all kv heads (the weight's columns
+gathered) and its q heads read theirs; where it does not divide the q
+heads, every shard attends over all heads and keeps its block of the out
+projection's rows. The flash and WKV6 kernels run on a shard's heads as
+strided views of its projections, as on one device. At batch 1 the decode
+cache may be split on its sequence dim (:func:`decode_attention_seq_sharded`).
+Each layer has one body: without a mesh, or on a mesh of one worker, the
+view is the trivial ``parallel.Par``, whose collectives are identities and
+whose blocks are the whole leaves, so the same ops give the unsharded bits.
 
 Attention under autograd: the hand-written flash kernel is a forward only,
 as the reference's Pallas kernel is (``jax.grad`` through that kernel fails,
@@ -27,8 +40,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..comm import spmd
 from ..kernels.flash_attention import ops as attn_ops
 from ..kernels.flash_attention import ref as attn_ref
+from ..launch import sharding
+from . import parallel
 
 Params = Dict[str, torch.Tensor]
 
@@ -169,6 +185,38 @@ def attention(
     return _dense_attention(q, k, v, scale=scale, causal=causal, q_offset=q_offset)
 
 
+def decode_attention_seq_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                                 scale: float, cache_pos, mesh, axes=None) -> torch.Tensor:
+    """Flash-decode against a cache split on its sequence dim: q (B, Hq, 1,
+    Dh) the same on every shard, k and v (B, Hkv, S_loc, Dh) this shard's
+    positions [i S_loc, (i + 1) S_loc), i its index over ``axes`` (default:
+    the "seq" axes), ``cache_pos`` the number of valid positions (0-d). Each
+    shard takes a partial softmax (m, l, acc) over its valid positions in
+    f32; the combine is one ``pmax`` and two ``psum`` of O(B Hq Dh) over the
+    shards, never an S-length gather. Returns (B, Hq, 1, Dh) in q's dtype,
+    the same on every shard."""
+    axes = sharding.seq_axes() if axes is None else tuple(axes)
+    group, idx = mesh.group_of(axes), mesh.index(axes)
+    return _flash_decode(q, k, v, scale=scale, cache_pos=cache_pos, group=group, index=idx)
+
+
+def _flash_decode(q, k, v, *, scale, cache_pos, group, index):
+    s_loc, hq = k.shape[2], q.shape[1]
+    kpos = index * s_loc + torch.arange(s_loc, device=k.device)
+    sres = (q.float() @ _expand_heads(k, hq).float().transpose(-1, -2)) * scale
+    sres = torch.where(kpos < torch.as_tensor(cache_pos, device=k.device), sres,
+                       torch.full((), -1e30, device=k.device))
+    m = sres.amax(dim=-1, keepdim=True)
+    p = torch.exp(sres - m)
+    lsum = p.sum(dim=-1, keepdim=True)
+    acc = p @ _expand_heads(v, hq).float()
+    m_g = spmd.pmax(m, group)
+    corr = torch.exp(m - m_g)
+    l_g = spmd.psum(lsum * corr, group)
+    acc_g = spmd.psum(acc * corr, group)
+    return (acc_g / torch.clamp_min(l_g, 1e-30)).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Attention block (QKV proj + rope + attention + out proj)
 # ---------------------------------------------------------------------------
@@ -195,20 +243,16 @@ def init_attention(gen: torch.Generator, cfg, dtype: torch.dtype, device) -> Par
     return p
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
-    y = x @ w
-    return y if bias is None else y + bias
-
-
 def attention_block(
     p: Params,
-    x: torch.Tensor,  # (B, S, D)
+    x: torch.Tensor,  # (B, S, D): this worker's rows, the same on every model shard
     cfg,
     *,
     angles: Optional[torch.Tensor],  # rope angles for the current positions
     cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (k, v): (B, Hkv, Smax, Dh)
     cache_pos: Optional[torch.Tensor] = None,  # 0-d int on the device: the write offset
     return_kv: bool = False,  # prefill: emit this layer's (k, v) as the cache
+    cache_split: Tuple[str, ...] = (),  # mesh axes splitting the cache's sequence dim
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Without a cache: attention over x's own positions. With a cache and
     one token: the token's k and v are written into the cache IN PLACE at
@@ -216,26 +260,48 @@ def attention_block(
     updated copy), and the token attends to the whole cache masked at
     ``q_offset=cache_pos``, i.e. to positions 0..cache_pos. The position
     stays on the device (``index_copy_`` at it, the mask compares against
-    it), so nothing here waits for the card."""
-    b, s, _ = x.shape
+    it), so nothing here waits for the card.
+
+    On a worker's blocks (module doc; without a mesh the trivial
+    ``parallel.Par``, whose blocks are the leaves): every model-replicated
+    input enters through ``spmd.copy`` or ``Par.cols``, so each input's
+    gradient is summed over the model shards, and the result is the
+    row-parallel product's ``psum``. A prefill's (k, v) are the shard's kv
+    heads (``head_ranges``), all positions. A decode cache split on its
+    sequence dim over the mesh axes ``cache_split`` (as
+    ``launch.steps.cache_pspecs`` lays it out) holds this worker's
+    positions, and the shards' partial softmaxes are combined."""
+    par = parallel.current()
+    b, s, d = x.shape
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    g = hq // hkv
+    q0, q1, k0, k1 = head_ranges(cfg, par)
+    xc = spmd.copy(x, par.model)
 
-    q = _proj(x, p["wq"], p.get("bq"))
-    kk = _proj(x, p["wk"], p.get("bk"))
-    vv = _proj(x, p["wv"], p.get("bv"))
-    # head-major views; the flash kernel reads them through their strides
-    q = q.reshape(b, s, hq, dh).transpose(1, 2)
-    kk = kk.reshape(b, s, hkv, dh).transpose(1, 2)
-    vv = vv.reshape(b, s, hkv, dh).transpose(1, 2)
+    def proj(wname, bname, full, lo, hi):
+        w = par.cols(par.fsdp(p[wname], 0, d), 1, full * dh, lo * dh, hi * dh)
+        y = xc @ w
+        if bname in p:
+            y = y + par.cols(p[bname], 0, full * dh, lo * dh, hi * dh)
+        # head-major views; the flash kernel reads them through their strides
+        return y.reshape(b, s, hi - lo, dh).transpose(1, 2)
 
+    q = proj("wq", "bq", hq, q0, q1)
+    kk = proj("wk", "bk", hkv, k0, k1)
+    vv = proj("wv", "bv", hkv, k0, k1)
     if angles is not None:
         q = apply_rope(q, angles)
         kk = apply_rope(kk, angles)
 
+    def for_q(t):  # the kv heads of the q heads [q0, q1), from those held
+        a0, a1 = q0 // g, (q1 - 1) // g + 1
+        return t if (a0, a1) == (k0, k1) else t[:, a0 - k0:a1 - k0]
+
     scale = dh**-0.5
     new_cache = None
     if cache is None:
-        out = attention(q, kk, vv, scale=scale, causal=cfg.causal, chunk=cfg.seq_chunk)
+        out = attention(q, for_q(kk), for_q(vv), scale=scale, causal=cfg.causal,
+                        chunk=cfg.seq_chunk)
         if return_kv:
             new_cache = (kk, vv)
     elif s > 1:
@@ -243,14 +309,57 @@ def attention_block(
     else:
         ck, cv = cache
         pos = torch.as_tensor(cache_pos, device=ck.device)
-        at = pos.to(torch.int64).reshape(1)
-        ck.index_copy_(2, at, kk.to(ck.dtype))
-        cv.index_copy_(2, at, vv.to(cv.dtype))
+        group, _, index = par.split(cache_split)
+        _write_at(ck, kk, pos, group, index)
+        _write_at(cv, vv, pos, group, index)
         new_cache = (ck, cv)
-        out = _dense_attention(q, ck, cv, scale=scale, causal=True, q_offset=pos)
+        if group is None:
+            out = _dense_attention(q, for_q(ck), for_q(cv), scale=scale, causal=True,
+                                   q_offset=pos)
+        else:
+            if set(cache_split) & set(sharding.model_axes()) and (q0, q1) != (0, hq):
+                # split over the model axis (the cache holds every kv head):
+                # all q heads on every shard, against its positions
+                q, q0, q1 = par.model.all_gather(q, 1), 0, hq
+            out = _flash_decode(q, for_q(ck), for_q(cv), scale=scale, cache_pos=pos + 1,
+                                group=group, index=index)
 
-    out = out.transpose(1, 2).reshape(b, s, hq * dh)
-    return out @ p["wo"], new_cache
+    out = out.transpose(1, 2).reshape(b, s, -1)
+    r0, r1 = par.model_block(hq * dh)
+    if (r0, r1) != (q0 * dh, q1 * dh):
+        out = out[..., r0 - q0 * dh:r1 - q0 * dh]
+    wo = par.cols(par.fsdp(p["wo"], 1, d), 0, hq * dh, r0, r1)
+    return spmd.psum(out @ wo, par.model), new_cache
+
+
+def head_ranges(cfg, par):
+    """(q0, q1, k0, k1): the q heads this model shard attends with and the
+    kv heads it computes. The model axis splits the q heads where it
+    divides them and each shard's q heads share whole kv heads or one kv
+    head; else every shard takes all q heads. The kv heads are the shard's
+    block where the axis divides them, else all of them."""
+    hq, hkv, m = cfg.num_heads, cfg.num_kv_heads, par.m_size
+    g = hq // hkv
+    split = hq % m == 0 and (hkv % m == 0 or g % (hq // m) == 0)
+    q0, q1 = par.model_block(hq) if split else (0, hq)
+    k0, k1 = par.model_block(hkv) if hkv % m == 0 else (0, hkv)
+    return q0, q1, k0, k1
+
+
+def _write_at(c: torch.Tensor, new: torch.Tensor, pos: torch.Tensor, group, index: int):
+    """Write the token's k or v (B, H, 1, Dh) into the cache c at position
+    ``pos``, in place. Where c holds positions [index S_loc, (index + 1)
+    S_loc) of a split cache (``group`` not None), only the shard holding
+    ``pos`` changes (the others write back what they hold)."""
+    new = new.to(c.dtype)
+    if group is None:
+        c.index_copy_(2, pos.to(torch.int64).reshape(1), new)
+        return
+    s_loc = c.shape[2]
+    rel = pos.to(torch.int64) - index * s_loc
+    at = rel.clamp(0, s_loc - 1).reshape(1)
+    mine = (rel >= 0) & (rel < s_loc)
+    c.index_copy_(2, at, torch.where(mine, new, c.index_select(2, at)))
 
 
 # ---------------------------------------------------------------------------
@@ -275,7 +384,23 @@ def init_mlp(gen: torch.Generator, d: int, f: int, kind: str, dtype: torch.dtype
 
 def mlp_block(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
     """SwiGLU, or GELU with the tanh approximation (``jax.nn.gelu``'s
-    default)."""
+    default). On a worker's blocks the gate/up columns and the down rows
+    are this model shard's block of the hidden width (which the model axis
+    divides: ``parallel.check_mesh``), and the result is the ``psum`` of the
+    partial products."""
+    par = parallel.current()
+    d = x.shape[-1]
+    f = p["wg" if kind == "swiglu" else "w1"].shape[1] * par.m_size
+    lo, hi = par.model_block(f)
+    xc = spmd.copy(x, par.model)
+
+    def col(name):
+        return par.cols(par.fsdp(p[name], 0, d), 1, f, lo, hi)
+
+    def row(name):
+        return par.cols(par.fsdp(p[name], 1, d), 0, f, lo, hi)
+
     if kind == "swiglu":
-        return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
-    return F.gelu(x @ p["w1"], approximate="tanh") @ p["w2"]
+        h = F.silu(xc @ col("wg")) * (xc @ col("wu"))
+        return spmd.psum(h @ row("wd"), par.model)
+    return spmd.psum(F.gelu(xc @ col("w1"), approximate="tanh") @ row("w2"), par.model)

@@ -10,8 +10,8 @@ applied after every ``hybrid_block`` Mamba-2 layers. ``convert.lm_params``
 carries a JAX parameter dict across. A moe layer swaps the MLP for
 ``moe.moe_block`` (capacity-bounded top-k routing over the experts; arctic
 adds a dense residual MLP on the same input), and its forward sums the
-layers' Switch losses into ``aux_loss``; the expert-parallel path waits
-for the sharded LM paths. The audio family (hubert) is encoder-only: a
+layers' Switch losses into ``aux_loss`` (under a mesh its experts are
+split over the model axis, below). The audio family (hubert) is encoder-only: a
 bidirectional forward through the frame-embedding frontend, with no cache
 and no decode.
 
@@ -28,8 +28,27 @@ differentiable paths: ``layers.attention`` the reference's own training
 path (dense or chunked), ``rwkv6.time_mix`` the plain chunk form; neither
 hand-written forward kernel has a backward (see those modules). ``"none"``
 checkpoints nothing; ``"dots"`` (no configuration uses it) is not ported.
-The reference's sequence-sharded loss (its ``seq_act`` branch) needs a mesh
-and waits with the sharded LM paths (ROADMAP section 1, Sharded LM paths).
+
+Under a mesh (``launch.sharding.use_mesh`` over a ``launch.mesh.Mesh`` of
+processes; ``models.parallel``) every worker holds its blocks of the
+parameters (``launch.params.shard_params``) and of a decode cache
+(``launch.steps.cache_pspecs``), and takes the GLOBAL batch, of which it
+runs its data shard's rows (``data.pipeline.shard_rows``; a batch the data
+axes do not divide runs whole on every data shard, as the reference
+replicates it). Logits come back for those rows, all of the vocabulary; a
+prefill's cache holds the shard's rows and kv heads (its sequence dim split
+as ``cache_pspecs`` says). The embedding is vocab-parallel (the masked local
+lookup, then a ``psum`` over the model axis), ``loss_fn``'s cross entropy
+too (the log-sum-exp from a ``pmax`` and a ``psum`` of the shards' parts,
+the gold logit a masked pick and a ``psum``), its mean over the global
+B x S positions; ``value_and_grad`` sums over the data axes the gradients
+of the leaves replicated there, so each worker's gradient is its block of
+the full one. The dense, moe and ssm families run under a mesh; the
+reference's sequence-sharded loss (its ``seq_act`` branch, profiles
+``sp``/``msp``) and the other families raise ``NotYetPorted`` there
+(``parallel.check_mesh``). A decode step at global batch 1 splits the
+cache's sequence dim over the data axes (``layers.decode_attention_seq_
+sharded``; not for ssm, whose state has no sequence dim).
 
 The embedding lookup is ``F.embedding``, whose gradient sums each row's
 tokens in a fixed order on the card (no atomics), so a training step
@@ -37,6 +56,7 @@ repeats its bits.
 """
 from __future__ import annotations
 
+from functools import lru_cache, partial
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -44,9 +64,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .. import DeviceLike, resolve_device
+from ..comm import spmd
+from ..launch import sharding
 from ..specs import NotYetPorted
 from . import layers as L
-from . import mamba2, moe, rwkv6
+from . import mamba2, moe, parallel, rwkv6
 from .config import ModelConfig
 
 Params = Dict[str, Any]
@@ -82,7 +104,7 @@ def check_trains(cfg: ModelConfig) -> None:
 
 
 def init_params(cfg: ModelConfig, key: Union[int, torch.Generator] = 0, *,
-                device: DeviceLike = None) -> Params:
+                device: DeviceLike = None, keep=None) -> Params:
     """Random parameters with the reference's names, shapes and scales:
     N(0, 1) weights times d^-0.5 (the down projections f^-0.5), zero QKV
     biases, unit norms; for the moe family each layer's ``moe`` experts of
@@ -93,7 +115,12 @@ def init_params(cfg: ModelConfig, key: Union[int, torch.Generator] = 0, *,
     audio family the ``frame_proj`` frontend (frontend_dim^-0.5). ``key``
     is a seed or a ``torch.Generator`` on the target device (free runs draw
     different numbers from the reference's ``jax.random`` stream;
-    ``convert.lm_params`` carries those across)."""
+    ``convert.lm_params`` carries those across). ``device="meta"`` gives the
+    shapes and dtypes alone. ``keep(tree, path)``, when given, replaces each
+    top-level leaf and each layer's dict as soon as it is drawn (a sharded
+    run keeps its blocks: ``launch.params.init_local_params``), so the
+    whole model is never held (a moe layer's expert tensors are kept one by
+    one); the draws, and so the values kept, are the same."""
     cfg.validate()
     check_family(cfg)
     if isinstance(key, torch.Generator):
@@ -101,14 +128,16 @@ def init_params(cfg: ModelConfig, key: Union[int, torch.Generator] = 0, *,
         dev = gen.device if device is None else resolve_device(device)
     else:
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(key))
+        gen = None if dev.type == "meta" else torch.Generator(device=dev)
+        if gen is not None:
+            gen.manual_seed(int(key))
+    keep = keep or (lambda tree, names: tree)
     dt, d = cfg.torch_dtype, cfg.d_model
     p: Params = {}
     if cfg.family == "audio":
         p["frame_proj"] = (L.normal(gen, (cfg.frontend_dim, d), dt, dev)
                            * cfg.frontend_dim**-0.5)
-    p["embed"] = L.normal(gen, (cfg.vocab_size, d), dt, dev) * d**-0.5
+    p["embed"] = keep(L.normal(gen, (cfg.vocab_size, d), dt, dev) * d**-0.5, ("embed",))
 
     def ones():
         return torch.ones((d,), dtype=dt, device=dev)
@@ -118,27 +147,30 @@ def init_params(cfg: ModelConfig, key: Union[int, torch.Generator] = 0, *,
         return {"ln1": ones(), "attn": attn, "ln2": ones(),
                 "mlp": L.init_mlp(gen, d, cfg.d_ff, cfg.mlp_type, dt, dev)}
 
-    def attn_moe():
-        lp = {"ln1": ones(), "attn": L.init_attention(gen, cfg, dt, dev), "ln2": ones(),
-              "moe": moe.init_moe(gen, cfg, dt, dev)}
+    def attn_moe():  # kept part by part: an expert tensor is GBs at full width
+        lp = keep({"ln1": ones(), "attn": L.init_attention(gen, cfg, dt, dev), "ln2": ones()},
+                  ("layers",))
+        lp["moe"] = moe.init_moe(gen, cfg, dt, dev,
+                                 keep=lambda t, name: keep(t, ("layers", "moe", name)))
         if cfg.moe_dense_residual:
-            lp["mlp"] = L.init_mlp(gen, d, cfg.moe_dense_ff or cfg.d_ff, cfg.mlp_type, dt, dev)
+            lp["mlp"] = keep(L.init_mlp(gen, d, cfg.moe_dense_ff or cfg.d_ff, cfg.mlp_type, dt,
+                                        dev), ("layers", "mlp"))
         return lp
 
-    if cfg.family == "ssm":
-        p["layers"] = [{"ln1": ones(), "ln2": ones(), "tm_cm": rwkv6.init_rwkv(gen, cfg, dt, dev)}
-                       for _ in range(cfg.num_layers)]
-    elif cfg.family == "hybrid":
-        p["layers"] = [{"ln": ones(), "mamba": mamba2.init_mamba(gen, cfg, dt, dev)}
-                       for _ in range(cfg.num_layers)]
-        p["shared"] = attn_mlp()
-    elif cfg.family == "moe":
-        p["layers"] = [attn_moe() for _ in range(cfg.num_layers)]
-    else:
-        p["layers"] = [attn_mlp() for _ in range(cfg.num_layers)]
+    def layer():
+        if cfg.family == "moe":
+            return attn_moe()
+        return keep({"ln1": ones(), "ln2": ones(), "tm_cm": rwkv6.init_rwkv(gen, cfg, dt, dev)}
+                    if cfg.family == "ssm" else
+                    {"ln": ones(), "mamba": mamba2.init_mamba(gen, cfg, dt, dev)}
+                    if cfg.family == "hybrid" else attn_mlp(), ("layers",))
+
+    p["layers"] = [layer() for _ in range(cfg.num_layers)]
+    if cfg.family == "hybrid":
+        p["shared"] = keep(attn_mlp(), ("shared",))
     p["final_norm"] = ones()
     if not cfg.tie_embeddings:
-        p["unembed"] = L.normal(gen, (d, cfg.vocab_size), dt, dev) * d**-0.5
+        p["unembed"] = keep(L.normal(gen, (d, cfg.vocab_size), dt, dev) * d**-0.5, ("unembed",))
     return p
 
 
@@ -165,7 +197,7 @@ def _embed_inputs(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConf
         pos = torch.arange(s, dtype=torch.float32, device=h.device)[:, None] * inv
         return h + torch.cat([torch.sin(pos), torch.cos(pos)], -1).to(h.dtype), None
     tokens = batch["tokens"]
-    h = F.embedding(tokens.long(), params["embed"])
+    h = _embed_tokens(params, tokens, cfg)
     if cfg.family == "ssm":
         return h, None
     if cfg.family == "vlm":
@@ -177,9 +209,38 @@ def _embed_inputs(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConf
     return h, L.rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
 
 
+def _embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The token embeddings (B, S, D): the table's D gathered over the data
+    axes where it is split there, then, where its vocab is split over the
+    model axis, the masked lookup of this shard's rows and the ``psum``."""
+    par = parallel.current()
+    table = par.fsdp(params["embed"], 1, cfg.d_model)
+    if table.shape[0] == cfg.vocab_size:
+        return F.embedding(tokens.long(), table)
+    n = table.shape[0]
+    idx = tokens.long() - par.m_index * n
+    mine = (idx >= 0) & (idx < n)
+    rows = F.embedding(idx.clamp(0, n - 1), table)
+    return spmd.psum(torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                                     device=rows.device)),
+                     par.model)
+
+
+def _head(params: Params, cfg: ModelConfig, par) -> torch.Tensor:
+    """The (D, V or V_loc) head: ``embed.T`` when tied, else ``unembed``,
+    its D gathered over the data axes where it is split there."""
+    if cfg.tie_embeddings:
+        return par.fsdp(params["embed"], 1, cfg.d_model).T
+    return par.fsdp(params["unembed"], 0, cfg.d_model)
+
+
 def _unembed(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    return h @ w.to(h.dtype)
+    par = parallel.current()
+    w = _head(params, cfg, par)
+    if w.shape[1] == cfg.vocab_size:
+        return h @ w.to(h.dtype)
+    logits = spmd.copy(h, par.model) @ w.to(h.dtype)
+    return spmd.gather_replicated(logits, -1, par.model)
 
 
 # ---------------------------------------------------------------------------
@@ -197,8 +258,25 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
     conv_dim); audio's encoder gives its ``k``/``v`` too, as the reference's
     does, though nothing decodes from them) or "hidden" (no logits).
     ``aux_loss`` (f32) is the sum over the layers of the moe family's Switch
-    losses, in layer order; 0 for every other family."""
+    losses, in layer order; 0 for every other family. Under a mesh: the
+    rows of this data shard (module doc)."""
     check_family(cfg)
+    parallel.check_mesh(cfg)
+    par = parallel.current()
+    batch, b_global = local_batch(batch, par)
+    return _forward(_gather_tied(params, cfg, par), batch, cfg, mode, par, b_global)
+
+
+def _gather_tied(params: Params, cfg: ModelConfig, par) -> Params:
+    """``params`` with a tied embedding's D gathered over the data axes
+    once, for both its uses (the lookup and the head): one all-gather and
+    one reduce-scatter a step, not two."""
+    if not cfg.tie_embeddings:
+        return params
+    return {**params, "embed": par.fsdp(params["embed"], 1, cfg.d_model)}
+
+
+def _forward(params: Params, batch, cfg: ModelConfig, mode: str, par, b_global: int):
     h, angles = _embed_inputs(params, batch, cfg)
     prefill = mode == "prefill"
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -213,18 +291,58 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
     if mode != "hidden":
         out["logits"] = _unembed(params, h, cfg)
     if prefill:
-        out["cache"] = cache
+        out["cache"] = _split_prefill_cache(cache, cfg, par, b_global)
     return out
+
+
+def local_batch(batch: Dict[str, Any], par) -> Tuple[Dict[str, Any], int]:
+    """(this data shard's rows of a global batch, the global batch size).
+    On one data shard, or where the data axes do not divide the batch
+    (which then runs whole on every data shard, as the reference
+    replicates it), the batch itself."""
+    from ..data.pipeline import shard_rows
+
+    key = "tokens" if "tokens" in batch else "frames"
+    b = batch[key].shape[0]
+    if par.d_size == 1 or b % par.d_size:
+        return batch, b
+    return shard_rows(batch, par.d_index, par.d_size), b
+
+
+def cache_split(cfg: ModelConfig, par, b_global: int) -> Tuple[str, ...]:
+    """The mesh axes over which a kv cache of global batch ``b_global`` is
+    split on its sequence dim: those of ``launch.steps.cache_pspecs``' spec
+    of ``k`` (the seq axes at batch 1; the model axis where it does not
+    divide the kv heads); () on one worker or without a kv cache."""
+    from ..launch.steps import cache_pspecs
+    from .config import ShapeSpec
+
+    if par.mesh is None or cfg.family == "ssm":
+        return ()
+    return sharding.spec_axes(cache_pspecs(cfg, ShapeSpec("decode", "decode", 1, b_global))
+                              ["k"][3])
+
+
+def _split_prefill_cache(cache, cfg: ModelConfig, par, b_global: int):
+    """A prefill's kv cache cut on its sequence dim as a decode cache of its
+    global batch is laid out (``cache_split``)."""
+    _, count, index = par.split(cache_split(cfg, par, b_global))
+    if count == 1:
+        return cache
+    n = next(iter(cache.values())).shape[3] // count
+    return {k: v.narrow(3, index * n, n).contiguous() for k, v in cache.items()}
 
 
 def _maybe_remat(fn, cfg: ModelConfig, h, lp):
     """``fn(h, lp)``, checkpointed as the reference's ``jax.checkpoint`` of
-    a layer when ``cfg.remat == "full"`` and autograd records through it."""
+    a layer when ``cfg.remat == "full"`` and autograd records through it;
+    the recomputation runs under the mesh of the forward
+    (``sharding.in_context``)."""
     if cfg.remat == "dots":
         raise NotYetPorted(f"{cfg.name}: remat='dots' (checkpoint_dots_with_no_batch_dims) is "
                            "not yet ported; 'none' and 'full' are")
     if cfg.remat == "full" and L.records_grad(h, lp):
-        return checkpoint(fn, h, lp, use_reentrant=False)
+        return checkpoint(sharding.in_context(fn), h, lp, use_reentrant=False)
     return fn(h, lp)
 
 
@@ -297,10 +415,11 @@ def _hybrid_layers(params: Params, h, angles, cfg: ModelConfig, prefill: bool):
 
 
 def _ssm_layers(params: Params, h, cfg: ModelConfig, prefill: bool):
-    """RWKV-6 blocks from a zero token shift and a zero state."""
+    """RWKV-6 blocks from a zero token shift and a zero state (of this model
+    shard's heads under a mesh)."""
     b = h.shape[0]
     zeros_x = torch.zeros((b, cfg.d_model), dtype=h.dtype, device=h.device)
-    s0 = torch.zeros((b, cfg.d_model // rwkv6.HEAD, rwkv6.HEAD, rwkv6.HEAD),
+    s0 = torch.zeros((b, ssm_heads(cfg), rwkv6.HEAD, rwkv6.HEAD),
                      dtype=torch.float32, device=h.device)
 
     def block(hh, lp):
@@ -323,6 +442,14 @@ def _ssm_layers(params: Params, h, cfg: ModelConfig, prefill: bool):
     return h, {"s": torch.stack(ss), "x_tm": torch.stack(xtm), "x_cm": torch.stack(xcm)}
 
 
+def ssm_heads(cfg: ModelConfig) -> int:
+    """RWKV-6 heads this worker runs: all, or its model shard's block where
+    the model axis divides them."""
+    nh = cfg.d_model // rwkv6.HEAD
+    m = parallel.current().m_size
+    return nh if nh % m else nh // m
+
+
 # ---------------------------------------------------------------------------
 # Loss / train objective
 # ---------------------------------------------------------------------------
@@ -338,26 +465,51 @@ def _ce_chunk(hi: torch.Tensor, li: torch.Tensor, w: torch.Tensor) -> torch.Tens
     return torch.sum(lse - gold)
 
 
-def _chunked_ce(h: torch.Tensor, labels: torch.Tensor, w: torch.Tensor,
-                chunk: int) -> torch.Tensor:
+def _ce_chunk_vocab_parallel(hi: torch.Tensor, li: torch.Tensor, w: torch.Tensor, v0: int,
+                             group) -> torch.Tensor:
+    """``_ce_chunk`` with the vocab split over ``group``: w holds columns
+    [v0, v0 + V_loc); lse = m + log(psum(sum(exp(l - m)))) with m the
+    ``pmax`` of the shards' maxima, the gold logit a masked pick and a
+    ``psum``."""
+    logits = (hi @ w).float()
+    m = spmd.pmax(logits.amax(dim=-1), group)
+    lse = m + torch.log(spmd.psum(torch.exp(logits - m[..., None]).sum(dim=-1), group))
+    idx = li.long() - v0
+    mine = (idx >= 0) & (idx < logits.shape[-1])
+    gold = torch.gather(logits, -1, idx.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
+    gold = spmd.psum(torch.where(mine, gold, torch.zeros((), device=gold.device)), group)
+    return torch.sum(lse - gold)
+
+
+def _chunked_ce(h: torch.Tensor, labels: torch.Tensor, w: torch.Tensor, chunk: int, par,
+                n_global: int, vocab: int) -> torch.Tensor:
     """Cross entropy without the full-sequence f32 logits: the sequence in
     chunks of ``chunk`` positions (one chunk when S does not divide), each
     chunk's logits ``(h @ w).float()`` recomputed in the backward
     (non-reentrant ``torch.utils.checkpoint``, the reference's
     ``jax.checkpoint``), so one (B, chunk, V) f32 slab is live. The chunk
-    sums add up in f32 in chunk order, divided by B S."""
-    b, s, _ = h.shape
+    sums add up in f32 in chunk order. h holds this data shard's rows; the
+    vocab is split over the model axis where the head's is (w holds V_loc <
+    ``vocab`` columns: ``_ce_chunk_vocab_parallel``). The shards' sums are
+    ``psum``-ed over the data axes and divided by the global B S
+    (``n_global``)."""
+    s = h.shape[1]
     if s % chunk:
         chunk = s
+    v0 = par.m_index * w.shape[1]
+    vocab_split = w.shape[1] != vocab
+    hc = spmd.copy(h, par.model) if vocab_split else h
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for lo in range(0, s, chunk):
-        hi, li = h[:, lo:lo + chunk], labels[:, lo:lo + chunk]
-        if L.records_grad(hi, w):
-            part = checkpoint(_ce_chunk, hi, li, w, use_reentrant=False)
+        hi, li = hc[:, lo:lo + chunk], labels[:, lo:lo + chunk]
+        if vocab_split:
+            fn = partial(_ce_chunk_vocab_parallel, v0=v0, group=par.model)
         else:
-            part = _ce_chunk(hi, li, w)
+            fn = _ce_chunk
+        part = checkpoint(fn, hi, li, w, use_reentrant=False) if L.records_grad(hi, w) \
+            else fn(hi, li, w)
         total = total + part
-    return total / (b * s)
+    return spmd.psum(total, par.data) / n_global
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
@@ -367,12 +519,22 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
     states and the head (``embed.T`` when tied, else ``unembed``) in
     ``loss_chunk`` chunks (``_chunked_ce``); ``aux`` is 0 for the trained
     families. Differentiate with autograd (``launch.steps.make_train_step``).
-    Only the families in ``TRAINED_FAMILIES``."""
+    Only the families in ``TRAINED_FAMILIES``. Under a mesh the batch is the
+    global one, split over the data axes (which must divide it), and the
+    cross entropy vocab-parallel (module doc)."""
     check_trains(cfg)
-    out = forward(params, batch, cfg, mode="hidden")
+    parallel.check_mesh(cfg)
+    par = parallel.current()
+    batch, b_global = local_batch(batch, par)
+    if par.d_size > 1 and b_global % par.d_size:
+        raise ValueError(f"a train batch of {b_global} does not split over the "
+                         f"{par.d_size} data shards")
+    params = _gather_tied(params, cfg, par)
+    out = _forward(params, batch, cfg, "hidden", par, b_global)
     h = out["hidden"]
-    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    ce = _chunked_ce(h, batch["labels"], w.to(h.dtype), loss_chunk)
+    w = _head(params, cfg, par).to(h.dtype)
+    ce = _chunked_ce(h, batch["labels"], w, loss_chunk, par, b_global * h.shape[1],
+                     cfg.vocab_size)
     total = ce + 0.01 * out["aux_loss"]
     return total, {"ce": ce, "aux": out["aux_loss"]}
 
@@ -383,7 +545,10 @@ def value_and_grad(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelCon
     counterpart of ``jax.value_and_grad(loss_fn, has_aux=True)``: every
     parameter leaf requires grad for the forward and backward only, and
     ``grads`` mirrors ``params`` (a tied embedding's gradient sums both
-    uses). Nothing is read back to the host."""
+    uses). Nothing is read back to the host. Under a mesh ``params`` are
+    this worker's blocks and so are the gradients: those of the leaves
+    replicated over a data axis are summed over it (one all-reduce a group
+    and dtype), so each is the block of the full gradient."""
     from ..optim.compression import tree_leaves, tree_map
 
     check_trains(cfg)
@@ -392,12 +557,60 @@ def value_and_grad(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelCon
         p.requires_grad_(True)
     try:
         loss, metrics = loss_fn(params, batch, cfg, **kw)
-        grads = iter(torch.autograd.grad(loss, leaves))
+        grads = list(torch.autograd.grad(loss, leaves))
     finally:
         for p in leaves:
             p.requires_grad_(False)
+    if parallel.current().mesh is not None:
+        _sum_replicated_grads(grads, cfg)
     metrics = {k: v.detach() for k, v in metrics.items()}
-    return (loss.detach(), metrics), tree_map(lambda _: next(grads), params)
+    it = iter(grads)
+    return (loss.detach(), metrics), tree_map(lambda _: next(it), params)
+
+
+def param_specs(cfg: ModelConfig):
+    """The spec tree of ``cfg``'s parameters under the active mesh and rules
+    (``launch.params.param_pspecs`` of the meta-device shapes), computed
+    once a (config, layout, rules): a train step reads it after every
+    backward. Shared: not to be changed."""
+    return _param_specs(cfg, sharding.context_key())
+
+
+@lru_cache(maxsize=16)
+def _param_specs(cfg: ModelConfig, key):
+    from ..launch.mesh import Mesh
+    from ..launch.params import param_pspecs
+
+    layout, rules = key
+    with sharding.use_mesh(None if layout is None else Mesh(*layout), dict(rules)):
+        return param_pspecs(init_params(cfg, device="meta"))
+
+
+def _sum_replicated_grads(grads, cfg: ModelConfig) -> None:
+    """Sum over the data axes, in place, the gradients of the leaves that
+    the data axes do not shard, flattened into one buffer a (group, dtype)."""
+    from ..launch.params import unsharded_axes
+    from ..launch.sharding import data_axes
+
+    par = parallel.current()
+    def spec_leaves(tree):  # tree_leaves' order, a spec tuple a leaf
+        if isinstance(tree, dict):
+            return [leaf for k in sorted(tree) for leaf in spec_leaves(tree[k])]
+        if isinstance(tree, list):
+            return [leaf for sub in tree for leaf in spec_leaves(sub)]
+        return [tree]
+
+    specs = spec_leaves(param_specs(cfg))
+    buckets: Dict[tuple, list] = {}
+    for g, spec in zip(grads, specs, strict=True):
+        axes = unsharded_axes(spec, par.mesh, data_axes())
+        if axes:
+            buckets.setdefault((axes, g.dtype), []).append(g)
+    for (axes, _), gs in buckets.items():
+        flat = torch.cat([g.reshape(-1) for g in gs])
+        par.mesh.group_of(axes).all_reduce(flat, "sum")
+        for g, part in zip(gs, flat.split([g.numel() for g in gs])):
+            g.copy_(part.view_as(g))
 
 
 # ---------------------------------------------------------------------------
@@ -459,15 +672,27 @@ def decode_step(params: Params, cache: Dict[str, torch.Tensor], batch: Dict[str,
     returned dict is the one passed in. A moe layer routes the B tokens of
     the step alone (capacity ``moe._capacity(B, ...)``, so no token is
     dropped, where a prefill of the same positions may drop some: moe
-    decode after a prefill is not the forward) and discards its aux loss."""
+    decode after a prefill is not the forward) and discards its aux loss.
+
+    Under a mesh: the global batch's tokens, this worker's block of the
+    cache (``launch.steps.cache_pspecs`` of the decode shape), the logits of
+    its data shard's rows. Where the cache's sequence dim is split
+    (``cache_split``: over the seq axes at global batch 1, over the model
+    axis where it does not divide the kv heads), each attention layer
+    combines the shards' partial softmaxes (``layers.decode_attention_seq_
+    sharded``)."""
     _decoder_only(cfg)
+    parallel.check_mesh(cfg)
+    par = parallel.current()
+    batch, b_global = local_batch(batch, par)
     tokens = batch["tokens"]
     pos = torch.as_tensor(batch["cache_pos"], device=tokens.device)
     if pos.dim() != 0 or pos.dtype.is_floating_point or pos.dtype == torch.bool:
         raise TypeError(f"cache_pos must be a 0-d integer tensor or an int, got {pos.dtype} "
                         f"of shape {tuple(pos.shape)}")
     b = tokens.shape[0]
-    h = F.embedding(tokens.long(), params["embed"])
+    params = _gather_tied(params, cfg, par)
+    h = _embed_tokens(params, tokens, cfg)
     if cfg.family == "ssm":
         h2 = h[:, 0, :]
         for i, lp in enumerate(params["layers"]):
@@ -490,9 +715,11 @@ def decode_step(params: Params, cache: Dict[str, torch.Tensor], batch: Dict[str,
         positions = pos.to(torch.int64).reshape(1, 1).expand(b, 1)
         angles = L.rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
 
+    split = cache_split(cfg, par, b_global)
+
     def attend(hh, lp, i):
         return _attn_mlp_block(hh, lp, angles, cfg, cache=(cache["k"][i], cache["v"][i]),
-                               cache_pos=pos)[0]
+                               cache_pos=pos, cache_split=split)[0]
 
     if cfg.family == "hybrid":
         hb = cfg.hybrid_block

@@ -10,10 +10,17 @@ the decode step can be captured into a CUDA graph.
 
 The router, the selection and the combine are plain PyTorch, and the
 expert products are ``torch.bmm``: the reference computes them in plain jnp
-too, with no Pallas kernel. The reference's expert-parallel path (a
-``shard_map`` over the model axis: the ZeRO-3 gather of each shard's
-experts, the ``psum`` combine, the ``pmean`` of the aux loss) waits for the
-sharded LM paths; ``_moe_math`` already takes a shard's ``expert_offset``.
+too, with no Pallas kernel.
+
+Under a mesh (expert parallelism, the reference's ``shard_map`` body): each
+model shard holds E / |model| experts, their dim 1 split over the data
+axes; it gathers that dim (ZeRO-3), routes its data shard's tokens (the
+same on every model shard) to its own experts with a capacity from the
+data shard's token count, and the ``psum`` over the model axis adds the
+shards' outputs; the aux loss is the mean over the data shards. A token
+routed to an expert of another shard adds nothing here, so the capacity
+and the drops are per data shard, as in the reference, and differ from one
+device's.
 """
 from __future__ import annotations
 
@@ -23,24 +30,28 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..comm import spmd
+from . import parallel
 from .layers import normal
 
 Params = Dict[str, torch.Tensor]
 
 
-def init_moe(gen: torch.Generator, cfg, dtype: torch.dtype, device) -> Params:
+def init_moe(gen: torch.Generator, cfg, dtype: torch.dtype, device, keep=None) -> Params:
     """The reference's leaves and scales: ``router`` (D, E), always f32,
     ``wg`` and ``wu`` (E, D, F) times D^-0.5, ``wd`` (E, F, D) times
     F^-0.5. The scales are applied in place: an arctic layer's three expert
-    tensors are 8.9 GB each in bf16."""
+    tensors are 8.9 GB each in bf16. ``keep(tensor, name)``, when given,
+    replaces each leaf as soon as it is drawn (a sharded run's block)."""
     e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
     std = d**-0.5
-    return {
-        "router": normal(gen, (d, e), torch.float32, device).mul_(std),
-        "wg": normal(gen, (e, d, f), dtype, device).mul_(std),
-        "wu": normal(gen, (e, d, f), dtype, device).mul_(std),
-        "wd": normal(gen, (e, f, d), dtype, device).mul_(f**-0.5),
-    }
+    keep = keep or (lambda t, name: t)
+    out = {}
+    for name, shape, dt, scale in (("router", (d, e), torch.float32, std),
+                                   ("wg", (e, d, f), dtype, std), ("wu", (e, d, f), dtype, std),
+                                   ("wd", (e, f, d), dtype, f**-0.5)):
+        out[name] = keep(normal(gen, shape, dt, device).mul_(scale), name)
+    return out
 
 
 def _capacity(n_loc: int, k: int, e: int, factor: float) -> int:
@@ -141,14 +152,18 @@ def _moe_math(x: torch.Tensor, router: torch.Tensor, wg: torch.Tensor, wu: torch
 
 
 def moe_block(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, D) -> (out (B, S, D), aux ()), every expert local: the
-    reference's no-mesh path, capacity from the B S tokens. The
-    expert-parallel path (the ZeRO-3 gather of expert shards, the ``psum``
-    combine, the ``pmean`` of aux) waits for the sharded LM paths (ROADMAP
-    section 1, Sharded LM paths)."""
+    """x (B, S, D) -> (out (B, S, D), aux ()). x is this data shard's rows
+    (all of them without a mesh) and the expert-parallel path runs (module
+    doc): capacity from the shard's B S tokens, expert offset model index
+    x E / |model|. Forward only under a mesh (moe does not train yet)."""
     b, s, d = x.shape
     k, e = cfg.experts_per_token, cfg.num_experts
     cap = _capacity(b * s, k, e, cfg.moe_capacity_factor)
-    out, aux = _moe_math(x.reshape(b * s, d), p["router"], p["wg"], p["wu"], p["wd"],
-                         k=k, num_experts=e, expert_offset=0, capacity=cap)
+    par = parallel.current()
+    f = p["wg"].shape[2]  # never sharded
+    wg, wu, wd = (par.fsdp(p[n], 1, full) for n, full in (("wg", d), ("wu", d), ("wd", f)))
+    out, aux = _moe_math(x.reshape(b * s, d), p["router"], wg, wu, wd, k=k, num_experts=e,
+                         expert_offset=par.m_index * wg.shape[0], capacity=cap)
+    out = spmd.psum(out, par.model)
+    aux = spmd.psum(aux, par.data) / par.d_size
     return out.reshape(b, s, d).to(x.dtype), aux

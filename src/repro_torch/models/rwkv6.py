@@ -23,6 +23,15 @@ with no gradient recorded (prefill, features, serving) every chunk launches
 the kernel as before.
 
 Channel mix: relu^2 gated FFN with token shift (Finch §2).
+
+Under a mesh (``models.parallel``) the heads are split over the model axis
+(all heads on every model shard where the axis does not divide them): the
+r/k/v/g projections are column-parallel, each shard runs ``wkv6_chunk`` on
+its heads (strided views, as on one device) and keeps their state, the
+decay LoRA gives its heads' columns (``w_lora_b``'s FSDP dim gathered
+first), the output norm's mean square is a ``psum`` of the shards' sums,
+and ``wo`` and ``cv`` are row-parallel. ``cr`` is gathered over the model
+axis (its gate multiplies the replicated channel-mix output).
 """
 from __future__ import annotations
 
@@ -31,9 +40,11 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..comm import spmd
 from ..kernels.wkv6_chunk import ops as wkv_ops
 from ..kernels.wkv6_chunk import ref as wkv_ref
-from .layers import normal, records_grad, rms_norm
+from . import parallel
+from .layers import normal, records_grad
 
 Params = Dict[str, torch.Tensor]
 
@@ -93,90 +104,134 @@ def _mix(x, xs, mu):
     return x + (xs - x) * mu
 
 
-def _log_decay(p: Params, wx: torch.Tensor) -> torch.Tensor:
-    """-exp(w_base + tanh(wx @ a) @ b), the LoRA in f32."""
-    return -torch.exp(p["w_base"] + torch.tanh(wx @ p["w_lora_a"]).float()
-                      @ p["w_lora_b"].float())
-
-
 def time_mix(p: Params, x: torch.Tensor, cfg, x_prev: torch.Tensor,
              s0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Chunked WKV6. x: (B, S, D); S must be a multiple of the chunk
-    q = min(ssm_chunk, S). Returns (y, new state (B, H, 64, 64) f32, last x).
+    q = min(ssm_chunk, S). Returns (y, new state (B, H, 64, 64) f32, last x);
+    the state holds this model shard's heads (module doc).
 
     The (B, S, H, 64) projections go to ``wkv6_chunk`` chunk by chunk as
     strided views (no transposed copies), and each chunk's y is written into
     one (B, S, H, 64) f32 buffer."""
     b, s, d = x.shape
-    h = d // HEAD
     q = min(cfg.ssm_chunk, s)
     if s % q:
         raise ValueError(f"sequence length {s} is not a multiple of the chunk {q}")
-
-    xs = _token_shift(x, x_prev)
-    r = _mix(x, xs, p["mu_r"]) @ p["wr"]
-    k = _mix(x, xs, p["mu_k"]) @ p["wk"]
-    v = _mix(x, xs, p["mu_v"]) @ p["wv"]
-    g = F.silu(_mix(x, xs, p["mu_g"]) @ p["wg"])
-    logw = _log_decay(p, _mix(x, xs, p["mu_w"]))  # (B, S, D) log decay <= 0
+    par = parallel.current()
+    r, k, v, g, logw, u, ln_x, lo = _projections(p, x, _token_shift(x, x_prev), cfg, par)
+    h = r.shape[-1] // HEAD
 
     heads = [t.reshape(b, s, h, HEAD) for t in (r, k, v, logw)]
     state = s0.float().contiguous()
     chunks = [[t[:, c:c + q].transpose(1, 2) for t in heads]  # (B, H, q, 64) views
               for c in range(0, s, q)]
-    if records_grad(*heads, p["u_bonus"], s0):
+    if records_grad(*heads, u, s0):
         ys = []
         for r_c, k_c, v_c, lw_c in chunks:
-            y_c, state = wkv_ref.wkv6_chunk_factored(r_c, k_c, v_c, lw_c, p["u_bonus"], state)
+            y_c, state = wkv_ref.wkv6_chunk_factored(r_c, k_c, v_c, lw_c, u, state)
             ys.append(y_c)
         y = torch.cat(ys, dim=2).transpose(1, 2)
     else:
         y = torch.empty((b, s, h, HEAD), dtype=torch.float32, device=x.device)
         for c, (r_c, k_c, v_c, lw_c) in zip(range(0, s, q), chunks):
-            _, state = wkv_ops.wkv6_chunk(r_c, k_c, v_c, lw_c, p["u_bonus"], state,
+            _, state = wkv_ops.wkv6_chunk(r_c, k_c, v_c, lw_c, u, state,
                                           out=y[:, c:c + q].transpose(1, 2))
-    y = y.reshape(b, s, d).to(x.dtype)
-    y = rms_norm(y, p["ln_x"], cfg.norm_eps) * g
-    return y @ p["wo"], state, x[:, -1, :]
+    y = y.reshape(b, s, h * HEAD).to(x.dtype)
+    return _out(p, y, g, ln_x, lo, cfg, par), state, x[:, -1, :]
+
+
+def _projections(p: Params, x, xs, cfg, par):
+    """A model shard's time-mix inputs from x and its shifted copy (token
+    shift or the decode carry): r, k, v, g and the log decay
+    -exp(w_base + tanh(x_w @ a) @ b) (the LoRA in f32) of its heads'
+    columns [lo, lo + D_l), its heads' bonus and ``ln_x`` columns, and lo.
+    x and xs enter through ``spmd.copy``, the replicated leaves through
+    ``Par.cols``."""
+    d = cfg.d_model
+    nh = d // HEAD
+    h0, h1 = par.model_block(nh) if nh % par.m_size == 0 else (0, nh)
+    lo, hi = h0 * HEAD, h1 * HEAD
+    xc, xsc = spmd.copy(x, par.model), spmd.copy(xs, par.model)
+
+    def mix(mu):
+        return _mix(xc, xsc, par.cols(p[mu], 0, d, 0, d))
+
+    def col(name):
+        return par.cols(par.fsdp(p[name], 0, d), 1, d, lo, hi)
+
+    r, k, v = mix("mu_r") @ col("wr"), mix("mu_k") @ col("wk"), mix("mu_v") @ col("wv")
+    g = F.silu(mix("mu_g") @ col("wg"))
+    lora_a = par.fsdp(p["w_lora_a"], 0, d)
+    lora_b = par.fsdp(p["w_lora_b"], 1, d)
+    lora_a = par.cols(lora_a, 1, lora_a.shape[1], 0, lora_a.shape[1])
+    logw = -torch.exp(par.cols(p["w_base"], 0, d, lo, hi)
+                      + torch.tanh(mix("mu_w") @ lora_a).float()
+                      @ par.cols(lora_b, 1, d, lo, hi).float())
+    return (r, k, v, g, logw, par.cols(p["u_bonus"], 0, nh, h0, h1),
+            par.cols(p["ln_x"], 0, d, lo, hi), lo)
+
+
+def _out(p: Params, y, g, ln_x, lo, cfg, par):
+    """The time mix's output from a shard's heads y (..., D_l): the RMS norm
+    over the full D (the mean square a ``psum`` of the shards' sums where
+    the heads are split), the gate, then ``wo`` row-parallel (this shard's
+    rows of the model axis's block) and the ``psum``."""
+    d = cfg.d_model
+    yf = y.float()
+    if yf.shape[-1] == d:
+        var = torch.mean(yf * yf, dim=-1, keepdim=True)
+    else:
+        ss = spmd.psum(torch.sum(yf * yf, dim=-1, keepdim=True), par.model)
+        var = spmd.copy(ss, par.model) / d
+    yn = (yf * torch.rsqrt(var + cfg.norm_eps) * ln_x.float()).to(y.dtype) * g
+    r0, r1 = par.model_block(d)
+    if (r0, r1) != (lo, lo + yn.shape[-1]):
+        yn = yn[..., r0 - lo:r1 - lo]
+    return spmd.psum(yn @ par.cols(par.fsdp(p["wo"], 1, d), 0, d, r0, r1), par.model)
 
 
 def time_mix_decode(p: Params, x: torch.Tensor, cfg, x_prev: torch.Tensor,
                     s0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Exact single-token recurrence, plain PyTorch. x: (B, D)."""
-    b, d = x.shape
-    h = d // HEAD
+    """Exact single-token recurrence, plain PyTorch. x: (B, D); s0 this
+    model shard's heads."""
+    b = x.shape[0]
     x_prev = x_prev.to(x.dtype)  # the cache stores f32; keep the carry's dtype
-    r = _mix(x, x_prev, p["mu_r"]) @ p["wr"]
-    k = _mix(x, x_prev, p["mu_k"]) @ p["wk"]
-    v = _mix(x, x_prev, p["mu_v"]) @ p["wv"]
-    g = F.silu(_mix(x, x_prev, p["mu_g"]) @ p["wg"])
-    w = torch.exp(_log_decay(p, _mix(x, x_prev, p["mu_w"]))).reshape(b, h, HEAD)
-
+    par = parallel.current()
+    r, k, v, g, logw, u, ln_x, lo = _projections(p, x, x_prev, cfg, par)
+    h = r.shape[-1] // HEAD
     r_, k_, v_ = (t.reshape(b, h, HEAD).float() for t in (r, k, v))
     kv = k_[..., :, None] * v_[..., None, :]
-    y = (r_[..., None, :] @ (s0 + p["u_bonus"][None, :, :, None] * kv))[..., 0, :]
-    s_new = s0 * w[..., None] + kv
-    y = y.reshape(b, d).to(x.dtype)
-    y = rms_norm(y, p["ln_x"], cfg.norm_eps) * g
-    return y @ p["wo"], s_new, x
+    y = (r_[..., None, :] @ (s0 + u[None, :, :, None] * kv))[..., 0, :]
+    s_new = s0 * torch.exp(logw).reshape(b, h, HEAD)[..., None] + kv
+    return _out(p, y.reshape(b, h * HEAD).to(x.dtype), g, ln_x, lo, cfg, par), s_new, x
 
 
 def channel_mix(p: Params, x: torch.Tensor,
                 x_prev: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Finch channel mix (relu^2). x: (B, S, D); returns (out, last x)."""
-    xs = _token_shift(x, x_prev)
-    xk = _mix(x, xs, p["cmu_k"])
-    xr = _mix(x, xs, p["cmu_r"])
-    hdn = torch.square(F.relu(xk @ p["ck"]))
-    return torch.sigmoid(xr @ p["cr"]) * (hdn @ p["cv"]), x[:, -1, :]
+    return _channel_mix(p, x, _token_shift(x, x_prev)), x[:, -1, :]
 
 
 def channel_mix_decode(p: Params, x: torch.Tensor, x_prev: torch.Tensor):
-    x_prev = x_prev.to(x.dtype)
-    xk = _mix(x, x_prev, p["cmu_k"])
-    xr = _mix(x, x_prev, p["cmu_r"])
-    hdn = torch.square(F.relu(xk @ p["ck"]))
-    return torch.sigmoid(xr @ p["cr"]) * (hdn @ p["cv"]), x
+    return _channel_mix(p, x, x_prev.to(x.dtype)), x
+
+
+def _channel_mix(p: Params, x, xs):
+    """relu^2 of this model shard's ``ck`` columns times its ``cv`` rows,
+    ``psum``-ed (the model axis divides the hidden width:
+    ``parallel.check_mesh``); the gate sigmoid(xr @ cr) on the replicated
+    x, with ``cr`` gathered over the model axis."""
+    par = parallel.current()
+    d = x.shape[-1]
+    f = p["ck"].shape[1] * par.m_size
+    lo, hi = par.model_block(f)
+    xk = _mix(spmd.copy(x, par.model), spmd.copy(xs, par.model), par.cols(p["cmu_k"], 0, d, 0, d))
+    hdn = torch.square(F.relu(xk @ par.cols(par.fsdp(p["ck"], 0, d), 1, f, lo, hi)))
+    cm = spmd.psum(hdn @ par.cols(par.fsdp(p["cv"], 1, d), 0, f, lo, hi), par.model)
+    cr = par.fsdp(p["cr"], 0, d)
+    if cr.shape[1] != d:
+        cr = spmd.gather_replicated(cr, 1, par.model)
+    return torch.sigmoid(_mix(x, xs, p["cmu_r"]) @ cr) * cm
 
 
 def init_rwkv_cache(cfg, batch: int, *, device=None) -> RWKVCache:

@@ -1732,3 +1732,94 @@ def test_cuda_run_workers_returns_the_shared_memory(cuda):
     assert dfw.run_workers(2, _sum_worker, x, device="cuda") == [float(1 << 26)] * 2
     del x
     assert torch.cuda.memory_allocated() == base
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [(0, 6, 0, 1), (6, 12, 1, 2), (2, 4, 0, 1)])
+def test_cuda_flash_attention_on_a_shards_heads(cuda, dtype, heads):
+    """A model shard's heads as the sharded layers give them: q and k/v head
+    slices [q0, q1) and [k0, k1) of the (B, S, H Dh) projections' head-major
+    views (strided in the head dim, no copy), GQA group 6 as qwen2-1.5b at
+    model 2: each query row against the plain version (f32 1e-4, bf16 1e-2
+    of its max), and the bits of the all-heads call's rows."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q0, q1, k0, k1 = heads
+    b, s, hq, hkv, dh = 2, 256, 12, 2, 128
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = [torch.randn(b, s, h * dh, generator=g, device=cuda).to(dtype)
+               .view(b, s, h, dh).transpose(1, 2) for h in (hq, hkv, hkv)]
+    part = (q[:, q0:q1], k[:, k0:k1], v[:, k0:k1])
+    assert not part[0].is_contiguous()
+    _flash_check(fa, *part, True, 1e-4 if dtype == torch.float32 else 1e-2)
+    got = fa.flash_attention(*part, scale=dh**-0.5, causal=True)
+    whole = fa.flash_attention(q, k, v, scale=dh**-0.5, causal=True)
+    assert torch.equal(got, whole[:, q0:q1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h0,h1", [(0, 32), (32, 64), (16, 48)])
+def test_cuda_wkv6_chunk_on_a_shards_heads(cuda, h0, h1):
+    """rwkv6-7b's heads [h0, h1) of (B, S, 64, 64) projections at a chunk
+    offset (strided views, as a model shard reads them): the bits of
+    contiguous copies and of the all-heads call's heads, and its plain chunk
+    form in f64 (2e-4)."""
+    from repro_torch.kernels import wkv6_chunk as wkv
+
+    b, s, h, q, c = 2, 512, 64, 256, 256
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = {n: (torch.randn(b, s, h, 64, generator=gen, device=cuda) * 0.5) for n in "rkv"}
+    logw = -torch.exp(torch.randn(b, s, h, 64, generator=gen, device=cuda) * 0.6 - 1.0)
+    u = torch.randn(h, 64, generator=gen, device=cuda) * 0.5
+    s0 = torch.randn(b, h, 64, 64, generator=gen, device=cuda) * 0.3
+    full = [t[:, c:c + q].transpose(1, 2) for t in (x["r"], x["k"], x["v"], logw)]
+    part = [t[:, h0:h1] for t in full]
+    u_l, s0_l = u[h0:h1], s0[:, h0:h1].contiguous()  # u, s0 dense (a shard's own state)
+    y, st = wkv.wkv6_chunk(*part, u_l, s0_l)
+    y2, st2 = wkv.wkv6_chunk(*(t.contiguous() for t in part), u_l, s0_l)
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    yw, sw = wkv.wkv6_chunk(*full, u, s0)
+    assert torch.equal(y, yw[:, h0:h1]) and torch.equal(st, sw[:, h0:h1])
+    y64, s64 = wkv.ref.wkv6_chunk_factored(*part, u_l, s0_l, dtype=torch.float64)
+    assert _row_rel(y, y64) <= 2e-4
+    assert float((st.double() - s64).abs().max() / s64.abs().max()) <= 2e-4
+
+
+def _sharded_prefill_worker(group, device, arch, toks):
+    """A (1, 2) mesh (model 2) prefill of a smoke model on this worker's
+    blocks, on the card: its last logits and the kernels it launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import params as P
+    from repro_torch.launch import sharding, steps
+
+    cfg = get_config(arch, smoke=True)
+    mesh = M.make_mesh((1, 2), ("data", "model"), group)
+    params = P.init_local_params(cfg, 7, mesh, device=device)
+    with sharding.use_mesh(mesh), torch.no_grad(), kernels.Executed(device) as ran:
+        last, _ = steps.make_prefill_step(cfg)(params, {"tokens": toks.to(device)})
+    return last.cpu(), dict(ran.launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2_1_5b", "rwkv6_7b"])
+def test_cuda_sharded_prefill_on_two_gloo_workers(cuda, arch):
+    """Two gloo workers on the card, model axis 2 (each worker its heads,
+    the row-parallel products' psum through gloo): the last logits of the
+    one-device prefill on the card (rtol 1e-4 of max), and every worker ran
+    the flash or WKV6 kernel on its heads."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dfw, steps
+    from repro_torch.models import lm
+
+    cfg = get_config(arch, smoke=True)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=torch.Generator().manual_seed(1))
+    params = lm.init_params(cfg, 7, device=cuda)
+    with torch.no_grad():
+        want = steps.make_prefill_step(cfg)(params, {"tokens": toks.to(cuda)})[0].cpu()
+    outs = dfw.run_workers(2, _sharded_prefill_worker, arch, toks, device="cuda")
+    kernel = "wkv6_chunk" if cfg.family == "ssm" else "flash_attention"
+    for got, launches in outs:
+        _close(got, want, atol_rel=1e-4)
+        assert launches[kernel] >= cfg.num_layers, launches

@@ -185,6 +185,24 @@ def test_moe_block_matches_jax(arch):
     np.testing.assert_allclose(float(paux), float(jaux), rtol=1e-5)
 
 
+@pytest.mark.parametrize("arch", ["arctic_480b", "llama4_scout_17b_a16e"])
+def test_moe_block_needs_only_the_routing_fields(arch):
+    """``moe_block`` reads the widths from its leaves: a config object with
+    only the routing fields gives the full config's bits (the card test of
+    the layer passes such an object)."""
+    import types
+
+    pcfg = configs.get_config(arch, smoke=True)
+    pp = pmoe.init_moe(torch.Generator().manual_seed(6), pcfg, torch.float32, "cpu")
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (2, 64, pcfg.d_model)).astype(np.float32))
+    routing = types.SimpleNamespace(experts_per_token=pcfg.experts_per_token,
+                                    num_experts=pcfg.num_experts,
+                                    moe_capacity_factor=pcfg.moe_capacity_factor)
+    got, want = pmoe.moe_block(pp, x, routing), pmoe.moe_block(pp, x, pcfg)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_init_moe_shapes_dtypes_and_scales():
     cfg = configs.get_config("arctic_480b", smoke=True)
     gen = torch.Generator().manual_seed(0)

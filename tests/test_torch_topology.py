@@ -506,7 +506,7 @@ def test_checkpoints_restore_in_the_reference(runs):
 def test_multihost_host_topology_and_dfw_subcommand(capsys):
     """host_topology maps the host count as the reference does; the dfw
     subcommand fits its synthetic problem in one process on the CPU; the
-    LM subcommands are not ported."""
+    dry run is not ported (train and serve are: tests/test_torch_mesh_train.py)."""
     from repro.launch import multihost as jmh
     from repro_torch.launch import multihost
 
@@ -517,4 +517,4 @@ def test_multihost_host_topology_and_dfw_subcommand(capsys):
     out = capsys.readouterr().out
     assert "topology=flat comm=topk:4 epochs_run=3" in out
     with pytest.raises(specs.NotYetPorted):
-        multihost.main(["--device", "cpu", "train"])
+        multihost.main(["--device", "cpu", "dryrun"])
