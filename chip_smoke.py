@@ -436,20 +436,26 @@ Phases, each fatal on failure (exit code != 0, no result line):
    replayed decode step.
 33. The sharded LM paths (``launch.mesh``/``sharding``/``params``,
    ``comm.spmd``). (a) ``launch.train.train(mesh_shape=(1, 1))`` over one
-   NCCL worker: qwen2-1.5b whole, bf16, 2 steps of 4 x 2048, its losses,
+   NCCL worker: qwen2-1.5b whole, bf16, 2 steps of 2 x 2048, its losses,
    parameters and AdamW m the unsharded run's bits. (b)-(d) a (2, 2)
    (data, model) mesh on four gloo workers sharing the card (NCCL refuses
    two ranks on one device: a check, not a timing), in f32 against the
    unsharded runs on the card from the same --seed: qwen2-1.5b at full
-   width cut to 4 of 28 layers (2 train steps of 4 x 1024, losses rtol
+   width cut to 2 of 28 layers (2 train steps of 4 x 1024, losses rtol
    2e-5; a prefill of 4 x 2048, last logits within 1e-4 of max; a batch-4
-   decode step; 16 sequence-sharded batch-1 decode steps; each worker's
+   decode step; 4 sequence-sharded batch-1 decode steps; each worker's
    share of the parameter bytes at most 0.26, its peak memory, the
-   collectives a train step by kind and bytes), rwkv6-7b cut to 2 of 32
+   collectives a train step by kind and bytes), rwkv6-7b cut to 1 of 32
    layers (2 train steps and a prefill of 4 x 1024, ``wkv6_chunk`` on 32
-   of 64 heads), llama4-scout cut to 2 of 48 layers (a prefill of 4 x 1024
+   of 64 heads), llama4-scout cut to 1 of 48 layers (a prefill of 4 x 1024
    at capacity factor 32, where nothing drops, within 1e-4 of max; at the
-   configured factor each data shard's dropped share by layer). In (b)
+   configured factor each data shard's dropped share by layer; and at the
+   configured factor the gradient at the initial weights
+   on 4 x 1024 tokens against one device's gradient with each data
+   shard's rows routed on their own, which is what the mesh computes: its
+   capacity and its Switch loss, averaged over the data shards, are per
+   data shard; that 16.5 GB gradient stays on the host, each worker
+   reading its blocks leaf by leaf). In (b)
    and (c) each worker holds its blocks of the gradient at the initial
    weights and of AdamW's m after the steps against the unsharded run's
    (read over CUDA IPC; (d) runs in a second spawn, once they are freed),
@@ -457,12 +463,44 @@ Phases, each fatal on failure (exit code != 0, no result line):
    unsharded gradient's change when every weight moves by one rounding),
    and its parameters within 2.1 lr_1 of the unsharded run's (the
    schedule's one nonzero step, each side). (e) every worker launched
-   ``flash_attention`` 8 times and ``wkv6_chunk`` 8 times
+   ``flash_attention`` 4 times and ``wkv6_chunk`` 4 times
    (``kernels.Executed``). Then both kernels on the operands the shards
    give them, as strided views of a worker's projections (f32 as in
    (b)-(d) and bf16 as the configurations run), against their plain
    versions at phases 13 and 17's tolerances, with their times: rows of
    the kernels line. The phase prints its wall time.
+34. LM training of the moe, hybrid, vlm and audio families (bf16, weights
+   drawn on the card from --seed, full width, 2 steps each; what the
+   earlier phases hold printed at its start). (a) hubert-xlarge whole on
+   8 x 1,500 frames, (b) zamba2-2.7b whole on 4 x 2,048 tokens, (c)
+   qwen2-vl-72b cut to 2 of its 80 layers on 4 x 2,048 positions (1,024
+   vision embeddings, the loss over the 1,024 text positions), each
+   through ``launch.train.train`` (AdamW): losses finite, every parameter
+   a nonzero gradient (hubert's token embedding, which its frames never
+   read, excepted), no flash_attention or wkv6_chunk launch; ms of the
+   second step, tokens (frames) a second, peak memory, the launches. (d)
+   llama4-scout-17b-a16e cut to 1 of 48 layers (4.1 B parameters) with
+   the hybrid optimizer (AdamW + DFW-Trace on its 5120 x 202,048 head, mu
+   100, 2 power iterations), 2 steps of 4 x 2,048 tokens: matvec and
+   rmatvec 2 launches a step and the bf16 rank1_update one; the head's
+   share of a step (CUDA events around the power method and the update);
+   the layer's dropped share of the routed picks (one forward before the
+   steps); the state after step 1 copied to the host, put back and step 2
+   run again: the parameters and AdamW's m and v the uninterrupted run's
+   bits (two 64-bit digests of each leaf's bit patterns: the card cannot
+   hold two copies). (e) each family's ``lm.value_and_grad`` in f32 on
+   the card, twice, against the CPU at a width that the CPU runs (d 256,
+   2 layers): arctic's routing (E 16, top-2, the dense residual),
+   llama4-scout's (E 16, top-1), zamba2 (2 Mamba-2 layers at q 256, the
+   shared block applied twice), qwen2-vl (64 vision + 128 text), hubert
+   (1,500 frames: one loss chunk); the loss within rtol 1e-5 and every
+   gradient leaf within 1e-4 of its max (the CPU parity tests' bounds),
+   the card's bits on repeat. (f) the hybrid step's kernels at
+   llama4-scout's head: matvec and rmatvec on the 5120 x 202,048 f32
+   gradient against their plain versions and ``torch.mv``, the bf16
+   rank1_update in place against its plain version and ``addr_`` in
+   bf16, each beside its bound (the gradient's 4.14 GB over the memory
+   rate, 1.235 ms): rows of the kernels line.
 
 The launches each fit phase checks (and the kernels line sums) are the
 device's: ``counting`` opens ``kernels.Executed``, which adds a counter on
@@ -5565,6 +5603,83 @@ def held_memory(torch):
     return torch.cuda.memory_allocated() / 1e9, top
 
 
+def head_kernel_rows(torch, pm, r1, dev, gen, d, v, label, tag, reps, peaks, main=False):
+    """The hybrid step's kernels at a head of d x v: the bf16 rank1_update
+    in place against its plain version (one bf16 ulp) and ``torch.addr_``
+    in bf16 (in turns), and matvec/rmatvec on the f32 gradient against
+    their plain versions and ``torch.mv`` (in turns), each beside its bound
+    (the bytes moved, 4 an element of Z for the update). Returns the rows
+    of the kernels line (``main`` marks the update's as its main row)."""
+    bw, flops = peaks[:2]
+    rn = lambda *shape: torch.randn(*shape, generator=gen, device=dev)  # noqa: E731
+    rows_out = []
+    z0 = rn(d, v).bfloat16()
+    x, y = rn(d), rn(v)
+    a_, b_ = 0.75, -1.5
+    scal = torch.tensor([a_, b_], device=dev)
+    want = r1.ref.rank1_update(z0, x, y, scal)
+    W = z0.clone()
+    check(r1.rank1_update(W, x, y, a_, b_, out=W) is W, f"{tag} bf16 rank1_update not in place")
+    torch.cuda.synchronize()
+    ulps = bf16_ulps(torch, W, want)
+    e_abs, e_rel = rel_err(torch, W.float(), want.float())
+    check(ulps <= 1, f"{tag} bf16 rank1_update is {ulps} bf16 ulps from its plain version")
+    check(torch.equal(r1.rank1_update(z0, x, y, a_, b_), W), f"{tag} bf16 out of place != in place")
+    xb, yb = x.bfloat16(), y.bfloat16()
+    lib_err = rel_err(torch, torch.addr(z0, xb, yb, beta=a_, alpha=b_).float(), want.float())[1]
+    nbytes, nflops = 4 * d * v + 4 * (d + v), 4 * d * v
+    kfn = lambda: r1.rank1_update(W, x, y, a_, b_, out=W)  # noqa: E731
+    lfn = lambda: W.addr_(xb, yb, beta=a_, alpha=b_)  # noqa: E731
+    ms1, lib1 = time_ms(torch, kfn, reps), time_ms(torch, lfn, reps)
+    lib2, ms2 = time_ms(torch, lfn, reps), time_ms(torch, kfn, reps)
+    row = dict(name="rank1_update_bf16", operand=f"{d}x{v} bf16 in place ({label})",
+               shape=[d, v], max_abs_err=e_abs, max_rel_err=e_rel, ulps=ulps,
+               ms=(ms1 + ms2) / 2, ms_rounds=[ms1, ms2],
+               plain_ms=time_ms(torch, lambda: r1.ref.rank1_update(z0, x, y, scal), reps),
+               library_ms=(lib1 + lib2) / 2, library_ms_rounds=[lib1, lib2],
+               library_rel_err=lib_err,
+               bound_ms=1e3 * max(nbytes / bw, nflops / flops),
+               bound_by="bytes" if nbytes / bw >= nflops / flops else "operations",
+               bytes=nbytes, flops=nflops, main=main,
+               device_ms=device_ms(torch, kfn, "rank1_bf16_kernel"))
+    rows_out.append(row)
+    print(f"{tag} kernel rank1_update_bf16 {d}x{v} in place: {row['ms']:.4f} ms (turns "
+          f"{row['ms_rounds']}; device {fmt_ms(row['device_ms'])}), plain "
+          f"{row['plain_ms']:.4f}, torch.addr_ bf16 {row['library_ms']:.4f} (turns "
+          f"{row['library_ms_rounds']}; rel err from the plain version {lib_err:.2e}), bound "
+          f"{row['bound_ms']:.4f} by {row['bound_by']} ({row['bound_ms'] / row['ms']:.3f} of it); "
+          f"within {ulps} bf16 ulp of its plain version")
+    del z0, W, want, xb, yb
+    torch.cuda.empty_cache()
+    A = rn(d, v)
+    vv, uu = rn(v), rn(d)
+    for name, kfn, pfn, lfn in (
+            ("matvec", lambda: pm.matvec(A, vv), lambda: pm.ref.matvec(A, vv),
+             lambda: torch.mv(A, vv)),
+            ("rmatvec", lambda: pm.rmatvec(A, uu), lambda: pm.ref.rmatvec(A, uu),
+             lambda: torch.mv(A.t(), uu))):
+        e_abs, e_rel = rel_err(torch, kfn(), pfn())
+        check(e_rel <= TOL[name], f"{tag} {name} at the head gradient: rel err {e_rel:.2e}")
+        nb, nf = 4 * (d * v + d + v), 2 * d * v
+        ms1, lib1 = time_ms(torch, kfn, reps), time_ms(torch, lfn, reps)
+        lib2, ms2 = time_ms(torch, lfn, reps), time_ms(torch, kfn, reps)
+        row = dict(name=name, operand=f"head gradient {d}x{v} ({label})", shape=[d, v],
+                   max_abs_err=e_abs, max_rel_err=e_rel, ms=(ms1 + ms2) / 2,
+                   ms_rounds=[ms1, ms2], plain_ms=time_ms(torch, pfn, reps),
+                   library_ms=(lib1 + lib2) / 2, library_ms_rounds=[lib1, lib2],
+                   bound_ms=1e3 * max(nb / bw, nf / flops),
+                   bound_by="bytes" if nb / bw >= nf / flops else "operations", bytes=nb)
+        rows_out.append(row)
+        print(f"{tag} kernel {name} at the head gradient {d}x{v}: {row['ms']:.4f} ms (turns "
+              f"{row['ms_rounds']}), plain {row['plain_ms']:.4f}, torch.mv "
+              f"{row['library_ms']:.4f} (turns {row['library_ms_rounds']}), bound "
+              f"{row['bound_ms']:.4f} ({row['bound_ms'] / row['ms']:.3f} of it), rel err "
+              f"{e_rel:.2e}")
+    del A
+    torch.cuda.empty_cache()
+    return rows_out
+
+
 def train_phase(torch, np, kernels, lm, steps, train_mod, hybrid, adamw, data, ShapeSpec,
                 power_method, pm, r1, get_config, dev, args, peaks):
     """Phase 30 (see the module doc). Returns (report, summed launches of its
@@ -5591,7 +5706,6 @@ def train_phase(torch, np, kernels, lm, steps, train_mod, hybrid, adamw, data, S
     print(f"phase 30 starts with {held[0]:.2f} GB allocated ({report['held_gb'][1]:.2f} GB after "
           f"a garbage collection); largest live tensors {held[1]}")
     tokens = b * s
-    bw, flops = peaks[:2]
 
     def add(ran):
         nonlocal bf16_total
@@ -5854,71 +5968,8 @@ def train_phase(torch, np, kernels, lm, steps, train_mod, hybrid, adamw, data, S
 
     # (d) the kernel rows at the hybrid head's shape
     d, v = get_config(HYBRID_ARCH).d_model, get_config(HYBRID_ARCH).vocab_size
-    rn = lambda *shape: torch.randn(*shape, generator=gen, device=dev)  # noqa: E731
-    z0 = rn(d, v).bfloat16()
-    x, y = rn(d), rn(v)
-    a_, b_ = 0.75, -1.5
-    scal = torch.tensor([a_, b_], device=dev)
-    want = r1.ref.rank1_update(z0, x, y, scal)
-    W = z0.clone()
-    check(r1.rank1_update(W, x, y, a_, b_, out=W) is W, "(d) bf16 rank1_update not in place")
-    torch.cuda.synchronize()
-    ulps = bf16_ulps(torch, W, want)
-    e_abs, e_rel = rel_err(torch, W.float(), want.float())
-    check(ulps <= 1, f"(d) bf16 rank1_update is {ulps} bf16 ulps from its plain version")
-    check(torch.equal(r1.rank1_update(z0, x, y, a_, b_), W), "(d) bf16 out of place != in place")
-    xb, yb = x.bfloat16(), y.bfloat16()
-    lib_err = rel_err(torch, torch.addr(z0, xb, yb, beta=a_, alpha=b_).float(), want.float())[1]
-    nbytes, nflops = 4 * d * v + 4 * (d + v), 4 * d * v
-    kfn = lambda: r1.rank1_update(W, x, y, a_, b_, out=W)  # noqa: E731
-    lfn = lambda: W.addr_(xb, yb, beta=a_, alpha=b_)  # noqa: E731
-    ms1, lib1 = time_ms(torch, kfn, args.reps), time_ms(torch, lfn, args.reps)
-    lib2, ms2 = time_ms(torch, lfn, args.reps), time_ms(torch, kfn, args.reps)
-    row = dict(name="rank1_update_bf16", operand=f"{d}x{v} bf16 in place (the hybrid head)",
-               shape=[d, v], max_abs_err=e_abs, max_rel_err=e_rel, ulps=ulps,
-               ms=(ms1 + ms2) / 2, ms_rounds=[ms1, ms2],
-               plain_ms=time_ms(torch, lambda: r1.ref.rank1_update(z0, x, y, scal), args.reps),
-               library_ms=(lib1 + lib2) / 2, library_ms_rounds=[lib1, lib2],
-               library_rel_err=lib_err,
-               bound_ms=1e3 * max(nbytes / bw, nflops / flops),
-               bound_by="bytes" if nbytes / bw >= nflops / flops else "operations",
-               bytes=nbytes, flops=nflops, main=True,
-               device_ms=device_ms(torch, kfn, "rank1_bf16_kernel"))
-    rows_out.append(row)
-    print(f"(d) kernel rank1_update_bf16 {d}x{v} in place: {row['ms']:.4f} ms (turns "
-          f"{row['ms_rounds']}; device {fmt_ms(row['device_ms'])}), plain "
-          f"{row['plain_ms']:.4f}, torch.addr_ bf16 {row['library_ms']:.4f} (turns "
-          f"{row['library_ms_rounds']}; rel err from the plain version {lib_err:.2e}), bound "
-          f"{row['bound_ms']:.4f} by {row['bound_by']} ({row['bound_ms'] / row['ms']:.3f} of it); "
-          f"within {ulps} bf16 ulp of its plain version")
-    del z0, W, want, xb, yb
-    torch.cuda.empty_cache()
-    A = rn(d, v)
-    vv, uu = rn(v), rn(d)
-    for name, kfn, pfn, lfn in (
-            ("matvec", lambda: pm.matvec(A, vv), lambda: pm.ref.matvec(A, vv),
-             lambda: torch.mv(A, vv)),
-            ("rmatvec", lambda: pm.rmatvec(A, uu), lambda: pm.ref.rmatvec(A, uu),
-             lambda: torch.mv(A.t(), uu))):
-        e_abs, e_rel = rel_err(torch, kfn(), pfn())
-        check(e_rel <= TOL[name], f"(d) {name} at the head gradient: rel err {e_rel:.2e}")
-        nb, nf = 4 * (d * v + d + v), 2 * d * v
-        ms1, lib1 = time_ms(torch, kfn, args.reps), time_ms(torch, lfn, args.reps)
-        lib2, ms2 = time_ms(torch, lfn, args.reps), time_ms(torch, kfn, args.reps)
-        row = dict(name=name, operand=f"head gradient {d}x{v}", shape=[d, v],
-                   max_abs_err=e_abs, max_rel_err=e_rel, ms=(ms1 + ms2) / 2,
-                   ms_rounds=[ms1, ms2], plain_ms=time_ms(torch, pfn, args.reps),
-                   library_ms=(lib1 + lib2) / 2, library_ms_rounds=[lib1, lib2],
-                   bound_ms=1e3 * max(nb / bw, nf / flops),
-                   bound_by="bytes" if nb / bw >= nf / flops else "operations", bytes=nb)
-        rows_out.append(row)
-        print(f"(d) kernel {name} at the head gradient {d}x{v}: {row['ms']:.4f} ms (turns "
-              f"{row['ms_rounds']}), plain {row['plain_ms']:.4f}, torch.mv "
-              f"{row['library_ms']:.4f} (turns {row['library_ms_rounds']}), bound "
-              f"{row['bound_ms']:.4f} ({row['bound_ms'] / row['ms']:.3f} of it), rel err "
-              f"{e_rel:.2e}")
-    del A
-    torch.cuda.empty_cache()
+    rows_out += head_kernel_rows(torch, pm, r1, dev, gen, d, v, "the hybrid head", "(d)", args.reps,
+                                 peaks, main=True)
     report["wall_s"] = time.perf_counter() - t_phase
     report["launches"] = total
     report["bf16_launches"] = bf16_total
@@ -6543,15 +6594,19 @@ def moe_phase(torch, np, kernels, lm, steps, lm_serve, fa, moe, get_config, dev,
 
 # Phase 33: the sharded LM paths (launch.mesh/sharding/params, comm.spmd)
 MESH_SHAPE = (2, 2)  # (data, model): four gloo workers sharing the card
-MESH_ONE_SHAPE, MESH_STEPS = (4, 2048), 2  # (a) qwen2-1.5b full depth, bf16, one NCCL worker
-MESH_DENSE_LAYERS = 4  # (b) qwen2-1.5b at full width, 4 of 28 layers, f32
+# the depths and sizes below were cut when phase 34 came in, to keep the
+# whole script within 15 minutes on the card: (a) (4, 2048), (b) 4 layers
+# and 16 batch-1 steps, (c) 2 layers, (d) 2 layers before
+MESH_ONE_SHAPE, MESH_STEPS = (2, 2048), 2  # (a) qwen2-1.5b full depth, bf16, one NCCL worker
+MESH_DENSE_LAYERS = 2  # (b) qwen2-1.5b at full width, 2 of 28 layers, f32
 MESH_TRAIN_SHAPE = (4, 1024)  # (b), (c) train steps
 MESH_PREFILL_SHAPE = (4, 2048)  # (b) prefill and the batch-4 decode step after it
-MESH_DECODE_ONE = 16  # (b) sequence-sharded decode steps at batch 1
-MESH_SSM_LAYERS = 2  # (c) rwkv6-7b at full width, 2 of 32 layers, f32
-MESH_MOE_LAYERS = 2  # (d) llama4-scout at full width, 2 of 48 layers, f32
+MESH_DECODE_ONE = 4  # (b) sequence-sharded decode steps at batch 1
+MESH_SSM_LAYERS = 1  # (c) rwkv6-7b at full width, 1 of 32 layers, f32
+MESH_MOE_LAYERS = 1  # (d) llama4-scout at full width, 1 of 48 layers, f32
 MESH_MOE_SHAPE = (4, 1024)
 MESH_NO_DROP = 32.0  # (d) a capacity factor under which no token drops
+MESH_MOE_GRAD_LAYERS = 1  # (d) step 0's gradient: llama4-scout, 1 of 48 layers, f32 (16.5 GB)
 # f32 sums in other orders: the row-parallel partial products' psum, the
 # vocab-parallel head and cross entropy, cuBLAS's kernels for the split
 # shapes; two AdamW steps carry them into the second loss
@@ -6589,6 +6644,27 @@ MESH_FA_OPERANDS = (
 # 1024 as (B, H, q, 64) views of the (B, S, H 64) projections; r/k/v dtype
 MESH_WKV_OPERANDS = (("rwkv6-7b (2, 2) shard", 2, 1024, 32, "float32"),
                      ("rwkv6-7b (2, 2) shard", 2, 1024, 32, "bfloat16"))
+
+
+@contextlib.contextmanager
+def moe_per_data_shard(torch, moe, n_data):
+    """Inside the block ``moe.moe_block`` runs each of ``n_data`` row blocks
+    of its input on its own (its own capacity, its own drops) and returns
+    their outputs and the mean of their Switch losses: one device's
+    computation of what a mesh of ``n_data`` data shards computes, whose
+    gradient the sharded one is held to."""
+    block = moe.moe_block
+
+    def per_shard(p, x, cfg):
+        n = x.shape[0] // n_data
+        parts = [block(p, x[i * n:(i + 1) * n], cfg) for i in range(n_data)]
+        return torch.cat([o for o, _ in parts]), sum(a for _, a in parts) / n_data
+
+    moe.moe_block = per_shard
+    try:
+        yield
+    finally:
+        moe.moe_block = block
 
 
 def _leaf_paths(tree, prefix=""):
@@ -6673,6 +6749,7 @@ def mesh_rank(group, device, seed, inputs, parts):
         out_ = []
         for g, w in zip(tree_leaves(got), tree_leaves(P.shard_params(full, mesh, specs)),
                         strict=True):
+            w = w.to(g.device)  # a block of a tree held on the host comes over leaf by leaf
             d = (g - w).abs().max()
             out_.append(float(d / w.abs().max().clamp_min(1e-30) if relative else d))
         return out_
@@ -6691,7 +6768,7 @@ def mesh_rank(group, device, seed, inputs, parts):
         return last.cpu(), cache, {label: dict(ran.launches), label + "_routes": {
             k: dict(v) for k, v in ran.routes.items()}}
 
-    def dense_part(cfg):  # (b) qwen2-1.5b at full width, 4 of 28 layers, f32
+    def dense_part(cfg):  # (b) qwen2-1.5b at full width, MESH_DENSE_LAYERS of 28, f32
         reset_peak()
         params = P.init_local_params(cfg, seed, mesh, device=device)
         b = {"param_bytes": _mesh_nbytes(params),
@@ -6757,7 +6834,17 @@ def mesh_rank(group, device, seed, inputs, parts):
         d["peak_gb"] = peak_gb()
         return d
 
-    for key, part in (("b", dense_part), ("c", ssm_part), ("d", moe_part)):
+    def moe_grad_part(cfg):
+        """(d) llama4-scout at full width, 1 of 48 layers, f32: the gradient
+        at the initial weights on step 0's batch, at the configured
+        capacity factor, against ``moe_per_data_shard``'s unsharded one."""
+        reset_peak()
+        params = P.init_local_params(cfg, seed, mesh, device=device)
+        g = {"param_bytes": _mesh_nbytes(params), "grad_err": grad_err(cfg, params, "g")}
+        g["peak_gb"] = peak_gb()
+        return g
+
+    for key, part in (("b", dense_part), ("c", ssm_part), ("d", moe_part), ("g", moe_grad_part)):
         if key in parts:
             out[key] = part(inputs["cfgs"][key])
             free()
@@ -6850,6 +6937,7 @@ def mesh_phase(torch, np, kernels, lm, steps, train_mod, comm, dfw, fa, wkv, get
     import torch.distributed as dist
 
     from repro_torch import data
+    from repro_torch.models import moe
     from repro_torch.models.config import ShapeSpec
     from repro_torch.optim import schedule
     from repro_torch.optim.compression import tree_leaves
@@ -6989,9 +7077,16 @@ def mesh_phase(torch, np, kernels, lm, steps, train_mod, comm, dfw, fa, wkv, get
                                                            )[0].cpu()
     del params
     free()
+    # (d) step 0's gradient at 1 layer and the configured capacity, each data
+    # shard's rows routed on their own: kept on the host (16.5 GB), each
+    # worker reads its blocks from there leaf by leaf
+    cfg_g = dataclasses.replace(get_config(MOE_SCOUT), num_layers=MESH_MOE_GRAD_LAYERS,
+                                dtype="float32")
+    with moe_per_data_shard(torch, moe, MESH_SHAPE[0]):
+        unsharded_grad(cfg_g, "g")
     report["refs_s"] = time.perf_counter() - t0
     inputs.update(steps=MESH_STEPS, train_shape=MESH_TRAIN_SHAPE)
-    inputs["cfgs"] = dict(b=cfg_b, c=cfg_c, d=cfg_d, d_configured=dataclasses.replace(
+    inputs["cfgs"] = dict(b=cfg_b, c=cfg_c, d=cfg_d, g=cfg_g, d_configured=dataclasses.replace(
         cfg_d, moe_capacity_factor=get_config(MOE_SCOUT).moe_capacity_factor))
 
     # (b)-(e) four gloo workers sharing the card, mesh MESH_SHAPE: (b) and
@@ -7005,9 +7100,10 @@ def mesh_phase(torch, np, kernels, lm, steps, train_mod, comm, dfw, fa, wkv, get
     for key in ("b_state", "c_state", "b_grad", "c_grad"):
         del inputs[key]
     free()
-    for o, o_d in zip(outs, dfw.run_workers(MULTI_WORKERS, mesh_rank, args.seed, inputs, ("d",),
-                                            backend="gloo", device="cuda"), strict=True):
-        o["d"] = o_d["d"]
+    for o, o_d in zip(outs, dfw.run_workers(MULTI_WORKERS, mesh_rank, args.seed, inputs,
+                                            ("d", "g"), backend="gloo", device="cuda"),
+                      strict=True):
+        o["d"], o["g"] = o_d["d"], o_d["g"]
         for k_, v_ in o_d["launches"].items():
             o["launches"][k_] += v_
     report["workers_s"] = time.perf_counter() - t0
@@ -7043,7 +7139,7 @@ def mesh_phase(torch, np, kernels, lm, steps, train_mod, comm, dfw, fa, wkv, get
         "b_losses": max(loss_err(o["b"]["losses"], refs["b_losses"]) for o in outs),
         "c_prefill": err(rows("c", "prefill"), refs["c_prefill"]),
         "c_losses": max(loss_err(o["c"]["losses"], refs["c_losses"]) for o in outs),
-        **{f"{k}_grad": against_spread(k, [o[k]["grad_err"] for o in outs]) for k in "bc"},
+        **{f"{k}_grad": against_spread(k, [o[k]["grad_err"] for o in outs]) for k in "bcg"},
         **{f"{k}_adam_m": against_spread(k, [o[k]["state_err"][1] for o in outs])
            for k in "bc"},
         **{f"{k}_params_lr": max((e / lr_1, name) for o in outs for e, name in zip(
@@ -7062,8 +7158,8 @@ def mesh_phase(torch, np, kernels, lm, steps, train_mod, comm, dfw, fa, wkv, get
         for k_, v_ in o["launches"].items():
             total[k_] += v_
     report.update(errs=errs, flash_launches=fa_each, wkv6_launches=wkv_each, param_share=share,
-                  peak_gb={k: [o[k]["peak_gb"] for o in outs] for k in "bcd"},
-                  param_gb={k: [o[k]["param_bytes"] / 1e9 for o in outs] for k in "bcd"},
+                  peak_gb={k: [o[k]["peak_gb"] for o in outs] for k in "bcdg"},
+                  param_gb={k: [o[k]["param_bytes"] / 1e9 for o in outs] for k in "bcdg"},
                   train_s={k: [o[k]["train_s"] for o in outs] for k in "bc"},
                   tally_per_step={k: outs[0][k]["tally_per_step"] for k in "bc"},
                   losses={k: outs[0][k]["losses"] for k in "bc"},
@@ -7101,7 +7197,11 @@ def mesh_phase(torch, np, kernels, lm, steps, train_mod, comm, dfw, fa, wkv, get
           f"a model shard: prefill {MESH_MOE_SHAPE} at capacity factor {MESH_NO_DROP} rel "
           f"{errs['d_prefill']:.2e}; at the configured factor each data shard's dropped share, "
           f"busiest expert and capacity a layer: {report['drops']}; peak GB "
-          f"{report['peak_gb']['d']}")
+          f"{report['peak_gb']['d']}; at {MESH_MOE_GRAD_LAYERS} layer and the configured factor, "
+          f"step 0's gradient blocks against the unsharded gradient with each data shard's "
+          f"rows routed on their own (worst leaf: error over its bound, error, spread, path) "
+          f"{errs['g_grad']}, parameter GB a worker {report['param_gb']['g']}, peak GB "
+          f"{report['peak_gb']['g']}")
     print(f"(e) flash_attention launches a worker {fa_each} (want {fa_want}), wkv6_chunk "
           f"{wkv_each} (want {wkv_want})")
     t0 = time.perf_counter()
@@ -7119,7 +7219,7 @@ def mesh_phase(torch, np, kernels, lm, steps, train_mod, comm, dfw, fa, wkv, get
     for key in ("b_losses", "c_losses"):
         check(errs[key] <= MESH_TOL["loss"], f"({key[0]}) {key}: rel {errs[key]:.2e} > "
               f"{MESH_TOL['loss']}")
-    for key in ("b_grad", "b_adam_m", "c_grad", "c_adam_m"):
+    for key in ("b_grad", "b_adam_m", "c_grad", "c_adam_m", "g_grad"):
         check(errs[key][0] <= 1, f"({key[0]}) {key}: a leaf past its bound (error over bound, "
               f"error, spread, path) {errs[key]}")
     for key in ("b_params_lr", "c_params_lr"):
@@ -7132,6 +7232,326 @@ def mesh_phase(torch, np, kernels, lm, steps, train_mod, comm, dfw, fa, wkv, get
     check(all(math.isfinite(float(o["d"]["prefill_configured"].abs().max())) for o in outs),
           "(d) logits at the configured capacity not finite")
     return report, total, rows_out
+
+
+# Phase 34: LM training of the moe, hybrid, vlm and audio families
+FAMILY_TRAIN_STEPS = 2
+# (key, arch, layers (None: all), (B, S) of a step): (a)-(c), AdamW through
+# launch.train.train; vlm's S counts its vision_tokens (1,024) and text
+FAMILY_TRAIN = (("a", AUDIO_ARCH, None, AUDIO_SHAPE), ("b", HYBRID_SERVE_ARCH, None, (4, 2048)),
+                ("c", VLM_ARCH, 2, (4, 2048)))  # qwen2-vl-72b: 2 of 80 layers, ~51 GB of state
+SCOUT_TRAIN_LAYERS = 1  # (d) of 48: 4.1 B parameters, ~55 GB with AdamW and the f32 head gradient
+SCOUT_TRAIN_SHAPE = (4, 2048)
+SCOUT_MU, SCOUT_ITERS = 100.0, 2
+# (e) f32 configurations that fit on the CPU, each family's training path at
+# a narrow width: (label, arch, overrides, (B, S))
+TRAIN_XCHECK = (
+    ("arctic-480b (E 16, top-2, dense residual)", "arctic_480b",
+     dict(num_layers=2, d_model=256, num_heads=4, num_kv_heads=2, d_ff=256, moe_dense_ff=256,
+          vocab_size=1024, num_experts=16), (4, 128)),
+    ("llama4-scout (E 16, top-1)", "llama4_scout_17b_a16e",
+     dict(num_layers=2, d_model=256, num_heads=4, num_kv_heads=2, d_ff=512, vocab_size=1024),
+     (4, 128)),
+    ("zamba2-2.7b (2 Mamba-2 layers, q 256, the shared block twice)", "zamba2_2_7b",
+     dict(num_layers=2, hybrid_block=1, d_model=256, num_heads=4, num_kv_heads=4, d_ff=512,
+          vocab_size=1024), (2, 512)),
+    ("qwen2-vl-72b (64 vision + 128 text)", "qwen2_vl_72b",
+     dict(num_layers=2, d_model=256, num_heads=4, num_kv_heads=2, d_ff=512, vocab_size=1024,
+          vision_tokens=64, mrope_sections=(8, 12, 12)), (2, 192)),
+    ("hubert-xlarge (1,500 frames, one loss chunk)", "hubert_xlarge",
+     dict(num_layers=2, d_model=256, num_heads=4, num_kv_heads=4, d_ff=512), (2, 1500)),
+)
+# the CPU parity tests' bounds (tests/test_torch_train_families.py): the loss
+# rtol 1e-5, each gradient leaf within 1e-4 of its largest |gradient|, and
+# Mamba-2's a_log within 1e-3: its gradient takes each decay as a difference
+# of two cumulative sums, which at q 256 reach past -1000 (the init's decay
+# rates run to 16 a position), so f32 rounding there carries into it (the
+# CPU test at decays past -80 holds it so; on an H100 80GB HBM3 at 700 W
+# the card stood 1.76e-4 from the CPU)
+TRAIN_XCHECK_TOL = {"loss": 1e-5, "grad": 1e-4, "a_log": 1e-3}
+
+
+def bit_digest(torch, t, chunk=1 << 26):
+    """Two 64-bit sums of a tensor's bit patterns (as 16- or 32-bit words),
+    the second weighted by position: any changed bit changes them, bar a
+    collision. For trees too large to keep two copies of on the card."""
+    w = t.detach().reshape(-1).view({2: torch.int16, 4: torch.int32}[t.element_size()])
+    s1 = torch.zeros((), dtype=torch.int64, device=t.device)
+    s2 = torch.zeros((), dtype=torch.int64, device=t.device)
+    for lo in range(0, w.numel(), chunk):
+        x = w[lo:lo + chunk].to(torch.int64)
+        pos = torch.arange(lo, lo + x.numel(), device=t.device) % 65521 + 1
+        s1 += x.sum()
+        s2 += (x * pos).sum()
+    return int(s1), int(s2)
+
+
+def tree_digest(torch, tree):
+    from repro_torch.optim.compression import tree_leaves
+
+    return [bit_digest(torch, t) for t in tree_leaves(tree)]
+
+
+@contextlib.contextmanager
+def head_events(torch, hybrid):
+    """Inside the block each hybrid step records a CUDA event before its
+    power method and after its rank-1 update: yields the list of (start,
+    end) pairs, one a step."""
+    pairs, orig_pm, orig_r1 = [], hybrid.power_method_dense, hybrid.r1_ops
+
+    def watched_pm(a, v0, k):
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        pairs.append([start, None])
+        return orig_pm(a, v0, k)
+
+    def watched_r1(z, x, y, a_, b_, out=None):
+        got = orig_r1.rank1_update(z, x, y, a_, b_, out=out)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        pairs[-1][1] = end
+        return got
+
+    import types
+
+    hybrid.power_method_dense = watched_pm
+    hybrid.r1_ops = types.SimpleNamespace(rank1_update=watched_r1)
+    try:
+        yield pairs
+    finally:
+        hybrid.power_method_dense, hybrid.r1_ops = orig_pm, orig_r1
+
+
+def train_xcheck(torch, lm, data, ShapeSpec, cfg, shape, dev, seed, label):
+    """``lm.value_and_grad`` of ``cfg`` in f32 on the card (twice) against
+    the CPU on one batch of the stream, the same weights: the loss, the aux
+    loss and every gradient leaf (TRAIN_XCHECK_TOL), the card's bits on
+    repeat. Returns its report."""
+    from repro_torch.optim.compression import tree_leaves
+
+    b, s = shape
+    params = lm.init_params(cfg, seed, device="cpu")
+    batch = data.SyntheticLMStream(cfg, ShapeSpec("x", "train", s, b)).batch_for_step(0)
+    t0 = time.perf_counter()
+    (l_cpu, m_cpu), g_cpu = lm.value_and_grad(params, data.device_put_batch(batch, "cpu"), cfg)
+    cpu_s = time.perf_counter() - t0
+    dparams = tree_to(torch, params, dev)
+    dbatch = data.device_put_batch(batch, dev)
+    (l1, m1), g1 = lm.value_and_grad(dparams, dbatch, cfg)
+    (l2, m2), g2 = lm.value_and_grad(dparams, dbatch, cfg)
+    same = (bool(torch.equal(l1, l2)) and bool(torch.equal(m1["aux"], m2["aux"]))
+            and all(torch.equal(a, c) for a, c in zip(tree_leaves(g1), tree_leaves(g2))))
+    names = leaf_names(params)
+    tol = TRAIN_XCHECK_TOL
+    errs = []  # (error over its bound, error over the leaf's max, path)
+    for name, g, w in zip(names, tree_leaves(g1), tree_leaves(g_cpu), strict=True):
+        scale = float(w.abs().max())
+        e = (float((g.cpu() - w).abs().max()) / max(scale, 1e-30) if scale else
+             float(g.abs().max()))
+        errs.append((e / tol["a_log" if name.endswith("/a_log") else "grad"], e, name))
+    worst = max(errs)
+    loss_rel = abs(float(l1) - float(l_cpu)) / abs(float(l_cpu))
+    aux_rel = (abs(float(m1["aux"]) - float(m_cpu["aux"])) / abs(float(m_cpu["aux"]))
+               if float(m_cpu["aux"]) else abs(float(m1["aux"])))
+    rep = dict(label=label, shape=list(shape), loss=float(l1), loss_cpu=float(l_cpu),
+               loss_rel=loss_rel, aux=float(m1["aux"]), aux_rel=aux_rel, worst_grad=worst,
+               bits_repeat=same, cpu_s=cpu_s)
+    top = max(errs, key=lambda r: r[1])
+    print(f"(e) {label}, f32, {b} x {s}: loss {float(l1):.6f} on the card, {float(l_cpu):.6f} on "
+          f"the CPU (rel {loss_rel:.2e}), aux rel {aux_rel:.2e}; the worst gradient leaf "
+          f"{top[1]:.2e} of its max ({top[2]}), the nearest its bound {worst[0]:.3f} of it "
+          f"({worst[2]}); the card's bits on repeat: {same} (the CPU's gradient {cpu_s:.1f} s)")
+    check(loss_rel <= tol["loss"] and aux_rel <= tol["loss"],
+          f"(e) {label}: loss rel {loss_rel:.2e}, aux rel {aux_rel:.2e} > {tol['loss']}")
+    check(worst[0] <= 1, f"(e) {label}: gradient leaf {worst[2]} {worst[1]:.2e} of its max, "
+          f"{worst[0]:.2f} of its bound")
+    check(same, f"(e) {label}: a second gradient on the card gave other bits")
+    del dparams, g1, g2
+    return rep
+
+
+def family_train_phase(torch, kernels, lm, train_mod, hybrid, data, ShapeSpec, moe, pm, r1,
+                       get_config, dev, args, peaks):
+    """Phase 34 (see the module doc). Returns (report, summed launches of its
+    train runs and hybrid steps, the bf16 rank1_update launches, its kernel
+    rows)."""
+    import gc
+
+    from repro_torch.optim import adamw
+    from repro_torch.optim.compression import tree_map
+
+    def host(t):
+        return t.detach().to("cpu", copy=True)
+
+    report, rows_out = {}, []
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(kernels.launches(), 0)
+    bf16_total = 0
+    held = held_memory(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["held_gb"] = [held[0], torch.cuda.memory_allocated() / 1e9]
+    print(f"phase 34 starts with {held[0]:.2f} GB allocated ({report['held_gb'][1]:.2f} GB after "
+          f"a garbage collection); largest live tensors {held[1]}")
+
+    def add(ran):
+        nonlocal bf16_total
+        for k_, v_ in ran.launches.items():
+            total[k_] += v_
+        bf16_total += ran.routes["rank1_update"]["bf16"]
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (a)-(c) AdamW through launch.train.train
+    for key, arch, layers, (b, s) in FAMILY_TRAIN:
+        full = get_config(arch)
+        cfg = full if layers is None else dataclasses.replace(full, num_layers=layers)
+        label = f"{full.name} ({cfg.num_layers} of {full.num_layers} layers, {cfg.dtype})"
+        stamps = []
+
+        def clock(step, metrics, stamps=stamps):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with grad_watch(torch, lm) as seen, counting(kernels) as ran:
+            params, opt, hist = train_mod.train(
+                arch=arch, cfg=cfg, steps=FAMILY_TRAIN_STEPS, smoke=False, seq_len=s,
+                global_batch=b, log_every=1, device=dev, seed=args.seed, callback=clock)
+        add(ran)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        losses = [v for _, v in hist]
+        check(len(losses) == FAMILY_TRAIN_STEPS and all(math.isfinite(v) for v in losses),
+              f"({key}) {label}: losses {losses}")
+        names = leaf_names(params)
+        bad = [n for n in zero_grad_leaves(torch, seen, names)
+               if not (cfg.family == "audio" and n == "embed")]  # hubert reads no token
+        check(not bad, f"({key}) {label}: {len(bad)} parameters got a zero gradient, e.g. {bad[:5]}")
+        check(ran.launches["flash_attention"] == 0 and ran.launches["wkv6_chunk"] == 0,
+              f"({key}) a train step launched flash_attention/wkv6_chunk: {ran.launches}")
+        ms = 1e3 * (stamps[1] - stamps[0])
+        tokens = b * s
+        n_params = lm.param_count(params)
+        report[key] = dict(arch=full.name, layers=cfg.num_layers, params=n_params, losses=losses,
+                           ms_per_step=ms, tokens_per_s=tokens / (ms / 1e3), peak_gb=peak,
+                           wall_s=wall, launches=dict(ran.launches))
+        what = "frames" if cfg.family == "audio" else "positions"
+        print(f"({key}) {label}, {n_params / 1e9:.3f} B parameters, launch.train.train, AdamW, "
+              f"{FAMILY_TRAIN_STEPS} steps of {b} x {s} {what}"
+              f"{f' ({cfg.vision_tokens} vision)' if cfg.family == 'vlm' else ''}: loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}; {ms:.1f} ms the second step, "
+              f"{tokens / (ms / 1e3):.0f} {what}/s, peak {peak:.2f} GB, {wall:.1f} s with the "
+              f"weights' draw; every parameter a nonzero gradient"
+              f"{' (but the unread token embedding)' if cfg.family == 'audio' else ''}; launches "
+              f"{ {k_: v_ for k_, v_ in ran.launches.items() if v_} }")
+        del params, opt, seen
+        free()
+
+    # (d) llama4-scout, 1 of 48 layers, the hybrid DFW head: 2 steps, then a
+    # resume from step 1
+    full = get_config(MOE_SCOUT)
+    cfg = dataclasses.replace(full, num_layers=SCOUT_TRAIN_LAYERS)
+    b, s = SCOUT_TRAIN_SHAPE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    params = lm.init_params(cfg, gen)
+    n_params = lm.param_count(params)
+    stream = data.SyntheticLMStream(cfg, ShapeSpec("scout", "train", s, b))
+    batches = [data.device_put_batch(stream.batch_for_step(t), dev) for t in range(2)]
+    with moe_drops(torch, moe) as log, torch.no_grad():
+        lm.forward(params, batches[0], cfg, mode="hidden")
+    drops = [(float(r[0]), int(r[1]), r[2]) for r in log]
+    step = hybrid.make_hybrid_train_step(cfg, mu=SCOUT_MU, power_iters=SCOUT_ITERS)
+    state = hybrid.init(params)
+    losses, sigma, step_ms, snap = [], [], [], None
+    torch.cuda.reset_peak_memory_stats()
+    with head_events(torch, hybrid) as ev, grad_watch(torch, lm) as seen:
+        for t in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with counting(kernels) as ran:
+                params, state, m = step(params, state, batches[t], args.seed)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            add(ran)
+            losses.append(float(m["loss"]))
+            sigma.append(float(m["fw_sigma"]))
+            check(math.isfinite(losses[-1]), f"(d) step {t}: loss {losses[-1]}")
+            check(ran.launches["matvec"] == SCOUT_ITERS and ran.launches["rmatvec"] == SCOUT_ITERS
+                  and ran.routes["rank1_update"] == {"f32": 0, "bf16": 1},
+                  f"(d) step {t}: launches {ran.launches}, rank1 routes "
+                  f"{ran.routes['rank1_update']}")
+            check(ran.launches["flash_attention"] == 0, "(d) flash_attention in a step")
+            if t == 0:  # the state after step 1, copied to the host for the resume
+                snap = (tree_map(host, params), tree_map(host, state.adam.m),
+                        tree_map(host, state.adam.v), host(state.adam.step), state.fw_step)
+        head_ms = [a.elapsed_time(e) for a, e in ev]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    bad = zero_grad_leaves(torch, seen, leaf_names(params))
+    check(not bad, f"(d) {len(bad)} parameters got a zero gradient, e.g. {bad[:5]}")
+    want = tree_digest(torch, {"p": params, "m": state.adam.m, "v": state.adam.v})
+    del params, state, m, seen
+    free()
+    t0 = time.perf_counter()
+    p1, m1, v1, st1, fw1 = snap
+    del snap
+    params = tree_to(torch, p1, dev)
+    del p1
+    adam = adamw.AdamWState(step=st1.to(dev), m=tree_to(torch, m1, dev), v=tree_to(torch, v1, dev))
+    del m1, v1
+    state = hybrid.HybridState(adam=adam, fw_step=fw1)
+    restore_s = time.perf_counter() - t0
+    with counting(kernels) as ran:
+        params, state, m = step(params, state, batches[1], args.seed)
+    add(ran)
+    resumed_loss = float(m["loss"])
+    got = tree_digest(torch, {"p": params, "m": state.adam.m, "v": state.adam.v})
+    same = got == want and resumed_loss == losses[1]
+    ms = step_ms[1]
+    tokens = b * s
+    report["d"] = dict(arch=full.name, layers=SCOUT_TRAIN_LAYERS, params=n_params, losses=losses,
+                       fw_sigma=sigma, step_ms=step_ms, ms_per_step=ms, head_ms=head_ms,
+                       head_share=head_ms[1] / ms, tokens_per_s=tokens / (ms / 1e3), peak_gb=peak,
+                       dropped_share=drops, resumed_same_bits=same, restore_s=restore_s)
+    print(f"(d) {full.name} ({SCOUT_TRAIN_LAYERS} of {full.num_layers} layers, "
+          f"{n_params / 1e9:.3f} B parameters, {cfg.dtype}), the hybrid optimizer (AdamW + "
+          f"DFW-Trace on the {cfg.d_model} x {cfg.vocab_size} head, mu {SCOUT_MU}, {SCOUT_ITERS} "
+          f"power iterations), 2 steps of {b} x {s} tokens: loss {losses[0]:.4f} -> "
+          f"{losses[1]:.4f}, sigma {sigma}; {ms:.1f} ms the second step ({step_ms[0]:.1f} the "
+          f"first), the head (power method + update) {head_ms[1]:.2f} ms of it "
+          f"({100 * head_ms[1] / ms:.2f}%), {tokens / (ms / 1e3):.0f} tokens/s, peak {peak:.2f} GB;"
+          f" each step matvec and rmatvec {SCOUT_ITERS} launches, the bf16 rank1_update one; "
+          f"dropped share of the routed picks by layer at step 1 (share, busiest expert, "
+          f"capacity) {drops}; resumed from step 1's state (host copy, {restore_s:.1f} s back to "
+          f"the card): loss {resumed_loss:.6f}, parameters and AdamW state the uninterrupted "
+          f"run's bits (digests): {same}")
+    check(same, f"(d) the run resumed at step 1 is not the uninterrupted run's bits (loss "
+          f"{resumed_loss} against {losses[1]})")
+    check(all(share < 1.0 for share, _, _ in drops), f"(d) drops {drops}")
+    del params, state, m, batches, adam
+    free()
+
+    # (e) card against CPU, f32
+    report["e"] = []
+    for label, arch, over, shape in TRAIN_XCHECK:
+        cfg = dataclasses.replace(get_config(arch), dtype="float32", **over)
+        report["e"].append(train_xcheck(torch, lm, data, ShapeSpec, cfg, shape, dev, args.seed,
+                                        label))
+        free()
+
+    # (f) the hybrid step's kernels at llama4-scout's head
+    rows_out += head_kernel_rows(torch, pm, r1, dev, gen, full.d_model, full.vocab_size,
+                                 "llama4-scout's head", "(f)", args.reps, peaks)
+    report["wall_s"] = time.perf_counter() - t_phase
+    report["launches"] = total
+    report["bf16_launches"] = bf16_total
+    print(f"phase 34 took {report['wall_s']:.1f} s")
+    return report, total, bf16_total, rows_out
 
 
 def main(argv=None) -> int:
@@ -7573,6 +7993,19 @@ def main(argv=None) -> int:
             peaks)
         krows += mesh_rows
         print(f"phase 33 ({smi})")
+        torch.cuda.empty_cache()
+
+        # 34. LM training of the moe, hybrid, vlm and audio families:
+        # hubert-xlarge and zamba2-2.7b whole, qwen2-vl-72b (2 of 80 layers)
+        # with AdamW through launch.train; llama4-scout (1 of 48) with the
+        # hybrid DFW head and a resume; each family card against CPU; the
+        # head's kernels at llama4-scout's head
+        report["family_train"], ftrain_launch, ftrain_bf16, ftrain_rows = family_train_phase(
+            torch, kernels, lm, train_mod, hybrid, data, ShapeSpec, moe, pm, r1, get_config, dev,
+            args, peaks)
+        krows += ftrain_rows
+        train_bf16 += ftrain_bf16
+        print(f"phase 34 ({smi})")
     except Check as e:
         return fail(str(e))
 
@@ -7581,7 +8014,7 @@ def main(argv=None) -> int:
              prefill_launch, decode_launch, ssm_prefill_launch, ssm_decode_launch,
              world_one_launch, multi_launch, baselines_launch, graphs_launch, block_launch,
              resume_launch, engine_launch, telemetry_launch, head_launch, train_launch,
-             families_launch, moe_launch, mesh_launch)
+             families_launch, moe_launch, mesh_launch, ftrain_launch)
     for kname in (*TPU_KERNEL, *HELPER_KERNELS, *BLOCK_KERNELS, "update_resid_block",
                   "rank1_update_bf16"):
         rows = [r for r in krows if r["name"] == kname]

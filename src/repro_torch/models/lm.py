@@ -16,10 +16,13 @@ bidirectional forward through the frame-embedding frontend, with no cache
 and no decode.
 
 Training: ``loss_fn`` is the reference's objective, differentiated by
-autograd, for the families in ``TRAINED_FAMILIES`` (dense, ssm); it raises
-``NotYetPorted`` for the others before any device work (vlm's loss over the
-text positions, audio's frame labels and moe's aux loss under autograd
-come with their training).
+autograd, for every family (``TRAINED_FAMILIES``): vlm's cross entropy runs
+over the text positions only, audio's over one label a frame, and a moe
+model adds 0.01 times its layers' Switch losses, whose gradient reaches the
+router (``moe``: the dispatch and the combine differentiate by gathers,
+with no float atomics). The hybrid family's shared block, one set of
+weights applied after every ``hybrid_block`` Mamba-2 layers, gets the sum
+of its applications' gradients.
 While autograd records through a layer (``torch.is_grad_enabled()``
 and a tensor it reads requires grad), ``cfg.remat == "full"`` checkpoints
 each layer (``torch.utils.checkpoint``, non-reentrant), as the reference's
@@ -43,7 +46,8 @@ too (the log-sum-exp from a ``pmax`` and a ``psum`` of the shards' parts,
 the gold logit a masked pick and a ``psum``), its mean over the global
 B x S positions; ``value_and_grad`` sums over the data axes the gradients
 of the leaves replicated there, so each worker's gradient is its block of
-the full one. The dense, moe and ssm families run under a mesh; the
+the full one. The dense, moe and ssm families run and train under a
+mesh (moe's capacity and Switch loss per data shard, as the reference's); the
 reference's sequence-sharded loss (its ``seq_act`` branch, profiles
 ``sp``/``msp``) and the other families raise ``NotYetPorted`` there
 (``parallel.check_mesh``). A decode step at global batch 1 splits the
@@ -76,7 +80,7 @@ Params = Dict[str, Any]
 #: Families whose forward, prefill and decode the port runs.
 PORTED_FAMILIES = ("dense", "moe", "ssm", "audio", "vlm", "hybrid")
 #: Families the port also trains (``loss_fn`` and everything built on it).
-TRAINED_FAMILIES = ("dense", "ssm")
+TRAINED_FAMILIES = ("dense", "moe", "ssm", "audio", "vlm", "hybrid")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -89,13 +93,21 @@ def check_family(cfg: ModelConfig) -> None:
 
 
 def check_trains(cfg: ModelConfig) -> None:
-    """Raise ``NotYetPorted`` unless the port trains ``cfg``'s family."""
+    """Raise ``NotYetPorted`` unless the port trains ``cfg``'s family and
+    its ``remat`` policy, before any device work."""
     check_family(cfg)
     if cfg.family not in TRAINED_FAMILIES:
         raise NotYetPorted(
             f"{cfg.name}: training of family {cfg.family!r} is not yet ported to PyTorch (it "
             f"serves); the port trains {TRAINED_FAMILIES}"
         )
+    _check_remat(cfg)
+
+
+def _check_remat(cfg: ModelConfig) -> None:
+    if cfg.remat == "dots":
+        raise NotYetPorted(f"{cfg.name}: remat='dots' (checkpoint_dots_with_no_batch_dims) is "
+                           "not yet ported; 'none' and 'full' are")
 
 
 # ---------------------------------------------------------------------------
@@ -338,9 +350,7 @@ def _maybe_remat(fn, cfg: ModelConfig, h, lp):
     a layer when ``cfg.remat == "full"`` and autograd records through it;
     the recomputation runs under the mesh of the forward
     (``sharding.in_context``)."""
-    if cfg.remat == "dots":
-        raise NotYetPorted(f"{cfg.name}: remat='dots' (checkpoint_dots_with_no_batch_dims) is "
-                           "not yet ported; 'none' and 'full' are")
+    _check_remat(cfg)
     if cfg.remat == "full" and L.records_grad(h, lp):
         return checkpoint(sharding.in_context(fn), h, lp, use_reentrant=False)
     return fn(h, lp)
@@ -517,11 +527,14 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
     """The training objective: ``(ce + 0.01 aux, {"ce", "aux"})``, the mean
     next-token cross entropy over B x S positions from the final hidden
     states and the head (``embed.T`` when tied, else ``unembed``) in
-    ``loss_chunk`` chunks (``_chunked_ce``); ``aux`` is 0 for the trained
-    families. Differentiate with autograd (``launch.steps.make_train_step``).
-    Only the families in ``TRAINED_FAMILIES``. Under a mesh the batch is the
-    global one, split over the data axes (which must divide it), and the
-    cross entropy vocab-parallel (module doc)."""
+    ``loss_chunk`` chunks (``_chunked_ce``; one chunk where it does not
+    divide S, as audio's 1,500 frames); ``aux`` is the moe layers' summed
+    Switch loss, 0 for the other families. vlm: over the last
+    ``tokens.shape[1]`` positions (the text; the vision embeddings come
+    first) and their labels, the mean's divisor B x the text length.
+    Differentiate with autograd (``launch.steps.make_train_step``). Under a
+    mesh the batch is the global one, split over the data axes (which must
+    divide it), and the cross entropy vocab-parallel (module doc)."""
     check_trains(cfg)
     parallel.check_mesh(cfg)
     par = parallel.current()
@@ -531,10 +544,12 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
                          f"{par.d_size} data shards")
     params = _gather_tied(params, cfg, par)
     out = _forward(params, batch, cfg, "hidden", par, b_global)
-    h = out["hidden"]
+    h, labels = out["hidden"], batch["labels"]
+    if cfg.family == "vlm":  # the loss over the text positions only
+        ntext = batch["tokens"].shape[1]
+        h, labels = h[:, -ntext:], labels[:, -ntext:]
     w = _head(params, cfg, par).to(h.dtype)
-    ce = _chunked_ce(h, batch["labels"], w, loss_chunk, par, b_global * h.shape[1],
-                     cfg.vocab_size)
+    ce = _chunked_ce(h, labels, w, loss_chunk, par, b_global * h.shape[1], cfg.vocab_size)
     total = ce + 0.01 * out["aux_loss"]
     return total, {"ce": ce, "aux": out["aux_loss"]}
 
@@ -545,7 +560,8 @@ def value_and_grad(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelCon
     counterpart of ``jax.value_and_grad(loss_fn, has_aux=True)``: every
     parameter leaf requires grad for the forward and backward only, and
     ``grads`` mirrors ``params`` (a tied embedding's gradient sums both
-    uses). Nothing is read back to the host. Under a mesh ``params`` are
+    uses; a leaf the loss does not read, zeros). Nothing is read back to
+    the host. Under a mesh ``params`` are
     this worker's blocks and so are the gradients: those of the leaves
     replicated over a data axis are summed over it (one all-reduce a group
     and dtype), so each is the block of the full gradient."""
@@ -557,7 +573,10 @@ def value_and_grad(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelCon
         p.requires_grad_(True)
     try:
         loss, metrics = loss_fn(params, batch, cfg, **kw)
-        grads = list(torch.autograd.grad(loss, leaves))
+        # a leaf the loss does not read (audio's token embedding: the frames
+        # come in through frame_proj) gets zeros, as jax.grad gives it
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
     finally:
         for p in leaves:
             p.requires_grad_(False)

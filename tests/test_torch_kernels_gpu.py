@@ -1652,7 +1652,9 @@ def _tree_to(tree, device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["qwen2_1_5b", "rwkv6_7b"])
+@pytest.mark.parametrize("arch", ["qwen2_1_5b", "rwkv6_7b", "arctic_480b",
+                                  "llama4_scout_17b_a16e", "zamba2_2_7b", "qwen2_vl_72b",
+                                  "hubert_xlarge"])
 def test_cuda_train_step_matches_the_cpu(cuda, arch):
     """Three AdamW steps of the smoke config on the card against the CPU:
     loss rtol 1e-4, parameters 1e-3 of each leaf's max (f32 sums in other
@@ -1712,6 +1714,104 @@ def test_cuda_hybrid_step_launches_its_kernels(cuda):
             d, v = params["unembed"].shape
             tn = float(torch.linalg.svdvals(params["unembed"].float()).sum())
             assert tn <= 5.0 * (1 + min(d, v) ** 0.5 * 2 ** -8), tn
+
+
+def _moe_inputs(arch, seed):
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    cfg = configs.get_config(arch, smoke=True)
+    p = lm.init_params(cfg, seed, device="cpu")["layers"][0]["moe"]
+    p["router"][:, 0] *= 3.0  # expert 0 favoured, so that it drops tokens
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal((4, 64, cfg.d_model))
+                         .astype(np.float32))
+    return cfg, p, x
+
+
+def _moe_grads(cfg, p, x, device):
+    from repro_torch.models import moe
+
+    p = {k: v.to(device).requires_grad_(True) for k, v in p.items()}
+    x = x.to(device).requires_grad_(True)
+    out, aux = moe.moe_block(p, x, cfg)
+    grads = torch.autograd.grad((out * out).sum() + aux, [x, *p.values()])
+    return [out.detach(), aux.detach(), *grads]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["arctic_480b", "llama4_scout_17b_a16e"])
+def test_cuda_moe_backward_repeats_its_bits_and_matches_the_cpu(cuda, arch):
+    """The moe layer's gradients (the dispatch and the combine by gathers,
+    no float atomics) on the card: the same bits on repeat, and within
+    1e-4 of each tensor's max of the CPU's (f32 sums in other orders), at
+    256 tokens, router column 0 times 3, so that expert 0 overflows its
+    capacity (80 slots a top-1 expert of 4, 80 a top-2 expert of 8)."""
+    from repro_torch.models import moe
+
+    cfg, p, x = _moe_inputs(arch, 5)
+    _, gate, eidx = moe.route(x.reshape(-1, cfg.d_model), p["router"], cfg.experts_per_token)
+    load = torch.bincount(eidx.reshape(-1), minlength=cfg.num_experts)
+    assert int(load.max()) > moe._capacity(x.shape[0] * x.shape[1], cfg.experts_per_token,
+                                           cfg.num_experts, cfg.moe_capacity_factor)
+    want = _moe_grads(cfg, p, x, "cpu")
+    got, again = _moe_grads(cfg, p, x, cuda), _moe_grads(cfg, p, x, cuda)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for g, w in zip(got, want):
+        _close(g.cpu(), w, rtol=0, atol_rel=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("a_log", [None, 2.0, 6.0])
+def test_cuda_mamba2_scan_gradient_matches_the_cpu(cuda, a_log):
+    """The Mamba-2 chunk scan's gradients (every leaf and the input) on the
+    card against the CPU at the smoke config's decays and at decays past
+    -80 within a chunk: finite, within 1e-4 of each leaf's max (a_log's
+    1e-3: its gradient takes each decay as a difference of two cumulative
+    sums near -160), the same bits on repeat."""
+    from repro_torch import configs
+    from repro_torch.models import mamba2
+
+    cfg = configs.get_config("zamba2_2_7b", smoke=True)
+    gen = torch.Generator().manual_seed(4)
+    p = mamba2.init_mamba(gen, cfg, torch.float32, "cpu")
+    if a_log is not None:
+        p["a_log"].fill_(a_log)
+        p["dt_bias"].fill_(1.0)
+    x = torch.randn(2, 128, cfg.d_model, generator=gen)
+
+    def grads(device):
+        pp = {k: v.to(device).requires_grad_(True) for k, v in p.items()}
+        xx = x.to(device).requires_grad_(True)
+        out = mamba2.mamba_block(pp, xx, cfg)
+        return list(torch.autograd.grad((out * out).sum(), [xx, *pp.values()]))
+
+    want, got, again = grads("cpu"), grads(cuda), grads(cuda)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for name, g, w in zip(["x", *p], got, want):
+        assert bool(torch.isfinite(g).all()), name
+        _close(g.cpu(), w, rtol=0, atol_rel=1e-3 if name == "a_log" else 1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_head_kernels_at_llama4_scouts_head(cuda):
+    """matvec and rmatvec on llama4-scout's head gradient (5120 x 202,048
+    f32, 4.14 GB) against their plain versions (rtol 1e-4, atol 1e-5 of
+    max), and the bf16 rank-1 update in place on the bf16 head against its
+    plain version (one bf16 ulp, as the bf16 form is held above): the
+    hybrid step's operands there."""
+    d, v = 5120, 202_048
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    a = torch.randn(d, v, generator=gen, device=cuda)
+    x, u = torch.randn(v, generator=gen, device=cuda), torch.randn(d, generator=gen, device=cuda)
+    _close(pm.matvec(a, x).cpu(), pm.ref.matvec(a, x).cpu())
+    _close(pm.rmatvec(a, u).cpu(), pm.ref.rmatvec(a, u).cpu())
+    del a
+    z = (torch.randn(d, v, generator=gen, device=cuda) * 0.02).bfloat16()
+    want = r1.ref.rank1_update(z, u, x, torch.tensor([0.75, -1.5], device=cuda))
+    with kernels.Executed(cuda) as ran:
+        assert r1.rank1_update(z, u, x, 0.75, -1.5, out=z) is z
+    assert ran.routes["rank1_update"] == {"f32": 0, "bf16": 1}
+    assert _bf16_ulps(z, want) <= 1
 
 
 def _sum_worker(group, device, x):

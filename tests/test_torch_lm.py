@@ -39,7 +39,7 @@ torch.set_num_threads(2)
 
 DENSE = ["qwen2_1_5b", "qwen2_5_14b", "codeqwen1_5_7b", "starcoder2_7b"]
 MOE = ["arctic_480b", "llama4_scout_17b_a16e"]
-SERVED = ["qwen2_vl_72b", "hubert_xlarge", "zamba2_2_7b"]  # served, not trained yet
+SERVED = ["qwen2_vl_72b", "hubert_xlarge", "zamba2_2_7b"]  # served before they trained
 
 
 def _close(got, want, rtol=1e-5, atol_rel=1e-5):
@@ -348,53 +348,69 @@ def test_lm_cli_on_cpu(capsys):
     assert "starcoder2-7b: generated (2, 4)" in capsys.readouterr().out
 
 
+def _every_training_entry_steps(arch):
+    """Every training entry on ``arch``'s smoke config for one step of 2 x
+    32 positions from the port's stream: ``loss_fn`` and ``value_and_grad``
+    (the same loss, a gradient for every leaf), ``make_train_step`` (the
+    same loss, AdamW's first moment from that gradient) and
+    ``make_hybrid_train_step`` (a finite loss, the FW step's gamma 1), and
+    ``launch.train`` (one logged step). Returns the params."""
+    from repro_torch.data import SyntheticLMStream, device_put_batch
+    from repro_torch.launch import train as ptrain
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import adamw, hybrid
+    from repro_torch.optim.compression import tree_leaves
+
+    cfg = configs.get_config(arch, smoke=True)
+    assert cfg.family in plm.TRAINED_FAMILIES
+    params = plm.init_params(cfg, 0, device="cpu")
+    batch = device_put_batch(SyntheticLMStream(cfg, ShapeSpec("t", "train", 32, 2))
+                             .batch_for_step(0), "cpu")
+    loss, metrics = plm.loss_fn(params, batch, cfg)
+    (vloss, _), grads = plm.value_and_grad(params, batch, cfg)
+    assert float(vloss) == float(loss) and np.isfinite(float(loss))
+    assert (float(metrics["aux"]) > 0) == (cfg.family == "moe")
+    assert [tuple(g.shape) for g in tree_leaves(grads)] == [
+        tuple(p.shape) for p in tree_leaves(params)]
+    params, opt, m = psteps.make_train_step(cfg)(params, adamw.init(params), batch)
+    assert float(m["loss"]) == float(loss) and int(opt.step) == 1
+    assert torch.equal(opt.m["unembed"], 0.1 * grads["unembed"])  # step 0's lr is 0
+    params, _, m = hybrid.make_hybrid_train_step(cfg)(params, hybrid.init(params), batch, 0)
+    assert np.isfinite(float(m["loss"])) and float(m["fw_gamma"]) == 1.0
+    _, _, hist = ptrain.train(arch=arch, steps=1, seq_len=32, global_batch=2, device="cpu")
+    assert [s for s, _ in hist] == [1] and np.isfinite(hist[0][1])
+    assert not any(t.requires_grad for t in jax.tree.leaves(params))
+    return params
+
+
 @pytest.mark.parametrize("arch", MOE)
 def test_other_families_not_yet_ported(arch):
     """The moe family serves (its parity is in tests/test_torch_moe.py and
-    tests/test_torch_lm_families.py) but its training is not ported yet:
-    every training entry refuses it with ``NotYetPorted`` naming training,
-    before any device work."""
-    from repro_torch.launch import train as ptrain
-    from repro_torch.optim import hybrid
-
+    tests/test_torch_lm_families.py) and now trains too: every training
+    entry runs a step (the parity with the reference is in
+    tests/test_torch_train_families.py); prefill and generate still run."""
     cfg = configs.get_config(arch, smoke=True)
     assert cfg.family == "moe" and "moe" in plm.PORTED_FAMILIES
-    assert "moe" not in plm.TRAINED_FAMILIES
-    params = plm.init_params(cfg, 0, device="cpu")
+    params = _every_training_entry_steps(arch)
     assert set(params["layers"][0]) >= {"ln1", "attn", "ln2", "moe"}
     assert ("mlp" in params["layers"][0]) == cfg.moe_dense_residual
     toks = torch.from_numpy(_tokens(cfg, 2, 16, seed=1))
     last, cache = psteps.make_prefill_step(cfg)(params, {"tokens": toks})
     assert tuple(last.shape) == (2, cfg.vocab_size) and bool(torch.isfinite(last).all())
     assert set(cache) == set(plm.cache_specs(cfg, 1, 8)) == {"k", "v"}
-    for call in (lambda: plm.loss_fn(params, {}, cfg), lambda: plm.value_and_grad(params, {}, cfg),
-                 lambda: psteps.make_train_step(cfg), lambda: hybrid.make_hybrid_train_step(cfg),
-                 lambda: ptrain.train(arch=arch, steps=1, device="cpu")):
-        with pytest.raises(NotYetPorted, match="training"):
-            call()
-    assert not any(t.requires_grad for t in jax.tree.leaves(params))
     new = pserve.generate(arch=arch, batch=2, prompt_len=3, max_new_tokens=2, device="cpu")
     assert new.shape == (2, 2)
 
 
 @pytest.mark.parametrize("arch", SERVED)
 def test_served_families_do_not_train_yet(arch):
-    """audio, vlm and hybrid serve (tests/test_torch_lm_families.py) but do
-    not train: every training entry refuses them with ``NotYetPorted``
-    before any device work; hubert, encoder-only, has no decode."""
-    from repro_torch.launch import train as ptrain
-    from repro_torch.optim import hybrid
-
+    """audio, vlm and hybrid serve (tests/test_torch_lm_families.py) and now
+    train too: every training entry runs a step on them; hubert,
+    encoder-only, still has no decode."""
     cfg = configs.get_config(arch, smoke=True)
-    assert cfg.family in plm.PORTED_FAMILIES and cfg.family not in plm.TRAINED_FAMILIES
-    params = plm.init_params(cfg, 0, device="cpu")
+    assert cfg.family in plm.PORTED_FAMILIES
+    _every_training_entry_steps(arch)
     psteps.make_prefill_step(cfg)
-    for call in (lambda: plm.loss_fn(params, {}, cfg), lambda: plm.value_and_grad(params, {}, cfg),
-                 lambda: psteps.make_train_step(cfg), lambda: hybrid.make_hybrid_train_step(cfg),
-                 lambda: ptrain.train(arch=arch, steps=1, device="cpu")):
-        with pytest.raises(NotYetPorted, match="training"):
-            call()
-    assert not any(t.requires_grad for t in jax.tree.leaves(params))
     if cfg.encoder_only:
         with pytest.raises(ValueError, match="encoder-only"):
             pserve.generate(arch=arch, device="cpu")

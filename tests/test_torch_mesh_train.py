@@ -4,14 +4,29 @@ over four gloo CPU workers) against the JAX package's
 and ``launch.multihost train --mesh`` over environment-launched processes.
 
 One subprocess runs the JAX package on 8 fake CPU devices (meshes on the
-first 4): qwen2-1.5b (dense, GQA with 2 kv heads) and rwkv6-7b (ssm) smoke
-configs, 2 steps of 4 x 32 tokens, at meshes (2, 2) and (1, 4), from
-``init_params(PRNGKey(0))``, which the port starts from too
-(``convert.lm_params``); its qwen2 (2, 2) run writes a checkpoint. At
-(1, 4) the model axis does not divide qwen2's kv heads (each worker
-computes both and its q head reads its own) nor rwkv6's 2 heads (each
-worker runs both, and keeps its block of ``wo``'s rows). One 4-process
+first 4): qwen2-1.5b (dense, GQA with 2 kv heads), rwkv6-7b (ssm),
+arctic-480b and llama4-scout (moe: 8 experts top-2 with a dense residual
+MLP, 4 experts top-1) smoke configs, 2 steps of 4 x 32 tokens, at meshes
+(2, 2) and (1, 4), from ``init_params(PRNGKey(0))``, which the port starts
+from too (``convert.lm_params``); its qwen2 (2, 2) run writes a
+checkpoint. At (1, 4) the model axis does not divide qwen2's kv heads
+(each worker computes both and its q head reads its own) nor rwkv6's 2
+heads (each worker runs both, and keeps its block of ``wo``'s rows); the
+moe experts are split over the model axis (2 or 1 a worker). One 4-process
 spawn runs the port's side.
+
+The moe capacity is per data shard, in both packages: at (2, 2) each data
+shard routes its 64 tokens with a capacity of 24 slots, where one device's
+128 tokens get 40, so other tokens are dropped (the 40 bind at these
+sizes). The sharded runs are held to the reference's at the configured
+capacity factor; against the port's unsharded run, at (1, 4) (one data
+shard: the same capacity) at the configured factor, and at (2, 2) at a
+factor of 32, under which no token drops on either side. The Switch loss
+is per data shard too (the mean over the data shards of each shard's
+E sum_e frac_e mean_p_e, a product of means over its own tokens), so the
+unsharded run at (2, 2)'s side takes the mean of its two row halves' Switch
+losses in each moe layer (``_aux_per_data_shard``): every other part of
+the loss and of its gradient is the one-device computation's.
 
 Tolerances: losses rtol 1e-5, as tests/test_torch_train.py holds the
 unsharded run (the JAX package's own mesh and unsharded losses differ by
@@ -29,6 +44,8 @@ size, so their f32 noise moves the parameters by up to the step). A
 gradient scaled by 2 on any leaf puts its m off by 1 and its v by 3 on
 that scale.
 """
+import contextlib
+import dataclasses
 import os
 import pickle
 import re
@@ -53,7 +70,9 @@ from repro_torch.models import lm
 from repro_torch.optim.compression import tree_leaves
 
 SRC = str(Path(__file__).resolve().parent.parent / "src")
-ARCHS = ("qwen2_1_5b", "rwkv6_7b")
+ARCHS = ("qwen2_1_5b", "rwkv6_7b", "arctic_480b", "llama4_scout_17b_a16e")
+MOE = ("arctic_480b", "llama4_scout_17b_a16e")
+NO_DROP = 32.0  # a moe capacity factor under which no token drops
 MESHES = ((2, 2), (1, 4))
 RUN = dict(steps=2, seq_len=32, global_batch=4, log_every=1)
 # (params, AdamW m, AdamW v) after the 2 steps: the worst leaf's max error
@@ -70,11 +89,11 @@ from repro.models import lm
 run = dict(steps=2, seq_len=32, global_batch=4, log_every=1)
 inits = {arch: jax.device_get(lm.init_params(get_config(arch, smoke=True),
                                              jax.random.PRNGKey(0)))
-         for arch in ("qwen2_1_5b", "rwkv6_7b")}
+         for arch in ("qwen2_1_5b", "rwkv6_7b", "arctic_480b", "llama4_scout_17b_a16e")}
 pickle.dump(inits, open(sys.argv[3] + ".tmp", "wb"))
 os.rename(sys.argv[3] + ".tmp", sys.argv[3])  # the port's runs start from these now
 out = {}
-for arch in ("qwen2_1_5b", "rwkv6_7b"):
+for arch in ("qwen2_1_5b", "rwkv6_7b", "arctic_480b", "llama4_scout_17b_a16e"):
     for shape in ((2, 2), (1, 4)):
         ck = sys.argv[2] if (arch, shape) == ("qwen2_1_5b", (2, 2)) else None
         params, opt, hist = train.train(arch=arch, mesh_shape=shape, ckpt_dir=ck, **run)
@@ -168,6 +187,15 @@ def _mesh_worker(group, device, inits, port_ckpt):
                                               for t in (params, opt.m, opt.v))
             if ck:
                 out["trained"] = out[arch, shape, "state"][0]
+        if arch in MOE:  # (2, 2) where no token drops, against the unsharded run
+            no_drop = dataclasses.replace(cfg, moe_capacity_factor=NO_DROP)
+            params, opt, hist = ptrain.train(arch=arch, cfg=no_drop, mesh_shape=(2, 2),
+                                             params=inits[arch], device="cpu", group=group, **RUN)
+            mesh = M.make_mesh((2, 2), ("data", "model"), group)
+            with sharding.use_mesh(mesh):
+                specs = lm.param_specs(no_drop)
+            out[arch, "no_drop"] = hist, tuple(P.gather_params(t, mesh, specs)
+                                               for t in (params, opt.m, opt.v))
     out["port_at_1x4"] = _restore_worker(group, device, port_ckpt)
     out["remat_in_another_thread"] = _remat_backward_in_another_thread(group, inits)
     return out if group.rank == 0 else None
@@ -243,15 +271,50 @@ def test_sharded_train_matches_reference(ref, port, arch, shape):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_sharded_train_matches_unsharded(port, arch):
-    params, opt, hist = ptrain.train(arch=arch, params=convert.lm_params(
-        convert_back(port["inits"][arch]), get_config(arch, smoke=True), device="cpu"),
-        device="cpu", **RUN)
-    for shape in MESHES:
-        np.testing.assert_allclose([v for _, v in port[arch, shape]], [v for _, v in hist],
+    """Each mesh's run against the unsharded run from the same weights; a
+    moe config at (2, 2) at the capacity factor NO_DROP on both sides
+    (module doc)."""
+    cfg = get_config(arch, smoke=True)
+
+    def unsharded(cfg):
+        return ptrain.train(arch=arch, cfg=cfg, params=convert.lm_params(
+            convert_back(port["inits"][arch]), cfg, device="cpu"), device="cpu", **RUN)
+
+    params, opt, hist = unsharded(cfg)
+    runs = {shape: (port[arch, shape], port[arch, shape, "state"], (params, opt.m, opt.v), hist)
+            for shape in MESHES}
+    if arch in MOE:
+        with _aux_per_data_shard(MESHES[0][0]):
+            params, opt, hist = unsharded(dataclasses.replace(cfg, moe_capacity_factor=NO_DROP))
+        runs[(2, 2)] = (*port[arch, "no_drop"], (params, opt.m, opt.v), hist)
+    for shape, (got_hist, got_state, want_state, want_hist) in runs.items():
+        np.testing.assert_allclose([v for _, v in got_hist], [v for _, v in want_hist],
                                    rtol=2e-6)
-        errs = _state_errs(port[arch, shape, "state"], (params, opt.m, opt.v))
+        errs = _state_errs(got_state, want_state)
         print(arch, shape, "against the unsharded run", errs)
         assert all(e <= tol for (e, _), tol in zip(errs, STATE_TOL["unsharded"])), errs
+
+
+@contextlib.contextmanager
+def _aux_per_data_shard(n_data):
+    """Inside the block each ``moe.moe_block`` call returns its output and
+    the mean of the Switch losses of its ``n_data`` row blocks (the data
+    shards' rows; the Switch loss reads the routing alone, not the
+    capacity), as a mesh of ``n_data`` data shards defines it."""
+    from repro_torch.models import moe
+
+    orig = moe.moe_block
+
+    def per_shard(p, x, cfg):
+        out, _ = orig(p, x, cfg)
+        n = x.shape[0] // n_data
+        return out, sum(orig(p, x[i * n:(i + 1) * n], cfg)[1] for i in range(n_data)) / n_data
+
+    moe.moe_block = per_shard
+    try:
+        yield
+    finally:
+        moe.moe_block = orig
 
 
 def convert_back(tree):

@@ -374,8 +374,10 @@ def test_train_refuses_a_mesh_and_the_cli_runs(capsys):
     # a mesh of 8 workers needs a process group of 8 (tests/test_torch_mesh_train.py runs one)
     with pytest.raises(RuntimeError, match="not initialized"):
         ptrain.train(arch="qwen2_1_5b", steps=1, mesh_shape=(2, 4), device="cpu")
-    with pytest.raises(NotYetPorted):  # a family the port does not train
-        ptrain.train(arch="zamba2_2_7b", steps=1, mesh_shape=(1, 1), device="cpu")
+    with pytest.raises(NotYetPorted):  # a remat policy the port does not train
+        ptrain.train(arch="zamba2_2_7b", steps=1, mesh_shape=(1, 1), device="cpu",
+                     cfg=dataclasses.replace(configs.get_config("zamba2_2_7b", smoke=True),
+                                             remat="dots"))
     ptrain.main(["--arch", "rwkv6-7b", "--steps", "2", "--seq-len", "32", "--global-batch", "2",
                  "--device", "cpu"])
     out = capsys.readouterr().out
