@@ -16,7 +16,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
    bits. The rank-1 updates also in place, as the fits call them: the
    out-of-place bits, timed in turns against ``addr_`` in place
    (``rank1_update``) and against the chain ``addr_`` + ``add_``
-   (``rank1_update_axpy``, which no one call computes).
+   (``rank1_update_axpy``, which no one call computes). ``power_iter_step``
+   (one two-sided power iteration on A = X^T R: four launches, X and R
+   read twice) against its plain version and the chain of four
+   ``torch.mv``: a row of the kernels line under ``matvec``.
 3. Drive the main path, ``launch.dfw.fit_serial``, for multi-task least
    squares at the paper's ImageNet shapes (n = 1,281,167, d = 2048,
    m = 1000, f32): planted rank-10 trace-norm-1 W* plus small noise, log
@@ -67,6 +70,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    32 or 64 gives the same bits. Times of kernel, plain version, einsum and
    the cuBLAS chain; the kernel's device time at the serving shape; the
    count of tensor-core instructions (HMMA) in the built kernel's SASS.
+   With bf16 X, A and B at the serving shape and at ``top_k_error``'s
+   chunk (b 65,536, r 10): the kernel reads the bf16 operands itself and
+   gives the f32 route's bits on the widened operands, within 1e-4 of
+   the plain version, beside its bound from 2-byte operands and the chain
+   (x.float() @ a.float().T * s) @ b.float().
 12. Train, then serve: ``fit_serial`` of MTLS at d = 2048, m = 1000 with
    n cut to --serve-rows, --serve-epochs epochs, writing a checkpoint at
    every segment boundary; ``ServingEngine.from_checkpoint`` on the first
@@ -441,17 +449,17 @@ Phases, each fatal on failure (exit code != 0, no result line):
    (data, model) mesh on four gloo workers sharing the card (NCCL refuses
    two ranks on one device: a check, not a timing), in f32 against the
    unsharded runs on the card from the same --seed: qwen2-1.5b at full
-   width cut to 2 of 28 layers (2 train steps of 4 x 1024, losses rtol
-   2e-5; a prefill of 4 x 2048, last logits within 1e-4 of max; a batch-4
-   decode step; 4 sequence-sharded batch-1 decode steps; each worker's
+   width cut to 2 of 28 layers (2 train steps of 4 x 512, losses rtol
+   2e-5; a prefill of 4 x 1024, last logits within 1e-4 of max; a batch-4
+   decode step; 2 sequence-sharded batch-1 decode steps; each worker's
    share of the parameter bytes at most 0.26, its peak memory, the
    collectives a train step by kind and bytes), rwkv6-7b cut to 1 of 32
-   layers (2 train steps and a prefill of 4 x 1024, ``wkv6_chunk`` on 32
-   of 64 heads), llama4-scout cut to 1 of 48 layers (a prefill of 4 x 1024
+   layers (2 train steps and a prefill of 4 x 512, ``wkv6_chunk`` on 32
+   of 64 heads), llama4-scout cut to 1 of 48 layers (a prefill of 4 x 512
    at capacity factor 32, where nothing drops, within 1e-4 of max; at the
    configured factor each data shard's dropped share by layer; and at the
    configured factor the gradient at the initial weights
-   on 4 x 1024 tokens against one device's gradient with each data
+   on 4 x 512 tokens against one device's gradient with each data
    shard's rows routed on their own, which is what the mesh computes: its
    capacity and its Switch loss, averaged over the data shards, are per
    data shard; that 16.5 GB gradient stays on the host, each worker
@@ -462,13 +470,23 @@ Phases, each fatal on failure (exit code != 0, no result line):
    each leaf within the larger of 1e-4 and 3x its spread in this run (the
    unsharded gradient's change when every weight moves by one rounding),
    and its parameters within 2.1 lr_1 of the unsharded run's (the
-   schedule's one nonzero step, each side). (e) every worker launched
-   ``flash_attention`` 4 times and ``wkv6_chunk`` 4 times
+   schedule's one nonzero step, each side). (e) a third spawn: the hybrid,
+   vlm and audio families at full width, f32 (``MESH_FAMILIES``):
+   zamba2-2.7b at one group (6 Mamba-2 layers and the shared block) on 2 x
+   512, qwen2-vl-72b at 1 of 80 layers on 2 x (1,024 vision rows + 512
+   text tokens), hubert-xlarge at 2 of 48 layers on 2 x 512 frames: step
+   0's gradient blocks against the unsharded gradient (held on the host)
+   as in (b)-(d); the prefill (hubert: the encoder's logits) within 1e-4
+   of max of the unsharded one; for zamba2 and qwen2-vl one batch-1 decode
+   step whose kv cache is split on its sequence dim over the data axis,
+   against the unsharded step. (f) every worker launched
+   ``flash_attention`` 8 times and ``wkv6_chunk`` twice
    (``kernels.Executed``). Then both kernels on the operands the shards
    give them, as strided views of a worker's projections (f32 as in
-   (b)-(d) and bf16 as the configurations run), against their plain
-   versions at phases 13 and 17's tolerances, with their times: rows of
-   the kernels line. The phase prints its wall time.
+   (b)-(e) and bf16 as the configurations run; Dh 80 at (e)'s zamba2 and
+   hubert shards), against their plain versions at phases 13 and 17's
+   tolerances, with their times: rows of the kernels line. The phase
+   prints its wall time.
 34. LM training of the moe, hybrid, vlm and audio families (bf16, weights
    drawn on the card from --seed, full width, 2 steps each; what the
    earlier phases hold printed at its start). (a) hubert-xlarge whole on
@@ -805,9 +823,11 @@ def kernel_phase(torch, pm, r1, dev, X, R, Y, gen, reps, peaks):
         r1.rank1_update_axpy(R, Y, x_n, y_m, a, b, c), 12 * nm + 4 * (n + PAPER_M), 6 * nm,
         peaks, reps, chain=True))
     del out, W
-    ratio = {r["operand"]: r["ms"] / r["library_ms"] for r in rows_out if r["name"] == "matvec"}
+    rows_out.append(power_iter_row(torch, pm, X, R, rn(R.shape[1]), reps, peaks))
+    ratio = {r["operand"]: r["ms"] / r["library_ms"] for r in rows_out
+             if r["name"] == "matvec" and r["library_ms"] is not None}
     for r in rows_out:
-        if r["name"] == "matvec":
+        if r["name"] == "matvec" and "ms_rounds" in r:
             r["library_ratio"] = ratio[r["operand"]]
             print(f"matvec on {r['operand']}: {r['ms_rounds']} ms against torch.mv's "
                   f"{r['library_ms_rounds']} in turns")
@@ -841,6 +861,54 @@ def kernel_phase(torch, pm, r1, dev, X, R, Y, gen, reps, peaks):
     print("kernels match their plain versions at full and odd shapes; matvec and rmatvec "
           "bit-stable")
     return rows_out
+
+
+def power_iter_row(torch, pm, X, R, v, reps, peaks):
+    """``power_iter_step`` (one two-sided power iteration on A = X^T R: two
+    matvecs, two rmatvecs) against its plain version at the main path's X
+    and R: four launches, unit vectors within the matvecs' tolerance, the
+    same bits on repeat; its time beside its bound (X and R each read
+    twice). No one PyTorch call computes it: the chain of four ``torch.mv``
+    and two norms is timed instead. A row of the kernels line under
+    ``matvec`` (its operand names the step)."""
+    bw, flops = peaks[:2]
+    n, d = X.shape
+    m = R.shape[1]
+    v = v / v.norm()
+    before = pm.matvec.launches, pm.rmatvec.launches
+    got = pm.power_iter_step(X, R, v)
+    torch.cuda.synchronize()
+    check((pm.matvec.launches - before[0], pm.rmatvec.launches - before[1]) == (2, 2),
+          "power_iter_step did not launch two matvecs and two rmatvecs")
+    want = pm.ref.power_iter_step(X, R, v)
+    errs = [rel_err(torch, g, w) for g, w in zip(got, want)]
+    err_abs, err_rel = max(e[0] for e in errs), max(e[1] for e in errs)
+    check(math.isfinite(err_rel) and err_rel <= TOL["matvec"],
+          f"power_iter_step: max rel err {err_rel:.3e} > {TOL['matvec']:.0e}")
+    again = pm.power_iter_step(X, R, v)
+    check(all(torch.equal(a, b) for a, b in zip(again, got)), "power_iter_step is not bit-stable")
+
+    def chain():
+        u = torch.mv(X.t(), torch.mv(R, v))
+        u = u / (torch.linalg.vector_norm(u) + 1e-30)
+        w = torch.mv(R.t(), torch.mv(X, u))
+        return u, w / (torch.linalg.vector_norm(w) + 1e-30)
+
+    nbytes, nflops = 2 * 4 * n * (d + m), 4 * n * (d + m)
+    row = dict(
+        name="matvec", operand=f"power_iter_step: X {n}x{d}, R {n}x{m}, four launches",
+        shape=[n, d, m], max_abs_err=err_abs, max_rel_err=err_rel,
+        ms=time_ms(torch, lambda: pm.power_iter_step(X, R, v), reps),
+        plain_ms=time_ms(torch, lambda: pm.ref.power_iter_step(X, R, v), reps),
+        library_ms=None, library_chain_ms=time_ms(torch, chain, reps),
+        bound_ms=1e3 * max(nbytes / bw, nflops / flops),
+        bound_by="bytes" if nbytes / bw >= nflops / flops else "operations", bytes=nbytes,
+        launches_per_call=4, main=False)
+    print(f"kernel power_iter_step X {tuple(X.shape)}, R {tuple(R.shape)}: {row['ms']:.3f} ms "
+          f"(plain {row['plain_ms']:.3f}, torch.mv chain {row['library_chain_ms']:.3f}, bound "
+          f"{row['bound_ms']:.3f} by {row['bound_by']}, {row['bound_ms'] / row['ms']:.3f} of it) "
+          f"rel err {err_rel:.2e}; four launches; bit-stable")
+    return row
 
 
 def planted(torch, gen, dev, d, m, rank=10):
@@ -2312,6 +2380,7 @@ def factor_kernel_phase(torch, fm, _build, dev, gen, reps, peaks):
                       f"{row['library_ms']:.4f}, cuBLAS chain {row['library_chain_ms']:.4f}, "
                       f"bound {row['bound_ms']:.5f} by {row['bound_by']}) rel err "
                       f"{err_rel:.2e}, bit-stable; einsum rel err {lib_err:.2e}")
+    rows_out += factor_bf16_rows(torch, fm, dev, gen, reps, peaks, hmma)
     # the zero tail of a rank bucket: live rank 20 at capacity 32 and 64, at
     # batches of one and several clusters, batch tiles of 16, 32 and 64 rows
     for bt in (1, 20, SERVE_BATCH, 300, 600, 1024):
@@ -2335,6 +2404,74 @@ def factor_kernel_phase(torch, fm, _build, dev, gen, reps, peaks):
                   f"factor_matvec at {(bt, n_in, r, n_out)} aligned={aligned}: {err:.3e}")
     print("factor_matvec matches its plain version at the serving and odd shapes, bit-stable, "
           "a padded rank bucket gives the live rank's bits")
+    return rows_out
+
+
+# factor_matvec on bf16 operands (X, A, B bf16; s f32): the serving shape and
+# top_k_error's chunk of 65,536 rows at rank 10 (phase 11)
+FACTOR_BF16 = ((SERVE_BATCH, 64, SERVE_D, SERVE_M), (65_536, 10, SERVE_D, SERVE_M))
+
+
+def factor_bf16_rows(torch, fm, dev, gen, reps, peaks, hmma):
+    """factor_matvec with X, A and B in bf16 (FACTOR_BF16; odd shapes and
+    misaligned operands in the gpu tests): the kernel reads the 2-byte
+    elements itself. Held to its plain version (row 8's tolerance) and,
+    bit for bit, to the f32 route on the widened operands (a bf16 value is
+    exact in TF32); one launch a call; the same bits on repeat. Timed beside
+    its bound from 2-byte X, A and B, einsum on the widened operands and
+    the chain (x.float() @ a.float().T * s) @ b.float()."""
+    bw, flops, bf16_peak = peaks[:3]
+    rows_out = []
+    for bt, r, n_in, n_out in FACTOR_BF16:
+        x = (torch.randn(bt, n_in, generator=gen, device=dev) / math.sqrt(n_in)).bfloat16()
+        a = torch.randn(r, n_in, generator=gen, device=dev).bfloat16()
+        b = torch.randn(r, n_out, generator=gen, device=dev).bfloat16()
+        s = torch.randn(r, generator=gen, device=dev)
+        before = fm.factor_matvec.launches
+        got = fm.factor_matvec(x, a, s, b)
+        torch.cuda.synchronize()
+        check(fm.factor_matvec.launches == before + 1, "factor_matvec bf16: not one launch")
+        label = f"b={bt} r={r} {n_in}->{n_out} bf16 X, A, B"
+        err_abs, err_rel = rel_err(torch, got, fm.ref.factor_matvec(x, a, s, b))
+        check(math.isfinite(err_rel) and err_rel <= TOL["factor_matvec"],
+              f"factor_matvec {label}: rel err {err_rel:.3e}")
+        xf, af, bf = x.float(), a.float(), b.float()
+        check(torch.equal(fm.factor_matvec(xf, af, s, bf), got),
+              f"factor_matvec {label}: not the f32 route's bits on the widened operands")
+        check(torch.equal(fm.factor_matvec(x, a, s, b), got),
+              f"factor_matvec {label} is not bit-stable")
+        nbytes = 2 * (bt * n_in + r * (n_in + n_out)) + 4 * (r + bt * n_out)
+        # X·Aᵀ multiplies bf16 by bf16 into f32 (the products are exact in
+        # f32), at the bf16 peak; the scale and T·B are f32 work
+        nflops16, nflops32 = 2 * bt * r * n_in, 2 * bt * r * n_out + bt * r
+        t_ops = nflops16 / bf16_peak + nflops32 / flops
+        kfn = lambda x=x, a=a, s=s, b=b: fm.factor_matvec(x, a, s, b)  # noqa: E731
+        row = dict(
+            name="factor_matvec", operand=label, shape=[bt, n_in, r, n_out],
+            max_abs_err=err_abs, max_rel_err=err_rel, ms=time_ms(torch, kfn, reps),
+            plain_ms=time_ms(torch, lambda: fm.ref.factor_matvec(x, a, s, b), reps),
+            library_ms=time_ms(torch, lambda: torch.einsum("bi,ki,k,kj->bj", x.float(),
+                                                           a.float(), s, b.float()), reps),
+            library_chain_ms=time_ms(torch, lambda: (x.float() @ a.float().T * s) @ b.float(),
+                                     reps),
+            f32_route_ms=time_ms(torch, lambda: fm.factor_matvec(xf, af, s, bf), reps),
+            upcast_f32_route_ms=time_ms(torch, lambda: fm.factor_matvec(
+                x.float(), a.float(), s, b.float()), reps),
+            bound_ms=1e3 * max(nbytes / bw, t_ops),
+            bound_by="bytes" if nbytes / bw >= t_ops else "operations",
+            bytes=nbytes, flops=nflops16 + nflops32, bf16_flops=nflops16, hmma=hmma,
+            main=False,
+            device_ms=device_ms(torch, kfn, "factor_matvec_kernel"))
+        rows_out.append(row)
+        print(f"kernel factor_matvec {label}: {row['ms']:.4f} ms (device "
+              f"{fmt_ms(row['device_ms'])}; the f32 route on the widened operands "
+              f"{row['f32_route_ms']:.4f}, with the upcast copies "
+              f"{row['upcast_f32_route_ms']:.4f}; plain {row['plain_ms']:.4f}, einsum "
+              f"{row['library_ms']:.4f}, chain {row['library_chain_ms']:.4f}, bound "
+              f"{row['bound_ms']:.5f} by {row['bound_by']}) rel err {err_rel:.2e}; the f32 "
+              "route's bits; bit-stable")
+        del x, a, b, xf, af, bf, got
+    torch.cuda.empty_cache()
     return rows_out
 
 
@@ -6594,19 +6731,28 @@ def moe_phase(torch, np, kernels, lm, steps, lm_serve, fa, moe, get_config, dev,
 
 # Phase 33: the sharded LM paths (launch.mesh/sharding/params, comm.spmd)
 MESH_SHAPE = (2, 2)  # (data, model): four gloo workers sharing the card
-# the depths and sizes below were cut when phase 34 came in, to keep the
-# whole script within 15 minutes on the card: (a) (4, 2048), (b) 4 layers
-# and 16 batch-1 steps, (c) 2 layers, (d) 2 layers before
+# the depths and sizes below were cut to keep the whole script within the
+# time the card gives it: when phase 34 came in, from (a) (4, 2048), (b) 4
+# layers and 16 batch-1 steps, (c) 2 layers, (d) 2 layers; when (e) came in,
+# from (b)-(d) 4 x 1024 train and moe tokens, a (b) prefill of 4 x 2048 and 4
+# batch-1 steps (with those the script took 1142 s on an H100 80GB HBM3 at
+# 700 W; every model here was at its least depth already)
 MESH_ONE_SHAPE, MESH_STEPS = (2, 2048), 2  # (a) qwen2-1.5b full depth, bf16, one NCCL worker
 MESH_DENSE_LAYERS = 2  # (b) qwen2-1.5b at full width, 2 of 28 layers, f32
-MESH_TRAIN_SHAPE = (4, 1024)  # (b), (c) train steps
-MESH_PREFILL_SHAPE = (4, 2048)  # (b) prefill and the batch-4 decode step after it
-MESH_DECODE_ONE = 4  # (b) sequence-sharded decode steps at batch 1
+MESH_TRAIN_SHAPE = (4, 512)  # (b), (c) train steps, (c) prefill, (d) step 0's gradient
+MESH_PREFILL_SHAPE = (4, 1024)  # (b) prefill and the batch-4 decode step after it
+MESH_DECODE_ONE = 2  # (b) sequence-sharded decode steps at batch 1
 MESH_SSM_LAYERS = 1  # (c) rwkv6-7b at full width, 1 of 32 layers, f32
 MESH_MOE_LAYERS = 1  # (d) llama4-scout at full width, 1 of 48 layers, f32
-MESH_MOE_SHAPE = (4, 1024)
+MESH_MOE_SHAPE = (4, 512)
 MESH_NO_DROP = 32.0  # (d) a capacity factor under which no token drops
 MESH_MOE_GRAD_LAYERS = 1  # (d) step 0's gradient: llama4-scout, 1 of 48 layers, f32 (16.5 GB)
+# (e) the hybrid, vlm and audio families on the (2, 2) mesh, f32, full width,
+# one worker spawn: (key, arch, layers, (B, S) of step 0's batch and of the
+# prefill). zamba2 one group (6 Mamba-2 layers and the shared block); qwen2-vl
+# S counts its 1,024 vision rows ahead of 512 text tokens; hubert S frames
+MESH_FAMILIES = (("z", HYBRID_SERVE_ARCH, 6, (2, 512)), ("v", VLM_ARCH, 1, (2, 1536)),
+                 ("h", AUDIO_ARCH, 2, (2, 512)))
 # f32 sums in other orders: the row-parallel partial products' psum, the
 # vocab-parallel head and cross entropy, cuBLAS's kernels for the split
 # shapes; two AdamW steps carry them into the second loss
@@ -6639,6 +6785,13 @@ MESH_FA_OPERANDS = (
     ("qwen2-1.5b (1, 4) shard, kv head slice", 4, 2048, 3, 2, 1, "bfloat16"),
     ("llama4-scout (2, 2) shard", 2, 1024, 20, 4, 4, "float32"),
     ("llama4-scout (2, 2) shard", 2, 1024, 20, 4, 4, "bfloat16"),
+)
+# (e)'s shards (label, B, S, q heads, kv heads computed, kv heads read, dtype,
+# Dh, causal): Dh 80 on the generic route
+MESH_FAMILY_FA_OPERANDS = (
+    ("zamba2-2.7b (2, 2) shard", 1, 512, 16, 16, 16, "float32", 80, True),
+    ("hubert-xlarge (2, 2) shard", 1, 512, 8, 8, 8, "float32", 80, False),
+    ("qwen2-vl-72b (2, 2) shard", 1, 1536, 32, 4, 4, "float32", 128, True),
 )
 # rwkv6-7b at (2, 2): 32 of 64 heads, B 2, the second 256-token chunk of
 # 1024 as (B, H, q, 64) views of the (B, S, H 64) projections; r/k/v dtype
@@ -6686,6 +6839,7 @@ def mesh_rank(group, device, seed, inputs, parts):
     """One worker of phase 33 (module level: run_workers starts it by name):
     ``parts`` of (b)-(d) on this worker's blocks of a MESH_SHAPE mesh; host
     results."""
+    import functools
     import gc
 
     import torch
@@ -6746,12 +6900,16 @@ def mesh_rank(group, device, seed, inputs, parts):
         ``relative``."""
         with sharding.use_mesh(mesh):
             specs = lm.param_specs(cfg)
+        # each block cut from ``full`` (the card's, or the host's, leaf by leaf
+        # to the card) only when compared, so one block is held at a time
+        cuts = P.map_specs(lambda leaf, spec: functools.partial(P.local_block, leaf, spec, mesh),
+                           full, specs)
         out_ = []
-        for g, w in zip(tree_leaves(got), tree_leaves(P.shard_params(full, mesh, specs)),
-                        strict=True):
-            w = w.to(g.device)  # a block of a tree held on the host comes over leaf by leaf
+        for g, cut in zip(tree_leaves(got), tree_leaves(cuts), strict=True):
+            w = cut().to(g.device)
             d = (g - w).abs().max()
             out_.append(float(d / w.abs().max().clamp_min(1e-30) if relative else d))
+            del w
         return out_
 
     def grad_err(cfg, params, key):
@@ -6762,8 +6920,9 @@ def mesh_rank(group, device, seed, inputs, parts):
         return leaf_errs(cfg, grads, inputs[key + "_grad"])
 
     def prefill(cfg, params, toks, label):
+        batch = toks if isinstance(toks, dict) else {"tokens": toks}
         with sharding.use_mesh(mesh), torch.no_grad(), kernels.Executed(device) as ran:
-            last, cache = steps.make_prefill_step(cfg)(params, {"tokens": toks})
+            last, cache = steps.make_prefill_step(cfg)(params, batch)
         ran_add(ran)
         return last.cpu(), cache, {label: dict(ran.launches), label + "_routes": {
             k: dict(v) for k, v in ran.routes.items()}}
@@ -6844,9 +7003,38 @@ def mesh_rank(group, device, seed, inputs, parts):
         g["peak_gb"] = peak_gb()
         return g
 
-    for key, part in (("b", dense_part), ("c", ssm_part), ("d", moe_part), ("g", moe_grad_part)):
+    def family_part(key):
+        """(e) one of MESH_FAMILIES at full width, f32: step 0's gradient
+        blocks against the unsharded gradient's; the prefill (hubert: the
+        encoder's logits); for zamba2 and qwen2-vl one batch-1 decode step,
+        the kv cache's sequence split over the data axis."""
+        cfg = inputs["cfgs"][key]
+        reset_peak()
+        params = P.init_local_params(cfg, seed, mesh, device=device)
+        f = {"param_bytes": _mesh_nbytes(params), "grad_err": grad_err(cfg, params, key)}
+        free()
+        f["prefill"], _, ran = prefill(cfg, params, inputs[key + "_prompt"], "prefill_launches")
+        f.update(ran)
+        if not cfg.encoder_only:
+            full = inputs[key + "_cache1"]
+            length = full["k"].shape[3]
+            with sharding.use_mesh(mesh), torch.no_grad():
+                c1 = steps.local_cache({k: v.to(device) for k, v in full.items()}, cfg,
+                                       ShapeSpec("d", "decode", length, 1))
+                f["cache1_shapes"] = {k: tuple(v.shape) for k, v in c1.items()}
+                step = {k: v.to(device) for k, v in inputs[key + "_step"].items()}
+                f["decode1"] = steps.make_serve_step(cfg)(params, c1, step)[0].cpu()
+            del c1
+        f["peak_gb"] = peak_gb()
+        del params
+        return f
+
+    for key, part in (("b", dense_part), ("c", ssm_part), ("d", moe_part), ("g", moe_grad_part),
+                      *((k, lambda _, k=k: family_part(k)) for k, *_ in MESH_FAMILIES)):
         if key in parts:
+            t0 = time.perf_counter()
             out[key] = part(inputs["cfgs"][key])
+            out[key]["wall_s"] = time.perf_counter() - t0
             free()
     return out
 
@@ -6907,8 +7095,9 @@ def mesh_kernel_rows(torch, fa, wkv, kernels, dev, gen, reps, peaks):
     shards give them (MESH_FA_OPERANDS, MESH_WKV_OPERANDS), each against
     its plain version at rows 9 and 10's tolerances (``flash_row``,
     ``wkv_shard_row``)."""
-    rows_out, dh = [], 128
-    for label, b, s, hq, hkv, hread, dtype in MESH_FA_OPERANDS:
+    rows_out = []
+    for label, b, s, hq, hkv, hread, dtype, dh, causal in (
+            *[(*o, 128, True) for o in MESH_FA_OPERANDS], *MESH_FAMILY_FA_OPERANDS):
         dt = getattr(torch, dtype)
 
         def proj(h):
@@ -6917,7 +7106,7 @@ def mesh_kernel_rows(torch, fa, wkv, kernels, dev, gen, reps, peaks):
 
         q, k, v = proj(hq), proj(hkv)[:, :hread], proj(hkv)[:, :hread]
         check(not q.is_contiguous(), f"flash_attention {label}: q is not a strided view")
-        rows_out.append(flash_row(torch, fa, kernels, label, q, k, v, True, reps, peaks))
+        rows_out.append(flash_row(torch, fa, kernels, label, q, k, v, causal, reps, peaks))
         del q, k, v
     for label, b, s, h, dtype in MESH_WKV_OPERANDS:
         rows_out.append(wkv_shard_row(torch, wkv, label, b, s, h, getattr(torch, dtype), gen,
@@ -7018,11 +7207,12 @@ def mesh_phase(torch, np, kernels, lm, steps, train_mod, comm, dfw, fa, wkv, get
 
     spread = {}
 
-    def unsharded_grad(cfg, key):
-        """The gradient at the initial weights on step 0's batch, and each
-        leaf's spread: its change when every weight moves by one rounding."""
+    def unsharded_grad(cfg, key, shape=MESH_TRAIN_SHAPE):
+        """The gradient at the initial weights on step 0's batch of ``shape``
+        (B, S), and each leaf's spread: its change when every weight moves by
+        one rounding."""
         batch = data.device_put_batch(data.SyntheticLMStream(cfg, ShapeSpec(
-            "t", "train", ts, tb)).batch_for_step(0), dev)
+            "t", "train", shape[1], shape[0])).batch_for_step(0), dev)
         params = lm.init_params(cfg, args.seed, device=dev)
         _, grads = lm.value_and_grad(params, batch, cfg)
         inputs[key + "_batch"], inputs[key + "_grad"] = batch, tree_to(torch, grads, "cpu")
@@ -7089,7 +7279,7 @@ def mesh_phase(torch, np, kernels, lm, steps, train_mod, comm, dfw, fa, wkv, get
     inputs["cfgs"] = dict(b=cfg_b, c=cfg_c, d=cfg_d, g=cfg_g, d_configured=dataclasses.replace(
         cfg_d, moe_capacity_factor=get_config(MOE_SCOUT).moe_capacity_factor))
 
-    # (b)-(e) four gloo workers sharing the card, mesh MESH_SHAPE: (b) and
+    # (b)-(d) four gloo workers sharing the card, mesh MESH_SHAPE: (b) and
     # (c) with the unsharded runs' states held here, then (d) without them
     t0 = time.perf_counter()
     free()
@@ -7100,6 +7290,7 @@ def mesh_phase(torch, np, kernels, lm, steps, train_mod, comm, dfw, fa, wkv, get
     for key in ("b_state", "c_state", "b_grad", "c_grad"):
         del inputs[key]
     free()
+    report["workers_bc_s"] = time.perf_counter() - t0
     for o, o_d in zip(outs, dfw.run_workers(MULTI_WORKERS, mesh_rank, args.seed, inputs,
                                             ("d", "g"), backend="gloo", device="cuda"),
                       strict=True):
@@ -7107,6 +7298,59 @@ def mesh_phase(torch, np, kernels, lm, steps, train_mod, comm, dfw, fa, wkv, get
         for k_, v_ in o_d["launches"].items():
             o["launches"][k_] += v_
     report["workers_s"] = time.perf_counter() - t0
+
+    # (e) the hybrid, vlm and audio families at full width: the unsharded
+    # references on the card (step 0's gradient and its spread, the prefill,
+    # one batch-1 decode step from its cache), once (d)'s 16.5 GB gradient
+    # is off the host, then a third spawn (with (d)'s in the same spawn, or
+    # both gradients on the host in (b)-(c)'s, the whole script ran out of
+    # the card machine's 96 GiB of host memory)
+    t_e, fam_cfgs = time.perf_counter(), {}
+    for key in ("g_grad", "g_batch"):
+        del inputs[key]
+    free()
+    for key, arch, layers, shape in MESH_FAMILIES:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype="float32")
+        fam_cfgs[key] = cfg
+        fb, fs = shape
+        prompt = {k: v for k, v in data.device_put_batch(data.SyntheticLMStream(
+            cfg, ShapeSpec("t", "train", fs, fb)).batch_for_step(0), dev).items() if k != "labels"}
+        inputs[key + "_prompt"] = prompt
+        params = lm.init_params(cfg, args.seed, device=dev)
+        with torch.no_grad():
+            out, cache = steps.make_prefill_step(cfg)(params, prompt)
+            refs[key + "_prefill"] = out.cpu()
+            if not cfg.encoder_only:  # the first prompt, a cache of S + 2 (even) positions
+                full = lm.init_cache(cfg, 1, fs + 2, device=dev)
+                for name, t in full.items():
+                    if name in ("k", "v"):
+                        t[:, :, :, :fs] = cache[name][:, :1]
+                    else:
+                        t.copy_(cache[name][:, :1])
+                step = {"tokens": torch.randint(0, cfg.vocab_size, (1, 1), generator=gen,
+                                                device=dev),
+                        "cache_pos": torch.tensor(fs, device=dev)}
+                if cfg.family == "vlm":
+                    step["positions"] = torch.full((1, 3, 1), fs, dtype=torch.int32, device=dev)
+                # a copy on the host: the decode below updates ``full`` in place
+                inputs[key + "_cache1"] = {k: t.clone().cpu() for k, t in full.items()}
+                inputs[key + "_step"] = tree_to(torch, step, "cpu")
+                refs[key + "_decode1"] = steps.make_serve_step(cfg)(params, full, step)[0].cpu()
+                del full
+        del params, cache, out
+        free()
+        unsharded_grad(cfg, key, shape)
+    report["families_refs_s"] = time.perf_counter() - t_e
+    inputs["cfgs"].update(fam_cfgs)
+    t0 = time.perf_counter()
+    for o, o_e in zip(outs, dfw.run_workers(MULTI_WORKERS, mesh_rank, args.seed, inputs,
+                                            tuple(fam_cfgs), backend="gloo", device="cuda"),
+                      strict=True):
+        for key in fam_cfgs:
+            o[key] = o_e[key]
+        for k_, v_ in o_e["launches"].items():
+            o["launches"][k_] += v_
+    report["families_workers_s"] = time.perf_counter() - t0
     del inputs
     free()
     n_data, n_model = MESH_SHAPE
@@ -7145,12 +7389,22 @@ def mesh_phase(torch, np, kernels, lm, steps, train_mod, comm, dfw, fa, wkv, get
         **{f"{k}_params_lr": max((e / lr_1, name) for o in outs for e, name in zip(
             o[k]["state_err"][0], spread[k + "_paths"])) for k in "bc"},
         "d_prefill": err(rows("d", "prefill"), refs["d_prefill"]),
+        **{f"{k}_grad": against_spread(k, [o[k]["grad_err"] for o in outs])
+           for k, *_ in MESH_FAMILIES},
+        **{f"{k}_prefill": err(rows(k, "prefill"), refs[k + "_prefill"])
+           for k, *_ in MESH_FAMILIES},
+        **{f"{k}_decode1": max(err(o[k]["decode1"], refs[k + "_decode1"]) for o in outs)
+           for k in "zv"},
     }
     fa_each = [o["b"]["prefill_launches"]["flash_attention"]
                + o["d"]["prefill_launches"]["flash_attention"]
-               + o["d"]["configured_launches"]["flash_attention"] for o in outs]
+               + o["d"]["configured_launches"]["flash_attention"]
+               + sum(o[k]["prefill_launches"]["flash_attention"] for k in fam_cfgs)
+               for o in outs]
     wkv_each = [o["c"]["prefill_launches"]["wkv6_chunk"] for o in outs]
-    fa_want = cfg_b.num_layers + 2 * cfg_d.num_layers
+    # an attention launch a layer; zamba2's a shared-block application
+    fa_fam = {k: c.num_layers // (c.hybrid_block or 1) for k, c in fam_cfgs.items()}
+    fa_want = cfg_b.num_layers + 2 * cfg_d.num_layers + sum(fa_fam.values())
     wkv_want = cfg_c.num_layers * (ts // min(cfg_c.ssm_chunk, ts))
     share = [o["b"]["param_bytes"] / o["b"]["full_bytes"] for o in outs]
     total = dict.fromkeys(kernels.launches(), 0)
@@ -7158,8 +7412,10 @@ def mesh_phase(torch, np, kernels, lm, steps, train_mod, comm, dfw, fa, wkv, get
         for k_, v_ in o["launches"].items():
             total[k_] += v_
     report.update(errs=errs, flash_launches=fa_each, wkv6_launches=wkv_each, param_share=share,
-                  peak_gb={k: [o[k]["peak_gb"] for o in outs] for k in "bcdg"},
-                  param_gb={k: [o[k]["param_bytes"] / 1e9 for o in outs] for k in "bcdg"},
+                  peak_gb={k: [o[k]["peak_gb"] for o in outs] for k in "bcdgzvh"},
+                  param_gb={k: [o[k]["param_bytes"] / 1e9 for o in outs] for k in "bcdgzvh"},
+                  family_cache1={k: outs[0][k]["cache1_shapes"] for k in "zv"},
+                  part_s={k: round(outs[0][k]["wall_s"], 1) for k in "bcdgzvh"},
                   train_s={k: [o[k]["train_s"] for o in outs] for k in "bc"},
                   tally_per_step={k: outs[0][k]["tally_per_step"] for k in "bc"},
                   losses={k: outs[0][k]["losses"] for k in "bc"},
@@ -7202,7 +7458,17 @@ def mesh_phase(torch, np, kernels, lm, steps, train_mod, comm, dfw, fa, wkv, get
           f"rows routed on their own (worst leaf: error over its bound, error, spread, path) "
           f"{errs['g_grad']}, parameter GB a worker {report['param_gb']['g']}, peak GB "
           f"{report['peak_gb']['g']}")
-    print(f"(e) flash_attention launches a worker {fa_each} (want {fa_want}), wkv6_chunk "
+    for key, arch, layers, (fb, fs) in MESH_FAMILIES:
+        dec = (f"; one batch-1 decode step from a cache of {fs + 2} positions split over the "
+               f"data axis (block {report['family_cache1'][key]['k']}) rel "
+               f"{errs[key + '_decode1']:.2e}") if key in "zv" else ""
+        print(f"(e) {arch} at full width, {layers} layers, f32, mesh {MESH_SHAPE}: step 0's "
+              f"gradient blocks on {fb} x {fs} against the unsharded gradient (worst leaf: "
+              f"error over its bound, error, spread, path) {errs[key + '_grad']}; prefill "
+              f"{fb} x {fs} logits rel {errs[key + '_prefill']:.2e}{dec}; parameter GB a worker "
+              f"{[round(x, 3) for x in report['param_gb'][key]]}, peak GB "
+              f"{report['peak_gb'][key]}")
+    print(f"(f) flash_attention launches a worker {fa_each} (want {fa_want}), wkv6_chunk "
           f"{wkv_each} (want {wkv_want})")
     t0 = time.perf_counter()
     rows_out = mesh_kernel_rows(torch, fa, wkv, kernels, dev, gen, args.reps, peaks)
@@ -7211,15 +7477,19 @@ def mesh_phase(torch, np, kernels, lm, steps, train_mod, comm, dfw, fa, wkv, get
     print(f"phase 33 took {report['wall_s']:.1f} s (the kernels at the shards' operands "
           f"{report['kernel_rows_s']:.1f} s, (a) and the references "
           f"{report['refs_s']:.1f} s, "
-          f"workers {report['workers_s']:.1f} s)")
+          f"workers {report['workers_s']:.1f} s, (b)-(c)'s spawn {report['workers_bc_s']:.1f} s "
+          f"of it; (e)'s references {report['families_refs_s']:.1f} s, its workers "
+          f"{report['families_workers_s']:.1f} s; worker 0's parts {report['part_s']})")
     check(same, "(a) the (1, 1)-mesh train run is not the unsharded run's bits")
-    for key in ("b_prefill", "b_decode4", "b_decode1", "c_prefill", "d_prefill"):
+    for key in ("b_prefill", "b_decode4", "b_decode1", "c_prefill", "d_prefill", "z_prefill",
+                "v_prefill", "h_prefill", "z_decode1", "v_decode1"):
         check(errs[key] <= MESH_TOL["logits"], f"({key[0]}) {key}: rel {errs[key]:.2e} > "
               f"{MESH_TOL['logits']}")
     for key in ("b_losses", "c_losses"):
         check(errs[key] <= MESH_TOL["loss"], f"({key[0]}) {key}: rel {errs[key]:.2e} > "
               f"{MESH_TOL['loss']}")
-    for key in ("b_grad", "b_adam_m", "c_grad", "c_adam_m", "g_grad"):
+    for key in ("b_grad", "b_adam_m", "c_grad", "c_adam_m", "g_grad", "z_grad", "v_grad",
+                "h_grad"):
         check(errs[key][0] <= 1, f"({key[0]}) {key}: a leaf past its bound (error over bound, "
               f"error, spread, path) {errs[key]}")
     for key in ("b_params_lr", "c_params_lr"):
@@ -7227,8 +7497,13 @@ def mesh_phase(torch, np, kernels, lm, steps, train_mod, comm, dfw, fa, wkv, get
               f"{MESH_TOL['params_lr']} lr_1")
     check(all(x <= MESH_TOL["param_share"] for x in share),
           f"(b) a worker holds {max(share):.4f} of the parameters")
-    check(all(n == fa_want for n in fa_each), f"(e) flash_attention launches {fa_each}")
-    check(all(n == wkv_want for n in wkv_each), f"(e) wkv6_chunk launches {wkv_each}")
+    check(all(n == fa_want for n in fa_each), f"(f) flash_attention launches {fa_each}")
+    check(all(n == wkv_want for n in wkv_each), f"(f) wkv6_chunk launches {wkv_each}")
+    for key in "zv":
+        split = report["family_cache1"][key]["k"][3]
+        check(split == (dict((k, s_) for k, _, _, (_, s_) in MESH_FAMILIES)[key] + 2)
+              // MESH_SHAPE[0], f"(e) {key}: the batch-1 kv cache block {split} is not split "
+              "over the data axis")
     check(all(math.isfinite(float(o["d"]["prefill_configured"].abs().max())) for o in outs),
           "(d) logits at the configured capacity not finite")
     return report, total, rows_out
@@ -8018,8 +8293,10 @@ def main(argv=None) -> int:
     for kname in (*TPU_KERNEL, *HELPER_KERNELS, *BLOCK_KERNELS, "update_resid_block",
                   "rank1_update_bf16"):
         rows = [r for r in krows if r["name"] == kname]
+        # a row of several launches (power_iter_step's) is an operand, never
+        # the kernel's main row
         main_row = next((r for r in rows if r.get("main")), None) or max(
-            rows, key=lambda r: r["bytes"])
+            (r for r in rows if "launches_per_call" not in r), key=lambda r: r["bytes"])
         if kname in BLOCK_OF:  # a block form, under the TPU kernel the reference vmaps
             helper = {"form_of": BLOCK_OF[kname]}
             if kname in ("update_resid_block", "update_resid_caller"):

@@ -1,5 +1,6 @@
-// Fused factor-form scoring for the serving path, f32, sm_90a:
+// Fused factor-form scoring for the serving path, sm_90a:
 //     out (b, n_out) = ((X (b, n_in) @ A (r, n_in)^T) * s (r,)) @ B (r, n_out)
+// X, A and B each f32 or bf16, s and out f32, every sum in f32.
 //
 // Replaces src/repro/kernels/factor_matvec/kernel.py: factor_matvec
 // (_factor_matvec_kernel). The factored iterate W = A^T diag(s) B is never
@@ -67,6 +68,15 @@
 //   calls give identical bits.
 // - Ragged b, n_in, r and n_out are masked by the copies and the stores;
 //   nothing is padded in memory.
+// - bf16 operands (X, A, B each on its own, as the reference's kernel takes
+//   any input dtype and accumulates in f32): the kernel reads the 2-byte
+//   elements from global memory itself, four at a time where the rows allow
+//   8-byte loads, and widens each to f32 as it stages it into the same
+//   shared layout (a plain load and store in place of the asynchronous copy;
+//   X and A then never take the copy engine). A bf16 value is exact in TF32,
+//   so its low split is zero and the products are the f32 route's on the
+//   widened operands, in the same order: the same bits as the f32 kernel on
+//   x.float(), a.float(), b.float().
 #include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -107,18 +117,40 @@ struct Smem {
   uint64_t full[kStages];     // a ring stage's copies have landed (copy-engine path)
 };
 
+// Bits of the kernel's `bf16` argument: which operands hold bf16 elements.
+constexpr int kX16 = 1, kA16 = 2, kB16 = 4;
+
+// Four (vec) or one bf16 element(s) at src, widened to f32, stored at dst
+// (16-byte aligned when vec); zeros where !ok. bf16 is the top half of an
+// f32, so the widening is exact.
+__device__ __forceinline__ void stage_bf16(float* dst, const uint16_t* __restrict__ src, bool ok,
+                                           bool vec) {
+  if (vec) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (ok) {
+      const uint2 raw = __ldg(reinterpret_cast<const uint2*>(src));
+      v = make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
+                      __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
+    }
+    *reinterpret_cast<float4*>(dst) = v;
+  } else {
+    *dst = ok ? __uint_as_float(static_cast<uint32_t>(__ldg(src)) << 16) : 0.f;
+  }
+}
+
 // One ring stage: X rows row0.. and A rows k0.. over columns col0..col0+63
 // into slot `slot`. With tensor maps (tma), thread 0 asks the copy engine
 // for the four boxes, zero past every edge of X and A, counted in bytes on
-// the slot's barrier; otherwise cp.async copies of 16 (vec) or 4 bytes into
-// the same swizzled layout, zero past the batch (nx rows), the rank tile (na
-// rows) and col_end, as one group.
+// the slot's barrier; otherwise cp.async copies of 16 (vec) or 4 bytes of an
+// f32 operand, or loads of 4 (vec) or 1 element(s) of a bf16 one widened by
+// stage_bf16, into the same swizzled layout, zero past the batch (nx rows),
+// the rank tile (na rows) and col_end; the copies as one group.
 template <int MT>
 __device__ __forceinline__ void issue_stage(Smem<MT>& sm, int slot, const CUtensorMap* tx,
-                                            const CUtensorMap* ta, const float* __restrict__ x,
-                                            const float* __restrict__ a, int64_t row0, int nx,
+                                            const CUtensorMap* ta, const void* __restrict__ x,
+                                            const void* __restrict__ a, int64_t row0, int nx,
                                             int64_t k0, int na, int64_t n_in, int64_t col0,
-                                            int64_t col_end, bool tma, bool vec) {
+                                            int64_t col_end, bool tma, bool vec, int bf16) {
   constexpr int kRows = Smem<MT>::kRows;
   if (tma) {
     if (threadIdx.x == 0) {
@@ -140,25 +172,31 @@ __device__ __forceinline__ void issue_stage(Smem<MT>& sm, int slot, const CUtens
     const bool is_x = row < kRows;
     const int rr = is_x ? row : row - kRows;
     const bool ok = (is_x ? rr < nx : rr < na) && col0 + col < col_end;
-    const float* src = is_x ? x + (row0 + rr) * n_in + col0 + col : a + (k0 + rr) * n_in + col0 + col;
+    const int64_t at = (is_x ? row0 + rr : k0 + rr) * n_in + col0 + col;
     float* dst = is_x ? &sm.xs[slot][bx][rr][swz(rr, col % kBox)]
                       : &sm.as[slot][bx][rr][swz(rr, col % kBox)];
+    if (bf16 & (is_x ? kX16 : kA16)) {
+      stage_bf16(dst, static_cast<const uint16_t*>(is_x ? x : a) + at, ok, vec);
+      continue;
+    }
+    const float* base = static_cast<const float*>(is_x ? x : a);
     if (vec) {
-      cp_async16(dst, ok ? src : x, ok);
+      cp_async16(dst, ok ? base + at : base, ok);
     } else {
-      cp_async4(dst, ok ? src : x, ok);
+      cp_async4(dst, ok ? base + at : base, ok);
     }
   }
   cp_async_commit();
 }
 
 // B rows k0..k0+nb-1, columns jbeg..jbeg+ncols-1 into bs by cp.async copies
-// of 16 (vec) or 4 bytes, zero past nb rows (up to rt8) and ncols columns,
-// as one group.
+// of 16 (vec) or 4 bytes (f32 B; as one group) or loads of 4 (vec) or 1
+// element(s) widened by stage_bf16 (bf16 B), zero past nb rows (up to rt8)
+// and ncols columns.
 template <int MT>
-__device__ __forceinline__ void issue_b(Smem<MT>& sm, const float* __restrict__ b, int64_t k0,
+__device__ __forceinline__ void issue_b(Smem<MT>& sm, const void* __restrict__ b, int64_t k0,
                                         int nb, int rt8, int64_t n_out, int64_t jbeg, int ncols,
-                                        bool vec) {
+                                        bool vec, bool b16) {
   const int ncols8 = (ncols + 7) & ~7;
   const int step = vec ? 4 : 1;
   const int per_row = ncols8 / step;
@@ -166,11 +204,16 @@ __device__ __forceinline__ void issue_b(Smem<MT>& sm, const float* __restrict__ 
     const int k = i / per_row;
     const int c = (i % per_row) * step;
     const bool ok = k < nb && c < ncols;
-    const float* src = ok ? b + (k0 + k) * n_out + jbeg + c : b;
+    const int64_t at = (k0 + k) * n_out + jbeg + c;
+    if (b16) {
+      stage_bf16(&sm.bs[k][c], static_cast<const uint16_t*>(b) + at, ok, vec);
+      continue;
+    }
+    const float* base = static_cast<const float*>(b);
     if (vec) {
-      cp_async16(&sm.bs[k][c], src, ok);
+      cp_async16(&sm.bs[k][c], ok ? base + at : base, ok);
     } else {
-      cp_async4(&sm.bs[k][c], src, ok);
+      cp_async4(&sm.bs[k][c], ok ? base + at : base, ok);
     }
   }
   cp_async_commit();
@@ -247,11 +290,11 @@ __device__ __forceinline__ void stage2_step(const Smem<MT>& sm, float (&acc)[MT]
 template <int MT>
 __global__ void __launch_bounds__(kThreads, 1)
 factor_matvec_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap ta,
-                     const float* __restrict__ x, const float* __restrict__ a,
-                     const float* __restrict__ s, const float* __restrict__ b,
+                     const void* __restrict__ x, const void* __restrict__ a,
+                     const float* __restrict__ s, const void* __restrict__ b,
                      float* __restrict__ out, int64_t bt, int64_t n_in, int64_t r, int64_t n_out,
                      int chunks, int64_t chunk_width, int64_t out_cols, int tma, int vec_in,
-                     int vec_out) {
+                     int vec_out, int bf16) {
   constexpr int kRows = Smem<MT>::kRows;
   constexpr int kSliceRows = Smem<MT>::kSliceRows;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -299,7 +342,7 @@ factor_matvec_kernel(const __grid_constant__ CUtensorMap tx, const __grid_consta
       auto issue = [&](int it) {
         issue_stage(sm, static_cast<int>((ring_used + it) % kStages), &tx, &ta, x, a, row0, nx,
                     k0, rt, n_in, kbeg + static_cast<int64_t>(it) * kKTile, kend, by_tma,
-                    vec_in != 0);
+                    vec_in != 0, bf16);
       };
 #pragma unroll
       for (int st = 0; st < kStages - 1; ++st) {
@@ -391,7 +434,8 @@ factor_matvec_kernel(const __grid_constant__ CUtensorMap tx, const __grid_consta
     __syncthreads();
     const int64_t jend0 = slice0 + kOutChunk < slice_end ? slice0 + kOutChunk : slice_end;
     if (npass > 0) {
-      issue_b(sm, b, k0, rt, rt8, n_out, slice0, static_cast<int>(jend0 - slice0), vec_out != 0);
+      issue_b(sm, b, k0, rt, rt8, n_out, slice0, static_cast<int>(jend0 - slice0), vec_out != 0,
+              (bf16 & kB16) != 0);
     }
 
     // The chunks' partials meet: this block's rows of T, summed in chunk
@@ -424,7 +468,8 @@ factor_matvec_kernel(const __grid_constant__ CUtensorMap tx, const __grid_consta
       const int ntiles = (static_cast<int>(jend - jbeg) + 7) / 8;
       if (pass > 0) {
         __syncthreads();  // every warp is done with bs
-        issue_b(sm, b, k0, rt, rt8, n_out, jbeg, static_cast<int>(jend - jbeg), vec_out != 0);
+        issue_b(sm, b, k0, rt, rt8, n_out, jbeg, static_cast<int>(jend - jbeg), vec_out != 0,
+                (bf16 & kB16) != 0);
       }
       cp_async_wait<0>();
       __syncthreads();
@@ -450,9 +495,9 @@ factor_matvec_kernel(const __grid_constant__ CUtensorMap tx, const __grid_consta
 constexpr int kMapFailed = 100000;  // + CUresult: a tensor map was refused
 
 template <int MT>
-int launch(const float* x, const float* a, const float* s, const float* b, float* out,
+int launch(const void* x, const void* a, const float* s, const void* b, float* out,
            int64_t bt, int64_t n_in, int64_t r, int64_t n_out, int chunks, int64_t chunk_width,
-           int64_t out_cols, int vec_in, int vec_out, int device, cudaStream_t stream) {
+           int64_t out_cols, int vec_in, int vec_out, int bf16, int device, cudaStream_t stream) {
   static uint64_t smem_set = 0;  // devices whose attribute is set
   const size_t smem = sizeof(Smem<MT>) + 1024;
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
@@ -466,14 +511,17 @@ int launch(const float* x, const float* a, const float* s, const float* b, float
     if (err16 != cudaSuccess) return err16;
     smem_set |= uint64_t{1} << device;
   }
-  // X and A through the copy engine where their rows are 16-byte aligned
+  // X and A through the copy engine where both are f32 and their rows are
+  // 16-byte aligned
   CUtensorMap tx{}, ta{};
-  const int tma = vec_in && n_in > 0;
+  const int tma = vec_in && n_in > 0 && (bf16 & (kX16 | kA16)) == 0;
   if (tma) {
     const EncodeTiledFn encode = encode_tiled();
     if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-    CUresult res = tensor_map(encode, &tx, x, bt, n_in, 16 * MT);
-    if (res == CUDA_SUCCESS) res = tensor_map(encode, &ta, a, r, n_in, kRankTile);
+    CUresult res = tensor_map(encode, &tx, static_cast<const float*>(x), bt, n_in, 16 * MT);
+    if (res == CUDA_SUCCESS) {
+      res = tensor_map(encode, &ta, static_cast<const float*>(a), r, n_in, kRankTile);
+    }
     if (res != CUDA_SUCCESS) return kMapFailed + static_cast<int>(res);
   }
   const int64_t tiles = (bt + 16 * MT - 1) / (16 * MT);
@@ -491,7 +539,7 @@ int launch(const float* x, const float* a, const float* s, const float* b, float
   cfg.numAttrs = 1;
   return static_cast<int>(cudaLaunchKernelEx(&cfg, factor_matvec_kernel<MT>, tx, ta, x, a, s, b,
                                              out, bt, n_in, r, n_out, chunks, chunk_width,
-                                             out_cols, tma, vec_in, vec_out));
+                                             out_cols, tma, vec_in, vec_out, bf16));
 }
 
 }  // namespace
@@ -507,18 +555,21 @@ const char* fm_error_string(int code) {
 // by the launch plan of kernels/factor_matvec/kernel.py: m_tiles (1, 2 or 4)
 // 16-row MMA tiles per batch tile; stage 1 in `chunks` (<= 16) chunks of
 // chunk_width columns of n_in (a multiple of 8); stage 2 in out_cols (a
-// multiple of 8) columns of n_out per block. vec_in is 1 when n_in % 4 == 0
-// and x and a start on 16-byte boundaries (X and A then go through the copy
+// multiple of 8) columns of n_out per block. bf16 says which of x (1), a (2)
+// and b (4) hold bf16 elements (the others f32; s and out are f32). vec_in
+// is 1 when n_in % 4 == 0 and x and a start on boundaries of four elements
+// (16 bytes f32, 8 bytes bf16; two f32 operands then go through the copy
 // engine), vec_out when n_out % 4 == 0 and b does. Needs bt, r >= 1 and
 // bt / (16 m_tiles) < 65536 batch tiles.
-int fm_factor_matvec_f32(const float* x, const float* a, const float* s, const float* b,
-                         float* out, int64_t bt, int64_t n_in, int64_t r, int64_t n_out,
-                         int m_tiles, int chunks, int64_t chunk_width, int64_t out_cols,
-                         int vec_in, int vec_out, int device, void* stream) {
+int fm_factor_matvec(const void* x, const void* a, const float* s, const void* b,
+                     float* out, int64_t bt, int64_t n_in, int64_t r, int64_t n_out,
+                     int m_tiles, int chunks, int64_t chunk_width, int64_t out_cols,
+                     int vec_in, int vec_out, int bf16, int device, void* stream) {
   if (chunks < 1 || chunks > kCluster || chunk_width < 8 || chunk_width % 8 != 0 ||
       out_cols < 8 || out_cols % 8 != 0 || (chunks - 1) * chunk_width >= (n_in > 0 ? n_in : 1) ||
       chunks * chunk_width < n_in || kCluster * out_cols < n_out || n_in >= (int64_t{1} << 31) ||
-      bt >= (int64_t{1} << 31) || r >= (int64_t{1} << 31)) {
+      bt >= (int64_t{1} << 31) || r >= (int64_t{1} << 31) || bf16 < 0 ||
+      bf16 > (kX16 | kA16 | kB16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t err = cudaSetDevice(device);
@@ -527,11 +578,11 @@ int fm_factor_matvec_f32(const float* x, const float* a, const float* s, const f
   int res;
   switch (m_tiles) {
     case 1: res = launch<1>(x, a, s, b, out, bt, n_in, r, n_out, chunks, chunk_width, out_cols,
-                            vec_in, vec_out, device, st); break;
+                            vec_in, vec_out, bf16, device, st); break;
     case 2: res = launch<2>(x, a, s, b, out, bt, n_in, r, n_out, chunks, chunk_width, out_cols,
-                            vec_in, vec_out, device, st); break;
+                            vec_in, vec_out, bf16, device, st); break;
     case 4: res = launch<4>(x, a, s, b, out, bt, n_in, r, n_out, chunks, chunk_width, out_cols,
-                            vec_in, vec_out, device, st); break;
+                            vec_in, vec_out, bf16, device, st); break;
     default: res = static_cast<int>(cudaErrorInvalidValue);
   }
   if (res != 0) return res;

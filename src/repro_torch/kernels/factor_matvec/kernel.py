@@ -66,29 +66,37 @@ def _library():
     global _lib
     if _lib is None:
         lib = _build.library("factor_matvec")
-        lib.fm_factor_matvec_f32.argtypes = (
-            [_P] * 5 + [_I64] * 4 + [_I, _I, _I64, _I64, _I, _I, _I, _P])
-        lib.fm_factor_matvec_f32.restype = ctypes.c_int
+        lib.fm_factor_matvec.argtypes = (
+            [_P] * 5 + [_I64] * 4 + [_I, _I, _I64, _I64, _I, _I, _I, _I, _P])
+        lib.fm_factor_matvec.restype = ctypes.c_int
         lib.fm_error_string.argtypes = [ctypes.c_int]
         lib.fm_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
+def _four_aligned(t: torch.Tensor) -> bool:
+    """Does ``t`` start on a boundary of four of its elements (a 16-byte
+    f32 copy, an 8-byte bf16 load)?"""
+    return t.data_ptr() % (4 * t.element_size()) == 0
+
+
 def factor_matvec(x: torch.Tensor, a: torch.Tensor, s: torch.Tensor, b: torch.Tensor,
                   out: torch.Tensor) -> None:
     """out (bt, n_out) = ((x (bt, n_in) @ a (r, n_in)^T) * s (r,)) @ b (r, n_out);
-    all f32, contiguous, on one CUDA device, bt >= 1 and r >= 1."""
+    x, a and b each f32 or bf16 (read as such by the kernel), s and out f32,
+    all contiguous, on one CUDA device, bt >= 1 and r >= 1."""
     lib = _library()
     bt, n_in = x.shape
     r, n_out = b.shape
     plan = launch_plan(bt, n_in, r, n_out)
-    vec_in = int(n_in % 4 == 0 and x.data_ptr() % 16 == 0 and a.data_ptr() % 16 == 0)
-    vec_out = int(n_out % 4 == 0 and b.data_ptr() % 16 == 0)
-    err = lib.fm_factor_matvec_f32(
+    vec_in = int(n_in % 4 == 0 and _four_aligned(x) and _four_aligned(a))
+    vec_out = int(n_out % 4 == 0 and _four_aligned(b))
+    bf16 = sum(bit for bit, t in ((1, x), (2, a), (4, b)) if t.dtype == torch.bfloat16)
+    err = lib.fm_factor_matvec(
         x.data_ptr(), a.data_ptr(), s.data_ptr(), b.data_ptr(), out.data_ptr(),
         bt, n_in, r, n_out, plan.m_tiles, plan.chunks, plan.chunk_width, plan.out_cols,
-        vec_in, vec_out, x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+        vec_in, vec_out, bf16, x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"factor_matvec launch failed: {lib.fm_error_string(err).decode()}")

@@ -2,7 +2,11 @@
 
 ``factor_matvec(x, a, s, b, alpha=...)`` is ``alpha * ((X @ A^T) * s) @ B``
 for a request batch X (bt, n_in) and a factor triple A (r, n_in), s (r,),
-B (r, n_out), all float32, returning (bt, n_out) float32. Scoring the
+B (r, n_out), returning (bt, n_out) float32. X, A and B may each be float32
+or bfloat16, as the reference's kernel takes any input dtype; s is float32,
+and every sum is taken in f32 (the rank-r intermediate included). The CUDA
+kernel reads bf16 operands from memory as they are: nothing is upcast into
+a copy. Scoring the
 factored iterate ``W = alpha * U^T diag(s) V`` is ``factor_matvec(x, u, s,
 v)`` for ``X @ W`` and ``factor_matvec(x, v, s, u)`` for ``X @ W^T``.
 
@@ -26,10 +30,17 @@ from .._count import launched
 from . import kernel, ref
 
 
-def _matrix(t: torch.Tensor, name: str) -> None:
+OPERAND_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _operand(t: torch.Tensor, name: str, shape=None) -> None:
+    """``t`` a contiguous 2-D float32 or bfloat16 tensor (of ``shape``)."""
     if not isinstance(t, torch.Tensor) or t.dim() != 2:
         raise ValueError(f"{name} must be a 2-D tensor")
-    _checks.dense_f32(t, name, t.shape)
+    dtype = t.dtype if t.dtype in OPERAND_DTYPES else torch.float32
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+    _checks.dense_f32(t, name, t.shape if shape is None else shape, dtype)
 
 
 def factor_matvec(
@@ -37,11 +48,11 @@ def factor_matvec(
     *, alpha: Union[float, torch.Tensor] = 1.0,
 ) -> torch.Tensor:
     """alpha * ((X @ A^T) * s) @ B -> (bt, n_out) float32."""
-    _matrix(x, "x")
-    _matrix(b, "b")
+    _operand(x, "x")
+    _operand(b, "b")
     bt, n_in = x.shape
     r, n_out = b.shape
-    _checks.dense_f32(a, "a", (r, n_in))
+    _operand(a, "a", (r, n_in))
     s = _checks.vector_f32(s, "s", r)
     _checks.same_device(x.device, a=a, s=s, b=b)
     if isinstance(alpha, torch.Tensor):

@@ -1,4 +1,4 @@
 from . import kernel, ops, ref
-from .ops import matmat, matvec, rmatmat, rmatvec
+from .ops import matmat, matvec, power_iter_step, rmatmat, rmatvec
 
-__all__ = ["kernel", "ops", "ref", "matvec", "rmatvec", "matmat", "rmatmat"]
+__all__ = ["kernel", "ops", "ref", "matvec", "rmatvec", "matmat", "rmatmat", "power_iter_step"]

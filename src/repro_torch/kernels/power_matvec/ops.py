@@ -8,10 +8,13 @@ the reference vmaps the vector ops over the k columns: each reads A once per
 32 columns. ``rmatmat``'s partials are (slabs, m, min(k, 32)): its work
 items are (slab of rows, 256-column tile) pairs on one persistent block an
 SM, and the slab height makes the item count a multiple of the block count
-(``_rmatmat_rows_per_slab``). CPU tensors take the plain version
-(``ref.py``); CUDA tensors launch the hand-written kernel
+(``_rmatmat_rows_per_slab``). ``power_iter_step(x, r, v)`` is one
+two-sided power iteration on the implicit A = X^T R: four launches, two of
+``matvec`` and two of ``rmatvec``, each X and R read twice. CPU tensors take
+the plain version (``ref.py``); CUDA tensors launch the hand-written kernel
 (``csrc/power_matvec.cu``) or raise.
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+Each wrapper counts its kernel launches in ``<wrapper>.launches``
+(``power_iter_step``'s are its matvecs' and rmatvecs').
 """
 from __future__ import annotations
 
@@ -138,6 +141,21 @@ def rmatmat(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     kernel.rmatmat(a, u, partial, out, rows)
     launched(rmatmat, out)
     return out
+
+
+def power_iter_step(x: torch.Tensor, r: torch.Tensor,
+                    v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One two-sided power iteration on A = X^T R for X (n, d), R (n, m) and
+    v (m,) or (m, 1), the reference's ``ops.power_iter_step``: t = R v,
+    u = X^T t normalised, s = X u, v' = R^T s normalised (each norm plus
+    1e-30). Returns unit (u (d,), v' (m,)) float32. Four kernel launches on
+    CUDA tensors; the plain versions on the CPU."""
+    t = matvec(r, v)
+    u = rmatvec(x, t)
+    u = u / (torch.linalg.vector_norm(u) + 1e-30)
+    s = matvec(x, u)
+    v2 = rmatvec(r, s)
+    return u, v2 / (torch.linalg.vector_norm(v2) + 1e-30)
 
 
 matvec.launches = 0

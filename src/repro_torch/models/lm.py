@@ -46,13 +46,16 @@ too (the log-sum-exp from a ``pmax`` and a ``psum`` of the shards' parts,
 the gold logit a masked pick and a ``psum``), its mean over the global
 B x S positions; ``value_and_grad`` sums over the data axes the gradients
 of the leaves replicated there, so each worker's gradient is its block of
-the full one. The dense, moe and ssm families run and train under a
-mesh (moe's capacity and Switch loss per data shard, as the reference's); the
-reference's sequence-sharded loss (its ``seq_act`` branch, profiles
-``sp``/``msp``) and the other families raise ``NotYetPorted`` there
-(``parallel.check_mesh``). A decode step at global batch 1 splits the
-cache's sequence dim over the data axes (``layers.decode_attention_seq_
-sharded``; not for ssm, whose state has no sequence dim).
+the full one. Every family runs and trains under a mesh (moe's capacity
+and Switch loss per data shard, as the reference's; the hybrid family's
+Mamba-2 heads over the model axis, ``mamba2``; vlm's vision embeddings and
+M-RoPE positions, audio's frames, split with the batch); the reference's
+sequence-sharded loss (its ``seq_act`` branch, profiles ``sp``/``msp``)
+raises ``NotYetPorted`` there (``parallel.check_mesh``). A decode step at
+global batch 1 splits the kv cache's sequence dim over the data axes
+(``layers.decode_attention_seq_sharded``; not for ssm, whose state has no
+sequence dim; the hybrid family's Mamba-2 state runs whole on every data
+shard).
 
 The embedding lookup is ``F.embedding``, whose gradient sums each row's
 tokens in a fixed order on the card (no atomics), so a training step
@@ -147,8 +150,8 @@ def init_params(cfg: ModelConfig, key: Union[int, torch.Generator] = 0, *,
     dt, d = cfg.torch_dtype, cfg.d_model
     p: Params = {}
     if cfg.family == "audio":
-        p["frame_proj"] = (L.normal(gen, (cfg.frontend_dim, d), dt, dev)
-                           * cfg.frontend_dim**-0.5)
+        p["frame_proj"] = keep(L.normal(gen, (cfg.frontend_dim, d), dt, dev)
+                               * cfg.frontend_dim**-0.5, ("frame_proj",))
     p["embed"] = keep(L.normal(gen, (cfg.vocab_size, d), dt, dev) * d**-0.5, ("embed",))
 
     def ones():
@@ -195,12 +198,14 @@ def _embed_inputs(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConf
     """Returns (h (B, S, D), rope angles (B, S, Dh/2); None for the
     attention-free ssm family and for audio, whose stub position code is
     added to h). audio: ``frames`` (B, S, frontend_dim) cast to the model
-    dtype times ``frame_proj``, plus a sinusoidal code computed in f32 and
-    cast to h's dtype. vlm: the ``vision_embeds`` (cast to the token dtype)
-    ahead of the token embeddings, M-RoPE angles from ``positions`` (B, 3,
-    S)."""
+    dtype times ``frame_proj`` (its D gathered over the data axes where it
+    is split there), plus a sinusoidal code computed in f32 and cast to h's
+    dtype. vlm: the ``vision_embeds`` (cast to the token dtype) ahead of the
+    token embeddings, M-RoPE angles from ``positions`` (B, 3, S); under a
+    mesh both hold the data shard's rows (``local_batch``)."""
     if cfg.family == "audio":
-        h = batch["frames"].to(cfg.torch_dtype) @ params["frame_proj"]
+        proj = parallel.current().fsdp(params["frame_proj"], 1, cfg.d_model)
+        h = batch["frames"].to(cfg.torch_dtype) @ proj
         s, d = h.shape[1], h.shape[2]
         # stub positional encoding (the real model uses a conv pos-embed)
         half = d // 2
@@ -336,13 +341,15 @@ def cache_split(cfg: ModelConfig, par, b_global: int) -> Tuple[str, ...]:
 
 
 def _split_prefill_cache(cache, cfg: ModelConfig, par, b_global: int):
-    """A prefill's kv cache cut on its sequence dim as a decode cache of its
-    global batch is laid out (``cache_split``)."""
+    """A prefill's kv cache (``k``, ``v``) cut on its sequence dim as a
+    decode cache of its global batch is laid out (``cache_split``); the
+    hybrid family's Mamba-2 entries have no sequence dim and stay."""
     _, count, index = par.split(cache_split(cfg, par, b_global))
     if count == 1:
         return cache
-    n = next(iter(cache.values())).shape[3] // count
-    return {k: v.narrow(3, index * n, n).contiguous() for k, v in cache.items()}
+    n = cache["k"].shape[3] // count
+    return {k: v.narrow(3, index * n, n).contiguous() if k in ("k", "v") else v
+            for k, v in cache.items()}
 
 
 def _maybe_remat(fn, cfg: ModelConfig, h, lp):

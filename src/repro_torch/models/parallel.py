@@ -27,9 +27,6 @@ from ..comm import spmd
 from ..launch import sharding
 from ..specs import NotYetPorted
 
-#: Families whose layers run under a mesh; the others raise NotYetPorted.
-MESH_FAMILIES = ("dense", "moe", "ssm")
-
 
 class Par:
     """The active mesh seen from this worker: ``model`` and ``data`` are the
@@ -58,23 +55,57 @@ class Par:
 
     def cols(self, w: torch.Tensor, dim: int, full: int, lo: int, hi: int) -> torch.Tensor:
         """The [lo, hi) block along ``dim`` of a leaf of full size ``full``
-        there, for use sharded over the model axis. A leaf replicated over
-        it is copied in (``spmd.copy``: its gradient summed over the model
-        shards); a sharded leaf is this worker's block itself, or else
-        gathered first (``spmd.gather``)."""
-        n = w.shape[dim]
+        there, for use sharded over the model axis (``pieces``)."""
+        return self.pieces(w, dim, full, ((lo, hi),))
+
+    def pieces(self, w: torch.Tensor, dim: int, full: int, spans) -> torch.Tensor:
+        """The [lo, hi) blocks ``spans`` along ``dim`` of a leaf of full size
+        ``full`` there, concatenated in order (``take``), for use sharded
+        over the model axis. A leaf replicated over it is copied in
+        (``spmd.copy``: its gradient summed over the model shards); a
+        sharded leaf is this worker's block where the spans are exactly that
+        block, or else gathered first (``spmd.gather``: a block a model shard
+        uses gets the sum of their gradients). Whether the gather runs
+        depends on this worker's block, so the caller must make the same
+        choice on every model shard: each asks for its own block, or none
+        does (else the shards' collectives part). A Mamba-2 shard's heads
+        take columns of several blocks of its fused leaves this way."""
+        merged = _merge(spans)
+        n, base = w.shape[dim], 0
         if n == full:
             w = spmd.copy(w, self.model)
-            return w if (lo, hi) == (0, full) else w.narrow(dim, lo, hi - lo)
-        own = self.m_index * n
-        if (lo, hi) == (own, own + n):
-            return w
-        return spmd.gather(w, dim, self.model).narrow(dim, lo, hi - lo)
+        elif merged == [(self.m_index * n, (self.m_index + 1) * n)]:
+            base = self.m_index * n
+        else:
+            w = spmd.gather(w, dim, self.model)
+        return take(w, dim, [(lo - base, hi - base) for lo, hi in merged])
 
     def model_block(self, full: int):
         """(lo, hi) of this model shard's block of ``full`` equal parts."""
         n = full // self.m_size
         return self.m_index * n, (self.m_index + 1) * n
+
+
+def _merge(spans):
+    """``spans`` in order with adjacent ones joined."""
+    merged = []
+    for lo, hi in spans:
+        if merged and merged[-1][1] == lo:
+            merged[-1] = (merged[-1][0], hi)
+        else:
+            merged.append((lo, hi))
+    return merged
+
+
+def take(w: torch.Tensor, dim: int, spans) -> torch.Tensor:
+    """The [lo, hi) blocks ``spans`` of ``w`` along ``dim``, concatenated in
+    order: ``w`` itself where they cover it whole, a view where they are
+    one block (adjacent spans joined first)."""
+    merged = _merge(spans)
+    if merged == [(0, w.shape[dim])]:
+        return w
+    parts = [w.narrow(dim, lo, hi - lo) for lo, hi in merged]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
 
 
 def current() -> Par:
@@ -86,18 +117,15 @@ def current() -> Par:
 
 def check_mesh(cfg) -> None:
     """Raise ``NotYetPorted`` before any device work where the active mesh
-    asks for what the port does not run: a family outside
-    ``MESH_FAMILIES``, a sequence-sharded activation profile (``sp``,
-    ``msp``), or a width that the model axis does not divide (the q
-    columns, the MLP's hidden width, the experts; RWKV-6's D and hidden
-    width). Head counts need not divide it (``layers.head_ranges``)."""
+    asks for what the port does not run: a sequence-sharded activation
+    profile (``sp``, ``msp``), or a width that the model axis does not
+    divide (the q columns, the MLP's hidden width, the experts; RWKV-6's D
+    and hidden width; Mamba-2's heads, conv channels and fused input
+    projection). Attention head counts need not divide it
+    (``layers.head_ranges``). Every family runs under a mesh."""
     mesh = sharding.active_mesh()
     if mesh is None or mesh.size <= 1:
         return
-    if cfg.family not in MESH_FAMILIES:
-        raise NotYetPorted(
-            f"{cfg.name}: family {cfg.family!r} under a mesh is not yet ported to PyTorch "
-            f"(ROADMAP section 1, Sharded LM paths); the port shards {MESH_FAMILIES}")
     if sharding.axes_size("seq_act") > 1:
         raise NotYetPorted(
             f"{cfg.name}: a sequence-sharded activation profile (seq_act over "
@@ -114,6 +142,12 @@ def check_mesh(cfg) -> None:
                 dims["d_ff"] = cfg.moe_dense_ff or cfg.d_ff
         else:
             dims["d_ff"] = cfg.d_ff
+        if cfg.family == "hybrid":
+            from .mamba2 import dims as mamba_dims  # mamba2 imports this module
+
+            d_inner, nh, _, n = mamba_dims(cfg)
+            dims.update({"Mamba-2 heads": nh, "conv channels": d_inner + 2 * n,
+                         "w_in columns": 2 * d_inner + 2 * n + nh})
     bad = {k: v for k, v in dims.items() if v % m}
     if bad:
         raise NotYetPorted(f"{cfg.name}: {bad} not divisible by the model axis ({m}) under "

@@ -7,6 +7,13 @@ runs it, at that file's four shapes (f32). The same numpy inputs go to both.
 Tolerance: rtol 1e-5 with an atol of 1e-6 times max|reference| (f32 sums in
 another order). Bucket padding with s = 0 rows must give the same bits.
 
+bf16 operands (X, A, B each bf16 or f32; s f32): the same four shapes with
+all three in bf16, as tests/test_kernels.py runs the JAX kernel, and the
+mixed cases. Both packages take every product and sum in f32 on exact bf16
+values, so the reference's bf16 tolerance (rtol = atol = 3e-2) is far wider
+than what is measured; the port is held at the f32 tolerance above, and to
+its own f32 route on the widened operands bit for bit.
+
 The CUDA kernel itself is tested on the card by
 ``tests/test_torch_kernels_gpu.py``.
 """
@@ -54,6 +61,38 @@ def test_factor_matvec_matches_jax(bt, n_in, r, n_out):
     _close(got, jfm.factor_matvec(jx, ja, js, jb, alpha=0.7, block_b=32, block_o=64,
                                   interpret=True))
     _close(got, jfm.ref.factor_matvec(jx, ja, 0.7 * js, jb))
+
+
+def _bf16(a: np.ndarray) -> np.ndarray:
+    """``a`` rounded to bf16 and back to f32 (round to nearest even, as
+    both packages round)."""
+    return torch.from_numpy(a).bfloat16().float().numpy()
+
+
+@pytest.mark.parametrize("which", ["xab", "x", "ab", "b"])
+@pytest.mark.parametrize("bt,n_in,r,n_out", SHAPES)
+def test_factor_matvec_bf16_operands_match_jax(bt, n_in, r, n_out, which):
+    """X, A, B in bf16 where named in ``which`` (f32 otherwise) against the
+    JAX kernel in interpret mode given the same bf16 operands and its plain
+    version; the f32 route on the widened operands gives the same bits."""
+    x, a, s, b = _inputs(bt, n_in, r, n_out, seed=6)
+    ops = {"x": x, "a": a, "b": b}
+    for k in which:
+        ops[k] = _bf16(ops[k])
+    tx, ta, ts, tb = _t(ops["x"], ops["a"], s, ops["b"])
+    args = {"x": tx, "a": ta, "b": tb}
+    for k in which:
+        args[k] = args[k].bfloat16()
+    got = fm.factor_matvec(args["x"], args["a"], ts, args["b"], alpha=0.7)
+    assert got.shape == (bt, n_out) and got.dtype == torch.float32
+    assert torch.equal(got, fm.factor_matvec(tx, ta, ts, tb, alpha=0.7))
+    jargs = {k: jnp.asarray(v, jnp.bfloat16 if k in which else jnp.float32)
+             for k, v in ops.items()}
+    want = jfm.factor_matvec(jargs["x"], jargs["a"], jnp.asarray(s), jargs["b"], alpha=0.7,
+                             block_b=32, block_o=64, interpret=True)
+    _close(got, want)
+    _close(got, jfm.ref.factor_matvec(jargs["x"], jargs["a"], 0.7 * jnp.asarray(s), jargs["b"]))
+    _close(fm.ref.factor_matvec(args["x"], args["a"], 0.7 * ts, args["b"]), want)
 
 
 @pytest.mark.parametrize("bt,n_in,r,n_out", SHAPES)
@@ -119,8 +158,10 @@ def test_wrapper_refuses_bad_operands():
     x, a, s, b = _t(*_inputs(5, 24, 4, 11, seed=5))
     with pytest.raises(TypeError, match="float32"):
         fm.factor_matvec(x.double(), a, s, b)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fm.factor_matvec(x, a, s, b.to(torch.float16))
     with pytest.raises(TypeError, match="float32"):
-        fm.factor_matvec(x, a, s, b.to(torch.bfloat16))
+        fm.factor_matvec(x, a, s.to(torch.bfloat16), b)
     with pytest.raises(ValueError, match="contiguous"):
         fm.factor_matvec(torch.randn(24, 5).T, a, s, b)
     with pytest.raises(ValueError, match="shape"):

@@ -1,5 +1,6 @@
 """The port's kernel modules (power_matvec, rank1_update) against the JAX
-package's Pallas kernels and plain versions.
+package's Pallas kernels and plain versions, and ``power_iter_step``, the
+four matvecs of one two-sided power iteration, against the JAX package's.
 
 On the CPU the port's wrappers take their plain PyTorch versions; the JAX
 kernels run in interpret mode at 64x64 blocks, as tests/test_kernels.py runs
@@ -52,6 +53,47 @@ def test_matvec_rmatvec_match_jax(n, m):
     _close(got_mv, jpm.ref.matvec(ja, jv)[:, 0])
     _close(got_rmv, jpm.ops.rmatvec(ja, ju, block_r=64, block_c=64, interpret=True))
     _close(got_rmv, jpm.ref.rmatvec(ja, ju)[:, 0])
+
+
+@pytest.mark.parametrize("n,d,m", [(300, 40, 28), (65, 33, 7), (1, 7, 3)])
+def test_power_iter_step_matches_jax(n, d, m):
+    """At tests/test_kernels.py's shape (300, 40, 28) and two odd ones: unit
+    (u, v') against the JAX ``ops.power_iter_step`` in interpret mode and its
+    ``ref.power_iter_step``, rtol 1e-5 with an atol of 1e-6 of max (f32 sums
+    in other orders; the reference's own test holds its two at 1e-4)."""
+    rng = np.random.default_rng(n + d + m)
+    x = (rng.standard_normal((n, d)) / np.sqrt(d)).astype(np.float32)
+    r = rng.standard_normal((n, m)).astype(np.float32)
+    v = rng.standard_normal(m).astype(np.float32)
+    v /= np.linalg.norm(v)
+    u1, v1 = pm.power_iter_step(*map(torch.from_numpy, (x, r, v)))
+    assert u1.shape == (d,) and v1.shape == (m,) and u1.dtype == torch.float32
+    pu, pv = pm.ref.power_iter_step(*map(torch.from_numpy, (x, r, v.reshape(-1, 1))))
+    assert torch.equal(u1, pu) and torch.equal(v1, pv)
+    jx, jr, jv = map(jnp.asarray, (x, r, v))
+    ju, jv1 = jpm.ops.power_iter_step(jx, jr, jv, interpret=True)
+    _close(u1, ju)
+    _close(v1, jv1)
+    ru, rv = jpm.ref.power_iter_step(jx, jr, jv.reshape(-1, 1))
+    _close(u1, ru[:, 0])
+    _close(v1, rv[:, 0])
+    np.testing.assert_allclose([np.linalg.norm(u1.numpy()), np.linalg.norm(v1.numpy())], 1.0,
+                               rtol=1e-6)
+
+
+def test_power_iter_step_counts_four_launches_and_refuses_bad_inputs():
+    """On the CPU no kernel launches; the inputs are checked as its matvecs
+    check them."""
+    kernels.reset_launches()
+    x, r, v = torch.randn(20, 6), torch.randn(20, 5), torch.randn(5)
+    pm.power_iter_step(x, r, v)
+    assert kernels.launches()["matvec"] == kernels.launches()["rmatvec"] == 0
+    with pytest.raises(TypeError):
+        pm.power_iter_step(x.double(), r, v)
+    with pytest.raises(ValueError):
+        pm.power_iter_step(x, r, torch.randn(6))
+    with pytest.raises(ValueError):
+        pm.power_iter_step(x[:19], r, v)
 
 
 @pytest.mark.parametrize("n,m", SHAPES)

@@ -383,6 +383,62 @@ def test_cuda_factor_matvec_matches_plain(cuda, bt, n_in, r, n_out, aligned):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("bt,n_in,r,n_out", [
+    (64, 2048, 64, 1000), (1, 2048, 32, 1000), (65_536, 2048, 10, 1000), (1024, 1000, 256, 2048),
+    (3, 129, 7, 65), (130, 300, 7, 65), (33, 129, 12, 257), (16, 300, 64, 4100), (2, 0, 3, 5),
+    (20, 4, 70, 16),
+])
+@pytest.mark.parametrize("which", ["xab", "x", "a", "b", "ab"])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_cuda_factor_matvec_bf16_operands(cuda, bt, n_in, r, n_out, which, aligned):
+    """X, A and B in bf16 where named in ``which``: the kernel reads them as
+    they are and widens each element to f32 as it stages it; a bf16 value is
+    exact in TF32 (its low split is zero), so the result is the f32 route's
+    on the widened operands bit for bit, and within the f32 tolerance of the
+    plain version; one launch a call. Misaligned operands start one element
+    past a four-element boundary (the 1- and 4-byte staging paths)."""
+    from repro_torch.kernels import factor_matvec as fm
+
+    def make(shape, bf16):
+        n = int(np.prod(shape))
+        t = torch.randn(n + (0 if aligned else 1), device=cuda)
+        t = t.bfloat16() if bf16 else t
+        return (t if aligned else t[1:]).view(*shape)
+
+    x = make((bt, n_in), "x" in which)
+    a, b = make((r, n_in), "a" in which), make((r, n_out), "b" in which)
+    s = torch.randn(r, device=cuda)
+    before = kernels.launches()["factor_matvec"]
+    got = fm.factor_matvec(x, a, s, b, alpha=0.7)
+    torch.cuda.synchronize()
+    assert kernels.launches()["factor_matvec"] == before + 1
+    assert got.shape == (bt, n_out) and got.dtype == torch.float32
+    wide = [t.float().contiguous() for t in (x, a, b)]
+    assert torch.equal(fm.factor_matvec(wide[0], wide[1], s, wide[2], alpha=0.7), got)
+    _close(got.cpu(), fm.ref.factor_matvec(x, a, 0.7 * s, b).cpu())
+    assert torch.equal(fm.factor_matvec(x, a, s, b, alpha=0.7), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,m", [(300, 40, 28), (65_536, 2048, 1000), (4099, 37, 1001)])
+def test_cuda_power_iter_step_matches_plain(cuda, n, d, m):
+    """Four launches (two matvecs, two rmatvecs), unit vectors within the
+    matvecs' tolerance of the plain version's, identical bits on repeat."""
+    x, r = torch.randn(n, d, device=cuda) / d ** 0.5, torch.randn(n, m, device=cuda)
+    v = torch.randn(m, device=cuda)
+    before = kernels.launches()
+    u1, v1 = pm.power_iter_step(x, r, v / v.norm())
+    torch.cuda.synchronize()
+    after = kernels.launches()
+    assert (after["matvec"] - before["matvec"], after["rmatvec"] - before["rmatvec"]) == (2, 2)
+    pu, pv = pm.ref.power_iter_step(x, r, v / v.norm())
+    _close(u1.cpu(), pu.cpu())
+    _close(v1.cpu(), pv.cpu())
+    u2, v2 = pm.power_iter_step(x, r, v / v.norm())
+    assert torch.equal(u1, u2) and torch.equal(v1, v2)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("live,cap", [(20, 32), (20, 64), (1, 32), (30, 5000), (70, 256)])
 @pytest.mark.parametrize("bt", [1, 20, 64, 300, 600, 1024])
 @pytest.mark.parametrize("n_in,n_out", [(2048, 1000), (1000, 2048), (129, 4100)])

@@ -41,8 +41,8 @@ VARIANTS = (("full", 0), ("no stage-1 MMA", 1), ("no stage-2 MMA", 2), ("loads o
 def instrumented(src: str) -> str:
     """The kernel's source with phase stamps and skip switches."""
     edits = [
-        ("int vec_out) {\n  constexpr int kRows",
-         "int vec_out, long long* dbg, int skip) {\n  constexpr int kRows"),
+        ("int vec_out, int bf16) {\n  constexpr int kRows",
+         "int vec_out, int bf16, long long* dbg, int skip) {\n  constexpr int kRows"),
         ("  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * kRows;\n",
          "  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * kRows;\n  "
          + STAMP % 0 + "\n"),
@@ -64,18 +64,21 @@ def instrumented(src: str) -> str:
          "  }\n}",
          "      write_out<MT>(acc2, out, k0 > 0, row0, bt, n_out, jbeg, jend, ntiles);\n    }\n"
          "  }\n  " + STAMP % 6 + "\n}"),
-        ("int vec_in, int vec_out, int device, cudaStream_t stream) {",
-         "int vec_in, int vec_out, int device, cudaStream_t stream, long long* dbg, int skip) {"),
-        ("out_cols, tma, vec_in, vec_out));", "out_cols, tma, vec_in, vec_out, dbg, skip));"),
-        ("int vec_in, int vec_out, int device, void* stream) {",
-         "int vec_in, int vec_out, int device, void* stream, long long* dbg, int skip) {"),
+        ("int vec_in, int vec_out, int bf16, int device, cudaStream_t stream) {",
+         "int vec_in, int vec_out, int bf16, int device, cudaStream_t stream, long long* dbg, "
+         "int skip) {"),
+        ("out_cols, tma, vec_in, vec_out, bf16));",
+         "out_cols, tma, vec_in, vec_out, bf16, dbg, skip));"),
+        ("int vec_in, int vec_out, int bf16, int device, void* stream) {",
+         "int vec_in, int vec_out, int bf16, int device, void* stream, long long* dbg, "
+         "int skip) {"),
     ]
     for old, new in edits:
         if old not in src:
             sys.exit(f"factor_matvec.cu has changed: no line {old.splitlines()[0]!r}")
         src = src.replace(old, new, 1)
-    return src.replace("vec_in, vec_out, device, st); break;",
-                       "vec_in, vec_out, device, st, dbg, skip); break;")
+    return src.replace("vec_in, vec_out, bf16, device, st); break;",
+                       "vec_in, vec_out, bf16, device, st, dbg, skip); break;")
 
 
 def main() -> int:
@@ -97,8 +100,8 @@ def main() -> int:
                     str(src)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(so))
     P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.fm_factor_matvec_f32.argtypes = [P] * 5 + [I64] * 4 + [I, I, I64, I64, I, I, I, P, P, I]
-    lib.fm_factor_matvec_f32.restype = I
+    lib.fm_factor_matvec.argtypes = [P] * 5 + [I64] * 4 + [I, I, I64, I64, I, I, I, I, P, P, I]
+    lib.fm_factor_matvec.restype = I
     lib.fm_error_string.argtypes, lib.fm_error_string.restype = [I], ctypes.c_char_p
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -126,9 +129,9 @@ def main() -> int:
         stamps = torch.zeros(fm.kernel.CLUSTER * 16, dtype=torch.int64, device=dev)
 
         def call(skip, dbg=None):
-            err = lib.fm_factor_matvec_f32(
+            err = lib.fm_factor_matvec(
                 x.data_ptr(), a.data_ptr(), s.data_ptr(), b.data_ptr(), out.data_ptr(), bt, n_in,
-                r, n_out, plan.m_tiles, plan.chunks, plan.chunk_width, plan.out_cols, 1, 1,
+                r, n_out, plan.m_tiles, plan.chunks, plan.chunk_width, plan.out_cols, 1, 1, 0,
                 dev.index or 0, torch.cuda.current_stream().cuda_stream, dbg, skip)
             if err:
                 raise RuntimeError(f"launch failed: {lib.fm_error_string(err)}")
