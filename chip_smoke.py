@@ -100,8 +100,13 @@ Phases, each fatal on failure (exit code != 0, no result line):
    around the 128-row tiles (Dh 64 and 128): every row up to 4096, the first
    and last 256 query rows beyond; identical bits on repeat; bf16 with Dh 64
    or 128 on the wgmma route, the rest on the generic one, and the count of
-   HGMMA instructions in the built wgmma kernels' SASS (``cuobjdump``).
-   Times of kernel, plain version and scaled_dot_product_attention.
+   HGMMA instructions in the built wgmma kernels' SASS (``cuobjdump``);
+   and a sequence shard's queries at their offset against the whole
+   sequence's keys (``q_offset``: the main shape's last of 16 shards, B 4,
+   Sq 512 at 7,680 of 8,192, bf16; qwen2-1.5b's (2, 2) "sp" shard, Sq 1,024
+   at 1,024 of 2,048, f32 and bf16; zamba2-2.7b's last of 16, Dh 80, bf16;
+   a ragged Sq 300 at 1,000 of 1,300). Times of kernel, plain version and
+   scaled_dot_product_attention (with the offset's boolean mask).
 14. Full-width prefill of qwen2-1.5b (28 layers, d 1536, vocab 151,936,
    bf16; weights drawn on the card from --seed) through
    ``launch.steps.make_prefill_step`` on 4 random prompts of 8,192 tokens:
@@ -354,7 +359,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
    2 layers (full width; a step's checkpoint ~2.8 GB): checkpoints at steps
    5 and 10, a run resumed at 5 gives the uninterrupted run's parameters
    and AdamW state bit for bit. (b) The hybrid optimizer (AdamW + the
-   DFW-Trace head) on codeqwen1.5-7b at full width, 16 of 32 layers, mu
+   DFW-Trace head) on codeqwen1.5-7b at full width, 8 of 32 layers, mu
    100, 2 power iterations, 5 steps: each step matvec and rmatvec 2
    launches and the bf16 rank1_update 1 (device counts); after step 1
    (gamma = 1) the head's trace norm (f64 Gram eigenvalues) at most mu |u|
@@ -392,8 +397,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
    inputs on both paths), the logits' distance printed beside each bf16
    path's distance from the f32 computation, not held (bf16 rounding
    through 63 blocks of a random-init model moves both paths about as far
-   from f32 as from each other). (c) qwen2-vl-72b cut to 32 of its 80 layers
-   (61 GB of bf16 weights; the whole model is 145 GB): first, in f32 at 4
+   from f32 as from each other). (c) qwen2-vl-72b cut to 16 of its 80 layers
+   (33 GB of bf16 weights; the whole model is 145 GB): first, in f32 at 4
    layers, a prefill of 2 x (64 vision embeddings + 63 tokens) and one
    decode step against the full forward's last logits (1e-3); then prefill
    4 x (1,024 vision embeddings + 1,024 tokens) with Qwen2-VL's positions
@@ -423,10 +428,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
    tokens) captured, the step loop's bits, no flash launch; the decode
    floor (every weight read once at the memory rate: each expert runs its
    MLP on its 4 slots). (b) llama4-scout-17b-a16e (16 experts, top-1,
-   vocab 202,048) cut to 16 of 48 layers (4.16 GB a layer, 4.14 GB of
-   embeddings, 3.3 GB of prefill logits: the prefill peaks near 74.6 GB
-   alone; 17 peaked at 78.8 alone and ran out of memory after the earlier
-   phases), the same, capacity 640, a group of 5. (c) ``moe_block`` in f32 on the card against the CPU at D 1024, F
+   vocab 202,048) cut to 8 of 48 layers (4.16 GB a layer, 4.14 GB of
+   embeddings, 3.3 GB of prefill logits; 16 peaked near 74.6 GB alone),
+   the same, capacity 640, a group of 5. (c) ``moe_block`` in f32 on the card against the CPU at D 1024, F
    512, 8192 tokens, arctic's routing (E 128, top-2) and llama4-scout's (E
    16, top-1), router column 0 times 3 so that expert 0 drops tokens:
    picks index for index (a differing pick must sit at a k-th/(k+1)-th
@@ -444,53 +448,66 @@ Phases, each fatal on failure (exit code != 0, no result line):
    replayed decode step.
 33. The sharded LM paths (``launch.mesh``/``sharding``/``params``,
    ``comm.spmd``). (a) ``launch.train.train(mesh_shape=(1, 1))`` over one
-   NCCL worker: qwen2-1.5b whole, bf16, 2 steps of 2 x 2048, its losses,
-   parameters and AdamW m the unsharded run's bits. (b)-(d) a (2, 2)
-   (data, model) mesh on four gloo workers sharing the card (NCCL refuses
-   two ranks on one device: a check, not a timing), in f32 against the
-   unsharded runs on the card from the same --seed: qwen2-1.5b at full
-   width cut to 2 of 28 layers (2 train steps of 4 x 512, losses rtol
-   2e-5; a prefill of 4 x 1024, last logits within 1e-4 of max; a batch-4
-   decode step; 2 sequence-sharded batch-1 decode steps; each worker's
-   share of the parameter bytes at most 0.26, its peak memory, the
-   collectives a train step by kind and bytes), rwkv6-7b cut to 1 of 32
-   layers (2 train steps and a prefill of 4 x 512, ``wkv6_chunk`` on 32
-   of 64 heads), llama4-scout cut to 1 of 48 layers (a prefill of 4 x 512
-   at capacity factor 32, where nothing drops, within 1e-4 of max; at the
-   configured factor each data shard's dropped share by layer; and at the
-   configured factor the gradient at the initial weights
-   on 4 x 512 tokens against one device's gradient with each data
-   shard's rows routed on their own, which is what the mesh computes: its
-   capacity and its Switch loss, averaged over the data shards, are per
-   data shard; that 16.5 GB gradient stays on the host, each worker
-   reading its blocks leaf by leaf). In (b)
-   and (c) each worker holds its blocks of the gradient at the initial
-   weights and of AdamW's m after the steps against the unsharded run's
-   (read over CUDA IPC; (d) runs in a second spawn, once they are freed),
-   each leaf within the larger of 1e-4 and 3x its spread in this run (the
-   unsharded gradient's change when every weight moves by one rounding),
-   and its parameters within 2.1 lr_1 of the unsharded run's (the
-   schedule's one nonzero step, each side). (e) a third spawn: the hybrid,
-   vlm and audio families at full width, f32 (``MESH_FAMILIES``):
-   zamba2-2.7b at one group (6 Mamba-2 layers and the shared block) on 2 x
-   512, qwen2-vl-72b at 1 of 80 layers on 2 x (1,024 vision rows + 512
-   text tokens), hubert-xlarge at 2 of 48 layers on 2 x 512 frames: step
-   0's gradient blocks against the unsharded gradient (held on the host)
-   as in (b)-(d); the prefill (hubert: the encoder's logits) within 1e-4
-   of max of the unsharded one; for zamba2 and qwen2-vl one batch-1 decode
-   step whose kv cache is split on its sequence dim over the data axis,
-   against the unsharded step. (f) every worker launched
-   ``flash_attention`` 8 times and ``wkv6_chunk`` twice
-   (``kernels.Executed``). Then both kernels on the operands the shards
-   give them, as strided views of a worker's projections (f32 as in
-   (b)-(e) and bf16 as the configurations run; Dh 80 at (e)'s zamba2 and
-   hubert shards), against their plain versions at phases 13 and 17's
-   tolerances, with their times: rows of the kernels line. The phase
-   prints its wall time.
+   NCCL worker: qwen2-1.5b at full width cut to 4 of 28 layers, bf16, 2
+   steps of 2 x 2048, its losses, parameters and AdamW m the unsharded
+   run's bits. (b)-(f) one spawn of four gloo workers sharing the card as a
+   (2, 2) (data, model) mesh (NCCL refuses two ranks on one device: a
+   check, not a timing), in f32, the parts in turn, each part's state freed
+   before the next. Worker 0 computes each part's unsharded references on
+   the card from the same --seed (the gradient at the initial weights on
+   step 0's batch and each leaf's spread, the unsharded train run, the
+   prefill and decode logits and the caches the decode steps start from)
+   and keeps the full leaves on the card; every worker maps them through
+   CUDA IPC and cuts the blocks it compares there, so no leaf is staged
+   through the host. (b) qwen2-1.5b at full width cut to 2 of 28
+   layers (2 train steps of 4 x 512, losses rtol 2e-5; a prefill of 4 x
+   1024, last logits within 1e-4 of max; a batch-4 decode step; 2
+   sequence-sharded batch-1 decode steps; each worker's share of the
+   parameter bytes at most 0.26, its peak memory, the collectives a train
+   step by kind and bytes); (c) rwkv6-7b cut to 1 of 32 layers (2 train
+   steps and a prefill of 4 x 512, ``wkv6_chunk`` on 32 of 64 heads); (d)
+   llama4-scout cut to 1 of 48 layers (a prefill of 4 x 512 at capacity
+   factor 32, where nothing drops, within 1e-4 of max; at the configured
+   factor each data shard's dropped share by layer; and at the configured
+   factor the gradient at the initial weights on 4 x 512 tokens against
+   one device's gradient with each data shard's rows routed on their own,
+   which is what the mesh computes: its capacity and its Switch loss,
+   averaged over the data shards, are per data shard; that 16.5 GB
+   gradient, and (e)'s, are computed after the workers' sharded gradients,
+   which hold only their blocks meanwhile, and their spread once the
+   blocks are compared). In (b) and (c) each worker holds its
+   blocks of the gradient at the initial weights and of AdamW's m after the
+   steps against the unsharded run's, each leaf within the larger of 1e-4
+   and 3x its spread in this run (the unsharded gradient's change when
+   every weight moves by one rounding), and its parameters within 2.1 lr_1
+   of the unsharded run's (the schedule's one nonzero step, each side).
+   (e) the hybrid, vlm and audio families at full width, f32
+   (``MESH_FAMILIES``): zamba2-2.7b at one group (6 Mamba-2 layers and the
+   shared block) on 2 x 512, qwen2-vl-72b at 1 of 80 layers on 2 x (1,024
+   vision rows + 512 text tokens), hubert-xlarge at 2 of 48 layers on 2 x
+   512 frames: step 0's gradient blocks as in (b)-(d); the prefill
+   (hubert: the encoder's logits) within 1e-4 of max of the unsharded one;
+   for zamba2 and qwen2-vl one batch-1 decode step whose kv cache is split
+   on its sequence dim over the data axis, against the unsharded step. (f)
+   the sequence-parallel profiles (``use_mesh(mesh, rules_for("sp" |
+   "msp"))``) against (b)'s and (c)'s references: qwen2-1.5b under "sp"
+   and "msp" (step 0's gradient, AdamW m and the parameters after the two
+   steps, the prefill, a batch-4 decode step; the collectives a train step
+   by kind and bytes beside (b)'s "tp" step), rwkv6-7b under "msp" (step
+   0's gradient, the prefill; ``wkv6_chunk`` on the gathered sequence).
+   Every worker launched ``flash_attention`` 12 times (a layer in each
+   prefill) and ``wkv6_chunk`` 4 times (``kernels.Executed``). Then both
+   kernels on the operands the shards give them, as strided views of a
+   worker's projections (f32 as in (b)-(e) and bf16 as the configurations
+   run; Dh 80 at (e)'s zamba2 and hubert shards), against their plain
+   versions at phases 13 and 17's tolerances, with their times: rows of
+   the kernels line. The phase prints its wall time, the spawn's and each
+   part's.
 34. LM training of the moe, hybrid, vlm and audio families (bf16, weights
    drawn on the card from --seed, full width, 2 steps each; what the
    earlier phases hold printed at its start). (a) hubert-xlarge whole on
-   8 x 1,500 frames, (b) zamba2-2.7b whole on 4 x 2,048 tokens, (c)
+   8 x 1,500 frames, (b) zamba2-2.7b cut to 18 of its 54 layers (3 of the
+   shared block's 9 applications) on 4 x 2,048 tokens, (c)
    qwen2-vl-72b cut to 2 of its 80 layers on 4 x 2,048 positions (1,024
    vision embeddings, the loss over the 1,024 text positions), each
    through ``launch.train.train`` (AdamW): losses finite, every parameter
@@ -543,8 +560,11 @@ number to a JSON file. ``--rows``, ``--mc-entries``, ``--lm-batch/--lm-seq/
 (samples, training ratings, prompts, tokens, layers) for a quick check; the
 defaults are the full sizes.
 
-The line before the last is the ``{"kernels": [...]}`` JSON; the last line
-is ``{"ok": true, "device": {...}}``. Without CUDA, or run from a directory
+Each phase ends its ``phase N (...)`` line with its wall seconds; the
+line before the kernels line is ``{"phase_s": {...}, "total_s": ...}``,
+every phase's seconds and the script's. The line before the last is the
+``{"kernels": [...]}`` JSON; the last line is ``{"ok": true, "device":
+{...}}``. Without CUDA, or run from a directory
 without ``src/repro_torch``, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -1856,6 +1876,17 @@ def multi_worker_rank(group, device, jobs, seed):
     return out
 
 
+def graph_jobs(mtls, mc_task, x, y, idx4, yw4, mtls_kw, mc_kw):
+    """Phase 24 (b)'s runs (its exchange graphs on least squares and matrix
+    completion, on phase 22's data and shard layout): (jobs, labels)."""
+    jobs, labels = [], []
+    for kind, task, a, b, kw in (("mtls", mtls, x, y, mtls_kw), ("mc", mc_task, idx4, yw4, mc_kw)):
+        for name, graph in GRAPHS:
+            jobs.append((kind, task, a, b, dict(kw, **graph)))
+            labels.append(f"{kind} {name}")
+    return jobs, labels
+
+
 def multi_worker_phase(torch, np, kernels, dfw, tasks, low_rank, dev, X, Y, mc, seed, args):
     """(b) MULTI_WORKERS gloo workers on the one card, with CUDA tensors
     (gloo stages them through the host): least squares at n = 1,281,164 and
@@ -1866,7 +1897,10 @@ def multi_worker_phase(torch, np, kernels, dfw, tasks, low_rank, dev, X, Y, mc, 
     over 30, the reference's four-worker run leaves its one-process run as
     far as a one-process run on the same ratings in another order does
     (``fits_agree``). The data is made once here and shared with the workers
-    through CUDA IPC. Returns (report, summed launches)."""
+    through CUDA IPC. Phase 24 (b)'s runs share the spawn (the same data,
+    layout and workers: one spawn fewer); their results go to
+    ``graphs_phase``. Returns (report, summed launches, phase 24 (b)'s
+    runs: jobs, labels, each worker's results, the data's shard layout)."""
     idx, yw, (te_rows, te_cols, te_vals), mu = mc
     nw = MULTI_WORKERS
     mtls_kw = dict(mu=1.0, num_epochs=args.epochs, schedule="log", step_size="linesearch")
@@ -1891,9 +1925,14 @@ def multi_worker_phase(torch, np, kernels, dfw, tasks, low_rank, dev, X, Y, mc, 
             ("mc", mc_task, idx4, yw4, dict(mc_kw, comm="int8")),
             ("mc", mc_task, idx4, yw4, dict(mc_kw, sample_prob=0.8))]
     labels = ["mtls dense", "mc dense", "mc int8", "mc dense sample_prob 0.8"]
+    g_jobs, g_labels = graph_jobs(mtls, mc_task, X[:n4], Y[:n4], idx4, yw4, mtls_kw, mc_kw)
     t0 = time.perf_counter()
-    ranks = dfw.run_workers(nw, multi_worker_rank, jobs, seed, backend="gloo", device=dev)
+    ranks = dfw.run_workers(nw, multi_worker_rank, jobs + g_jobs, seed, backend="gloo",
+                            device=dev)
     wall = time.perf_counter() - t0
+    graphs = dict(jobs=g_jobs, labels=g_labels, ranks=[r[len(jobs):] for r in ranks],
+                  idx4=idx4, yw4=yw4)
+    ranks = [r[:len(jobs)] for r in ranks]
     total = dict.fromkeys(kernels.launches(), 0)
     report = dict(wall_s=wall, runs={})
     for i, (label, (kind, _, _, _, kw)) in enumerate(zip(labels, jobs)):
@@ -1962,8 +2001,7 @@ def multi_worker_phase(torch, np, kernels, dfw, tasks, low_rank, dev, X, Y, mc, 
                  f"{row['heldout_rmse_w0']:.4f})" if "heldout_rmse" in row else "")
               + (f"; workers alive an epoch {row['alive_per_epoch']}"
                  if "alive_per_epoch" in row else ""))
-    del idx4, yw4
-    return report, total
+    return report, total, graphs
 
 
 # Phase 23: NAIVE-DFW and SVA (the paper's section 3.1 baselines) at the ImageNet
@@ -2189,7 +2227,7 @@ def graph_agrees(np, label, kind, got, want, final, final_want):
 
 
 def graphs_phase(torch, np, kernels, dfw, comm, tasks, low_rank, NoiseStream, dev, X, Y, mc,
-                 seed, args, dense_ms):
+                 seed, args, dense_ms, graphs):
     """(a) ``topk:16`` through ``fit`` over one NCCL worker against
     ``fit_serial``, least squares (--epochs) and matrix completion at the
     Netflix shapes (--mc-int8-epochs), in turns, the same bits and launches;
@@ -2200,8 +2238,8 @@ def graphs_phase(torch, np, kernels, dfw, comm, tasks, low_rank, NoiseStream, de
     against ``fit_serial`` dense on the same data at the reference's
     tolerances (``graph_agrees``); every worker's launches as its path
     implies; every worker returns worker 0's iterate; the bytes each worker
-    counted equal the analytic ones exactly. Returns (report, summed
-    launches)."""
+    counted equal the analytic ones exactly ((b)'s workers ran in phase 22's
+    spawn: ``graphs``). Returns (report, summed launches)."""
     idx, yw, _, mu = mc
     report = {}
     mtls_kw = dict(mu=1.0, num_epochs=args.epochs, schedule="log", step_size="linesearch")
@@ -2228,8 +2266,7 @@ def graphs_phase(torch, np, kernels, dfw, comm, tasks, low_rank, NoiseStream, de
 
     nw = MULTI_WORKERS
     n4 = X.shape[0] - X.shape[0] % nw
-    idx4, yw4 = dfw.shard_observations(idx[:, 0], idx[:, 1], yw[:, 0], nw, NF_D, m=NF_M)
-    idx4, yw4 = idx4.to(dev), yw4.to(dev)
+    idx4, yw4 = graphs["idx4"], graphs["yw4"]
     t0 = time.perf_counter()
     refs = {}
     for kind, task, x, y, kw in (("mtls", mtls, X[:n4], Y[:n4], mtls_kw),
@@ -2238,14 +2275,8 @@ def graphs_phase(torch, np, kernels, dfw, comm, tasks, low_rank, NoiseStream, de
         refs[kind] = dict(history=res.history, final_loss=res.final_loss)
         del res
         torch.cuda.empty_cache()
-    jobs, labels = [], []
-    for kind, task, x, y, kw in (("mtls", mtls, X[:n4], Y[:n4], mtls_kw),
-                                 ("mc", mc_task, idx4, yw4, mc_kw)):
-        for name, graph in GRAPHS:
-            jobs.append((kind, task, x, y, dict(kw, **graph)))
-            labels.append(f"{kind} {name}")
-    ranks = dfw.run_workers(nw, multi_worker_rank, jobs, seed, backend="gloo", device=dev)
-    report["b"] = dict(wall_s=time.perf_counter() - t0, runs={})
+    jobs, labels, ranks = graphs["jobs"], graphs["labels"], graphs["ranks"]
+    report["b"] = dict(refs_s=time.perf_counter() - t0, runs={})
     for i, (label, (kind, task, _, _, kw)) in enumerate(zip(labels, jobs)):
         got = [r[i] for r in ranks]
         head = got[0]
@@ -2287,7 +2318,7 @@ def graphs_phase(torch, np, kernels, dfw, comm, tasks, low_rank, NoiseStream, de
               + ") + scalar sums; ms an epoch "
               + ", ".join(f"K={k}: {v:.2f}" for k, v in row["ms_per_epoch"].items())
               + " (host staging; a check, not a timing)")
-    del idx4, yw4
+    del idx4, yw4, graphs["idx4"], graphs["yw4"]
     return report, total
 
 
@@ -2767,12 +2798,25 @@ PREFILL_32K = 32768  # models.config.LM_SHAPES["prefill_32k"].seq_len
 FA_HQ, FA_HKV, FA_DH = 12, 2, 128  # qwen2-1.5b's attention
 FA_MAIN = (4, 8192)  # (B, S) of the main path's prefill
 FA_ALL_ROWS = 4096  # up to this S every row is checked and the plain version runs whole
+# a sequence shard's queries at their offset against the whole sequence's keys:
+# (label, B, Hq, Hkv, Sq, q_offset, Dh, dtype); Skv = q_offset + Sq. The last of
+# 16 shards sees S keys, the first S / 16
+FA_OFFSET_OPERANDS = (
+    ("main shape's last of 16 sequence shards", 4, 12, 2, 512, 7680, 128, "bfloat16"),
+    ("qwen2-1.5b (2, 2) sp shard", 2, 12, 2, 1024, 1024, 128, "float32"),
+    ("qwen2-1.5b (2, 2) sp shard", 2, 12, 2, 1024, 1024, 128, "bfloat16"),
+    ("zamba2-2.7b's last of 16 sequence shards", 4, 32, 32, 256, 3840, 80, "bfloat16"),
+    ("ragged rows off the tiles", 1, 4, 2, 300, 1000, 128, "bfloat16"),
+)
 
 
-def attention_pairs(sq: int, skv: int, causal: bool) -> int:
-    """(query, kv) pairs the function scores: all, or top-left causal."""
+def attention_pairs(sq: int, skv: int, causal: bool, q_offset: int = 0) -> int:
+    """(query, kv) pairs the function scores: all, or causal with query row
+    i at kv position ``q_offset`` + i (top-left: 0)."""
     if not causal:
         return sq * skv
+    if q_offset:  # a sequence shard's rows: q_offset + Sq <= Skv
+        return sq * q_offset + sq * (sq + 1) // 2
     n = min(sq, skv)
     return n * (n + 1) // 2 + max(0, sq - skv) * skv
 
@@ -2810,18 +2854,18 @@ def fa_routed(kernels, call, want):
     return out
 
 
-def fa_plain(torch, fa, q, k, v, scale, causal, chunk=1024):
+def fa_plain(torch, fa, q, k, v, scale, causal, chunk=1024, q_offset=0):
     """flash_attention's plain version; past 4096 rows over 1024-row query
     chunks (the whole score matrix would take 13 GB at the main shape, 52 GB
     at 32k)."""
     if q.shape[2] <= FA_ALL_ROWS:
-        return fa.ref.attention(q, k, v, scale=scale, causal=causal)
+        return fa.ref.attention(q, k, v, scale=scale, causal=causal, q_offset=q_offset)
     return torch.cat([fa.ref.attention(q[:, :, i:i + chunk], k, v, scale=scale, causal=causal,
-                                       q_offset=i)
+                                       q_offset=q_offset + i)
                       for i in range(0, q.shape[2], chunk)], dim=2)
 
 
-def fa_error(torch, fa, got, q, k, v, scale, causal):
+def fa_error(torch, fa, got, q, k, v, scale, causal, q_offset=0):
     """Each query row against its own max|plain|, the plain version on the
     f32 upcast: every row up to S = 4096, else the first and last 256 query
     rows. Returns max |kernel - plain|, the worst row's share of its
@@ -2832,7 +2876,7 @@ def fa_error(torch, fa, got, q, k, v, scale, causal):
     diff = worst = 0.0
     for lo, hi in spans:
         want = fa.ref.attention(q[:, :, lo:hi].float(), k.float(), v.float(), scale=scale,
-                                causal=causal, q_offset=lo)
+                                causal=causal, q_offset=q_offset + lo)
         row_diff = (got[:, :, lo:hi].float() - want).abs().amax(-1)
         row_rel = float((row_diff / want.abs().amax(-1).clamp_min(1e-30)).max())
         diff, worst = max(diff, float(row_diff.max())), max(worst, row_rel)
@@ -2840,41 +2884,55 @@ def fa_error(torch, fa, got, q, k, v, scale, causal):
     return diff, worst, row_rel
 
 
-def flash_row(torch, fa, kernels, label, q, k, v, causal, nrep, peaks, main=False):
+def flash_row(torch, fa, kernels, label, q, k, v, causal, nrep, peaks, main=False, q_offset=0):
     """flash_attention at one operand: the route it takes (bf16 with Dh 64
     or 128 on wgmma, the rest generic), each query row held to the plain
     version (``fa_error``; bf16 1e-2, f32 1e-4), the same bits on repeat;
     times of kernel, plain version and scaled_dot_product_attention (median
-    of ``nrep``) beside the bound. Returns the kernels line's row."""
+    of ``nrep``; with ``q_offset``, a sequence shard's rows, SDPA with the
+    boolean mask of that offset) beside the bound. Returns the kernels
+    line's row."""
     bw, f32_peak, bf16_peak = peaks[:3]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     b, hq, s, dh = q.shape
     hkv, skv, dtype = k.shape[1], k.shape[2], q.dtype
     scale = dh ** -0.5
     route = "wgmma" if dtype == torch.bfloat16 and dh in (64, 128) else "generic"
-    got = fa_routed(kernels, lambda: fa.flash_attention(q, k, v, scale=scale, causal=causal),
-                    route)
+
+    def kernel():
+        return fa.flash_attention(q, k, v, scale=scale, causal=causal, q_offset=q_offset)
+
+    got = fa_routed(kernels, kernel, route)
     torch.cuda.synchronize()
-    err_abs, err_rel, err_last = fa_error(torch, fa, got, q, k, v, scale, causal)
+    err_abs, err_rel, err_last = fa_error(torch, fa, got, q, k, v, scale, causal, q_offset)
     tol = TOL["flash_attention_bf16" if dtype == torch.bfloat16 else "flash_attention"]
     check(math.isfinite(err_rel) and err_rel <= tol,
           f"flash_attention {label}: row-relative err {err_rel:.3e} > {tol:.0e}")
-    check(torch.equal(fa.flash_attention(q, k, v, scale=scale, causal=causal), got),
-          f"flash_attention {label} is not bit-stable")
+    check(torch.equal(kernel(), got), f"flash_attention {label} is not bit-stable")
     del got
     esize = torch.tensor([], dtype=dtype).element_size()
     nbytes = esize * (2 * b * hq * s * dh + 2 * b * hkv * skv * dh)
-    nflops = 4 * dh * b * hq * attention_pairs(s, skv, causal)
+    nflops = 4 * dh * b * hq * attention_pairs(s, skv, causal, q_offset)
     peak = bf16_peak if dtype == torch.bfloat16 else f32_peak
+    if q_offset:
+        mask = (torch.arange(skv, device=q.device)[None, :]
+                <= q_offset + torch.arange(s, device=q.device)[:, None])
+
+        def library():
+            return sdpa(q, k, v, attn_mask=mask, enable_gqa=True, scale=scale)
+    else:
+        def library():
+            return sdpa(q, k, v, is_causal=causal, enable_gqa=True, scale=scale)
     row = dict(
         name="flash_attention", operand=f"{label}: B={b} Hq={hq} Hkv={hkv} S={s} Dh={dh} "
-        f"{'causal' if causal else 'full'} {str(dtype)[6:]}",
+        f"{'causal' if causal else 'full'} {str(dtype)[6:]}"
+        + (f", rows at {q_offset} of Skv={skv}" if q_offset else ""),
         shape=[b, hq, hkv, s, skv, dh], max_abs_err=err_abs, max_rel_err=err_rel,
-        last_rows_rel_err=err_last, tol=tol,
-        ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, scale=scale, causal=causal), nrep),
-        plain_ms=time_ms(torch, lambda: fa_plain(torch, fa, q, k, v, scale, causal), nrep),
-        library_ms=time_ms(torch, lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True,
-                                               scale=scale), nrep),
+        last_rows_rel_err=err_last, tol=tol, q_offset=q_offset,
+        ms=time_ms(torch, kernel, nrep),
+        plain_ms=time_ms(torch, lambda: fa_plain(torch, fa, q, k, v, scale, causal,
+                                                 q_offset=q_offset), nrep),
+        library_ms=time_ms(torch, library, nrep),
         bound_ms=1e3 * max(nbytes / bw, nflops / peak),
         bound_by="bytes" if nbytes / bw >= nflops / peak else "operations",
         bytes=nbytes, flops=nflops, main=main, route=route)
@@ -2957,9 +3015,19 @@ def flash_kernel_phase(torch, fa, kernels, _build, dev, gen, reps, peaks):
                 check(torch.equal(fa.flash_attention(q, k, v, scale=dh ** -0.5,
                                                      causal=causal), got),
                       f"flash_attention bf16 Sq {sq} Skv {skv} Dh {dh} is not bit-stable")
+    # a sequence shard's rows against the whole sequence's keys (the "sp"
+    # profile's prefill): query row i at kv position q_offset + i
+    for label, b, hq, hkv, sq, q_offset, dh, dtype in FA_OFFSET_OPERANDS:
+        dt = getattr(torch, dtype)
+        q = inputs(b, hq, hkv, sq, sq, dh, dt)[0]
+        k, v = inputs(b, hkv, hkv, q_offset + sq, q_offset + sq, dh, dt)[1:]
+        rows_out.append(flash_row(torch, fa, kernels, label, q, k, v, True, reps, peaks,
+                                  q_offset=q_offset))
+        del q, k, v
+    torch.cuda.empty_cache()
     print("flash_attention matches its plain version at the main path's shape, at 32k, "
-          "non-causal, at odd f32 shapes (generic route) and ragged bf16 ones (wgmma route); "
-          "bit-stable")
+          "non-causal, at odd f32 shapes (generic route) and ragged bf16 ones (wgmma route), "
+          "and at sequence shards' query offsets; bit-stable")
     return rows_out, counts
 
 
@@ -5662,7 +5730,7 @@ TRAIN_SHAPE = (4, 2048)  # (B, S) of every phase-30 train step
 TRAIN_STEPS = 10
 TRAIN_RESUME_LAYERS, TRAIN_RESUME_AT = 2, 5  # (a)'s resume at a depth cut: ~2.8 GB a step
 HYBRID_ARCH = "codeqwen1_5_7b"  # untied head (4096 x 92,416)
-HYBRID_LAYERS = 16  # of 32: 53.7 GB of training state
+HYBRID_LAYERS = 8  # of 32: ~29 GB of training state
 HYBRID_STEPS, HYBRID_MU, HYBRID_ITERS = 5, 100.0, 2
 HYBRID_CHECK_STEP = 1  # the step whose head update is held to the plain chain (gamma 2/3)
 SSM_TRAIN_LAYERS, SSM_TRAIN_STEPS = 8, 2  # rwkv6-7b at full width: 8 of 32 layers
@@ -6120,7 +6188,7 @@ AUDIO_XCHECK = (2, 300)  # the f32 encoder check against the plain attention pat
 HYBRID_SERVE_ARCH = "zamba2_2_7b"  # 54 Mamba-2 layers, d 2560; a shared block (32 x 80) x 9
 HYBRID_SERVE_SHAPE = (4, 4096)  # prompts x tokens of the prefill
 VLM_ARCH = "qwen2_vl_72b"  # d 8192, Hq 64 / Hkv 8, Dh 128, d_ff 29,568, M-RoPE (16, 24, 24)
-VLM_LAYERS = 32  # of 80: 61 GB of bf16 weights (the whole model is 145 GB)
+VLM_LAYERS = 16  # of 80: 33 GB of bf16 weights (the whole model is 145 GB)
 VLM_SHAPE = (4, 1024, 1024)  # prompts x (vision embeddings: a 32 x 32 patch grid, text tokens)
 VLM_XCHECK = (4, 64, 64)  # the f32 check: layers (24 GB of f32 weights), vision, text
 # flash_attention at the three prefills' operands: (label, B, Hq, Hkv, S, Dh, causal), bf16
@@ -6444,7 +6512,7 @@ def families_phase(torch, np, kernels, lm, steps, lm_serve, fa, mamba2, get_conf
     del batch
     free()
     # generate takes the published config (80 layers): its cache holds 80
-    # layers, of which decode writes the 32 the weights have
+    # layers, of which decode writes the VLM_LAYERS the weights have
     rep["decode"], launches = captured_decode(
         torch, np, kernels, lm, steps, lm_serve, VLM_ARCH, get_config(VLM_ARCH), params, dev,
         args.seed, "qwen2-vl decode", "flash_attention")
@@ -6478,9 +6546,9 @@ def families_phase(torch, np, kernels, lm, steps, lm_serve, fa, mamba2, get_conf
 MOE_ARCTIC = "arctic_480b"  # d 7168, Hq 56 / Hkv 8 of 128, 128 experts (top-2) of 4864, dense residual
 MOE_ARCTIC_LAYERS = 2  # of 35: 27.2 GB a layer (26.8 of experts); 3 would be 82.6 GB with the embeddings
 MOE_SCOUT = "llama4_scout_17b_a16e"  # d 5120, Hq 40 / Hkv 8 of 128, 16 experts (top-1) of 8192
-MOE_SCOUT_LAYERS = 16  # of 48: 4.16 GB a layer + 4.14 GB of embeddings + 3.3 GB of prefill logits;
-# the prefill peaks near 74.6 GB alone; at 17 (78.8 alone) it ran out of the card's memory
-# after the earlier phases (1.16 GB still held, 3.9 GiB reserved but unallocated)
+MOE_SCOUT_LAYERS = 8  # of 48: 4.16 GB a layer + 4.14 GB of embeddings + 3.3 GB of prefill logits
+# (16 peaked near 74.6 GB alone; 17, at 78.8 alone, ran out of the card's memory after the
+# earlier phases)
 MOE_SHAPE = (4, 2048)  # prompts x tokens of both prefills: n = 8192 routed tokens
 MOE_XCHECK = ((128, 2), (16, 1))  # (E, k) of the card-against-CPU check: arctic's, llama4-scout's
 MOE_XCHECK_WIDTH = (1024, 512)  # (D, F) of that check; n = 8192 tokens
@@ -6736,8 +6804,15 @@ MESH_SHAPE = (2, 2)  # (data, model): four gloo workers sharing the card
 # layers and 16 batch-1 steps, (c) 2 layers, (d) 2 layers; when (e) came in,
 # from (b)-(d) 4 x 1024 train and moe tokens, a (b) prefill of 4 x 2048 and 4
 # batch-1 steps (with those the script took 1142 s on an H100 80GB HBM3 at
-# 700 W; every model here was at its least depth already)
-MESH_ONE_SHAPE, MESH_STEPS = (2, 2048), 2  # (a) qwen2-1.5b full depth, bf16, one NCCL worker
+# 700 W; every model here was at its least depth already); when (f) came in,
+# (a) from 28 layers to MESH_ONE_LAYERS (full width), and (b)-(f) went into
+# one spawn with the references on worker 0; then the references stayed on the
+# card (read through CUDA IPC), (g) and (e) took their sharded gradient first,
+# and four earlier paths were cut in depth: phase 30 (b) HYBRID_LAYERS 16 -> 8,
+# phase 31 (c) VLM_LAYERS 32 -> 16, phase 32 MOE_SCOUT_LAYERS 16 -> 8, phase 34
+# (b) zamba2-2.7b 54 -> 18 (PERF.md section 4 has the seconds each saved)
+MESH_ONE_SHAPE, MESH_STEPS = (2, 2048), 2  # (a) qwen2-1.5b, bf16, one NCCL worker
+MESH_ONE_LAYERS = 4  # (a) of 28, full width
 MESH_DENSE_LAYERS = 2  # (b) qwen2-1.5b at full width, 2 of 28 layers, f32
 MESH_TRAIN_SHAPE = (4, 512)  # (b), (c) train steps, (c) prefill, (d) step 0's gradient
 MESH_PREFILL_SHAPE = (4, 1024)  # (b) prefill and the batch-4 decode step after it
@@ -6747,6 +6822,9 @@ MESH_MOE_LAYERS = 1  # (d) llama4-scout at full width, 1 of 48 layers, f32
 MESH_MOE_SHAPE = (4, 512)
 MESH_NO_DROP = 32.0  # (d) a capacity factor under which no token drops
 MESH_MOE_GRAD_LAYERS = 1  # (d) step 0's gradient: llama4-scout, 1 of 48 layers, f32 (16.5 GB)
+# (f) the sequence-parallel profiles on (b)'s and (c)'s configurations and
+# against their references: qwen2-1.5b under "sp" and "msp", rwkv6-7b under "msp"
+MESH_SP_PROFILES = {"b": ("sp", "msp"), "c": ("msp",)}
 # (e) the hybrid, vlm and audio families on the (2, 2) mesh, f32, full width,
 # one worker spawn: (key, arch, layers, (B, S) of step 0's batch and of the
 # prefill). zamba2 one group (6 Mamba-2 layers and the shared block); qwen2-vl
@@ -6835,16 +6913,64 @@ def _mesh_nbytes(tree):
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
-def mesh_rank(group, device, seed, inputs, parts):
+def release_host_cache(torch):
+    """Return the caching host allocator's free pinned blocks to the system
+    (torch names the call ``_host_emptyCache``, in later versions
+    ``_accelerator_emptyHostCache``); the name called, or None."""
+    if not torch.cuda.is_available():
+        return None
+    for name in ("_host_emptyCache", "_accelerator_emptyHostCache"):
+        fn = getattr(torch._C, name, None)
+        if fn is not None:
+            fn()
+            return name
+    return None
+
+
+def host_rss_gb() -> float:
+    """This process's resident host memory (GB), from /proc/self/status."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+def _spec_list(specs):
+    """A spec tree's specs in ``tree_leaves``' order (dict keys sorted)."""
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in _spec_list(specs[k])]
+    if isinstance(specs, list):
+        return [s for sub in specs for s in _spec_list(sub)]
+    return [specs]
+
+
+def mesh_rank(group, device, seed, spec):
     """One worker of phase 33 (module level: run_workers starts it by name):
-    ``parts`` of (b)-(d) on this worker's blocks of a MESH_SHAPE mesh; host
-    results."""
-    import functools
+    the parts of (b)-(f) in turn on this worker's blocks of a MESH_SHAPE
+    mesh, each part's state freed before the next. Worker 0 first computes
+    (in (g) and (e) after the sharded gradient: ``grad_then_ref``), while
+    the others wait at a barrier (holding nothing on the card, or only
+    their gradient blocks: each part's unsharded model may need most of
+    it), a part's unsharded
+    references on the card from the same seed (the
+    gradient at the initial weights and its spread, the unsharded train
+    run's state, the prefill and decode logits and the caches the decode
+    steps start from), and keeps the full leaves on the card: every worker
+    reads them in place through CUDA IPC (``publish``) and cuts its blocks
+    on the card, so no leaf goes through the host; the caches go to every
+    worker whole (``share``). Host results; worker 0's hold the references'
+    logits and losses."""
+    import contextlib
     import gc
+    import pickle
+    from multiprocessing.reduction import ForkingPickler
 
     import torch
+    import torch.distributed as dist
+    import torch.multiprocessing  # noqa: F401  (registers the CUDA IPC reductions)
 
-    from repro_torch import kernels
+    from repro_torch import data, kernels
     from repro_torch.launch import mesh as M
     from repro_torch.launch import params as P
     from repro_torch.launch import sharding, steps
@@ -6854,188 +6980,460 @@ def mesh_rank(group, device, seed, inputs, parts):
     from repro_torch.optim.compression import tree_leaves
 
     mesh = M.make_mesh(MESH_SHAPE, ("data", "model"), group)
-    out = {"coords": mesh.coords, "launches": dict.fromkeys(kernels.launches(), 0)}
-    cuda = device.type == "cuda"
-    n_steps, train_shape = inputs["steps"], inputs["train_shape"]
-    prompt, n_one = inputs["b_toks"].shape[1], inputs["b_dec"].shape[0]
+    lead = group.rank == 0
+    cfgs, n_steps = spec["cfgs"], MESH_STEPS
+    out = {"coords": mesh.coords, "launches": dict.fromkeys(kernels.launches(), 0),
+           "refs": {}, "spread": {}}
+    refs = out["refs"]
 
     def free():
         gc.collect()
-        if cuda:
-            torch.cuda.empty_cache()
-
-    def reset_peak():
-        if cuda:
-            torch.cuda.reset_peak_memory_stats(device)
+        torch.cuda.ipc_collect()  # worker 0: the references the others let go of
+        torch.cuda.empty_cache()
+        # gloo stages CUDA tensors through pinned host buffers, which the
+        # caching host allocator keeps: over the parts of one spawn they
+        # would pile up past the card machine's host memory
+        release_host_cache(torch)
 
     def peak_gb():
-        return torch.cuda.max_memory_allocated(device) / 1e9 if cuda else None
+        return torch.cuda.max_memory_allocated(device) / 1e9
+
+    def card_used_gb():  # every process's memory on the card
+        free_b, total_b = torch.cuda.mem_get_info(device)
+        return (total_b - free_b) / 1e9
 
     def ran_add(ran):
         for k_, v_ in ran.launches.items():
             out["launches"][k_] += v_
 
-    def train_run(cfg, shape, ref_state):
-        """The sharded train run: (losses, seconds, collectives a step, the
-        worst leaf's max |block - the unsharded run's block| over that
-        block's max |.|, for the parameters and for AdamW's m)."""
+    def batch_of(cfg, shape):  # step 0's global batch, made alike on every worker
+        return data.device_put_batch(data.SyntheticLMStream(cfg, ShapeSpec(
+            "t", "train", shape[1], shape[0])).batch_for_step(0), device)
+
+    def tokens(cfg, shape, salt):  # random prompts, alike on every worker
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed + salt)
+        return torch.randint(0, cfg.vocab_size, shape, generator=gen, device=device)
+
+    def share(tree):
+        """Worker 0's dict of device tensors on every worker (None elsewhere)."""
+        meta = [None if tree is None else {k: (tuple(v.shape), v.dtype) for k, v in tree.items()}]
+        dist.broadcast_object_list(meta, src=0)
+        return {k: group.broadcast(tree[k].contiguous() if lead else torch.empty(
+            shape, dtype=dt, device=device), 0) for k, (shape, dt) in meta[0].items()}
+
+    def publish(tree):
+        """Worker 0's ``tree`` of card tensors on every worker (the others
+        pass None): the same memory, mapped through CUDA IPC, no copy. Each
+        worker drops its views before the part ends; worker 0's ``free``
+        then returns the memory. One pickle a worker: each pickle counts one
+        holder of worker 0's memory, and each worker's views release one."""
+        marks["published"] = time.perf_counter()
+        blobs = [[bytes(ForkingPickler.dumps(tree)) for _ in range(1, mesh.size)]
+                 if lead else None]
+        dist.broadcast_object_list(blobs, src=0)
+        return tree if lead else pickle.loads(blobs[0][group.rank - 1])
+
+    def leaf_errs(mine, full, specs, relative=True):
+        """Per leaf of this worker's blocks ``mine`` (``tree_leaves``' order;
+        on the card or the host): max |block - the reference's block|, over
+        the latter's max where ``relative``. ``full``: worker 0's full leaves on the card
+        (``publish``), cut to this worker's block on the card."""
+        errs = []
+        for g, w, sp in zip(mine, full, _spec_list(specs), strict=True):
+            w = P.local_block(w, sp, mesh)
+            d = (g.to(device) - w).abs().max()
+            errs.append(float(d / w.abs().max().clamp_min(1e-30) if relative else d))
+            del w
+        return errs
+
+    def ref_grad(key, cfg, batch, per_data_shard=False, spread=True):
+        """Worker 0: the unsharded gradient at the initial weights on
+        ``batch`` (leaves on the card) and each leaf's path, and with
+        ``spread`` each leaf's spread (``ref_spread``); with
+        ``per_data_shard`` each data shard's rows routed on their own (what
+        the mesh computes)."""
+        params = lm.init_params(cfg, seed, device=device)
+        ctx = (moe_per_data_shard(torch, moe, MESH_SHAPE[0]) if per_data_shard
+               else contextlib.nullcontext())
+        with ctx:
+            _, grads = lm.value_and_grad(params, batch, cfg)
+        full = tree_leaves(grads)
+        out["spread"][key + "_paths"] = _leaf_paths(grads)
+        del grads, params
+        free()
+        if spread:
+            ref_spread(key, cfg, batch, full, per_data_shard)
+        return full
+
+    def ref_spread(key, cfg, batch, full, per_data_shard=False):
+        """Worker 0: each leaf's spread, the change of the gradient ``full``
+        when every weight moves by one rounding."""
+        params = lm.init_params(cfg, seed, device=device)
+        pgen = torch.Generator(device=device)
+        pgen.manual_seed(seed + 1)
+        for t in tree_leaves(params):
+            t.copy_(t.double() * (1 + MESH_ROUNDING * torch.randn(
+                t.shape, generator=pgen, device=device, dtype=torch.float64)))
+        ctx = (moe_per_data_shard(torch, moe, MESH_SHAPE[0]) if per_data_shard
+               else contextlib.nullcontext())
+        with ctx:
+            _, moved = lm.value_and_grad(params, batch, cfg)
+        out["spread"][key] = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                              for a, b in zip(tree_leaves(moved), full, strict=True)]
+        del params, moved
+        free()
+
+    def ref_train(key, cfg, shape):
+        """Worker 0: the unsharded train run's losses and (params, AdamW m)
+        as leaves on the card."""
+        p, o, h = train_mod.train(arch=cfg.name, cfg=cfg, steps=n_steps, seq_len=shape[1],
+                                  global_batch=shape[0], device=device, seed=seed, log_every=1)
+        refs[key + "_losses"] = [v for _, v in h]
+        state = (tree_leaves(p), tree_leaves(o.m))
+        del p, o
+        free()
+        return state
+
+    def specs_of(cfg, rules):
+        with sharding.use_mesh(mesh, rules):
+            return lm.param_specs(cfg)
+
+    def local_grads(cfg, rules, batch):
+        """This worker's gradient blocks at its initial blocks under
+        ``rules`` (``tree_leaves``' order) and the specs."""
+        specs = specs_of(cfg, rules)
+        with sharding.use_mesh(mesh, rules):
+            params = P.init_local_params(cfg, seed, mesh, device=device, specs=specs)
+            _, grads = lm.value_and_grad(params, batch, cfg)
+        mine = tree_leaves(grads)
+        del params, grads
+        return mine, specs
+
+    def grad_errs(cfg, rules, batch, full):
+        """The gradient at this worker's initial blocks under ``rules``
+        against the reference's blocks."""
+        mine, specs = local_grads(cfg, rules, batch)
+        return leaf_errs(mine, full, specs)
+
+    def grad_then_ref(key, cfg, batch, refs_fn=None, per_data_shard=False):
+        """(g), (e): the sharded gradient first, each worker keeping only its
+        blocks (on the host), then worker 0's unsharded gradient (with ``refs_fn()``'s
+        references before it), read through IPC, then its spread once the
+        others have let go: a 13.6 or 16.5 GB reference does not fit on the
+        card beside four sharded runs. Returns (per-leaf errors, this
+        worker's peak GB in its sharded run)."""
+        torch.cuda.reset_peak_memory_stats(device)
+        mine, specs = local_grads(cfg, sharding.rules_for("tp"), batch)
+        peak = peak_gb()
+        # the blocks wait on the host: on the card they can pin whole
+        # segments of the caching allocator that the reference needs
+        mine = [t.cpu() for t in mine]
+        free()
+        dist.barrier()  # the card is worker 0's, beside the blocks
+        full = None
+        if lead:
+            if refs_fn is not None:
+                refs_fn()
+            full = ref_grad(key, cfg, batch, per_data_shard, spread=False)
+        dist.barrier()
+        errs = leaf_errs(mine, publish(full), specs)
+        del mine
+        free()
+        dist.barrier()  # every view dropped
+        if lead:
+            ref_spread(key, cfg, batch, full, per_data_shard)
+        del full
+        free()
+        return errs, peak
+
+    def train_run(cfg, rules, shape, state, full_grad):
+        """The sharded train run: (losses, seconds, collectives a step by
+        kind, per-leaf errors of the parameters (absolute) and of AdamW's m
+        (relative) against the unsharded run's, and of its first step's
+        gradient, the one at the initial weights on step 0's batch, against
+        ``full_grad``'s blocks: the step computes it, so no separate
+        forward and backward does)."""
+        grads0, value_and_grad = [], lm.value_and_grad
+
+        def first_grads(*args, **kwargs):
+            out = value_and_grad(*args, **kwargs)
+            if not grads0:
+                grads0.append([g.clone() for g in tree_leaves(out[1])])
+            return out
+
         before = group.tally.snapshot()
         t0 = time.perf_counter()
-        params, opt, hist = train_mod.train(
-            arch=cfg.name, cfg=cfg, steps=n_steps, seq_len=shape[1], global_batch=shape[0],
-            device=device, seed=seed, log_every=1, mesh_shape=MESH_SHAPE, group=group)
-        if cuda:
-            torch.cuda.synchronize(device)
+        lm.value_and_grad = first_grads
+        try:
+            with sharding.use_mesh(None, rules):
+                params, opt, hist = train_mod.train(
+                    arch=cfg.name, cfg=cfg, steps=n_steps, seq_len=shape[1],
+                    global_batch=shape[0], device=device, seed=seed, log_every=1,
+                    mesh_shape=MESH_SHAPE, group=group)
+        finally:
+            lm.value_and_grad = value_and_grad
+        torch.cuda.synchronize(device)
         seconds = time.perf_counter() - t0
         after = group.tally.snapshot()
-        per_step = {k: {kind: (after[k][kind] - before[k][kind]) / n_steps
-                        for kind in after[k]} for k in after}
-        errs = [leaf_errs(cfg, params, ref_state[0], relative=False),
-                leaf_errs(cfg, opt.m, ref_state[1])]
-        return [v for _, v in hist], seconds, per_step, errs
+        per_step = {k: {kind: (after[k][kind] - before[k][kind]) / n_steps for kind in after[k]}
+                    for k in after}
+        specs = specs_of(cfg, rules)
+        errs = [leaf_errs(tree_leaves(params), state[0], specs, relative=False),
+                leaf_errs(tree_leaves(opt.m), state[1], specs)]
+        del params, opt
+        grad_err = leaf_errs(grads0.pop(), full_grad, specs)
+        free()
+        return [v for _, v in hist], seconds, per_step, errs, grad_err
 
-    def leaf_errs(cfg, got, full, relative=True):
-        """Per leaf (``tree_leaves``' order) of a tree of this worker's blocks
-        ``got``: max |block - full's block|, over that block's max |.| where
-        ``relative``."""
-        with sharding.use_mesh(mesh):
-            specs = lm.param_specs(cfg)
-        # each block cut from ``full`` (the card's, or the host's, leaf by leaf
-        # to the card) only when compared, so one block is held at a time
-        cuts = P.map_specs(lambda leaf, spec: functools.partial(P.local_block, leaf, spec, mesh),
-                           full, specs)
-        out_ = []
-        for g, cut in zip(tree_leaves(got), tree_leaves(cuts), strict=True):
-            w = cut().to(g.device)
-            d = (g - w).abs().max()
-            out_.append(float(d / w.abs().max().clamp_min(1e-30) if relative else d))
-            del w
-        return out_
-
-    def grad_err(cfg, params, key):
-        """The gradient at these (initial) blocks on step 0's global batch
-        against the unsharded gradient's blocks."""
-        with sharding.use_mesh(mesh):
-            _, grads = lm.value_and_grad(params, inputs[key + "_batch"], cfg)
-        return leaf_errs(cfg, grads, inputs[key + "_grad"])
-
-    def prefill(cfg, params, toks, label):
-        batch = toks if isinstance(toks, dict) else {"tokens": toks}
-        with sharding.use_mesh(mesh), torch.no_grad(), kernels.Executed(device) as ran:
+    def prefill(cfg, rules, params, batch, label):
+        with sharding.use_mesh(mesh, rules), torch.no_grad(), kernels.Executed(device) as ran:
             last, cache = steps.make_prefill_step(cfg)(params, batch)
         ran_add(ran)
         return last.cpu(), cache, {label: dict(ran.launches), label + "_routes": {
             k: dict(v) for k, v in ran.routes.items()}}
 
-    def dense_part(cfg):  # (b) qwen2-1.5b at full width, MESH_DENSE_LAYERS of 28, f32
-        reset_peak()
-        params = P.init_local_params(cfg, seed, mesh, device=device)
-        b = {"param_bytes": _mesh_nbytes(params),
-             "full_bytes": _mesh_nbytes(lm.init_params(cfg, device="meta")),
-             "grad_err": grad_err(cfg, params, "b")}
-        free()
-        b["prefill"], _, ran = prefill(cfg, params, inputs["b_toks"], "prefill_launches")
-        b.update(ran)
-        serve = steps.make_serve_step(cfg)
-        s4, s1 = inputs["b_cache4"]["k"].shape[3], inputs["b_cache1"]["k"].shape[3]
-        with sharding.use_mesh(mesh), torch.no_grad():
-            c4 = steps.local_cache(inputs["b_cache4"], cfg, ShapeSpec("d", "decode", s4, 4))
-            b["cache4_shape"] = tuple(c4["k"].shape)
-            b["decode4"] = serve(params, c4, {"tokens": inputs["b_next"], "cache_pos":
-                                              torch.tensor(prompt, device=device)})[0].cpu()
-            del c4
-            c1 = steps.local_cache(inputs["b_cache1"], cfg, ShapeSpec("d", "decode", s1, 1))
-            b["cache1_shape"] = tuple(c1["k"].shape)
-            t0 = time.perf_counter()
-            b["decode1"] = [serve(params, c1, {"tokens": inputs["b_dec"][t].view(1, 1),
-                                               "cache_pos": torch.tensor(prompt + t,
-                                                                         device=device)}
-                                  )[0].cpu() for t in range(n_one)]
-            if cuda:
-                torch.cuda.synchronize(device)
-            b["decode1_ms"] = 1e3 * (time.perf_counter() - t0) / n_one
-        del params, c1
-        free()
-        b["losses"], b["train_s"], b["tally_per_step"], b["state_err"] = train_run(
-            cfg, train_shape, inputs["b_state"])
-        b["peak_gb"] = peak_gb()
-        return b
+    def serve_rows(cfg, rules, params, full, length, batch):
+        """One decode step from this worker's block of the shared cache
+        ``full`` (a decode cache of ``length`` positions at the batch's
+        size)."""
+        with sharding.use_mesh(mesh, rules), torch.no_grad():
+            c = steps.local_cache({k: v.clone() for k, v in full.items()}, cfg,
+                                  ShapeSpec("d", "decode", length, batch["tokens"].shape[0]))
+            logits = steps.make_serve_step(cfg)(params, c, batch)[0].cpu()
+        return logits, tuple(c["k"].shape)
 
-    def ssm_part(cfg):  # (c) rwkv6-7b at full width, 2 of 32 layers, f32
-        reset_peak()
-        params = P.init_local_params(cfg, seed, mesh, device=device)
-        c = {"param_bytes": _mesh_nbytes(params), "grad_err": grad_err(cfg, params, "c")}
-        free()
-        c["prefill"], cache, ran = prefill(cfg, params, inputs["c_toks"], "prefill_launches")
-        c.update(ran)
-        c["state_shape"] = tuple(cache["s"].shape)
-        del params, cache
-        free()
-        c["losses"], c["train_s"], c["tally_per_step"], c["state_err"] = train_run(
-            cfg, train_shape, inputs["c_state"])
-        c["peak_gb"] = peak_gb()
-        return c
+    def dense_part(cfg):
+        """(b) qwen2-1.5b at full width, MESH_DENSE_LAYERS of 28, f32, under
+        "tp"; then (f) the same under "sp" and "msp", against the same
+        references."""
+        pb, sb = MESH_PREFILL_SHAPE
+        toks, nxt = tokens(cfg, (pb, sb), 7), tokens(cfg, (pb, 1), 8)
+        dec = tokens(cfg, (MESH_DECODE_ONE,), 9)
+        batch = batch_of(cfg, MESH_TRAIN_SHAPE)
+        full_grad = state = caches = None
+        if lead:
+            full_grad = ref_grad("b", cfg, batch)
+            state = ref_train("b", cfg, MESH_TRAIN_SHAPE)
+            params = lm.init_params(cfg, seed, device=device)
+            with torch.no_grad():
+                last, cache = steps.make_prefill_step(cfg)(params, {"tokens": toks})
+                refs["b_prefill"] = last.cpu()
+                caches = {}
+                for key, rows, length in (("4", slice(None), sb + 1),
+                                          ("1", slice(0, 1), sb + MESH_DECODE_ONE)):
+                    c = lm.init_cache(cfg, rows.stop or pb, length, device=device)
+                    for name in c:
+                        c[name][:, :, :, :sb] = cache[name][:, rows]
+                    caches.update({f"{name}{key}": t for name, t in c.items()})
+                del cache
+                serve = steps.make_serve_step(cfg)
+                c4 = {n: caches[n + "4"].clone() for n in ("k", "v")}
+                refs["b_decode4"] = serve(params, c4, {"tokens": nxt, "cache_pos": torch.tensor(
+                    sb, device=device)})[0].cpu()
+                c1 = {n: caches[n + "1"].clone() for n in ("k", "v")}
+                refs["b_decode1"] = [serve(params, c1, {"tokens": dec[t].view(1, 1),
+                                                        "cache_pos": torch.tensor(sb + t,
+                                                                                  device=device)}
+                                           )[0].cpu() for t in range(MESH_DECODE_ONE)]
+            del params, c4, c1
+            free()
+        dist.barrier()  # the card is worker 0's until its references are freed
+        caches = share(caches)
+        full_grad, state = publish((full_grad, state))
+        full4 = {n: caches[n + "4"] for n in ("k", "v")}
+        full1 = {n: caches[n + "1"] for n in ("k", "v")}
+        res = {}
+        for profile in ("tp", *MESH_SP_PROFILES["b"]):
+            rules = sharding.rules_for(profile)
+            torch.cuda.reset_peak_memory_stats(device)
+            r = {}
+            specs = specs_of(cfg, rules)
+            with sharding.use_mesh(mesh, rules):
+                params = P.init_local_params(cfg, seed, mesh, device=device, specs=specs)
+            r["param_bytes"] = _mesh_nbytes(params)
+            r["prefill"], _, ran = prefill(cfg, rules, params, {"tokens": toks},
+                                           "prefill_launches")
+            r.update(ran)
+            r["decode4"], r["cache4_shape"] = serve_rows(cfg, rules, params, full4, sb + 1, {
+                "tokens": nxt, "cache_pos": torch.tensor(sb, device=device)})
+            if profile == "tp":  # the sequence-sharded batch-1 steps
+                r["full_bytes"] = _mesh_nbytes(lm.init_params(cfg, device="meta"))
+                with sharding.use_mesh(mesh, rules), torch.no_grad():
+                    c1 = steps.local_cache({k: v.clone() for k, v in full1.items()}, cfg,
+                                           ShapeSpec("d", "decode", sb + MESH_DECODE_ONE, 1))
+                    r["cache1_shape"] = tuple(c1["k"].shape)
+                    serve = steps.make_serve_step(cfg)
+                    t0 = time.perf_counter()
+                    r["decode1"] = [serve(params, c1, {"tokens": dec[t].view(1, 1), "cache_pos":
+                                                       torch.tensor(sb + t, device=device)}
+                                          )[0].cpu() for t in range(MESH_DECODE_ONE)]
+                    torch.cuda.synchronize(device)
+                    r["decode1_ms"] = 1e3 * (time.perf_counter() - t0) / MESH_DECODE_ONE
+                del c1
+            del params
+            free()
+            (r["losses"], r["train_s"], r["tally_per_step"], r["state_err"],
+             r["grad_err"]) = train_run(cfg, rules, MESH_TRAIN_SHAPE, state, full_grad)
+            r["peak_gb"] = peak_gb()
+            res[profile] = r
+        del full4, full1, caches
+        return res
+
+    def ssm_part(cfg):
+        """(c) rwkv6-7b at full width, MESH_SSM_LAYERS of 32, f32, under
+        "tp" (gradient, prefill, train), then (f) under "msp" (gradient,
+        prefill): wkv6_chunk on the gathered sequence's 32 of 64 heads."""
+        toks = tokens(cfg, MESH_TRAIN_SHAPE, 10)
+        batch = batch_of(cfg, MESH_TRAIN_SHAPE)
+        full_grad = state = None
+        if lead:
+            full_grad = ref_grad("c", cfg, batch)
+            state = ref_train("c", cfg, MESH_TRAIN_SHAPE)
+            params = lm.init_params(cfg, seed, device=device)
+            with torch.no_grad():
+                refs["c_prefill"] = steps.make_prefill_step(cfg)(params, {"tokens": toks}
+                                                                 )[0].cpu()
+            del params
+            free()
+        dist.barrier()
+        full_grad, state = publish((full_grad, state))
+        res = {}
+        for profile in ("tp", *MESH_SP_PROFILES["c"]):
+            rules = sharding.rules_for(profile)
+            torch.cuda.reset_peak_memory_stats(device)
+            r = {}
+            if profile != "tp":  # "tp"'s comes with its train run
+                r["grad_err"] = grad_errs(cfg, rules, batch, full_grad)
+                free()
+            with sharding.use_mesh(mesh, rules):
+                params = P.init_local_params(cfg, seed, mesh, device=device,
+                                             specs=specs_of(cfg, rules))
+            r["param_bytes"] = _mesh_nbytes(params)
+            r["prefill"], cache, ran = prefill(cfg, rules, params, {"tokens": toks},
+                                               "prefill_launches")
+            r.update(ran)
+            r["state_shape"] = tuple(cache["s"].shape)
+            del params, cache
+            free()
+            if profile == "tp":
+                (r["losses"], r["train_s"], r["tally_per_step"], r["state_err"],
+                 r["grad_err"]) = train_run(cfg, rules, MESH_TRAIN_SHAPE, state, full_grad)
+            r["peak_gb"] = peak_gb()
+            res[profile] = r
+        return res
 
     def moe_part(cfg):
-        """(d) llama4-scout at full width, 2 of 48 layers, f32: no drops, then
-        the configured capacity factor with each layer's drops on this data
-        shard."""
-        reset_peak()
-        params = P.init_local_params(cfg, seed, mesh, device=device)
+        """(d) llama4-scout at full width, 1 of 48 layers, f32: the prefill at
+        a capacity factor where nothing drops, then at the configured one
+        with each layer's drops on this data shard."""
+        toks = tokens(cfg, MESH_MOE_SHAPE, 11)
+        if lead:
+            params = lm.init_params(cfg, seed, device=device)
+            with torch.no_grad():
+                refs["d_prefill"] = steps.make_prefill_step(cfg)(params, {"tokens": toks}
+                                                                 )[0].cpu()
+            del params
+            free()
+        dist.barrier()
+        marks["published"] = time.perf_counter()  # the references are host logits here
+        rules = sharding.rules_for("tp")
+        torch.cuda.reset_peak_memory_stats(device)
+        params = P.init_local_params(cfg, seed, mesh, device=device, specs=specs_of(cfg, rules))
         d = {"param_bytes": _mesh_nbytes(params)}
-        d["prefill"], _, ran = prefill(cfg, params, inputs["d_toks"], "prefill_launches")
+        d["prefill"], _, ran = prefill(cfg, rules, params, {"tokens": toks}, "prefill_launches")
         d.update(ran)
         with moe_drops(torch, moe) as log:
-            d["prefill_configured"], _, ran = prefill(inputs["cfgs"]["d_configured"], params,
-                                                      inputs["d_toks"], "configured_launches")
-            d["drops"] = [(float(share), int(busiest), cap) for share, busiest, cap in log]
+            d["prefill_configured"], _, ran = prefill(cfgs["d_configured"], rules, params,
+                                                      {"tokens": toks}, "configured_launches")
+            d["drops"] = [(float(share_), int(busiest), cap) for share_, busiest, cap in log]
         d.update(ran)
         d["peak_gb"] = peak_gb()
         return d
 
     def moe_grad_part(cfg):
         """(d) llama4-scout at full width, 1 of 48 layers, f32: the gradient
-        at the initial weights on step 0's batch, at the configured
-        capacity factor, against ``moe_per_data_shard``'s unsharded one."""
-        reset_peak()
-        params = P.init_local_params(cfg, seed, mesh, device=device)
-        g = {"param_bytes": _mesh_nbytes(params), "grad_err": grad_err(cfg, params, "g")}
-        g["peak_gb"] = peak_gb()
-        return g
+        at the initial weights on step 0's batch, at the configured capacity
+        factor, against one device's with each data shard's rows routed on
+        their own."""
+        batch = batch_of(cfg, MESH_MOE_SHAPE)
+        errs, peak = grad_then_ref("g", cfg, batch, per_data_shard=True)
+        return {"grad_err": errs, "peak_gb": peak}
 
     def family_part(key):
         """(e) one of MESH_FAMILIES at full width, f32: step 0's gradient
         blocks against the unsharded gradient's; the prefill (hubert: the
         encoder's logits); for zamba2 and qwen2-vl one batch-1 decode step,
         the kv cache's sequence split over the data axis."""
-        cfg = inputs["cfgs"][key]
-        reset_peak()
-        params = P.init_local_params(cfg, seed, mesh, device=device)
-        f = {"param_bytes": _mesh_nbytes(params), "grad_err": grad_err(cfg, params, key)}
-        free()
-        f["prefill"], _, ran = prefill(cfg, params, inputs[key + "_prompt"], "prefill_launches")
+        cfg = cfgs[key]
+        fb, fs = dict((k, s_) for k, _, _, s_ in MESH_FAMILIES)[key]
+        batch = batch_of(cfg, (fb, fs))
+        prompt = {k: v for k, v in batch.items() if k != "labels"}
+        step = {"tokens": tokens(cfg, (1, 1), 12), "cache_pos": torch.tensor(fs, device=device)}
+        if cfg.family == "vlm":
+            step["positions"] = torch.full((1, 3, 1), fs, dtype=torch.int32, device=device)
+        cache1 = None
+
+        def serve_refs():  # worker 0, before its gradient
+            nonlocal cache1
+            params = lm.init_params(cfg, seed, device=device)
+            with torch.no_grad():
+                last, cache = steps.make_prefill_step(cfg)(params, prompt)
+                refs[key + "_prefill"] = last.cpu()
+                if not cfg.encoder_only:  # the first prompt, a cache of S + 2 (even) positions
+                    cache1 = lm.init_cache(cfg, 1, fs + 2, device=device)
+                    for name, t in cache1.items():
+                        if name in ("k", "v"):
+                            t[:, :, :, :fs] = cache[name][:, :1]
+                        else:
+                            t.copy_(cache[name][:, :1])
+                    c = {k: t.clone() for k, t in cache1.items()}
+                    refs[key + "_decode1"] = steps.make_serve_step(cfg)(params, c, step)[0].cpu()
+                    del c
+            del params, cache, last
+            free()
+
+        errs, peak = grad_then_ref(key, cfg, batch, refs_fn=serve_refs)
+        f = {"grad_err": errs}
+        if not cfg.encoder_only:
+            cache1 = share(cache1)
+        rules = sharding.rules_for("tp")
+        torch.cuda.reset_peak_memory_stats(device)
+        params = P.init_local_params(cfg, seed, mesh, device=device, specs=specs_of(cfg, rules))
+        f["param_bytes"] = _mesh_nbytes(params)
+        f["prefill"], _, ran = prefill(cfg, rules, params, prompt, "prefill_launches")
         f.update(ran)
         if not cfg.encoder_only:
-            full = inputs[key + "_cache1"]
-            length = full["k"].shape[3]
-            with sharding.use_mesh(mesh), torch.no_grad():
-                c1 = steps.local_cache({k: v.to(device) for k, v in full.items()}, cfg,
-                                       ShapeSpec("d", "decode", length, 1))
+            with sharding.use_mesh(mesh, rules), torch.no_grad():
+                c1 = steps.local_cache(cache1, cfg, ShapeSpec("d", "decode", fs + 2, 1))
                 f["cache1_shapes"] = {k: tuple(v.shape) for k, v in c1.items()}
-                step = {k: v.to(device) for k, v in inputs[key + "_step"].items()}
                 f["decode1"] = steps.make_serve_step(cfg)(params, c1, step)[0].cpu()
-            del c1
-        f["peak_gb"] = peak_gb()
+            del c1, cache1
+        f["peak_gb"] = max(peak, peak_gb())
         del params
         return f
 
-    for key, part in (("b", dense_part), ("c", ssm_part), ("d", moe_part), ("g", moe_grad_part),
-                      *((k, lambda _, k=k: family_part(k)) for k, *_ in MESH_FAMILIES)):
-        if key in parts:
-            t0 = time.perf_counter()
-            out[key] = part(inputs["cfgs"][key])
-            out[key]["wall_s"] = time.perf_counter() - t0
-            free()
+    parts = (("b", dense_part), ("c", ssm_part), ("d", moe_part), ("g", moe_grad_part),
+             *((k, lambda _, k=k: family_part(k)) for k, *_ in MESH_FAMILIES))
+    marks = {}
+    for key, part in parts:
+        t0 = time.perf_counter()
+        marks.clear()
+        out[key] = part(cfgs.get(key))
+        free()
+        dist.barrier()  # every worker has dropped its views of worker 0's references
+        free()
+        out[key + "_wall_s"] = time.perf_counter() - t0
+        out[key + "_ref_s"] = marks.get("published", t0) - t0
+        out[key + "_rss_gb"] = host_rss_gb()
+        if lead:
+            print(f"phase 33 worker 0: part ({key}) took {out[key + '_wall_s']:.1f} s (its "
+                  f"references {out[key + '_ref_s']:.1f} s); card memory in use after it "
+                  f"{card_used_gb():.2f} GB; host "
+                  f"memory after it {out[key + '_rss_gb']:.2f} GB (pinned cache released by "
+                  f"{release_host_cache(torch)})", flush=True)
+    if not lead:
+        del out["refs"], out["spread"]
     return out
 
 
@@ -7125,9 +7523,6 @@ def mesh_phase(torch, np, kernels, lm, steps, train_mod, comm, dfw, fa, wkv, get
 
     import torch.distributed as dist
 
-    from repro_torch import data
-    from repro_torch.models import moe
-    from repro_torch.models.config import ShapeSpec
     from repro_torch.optim import schedule
     from repro_torch.optim.compression import tree_leaves
 
@@ -7143,9 +7538,10 @@ def mesh_phase(torch, np, kernels, lm, steps, train_mod, comm, dfw, fa, wkv, get
         torch.cuda.empty_cache()
 
     # (a) train(mesh_shape=(1, 1)) over one NCCL worker against the unsharded
-    # steps: qwen2-1.5b at full width and depth, bf16, the same bits
+    # steps: qwen2-1.5b at full width, MESH_ONE_LAYERS of 28, bf16, the same bits
     b, s = MESH_ONE_SHAPE
-    kw = dict(arch=LM_ARCH, smoke=False, steps=MESH_STEPS, seq_len=s, global_batch=b,
+    cfg_a = dataclasses.replace(get_config(LM_ARCH), num_layers=MESH_ONE_LAYERS)
+    kw = dict(arch=LM_ARCH, cfg=cfg_a, steps=MESH_STEPS, seq_len=s, global_batch=b,
               log_every=1, device=dev, seed=args.seed)
     t0 = time.perf_counter()
     p0, o0, h0 = train_mod.train(**kw)
@@ -7166,197 +7562,38 @@ def mesh_phase(torch, np, kernels, lm, steps, train_mod, comm, dfw, fa, wkv, get
     free()
     report["a"] = dict(losses=[v for _, v in h0], mesh_losses=[v for _, v in h1], same_bits=same,
                        wall_s=time.perf_counter() - t0)
-    print(f"(a) {LM_ARCH} (28 layers, bf16) launch.train.train over one NCCL worker with "
-          f"mesh_shape=(1, 1), {MESH_STEPS} steps of {b} x {s}: losses {report['a']['mesh_losses']}"
-          f" against the unsharded {report['a']['losses']}; parameters and AdamW m the same "
-          f"bits: {same}")
+    print(f"(a) {LM_ARCH} ({MESH_ONE_LAYERS} of 28 layers, full width, bf16) launch.train.train "
+          f"over one NCCL worker with mesh_shape=(1, 1), {MESH_STEPS} steps of {b} x {s}: losses "
+          f"{report['a']['mesh_losses']} against the unsharded {report['a']['losses']}; "
+          f"parameters and AdamW m the same bits: {same}")
 
-    # the unsharded references on the card, f32, from the same seed
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(args.seed)
-    inputs, refs = {}, {}
+    # (b)-(f): one spawn of four gloo workers sharing the card; worker 0
+    # computes each part's references (mesh_rank)
     cfg_b = dataclasses.replace(get_config(LM_ARCH), num_layers=MESH_DENSE_LAYERS,
                                 dtype="float32")
-    pb, sb = MESH_PREFILL_SHAPE
-    params = lm.init_params(cfg_b, args.seed, device=dev)
-    inputs["b_toks"] = torch.randint(0, cfg_b.vocab_size, (pb, sb), generator=gen, device=dev)
-    inputs["b_next"] = torch.randint(0, cfg_b.vocab_size, (pb, 1), generator=gen, device=dev)
-    inputs["b_dec"] = torch.randint(0, cfg_b.vocab_size, (MESH_DECODE_ONE,), generator=gen,
-                                    device=dev)
-    prefill, serve = steps.make_prefill_step(cfg_b), steps.make_serve_step(cfg_b)
-    with torch.no_grad():
-        last, cache = prefill(params, {"tokens": inputs["b_toks"]})
-        refs["b_prefill"] = last.cpu()
-        for key, rows, length in (("b_cache4", slice(None), sb + 1),
-                                  ("b_cache1", slice(0, 1), sb + MESH_DECODE_ONE)):
-            full = lm.init_cache(cfg_b, rows.stop or pb, length, device=dev)
-            for name in full:
-                full[name][:, :, :, :sb] = cache[name][:, rows]
-            inputs[key] = full
-        del cache
-        c4 = {k: v.clone() for k, v in inputs["b_cache4"].items()}
-        refs["b_decode4"] = serve(params, c4, {"tokens": inputs["b_next"], "cache_pos":
-                                               torch.tensor(sb, device=dev)})[0].cpu()
-        c1 = {k: v.clone() for k, v in inputs["b_cache1"].items()}
-        refs["b_decode1"] = [serve(params, c1, {"tokens": inputs["b_dec"][t].view(1, 1),
-                                                "cache_pos": torch.tensor(sb + t, device=dev)}
-                                   )[0].cpu() for t in range(MESH_DECODE_ONE)]
-    del params, c4, c1
-    free()
-    tb, ts = MESH_TRAIN_SHAPE
-
-    spread = {}
-
-    def unsharded_grad(cfg, key, shape=MESH_TRAIN_SHAPE):
-        """The gradient at the initial weights on step 0's batch of ``shape``
-        (B, S), and each leaf's spread: its change when every weight moves by
-        one rounding."""
-        batch = data.device_put_batch(data.SyntheticLMStream(cfg, ShapeSpec(
-            "t", "train", shape[1], shape[0])).batch_for_step(0), dev)
-        params = lm.init_params(cfg, args.seed, device=dev)
-        _, grads = lm.value_and_grad(params, batch, cfg)
-        inputs[key + "_batch"], inputs[key + "_grad"] = batch, tree_to(torch, grads, "cpu")
-        del grads
-        pgen = torch.Generator(device=dev)
-        pgen.manual_seed(args.seed + 1)
-        for t in tree_leaves(params):
-            t.copy_(t.double() * (1 + MESH_ROUNDING * torch.randn(
-                t.shape, generator=pgen, device=dev, dtype=torch.float64)))
-        _, moved = lm.value_and_grad(params, batch, cfg)
-        spread[key] = [float((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30))
-                       for a, b in zip(tree_leaves(moved), tree_leaves(inputs[key + "_grad"]),
-                                       strict=True)]
-        spread[key + "_paths"] = _leaf_paths(inputs[key + "_grad"])
-        del params, moved
-        free()
-
-    unsharded_grad(cfg_b, "b")
-    p_ref, o_ref, h_ref = train_mod.train(
-        arch=LM_ARCH, cfg=cfg_b, steps=MESH_STEPS, seq_len=ts, global_batch=tb, device=dev,
-        seed=args.seed, log_every=1)
-    refs["b_losses"] = [v for _, v in h_ref]
-    # on the host until the workers start, so the card holds nothing else of
-    # these runs (their blocks would pin the allocator's segments)
-    inputs["b_state"] = tree_to(torch, (p_ref, o_ref.m), "cpu")
-    del p_ref, o_ref
-    free()
     cfg_c = dataclasses.replace(get_config(SSM_ARCH), num_layers=MESH_SSM_LAYERS, dtype="float32")
-    params = lm.init_params(cfg_c, args.seed, device=dev)
-    inputs["c_toks"] = torch.randint(0, cfg_c.vocab_size, MESH_TRAIN_SHAPE, generator=gen,
-                                     device=dev)
-    with torch.no_grad():
-        refs["c_prefill"] = steps.make_prefill_step(cfg_c)(params, {"tokens": inputs["c_toks"]}
-                                                           )[0].cpu()
-    del params
-    free()
-    unsharded_grad(cfg_c, "c")
-    p_ref, o_ref, h_ref = train_mod.train(
-        arch=SSM_ARCH, cfg=cfg_c, steps=MESH_STEPS, seq_len=ts, global_batch=tb, device=dev,
-        seed=args.seed, log_every=1)
-    refs["c_losses"] = [v for _, v in h_ref]
-    inputs["c_state"] = tree_to(torch, (p_ref, o_ref.m), "cpu")
-    del p_ref, o_ref
-    free()
     cfg_d = dataclasses.replace(get_config(MOE_SCOUT), num_layers=MESH_MOE_LAYERS, dtype="float32",
                                 moe_capacity_factor=MESH_NO_DROP)
-    params = lm.init_params(cfg_d, args.seed, device=dev)
-    inputs["d_toks"] = torch.randint(0, cfg_d.vocab_size, MESH_MOE_SHAPE, generator=gen,
-                                     device=dev)
-    with torch.no_grad():
-        refs["d_prefill"] = steps.make_prefill_step(cfg_d)(params, {"tokens": inputs["d_toks"]}
-                                                           )[0].cpu()
-    del params
-    free()
-    # (d) step 0's gradient at 1 layer and the configured capacity, each data
-    # shard's rows routed on their own: kept on the host (16.5 GB), each
-    # worker reads its blocks from there leaf by leaf
     cfg_g = dataclasses.replace(get_config(MOE_SCOUT), num_layers=MESH_MOE_GRAD_LAYERS,
                                 dtype="float32")
-    with moe_per_data_shard(torch, moe, MESH_SHAPE[0]):
-        unsharded_grad(cfg_g, "g")
-    report["refs_s"] = time.perf_counter() - t0
-    inputs.update(steps=MESH_STEPS, train_shape=MESH_TRAIN_SHAPE)
-    inputs["cfgs"] = dict(b=cfg_b, c=cfg_c, d=cfg_d, g=cfg_g, d_configured=dataclasses.replace(
+    cfgs = dict(b=cfg_b, c=cfg_c, d=cfg_d, g=cfg_g, d_configured=dataclasses.replace(
         cfg_d, moe_capacity_factor=get_config(MOE_SCOUT).moe_capacity_factor))
-
-    # (b)-(d) four gloo workers sharing the card, mesh MESH_SHAPE: (b) and
-    # (c) with the unsharded runs' states held here, then (d) without them
+    fam_cfgs = {key: dataclasses.replace(get_config(arch), num_layers=layers, dtype="float32")
+                for key, arch, layers, _ in MESH_FAMILIES}
+    cfgs.update(fam_cfgs)
     t0 = time.perf_counter()
     free()
-    for key in ("b_state", "c_state", "b_grad", "c_grad"):  # read by the workers (CUDA IPC)
-        inputs[key] = tree_to(torch, inputs[key], dev)
-    outs = dfw.run_workers(MULTI_WORKERS, mesh_rank, args.seed, inputs, ("b", "c"),
+    outs = dfw.run_workers(MULTI_WORKERS, mesh_rank, args.seed, {"cfgs": cfgs},
                            backend="gloo", device="cuda")
-    for key in ("b_state", "c_state", "b_grad", "c_grad"):
-        del inputs[key]
-    free()
-    report["workers_bc_s"] = time.perf_counter() - t0
-    for o, o_d in zip(outs, dfw.run_workers(MULTI_WORKERS, mesh_rank, args.seed, inputs,
-                                            ("d", "g"), backend="gloo", device="cuda"),
-                      strict=True):
-        o["d"], o["g"] = o_d["d"], o_d["g"]
-        for k_, v_ in o_d["launches"].items():
-            o["launches"][k_] += v_
     report["workers_s"] = time.perf_counter() - t0
-
-    # (e) the hybrid, vlm and audio families at full width: the unsharded
-    # references on the card (step 0's gradient and its spread, the prefill,
-    # one batch-1 decode step from its cache), once (d)'s 16.5 GB gradient
-    # is off the host, then a third spawn (with (d)'s in the same spawn, or
-    # both gradients on the host in (b)-(c)'s, the whole script ran out of
-    # the card machine's 96 GiB of host memory)
-    t_e, fam_cfgs = time.perf_counter(), {}
-    for key in ("g_grad", "g_batch"):
-        del inputs[key]
-    free()
-    for key, arch, layers, shape in MESH_FAMILIES:
-        cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype="float32")
-        fam_cfgs[key] = cfg
-        fb, fs = shape
-        prompt = {k: v for k, v in data.device_put_batch(data.SyntheticLMStream(
-            cfg, ShapeSpec("t", "train", fs, fb)).batch_for_step(0), dev).items() if k != "labels"}
-        inputs[key + "_prompt"] = prompt
-        params = lm.init_params(cfg, args.seed, device=dev)
-        with torch.no_grad():
-            out, cache = steps.make_prefill_step(cfg)(params, prompt)
-            refs[key + "_prefill"] = out.cpu()
-            if not cfg.encoder_only:  # the first prompt, a cache of S + 2 (even) positions
-                full = lm.init_cache(cfg, 1, fs + 2, device=dev)
-                for name, t in full.items():
-                    if name in ("k", "v"):
-                        t[:, :, :, :fs] = cache[name][:, :1]
-                    else:
-                        t.copy_(cache[name][:, :1])
-                step = {"tokens": torch.randint(0, cfg.vocab_size, (1, 1), generator=gen,
-                                                device=dev),
-                        "cache_pos": torch.tensor(fs, device=dev)}
-                if cfg.family == "vlm":
-                    step["positions"] = torch.full((1, 3, 1), fs, dtype=torch.int32, device=dev)
-                # a copy on the host: the decode below updates ``full`` in place
-                inputs[key + "_cache1"] = {k: t.clone().cpu() for k, t in full.items()}
-                inputs[key + "_step"] = tree_to(torch, step, "cpu")
-                refs[key + "_decode1"] = steps.make_serve_step(cfg)(params, full, step)[0].cpu()
-                del full
-        del params, cache, out
-        free()
-        unsharded_grad(cfg, key, shape)
-    report["families_refs_s"] = time.perf_counter() - t_e
-    inputs["cfgs"].update(fam_cfgs)
-    t0 = time.perf_counter()
-    for o, o_e in zip(outs, dfw.run_workers(MULTI_WORKERS, mesh_rank, args.seed, inputs,
-                                            tuple(fam_cfgs), backend="gloo", device="cuda"),
-                      strict=True):
-        for key in fam_cfgs:
-            o[key] = o_e[key]
-        for k_, v_ in o_e["launches"].items():
-            o["launches"][k_] += v_
-    report["families_workers_s"] = time.perf_counter() - t0
-    del inputs
+    refs, spread = outs[0]["refs"], outs[0]["spread"]
     free()
     n_data, n_model = MESH_SHAPE
+    ts = MESH_TRAIN_SHAPE[1]
+    pb, sb = MESH_PREFILL_SHAPE
 
-    def rows(key, name):  # the global batch from each data shard's rows
-        return torch.cat([outs[i * n_model][key][name] for i in range(n_data)])
+    def rows(part, name):  # the global batch from each data shard's rows
+        return torch.cat([part(outs[i * n_model])[name] for i in range(n_data)])
 
     def err(got, want):
         return float((got.float() - want.float()).abs().max() / want.float().abs().max())
@@ -7375,89 +7612,115 @@ def mesh_phase(torch, np, kernels, lm, steps, train_mod, comm, dfw, fa, wkv, get
     lr_1 = float(schedule.cosine_with_warmup(torch.tensor(1), peak_lr=3e-4, warmup=100,
                                              total=10000))  # make_train_step's defaults
 
-    errs = {
-        "b_prefill": err(rows("b", "prefill"), refs["b_prefill"]),
-        "b_decode4": err(rows("b", "decode4"), refs["b_decode4"]),
-        "b_decode1": max(err(g, w) for o in outs for g, w in zip(o["b"]["decode1"],
-                                                                refs["b_decode1"])),
-        "b_losses": max(loss_err(o["b"]["losses"], refs["b_losses"]) for o in outs),
-        "c_prefill": err(rows("c", "prefill"), refs["c_prefill"]),
-        "c_losses": max(loss_err(o["c"]["losses"], refs["c_losses"]) for o in outs),
-        **{f"{k}_grad": against_spread(k, [o[k]["grad_err"] for o in outs]) for k in "bcg"},
-        **{f"{k}_adam_m": against_spread(k, [o[k]["state_err"][1] for o in outs])
-           for k in "bc"},
-        **{f"{k}_params_lr": max((e / lr_1, name) for o in outs for e, name in zip(
-            o[k]["state_err"][0], spread[k + "_paths"])) for k in "bc"},
-        "d_prefill": err(rows("d", "prefill"), refs["d_prefill"]),
+    def profile_errs(key, profile):
+        """The (b)/(c) checks of one profile's run: gradient, AdamW m and
+        parameters after the steps, losses, prefill, decode."""
+        def part(o):
+            return o[key][profile]
+
+        e = {"grad": against_spread(key, [part(o)["grad_err"] for o in outs]),
+             "prefill": err(rows(part, "prefill"), refs[key + "_prefill"])}
+        if "state_err" in part(outs[0]):
+            e.update(adam_m=against_spread(key, [part(o)["state_err"][1] for o in outs]),
+                     params_lr=max((x / lr_1, name) for o in outs for x, name in zip(
+                         part(o)["state_err"][0], spread[key + "_paths"])),
+                     losses=max(loss_err(part(o)["losses"], refs[key + "_losses"])
+                                for o in outs))
+        if "decode4" in part(outs[0]):
+            e["decode4"] = err(rows(part, "decode4"), refs[key + "_decode4"])
+        if "decode1" in part(outs[0]):
+            e["decode1"] = max(err(g, w) for o in outs for g, w in zip(
+                part(o)["decode1"], refs[key + "_decode1"]))
+        return e
+
+    runs = [("b", p) for p in ("tp", *MESH_SP_PROFILES["b"])] + [
+        ("c", p) for p in ("tp", *MESH_SP_PROFILES["c"])]
+    errs = {f"{k}_{p}": profile_errs(k, p) for k, p in runs}
+    errs.update({
+        "d_prefill": err(rows(lambda o: o["d"], "prefill"), refs["d_prefill"]),
+        "g_grad": against_spread("g", [o["g"]["grad_err"] for o in outs]),
         **{f"{k}_grad": against_spread(k, [o[k]["grad_err"] for o in outs])
            for k, *_ in MESH_FAMILIES},
-        **{f"{k}_prefill": err(rows(k, "prefill"), refs[k + "_prefill"])
+        **{f"{k}_prefill": err(rows(lambda o, k=k: o[k], "prefill"), refs[k + "_prefill"])
            for k, *_ in MESH_FAMILIES},
         **{f"{k}_decode1": max(err(o[k]["decode1"], refs[k + "_decode1"]) for o in outs)
            for k in "zv"},
-    }
-    fa_each = [o["b"]["prefill_launches"]["flash_attention"]
+    })
+    fa_each = [sum(o["b"][p]["prefill_launches"]["flash_attention"] for p in o["b"])
                + o["d"]["prefill_launches"]["flash_attention"]
                + o["d"]["configured_launches"]["flash_attention"]
                + sum(o[k]["prefill_launches"]["flash_attention"] for k in fam_cfgs)
                for o in outs]
-    wkv_each = [o["c"]["prefill_launches"]["wkv6_chunk"] for o in outs]
-    # an attention launch a layer; zamba2's a shared-block application
+    wkv_each = [sum(o["c"][p]["prefill_launches"]["wkv6_chunk"] for p in o["c"]) for o in outs]
+    # an attention launch a layer (zamba2's a shared-block application) in
+    # each prefill; wkv6_chunk a layer and chunk of the gathered sequence
     fa_fam = {k: c.num_layers // (c.hybrid_block or 1) for k, c in fam_cfgs.items()}
-    fa_want = cfg_b.num_layers + 2 * cfg_d.num_layers + sum(fa_fam.values())
-    wkv_want = cfg_c.num_layers * (ts // min(cfg_c.ssm_chunk, ts))
-    share = [o["b"]["param_bytes"] / o["b"]["full_bytes"] for o in outs]
+    fa_want = (len(outs[0]["b"]) * cfg_b.num_layers + 2 * cfg_d.num_layers
+               + sum(fa_fam.values()))
+    wkv_want = len(outs[0]["c"]) * cfg_c.num_layers * (ts // min(cfg_c.ssm_chunk, ts))
+    share = [o["b"]["tp"]["param_bytes"] / o["b"]["tp"]["full_bytes"] for o in outs]
     total = dict.fromkeys(kernels.launches(), 0)
     for o in outs:
         for k_, v_ in o["launches"].items():
             total[k_] += v_
-    report.update(errs=errs, flash_launches=fa_each, wkv6_launches=wkv_each, param_share=share,
-                  peak_gb={k: [o[k]["peak_gb"] for o in outs] for k in "bcdgzvh"},
-                  param_gb={k: [o[k]["param_bytes"] / 1e9 for o in outs] for k in "bcdgzvh"},
-                  family_cache1={k: outs[0][k]["cache1_shapes"] for k in "zv"},
-                  part_s={k: round(outs[0][k]["wall_s"], 1) for k in "bcdgzvh"},
-                  train_s={k: [o[k]["train_s"] for o in outs] for k in "bc"},
-                  tally_per_step={k: outs[0][k]["tally_per_step"] for k in "bc"},
-                  losses={k: outs[0][k]["losses"] for k in "bc"},
-                  ref_losses={k: refs[k + "_losses"] for k in "bc"},
-                  decode1_ms=[o["b"]["decode1_ms"] for o in outs],
-                  cache_shapes=dict(b4=outs[0]["b"]["cache4_shape"],
-                                    b1=outs[0]["b"]["cache1_shape"],
-                                    c_state=outs[0]["c"]["state_shape"]),
-                  drops={str(outs[i * n_model]["coords"]): outs[i * n_model]["d"]["drops"]
-                         for i in range(n_data)},
-                  launches=total)
+    report.update(
+        errs=errs, flash_launches=fa_each, wkv6_launches=wkv_each, param_share=share,
+        peak_gb={f"{k}_{p}": [o[k][p]["peak_gb"] for o in outs] for k, p in runs},
+        part_s={k: round(outs[0][k + "_wall_s"], 1) for k in ("b", "c", "d", "g", *fam_cfgs)},
+        part_ref_s={k: round(outs[0][k + "_ref_s"], 1) for k in ("b", "c", "d", "g", *fam_cfgs)},
+        train_s={f"{k}_{p}": [o[k][p]["train_s"] for o in outs]
+                 for k, p in runs if "train_s" in outs[0][k][p]},
+        tally_per_step={f"{k}_{p}": outs[0][k][p]["tally_per_step"]
+                        for k, p in runs if "tally_per_step" in outs[0][k][p]},
+        losses={f"{k}_{p}": outs[0][k][p]["losses"] for k, p in runs
+                if "losses" in outs[0][k][p]},
+        ref_losses={k: refs[k + "_losses"] for k in "bc"},
+        decode1_ms=[o["b"]["tp"]["decode1_ms"] for o in outs],
+        cache_shapes=dict(b4=outs[0]["b"]["tp"]["cache4_shape"],
+                          b1=outs[0]["b"]["tp"]["cache1_shape"],
+                          c_state=outs[0]["c"]["tp"]["state_shape"]),
+        family_cache1={k: outs[0][k]["cache1_shapes"] for k in "zv"},
+        family_peak_gb={k: [o[k]["peak_gb"] for o in outs] for k in ("d", "g", *fam_cfgs)},
+        family_param_gb={k: [o[k]["param_bytes"] / 1e9 for o in outs]
+                         for k in ("d", *fam_cfgs)},
+        drops={str(outs[i * n_model]["coords"]): outs[i * n_model]["d"]["drops"]
+               for i in range(n_data)},
+        launches=total)
+
+    def tally(key):
+        t = report["tally_per_step"][key]
+        return {kind: (round(t["calls"][kind], 1), f"{t['bytes'][kind] / 1e9:.3f} GB")
+                for kind in t["calls"] if t["calls"][kind]}
+
+    e = errs["b_tp"]
     print(f"(b) {LM_ARCH} at full width, {MESH_DENSE_LAYERS} of 28 layers, f32, mesh "
-          f"{MESH_SHAPE} (data, model) on {MULTI_WORKERS} gloo workers: losses "
-          f"{report['losses']['b']} against the unsharded {report['ref_losses']['b']} (rel "
-          f"{errs['b_losses']:.2e}); each worker's blocks against the unsharded run's, the "
-          f"worst leaf's (error over its bound, error over its max, its spread, path): step "
-          f"0's gradient {errs['b_grad']}, AdamW m after the steps {errs['b_adam_m']}; the "
-          f"parameters' worst difference in units of lr_1 {errs['b_params_lr']}; prefill "
-          f"{pb} x {sb} last logits rel "
-          f"{errs['b_prefill']:.2e}, "
-          f"batch-4 decode step {errs['b_decode4']:.2e} (cache block "
+          f"{MESH_SHAPE} (data, model) on {MULTI_WORKERS} gloo workers, profile tp: losses "
+          f"{report['losses']['b_tp']} against the unsharded {report['ref_losses']['b']} (rel "
+          f"{e['losses']:.2e}); each worker's blocks against the unsharded run's, the worst "
+          f"leaf's (error over its bound, error over its max, its spread, path): step 0's "
+          f"gradient {e['grad']}, AdamW m after the steps {e['adam_m']}; the parameters' worst "
+          f"difference in units of lr_1 {e['params_lr']}; prefill {pb} x {sb} last logits rel "
+          f"{e['prefill']:.2e}, batch-4 decode step {e['decode4']:.2e} (cache block "
           f"{report['cache_shapes']['b4']}), {MESH_DECODE_ONE} sequence-sharded batch-1 steps "
-          f"{errs['b_decode1']:.2e} (cache block {report['cache_shapes']['b1']}, "
+          f"{e['decode1']:.2e} (cache block {report['cache_shapes']['b1']}, "
           f"{statistics.median(report['decode1_ms']):.1f} ms a step); parameter bytes a worker "
-          f"{[round(x, 4) for x in share]} of the whole; peak GB {report['peak_gb']['b']}; "
-          f"collectives a train step (worker 0) {report['tally_per_step']['b']}")
-    print(f"(c) {SSM_ARCH} at full width, {MESH_SSM_LAYERS} of 32 layers, f32: losses "
-          f"{report['losses']['c']} against {report['ref_losses']['c']} (rel "
-          f"{errs['c_losses']:.2e}); blocks: step 0's gradient {errs['c_grad']}, AdamW m "
-          f"{errs['c_adam_m']}, parameters {errs['c_params_lr']}; prefill "
-          f"{MESH_TRAIN_SHAPE} last logits rel "
-          f"{errs['c_prefill']:.2e}; state block {report['cache_shapes']['c_state']} (32 of 64 "
-          f"heads); peak GB {report['peak_gb']['c']}")
+          f"{[round(x, 4) for x in share]} of the whole; peak GB {report['peak_gb']['b_tp']}; "
+          f"collectives a train step (worker 0; calls, bytes) {tally('b_tp')}")
+    e = errs["c_tp"]
+    print(f"(c) {SSM_ARCH} at full width, {MESH_SSM_LAYERS} of 32 layers, f32, tp: losses "
+          f"{report['losses']['c_tp']} against {report['ref_losses']['c']} (rel "
+          f"{e['losses']:.2e}); blocks: step 0's gradient {e['grad']}, AdamW m "
+          f"{e['adam_m']}, parameters {e['params_lr']}; prefill {MESH_TRAIN_SHAPE} last logits "
+          f"rel {e['prefill']:.2e}; state block {report['cache_shapes']['c_state']} (32 of 64 "
+          f"heads); peak GB {report['peak_gb']['c_tp']}")
     print(f"(d) {MOE_SCOUT} at full width, {MESH_MOE_LAYERS} of 48 layers, f32, 8 of 16 experts "
           f"a model shard: prefill {MESH_MOE_SHAPE} at capacity factor {MESH_NO_DROP} rel "
           f"{errs['d_prefill']:.2e}; at the configured factor each data shard's dropped share, "
           f"busiest expert and capacity a layer: {report['drops']}; peak GB "
-          f"{report['peak_gb']['d']}; at {MESH_MOE_GRAD_LAYERS} layer and the configured factor, "
-          f"step 0's gradient blocks against the unsharded gradient with each data shard's "
-          f"rows routed on their own (worst leaf: error over its bound, error, spread, path) "
-          f"{errs['g_grad']}, parameter GB a worker {report['param_gb']['g']}, peak GB "
-          f"{report['peak_gb']['g']}")
+          f"{report['family_peak_gb']['d']}; at {MESH_MOE_GRAD_LAYERS} layer and the configured "
+          f"factor, step 0's gradient blocks against the unsharded gradient with each data "
+          f"shard's rows routed on their own (worst leaf: error over its bound, error, spread, "
+          f"path) {errs['g_grad']}, peak GB {report['family_peak_gb']['g']}")
     for key, arch, layers, (fb, fs) in MESH_FAMILIES:
         dec = (f"; one batch-1 decode step from a cache of {fs + 2} positions split over the "
                f"data axis (block {report['family_cache1'][key]['k']}) rel "
@@ -7466,39 +7729,58 @@ def mesh_phase(torch, np, kernels, lm, steps, train_mod, comm, dfw, fa, wkv, get
               f"gradient blocks on {fb} x {fs} against the unsharded gradient (worst leaf: "
               f"error over its bound, error, spread, path) {errs[key + '_grad']}; prefill "
               f"{fb} x {fs} logits rel {errs[key + '_prefill']:.2e}{dec}; parameter GB a worker "
-              f"{[round(x, 3) for x in report['param_gb'][key]]}, peak GB "
-              f"{report['peak_gb'][key]}")
-    print(f"(f) flash_attention launches a worker {fa_each} (want {fa_want}), wkv6_chunk "
+              f"{[round(x, 3) for x in report['family_param_gb'][key]]}, peak GB "
+              f"{report['family_peak_gb'][key]}")
+    for key, profile in runs:
+        if profile == "tp":
+            continue
+        e, arch = errs[f"{key}_{profile}"], LM_ARCH if key == "b" else SSM_ARCH
+        extra = (f"; losses {report['losses'][key + '_' + profile]} (rel {e['losses']:.2e}); "
+                 f"AdamW m after the steps {e['adam_m']}; parameters in lr_1 {e['params_lr']}; "
+                 f"batch-4 decode step rel {e['decode4']:.2e}; collectives a train step (worker "
+                 f"0; calls, bytes) {tally(key + '_' + profile)} against tp's "
+                 f"{tally(key + '_tp')}") if key == "b" else ""
+        print(f"(f) {arch} under {profile!r} (sequence split over the model axis), f32, mesh "
+              f"{MESH_SHAPE}: step 0's gradient, worst leaf {e['grad']}; prefill last logits "
+              f"rel {e['prefill']:.2e}{extra}; peak GB {report['peak_gb'][key + '_' + profile]}")
+    print(f"(b)-(f) flash_attention launches a worker {fa_each} (want {fa_want}), wkv6_chunk "
           f"{wkv_each} (want {wkv_want})")
     t0 = time.perf_counter()
-    rows_out = mesh_kernel_rows(torch, fa, wkv, kernels, dev, gen, args.reps, peaks)
+    rows_out = mesh_kernel_rows(torch, fa, wkv, kernels, dev, torch.Generator(
+        device=dev).manual_seed(args.seed), args.reps, peaks)
     report["kernel_rows_s"] = time.perf_counter() - t0
     report["wall_s"] = time.perf_counter() - t_phase
-    print(f"phase 33 took {report['wall_s']:.1f} s (the kernels at the shards' operands "
-          f"{report['kernel_rows_s']:.1f} s, (a) and the references "
-          f"{report['refs_s']:.1f} s, "
-          f"workers {report['workers_s']:.1f} s, (b)-(c)'s spawn {report['workers_bc_s']:.1f} s "
-          f"of it; (e)'s references {report['families_refs_s']:.1f} s, its workers "
-          f"{report['families_workers_s']:.1f} s; worker 0's parts {report['part_s']})")
+    print(f"phase 33 took {report['wall_s']:.1f} s ((a) {report['a']['wall_s']:.1f} s, the one "
+          f"spawn of (b)-(f) {report['workers_s']:.1f} s, worker 0's parts {report['part_s']} "
+          f"(their references {report['part_ref_s']}), the kernels at the shards' operands "
+          f"{report['kernel_rows_s']:.1f} s)")
     check(same, "(a) the (1, 1)-mesh train run is not the unsharded run's bits")
-    for key in ("b_prefill", "b_decode4", "b_decode1", "c_prefill", "d_prefill", "z_prefill",
-                "v_prefill", "h_prefill", "z_decode1", "v_decode1"):
+    for key, profile in runs:
+        e = errs[f"{key}_{profile}"]
+        label = f"({'b' if profile == 'tp' and key == 'b' else 'c' if profile == 'tp' else 'f'})"
+        for name in ("prefill", "decode4", "decode1"):
+            if name in e:
+                check(e[name] <= MESH_TOL["logits"], f"{label} {key} {profile} {name}: rel "
+                      f"{e[name]:.2e} > {MESH_TOL['logits']}")
+        if "losses" in e:
+            check(e["losses"] <= MESH_TOL["loss"], f"{label} {key} {profile} losses: rel "
+                  f"{e['losses']:.2e} > {MESH_TOL['loss']}")
+            check(e["adam_m"][0] <= 1, f"{label} {key} {profile}: AdamW m past its bound "
+                  f"{e['adam_m']}")
+            check(e["params_lr"][0] <= MESH_TOL["params_lr"], f"{label} {key} {profile}: "
+                  f"parameters {e['params_lr']} > {MESH_TOL['params_lr']} lr_1")
+        check(e["grad"][0] <= 1, f"{label} {key} {profile}: a gradient leaf past its bound "
+              f"(error over bound, error, spread, path) {e['grad']}")
+    for key in ("d_prefill", "z_prefill", "v_prefill", "h_prefill", "z_decode1", "v_decode1"):
         check(errs[key] <= MESH_TOL["logits"], f"({key[0]}) {key}: rel {errs[key]:.2e} > "
               f"{MESH_TOL['logits']}")
-    for key in ("b_losses", "c_losses"):
-        check(errs[key] <= MESH_TOL["loss"], f"({key[0]}) {key}: rel {errs[key]:.2e} > "
-              f"{MESH_TOL['loss']}")
-    for key in ("b_grad", "b_adam_m", "c_grad", "c_adam_m", "g_grad", "z_grad", "v_grad",
-                "h_grad"):
+    for key in ("g_grad", "z_grad", "v_grad", "h_grad"):
         check(errs[key][0] <= 1, f"({key[0]}) {key}: a leaf past its bound (error over bound, "
               f"error, spread, path) {errs[key]}")
-    for key in ("b_params_lr", "c_params_lr"):
-        check(errs[key][0] <= MESH_TOL["params_lr"], f"({key[0]}) {key}: {errs[key]} > "
-              f"{MESH_TOL['params_lr']} lr_1")
     check(all(x <= MESH_TOL["param_share"] for x in share),
           f"(b) a worker holds {max(share):.4f} of the parameters")
-    check(all(n == fa_want for n in fa_each), f"(f) flash_attention launches {fa_each}")
-    check(all(n == wkv_want for n in wkv_each), f"(f) wkv6_chunk launches {wkv_each}")
+    check(all(n == fa_want for n in fa_each), f"(b)-(f) flash_attention launches {fa_each}")
+    check(all(n == wkv_want for n in wkv_each), f"(c), (f) wkv6_chunk launches {wkv_each}")
     for key in "zv":
         split = report["family_cache1"][key]["k"][3]
         check(split == (dict((k, s_) for k, _, _, (_, s_) in MESH_FAMILIES)[key] + 2)
@@ -7513,8 +7795,9 @@ def mesh_phase(torch, np, kernels, lm, steps, train_mod, comm, dfw, fa, wkv, get
 FAMILY_TRAIN_STEPS = 2
 # (key, arch, layers (None: all), (B, S) of a step): (a)-(c), AdamW through
 # launch.train.train; vlm's S counts its vision_tokens (1,024) and text
-FAMILY_TRAIN = (("a", AUDIO_ARCH, None, AUDIO_SHAPE), ("b", HYBRID_SERVE_ARCH, None, (4, 2048)),
+FAMILY_TRAIN = (("a", AUDIO_ARCH, None, AUDIO_SHAPE), ("b", HYBRID_SERVE_ARCH, 18, (4, 2048)),
                 ("c", VLM_ARCH, 2, (4, 2048)))  # qwen2-vl-72b: 2 of 80 layers, ~51 GB of state
+# zamba2-2.7b: 18 of 54 layers, 3 groups of 6 Mamba-2 layers and the shared block
 SCOUT_TRAIN_LAYERS = 1  # (d) of 48: 4.1 B parameters, ~55 GB with AdamW and the f32 head gradient
 SCOUT_TRAIN_SHAPE = (4, 2048)
 SCOUT_MU, SCOUT_ITERS = 100.0, 2
@@ -7869,6 +8152,7 @@ def main(argv=None) -> int:
     ap.add_argument("--src", default=None,
                     help="import the port from this src directory (default: the checkout's)")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
 
@@ -7908,6 +8192,17 @@ def main(argv=None) -> int:
         return f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated after it"
 
     report = dict(device=name, torch=torch.__version__, cuda=torch.version.cuda)
+    laps, smi = {}, ""
+    lap_t = [t_start]
+
+    def lap(key, note=""):
+        """End phase ``key``: its wall seconds since the last phase ended,
+        kept for the phases line and printed at the end of its line."""
+        now = time.perf_counter()
+        laps[key] = round(now - lap_t[0], 1)
+        lap_t[0] = now
+        print(f"phase {key} ({smi}{note}) took {laps[key]:.1f} s")
+
     try:
         # 1. build + card
         t0 = time.perf_counter()
@@ -7932,6 +8227,7 @@ def main(argv=None) -> int:
         print(f"torch {torch.__version__} cuda {torch.version.cuda} driver {driver} device {name}")
         print(smi)
         peaks = card_peaks(name)
+        lap("1")
 
         # data for the main path, made on the card from --seed
         gen = torch.Generator(device=dev)
@@ -7951,6 +8247,7 @@ def main(argv=None) -> int:
         krows = kernel_phase(torch, pm, r1, dev, X, R, Y, gen, args.reps, peaks)
         del R
         torch.cuda.empty_cache()
+        lap("2")
 
         # 3. MTLS main path
         cfg = dfw.DFWConfig(mu=1.0, num_epochs=args.epochs, schedule="log",
@@ -7971,6 +8268,7 @@ def main(argv=None) -> int:
             res = None
         del res, Y
         torch.cuda.empty_cache()
+        lap("3")
 
         # 4. logistic main path: planted rank-10 labels with 5% label noise
         labels = planted_labels(torch, gen, dev, X)
@@ -7990,9 +8288,11 @@ def main(argv=None) -> int:
             res = None
         del res, X, labels
         torch.cuda.empty_cache()
+        lap("4")
 
         # 5. small fits, card against CPU
         small_parity(torch, np, V0Stream, dfw, tasks, dev)
+        lap("5")
 
         # 6. matrix-completion data at the Netflix shapes, made on the card
         t0 = time.perf_counter()
@@ -8005,6 +8305,7 @@ def main(argv=None) -> int:
         print(f"mc data: d={NF_D} m={NF_M} {args.mc_entries} training + {NF_TEST} held-out "
               f"ratings made in {report['mc_data']['made_s']:.1f} s; {report['mc_data']}")
         mc_task = tasks.MatrixCompletion(NF_D, NF_M)
+        lap("6")
 
         # 7. the state build; COO matvec, the copies' gathers and the quantize
         # pair against their plain versions
@@ -8014,6 +8315,7 @@ def main(argv=None) -> int:
         krows += update_resid_phase(torch, mc, tasks, dev, state, mu, gen, args.reps, peaks)
         del state
         torch.cuda.empty_cache()
+        lap("7")
 
         # 8. MC main path, comm dense
         cfg = dfw.DFWConfig(mu=mu, num_epochs=args.mc_epochs, schedule="log",
@@ -8041,6 +8343,7 @@ def main(argv=None) -> int:
                 step_size="linesearch", key=args.seed, device=dev))
             del state
             torch.cuda.empty_cache()
+        lap("8")
 
         # 9. MC main path, comm int8
         cfg = dfw.DFWConfig(mu=mu, num_epochs=args.mc_int8_epochs, schedule="log",
@@ -8060,16 +8363,19 @@ def main(argv=None) -> int:
             del state
         del idx, yw, te_rows, te_cols, te_vals
         torch.cuda.empty_cache()
+        lap("9")
 
         # 10. small MC fits, dense and int8, card against CPU
         mc_small_parity(torch, np, V0Stream, NoiseStream, comm, qz.ref, dfw, frank_wolfe,
                         tasks, dev)
+        lap("10")
 
         # 11. factor_matvec against its plain version at the serving shapes
         krows += factor_kernel_phase(torch, fm, _build, dev, gen, args.reps, peaks)
         if args.profile:
             report["factor_sweep_profile"] = profile_factor_sweep(torch, fm, dev, gen)
         torch.cuda.empty_cache()
+        lap("11")
 
         # 12. train, checkpoint, serve
         report["serve"], fit12_launch, serve_launch, eng = train_then_serve(
@@ -8078,12 +8384,14 @@ def main(argv=None) -> int:
             report["serve_profile"] = profile_serving(torch, np, eng)
         del eng
         torch.cuda.empty_cache()
+        lap("12")
 
         # 13. flash_attention against its plain version
         fa_rows, report["hgmma"] = flash_kernel_phase(torch, fa, kernels, _build, dev, gen,
                                                       args.reps, peaks)
         krows += fa_rows
         torch.cuda.empty_cache()
+        lap("13")
 
         # 14. full-width prefill of qwen2-1.5b (depth --lm-layers)
         lm_cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=args.lm_layers)
@@ -8094,21 +8402,25 @@ def main(argv=None) -> int:
                                               lm_toks, dev, args.seed)
         del lm_toks
         torch.cuda.empty_cache()
+        lap("14")
 
         # 15. full-width decode through generate
         report["lm_decode"], decode_launch = lm_decode_phase(
             torch, np, kernels, lm, steps, lm_serve, get_config(LM_ARCH), dev, args.seed)
         torch.cuda.empty_cache()
+        lap("15")
 
         # 16. cross-checks: prefill against decode (f32, bf16), card against CPU
         report["lm_checks"] = lm_crosscheck_phase(torch, lm, steps, get_config, kernels, lm_cfg,
                                                   lm_params, dev, gen)
         del lm_params
         torch.cuda.empty_cache()
+        lap("16")
 
         # 17. wkv6_chunk against its plain versions
         krows += wkv6_kernel_phase(torch, wkv, _build, dev, gen, args.reps, peaks)
         torch.cuda.empty_cache()
+        lap("17")
 
         # 18. full-width prefill of rwkv6-7b (depth --ssm-layers)
         ssm_cfg = dataclasses.replace(get_config(SSM_ARCH), num_layers=args.ssm_layers)
@@ -8119,12 +8431,14 @@ def main(argv=None) -> int:
                                                 ssm_toks, dev, args.seed)
         del ssm_toks
         torch.cuda.empty_cache()
+        lap("18")
 
         # 19. full-width decode through generate, with the prefill's weights
         report["ssm_decode"], ssm_decode_launch = ssm_decode_phase(
             torch, np, kernels, lm, steps, lm_serve, get_config(SSM_ARCH), ssm_params, dev,
             args.seed)
         torch.cuda.empty_cache()
+        lap("19")
 
         # 20. cross-checks: prefill against decode (f32, bf16; 64 and 256 tokens), card
         # against CPU
@@ -8132,6 +8446,7 @@ def main(argv=None) -> int:
                                                     ssm_cfg, ssm_params, dev, gen)
         del ssm_params
         torch.cuda.empty_cache()
+        lap("20")
 
         # 21. (a) fit over one NCCL worker against fit_serial at the main path's
         # shapes: the same data as phases 3 and 4 (from --seed), new ratings
@@ -8154,11 +8469,13 @@ def main(argv=None) -> int:
                     mc_dense, num_epochs=args.mc_int8_epochs, comm="int8")),
             ], args.seed)
         torch.cuda.empty_cache()
+        lap("21")
 
         # 22. (b) four gloo workers on the one card
-        report["multi_worker"], multi_launch = multi_worker_phase(
+        report["multi_worker"], multi_launch, graphs = multi_worker_phase(
             torch, np, kernels, dfw, tasks, low_rank, dev, X, Y, mc_data, args.seed, args)
         torch.cuda.empty_cache()
+        lap("22")
 
         # 23. NAIVE-DFW and SVA at the ImageNet shapes; NAIVE on logistic
         # regression and on a small MC made on the card
@@ -8169,18 +8486,19 @@ def main(argv=None) -> int:
         report["baselines"]["wall_s"] = time.perf_counter() - t0
         del labels
         torch.cuda.empty_cache()
+        lap("23")
 
         # 24. the exchange graphs: topk:16 over one NCCL worker; ring, hier:2
         # (dense, int8) and topk:16 on four gloo workers
         t0 = time.perf_counter()
         report["graphs"], graphs_launch = graphs_phase(
             torch, np, kernels, dfw, comm, tasks, low_rank, NoiseStream, dev, X, Y, mc_data,
-            args.seed, args, report["world_one"])
+            args.seed, args, report["world_one"], graphs)
+        del graphs
         report["graphs"]["wall_s"] = time.perf_counter() - t0
-        print(f"phase 23 took {report['baselines']['wall_s']:.1f} s, phase 24 "
-              f"{report['graphs']['wall_s']:.1f} s ({smi}); {held_gb()}")
         del X, Y, idx, yw, mc_data
         torch.cuda.empty_cache()
+        lap("24", f"; {held_gb()}")
 
         # 25. the block:k solver tier: its kernel forms, full-width block fits,
         # one NCCL worker, hier:2 on four gloo workers, the Table-1 cell
@@ -8190,8 +8508,8 @@ def main(argv=None) -> int:
             torch, np, kernels, dfw, comm, tasks, low_rank, NoiseStream, pm, r1, mc, dev, args,
             peaks, rank1_ms)
         krows += block_rows
-        print(f"phase 25 took {report['block']['wall_s']:.1f} s ({smi}); {held_gb()}")
         torch.cuda.empty_cache()
+        lap("25", f"; {held_gb()}")
 
         # 26. resume from checkpoints: MC dense and block:8:adapt at the Netflix
         # shapes, MTLS topk:16 and logistic int8, four gloo workers resumed on
@@ -8201,16 +8519,16 @@ def main(argv=None) -> int:
             torch, np, kernels, dfw, tasks, low_rank, checkpoint, convert, dev, args)
         block_route += resume_route
         report["resume"]["wall_s"] = time.perf_counter() - t0
-        print(f"phase 26 took {report['resume']['wall_s']:.1f} s ({smi}); {held_gb()}")
         torch.cuda.empty_cache()
+        lap("26", f"; {held_gb()}")
 
         # 27. the engine on the card: scan (one graph a segment) against
         # legacy at the full shapes, the dispatch contract, IF nodes
         report["engine"], engine_launch, engine_route = engine_phase(
             torch, np, kernels, dfw, comm, tasks, frank_wolfe, engine, dev, args)
         block_route += engine_route
-        print(f"phase 27 took {report['engine']['wall_s']:.1f} s ({smi}); {held_gb()}")
         torch.cuda.empty_cache()
+        lap("27", f"; {held_gb()}")
 
         # 28. telemetry through the fits, the checkpoint store and serving: the
         # same bits, stats and launches with the handle on and off, its cost,
@@ -8218,8 +8536,8 @@ def main(argv=None) -> int:
         report["telemetry"], telemetry_launch, telemetry_route = telemetry_phase(
             torch, np, kernels, dfw, comm, tasks, frank_wolfe, engine, serve, low_rank, dev, args)
         block_route += telemetry_route
-        print(f"phase 28 ({smi}); {held_gb()}")
         torch.cuda.empty_cache()
+        lap("28", f"; {held_gb()}")
 
         # 29. the paper's head: train_head and sharded_fit at the ImageNet
         # shapes, checkpoints and resume, top_k_error, features from the LM
@@ -8228,8 +8546,8 @@ def main(argv=None) -> int:
             torch, np, kernels, dfw, comm, tasks, low_rank, checkpoint, dfw_head, compression,
             lm, get_config, fm, dev, args, peaks)
         krows += head_rows
-        print(f"phase 29 ({smi}); {held_gb()}")
         torch.cuda.empty_cache()
+        lap("29", f"; {held_gb()}")
 
         # 30. LM training: qwen2-1.5b with AdamW through launch.train and a
         # resume, the hybrid DFW-Trace head on codeqwen1.5-7b, rwkv6-7b;
@@ -8238,8 +8556,8 @@ def main(argv=None) -> int:
             torch, np, kernels, lm, steps, train_mod, hybrid, adamw, data, ShapeSpec,
             power_method, pm, r1, get_config, dev, args, peaks)
         krows += train_rows
-        print(f"phase 30 ({smi})")
         torch.cuda.empty_cache()
+        lap("30")
 
         # 31. serving of the LM zoo's audio, vlm and hybrid families at full
         # width: hubert-xlarge's encoder step, zamba2-2.7b and qwen2-vl-72b
@@ -8248,18 +8566,18 @@ def main(argv=None) -> int:
         report["families"], families_launch, families_rows = families_phase(
             torch, np, kernels, lm, steps, lm_serve, fa, mamba2, get_config, dev, args, peaks)
         krows += families_rows
-        print(f"phase 31 ({smi})")
         torch.cuda.empty_cache()
+        lap("31")
 
         # 32. serving of the moe family at full width: arctic-480b (2 of 35
-        # layers) and llama4-scout (16 of 48) prefill and captured decode;
+        # layers) and llama4-scout (MOE_SCOUT_LAYERS of 48) prefill and captured decode;
         # moe_block on the card against the CPU; flash_attention at their
         # GQA groups of 7 and 5
         report["moe"], moe_launch, moe_rows = moe_phase(
             torch, np, kernels, lm, steps, lm_serve, fa, moe, get_config, dev, args, peaks)
         krows += moe_rows
-        print(f"phase 32 ({smi})")
         torch.cuda.empty_cache()
+        lap("32")
 
         # 33. the sharded LM paths: a (1, 1) mesh over one NCCL worker, then
         # a (2, 2) mesh on four gloo workers sharing the card
@@ -8267,11 +8585,11 @@ def main(argv=None) -> int:
             torch, np, kernels, lm, steps, train_mod, comm, dfw, fa, wkv, get_config, dev, args,
             peaks)
         krows += mesh_rows
-        print(f"phase 33 ({smi})")
         torch.cuda.empty_cache()
+        lap("33")
 
         # 34. LM training of the moe, hybrid, vlm and audio families:
-        # hubert-xlarge and zamba2-2.7b whole, qwen2-vl-72b (2 of 80 layers)
+        # hubert-xlarge whole, zamba2-2.7b (18 of 54), qwen2-vl-72b (2 of 80 layers)
         # with AdamW through launch.train; llama4-scout (1 of 48) with the
         # hybrid DFW head and a resume; each family card against CPU; the
         # head's kernels at llama4-scout's head
@@ -8280,7 +8598,7 @@ def main(argv=None) -> int:
             args, peaks)
         krows += ftrain_rows
         train_bf16 += ftrain_bf16
-        print(f"phase 34 ({smi})")
+        lap("34")
     except Check as e:
         return fail(str(e))
 
@@ -8330,6 +8648,9 @@ def main(argv=None) -> int:
                 for r in rows},
         ))
     report["kernels"] = krows
+    report["phase_s"] = laps
+    total_s = round(time.perf_counter() - t_start, 1)
+    print(json.dumps({"phase_s": laps, "total_s": total_s}))
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps(report, indent=1))

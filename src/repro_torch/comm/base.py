@@ -129,7 +129,7 @@ class WorkerGroup:
         if self._host_p2p:
             full = x.clone()
             self.all_reduce(full, "sum")
-            return full.narrow(dim, self.rank * n, n).clone()
+            return full.narrow(dim, self.rank * n, n).clone(memory_format=torch.contiguous_format)
         moved = x.movedim(dim, 0).contiguous()
         out = torch.empty((n, *moved.shape[1:]), dtype=x.dtype, device=x.device)
         self.tally.add("reduce_scatter", _nbytes(moved))

@@ -20,7 +20,20 @@ same, full gradient on every worker of it. So
   its rows of the batch) and blocks taken from a gathered tensor;
 - :func:`gather_replicated` (forward all-gather, backward the local block)
   assembles a sharded tensor for computation replicated over the group;
+- :func:`scatter` (forward reduce-scatter of the sum along a dim, backward
+  all-gather) is Megatron's sequence-parallel exit, the counterpart of
+  ``psum`` where the result is split along that dim (the sequence): the
+  partial outputs of a row-parallel product land summed on each worker's
+  block of rows;
+- :func:`split` (forward this worker's block of a replicated tensor along a
+  dim, backward all-gather) turns a replicated tensor whose gradient is
+  whole on every worker into blocks: each worker's gradient of its block
+  gathered back is the whole gradient again;
 - :func:`pmax` (forward all-reduce max) carries no gradient.
+
+Under a sequence split (``models.parallel``) :func:`gather` along the
+sequence is the entry that :func:`copy` is for a replicated tensor, and
+:func:`scatter` the exit that :func:`psum` is.
 
 ``group`` is a ``comm.WorkerGroup`` or None; None (an axis of one worker)
 is the identity, with no collective. Every collective goes through the
@@ -66,6 +79,29 @@ class _Gather(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.group.rank * n, n).contiguous(), None, None, None
 
 
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return group.reduce_scatter(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_gather(g, ctx.dim), None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        n = x.shape[dim] // group.size
+        return x.narrow(dim, group.rank * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_gather(g, ctx.dim), None, None
+
+
 def copy(x: torch.Tensor, group) -> torch.Tensor:
     """Identity forward; the gradient all-reduced (sum) over ``group``."""
     return x if group is None else _Copy.apply(x, group)
@@ -87,6 +123,19 @@ def gather_replicated(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     ``group``: the gradient, the same on every worker, is cut to this
     worker's block."""
     return x if group is None else _Gather.apply(x, dim % x.dim(), group, False)
+
+
+def scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum over ``group`` of ``x``, cut along ``dim`` into one block a
+    worker in rank order: this worker's (a new tensor); the gradient is
+    all-gathered."""
+    return x if group is None else _Scatter.apply(x, dim % x.dim(), group)
+
+
+def split(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This worker's block along ``dim`` (rank order) of ``x``, replicated
+    over ``group`` (a new tensor); the gradient is all-gathered."""
+    return x if group is None else _Split.apply(x, dim % x.dim(), group)
 
 
 def pmax(x: torch.Tensor, group) -> torch.Tensor:

@@ -5,7 +5,9 @@
 // Replaces src/repro/kernels/flash_attention/kernel.py: flash_attention
 // (_flash_kernel). It computes what the TPU kernel computes, all in f32:
 // Q K^T * scale, the -1e30 mask (kv positions >= Skv; with causal, kpos >
-// qpos, top-left aligned), the running max m and sum l of an online softmax,
+// qpos, top-left aligned: query row i at kv position qpos = q_offset + i,
+// q_offset 0 but for a sequence shard's rows, whose keys are the whole
+// sequence's), the running max m and sum l of an online softmax,
 // the f32 accumulator, p kept in f32 for P.V (the plain version rounds p to
 // v's dtype first), and acc / max(l, 1e-30) at the end.
 //
@@ -203,7 +205,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ out, int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb,
                  int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss, int hq,
-                 int group, int sq, int skv, int dh, float scale, int causal) {
+                 int group, int sq, int skv, int dh, float scale, int causal, int qoff) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   constexpr int LD = DH + 4;   // f32 rows
   constexpr int LDH = DH + 8;  // bf16 rows
@@ -249,7 +251,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 
   const int n_kt = (skv + kBK - 1) / kBK;
-  const int kt_end = causal ? min(n_kt, (q0 + qrows - 1) / kBK + 1) : n_kt;
+  // query row i sits at kv position qoff + i (a sequence shard's rows)
+  const int kt_end = causal ? min(n_kt, (qoff + q0 + qrows - 1) / kBK + 1) : n_kt;
   for (int kt = 0; kt < kt_end; ++kt) {
     const int k0 = kt * kBK;
     const int krows = min(kBK, skv - k0);
@@ -333,7 +336,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     // elements).
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const int qpos = q0 + ty + 16 * r;
+      const int qpos = qoff + q0 + ty + 16 * r;
       float mx = kNegInf;
 #pragma unroll
       for (int cc = 0; cc < 4; ++cc) {
@@ -418,7 +421,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 template <typename T, int DH, bool VEC>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, const int64_t* st,
                    int b, int hq, int hkv, int sq, int skv, int dh, float scale, int causal,
-                   cudaStream_t stream) {
+                   int qoff, cudaStream_t stream) {
   auto kern = flash_fwd_kernel<T, DH, VEC>;
   constexpr int smem = smem_bytes<T, DH>();
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -430,25 +433,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, const
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], hq,
-      hq / hkv, sq, skv, dh, scale, causal);
+      hq / hkv, sq, skv, dh, scale, causal, qoff);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, const int64_t* st,
                      int b, int hq, int hkv, int sq, int skv, int dh, int dh_bucket, float scale,
-                     int causal, int vec, cudaStream_t stream) {
+                     int causal, int qoff, int vec, cudaStream_t stream) {
   if (dh_bucket == 64) {
     return vec ? launch<T, 64, true>(q, k, v, out, st, b, hq, hkv, sq, skv, dh, scale, causal,
-                                     stream)
+                                     qoff, stream)
                : launch<T, 64, false>(q, k, v, out, st, b, hq, hkv, sq, skv, dh, scale, causal,
-                                      stream);
+                                      qoff, stream);
   }
   if (dh_bucket == 128) {
     return vec ? launch<T, 128, true>(q, k, v, out, st, b, hq, hkv, sq, skv, dh, scale, causal,
-                                      stream)
+                                      qoff, stream)
                : launch<T, 128, false>(q, k, v, out, st, b, hq, hkv, sq, skv, dh, scale, causal,
-                                       stream);
+                                       qoff, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -682,12 +685,13 @@ __device__ __forceinline__ void qk_product(float (&sc)[kBK / 2], uint64_t q_desc
 }
 
 // The online softmax's first half on a finished S tile, in place: mask (on
-// the tile that holds the kv edge or the causal diagonal), the new row max m
+// the tile that holds the kv edge or the causal diagonal; qpos0 is the kv
+// position of this thread's first row), the new row max m
 // (log2 domain), sc = exp2(sc * scale_log2 - m), alpha = exp2(m_old - m), and
 // the row sums into l (this thread's share).
 __device__ __forceinline__ void softmax_exp(float (&sc)[kBK / 2], float (&m)[2], float (&l)[2],
                                             float (&alpha)[2], float scale_log2, bool edge,
-                                            int k0, int skv, int causal, int row0, int col0) {
+                                            int k0, int skv, int causal, int qpos0, int col0) {
   float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
   for (int j = 0; j < kBK / 8; ++j) {
@@ -696,7 +700,7 @@ __device__ __forceinline__ void softmax_exp(float (&sc)[kBK / 2], float (&m)[2],
       float& x = sc[4 * j + e];
       if (edge) {
         const int kpos = k0 + 8 * j + col0 + (e % 2);
-        if (kpos >= skv || (causal && kpos > row0 + 8 * (e / 2))) x = kNegInf;
+        if (kpos >= skv || (causal && kpos > qpos0 + 8 * (e / 2))) x = kNegInf;
       }
       mx[e / 2] = fmaxf(mx[e / 2], x);
     }
@@ -744,7 +748,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
-                       int hq, int group, int sq, int skv, float scale_log2, int causal) {
+                       int hq, int group, int sq, int skv, float scale_log2, int causal,
+                       int qoff) {
   using T = Tiles<DH>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full_bar[kStages];
@@ -761,7 +766,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest causal tiles first
   const int q_last = min(q0 + kBQ, sq) - 1;
   const int n_kt = (skv + kBK - 1) / kBK;
-  const int kt_end = causal ? min(n_kt, q_last / kBK + 1) : n_kt;
+  // query row i sits at kv position qoff + i (a sequence shard's rows); an
+  // offset off the 128-row tile puts the diagonal inside a tile
+  const int kt_end = causal ? min(n_kt, (qoff + q_last) / kBK + 1) : n_kt;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
@@ -809,7 +816,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int row0 = q0 + wg * 64 + (warp % 4) * 16 + lane / 4;
   const int col0 = 2 * (lane % 4);
   const uint64_t q_desc = sw128_desc(base + wg * 64 * 128, 0, 1024);
-  auto edge = [&](int k0) { return k0 + kBK > skv || (causal && k0 + kBK - 1 > q0 + wg * 64); };
+  const int qpos0 = qoff + row0;  // kv position of row row0 (the causal mask's)
+  auto edge = [&](int k0) {
+    return k0 + kBK > skv || (causal && k0 + kBK - 1 > qoff + q0 + wg * 64);
+  };
   float o[DH / 2];
 #pragma unroll
   for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
@@ -827,7 +837,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(sc);
-  softmax_exp(sc, m, l, alpha, scale_log2, edge(0), 0, skv, causal, row0, col0);
+  softmax_exp(sc, m, l, alpha, scale_log2, edge(0), 0, skv, causal, qpos0, col0);
   split_p(sc, p_hi, p_lo);
 
   // Step kt < kt_end - 1: S of tile kt + 1 and P V of tile kt go to the
@@ -857,7 +867,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_wait<1>();  // S of tile kt + 1 is done
     fence_regs(sc);
     softmax_exp(sc, m, l, alpha, scale_log2, edge((kt + 1) * kBK), (kt + 1) * kBK, skv, causal,
-                row0, col0);
+                qpos0, col0);
     wgmma_wait<0>();
     fence_regs(o);
     fence_regs(p_hi);
@@ -945,7 +955,8 @@ constexpr int kMapFailed = 100000;  // + CUresult: a tensor map was refused
 
 template <int DH>
 int launch(const void* q, const void* k, const void* v, void* out, const int64_t* st, int b,
-           int hq, int hkv, int sq, int skv, float scale, int causal, cudaStream_t stream) {
+           int hq, int hkv, int sq, int skv, float scale, int causal, int qoff,
+           cudaStream_t stream) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tq, tk, tv;
@@ -963,7 +974,7 @@ int launch(const void* q, const void* k, const void* v, void* out, const int64_t
                   static_cast<unsigned>(n_qt));
   kern<<<grid, kThreads, Tiles<DH>::kSmemBytes, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), hq, hq / hkv, sq, skv,
-      scale * 1.4426950408889634f, causal);
+      scale * 1.4426950408889634f, causal, qoff);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -980,25 +991,29 @@ const char* fa_error_string(int code) {
 // the (batch, head, sequence) strides q_sb.. v_ss (elements; the last
 // dimension contiguous). dtype 0 = f32, 1 = bf16; dh_bucket 64 or 128 >= dh;
 // vec 1 when every row starts on a 16-byte boundary and dh fills whole
-// 16-byte chunks. Needs b, hq, sq >= 1, hkv >= 1 dividing hq.
+// 16-byte chunks. Needs b, hq, sq >= 1, hkv >= 1 dividing hq. With causal,
+// query row i sits at kv position qoff + i (qoff 0, any sq: top-left; qoff > 0
+// with qoff + sq <= skv: a sequence shard's rows against the whole sequence's
+// keys).
 int fa_forward(const void* q, const void* k, const void* v, void* out, int64_t q_sb,
                int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss,
                int64_t v_sb, int64_t v_sh, int64_t v_ss, int b, int hq, int hkv, int sq,
-               int skv, int dh, int dh_bucket, float scale, int causal, int dtype, int vec,
-               int device, void* stream) {
+               int skv, int dh, int dh_bucket, float scale, int causal, int qoff, int dtype,
+               int vec, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (hkv < 1 || hq % hkv != 0 || dh < 1 || dh > dh_bucket) {
+  if (hkv < 1 || hq % hkv != 0 || dh < 1 || dh > dh_bucket || qoff < 0 ||
+      (qoff > 0 && qoff + sq > skv)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t st[9] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     err = dispatch<float>(q, k, v, out, st, b, hq, hkv, sq, skv, dh, dh_bucket, scale, causal,
-                          vec, s);
+                          qoff, vec, s);
   } else if (dtype == 1) {
     err = dispatch<__nv_bfloat16>(q, k, v, out, st, b, hq, hkv, sq, skv, dh, dh_bucket, scale,
-                                  causal, vec, s);
+                                  causal, qoff, vec, s);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -1007,22 +1022,26 @@ int fa_forward(const void* q, const void* k, const void* v, void* out, int64_t q
 
 // The wgmma route: bf16 q, k, v with dh 64 or 128, 16-byte aligned bases and
 // (batch, head, sequence) strides that are multiples of 8 elements (a stride
-// of a dimension of size 1 is not read), skv >= 1; out as above.
+// of a dimension of size 1 is not read), skv >= 1; out and qoff as above.
 int fa_forward_wgmma(const void* q, const void* k, const void* v, void* out, int64_t q_sb,
                      int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss,
                      int64_t v_sb, int64_t v_sh, int64_t v_ss, int b, int hq, int hkv, int sq,
-                     int skv, int dh, float scale, int causal, int device, void* stream) {
+                     int skv, int dh, float scale, int causal, int qoff, int device,
+                     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t st[9] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
-  bool ok = hkv >= 1 && hq % hkv == 0 && b >= 1 && sq >= 1 && skv >= 1;
+  bool ok = hkv >= 1 && hq % hkv == 0 && b >= 1 && sq >= 1 && skv >= 1 && qoff >= 0 &&
+            (qoff == 0 || qoff + sq <= skv);
   for (const void* p : {q, k, v}) ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
   for (int64_t x : st) ok = ok && x > 0 && x % 8 == 0;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dh == 64) return hopper::launch<64>(q, k, v, out, st, b, hq, hkv, sq, skv, scale, causal, s);
+  if (dh == 64) {
+    return hopper::launch<64>(q, k, v, out, st, b, hq, hkv, sq, skv, scale, causal, qoff, s);
+  }
   if (dh == 128) {
-    return hopper::launch<128>(q, k, v, out, st, b, hq, hkv, sq, skv, scale, causal, s);
+    return hopper::launch<128>(q, k, v, out, st, b, hq, hkv, sq, skv, scale, causal, qoff, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

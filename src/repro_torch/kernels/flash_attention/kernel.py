@@ -29,9 +29,10 @@ def _library():
     global _lib
     if _lib is None:
         lib = _build.library("flash_attention")
-        lib.fa_forward.argtypes = ([_P] * 4 + [_I64] * 9 + [_I] * 7 + [_F, _I, _I, _I, _I, _P])
+        lib.fa_forward.argtypes = ([_P] * 4 + [_I64] * 9 + [_I] * 7 + [_F] + [_I] * 5 + [_P])
         lib.fa_forward.restype = ctypes.c_int
-        lib.fa_forward_wgmma.argtypes = ([_P] * 4 + [_I64] * 9 + [_I] * 6 + [_F, _I, _I, _P])
+        lib.fa_forward_wgmma.argtypes = ([_P] * 4 + [_I64] * 9 + [_I] * 6 + [_F] + [_I] * 3
+                                         + [_P])
         lib.fa_forward_wgmma.restype = ctypes.c_int
         lib.fa_error_string.argtypes = [ctypes.c_int]
         lib.fa_error_string.restype = ctypes.c_char_p
@@ -78,24 +79,26 @@ def _raise(lib, err: int) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
-                    *, scale: float, causal: bool) -> None:
+                    *, scale: float, causal: bool, q_offset: int = 0) -> None:
     """The generic kernel: out (B, Hq, Sq, Dh, contiguous) = attention of q
     (B, Hq, Sq, Dh) over k, v (B, Hkv, Skv, Dh), read through their (B, H,
-    S) strides; one dtype, one CUDA device, last dimension contiguous."""
+    S) strides; one dtype, one CUDA device, last dimension contiguous. With
+    ``causal`` query row i sits at kv position ``q_offset`` + i (0, or an
+    offset with q_offset + Sq <= Skv)."""
     lib = _library()
     b, hq, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     _raise(lib, lib.fa_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        b, hq, hkv, sq, skv, dh, head_dim_bucket(dh), scale, int(causal),
+        b, hq, hkv, sq, skv, dh, head_dim_bucket(dh), scale, int(causal), int(q_offset),
         _DTYPE_CODE[q.dtype], int(vec_ok(q.dtype, dh, q, k, v)), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream,
     ))
 
 
 def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
-                          *, scale: float, causal: bool) -> None:
+                          *, scale: float, causal: bool, q_offset: int = 0) -> None:
     """The wgmma kernel, for calls ``wgmma_route`` accepts; as above."""
     lib = _library()
     b, hq, sq, dh = q.shape
@@ -103,6 +106,6 @@ def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out
     _raise(lib, lib.fa_forward_wgmma(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         *_tma_strides(q), *_tma_strides(k), *_tma_strides(v),
-        b, hq, hkv, sq, skv, dh, scale, int(causal), q.device.index,
+        b, hq, hkv, sq, skv, dh, scale, int(causal), int(q_offset), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream,
     ))

@@ -1,10 +1,15 @@
 """Public wrapper of GQA flash attention (forward).
 
-``flash_attention(q, k, v, scale=..., causal=...)`` takes the reference's
-public layout, q (B, Hq, Sq, Dh) and k, v (B, Hkv, Skv, Dh), bf16 or f32,
-one dtype for all three, Hq % Hkv == 0, Dh <= 128, and returns (B, Hq, Sq,
-Dh) in q's dtype. The causal mask is top-left aligned (query i sees kv
-positions <= i, also when Sq != Skv), as in the TPU kernel.
+``flash_attention(q, k, v, scale=..., causal=..., q_offset=0)`` takes the
+reference's public layout, q (B, Hq, Sq, Dh) and k, v (B, Hkv, Skv, Dh),
+bf16 or f32, one dtype for all three, Hq % Hkv == 0, Dh <= 128, and returns
+(B, Hq, Sq, Dh) in q's dtype. The causal mask is top-left aligned (query i
+sees kv positions <= i, also when Sq != Skv), as in the TPU kernel, or, with
+``q_offset``, sees positions <= q_offset + i: q holds a sequence shard's rows
+[q_offset, q_offset + Sq) and k, v the whole sequence's (0 <= q_offset,
+and q_offset + Sq <= Skv where it is not 0; the plain version is
+``ref.attention(..., q_offset=)``). An offset off the kernels' 128-row tiles puts the diagonal
+inside a tile.
 
 Tensors on the CPU take the plain version (``ref.attention``); CUDA tensors
 launch one of the two hand-written kernels of ``csrc/flash_attention.cu``
@@ -36,7 +41,7 @@ DTYPES = (torch.bfloat16, torch.float32)
 MAX_HEAD_DIM = 128
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int = 0) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor) or t.dim() != 4:
             raise ValueError(f"{name} must be a 4-D tensor (B, H, S, Dh)")
@@ -56,24 +61,32 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"Hq = {hq} is not a multiple of Hkv = {hkv}")
     if not 1 <= dh <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {dh} is outside 1..{MAX_HEAD_DIM}")
+    if isinstance(q_offset, bool) or not isinstance(q_offset, int):
+        raise TypeError(f"q_offset must be an int, got {type(q_offset).__name__}")
+    if q_offset < 0 or (q_offset and q_offset + q.shape[2] > k.shape[2]):
+        raise ValueError(f"q_offset {q_offset} with Sq = {q.shape[2]} does not fit in Skv = "
+                         f"{k.shape[2]} (0 <= q_offset, and q_offset + Sq <= Skv for an "
+                         "offset; at 0 any Sq, top-left aligned)")
     _checks.same_device(q.device, k=k, v=v)
 
 
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float, causal: bool = True,
+    q_offset: int = 0,
 ) -> torch.Tensor:
-    """softmax(Q K^T * scale [causal mask]) V with GQA -> (B, Hq, Sq, Dh)."""
-    _check(q, k, v)
+    """softmax(Q K^T * scale [causal mask at q_offset]) V with GQA -> (B, Hq,
+    Sq, Dh)."""
+    _check(q, k, v, q_offset)
     _checks.forward_only("flash_attention", q, k, v)
     if not _checks.kernel_device(q.device, "flash_attention"):
-        return ref.attention(q, k, v, scale=scale, causal=causal)
+        return ref.attention(q, k, v, scale=scale, causal=causal, q_offset=q_offset)
     b, hq, sq, dh = q.shape
     out = torch.empty((b, hq, sq, dh), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     route = "wgmma" if kernel.wgmma_route(q, k, v) else "generic"
     launch = kernel.flash_attention_wgmma if route == "wgmma" else kernel.flash_attention
-    launch(q, k, v, out, scale=float(scale), causal=bool(causal))
+    launch(q, k, v, out, scale=float(scale), causal=bool(causal), q_offset=q_offset)
     launched(flash_attention, out, route)
     return out
 

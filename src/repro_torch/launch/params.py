@@ -164,11 +164,12 @@ def init_local_params(cfg, seed: int, mesh, *, device=None, specs: Any = None) -
     leaf drawn in the one-device order and cut as soon as it is drawn (a
     layer's dict, a moe layer's expert tensors one by one), so the blocks
     hold the one-device run's values and no worker holds the whole model.
-    ``specs``: ``lm.param_specs(cfg)`` under the mesh (computed if None)."""
+    ``specs``: ``lm.param_specs(cfg)`` under the mesh and the active rules
+    (computed if None)."""
     from ..models import lm
-    from .sharding import use_mesh
+    from .sharding import active_rules, use_mesh
 
-    with use_mesh(mesh):
+    with use_mesh(mesh, active_rules()):  # the caller's profile
         specs = lm.param_specs(cfg) if specs is None else specs
 
     def keep(tree, names):

@@ -45,10 +45,12 @@ DEFAULT_RULES: Dict[str, Axis] = {
 
 # Sharding profiles. "tp" = Megatron tensor parallelism on the model axis
 # (default). "sp" = sequence parallelism: activations sharded on the
-# sequence dim over the model axis, parameters ZeRO-3 sharded over every
+# sequence dim over the model axis, both between the blocks and inside them,
+# heads and MLP columns on no axis, parameters ZeRO-3 sharded over every
 # axis. "msp" = Megatron-style SP: TP inside blocks, a sequence-sharded
-# residual stream between them. The port runs "tp"; "sp" and "msp" resolve
-# here (their specs) but their loss and layers wait (``models.lm``).
+# residual stream between them. The port runs all three
+# (``models.parallel``: the layout changes GSPMD inserts are explicit
+# collectives there).
 PROFILES: Dict[str, Dict[str, Axis]] = {
     "tp": {},
     "sp": {
@@ -94,6 +96,24 @@ def use_mesh(mesh, rules: Optional[Dict[str, Axis]] = None):
 
 def active_mesh():
     return _CTX.mesh
+
+
+def active_rules() -> Dict[str, Axis]:
+    """This thread's rules (a copy)."""
+    return dict(_CTX.rules)
+
+
+@contextlib.contextmanager
+def whole_sequence():
+    """The active mesh and rules with "seq_act" on no axis: a step of one
+    token holds it whole on every model shard (the reference's GSPMD pads
+    that dim instead). Nothing else resolves otherwise: no parameter or
+    cache spec names "seq_act"."""
+    if _CTX.rules.get("seq_act") is None:
+        yield
+        return
+    with use_mesh(_CTX.mesh, {**_CTX.rules, "seq_act": None}):
+        yield
 
 
 def context_key():
@@ -181,8 +201,25 @@ def seq_axes() -> Tuple[str, ...]:
     return _mesh_axes("seq")
 
 
+def seq_act_axes() -> Tuple[str, ...]:
+    """Mesh axes carrying the activations' sequence dim (the "sp" and "msp"
+    profiles: the model axis)."""
+    return _mesh_axes("seq_act")
+
+
 def model_axes() -> Tuple[str, ...]:
     return _mesh_axes("expert")
+
+
+def head_axes() -> Tuple[str, ...]:
+    """Mesh axes splitting the attention heads and the MLP columns (none
+    under "sp")."""
+    return _mesh_axes("heads")
+
+
+def fsdp_axes() -> Tuple[str, ...]:
+    """Mesh axes of a weight's FSDP dim ("sp": every axis)."""
+    return _mesh_axes("fsdp")
 
 
 def spec_axes(entry: Axis) -> Tuple[str, ...]:

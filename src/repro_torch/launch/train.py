@@ -23,7 +23,12 @@ port's counterpart of ``repro.launch.train``.
   same global batch and runs its data shard's rows. A checkpoint gathers
   the full leaves and worker 0 writes them in the layout above; a restore
   reads the full leaves and cuts them for the current mesh, whatever mesh
-  (or none) wrote them, this package's or the JAX package's.
+  (or none) wrote them, this package's or the JAX package's. The sharding
+  profile is the rules active where ``build``, ``restore`` or ``train`` is
+  called (``with sharding.use_mesh(None, sharding.rules_for("sp")):``, as
+  the reference's steps take it from ``use_mesh``'s rules); a checkpoint
+  holds full leaves, so one written under one profile restores under any
+  other.
 
 Runs on the card unless ``device="cpu"`` (``--device cpu``).
 """
@@ -43,7 +48,7 @@ from ..models.config import ModelConfig, ShapeSpec
 from ..optim import adamw
 from . import params as P
 from .mesh import make_mesh, parse_mesh
-from .sharding import use_mesh
+from .sharding import active_rules, use_mesh
 from .steps import batch_pspecs, make_train_step
 
 
@@ -54,13 +59,15 @@ def build(cfg: ModelConfig, shape: ShapeSpec, mesh=None, *, peak_lr: float = 3e-
     ``make_train_step``'s, ``shardings`` None without a mesh, else the spec
     trees ``{"params", "batch"}``. Under a mesh ``init_fn`` keeps this
     worker's block of each leaf as it is drawn, and ``step_fn`` runs in the
-    mesh's context."""
+    mesh's context with the rules active here (so a profile's
+    ``use_mesh(None, rules_for(p))`` around the call picks it)."""
     dev = resolve_device(device)
     step = make_train_step(cfg, peak_lr=peak_lr)
     if mesh is None:
         return (lambda: (lm.init_params(cfg, seed, device=dev),), step, None)
-    with use_mesh(mesh):
-        parallel.check_mesh(cfg)
+    rules = active_rules()
+    with use_mesh(mesh, rules):
+        parallel.check_mesh(cfg, shape.seq_len)
         specs = lm.param_specs(cfg)
         shardings = {"params": specs, "batch": batch_pspecs(cfg, shape)}
 
@@ -68,7 +75,7 @@ def build(cfg: ModelConfig, shape: ShapeSpec, mesh=None, *, peak_lr: float = 3e-
         return (P.init_local_params(cfg, seed, mesh, device=dev, specs=specs),)
 
     def step_fn(params, opt, batch):
-        with use_mesh(mesh):
+        with use_mesh(mesh, rules):
             return step(params, opt, batch)
 
     return init_fn, step_fn, shardings
@@ -120,15 +127,16 @@ def restore(store: CheckpointStore, cfg: ModelConfig, *, step: Optional[int] = N
     """``(step, params, opt)`` of a train checkpoint (the latest by default),
     written by this module or by the JAX package's ``train``, with or
     without a mesh. With ``mesh`` each leaf is cut on the host to this
-    worker's block under the mesh's specs before it goes to the device
-    (elastic: any mesh, or none, may have written it)."""
+    worker's block under the mesh's specs with the active rules before it
+    goes to the device (elastic: any mesh and profile, or none, may have
+    written it)."""
     dev = resolve_device(device)
     at, leaves, _ = store.restore(step)
     tree = _nest(leaves)
     if mesh is None:
         return (at, convert.lm_params(tree["params"], cfg, device=dev),
                 convert.adamw_state(tree["opt"], cfg, device=dev))
-    with use_mesh(mesh):
+    with use_mesh(mesh, active_rules()):
         specs = lm.param_specs(cfg)
     host = convert.adamw_state(tree["opt"], cfg, device="cpu")
 
@@ -175,7 +183,8 @@ def train(*, arch: str, steps: int, smoke: bool = True, seq_len: int = 128,
     ``comm.WorkerGroup``; default the initialized world group; a shape of
     one worker needs none): the returned params and AdamW state are this
     worker's blocks, the losses the global ones, and only worker 0 prints
-    and writes checkpoints (module doc)."""
+    and writes checkpoints (module doc); the sharding profile is the active
+    rules'."""
     cfg = cfg if cfg is not None else get_config(arch, smoke=smoke)
     lm.check_trains(cfg)
     dev = resolve_device(device)

@@ -15,6 +15,12 @@ heads, every shard attends over all heads and keeps its block of the out
 projection's rows. The flash and WKV6 kernels run on a shard's heads as
 strided views of its projections, as on one device. At batch 1 the decode
 cache may be split on its sequence dim (:func:`decode_attention_seq_sharded`).
+Under a sequence split (the "sp" and "msp" profiles, ``models.parallel``)
+x holds this worker's rows of the sequence: "msp" gathers them before the
+column-parallel products and reduce-scatters the row-parallel output back
+onto them; "sp" projects its own rows with every head, gathers K and V over
+the sequence, and attends with the causal mask at its rows' offset
+(``q_offset``), which the flash kernel takes too.
 Each layer has one body: without a mesh, or on a mesh of one worker, the
 view is the trivial ``parallel.Par``, whose collectives are identities and
 whose blocks are the whole leaves, so the same ops give the unsharded bits.
@@ -109,8 +115,8 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # Attention (GQA). Three execution paths:
-#   flash   — the CUDA kernel: every multi-token, offset-0 call on the card
-#             that records no gradient
+#   flash   — the CUDA kernel: every multi-token call on the card that
+#             records no gradient (a sequence shard's at its offset)
 #   chunked — a loop over q chunks, O(chunk * S) live scores (long sequences
 #             off the card, or under autograd)
 #   dense   — everything else: short sequences, decode against a cache
@@ -146,17 +152,18 @@ def _dense_attention(q, k, v, *, scale, causal, q_offset=0):
     )
 
 
-def _chunked_attention(q, k, v, *, scale, causal, chunk: int):
-    """Query chunks in turn; each sees the full K/V with masking. Live
-    scores: O(B * H * chunk * S). Under autograd each chunk is checkpointed
-    (non-reentrant), as the reference's scan body is rematerialized."""
+def _chunked_attention(q, k, v, *, scale, causal, chunk: int, q_offset: int = 0):
+    """Query chunks in turn; each sees the full K/V with masking (query
+    row i at position ``q_offset`` + i). Live scores: O(B * H * chunk * S).
+    Under autograd each chunk is checkpointed (non-reentrant), as the
+    reference's scan body is rematerialized."""
     s = q.shape[2]
     k = _expand_heads(k, q.shape[1])
     v = _expand_heads(v, q.shape[1])
     remat = records_grad(q, k, v)
 
     def one(i):
-        fn = partial(attn_ref.attention, scale=scale, causal=causal, q_offset=i)
+        fn = partial(attn_ref.attention, scale=scale, causal=causal, q_offset=q_offset + i)
         qi = q[:, :, i:i + chunk]
         return checkpoint(fn, qi, k, v, use_reentrant=False) if remat else fn(qi, k, v)
 
@@ -174,14 +181,18 @@ def attention(
     chunk: int = 2048,
 ) -> torch.Tensor:
     """Dispatch, as the reference's: the flash kernel for a multi-token
-    offset-0 call on the accelerator (here: a CUDA tensor) that records no
-    gradient, else the chunked path for long sequences that split evenly,
-    else dense (the reference's training path; module doc)."""
+    call on the accelerator (here: a CUDA tensor) that records no gradient,
+    else the chunked path for long sequences that split evenly, else dense
+    (the reference's training path; module doc). ``q_offset``: the position
+    of q's first row, an int for a multi-token call (a sequence shard's
+    rows, ``attention_block``: the reference sees the whole sequence and
+    never meets one), an int or a 0-d device tensor for a decode step."""
     sq = q.shape[2]
-    if q.device.type == "cuda" and sq > 1 and q_offset == 0 and not records_grad(q, k, v):
-        return attn_ops.flash_attention(q, k, v, scale=scale, causal=causal)
-    if sq > chunk and sq % chunk == 0 and q_offset == 0:
-        return _chunked_attention(q, k, v, scale=scale, causal=causal, chunk=chunk)
+    if q.device.type == "cuda" and sq > 1 and not records_grad(q, k, v):
+        return attn_ops.flash_attention(q, k, v, scale=scale, causal=causal, q_offset=q_offset)
+    if sq > chunk and sq % chunk == 0:
+        return _chunked_attention(q, k, v, scale=scale, causal=causal, chunk=chunk,
+                                  q_offset=q_offset)
     return _dense_attention(q, k, v, scale=scale, causal=causal, q_offset=q_offset)
 
 
@@ -266,8 +277,11 @@ def attention_block(
     ``parallel.Par``, whose blocks are the leaves): every model-replicated
     input enters through ``spmd.copy`` or ``Par.cols``, so each input's
     gradient is summed over the model shards, and the result is the
-    row-parallel product's ``psum``. A prefill's (k, v) are the shard's kv
-    heads (``head_ranges``), all positions. A decode cache split on its
+    row-parallel product's ``psum``. Under a sequence split x holds this
+    worker's rows and so does the result (module doc; ``Par.enter``,
+    ``Par.leave``): under "sp" ``angles`` cover the whole sequence and the
+    rows' are taken here. A prefill's (k, v) are the shard's kv heads
+    (``head_ranges``), all positions. A decode cache split on its
     sequence dim over the mesh axes ``cache_split`` (as
     ``launch.steps.cache_pspecs`` lays it out) holds this worker's
     positions, and the shards' partial softmaxes are combined."""
@@ -276,7 +290,12 @@ def attention_block(
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     g = hq // hkv
     q0, q1, k0, k1 = head_ranges(cfg, par)
-    xc = spmd.copy(x, par.model)
+    xc = par.enter(x)
+    # "sp": this worker's rows as queries against the whole sequence's keys
+    own_rows = cache is None and par.seq is not None and par.tp is None
+    if own_rows and angles is not None:
+        angles = par.rows(angles)
+    s = xc.shape[1]
 
     def proj(wname, bname, full, lo, hi):
         w = par.cols(par.fsdp(p[wname], 0, d), 1, full * dh, lo * dh, hi * dh)
@@ -292,6 +311,10 @@ def attention_block(
     if angles is not None:
         q = apply_rope(q, angles)
         kk = apply_rope(kk, angles)
+    q_offset = 0
+    if own_rows:
+        kk, vv = spmd.gather(kk, 2, par.seq), spmd.gather(vv, 2, par.seq)
+        q_offset = par.s_index * s
 
     def for_q(t):  # the kv heads of the q heads [q0, q1), from those held
         a0, a1 = q0 // g, (q1 - 1) // g + 1
@@ -301,7 +324,7 @@ def attention_block(
     new_cache = None
     if cache is None:
         out = attention(q, for_q(kk), for_q(vv), scale=scale, causal=cfg.causal,
-                        chunk=cfg.seq_chunk)
+                        q_offset=q_offset, chunk=cfg.seq_chunk)
         if return_kv:
             new_cache = (kk, vv)
     elif s > 1:
@@ -320,7 +343,7 @@ def attention_block(
             if set(cache_split) & set(sharding.model_axes()) and (q0, q1) != (0, hq):
                 # split over the model axis (the cache holds every kv head):
                 # all q heads on every shard, against its positions
-                q, q0, q1 = par.model.all_gather(q, 1), 0, hq
+                q, q0, q1 = par.tp.all_gather(q, 1), 0, hq
             out = _flash_decode(q, for_q(ck), for_q(cv), scale=scale, cache_pos=pos + 1,
                                 group=group, index=index)
 
@@ -329,7 +352,7 @@ def attention_block(
     if (r0, r1) != (q0 * dh, q1 * dh):
         out = out[..., r0 - q0 * dh:r1 - q0 * dh]
     wo = par.cols(par.fsdp(p["wo"], 1, d), 0, hq * dh, r0, r1)
-    return spmd.psum(out @ wo, par.model), new_cache
+    return par.leave(out @ wo), new_cache
 
 
 def head_ranges(cfg, par):
@@ -338,7 +361,7 @@ def head_ranges(cfg, par):
     divides them and each shard's q heads share whole kv heads or one kv
     head; else every shard takes all q heads. The kv heads are the shard's
     block where the axis divides them, else all of them."""
-    hq, hkv, m = cfg.num_heads, cfg.num_kv_heads, par.m_size
+    hq, hkv, m = cfg.num_heads, cfg.num_kv_heads, par.t_size
     g = hq // hkv
     split = hq % m == 0 and (hkv % m == 0 or g % (hq // m) == 0)
     q0, q1 = par.model_block(hq) if split else (0, hq)
@@ -387,12 +410,13 @@ def mlp_block(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
     default). On a worker's blocks the gate/up columns and the down rows
     are this model shard's block of the hidden width (which the model axis
     divides: ``parallel.check_mesh``), and the result is the ``psum`` of the
-    partial products."""
+    partial products (under a sequence split ``Par.enter`` and
+    ``Par.leave``)."""
     par = parallel.current()
     d = x.shape[-1]
-    f = p["wg" if kind == "swiglu" else "w1"].shape[1] * par.m_size
+    f = p["wg" if kind == "swiglu" else "w1"].shape[1] * par.t_size
     lo, hi = par.model_block(f)
-    xc = spmd.copy(x, par.model)
+    xc = par.enter(x)
 
     def col(name):
         return par.cols(par.fsdp(p[name], 0, d), 1, f, lo, hi)
@@ -402,5 +426,5 @@ def mlp_block(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
 
     if kind == "swiglu":
         h = F.silu(xc @ col("wg")) * (xc @ col("wu"))
-        return spmd.psum(h @ row("wd"), par.model)
-    return spmd.psum(F.gelu(xc @ col("w1"), approximate="tanh") @ row("w2"), par.model)
+        return par.leave(h @ row("wd"))
+    return par.leave(F.gelu(xc @ col("w1"), approximate="tanh") @ row("w2"))

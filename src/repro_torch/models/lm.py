@@ -49,9 +49,16 @@ of the leaves replicated there, so each worker's gradient is its block of
 the full one. Every family runs and trains under a mesh (moe's capacity
 and Switch loss per data shard, as the reference's; the hybrid family's
 Mamba-2 heads over the model axis, ``mamba2``; vlm's vision embeddings and
-M-RoPE positions, audio's frames, split with the batch); the reference's
-sequence-sharded loss (its ``seq_act`` branch, profiles ``sp``/``msp``)
-raises ``NotYetPorted`` there (``parallel.check_mesh``). A decode step at
+M-RoPE positions, audio's frames, split with the batch). Under the
+sequence-parallel profiles ("sp", "msp": ``launch.sharding.rules_for``;
+``models.parallel``) the residual stream between the layers holds this
+worker's rows of the sequence (the concatenated one for vlm: vision rows,
+then text; audio's frames alike): the vocab-parallel lookup's sum lands on
+them (``spmd.scatter``), and ``loss_fn`` takes the reference's ``seq_act``
+branch, full-vocabulary f32 logits of the worker's own rows, the mean a
+``psum`` over the data and "seq_act" axes. ``forward`` gathers the
+sequence back for the logits and the hidden states; a step of one token
+holds it whole (``sharding.whole_sequence``). A decode step at
 global batch 1 splits the kv cache's sequence dim over the data axes
 (``layers.decode_attention_seq_sharded``; not for ssm, whose state has no
 sequence dim; the hybrid family's Mamba-2 state runs whole on every data
@@ -63,6 +70,7 @@ repeats its bits.
 """
 from __future__ import annotations
 
+import contextlib
 from functools import lru_cache, partial
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -202,45 +210,62 @@ def _embed_inputs(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConf
     is split there), plus a sinusoidal code computed in f32 and cast to h's
     dtype. vlm: the ``vision_embeds`` (cast to the token dtype) ahead of the
     token embeddings, M-RoPE angles from ``positions`` (B, 3, S); under a
-    mesh both hold the data shard's rows (``local_batch``)."""
+    mesh both hold the data shard's rows (``local_batch``). Under a sequence
+    split h holds this worker's rows of the sequence (audio: of the frames,
+    its position code at their positions); the angles stay whole."""
+    par = parallel.current()
     if cfg.family == "audio":
-        proj = parallel.current().fsdp(params["frame_proj"], 1, cfg.d_model)
-        h = batch["frames"].to(cfg.torch_dtype) @ proj
-        s, d = h.shape[1], h.shape[2]
+        proj = par.fsdp(params["frame_proj"], 1, cfg.d_model)
+        frames = batch["frames"]
+        h = par.rows(frames).to(cfg.torch_dtype) @ proj
+        d = h.shape[2]
         # stub positional encoding (the real model uses a conv pos-embed)
         half = d // 2
         inv = torch.pow(torch.full((), 10000.0, device=h.device),
                         -torch.arange(half, dtype=torch.float32, device=h.device) / half)
-        pos = torch.arange(s, dtype=torch.float32, device=h.device)[:, None] * inv
+        pos = par.rows(torch.arange(frames.shape[1], dtype=torch.float32, device=h.device),
+                       0)[:, None] * inv
         return h + torch.cat([torch.sin(pos), torch.cos(pos)], -1).to(h.dtype), None
     tokens = batch["tokens"]
-    h = _embed_tokens(params, tokens, cfg)
     if cfg.family == "ssm":
-        return h, None
+        return _embed_tokens(params, tokens, cfg), None
     if cfg.family == "vlm":
-        h = torch.cat([batch["vision_embeds"].to(h.dtype), h], dim=1)
+        h = _embed_tokens(params, tokens, cfg, ahead=batch["vision_embeds"])
         return h, L.mrope_angles(batch["positions"], cfg.head_dim_, cfg.rope_theta,
                                  cfg.mrope_sections)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
-    return h, L.rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
+    return (_embed_tokens(params, tokens, cfg),
+            L.rope_angles(positions, cfg.head_dim_, cfg.rope_theta))
 
 
-def _embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The token embeddings (B, S, D): the table's D gathered over the data
-    axes where it is split there, then, where its vocab is split over the
-    model axis, the masked lookup of this shard's rows and the ``psum``."""
+def _embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                  ahead: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The token embeddings (B, S, D), after ``ahead`` (B, S0, D; vlm's
+    vision embeddings, cast to the table's dtype) where given: the table's D
+    gathered over the data axes where it is split there, then, where its
+    vocab is split over the model axis, the masked lookup of this shard's
+    rows and the ``psum``. Under a sequence split this worker's rows of the
+    (concatenated) sequence: the lookups' sum scattered onto them
+    (``spmd.scatter``; vlm: the sum, then the vision rows ahead, then
+    ``spmd.split``), or, with the table whole, the rows looked up alone."""
     par = parallel.current()
     table = par.fsdp(params["embed"], 1, cfg.d_model)
     if table.shape[0] == cfg.vocab_size:
-        return F.embedding(tokens.long(), table)
+        if ahead is None:
+            return F.embedding(par.rows(tokens).long(), table)
+        return par.rows(torch.cat([ahead.to(table.dtype), F.embedding(tokens.long(), table)],
+                                  dim=1))
     n = table.shape[0]
     idx = tokens.long() - par.m_index * n
     mine = (idx >= 0) & (idx < n)
     rows = F.embedding(idx.clamp(0, n - 1), table)
-    return spmd.psum(torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
-                                                                     device=rows.device)),
-                     par.model)
+    part = torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                          device=rows.device))
+    if ahead is None:
+        return spmd.psum(part, par.model) if par.seq is None else spmd.scatter(part, 1, par.seq)
+    h = torch.cat([ahead.to(part.dtype), spmd.psum(part, par.model)], dim=1)
+    return spmd.split(h, 1, par.seq)
 
 
 def _head(params: Params, cfg: ModelConfig, par) -> torch.Tensor:
@@ -278,10 +303,30 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
     losses, in layer order; 0 for every other family. Under a mesh: the
     rows of this data shard (module doc)."""
     check_family(cfg)
-    parallel.check_mesh(cfg)
-    par = parallel.current()
-    batch, b_global = local_batch(batch, par)
-    return _forward(_gather_tied(params, cfg, par), batch, cfg, mode, par, b_global)
+    s = seq_len(batch, cfg)
+    parallel.check_mesh(cfg, s)
+    with _sequence_context(s):
+        par = parallel.current()
+        batch, b_global = local_batch(batch, par)
+        out = _forward(_gather_tied(params, cfg, par), batch, cfg, mode, par, b_global)
+        if mode == "hidden":
+            out["hidden"] = par.whole(out["hidden"])
+        return out
+
+
+def _sequence_context(s: int):
+    """A sequence of one position is held whole on every model shard
+    (``sharding.whole_sequence``); a longer one runs in the active context."""
+    return sharding.whole_sequence() if s == 1 else contextlib.nullcontext()
+
+
+def seq_len(batch: Dict[str, Any], cfg: ModelConfig) -> int:
+    """The length of a batch's sequence: its positions (vlm: the vision
+    rows and the text tokens; audio: the frames)."""
+    if cfg.family == "audio":
+        return batch["frames"].shape[1]
+    s = batch["tokens"].shape[1]
+    return s + batch["vision_embeds"].shape[1] if "vision_embeds" in batch else s
 
 
 def _gather_tied(params: Params, cfg: ModelConfig, par) -> Params:
@@ -304,9 +349,10 @@ def _forward(params: Params, batch, cfg: ModelConfig, mode: str, par, b_global: 
     else:
         h, cache, aux = _dense_layers(params, h, angles, cfg, prefill, aux)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    out = {"hidden": h, "aux_loss": aux}
+    out = {"hidden": h, "aux_loss": aux}  # under a sequence split this worker's rows
     if mode != "hidden":
-        out["logits"] = _unembed(params, h, cfg)
+        out["hidden"] = par.whole(h)
+        out["logits"] = _unembed(params, out["hidden"], cfg)
     if prefill:
         out["cache"] = _split_prefill_cache(cache, cfg, par, b_global)
     return out
@@ -460,10 +506,10 @@ def _ssm_layers(params: Params, h, cfg: ModelConfig, prefill: bool):
 
 
 def ssm_heads(cfg: ModelConfig) -> int:
-    """RWKV-6 heads this worker runs: all, or its model shard's block where
-    the model axis divides them."""
+    """RWKV-6 heads this worker runs: all, or its block where the axes
+    splitting the heads divide them."""
     nh = cfg.d_model // rwkv6.HEAD
-    m = parallel.current().m_size
+    m = parallel.current().t_size
     return nh if nh % m else nh // m
 
 
@@ -529,6 +575,31 @@ def _chunked_ce(h: torch.Tensor, labels: torch.Tensor, w: torch.Tensor, chunk: i
     return spmd.psum(total, par.data) / n_global
 
 
+def _seq_ce(h: torch.Tensor, labels: torch.Tensor, w: torch.Tensor, par, n_global: int,
+            vocab: int, s_total: int) -> torch.Tensor:
+    """The reference's ``seq_act`` branch: under a sequence split h holds
+    this worker's rows of a sequence of ``s_total`` positions, of which the
+    last ``labels.shape[1]`` carry labels (vlm: the text; a worker's rows
+    may hold both kinds, kept by their global index). The head ``w`` (D,
+    V_loc) gathered over the model axis where its vocab is split there, then
+    full-vocabulary f32 logits of the worker's rows (``_ce_chunk``, its
+    logits recomputed in the backward); the sums ``psum``-ed over the data
+    and "seq_act" axes and divided by the global count ``n_global``."""
+    if w.shape[1] != vocab:
+        w = spmd.gather(w, 1, par.model)
+    n_loc, first = h.shape[1], s_total - labels.shape[1]
+    lo = par.s_index * n_loc
+    end = lo + n_loc
+    start = min(max(lo, first), end)  # the first labelled row among this worker's
+    hi, li = h[:, start - lo:], labels[:, start - first:end - first]
+    if L.records_grad(hi, w):
+        total = checkpoint(_ce_chunk, hi, li, w, use_reentrant=False)
+    else:
+        total = _ce_chunk(hi, li, w)
+    group = par.split(sharding.data_axes() + sharding.seq_act_axes())[0]
+    return spmd.psum(total, group) / n_global
+
+
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
             loss_chunk: int = 512) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The training objective: ``(ce + 0.01 aux, {"ce", "aux"})``, the mean
@@ -541,9 +612,17 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
     first) and their labels, the mean's divisor B x the text length.
     Differentiate with autograd (``launch.steps.make_train_step``). Under a
     mesh the batch is the global one, split over the data axes (which must
-    divide it), and the cross entropy vocab-parallel (module doc)."""
+    divide it), and the cross entropy vocab-parallel (module doc); under a
+    sequence split (the "sp" and "msp" profiles) each worker's rows take the
+    reference's ``seq_act`` branch (``_seq_ce``)."""
     check_trains(cfg)
-    parallel.check_mesh(cfg)
+    s_total = seq_len(batch, cfg)
+    parallel.check_mesh(cfg, s_total)
+    with _sequence_context(s_total):
+        return _loss(params, batch, cfg, s_total, loss_chunk)
+
+
+def _loss(params: Params, batch, cfg: ModelConfig, s_total: int, loss_chunk: int):
     par = parallel.current()
     batch, b_global = local_batch(batch, par)
     if par.d_size > 1 and b_global % par.d_size:
@@ -552,11 +631,14 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
     params = _gather_tied(params, cfg, par)
     out = _forward(params, batch, cfg, "hidden", par, b_global)
     h, labels = out["hidden"], batch["labels"]
-    if cfg.family == "vlm":  # the loss over the text positions only
-        ntext = batch["tokens"].shape[1]
-        h, labels = h[:, -ntext:], labels[:, -ntext:]
+    ntext = batch["tokens"].shape[1] if cfg.family == "vlm" else s_total
+    labels = labels[:, -ntext:]  # vlm: the loss over the text positions only
     w = _head(params, cfg, par).to(h.dtype)
-    ce = _chunked_ce(h, labels, w, loss_chunk, par, b_global * h.shape[1], cfg.vocab_size)
+    if par.seq is not None:
+        ce = _seq_ce(h, labels, w, par, b_global * ntext, cfg.vocab_size, s_total)
+    else:
+        ce = _chunked_ce(h[:, -ntext:], labels, w, loss_chunk, par, b_global * ntext,
+                         cfg.vocab_size)
     total = ce + 0.01 * out["aux_loss"]
     return total, {"ce": ce, "aux": out["aux_loss"]}
 
@@ -570,8 +652,9 @@ def value_and_grad(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelCon
     uses; a leaf the loss does not read, zeros). Nothing is read back to
     the host. Under a mesh ``params`` are
     this worker's blocks and so are the gradients: those of the leaves
-    replicated over a data axis are summed over it (one all-reduce a group
-    and dtype), so each is the block of the full gradient."""
+    replicated over a data axis, or over a "seq_act" axis under a sequence
+    split, are summed over it (one all-reduce a group and dtype), so each is
+    the block of the full gradient."""
     from ..optim.compression import tree_leaves, tree_map
 
     check_trains(cfg)
@@ -581,14 +664,17 @@ def value_and_grad(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelCon
     try:
         loss, metrics = loss_fn(params, batch, cfg, **kw)
         # a leaf the loss does not read (audio's token embedding: the frames
-        # come in through frame_proj) gets zeros, as jax.grad gives it
-        grads = [torch.zeros_like(p) if g is None else g
+        # come in through frame_proj) gets zeros, as jax.grad gives it; a
+        # tied embedding's gradient through its transposed head may come
+        # back transposed (AdamW updates in place on contiguous leaves)
+        grads = [torch.zeros_like(p) if g is None else g.contiguous()
                  for p, g in zip(leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
     finally:
         for p in leaves:
             p.requires_grad_(False)
     if parallel.current().mesh is not None:
-        _sum_replicated_grads(grads, cfg)
+        with _sequence_context(seq_len(batch, cfg)):
+            _sum_replicated_grads(grads, cfg)
     metrics = {k: v.detach() for k, v in metrics.items()}
     it = iter(grads)
     return (loss.detach(), metrics), tree_map(lambda _: next(it), params)
@@ -613,12 +699,18 @@ def _param_specs(cfg: ModelConfig, key):
 
 
 def _sum_replicated_grads(grads, cfg: ModelConfig) -> None:
-    """Sum over the data axes, in place, the gradients of the leaves that
-    the data axes do not shard, flattened into one buffer a (group, dtype)."""
+    """Sum over the data axes and the "seq_act" axes, in place, the
+    gradients of the leaves that those axes do not shard, flattened into one
+    buffer a (group, dtype). Under a sequence split each worker's gradient
+    of such a leaf (a norm's scale, moe's router, RWKV-6's mixes, Mamba-2's
+    ``a_log``) is its rows' (or its heads') part; a one-token batch runs
+    whole on every model shard (``_sequence_context``), and no "seq_act"
+    axis is active there."""
     from ..launch.params import unsharded_axes
-    from ..launch.sharding import data_axes
+    from ..launch.sharding import data_axes, seq_act_axes
 
     par = parallel.current()
+    summed = data_axes() + tuple(a for a in seq_act_axes() if a not in data_axes())
     def spec_leaves(tree):  # tree_leaves' order, a spec tuple a leaf
         if isinstance(tree, dict):
             return [leaf for k in sorted(tree) for leaf in spec_leaves(tree[k])]
@@ -629,7 +721,7 @@ def _sum_replicated_grads(grads, cfg: ModelConfig) -> None:
     specs = spec_leaves(param_specs(cfg))
     buckets: Dict[tuple, list] = {}
     for g, spec in zip(grads, specs, strict=True):
-        axes = unsharded_axes(spec, par.mesh, data_axes())
+        axes = unsharded_axes(spec, par.mesh, summed)
         if axes:
             buckets.setdefault((axes, g.dtype), []).append(g)
     for (axes, _), gs in buckets.items():
@@ -709,6 +801,12 @@ def decode_step(params: Params, cache: Dict[str, torch.Tensor], batch: Dict[str,
     sharded``)."""
     _decoder_only(cfg)
     parallel.check_mesh(cfg)
+    with sharding.whole_sequence():  # the token whole on every model shard
+        return _decode_step(params, cache, batch, cfg)
+
+
+def _decode_step(params: Params, cache: Dict[str, torch.Tensor], batch: Dict[str, Any],
+                 cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     par = parallel.current()
     batch, b_global = local_batch(batch, par)
     tokens = batch["tokens"]

@@ -28,6 +28,12 @@ A cache holds the shard's heads of ``h`` and its block of the conv
 channels (``launch.steps.cache_pspecs``: the spec's contiguous block of
 [x | B | C], whatever heads it holds). On one device every span is the
 whole leaf and the body is the unsharded one.
+
+Under a sequence split (the "sp" and "msp" profiles) x holds this worker's
+rows: the conv's d_conv - 1 rows of history and the chunk scan's state
+cross the rows' edge, so the block gathers the whole sequence over the
+model axis, runs on it (under "msp" on the shard's heads) and keeps its
+rows at the end (``Par.leave``), as RWKV-6's time mix does.
 """
 from __future__ import annotations
 
@@ -135,7 +141,7 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, cfg, par)
     mean square from the shards' partial sums of squares (``psum``; its
     gradient, partial on each shard, summed by ``spmd.copy``)."""
     gf = (y * F.silu(z)).float()
-    ss = spmd.copy(spmd.psum(torch.sum(gf * gf, dim=-1, keepdim=True), par.model), par.model)
+    ss = spmd.copy(spmd.psum(torch.sum(gf * gf, dim=-1, keepdim=True), par.tp), par.tp)
     var = ss / dims(cfg)[0]
     return (gf * torch.rsqrt(var + cfg.norm_eps) * scale.float()).to(y.dtype)
 
@@ -176,18 +182,20 @@ def mamba_block(p: Params, x: torch.Tensor, cfg, *, return_state: bool = False):
     """Full-sequence (train / prefill) chunked SSD. x: (B, S, D) -> (B, S, D),
     and the final ``MambaCache`` when ``return_state`` (prefill keeps O(1)
     state instead of a KV cache). S must be a multiple of the chunk,
-    min(cfg.ssm_chunk, S)."""
+    min(cfg.ssm_chunk, S). Under a sequence split x and the output are this
+    worker's rows, S the whole sequence's length (module doc)."""
+    par = parallel.current()
+    x = par.gather_seq(x)
     b, s, _ = x.shape
     _, _, hd, n = dims(cfg)
     q = min(cfg.ssm_chunk, s)
     if s % q:
         raise ValueError(f"sequence length {s} is not a multiple of the SSD chunk {q}")
-    par = parallel.current()
     sh = _shard(p, cfg, par)
     nh = sh.h1 - sh.h0
     d_inner = nh * hd  # this shard's heads' width
 
-    xc = spmd.copy(x, par.model)
+    xc = par.copy_in(x)
     proj = xc @ sh.w_in
     z, xbc, dt = _split(cfg, proj, nh)
     xbc_preconv = xbc
@@ -206,10 +214,10 @@ def mamba_block(p: Params, x: torch.Tensor, cfg, *, return_state: bool = False):
     y = torch.cat(ys, dim=1) + sh.d_skip[None, None, :, None] * xs.float()
     y = y.reshape(b, s, d_inner).to(x.dtype)
     y = _gated_norm(y, z, sh.norm, cfg, par)
-    out = spmd.psum(y @ sh.w_out, par.model)
+    out = par.leave(y @ sh.w_out, whole=True)
     if return_state:
         tail = s - cfg.d_conv + 1
-        if par.model is None:
+        if par.tp is None:
             conv = xbc_preconv[:, tail:, :]
         else:  # the pre-conv inputs of this shard's cache block of channels
             c0, c1 = _conv_block(cfg, par)
@@ -250,15 +258,15 @@ def mamba_decode_step(p: Params, x: torch.Tensor, cache: MambaCache,
     nh = sh.h1 - sh.h0
     d_inner, d_full = nh * hd, dims(cfg)[0]
 
-    xc = spmd.copy(x[:, 0], par.model)
+    xc = par.copy_in(x[:, 0])
     proj = xc @ sh.w_in
     z, xbc, dt = _split(cfg, proj, nh)
-    if par.model is None:
+    if par.tp is None:
         conv_in = torch.cat([cache.conv, xbc[:, None, :]], dim=1)  # (B, K, C)
         new_conv = conv_in[:, 1:, :]
     else:  # the window holds the spec's block of channels, not this shard's
         c0, c1 = _conv_block(cfg, par)
-        window = spmd.gather(cache.conv, -1, par.model)  # (B, K - 1, conv_dim)
+        window = spmd.gather(cache.conv, -1, par.tp)  # (B, K - 1, conv_dim)
         mine = torch.cat([window[..., sh.h0 * hd:sh.h1 * hd], window[..., d_full:]], dim=-1)
         conv_in = torch.cat([mine, xbc[:, None, :]], dim=1)
         own = xc @ sh.w_all[:, d_full + c0:d_full + c1]
@@ -276,4 +284,4 @@ def mamba_decode_step(p: Params, x: torch.Tensor, cache: MambaCache,
     y = y + sh.d_skip[None, :, None] * xs.float()
     y = y.reshape(b, d_inner).to(x.dtype)
     y = _gated_norm(y, z, sh.norm, cfg, par)
-    return spmd.psum(y @ sh.w_out, par.model)[:, None, :], MambaCache(h=h, conv=new_conv)
+    return par.leave(y @ sh.w_out)[:, None, :], MambaCache(h=h, conv=new_conv)

@@ -29,6 +29,15 @@ shards' outputs; the aux loss is the mean over the data shards. A token
 routed to an expert of another shard adds nothing here, so the capacity
 and the drops are per data shard, as in the reference, and differ from one
 device's.
+
+Under a sequence split (the "sp" and "msp" profiles; the reference's
+``shard_map`` takes the tokens whole over the model axis) the block gathers
+its data shard's sequence over the model axis before routing, and the
+combine's sum lands on this worker's rows (``spmd.scatter`` in place of the
+``psum``); the capacity stays per data shard. Every worker's gradient is
+then a part (``models.parallel``): the gates and the dispatched tokens
+enter without ``spmd.copy``, and each worker's Switch loss takes its rows'
+mean probabilities, the ``psum`` of the parts the data shard's loss.
 """
 from __future__ import annotations
 
@@ -194,7 +203,7 @@ def _combine(ye: torch.Tensor, sel_idx: torch.Tensor, valid: torch.Tensor,
 
 def _moe_math(x: torch.Tensor, router: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
               wd: torch.Tensor, *, k: int, num_experts: int, expert_offset: int,
-              capacity: int, model=None) -> Tuple[torch.Tensor, torch.Tensor]:
+              capacity: int, model=None, rows=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One shard's dispatch, expert MLP and combine, step by step as the
     reference's: x (n, D) tokens, ``router`` (D, E) f32, the local experts'
     ``wg``/``wu`` (E_loc, D, F) and ``wd`` (E_loc, F, D). The expert
@@ -210,7 +219,11 @@ def _moe_math(x: torch.Tensor, router: torch.Tensor, wg: torch.Tensor, wu: torch
     axis's group where the experts are split over it: the gates and the
     dispatched tokens then enter the shard's own experts through
     ``spmd.copy`` (their gradients, partial on each shard, summed), while
-    the router and the Switch loss, computed alike on every shard, are not."""
+    the router and the Switch loss, computed alike on every shard, are not.
+    ``rows`` (under a sequence split: ``model`` None, so every gradient is a
+    part): maps (n, E) per-token values to this worker's tokens', whose
+    probabilities its part of the Switch loss sums (over n; the parts' sum
+    is the loss)."""
     n, d = x.shape
     e_loc = wg.shape[0]
     probs, gate, eidx = route(x, router, k)
@@ -227,7 +240,8 @@ def _moe_math(x: torch.Tensor, router: torch.Tensor, wg: torch.Tensor, wu: torch
     # the share of tokens with e among their picks (each row's picks distinct)
     picked = torch.zeros((n, num_experts), dtype=torch.float32, device=x.device)
     picked.scatter_(1, eidx, 1.0)
-    aux = num_experts * torch.sum(picked.mean(dim=0) * probs.mean(dim=0))
+    mean_p = probs.mean(dim=0) if rows is None else rows(probs).sum(dim=0) / n
+    aux = num_experts * torch.sum(picked.mean(dim=0) * mean_p)
     return out, aux
 
 
@@ -239,16 +253,23 @@ def moe_block(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tens
     under a mesh the ``psum`` of the shards' outputs passes the gradient
     to every shard, the expert weights' data-axis gather sums their
     gradients over the data shards, and the Switch loss's mean over the
-    data shards gives each its share."""
+    data shards gives each its share. Under a sequence split x and the
+    output are this worker's rows (module doc)."""
+    par = parallel.current()
+    x = par.gather_seq(x)
     b, s, d = x.shape
     k, e = cfg.experts_per_token, cfg.num_experts
     cap = _capacity(b * s, k, e, cfg.moe_capacity_factor)
-    par = parallel.current()
     f = p["wg"].shape[2]  # never sharded
     wg, wu, wd = (par.fsdp(p[n], 1, full) for n, full in (("wg", d), ("wu", d), ("wd", f)))
+    rows = None
+    if par.seq is not None:  # this worker's tokens of the (b, s) row-major order
+        def rows(t):
+            return par.rows(t.view(b, s, -1)).reshape(-1, t.shape[-1])
     out, aux = _moe_math(x.reshape(b * s, d), p["router"], wg, wu, wd, k=k, num_experts=e,
                          expert_offset=par.m_index * wg.shape[0], capacity=cap,
-                         model=par.model)
-    out = spmd.psum(out, par.model)
-    aux = spmd.psum(aux, par.data) / par.d_size
-    return out.reshape(b, s, d).to(x.dtype), aux
+                         model=par.model if par.seq is None else None, rows=rows)
+    out = out.reshape(b, s, d)
+    out = spmd.psum(out, par.model) if par.seq is None else spmd.scatter(out, 1, par.seq)
+    aux = spmd.psum(spmd.psum(aux, par.seq), par.data) / par.d_size
+    return out.to(x.dtype), aux

@@ -32,6 +32,16 @@ decay LoRA gives its heads' columns (``w_lora_b``'s FSDP dim gathered
 first), the output norm's mean square is a ``psum`` of the shards' sums,
 and ``wo`` and ``cv`` are row-parallel. ``cr`` is gathered over the model
 axis (its gate multiplies the replicated channel-mix output).
+
+Under a sequence split (the "sp" and "msp" profiles) x holds this worker's
+rows. The token shift needs the row before them and the chunk recurrence
+the state at their start, so, as the reference's chunk scans do inside a
+shard, the time mix gathers the whole sequence over the model axis
+(``Par.gather_seq``), runs on it (``wkv6_chunk`` at its unsharded shapes;
+under "msp" on the shard's heads) and keeps its rows at the end
+(``Par.leave``: the heads' partial outputs scattered onto them, or under
+"sp" the rows taken). The channel mix gathers to shift too; its gate runs
+on the worker's rows.
 """
 from __future__ import annotations
 
@@ -106,18 +116,21 @@ def _mix(x, xs, mu):
 
 def time_mix(p: Params, x: torch.Tensor, cfg, x_prev: torch.Tensor,
              s0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Chunked WKV6. x: (B, S, D); S must be a multiple of the chunk
-    q = min(ssm_chunk, S). Returns (y, new state (B, H, 64, 64) f32, last x);
-    the state holds this model shard's heads (module doc).
+    """Chunked WKV6. x: (B, S, D) (under a sequence split this worker's
+    rows, and S the whole sequence's length); S must be a multiple of the
+    chunk q = min(ssm_chunk, S). Returns (y (the rows of x), new state (B,
+    H, 64, 64) f32, the sequence's last x); the state holds this model
+    shard's heads (module doc).
 
     The (B, S, H, 64) projections go to ``wkv6_chunk`` chunk by chunk as
     strided views (no transposed copies), and each chunk's y is written into
     one (B, S, H, 64) f32 buffer."""
+    par = parallel.current()
+    x = par.gather_seq(x)  # the whole sequence under a sequence split
     b, s, d = x.shape
     q = min(cfg.ssm_chunk, s)
     if s % q:
         raise ValueError(f"sequence length {s} is not a multiple of the chunk {q}")
-    par = parallel.current()
     r, k, v, g, logw, u, ln_x, lo = _projections(p, x, _token_shift(x, x_prev), cfg, par)
     h = r.shape[-1] // HEAD
 
@@ -137,7 +150,7 @@ def time_mix(p: Params, x: torch.Tensor, cfg, x_prev: torch.Tensor,
             _, state = wkv_ops.wkv6_chunk(r_c, k_c, v_c, lw_c, u, state,
                                           out=y[:, c:c + q].transpose(1, 2))
     y = y.reshape(b, s, h * HEAD).to(x.dtype)
-    return _out(p, y, g, ln_x, lo, cfg, par), state, x[:, -1, :]
+    return _out(p, y, g, ln_x, lo, cfg, par, whole=True), state, x[:, -1, :]
 
 
 def _projections(p: Params, x, xs, cfg, par):
@@ -145,13 +158,13 @@ def _projections(p: Params, x, xs, cfg, par):
     shift or the decode carry): r, k, v, g and the log decay
     -exp(w_base + tanh(x_w @ a) @ b) (the LoRA in f32) of its heads'
     columns [lo, lo + D_l), its heads' bonus and ``ln_x`` columns, and lo.
-    x and xs enter through ``spmd.copy``, the replicated leaves through
-    ``Par.cols``."""
+    x and xs (the whole sequence) enter through ``Par.copy_in``, the
+    replicated leaves through ``Par.cols``."""
     d = cfg.d_model
     nh = d // HEAD
-    h0, h1 = par.model_block(nh) if nh % par.m_size == 0 else (0, nh)
+    h0, h1 = par.model_block(nh) if nh % par.t_size == 0 else (0, nh)
     lo, hi = h0 * HEAD, h1 * HEAD
-    xc, xsc = spmd.copy(x, par.model), spmd.copy(xs, par.model)
+    xc, xsc = par.copy_in(x), par.copy_in(xs)
 
     def mix(mu):
         return _mix(xc, xsc, par.cols(p[mu], 0, d, 0, d))
@@ -171,23 +184,25 @@ def _projections(p: Params, x, xs, cfg, par):
             par.cols(p["ln_x"], 0, d, lo, hi), lo)
 
 
-def _out(p: Params, y, g, ln_x, lo, cfg, par):
+def _out(p: Params, y, g, ln_x, lo, cfg, par, whole: bool = False):
     """The time mix's output from a shard's heads y (..., D_l): the RMS norm
     over the full D (the mean square a ``psum`` of the shards' sums where
     the heads are split), the gate, then ``wo`` row-parallel (this shard's
-    rows of the model axis's block) and the ``psum``."""
+    rows of the model axis's block) and the ``psum`` (``Par.leave``;
+    ``whole``: y covers the whole sequence, and this worker's rows of the
+    output are kept)."""
     d = cfg.d_model
     yf = y.float()
     if yf.shape[-1] == d:
         var = torch.mean(yf * yf, dim=-1, keepdim=True)
     else:
-        ss = spmd.psum(torch.sum(yf * yf, dim=-1, keepdim=True), par.model)
-        var = spmd.copy(ss, par.model) / d
+        ss = spmd.psum(torch.sum(yf * yf, dim=-1, keepdim=True), par.tp)
+        var = spmd.copy(ss, par.tp) / d
     yn = (yf * torch.rsqrt(var + cfg.norm_eps) * ln_x.float()).to(y.dtype) * g
     r0, r1 = par.model_block(d)
     if (r0, r1) != (lo, lo + yn.shape[-1]):
         yn = yn[..., r0 - lo:r1 - lo]
-    return spmd.psum(yn @ par.cols(par.fsdp(p["wo"], 1, d), 0, d, r0, r1), par.model)
+    return par.leave(yn @ par.cols(par.fsdp(p["wo"], 1, d), 0, d, r0, r1), whole=whole)
 
 
 def time_mix_decode(p: Params, x: torch.Tensor, cfg, x_prev: torch.Tensor,
@@ -208,29 +223,48 @@ def time_mix_decode(p: Params, x: torch.Tensor, cfg, x_prev: torch.Tensor,
 
 def channel_mix(p: Params, x: torch.Tensor,
                 x_prev: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Finch channel mix (relu^2). x: (B, S, D); returns (out, last x)."""
-    return _channel_mix(p, x, _token_shift(x, x_prev)), x[:, -1, :]
+    """Finch channel mix (relu^2). x: (B, S, D) (under a sequence split
+    this worker's rows); returns (out, the sequence's last x). The shift
+    reads the whole sequence (gathered over the model axis under a
+    sequence split); under "msp" the hidden product runs on it with the
+    shard's columns and its output is scattered onto the rows, under "sp"
+    everything runs on the rows."""
+    par = parallel.current()
+    xg = par.gather_seq(x)
+    xs = _token_shift(xg, x_prev)
+    if par.seq is None:
+        return _channel_mix(p, x, xs), x[:, -1, :]
+    if par.tp is None:
+        return _channel_mix(p, x, par.rows(xs)), xg[:, -1, :]
+    return _channel_mix(p, x, par.rows(xs), xg, xs), xg[:, -1, :]
 
 
 def channel_mix_decode(p: Params, x: torch.Tensor, x_prev: torch.Tensor):
     return _channel_mix(p, x, x_prev.to(x.dtype)), x
 
 
-def _channel_mix(p: Params, x, xs):
+def _channel_mix(p: Params, x, xs, xg=None, xgs=None):
     """relu^2 of this model shard's ``ck`` columns times its ``cv`` rows,
     ``psum``-ed (the model axis divides the hidden width:
     ``parallel.check_mesh``); the gate sigmoid(xr @ cr) on the replicated
-    x, with ``cr`` gathered over the model axis."""
+    x, with ``cr`` gathered over the model axis. ``xg`` and ``xgs``: the
+    whole sequence and its shift, for the hidden product under "msp" (its
+    output then scattered onto x's rows, ``Par.leave``); the gate runs on
+    x's rows, ``cr`` then gathered with its gradient summed (each worker's
+    rows give a part)."""
     par = parallel.current()
     d = x.shape[-1]
-    f = p["ck"].shape[1] * par.m_size
+    f = p["ck"].shape[1] * par.t_size
     lo, hi = par.model_block(f)
-    xk = _mix(spmd.copy(x, par.model), spmd.copy(xs, par.model), par.cols(p["cmu_k"], 0, d, 0, d))
+    if xg is None:
+        xg, xgs = x, xs
+    xk = _mix(par.copy_in(xg), par.copy_in(xgs), par.cols(p["cmu_k"], 0, d, 0, d))
     hdn = torch.square(F.relu(xk @ par.cols(par.fsdp(p["ck"], 0, d), 1, f, lo, hi)))
-    cm = spmd.psum(hdn @ par.cols(par.fsdp(p["cv"], 1, d), 0, f, lo, hi), par.model)
+    cm = par.leave(hdn @ par.cols(par.fsdp(p["cv"], 1, d), 0, f, lo, hi))
     cr = par.fsdp(p["cr"], 0, d)
     if cr.shape[1] != d:
-        cr = spmd.gather_replicated(cr, 1, par.model)
+        gather = spmd.gather_replicated if par.seq is None else spmd.gather
+        cr = gather(cr, 1, par.tp)
     return torch.sigmoid(_mix(x, xs, p["cmu_r"]) @ cr) * cm
 
 

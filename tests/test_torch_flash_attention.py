@@ -90,6 +90,48 @@ def test_plain_attention_matches_jax_ref_with_offset(q_offset):
     _close(got, want)
 
 
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,dh,q_offset", [
+    (2, 6, 2, 16, 64, 16, 48),  # the last of 4 sequence shards
+    (1, 4, 4, 16, 64, 12, 16),  # the second of 4
+    (2, 4, 1, 30, 130, 32, 100),  # an offset off every tile
+    (1, 2, 2, 40, 40, 8, 0),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wrapper_with_offset_matches_reference_dense_attention(b, hq, hkv, sq, skv, dh, q_offset,
+                                                               dtype):
+    """A sequence shard's rows [q_offset, q_offset + Sq) against the whole
+    sequence's keys: on the CPU the wrapper's plain path against the JAX
+    package's ``layers._dense_attention(..., q_offset=)``, the computation
+    the reference's attention makes of the same rows of the global arrays
+    (f32 rtol 1e-5; bf16 5e-2, the module's tolerances)."""
+    from repro.models import layers as jlayers
+
+    q, k, v = _inputs(b, hq, hkv, sq, skv, dh, seed=q_offset + sq)
+    tq, tk, tv = (torch.from_numpy(a).to(dtype) for a in (q, k, v))
+    got = fa.flash_attention(tq, tk, tv, scale=dh**-0.5, causal=True, q_offset=q_offset)
+    assert got.shape == (b, hq, sq, dh) and got.dtype == dtype
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = jlayers._dense_attention(*(jnp.asarray(a, jdt) for a in (q, k, v)), scale=dh**-0.5,
+                                    causal=True, q_offset=q_offset)
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    _close(got.float(), np.asarray(want, np.float32), rtol=tol, atol_rel=tol)
+    if q_offset == 0 and sq == skv:  # no offset: the causal call it always was
+        _close(got.float(), fa.flash_attention(tq, tk, tv, scale=dh**-0.5).float(), 0, 0)
+
+
+@pytest.mark.parametrize("q_offset,exc", [
+    (-1, ValueError), (49, ValueError), (2.0, TypeError), (True, TypeError),
+])
+def test_wrapper_refuses_offsets_outside_the_keys(q_offset, exc):
+    """0 <= q_offset and q_offset + Sq <= Skv, an int: checked on the CPU as
+    on the card, before any launch (at offset 0 any Sq, top-left aligned)."""
+    q, k, v = map(torch.from_numpy, _inputs(1, 2, 1, 16, 64, 16))
+    with pytest.raises(exc, match="q_offset"):
+        fa.flash_attention(q, k, v, scale=1.0, q_offset=q_offset)
+    fa.flash_attention(q, k, v, scale=1.0, q_offset=48)  # the last rows fit
+    fa.flash_attention(k.repeat(1, 2, 1, 1), q, q, scale=1.0)  # Sq 64 > Skv 16 at offset 0
+
+
 def test_wrapper_reads_strided_head_major_views():
     """The head-major view of a (B, S, H * Dh) projection goes in as it is."""
     rng = np.random.default_rng(9)

@@ -666,22 +666,50 @@ def _attention_inputs(b, hq, hkv, sq, skv, dh, dtype, device, seed=0):
             for h, s in ((hq, sq), (hkv, skv), (hkv, skv))]
 
 
-def _flash_check(fa, q, k, v, causal, tol):
+def _flash_check(fa, q, k, v, causal, tol, q_offset=0):
     """One call against the plain version on the f32 upcast, each query row
     to its own max|plain|; identical bits on repeat; the route it took."""
     dh = q.shape[-1]
     before = kernels.route_launches()["flash_attention"]
-    got = fa.flash_attention(q, k, v, scale=dh**-0.5, causal=causal)
+    got = fa.flash_attention(q, k, v, scale=dh**-0.5, causal=causal, q_offset=q_offset)
     torch.cuda.synchronize()
     after = kernels.route_launches()["flash_attention"]
     routes = [r for r in after if after[r] != before[r]]
     assert len(routes) == 1 and after[routes[0]] == before[routes[0]] + 1, (before, after)
     assert got.shape == q.shape and got.dtype == q.dtype
-    want = fa.ref.attention(q.float(), k.float(), v.float(), scale=dh**-0.5, causal=causal)
+    want = fa.ref.attention(q.float(), k.float(), v.float(), scale=dh**-0.5, causal=causal,
+                            q_offset=q_offset)
     err = float(((got.float() - want).abs().amax(-1) / want.abs().amax(-1)).max())
     assert err <= tol, err
-    assert torch.equal(fa.flash_attention(q, k, v, scale=dh**-0.5, causal=causal), got)
+    assert torch.equal(fa.flash_attention(q, k, v, scale=dh**-0.5, causal=causal,
+                                          q_offset=q_offset), got)
     return routes[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,q_offset", [
+    (1, 12, 2, 512, 8192, 7680),  # the main shape's last of 16 sequence shards
+    (2, 12, 2, 1024, 2048, 1024),  # qwen2-1.5b's (2, 2) "sp" shard
+    (1, 4, 2, 300, 1300, 1000),  # ragged, the diagonal inside a tile
+    (1, 4, 4, 128, 1024, 64),  # half a 128-row tile off
+    (2, 6, 1, 129, 500, 371),
+    (1, 8, 8, 256, 256, 0),
+])
+@pytest.mark.parametrize("dh", [64, 80, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_with_query_offset(cuda, b, hq, hkv, sq, skv, q_offset, dh, dtype):
+    """A sequence shard's rows [q_offset, q_offset + Sq) against the whole
+    sequence's keys, causal: the kernel launched (bf16 Dh 64 and 128 on the
+    wgmma route, the rest on the generic one) against the plain version
+    with the same offset, each query row to its own max (f32 1e-4, bf16
+    1e-2), identical bits on repeat; offsets on and off the 128-row tiles,
+    GQA groups of 1 to 6."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _attention_inputs(b, hq, hkv, sq, skv, dh, dtype, cuda, seed=q_offset + dh)
+    route = _flash_check(fa, q, k, v, True, 1e-4 if dtype == torch.float32 else 1e-2,
+                         q_offset=q_offset)
+    assert route == ("wgmma" if dtype == torch.bfloat16 and dh in (64, 128) else "generic")
 
 
 @pytest.mark.gpu
@@ -1942,9 +1970,10 @@ def test_cuda_wkv6_chunk_on_a_shards_heads(cuda, h0, h1):
     assert float((st.double() - s64).abs().max() / s64.abs().max()) <= 2e-4
 
 
-def _sharded_prefill_worker(group, device, arch, toks):
+def _sharded_prefill_worker(group, device, arch, toks, profile="tp"):
     """A (1, 2) mesh (model 2) prefill of a smoke model on this worker's
-    blocks, on the card: its last logits and the kernels it launched."""
+    blocks under ``profile``'s rules, on the card: its last logits, the
+    kernels it launched and their routes."""
     from repro_torch.configs import get_config
     from repro_torch.launch import mesh as M
     from repro_torch.launch import params as P
@@ -1952,10 +1981,12 @@ def _sharded_prefill_worker(group, device, arch, toks):
 
     cfg = get_config(arch, smoke=True)
     mesh = M.make_mesh((1, 2), ("data", "model"), group)
-    params = P.init_local_params(cfg, 7, mesh, device=device)
-    with sharding.use_mesh(mesh), torch.no_grad(), kernels.Executed(device) as ran:
+    rules = sharding.rules_for(profile)
+    with sharding.use_mesh(mesh, rules):
+        params = P.init_local_params(cfg, 7, mesh, device=device)
+    with sharding.use_mesh(mesh, rules), torch.no_grad(), kernels.Executed(device) as ran:
         last, _ = steps.make_prefill_step(cfg)(params, {"tokens": toks.to(device)})
-    return last.cpu(), dict(ran.launches)
+    return last.cpu(), dict(ran.launches), {k: dict(v) for k, v in ran.routes.items()}
 
 
 @pytest.mark.gpu
@@ -1976,6 +2007,36 @@ def test_cuda_sharded_prefill_on_two_gloo_workers(cuda, arch):
         want = steps.make_prefill_step(cfg)(params, {"tokens": toks.to(cuda)})[0].cpu()
     outs = dfw.run_workers(2, _sharded_prefill_worker, arch, toks, device="cuda")
     kernel = "wkv6_chunk" if cfg.family == "ssm" else "flash_attention"
-    for got, launches in outs:
+    for got, launches, _ in outs:
         _close(got, want, atol_rel=1e-4)
         assert launches[kernel] >= cfg.num_layers, launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("profile", ["sp", "msp"])
+@pytest.mark.parametrize("arch", ["qwen2_1_5b", "rwkv6_7b", "zamba2_2_7b"])
+def test_cuda_sequence_parallel_prefill_on_two_gloo_workers(cuda, arch, profile):
+    """The same under the sequence-parallel profiles (each worker 32 of the
+    64 rows between the layers): the one-device prefill's last logits
+    (rtol 1e-4 of max); under "sp" the second worker's attention launches
+    the flash kernel at its rows' offset (no plain path on the card),
+    under "msp" every worker on the gathered sequence; RWKV-6's and
+    Mamba-2's scans on the gathered sequence."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dfw, steps
+    from repro_torch.models import lm
+
+    cfg = get_config(arch, smoke=True)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=torch.Generator().manual_seed(1))
+    params = lm.init_params(cfg, 7, device=cuda)
+    with torch.no_grad():
+        want = steps.make_prefill_step(cfg)(params, {"tokens": toks.to(cuda)})[0].cpu()
+    outs = dfw.run_workers(2, _sharded_prefill_worker, arch, toks, profile, device="cuda")
+    for got, launches, routes in outs:
+        _close(got, want, atol_rel=1e-4)
+        if cfg.family == "ssm":
+            assert launches["wkv6_chunk"] >= cfg.num_layers, launches
+        else:
+            layers = cfg.num_layers // (cfg.hybrid_block or 1)  # zamba2: the shared block's
+            assert launches["flash_attention"] == layers, launches
+            assert sum(routes["flash_attention"].values()) == layers, routes

@@ -454,8 +454,9 @@ def test_mesh_checkpoint_restores_elastically_both_ways(ref, port):
 def test_mesh_widths_of_the_new_families_are_checked_before_device_work():
     """The hybrid family's Mamba-2 heads, conv channels and fused projection
     must divide the model axis (the leaves' blocks are cut by it); vlm and
-    audio are checked as dense; a sequence-sharded profile is refused for
-    every family."""
+    audio are checked as dense; under a sequence-sharded profile a
+    multi-token sequence the model axis does not divide is refused for every
+    family (vlm: its vision rows and text together)."""
     zamba = _cfg("zamba2_2_7b")
     d_inner, nh, _, n = mamba2.dims(zamba)
     assert (nh, d_inner + 2 * n, 2 * d_inner + 2 * n + nh) == (8, 160, 296)
@@ -467,7 +468,16 @@ def test_mesh_widths_of_the_new_families_are_checked_before_device_work():
         with sharding.use_mesh(odd):
             with pytest.raises(NotYetPorted, match="not divisible by the model axis"):
                 lm.forward(lm.init_params(cfg, device="meta"), batch, cfg)
-    with sharding.use_mesh(pmesh.make_mesh((2, 2), ("data", "model")), sharding.rules_for("msp")):
-        with pytest.raises(NotYetPorted, match="seq_act"):
-            lm.forward(lm.init_params(zamba, device="meta"),
-                       {"tokens": torch.zeros((4, 8), dtype=torch.int64)}, zamba)
+    for profile in ("sp", "msp"):
+        with sharding.use_mesh(pmesh.make_mesh((1, 4), ("data", "model")),
+                               sharding.rules_for(profile)):
+            for arch in ARCHS:
+                cfg = _cfg(arch)
+                batch = ({"frames": torch.zeros((4, 10, cfg.frontend_dim))}
+                         if cfg.family == "audio" else
+                         {"tokens": torch.zeros((4, 10), dtype=torch.int64)})
+                if cfg.family == "vlm":  # 16 vision rows + 10 tokens: 26 positions
+                    batch["vision_embeds"] = torch.zeros((4, cfg.vision_tokens, cfg.d_model))
+                n = 10 + (cfg.vision_tokens if cfg.family == "vlm" else 0)
+                with pytest.raises(NotYetPorted, match=f"{n} positions .* 'seq_act'"):
+                    lm.forward(lm.init_params(cfg, device="meta"), batch, cfg)

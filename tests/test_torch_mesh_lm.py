@@ -244,15 +244,17 @@ def test_unported_mesh_paths_raise_before_device_work():
     layout = pmesh.make_mesh((2, 2), ("data", "model"))
     zamba = get_config("zamba2_2_7b", smoke=True)
     params = lm.init_params(zamba, device="meta")
-    with sharding.use_mesh(layout, sharding.rules_for("msp")):  # the hybrid family runs
-        with pytest.raises(NotYetPorted, match="seq_act"):  # under a mesh, not sequence-sharded
-            lm.forward(params, {"tokens": torch.zeros((4, 8), dtype=torch.int64)}, zamba)
+    # the sequence-parallel profiles run; a multi-token sequence that the
+    # "seq_act" (model) axis does not divide does not
+    with sharding.use_mesh(layout, sharding.rules_for("msp")):
+        with pytest.raises(NotYetPorted, match="9 positions .* 'seq_act'"):
+            lm.forward(params, {"tokens": torch.zeros((4, 9), dtype=torch.int64)}, zamba)
     qwen = get_config("qwen2_1_5b", smoke=True)
     with sharding.use_mesh(layout, sharding.rules_for("sp")):
-        with pytest.raises(NotYetPorted, match="seq_act"):
+        with pytest.raises(NotYetPorted, match="9 positions .* 'seq_act'"):
             lm.loss_fn(lm.init_params(qwen, device="meta"),
-                       {"tokens": torch.zeros((4, 8), dtype=torch.int64),
-                        "labels": torch.zeros((4, 8), dtype=torch.int64)}, qwen)
+                       {"tokens": torch.zeros((4, 9), dtype=torch.int64),
+                        "labels": torch.zeros((4, 9), dtype=torch.int64)}, qwen)
     with pytest.raises(NotYetPorted, match="dryrun"):
         multihost.main(["--device", "cpu", "dryrun"])
     with pytest.raises(ValueError, match="needs 4 workers"):

@@ -9,7 +9,9 @@ and logits specs of every applicable shape, and the ``tp``/``sp``/``msp``
 rule sets. The port resolves the same on layouts without processes (meta
 tensors for the parameters). Specs compare exactly. The port keeps layers
 as a list, so a layer leaf's spec is the reference's without its leading
-(stacked-layer) None.
+(stacked-layer) None. The parameter, batch, logits and cache specs are
+compared under each profile: ``tp`` (the default rules) and the
+sequence-parallel ``sp`` and ``msp`` (``use_mesh(mesh, rules_for(p))``).
 """
 import json
 import os
@@ -65,24 +67,27 @@ for name, (shape, axes) in layouts.items():
             ("heads", "seq_act"), ("batch", "fsdp"), ("batch_tp", "heads"), ("seq", "batch"))]
         with sharding.use_mesh(mesh, sharding.rules_for("msp")):
             out[name + "|resolve_msp"] = enc(sharding.pspec("batch", "heads", "seq_act", None))
-        for (a, smoke), ap in abstract.items():
-            cfg = get_config(a, smoke=smoke)
-            flat = jax.tree_util.tree_flatten_with_path(
-                param_pspecs(ap), is_leaf=lambda x: isinstance(x, P))[0]
-            rec = {"params": {"/".join(str(getattr(k, "key", k)) for k in path): enc(s)
-                              for path, s in flat}}
-            if smoke:
-                shapes = {}
-                for sname, shp in applicable_shapes(cfg).items():
-                    shp = type(shp)(shp.name, shp.kind, 64, shp.global_batch)
-                    r = {"batch": {k: enc(v) for k, v in steps.batch_pspecs(cfg, shp).items()},
-                         "logits": enc(steps.logits_pspec(cfg, shp)),
-                         "logits_full": enc(steps.logits_pspec(cfg, shp, full_seq=True))}
-                    if not cfg.encoder_only:
-                        r["cache"] = {k: enc(v) for k, v in steps.cache_pspecs(cfg, shp).items()}
-                    shapes[sname] = r
-                rec["shapes"] = shapes
-            out[f"{name}|{a}|{smoke}"] = rec
+    for profile in ("tp", "sp", "msp"):
+        key = name if profile == "tp" else f"{name}|{profile}"
+        with sharding.use_mesh(mesh, sharding.rules_for(profile)):
+            for (a, smoke), ap in abstract.items():
+                cfg = get_config(a, smoke=smoke)
+                flat = jax.tree_util.tree_flatten_with_path(
+                    param_pspecs(ap), is_leaf=lambda x: isinstance(x, P))[0]
+                rec = {"params": {"/".join(str(getattr(k, "key", k)) for k in path): enc(s)
+                                  for path, s in flat}}
+                if smoke:
+                    shapes = {}
+                    for sname, shp in applicable_shapes(cfg).items():
+                        shp = type(shp)(shp.name, shp.kind, 64, shp.global_batch)
+                        r = {"batch": {k: enc(v) for k, v in steps.batch_pspecs(cfg, shp).items()},
+                             "logits": enc(steps.logits_pspec(cfg, shp)),
+                             "logits_full": enc(steps.logits_pspec(cfg, shp, full_seq=True))}
+                        if not cfg.encoder_only:
+                            r["cache"] = {k: enc(v) for k, v in steps.cache_pspecs(cfg, shp).items()}
+                        shapes[sname] = r
+                    rec["shapes"] = shapes
+                out[f"{key}|{a}|{smoke}"] = rec
 json.dump(out, open(sys.argv[1], "w"))
 print("OK")
 """
@@ -125,11 +130,37 @@ def _flat_port(tree, prefix=""):
 @pytest.mark.parametrize("smoke", [True, False])
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_param_specs_match_reference(ref, arch, smoke, layout):
+    _hold_param_specs(ref, arch, smoke, layout, "tp")
+
+
+@pytest.mark.parametrize("profile", ("sp", "msp"))
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("smoke", [True, False])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_param_specs_match_reference_under_sequence_profiles(ref, arch, smoke, layout, profile):
+    """Under "sp" the attention and MLP weights lose their model split and
+    gain it on the FSDP dim; "msp" keeps "tp"'s."""
+    _hold_param_specs(ref, arch, smoke, layout, profile)
+    if profile == "sp" and layout == "2x4":
+        cfg = get_config(arch, smoke=smoke)
+        with sharding.use_mesh(pmesh.make_mesh(*LAYOUTS[layout]), sharding.rules_for("sp")):
+            specs = lm.param_specs(cfg)
+        if cfg.family != "ssm":
+            wq = specs["layers"][0]["attn"]["wq"] if "attn" in specs["layers"][0] else \
+                specs["shared"]["attn"]["wq"]
+            assert wq == (("data", "model"), None)
+
+
+def _key(layout, profile):
+    return layout if profile == "tp" else f"{layout}|{profile}"
+
+
+def _hold_param_specs(ref, arch, smoke, layout, profile):
     shape, axes = LAYOUTS[layout]
     cfg = get_config(arch, smoke=smoke)
-    with sharding.use_mesh(pmesh.make_mesh(shape, axes)):
+    with sharding.use_mesh(pmesh.make_mesh(shape, axes), sharding.rules_for(profile)):
         got = _flat_port(lm.param_specs(cfg))
-    want = ref[f"{layout}|{arch}|{smoke}"]["params"]
+    want = ref[f"{_key(layout, profile)}|{arch}|{smoke}"]["params"]
     assert set(got) == set(want)
     for path, spec in got.items():
         w = want[path]
@@ -141,11 +172,24 @@ def test_param_specs_match_reference(ref, arch, smoke, layout):
 @pytest.mark.parametrize("layout", list(LAYOUTS))
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_step_specs_match_reference(ref, arch, layout):
+    _hold_step_specs(ref, arch, layout, "tp")
+
+
+@pytest.mark.parametrize("profile", ("sp", "msp"))
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_step_specs_match_reference_under_sequence_profiles(ref, arch, layout, profile):
+    """Batch, logits and cache specs under "sp" and "msp" (the kv cache
+    whole over the model axis under "sp", where "kv_heads" maps to none)."""
+    _hold_step_specs(ref, arch, layout, profile)
+
+
+def _hold_step_specs(ref, arch, layout, profile):
     shape, axes = LAYOUTS[layout]
     cfg = get_config(arch, smoke=True)
-    want = ref[f"{layout}|{arch}|True"]["shapes"]
+    want = ref[f"{_key(layout, profile)}|{arch}|True"]["shapes"]
     assert set(want) == set(applicable_shapes(cfg))
-    with sharding.use_mesh(pmesh.make_mesh(shape, axes)):
+    with sharding.use_mesh(pmesh.make_mesh(shape, axes), sharding.rules_for(profile)):
         for sname, shp in applicable_shapes(cfg).items():
             shp = type(shp)(shp.name, shp.kind, 64, shp.global_batch)
             w = want[sname]
